@@ -1,0 +1,5 @@
+from .config import (HeadConfig, ModelConfig, build_model_config,
+                     gather_deg, load_config, update_config)
+
+__all__ = ["HeadConfig", "ModelConfig", "build_model_config", "gather_deg",
+           "load_config", "update_config"]

@@ -1,0 +1,93 @@
+// pna_edge_aggregate: the Hopper kernel that replaces
+// hydragnn_tpu/kernels/fused_mp_pallas.py::fused_pna_edge_aggregate
+// (its accumulator part, _fused_pna_accums).
+//
+// Over the kept edges e into node n, with h_e = proj_i[n] + proj_j[send[e]]:
+//   s = sum h_e, sq = sum h_e^2 (float32, in edge order), cnt = #edges,
+//   mn / mx = min / max of h_e (0 on a node with no kept edge).
+// The mean/std epilogue stays outside the kernel, in the shared
+// ops/segment.pna_stats_epilogue, as on the TPU.
+//
+// Layout. The wrapper (hydragnn_tpu_torch/kernels/fused_mp.py) drops masked
+// and out-of-range edges, stable-sorts the rest by receiver and hands in
+// row_ptr [N + 1] and the senders in that order, as _masked_ids prepared
+// the ids for the TPU kernel. A stable sort keeps each node's edges in
+// their original order, so sums are the same on every run.
+//
+// Bound. Device-memory bytes: proj_i once, one proj_j row per kept edge,
+// the sorted senders and row_ptr, and the outputs (four [N, F] float32
+// arrays and cnt). proj_j fits in the 50 MB L2 at the csce shape.
+//
+// Design. The TPU kernel gathered with one-hot MXU matmuls and reduced
+// min/max with chunked masked broadcasts over (edge tile x node block)
+// grid steps. Here one thread owns VEC features of one receiver and walks
+// its CSR edge range, keeping all four accumulators in registers: one
+// pass, no atomics, no [E, F] tensor.
+#include "rows.cuh"
+
+template <int VEC>
+__global__ void pna_edge_kernel(const float* __restrict__ proj_i,
+                                const float* __restrict__ proj_j,
+                                const int32_t* __restrict__ send_sorted,
+                                const int32_t* __restrict__ row_ptr, int n,
+                                int f, float* __restrict__ s_out,
+                                float* __restrict__ sq_out,
+                                float* __restrict__ cnt_out,
+                                float* __restrict__ mn_out,
+                                float* __restrict__ mx_out) {
+  const int fv = f / VEC;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)n * fv) return;
+  const int row = (int)(t / fv);
+  const int c = (int)(t % fv) * VEC;
+  const int beg = row_ptr[row];
+  const int end = row_ptr[row + 1];
+  const Vec<VEC> pi = load_vec<VEC>(proj_i + (long long)row * f + c);
+  Vec<VEC> s = fill_vec<VEC>(0.f), sq = fill_vec<VEC>(0.f);
+  Vec<VEC> lo = fill_vec<VEC>(FLT_MAX), hi = fill_vec<VEC>(-FLT_MAX);
+  // unrolled so that several gathers are in flight before their adds
+#pragma unroll 4
+  for (int e = beg; e < end; ++e) {
+    const int j = send_sorted[e];
+    const Vec<VEC> pj = load_vec<VEC>(proj_j + (long long)j * f + c);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float h = __fadd_rn(pi.v[i], pj.v[i]);
+      s.v[i] = __fadd_rn(s.v[i], h);
+      sq.v[i] = __fadd_rn(sq.v[i], __fmul_rn(h, h));
+      lo.v[i] = fminf(lo.v[i], h);
+      hi.v[i] = fmaxf(hi.v[i], h);
+    }
+  }
+  const bool has = end > beg;
+  if (!has) {
+    lo = fill_vec<VEC>(0.f);
+    hi = fill_vec<VEC>(0.f);
+  }
+  const long long o = (long long)row * f + c;
+  store_vec<VEC>(s_out + o, s);
+  store_vec<VEC>(sq_out + o, sq);
+  store_vec<VEC>(mn_out + o, lo);
+  store_vec<VEC>(mx_out + o, hi);
+  if (c == 0) cnt_out[row] = (float)(end - beg);
+}
+
+extern "C" int hg_pna_edge_aggregate_f32(const float* proj_i,
+                                         const float* proj_j,
+                                         const int32_t* send_sorted,
+                                         const int32_t* row_ptr, int n, int f,
+                                         int vec, float* s, float* sq,
+                                         float* cnt, float* mn, float* mx,
+                                         void* stream) {
+  if (n == 0 || f == 0) return (int)cudaSuccess;
+  const unsigned blocks = row_blocks(n, f, vec);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    pna_edge_kernel<4><<<blocks, kRowThreads, 0, st>>>(
+        proj_i, proj_j, send_sorted, row_ptr, n, f, s, sq, cnt, mn, mx);
+  } else {
+    pna_edge_kernel<1><<<blocks, kRowThreads, 0, st>>>(
+        proj_i, proj_j, send_sorted, row_ptr, n, f, s, sq, cnt, mn, mx);
+  }
+  return (int)cudaGetLastError();
+}

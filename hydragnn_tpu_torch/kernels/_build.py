@@ -1,0 +1,111 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Every `hydragnn_tpu_torch/csrc/*.cu` source becomes one shared library with
+a plain C interface, compiled for Hopper (`sm_90a`) by one `nvcc` process
+per source, all started together. Libraries land in
+`build/hydragnn_tpu_torch/<hash>/` at the checkout's root, keyed by a hash
+of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads from disk. A missing `nvcc` or a failed compile raises
+with the compiler's output. Importing this module builds nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+_PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = _PKG_DIR / "csrc"
+BUILD_ROOT = _PKG_DIR.parent / "build" / "hydragnn_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# compiler output per source from this process's build (ptxas register and
+# shared-memory report); empty when the libraries were loaded from disk
+build_log: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME:
+        path = os.path.join(CUDA_HOME, "bin", "nvcc")
+        if os.path.exists(path):
+            return path
+    raise RuntimeError(
+        "hydragnn_tpu_torch: nvcc not found (CUDA_HOME="
+        f"{CUDA_HOME!r}) — the CUDA kernels are built from "
+        "hydragnn_tpu_torch/csrc at first use and need the CUDA toolkit")
+
+
+def _source_digest() -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Compile (if needed) and load every kernel library; returns
+    {source stem: CDLL}. Thread-safe; builds at most once per process."""
+    with _lock:
+        if _libs:
+            return _libs
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        out_dir = BUILD_ROOT / _source_digest()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        todo = [s for s in sources
+                if not (out_dir / f"lib{s.stem}.so").exists()]
+        if todo:
+            _compile(todo, out_dir)
+        for src in sources:
+            _libs[src.stem] = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))
+        return _libs
+
+
+def _compile(sources, out_dir: Path) -> None:
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for src in sources:
+            tmp = out_dir / f"lib{src.stem}.so.tmp{os.getpid()}"
+            procs[src.stem] = (subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                tmp)
+        failed = []
+        for stem, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            build_log[stem] = out
+            if proc.returncode != 0:
+                failed.append(f"--- {stem}.cu (exit {proc.returncode})\n{out}")
+            else:
+                os.replace(tmp, out_dir / f"lib{stem}.so")
+        if failed:
+            raise RuntimeError("hydragnn_tpu_torch: nvcc failed:\n"
+                               + "\n".join(failed))
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<stem>.cu`."""
+    return build_all()[stem]
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a kernel's C entry point
+    (it returns cudaGetLastError() right after its launch)."""
+    if err != 0:
+        raise RuntimeError(f"hydragnn_tpu_torch: {name} kernel launch "
+                           f"failed with cudaError_t {err}")

@@ -1,0 +1,81 @@
+"""Shared building-block layers (counterpart: hydragnn_tpu/models/layers.py).
+
+Submodules keep the Flax names (`dense_{i}`, `MLP_0`, `scale`/`bias`,
+running `mean`/`var`) so weights carry across from the JAX package
+mechanically (utils/weights.py)."""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+
+class MLP(nn.Module):
+    """Dense layers with the activation between them (and after the last
+    with `activate_final`)."""
+
+    def __init__(self, in_dim: int, features: Sequence[int],
+                 activation: Callable = F.relu, activate_final: bool = False,
+                 use_bias: bool = True):
+        super().__init__()
+        self.features = list(features)
+        self.activation = activation
+        self.activate_final = activate_final
+        d = in_dim
+        for i, f in enumerate(self.features):
+            setattr(self, f"dense_{i}", nn.Linear(d, f, bias=use_bias))
+            d = f
+        self.out_dim = d
+
+    def forward(self, x):
+        n = len(self.features)
+        for i in range(n):
+            x = getattr(self, f"dense_{i}")(x)
+            if i < n - 1 or self.activate_final:
+                x = self.activation(x)
+        return x
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over real (masked) nodes, here in its eval form: the
+    running statistics normalize every row,
+    y = (x - mean) * rsqrt(var + eps) * scale + bias. Batch statistics
+    (training) come with the training slice."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x, mask):
+        if self.training:
+            raise NotImplementedError(
+                "MaskedBatchNorm: batch statistics (training mode) arrive "
+                "with the training slice; call model.eval() to serve")
+        y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
+        return y * self.scale + self.bias
+
+
+class MLPNode(nn.Module):
+    """Node-level decoder head: one MLP shared by all nodes ("mlp"). The
+    per-node weight banks ("mlp_per_node") come with ROADMAP item A4's
+    remaining node heads."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int],
+                 output_dim: int, node_type: str = "mlp",
+                 activation: Callable = F.relu):
+        super().__init__()
+        if node_type != "mlp":
+            raise NotImplementedError(
+                f"node head type {node_type!r} is not ported yet (ROADMAP "
+                "A4: mlp_per_node and conv node heads)")
+        self.MLP_0 = MLP(in_dim, list(hidden_dims) + [output_dim],
+                         activation=activation)
+
+    def forward(self, x):
+        return self.MLP_0(x)

@@ -1,0 +1,161 @@
+"""Masked segment ops (counterpart: hydragnn_tpu/ops/segment.py).
+
+Padding is handled by masks, never by dynamic shapes. Reduced-precision
+segment sums accumulate in float32 and store back in the data's dtype
+(`_accum_f32`). Every 2-D floating segment sum goes through
+`kernels.segment.segment_sum`: the hand-written kernel for tensors on the
+card, its plain version for tensors on the CPU.
+
+Two "empty segment" conventions coexist, as in the JAX package: the
+unfused `segment_min`/`segment_max` fill masked entries with +-1e30 and
+clamp empty segments to 0; the fused kernels and `neighbor_aggregate`
+clamp through the dtype's finite maximum. Both give 0 on an empty row.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import segment as _seg_kernel
+
+
+def _accum_f32(data):
+    """(float32 data, dtype to cast the result back to or None)."""
+    if data.dtype in (torch.bfloat16, torch.float16):
+        return data.float(), data.dtype
+    return data, None
+
+
+def _bcast(mask, data):
+    """Broadcast a [K] mask against [K, ...] data."""
+    return mask.view(tuple(mask.shape) + (1,) * (data.dim() - mask.dim()))
+
+
+def segment_sum(data, segment_ids, num_segments, mask=None,
+                indices_are_sorted=False):
+    """Masked segment sum; ids outside [0, num_segments) add nothing.
+    `indices_are_sorted` promises nondecreasing ids (the pooling case:
+    collate lays graphs out in order)."""
+    if mask is not None:
+        data = torch.where(_bcast(mask, data), data, torch.zeros_like(data))
+    data, store_dtype = _accum_f32(data)
+    if data.dim() == 2 and data.is_floating_point():
+        out = _seg_kernel.segment_sum(data, segment_ids, num_segments,
+                                      indices_are_sorted)
+    else:
+        out = _seg_kernel.segment_sum_plain(data, segment_ids, num_segments)
+    return out if store_dtype is None else out.to(store_dtype)
+
+
+def segment_count(segment_ids, num_segments, mask=None):
+    ones = torch.ones(segment_ids.shape[0], dtype=torch.float32,
+                      device=segment_ids.device)
+    if mask is not None:
+        ones = torch.where(mask, ones, torch.zeros_like(ones))
+    return _seg_kernel.segment_sum_plain(ones, segment_ids, num_segments)
+
+
+def segment_mean(data, segment_ids, num_segments, mask=None,
+                 indices_are_sorted=False):
+    total = segment_sum(data, segment_ids, num_segments, mask,
+                        indices_are_sorted=indices_are_sorted)
+    count = segment_count(segment_ids, num_segments, mask)
+    count = torch.clamp(count, min=1.0)
+    return total / count.view(tuple(count.shape) + (1,) * (total.dim() - 1))
+
+
+def _segment_extreme(data, segment_ids, num_segments, mask, neutral, reduce):
+    ids = segment_ids.long()
+    valid = (ids >= 0) & (ids < num_segments)
+    if mask is not None:
+        valid = valid & mask
+    fill = torch.full_like(data, neutral)
+    data = torch.where(_bcast(valid, data), data, fill)
+    ids = torch.where(valid, ids, torch.zeros_like(ids))
+    out = torch.full((num_segments,) + tuple(data.shape[1:]), neutral,
+                     dtype=data.dtype, device=data.device)
+    index = _bcast(ids, data).expand_as(data)
+    return out.scatter_reduce(0, index, data, reduce=reduce, include_self=True)
+
+
+def segment_max(data, segment_ids, num_segments, mask=None, neutral=-1e30):
+    out = _segment_extreme(data, segment_ids, num_segments, mask, neutral,
+                           "amax")
+    # segments with no real entries produce `neutral`; clamp to 0
+    return torch.where(out <= neutral, torch.zeros_like(out), out)
+
+
+def segment_min(data, segment_ids, num_segments, mask=None, neutral=1e30):
+    out = _segment_extreme(data, segment_ids, num_segments, mask, neutral,
+                           "amin")
+    return torch.where(out >= neutral, torch.zeros_like(out), out)
+
+
+def pna_stats_epilogue(s, sq, cnt, mn, mx, eps=1e-5):
+    """(mean, min, max, std, degree) from the additive accumulators and
+    extrema — the epilogue shared by `pna_aggregate` and the fused edge
+    kernel (kernels/fused_mp.py), as on the TPU."""
+    cnt_safe = torch.clamp(cnt, min=1.0)
+    mean = s / cnt_safe
+    var = torch.clamp(sq / cnt_safe - mean * mean, min=0.0)
+    std = torch.sqrt(var + eps)
+    return mean, mn, mx, std, cnt[..., 0]
+
+
+def pna_accumulators(data, segment_ids, num_segments, mask=None,
+                     sum_fn=segment_sum):
+    """(sum, sum of squares, count, min, max) of `data` per segment: the
+    additive statistics ride one segment sum over the [E, 2F + 1]
+    concatenation. `sum_fn` is the segment sum to use."""
+    f = data.shape[-1]
+    ones = torch.ones(tuple(data.shape[:-1]) + (1,), dtype=data.dtype,
+                      device=data.device)
+    packed = torch.cat([data, data * data, ones], dim=-1)
+    if mask is not None:
+        packed = torch.where(_bcast(mask, packed), packed,
+                             torch.zeros_like(packed))
+    packed_sum = sum_fn(packed, segment_ids, num_segments)
+    s, sq, cnt = (packed_sum[..., :f], packed_sum[..., f:2 * f],
+                  packed_sum[..., 2 * f:])
+    mn = segment_min(data, segment_ids, num_segments, mask)
+    mx = segment_max(data, segment_ids, num_segments, mask)
+    return s, sq, cnt, mn, mx
+
+
+def pna_aggregate(data, segment_ids, num_segments, mask=None, eps=1e-5):
+    """PNA aggregation over an edge list -> (mean, min, max, std, degree)."""
+    return pna_stats_epilogue(
+        *pna_accumulators(data, segment_ids, num_segments, mask), eps)
+
+
+def neighbor_aggregate(h, nbr_mask, eps=1e-5):
+    """PNA statistics over the dense neighbor layout: h is [N, K, F]
+    per-slot messages, nbr_mask [N, K]. Returns (mean, min, max, std,
+    degree)."""
+    m = nbr_mask[:, :, None]
+    cnt = torch.sum(nbr_mask.to(h.dtype), dim=1)
+    cnt_safe = torch.clamp(cnt, min=1.0)[:, None]
+    hm = torch.where(m, h, torch.zeros_like(h))
+    s = torch.sum(hm, dim=1)
+    sq = torch.sum(hm * hm, dim=1)
+    mean = s / cnt_safe
+    var = torch.clamp(sq / cnt_safe - mean * mean, min=0.0)
+    std = torch.sqrt(var + eps)
+    big = torch.finfo(h.dtype).max
+    has = cnt[:, None] > 0
+    mn = torch.amin(torch.where(m, h, torch.full_like(h, big)), dim=1)
+    mn = torch.where(has, mn, torch.zeros_like(mn))
+    mx = torch.amax(torch.where(m, h, torch.full_like(h, -big)), dim=1)
+    mx = torch.where(has, mx, torch.zeros_like(mx))
+    return mean, mn, mx, std, cnt
+
+
+def global_mean_pool(node_feats, node_graph, num_graphs, node_mask):
+    """Masked graph-level mean pooling; `node_graph` is nondecreasing by
+    construction (collate lays graphs out in order, padding nodes last)."""
+    return segment_mean(node_feats, node_graph, num_graphs, node_mask,
+                        indices_are_sorted=True)
+
+
+def degree(receivers, num_nodes, edge_mask=None):
+    """In-degree per node (float32)."""
+    return segment_count(receivers, num_nodes, edge_mask)

@@ -1,0 +1,140 @@
+"""Top-level inference entry point (counterpart:
+hydragnn_tpu/run_prediction.py).
+
+`run_prediction(config, datasets, variables)` completes the config from
+the data, builds the model on the device (the card unless the caller
+passes device="cpu"), loads the Flax variable tree given as nested numpy
+dicts (utils/weights.py) and predicts the test split — through the
+batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
+block / HYDRAGNN_SERVE), else with a plain loop over `batch_size`
+batches padded to one shape. Returns (trues, preds), one array per head,
+over real graphs (graph heads) or real nodes (node heads).
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .config import build_model_config, load_config, update_config
+from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
+    with_neighbor_format
+from .models.create import create_model
+from .postprocess.postprocess import output_denormalize
+from .serving.config import resolve_serving
+from .serving.engine import InferenceEngine
+from .utils.devices import resolve_device
+from .utils.envflags import env_flag
+from .utils.weights import load_jax_variables
+
+
+def run_prediction(config_or_path, datasets: Sequence, variables,
+                   serve: Optional[bool] = None, device="cuda"):
+    config = load_config(config_or_path)
+    dev = resolve_device(device)
+    trainset, valset, testset = (list(d) for d in datasets)
+    config = update_config(config, trainset, valset, testset)
+    mcfg = build_model_config(config)
+    model = create_model(mcfg, device=dev)
+    model.load_state_dict(load_jax_variables(variables))
+
+    batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    arch = config["NeuralNetwork"]["Architecture"]
+    nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
+                       bool(arch.get("neighbor_format", True)))
+    all_samples = trainset + valset + testset
+    # one K for every split, as the JAX loaders share one program
+    neighbor_k = neighbor_budget_for_dataset(all_samples) if nbr_fmt else None
+
+    serving = resolve_serving(config)
+    use_engine = serving.enabled if serve is None else bool(serve)
+    if use_engine:
+        trues, preds = _predict_with_engine(model, mcfg, testset, serving,
+                                            neighbor_k, dev)
+    else:
+        trues, preds = _predict_with_loader(model, mcfg, testset,
+                                            all_samples, batch_size,
+                                            neighbor_k, dev)
+    voi = config["NeuralNetwork"]["Variables_of_interest"]
+    if voi.get("denormalize_output") and "y_minmax" in voi:
+        trues, preds = output_denormalize(voi["y_minmax"], trues, preds)
+    return trues, preds
+
+
+def _sample_targets(mcfg, sample):
+    """Per-head targets of one sample (graph head: [1, D]; node head:
+    [num_nodes, D])."""
+    targets = []
+    for head in mcfg.heads:
+        y = sample.y_graph if head.head_type == "graph" else sample.y_node
+        end = head.offset + head.output_dim
+        have = 0 if y is None else y.shape[-1]
+        if have < end:
+            raise ValueError(
+                f"{head.head_type} head needs packed label columns "
+                f"[{head.offset}:{end}) but the sample carries {have}")
+        if head.head_type == "graph":
+            targets.append(np.asarray(y[head.offset:end], np.float32)[None])
+        else:
+            targets.append(np.asarray(y[:, head.offset:end], np.float32))
+    return targets
+
+
+def _predict_with_loader(model, mcfg, testset, all_samples, batch_size,
+                         neighbor_k, device):
+    """One padded forward per `batch_size` test samples, every batch on
+    the shape the JAX loaders use: nodes and edges for `batch_size`
+    largest graphs, rounded by BucketSpec(64)."""
+    bucket = BucketSpec(multiple=64)
+    n_node = bucket.bucket(max(s.num_nodes for s in all_samples)
+                           * batch_size + 1)
+    n_edge = bucket.bucket(max(s.num_edges for s in all_samples)
+                           * batch_size + 1)
+    trues = [[] for _ in mcfg.heads]
+    preds = [[] for _ in mcfg.heads]
+    for i in range(0, len(testset), batch_size):
+        chunk = testset[i:i + batch_size]
+        batch = collate(chunk, n_node=n_node, n_edge=n_edge,
+                        n_graph=batch_size + 1)
+        if neighbor_k is not None:
+            batch = with_neighbor_format(batch, k=neighbor_k)
+        with torch.inference_mode():
+            outputs, _ = model(batch.to(device))
+        gm = batch.graph_mask.numpy()
+        nm = batch.node_mask.numpy()
+        for ih, head in enumerate(mcfg.heads):
+            out = outputs[ih].cpu().numpy()
+            preds[ih].append(out[gm if head.head_type == "graph" else nm])
+        for s in chunk:
+            for ih, t in enumerate(_sample_targets(mcfg, s)):
+                trues[ih].append(t)
+    return ([np.concatenate(t) for t in trues],
+            [np.concatenate(p) for p in preds])
+
+
+def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device):
+    """Every test sample becomes one serving request; the dispatcher
+    coalesces them into bucketed padded batches."""
+    engine = InferenceEngine(
+        model, mcfg, reference_samples=testset,
+        max_batch_size=serving.max_batch_size,
+        max_wait_ms=serving.max_wait_ms, num_buckets=serving.num_buckets,
+        bucket_multiple=serving.bucket_multiple,
+        neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
+        device=device)
+    try:
+        engine.warmup()
+        results = engine.predict(testset)
+    finally:
+        engine.shutdown()
+    trues = [[] for _ in mcfg.heads]
+    preds = [[] for _ in mcfg.heads]
+    for sample, res in zip(testset, results):
+        for ih, (head, t) in enumerate(zip(mcfg.heads,
+                                           _sample_targets(mcfg, sample))):
+            trues[ih].append(t)
+            preds[ih].append(res[ih][None, :]
+                             if head.head_type == "graph" else res[ih])
+    return ([np.concatenate(t) for t in trues],
+            [np.concatenate(p) for p in preds])

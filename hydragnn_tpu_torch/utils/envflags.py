@@ -1,0 +1,68 @@
+"""Uniform parsing for the HYDRAGNN_* env-flag layer — the subset the
+port reads (counterpart: hydragnn_tpu/utils/envflags.py, whose parsing
+rules this copy keeps: strict helpers warn on a typo and fall back to the
+default instead of taking effect)."""
+from __future__ import annotations
+
+import logging
+import os
+
+_FALSY = ("", "0", "false", "no", "off")
+_TRUTHY_STRICT = ("1", "true", "on")
+
+_log = logging.getLogger("hydragnn_tpu_torch")
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    """Boolean env flag: unset -> default; '0'/'false'/'no'/'off' (any
+    case) -> False; anything else -> True."""
+    val = os.getenv(name)
+    if val is None:
+        return default
+    return val.strip().lower() not in _FALSY
+
+
+def env_str(name: str, default=None):
+    """String env knob: unset or whitespace-only -> `default`, otherwise
+    the stripped value."""
+    val = os.getenv(name)
+    if val is None:
+        return default
+    val = val.strip()
+    return val if val else default
+
+
+def env_strict_flag(name: str, default: bool = False) -> bool:
+    """Only '1'/'true'/'on' enable and '0'/'false'/'off'/'no'/'' disable;
+    anything else warns and returns `default`."""
+    val = os.getenv(name)
+    if val is None:
+        return default
+    v = val.strip().lower()
+    if v in _TRUTHY_STRICT:
+        return True
+    if v in _FALSY:
+        return False
+    _log.warning("%s=%r is not a recognized boolean (use 1/true/on or "
+                 "0/false/off); treating as %s", name, val, default)
+    return default
+
+
+def _env_strict_number(name: str, default, conv, kind: str):
+    val = os.getenv(name)
+    if val is None or not val.strip():
+        return default
+    try:
+        return conv(val.strip())
+    except ValueError:
+        _log.warning("%s=%r is not %s; treating as %r", name, val, kind,
+                     default)
+        return default
+
+
+def env_strict_int(name: str, default=None):
+    return _env_strict_number(name, default, int, "an integer")
+
+
+def env_strict_float(name: str, default=None):
+    return _env_strict_number(name, default, float, "a number")

@@ -1,0 +1,61 @@
+"""Carry Flax variables across to the port (the bridge between the two
+packages; the JAX package has no counterpart).
+
+`load_jax_variables(variables)` takes the Flax `{"params", "batch_stats"}`
+tree as nested dicts of numpy arrays and returns a state dict for
+`model.load_state_dict`. The port keeps Flax's submodule names as
+attribute names (`conv_{i}.pre_i`, `feature_norm_{i}`,
+`graph_shared.dense_{j}`, `head_{ih}.dense_{j}`, ...), so the mapping is
+mechanical:
+
+* Dense `kernel [in, out]` -> Linear `weight [out, in]`;
+* Dense `bias`, MaskedBatchNorm `scale` / `bias` keep their names;
+* `batch_stats` `mean` / `var` -> the MaskedBatchNorm buffers.
+
+An unknown collection or leaf name raises here; a missing or surplus
+module path raises in `load_state_dict` (strict by default).
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_LEAVES = {"params": ("kernel", "bias", "scale"),
+           "batch_stats": ("mean", "var")}
+
+
+def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
+          ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key in sorted(tree):
+        val = tree[key]
+        if isinstance(val, Mapping):
+            yield from _walk(val, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), np.asarray(val)
+
+
+def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    unknown = set(variables) - set(_LEAVES)
+    if unknown:
+        raise KeyError(f"load_jax_variables: unknown collections "
+                       f"{sorted(unknown)}; expected {sorted(_LEAVES)}")
+    state: Dict[str, torch.Tensor] = OrderedDict()
+    for collection, leaves in _LEAVES.items():
+        for path, arr in _walk(variables.get(collection, {})):
+            name, module = path[-1], ".".join(path[:-1])
+            if name not in leaves or not module:
+                raise KeyError(f"load_jax_variables: unexpected "
+                               f"{collection} leaf {'/'.join(path)}")
+            if name == "kernel":
+                if arr.ndim != 2:
+                    raise ValueError(f"load_jax_variables: Dense kernel "
+                                     f"{'/'.join(path)} has shape {arr.shape}")
+                arr, name = arr.T, "weight"
+            key = f"{module}.{name}"
+            if key in state:
+                raise KeyError(f"load_jax_variables: duplicate key {key}")
+            state[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
+    return state
