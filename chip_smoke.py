@@ -25,6 +25,17 @@ Phases:
    run within rtol 1e-4 / atol 1e-5. The serving rate is all requests
    over the bursts' total wall time, and p50/p99 are taken over the pooled
    latencies of every request.
+4. SchNet energies and forces (examples/LennardJones/LJ.json: 32 wide, 2
+   equivariant layers, one node-energy head) on 512 Lennard-Jones cells of
+   27 atoms with random Flax-shaped weights from a seed. First the
+   filter-scatter kernel against its plain version at the engine's
+   largest bucket (forward within rtol/atol 2e-5; its backward, dh within
+   2e-5 and dw exact, against autograd through the plain version; the
+   segment sum's and the position gathers' backward likewise), then an
+   `InferenceEngine(ef_forward=True)` on the edge list over a burst of the
+   test split repeated 8 times, matched against the same engine run on
+   the CPU within rtol 1e-4 / atol 1e-5, then 60 timed bursts and
+   one profiled EF forward.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record, the line before that the card's name
@@ -48,6 +59,9 @@ GRAPH_CALLS = 20               # wrapper calls per captured CUDA graph
 SERVE_MAX_BATCH = 128          # Serving.max_batch_size = the config's batch
 SUM_TOL = dict(rtol=2e-5, atol=2e-5)
 SLICE_TOL = dict(rtol=1e-4, atol=1e-5)
+LJ_CONFIG = "examples/LennardJones/LJ.json"
+NUM_LJ = 512                   # LJ cells of 27 atoms
+LJ_BURSTS = 60                 # timed EF bursts, after the main-path one
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 CSCE_CONFIG = "examples/csce/csce_gap.json"
@@ -293,6 +307,253 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
     return records
 
 
+def check_filter_scatter(torch, batch, device, f):
+    """Phase 4a: filter_scatter (forward and backward), and the backward
+    of segment_sum and of the position gathers, against their plain
+    versions on the card, at the EF engine's largest bucket."""
+    from hydragnn_tpu_torch.kernels import fused_mp, segment
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    n, e = batch.num_nodes, batch.num_edges
+    send, recv, em = batch.senders, batch.receivers, batch.edge_mask
+    h, w = randn(n, f), randn(e, f)
+    # the odd case: node 5 without in-edges, 5 % of the real edges
+    # masked, receivers and senders out of range, and E cut to a length
+    # that is a multiple of no block size
+    cut = e - 37
+    recv_odd = recv[:cut].clone()
+    recv_odd[recv_odd == 5] = 6
+    recv_odd[:16] = n + 3
+    send_odd = send[:cut].clone()
+    send_odd[16:24] = -1
+    em_odd = em[:cut] & (torch.rand(cut, generator=gen).to(device) > 0.05)
+    errs, grad_errs = [], []
+    for hh, ww, s_, r_, m_ in ((h, w, send, recv, em),
+                               (h, w[:cut].contiguous(), send_odd, recv_odd,
+                                em_odd)):
+        g = randn(n, f)
+        got = []
+        for fn in (fused_mp.filter_scatter, fused_mp.filter_scatter_plain):
+            th = hh.clone().requires_grad_(True)
+            tw = ww.clone().requires_grad_(True)
+            out = fn(th, tw, s_, r_, m_, n)
+            got.append((out,) + torch.autograd.grad((out * g).sum(),
+                                                    (th, tw)))
+        (out, dh, dw), (p_out, p_dh, p_dw) = got
+        errs.append(compare(torch, "filter_scatter", out.detach(),
+                            p_out.detach(), exact=False))
+        grad_errs.append(compare(torch, "filter_scatter.dh", dh, p_dh,
+                                 exact=False))
+        grad_errs.append(compare(torch, "filter_scatter.dw", dw, p_dw,
+                                 exact=True))
+    if float(out.detach()[5].abs().max()) != 0.0 \
+            or float(dh.abs().max()) == 0.0:
+        fail("filter_scatter: expected an empty row 5 and a nonzero dh")
+    # segment_sum's backward (the energy pooling) and the gathers' (the
+    # forces' pos[senders] - pos[receivers])
+    ids, g_n = batch.node_graph, batch.num_graphs
+    data, gs = randn(n, 1), randn(g_n, 1)
+    got = []
+    for fn in (segment.segment_sum, segment.segment_sum_plain):
+        td = data.clone().requires_grad_(True)
+        got.append(torch.autograd.grad((fn(td, ids, g_n) * gs).sum(), td)[0])
+    grad_errs.append(compare(torch, "segment_sum.backward", got[0], got[1],
+                             exact=True))
+    pos = randn(n, 3)
+    ge = randn(e, 3)
+    got = []
+    for fn in (segment.gather_rows, lambda x, i: x.index_select(0, i)):
+        tp = pos.clone().requires_grad_(True)
+        got.append(torch.autograd.grad((fn(tp, send) * ge).sum(), tp)[0])
+    grad_errs.append(compare(torch, "gather_rows.backward", got[0], got[1],
+                             exact=False))
+
+    kept = int(em.sum())
+    layout = fused_mp.filter_layouts(send, recv, em, n)
+    layout_t = fused_mp.filter_layouts(recv, send, em, n)  # the dh call's
+    g = randn(n, f)
+    ms = cuda_ms(torch, lambda: fused_mp.filter_scatter(
+        h, w, send, recv, em, n, layout))
+    bwd_ms = cuda_ms(torch, lambda: fused_mp.filter_scatter(
+        g, w, recv, send, em, n, layout_t))
+    prep = cuda_ms(torch, lambda: fused_mp.filter_layouts(send, recv, em, n))
+    plain = cuda_ms(torch, lambda: fused_mp.filter_scatter_plain(
+        h, w, send, recv, em, n))
+    # h once (it stays in L2), the kept edges' w rows and layout entries,
+    # row_ptr, out; two float32 operations per kept edge and feature
+    nbytes = 4 * (n * f + kept * f + 2 * kept + (n + 1) + n * f)
+    b_ms, b_by = bound_ms(nbytes, 2 * kept * f)
+    dram_ms = (nbytes + 4 * (kept - n) * f) / HBM_BYTES_PER_S * 1e3
+    dev = device_ms(torch, "filter_scatter", fused_mp.filter_scatter,
+                    (h, w, send, recv, em, n, layout), b_ms)
+    print(f"filter_scatter: N={n} E={e} kept_edges={kept} F={f} "
+          f"kernel_ms={ms:.4f} (layouts given) backward_dh_ms={bwd_ms:.4f} "
+          f"device_ms(graph)={dev:.4f} layouts_prep_ms={prep:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={b_ms:.5f} (h read once, L2 "
+          f"reuse) bound_every_gather_ms={dram_ms:.5f}; max abs err "
+          f"forward {max(errs):.3e}, backward {max(grad_errs):.3e}",
+          flush=True)
+    return dict(max_abs_err=max(errs), backward_max_abs_err=max(grad_errs),
+                ms=ms, device_ms=dev, backward_ms=bwd_ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def schnet_phase(torch, device, card):
+    """Phase 4: LJ SchNet energies and forces through the EF engine.
+    Returns (filter_scatter record, launches of the main-path burst)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.batch import collate
+    from hydragnn_tpu_torch.graphs.packing import sample_sizes
+    from hydragnn_tpu_torch.graphs.synthetic import lj_configurations
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import (InferenceEngine,
+                                                   bucket_ladder,
+                                                   select_bucket)
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+
+    with open(LJ_CONFIG) as fh:
+        base_cfg = json.load(fh)
+    t0 = time.perf_counter()
+    samples = lj_configurations(NUM_LJ, seed=SEED)
+    n_tr = int(0.6 * NUM_LJ)
+    n_va = int(0.2 * NUM_LJ)
+    splits = (samples[:n_tr], samples[n_tr:n_tr + n_va],
+              samples[n_tr + n_va:])
+    test = splits[2]
+    cfg = tcfg.update_config(copy.deepcopy(base_cfg), *splits)
+    mcfg = tcfg.build_model_config(cfg)
+    print(f"LJ data: {NUM_LJ} cells in {time.perf_counter() - t0:.1f} s; "
+          f"model: {mcfg.model_type} hidden={mcfg.hidden_dim} "
+          f"filters={mcfg.num_filters} gaussians={mcfg.num_gaussians} "
+          f"radius={mcfg.radius} layers={mcfg.num_conv_layers} "
+          f"equivariance={mcfg.equivariance} test_requests={len(test)} "
+          f"in-edges/atom={test[0].num_edges / test[0].num_nodes:.1f}",
+          flush=True)
+    variables = flax_shaped_variables(create_model(mcfg, device="cpu"),
+                                      SEED)
+
+    requests = test * ENGINE_REPEATS
+    first = requests[:SERVE_MAX_BATCH]
+    nodes, edges = sample_sizes(test)
+    top = select_bucket(bucket_ladder(nodes, edges, SERVE_MAX_BATCH),
+                        len(first), sum(s.num_nodes for s in first),
+                        sum(s.num_edges for s in first))
+    edge_batch = collate(first, n_node=top.n_node, n_edge=top.n_edge,
+                         n_graph=top.n_graph).replace(
+        y_node=None, energy=None, forces=None).to(device)
+    record = check_filter_scatter(torch, edge_batch, device,
+                                  mcfg.num_filters)
+    torch.cuda.synchronize()
+
+    def engine_on(dev):
+        model = create_model(mcfg, device=dev)
+        model.load_state_dict(load_jax_variables(variables))
+        return InferenceEngine(model, mcfg, reference_samples=test,
+                               max_batch_size=SERVE_MAX_BATCH,
+                               neighbor_format=False, ef_forward=True,
+                               device=dev)
+
+    t0 = time.perf_counter()
+    with engine_on("cpu") as cpu_engine:
+        want = cpu_engine.predict(test, timeout=600)
+    print(f"cpu reference EF run: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    engine = engine_on(device)
+    try:
+        engine.warmup()
+        engine.reset_stats()
+        tk.reset_launch_counts()
+        futs = [engine.submit(s) for s in requests]
+        results = [fut.result(timeout=600) for fut in futs]
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        singles = [(fut.bucket, engine.forward_single(s, bucket=fut.bucket))
+                   for s, fut in list(zip(requests, futs))[:8]]
+        engine.reset_stats()
+        walls = []
+        for _ in range(LJ_BURSTS):
+            t0 = time.perf_counter()
+            for fut in [engine.submit(s) for s in requests]:
+                fut.result(timeout=600)
+            walls.append(time.perf_counter() - t0)
+        stats = engine.stats()
+        model = engine.model
+    finally:
+        engine.shutdown()
+    print(f"EF engine (edge list): launches {counts}", flush=True)
+    for name in ("filter_scatter", "filter_scatter_backward", "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the EF engine path")
+    for i, (s, got, ref) in enumerate(zip(test, results, want)):
+        if got[0].shape != (1,) or got[1].shape != (s.num_nodes, 3):
+            fail(f"EF response {i}: shapes {got[0].shape} {got[1].shape}")
+    e_got = np.stack([r[0] for r in results[:len(test)]])
+    e_ref = np.stack([r[0] for r in want])
+    f_got = np.concatenate([r[1] for r in results[:len(test)]])
+    f_ref = np.concatenate([r[1] for r in want])
+    err_e = float(np.abs(e_got - e_ref).max())
+    err_f = float(np.abs(f_got - f_ref).max())
+    print(f"EF engine card vs cpu: energies max abs err {err_e:.3e} (of "
+          f"max |E| {np.abs(e_ref).max():.3e}), forces max abs err "
+          f"{err_f:.3e} (of max |F| {np.abs(f_ref).max():.3e}); tolerance "
+          f"{SLICE_TOL}", flush=True)
+    for name, g, r in (("energies", e_got, e_ref), ("forces", f_got, f_ref)):
+        if not np.isfinite(g).all() or not np.allclose(g, r, **SLICE_TOL):
+            fail(f"EF engine {name} on the card vs CPU outside {SLICE_TOL}")
+    if not np.abs(f_ref).max() > 0:
+        fail("EF engine: the CPU reference forces are all zero")
+    diff_e = max(float(np.abs(res[0] - single[0]).max())
+                 for (_, single), res in zip(singles, results[:8]))
+    diff_f = max(float(np.abs(res[1] - single[1]).max())
+                 for (_, single), res in zip(singles, results[:8]))
+    print(f"EF batched vs single on the same bucket: energies max abs diff "
+          f"{diff_e:.3e}, forces max abs diff {diff_f:.3e}", flush=True)
+    total = len(requests) * LJ_BURSTS
+    if stats["count"] != total:
+        fail(f"EF engine recorded {stats['count']} latencies for {total} "
+             "requests")
+    med = float(np.median(walls))
+    slow = [w for w in walls if w > 2 * med]
+    print(f"EF engine bursts: median {len(requests) / med:.1f} requests/s "
+          f"(fastest {len(requests) / min(walls):.1f}, slowest "
+          f"{len(requests) / max(walls):.1f}); {len(slow)} of {LJ_BURSTS} "
+          f"took over twice the median wall", flush=True)
+    print(f"EF engine: {total} requests in {LJ_BURSTS} bursts of "
+          f"{len(requests)} (each submitted at once), {stats['batches']} "
+          f"batches, {sum(walls):.4f} s: {total / sum(walls):.1f} "
+          f"requests/s; over all requests p50 {stats['p50_ms']:.3f} ms, "
+          f"p99 {stats['p99_ms']:.3f} ms (card: {card})", flush=True)
+
+    fwd = cuda_ms(torch, lambda: energy_forces_from_node_head(
+        model, edge_batch), reps=10)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        energy_forces_from_node_head(model, edge_batch)
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_t > 0:
+            rows.append((dev_t, ev.key, ev.count))
+    print(f"EF forward+backward on the largest bucket (N={edge_batch.num_nodes}"
+          f", E={edge_batch.num_edges}): {fwd:.3f} ms (CUDA events); "
+          f"profile: device time {sum(r[0] for r in rows) / 1e3:.3f} ms in "
+          f"{sum(r[2] for r in rows)} kernel launches", flush=True)
+    for dev_t, key, count in sorted(rows, reverse=True)[:12]:
+        print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return record, counts
+
+
 def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
     """Where a batch's time goes: host collation, one forward on the card
     per layout (CUDA events), and the profiler's device time by kernel for
@@ -518,6 +779,11 @@ def main() -> int:
 
     breakdown(torch, model, first, top, dense_batch, edge_batch, card)
 
+    # ---------------------------------------------------------- phase 4
+    records["filter_scatter"], counts = schnet_phase(torch, device, card)
+    for name, c in counts.items():
+        launches[name] = launches.get(name, 0) + c
+
     for name, c in launches.items():
         if c == 0:
             fail(f"{name} never launched on the main path")
@@ -527,13 +793,19 @@ def main() -> int:
                                  "hydragnn_tpu/kernels/nbr_pallas.py:134"),
                "pna_edge_aggregate": (
                    "hydragnn_tpu_torch/csrc/pna_edge_aggregate.cu",
-                   "hydragnn_tpu/kernels/fused_mp_pallas.py:389")}
+                   "hydragnn_tpu/kernels/fused_mp_pallas.py:389"),
+               "filter_scatter": (
+                   "hydragnn_tpu_torch/csrc/filter_scatter.cu",
+                   "hydragnn_tpu/kernels/fused_mp_pallas.py:187")}
     kernels = []
-    for name in ("segment_sum", "nbr_aggregate", "pna_edge_aggregate"):
+    for name in ("segment_sum", "nbr_aggregate", "pna_edge_aggregate",
+                 "filter_scatter"):
         src, rep = sources[name]
+        extra = ({"backward_launches": launches["filter_scatter_backward"]}
+                 if name == "filter_scatter" else {})
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches[name],
-                            **records[name]))
+                            **extra, **records[name]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Shared helpers of the port's row-walking kernels (segment_sum.cu,
-// nbr_aggregate.cu, pna_edge_aggregate.cu).
+// nbr_aggregate.cu, pna_edge_aggregate.cu, filter_scatter.cu).
 //
 // Every kernel gives one thread VEC consecutive features of one output row
 // and loops, inside the thread, over the input rows that reduce into it.

@@ -1,11 +1,15 @@
-"""Synthetic molecule-sized graphs from a numpy seed, for tests and for
-`chip_smoke.py` while the CSCE molecules are not in the repository.
+"""Synthetic graphs from a numpy seed, for tests and for `chip_smoke.py`.
 
-Each molecule has `min_atoms`..`max_atoms` atoms at roughly unit density
-in a cube, edges j -> i for every pair closer than `cutoff`, each atom
-keeping at most `max_in_degree` nearest in-edges (ties broken by sender
-index), and one graph-level target. About one molecule in eight has an
-atom moved far away, so the data holds isolated nodes.
+`synthetic_molecules` stands in for the CSCE molecules, which are not in
+the repository. Each molecule has `min_atoms`..`max_atoms` atoms at
+roughly unit density in a cube, edges j -> i for every pair closer than
+`cutoff`, each atom keeping at most `max_in_degree` nearest in-edges (ties
+broken by sender index), and one graph-level target. About one molecule in
+eight has an atom moved far away, so the data holds isolated nodes.
+
+`lj_configurations` is the Lennard-Jones data of
+examples/LennardJones/lj_data.py (`generate_lj_dataset`), bitwise: the
+same physics on the port's GraphSample.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import List
 import numpy as np
 
 from .batch import GraphSample
+from .radius import radius_graph_pbc
 
 
 def synthetic_molecules(num: int, seed: int = 0, min_atoms: int = 10,
@@ -42,3 +47,58 @@ def synthetic_molecules(num: int, seed: int = 0, min_atoms: int = 10,
             receivers=np.concatenate(receivers).astype(np.int32),
             y_graph=rng.normal(size=1).astype(np.float32)))
     return out
+
+
+def lj_energy_forces(pos: np.ndarray, cell: np.ndarray, cutoff: float,
+                     epsilon: float = 1.0, sigma: float = 1.0):
+    """Total Lennard-Jones energy, per-atom forces and the periodic edges
+    (senders, receivers, shifts) within `cutoff`."""
+    send, recv, shifts = radius_graph_pbc(pos, cell, cutoff)
+    disp = pos[send] + shifts - pos[recv]
+    r2 = np.sum(disp * disp, axis=1)
+    r2 = np.maximum(r2, 1e-12)
+    inv6 = (sigma * sigma / r2) ** 3
+    inv12 = inv6 * inv6
+    # every pair appears once per direction: half of the sum
+    e_pair = 4.0 * epsilon * (inv12 - inv6)
+    energy = 0.5 * float(e_pair.sum())
+    coef = 4.0 * epsilon * (12.0 * inv12 - 6.0 * inv6) / r2
+    f_edge = coef[:, None] * disp
+    forces = np.zeros_like(pos)
+    np.add.at(forces, recv, -f_edge)
+    return energy, forces, (send, recv, shifts)
+
+
+def lj_configurations(num_configs: int, atoms_per_dim: int = 3,
+                      lattice: float = 1.2, jitter: float = 0.08,
+                      cutoff: float = 2.0, seed: int = 0,
+                      normalize: bool = True) -> List[GraphSample]:
+    """Perturbed simple-cubic cells of atoms_per_dim³ atoms under periodic
+    boundaries, with their LJ energies and forces; `normalize` scales
+    energies to zero mean and unit spread and forces by the same factor,
+    so that forces stay -dE/dpos."""
+    rng = np.random.RandomState(seed)
+    n = atoms_per_dim ** 3
+    box = atoms_per_dim * lattice
+    cell = np.eye(3) * box
+    samples = []
+    for _ in range(num_configs):
+        grid = np.stack(np.meshgrid(*[np.arange(atoms_per_dim)] * 3,
+                                    indexing="ij"), axis=-1).reshape(-1, 3)
+        pos = (grid + 0.5) * lattice + rng.randn(n, 3) * jitter
+        pos = pos % box
+        energy, forces, (send, recv, shifts) = lj_energy_forces(
+            pos, cell, cutoff)
+        samples.append(GraphSample(
+            x=np.ones((n, 1), np.float32), pos=pos.astype(np.float32),
+            senders=send, receivers=recv, edge_shifts=shifts, cell=cell,
+            y_node=np.zeros((n, 1), np.float32),
+            energy=np.asarray([energy], np.float32),
+            forces=forces.astype(np.float32)))
+    if normalize:
+        es = np.asarray([s.energy[0] for s in samples])
+        mean, std = float(es.mean()), float(es.std() + 1e-8)
+        for s in samples:
+            s.energy = ((s.energy - mean) / std).astype(np.float32)
+            s.forces = (s.forces / std).astype(np.float32)
+    return samples

@@ -3,29 +3,38 @@
 * `segment.segment_sum`       — csrc/segment_sum.cu
 * `nbr.nbr_aggregate`         — csrc/nbr_aggregate.cu
 * `fused_mp.pna_edge_accumulators` — csrc/pna_edge_aggregate.cu
+* `fused_mp.filter_scatter`   — csrc/filter_scatter.cu
 
 Each wrapper launches its kernel for CUDA tensors, runs its plain PyTorch
-version for CPU tensors, and counts its launches in the module's
-`launches` integer.
+version for CPU tensors, and counts its launches in an integer of its
+module; `filter_scatter` counts its forward calls and the calls its
+backward makes apart.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-KERNEL_MODULES = {"segment_sum": "segment", "nbr_aggregate": "nbr",
-                  "pna_edge_aggregate": "fused_mp"}
+# kernel name -> (wrapper module, launch counter in it)
+KERNEL_COUNTERS = {
+    "segment_sum": ("segment", "launches"),
+    "nbr_aggregate": ("nbr", "launches"),
+    "pna_edge_aggregate": ("fused_mp", "launches"),
+    "filter_scatter": ("fused_mp", "filter_launches"),
+    "filter_scatter_backward": ("fused_mp", "filter_backward_launches"),
+}
 
 
 def _module(name):
     import importlib
-    return importlib.import_module(f"{__name__}.{KERNEL_MODULES[name]}")
+    return importlib.import_module(f"{__name__}.{KERNEL_COUNTERS[name][0]}")
 
 
 def launch_counts() -> Dict[str, int]:
     """{kernel name: launches so far in this process}."""
-    return {name: _module(name).launches for name in KERNEL_MODULES}
+    return {name: getattr(_module(name), attr)
+            for name, (_, attr) in KERNEL_COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNEL_MODULES:
-        _module(name).launches = 0
+    for name, (_, attr) in KERNEL_COUNTERS.items():
+        setattr(_module(name), attr, 0)

@@ -1,5 +1,6 @@
-"""Fused gather -> edge-add -> PNA accumulators over an edge list — the
-port of hydragnn_tpu/kernels/fused_mp_pallas.py::fused_pna_edge_aggregate.
+"""Fused gather -> edge-op -> scatter kernels over an edge list — the port
+of hydragnn_tpu/kernels/fused_mp_pallas.py: `fused_pna_edge_aggregate`
+(PNA) and `fused_filter_scatter` (SchNet's CFConv).
 
 `pna_edge_accumulators` launches the CUDA kernel
 `csrc/pna_edge_aggregate.cu` for tensors on the card and runs
@@ -16,6 +17,17 @@ view. The layout depends only on the batch's edges, so a forward computes
 it once and hands it to every layer (None on the CPU). On the H100 the kernel is bound by
 device-memory bytes (proj_i once, one proj_j row per kept edge, the
 outputs) and needs no atomics.
+
+`filter_scatter` computes out[n] = sum over the kept edges e into n of
+h[send[e]] * w[e]: the CUDA kernel `csrc/filter_scatter.cu` walks the
+receiver-sorted layout for tensors on the card (inside `_FilterScatter`,
+its autograd Function), `filter_scatter_plain` runs for tensors on the
+CPU. The backward is the JAX VJP: dw[e] = g[recv[e]] * h[send[e]] on kept
+edges (a per-edge gather-multiply in torch ops), and dh, the same
+filter-scatter over the transposed edges (g gathered by receiver, summed
+into senders), is the Function called again on the sender-sorted layout.
+So the gradient needs no atomics either, and is itself differentiable.
+`filter_layouts` builds both layouts once per forward.
 """
 from __future__ import annotations
 
@@ -27,7 +39,9 @@ from ..ops.segment import pna_accumulators, pna_stats_epilogue
 from . import _build
 from .segment import segment_sum_plain, vec_width
 
-launches = 0
+launches = 0              # pna_edge_aggregate
+filter_launches = 0       # filter_scatter, forward calls
+filter_backward_launches = 0  # filter_scatter, the dh of a backward
 
 
 def _kept_edges(senders, receivers, edge_mask, num_nodes):
@@ -58,9 +72,10 @@ def _lib():
 
 
 def edge_layout(senders, receivers, edge_mask, num_nodes):
-    """(row_ptr [N + 1] int32, senders in receiver order int32): the CSR
-    view of the kept edges that the CUDA kernel walks; None for edges on
-    the CPU, where the plain version needs no layout."""
+    """(row_ptr [N + 1] int32, senders in receiver order int32, edge ids
+    in receiver order int32): the CSR view of the kept edges that the CUDA
+    kernels walk; None for edges on the CPU, where the plain versions need
+    no layout."""
     if senders.device.type == "cpu":
         return None
     n = int(num_nodes)
@@ -71,7 +86,8 @@ def edge_layout(senders, receivers, edge_mask, num_nodes):
     # edges (key n) lie past row_ptr[n]
     bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
     row_ptr = torch.searchsorted(keys[order], bounds, out_int32=True)
-    return row_ptr, senders[order].contiguous()
+    return (row_ptr, senders[order].contiguous(),
+            order.to(torch.int32).contiguous())
 
 
 def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
@@ -112,8 +128,8 @@ def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
                          "contiguous")
     f = proj_i.shape[1]
     dev = proj_i.device
-    row_ptr, send_sorted = (edge_layout(senders, receivers, edge_mask, n)
-                            if layout is None else layout)
+    row_ptr, send_sorted, _ = (edge_layout(senders, receivers, edge_mask, n)
+                               if layout is None else layout)
     if row_ptr.shape != (n + 1,) or send_sorted.shape != (e,) \
             or row_ptr.device != dev or send_sorted.device != dev:
         raise ValueError("pna_edge_aggregate: layout does not match the "
@@ -140,3 +156,145 @@ def pna_edge_aggregate(proj_i, proj_j, senders, receivers, edge_mask,
     return pna_stats_epilogue(
         *pna_edge_accumulators(proj_i, proj_j, senders, receivers,
                                edge_mask, num_nodes, layout), eps)
+
+
+# --------------------------------------------------------------------------
+# SchNet continuous-filter aggregation
+# --------------------------------------------------------------------------
+
+def filter_scatter_plain(h, w, senders, receivers, edge_mask, num_nodes):
+    """sum over the kept edges e into n of h[send[e]] * w[e] -> [N, F]:
+    segment_sum_plain(h[send] * w, recv) over the kept edges."""
+    keep = _kept_edges(senders, receivers, edge_mask, num_nodes)
+    send = torch.where(keep, senders, torch.zeros_like(senders))
+    recv = torch.where(keep, receivers, torch.full_like(receivers,
+                                                        num_nodes))
+    msg = h.index_select(0, send) * w
+    msg = torch.where(keep[:, None], msg, torch.zeros_like(msg))
+    return segment_sum_plain(msg, recv, num_nodes)
+
+
+def filter_weight_grad(g, h, senders, receivers, edge_mask, num_nodes):
+    """dw of the filter-scatter: g[recv[e]] * h[send[e]] on kept edges, 0
+    elsewhere."""
+    keep = _kept_edges(senders, receivers, edge_mask, num_nodes)
+    zero = torch.zeros_like(senders)
+    send = torch.where(keep, senders, zero)
+    recv = torch.where(keep, receivers, zero)
+    dw = g.index_select(0, recv) * h.index_select(0, send)
+    return torch.where(keep[:, None], dw, torch.zeros_like(dw))
+
+
+def filter_layouts(senders, receivers, edge_mask, num_nodes):
+    """(receiver-sorted, sender-sorted) `edge_layout`s of the edges: the
+    forward kernel walks the first, the backward's dh the second; None on
+    the CPU."""
+    if senders.device.type == "cpu":
+        return None
+    return (edge_layout(senders, receivers, edge_mask, num_nodes),
+            edge_layout(receivers, senders, edge_mask, num_nodes))
+
+
+def _filter_lib():
+    fn = _build.load("filter_scatter").hg_filter_scatter_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 2)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_filter(h, w, layout, n, backward):
+    global filter_launches, filter_backward_launches
+    row_ptr, send_sorted, order = layout
+    f = h.shape[1]
+    out = torch.empty((n, f), dtype=torch.float32, device=h.device)
+    vec = vec_width(f, h, w, out)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = _filter_lib()(h.data_ptr(), w.data_ptr(), send_sorted.data_ptr(),
+                        order.data_ptr(), row_ptr.data_ptr(), n, f, vec,
+                        out.data_ptr(), stream)
+    _build.check_launch(err, "filter_scatter")
+    if backward:
+        filter_backward_launches += 1
+    else:
+        filter_launches += 1
+    return out
+
+
+class _FilterScatter(torch.autograd.Function):
+    """The filter-scatter with the JAX VJP as its backward; the forward is
+    the kernel on `layout` for CUDA tensors and the plain version for CPU
+    ones. `layout_t` is the transposed (sender-sorted) layout the dh
+    call walks; `backward` marks a call made for a gradient, which the
+    launch counters keep apart."""
+
+    @staticmethod
+    def forward(ctx, h, w, senders, receivers, edge_mask, num_nodes,
+                layout, layout_t, backward=False):
+        ctx.save_for_backward(h, w, senders, receivers, edge_mask)
+        ctx.num_nodes = num_nodes
+        ctx.layouts = (layout, layout_t)
+        if h.device.type == "cpu":
+            return filter_scatter_plain(h, w, senders, receivers, edge_mask,
+                                        num_nodes)
+        return _launch_filter(h, w, layout, num_nodes, backward)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, senders, receivers, edge_mask = ctx.saved_tensors
+        layout, layout_t = ctx.layouts
+        n = ctx.num_nodes
+        g = g.contiguous()
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            dh = _FilterScatter.apply(g, w, receivers, senders, edge_mask, n,
+                                      layout_t, layout, True)
+        if ctx.needs_input_grad[1]:
+            dw = filter_weight_grad(g, h, senders, receivers, edge_mask, n)
+        return dh, dw, None, None, None, None, None, None, None
+
+
+def filter_scatter(h, w, senders, receivers, edge_mask, num_nodes,
+                   layout=None):
+    """sum over the kept in-edges e of each node of h[send[e]] * w[e], in
+    float32: h [N, F], w [E, F] -> [N, F], 0 on a node without a kept
+    edge. `layout` is `filter_layouts` of these edges, computed here when
+    not given."""
+    if h.device.type == "cpu":
+        return filter_scatter_plain(h, w, senders, receivers, edge_mask,
+                                    num_nodes)
+    if h.device.type != "cuda":
+        raise ValueError(f"filter_scatter: unsupported device {h.device}")
+    n = int(num_nodes)
+    if h.dtype != torch.float32 or w.dtype != torch.float32:
+        raise TypeError("filter_scatter kernel takes float32 h and w, got "
+                        f"{h.dtype}/{w.dtype}")
+    e = senders.shape[0]
+    if h.dim() != 2 or h.shape[0] != n or w.dim() != 2 \
+            or w.shape != (e, h.shape[1]):
+        raise ValueError(f"filter_scatter: h {tuple(h.shape)} and w "
+                         f"{tuple(w.shape)} must be [{n}, F] and [{e}, F]")
+    if senders.shape != (e,) or receivers.shape != (e,) \
+            or edge_mask.shape != (e,):
+        raise ValueError("filter_scatter: senders, receivers and edge_mask "
+                         "must be [E]")
+    if senders.dtype != torch.int32 or receivers.dtype != torch.int32 \
+            or edge_mask.dtype != torch.bool:
+        raise TypeError("filter_scatter: senders/receivers must be int32 "
+                        "and edge_mask bool")
+    if any(t.device != h.device for t in (w, senders, receivers, edge_mask)):
+        raise ValueError("filter_scatter: all inputs must be on one device")
+    if not (h.is_contiguous() and w.is_contiguous()):
+        raise ValueError("filter_scatter: h and w must be contiguous")
+    if layout is None:
+        layout = filter_layouts(senders, receivers, edge_mask, n)
+    for lay in layout:
+        if len(lay) != 3 or lay[0].shape != (n + 1,) \
+                or lay[1].shape != (e,) or lay[2].shape != (e,) \
+                or any(t.device != h.device or t.dtype != torch.int32
+                       for t in lay):
+            raise ValueError("filter_scatter: layout does not match the "
+                             "edges")
+    return _FilterScatter.apply(h, w, senders, receivers, edge_mask, n,
+                                layout[0], layout[1])

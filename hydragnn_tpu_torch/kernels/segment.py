@@ -62,13 +62,42 @@ def vec_width(f: int, *tensors: torch.Tensor) -> int:
     return 1
 
 
+def segment_sum_grad(g: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """The segment sum's VJP: row e of the result is g[segment_ids[e]],
+    0 where the id lies outside [0, num_segments)."""
+    ids = segment_ids.long()
+    valid = (ids >= 0) & (ids < num_segments)
+    rows = g.index_select(0, torch.where(valid, ids, torch.zeros_like(ids)))
+    return torch.where(valid.view((-1,) + (1,) * (g.dim() - 1)), rows,
+                       torch.zeros_like(rows))
+
+
+class _SegmentSum(torch.autograd.Function):
+    """The segment sum with the JAX VJP as its backward; the forward is
+    the kernel for CUDA tensors and the plain version for CPU ones."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, indices_are_sorted):
+        ctx.save_for_backward(segment_ids)
+        ctx.num_segments = num_segments
+        if data.device.type == "cpu":
+            return segment_sum_plain(data, segment_ids, num_segments)
+        return _launch(data, segment_ids, num_segments, indices_are_sorted)
+
+    @staticmethod
+    def backward(ctx, g):
+        (segment_ids,) = ctx.saved_tensors
+        return (segment_sum_grad(g, segment_ids, ctx.num_segments), None,
+                None, None)
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int,
                 indices_are_sorted: bool = False) -> torch.Tensor:
     """Drop-in for the segment sum of [E, F] data into [num_segments, F].
     `indices_are_sorted` promises nondecreasing ids (the pooling case) and
     skips the sort."""
-    global launches
     if data.device.type == "cpu":
         return segment_sum_plain(data, segment_ids, num_segments)
     if data.device.type != "cuda":
@@ -85,10 +114,20 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                         "the data's device")
     if not data.is_contiguous():
         raise ValueError("segment_sum: data must be contiguous")
-    n = int(num_segments)
     e, f = data.shape
     if e >= 2 ** 31:
         raise ValueError("segment_sum: more than 2^31 rows")
+    if f // vec_width(f) > 1024:
+        raise ValueError(f"segment_sum: F={f} exceeds the kernel's 1024 "
+                         "feature groups per block")
+    return _SegmentSum.apply(data, segment_ids, int(num_segments),
+                             indices_are_sorted)
+
+
+def _launch(data, segment_ids, n, indices_are_sorted):
+    """One launch of csrc/segment_sum.cu on checked inputs."""
+    global launches
+    e, f = data.shape
     if indices_are_sorted:
         perm = None
         # clamping keeps the order and maps every out-of-range id outside
@@ -104,12 +143,29 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     keys = keys.contiguous()
     out = torch.empty((n, f), dtype=torch.float32, device=data.device)
     vec = vec_width(f, data, out)
-    if f // vec > 1024:
-        raise ValueError(f"segment_sum: F={f} exceeds the kernel's 1024 "
-                         "feature groups per block")
     stream = torch.cuda.current_stream(data.device).cuda_stream
     err = _lib()(data.data_ptr(), None if perm is None else perm.data_ptr(),
                  keys.data_ptr(), e, out.data_ptr(), n, f, vec, stream)
     _build.check_launch(err, "segment_sum")
     launches += 1
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = x.shape[0]
+        return x.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return segment_sum(g.contiguous(), ids, ctx.num_rows), None
+
+
+def gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """x[ids] for [N, F] x and [E] ids in [0, N); its gradient is the
+    segment sum of the incoming [E, F] gradient by `ids`."""
+    return _GatherRows.apply(x, ids)

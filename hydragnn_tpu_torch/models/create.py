@@ -2,9 +2,9 @@
 
 `create_model` builds the stack for a `ModelConfig` on a device (the card
 unless the caller passes device="cpu"), initializes it like Flax would
-(`init_params`) and returns it in eval mode. This slice ports PNA; every
-other `model_type` raises NotImplementedError naming the ROADMAP item
-that brings it.
+(`init_params`) and returns it in eval mode. PNA and SchNet are ported;
+every other `model_type` raises NotImplementedError naming the ROADMAP
+item that brings it.
 """
 from __future__ import annotations
 
@@ -16,10 +16,14 @@ from torch import nn
 from ..config.config import ModelConfig
 from ..utils.devices import resolve_device
 from .base import BaseStack
+from .schnet import SCFStack
 from .stacks import PNAStack
 
+_PORTED = {"PNA": PNAStack, "SchNet": SCFStack}
+# architecture keys each ported model needs, as the JAX package requires
+_REQUIRED = {"PNA": ("pna_deg",),
+             "SchNet": ("radius", "num_gaussians", "num_filters")}
 _NOT_PORTED = {
-    "SchNet": "A6",
     "GIN": "A7", "EGNN": "A7", "SAGE": "A7", "GAT": "A7", "MFC": "A7",
     "CGCNN": "A7", "PNAPlus": "A7", "DimeNet": "A7", "PAINN": "A7",
     "PNAEq": "A7", "MACE": "A7",
@@ -27,14 +31,14 @@ _NOT_PORTED = {
 
 
 def model_class(model_type: str):
-    if model_type == "PNA":
-        return PNAStack
+    if model_type in _PORTED:
+        return _PORTED[model_type]
     if model_type in _NOT_PORTED:
         raise NotImplementedError(
             f"model_type {model_type!r} is not ported to hydragnn_tpu_torch "
             f"yet (ROADMAP item {_NOT_PORTED[model_type]})")
     raise ValueError(f"unknown model_type '{model_type}'; known: "
-                     f"{sorted(['PNA', *_NOT_PORTED])}")
+                     f"{sorted([*_PORTED, *_NOT_PORTED])}")
 
 
 def _require(cfg: ModelConfig, *fields: str):
@@ -49,7 +53,7 @@ def create_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> BaseStack:
     the model is returned in eval mode."""
     dev = resolve_device(device)
     cls = model_class(cfg.model_type)
-    _require(cfg, "pna_deg")
+    _require(cfg, *_REQUIRED[cfg.model_type])
     model = cls(cfg)
     init_params(model, seed=seed)
     return model.to(dev).eval()

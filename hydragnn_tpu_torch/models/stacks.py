@@ -1,5 +1,6 @@
-"""Concrete stacks (counterpart: hydragnn_tpu/models/stacks.py). This
-slice ports PNA; the other stacks follow ROADMAP items A6-A7."""
+"""Concrete stacks (counterpart: hydragnn_tpu/models/stacks.py). PNA is
+here and SchNet in models/schnet.py; the other stacks follow ROADMAP
+item A7."""
 from __future__ import annotations
 
 from ..kernels.fused_mp import edge_layout

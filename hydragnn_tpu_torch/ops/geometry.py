@@ -1,0 +1,20 @@
+"""Edge geometry (counterpart: hydragnn_tpu/ops/geometry.py)."""
+from __future__ import annotations
+
+import torch
+
+from ..kernels.segment import gather_rows
+
+
+def edge_vectors(pos, senders, receivers, edge_shifts=None, eps: float = 1e-9):
+    """(vec [E, 3], length [E]) with vec = pos[send] + shift - pos[recv]
+    and length = sqrt(|vec|² + eps): a padding edge (a self-loop on the
+    padding node, no shift) has length sqrt(eps), finite, and callers
+    mask it at aggregation. The gathers' gradient is a segment sum
+    (kernels.segment.gather_rows), so forces taken through it are the
+    same on every run."""
+    vec = gather_rows(pos, senders) - gather_rows(pos, receivers)
+    if edge_shifts is not None:
+        vec = vec + edge_shifts
+    length = torch.sqrt(torch.sum(vec * vec, dim=-1) + eps)
+    return vec, length

@@ -6,6 +6,12 @@ segment sums accumulate in float32 and store back in the data's dtype
 `kernels.segment.segment_sum`: the hand-written kernel for tensors on the
 card, its plain version for tensors on the CPU.
 
+SchNet's CFConv aggregation (`filter_weighted_aggregate`) keeps the JAX
+routing: on the dense neighbor layout it is the masked K reduction; on
+the edge list it goes to `kernels.fused_mp.filter_scatter`, the kernel
+for tensors on the card, unconditionally (the JAX package's
+HYDRAGNN_FUSED_MP flag and VMEM bound are TPU decisions).
+
 Two "empty segment" conventions coexist, as in the JAX package: the
 unfused `segment_min`/`segment_max` fill masked entries with +-1e30 and
 clamp empty segments to 0; the fused kernels and `neighbor_aggregate`
@@ -149,11 +155,64 @@ def neighbor_aggregate(h, nbr_mask, eps=1e-5):
     return mean, mn, mx, std, cnt
 
 
+def neighbor_sum(h, nbr_mask):
+    """Masked sum over the K axis of [N, K, ...] dense-layout messages;
+    reduced precision accumulates in float32."""
+    m = nbr_mask.view(tuple(nbr_mask.shape) + (1,) * (h.dim() - 2))
+    masked, store_dtype = _accum_f32(torch.where(m, h, torch.zeros_like(h)))
+    out = torch.sum(masked, dim=1)
+    return out if store_dtype is None else out.to(store_dtype)
+
+
+def neighbor_mean(h, nbr_mask):
+    """Masked mean over the K axis of [N, K, ...] dense-layout messages."""
+    cnt = torch.sum(nbr_mask.to(h.dtype), dim=1)
+    cnt = cnt.view(tuple(cnt.shape) + (1,) * (h.dim() - 2))
+    return neighbor_sum(h, nbr_mask) / torch.clamp(cnt, min=1.0)
+
+
+def edge_aggregate_sum(edge_values, batch):
+    """Sum per-edge values into their receivers: the masked K reduction
+    on the dense layout, the masked segment sum on the edge list."""
+    if batch.nbr_edge is not None:
+        return neighbor_sum(edge_values[batch.nbr_edge], batch.nbr_mask)
+    return segment_sum(edge_values, batch.receivers, batch.num_nodes,
+                       batch.edge_mask)
+
+
+def edge_aggregate_mean(edge_values, batch):
+    """Mean counterpart of `edge_aggregate_sum`."""
+    if batch.nbr_edge is not None:
+        return neighbor_mean(edge_values[batch.nbr_edge], batch.nbr_mask)
+    return segment_mean(edge_values, batch.receivers, batch.num_nodes,
+                        batch.edge_mask)
+
+
+def filter_weighted_aggregate(h, w, batch, layout=None):
+    """SchNet's CFConv aggregation: sum over the in-edges e of each node
+    of h[send[e]] * w[e]. `layout` is the edge list's
+    `kernels.fused_mp.filter_layouts`, shared by the layers of a
+    forward."""
+    if batch.nbr_edge is not None:
+        msg = h.index_select(0, batch.senders) * w
+        return neighbor_sum(msg[batch.nbr_edge], batch.nbr_mask)
+    from ..kernels.fused_mp import filter_scatter
+    return filter_scatter(h, w, batch.senders, batch.receivers,
+                          batch.edge_mask, batch.num_nodes, layout)
+
+
 def global_mean_pool(node_feats, node_graph, num_graphs, node_mask):
     """Masked graph-level mean pooling; `node_graph` is nondecreasing by
     construction (collate lays graphs out in order, padding nodes last)."""
     return segment_mean(node_feats, node_graph, num_graphs, node_mask,
                         indices_are_sorted=True)
+
+
+def global_sum_pool(node_feats, node_graph, num_graphs, node_mask):
+    """Masked graph-level sum pooling (sorted `node_graph`, as in
+    `global_mean_pool`)."""
+    return segment_sum(node_feats, node_graph, num_graphs, node_mask,
+                       indices_are_sorted=True)
 
 
 def degree(receivers, num_nodes, edge_mask=None):

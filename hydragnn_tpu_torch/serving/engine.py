@@ -17,6 +17,15 @@ bucket's, and the pooling and aggregation kernels sum each graph's rows
 in the same relative order wherever the graph sits (CSR walks, no
 atomics).
 
+``ef_forward=True`` serves energies and forces from a node-level energy
+head (head 0): each response is [energy [1], forces [num_nodes, 3]] with
+forces = -d(energy)/d pos (train/loss.py). That forward runs under
+``torch.enable_grad()``, not ``torch.inference_mode()``, and its backward
+goes through the kernels' autograd Functions: the filter-scatter's dh is
+the same CSR kernel on the sender-sorted layout, the pooling's gradient a
+gather, and the position gathers' gradient the segment-sum kernel, so the
+batched = single contract holds for forces too.
+
 A failed batch resolves only its own futures with the error and the
 dispatcher keeps serving. Admission bounds, deadlines, the circuit
 breaker, raw-structure serving, multi-device shards and the fleet hooks
@@ -38,6 +47,7 @@ from ..graphs.batch import (GraphBatch, GraphSample, collate,
                             neighbor_budget_for_dataset, with_neighbor_format)
 from ..graphs.packing import (MAX_GRAPH_SLOTS, PackBudget, choose_budget,
                               sample_sizes)
+from ..train.loss import energy_forces_from_node_head
 from ..utils.devices import resolve_device
 
 _SHUTDOWN = object()
@@ -101,7 +111,8 @@ class InferenceEngine:
     eval mode. Bucket shapes and the request schema come from
     `reference_samples`. Label fields are stripped before the forward.
     `neighbor_format` serves on the dense neighbor layout with width
-    `neighbor_k` (default: the reference samples' budget)."""
+    `neighbor_k` (default: the reference samples' budget). `ef_forward`
+    serves [energy [1], forces [num_nodes, 3]] from a node-level head 0."""
 
     def __init__(self, model, mcfg, *,
                  reference_samples: Sequence[GraphSample],
@@ -109,6 +120,7 @@ class InferenceEngine:
                  num_buckets: int = 0, bucket_multiple: int = 64,
                  neighbor_format: bool = False,
                  neighbor_k: Optional[int] = None,
+                 ef_forward: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         if not reference_samples:
@@ -129,7 +141,16 @@ class InferenceEngine:
             self.neighbor_k = int(
                 neighbor_budget_for_dataset(reference_samples)
                 if neighbor_k is None else neighbor_k)
-        self._response_heads = [h.head_type for h in mcfg.heads]
+        self.ef_forward = bool(ef_forward)
+        if self.ef_forward:
+            if mcfg.heads[0].head_type != "node":
+                raise ValueError(
+                    "ef_forward=True needs head 0 to be a node-level "
+                    "energy head (the energy_force_loss convention); got "
+                    f"a {mcfg.heads[0].head_type!r} head")
+            self._response_heads = ["graph", "node"]
+        else:
+            self._response_heads = [h.head_type for h in mcfg.heads]
 
         self._lock = threading.Lock()
         self._queue: "queue.Queue" = queue.Queue()
@@ -255,6 +276,9 @@ class InferenceEngine:
     def _forward(self, reqs: List[_Request],
                  bucket: PackBudget) -> List[np.ndarray]:
         batch = self._collate_bucket([r.sample for r in reqs], bucket)
+        if self.ef_forward:
+            outputs = energy_forces_from_node_head(self.model, batch)
+            return [o.cpu().numpy() for o in outputs]
         with torch.inference_mode():
             outputs, _ = self.model(batch)
             return [o.cpu().numpy() for o in outputs]

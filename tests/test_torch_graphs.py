@@ -11,11 +11,14 @@ import pytest
 from hydragnn_tpu.config import config as jcfg
 from hydragnn_tpu.graphs import batch as jbatch
 from hydragnn_tpu.graphs import packing as jpacking
+from hydragnn_tpu.graphs.radius import radius_graph_pbc as j_radius_graph_pbc
 from hydragnn_tpu.serving import engine as jengine
 from hydragnn_tpu_torch.config import config as tcfg
 from hydragnn_tpu_torch.graphs import batch as tbatch
 from hydragnn_tpu_torch.graphs import packing as tpacking
-from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+from hydragnn_tpu_torch.graphs.radius import radius_graph_pbc
+from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                 synthetic_molecules)
 from hydragnn_tpu_torch.serving import engine as tengine
 
 CSCE = "examples/csce/csce_gap.json"
@@ -160,3 +163,50 @@ def test_update_config_node_head_and_dtype_spellings():
         tc["NeuralNetwork"]["Architecture"]["dtype"] = dtype
         with pytest.raises(NotImplementedError, match="float32"):
             tcfg.build_model_config(tc)
+
+
+@pytest.mark.parametrize("max_neighbours", [None, 7, 40])
+def test_radius_graph_pbc_bitwise(max_neighbours):
+    """A small triclinic cell whose lattice planes lie closer than the
+    cutoff, so several images of one atom (itself included) are
+    neighbours and the cap's (d², sender, shift id) tie-break decides;
+    plus an LJ-sized cubic cell, and a slab periodic in two axes."""
+    rng = np.random.RandomState(3)
+    cases = [
+        (rng.rand(5, 3) * 1.4, np.array([[1.5, 0.0, 0.0], [0.3, 1.4, 0.0],
+                                         [0.2, 0.1, 1.6]]), 2.0,
+         (True, True, True)),
+        (rng.rand(27, 3) * 3.6, np.eye(3) * 3.6, 2.0, (True, True, True)),
+        (rng.rand(12, 3) * 2.0, np.eye(3) * 2.0, 1.7, (True, False, True)),
+    ]
+    # an exact tie: two atoms on a lattice, their images equidistant
+    cases.append((np.array([[0.0, 0.0, 0.0], [0.5, 0.5, 0.5]]),
+                  np.eye(3), 1.0, (True, True, True)))
+    for i, (pos, cell, r, pbc) in enumerate(cases):
+        got = radius_graph_pbc(pos, cell, r, pbc, max_neighbours)
+        want = j_radius_graph_pbc(pos, cell, r, pbc, max_neighbours)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        send, recv, _ = got
+        if max_neighbours is None and i in (0, 3):  # self images
+            assert np.any(send == recv)
+        if max_neighbours is not None:
+            assert np.bincount(recv).max() <= max_neighbours
+
+
+def test_lj_configurations_bitwise():
+    import sys
+    sys.path.insert(0, ".")
+    from examples.LennardJones.lj_data import generate_lj_dataset
+    for kw in ({}, {"seed": 3, "normalize": False, "atoms_per_dim": 2}):
+        got = lj_configurations(8, **kw)
+        want = generate_lj_dataset(8, **kw)
+        for s, t in zip(got, want):
+            for name in ("x", "pos", "senders", "receivers", "edge_shifts",
+                         "cell", "y_node", "energy", "forces"):
+                a, b = getattr(s, name), getattr(t, name)
+                assert a.dtype == b.dtype, name
+                np.testing.assert_array_equal(a, b, err_msg=name)
+    # about 20 in-edges per atom at the defaults (27 atoms, cutoff 2.0)
+    assert 15 < got[0].num_edges / got[0].num_nodes < 25 or kw

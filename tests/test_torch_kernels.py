@@ -5,17 +5,22 @@ these tests pin what the CUDA kernels are held to on the card.
 
 Bounds: gathers, min, max and count are exact. Sums, and the mean/std
 derived from them, use tests/test_kernels.py's rtol 2e-5 / atol 2e-5: the
-plain version and the Pallas kernel add in different orders.
+plain version and the Pallas kernel add in different orders. The
+filter-scatter is held as tests/test_kernels.py holds the Pallas kernel
+to its unfused formulation: bitwise on integer-valued data, rtol/atol
+1e-6 on random float32 data.
 """
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hydragnn_tpu.kernels.fused_mp_pallas import _fused_pna_accums
+from hydragnn_tpu.kernels.fused_mp_pallas import (_fused_pna_accums,
+                                                  fused_filter_scatter)
 from hydragnn_tpu.kernels.nbr_pallas import fused_neighbor_aggregate
 from hydragnn_tpu.kernels.segment_pallas import segment_sum_pallas
 from hydragnn_tpu_torch import kernels as tk
@@ -185,10 +190,151 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     # the plain version needs no CSR layout: none is built for CPU edges
     assert fused_mp.edge_layout(_t(send), _t(recv), _t(emask), 12) is None
     segment.segment_sum(_t(pi), _t(np.arange(12, dtype=np.int32) % 3), 3)
+    h, w, fsend, frecv, fmask = _filter_inputs(4, n=12, e=40, f=8)
+    fused_mp.filter_scatter(_t(h), _t(w), _t(fsend), _t(frecv), _t(fmask),
+                            12)
+    assert fused_mp.filter_layouts(_t(fsend), _t(frecv), _t(fmask),
+                                   12) is None
     assert tk.launch_counts() == {"segment_sum": 0, "nbr_aggregate": 0,
-                                  "pna_edge_aggregate": 0}
+                                  "pna_edge_aggregate": 0,
+                                  "filter_scatter": 0,
+                                  "filter_scatter_backward": 0}
     from hydragnn_tpu_torch.kernels import _build
     assert not _build._libs  # nothing was built or loaded
+
+
+def _filter_inputs(seed, n=150, e=700, f=16, integer=False,
+                   out_of_range=True):
+    """SchNet filter-scatter inputs: masked edges, an isolated node and,
+    with `out_of_range`, receivers and senders outside [0, n), whose
+    edges add nothing."""
+    rng = np.random.RandomState(seed)
+    if integer:
+        h = rng.randint(-2, 3, (n, f)).astype(np.float32)
+        w = rng.randint(-2, 3, (e, f)).astype(np.float32)
+    else:
+        h = rng.randn(n, f).astype(np.float32)
+        w = rng.randn(e, f).astype(np.float32)
+    send = rng.randint(0, n, e).astype(np.int32)
+    recv = rng.randint(0, n, e).astype(np.int32)
+    recv[recv == 11 % n] = 12 % n  # node 11: no in-edge
+    mask = rng.rand(e) > 0.25
+    if out_of_range:
+        recv[:5] = n + 4
+        recv[5:7] = -3
+        send[7:9] = n + 2
+    return h, w, send, recv, mask
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_filter_scatter_matches_pallas(integer):
+    """n = 150, e = 700, f = 16: neither a multiple of the TPU kernel's
+    tiles nor of a CUDA block."""
+    h, w, send, recv, mask = _filter_inputs(0, integer=integer)
+    n = h.shape[0]
+    want = np.asarray(fused_filter_scatter(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(send), jnp.asarray(recv),
+        jnp.asarray(mask), n, True))
+    got = fused_mp.filter_scatter(_t(h), _t(w), _t(send), _t(recv), _t(mask),
+                                  n).numpy()
+    if integer:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert not got[11].any()
+
+
+def _jax_filter_grads(h, w, send, recv, mask, g):
+    n = h.shape[0]
+
+    def loss(a, b):
+        out = fused_filter_scatter(a, b, jnp.asarray(send), jnp.asarray(recv),
+                                   jnp.asarray(mask), n, True)
+        return jnp.sum(out * jnp.asarray(g))
+    return [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(w))]
+
+
+def test_filter_scatter_grads_match_jax():
+    """dh and dw of the plain version (the CPU path) and of the autograd
+    Function the card runs (its forward takes the plain version on CPU
+    tensors; its backward is the kernel's: dh by the same filter-scatter
+    on the transposed edges, dw a gather-multiply) against jax.grad
+    through the Pallas kernel's VJP. dw is the same product of the same
+    two numbers: exact. dh sums the same products in another order:
+    rtol/atol 1e-6. Senders stay in range here: for an out-of-range
+    sender the JAX VJP gathers a clamped row that the forward drops."""
+    h, w, send, recv, mask = _filter_inputs(1, out_of_range=False)
+    recv[:5] = h.shape[0] + 4
+    n = h.shape[0]
+    g = np.random.RandomState(9).randn(n, h.shape[1]).astype(np.float32)
+    want_dh, want_dw = _jax_filter_grads(h, w, send, recv, mask, g)
+    idx = (_t(send), _t(recv), _t(mask), n)
+    for fn in (fused_mp.filter_scatter,
+               lambda a, b, *rest: fused_mp._FilterScatter.apply(
+                   a, b, *rest, None, None)):
+        th = _t(h).requires_grad_(True)
+        tw = _t(w).requires_grad_(True)
+        dh, dw = torch.autograd.grad((fn(th, tw, *idx) * _t(g)).sum(),
+                                     (th, tw))
+        np.testing.assert_array_equal(dw.numpy(), want_dw)
+        np.testing.assert_allclose(dh.numpy(), want_dh, rtol=1e-6, atol=1e-6)
+
+
+def test_filter_scatter_function_differentiates_twice():
+    """The Function's backward is made of differentiable ops (itself and
+    a gather-multiply), so a force loss can take its gradient again:
+    d/dw of <dh, k> matches the plain version's."""
+    h, w, send, recv, mask = _filter_inputs(2, n=40, e=200, f=8)
+    n = h.shape[0]
+    rng = np.random.RandomState(3)
+    g, k = (_t(rng.randn(n, 8).astype(np.float32)) for _ in range(2))
+    out = []
+    for fn in (fused_mp.filter_scatter_plain,
+               lambda *a: fused_mp._FilterScatter.apply(*a, None, None)):
+        th = _t(h).requires_grad_(True)
+        tw = _t(w).requires_grad_(True)
+        y = fn(th, tw, _t(send), _t(recv), _t(mask), n)
+        (dh,) = torch.autograd.grad((y * g).sum(), th, create_graph=True)
+        out.append(torch.autograd.grad((dh * k).sum(), tw)[0])
+    torch.testing.assert_close(out[1], out[0], rtol=1e-6, atol=1e-6)
+
+
+def test_segment_sum_backward_matches_jax():
+    """The segment sum's autograd Function (the card's path; CPU tensors
+    take the plain forward inside it) returns the JAX VJP g[ids] bitwise
+    on rows with ids in range, and 0 on rows whose id is out of range,
+    which the forward drops (the JAX VJP's gather clamps such an id and
+    returns a row of g there). `gather_rows`' backward is a segment sum,
+    within SUM_TOL of the JAX gather's VJP."""
+    rng = np.random.RandomState(4)
+    e, f, n = 300, 5, 40
+    data = rng.randn(e, f).astype(np.float32)
+    ids = rng.randint(0, n, e).astype(np.int32)
+    ids[:4] = n + 2
+    ids[4:6] = -1
+    g = rng.randn(n, f).astype(np.float32)
+    want = np.asarray(jax.grad(lambda d: jnp.sum(segment_sum_pallas(
+        d, jnp.asarray(ids), n, True) * jnp.asarray(g)))(jnp.asarray(data)))
+    td = _t(data).requires_grad_(True)
+    out = segment._SegmentSum.apply(td, _t(ids), n, False)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(
+        segment_sum_pallas(jnp.asarray(data), jnp.asarray(ids), n, True)),
+        **SUM_TOL)
+    (got,) = torch.autograd.grad((out * _t(g)).sum(), td)
+    np.testing.assert_array_equal(got.numpy()[6:], want[6:])
+    assert not got[:6].any()
+
+    x = rng.randn(n, 3).astype(np.float32)
+    gi = rng.randint(0, n, e).astype(np.int32)
+    ge = rng.randn(e, 3).astype(np.float32)
+    want = np.asarray(jax.grad(lambda a: jnp.sum(
+        a[jnp.asarray(gi)] * jnp.asarray(ge)))(jnp.asarray(x)))
+    tx = _t(x).requires_grad_(True)
+    rows = segment.gather_rows(tx, _t(gi))
+    assert torch.equal(rows.detach(), _t(x)[_t(gi).long()])
+    (got,) = torch.autograd.grad((rows * _t(ge)).sum(), tx)
+    np.testing.assert_allclose(got.numpy(), want, **SUM_TOL)
 
 
 def test_kernel_modules_import_without_nvcc():

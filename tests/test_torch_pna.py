@@ -148,8 +148,8 @@ def test_load_jax_variables_rejects_unknown_and_missing_keys(csce_model):
 def test_create_model_other_types_and_training_mode_raise(csce_model):
     import dataclasses
     _, _, mcfg = csce_model
-    with pytest.raises(NotImplementedError, match="A6"):
-        create_model(dataclasses.replace(mcfg, model_type="SchNet"),
+    with pytest.raises(NotImplementedError, match="A7"):
+        create_model(dataclasses.replace(mcfg, model_type="GIN"),
                      device="cpu")
     model = create_model(mcfg, device="cpu")
     assert not model.training

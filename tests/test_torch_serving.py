@@ -1,7 +1,15 @@
 """The port's serving core (hydragnn_tpu_torch/serving) and
 `run_prediction` on the CPU, plus the package's import boundary: it and
-chip_smoke.py load neither jax nor the JAX package."""
+chip_smoke.py load neither jax nor the JAX package.
+
+The energy-force engine (`ef_forward=True`, LJ SchNet at its published
+widths) is held against the JAX package's EF engine on the same requests
+and weights: energies and forces within rtol 1e-4 / atol 1e-5, the
+bound of the forward parity tests (tests/test_torch_schnet.py); the
+forces are a backward through the same ops, summed in other orders.
+"""
 import ast
+import copy
 import json
 import os
 import pathlib
@@ -19,7 +27,8 @@ from hydragnn_tpu.models.create import init_params as j_init_params
 from hydragnn_tpu.config import config as jcfg
 from hydragnn_tpu_torch import run_prediction
 from hydragnn_tpu_torch.config import config as tcfg
-from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                 synthetic_molecules)
 from hydragnn_tpu_torch.models.create import create_model
 from hydragnn_tpu_torch.serving.config import resolve_serving
 from hydragnn_tpu_torch.serving.engine import InferenceEngine
@@ -167,7 +176,12 @@ def test_port_and_chip_smoke_import_no_jax():
             "import hydragnn_tpu_torch.run_prediction, "
             "hydragnn_tpu_torch.serving.engine, "
             "hydragnn_tpu_torch.kernels.nbr, "
-            "hydragnn_tpu_torch.kernels.fused_mp; "
+            "hydragnn_tpu_torch.kernels.fused_mp, "
+            "hydragnn_tpu_torch.models.schnet, "
+            "hydragnn_tpu_torch.train.loss, "
+            "hydragnn_tpu_torch.graphs.radius, "
+            "hydragnn_tpu_torch.ops.geometry, "
+            "hydragnn_tpu_torch.ops.basis; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
             "or m == 'hydragnn_tpu' or m.startswith('hydragnn_tpu.')]; "
@@ -195,3 +209,91 @@ def test_port_sources_have_no_jax_imports():
                 continue
             for name in names:
                 assert name.split(".")[0] not in banned, (path, name)
+
+
+EF_TOL = dict(rtol=1e-4, atol=1e-5)
+LJ = REPO / "examples" / "LennardJones" / "LJ.json"
+
+
+@pytest.fixture(scope="module")
+def lj_served():
+    """LJ SchNet at its published widths with Flax-initialized weights
+    and nontrivial BatchNorm statistics; 10 configurations."""
+    from hydragnn_tpu.models.create import create_model as jcreate
+    sys.path.insert(0, str(REPO))
+    from examples.LennardJones.lj_data import generate_lj_dataset
+    with open(LJ) as f:
+        base = json.load(f)
+    samples = lj_configurations(10, seed=6)
+    jsamples = generate_lj_dataset(10, seed=6)
+    jc = jcfg.update_config(copy.deepcopy(base), jsamples)
+    jmcfg = jcfg.build_model_config(jc)
+    jmodel = jcreate(jmcfg)
+    variables = jax.tree_util.tree_map(np.asarray, jax.device_get(dict(
+        j_init_params(jmodel, jbatch.collate(jsamples[:4]), 4))))
+    rng = np.random.RandomState(1)
+    for stats in variables["batch_stats"].values():
+        stats["mean"] = rng.randn(*stats["mean"].shape).astype(np.float32)
+        stats["var"] = (0.5 + rng.rand(*stats["var"].shape)).astype(
+            np.float32)
+    mcfg = tcfg.build_model_config(
+        tcfg.update_config(copy.deepcopy(base), samples))
+    model = create_model(mcfg, device="cpu")
+    model.load_state_dict(load_jax_variables(variables))
+    return samples, jsamples, jmodel, jmcfg, variables, model, mcfg
+
+
+def test_ef_engine_matches_jax_ef_engine(lj_served):
+    from hydragnn_tpu.serving.engine import InferenceEngine as JEngine
+    samples, jsamples, jmodel, jmcfg, variables, model, mcfg = lj_served
+    jvars = jax.tree_util.tree_map(jax.numpy.asarray, variables)
+    jeng = JEngine(jmodel, jvars, jmcfg, reference_samples=jsamples,
+                   max_batch_size=4, max_wait_ms=50.0, ef_forward=True)
+    try:
+        want = jeng.predict(jsamples[:6], timeout=300)
+    finally:
+        jeng.shutdown()
+    with InferenceEngine(model, mcfg, reference_samples=samples,
+                         max_batch_size=4, max_wait_ms=50.0,
+                         ef_forward=True, device="cpu") as eng:
+        got = eng.predict(samples[:6], timeout=300)
+    for s, g, w in zip(samples, got, want):
+        assert len(g) == 2
+        assert g[0].shape == (1,) and g[1].shape == (s.num_nodes, 3)
+        assert np.isfinite(g[1]).all() and np.abs(g[1]).max() > 0
+        np.testing.assert_allclose(g[0], np.asarray(w[0]), **EF_TOL)
+        np.testing.assert_allclose(g[1], np.asarray(w[1]), **EF_TOL)
+
+
+def test_ef_engine_batched_equals_single_bitwise(lj_served):
+    """Energies and forces of a coalesced batch equal each request run
+    alone on the same bucket, bit for bit: the CPU path's sums (segment
+    sums, filter-scatter, the gathers' gradients) add each graph's rows
+    in the same order wherever it sits."""
+    samples, *_, model, mcfg = lj_served
+    engine = InferenceEngine(model, mcfg, reference_samples=samples,
+                             max_batch_size=4, max_wait_ms=50.0,
+                             ef_forward=True, device="cpu")
+    try:
+        futs = [engine.submit(s) for s in samples]
+        results = [f.result(timeout=120) for f in futs]
+        assert engine.stats()["batches"] < len(samples)
+        for s, fut, res in zip(samples, futs, results):
+            single = engine.forward_single(s, bucket=fut.bucket)
+            for a, b in zip(res, single):
+                np.testing.assert_array_equal(a, b)
+    finally:
+        engine.shutdown()
+
+
+def test_ef_forward_requires_node_head(served, lj_served):
+    (_, _, test), _, model, mcfg = served       # head 0 is a graph head
+    with pytest.raises(ValueError, match="node-level energy head"):
+        InferenceEngine(model, mcfg, reference_samples=test,
+                        ef_forward=True, device="cpu")
+    # the plain (non-EF) engine on the LJ model serves node energies
+    samples, *_, lj_model, lj_mcfg = lj_served
+    with InferenceEngine(lj_model, lj_mcfg, reference_samples=samples,
+                         max_batch_size=2, device="cpu") as eng:
+        res = eng.predict(samples[:2])
+    assert res[0][0].shape == (samples[0].num_nodes, 1)
