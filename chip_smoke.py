@@ -13,7 +13,11 @@ Phases:
    range). Min, max, count and degree must be equal; sums within
    rtol 2e-5 / atol 2e-5 (the two versions add in different orders).
    Time kernel, plain version and, where one PyTorch call computes the
-   same function, that call (CUDA events, median).
+   same function, that call (`index_add` for the segment sum): call
+   time with CUDA events, device time from 20 calls in one CUDA graph.
+   segment_sum is recorded at every shape the main paths give it (here
+   the PNA pooling bucket and the loader's padding segment; phase 4 adds
+   the EF shapes), each with its bound and `index_add`'s device time.
 3. Serve the csce PNA model (examples/csce/csce_gap.json: 200 hidden,
    6 layers, one graph head) on 512 synthetic molecules with random
    Flax-shaped weights from a seed: `run_prediction(serve=True)` on the
@@ -31,15 +35,21 @@ Phases:
    filter-scatter kernel against its plain version at the engine's
    largest bucket (forward within rtol/atol 2e-5; its backward, dh within
    2e-5 and dw exact, against autograd through the plain version; the
-   segment sum's and the position gathers' backward likewise), then an
+   segment sum's and the position gathers' backward likewise; forward
+   and dh device times), the EF shapes of segment_sum (energy pooling at
+   F = 1; the position gathers' backward at F = 3 on the filter layout,
+   which must equal a fresh sort on every real node, and whose own
+   backward must equal autograd through the plain sum of the rows the
+   layout keeps), then an
    `InferenceEngine(ef_forward=True)` on the edge list over a burst of the
    test split repeated 8 times, matched against the same engine run on
    the CPU within rtol 1e-4 / atol 1e-5, then 60 timed bursts and
-   one profiled EF forward.
+   one profiled EF forward + backward (device time, launches, argsorts).
 
 The last line is {"ok": true, "device": {...}}; the line before it
-holds the per-kernel JSON record, the line before that the card's name
-and power limit. Any failure exits non-zero without that line.
+holds the per-kernel JSON record (per-shape records under `shapes`), the
+line before that the card's name and power limit. Any failure exits
+non-zero without that line.
 """
 from __future__ import annotations
 
@@ -103,8 +113,10 @@ def device_ms(torch, name, fn, args, bound: float) -> float:
     GRAPH_CALLS calls captured in one CUDA graph and replayed (CUDA events,
     median), so the wrapper's host time is left out and the gaps between
     the launches are counted in. Each call reads its own copy of the
-    inputs, so none finds them in L2 from the call before. Fails below
-    `bound`, which no real kernel time can be."""
+    inputs, so none finds them in L2 from the call before. The graph is
+    captured on the stream of the warm-up call, so the kernels' per-stream
+    buffers (segment_sum's tickets) already exist and their set-up is not
+    captured. Fails below `bound`, which no real kernel time can be."""
     def copy(a):
         if isinstance(a, tuple):
             return tuple(copy(t) for t in a)
@@ -116,7 +128,7 @@ def device_ms(torch, name, fn, args, bound: float) -> float:
         fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for c in copies:
             fn(*c)
     ms = cuda_ms(torch, graph.replay, reps=10) / GRAPH_CALLS
@@ -262,23 +274,13 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
                                          bound_by=b_by, library_ms=None)
 
     # ---- segment_sum: the decoder's mean pooling of the serving bucket
+    # (the record's main numbers), the loader's shape, and unsorted ids
     errs = []
     lb = loader_batch
-    ldata = randn(lb.num_nodes, f) * lb.node_mask[:, None]
-    lg = lb.num_graphs
-    got = segment.segment_sum(ldata, lb.node_graph, lg, indices_are_sorted=True)
-    errs.append(compare(torch, "segment_sum.long_segment", got,
-                        segment.segment_sum_plain(ldata, lb.node_graph, lg),
-                        exact=False))
-    long_ms = cuda_ms(torch, lambda: segment.segment_sum(
-        ldata, lb.node_graph, lg, indices_are_sorted=True))
     n = edge_batch.num_nodes
     g = edge_batch.num_graphs
     ids = edge_batch.node_graph
     data = randn(n, f) * edge_batch.node_mask[:, None]
-    got = segment.segment_sum(data, ids, g, indices_are_sorted=True)
-    errs.append(compare(torch, "segment_sum.sorted", got,
-                        segment.segment_sum_plain(data, ids, g), exact=False))
     rnd = torch.randint(-2, g + 3, (n,), generator=gen,
                         dtype=torch.int32).to(device)  # unsorted, some out
     got = segment.segment_sum(data, rnd, g)
@@ -289,22 +291,73 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
     plain = cuda_ms(torch, lambda: segment.segment_sum_plain(data, ids, g))
     ids64 = ids.long()
     base = torch.zeros(g, f, device=device)
-    lib = cuda_ms(torch, lambda: torch.index_add(base, 0, ids64, data))
-    nbytes = 4 * (n * f + n + g * f)
-    b_ms, b_by = bound_ms(nbytes, n * f)
-    dev = device_ms(torch, "segment_sum", segment.segment_sum,
-                    (data, ids, g, True), b_ms)
+    lib_call = cuda_ms(torch, lambda: torch.index_add(base, 0, ids64, data))
+    shapes = [segment_shape(torch, "pna_pooling", data, ids, g),
+              segment_shape(torch, "loader", randn(lb.num_nodes, f)
+                            * lb.node_mask[:, None], lb.node_graph,
+                            lb.num_graphs)]
+    pool = shapes[0]
+    errs += [r["max_abs_err"] for r in shapes]
     print(f"segment_sum: E={n} N={g} F={f} kernel_ms={ms:.4f} "
-          f"device_ms(graph)={dev:.4f} "
-          f"plain_ms={plain:.4f} library_ms(index_add)={lib:.4f} "
-          f"bound_ms={b_ms:.5f}; loader shape E={lb.num_nodes} (padding "
-          f"segment {int((~lb.node_mask).sum())} rows) kernel_ms={long_ms:.4f}",
-          flush=True)
+          f"device_ms(graph)={pool['device_ms']:.4f} plain_ms={plain:.4f} "
+          f"library_ms(index_add, graph)={pool['library_ms']:.4f} "
+          f"library_call_ms(index_add)={lib_call:.4f} "
+          f"bound_ms={pool['bound_ms']:.5f}", flush=True)
     records["segment_sum"] = dict(max_abs_err=max(errs), ms=ms,
-                                  device_ms=dev,
-                                  plain_ms=plain, bound_ms=b_ms,
-                                  bound_by=b_by, library_ms=lib)
+                                  device_ms=pool["device_ms"],
+                                  plain_ms=plain, bound_ms=pool["bound_ms"],
+                                  bound_by=pool["bound_by"],
+                                  library_ms=pool["library_ms"],
+                                  library_call_ms=lib_call, shapes=shapes)
     return records
+
+
+def segment_shape(torch, name, data, ids, n, layout=None, real=None):
+    """One shape the main paths give segment_sum: the kernel against its
+    plain version (on rows [:real] when a layout leaves rows out), its
+    device time and `index_add`'s (each 20 calls in one CUDA graph), and
+    its bound. Sorted ids unless a layout is given."""
+    from hydragnn_tpu_torch.kernels import segment
+
+    e, f = data.shape
+    sort = layout is None
+
+    def call(d, i, lay):
+        return segment.segment_sum(d, i, n, indices_are_sorted=sort,
+                                   layout=lay)
+    rows = slice(0, n if real is None else real)
+    err = compare(torch, f"segment_sum.{name}", call(data, ids, layout)[rows],
+                  segment.segment_sum_plain(data, ids, n)[rows], exact=False)
+    if layout is None:
+        kept = e
+        nbytes = 4 * (kept * f + kept + n * f)
+    else:
+        kept = int(layout[0][-1])
+        nbytes = 4 * (kept * f + kept + n + 1 + n * f)
+    b_ms, b_by = bound_ms(nbytes, kept * f)
+    dev = device_ms(torch, f"segment_sum.{name}", call, (data, ids, layout),
+                    b_ms)
+    base = torch.zeros(n, f, device=data.device)
+    lib = device_ms(torch, f"index_add.{name}",
+                    lambda b, i, d: torch.index_add(b, 0, i, d),
+                    (base, ids.long(), data), b_ms)
+    # the sorted ids' row-pointer pass alone (the first of the two launches)
+    rp = (device_ms(torch, f"segment_sum.{name}.row_ptr",
+                    lambda i: segment.sorted_row_ptr(i, n), (ids,), 0.0)
+          if layout is None else None)
+    segs = (torch.bincount(ids.long().clamp(0, n), minlength=n + 1)[:n]
+            if layout is None else torch.diff(layout[0]))
+    print(f"segment_sum.{name}: E={e} N={n} F={f} "
+          f"{'layout given' if layout is not None else 'sorted ids'} "
+          f"longest segment {int(segs.max())} rows, "
+          f"C={segment.chunk_rows(f)}: device_ms={dev:.4f} "
+          f"(row_ptr pass {rp}) bound_ms={b_ms:.5f} ({b_by}) "
+          f"index_add device_ms={lib:.4f} max_abs_err={err:.3e}",
+          flush=True)
+    return dict(shape=name, E=e, N=n, F=f, longest_segment=int(segs.max()),
+                chunk_rows=segment.chunk_rows(f), device_ms=dev,
+                row_ptr_device_ms=rp, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, max_abs_err=err)
 
 
 def check_filter_scatter(torch, batch, device, f):
@@ -383,23 +436,76 @@ def check_filter_scatter(torch, batch, device, f):
     prep = cuda_ms(torch, lambda: fused_mp.filter_layouts(send, recv, em, n))
     plain = cuda_ms(torch, lambda: fused_mp.filter_scatter_plain(
         h, w, send, recv, em, n))
-    # h once (it stays in L2), the kept edges' w rows and layout entries,
-    # row_ptr, out; two float32 operations per kept edge and feature
+    # h (or g) once (it stays in L2), the kept edges' w rows and layout
+    # entries, row_ptr, out; two float32 operations per kept edge and
+    # feature. The dh call moves the same bytes.
     nbytes = 4 * (n * f + kept * f + 2 * kept + (n + 1) + n * f)
     b_ms, b_by = bound_ms(nbytes, 2 * kept * f)
     dram_ms = (nbytes + 4 * (kept - n) * f) / HBM_BYTES_PER_S * 1e3
     dev = device_ms(torch, "filter_scatter", fused_mp.filter_scatter,
                     (h, w, send, recv, em, n, layout), b_ms)
+    dev_dh = device_ms(torch, "filter_scatter.dh", fused_mp.filter_scatter,
+                       (g, w, recv, send, em, n, layout_t), b_ms)
+    by_recv = fused_mp.edge_layout(send, recv, em, n)[2]
+    identity = bool(torch.equal(by_recv[:kept].long(),
+                                em.nonzero().flatten()))
     print(f"filter_scatter: N={n} E={e} kept_edges={kept} F={f} "
           f"kernel_ms={ms:.4f} (layouts given) backward_dh_ms={bwd_ms:.4f} "
-          f"device_ms(graph)={dev:.4f} layouts_prep_ms={prep:.4f} "
+          f"device_ms(graph)={dev:.4f} dh_device_ms(graph)={dev_dh:.4f} "
+          f"layouts_prep_ms={prep:.4f} "
           f"plain_ms={plain:.4f} bound_ms={b_ms:.5f} (h read once, L2 "
-          f"reuse) bound_every_gather_ms={dram_ms:.5f}; max abs err "
-          f"forward {max(errs):.3e}, backward {max(grad_errs):.3e}",
+          f"reuse) bound_every_gather_ms={dram_ms:.5f}; receiver-sorted "
+          f"order is the identity on the kept edges: {identity}; max abs "
+          f"err forward {max(errs):.3e}, backward {max(grad_errs):.3e}",
+          flush=True)
+    shapes = [dict(shape="forward", N=n, E=e, kept_edges=kept, F=f,
+                   device_ms=dev, bound_ms=b_ms, bound_by=b_by),
+              dict(shape="backward_dh", N=n, E=e, kept_edges=kept, F=f,
+                   device_ms=dev_dh, bound_ms=b_ms, bound_by=b_by)]
+    # the EF path's other segment sums: the energy pooling (F = 1, sorted)
+    # and the position gathers' backward (F = 3) on the sender-sorted
+    # filter layout, which must equal the fresh sort on every real node
+    nodes = int(batch.node_mask.sum())
+    seg_shapes = [segment_shape(torch, "ef_energy_pooling",
+                                randn(n, 1) * batch.node_mask[:, None],
+                                batch.node_graph, batch.num_graphs)]
+    by_recv, by_send = fused_mp.segment_layouts(layout)
+    ge = randn(e, 3)
+    for ids, lay in ((send, by_send), (recv, by_recv)):
+        fresh = segment.segment_sum(ge, ids, n)
+        reuse = segment.segment_sum(ge, ids, n, layout=lay)
+        if not torch.equal(fresh[:nodes], reuse[:nodes]):
+            fail("segment_sum: the filter layout's sum differs from the "
+                 "fresh sort on a real node")
+        # its backward: g[ids] on the rows the layout sums, 0 on the rows
+        # it leaves out, as autograd through the plain sum of those rows
+        kept_rows = segment.layout_rows(lay, e)[:, None]
+        gn = randn(n, 3)
+        got = []
+        for fn in (lambda d: segment.segment_sum(d, ids, n, layout=lay),
+                   lambda d: segment.segment_sum_plain(
+                       torch.where(kept_rows, d, torch.zeros_like(d)), ids,
+                       n)):
+            td = ge.clone().requires_grad_(True)
+            got.append(torch.autograd.grad((fn(td) * gn).sum(), td)[0])
+        grad_errs.append(compare(torch, "segment_sum.layout_backward",
+                                 got[0], got[1], exact=True))
+    seg_shapes.append(segment_shape(torch, "ef_gather_backward", ge, send, n,
+                                    layout=by_send, real=nodes))
+    fresh_dev = device_ms(
+        torch, "segment_sum.ef_gather_backward.fresh_sort",
+        lambda d, i: segment.segment_sum(d, i, n), (ge, send),
+        seg_shapes[-1]["bound_ms"])
+    seg_shapes[-1]["fresh_sort_device_ms"] = fresh_dev
+    print(f"segment_sum.ef_gather_backward: layout reuse equal to the "
+          f"fresh sort on all {nodes} real nodes; the fresh sort's call "
+          f"(argsort + row pointers + sum) device_ms={fresh_dev:.4f}",
           flush=True)
     return dict(max_abs_err=max(errs), backward_max_abs_err=max(grad_errs),
-                ms=ms, device_ms=dev, backward_ms=bwd_ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                ms=ms, device_ms=dev, backward_ms=bwd_ms,
+                backward_device_ms=dev_dh, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shapes=shapes), seg_shapes
 
 
 def schnet_phase(torch, device, card):
@@ -449,8 +555,8 @@ def schnet_phase(torch, device, card):
     edge_batch = collate(first, n_node=top.n_node, n_edge=top.n_edge,
                          n_graph=top.n_graph).replace(
         y_node=None, energy=None, forces=None).to(device)
-    record = check_filter_scatter(torch, edge_batch, device,
-                                  mcfg.num_filters)
+    record, seg_shapes = check_filter_scatter(torch, edge_batch, device,
+                                              mcfg.num_filters)
     torch.cuda.synchronize()
 
     def engine_on(dev):
@@ -545,13 +651,19 @@ def schnet_phase(torch, device, card):
                         getattr(ev, "self_cuda_time_total", 0.0))
         if dev_t > 0:
             rows.append((dev_t, ev.key, ev.count))
+    argsorts = sum(ev.count for ev in prof.key_averages()
+                   if ev.key == "aten::argsort")
+    sort_launches = sum(r[2] for r in rows if "sort" in r[1].lower())
     print(f"EF forward+backward on the largest bucket (N={edge_batch.num_nodes}"
           f", E={edge_batch.num_edges}): {fwd:.3f} ms (CUDA events); "
           f"profile: device time {sum(r[0] for r in rows) / 1e3:.3f} ms in "
-          f"{sum(r[2] for r in rows)} kernel launches", flush=True)
+          f"{sum(r[2] for r in rows)} kernel launches; {argsorts} argsorts "
+          f"({sort_launches} sort kernel launches, "
+          f"{sum(r[0] for r in rows if 'sort' in r[1].lower()) / 1e3:.3f} "
+          f"ms)", flush=True)
     for dev_t, key, count in sorted(rows, reverse=True)[:12]:
         print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
-    return record, counts
+    return record, seg_shapes, counts
 
 
 def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
@@ -780,7 +892,12 @@ def main() -> int:
     breakdown(torch, model, first, top, dense_batch, edge_batch, card)
 
     # ---------------------------------------------------------- phase 4
-    records["filter_scatter"], counts = schnet_phase(torch, device, card)
+    records["filter_scatter"], seg_shapes, counts = schnet_phase(
+        torch, device, card)
+    records["segment_sum"]["shapes"] += seg_shapes
+    records["segment_sum"]["max_abs_err"] = max(
+        [records["segment_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in seg_shapes])
     for name, c in counts.items():
         launches[name] = launches.get(name, 0) + c
 

@@ -1,11 +1,14 @@
 // Shared helpers of the port's row-walking kernels (segment_sum.cu,
 // nbr_aggregate.cu, pna_edge_aggregate.cu, filter_scatter.cu).
 //
-// Every kernel gives one thread VEC consecutive features of one output row
-// and loops, inside the thread, over the input rows that reduce into it.
-// Neighbouring threads hold neighbouring features, so each gathered row is
-// read with coalesced 16-byte loads when VEC == 4 (the wrapper picks
-// VEC == 4 only when F % 4 == 0 and the row pointers are 16-byte aligned).
+// Every kernel gives one thread VEC consecutive features of an output row
+// and loops, inside the thread, over input rows that reduce into it
+// (segment_sum.cu, whose threads always hold 4 features, and
+// filter_scatter.cu split a row's inputs over several threads and combine
+// them in a fixed order). Neighbouring threads hold
+// neighbouring features, so each gathered row is read with coalesced
+// 16-byte loads when VEC == 4 (the wrapper picks VEC == 4 only when
+// F % 4 == 0 and the row pointers are 16-byte aligned).
 //
 // Arithmetic uses the _rn intrinsics so that nvcc never contracts an
 // add and a multiply into one FMA: each kernel then rounds exactly where

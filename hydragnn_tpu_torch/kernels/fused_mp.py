@@ -27,7 +27,10 @@ edges (a per-edge gather-multiply in torch ops), and dh, the same
 filter-scatter over the transposed edges (g gathered by receiver, summed
 into senders), is the Function called again on the sender-sorted layout.
 So the gradient needs no atomics either, and is itself differentiable.
-`filter_layouts` builds both layouts once per forward.
+`filter_layouts` builds both layouts once per forward, and
+`segment_layouts` hands them to the segment sums over the same edges (the
+position gathers' backward and the coordinate update on the EF path), so
+those sort nothing.
 """
 from __future__ import annotations
 
@@ -72,12 +75,17 @@ def _lib():
 
 
 def edge_layout(senders, receivers, edge_mask, num_nodes):
-    """(row_ptr [N + 1] int32, senders in receiver order int32, edge ids
-    in receiver order int32): the CSR view of the kept edges that the CUDA
-    kernels walk; None for edges on the CPU, where the plain versions need
-    no layout."""
+    """`csr_layout` of the edges for the CUDA kernels to walk; None for
+    edges on the CPU, where the plain versions need no layout."""
     if senders.device.type == "cpu":
         return None
+    return csr_layout(senders, receivers, edge_mask, num_nodes)
+
+
+def csr_layout(senders, receivers, edge_mask, num_nodes):
+    """(row_ptr [N + 1] int32, senders in receiver order int32, edge ids
+    in receiver order int32): the CSR view of the kept edges, stable-sorted
+    by receiver; dropped edges lie past row_ptr[N]. On any device."""
     n = int(num_nodes)
     keep = _kept_edges(senders, receivers, edge_mask, n)
     keys = torch.where(keep, receivers, torch.full_like(receivers, n))
@@ -193,6 +201,17 @@ def filter_layouts(senders, receivers, edge_mask, num_nodes):
         return None
     return (edge_layout(senders, receivers, edge_mask, num_nodes),
             edge_layout(receivers, senders, edge_mask, num_nodes))
+
+
+def segment_layouts(layouts):
+    """(by receiver, by sender) `(row_ptr, order)` CSR views of the kept
+    edges from `filter_layouts`, the `layout` a segment sum over
+    `receivers` or `senders` takes (kernels.segment.segment_sum); (None,
+    None) for None. Masked and out-of-range edges are left out."""
+    if layouts is None:
+        return None, None
+    by_recv, by_send = layouts
+    return (by_recv[0], by_recv[2]), (by_send[0], by_send[2])
 
 
 def _filter_lib():

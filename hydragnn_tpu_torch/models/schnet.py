@@ -6,7 +6,9 @@ Distances are recomputed from `pos` inside the forward (`conv_args`), so
 a gradient flows from the energy to the positions for forces. On the edge
 list the filter-weighted aggregation is the `filter_scatter` kernel
 (kernels/fused_mp.py); its two layouts (receiver- and sender-sorted) are
-built once per forward in `conv_args` and shared by every layer.
+built once per forward in `conv_args` and shared by every layer, and by
+the segment sums over the same edges: the position gathers' backward
+(`edge_vectors`) and the coordinate update's mean, which so sort nothing.
 
 As in the JAX package, `SCFStack` keeps the base stack's BatchNorm after
 every conv (`use_batch_norm` is not switched off by `equivariance`), and
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.fused_mp import filter_layouts
+from ..kernels.fused_mp import filter_layouts, segment_layouts
 from ..ops import segment as seg
 from ..ops.basis import gaussian_basis
 from ..ops.geometry import edge_vectors
@@ -68,13 +70,15 @@ class CFConv(nn.Module):
         w = self.filter_nn(rbf) * c[:, None]
 
         h = self.lin1(x)
+        by_recv, by_send = cargs.get("segment_layout", (None, None))
         if self.equivariant:
             vec, length = edge_vectors(pos, batch.senders, batch.receivers,
-                                       batch.edge_shifts)
+                                       batch.edge_shifts, send_layout=by_send,
+                                       recv_layout=by_recv)
             coord_diff = vec / (length + 1.0)[:, None]
             phi = self.coord_mlp(w)
             trans = torch.clamp(coord_diff * phi, -100.0, 100.0)
-            pos = pos + seg.edge_aggregate_mean(trans, batch)
+            pos = pos + seg.edge_aggregate_mean(trans, batch, by_recv)
 
         h = seg.filter_weighted_aggregate(h, w, batch,
                                           cargs.get("filter_layout"))
@@ -94,14 +98,16 @@ class SCFStack(BaseStack):
                       equivariant=self.cfg.equivariance)
 
     def conv_args(self, batch):
+        layouts = None
+        if batch.nbr is None:
+            layouts = filter_layouts(batch.senders, batch.receivers,
+                                     batch.edge_mask, batch.num_nodes)
+        by_recv, by_send = segment_layouts(layouts)
         if batch.edge_attr is not None and self.cfg.edge_dim:
             length = torch.linalg.norm(batch.edge_attr, dim=-1)
         else:
             _, length = edge_vectors(batch.pos, batch.senders,
-                                     batch.receivers, batch.edge_shifts)
-        cargs = {"edge_length": length}
-        if batch.nbr is None:
-            cargs["filter_layout"] = filter_layouts(
-                batch.senders, batch.receivers, batch.edge_mask,
-                batch.num_nodes)
-        return cargs
+                                     batch.receivers, batch.edge_shifts,
+                                     send_layout=by_send, recv_layout=by_recv)
+        return {"edge_length": length, "filter_layout": layouts,
+                "segment_layout": (by_recv, by_send)}

@@ -37,16 +37,17 @@ def _bcast(mask, data):
 
 
 def segment_sum(data, segment_ids, num_segments, mask=None,
-                indices_are_sorted=False):
+                indices_are_sorted=False, layout=None):
     """Masked segment sum; ids outside [0, num_segments) add nothing.
     `indices_are_sorted` promises nondecreasing ids (the pooling case:
-    collate lays graphs out in order)."""
+    collate lays graphs out in order). `layout` is a CSR view of the ids
+    the caller holds (kernels.segment.segment_sum), for 2-D data."""
     if mask is not None:
         data = torch.where(_bcast(mask, data), data, torch.zeros_like(data))
     data, store_dtype = _accum_f32(data)
     if data.dim() == 2 and data.is_floating_point():
         out = _seg_kernel.segment_sum(data, segment_ids, num_segments,
-                                      indices_are_sorted)
+                                      indices_are_sorted, layout)
     else:
         out = _seg_kernel.segment_sum_plain(data, segment_ids, num_segments)
     return out if store_dtype is None else out.to(store_dtype)
@@ -61,9 +62,9 @@ def segment_count(segment_ids, num_segments, mask=None):
 
 
 def segment_mean(data, segment_ids, num_segments, mask=None,
-                 indices_are_sorted=False):
+                 indices_are_sorted=False, layout=None):
     total = segment_sum(data, segment_ids, num_segments, mask,
-                        indices_are_sorted=indices_are_sorted)
+                        indices_are_sorted=indices_are_sorted, layout=layout)
     count = segment_count(segment_ids, num_segments, mask)
     count = torch.clamp(count, min=1.0)
     return total / count.view(tuple(count.shape) + (1,) * (total.dim() - 1))
@@ -180,12 +181,15 @@ def edge_aggregate_sum(edge_values, batch):
                        batch.edge_mask)
 
 
-def edge_aggregate_mean(edge_values, batch):
-    """Mean counterpart of `edge_aggregate_sum`."""
+def edge_aggregate_mean(edge_values, batch, layout=None):
+    """Mean counterpart of `edge_aggregate_sum`. `layout` is the edge
+    list's receiver-sorted `(row_ptr, order)`
+    (kernels.fused_mp.segment_layouts): it leaves out the masked edges,
+    whose values the mask zeroes anyway."""
     if batch.nbr_edge is not None:
         return neighbor_mean(edge_values[batch.nbr_edge], batch.nbr_mask)
     return segment_mean(edge_values, batch.receivers, batch.num_nodes,
-                        batch.edge_mask)
+                        batch.edge_mask, layout=layout)
 
 
 def filter_weighted_aggregate(h, w, batch, layout=None):

@@ -191,3 +191,207 @@ def test_functions_match_plain_autograd_to_second_order(cuda_device):
         tp = pos.clone().requires_grad_(True)
         got.append(torch.autograd.grad((fn(tp, idx) * ge).sum(), tp)[0])
     torch.testing.assert_close(got[0], got[1], **SUM_TOL)
+
+
+def _segment_case(seed, sizes, f, dev):
+    """Data rows and sorted ids for segments of the given sizes (in
+    order), plus 3 rows of id -1 in front and 5 of id len(sizes) behind.
+    The data are multiples of 2^-8 below 8 in magnitude, so every sum of
+    up to 2^13 rows is exact in float32 whatever the order of the adds,
+    and the kernel must equal the plain version (an atomic scatter on the
+    card) bitwise."""
+    rng = np.random.RandomState(seed)
+    ids = np.concatenate([np.full(3, -1)] + [np.full(s, k) for k, s in
+                                              enumerate(sizes)]
+                         + [np.full(5, len(sizes))]).astype(np.int32)
+    data = np.round(np.clip(rng.randn(ids.shape[0], f), -7, 7) * 256) / 256
+    data = data.astype(np.float32)
+    return _t(data).to(dev), _t(ids).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 13, 200])
+def test_segment_sum_chunks_empty_and_out_of_range(cuda_device, f):
+    """Segments of 0, 1, a chunk and one row, and many chunks (the last
+    longer than half of E), with sorted int32 and int64 ids and shuffled
+    ids, against the plain version (exact data: bitwise); empty segments
+    are 0 and ids out of range add nothing."""
+    c = segment.chunk_rows(f)
+    sizes = [0, 1, c, c + 1, 0, 7 * c + 3, 2, 0, 12 * c + 5]
+    n = len(sizes)
+    data, ids = _segment_case(1, sizes, f, cuda_device)
+    assert sizes[-1] > ids.shape[0] // 2
+    want = segment.segment_sum_plain(data, ids, n)
+    got = segment.segment_sum(data, ids, n, indices_are_sorted=True)
+    assert torch.equal(got, want)
+    assert not got[0].any() and not got[4].any() and not got[7].any()
+    shuffle = torch.randperm(ids.shape[0], device=cuda_device)
+    got = segment.segment_sum(data[shuffle].contiguous(), ids[shuffle], n)
+    assert torch.equal(got, want)
+    got = segment.segment_sum(data, ids.long(), n, indices_are_sorted=True)
+    assert torch.equal(got, want)
+    rp = segment.sorted_row_ptr(ids, n)
+    assert torch.equal(rp.cpu(), segment.sorted_row_ptr(ids.cpu(), n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 3, 200])
+def test_segment_sum_is_position_independent(cuda_device, f):
+    """One segment's sum is bitwise the same wherever it sits in the
+    batch and whatever its neighbours: shifted through the sorted rows by
+    neighbours of other sizes, and interleaved with them (unsorted ids,
+    the segment's own rows kept in their order)."""
+    c = segment.chunk_rows(f)
+    rng = np.random.RandomState(2)
+    for length in (5, c, 3 * c + 7, 40 * c + 1):
+        rows = _t(rng.randn(length, f).astype(np.float32)).to(cuda_device)
+        results = []
+        for before in (0, 1, c - 1, 5 * c + 3):
+            other = _t(rng.randn(before + 9, f).astype(np.float32)).to(
+                cuda_device)
+            data = torch.cat([other[:before], rows, other[before:]])
+            ids = torch.cat([torch.zeros(before), torch.ones(length),
+                             torch.full((9,), 2.0)]).to(cuda_device)
+            ids = ids.to(torch.int32)
+            results.append(segment.segment_sum(data, ids, 3,
+                                               indices_are_sorted=True)[1])
+            # a random interleaving that keeps each segment's row order
+            slots = np.sort(rng.choice(data.shape[0], length, replace=False))
+            rest = np.setdiff1d(np.arange(data.shape[0]), slots)
+            order = np.empty(data.shape[0], np.int64)
+            order[slots] = np.arange(before, before + length)
+            order[rest] = rng.permutation(np.concatenate([
+                np.arange(before), np.arange(before + length,
+                                             data.shape[0])]))
+            order = _t(order).to(cuda_device)
+            results.append(segment.segment_sum(data[order].contiguous(),
+                                               ids[order], 3)[1])
+        for r in results[1:]:
+            assert torch.equal(r, results[0]), length
+
+
+@pytest.mark.cuda
+def test_segment_sum_layout_reuse_matches_fresh_sort(cuda_device):
+    """The gathers' backward over a filter layout (masked padding edges,
+    self-loops on the padding node, left out) against the fresh sort over
+    every edge: bitwise on every real node, for both layouts, and
+    through edge_vectors' gradient."""
+    from hydragnn_tpu_torch.ops.geometry import edge_vectors
+    dev = cuda_device
+    rng = np.random.RandomState(3)
+    n, e_real, e_pad = 500, 9000, 700
+    send = rng.randint(0, n - 1, e_real + e_pad).astype(np.int32)
+    recv = rng.randint(0, n - 1, e_real + e_pad).astype(np.int32)
+    send[e_real:] = recv[e_real:] = n - 1
+    send[:1200] = 17                 # a node of many chunks' worth of edges
+    mask = np.arange(e_real + e_pad) < e_real
+    send, recv, mask = (_t(a).to(dev) for a in (send, recv, mask))
+    layouts = fused_mp.filter_layouts(send, recv, mask, n)
+    by_recv, by_send = fused_mp.segment_layouts(layouts)
+    g = torch.randn(e_real + e_pad, 3, device=dev)
+    for ids, lay in ((send, by_send), (recv, by_recv)):
+        fresh = segment.segment_sum(g, ids, n)
+        reuse = segment.segment_sum(g, ids, n, layout=lay)
+        assert torch.equal(reuse[:n - 1], fresh[:n - 1])
+    pos = torch.randn(n, 3, device=dev)
+    grads = []
+    for lay_s, lay_r in ((None, None), (by_send, by_recv)):
+        tp = pos.clone().requires_grad_(True)
+        vec, length = edge_vectors(tp, send, recv, send_layout=lay_s,
+                                   recv_layout=lay_r)
+        weight = torch.where(mask, torch.randn(e_real + e_pad, device=dev,
+                             generator=torch.Generator(dev).manual_seed(0)),
+                             torch.zeros((), device=dev))
+        grads.append(torch.autograd.grad((length * weight).sum(), tp)[0])
+    assert torch.equal(grads[0][:n - 1], grads[1][:n - 1])
+
+
+@pytest.mark.cuda
+def test_segment_sum_layout_backward_leaves_out_dropped_rows(cuda_device):
+    """Autograd through segment_sum(layout=...) against autograd through
+    the plain sum of the rows the layout keeps: g[id] on those rows and 0
+    on the masked edges it drops, exactly (a gather)."""
+    dev = cuda_device
+    rng = np.random.RandomState(5)
+    n, e = 300, 6000
+    send = _t(rng.randint(0, n, e).astype(np.int32)).to(dev)
+    recv = _t(rng.randint(0, n, e).astype(np.int32)).to(dev)
+    mask = _t(rng.rand(e) > 0.3).to(dev)
+    by_recv, _ = fused_mp.segment_layouts(
+        fused_mp.filter_layouts(send, recv, mask, n))
+    data = torch.randn(e, 3, device=dev)
+    g = torch.randn(n, 3, device=dev)
+    grads = []
+    for fn in (lambda d: segment.segment_sum(d, recv, n, layout=by_recv),
+               lambda d: segment.segment_sum_plain(
+                   torch.where(mask[:, None], d, torch.zeros_like(d)), recv,
+                   n)):
+        td = data.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((fn(td) * g).sum(), td)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert not grads[0][~mask].any() and grads[0][mask].any()
+
+
+@pytest.mark.cuda
+def test_segment_sum_on_concurrent_streams(cuda_device):
+    """Segment sums of hundreds of chunks each (about 80 MB of rows a
+    call, so that the two streams' launches overlap) on two streams at
+    once: each stream has its own tickets, and every result equals the
+    plain version bitwise."""
+    dev = cuda_device
+    c = segment.chunk_rows(200)
+    sizes = [0, 3, 8000, 0, 7001, c + 1] + [6000] * 15
+    n = len(sizes)
+    data, ids = _segment_case(6, sizes, 200, dev)
+    want = segment.segment_sum_plain(data, ids, n)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(30):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(segment.segment_sum(data, ids, n,
+                                                indices_are_sorted=True))
+    torch.cuda.synchronize(dev)
+    for out in outs:
+        assert torch.equal(out, want)
+    t0, t1 = (segment._tickets[(data.device, s.cuda_stream)]
+              for s in streams)
+    assert t0.data_ptr() != t1.data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [32, 13, 1028, 1030])
+def test_filter_scatter_long_and_empty_receivers(cuda_device, f):
+    """Receivers with 0 and 1 edges, and one with more edges than edge
+    lanes x staging tile (4 x 1024), forward and backward against the
+    plain version; F = 1028 and 1030 have more feature groups than a
+    block has threads (passes over the features, float4 and scalar). h and w are multiples of 2^-3 in [-2, 2], so every
+    product and every sum of up to 5000 of them is exact in float32 in
+    any order: out, dh and dw must equal the plain version bitwise."""
+    dev = cuda_device
+    rng = np.random.RandomState(4)
+    n, e = 64, 9000
+    recv = rng.randint(2, n, e).astype(np.int32)
+    recv[:5000] = 40                 # 5000 in-edges
+    recv[5000] = 1                   # receiver 1: one edge; 0: none
+    send = rng.randint(0, n, e).astype(np.int32)
+    send[:4500] = 3                  # sender 3: 4500 out-edges (dh)
+    mask = rng.rand(e) > 0.1
+    mask[5000] = True
+    h = (rng.randint(-16, 17, (n, f)) / 8).astype(np.float32)
+    w = (rng.randint(-16, 17, (e, f)) / 8).astype(np.float32)
+    g = (rng.randint(-16, 17, (n, f)) / 8).astype(np.float32)
+    h, w, g, send, recv, mask = (_t(a).to(dev)
+                                 for a in (h, w, g, send, recv, mask))
+    grads = []
+    for fn in (fused_mp.filter_scatter, fused_mp.filter_scatter_plain):
+        th = h.clone().requires_grad_(True)
+        tw = w.clone().requires_grad_(True)
+        out = fn(th, tw, send, recv, mask, n)
+        grads.append((out,) + torch.autograd.grad((out * g).sum(), (th, tw)))
+    (out, dh, dw), (p_out, p_dh, p_dw) = grads
+    assert torch.equal(out, p_out) and torch.equal(dh, p_dh)
+    assert torch.equal(dw, p_dw)
+    assert not out[0].any() and out[1].any()

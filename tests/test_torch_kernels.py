@@ -12,6 +12,7 @@ to its unfused formulation: bitwise on integer-valued data, rtol/atol
 """
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -349,3 +350,117 @@ def test_kernel_modules_import_without_nvcc():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_sorted_row_ptr_matches_numpy(dtype):
+    """row_ptr of nondecreasing ids, with ids below 0, empty segments and
+    ids past the last segment: numpy's searchsorted, bitwise (the CUDA
+    boundary pass is held against this version in tests/test_torch_cuda.py)."""
+    rng = np.random.RandomState(7)
+    ids = np.sort(np.concatenate([rng.randint(-3, 0, 4),
+                                  rng.choice([0, 2, 3, 3, 7, 9], 60),
+                                  rng.randint(12, 15, 5)])).astype(dtype)
+    for n in (12, 1, 20):
+        got = segment.sorted_row_ptr(_t(ids), n)
+        want = np.searchsorted(ids, np.arange(n + 1), side="left")
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    empty = segment.sorted_row_ptr(_t(ids[:0]), 4)
+    np.testing.assert_array_equal(empty.numpy(), np.zeros(5))
+
+
+def _claimed_chunks(row_ptr, c):
+    """Emulate csrc/segment_sum.cu's grid in numpy: the (segment, chunk)
+    each block sums. Blocks 0..N-1 take chunk 0 of their segment; block
+    N + j the chunk k >= 1 of the segment holding sorted position j C
+    that starts in [j C, (j + 1) C), if any."""
+    n, e = len(row_ptr) - 1, int(row_ptr[-1])
+    claims = [(s, 0) for s in range(n)]
+    for j in range(-(-e // c)):
+        q = j * c
+        if not row_ptr[0] <= q < row_ptr[n]:
+            continue
+        s = int(np.searchsorted(row_ptr, q, side="right")) - 1
+        k = -(-(q - row_ptr[s]) // c)
+        x = row_ptr[s] + k * c
+        if k >= 1 and x < row_ptr[s + 1] and x < q + c:
+            claims.append((s, k))
+    return claims
+
+
+@pytest.mark.parametrize("f", [1, 3, 13, 200])
+def test_chunk_grid_covers_every_chunk_once(f):
+    """The host's sizing (lanes, C = ROWS_PER_LANE x lanes, workspace
+    rows ceil(E / C), so N + ceil(E / C) blocks) against its formula, and
+    the kernel's window rule, emulated in numpy: over segment lengths from
+    0 to many chunks, every chunk of every segment is claimed by exactly
+    one block."""
+    groups = -(-f // 4)
+    assert segment.lanes(f) == min(32, 2 ** int(np.log2(1024 // groups)))
+    c = segment.chunk_rows(f)
+    assert c == segment.ROWS_PER_LANE * segment.lanes(f)
+    # the host's R sizes the workspace: it must be the kernel's kRows
+    src = (Path(segment.__file__).parent.parent / "csrc"
+           / "segment_sum.cu").read_text()
+    assert f"constexpr int kRows = {segment.ROWS_PER_LANE};" in src
+    rng = np.random.RandomState(f)
+    lengths = np.concatenate([[0, 1, c - 1, c, c + 1, 0, 7 * c + 3],
+                              rng.randint(0, 3 * c, 40), [40 * c + 9]])
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)])
+    e, n = int(row_ptr[-1]), len(lengths)
+    windows = segment.workspace_rows(e, f)
+    assert windows == -(-e // c)
+    claims = _claimed_chunks(row_ptr, c)
+    want = [(s, k) for s, length in enumerate(lengths)
+            for k in range(max(1, -(-int(length) // c)))]
+    assert sorted(claims) == want
+    assert len(claims) <= n + windows
+
+
+def test_csr_layout_and_segment_layouts_match_numpy():
+    """The CSR edge layout (on the CPU here; the card builds the same)
+    against numpy's stable argsort: masked and out-of-range edges are
+    dropped past row_ptr[N]; `segment_layouts` hands (row_ptr, order) of
+    the receiver- and sender-sorted layouts to the segment sums."""
+    h, w, send, recv, mask = _filter_inputs(6, n=30, e=200, f=4)
+    n = 30
+    keep = mask & (recv >= 0) & (recv < n) & (send >= 0) & (send < n)
+    layouts = []
+    for a, b in ((send, recv), (recv, send)):
+        got = fused_mp.csr_layout(_t(a), _t(b), _t(mask), n)
+        keys = np.where(keep, b, n)
+        order = np.argsort(keys, kind="stable")
+        row_ptr = np.searchsorted(keys[order], np.arange(n + 1))
+        for g, want in zip(got, (row_ptr, a[order], order)):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), want)
+        assert int(got[0][-1]) == int(keep.sum())
+        layouts.append(got)
+    by_recv, by_send = fused_mp.segment_layouts(tuple(layouts))
+    assert by_recv[0] is layouts[0][0] and by_recv[1] is layouts[0][2]
+    assert by_send[0] is layouts[1][0] and by_send[1] is layouts[1][2]
+    assert fused_mp.segment_layouts(None) == (None, None)
+
+
+def test_segment_sum_grad_leaves_out_the_rows_a_layout_drops():
+    """The segment sum's VJP given the forward's CSR layout (the kernel
+    sums only perm[row_ptr[0]:row_ptr[N]]): g[id] on those rows, 0 on the
+    rows the layout leaves out and on ids out of range, against numpy,
+    bitwise; without a layout every in-range row gets g[id]."""
+    h, w, send, recv, mask = _filter_inputs(8, n=30, e=200, f=4)
+    n = 30
+    row_ptr, _, order = fused_mp.csr_layout(_t(send), _t(recv), _t(mask), n)
+    keep = mask & (recv >= 0) & (recv < n) & (send >= 0) & (send < n)
+    in_layout = np.zeros(200, bool)
+    in_layout[order.numpy()[:int(row_ptr[-1])]] = True
+    np.testing.assert_array_equal(
+        segment.layout_rows((row_ptr, order), 200).numpy(), in_layout)
+    np.testing.assert_array_equal(in_layout, keep)
+    g = np.random.RandomState(9).randn(n, 3).astype(np.float32)
+    valid = (recv >= 0) & (recv < n)
+    rows = g[np.clip(recv, 0, n - 1)]
+    for layout, kept in ((None, valid), ((row_ptr, order), keep)):
+        got = segment.segment_sum_grad(_t(g), _t(recv), n, layout)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.where(kept[:, None], rows, 0))

@@ -227,3 +227,63 @@ def test_create_model_schnet_requires_radius(lj_model):
         create_model(dataclasses.replace(mcfg, radius=None), device="cpu")
     model = create_model(mcfg, device="cpu")
     assert isinstance(model, tschnet.SCFStack) and not model.training
+
+
+def test_ef_segment_sums_reuse_the_filter_layouts(lj_model, monkeypatch):
+    """The EF path's segment sums over edges (the position gathers'
+    backward in `edge_vectors`, the coordinate update's mean) take the
+    forward's two filter layouts instead of sorting: with the layouts
+    built on the CPU too (the card builds them; the CPU's plain versions
+    ignore them), every such sum receives the receiver- or sender-sorted
+    (row_ptr, order) of `conv_args`' layouts, energies and forces stay
+    bitwise those of the plain path, and within TOL of the JAX package's
+    energy_forces_from_node_head."""
+    from hydragnn_tpu.train.loss import energy_forces_from_node_head as j_ef
+    from hydragnn_tpu_torch.kernels import fused_mp
+    from hydragnn_tpu_torch.kernels import segment as kseg
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    jmodel, mcfg, variables = lj_model
+    tb, jb = lj_batches(4, dense=False)
+    model = create_model(mcfg, device="cpu")
+    model.load_state_dict(load_jax_variables(variables))
+    want_e, want_f = energy_forces_from_node_head(model, tb)
+
+    built, seen = [], []
+
+    def layouts_on_any_device(s, r, m, n):
+        built.append((fused_mp.csr_layout(s, r, m, n),
+                      fused_mp.csr_layout(r, s, m, n)))
+        return built[-1]
+
+    plain_sum = kseg.segment_sum
+
+    def spy(data, ids, n, indices_are_sorted=False, layout=None):
+        seen.append((ids, layout))
+        return plain_sum(data, ids, n, indices_are_sorted, layout)
+    monkeypatch.setattr(tschnet, "filter_layouts", layouts_on_any_device)
+    monkeypatch.setattr(kseg, "segment_sum", spy)
+    got_e, got_f = energy_forces_from_node_head(model, tb)
+    assert torch.equal(got_e, want_e) and torch.equal(got_f, want_f)
+
+    assert len(built) == 1
+    by_recv, by_send = fused_mp.segment_layouts(built[0])
+    edge_sums = [(ids, lay) for ids, lay in seen
+                 if ids.shape[0] == tb.num_edges]
+    # 2 gathers' backward in conv_args + 2 layers' coordinate means
+    assert len(edge_sums) == 4
+    for ids, lay in edge_sums:
+        want = by_send if ids is tb.senders else by_recv
+        assert lay is not None and lay[0] is want[0] and lay[1] is want[1]
+    assert sum(ids is tb.senders for ids, _ in edge_sums) == 1
+
+    def apply_fn(v, b, train=False):
+        return jmodel.apply(v, b, train=False), None
+    je, jf, _ = j_ef(apply_fn, jax.tree_util.tree_map(jnp.asarray, variables),
+                     jb)
+    real = tb.node_mask.numpy()
+    graphs = tb.graph_mask.numpy()
+    np.testing.assert_allclose(got_e.numpy()[graphs], np.asarray(je)[graphs],
+                               **TOL)
+    np.testing.assert_allclose(got_f.numpy()[real], np.asarray(jf)[real],
+                               **TOL)
+    assert np.abs(got_f.numpy()[real]).max() > 0
