@@ -46,13 +46,42 @@ Phases:
    the CPU within rtol 1e-4 / atol 1e-5, then 60 timed bursts and
    one profiled EF forward + backward (device time, launches, argsorts).
 
+5. csce PNA training (`run_training` at the config's published width,
+   512 molecules, batch 128, 2 steps an epoch): first the two PNA
+   Functions' backwards against autograd through the plain versions at
+   the training loader's shape (dense N 8,192, K 24, F 200, and the same
+   batch as an edge list), random data within rtol/atol 2e-5 and the
+   tie-rich dyadic cases bitwise, with their device times (20 calls in
+   one CUDA graph) against their byte bounds. Then the first step: loss
+   card vs CPU within rtol 1e-4 / atol 1e-5, each gradient tensor through
+   the kernels vs through the plain versions on the card within 1e-2
+   relative L2 (card vs CPU and float64 gaps printed: float32 is a few
+   percent off the float64 gradient in the middle layers here);
+   3 epochs with SGD on the card and on the CPU (every epoch's train
+   loss within rtol 1e-3, val/test within 1e-2), the config's AdamW 3
+   epochs on the card twice (the main
+   path: histories and parameters bitwise equal; every kernel counted) and
+   once on the CPU (its gap printed: Adam turns gradients below its eps
+   into lr-sized updates whose sign follows the summation order), one
+   epoch on the edge list, `run_prediction` from the trained state (card
+   vs CPU within rtol 1e-4 / atol 1e-5), and per path the step time (CUDA
+   events, median of 10 after 2 warm-up steps), one profiled step's
+   device time and launches, the card's idle share and graphs/s.
+6. LJ SchNet energy-force training (LJ.json at its widths, 512 cells,
+   batch 16; 2 epochs of its 20, for time; on the edge list, the layout
+   of the EF engine and of kernel 4): the same checks and numbers;
+   the force loss differentiates the filter-scatter's and the segment
+   sum's backwards again (`create_graph=True`).
+
 The last line is {"ok": true, "device": {...}}; the line before it
-holds the per-kernel JSON record (per-shape records under `shapes`), the
-line before that the card's name and power limit. Any failure exits
-non-zero without that line.
+holds the per-kernel JSON record (per-shape records under `shapes`; the
+two PNA backwards as rows of their own), the line before that the card's
+name and power limit, and before it a `training: {...}` JSON line. Any
+failure exits non-zero without the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -72,6 +101,9 @@ SLICE_TOL = dict(rtol=1e-4, atol=1e-5)
 LJ_CONFIG = "examples/LennardJones/LJ.json"
 NUM_LJ = 512                   # LJ cells of 27 atoms
 LJ_BURSTS = 60                 # timed EF bursts, after the main-path one
+TRAIN_RTOL = 1e-3              # card vs cpu, every epoch's train loss
+EVAL_RTOL = 1e-2               # and its val/test losses (eval-mode BN)
+LJ_EPOCHS = 2                  # LJ.json trains 20 epochs; cut for time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 CSCE_CONFIG = "examples/csce/csce_gap.json"
@@ -645,19 +677,14 @@ def schnet_phase(torch, device, card):
                              ProfilerActivity.CUDA]) as prof:
         energy_forces_from_node_head(model, edge_batch)
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        dev_t = getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_t > 0:
-            rows.append((dev_t, ev.key, ev.count))
+    dev_ms, n_launch, rows = profile_rows(torch, prof)
     argsorts = sum(ev.count for ev in prof.key_averages()
                    if ev.key == "aten::argsort")
     sort_launches = sum(r[2] for r in rows if "sort" in r[1].lower())
     print(f"EF forward+backward on the largest bucket (N={edge_batch.num_nodes}"
           f", E={edge_batch.num_edges}): {fwd:.3f} ms (CUDA events); "
-          f"profile: device time {sum(r[0] for r in rows) / 1e3:.3f} ms in "
-          f"{sum(r[2] for r in rows)} kernel launches; {argsorts} argsorts "
+          f"profile: device time {dev_ms:.3f} ms in "
+          f"{n_launch} kernel launches; {argsorts} argsorts "
           f"({sort_launches} sort kernel launches, "
           f"{sum(r[0] for r in rows if 'sort' in r[1].lower()) / 1e3:.3f} "
           f"ms)", flush=True)
@@ -691,17 +718,439 @@ def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
           f"{host_ms:.2f} ms (host); forward edge-list N={edge_batch.num_nodes} "
           f"{fwd_edge:.3f} ms, dense N={dense_batch.num_nodes} "
           f"{fwd_dense:.3f} ms (CUDA events)", flush=True)
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total",
-                      getattr(ev, "self_cuda_time_total", 0.0))
-        if dev > 0:
-            rows.append((dev, ev.key, ev.count))
-    total = sum(r[0] for r in rows)
-    print(f"profile of one edge-list forward: device time {total / 1e3:.3f} "
-          f"ms in {sum(r[2] for r in rows)} kernel launches", flush=True)
+    total, n_launch, rows = profile_rows(torch, prof)
+    print(f"profile of one edge-list forward: device time {total:.3f} "
+          f"ms in {n_launch} kernel launches", flush=True)
     for dev, key, count in sorted(rows, reverse=True)[:10]:
         print(f"  {dev / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+
+
+def profile_rows(torch, prof):
+    """(device ms, kernel launches, rows) of a profiler run: the device
+    events (kernels, copies, sets) and their time. The operator events
+    that launched them carry the same device time as their own and are
+    left out, or every kernel would count twice."""
+    rows = []
+    for ev in prof.key_averages():
+        dev_t = getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((dev_t, ev.key, ev.count))
+    return (sum(r[0] for r in rows) / 1e3, sum(r[2] for r in rows), rows)
+
+
+def check_pna_backwards(torch, batch, device, f):
+    """Phase 5a: the two PNA Functions' backwards (`nbr_aggregate_vjp`,
+    `pna_edge_vjp`) against autograd through the plain versions on the
+    card, at the training loader's shape (dense and the edge list of the
+    same batch, F = the hidden width): random data within SUM_TOL, the
+    tie-rich dyadic cases bitwise. Times: the backward's call (CUDA
+    events), its device time (20 calls in one CUDA graph) against its
+    byte bound, and autograd's backward through the plain version."""
+    from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
+                                                     tie_rich_neighbor_case)
+    from hydragnn_tpu_torch.kernels import fused_mp, nbr
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    records = {}
+    n, k = batch.nbr.shape
+    e = batch.num_edges
+    for kind in ("dense", "edge"):
+        cases = []
+        if kind == "dense":
+            cases.append(((randn(n, f), randn(n, f), batch.nbr,
+                           batch.nbr_mask), False))
+            cases.append((tuple(t(a) for a in tie_rich_neighbor_case(
+                SEED, n=n, k=k, f=f)), True))
+        else:
+            cases.append(((randn(n, f), randn(n, f), batch.senders,
+                           batch.receivers, batch.edge_mask, n), False))
+            cases.append((tuple(t(a) for a in tie_rich_edge_case(
+                SEED, n=n, f=f)) + (n,), True))
+        errs = []
+        for args, dyadic in cases:
+            if dyadic:
+                rng = np.random.RandomState(SEED)
+                grads = [t(rng.randint(-4, 5, (n, f)) / 8).float()
+                         for _ in range(3)]
+                grads.insert(3 if kind == "dense" else 1,
+                             torch.zeros(n, f, device=device))
+            else:
+                grads = [randn(n, f) for _ in range(4)]
+            pair = []
+            for plain in (False, True):
+                pi = args[0].clone().requires_grad_(True)
+                pj = args[1].clone().requires_grad_(True)
+                if kind == "dense":
+                    fn = nbr.nbr_aggregate_plain if plain \
+                        else nbr.nbr_aggregate
+                    res = fn(pi, pj, *args[2:])[:4]
+                else:
+                    fn = (fused_mp.pna_edge_accumulators_plain if plain
+                          else fused_mp.pna_edge_accumulators)
+                    acc = fn(pi, pj, *args[2:])
+                    res = (acc[0], acc[1], acc[3], acc[4])
+                loss = sum((r * g).sum() for r, g in zip(res, grads))
+                pair.append(torch.autograd.grad(loss, (pi, pj)))
+            for name, got, want in zip(("dproj_i", "dproj_j"), *pair):
+                errs.append(compare(torch, f"{kind} backward {name}"
+                                    + (" (dyadic)" if dyadic else ""),
+                                    got, want, exact=dyadic))
+        # the timed backward: random data at the loader's shape, with the
+        # layouts a training forward builds once
+        args, _ = cases[0]
+        grads = [randn(n, f) for _ in range(4)]
+        if kind == "dense":
+            layout = nbr.neighbor_layout(batch.nbr, batch.nbr_mask)
+            _, mn, mx, _, _ = nbr.nbr_aggregate(args[0], args[1], batch.nbr,
+                                                batch.nbr_mask)
+
+            def vjp(pi, pj, g0, g1, g2, g3):
+                return nbr.nbr_aggregate_vjp(pi, pj, batch.nbr,
+                                             batch.nbr_mask, mn, mx, g0, g1,
+                                             g2, g3, layout=layout)
+            slots = int(batch.nbr_mask.sum())
+            # proj_i, proj_j, min, max, 4 cotangents in, 2 gradients out,
+            # the table and the neighbour layout read once
+            nbytes = 4 * 10 * n * f + 5 * n * k + 4 * (slots + n + 1)
+            flops = 30 * slots * f
+        else:
+            lay = fused_mp.edge_layout(batch.senders, batch.receivers,
+                                       batch.edge_mask, n)
+            lay_t = fused_mp.edge_layout(batch.receivers, batch.senders,
+                                         batch.edge_mask, n)
+            acc = fused_mp.pna_edge_accumulators(args[0], args[1],
+                                                 *args[2:], lay)
+            mn, mx = acc[3], acc[4]
+
+            def vjp(pi, pj, g0, g1, g2, g3):
+                return fused_mp.pna_edge_vjp(
+                    pi, pj, batch.senders, batch.receivers, batch.edge_mask,
+                    n, mn, mx, g0, g1, g2, g3, lay, lay_t)
+            slots = int(batch.edge_mask.sum())
+            # proj_i, proj_j, mn, mx, 4 cotangents in, 2 gradients out, the
+            # edges (2 ids and a mask) and the two layouts read once
+            nbytes = 4 * 10 * n * f + 9 * e + 4 * 2 * (slots + n + 1)
+            flops = 20 * slots * f
+        b_ms, b_by = bound_ms(nbytes, flops)
+        vargs = (args[0], args[1], *grads)
+        ms = cuda_ms(torch, lambda: vjp(*vargs))
+        dev = device_ms(torch, f"{kind} backward", vjp, vargs, b_ms)
+        pi = args[0].clone().requires_grad_(True)
+        pj = args[1].clone().requires_grad_(True)
+        if kind == "dense":
+            res = nbr.nbr_aggregate_plain(pi, pj, *args[2:])[:4]
+        else:
+            acc = fused_mp.pna_edge_accumulators_plain(pi, pj, *args[2:])
+            res = (acc[0], acc[1], acc[3], acc[4])
+        loss = sum((r * g).sum() for r, g in zip(res, grads))
+        plain = cuda_ms(torch, lambda: torch.autograd.grad(
+            loss, (pi, pj), retain_graph=True), reps=10)
+        name = ("nbr_aggregate.backward" if kind == "dense"
+                else "pna_edge_aggregate.backward")
+        width = f"K={k}" if kind == "dense" else f"E={e}"
+        print(f"{name}: N={n} {width} F={f} real={slots} call_ms={ms:.4f} device_ms(graph)="
+              f"{dev:.4f} bound_ms={b_ms:.5f} ({b_by}) plain autograd "
+              f"backward_ms={plain:.4f} max_abs_err={max(errs):.3e} "
+              "(random within SUM_TOL, tie-rich dyadic bitwise)", flush=True)
+        records[name] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev,
+                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+    return records
+
+
+def train_parts(torch, cfg, splits, device):
+    """What run_training builds, for the step measurements: (model,
+    state, train step, train loader, completed config, model config)."""
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    cfg = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = tcfg.build_model_config(cfg)
+    tr = cfg["NeuralNetwork"]["Training"]
+    nbr_fmt = bool(cfg["NeuralNetwork"]["Architecture"].get(
+        "neighbor_format", True))
+    loader = create_dataloaders(*splits, int(tr["batch_size"]),
+                                neighbor_format=nbr_fmt)[0]
+    model = create_model(mcfg, device=device, seed=SEED)
+    tx = topt.select_optimizer(tr)
+    state = tstep.TrainState.create(model, tx)
+    fw = tr.get("force_loss_weight", 1.0)
+    step = tstep.make_train_step(
+        model, mcfg, tx, tr.get("loss_function_type", "mse"),
+        compute_grad_energy=bool(tr.get("compute_grad_energy", False)),
+        energy_weight=float(tr.get("energy_loss_weight", 1.0)),
+        force_weight=fw if fw == "auto" else float(fw))
+    return model, state, step, loader, cfg, mcfg
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper of the model's path replaced by its plain
+    PyTorch version under autograd (the yardstick on the same card)."""
+    from hydragnn_tpu_torch.kernels import fused_mp, nbr, segment
+    from hydragnn_tpu_torch.models import convs
+    from hydragnn_tpu_torch.ops import geometry
+    from hydragnn_tpu_torch.ops import segment as oseg
+
+    def edge(pi, pj, s_, r_, m_, n, eps=1e-5, layout=None, layout_t=None):
+        return oseg.pna_stats_epilogue(
+            *fused_mp.pna_edge_accumulators_plain(pi, pj, s_, r_, m_, n), eps)
+
+    patches = [
+        (convs, "nbr_aggregate",
+         lambda pi, pj, n_, m_, eps=1e-5, layout=None:
+             nbr.nbr_aggregate_plain(pi, pj, n_, m_, eps)),
+        (convs, "pna_edge_aggregate", edge),
+        (oseg._seg_kernel, "segment_sum",
+         lambda d, i, n, indices_are_sorted=False, layout=None:
+             segment.segment_sum_plain(d, i, n)),
+        (fused_mp, "filter_scatter",
+         lambda h, w, s_, r_, m_, n, layout=None:
+             fused_mp.filter_scatter_plain(h, w, s_, r_, m_, n)),
+        (geometry, "gather_rows", lambda x, i, layout=None:
+             x.index_select(0, i))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def first_step_gradients(torch, cfg, splits, card):
+    """The first training batch's loss and parameter gradients from one
+    seeded initialization: on the card through the kernels, on the card
+    through the plain versions, on the CPU, and on the CPU in float64.
+
+    Held: the loss, card vs CPU, within SLICE_TOL; and for every tensor
+    the relative L2 gap of its gradient through the kernels vs through
+    the plain versions on the card, at most 1e-2 (or ten times the CPU
+    float32 gradient's own relative error against float64, for a tensor
+    whose gradient is 0 but for rounding): a lost gradient path gives 1.
+    Printed, not held: card vs CPU, the largest entry errors and how many
+    entries lie outside SLICE_TOL. At csce width float32 misses the
+    float64 gradient of a middle layer by up to a few percent (the PNA
+    std aggregator's sq / c - mean² cancels; the isolated atoms'
+    attenuation scaler lifts their features to ~1e4 and the batch norms
+    carry them), more on the card than on the CPU, so two devices cannot
+    agree entry by entry at rtol 1e-4."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+    runs = {}
+    for tag, dev, dtype in (("card", card, torch.float32),
+                            ("card_plain", card, torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        model, state, _, loader, cfg_c, mcfg = train_parts(torch, cfg,
+                                                           splits, dev)
+        model.to(dtype)
+        tr = cfg_c["NeuralNetwork"]["Training"]
+        loader.set_epoch(0)
+        batch = next(iter(loader)).to(dev)
+        batch = batch.replace(**{
+            k: getattr(batch, k).to(dtype) for k in (
+                "x", "pos", "y_graph", "y_node", "edge_shifts", "energy",
+                "forces") if getattr(batch, k) is not None})
+        model.train()
+        with (plain_versions() if tag == "card_plain"
+              else contextlib.nullcontext()):
+            total, _ = tstep.make_loss_fn(
+                model, mcfg, tr.get("loss_function_type", "mse"),
+                compute_grad_energy=bool(tr.get("compute_grad_energy")))(
+                    batch)
+            grads = torch.autograd.grad(total, list(model.parameters()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        runs[tag] = (float(total.detach()),
+                     [g.detach().cpu().double() for g in grads],
+                     [k for k, _ in model.named_parameters()])
+    l_card, g_card, names = runs["card"]
+    l_cpu, g_cpu, _ = runs["cpu"]
+    if not np.isclose(l_card, l_cpu, **SLICE_TOL):
+        fail(f"first step loss card {l_card} vs cpu {l_cpu}")
+    rec = dict(loss_gap=abs(l_card - l_cpu), kernels_vs_plain=0.0,
+               card_cpu=0.0, outside=0, elements=0, rel_l2_card_cpu=0.0,
+               rel_l2_kernels_plain=0.0, rel_l2_cpu_f64=0.0)
+
+    def rel(x, y):
+        return float((x - y).norm() / max(float(y.norm()), 1e-30))
+    worst = []
+    for name, a, p_, b, w in zip(names, g_card, runs["card_plain"][1],
+                                 g_cpu, runs["cpu64"][1]):
+        q = rel(b, w)
+        bound = max(1e-2, 10 * q)
+        if not rel(a, p_) <= bound:
+            fail(f"first step gradient {name}: kernels vs plain versions "
+                 f"on the card relative L2 gap {rel(a, p_)} above {bound} "
+                 f"(cpu float32 vs float64 {q})")
+        worst.append((rel(a, b), name, rel(a, w), q))
+        rec["kernels_vs_plain"] = max(rec["kernels_vs_plain"],
+                                      float((a - p_).abs().max()))
+        rec["card_cpu"] = max(rec["card_cpu"], float((a - b).abs().max()))
+        rec["outside"] += int((~torch.isclose(a, b, **SLICE_TOL)).sum())
+        rec["elements"] += a.numel()
+        if float(w.abs().max()) > 1e-12:   # not 0 but for rounding
+            rec["rel_l2_card_cpu"] = max(rec["rel_l2_card_cpu"], rel(a, b))
+            rec["rel_l2_kernels_plain"] = max(rec["rel_l2_kernels_plain"],
+                                              rel(a, p_))
+            rec["rel_l2_cpu_f64"] = max(rec["rel_l2_cpu_f64"], q)
+    rec["worst_card_cpu"] = [
+        dict(tensor=n, card_cpu=r, card_f64=c, cpu_f64=q)
+        for r, n, c, q in sorted(worst, reverse=True)[:4]]
+    return rec
+
+
+def history_gaps(card_hist, cpu_hist, keys=("train_loss", "val_loss",
+                                             "test_loss")):
+    """{key: max relative gap over the epochs} of two histories."""
+    return {k: max(abs(a - b) / max(abs(b), 1e-12)
+                   for a, b in zip(card_hist[k], cpu_hist[k])) for k in keys}
+
+
+def step_metrics(torch, cfg, splits, device, label, real_graphs):
+    """Per training path: step time (CUDA events, median of 10 after 2
+    warm-up steps), device time and launches of one profiled step, the
+    card's idle share within a step, graphs/s; lists the profiled step's
+    scatter-type kernels (an atomic scatter would break repeatability)."""
+    from torch.profiler import ProfilerActivity, profile
+    model, state, step, loader, _, _ = train_parts(torch, cfg, splits,
+                                                   device)
+    loader.set_epoch(0)
+    batches = [b.to(device) for b, _ in zip(loader, range(3))]
+    for i in range(2):
+        state, _ = step(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    times = []
+    for i in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = step(state, batches[i % len(batches)])
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    step_ms = float(np.median(times))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batches[0])
+        torch.cuda.synchronize()
+    dev_ms, launches, rows = profile_rows(torch, prof)
+    scatters = sorted({key[:70] for _, key, _ in rows
+                       if any(w in key.lower() for w in
+                              ("scatter", "indexfunc", "index_add",
+                               "atomic", "index_put"))})
+    idle = max(0.0, 1.0 - dev_ms / step_ms)
+    print(f"{label} train step ({real_graphs} graphs): {step_ms:.3f} ms "
+          f"median (CUDA events, {min(times):.3f}-{max(times):.3f}); one "
+          f"profiled step: device time {dev_ms:.3f} ms in {launches} kernel "
+          f"launches; idle share {idle:.3f}; {real_graphs / step_ms * 1e3:.1f}"
+          f" graphs/s; scatter-type kernels: {scatters}", flush=True)
+    for dev_t, key, count in sorted(rows, reverse=True)[:8]:
+        print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return dict(step_ms=step_ms, step_ms_range=[min(times), max(times)],
+                device_ms=dev_ms, launches_per_step=launches,
+                idle_share=idle, graphs_per_s=real_graphs / step_ms * 1e3,
+                scatter_kernels=scatters)
+
+
+def training_phase(torch, label, base_cfg, splits, device, num_epoch,
+                   real_graphs, counted):
+    """Phases 5b-5c / 6: one configuration trained through run_training.
+    The first step (`first_step_gradients`); SGD with momentum (the
+    config's widths and learning rate) on the card and on the CPU, every
+    epoch's train loss within rtol TRAIN_RTOL and val/test losses within
+    EVAL_RTOL (eval-mode batch norm reads running statistics, which carry
+    every step's difference). The config's own optimizer on
+    the card twice (the main path, counted): bitwise-equal histories and
+    parameters; its gap to a CPU run is printed, not held (Adam turns
+    gradient noise below its eps into full-size updates). Returns (the
+    main run's (state, model, completed config), launches, record)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    cfg = copy.deepcopy(base_cfg)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = num_epoch
+    sgd = copy.deepcopy(cfg)
+    opt = cfg["NeuralNetwork"]["Training"]["Optimizer"]
+    sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
+        "type": "SGD", "learning_rate": opt.get("learning_rate", 1e-3)}
+    first = first_step_gradients(torch, sgd, splits, device)
+    print(f"{label} first step: loss card vs cpu {first['loss_gap']:.3e}; "
+          f"largest relative L2 gap of a gradient tensor: kernels vs plain "
+          f"versions on the card {first['rel_l2_kernels_plain']:.3e}, card "
+          f"vs cpu {first['rel_l2_card_cpu']:.3e}, cpu float32 vs float64 "
+          f"{first['rel_l2_cpu_f64']:.3e}; largest entry error kernels vs "
+          f"plain {first['kernels_vs_plain']:.3e}, card vs cpu "
+          f"{first['card_cpu']:.3e} ({first['outside']} of "
+          f"{first['elements']} entries outside {SLICE_TOL}); widest card "
+          f"vs cpu gaps: {first['worst_card_cpu']}", flush=True)
+
+    t0 = time.perf_counter()
+    _, h_cpu, _, _ = run_training(copy.deepcopy(sgd), datasets=splits,
+                                  device="cpu")
+    t_cpu = time.perf_counter() - t0
+    _, h_card, _, _ = run_training(copy.deepcopy(sgd), datasets=splits,
+                                   device=device)
+    gaps = history_gaps(h_card, h_cpu)
+    print(f"{label} SGD {num_epoch} epochs card vs cpu ({t_cpu:.1f} s on "
+          f"the cpu): relative gaps {gaps}; card train {h_card['train_loss']}"
+          f" val {h_card['val_loss']} test {h_card['test_loss']}", flush=True)
+    for k, v in gaps.items():
+        bound = TRAIN_RTOL if k == "train_loss" else EVAL_RTOL
+        if not v <= bound:
+            fail(f"{label}: SGD {k} card vs cpu gap {v} above {bound}")
+
+    runs = []
+    launches = {}
+    for i in range(2):
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist, model, completed = run_training(
+            copy.deepcopy(cfg), datasets=splits, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if i == 0:
+            launches = tk.launch_counts()
+            counted(launches)
+            main = (state, model, completed)
+        runs.append((hist, {k: v.detach().cpu().clone()
+                            for k, v in state.state_dict().items()}, wall))
+    (h0, s0, w0), (h1, s1, w1) = runs
+    same = all(h0[k] == h1[k] for k in h0) and all(
+        torch.equal(v, s1[k]) for k, v in s0.items())
+    print(f"{label} {opt['type']} {num_epoch} epochs on the card twice "
+          f"({w0:.1f} s, {w1:.1f} s): histories and parameters bitwise "
+          f"equal: {same}; train {h0['train_loss']} val {h0['val_loss']} "
+          f"test {h0['test_loss']} lr {h0['lr']}; launches {launches}",
+          flush=True)
+    if not same:
+        fail(f"{label}: two card runs from one seed differ")
+    for k in ("train_loss", "val_loss", "test_loss"):
+        if not np.isfinite(h0[k]).all():
+            fail(f"{label}: non-finite {k} {h0[k]}")
+    if sum(h0["nonfinite_steps"]):
+        fail(f"{label}: non-finite steps {h0['nonfinite_steps']}")
+    t0 = time.perf_counter()
+    _, h_cpu_cfg, _, _ = run_training(copy.deepcopy(cfg), datasets=splits,
+                                      device="cpu")
+    print(f"{label} {opt['type']} card vs cpu ({time.perf_counter() - t0:.1f}"
+          f" s on the cpu), not held: relative gaps "
+          f"{history_gaps(h0, h_cpu_cfg)}; cpu train "
+          f"{h_cpu_cfg['train_loss']} val {h_cpu_cfg['val_loss']}", flush=True)
+    record = dict(first_step=first, sgd_relative_gaps=gaps,
+                  config_optimizer_relative_gaps=history_gaps(h0, h_cpu_cfg),
+                  bitwise_repeat=same, history=h0)
+    return main, launches, record
 
 
 def main() -> int:
@@ -717,7 +1166,7 @@ def main() -> int:
               "from the repository root", file=sys.stderr)
         return 2
     from hydragnn_tpu_torch import kernels as tk
-    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.config import config as tcfg
     from hydragnn_tpu_torch.graphs.batch import (collate,
                                                  neighbor_budget_for_dataset,
@@ -901,6 +1350,104 @@ def main() -> int:
     for name, c in counts.items():
         launches[name] = launches.get(name, 0) + c
 
+    # ---------------------------------------------------------- phase 5
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+
+    def counted(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    loader = create_dataloaders(*splits, batch_size, neighbor_format=True)[0]
+    loader.set_epoch(0)
+    train_batch = next(iter(loader)).to(device)
+    steps_per_epoch = len(loader)
+    print(f"phase 5: csce PNA training, {len(splits[0])} train molecules, "
+          f"batch {batch_size}, {steps_per_epoch} steps an epoch; loader "
+          f"batch N={train_batch.num_nodes} E={train_batch.num_edges} "
+          f"K={train_batch.nbr.shape[1]}", flush=True)
+    records.update(check_pna_backwards(torch, train_batch, device,
+                                       mcfg.hidden_dim))
+    epochs = int(base_cfg["NeuralNetwork"]["Training"]["num_epoch"])
+    (state, t_model, completed), counts, pna_rec = training_phase(
+        torch, "csce PNA (dense)", base_cfg, splits, device, epochs,
+        batch_size, counted)
+    for name in ("nbr_aggregate", "nbr_aggregate_backward", "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the dense training path")
+    backward_per_step = {
+        "nbr_aggregate.backward":
+            counts["nbr_aggregate_backward"] / (epochs * steps_per_epoch)}
+    edge_cfg = copy.deepcopy(base_cfg)
+    edge_cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+    edge_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    tk.reset_launch_counts()
+    _, h_edge, _, _ = run_training(copy.deepcopy(edge_cfg), datasets=splits,
+                                   device=device)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    counted(counts)
+    print(f"csce PNA (edge list) 1 epoch on the card: train "
+          f"{h_edge['train_loss']} val {h_edge['val_loss']}; launches "
+          f"{counts}", flush=True)
+    for name in ("pna_edge_aggregate", "pna_edge_aggregate_backward",
+                 "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the edge-list training path")
+    if not np.isfinite(h_edge["train_loss"]).all():
+        fail("edge-list training: non-finite loss")
+    backward_per_step["pna_edge_aggregate.backward"] = \
+        counts["pna_edge_aggregate_backward"] / steps_per_epoch
+    trues_t, preds_t = run_prediction(completed, splits, state=state,
+                                      model=t_model)
+    _, preds_tc = run_prediction(completed, splits, state=state,
+                                 model=t_model, device="cpu")
+    err_tp = float(np.abs(preds_t[0] - preds_tc[0]).max())
+    if preds_t[0].shape != (len(test), 1) or not np.isfinite(
+            preds_t[0]).all() or not np.allclose(preds_t[0], preds_tc[0],
+                                                 **SLICE_TOL):
+        fail(f"run_prediction from the trained state: shape "
+             f"{preds_t[0].shape}, card vs cpu max err {err_tp}")
+    rmse = float(np.sqrt(np.mean((preds_t[0] - trues_t[0]) ** 2)))
+    print(f"run_prediction from the trained state: card vs cpu max abs err "
+          f"{err_tp:.3e}; test RMSE {rmse:.4f}", flush=True)
+    train_paths = {"csce_pna_dense": step_metrics(
+        torch, base_cfg, splits, device, "csce PNA (dense)", batch_size)}
+    train_paths["csce_pna_edge"] = step_metrics(
+        torch, edge_cfg, splits, device, "csce PNA (edge list)", batch_size)
+    train_paths["csce_pna_dense"]["run"] = pna_rec
+
+    # ---------------------------------------------------------- phase 6
+    from hydragnn_tpu_torch.graphs.synthetic import lj_configurations
+    with open(LJ_CONFIG) as fh:
+        lj_cfg = json.load(fh)
+    # the edge list, the layout the EF engine serves and kernel 4 walks
+    # (run_training's default is the dense layout)
+    lj_cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+    lj_samples = lj_configurations(NUM_LJ, seed=SEED)
+    lj_splits = (lj_samples[:n_tr], lj_samples[n_tr:n_tr + n_va],
+                 lj_samples[n_tr + n_va:])
+    lj_bs = int(lj_cfg["NeuralNetwork"]["Training"]["batch_size"])
+    print(f"phase 6: LJ SchNet energy-force training, {len(lj_splits[0])} "
+          f"train cells, batch {lj_bs}, {LJ_EPOCHS} epochs (LJ.json: "
+          f"{lj_cfg['NeuralNetwork']['Training']['num_epoch']}, cut for "
+          "time; widths as published), edge list", flush=True)
+    _, counts, lj_rec = training_phase(torch, "LJ SchNet EF", lj_cfg,
+                                       lj_splits, device, LJ_EPOCHS, lj_bs,
+                                       counted)
+    for name in ("filter_scatter", "filter_scatter_backward",
+                 "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the EF training path")
+    lj_cfg_cut = copy.deepcopy(lj_cfg)
+    lj_cfg_cut["NeuralNetwork"]["Training"]["num_epoch"] = LJ_EPOCHS
+    train_paths["lj_schnet_ef"] = step_metrics(
+        torch, lj_cfg_cut, lj_splits, device, "LJ SchNet EF", lj_bs)
+    train_paths["lj_schnet_ef"]["run"] = lj_rec
+    for rec in (pna_rec, lj_rec):
+        rec.pop("history")
+    print("training: " + json.dumps({"card": card, "paths": train_paths}),
+          flush=True)
+
     for name, c in launches.items():
         if c == 0:
             fail(f"{name} never launched on the main path")
@@ -923,6 +1470,21 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches[name],
                             **extra, **records[name]))
+    # the two PNA Functions' backwards: closed-form VJPs in torch ops whose
+    # segment sums are csrc/segment_sum.cu on CSR layouts (the TPU
+    # kernels' custom VJPs remat in XLA at the lines given)
+    for name, src, rep, counter in (
+            ("nbr_aggregate.backward", "hydragnn_tpu_torch/kernels/nbr.py",
+             "hydragnn_tpu/kernels/nbr_pallas.py:149",
+             "nbr_aggregate_backward"),
+            ("pna_edge_aggregate.backward",
+             "hydragnn_tpu_torch/kernels/fused_mp.py",
+             "hydragnn_tpu/kernels/fused_mp_pallas.py:374",
+             "pna_edge_aggregate_backward")):
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=launches[counter],
+                            launches_per_step=backward_per_step[name],
+                            **records[name]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

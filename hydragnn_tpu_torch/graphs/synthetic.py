@@ -102,3 +102,45 @@ def lj_configurations(num_configs: int, atoms_per_dim: int = 3,
             s.energy = ((s.energy - mean) / std).astype(np.float32)
             s.forces = (s.forces / std).astype(np.float32)
     return samples
+
+
+def tie_rich_neighbor_case(seed: int = 0, n: int = 24, k: int = 8,
+                           f: int = 6):
+    """Dyadic inputs of the PNA aggregation on the dense layout on which
+    every gradient is exact in float32: (proj_i, proj_j [n, f], nbr [n, k]
+    int32, mask [n, k] bool). Each row's real slots are 0, 1, 2, 4 or 8
+    (counts that divide exactly), neighbours taken in pairs (two tied
+    messages), and one row holds one neighbour in all 8 slots (8 ties, a
+    variance of exactly 0); proj_j differs between any two rows, so ties
+    come only from repeated neighbours. Masked slots point at real rows.
+    Values are multiples of 1/1024 below 1 in magnitude, so their squares
+    and sums are exact too."""
+    rng = np.random.RandomState(seed)
+    proj_i = rng.randint(-8, 8, (n, f)).astype(np.float32) / 16
+    proj_j = (np.arange(n, dtype=np.float32)[:, None] / 64
+              + rng.randint(0, 4, (1, f)).astype(np.float32) / 1024)
+    nbr = rng.randint(0, n, (n, k)).astype(np.int32)
+    mask = np.zeros((n, k), bool)
+    for row in range(n):
+        real = (0, 1, 2, 4, 8)[row % 5] if row != 3 else 8
+        picks = rng.choice(n, max(real // 2, 1), replace=False)
+        slots = (np.repeat(picks, 2) if real > 1 else picks)[:real]
+        if row == 3:
+            slots = np.full(8, picks[0])
+        nbr[row, :real] = slots
+        mask[row, :real] = True
+    return proj_i, proj_j, nbr, mask
+
+
+def tie_rich_edge_case(seed: int = 0, n: int = 24, f: int = 6):
+    """The edge-list counterpart of `tie_rich_neighbor_case`: (proj_i,
+    proj_j, senders, receivers int32, edge_mask bool) whose kept in-edges
+    per node are 0, 1, 2, 4 or 8, senders in pairs, plus masked edges into
+    every node and edges whose receiver lies outside [0, n)."""
+    proj_i, proj_j, nbr, mask = tie_rich_neighbor_case(seed, n, 8, f)
+    rows = np.repeat(np.arange(n, dtype=np.int32), 8)
+    send, recv, keep = nbr.reshape(-1), rows, mask.reshape(-1)
+    order = np.random.RandomState(seed + 1).permutation(send.size)
+    send, recv, keep = send[order], recv[order].copy(), keep[order]
+    recv[~keep & (np.arange(send.size) % 7 == 0)] = n + 2
+    return proj_i, proj_j, send, recv, keep

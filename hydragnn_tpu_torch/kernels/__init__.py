@@ -8,7 +8,9 @@
 Each wrapper launches its kernel for CUDA tensors, runs its plain PyTorch
 version for CPU tensors, and counts its launches in an integer of its
 module; `filter_scatter` counts its forward calls and the calls its
-backward makes apart.
+backward makes apart. The backwards of `nbr_aggregate` and
+`pna_edge_accumulators` launch segment-sum kernels; each counts its calls
+on the card under `<kernel>_backward`.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ KERNEL_COUNTERS = {
     "pna_edge_aggregate": ("fused_mp", "launches"),
     "filter_scatter": ("fused_mp", "filter_launches"),
     "filter_scatter_backward": ("fused_mp", "filter_backward_launches"),
+    "nbr_aggregate_backward": ("nbr", "backward_launches"),
+    "pna_edge_aggregate_backward": ("fused_mp", "backward_launches"),
 }
 
 

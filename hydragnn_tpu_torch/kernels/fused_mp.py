@@ -18,6 +18,14 @@ it once and hands it to every layer (None on the CPU). On the H100 the kernel is
 device-memory bytes (proj_i once, one proj_j row per kept edge, the
 outputs) and needs no atomics.
 
+The accumulators run inside `_PnaEdgeAccums`, whose backward is
+`pna_edge_vjp`, the JAX VJP (a remat through the unfused accumulators) in
+closed form: per kept edge dh = g_s[recv] + 2 h g_sq[recv] plus the
+min/max cotangent shared evenly by the tied edges, then dproj_i and
+dproj_j as the port's segment sums over the receivers and the senders on
+their CSR layouts (the forward's receiver-sorted one and a sender-sorted
+one), without atomics.
+
 `filter_scatter` computes out[n] = sum over the kept edges e into n of
 h[send[e]] * w[e]: the CUDA kernel `csrc/filter_scatter.cu` walks the
 receiver-sorted layout for tensors on the card (inside `_FilterScatter`,
@@ -37,12 +45,14 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..ops.segment import pna_accumulators, pna_stats_epilogue
 from . import _build
-from .segment import segment_sum_plain, vec_width
+from .segment import gather_rows, segment_sum, segment_sum_plain, vec_width
 
 launches = 0              # pna_edge_aggregate
+backward_launches = 0     # pna_edge_aggregate, backward calls on the card
 filter_launches = 0       # filter_scatter, forward calls
 filter_backward_launches = 0  # filter_scatter, the dh of a backward
 
@@ -98,15 +108,110 @@ def csr_layout(senders, receivers, edge_mask, num_nodes):
             order.to(torch.int32).contiguous())
 
 
+def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
+                 mn, mx, g_s, g_sq, g_min, g_max, layout=None, layout_t=None):
+    """(dproj_i, dproj_j) of the accumulators (s, sq, cnt, mn, mx) for the
+    cotangents g_*, with h_e = proj_i[recv] + proj_j[send] on the kept
+    edges: dh_e = g_s[recv] + 2 h_e g_sq[recv] + g_min[recv] [h_e ==
+    mn[recv]] / ties + the same for max (tied edges share a node's
+    cotangent evenly, as JAX's segment min/max VJPs do); dproj_i and
+    dproj_j are the segment sums of dh over the receivers and the senders.
+    `layout` / `layout_t` are the receiver- and sender-sorted
+    `edge_layout`s of these edges (on the card; built here when not given);
+    the tie counts ride the receiver-sorted one too."""
+    n = int(num_nodes)
+    keep = _kept_edges(senders, receivers, edge_mask, n)[:, None]
+    zero = torch.zeros_like(senders)
+    send = torch.where(keep[:, 0], senders, zero).long()
+    recv = torch.where(keep[:, 0], receivers, zero).long()
+    h = proj_i.index_select(0, recv) + proj_j.index_select(0, send)
+    if proj_i.device.type == "cpu":
+        by_recv = by_send = None
+    else:
+        if layout is None:
+            layout = edge_layout(senders, receivers, edge_mask, n)
+        if layout_t is None:
+            layout_t = edge_layout(receivers, senders, edge_mask, n)
+        by_recv, by_send = segment_layouts((layout, layout_t))
+    fzero = torch.zeros((), dtype=h.dtype, device=h.device)
+    dh = torch.where(keep, g_s.index_select(0, recv)
+                     + 2.0 * (h * g_sq.index_select(0, recv)), fzero)
+    for g, ext in ((g_min, mn), (g_max, mx)):
+        hit = keep & (h == ext.index_select(0, recv))
+        ties = segment_sum(hit.to(h.dtype), recv, n, layout=by_recv)
+        share = g / torch.maximum(ties, torch.ones_like(ties))
+        dh = dh + torch.where(hit, share.index_select(0, recv), fzero)
+    return (segment_sum(dh, recv, n, layout=by_recv),
+            segment_sum(dh, send, n, layout=by_send))
+
+
+class _PnaEdgeAccums(torch.autograd.Function):
+    """The accumulators with the JAX VJP (`pna_edge_vjp`) as their
+    backward; the forward is the kernel for CUDA tensors and the plain
+    version for CPU ones. The mean/std epilogue stays outside, in
+    differentiable torch ops, as it stays outside the TPU kernel's
+    custom VJP."""
+
+    @staticmethod
+    def forward(ctx, proj_i, proj_j, senders, receivers, edge_mask,
+                num_nodes, layout, layout_t):
+        if proj_i.device.type == "cpu":
+            out = pna_edge_accumulators_plain(proj_i, proj_j, senders,
+                                              receivers, edge_mask, num_nodes)
+        else:
+            out = _launch_pna(proj_i, proj_j, num_nodes, layout)
+        s, sq, cnt, mn, mx = out
+        ctx.save_for_backward(proj_i, proj_j, senders, receivers, edge_mask,
+                              mn, mx)
+        ctx.num_nodes = num_nodes
+        ctx.layouts = (layout, layout_t)
+        ctx.mark_non_differentiable(cnt)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_s, g_sq, _g_cnt, g_min, g_max):
+        global backward_launches
+        proj_i, proj_j, senders, receivers, edge_mask, mn, mx = \
+            ctx.saved_tensors
+        d_i, d_j = pna_edge_vjp(proj_i, proj_j, senders, receivers,
+                                edge_mask, ctx.num_nodes, mn, mx, g_s, g_sq,
+                                g_min, g_max, *ctx.layouts)
+        if proj_i.device.type == "cuda":
+            backward_launches += 1
+        return d_i, d_j, None, None, None, None, None, None
+
+
+def _launch_pna(proj_i, proj_j, n, layout):
+    global launches
+    row_ptr, send_sorted, _ = layout
+    f = proj_i.shape[1]
+    dev = proj_i.device
+    s = torch.empty((n, f), dtype=torch.float32, device=dev)
+    sq = torch.empty_like(s)
+    mn = torch.empty_like(s)
+    mx = torch.empty_like(s)
+    cnt = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    vec = vec_width(f, proj_i, proj_j, s)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()(proj_i.data_ptr(), proj_j.data_ptr(), send_sorted.data_ptr(),
+                 row_ptr.data_ptr(), n, f, vec, s.data_ptr(), sq.data_ptr(),
+                 cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(), stream)
+    _build.check_launch(err, "pna_edge_aggregate")
+    launches += 1
+    return s, sq, cnt, mn, mx
+
+
 def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
-                          num_nodes, layout=None):
+                          num_nodes, layout=None, layout_t=None):
     """(s, sq, cnt [N, 1], mn, mx) in float32 over the kept in-edges of
     each node; mn/mx are 0 on a node without one. `layout` is
-    `edge_layout` of these edges, computed here when not given."""
-    global launches
+    `edge_layout` of these edges, computed here when not given;
+    `layout_t`, the sender-sorted one, is the backward's (built there when
+    not given)."""
     if proj_i.device.type == "cpu":
-        return pna_edge_accumulators_plain(proj_i, proj_j, senders,
-                                           receivers, edge_mask, num_nodes)
+        return _PnaEdgeAccums.apply(proj_i, proj_j, senders, receivers,
+                                    edge_mask, num_nodes, None, None)
     if proj_i.device.type != "cuda":
         raise ValueError(f"pna_edge_aggregate: unsupported device "
                          f"{proj_i.device}")
@@ -134,36 +239,26 @@ def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
     if not (proj_i.is_contiguous() and proj_j.is_contiguous()):
         raise ValueError("pna_edge_aggregate: projections must be "
                          "contiguous")
-    f = proj_i.shape[1]
     dev = proj_i.device
-    row_ptr, send_sorted, _ = (edge_layout(senders, receivers, edge_mask, n)
-                               if layout is None else layout)
-    if row_ptr.shape != (n + 1,) or send_sorted.shape != (e,) \
-            or row_ptr.device != dev or send_sorted.device != dev:
-        raise ValueError("pna_edge_aggregate: layout does not match the "
-                         "edges")
-    s = torch.empty((n, f), dtype=torch.float32, device=dev)
-    sq = torch.empty_like(s)
-    mn = torch.empty_like(s)
-    mx = torch.empty_like(s)
-    cnt = torch.empty((n, 1), dtype=torch.float32, device=dev)
-    vec = vec_width(f, proj_i, proj_j, s)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(proj_i.data_ptr(), proj_j.data_ptr(), send_sorted.data_ptr(),
-                 row_ptr.data_ptr(), n, f, vec, s.data_ptr(), sq.data_ptr(),
-                 cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(), stream)
-    _build.check_launch(err, "pna_edge_aggregate")
-    launches += 1
-    return s, sq, cnt, mn, mx
+    if layout is None:
+        layout = edge_layout(senders, receivers, edge_mask, n)
+    for lay in (layout, layout_t):
+        if lay is not None and (
+                lay[0].shape != (n + 1,) or lay[1].shape != (e,)
+                or lay[0].device != dev or lay[1].device != dev):
+            raise ValueError("pna_edge_aggregate: layout does not match "
+                             "the edges")
+    return _PnaEdgeAccums.apply(proj_i, proj_j, senders, receivers,
+                                edge_mask, n, layout, layout_t)
 
 
 def pna_edge_aggregate(proj_i, proj_j, senders, receivers, edge_mask,
-                       num_nodes, eps=1e-5, layout=None):
+                       num_nodes, eps=1e-5, layout=None, layout_t=None):
     """(mean, min, max, std, degree) of proj_i[recv] + proj_j[send] over
     the kept in-edges of each node."""
     return pna_stats_epilogue(
         *pna_edge_accumulators(proj_i, proj_j, senders, receivers,
-                               edge_mask, num_nodes, layout), eps)
+                               edge_mask, num_nodes, layout, layout_t), eps)
 
 
 # --------------------------------------------------------------------------
@@ -182,14 +277,19 @@ def filter_scatter_plain(h, w, senders, receivers, edge_mask, num_nodes):
     return segment_sum_plain(msg, recv, num_nodes)
 
 
-def filter_weight_grad(g, h, senders, receivers, edge_mask, num_nodes):
+def filter_weight_grad(g, h, senders, receivers, edge_mask, num_nodes,
+                       layouts=None):
     """dw of the filter-scatter: g[recv[e]] * h[send[e]] on kept edges, 0
-    elsewhere."""
+    elsewhere. The two gathers are `gather_rows`, whose gradient (taken
+    when a force loss differentiates dw again) is a segment sum on the
+    (receiver-sorted, sender-sorted) `layouts` of these edges: no atomic
+    scatter, so training repeats bitwise."""
     keep = _kept_edges(senders, receivers, edge_mask, num_nodes)
     zero = torch.zeros_like(senders)
     send = torch.where(keep, senders, zero)
     recv = torch.where(keep, receivers, zero)
-    dw = g.index_select(0, recv) * h.index_select(0, send)
+    by_recv, by_send = segment_layouts(layouts)
+    dw = gather_rows(g, recv, by_recv) * gather_rows(h, send, by_send)
     return torch.where(keep[:, None], dw, torch.zeros_like(dw))
 
 
@@ -208,7 +308,7 @@ def segment_layouts(layouts):
     edges from `filter_layouts`, the `layout` a segment sum over
     `receivers` or `senders` takes (kernels.segment.segment_sum); (None,
     None) for None. Masked and out-of-range edges are left out."""
-    if layouts is None:
+    if layouts is None or layouts[0] is None:
         return None, None
     by_recv, by_send = layouts
     return (by_recv[0], by_recv[2]), (by_send[0], by_send[2])
@@ -270,7 +370,8 @@ class _FilterScatter(torch.autograd.Function):
             dh = _FilterScatter.apply(g, w, receivers, senders, edge_mask, n,
                                       layout_t, layout, True)
         if ctx.needs_input_grad[1]:
-            dw = filter_weight_grad(g, h, senders, receivers, edge_mask, n)
+            dw = filter_weight_grad(g, h, senders, receivers, edge_mask, n,
+                                    ctx.layouts)
         return dh, dw, None, None, None, None, None, None, None
 
 

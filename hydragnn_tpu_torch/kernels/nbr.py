@@ -1,28 +1,39 @@
 """Fused neighbor-gather -> PNA statistics on the dense neighbor layout —
 the port of hydragnn_tpu/kernels/nbr_pallas.py::fused_neighbor_aggregate.
 
-`nbr_aggregate` launches the CUDA kernel `csrc/nbr_aggregate.cu` for
-tensors on the card and runs `nbr_aggregate_plain` (the ops/segment.py
-formulation, which materializes the [N, K, F] messages) for tensors on the
-CPU; a CUDA tensor the kernel does not take raises.
+`nbr_aggregate` runs inside `_NbrAggregate`, its autograd Function: the
+forward launches the CUDA kernel `csrc/nbr_aggregate.cu` for tensors on
+the card and runs `nbr_aggregate_plain` (the ops/segment.py formulation,
+which materializes the [N, K, F] messages) for tensors on the CPU; a CUDA
+tensor the kernel does not take raises.
 
 On the H100 the kernel is bound by device-memory bytes: proj_i once, one
 proj_j row per real slot (mostly L2 hits: proj_j fits the 50 MB L2 at the
 serving shapes), the index/mask tables and five outputs. It never forms
 [N, K, F]. A slot whose index lies outside [0, N) counts as masked on both
 paths.
+
+The backward is `nbr_aggregate_vjp`, the JAX VJP (a remat through the
+unfused reference) in closed form: it rebuilds the [N, K, F] messages,
+recomputes the statistics the way the plain version does and returns
+dproj_i as a sum over the slots and dproj_j as the port's segment sum over
+the neighbour ids, on a CSR layout of the kept slots (`neighbor_layout`,
+built once per forward), so the gradient needs no atomics either. It never
+calls the plain version, which stays the tests' yardstick.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..ops.segment import neighbor_aggregate
 from . import _build
-from .segment import vec_width
+from .segment import segment_sum, vec_width
 
-launches = 0
+launches = 0              # forward kernel launches
+backward_launches = 0     # backward calls on the card (segment-sum kernels)
 
 
 def nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
@@ -46,13 +57,141 @@ def _lib():
     return fn
 
 
-def nbr_aggregate(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
+def neighbor_layout(nbr, nbr_mask):
+    """(row_ptr [N + 1] int32, slot ids [N K] int32): the kept slots of
+    the flattened [N, K] table stable-sorted by neighbour id, the CSR view
+    the backward's segment sum over the neighbours walks (slot n K + k sums
+    into nbr[n, k]). The neighbour table is shared by every layer, so a
+    forward builds it once; None on the CPU, whose plain segment sum needs
+    none."""
+    if nbr.device.type == "cpu":
+        return None
+    from .fused_mp import csr_layout
+    n, k = nbr.shape
+    rows = torch.arange(n, dtype=torch.int32,
+                        device=nbr.device).repeat_interleave(k)
+    row_ptr, _, order = csr_layout(rows, nbr.reshape(-1),
+                                   nbr_mask.reshape(-1), n)
+    return row_ptr, order
+
+
+def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
+                      g_max, g_std, eps=1e-5, layout=None):
+    """(dproj_i, dproj_j) of `nbr_aggregate`'s (mean, min, max, std) for
+    the cotangents g_*, given the forward's min and max: with h =
+    proj_i[:, None] + proj_j[nbr], c = max(count, 1) and var_raw = sq / c
+    - mean²,
+
+    * dvar = g_std / (2 std), times 1 where var_raw > 0, 0.5 where it is
+      0 (the tie of JAX's and torch's maximum(var_raw, 0)), 0 below;
+    * ds = (g_mean - 2 dvar mean) / c, dsq = dvar / c;
+    * dh = mask (ds + 2 h dsq) + g_min [h == min] / ties + the same for
+      max: tied slots share the gradient evenly, as JAX's min/max VJPs
+      do;
+    * dproj_i = sum over the slots of dh; dproj_j = the segment sum of dh
+      over the neighbour ids (`layout`, from `neighbor_layout`, on the
+      card; built here when not given).
+
+    The sums are recomputed from h as the plain version computes them, so
+    the branch of each variance tie is the one the plain forward takes;
+    min and max are exact on both paths."""
+    n = proj_j.shape[0]
+    rows, k = nbr.shape
+    idx = nbr.long()
+    inside = (idx >= 0) & (idx < n)
+    mask = (nbr_mask & inside)[:, :, None]
+    idx = torch.where(inside, idx, torch.zeros_like(idx)).reshape(-1)
+    h = proj_i[:, None, :] + proj_j.index_select(0, idx).view(rows, k, -1)
+    zero = torch.zeros((), dtype=h.dtype, device=h.device)
+    cnt = torch.sum(mask.to(h.dtype), dim=1)                  # [N, 1]
+    c = torch.maximum(cnt, torch.ones_like(cnt))
+    hm = torch.where(mask, h, zero)
+    mean = torch.sum(hm, dim=1) / c
+    var_raw = torch.sum(hm * hm, dim=1) / c - mean * mean
+    std = torch.sqrt(torch.maximum(var_raw, zero) + eps)
+    dvar = g_std / (2.0 * std)
+    dvar = torch.where(var_raw > 0, dvar,
+                       torch.where(var_raw == 0, dvar * 0.5, zero))
+    ds = (g_mean - dvar * mean - dvar * mean) / c
+    dsq = dvar / c
+    dh = torch.where(mask, ds[:, None, :] + 2.0 * (hm * dsq[:, None, :]),
+                     zero)
+    for g, ext in ((g_min, mn), (g_max, mx)):
+        hit = mask & (h == ext[:, None, :])
+        ties = torch.sum(hit.to(h.dtype), dim=1)
+        share = g / torch.maximum(ties, torch.ones_like(ties))
+        dh = dh + torch.where(hit, share[:, None, :], zero)
+    d_i = torch.sum(dh, dim=1)
+    if layout is None:
+        layout = neighbor_layout(nbr, nbr_mask)
+    # masked slots carry dh = 0: summing them (CPU) or leaving them out
+    # (the layout) gives the same dproj_j
+    d_j = segment_sum(dh.reshape(rows * k, -1), idx, n, layout=layout)
+    return d_i, d_j
+
+
+def _launch(proj_i, proj_j, nbr, nbr_mask, eps):
+    global launches
+    n, f = proj_i.shape
+    k = nbr.shape[1]
+    dev = proj_i.device
+    mean = torch.empty((n, f), dtype=torch.float32, device=dev)
+    mn = torch.empty_like(mean)
+    mx = torch.empty_like(mean)
+    sd = torch.empty_like(mean)
+    deg = torch.empty((n,), dtype=torch.float32, device=dev)
+    vec = vec_width(f, proj_i, proj_j, mean)
+    if f // vec > 1024:
+        raise ValueError(f"nbr_aggregate: F={f} exceeds the kernel's "
+                         "1024 feature groups per block")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib()(proj_i.data_ptr(), proj_j.data_ptr(), nbr.data_ptr(),
+                 nbr_mask.data_ptr(), n, k, f, vec, float(eps),
+                 mean.data_ptr(), mn.data_ptr(), mx.data_ptr(), sd.data_ptr(),
+                 deg.data_ptr(), stream)
+    _build.check_launch(err, "nbr_aggregate")
+    launches += 1
+    return mean, mn, mx, sd, deg
+
+
+class _NbrAggregate(torch.autograd.Function):
+    """`nbr_aggregate` with the JAX VJP (`nbr_aggregate_vjp`) as its
+    backward; the forward is the kernel for CUDA tensors and the plain
+    version for CPU ones."""
+
+    @staticmethod
+    def forward(ctx, proj_i, proj_j, nbr, nbr_mask, eps, layout):
+        if proj_i.device.type == "cpu":
+            out = nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps)
+        else:
+            out = _launch(proj_i, proj_j, nbr, nbr_mask, eps)
+        ctx.save_for_backward(proj_i, proj_j, nbr, nbr_mask, out[1], out[2])
+        ctx.eps = eps
+        ctx.layout = layout
+        ctx.mark_non_differentiable(out[4])
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mean, g_min, g_max, g_std, _g_deg):
+        global backward_launches
+        proj_i, proj_j, nbr, nbr_mask, mn, mx = ctx.saved_tensors
+        d_i, d_j = nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx,
+                                     g_mean, g_min, g_max, g_std, ctx.eps,
+                                     ctx.layout)
+        if proj_i.device.type == "cuda":
+            backward_launches += 1
+        return d_i, d_j, None, None, None, None
+
+
+def nbr_aggregate(proj_i, proj_j, nbr, nbr_mask, eps=1e-5, layout=None):
     """(mean [N, F], min, max, std, degree [N]) of
     proj_i[:, None, :] + proj_j[nbr] over masked slots, without forming
-    the [N, K, F] tensor on the card."""
-    global launches
+    the [N, K, F] tensor on the card's forward. `layout` is
+    `neighbor_layout(nbr, nbr_mask)` for the backward, built there when
+    not given."""
     if proj_i.device.type == "cpu":
-        return nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps)
+        return _NbrAggregate.apply(proj_i, proj_j, nbr, nbr_mask, eps, None)
     if proj_i.device.type != "cuda":
         raise ValueError(f"nbr_aggregate: unsupported device {proj_i.device}")
     n, f = proj_i.shape
@@ -73,21 +212,4 @@ def nbr_aggregate(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
         raise ValueError("nbr_aggregate: all inputs must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("nbr_aggregate: inputs must be contiguous")
-    dev = proj_i.device
-    mean = torch.empty((n, f), dtype=torch.float32, device=dev)
-    mn = torch.empty_like(mean)
-    mx = torch.empty_like(mean)
-    sd = torch.empty_like(mean)
-    deg = torch.empty((n,), dtype=torch.float32, device=dev)
-    vec = vec_width(f, proj_i, proj_j, mean)
-    if f // vec > 1024:
-        raise ValueError(f"nbr_aggregate: F={f} exceeds the kernel's "
-                         "1024 feature groups per block")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(proj_i.data_ptr(), proj_j.data_ptr(), nbr.data_ptr(),
-                 nbr_mask.data_ptr(), n, k, f, vec, float(eps),
-                 mean.data_ptr(), mn.data_ptr(), mx.data_ptr(), sd.data_ptr(),
-                 deg.data_ptr(), stream)
-    _build.check_launch(err, "nbr_aggregate")
-    launches += 1
-    return mean, mn, mx, sd, deg
+    return _NbrAggregate.apply(proj_i, proj_j, nbr, nbr_mask, eps, layout)

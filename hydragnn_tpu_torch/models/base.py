@@ -1,5 +1,7 @@
 """`BaseStack` — the shared encoder / multihead-decoder pattern
-(counterpart: hydragnn_tpu/models/base.py), in its eval form.
+(counterpart: hydragnn_tpu/models/base.py). `model.train()` is the JAX
+package's `train=True`: the feature norms normalize with batch statistics
+and update their running ones; `model.eval()` uses the running ones.
 
 * encoder: `num_conv_layers` convs (subclass hook `make_conv`), each
   followed by MaskedBatchNorm and the activation;

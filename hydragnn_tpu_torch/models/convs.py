@@ -5,7 +5,8 @@ Aggregation runs through the port's kernels on both batch layouts: the
 dense neighbor layout (`batch.nbr` set, the `run_prediction` default) goes
 to `kernels.nbr.nbr_aggregate`, the edge list (the `InferenceEngine`
 default) to `kernels.fused_mp.pna_edge_aggregate`. Each launches its CUDA
-kernel for tensors on the card and its plain version on the CPU.
+kernel for tensors on the card and its plain version on the CPU, inside
+an autograd Function whose backward is the JAX VJP (training).
 """
 from __future__ import annotations
 
@@ -53,12 +54,14 @@ class PNAConv(nn.Module):
         proj_i = self.pre_i(x)
         proj_j = self.pre_j(x)
         if batch.nbr is not None:
-            mean, mn, mx, sd, deg = nbr_aggregate(proj_i, proj_j, batch.nbr,
-                                                  batch.nbr_mask)
+            mean, mn, mx, sd, deg = nbr_aggregate(
+                proj_i, proj_j, batch.nbr, batch.nbr_mask,
+                layout=cargs.get("nbr_layout"))
         else:
             mean, mn, mx, sd, deg = pna_edge_aggregate(
                 proj_i, proj_j, batch.senders, batch.receivers,
-                batch.edge_mask, x.shape[0], layout=cargs.get("edge_layout"))
+                batch.edge_mask, x.shape[0], layout=cargs.get("edge_layout"),
+                layout_t=cargs.get("edge_layout_t"))
         aggs = torch.cat([mean, mn, mx, sd], dim=-1)          # [N, 4F]
         logd = torch.log(deg + 1.0)
         amp = (logd / self.avg_log)[:, None]

@@ -39,14 +39,24 @@ class MLP(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over real (masked) nodes, here in its eval form: the
-    running statistics normalize every row,
-    y = (x - mean) * rsqrt(var + eps) * scale + bias. Batch statistics
-    (training) come with the training slice."""
+    """BatchNorm over real (masked) nodes only
+    (counterpart: hydragnn_tpu/models/layers.py::MaskedBatchNorm).
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    Training mode (`module.train()`) normalizes with the batch statistics
+    of the masked rows, mean and biased variance, and updates the running
+    statistics the Flax way, new = momentum * old + (1 - momentum) * batch
+    with momentum 0.9 (torch's BatchNorm `momentum` means the other
+    weight). The update runs under no_grad from the detached batch
+    statistics, while the normalization itself stays differentiable, also
+    with respect to the positions on the energy-force path. Eval mode
+    normalizes every row with the running statistics,
+    y = (x - mean) * rsqrt(var + eps) * scale + bias."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -54,10 +64,18 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x, mask):
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm: batch statistics (training mode) arrive "
-                "with the training slice; call model.eval() to serve")
-        y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            m = mask.to(x.dtype)[:, None]
+            count = torch.maximum(torch.sum(m), torch.ones((), dtype=x.dtype,
+                                                           device=x.device))
+            mean = torch.sum(x * m, dim=0) / count
+            var = torch.sum(m * (x - mean) ** 2, dim=0) / count
+            with torch.no_grad():
+                mom = self.momentum
+                self.mean.copy_(mom * self.mean + (1 - mom) * mean.detach())
+                self.var.copy_(mom * self.var + (1 - mom) * var.detach())
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.scale + self.bias
 
 

@@ -36,8 +36,10 @@ def shifted_softplus(x):
     computes logaddexp(x, 0): max(x, 0) + log1p(exp(-|x|)) (torch's
     softplus switches to x above 20; on the CPU, torch.logaddexp rounds
     an element differently depending on where it lies in the tensor,
-    which would break the engine's batched = single contract)."""
-    return (torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+    which would break the engine's batched = single contract). The max
+    is torch.maximum, whose gradient at x == 0 is JAX's 0.5."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return (torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
             - math.log(2.0))
 
 

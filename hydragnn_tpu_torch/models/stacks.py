@@ -3,7 +3,10 @@ here and SchNet in models/schnet.py; the other stacks follow ROADMAP
 item A7."""
 from __future__ import annotations
 
+import torch
+
 from ..kernels.fused_mp import edge_layout
+from ..kernels.nbr import neighbor_layout
 from .base import BaseStack
 from .convs import PNAConv
 
@@ -15,10 +18,21 @@ class PNAStack(BaseStack):
                        edge_dim=self.cfg.edge_dim)
 
     def conv_args(self, batch):
+        """The kernels' CSR views of the batch's edges, shared by every
+        layer (None on the CPU): the edge list's receiver-sorted layout,
+        and when gradients are on, the views the backwards' segment sums
+        walk (the sender-sorted edges; the dense table's slots by
+        neighbour)."""
         cargs = {"edge_attr": batch.edge_attr}
+        grad = torch.is_grad_enabled()
         if batch.nbr is None:
-            # the edge-list kernel's view of the edges, shared by every layer
             cargs["edge_layout"] = edge_layout(batch.senders, batch.receivers,
                                                batch.edge_mask,
                                                batch.num_nodes)
+            if grad:
+                cargs["edge_layout_t"] = edge_layout(
+                    batch.receivers, batch.senders, batch.edge_mask,
+                    batch.num_nodes)
+        elif grad:
+            cargs["nbr_layout"] = neighbor_layout(batch.nbr, batch.nbr_mask)
         return cargs

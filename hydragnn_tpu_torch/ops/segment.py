@@ -97,13 +97,20 @@ def segment_min(data, segment_ids, num_segments, mask=None, neutral=1e30):
     return torch.where(out >= neutral, torch.zeros_like(out), out)
 
 
+def _relu_tie_half(x):
+    """max(x, 0) as JAX's jnp.maximum(x, 0.0) computes it, gradient
+    included: half the gradient passes where x == 0 (torch.clamp passes
+    all of it); the value is clamp's, bitwise."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def pna_stats_epilogue(s, sq, cnt, mn, mx, eps=1e-5):
     """(mean, min, max, std, degree) from the additive accumulators and
     extrema — the epilogue shared by `pna_aggregate` and the fused edge
     kernel (kernels/fused_mp.py), as on the TPU."""
     cnt_safe = torch.clamp(cnt, min=1.0)
     mean = s / cnt_safe
-    var = torch.clamp(sq / cnt_safe - mean * mean, min=0.0)
+    var = _relu_tie_half(sq / cnt_safe - mean * mean)
     std = torch.sqrt(var + eps)
     return mean, mn, mx, std, cnt[..., 0]
 
@@ -145,7 +152,7 @@ def neighbor_aggregate(h, nbr_mask, eps=1e-5):
     s = torch.sum(hm, dim=1)
     sq = torch.sum(hm * hm, dim=1)
     mean = s / cnt_safe
-    var = torch.clamp(sq / cnt_safe - mean * mean, min=0.0)
+    var = _relu_tie_half(sq / cnt_safe - mean * mean)
     std = torch.sqrt(var + eps)
     big = torch.finfo(h.dtype).max
     has = cnt[:, None] > 0
@@ -198,7 +205,9 @@ def filter_weighted_aggregate(h, w, batch, layout=None):
     `kernels.fused_mp.filter_layouts`, shared by the layers of a
     forward."""
     if batch.nbr_edge is not None:
-        msg = h.index_select(0, batch.senders) * w
+        # gather_rows: the senders' gradient is a segment sum, not an
+        # atomic index_add, so a force loss trains the same on every run
+        msg = _seg_kernel.gather_rows(h, batch.senders) * w
         return neighbor_sum(msg[batch.nbr_edge], batch.nbr_mask)
     from ..kernels.fused_mp import filter_scatter
     return filter_scatter(h, w, batch.senders, batch.receivers,

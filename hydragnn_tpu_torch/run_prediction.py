@@ -3,8 +3,9 @@ hydragnn_tpu/run_prediction.py).
 
 `run_prediction(config, datasets, variables)` completes the config from
 the data, builds the model on the device (the card unless the caller
-passes device="cpu"), loads the Flax variable tree given as nested numpy
-dicts (utils/weights.py) and predicts the test split — through the
+passes device="cpu"), loads the weights — the Flax variable tree given as
+nested numpy dicts (utils/weights.py), or `state=` (and `model=`) as
+`run_training` returns them — and predicts the test split — through the
 batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
 block / HYDRAGNN_SERVE), else with a plain loop over `batch_size`
 batches padded to one shape. Returns (trues, preds), one array per head,
@@ -29,15 +30,28 @@ from .utils.envflags import env_flag
 from .utils.weights import load_jax_variables
 
 
-def run_prediction(config_or_path, datasets: Sequence, variables,
-                   serve: Optional[bool] = None, device="cuda"):
+def run_prediction(config_or_path, datasets: Sequence, variables=None,
+                   serve: Optional[bool] = None, device="cuda", state=None,
+                   model=None):
+    """The weights come from `state` (a TrainState), else `variables` (a
+    Flax tree), else `model` (a trained model); they are loaded into a
+    fresh model on `device`, so a trained model is left as it is."""
     config = load_config(config_or_path)
     dev = resolve_device(device)
     trainset, valset, testset = (list(d) for d in datasets)
     config = update_config(config, trainset, valset, testset)
     mcfg = build_model_config(config)
+    if state is not None:
+        weights = {k: v.detach() for k, v in state.state_dict().items()}
+    elif variables is not None:
+        weights = load_jax_variables(variables)
+    elif model is not None:
+        weights = model.state_dict()
+    else:
+        raise ValueError("run_prediction needs variables=, state= or "
+                         "model=")
     model = create_model(mcfg, device=dev)
-    model.load_state_dict(load_jax_variables(variables))
+    model.load_state_dict(weights)
 
     batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
     arch = config["NeuralNetwork"]["Architecture"]

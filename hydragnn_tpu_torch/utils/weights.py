@@ -1,12 +1,13 @@
-"""Carry Flax variables across to the port (the bridge between the two
-packages; the JAX package has no counterpart).
+"""Carry Flax variables across to the port and back (the bridge between
+the two packages; the JAX package has no counterpart).
 
 `load_jax_variables(variables)` takes the Flax `{"params", "batch_stats"}`
 tree as nested dicts of numpy arrays and returns a state dict for
-`model.load_state_dict`. The port keeps Flax's submodule names as
-attribute names (`conv_{i}.pre_i`, `feature_norm_{i}`,
-`graph_shared.dense_{j}`, `head_{ih}.dense_{j}`, ...), so the mapping is
-mechanical:
+`model.load_state_dict`; `export_jax_variables(model)` is its inverse, the
+tree of numpy arrays a Flax model of the same config applies. The port
+keeps Flax's submodule names as attribute names (`conv_{i}.pre_i`,
+`feature_norm_{i}`, `graph_shared.dense_{j}`, `head_{ih}.dense_{j}`,
+...), so the mapping is mechanical:
 
 * Dense `kernel [in, out]` -> Linear `weight [out, in]`;
 * Dense `bias`, MaskedBatchNorm `scale` / `bias` keep their names;
@@ -59,3 +60,26 @@ def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"load_jax_variables: duplicate key {key}")
             state[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
     return state
+
+
+def export_jax_variables(model) -> Dict[str, Dict]:
+    """The Flax `{"params", "batch_stats"}` tree (nested dicts of float32
+    numpy arrays) of a model's state dict, or of a `TrainState`'s:
+    Linear `weight [out, in]` -> Dense `kernel [in, out]`; `bias`,
+    `scale` -> params; the MaskedBatchNorm buffers `mean` / `var` ->
+    batch_stats. `load_jax_variables` of the result loads back bitwise."""
+    state = model.state_dict()
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, t in state.items():
+        *path, leaf = key.split(".")
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            leaf, arr = "kernel", arr.T
+        coll = "batch_stats" if leaf in _LEAVES["batch_stats"] else "params"
+        if leaf not in _LEAVES[coll] or not path:
+            raise KeyError(f"export_jax_variables: unexpected entry {key}")
+        node = tree[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree

@@ -6,10 +6,12 @@ skip without a CUDA device; run them there with
 
 (`--noconftest`: tests/conftest.py configures JAX). Bounds as in
 tests/test_torch_kernels.py: min/max/count exact, sums rtol/atol 2e-5.
-The autograd Functions (`segment_sum`'s, `filter_scatter`'s and
-`gather_rows`') are held against autograd through the plain versions on
-the same card: a gather or a product of the same two numbers is exact, a
-sum (dh, a gather's gradient) within the sums' rtol/atol 2e-5.
+The autograd Functions (`segment_sum`'s, `filter_scatter`'s,
+`gather_rows`', `nbr_aggregate`'s and `pna_edge_accumulators`') are held
+against autograd through the plain versions on the same card: a gather
+or a product of the same two numbers is exact, a sum (dh, a gather's
+gradient) within the sums' rtol/atol 2e-5, and the PNA backwards exactly
+on the tie-rich dyadic cases of graphs/synthetic.py.
 """
 import numpy as np
 import pytest
@@ -107,7 +109,9 @@ def test_kernels_count_launches_and_take_odd_widths(cuda_device, f):
     assert tk.launch_counts() == {"segment_sum": 1, "nbr_aggregate": 1,
                                   "pna_edge_aggregate": 1,
                                   "filter_scatter": 0,
-                                  "filter_scatter_backward": 0}
+                                  "filter_scatter_backward": 0,
+                                  "nbr_aggregate_backward": 0,
+                                  "pna_edge_aggregate_backward": 0}
     with pytest.raises(TypeError):
         segment.segment_sum(data.double(), ids[:64], 64)
 
@@ -395,3 +399,165 @@ def test_filter_scatter_long_and_empty_receivers(cuda_device, f):
     assert torch.equal(out, p_out) and torch.equal(dh, p_dh)
     assert torch.equal(dw, p_dw)
     assert not out[0].any() and out[1].any()
+
+
+def _pna_backward_pair(kind, args, grads, dev):
+    """(Function's, plain autograd's) (dproj_i, dproj_j) on the card for
+    the cotangents `grads` of (mean, min, max, std) (dense) or (s, sq,
+    min, max) (edge list)."""
+    out = []
+    for plain in (False, True):
+        pi, pj = (args[0].clone().requires_grad_(True),
+                  args[1].clone().requires_grad_(True))
+        if kind == "dense":
+            fn = nbr.nbr_aggregate_plain if plain else nbr.nbr_aggregate
+            res = fn(pi, pj, *args[2:])[:4]
+        else:
+            fn = (fused_mp.pna_edge_accumulators_plain if plain
+                  else fused_mp.pna_edge_accumulators)
+            acc = fn(pi, pj, *args[2:])
+            res = (acc[0], acc[1], acc[3], acc[4])
+        loss = sum((r * g).sum() for r, g in zip(res, grads))
+        out.append(torch.autograd.grad(loss, (pi, pj)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "edge"])
+@pytest.mark.parametrize("f", [200, 13])
+def test_pna_backward_functions_match_plain_autograd(cuda_device, kind, f):
+    """The two PNA Functions' backwards (`nbr_aggregate_vjp`,
+    `pna_edge_vjp`: segment-sum kernels on CSR layouts) against autograd
+    through the plain versions on the card: random data within SUM_TOL,
+    the tie-rich dyadic case (no std cotangent) bitwise; each backward
+    call counts once."""
+    from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
+                                                     tie_rich_neighbor_case)
+    dev = cuda_device
+    rng = np.random.RandomState(f)
+    if kind == "dense":
+        pi, pj, idx, mask = _nbr_inputs(9, n=300, k=16, f=f)
+        cases = [([pi, pj, idx, mask], False),
+                 (list(tie_rich_neighbor_case(2, n=60, f=f)), True)]
+    else:
+        pi, pj, send, recv, emask = _edge_inputs(9, n=300, e=4000, f=f)
+        cases = [([pi, pj, send, recv, emask], False),
+                 (list(tie_rich_edge_case(2, n=60, f=f)), True)]
+    for arrays, dyadic in cases:
+        args = [_t(a).to(dev) for a in arrays]
+        if kind == "edge":
+            args.append(args[0].shape[0])
+        n = args[0].shape[0]
+        if dyadic:
+            grads = [_t(rng.randint(-4, 5, (n, f)) / 8).float().to(dev)
+                     for _ in range(3)]
+            grads.insert(3 if kind == "dense" else 1,
+                         torch.zeros(n, f, device=dev))
+        else:
+            grads = [torch.randn(n, f, device=dev) for _ in range(4)]
+        tk.reset_launch_counts()
+        (got_i, got_j), (want_i, want_j) = _pna_backward_pair(kind, args,
+                                                              grads, dev)
+        counts = tk.launch_counts()
+        name = "nbr_aggregate" if kind == "dense" else "pna_edge_aggregate"
+        assert counts[f"{name}_backward"] == 1 and counts[name] == 1
+        assert counts["segment_sum"] >= 1
+        if dyadic:
+            assert torch.equal(got_i, want_i) and torch.equal(got_j, want_j)
+        else:
+            torch.testing.assert_close(got_i, want_i, **SUM_TOL)
+            torch.testing.assert_close(got_j, want_j, **SUM_TOL)
+        assert got_i.abs().max() > 0 and got_j.abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False])
+def test_pna_conv_gradient_on_the_card_equals_the_cpu(cuda_device, dense):
+    """The regression behind the PNA Functions: through ctypes alone the
+    aggregation's outputs had no graph on the card, so pre_i / pre_j got
+    no gradient from it (None) while the step still ran. Every parameter
+    gradient of a PNAConv on the card now equals the CPU's (rtol 1e-4,
+    atol 1e-5, the forward's bound), pre_i's and pre_j's nonzero."""
+    from hydragnn_tpu_torch.graphs.batch import (collate,
+                                                 with_neighbor_format)
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+    from hydragnn_tpu_torch.models.convs import PNAConv
+    from hydragnn_tpu_torch.models.stacks import PNAStack
+    samples = synthetic_molecules(16, seed=3, min_atoms=5, max_atoms=30)
+    batch = collate(samples)
+    if dense:
+        batch = with_neighbor_format(batch)
+    torch.manual_seed(0)
+    conv = PNAConv(12, 24, deg_hist=[1, 4, 6, 3, 1])
+    x = torch.randn(batch.num_nodes, 12)
+    # real nodes only, as a model's loss reads them: the padding node's
+    # attenuation scaler divides by log(1), so its outputs are ~1e5
+    g = torch.randn(batch.num_nodes, 24) * batch.node_mask[:, None]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        c = conv.to(dev)
+        c.zero_grad()
+        b = batch.to(dev)
+        cargs = PNAStack.conv_args(None, b)
+        out, _ = c(x.to(dev), b.pos, b, cargs)
+        (out * g.to(dev)).sum().backward()
+        grads.append({k: p.grad.detach().cpu().clone()
+                      for k, p in c.named_parameters()})
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], rtol=1e-4,
+                                   atol=1e-5)
+    assert grads[1]["pre_i.weight"].abs().max() > 0
+    assert grads[1]["pre_j.weight"].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_kind", ["pna_dense", "pna_edge", "schnet",
+                                        "schnet_dense"])
+def test_train_step_repeats_bitwise_on_the_card(cuda_device, model_kind):
+    """Two models from the same seed, two train steps each on the same
+    batch (PNA on both layouts; LJ SchNet's energy-force step on both,
+    whose force loss differentiates the kernels' backwards again): the
+    losses and every parameter and running statistic afterwards are
+    bitwise equal. No atomic float scatter runs on these paths."""
+    import copy
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     synthetic_molecules)
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    if model_kind.startswith("schnet"):
+        path = "examples/LennardJones/LJ.json"
+        data = lj_configurations(40, seed=1)
+    else:
+        path = "examples/csce/csce_gap.json"
+        data = synthetic_molecules(40, seed=1)
+    with open(path) as fh:
+        cfg = json.load(fh)
+    dense = model_kind.endswith("dense")
+    cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+    cfg["NeuralNetwork"]["Training"]["batch_size"] = 16
+    splits = (data[:32], data[32:36], data[36:])
+    cfg = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = tcfg.build_model_config(cfg)
+    train_cfg = cfg["NeuralNetwork"]["Training"]
+    loader = create_dataloaders(*splits, 16, neighbor_format=dense)[0]
+    batch = next(iter(loader)).to(cuda_device)
+    runs = []
+    for _ in range(2):
+        model = create_model(mcfg, device=cuda_device, seed=3)
+        tx = topt.select_optimizer(train_cfg)
+        state = tstep.TrainState.create(model, tx)
+        step = tstep.make_train_step(
+            model, mcfg, tx, train_cfg["loss_function_type"],
+            compute_grad_energy=bool(train_cfg.get("compute_grad_energy")))
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        runs.append((metrics["loss"].cpu(), {
+            k: v.detach().cpu().clone()
+            for k, v in state.state_dict().items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for k, v in runs[0][1].items():
+        assert torch.equal(v, runs[1][1][k]), k

@@ -27,6 +27,11 @@ from hydragnn_tpu.kernels.segment_pallas import segment_sum_pallas
 from hydragnn_tpu_torch import kernels as tk
 from hydragnn_tpu_torch.kernels import fused_mp, nbr, segment
 
+# Eager torch on small tensors: one intra-op thread, so that the test
+# workers sharing the machine's cores do not oversubscribe them (8
+# threads per worker made these tests 30x slower under pytest-xdist).
+torch.set_num_threads(1)
+
 SUM_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -199,7 +204,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert tk.launch_counts() == {"segment_sum": 0, "nbr_aggregate": 0,
                                   "pna_edge_aggregate": 0,
                                   "filter_scatter": 0,
-                                  "filter_scatter_backward": 0}
+                                  "filter_scatter_backward": 0,
+                                  "nbr_aggregate_backward": 0,
+                                  "pna_edge_aggregate_backward": 0}
     from hydragnn_tpu_torch.kernels import _build
     assert not _build._libs  # nothing was built or loaded
 

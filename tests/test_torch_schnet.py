@@ -47,6 +47,11 @@ from hydragnn_tpu_torch.utils.weights import load_jax_variables
 sys.path.insert(0, ".")
 from examples.LennardJones.lj_data import generate_lj_dataset  # noqa: E402
 
+# Eager torch on small tensors: one intra-op thread, so that the test
+# workers sharing the machine's cores do not oversubscribe them (8
+# threads per worker made these tests 30x slower under pytest-xdist).
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 LJ = "examples/LennardJones/LJ.json"
 

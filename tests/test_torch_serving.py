@@ -34,6 +34,11 @@ from hydragnn_tpu_torch.serving.config import resolve_serving
 from hydragnn_tpu_torch.serving.engine import InferenceEngine
 from hydragnn_tpu_torch.utils.weights import load_jax_variables
 
+# Eager torch on small tensors: one intra-op thread, so that the test
+# workers sharing the machine's cores do not oversubscribe them (8
+# threads per worker made these tests 30x slower under pytest-xdist).
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CSCE = REPO / "examples" / "csce" / "csce_gap.json"
 
