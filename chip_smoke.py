@@ -72,10 +72,43 @@ Phases:
    of the EF engine and of kernel 4): the same checks and numbers;
    the force loss differentiates the filter-scatter's and the segment
    sum's backwards again (`create_graph=True`).
+7. bf16 at the same widths: kernels 2-4 in their bf16 instantiations
+   against their plain bf16 versions at the main-path shapes (min, max,
+   counts and degrees bitwise; sums within one bf16 ulp of max(|a|, |b|,
+   2^-10), nbr_aggregate's mean and std within two; the bf16-exact
+   tie-rich dyadic cases bitwise), each one's device time beside its bf16
+   byte bound; csce PNA served at Serving.precision "bf16" through
+   run_prediction (dense) and an InferenceEngine (edge list), card vs the
+   CPU's bf16 run within 2^-5 (atol + rtol |ref|), the bf16-vs-float32
+   gap printed, batched = single bitwise, the parity breadcrumbs, 40
+   timed bursts; LJ SchNet EF served at bf16 (energies and forces within
+   2^-5 of the CPU's bf16 engine, for the burst on the buckets it was
+   served on and for each test cell alone on the smallest bucket, the
+   bound's margin printed; batched = single bitwise); run_training at
+   Architecture.dtype "bfloat16" for csce PNA (3 epochs dense, 1 on the
+   edge list) and LJ EF (2 epochs): the first step's loss card vs CPU
+   within 2^-5 relative, SGD card vs CPU within 2^-5 relative every epoch
+   (LJ EF: printed; its bf16 force-loss gradients carry rounding noise
+   that follows the summation order, and SGD runs part within a few
+   steps), the config's optimizer twice on the card bitwise, float32
+   masters, no non-finite step, and the step numbers of phases 5-6. For
+   LJ EF at bf16 also: the first step's weight gradients through the
+   kernels vs the plain versions on the card (worst tensor within 0.6,
+   all tensors within 0.04 relative L2, between the noise floor of the
+   edge order and a control with filter_scatter's dh cut from the force
+   loss, which must fail), and 12 SGD steps card vs CPU, the first 3
+   within 2^-5, beside the plain versions' and float32's gaps.
+8. Checkpoints: csce PNA with Checkpoint and checkpoint_every_n_epochs
+   1, sent a real SIGTERM from a thread once its first COMMITTED step
+   directory exists (under ./logs, removed afterwards) and resumed with
+   `continue: 1`: its history and final parameters must equal an
+   uninterrupted run's bitwise, and run_prediction from the BEST
+   checkpoint the in-memory state's predictions; at float32 and bf16.
 
 The last line is {"ok": true, "device": {...}}; the line before it
-holds the per-kernel JSON record (per-shape records under `shapes`; the
-two PNA backwards as rows of their own), the line before that the card's
+holds the per-kernel JSON record (per-shape records under `shapes`,
+kernels 2-4's bf16 readings under `bf16`; the two PNA backwards as rows
+of their own), the line before that the card's
 name and power limit, and before it a `training: {...}` JSON line. Any
 failure exits non-zero without the last line.
 """
@@ -107,6 +140,19 @@ LJ_EPOCHS = 2                  # LJ.json trains 20 epochs; cut for time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 CSCE_CONFIG = "examples/csce/csce_gap.json"
+BF16_BOUND = 2.0 ** -5         # bf16 vs a reference: atol + rtol |ref|
+BF16_BURSTS = 40               # timed bf16 engine bursts
+# LJ bf16 first-step weight gradients, kernels vs plain versions on the
+# card, relative L2: the worst tensor, and all tensors as one vector. Set
+# between the noise floor (the plain versions vs themselves on the edges
+# in another order, read by this script on an H100 machine: worst tensor
+# 0.12-0.23, all 0.0058-0.011, on the card and over the CPU's orders)
+# and the control `filter_dh_cut` (0.81 / 0.137)
+LJ_GRAD_BOUND = 0.6
+LJ_GRAD_BOUND_ALL = 0.04
+LJ_FLOOR_ORDERS = 8            # edge orders sampled for the CPU's floor
+LJ_SGD_STEPS = 12              # LJ SGD steps compared card vs cpu
+LJ_SGD_HELD = 3                # of which the first held at bf16
 
 
 def fail(msg: str) -> None:
@@ -190,34 +236,6 @@ def compare(torch, name, got, want, exact):
     if not exact and not torch.allclose(got, want, **SUM_TOL):
         fail(f"{name}: outside rtol/atol {SUM_TOL} (max err {err})")
     return err
-
-
-def flax_shaped_variables(model, seed: int):
-    """A Flax {"params", "batch_stats"} tree of numpy arrays for `model`'s
-    architecture, with random weights and running statistics."""
-    rng = np.random.default_rng(seed)
-    tree = {"params": {}, "batch_stats": {}}
-    for key, t in model.state_dict().items():
-        *path, leaf = key.split(".")
-        coll = "batch_stats" if leaf in ("mean", "var") else "params"
-        shape = tuple(t.shape)
-        if leaf == "weight":
-            leaf = "kernel"
-            shape = shape[::-1]
-            val = rng.normal(0.0, shape[0] ** -0.5, shape)
-        elif leaf == "bias":
-            val = rng.normal(0.0, 0.1, shape)
-        elif leaf == "scale":
-            val = 1.0 + rng.normal(0.0, 0.1, shape)
-        elif leaf == "mean":
-            val = rng.normal(0.0, 0.3, shape)
-        else:
-            val = 0.5 + rng.random(shape)
-        node = tree[coll]
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = val.astype(np.float32)
-    return tree
 
 
 def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
@@ -542,7 +560,8 @@ def check_filter_scatter(torch, batch, device, f):
 
 def schnet_phase(torch, device, card):
     """Phase 4: LJ SchNet energies and forces through the EF engine.
-    Returns (filter_scatter record, launches of the main-path burst)."""
+    Returns (filter_scatter record, segment_sum shapes, launches of the
+    main-path burst, the LJ context phase 7 serves again)."""
     from torch.profiler import ProfilerActivity, profile
 
     from hydragnn_tpu_torch import kernels as tk
@@ -555,7 +574,8 @@ def schnet_phase(torch, device, card):
                                                    bucket_ladder,
                                                    select_bucket)
     from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
-    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
 
     with open(LJ_CONFIG) as fh:
         base_cfg = json.load(fh)
@@ -575,7 +595,7 @@ def schnet_phase(torch, device, card):
           f"equivariance={mcfg.equivariance} test_requests={len(test)} "
           f"in-edges/atom={test[0].num_edges / test[0].num_nodes:.1f}",
           flush=True)
-    variables = flax_shaped_variables(create_model(mcfg, device="cpu"),
+    variables = random_flax_variables(create_model(mcfg, device="cpu"),
                                       SEED)
 
     requests = test * ENGINE_REPEATS
@@ -690,7 +710,9 @@ def schnet_phase(torch, device, card):
           f"ms)", flush=True)
     for dev_t, key, count in sorted(rows, reverse=True)[:12]:
         print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
-    return record, seg_shapes, counts
+    lj = dict(mcfg=mcfg, variables=variables, test=test, requests=requests,
+              batch=edge_batch, want=want)
+    return record, seg_shapes, counts, lj
 
 
 def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
@@ -1153,6 +1175,772 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
     return main, launches, record
 
 
+# ----------------------------------------------------------------- bf16 --
+
+def bf16_ulps(torch, got, want):
+    """Largest |got - want| in bf16 ulps of max(|got|, |want|, 2^-10)."""
+    g, w = got.float(), want.float()
+    scale = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                          torch.full_like(g, 2.0 ** -10))
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return float(((g - w).abs() / ulp).max()) if g.numel() else 0.0
+
+
+def compare_bf16(torch, name, got, want, exact, ulps=1):
+    """(bf16 ulps, max abs err) of a bf16 kernel output vs its plain
+    version; fails when an exact output differs or a sum lies more than
+    `ulps` bf16 ulps away."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        fail(f"{name}: dtypes {got.dtype} / {want.dtype}, expected bf16")
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: non-finite kernel output")
+    u = bf16_ulps(torch, got, want)
+    if exact and not torch.equal(got, want):
+        fail(f"{name}: not equal to the plain bf16 version ({u} ulps)")
+    if u > ulps:
+        fail(f"{name}: {u} bf16 ulps from the plain version (bound {ulps})")
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    return u, err
+
+
+def bf16_gap(got, ref):
+    """max(|got - ref| - (2^-5 + 2^-5 |ref|)): <= 0 within the bf16
+    bound."""
+    g = np.asarray(got, np.float64)
+    r = np.asarray(ref, np.float64)
+    return float((np.abs(g - r) - (BF16_BOUND + BF16_BOUND * np.abs(r)))
+                 .max())
+
+
+def check_bf16_kernels(torch, dense_batch, edge_batch, lj_batch, device, f,
+                       f_lj):
+    """Phase 7a: kernels 2-4 in their bf16 instantiations against their
+    plain bf16 versions on the card, at the main paths' shapes: random
+    data (min, max, counts and degrees bitwise; sums within one bf16 ulp,
+    nbr_aggregate's mean and std, past its sums, within two) and the
+    bf16-exact tie-rich dyadic cases (bitwise); each one's call time,
+    device time (20 calls in one CUDA graph) and plain version's time
+    beside its bf16 byte bound."""
+    from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
+                                                     tie_rich_neighbor_case)
+    from hydragnn_tpu_torch.kernels import fused_mp, nbr
+
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(device).bfloat16()
+
+    def t(a):
+        x = torch.from_numpy(np.asarray(a)).to(device)
+        return x.bfloat16() if x.dtype == torch.float32 else x
+
+    records = {}
+    # ---- nbr_aggregate, dense layout of the largest serving bucket
+    n, k = dense_batch.nbr.shape
+    pi, pj = randn(n, f), randn(n, f)
+    nb, nm = dense_batch.nbr, dense_batch.nbr_mask
+    names = ("mean", "min", "max", "std", "deg")
+    res = [compare_bf16(torch, f"nbr_aggregate.bf16.{name}", g, w,
+                        exact=name in ("min", "max", "deg"), ulps=2)
+           for name, g, w in zip(names, nbr.nbr_aggregate(pi, pj, nb, nm),
+                                 nbr.nbr_aggregate_plain(pi, pj, nb, nm))]
+    dy = [t(a) for a in tie_rich_neighbor_case(SEED, n=n, k=k, f=f,
+                                               bf16_exact=True)]
+    for name, g, w in zip(names, nbr.nbr_aggregate(*dy),
+                          nbr.nbr_aggregate_plain(*dy)):
+        compare_bf16(torch, f"nbr_aggregate.bf16.{name} (dyadic)", g, w,
+                     exact=True)
+    slots = int(nm.sum())
+    ms = cuda_ms(torch, lambda: nbr.nbr_aggregate(pi, pj, nb, nm))
+    plain = cuda_ms(torch, lambda: nbr.nbr_aggregate_plain(pi, pj, nb, nm))
+    # bf16 projections once, the int32 table and the mask, five bf16
+    # outputs
+    nbytes = 2 * 2 * n * f + 4 * n * k + n * k + 2 * (4 * n * f + n)
+    b_ms, b_by = bound_ms(nbytes, 6 * slots * f + 8 * n * f)
+    dev = device_ms(torch, "nbr_aggregate.bf16", nbr.nbr_aggregate,
+                    (pi, pj, nb, nm), b_ms)
+    records["nbr_aggregate"] = dict(
+        N=n, K=k, F=f, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, max_ulps=max(u for u, _ in res),
+        max_abs_err=max(e for _, e in res), dyadic_bitwise=True)
+
+    # ---- pna_edge_aggregate, edge list of the engine's largest batch
+    n, e = edge_batch.num_nodes, edge_batch.num_edges
+    pi, pj = randn(n, f), randn(n, f)
+    send, recv, em = (edge_batch.senders, edge_batch.receivers,
+                      edge_batch.edge_mask)
+    names = ("s", "sq", "cnt", "min", "max")
+    res = [compare_bf16(torch, f"pna_edge_aggregate.bf16.{name}", g, w,
+                        exact=name in ("cnt", "min", "max"))
+           for name, g, w in zip(names, fused_mp.pna_edge_accumulators(
+               pi, pj, send, recv, em, n),
+               fused_mp.pna_edge_accumulators_plain(pi, pj, send, recv, em,
+                                                    n))]
+    dy = [t(a) for a in tie_rich_edge_case(SEED, n=n, f=f, bf16_exact=True)]
+    for name, g, w in zip(names, fused_mp.pna_edge_accumulators(*dy, n),
+                          fused_mp.pna_edge_accumulators_plain(*dy, n)):
+        compare_bf16(torch, f"pna_edge_aggregate.bf16.{name} (dyadic)", g,
+                     w, exact=True)
+    kept = int(em.sum())
+    layout = fused_mp.edge_layout(send, recv, em, n)
+    ms = cuda_ms(torch, lambda: fused_mp.pna_edge_accumulators(
+        pi, pj, send, recv, em, n, layout))
+    plain = cuda_ms(torch, lambda: fused_mp.pna_edge_accumulators_plain(
+        pi, pj, send, recv, em, n))
+    nbytes = 2 * 2 * n * f + 4 * 2 * e + e + 2 * (4 * n * f + n)
+    b_ms, b_by = bound_ms(nbytes, 6 * kept * f)
+    dev = device_ms(torch, "pna_edge_aggregate.bf16",
+                    fused_mp.pna_edge_accumulators,
+                    (pi, pj, send, recv, em, n, layout), b_ms)
+    records["pna_edge_aggregate"] = dict(
+        N=n, E=e, F=f, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, max_ulps=max(u for u, _ in res),
+        max_abs_err=max(e_ for _, e_ in res), dyadic_bitwise=True)
+
+    # ---- filter_scatter and its dh, the EF engine's largest bucket
+    n, e, f = lj_batch.num_nodes, lj_batch.num_edges, f_lj
+    send, recv, em = lj_batch.senders, lj_batch.receivers, lj_batch.edge_mask
+    layout = fused_mp.filter_layouts(send, recv, em, n)
+    layout_t = fused_mp.filter_layouts(recv, send, em, n)
+    rng = np.random.RandomState(SEED)
+    res = []
+    for dyadic in (False, True):
+        if dyadic:   # multiples of 2^-3 in [-2, 2]: exact products, sums
+            h, w, g = (t((rng.randint(-16, 17, s) / 8).astype(np.float32))
+                       for s in ((n, f), (e, f), (n, f)))
+        else:
+            h, w, g = randn(n, f), randn(e, f), randn(n, f)
+        pairs = ((fused_mp.filter_scatter(h, w, send, recv, em, n, layout),
+                  fused_mp.filter_scatter_plain(h, w, send, recv, em, n)),
+                 (fused_mp.filter_scatter(g, w, recv, send, em, n, layout_t),
+                  fused_mp.filter_scatter_plain(g, w, recv, send, em, n)))
+        for name, (got, want) in zip(("forward", "dh"), pairs):
+            res.append(compare_bf16(
+                torch, f"filter_scatter.bf16.{name}"
+                + (" (dyadic)" if dyadic else ""), got, want, exact=dyadic))
+    h, w, g = randn(n, f), randn(e, f), randn(n, f)
+    kept = int(em.sum())
+    ms = cuda_ms(torch, lambda: fused_mp.filter_scatter(
+        h, w, send, recv, em, n, layout))
+    plain = cuda_ms(torch, lambda: fused_mp.filter_scatter_plain(
+        h, w, send, recv, em, n))
+    # h once (L2), the kept edges' w rows, the layout, out: bf16 rows
+    nbytes = 2 * (n * f + kept * f + n * f) + 4 * (2 * kept + n + 1)
+    b_ms, b_by = bound_ms(nbytes, 2 * kept * f)
+    dev = device_ms(torch, "filter_scatter.bf16", fused_mp.filter_scatter,
+                    (h, w, send, recv, em, n, layout), b_ms)
+    dev_dh = device_ms(torch, "filter_scatter.bf16.dh",
+                       fused_mp.filter_scatter,
+                       (g, w, recv, send, em, n, layout_t), b_ms)
+    records["filter_scatter"] = dict(
+        N=n, E=e, F=f, ms=ms, device_ms=dev, backward_device_ms=dev_dh,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        max_ulps=max(u for u, _ in res),
+        max_abs_err=max(e_ for _, e_ in res), dyadic_bitwise=True)
+    for name, r in records.items():
+        shape = " ".join(f"{k}={r[k]}" for k in ("N", "K", "E", "F") if k in r)
+        print(f"{name} bf16: {shape} kernel_ms={r['ms']:.4f} "
+              f"device_ms(graph)={r['device_ms']:.4f}"
+              + (f" dh_device_ms(graph)={r['backward_device_ms']:.4f}"
+                 if "backward_device_ms" in r else "")
+              + f" plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']}); vs plain bf16: max {r['max_ulps']} ulps, "
+              f"max abs err {r['max_abs_err']:.3e}; tie-rich dyadic bitwise",
+              flush=True)
+    return records
+
+
+def pna_bf16_serving(torch, device, card, base_cfg, splits, variables, mcfg,
+                     preds32, counted):
+    """Phase 7b: csce PNA served at bf16 (Serving.precision "bf16")
+    through run_prediction (dense layout) and an InferenceEngine with
+    compute_dtype "bfloat16" (edge list): card vs the CPU's bf16
+    run_prediction within 2^-5 on every test graph, the gap to the
+    card's float32 predictions printed, batched = single bitwise, the
+    futures' parity breadcrumbs, then BF16_BURSTS timed bursts."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import (SERVE_REDUCED_ATOL,
+                                                   SERVE_REDUCED_RTOL,
+                                                   InferenceEngine)
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    test = splits[2]
+    cfg = copy.deepcopy(base_cfg)
+    cfg["Serving"] = {"max_batch_size": SERVE_MAX_BATCH, "precision": "bf16"}
+    t0 = time.perf_counter()
+    _, ref = run_prediction(copy.deepcopy(cfg), splits, variables,
+                            serve=False, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    tk.reset_launch_counts()
+    _, got = run_prediction(copy.deepcopy(cfg), splits, variables,
+                            serve=True)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    counted(counts)
+    for name in ("nbr_aggregate_bf16", "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the bf16 run_prediction path")
+    if got[0].shape != (len(test), 1) or not np.isfinite(got[0]).all():
+        fail(f"bf16 run_prediction: shape {got[0].shape}")
+    gap = bf16_gap(got[0], ref[0])
+    if gap > 0:
+        fail(f"bf16 run_prediction card vs cpu outside 2^-5 (by {gap})")
+    print(f"bf16 run_prediction(serve=True, dense): launches {counts}; card "
+          f"vs cpu bf16 ({t_cpu:.1f} s on the cpu) max abs err "
+          f"{float(np.abs(got[0] - ref[0]).max()):.3e} (bound 2^-5 + 2^-5 "
+          f"|ref|, margin {-gap:.3e}); bf16 vs float32 on the card max abs "
+          f"gap {float(np.abs(got[0] - preds32[0]).max()):.3e} (of max "
+          f"|pred| {float(np.abs(preds32[0]).max()):.3e})", flush=True)
+
+    model = create_model(mcfg, device=device)
+    model.load_state_dict(load_jax_variables(variables))
+    engine = InferenceEngine(model, mcfg, reference_samples=test,
+                             max_batch_size=SERVE_MAX_BATCH,
+                             neighbor_format=False, compute_dtype="bf16",
+                             device=device)
+    requests = test * ENGINE_REPEATS
+    try:
+        engine.warmup()
+        engine.reset_stats()
+        tk.reset_launch_counts()
+        futs = [engine.submit(s) for s in requests]
+        results = [fut.result(timeout=600) for fut in futs]
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        crumbs = all(fut.parity == "tolerance"
+                     and fut.parity_rtol == SERVE_REDUCED_RTOL == BF16_BOUND
+                     and fut.parity_atol == SERVE_REDUCED_ATOL == BF16_BOUND
+                     for fut in futs)
+        stats = engine.stats()
+        singles = [engine.forward_single(s, bucket=fut.bucket)
+                   for s, fut in list(zip(requests, futs))[:8]]
+        engine.reset_stats()
+        walls = []
+        for _ in range(BF16_BURSTS):
+            t0 = time.perf_counter()
+            for fut in [engine.submit(s) for s in requests]:
+                fut.result(timeout=600)
+            walls.append(time.perf_counter() - t0)
+        timed = engine.stats()
+    finally:
+        engine.shutdown()
+    for name in ("pna_edge_aggregate_bf16", "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the bf16 engine path")
+    if not crumbs or (stats["compute_dtype"], stats["parity"]) != (
+            "bfloat16", "tolerance"):
+        fail(f"bf16 engine breadcrumbs: futures {crumbs}, stats "
+             f"{stats['compute_dtype']} {stats['parity']}")
+    bitwise = all(np.array_equal(a, b) for res, single in
+                  zip(results[:8], singles) for a, b in zip(res, single))
+    if not bitwise:
+        fail("bf16 engine: batched outputs differ from the single forward")
+    eng = np.stack([r[0] for r in results[:len(test)]])
+    gap = bf16_gap(eng, ref[0])
+    if not np.isfinite(eng).all() or gap > 0:
+        fail(f"bf16 engine card vs cpu outside 2^-5 (by {gap})")
+    total = len(requests) * BF16_BURSTS
+    print(f"bf16 engine (edge list): launches {counts}; card vs cpu bf16 "
+          f"max abs err {float(np.abs(eng - ref[0]).max()):.3e}; batched = "
+          f"single bitwise: {bitwise}; breadcrumbs parity "
+          f"{stats['parity']} rtol/atol 2^-5, stats compute_dtype "
+          f"{stats['compute_dtype']}; {total} requests in {BF16_BURSTS} "
+          f"bursts, {sum(walls):.4f} s: {total / sum(walls):.1f} requests/s;"
+          f" p50 {timed['p50_ms']:.3f} ms, p99 {timed['p99_ms']:.3f} ms "
+          f"(card: {card})", flush=True)
+    return dict(rate=total / sum(walls), p50_ms=timed["p50_ms"],
+                p99_ms=timed["p99_ms"])
+
+
+def bf16_module_gaps(torch, lj, device):
+    """Where bf16 LJ outputs part between the CPU and the card: every
+    module's output (a forward hook on each) from the frozen bf16
+    forward of the burst's first batch on both devices, printed (max
+    |x|, max gap, the share of real elements that differ). The first
+    module whose outputs differ in many elements names the op that
+    rounds differently. Called before a bf16 LJ check fails."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import train_step as tstep
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    batch = lj["batch"].to("cpu")
+    real = batch.node_mask
+    outs = {}
+    for dev in ("cpu", device):
+        model = create_model(lj["mcfg"], device=dev)
+        model.load_state_dict(load_jax_variables(lj["variables"]))
+        rec = outs[str(dev)] = {}
+
+        def hook(name, rec=rec):
+            def record(mod, inp, res):
+                res = res[0] if isinstance(res, (tuple, list)) else res
+                if torch.is_tensor(res):
+                    rec[name] = res.detach().float().cpu()
+            return record
+        handles = [m.register_forward_hook(hook(n))
+                   for n, m in model.named_modules() if n]
+        with torch.no_grad():
+            tstep.make_forward_fn(model, lj["mcfg"], "bfloat16",
+                                  frozen=True)(batch.to(dev))
+        for h in handles:
+            h.remove()
+    print("bf16 module outputs, card vs cpu (real rows):", flush=True)
+    for name, x in outs["cpu"].items():
+        y = outs[str(device)][name]
+        if x.shape[:1] == real.shape:
+            x, y = x[real], y[real]
+        d = y - x
+        print(f"  {name:36s} max |x| {float(x.abs().max()):.3e} max gap "
+              f"{float(d.abs().max()):.3e} differing "
+              f"{float((d != 0).float().mean()):.4f}", flush=True)
+
+
+def lj_bf16_serving(torch, device, lj, counted):
+    """Phase 7c: LJ SchNet energies and forces from a bf16 EF engine,
+    card vs the same engine on the CPU, within 2^-5: the card's burst
+    (each test cell's first response) against the CPU's single forward
+    on the bucket the burst served it on, and each test cell served
+    alone on the smallest bucket on both devices; the card's batched
+    burst = single bitwise. The margin of the bound is printed, and the
+    bf16-vs-float32 gap."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+
+    def engine_on(dev):
+        model = create_model(lj["mcfg"], device=dev)
+        model.load_state_dict(load_jax_variables(lj["variables"]))
+        return InferenceEngine(model, lj["mcfg"],
+                               reference_samples=lj["test"],
+                               max_batch_size=SERVE_MAX_BATCH,
+                               neighbor_format=False, ef_forward=True,
+                               compute_dtype="bf16", device=dev)
+
+    test, requests = lj["test"], lj["requests"]
+    engine = engine_on(device)
+    try:
+        engine.warmup()
+        tk.reset_launch_counts()
+        futs = [engine.submit(s) for s in requests]
+        results = [fut.result(timeout=600) for fut in futs]
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        batched = [engine.forward_single(s, bucket=fut.bucket)
+                   for s, fut in list(zip(requests, futs))[:8]]
+        singles = [engine.forward_single(s) for s in test]
+    finally:
+        engine.shutdown()
+    t0 = time.perf_counter()
+    with engine_on("cpu") as cpu_engine:
+        want = [cpu_engine.forward_single(s) for s in test]
+        want_burst = [cpu_engine.forward_single(s, bucket=fut.bucket)
+                      for s, fut in zip(test, futs)]
+    t_cpu = time.perf_counter() - t0
+    for name in ("filter_scatter_bf16", "filter_scatter_backward_bf16",
+                 "segment_sum"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the bf16 EF engine path")
+    gaps, bad = {}, []
+    for i, name in enumerate(("energies", "forces")):
+        def flat(rs):
+            return np.concatenate([r[i].reshape(-1) for r in rs])
+        r32 = flat(lj["want"])
+        for key, got, ref in (("burst", flat(results[:len(test)]),
+                               flat(want_burst)),
+                              ("alone", flat(singles), flat(want))):
+            gap = bf16_gap(got, ref)
+            gaps[f"{name}_{key}"] = dict(
+                max_abs_err=float(np.abs(got - ref).max()), margin=-gap,
+                of_bound=float((np.abs(got - ref) / (
+                    BF16_BOUND + BF16_BOUND * np.abs(ref))).max()))
+            if not np.isfinite(got).all() or gap > 0:
+                bad.append(f"bf16 EF {name} ({key}) card vs cpu outside 2^-5"
+                           f" (by {gap})")
+        gaps[f"{name}_vs_float32"] = (float(np.abs(flat(singles) - r32)
+                                            .max()), float(np.abs(r32).max()))
+    bitwise = all(np.array_equal(a, b) for res, single in
+                  zip(results[:8], batched) for a, b in zip(res, single))
+    print(f"bf16 EF engine (edge list): launches {counts}; card vs cpu bf16 "
+          f"({t_cpu:.1f} s on the cpu), the burst against the cpu on the "
+          f"burst's buckets and each cell alone on the smallest bucket (max "
+          f"abs err, margin to 2^-5 + 2^-5 |ref|, largest share of the "
+          f"bound used): {json.dumps(gaps)}; batched = single bitwise: "
+          f"{bitwise}", flush=True)
+    if bad:
+        bf16_module_gaps(torch, lj, device)
+        fail("; ".join(bad))
+    if not bitwise:
+        fail("bf16 EF engine: batched outputs differ from the single forward")
+    return gaps
+
+
+@contextlib.contextmanager
+def filter_dh_cut():
+    """The control that the LJ gradient check must catch: filter_scatter's
+    dh detached from the graph of the force loss, as a backward that
+    lost its own gradient would leave it (the forces keep their values;
+    the force loss's weight gradients lose every term through dh)."""
+    from hydragnn_tpu_torch.kernels import fused_mp
+    cls = fused_mp._FilterScatter
+    orig = cls.backward
+
+    def backward(ctx, g):
+        dh, *rest = orig(ctx, g)
+        return (None if dh is None else dh.detach(), *rest)
+    cls.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        cls.backward = staticmethod(orig)
+
+
+def permute_edges(torch, batch, seed):
+    """The batch with its edge list in another (seeded) order: the same
+    graph, whose sums add their terms in another order."""
+    p = torch.randperm(batch.num_edges,
+                       generator=torch.Generator().manual_seed(seed))
+    p = p.to(batch.senders.device)
+    return batch.replace(**{k: getattr(batch, k)[p] for k in (
+        "senders", "receivers", "edge_mask", "edge_attr", "edge_shifts")
+        if getattr(batch, k) is not None})
+
+
+def lj_bf16_gradients(torch, cfg, splits, card):
+    """Phase 7e: the first LJ EF training batch's weight gradients at
+    bf16 from one seeded initialization; the force loss runs a second
+    backward through the bf16 filter_scatter, its dh and the gathers.
+    Gaps are relative L2, of the worst tensor and of all tensors as one
+    vector, over the tensors whose float32 gradient on the CPU is within
+    2^-5 of float64's (the rest are 0 but for rounding). Held: the
+    kernels vs the plain versions on the card within LJ_GRAD_BOUND and
+    LJ_GRAD_BOUND_ALL, and the control (`filter_dh_cut`) above both,
+    so that the check can fail. Printed:
+    the noise floors (the plain versions vs themselves on the edges in
+    another order: one on the card, LJ_FLOOR_ORDERS on the CPU, their
+    largest gap and range), card vs CPU through the
+    kernels and through the plain versions (the witness that the card's
+    gap to the CPU is rounding, not the kernels), each run vs float64."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+    f32 = copy.deepcopy(cfg)
+    f32["NeuralNetwork"]["Architecture"]["dtype"] = "float32"
+    runs = {}
+    orders = [f"cpu_perm{k}" for k in range(LJ_FLOOR_ORDERS)]
+    for tag, dev, ctx, perm in (
+            ("card", card, contextlib.nullcontext, None),
+            ("card_plain", card, plain_versions, None),
+            ("card_plain_perm", card, plain_versions, SEED + 1),
+            ("control", card, filter_dh_cut, None),
+            ("cpu", "cpu", contextlib.nullcontext, None),
+            *[(t, "cpu", contextlib.nullcontext, SEED + 1 + k)
+              for k, t in enumerate(orders)],
+            ("cpu32", "cpu", contextlib.nullcontext, None),
+            ("cpu64", "cpu", contextlib.nullcontext, None)):
+        model, _, _, loader, cfg_c, mcfg = train_parts(
+            torch, f32 if tag in ("cpu32", "cpu64") else cfg, splits, dev)
+        tr = cfg_c["NeuralNetwork"]["Training"]
+        loader.set_epoch(0)
+        batch = next(iter(loader)).to(dev)
+        if tag == "cpu64":
+            model.to(torch.float64)
+            batch = tstep.cast_floats(batch, torch.float64)
+        if perm is not None:
+            batch = permute_edges(torch, batch, perm)
+        model.train()
+        with ctx():
+            total, _ = tstep.make_loss_fn(
+                model, mcfg, tr.get("loss_function_type", "mse"),
+                compute_grad_energy=True)(batch)
+            grads = torch.autograd.grad(total, list(model.parameters()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+        runs[tag] = [g.detach().cpu().double() for g in grads]
+    names = [k for k, _ in model.named_parameters()]
+
+    def rel(a, b, i):
+        return float((runs[a][i] - runs[b][i]).norm()) / max(
+            float(runs[b][i].norm()), 1e-30)
+    # a tensor whose float32 gradient misses float64 by more than 2^-5
+    # (a bias ahead of a batch norm: 0 but for rounding) is left out
+    kept = [i for i in range(len(names)) if rel("cpu32", "cpu64", i)
+            <= BF16_BOUND]
+
+    pairs = {"kernels_vs_plain": ("card", "card_plain"),
+             "control_vs_plain": ("control", "card_plain"),
+             "floor_card": ("card_plain_perm", "card_plain"),
+             **{t: (t, "cpu") for t in orders},
+             "card_vs_cpu": ("card", "cpu"),
+             "card_plain_vs_cpu": ("card_plain", "cpu"),
+             "card_vs_f64": ("card", "cpu64"),
+             "cpu_vs_f64": ("cpu", "cpu64"),
+             "cpu32_vs_f64": ("cpu32", "cpu64")}
+    per = {k: [rel(a, b, i) for i in kept] for k, (a, b) in pairs.items()}
+    together = {k: float(np.sqrt(sum(
+        float((runs[a][i] - runs[b][i]).norm()) ** 2 for i in kept) / sum(
+        float(runs[b][i].norm()) ** 2 for i in kept)))
+        for k, (a, b) in pairs.items()}
+    # the CPU's floor: the largest over the edge orders, and their range
+    floor_range = [min(max(per[t]) for t in orders),
+                   max(max(per[t]) for t in orders),
+                   min(together[t] for t in orders),
+                   max(together[t] for t in orders)]
+    per["floor_cpu"] = [max(v) for v in zip(*(per.pop(t) for t in orders))]
+    together["floor_cpu"] = max(together.pop(t) for t in orders)
+    rec = {k: max(zip(v, (names[i] for i in kept))) for k, v in per.items()}
+    print(f"LJ SchNet EF bf16 first step, weight gradients: worst relative "
+          f"L2 gap over {len(kept)} of {len(names)} tensors (the rest are 0"
+          f" but for rounding): "
+          + "; ".join(f"{k} {v[0]:.4e} ({v[1]})" for k, v in rec.items())
+          + f"; bound {LJ_GRAD_BOUND}; all kept tensors as one vector "
+          f"(bound {LJ_GRAD_BOUND_ALL}): "
+          + json.dumps({k: float(f"{v:.4e}") for k, v in together.items()})
+          + f"; the CPU's floor over {LJ_FLOOR_ORDERS} edge orders: worst "
+          f"tensor {floor_range[0]:.4e}-{floor_range[1]:.4e}, all "
+          f"{floor_range[2]:.4e}-{floor_range[3]:.4e}", flush=True)
+    print("  per tensor (" + ", ".join(per) + "): " + json.dumps(
+        {names[i]: [float(f"{v[j]:.4e}") for v in per.values()]
+         for j, i in enumerate(kept)}), flush=True)
+    if not (rec["kernels_vs_plain"][0] <= LJ_GRAD_BOUND
+            and together["kernels_vs_plain"] <= LJ_GRAD_BOUND_ALL):
+        fail(f"LJ bf16 first-step gradients, kernels vs plain versions on "
+             f"the card: worst tensor {rec['kernels_vs_plain']} (bound "
+             f"{LJ_GRAD_BOUND}), all {together['kernels_vs_plain']} (bound "
+             f"{LJ_GRAD_BOUND_ALL})")
+    if not (rec["control_vs_plain"][0] > LJ_GRAD_BOUND
+            and together["control_vs_plain"] > LJ_GRAD_BOUND_ALL):
+        fail(f"LJ bf16 first-step gradients: the control (dh cut from the "
+             f"force loss) lies within a bound ({rec['control_vs_plain']}, "
+             f"all {together['control_vs_plain']}): the check cannot fail")
+    return dict(worst={k: v[0] for k, v in rec.items()},
+                together=together, floor_cpu_range=floor_range)
+
+
+def lj_sgd_steps(torch, cfg, splits, card):
+    """Phase 7e: LJ_SGD_STEPS SGD steps (the config's learning rate) of
+    the LJ EF training step from one seeded initialization, at bf16 on
+    the card through the kernels and through the plain versions and on
+    the CPU, and at float32 on the card and the CPU: each step's loss,
+    relative gap to the CPU's at the same precision. Held: the first
+    LJ_SGD_HELD steps through the kernels within 2^-5; the rest printed,
+    with the plain versions' gaps beside them."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+    lr = cfg["NeuralNetwork"]["Training"]["Optimizer"].get("learning_rate",
+                                                          1e-3)
+    losses = {}
+    for tag, dev, dtype, ctx in (
+            ("card", card, "bfloat16", contextlib.nullcontext),
+            ("card_plain", card, "bfloat16", plain_versions),
+            ("cpu", "cpu", "bfloat16", contextlib.nullcontext),
+            ("card32", card, "float32", contextlib.nullcontext),
+            ("cpu32", "cpu", "float32", contextlib.nullcontext)):
+        c = copy.deepcopy(cfg)
+        c["NeuralNetwork"]["Architecture"]["dtype"] = dtype
+        c["NeuralNetwork"]["Training"]["Optimizer"] = {"type": "SGD",
+                                                       "learning_rate": lr}
+        _, state, step, loader, _, _ = train_parts(torch, c, splits, dev)
+        loader.set_epoch(0)
+        losses[tag] = []
+        with ctx():
+            for b, _ in zip(loader, range(LJ_SGD_STEPS)):
+                state, met = step(state, b.to(dev))
+                losses[tag].append(float(met["loss"]))
+
+    def gaps(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b])]
+    rec = dict(bf16=gaps("card", "cpu"), bf16_plain=gaps("card_plain", "cpu"),
+               float32=gaps("card32", "cpu32"), losses_cpu=losses["cpu"])
+    print(f"LJ SchNet EF SGD, {LJ_SGD_STEPS} steps, per-step loss relative "
+          f"gap card vs cpu: bf16 through the kernels "
+          f"{[f'{g:.2e}' for g in rec['bf16']]}; bf16 through the plain "
+          f"versions {[f'{g:.2e}' for g in rec['bf16_plain']]}; float32 "
+          f"{[f'{g:.2e}' for g in rec['float32']]}; held: the first "
+          f"{LJ_SGD_HELD} bf16 steps within 2^-5", flush=True)
+    for i, g in enumerate(rec["bf16"][:LJ_SGD_HELD]):
+        if not g <= BF16_BOUND:
+            fail(f"LJ bf16 SGD step {i}: loss card vs cpu gap {g} above "
+                 "2^-5")
+    return rec
+
+
+def bf16_training_phase(torch, label, base_cfg, splits, device, num_epoch,
+                        counted, required, hold_history=True):
+    """Phase 7d: one configuration trained at Architecture.dtype
+    "bfloat16" through run_training: the first step's loss card vs CPU
+    within 2^-5 relative; SGD on the card and on the CPU, every epoch's
+    losses within 2^-5 relative (printed only when not `hold_history`:
+    the LJ force loss's bf16 weight gradients carry rounding noise of up
+    to ~15 % a tensor that follows the summation order on either device,
+    and SGD runs part within a few steps, the plain versions on the card
+    as fast as the kernels: `lj_bf16_gradients` and `lj_sgd_steps` hold
+    LJ instead); the config's optimizer on the card
+    twice (counted), histories and parameters bitwise equal,
+    nonfinite_steps 0, every parameter and buffer float32."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.train import train_step as tstep
+    cfg = copy.deepcopy(base_cfg)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = num_epoch
+    cfg["NeuralNetwork"]["Architecture"]["dtype"] = "bfloat16"
+    sgd = copy.deepcopy(cfg)
+    opt = cfg["NeuralNetwork"]["Training"]["Optimizer"]
+    sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
+        "type": "SGD", "learning_rate": opt.get("learning_rate", 1e-3)}
+    first = {}
+    for dev in ("cpu", device):
+        model, _, _, loader, cfg_c, mcfg = train_parts(torch, sgd, splits,
+                                                       dev)
+        tr = cfg_c["NeuralNetwork"]["Training"]
+        loader.set_epoch(0)
+        model.train()
+        loss, _ = tstep.make_loss_fn(
+            model, mcfg, tr.get("loss_function_type", "mse"),
+            compute_grad_energy=bool(tr.get("compute_grad_energy")))(
+                next(iter(loader)).to(dev))
+        first[str(dev)] = float(loss.detach())
+    first_gap = abs(first[str(device)] - first["cpu"]) / abs(first["cpu"])
+    if not first_gap <= BF16_BOUND:
+        fail(f"{label} bf16: first step loss card vs cpu gap {first_gap}")
+    t0 = time.perf_counter()
+    _, h_cpu, _, _ = run_training(copy.deepcopy(sgd), splits, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    _, h_card, _, _ = run_training(copy.deepcopy(sgd), splits, device=device)
+    gaps = history_gaps(h_card, h_cpu)
+    print(f"{label} bf16: first step loss card vs cpu {first_gap:.3e} "
+          f"relative; SGD {num_epoch} epochs card vs cpu ({t_cpu:.1f} s on "
+          f"the cpu): relative gaps {gaps} ("
+          + ("held" if hold_history else "printed, not held")
+          + f"); card train {h_card['train_loss']} val {h_card['val_loss']}"
+          f"; cpu train {h_cpu['train_loss']} val {h_cpu['val_loss']}",
+          flush=True)
+    for k, v in gaps.items():
+        if hold_history and not v <= BF16_BOUND:
+            fail(f"{label} bf16: SGD {k} card vs cpu gap {v} above 2^-5")
+    runs = []
+    for i in range(2):
+        tk.reset_launch_counts()
+        state, hist, _, _ = run_training(copy.deepcopy(cfg), splits,
+                                         device=device)
+        torch.cuda.synchronize()
+        if i == 0:
+            counts = tk.launch_counts()
+            counted(counts)
+        runs.append((hist, {k: v.detach().cpu().clone()
+                            for k, v in state.state_dict().items()}))
+    (h0, s0), (h1, s1) = runs
+    same = all(h0[k] == h1[k] for k in h0) and all(
+        torch.equal(v, s1[k]) for k, v in s0.items())
+    masters = all(v.dtype == torch.float32 for v in s0.values())
+    print(f"{label} bf16 {opt['type']} {num_epoch} epochs on the card twice:"
+          f" bitwise equal: {same}; float32 masters: {masters}; nonfinite "
+          f"steps {h0['nonfinite_steps']}; train {h0['train_loss']} val "
+          f"{h0['val_loss']}; launches {counts}", flush=True)
+    if not same:
+        fail(f"{label} bf16: two card runs from one seed differ")
+    if not masters or sum(h0["nonfinite_steps"]) \
+            or not np.isfinite(h0["train_loss"]).all():
+        fail(f"{label} bf16: masters {masters}, nonfinite steps "
+             f"{h0['nonfinite_steps']}, train {h0['train_loss']}")
+    for name in required:
+        if counts[name] == 0:
+            fail(f"{name} never launched on the {label} bf16 training path")
+    return dict(first_step_loss_gap=first_gap, sgd_relative_gaps=gaps,
+                sgd_history_held=hold_history, bitwise_repeat=same,
+                launches=counts)
+
+
+def resume_phase(torch, device, base_cfg, splits, counted):
+    """Phase 8: csce PNA at full width with Checkpoint and
+    checkpoint_every_n_epochs 1, sent a real SIGTERM from a thread once
+    its first COMMITTED step directory exists, resumed with `continue: 1`:
+    its train/val/test/lr history and final parameters must equal an
+    uninterrupted run's bitwise, and run_prediction from the BEST
+    checkpoint the in-memory state's predictions; at float32 and bf16.
+    The process's SIGTERM disposition meanwhile only sets the preemption
+    flag, so a signal that came late could not kill the run."""
+    import glob
+    import os
+    import shutil
+    import signal
+    import threading
+
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.train import trainer
+    keys = ("train_loss", "val_loss", "test_loss", "lr")
+    record = {}
+    prev = signal.signal(signal.SIGTERM,
+                         lambda signum, frame: trainer.request_preemption())
+    try:
+        for dtype in ("float32", "bfloat16"):
+            cfg = copy.deepcopy(base_cfg)
+            cfg["NeuralNetwork"]["Architecture"]["dtype"] = dtype
+            cfg["Dataset"] = {"name": f"chip_smoke_resume_{dtype}"}
+            tr = cfg["NeuralNetwork"]["Training"]
+            epochs = int(tr["num_epoch"])
+            run_dir = os.path.join("logs", get_log_name_config(cfg))
+            shutil.rmtree(run_dir, ignore_errors=True)
+            twin, h_twin, _, _ = run_training(copy.deepcopy(cfg), splits,
+                                              device=device)
+            twin = {k: v.detach().cpu().clone()
+                    for k, v in twin.state_dict().items()}
+            tr.update(Checkpoint=True, checkpoint_every_n_epochs=1)
+            pattern = os.path.join(run_dir, "checkpoint", "step_*",
+                                   "COMMITTED")
+
+            def kill():
+                while not glob.glob(pattern):
+                    time.sleep(0.001)
+                os.kill(os.getpid(), signal.SIGTERM)
+            killer = threading.Thread(target=kill, daemon=True)
+            trainer.clear_preemption()
+            killer.start()
+            _, h_cut, _, _ = run_training(copy.deepcopy(cfg), splits,
+                                          device=device)
+            killer.join(timeout=60)
+            cut = len(h_cut["train_loss"])
+            if not trainer.preemption_requested() or cut >= epochs:
+                fail(f"resume {dtype}: the SIGTERM did not cut the run "
+                     f"({cut} of {epochs} epochs)")
+            trainer.clear_preemption()
+            saved = sorted(os.listdir(os.path.join(run_dir, "checkpoint")))
+            tr["continue"] = 1
+            tk.reset_launch_counts()
+            state, h_res, model, completed = run_training(
+                copy.deepcopy(cfg), splits, device=device)
+            torch.cuda.synchronize()
+            counted(tk.launch_counts())
+            same_h = all(h_res[k] == h_twin[k] for k in keys)
+            same_p = all(torch.equal(v, state.state_dict()[k].cpu())
+                         for k, v in twin.items())
+            _, mem = run_prediction(completed, splits, state=state,
+                                    model=model)
+            _, best = run_prediction(completed, splits, checkpoint="best")
+            same_pred = bool(np.array_equal(mem[0], best[0]))
+            print(f"resume {dtype}: SIGTERM after the first commit cut the "
+                  f"run at {cut} of {epochs} epochs (saved: {saved}); "
+                  f"resumed history bitwise equal: {same_h}; parameters "
+                  f"bitwise equal: {same_p}; run_prediction from BEST = "
+                  f"in-memory, bitwise: {same_pred}; train "
+                  f"{h_res['train_loss']}", flush=True)
+            if not (same_h and same_p and same_pred):
+                fail(f"resume {dtype}: not bitwise equal to the "
+                     "uninterrupted run")
+            record[dtype] = dict(cut_after_epochs=cut, history_bitwise=same_h,
+                                 params_bitwise=same_p,
+                                 prediction_bitwise=same_pred)
+            shutil.rmtree(run_dir, ignore_errors=True)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        trainer.clear_preemption()
+    return record
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1180,7 +1968,8 @@ def main() -> int:
                                                    bucket_ladder,
                                                    select_bucket)
     from hydragnn_tpu_torch.utils.devices import resolve_device
-    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
 
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -1214,7 +2003,7 @@ def main() -> int:
           f"layers={mcfg.num_conv_layers} input_dim={mcfg.input_dim} "
           f"max_neighbours={cfg['NeuralNetwork']['Architecture']['max_neighbours']} "
           f"batch_size={batch_size} test_requests={len(test)}", flush=True)
-    variables = flax_shaped_variables(create_model(mcfg, device="cpu"), SEED)
+    variables = random_flax_variables(create_model(mcfg, device="cpu"), SEED)
 
     # the batches the serving paths hand the kernels: the largest bucket
     # with SERVE_MAX_BATCH requests, on each layout
@@ -1341,7 +2130,7 @@ def main() -> int:
     breakdown(torch, model, first, top, dense_batch, edge_batch, card)
 
     # ---------------------------------------------------------- phase 4
-    records["filter_scatter"], seg_shapes, counts = schnet_phase(
+    records["filter_scatter"], seg_shapes, counts, lj = schnet_phase(
         torch, device, card)
     records["segment_sum"]["shapes"] += seg_shapes
     records["segment_sum"]["max_abs_err"] = max(
@@ -1445,8 +2234,65 @@ def main() -> int:
     train_paths["lj_schnet_ef"]["run"] = lj_rec
     for rec in (pna_rec, lj_rec):
         rec.pop("history")
-    print("training: " + json.dumps({"card": card, "paths": train_paths}),
-          flush=True)
+
+    # ---------------------------------------------------------- phase 7
+    bf16_launches = {}
+
+    def counted_bf16(counts):
+        counted(counts)
+        for name, c in counts.items():
+            bf16_launches[name] = bf16_launches.get(name, 0) + c
+
+    print("phase 7: bf16 through the kernels' bf16 instantiations, at the "
+          "published widths", flush=True)
+    bf16_records = check_bf16_kernels(torch, dense_batch, edge_batch,
+                                      lj["batch"], device, mcfg.hidden_dim,
+                                      lj["mcfg"].num_filters)
+    serving_bf16 = pna_bf16_serving(torch, device, card, base_cfg, splits,
+                                    variables, mcfg, preds, counted_bf16)
+    lj_serving_bf16 = lj_bf16_serving(torch, device, lj, counted_bf16)
+    bf16_runs = {
+        "csce_pna_dense_bf16": bf16_training_phase(
+            torch, "csce PNA (dense)", base_cfg, splits, device, epochs,
+            counted_bf16, ("nbr_aggregate_bf16", "nbr_aggregate_backward",
+                           "segment_sum")),
+        "csce_pna_edge_bf16": bf16_training_phase(
+            torch, "csce PNA (edge list)", edge_cfg, splits, device, 1,
+            counted_bf16, ("pna_edge_aggregate_bf16",
+                           "pna_edge_aggregate_backward", "segment_sum")),
+        "lj_schnet_ef_bf16": bf16_training_phase(
+            torch, "LJ SchNet EF", lj_cfg, lj_splits, device, LJ_EPOCHS,
+            counted_bf16, ("filter_scatter_bf16",
+                           "filter_scatter_backward_bf16", "segment_sum"),
+            hold_history=False)}
+    lj_bf16_cfg = copy.deepcopy(lj_cfg)
+    lj_bf16_cfg["NeuralNetwork"]["Architecture"]["dtype"] = "bfloat16"
+    bf16_runs["lj_schnet_ef_bf16"].update(
+        first_step_gradients=lj_bf16_gradients(torch, lj_bf16_cfg,
+                                               lj_splits, device),
+        sgd_steps=lj_sgd_steps(torch, lj_cfg, lj_splits, device))
+    for key, cfg_, data, label, graphs in (
+            ("csce_pna_dense_bf16", base_cfg, splits, "csce PNA (dense)",
+             batch_size),
+            ("csce_pna_edge_bf16", edge_cfg, splits,
+             "csce PNA (edge list)", batch_size),
+            ("lj_schnet_ef_bf16", lj_cfg_cut, lj_splits, "LJ SchNet EF",
+             lj_bs)):
+        cfg_ = copy.deepcopy(cfg_)
+        cfg_["NeuralNetwork"]["Architecture"]["dtype"] = "bfloat16"
+        train_paths[key] = step_metrics(torch, cfg_, data, device,
+                                        f"{label} bf16", graphs)
+        train_paths[key]["run"] = bf16_runs[key]
+    train_paths["csce_pna_engine_bf16"] = serving_bf16
+    train_paths["lj_ef_engine_bf16"] = lj_serving_bf16
+    print(f"phase 7 launches (bf16 main paths): {bf16_launches}; "
+          f"segment_sum on the float32-accumulated sums: "
+          f"{bf16_launches['segment_sum']}", flush=True)
+
+    # ---------------------------------------------------------- phase 8
+    resume = resume_phase(torch, device, base_cfg, splits, counted)
+    print("training: " + json.dumps({"card": card, "paths": train_paths,
+                                     "resume": resume}), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -1467,6 +2313,9 @@ def main() -> int:
         src, rep = sources[name]
         extra = ({"backward_launches": launches["filter_scatter_backward"]}
                  if name == "filter_scatter" else {})
+        if name in bf16_records:
+            extra["bf16"] = dict(launches=launches[f"{name}_bf16"],
+                                 **bf16_records[name])
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches[name],
                             **extra, **records[name]))

@@ -1,5 +1,6 @@
 from .config import (HeadConfig, ModelConfig, build_model_config,
-                     gather_deg, load_config, update_config)
+                     gather_deg, get_log_name_config, load_config,
+                     update_config)
 
 __all__ = ["HeadConfig", "ModelConfig", "build_model_config", "gather_deg",
-           "load_config", "update_config"]
+           "get_log_name_config", "load_config", "update_config"]

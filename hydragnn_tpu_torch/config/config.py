@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..train.precision import canonical_or_f32
 from ..utils.envflags import env_str, env_strict_flag
 
 PNA_MODELS = ["PNA", "PNAPlus", "PNAEq"]
@@ -33,6 +34,30 @@ def load_config(path_or_dict) -> Dict[str, Any]:
         return path_or_dict
     with open(path_or_dict) as f:
         return json.load(f)
+
+
+def get_log_name_config(config: Dict[str, Any]) -> str:
+    """The run's name, mangled from its hyperparameters as the JAX
+    package names it: checkpoints live under ./logs/<name>/."""
+    nn = config["NeuralNetwork"]
+    arch = nn["Architecture"]
+    train = nn["Training"]
+    voi = nn["Variables_of_interest"]
+    return (
+        arch["model_type"]
+        + "-r-" + str(arch.get("radius"))
+        + "-ncl-" + str(arch["num_conv_layers"])
+        + "-hd-" + str(arch["hidden_dim"])
+        + "-ne-" + str(train["num_epoch"])
+        + "-lr-" + str(train["Optimizer"].get("learning_rate"))
+        + "-bs-" + str(train["batch_size"])
+        + "-data-" + config.get("Dataset", {}).get("name", "dataset")
+        + "-node_ft-" + "".join(str(x) for x in
+                                voi.get("input_node_features", []))
+        + "-task_weights-" + "".join(
+            f"{w}-" for w in train.get("task_weights",
+                                       arch.get("task_weights", [])))
+    )
 
 
 def update_config(config: Dict[str, Any], train_data, val_data=None,
@@ -299,15 +324,6 @@ class ModelConfig:
     dtype: str = "float32"
 
 
-def _float32_only(dtype) -> str:
-    """Architecture.dtype: the port computes in float32 only so far."""
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"Architecture.dtype={dtype!r}: the port computes in float32 "
-            "only so far (ROADMAP A5/A8: bf16 training and serving)")
-    return "float32"
-
-
 def build_model_config(config: Dict[str, Any]) -> ModelConfig:
     """Completed JSON -> ModelConfig."""
     nn = config["NeuralNetwork"]
@@ -387,5 +403,5 @@ def build_model_config(config: Dict[str, Any]) -> ModelConfig:
         initial_bias=arch.get("initial_bias"),
         conv_checkpointing=bool(train_cfg.get("conv_checkpointing", False)),
         batch_norm=not bool(arch.get("equivariance", False)),
-        dtype=_float32_only(arch.get("dtype")),
+        dtype=canonical_or_f32(arch.get("dtype")),
     )

@@ -40,6 +40,11 @@
 // index load, and there are el times as many warps. Products and sums
 // round separately (__fmul_rn, __fadd_rn) as the plain version's
 // h[send] * w and segment sum do: nvcc contracts no FMA.
+//
+// bf16 (T = __nv_bfloat16): each product is rounded to bf16, as the plain
+// version's bf16 h[send] * w is, the sum accumulates in float32 and out is
+// stored as bf16 once (fused_mp_pallas.py:137-146 and the JAX route's
+// `_accum_f32`). The dh call runs the same instantiation.
 #include "rows.cuh"
 
 constexpr int kFsThreads = 256;
@@ -69,13 +74,13 @@ static FsShape fs_shape(int fv) {
   return {el, (kFsThreads / 32) * (32 / (el * fv)), fv, 1};
 }
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kFsThreads)
-filter_scatter_kernel(const float* __restrict__ h, const float* __restrict__ w,
+filter_scatter_kernel(const T* __restrict__ h, const T* __restrict__ w,
                       const int32_t* __restrict__ send_sorted,
                       const int32_t* __restrict__ order,
                       const int32_t* __restrict__ row_ptr, int n, int f,
-                      FsShape sh, float* __restrict__ out) {
+                      FsShape sh, T* __restrict__ out) {
   __shared__ int32_t s_send[kTile];
   __shared__ int32_t s_order[kTile];
   const int fv = f / VEC;
@@ -130,7 +135,8 @@ filter_scatter_kernel(const float* __restrict__ h, const float* __restrict__ w,
             load_vec<VEC>(w + (long long)s_order[j - t0] * f + c);
 #pragma unroll
         for (int i = 0; i < VEC; ++i)
-          acc.v[i] = __fadd_rn(acc.v[i], __fmul_rn(hv.v[i], wv.v[i]));
+          acc.v[i] =
+              __fadd_rn(acc.v[i], rnd<T>(__fmul_rn(hv.v[i], wv.v[i])));
       }
     }
     // fixed tree over the edge lanes: lane l takes lane l + s, s = el/2..1
@@ -144,21 +150,38 @@ filter_scatter_kernel(const float* __restrict__ h, const float* __restrict__ w,
   }
 }
 
-extern "C" int hg_filter_scatter_f32(const float* h, const float* w,
-                                     const int32_t* send_sorted,
-                                     const int32_t* order,
-                                     const int32_t* row_ptr, int n, int f,
-                                     int vec, float* out, void* stream) {
+template <typename T>
+static int launch(const T* h, const T* w, const int32_t* send_sorted,
+                  const int32_t* order, const int32_t* row_ptr, int n, int f,
+                  int vec, T* out, void* stream) {
   if (n == 0 || f == 0) return (int)cudaSuccess;
   const FsShape sh = fs_shape(f / vec);
   const unsigned blocks = (unsigned)((n + sh.rpb - 1) / sh.rpb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    filter_scatter_kernel<4><<<blocks, kFsThreads, 0, st>>>(
+    filter_scatter_kernel<T, 4><<<blocks, kFsThreads, 0, st>>>(
         h, w, send_sorted, order, row_ptr, n, f, sh, out);
   } else {
-    filter_scatter_kernel<1><<<blocks, kFsThreads, 0, st>>>(
+    filter_scatter_kernel<T, 1><<<blocks, kFsThreads, 0, st>>>(
         h, w, send_sorted, order, row_ptr, n, f, sh, out);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int hg_filter_scatter_f32(const float* h, const float* w,
+                                     const int32_t* send_sorted,
+                                     const int32_t* order,
+                                     const int32_t* row_ptr, int n, int f,
+                                     int vec, float* out, void* stream) {
+  return launch<float>(h, w, send_sorted, order, row_ptr, n, f, vec, out,
+                       stream);
+}
+
+extern "C" int hg_filter_scatter_bf16(const bf16* h, const bf16* w,
+                                      const int32_t* send_sorted,
+                                      const int32_t* order,
+                                      const int32_t* row_ptr, int n, int f,
+                                      int vec, bf16* out, void* stream) {
+  return launch<bf16>(h, w, send_sorted, order, row_ptr, n, f, vec, out,
+                      stream);
 }

@@ -23,15 +23,25 @@
 // keeping sum, sum of squares, min and max in float32 registers. The
 // epilogue is the TPU kernel's (nbr_pallas.py:78-87), rounded like the
 // plain PyTorch version (no FMA contraction).
+//
+// bf16 (T = __nv_bfloat16). The slot message is bf16(pi + pj) and its
+// square bf16(h * h), as the bf16 ops of the plain version round them;
+// sums accumulate in float32 in slot order and are stored as bf16 once
+// (the JAX route's float32 accumulation, ops/segment.py `_accum_f32`, not
+// the Pallas kernel's bf16 accumulators); min and max are taken on the
+// rounded messages, so they are exact; the count is exact. The epilogue
+// rounds to bf16 after every operation, as PyTorch's bf16 ops do; the
+// wrapper hands in eps already rounded to bf16 (ops/scalars.py). Half
+// the bytes of the float32 instantiation move.
 #include "rows.cuh"
 
-template <int VEC>
+template <typename T, int VEC>
 __global__ void nbr_aggregate_kernel(
-    const float* __restrict__ proj_i, const float* __restrict__ proj_j,
+    const T* __restrict__ proj_i, const T* __restrict__ proj_j,
     const int32_t* __restrict__ nbr, const uint8_t* __restrict__ mask, int n,
-    int k, int f, int rows_per_block, float eps, float* __restrict__ mean,
-    float* __restrict__ mn, float* __restrict__ mx, float* __restrict__ sd,
-    float* __restrict__ deg) {
+    int k, int f, int rows_per_block, float eps, T* __restrict__ mean,
+    T* __restrict__ mn, T* __restrict__ mx, T* __restrict__ sd,
+    T* __restrict__ deg) {
   extern __shared__ int s_slot[];  // [rows_per_block, k]; -1 = empty slot
   const int fv = f / VEC;
   const int row0 = blockIdx.x * rows_per_block;
@@ -64,9 +74,9 @@ __global__ void nbr_aggregate_kernel(
     const Vec<VEC> pj = load_vec<VEC>(proj_j + (long long)j * f + c);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      const float h = __fadd_rn(pi.v[i], pj.v[i]);
+      const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
       s.v[i] = __fadd_rn(s.v[i], h);
-      sq.v[i] = __fadd_rn(sq.v[i], __fmul_rn(h, h));
+      sq.v[i] = __fadd_rn(sq.v[i], rnd<T>(__fmul_rn(h, h)));
       lo.v[i] = fminf(lo.v[i], h);
       hi.v[i] = fmaxf(hi.v[i], h);
     }
@@ -78,11 +88,14 @@ __global__ void nbr_aggregate_kernel(
   Vec<VEC> o_mean, o_sd, o_mn, o_mx;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
-    const float m = __fdiv_rn(s.v[i], cs);
-    const float var =
-        fmaxf(__fsub_rn(__fdiv_rn(sq.v[i], cs), __fmul_rn(m, m)), 0.f);
+    // every rnd<T> is the store of one op of the plain version
+    const float m = rnd<T>(__fdiv_rn(rnd<T>(s.v[i]), cs));
+    const float var = fmaxf(
+        rnd<T>(__fsub_rn(rnd<T>(__fdiv_rn(rnd<T>(sq.v[i]), cs)),
+                         rnd<T>(__fmul_rn(m, m)))),
+        0.f);
     o_mean.v[i] = m;
-    o_sd.v[i] = __fsqrt_rn(__fadd_rn(var, eps));
+    o_sd.v[i] = __fsqrt_rn(rnd<T>(__fadd_rn(var, eps)));
     o_mn.v[i] = has ? lo.v[i] : 0.f;
     o_mx.v[i] = has ? hi.v[i] : 0.f;
   }
@@ -91,14 +104,14 @@ __global__ void nbr_aggregate_kernel(
   store_vec<VEC>(sd + o, o_sd);
   store_vec<VEC>(mn + o, o_mn);
   store_vec<VEC>(mx + o, o_mx);
-  if (c == 0) deg[row] = cnt;
+  if (c == 0) store_one(deg + row, cnt);
 }
 
-extern "C" int hg_nbr_aggregate_f32(const float* proj_i, const float* proj_j,
-                                    const int32_t* nbr, const uint8_t* mask,
-                                    int n, int k, int f, int vec, float eps,
-                                    float* mean, float* mn, float* mx,
-                                    float* sd, float* deg, void* stream) {
+template <typename T>
+static int launch(const T* proj_i, const T* proj_j, const int32_t* nbr,
+                  const uint8_t* mask, int n, int k, int f, int vec,
+                  float eps, T* mean, T* mn, T* mx, T* sd, T* deg,
+                  void* stream) {
   if (n == 0 || f == 0) return (int)cudaSuccess;
   const int fv = f / vec;
   if (fv > 1024) return (int)cudaErrorInvalidValue;
@@ -113,13 +126,31 @@ extern "C" int hg_nbr_aggregate_f32(const float* proj_i, const float* proj_j,
   const int threads = rows_per_block * fv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec == 4) {
-    nbr_aggregate_kernel<4><<<blocks, threads, smem, s>>>(
+    nbr_aggregate_kernel<T, 4><<<blocks, threads, smem, s>>>(
         proj_i, proj_j, nbr, mask, n, k, f, rows_per_block, eps, mean, mn, mx,
         sd, deg);
   } else {
-    nbr_aggregate_kernel<1><<<blocks, threads, smem, s>>>(
+    nbr_aggregate_kernel<T, 1><<<blocks, threads, smem, s>>>(
         proj_i, proj_j, nbr, mask, n, k, f, rows_per_block, eps, mean, mn, mx,
         sd, deg);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" int hg_nbr_aggregate_f32(const float* proj_i, const float* proj_j,
+                                    const int32_t* nbr, const uint8_t* mask,
+                                    int n, int k, int f, int vec, float eps,
+                                    float* mean, float* mn, float* mx,
+                                    float* sd, float* deg, void* stream) {
+  return launch<float>(proj_i, proj_j, nbr, mask, n, k, f, vec, eps, mean, mn,
+                       mx, sd, deg, stream);
+}
+
+extern "C" int hg_nbr_aggregate_bf16(const bf16* proj_i, const bf16* proj_j,
+                                     const int32_t* nbr, const uint8_t* mask,
+                                     int n, int k, int f, int vec, float eps,
+                                     bf16* mean, bf16* mn, bf16* mx, bf16* sd,
+                                     bf16* deg, void* stream) {
+  return launch<bf16>(proj_i, proj_j, nbr, mask, n, k, f, vec, eps, mean, mn,
+                      mx, sd, deg, stream);
 }

@@ -23,18 +23,23 @@
 // grid steps. Here one thread owns VEC features of one receiver and walks
 // its CSR edge range, keeping all four accumulators in registers: one
 // pass, no atomics, no [E, F] tensor.
+//
+// bf16 (T = __nv_bfloat16). The message is bf16(pi + pj) and its square
+// bf16(h * h); s and sq accumulate in float32 and, like cnt, are handed
+// back as bf16 (fused_mp_pallas.py:336-340 casts its float32 sums to the
+// data dtype); min and max are exact bf16 values.
 #include "rows.cuh"
 
-template <int VEC>
-__global__ void pna_edge_kernel(const float* __restrict__ proj_i,
-                                const float* __restrict__ proj_j,
+template <typename T, int VEC>
+__global__ void pna_edge_kernel(const T* __restrict__ proj_i,
+                                const T* __restrict__ proj_j,
                                 const int32_t* __restrict__ send_sorted,
                                 const int32_t* __restrict__ row_ptr, int n,
-                                int f, float* __restrict__ s_out,
-                                float* __restrict__ sq_out,
-                                float* __restrict__ cnt_out,
-                                float* __restrict__ mn_out,
-                                float* __restrict__ mx_out) {
+                                int f, T* __restrict__ s_out,
+                                T* __restrict__ sq_out,
+                                T* __restrict__ cnt_out,
+                                T* __restrict__ mn_out,
+                                T* __restrict__ mx_out) {
   const int fv = f / VEC;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)n * fv) return;
@@ -52,9 +57,9 @@ __global__ void pna_edge_kernel(const float* __restrict__ proj_i,
     const Vec<VEC> pj = load_vec<VEC>(proj_j + (long long)j * f + c);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      const float h = __fadd_rn(pi.v[i], pj.v[i]);
+      const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
       s.v[i] = __fadd_rn(s.v[i], h);
-      sq.v[i] = __fadd_rn(sq.v[i], __fmul_rn(h, h));
+      sq.v[i] = __fadd_rn(sq.v[i], rnd<T>(__fmul_rn(h, h)));
       lo.v[i] = fminf(lo.v[i], h);
       hi.v[i] = fmaxf(hi.v[i], h);
     }
@@ -69,7 +74,25 @@ __global__ void pna_edge_kernel(const float* __restrict__ proj_i,
   store_vec<VEC>(sq_out + o, sq);
   store_vec<VEC>(mn_out + o, lo);
   store_vec<VEC>(mx_out + o, hi);
-  if (c == 0) cnt_out[row] = (float)(end - beg);
+  if (c == 0) store_one(cnt_out + row, (float)(end - beg));
+}
+
+template <typename T>
+static int launch(const T* proj_i, const T* proj_j,
+                  const int32_t* send_sorted, const int32_t* row_ptr, int n,
+                  int f, int vec, T* s, T* sq, T* cnt, T* mn, T* mx,
+                  void* stream) {
+  if (n == 0 || f == 0) return (int)cudaSuccess;
+  const unsigned blocks = row_blocks(n, f, vec);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vec == 4) {
+    pna_edge_kernel<T, 4><<<blocks, kRowThreads, 0, st>>>(
+        proj_i, proj_j, send_sorted, row_ptr, n, f, s, sq, cnt, mn, mx);
+  } else {
+    pna_edge_kernel<T, 1><<<blocks, kRowThreads, 0, st>>>(
+        proj_i, proj_j, send_sorted, row_ptr, n, f, s, sq, cnt, mn, mx);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int hg_pna_edge_aggregate_f32(const float* proj_i,
@@ -79,15 +102,17 @@ extern "C" int hg_pna_edge_aggregate_f32(const float* proj_i,
                                          int vec, float* s, float* sq,
                                          float* cnt, float* mn, float* mx,
                                          void* stream) {
-  if (n == 0 || f == 0) return (int)cudaSuccess;
-  const unsigned blocks = row_blocks(n, f, vec);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    pna_edge_kernel<4><<<blocks, kRowThreads, 0, st>>>(
-        proj_i, proj_j, send_sorted, row_ptr, n, f, s, sq, cnt, mn, mx);
-  } else {
-    pna_edge_kernel<1><<<blocks, kRowThreads, 0, st>>>(
-        proj_i, proj_j, send_sorted, row_ptr, n, f, s, sq, cnt, mn, mx);
-  }
-  return (int)cudaGetLastError();
+  return launch<float>(proj_i, proj_j, send_sorted, row_ptr, n, f, vec, s, sq,
+                       cnt, mn, mx, stream);
+}
+
+extern "C" int hg_pna_edge_aggregate_bf16(const bf16* proj_i,
+                                          const bf16* proj_j,
+                                          const int32_t* send_sorted,
+                                          const int32_t* row_ptr, int n,
+                                          int f, int vec, bf16* s, bf16* sq,
+                                          bf16* cnt, bf16* mn, bf16* mx,
+                                          void* stream) {
+  return launch<bf16>(proj_i, proj_j, send_sorted, row_ptr, n, f, vec, s, sq,
+                      cnt, mn, mx, stream);
 }

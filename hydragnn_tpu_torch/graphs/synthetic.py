@@ -105,7 +105,7 @@ def lj_configurations(num_configs: int, atoms_per_dim: int = 3,
 
 
 def tie_rich_neighbor_case(seed: int = 0, n: int = 24, k: int = 8,
-                           f: int = 6):
+                           f: int = 6, bf16_exact: bool = False):
     """Dyadic inputs of the PNA aggregation on the dense layout on which
     every gradient is exact in float32: (proj_i, proj_j [n, f], nbr [n, k]
     int32, mask [n, k] bool). Each row's real slots are 0, 1, 2, 4 or 8
@@ -114,11 +114,21 @@ def tie_rich_neighbor_case(seed: int = 0, n: int = 24, k: int = 8,
     variance of exactly 0); proj_j differs between any two rows, so ties
     come only from repeated neighbours. Masked slots point at real rows.
     Values are multiples of 1/1024 below 1 in magnitude, so their squares
-    and sums are exact too."""
+    and sums are exact too.
+
+    `bf16_exact` draws proj_j from multiples of 1/8 in [-2, 2) instead
+    (ties then also come from equal values): every message is a multiple
+    of 1/16 below 2.5 in magnitude, exact in bf16, its bf16-rounded square
+    a multiple of 1/256, and float32 sums of up to 256 of them are exact
+    in any order, so the bf16 kernels and their plain versions agree bit
+    for bit."""
     rng = np.random.RandomState(seed)
     proj_i = rng.randint(-8, 8, (n, f)).astype(np.float32) / 16
-    proj_j = (np.arange(n, dtype=np.float32)[:, None] / 64
-              + rng.randint(0, 4, (1, f)).astype(np.float32) / 1024)
+    if bf16_exact:
+        proj_j = rng.randint(-16, 16, (n, f)).astype(np.float32) / 8
+    else:
+        proj_j = (np.arange(n, dtype=np.float32)[:, None] / 64
+                  + rng.randint(0, 4, (1, f)).astype(np.float32) / 1024)
     nbr = rng.randint(0, n, (n, k)).astype(np.int32)
     mask = np.zeros((n, k), bool)
     for row in range(n):
@@ -132,12 +142,14 @@ def tie_rich_neighbor_case(seed: int = 0, n: int = 24, k: int = 8,
     return proj_i, proj_j, nbr, mask
 
 
-def tie_rich_edge_case(seed: int = 0, n: int = 24, f: int = 6):
+def tie_rich_edge_case(seed: int = 0, n: int = 24, f: int = 6,
+                       bf16_exact: bool = False):
     """The edge-list counterpart of `tie_rich_neighbor_case`: (proj_i,
     proj_j, senders, receivers int32, edge_mask bool) whose kept in-edges
     per node are 0, 1, 2, 4 or 8, senders in pairs, plus masked edges into
     every node and edges whose receiver lies outside [0, n)."""
-    proj_i, proj_j, nbr, mask = tie_rich_neighbor_case(seed, n, 8, f)
+    proj_i, proj_j, nbr, mask = tie_rich_neighbor_case(seed, n, 8, f,
+                                                       bf16_exact)
     rows = np.repeat(np.arange(n, dtype=np.int32), 8)
     send, recv, keep = nbr.reshape(-1), rows, mask.reshape(-1)
     order = np.random.RandomState(seed + 1).permutation(send.size)

@@ -25,6 +25,11 @@ KERNEL_COUNTERS = {
     "filter_scatter_backward": ("fused_mp", "filter_backward_launches"),
     "nbr_aggregate_backward": ("nbr", "backward_launches"),
     "pna_edge_aggregate_backward": ("fused_mp", "backward_launches"),
+    "nbr_aggregate_bf16": ("nbr", "bf16_launches"),
+    "pna_edge_aggregate_bf16": ("fused_mp", "bf16_launches"),
+    "filter_scatter_bf16": ("fused_mp", "filter_bf16_launches"),
+    "filter_scatter_backward_bf16": ("fused_mp",
+                                     "filter_backward_bf16_launches"),
 }
 
 

@@ -18,6 +18,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "hydragnn_tpu_torch"
@@ -96,6 +98,10 @@ def _compile(sources, out_dir: Path) -> None:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+# the C entry point's suffix per element type (`hg_<kernel>_<suffix>`)
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def load(stem: str) -> ctypes.CDLL:

@@ -39,6 +39,15 @@ So the gradient needs no atomics either, and is itself differentiable.
 `segment_layouts` hands them to the segment sums over the same edges (the
 position gathers' backward and the coordinate update on the EF path), so
 those sort nothing.
+
+bf16. Both kernels have a float32 and a bf16 instantiation, picked by the
+inputs' dtype (one dtype for both operands; any other dtype raises on the
+card). At bf16 the messages (proj_i + proj_j, its square, h * w) round
+to bf16 and the sums accumulate in float32 and are stored back in bf16 —
+the accumulators' s, sq and cnt as `fused_mp_pallas.py:336-340` casts
+them — so the plain versions, which follow `_accum_f32`, compute the same
+function. The backwards run in the compute dtype; tie counts and their
+segment sums are taken in float32.
 """
 from __future__ import annotations
 
@@ -51,10 +60,14 @@ from ..ops.segment import pna_accumulators, pna_stats_epilogue
 from . import _build
 from .segment import gather_rows, segment_sum, segment_sum_plain, vec_width
 
-launches = 0              # pna_edge_aggregate
+launches = 0              # pna_edge_aggregate, either instantiation
+bf16_launches = 0         # of which the bf16 instantiation
 backward_launches = 0     # pna_edge_aggregate, backward calls on the card
 filter_launches = 0       # filter_scatter, forward calls
+filter_bf16_launches = 0  # of which the bf16 instantiation
 filter_backward_launches = 0  # filter_scatter, the dh of a backward
+filter_backward_bf16_launches = 0  # of which the bf16 instantiation
+
 
 
 def _kept_edges(senders, receivers, edge_mask, num_nodes):
@@ -75,8 +88,9 @@ def pna_edge_accumulators_plain(proj_i, proj_j, senders, receivers,
                             sum_fn=segment_sum_plain)
 
 
-def _lib():
-    fn = _build.load("pna_edge_aggregate").hg_pna_edge_aggregate_f32
+def _lib(dtype):
+    fn = getattr(_build.load("pna_edge_aggregate"),
+                 f"hg_pna_edge_aggregate_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 6)
@@ -118,7 +132,8 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
     dproj_j are the segment sums of dh over the receivers and the senders.
     `layout` / `layout_t` are the receiver- and sender-sorted
     `edge_layout`s of these edges (on the card; built here when not given);
-    the tie counts ride the receiver-sorted one too."""
+    the tie counts ride the receiver-sorted one too. In bf16 the ties are
+    counted and every segment sum accumulated in float32."""
     n = int(num_nodes)
     keep = _kept_edges(senders, receivers, edge_mask, n)[:, None]
     zero = torch.zeros_like(senders)
@@ -133,16 +148,18 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
         if layout_t is None:
             layout_t = edge_layout(receivers, senders, edge_mask, n)
         by_recv, by_send = segment_layouts((layout, layout_t))
-    fzero = torch.zeros((), dtype=h.dtype, device=h.device)
+    dt = h.dtype
+    fzero = torch.zeros((), dtype=dt, device=h.device)
     dh = torch.where(keep, g_s.index_select(0, recv)
                      + 2.0 * (h * g_sq.index_select(0, recv)), fzero)
     for g, ext in ((g_min, mn), (g_max, mx)):
         hit = keep & (h == ext.index_select(0, recv))
-        ties = segment_sum(hit.to(h.dtype), recv, n, layout=by_recv)
-        share = g / torch.maximum(ties, torch.ones_like(ties))
+        ties = segment_sum(hit.float(), recv, n, layout=by_recv)
+        share = g / torch.clamp(ties, min=1.0).to(dt)
         dh = dh + torch.where(hit, share.index_select(0, recv), fzero)
-    return (segment_sum(dh, recv, n, layout=by_recv),
-            segment_sum(dh, send, n, layout=by_send))
+    dh = dh.float()
+    return (segment_sum(dh, recv, n, layout=by_recv).to(dt),
+            segment_sum(dh, send, n, layout=by_send).to(dt))
 
 
 class _PnaEdgeAccums(torch.autograd.Function):
@@ -183,28 +200,32 @@ class _PnaEdgeAccums(torch.autograd.Function):
 
 
 def _launch_pna(proj_i, proj_j, n, layout):
-    global launches
+    global launches, bf16_launches
     row_ptr, send_sorted, _ = layout
     f = proj_i.shape[1]
     dev = proj_i.device
-    s = torch.empty((n, f), dtype=torch.float32, device=dev)
+    s = torch.empty((n, f), dtype=proj_i.dtype, device=dev)
     sq = torch.empty_like(s)
     mn = torch.empty_like(s)
     mx = torch.empty_like(s)
-    cnt = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    cnt = torch.empty((n, 1), dtype=proj_i.dtype, device=dev)
     vec = vec_width(f, proj_i, proj_j, s)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(proj_i.data_ptr(), proj_j.data_ptr(), send_sorted.data_ptr(),
-                 row_ptr.data_ptr(), n, f, vec, s.data_ptr(), sq.data_ptr(),
-                 cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(), stream)
+    err = _lib(proj_i.dtype)(proj_i.data_ptr(), proj_j.data_ptr(),
+                             send_sorted.data_ptr(), row_ptr.data_ptr(), n, f,
+                             vec, s.data_ptr(), sq.data_ptr(), cnt.data_ptr(),
+                             mn.data_ptr(), mx.data_ptr(), stream)
     _build.check_launch(err, "pna_edge_aggregate")
     launches += 1
+    if proj_i.dtype == torch.bfloat16:
+        bf16_launches += 1
     return s, sq, cnt, mn, mx
 
 
 def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
                           num_nodes, layout=None, layout_t=None):
-    """(s, sq, cnt [N, 1], mn, mx) in float32 over the kept in-edges of
+    """(s, sq, cnt [N, 1], mn, mx) in the projections' dtype (float32 or
+    bfloat16; the sums accumulate in float32) over the kept in-edges of
     each node; mn/mx are 0 on a node without one. `layout` is
     `edge_layout` of these edges, computed here when not given;
     `layout_t`, the sender-sorted one, is the backward's (built there when
@@ -216,9 +237,11 @@ def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
         raise ValueError(f"pna_edge_aggregate: unsupported device "
                          f"{proj_i.device}")
     n = int(num_nodes)
-    if proj_i.dtype != torch.float32 or proj_j.dtype != torch.float32:
-        raise TypeError("pna_edge_aggregate kernel takes float32 "
-                        f"projections, got {proj_i.dtype}/{proj_j.dtype}")
+    if (proj_i.dtype not in _build.DTYPE_SUFFIX
+            or proj_j.dtype != proj_i.dtype):
+        raise TypeError("pna_edge_aggregate kernel takes float32 or bfloat16 "
+                        "projections of one dtype, got "
+                        f"{proj_i.dtype}/{proj_j.dtype}")
     if proj_i.dim() != 2 or proj_i.shape[0] != n \
             or proj_j.shape != proj_i.shape:
         raise ValueError(f"pna_edge_aggregate: proj_i {tuple(proj_i.shape)} "
@@ -314,8 +337,9 @@ def segment_layouts(layouts):
     return (by_recv[0], by_recv[2]), (by_send[0], by_send[2])
 
 
-def _filter_lib():
-    fn = _build.load("filter_scatter").hg_filter_scatter_f32
+def _filter_lib(dtype):
+    fn = getattr(_build.load("filter_scatter"),
+                 f"hg_filter_scatter_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p] * 2)
@@ -325,19 +349,24 @@ def _filter_lib():
 
 def _launch_filter(h, w, layout, n, backward):
     global filter_launches, filter_backward_launches
+    global filter_bf16_launches, filter_backward_bf16_launches
     row_ptr, send_sorted, order = layout
     f = h.shape[1]
-    out = torch.empty((n, f), dtype=torch.float32, device=h.device)
+    out = torch.empty((n, f), dtype=h.dtype, device=h.device)
     vec = vec_width(f, h, w, out)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = _filter_lib()(h.data_ptr(), w.data_ptr(), send_sorted.data_ptr(),
-                        order.data_ptr(), row_ptr.data_ptr(), n, f, vec,
-                        out.data_ptr(), stream)
+    err = _filter_lib(h.dtype)(h.data_ptr(), w.data_ptr(),
+                               send_sorted.data_ptr(), order.data_ptr(),
+                               row_ptr.data_ptr(), n, f, vec, out.data_ptr(),
+                               stream)
     _build.check_launch(err, "filter_scatter")
+    bf16 = h.dtype == torch.bfloat16
     if backward:
         filter_backward_launches += 1
+        filter_backward_bf16_launches += int(bf16)
     else:
         filter_launches += 1
+        filter_bf16_launches += int(bf16)
     return out
 
 
@@ -378,18 +407,19 @@ class _FilterScatter(torch.autograd.Function):
 def filter_scatter(h, w, senders, receivers, edge_mask, num_nodes,
                    layout=None):
     """sum over the kept in-edges e of each node of h[send[e]] * w[e], in
-    float32: h [N, F], w [E, F] -> [N, F], 0 on a node without a kept
-    edge. `layout` is `filter_layouts` of these edges, computed here when
-    not given."""
+    h's dtype (float32, or bfloat16 with bf16 products summed in float32):
+    h [N, F], w [E, F] -> [N, F], 0 on a node without a kept edge.
+    `layout` is `filter_layouts` of these edges, computed here when not
+    given."""
     if h.device.type == "cpu":
         return filter_scatter_plain(h, w, senders, receivers, edge_mask,
                                     num_nodes)
     if h.device.type != "cuda":
         raise ValueError(f"filter_scatter: unsupported device {h.device}")
     n = int(num_nodes)
-    if h.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError("filter_scatter kernel takes float32 h and w, got "
-                        f"{h.dtype}/{w.dtype}")
+    if h.dtype not in _build.DTYPE_SUFFIX or w.dtype != h.dtype:
+        raise TypeError("filter_scatter kernel takes float32 or bfloat16 h "
+                        f"and w of one dtype, got {h.dtype}/{w.dtype}")
     e = senders.shape[0]
     if h.dim() != 2 or h.shape[0] != n or w.dim() != 2 \
             or w.shape != (e, h.shape[1]):

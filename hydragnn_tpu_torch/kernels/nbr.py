@@ -20,6 +20,15 @@ dproj_i as a sum over the slots and dproj_j as the port's segment sum over
 the neighbour ids, on a CSR layout of the kept slots (`neighbor_layout`,
 built once per forward), so the gradient needs no atomics either. It never
 calls the plain version, which stays the tests' yardstick.
+
+bf16. The kernel has a float32 and a bf16 instantiation, picked by the
+projections' dtype (any other dtype raises on the card). At bf16 both
+versions round the slot message and its square to bf16, sum in float32
+and store the sums once, as the JAX package's default route does
+(ops/segment.py `_accum_f32`; its Pallas kernel accumulates in bf16
+instead). The backward runs in the compute dtype, with counts and ties
+counted exactly in float32 and its segment sum over the neighbours in
+float32.
 """
 from __future__ import annotations
 
@@ -28,12 +37,15 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..ops.segment import neighbor_aggregate
+from ..ops.scalars import weak
+from ..ops.segment import neighbor_aggregate, sum_accum_f32
 from . import _build
 from .segment import segment_sum, vec_width
 
-launches = 0              # forward kernel launches
+launches = 0              # forward kernel launches, either instantiation
+bf16_launches = 0         # of which the bf16 instantiation
 backward_launches = 0     # backward calls on the card (segment-sum kernels)
+
 
 
 def nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
@@ -48,8 +60,9 @@ def nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
     return neighbor_aggregate(h, mask, eps=eps)
 
 
-def _lib():
-    fn = _build.load("nbr_aggregate").hg_nbr_aggregate_f32
+def _lib(dtype):
+    fn = getattr(_build.load("nbr_aggregate"),
+                 f"hg_nbr_aggregate_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_float] + [ctypes.c_void_p] * 6)
@@ -94,7 +107,9 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
 
     The sums are recomputed from h as the plain version computes them, so
     the branch of each variance tie is the one the plain forward takes;
-    min and max are exact on both paths."""
+    min and max are exact on both paths. In bf16 the counts and ties are
+    counted in float32 (exact) and each share formed in bf16; the sums
+    over the slots and the neighbours accumulate in float32."""
     n = proj_j.shape[0]
     rows, k = nbr.shape
     idx = nbr.long()
@@ -102,13 +117,14 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
     mask = (nbr_mask & inside)[:, :, None]
     idx = torch.where(inside, idx, torch.zeros_like(idx)).reshape(-1)
     h = proj_i[:, None, :] + proj_j.index_select(0, idx).view(rows, k, -1)
-    zero = torch.zeros((), dtype=h.dtype, device=h.device)
-    cnt = torch.sum(mask.to(h.dtype), dim=1)                  # [N, 1]
-    c = torch.maximum(cnt, torch.ones_like(cnt))
+    dt = h.dtype
+    zero = torch.zeros((), dtype=dt, device=h.device)
+    cnt = torch.sum(mask, dim=1, dtype=torch.float32)        # [N, 1]
+    c = torch.clamp(cnt, min=1.0).to(dt)
     hm = torch.where(mask, h, zero)
-    mean = torch.sum(hm, dim=1) / c
-    var_raw = torch.sum(hm * hm, dim=1) / c - mean * mean
-    std = torch.sqrt(torch.maximum(var_raw, zero) + eps)
+    mean = sum_accum_f32(hm, 1) / c
+    var_raw = sum_accum_f32(hm * hm, 1) / c - mean * mean
+    std = torch.sqrt(torch.maximum(var_raw, zero) + weak(eps, h))
     dvar = g_std / (2.0 * std)
     dvar = torch.where(var_raw > 0, dvar,
                        torch.where(var_raw == 0, dvar * 0.5, zero))
@@ -118,39 +134,44 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
                      zero)
     for g, ext in ((g_min, mn), (g_max, mx)):
         hit = mask & (h == ext[:, None, :])
-        ties = torch.sum(hit.to(h.dtype), dim=1)
-        share = g / torch.maximum(ties, torch.ones_like(ties))
+        ties = torch.sum(hit, dim=1, dtype=torch.float32)
+        share = g / torch.clamp(ties, min=1.0).to(dt)
         dh = dh + torch.where(hit, share[:, None, :], zero)
-    d_i = torch.sum(dh, dim=1)
+    d_i = sum_accum_f32(dh, 1)
     if layout is None:
         layout = neighbor_layout(nbr, nbr_mask)
     # masked slots carry dh = 0: summing them (CPU) or leaving them out
     # (the layout) gives the same dproj_j
-    d_j = segment_sum(dh.reshape(rows * k, -1), idx, n, layout=layout)
+    d_j = segment_sum(dh.reshape(rows * k, -1).float(), idx, n,
+                      layout=layout).to(dt)
     return d_i, d_j
 
 
+
 def _launch(proj_i, proj_j, nbr, nbr_mask, eps):
-    global launches
+    global launches, bf16_launches
     n, f = proj_i.shape
     k = nbr.shape[1]
     dev = proj_i.device
-    mean = torch.empty((n, f), dtype=torch.float32, device=dev)
+    mean = torch.empty((n, f), dtype=proj_i.dtype, device=dev)
     mn = torch.empty_like(mean)
     mx = torch.empty_like(mean)
     sd = torch.empty_like(mean)
-    deg = torch.empty((n,), dtype=torch.float32, device=dev)
+    deg = torch.empty((n,), dtype=proj_i.dtype, device=dev)
     vec = vec_width(f, proj_i, proj_j, mean)
     if f // vec > 1024:
         raise ValueError(f"nbr_aggregate: F={f} exceeds the kernel's "
                          "1024 feature groups per block")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(proj_i.data_ptr(), proj_j.data_ptr(), nbr.data_ptr(),
-                 nbr_mask.data_ptr(), n, k, f, vec, float(eps),
-                 mean.data_ptr(), mn.data_ptr(), mx.data_ptr(), sd.data_ptr(),
-                 deg.data_ptr(), stream)
+    err = _lib(proj_i.dtype)(proj_i.data_ptr(), proj_j.data_ptr(),
+                             nbr.data_ptr(), nbr_mask.data_ptr(), n, k, f,
+                             vec, weak(eps, proj_i), mean.data_ptr(),
+                             mn.data_ptr(), mx.data_ptr(), sd.data_ptr(),
+                             deg.data_ptr(), stream)
     _build.check_launch(err, "nbr_aggregate")
     launches += 1
+    if proj_i.dtype == torch.bfloat16:
+        bf16_launches += 1
     return mean, mn, mx, sd, deg
 
 
@@ -185,9 +206,9 @@ class _NbrAggregate(torch.autograd.Function):
 
 
 def nbr_aggregate(proj_i, proj_j, nbr, nbr_mask, eps=1e-5, layout=None):
-    """(mean [N, F], min, max, std, degree [N]) of
-    proj_i[:, None, :] + proj_j[nbr] over masked slots, without forming
-    the [N, K, F] tensor on the card's forward. `layout` is
+    """(mean [N, F], min, max, std, degree [N]), in the projections'
+    dtype, of proj_i[:, None, :] + proj_j[nbr] over masked slots,
+    without forming the [N, K, F] tensor on the card's forward. `layout` is
     `neighbor_layout(nbr, nbr_mask)` for the backward, built there when
     not given."""
     if proj_i.device.type == "cpu":
@@ -196,8 +217,9 @@ def nbr_aggregate(proj_i, proj_j, nbr, nbr_mask, eps=1e-5, layout=None):
         raise ValueError(f"nbr_aggregate: unsupported device {proj_i.device}")
     n, f = proj_i.shape
     k = nbr.shape[1] if nbr.dim() == 2 else -1
-    if proj_i.dtype != torch.float32 or proj_j.dtype != torch.float32:
-        raise TypeError("nbr_aggregate kernel takes float32 projections, got "
+    if proj_i.dtype not in _build.DTYPE_SUFFIX or proj_j.dtype != proj_i.dtype:
+        raise TypeError("nbr_aggregate kernel takes float32 or bfloat16 "
+                        "projections of one dtype, got "
                         f"{proj_i.dtype}/{proj_j.dtype}")
     if proj_j.shape != proj_i.shape or nbr.shape != (n, k) \
             or nbr_mask.shape != (n, k):

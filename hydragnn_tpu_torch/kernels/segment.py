@@ -67,9 +67,10 @@ def _lib():
 
 
 def vec_width(f: int, *tensors: torch.Tensor) -> int:
-    """4 (16-byte loads) when F % 4 == 0 and every row pointer is 16-byte
-    aligned, else 1."""
-    if f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors):
+    """4 (loads of 4 elements: 16 bytes of float32, 8 of bf16) when F % 4
+    == 0 and every row pointer is aligned to 4 elements, else 1."""
+    if f % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                          for t in tensors):
         return 4
     return 1
 
@@ -295,8 +296,11 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return (segment_sum(g.contiguous(), ids, ctx.num_rows,
-                            layout=ctx.layout), None, None)
+        # bf16 gradients sum in float32 and are stored back once (the
+        # kernel takes float32; ops/segment.py `_accum_f32`)
+        d = segment_sum(g.float().contiguous(), ids, ctx.num_rows,
+                        layout=ctx.layout)
+        return d.to(g.dtype), None, None
 
 
 def gather_rows(x: torch.Tensor, ids: torch.Tensor,

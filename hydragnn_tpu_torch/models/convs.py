@@ -18,6 +18,8 @@ from torch import nn
 
 from ..kernels.fused_mp import pna_edge_aggregate
 from ..kernels.nbr import nbr_aggregate
+from ..ops.scalars import weak
+from .layers import Dense
 
 
 def pna_degree_stats(deg_hist: Sequence[int]):
@@ -44,10 +46,10 @@ class PNAConv(nn.Module):
             raise NotImplementedError(
                 "PNAConv with edge features is not ported yet (ROADMAP A4: "
                 "the edge_encoder/edge_proj message terms)")
-        self.pre_i = nn.Linear(in_dim, in_dim)
-        self.pre_j = nn.Linear(in_dim, in_dim, bias=False)
-        self.post_nn = nn.Linear(16 * in_dim, out_dim)
-        self.lin = nn.Linear(out_dim, out_dim)
+        self.pre_i = Dense(in_dim, in_dim)
+        self.pre_j = Dense(in_dim, in_dim, bias=False)
+        self.post_nn = Dense(16 * in_dim, out_dim)
+        self.lin = Dense(out_dim, out_dim)
         self.avg_lin, self.avg_log = pna_degree_stats(deg_hist)
 
     def forward(self, x, pos, batch, cargs):
@@ -64,9 +66,13 @@ class PNAConv(nn.Module):
                 layout_t=cargs.get("edge_layout_t"))
         aggs = torch.cat([mean, mn, mx, sd], dim=-1)          # [N, 4F]
         logd = torch.log(deg + 1.0)
-        amp = (logd / self.avg_log)[:, None]
-        att = (self.avg_log / torch.clamp(logd, min=1e-6))[:, None]
-        lin = (deg / self.avg_lin)[:, None]
+        # the degree statistics rounded to the data's dtype, and the
+        # attenuation divided in float32 (ops/scalars.py)
+        avg_log = weak(self.avg_log, logd)
+        amp = (logd / avg_log)[:, None]
+        att = (avg_log / torch.clamp(logd, min=1e-6).float()).to(
+            logd.dtype)[:, None]
+        lin = (deg / weak(self.avg_lin, deg))[:, None]
         scaled = torch.cat([aggs, aggs * amp, aggs * att, aggs * lin],
                            dim=-1)                             # [N, 16F]
         out = self.post_nn(scaled)

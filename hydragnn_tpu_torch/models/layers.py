@@ -11,6 +11,28 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..ops.scalars import rsqrt, weak
+
+
+class Dense(nn.Linear):
+    """nn.Linear that computes as Flax's Dense does: in the promoted dtype
+    of its input and weights (at bf16 the decoder meets float32 features,
+    the masked mean pooling dividing bf16 sums by float32 counts, and runs
+    in float32 with the bf16 weights widened), and below float32 with the
+    bias added after the product is rounded, as a separate op. (A fused
+    bias rounds once, and cuBLAS fuses it for some shapes and not for
+    others, so the card and the CPU would round differently.) In float32
+    it is nn.Linear."""
+
+    def forward(self, x):
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        x, weight = x.to(dt), self.weight.to(dt)
+        if self.bias is None:
+            return F.linear(x, weight)
+        if dt.itemsize < 4:
+            return F.linear(x, weight) + self.bias.to(dt)
+        return F.linear(x, weight, self.bias.to(dt))
+
 
 class MLP(nn.Module):
     """Dense layers with the activation between them (and after the last
@@ -25,7 +47,7 @@ class MLP(nn.Module):
         self.activate_final = activate_final
         d = in_dim
         for i, f in enumerate(self.features):
-            setattr(self, f"dense_{i}", nn.Linear(d, f, bias=use_bias))
+            setattr(self, f"dense_{i}", Dense(d, f, bias=use_bias))
             d = f
         self.out_dim = d
 
@@ -50,7 +72,12 @@ class MaskedBatchNorm(nn.Module):
     statistics, while the normalization itself stays differentiable, also
     with respect to the positions on the energy-force path. Eval mode
     normalizes every row with the running statistics,
-    y = (x - mean) * rsqrt(var + eps) * scale + bias."""
+    y = (x - mean) * rsqrt(var + eps) * scale + bias.
+
+    All of it runs in x's dtype; under the mixed-precision step
+    (train/train_step.py) the parameters and running statistics are bf16
+    copies, and the step writes the updated copies back to the float32
+    buffers."""
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  momentum: float = 0.9):
@@ -70,12 +97,12 @@ class MaskedBatchNorm(nn.Module):
             mean = torch.sum(x * m, dim=0) / count
             var = torch.sum(m * (x - mean) ** 2, dim=0) / count
             with torch.no_grad():
-                mom = self.momentum
-                self.mean.copy_(mom * self.mean + (1 - mom) * mean.detach())
-                self.var.copy_(mom * self.var + (1 - mom) * var.detach())
+                mom, rest = weak(self.momentum, x), weak(1 - self.momentum, x)
+                self.mean.copy_(mom * self.mean + rest * mean.detach())
+                self.var.copy_(mom * self.var + rest * var.detach())
         else:
             mean, var = self.mean, self.var
-        y = (x - mean) * torch.rsqrt(var + self.epsilon)
+        y = (x - mean) * rsqrt(var + weak(self.epsilon, x))
         return y * self.scale + self.bias
 
 

@@ -27,8 +27,9 @@ from ..kernels.fused_mp import filter_layouts, segment_layouts
 from ..ops import segment as seg
 from ..ops.basis import gaussian_basis
 from ..ops.geometry import edge_vectors
+from ..ops.scalars import weak
 from .base import BaseStack
-from .layers import MLP
+from .layers import Dense, MLP
 
 
 def shifted_softplus(x):
@@ -37,10 +38,11 @@ def shifted_softplus(x):
     softplus switches to x above 20; on the CPU, torch.logaddexp rounds
     an element differently depending on where it lies in the tensor,
     which would break the engine's batched = single contract). The max
-    is torch.maximum, whose gradient at x == 0 is JAX's 0.5."""
+    is torch.maximum, whose gradient at x == 0 is JAX's 0.5; log 2 is
+    rounded to x's dtype (ops/scalars.py)."""
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     return (torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
-            - math.log(2.0))
+            - weak(math.log(2.0), x))
 
 
 class CFConv(nn.Module):
@@ -57,17 +59,17 @@ class CFConv(nn.Module):
         self.equivariant = equivariant
         self.filter_nn = MLP(num_gaussians, [num_filters, num_filters],
                              activation=shifted_softplus)
-        self.lin1 = nn.Linear(in_dim, num_filters, bias=False)
+        self.lin1 = Dense(in_dim, num_filters, bias=False)
         if equivariant:
             self.coord_mlp = MLP(num_filters, [num_filters, 1],
                                  activation=F.relu)
-        self.lin2 = nn.Linear(num_filters, num_filters)
-        self.lin_out = nn.Linear(num_filters, out_dim)
+        self.lin2 = Dense(num_filters, num_filters)
+        self.lin_out = Dense(num_filters, out_dim)
 
     def forward(self, x, pos, batch, cargs):
         d = cargs["edge_length"]
         rbf = gaussian_basis(d, 0.0, self.cutoff, self.num_gaussians)
-        c = 0.5 * (torch.cos(d * math.pi / self.cutoff) + 1.0)
+        c = 0.5 * (torch.cos(d * weak(math.pi, d) / self.cutoff) + 1.0)
         c = torch.where(d <= self.cutoff, c, torch.zeros_like(c))
         w = self.filter_nn(rbf) * c[:, None]
 

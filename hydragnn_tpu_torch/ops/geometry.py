@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels.segment import gather_rows
+from .scalars import weak
 
 
 def edge_vectors(pos, senders, receivers, edge_shifts=None, eps: float = 1e-9,
@@ -22,5 +23,5 @@ def edge_vectors(pos, senders, receivers, edge_shifts=None, eps: float = 1e-9,
            - gather_rows(pos, receivers, recv_layout))
     if edge_shifts is not None:
         vec = vec + edge_shifts
-    length = torch.sqrt(torch.sum(vec * vec, dim=-1) + eps)
+    length = torch.sqrt(torch.sum(vec * vec, dim=-1) + weak(eps, vec))
     return vec, length

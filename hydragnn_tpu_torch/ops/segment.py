@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import segment as _seg_kernel
+from .scalars import weak
 
 
 def _accum_f32(data):
@@ -29,6 +30,14 @@ def _accum_f32(data):
     if data.dtype in (torch.bfloat16, torch.float16):
         return data.float(), data.dtype
     return data, None
+
+
+def sum_accum_f32(data, dim):
+    """torch.sum over `dim` under the `_accum_f32` policy: reduced
+    precision sums in float32 and is stored back once."""
+    data, store_dtype = _accum_f32(data)
+    out = torch.sum(data, dim=dim)
+    return out if store_dtype is None else out.to(store_dtype)
 
 
 def _bcast(mask, data):
@@ -111,7 +120,7 @@ def pna_stats_epilogue(s, sq, cnt, mn, mx, eps=1e-5):
     cnt_safe = torch.clamp(cnt, min=1.0)
     mean = s / cnt_safe
     var = _relu_tie_half(sq / cnt_safe - mean * mean)
-    std = torch.sqrt(var + eps)
+    std = torch.sqrt(var + weak(eps, var))
     return mean, mn, mx, std, cnt[..., 0]
 
 
@@ -144,16 +153,17 @@ def pna_aggregate(data, segment_ids, num_segments, mask=None, eps=1e-5):
 def neighbor_aggregate(h, nbr_mask, eps=1e-5):
     """PNA statistics over the dense neighbor layout: h is [N, K, F]
     per-slot messages, nbr_mask [N, K]. Returns (mean, min, max, std,
-    degree)."""
+    degree) in h's dtype; reduced-precision sums accumulate in float32
+    (`_accum_f32`) and every other op rounds to h's dtype."""
     m = nbr_mask[:, :, None]
     cnt = torch.sum(nbr_mask.to(h.dtype), dim=1)
     cnt_safe = torch.clamp(cnt, min=1.0)[:, None]
     hm = torch.where(m, h, torch.zeros_like(h))
-    s = torch.sum(hm, dim=1)
-    sq = torch.sum(hm * hm, dim=1)
+    s = sum_accum_f32(hm, 1)
+    sq = sum_accum_f32(hm * hm, 1)
     mean = s / cnt_safe
     var = _relu_tie_half(sq / cnt_safe - mean * mean)
-    std = torch.sqrt(var + eps)
+    std = torch.sqrt(var + weak(eps, var))
     big = torch.finfo(h.dtype).max
     has = cnt[:, None] > 0
     mn = torch.amin(torch.where(m, h, torch.full_like(h, big)), dim=1)
@@ -167,9 +177,7 @@ def neighbor_sum(h, nbr_mask):
     """Masked sum over the K axis of [N, K, ...] dense-layout messages;
     reduced precision accumulates in float32."""
     m = nbr_mask.view(tuple(nbr_mask.shape) + (1,) * (h.dim() - 2))
-    masked, store_dtype = _accum_f32(torch.where(m, h, torch.zeros_like(h)))
-    out = torch.sum(masked, dim=1)
-    return out if store_dtype is None else out.to(store_dtype)
+    return sum_accum_f32(torch.where(m, h, torch.zeros_like(h)), 1)
 
 
 def neighbor_mean(h, nbr_mask):

@@ -5,7 +5,11 @@ hydragnn_tpu/run_prediction.py).
 the data, builds the model on the device (the card unless the caller
 passes device="cpu"), loads the weights — the Flax variable tree given as
 nested numpy dicts (utils/weights.py), or `state=` (and `model=`) as
-`run_training` returns them — and predicts the test split — through the
+`run_training` returns them, or else the run's checkpoint
+(utils/checkpoint.py; `checkpoint="latest"`, the newest verified save, or
+"best") — and predicts the test split in the serving precision
+(`Serving.precision`, else HYDRAGNN_PRECISION, else Architecture.dtype;
+float32 or bfloat16) — through the
 batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
 block / HYDRAGNN_SERVE), else with a plain loop over `batch_size`
 batches padded to one shape. Returns (trues, preds), one array per head,
@@ -18,13 +22,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from .config import build_model_config, load_config, update_config
+from .config import (build_model_config, get_log_name_config, load_config,
+                     update_config)
 from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
     with_neighbor_format
 from .models.create import create_model
 from .postprocess.postprocess import output_denormalize
 from .serving.config import resolve_serving
 from .serving.engine import InferenceEngine
+from .train.optimizer import select_optimizer
+from .train.train_step import TrainState, make_forward_fn
+from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
 from .utils.envflags import env_flag
 from .utils.weights import load_jax_variables
@@ -32,9 +40,10 @@ from .utils.weights import load_jax_variables
 
 def run_prediction(config_or_path, datasets: Sequence, variables=None,
                    serve: Optional[bool] = None, device="cuda", state=None,
-                   model=None):
+                   model=None, checkpoint: str = "latest"):
     """The weights come from `state` (a TrainState), else `variables` (a
-    Flax tree), else `model` (a trained model); they are loaded into a
+    Flax tree), else `model` (a trained model), else the run's
+    `checkpoint` ("latest" or "best") under ./logs; they are loaded into a
     fresh model on `device`, so a trained model is left as it is."""
     config = load_config(config_or_path)
     dev = resolve_device(device)
@@ -48,9 +57,10 @@ def run_prediction(config_or_path, datasets: Sequence, variables=None,
     elif model is not None:
         weights = model.state_dict()
     else:
-        raise ValueError("run_prediction needs variables=, state= or "
-                         "model=")
+        weights = None
     model = create_model(mcfg, device=dev)
+    if weights is None:
+        weights = _checkpoint_weights(config, model, checkpoint)
     model.load_state_dict(weights)
 
     batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
@@ -67,13 +77,39 @@ def run_prediction(config_or_path, datasets: Sequence, variables=None,
         trues, preds = _predict_with_engine(model, mcfg, testset, serving,
                                             neighbor_k, dev)
     else:
-        trues, preds = _predict_with_loader(model, mcfg, testset,
+        forward = make_forward_fn(model, mcfg, serving.precision,
+                                  frozen=True)
+        trues, preds = _predict_with_loader(forward, mcfg, testset,
                                             all_samples, batch_size,
                                             neighbor_k, dev)
     voi = config["NeuralNetwork"]["Variables_of_interest"]
     if voi.get("denormalize_output") and "y_minmax" in voi:
         trues, preds = output_denormalize(voi["y_minmax"], trues, preds)
     return trues, preds
+
+
+def _checkpoint_weights(config, model, which: str):
+    """The state dict of the run's newest verified checkpoint ("latest")
+    or of the one BEST names ("best")."""
+    log_name = get_log_name_config(config)
+    like = TrainState.create(model, select_optimizer(
+        config["NeuralNetwork"]["Training"]))
+    if which == "best":
+        target = ckpt.marker_target(log_name, which="best")
+        if target is not None and not ckpt.verify_checkpoint(target):
+            raise ckpt.UncommittedCheckpointError(
+                f"BEST names {target}, which is not committed (a save in "
+                "flight, or one whose writer died)")
+        restored = ckpt.load_best_model(like, log_name)
+    elif which == "latest":
+        restored = ckpt.load_existing_model(like, log_name)
+    else:
+        raise ValueError(f"checkpoint={which!r}: 'latest' or 'best'")
+    if restored is None:
+        raise FileNotFoundError(
+            f"run_prediction: no variables=, state= or model= given and run "
+            f"'{log_name}' has no verified {which} checkpoint under ./logs")
+    return restored.state_dict()
 
 
 def _sample_targets(mcfg, sample):
@@ -95,7 +131,7 @@ def _sample_targets(mcfg, sample):
     return targets
 
 
-def _predict_with_loader(model, mcfg, testset, all_samples, batch_size,
+def _predict_with_loader(forward, mcfg, testset, all_samples, batch_size,
                          neighbor_k, device):
     """One padded forward per `batch_size` test samples, every batch on
     the shape the JAX loaders use: nodes and edges for `batch_size`
@@ -114,7 +150,7 @@ def _predict_with_loader(model, mcfg, testset, all_samples, batch_size,
         if neighbor_k is not None:
             batch = with_neighbor_format(batch, k=neighbor_k)
         with torch.inference_mode():
-            outputs, _ = model(batch.to(device))
+            outputs, _ = forward(batch.to(device))
         gm = batch.graph_mask.numpy()
         nm = batch.node_mask.numpy()
         for ih, head in enumerate(mcfg.heads):
@@ -136,7 +172,7 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device):
         max_wait_ms=serving.max_wait_ms, num_buckets=serving.num_buckets,
         bucket_multiple=serving.bucket_multiple,
         neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
-        device=device)
+        compute_dtype=serving.precision, device=device)
     try:
         engine.warmup()
         results = engine.predict(testset)

@@ -13,20 +13,38 @@ runs `train_validate_test`. Returns (state, history, model,
 completed_config); `run_prediction(completed_config, datasets,
 state=state, model=model)` predicts from the trained state.
 
+Precision: the steps compute in the resolved precision
+(train/precision.py: HYDRAGNN_PRECISION, then Architecture.dtype, float32
+or bfloat16) on float32 master parameters.
+
+Checkpoints (JAX run_training.py:405-450, 584-612, 714-776), under
+./logs/<run name>/checkpoint/ (utils/checkpoint.py): `Training.Checkpoint`
+saves every best-validation epoch asynchronously (BEST) and the final
+state; `checkpoint_every_n_epochs` saves synchronously with resume
+metadata every n epochs; either installs the SIGTERM handler, so a
+preempted run saves once and returns; `checkpoint_keep_last_k` (3) bounds
+the saves kept. `Training.continue` resumes the run from its newest
+verified save (history, schedules, best state) bit for bit, or from the
+run `Training.startfrom` names, whose weights and optimizer state then
+seed a fresh epoch 0.
+
 Knobs off this path raise NotImplementedError naming the ROADMAP item
 that brings them; none is ignored.
 """
 from __future__ import annotations
 
+import logging
 from typing import Optional, Sequence
 
-from .config import build_model_config, load_config, update_config
+from .config import (build_model_config, get_log_name_config, load_config,
+                     update_config)
 from .models.create import create_model
 from .preprocess.load_data import create_dataloaders
+from .train import trainer
 from .train.optimizer import select_optimizer
+from .train.precision import resolve_precision
 from .train.train_step import TrainState, make_eval_step, make_train_step
-from .train.trainer import (ReduceLROnPlateau, train_validate_test,
-                            walltime_deadline)
+from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
 from .utils.envflags import env_flag, env_str, env_strict_flag
 
@@ -44,11 +62,6 @@ def check_training_knobs(config) -> None:
     arch = nn["Architecture"]
     opt = tr.get("Optimizer", {}) or {}
     checks = [
-        (tr.get("Checkpoint"), "Training.Checkpoint", "A5: checkpoints"),
-        (tr.get("continue"), "Training.continue", "A5: resume"),
-        (tr.get("startfrom"), "Training.startfrom", "A5: resume"),
-        (tr.get("checkpoint_every_n_epochs"),
-         "Training.checkpoint_every_n_epochs", "A5: checkpoints"),
         (tr.get("batch_packing") or env_strict_flag("HYDRAGNN_PACKING"),
          "batch packing", "A2/A5: packing"),
         (int(env_str("HYDRAGNN_STEPS_PER_CALL",
@@ -112,32 +125,110 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     e_w = float(train_cfg.get("energy_loss_weight", 1.0))
     f_w = train_cfg.get("force_loss_weight", 1.0)
     f_w = f_w if f_w == "auto" else float(f_w)
+    compute_dtype = resolve_precision(mcfg.dtype)
     train_step = make_train_step(model, mcfg, tx, loss_name,
                                  compute_grad_energy=cge, energy_weight=e_w,
-                                 force_weight=f_w)
+                                 force_weight=f_w, compute_dtype=compute_dtype)
     eval_step = make_eval_step(model, mcfg, loss_name,
                                compute_grad_energy=cge, energy_weight=e_w,
-                               force_weight=f_w)
+                               force_weight=f_w, compute_dtype=compute_dtype)
+    verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
+    log_name = get_log_name_config(config)
+    start_epoch, resume, best0, best_val0 = _resume(train_cfg, state,
+                                                    log_name, verbosity)
 
     plateau = None
     if "ReduceLROnPlateau" in train_cfg:
         pcfg = train_cfg["ReduceLROnPlateau"] or {}
-        plateau = ReduceLROnPlateau(
+        plateau = trainer.ReduceLROnPlateau(
             factor=float(pcfg.get("factor", 0.5)),
             patience=int(pcfg.get("patience", 5)),
             min_lr=float(pcfg.get("min_lr", 1e-6)))
-    deadline = (walltime_deadline() if train_cfg.get("CheckRemainingTime")
-                else None)
-    verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
+    deadline = (trainer.walltime_deadline()
+                if train_cfg.get("CheckRemainingTime") else None)
 
-    state, history = train_validate_test(
-        train_step, eval_step, state, train_loader, val_loader, test_loader,
-        num_epochs=int(train_cfg["num_epoch"]),
-        patience=int(train_cfg.get("patience", 10)),
-        use_early_stopping=bool(train_cfg.get("EarlyStopping", False)),
-        checkpoint_warmup=int(train_cfg.get("checkpoint_warmup", 0)),
-        plateau=plateau, walltime_deadline=deadline,
-        keep_best=bool(train_cfg.get("keep_best", True)),
-        place_fn=lambda b: b.to(dev), verbosity=verbosity)
+    keep_last_k = int(train_cfg.get("checkpoint_keep_last_k", 3) or 3)
+    every = int(train_cfg.get("checkpoint_every_n_epochs", 0) or 0)
+    use_ckpt = bool(train_cfg.get("Checkpoint", False))
+    best_fn = (ckpt.make_async_best_checkpoint_fn(log_name,
+                                                  keep_last_k=keep_last_k)
+               if use_ckpt else None)
+
+    def sync_save(snapshot, meta):
+        # drain the asynchronous best-validation saves first: they can
+        # name the same step dir
+        try:
+            ckpt.wait_for_checkpoints()
+        except RuntimeError as exc:
+            logging.getLogger("hydragnn_tpu_torch").warning(
+                "best-validation checkpoint failed: %s", exc)
+        ckpt.save_model(snapshot, log_name, metadata=meta,
+                        keep_last_k=keep_last_k)
+
+    save_fn = sync_save if (every or use_ckpt) else None
+    final_meta: dict = {}
+    # installed next to the try whose finally restores it
+    if save_fn is not None:
+        trainer.install_sigterm_handler()
+    try:
+        state, history = trainer.train_validate_test(
+            train_step, eval_step, state, train_loader, val_loader,
+            test_loader, num_epochs=int(train_cfg["num_epoch"]),
+            patience=int(train_cfg.get("patience", 10)),
+            use_early_stopping=bool(train_cfg.get("EarlyStopping", False)),
+            checkpoint_warmup=int(train_cfg.get("checkpoint_warmup", 0)),
+            checkpoint_fn=best_fn, plateau=plateau,
+            walltime_deadline=deadline,
+            keep_best=bool(train_cfg.get("keep_best", True)),
+            place_fn=lambda b: b.to(dev), verbosity=verbosity,
+            start_epoch=start_epoch, resume=resume,
+            checkpoint_every_n_epochs=every, periodic_checkpoint_fn=save_fn,
+            preempt_save_fn=save_fn, initial_best_state=best0,
+            initial_best_val=best_val0, resume_meta_out=final_meta)
+    finally:
+        if save_fn is not None:
+            trainer.restore_sigterm_handler()
     model.eval()
+    if trainer.preemption_requested():
+        # the trainer saved the resume point; a final save would point
+        # LATEST at a completed run
+        if use_ckpt:
+            ckpt.wait_for_checkpoints()
+        return state, history, model, config
+    if use_ckpt:
+        # the run-complete save: a later `continue` with a raised num_epoch
+        # goes on from here with the trainer's counters
+        sync_save(state, final_meta)
     return state, history, model, config
+
+
+def _resume(train_cfg, state, log_name: str, verbosity: int):
+    """`Training.continue`: restore the state in place from the newest
+    verified checkpoint of the run (or of `Training.startfrom`'s run).
+    Returns (start epoch, the trainer's resume record, best state, its
+    validation loss); the last three are None for a transfer from another
+    run, which trains from epoch 0."""
+    if not train_cfg.get("continue"):
+        return 0, None, None, None
+    start_name = train_cfg.get("startfrom") or log_name
+    restored, meta = ckpt.load_existing_model(state, start_name,
+                                              with_metadata=True)
+    if restored is None:
+        raise ValueError(
+            f"Training.continue is set but run '{start_name}' has no "
+            "verified checkpoint under ./logs (or its state does not match "
+            "this config's model and optimizer)")
+    state.restore(restored)
+    start_epoch, resume, best, best_val = 0, None, None, None
+    if meta and start_name == log_name:
+        ckpt.validate_resume_meta(meta)
+        start_epoch = int(meta.get("next_epoch", 0))
+        resume = meta.get("trainer")
+        if bool(train_cfg.get("keep_best", True)):
+            best, best_val = ckpt.load_best_model(state, start_name,
+                                                  with_val=True)
+    if verbosity >= 1:
+        print(f"resumed from '{start_name}' at step {state.step}"
+              + (f" (epoch {start_epoch})" if start_epoch else ""),
+              flush=True)
+    return start_epoch, resume, best, best_val

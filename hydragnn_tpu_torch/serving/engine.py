@@ -26,6 +26,18 @@ the same CSR kernel on the sender-sorted layout, the pooling's gradient a
 gather, and the position gathers' gradient the segment-sum kernel, so the
 batched = single contract holds for forces too.
 
+Precision. ``compute_dtype`` (the serve-side override, else
+HYDRAGNN_PRECISION, else Architecture.dtype; train/precision.py) is
+resolved once. A float32 engine runs the model as it is and promises the
+bitwise contract above (``parity`` "bitwise"). A bfloat16 engine runs
+train_step.make_forward_fn's casting policy on weights cast once at
+construction; its batched outputs still equal the single-request forward
+bit for bit on the same bucket, and against a float32 forward they obey
+|bf16 - f32| <= SERVE_REDUCED_ATOL + SERVE_REDUCED_RTOL |f32| (2^-5 each,
+the JAX package's bound): every future carries ``parity`` "tolerance"
+and the two tolerances, and ``stats()`` reports ``compute_dtype`` and
+``parity``.
+
 A failed batch resolves only its own futures with the error and the
 dispatcher keeps serving. Admission bounds, deadlines, the circuit
 breaker, raw-structure serving, multi-device shards and the fleet hooks
@@ -48,9 +60,18 @@ from ..graphs.batch import (GraphBatch, GraphSample, collate,
 from ..graphs.packing import (MAX_GRAPH_SLOTS, PackBudget, choose_budget,
                               sample_sizes)
 from ..train.loss import energy_forces_from_node_head
+from ..train.precision import resolve_precision
+from ..train.train_step import make_forward_fn
 from ..utils.devices import resolve_device
+from .config import check_serving_precision
 
 _SHUTDOWN = object()
+
+# the reduced-precision serving bound (JAX serving/engine.py:108-128):
+# 2^-5 is 8 bf16 ulps at unit scale, the budget of the <= 8 rounding-
+# dominated stages of a stack with float32 sums
+SERVE_REDUCED_RTOL = 2.0 ** -5
+SERVE_REDUCED_ATOL = 2.0 ** -5
 
 
 def bucket_ladder(nodes, edges, max_batch_size: int, num_buckets: int = 0,
@@ -112,7 +133,8 @@ class InferenceEngine:
     `reference_samples`. Label fields are stripped before the forward.
     `neighbor_format` serves on the dense neighbor layout with width
     `neighbor_k` (default: the reference samples' budget). `ef_forward`
-    serves [energy [1], forces [num_nodes, 3]] from a node-level head 0."""
+    serves [energy [1], forces [num_nodes, 3]] from a node-level head 0.
+    `compute_dtype` overrides the train-side precision policy."""
 
     def __init__(self, model, mcfg, *,
                  reference_samples: Sequence[GraphSample],
@@ -121,12 +143,25 @@ class InferenceEngine:
                  neighbor_format: bool = False,
                  neighbor_k: Optional[int] = None,
                  ef_forward: bool = False,
+                 compute_dtype: Optional[str] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         if not reference_samples:
             raise ValueError("InferenceEngine needs reference_samples (bucket "
                              "shapes + request schema)")
+        self.compute_dtype = resolve_precision(getattr(mcfg, "dtype", None),
+                                               compute_dtype)
+        check_serving_precision(self.compute_dtype)
+        if self.compute_dtype == "float32":
+            self.parity, self.parity_rtol, self.parity_atol = \
+                "bitwise", 0.0, 0.0
+        else:
+            self.parity = "tolerance"
+            self.parity_rtol = SERVE_REDUCED_RTOL
+            self.parity_atol = SERVE_REDUCED_ATOL
         self.model = model.to(self.device).eval()
+        self._model_fn = make_forward_fn(self.model, mcfg, self.compute_dtype,
+                                         frozen=True)
         self.mcfg = mcfg
         self.max_batch_size = max(int(max_batch_size), 1)
         self.max_wait_s = max(float(max_wait_ms), 0.0) / 1e3
@@ -230,12 +265,15 @@ class InferenceEngine:
             self._latencies = []
 
     def stats(self) -> dict:
-        """Requests and batches served and the request-latency percentiles
-        (submit to result, milliseconds)."""
+        """Requests and batches served, the request-latency percentiles
+        (submit to result, milliseconds), the compute dtype and the parity
+        contract."""
         with self._lock:
             lat = np.asarray(self._latencies, np.float64)
             out = {"requests": self.requests_done,
-                   "batches": self.batches_run}
+                   "batches": self.batches_run,
+                   "compute_dtype": self.compute_dtype,
+                   "parity": self.parity}
         for q in (50, 95, 99):
             out[f"p{q}_ms"] = (float(np.percentile(lat, q) * 1e3)
                                if lat.size else 0.0)
@@ -277,10 +315,10 @@ class InferenceEngine:
                  bucket: PackBudget) -> List[np.ndarray]:
         batch = self._collate_bucket([r.sample for r in reqs], bucket)
         if self.ef_forward:
-            outputs = energy_forces_from_node_head(self.model, batch)
+            outputs = energy_forces_from_node_head(self._model_fn, batch)
             return [o.cpu().numpy() for o in outputs]
         with torch.inference_mode():
-            outputs, _ = self.model(batch)
+            outputs, _ = self._model_fn(batch)
             return [o.cpu().numpy() for o in outputs]
 
     def _unpad(self, reqs: List[_Request], bucket: PackBudget,
@@ -317,6 +355,9 @@ class InferenceEngine:
                 self._latencies.extend(done - r.t_submit for r in reqs)
             for req, res in zip(reqs, results):
                 req.future.bucket = bucket
+                req.future.parity = self.parity
+                req.future.parity_rtol = self.parity_rtol
+                req.future.parity_atol = self.parity_atol
                 req.future.set_result(res)
         except Exception as e:  # noqa: BLE001 — must reach the callers
             # a failed batch resolves only its own futures; the

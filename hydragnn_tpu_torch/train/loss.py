@@ -75,8 +75,11 @@ def auto_force_weight(energy, forces, graph_mask, node_mask,
     return energy_weight * e_mean / (f_mean + 1e-8)
 
 
-def energy_forces_from_node_head(model, batch, create_graph: bool = False):
-    """(graph energies [G, 1], forces [N, 3]): head 0's first column is
+def energy_forces_from_node_head(forward, batch, create_graph: bool = False):
+    """(graph energies [G, 1], forces [N, 3]) from `forward(batch) ->
+    (outputs, outputs_var)` (the model, or train_step.make_forward_fn's
+    mixed-precision forward, whose float32 outputs pool in float32): head
+    0's first column is
     the per-node energy, a graph's energy is the masked sum of its nodes',
     and forces = -d(sum of the real graphs' energies)/d pos, taken with
     `torch.autograd.grad` with respect to the positions only. Runs under
@@ -89,7 +92,7 @@ def energy_forces_from_node_head(model, batch, create_graph: bool = False):
     with torch.enable_grad():
         pos = batch.pos.detach().requires_grad_(True)
         b = batch.replace(pos=pos)
-        outputs, _ = model(b)
+        outputs, _ = forward(b)
         graph_e = global_sum_pool(outputs[0][:, :1], b.node_graph,
                                   b.num_graphs, b.node_mask)
         total = torch.sum(torch.where(b.graph_mask[:, None], graph_e,
@@ -100,18 +103,19 @@ def energy_forces_from_node_head(model, batch, create_graph: bool = False):
     return graph_e, -grad
 
 
-def energy_force_loss(model, cfg: ModelConfig, batch: GraphBatch,
+def energy_force_loss(forward, cfg: ModelConfig, batch: GraphBatch,
                       loss_name: str = "mae", energy_weight: float = 1.0,
                       force_weight=1.0, create_graph: bool = True):
     """(total, aux): energy_weight * loss(E) + force_weight * loss(F) over
     the real graphs and nodes, with forces from
     `energy_forces_from_node_head`; `force_weight` "auto" balances them
     by `auto_force_weight`. aux holds the two losses and the predictions.
-    The model's mode decides its BatchNorm statistics: in training mode
+    `forward` as in `energy_forces_from_node_head`. The model's mode
+    decides its BatchNorm statistics: in training mode
     the running statistics update once, detached, and the batch
     statistics stay in the force graph. `create_graph=False` (evaluation)
     returns losses without a graph to the weights."""
-    graph_e, forces = energy_forces_from_node_head(model, batch,
+    graph_e, forces = energy_forces_from_node_head(forward, batch,
                                                    create_graph=create_graph)
     e_loss = masked_loss(loss_name, graph_e, batch.energy, batch.graph_mask)
     f_loss = masked_loss(loss_name, forces, batch.forces, batch.node_mask)

@@ -13,6 +13,19 @@ in eval mode. The energy-force path (`compute_grad_energy`) takes the
 forces with `create_graph=True` in training and without it in
 evaluation, which still needs gradients to the positions and so runs
 under `torch.enable_grad()`.
+
+Mixed precision (`compute_dtype`, resolved once by
+`train/precision.resolve_precision`): the parameters stay float32
+masters. Each forward (`make_forward_fn`) runs the model through
+`torch.func.functional_call` on bf16 copies of its parameters and
+buffers, cast with autograd, so the gradients land on the float32
+masters through the casts; the batch's float fields, positions included,
+are cast to bf16 (forces are -dE/dpos through that cast); the outputs
+come back as float32 before any loss; in training the BatchNorm running
+statistics the forward updated on its bf16 copies are written back to
+the float32 buffers. This is the JAX package's casting policy
+(train_step.py:99-160), not `torch.autocast`, whose per-op lists keep
+norms and reductions in float32 and give other numbers.
 """
 from __future__ import annotations
 
@@ -25,6 +38,9 @@ from ..config.config import ModelConfig
 from ..graphs.batch import GraphBatch
 from .loss import energy_force_loss, multihead_loss
 from .optimizer import Optimizer, OptState
+from .precision import resolve_precision
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass
@@ -112,22 +128,89 @@ def _nonfinite_watchdog(loss, grads) -> torch.Tensor:
     return (~torch.isfinite(flat).all()).float()
 
 
+def _resolve_compute_dtype(cfg: ModelConfig, compute_dtype=None
+                           ) -> torch.dtype:
+    """The step's compute dtype: `compute_dtype`, HYDRAGNN_PRECISION,
+    Architecture.dtype, float32 (train/precision.py). int8 raises: it is
+    a serving-only precision."""
+    name = resolve_precision(getattr(cfg, "dtype", None), compute_dtype)
+    if name == "int8":
+        raise ValueError(
+            "int8 is a serving-only precision (post-training "
+            "quantization): casting float parameters and activations to "
+            "int8 in a train or eval step would destroy them; train in "
+            "float32 or bfloat16")
+    return _DTYPES[name]
+
+
+def cast_floats(batch: GraphBatch, dtype: torch.dtype) -> GraphBatch:
+    """The batch with every floating-point field cast to `dtype`; ids
+    and masks untouched."""
+    return batch.replace(**{
+        f.name: getattr(batch, f.name).to(dtype)
+        for f in dataclasses.fields(batch)
+        if getattr(batch, f.name) is not None
+        and getattr(batch, f.name).is_floating_point()})
+
+
+def _cast_variables(model, dtype) -> Dict[str, torch.Tensor]:
+    """The model's parameters and buffers cast to `dtype` (the parameter
+    casts are recorded by autograd)."""
+    return {name: t.to(dtype) for name, t in
+            list(model.named_parameters()) + list(model.named_buffers())}
+
+
+def _to_f32(outputs):
+    return None if outputs is None else [o.float() for o in outputs]
+
+
+def make_forward_fn(model, cfg: ModelConfig = None, compute_dtype=None,
+                    frozen: bool = False) -> Callable:
+    """forward(batch) -> (outputs, outputs_var) with the mixed-precision
+    casting policy: float32 batch and parameters in, float32 outputs out,
+    the model computing in the resolved compute dtype (the model itself
+    at float32). In training mode the BatchNorm running statistics the
+    bf16 forward updates are written back to the model's float32
+    buffers. `frozen` casts the weights once, here, for a caller whose
+    weights never change (the serving engine)."""
+    cdtype = _resolve_compute_dtype(cfg, compute_dtype)
+    if cdtype == torch.float32:
+        return model
+    frozen_vars = _cast_variables(model, cdtype) if frozen else None
+
+    def forward(batch: GraphBatch):
+        variables = (frozen_vars if frozen_vars is not None
+                     else _cast_variables(model, cdtype))
+        outputs, outputs_var = torch.func.functional_call(
+            model, variables, (cast_floats(batch, cdtype),))
+        if model.training:
+            with torch.no_grad():
+                for name, buf in model.named_buffers():
+                    buf.copy_(variables[name])
+        return _to_f32(outputs), _to_f32(outputs_var)
+
+    return forward
+
+
 def make_loss_fn(model, cfg: ModelConfig, loss_name: str = "mse",
                  compute_grad_energy: bool = False,
-                 energy_weight: float = 1.0, force_weight=1.0):
+                 energy_weight: float = 1.0, force_weight=1.0,
+                 compute_dtype=None):
     """loss_fn(batch) -> (total, metrics) of the model as it stands (its
     mode decides the BatchNorm statistics): the multihead loss, or on the
     energy-force path the energy + force loss with the forces' graph kept
-    for a gradient with respect to the weights."""
+    for a gradient with respect to the weights. The forward follows
+    `make_forward_fn`'s precision policy; losses are float32."""
+    forward = make_forward_fn(model, cfg, compute_dtype)
 
     def loss_fn(batch: GraphBatch):
         if compute_grad_energy:
-            total, aux = energy_force_loss(model, cfg, batch, loss_name,
+            total, aux = energy_force_loss(forward, cfg, batch, loss_name,
                                            energy_weight, force_weight,
                                            create_graph=True)
             return total, {"loss": total, "energy_loss": aux["energy_loss"],
                            "force_loss": aux["force_loss"]}
-        outputs, outputs_var = model(batch)
+        outputs, outputs_var = forward(batch)
         total, tasks = multihead_loss(cfg, loss_name, outputs, outputs_var,
                                       batch)
         metrics = {"loss": total}
@@ -141,13 +224,14 @@ def make_loss_fn(model, cfg: ModelConfig, loss_name: str = "mse",
 def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
                     loss_name: str = "mse", compute_grad_energy: bool = False,
                     energy_weight: float = 1.0,
-                    force_weight=1.0) -> Callable:
+                    force_weight=1.0, compute_dtype=None) -> Callable:
     """step(state, batch) -> (state, metrics): one optimizer step on the
-    state's parameters (the model's), in place. metrics are detached
-    0-dim tensors: loss, task_i or energy_loss/force_loss, and
-    nonfinite_steps (computed before the conv freeze)."""
+    state's parameters (the model's, float32 at every compute dtype), in
+    place. metrics are detached 0-dim tensors: loss, task_i or
+    energy_loss/force_loss, and nonfinite_steps (computed before the conv
+    freeze)."""
     loss_fn = make_loss_fn(model, cfg, loss_name, compute_grad_energy,
-                           energy_weight, force_weight)
+                           energy_weight, force_weight, compute_dtype)
 
     def step(state: TrainState, batch: GraphBatch):
         model.train()
@@ -175,12 +259,15 @@ def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
 def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
                              batch: GraphBatch,
                              compute_grad_energy: bool = False,
-                             energy_weight: float = 1.0, force_weight=1.0):
+                             energy_weight: float = 1.0, force_weight=1.0,
+                             forward=None):
     """(metrics, outputs) of the model in eval mode on one batch; on the
-    energy-force path outputs are [energies, forces]."""
+    energy-force path outputs are [energies, forces]. `forward` is
+    `make_forward_fn`'s (the model itself by default)."""
     model.eval()
+    forward = forward or model
     if compute_grad_energy:
-        total, aux = energy_force_loss(model, cfg, batch, loss_name,
+        total, aux = energy_force_loss(forward, cfg, batch, loss_name,
                                        energy_weight, force_weight,
                                        create_graph=False)
         metrics = {"loss": total.detach(),
@@ -188,7 +275,7 @@ def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
                    "force_loss": aux["force_loss"].detach()}
         return metrics, [aux["energy_pred"], aux["forces_pred"]]
     with torch.no_grad():
-        outputs, outputs_var = model(batch)
+        outputs, outputs_var = forward(batch)
         total, tasks = multihead_loss(cfg, loss_name, outputs, outputs_var,
                                       batch)
     metrics = {"loss": total}
@@ -200,13 +287,15 @@ def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
 def make_eval_step(model, cfg: ModelConfig, loss_name: str = "mse",
                    compute_grad_energy: bool = False,
                    energy_weight: float = 1.0,
-                   force_weight=1.0) -> Callable:
+                   force_weight=1.0, compute_dtype=None) -> Callable:
     """eval_step(state, batch) -> (metrics, outputs) with the state's
-    parameters (the model's) in eval mode."""
+    parameters (the model's) in eval mode, in the resolved compute
+    dtype."""
+    forward = make_forward_fn(model, cfg, compute_dtype)
 
     def eval_step(state: TrainState, batch: GraphBatch):
         return eval_metrics_and_outputs(model, cfg, loss_name, batch,
                                         compute_grad_energy, energy_weight,
-                                        force_weight)
+                                        force_weight, forward)
 
     return eval_step

@@ -11,19 +11,76 @@ val_task_i, test_task_i (energy_loss / force_loss on the energy-force
 path). HYDRAGNN_MAX_NUM_BATCH caps the batches of an epoch and
 HYDRAGNN_VALTEST=0 skips the eval passes, as in the JAX package.
 
-Preemption (SIGTERM), periodic and asynchronous checkpoints, telemetry
-and the device profiler are later work (ROADMAP A5, A8); `run_training`
-refuses the knobs that ask for them.
+Fault tolerance (JAX trainer.py:29-85, 247-340): SIGTERM only sets a
+flag (`install_sigterm_handler`); the loop checks it at every step
+boundary and makes ONE save through `preempt_save_fn`, then exits. A
+preemption inside an epoch saves the state from that epoch's start with
+next_epoch = the epoch, so the resumed run replays the whole epoch from
+its deterministic order (the loader's order is a pure function of (seed,
+epoch)) instead of applying its first batches twice. `start_epoch` and
+`resume` (the saved metadata's "trainer" record) restore the history, the
+plateau, early-stopping and gate state and the best validation loss, so
+the resumed epochs repeat the uninterrupted run's bit for bit.
+Telemetry and the device profiler are later work (ROADMAP A8).
 """
 from __future__ import annotations
 
 import os
 import subprocess
+import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from ..utils.envflags import env_flag, env_strict_int
 from .optimizer import get_learning_rate, set_learning_rate
+
+# SLURM and cloud preemption deliver SIGTERM with a grace window; the
+# handler only sets this flag (signal-safe)
+_PREEMPT = threading.Event()
+_PREV_SIGTERM: list = [None, False]  # (previous handler, installed?)
+
+
+def install_sigterm_handler() -> bool:
+    """Route SIGTERM to the preemption flag; False when not on the main
+    thread, where no handler can be installed. The first install
+    remembers the previous disposition for `restore_sigterm_handler`."""
+    import signal
+
+    def _handler(signum, frame):
+        _PREEMPT.set()
+
+    try:
+        prev = signal.signal(signal.SIGTERM, _handler)
+    except ValueError:
+        return False
+    if not _PREV_SIGTERM[1]:
+        _PREV_SIGTERM[0], _PREV_SIGTERM[1] = prev, True
+    return True
+
+
+def restore_sigterm_handler() -> None:
+    """Put back the SIGTERM disposition from before
+    `install_sigterm_handler` (a flag-only handler left behind would make
+    the process ignore SIGTERM for good); no-op when none was installed."""
+    import signal
+    if _PREV_SIGTERM[1]:
+        try:
+            signal.signal(signal.SIGTERM, _PREV_SIGTERM[0])
+        except (ValueError, TypeError):
+            pass
+        _PREV_SIGTERM[0], _PREV_SIGTERM[1] = None, False
+
+
+def request_preemption() -> None:
+    _PREEMPT.set()
+
+
+def preemption_requested() -> bool:
+    return _PREEMPT.is_set()
+
+
+def clear_preemption() -> None:
+    _PREEMPT.clear()
 
 
 class EarlyStopping:
@@ -156,13 +213,32 @@ def train_validate_test(
     keep_best: bool = True,
     place_fn: Optional[Callable] = None,
     verbosity: int = 0,
+    start_epoch: int = 0,
+    resume: Optional[Dict[str, Any]] = None,
+    checkpoint_every_n_epochs: int = 0,
+    periodic_checkpoint_fn: Optional[Callable] = None,
+    preempt_save_fn: Optional[Callable] = None,
+    initial_best_state=None,
+    initial_best_val: Optional[float] = None,
+    resume_meta_out: Optional[Dict[str, Any]] = None,
 ):
     """Returns (state, history). `place_fn(batch)` moves a loader batch to
     the model's device. With `keep_best` the returned state holds the
     values of the epoch with the lowest validation loss: a snapshot
     (`state.copy()`, copies, not references) put back into the live
-    state at the end. `checkpoint_fn(state, epoch, val_loss)` is called
-    when the CheckpointGate opens."""
+    state at the end. `checkpoint_fn(state, epoch, val_loss, meta)` is
+    called when the CheckpointGate opens.
+
+    Resume: training runs epochs `start_epoch`..num_epochs - 1; `resume`
+    restores the trainer state a checkpoint's metadata carries, and
+    `initial_best_state` / `initial_best_val` the best-validation state
+    (the BEST checkpoint) and its own loss. `periodic_checkpoint_fn(state,
+    meta)` runs after every `checkpoint_every_n_epochs` completed epochs;
+    `preempt_save_fn(state, meta)` at most once, on SIGTERM (or
+    `request_preemption`), after which the loop returns. `meta` is the
+    resume metadata (`next_epoch`, `step`, `loader_epoch`, `trainer`);
+    `resume_meta_out` receives the run-complete one (next_epoch =
+    num_epochs) for the caller's final save."""
     place_fn = place_fn or (lambda b: b)
     early = EarlyStopping(patience) if use_early_stopping else None
     gate = CheckpointGate(checkpoint_warmup)
@@ -170,20 +246,84 @@ def train_validate_test(
     history: Dict[str, List[float]] = {"train_loss": [], "val_loss": [],
                                        "test_loss": [], "lr": [],
                                        "nonfinite_steps": []}
-    best_state, best_val = None, float("inf")
+    best_state, best_val = initial_best_state, float("inf")
+    if resume:
+        for k, v in (resume.get("history") or {}).items():
+            history[k] = list(v)
+        p = resume.get("plateau") or {}
+        plateau.best = float(p.get("best", plateau.best))
+        plateau.count = int(p.get("count", plateau.count))
+        e = resume.get("early") or {}
+        if early is not None and e:
+            early.best = float(e.get("best", early.best))
+            early.count = int(e.get("count", early.count))
+        gate.best = float(resume.get("gate_best", gate.best))
+        if initial_best_state is not None:
+            # the BEST checkpoint's own loss: the trainer's in-memory best
+            # may belong to a save that never committed
+            best_val = float(initial_best_val if initial_best_val is not None
+                             else resume.get("best_val", best_val))
     max_num_batch = env_strict_int("HYDRAGNN_MAX_NUM_BATCH")
     run_valtest = env_flag("HYDRAGNN_VALTEST", default=True)
 
-    for epoch in range(num_epochs):
+    def _resume_meta(next_epoch: int, state) -> Dict[str, Any]:
+        """What a resumed run needs to go on bit for bit, the history
+        copied now (an asynchronous save writes it later)."""
+        return {
+            "next_epoch": int(next_epoch),
+            "step": int(state.step),
+            "loader_epoch": int(next_epoch),
+            "world_size": 1,
+            "trainer": {
+                "history": {k: list(v) for k, v in history.items()},
+                "plateau": {"best": plateau.best, "count": plateau.count},
+                "early": ({"best": early.best, "count": early.count}
+                          if early is not None else None),
+                "gate_best": gate.best,
+                "best_val": best_val,
+            },
+        }
+
+    preempt_saved = [False]
+
+    def _preempt_save(next_epoch: int, snapshot) -> None:
+        # exactly once: the step-boundary and epoch-boundary checks can
+        # both see one SIGTERM
+        if preempt_saved[0]:
+            return
+        preempt_saved[0] = True
+        if preempt_save_fn is not None:
+            preempt_save_fn(snapshot, _resume_meta(next_epoch, snapshot))
+        if verbosity >= 1:
+            print(f"preemption: checkpoint saved at epoch {next_epoch}; "
+                  "exiting", flush=True)
+
+    prev_boundary_committed = False
+    for epoch in range(start_epoch, num_epochs):
         train_loader.set_epoch(epoch)
+        # the state before this epoch's updates, for a preemption inside
+        # it; not needed when the last boundary's periodic save holds it
+        epoch_start = (state.copy() if preempt_save_fn is not None
+                       and not prev_boundary_committed else None)
         acc: Dict[str, float] = {}
         nb = 0
+        preempted = False
         for batch in train_loader:
+            if preemption_requested():
+                preempted = True
+                break
             state, metrics = train_step(state, place_fn(batch))
             _accumulate(acc, metrics)
             nb += 1
             if max_num_batch is not None and nb >= max_num_batch:
                 break
+        if preempted:
+            if epoch_start is None:
+                # the previous boundary's periodic save is the resume point
+                preempt_saved[0] = True
+            else:
+                _preempt_save(epoch, epoch_start)
+            break
         train_loss = acc.pop("loss", 0.0) / max(nb, 1)
         nonfinite = acc.pop("nonfinite_steps", 0.0)
         if run_valtest:
@@ -227,7 +367,21 @@ def train_validate_test(
 
         if (checkpoint_fn is not None and val_loss == val_loss
                 and gate.should_save(epoch, val_loss)):
-            checkpoint_fn(state, epoch, val_loss)
+            checkpoint_fn(state, epoch, val_loss,
+                          meta=_resume_meta(epoch + 1, state))
+        boundary_saved = False
+        if (checkpoint_every_n_epochs and periodic_checkpoint_fn is not None
+                and (epoch + 1) % checkpoint_every_n_epochs == 0):
+            periodic_checkpoint_fn(state, _resume_meta(epoch + 1, state))
+            boundary_saved = True
+        if preemption_requested():
+            if boundary_saved:
+                # the periodic save above is this boundary's resume point
+                preempt_saved[0] = True
+            else:
+                _preempt_save(epoch + 1, state)
+            break
+        prev_boundary_committed = boundary_saved
         if early is not None and val_loss == val_loss and early(val_loss):
             if verbosity >= 1:
                 print(f"early stop at epoch {epoch}", flush=True)
@@ -239,4 +393,6 @@ def train_validate_test(
 
     if keep_best and best_state is not None:
         state = state.restore(best_state)
+    if resume_meta_out is not None:
+        resume_meta_out.update(_resume_meta(num_epochs, state))
     return state, history

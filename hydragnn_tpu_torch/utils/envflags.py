@@ -66,3 +66,19 @@ def env_strict_int(name: str, default=None):
 
 def env_strict_float(name: str, default=None):
     return _env_strict_number(name, default, float, "a number")
+
+
+def env_strict_choice(name: str, choices, default=None):
+    """String env knob restricted to a canonical choice set: `choices`
+    maps accepted (lowercased) spellings to canonical values. An
+    unrecognized value warns and returns `default` instead of taking
+    effect, so a typo never changes the compute dtype silently."""
+    val = os.getenv(name)
+    if val is None or not val.strip():
+        return default
+    v = val.strip().lower()
+    if v in choices:
+        return choices[v]
+    _log.warning("%s=%r is not one of %s; treating as %r", name, val,
+                 sorted(set(choices)), default)
+    return default

@@ -83,3 +83,34 @@ def export_jax_variables(model) -> Dict[str, Dict]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(arr)
     return tree
+
+
+def random_flax_variables(model, seed: int) -> Dict:
+    """A Flax {"params", "batch_stats"} tree of numpy arrays for `model`'s
+    architecture with random weights and running statistics from `seed`
+    (numpy's generator): Dense kernels N(0, 1/fan_in), biases N(0, 0.1),
+    norm scales 1 + N(0, 0.1), running means N(0, 0.3) and variances
+    uniform in [0.5, 1.5). The smoke run's and the diagnostics' weights."""
+    rng = np.random.default_rng(seed)
+    tree: Dict = {"params": {}, "batch_stats": {}}
+    for key, t in model.state_dict().items():
+        *path, leaf = key.split(".")
+        coll = "batch_stats" if leaf in ("mean", "var") else "params"
+        shape = tuple(t.shape)
+        if leaf == "weight":
+            leaf = "kernel"
+            shape = shape[::-1]
+            val = rng.normal(0.0, shape[0] ** -0.5, shape)
+        elif leaf == "bias":
+            val = rng.normal(0.0, 0.1, shape)
+        elif leaf == "scale":
+            val = 1.0 + rng.normal(0.0, 0.1, shape)
+        elif leaf == "mean":
+            val = rng.normal(0.0, 0.3, shape)
+        else:
+            val = 0.5 + rng.random(shape)
+        node = tree[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val.astype(np.float32)
+    return tree

@@ -12,6 +12,13 @@ against autograd through the plain versions on the same card: a gather
 or a product of the same two numbers is exact, a sum (dh, a gather's
 gradient) within the sums' rtol/atol 2e-5, and the PNA backwards exactly
 on the tie-rich dyadic cases of graphs/synthetic.py.
+
+The bf16 instantiations are held against the plain versions in bf16:
+min, max, counts and degrees bitwise; sums (and nbr_aggregate's mean and
+std, a few rounded ops past its sums) within `BF16_ULPS` bf16 ulps of the
+larger magnitude (at least 2^-10; the two float32 sums differ in order
+only, so they round to the same bf16 value or a neighbour); the
+bf16-exact tie-rich dyadic cases bitwise.
 """
 import numpy as np
 import pytest
@@ -21,6 +28,8 @@ from hydragnn_tpu_torch import kernels as tk
 from hydragnn_tpu_torch.kernels import fused_mp, nbr, segment
 
 SUM_TOL = dict(rtol=2e-5, atol=2e-5)
+# bf16 ulps: a sum; nbr_aggregate's mean and std, past its sums
+BF16_ULPS = {"sum": 1, "mean": 2, "std": 2}
 
 
 def _t(a):
@@ -111,7 +120,11 @@ def test_kernels_count_launches_and_take_odd_widths(cuda_device, f):
                                   "filter_scatter": 0,
                                   "filter_scatter_backward": 0,
                                   "nbr_aggregate_backward": 0,
-                                  "pna_edge_aggregate_backward": 0}
+                                  "pna_edge_aggregate_backward": 0,
+                                  "nbr_aggregate_bf16": 0,
+                                  "pna_edge_aggregate_bf16": 0,
+                                  "filter_scatter_bf16": 0,
+                                  "filter_scatter_backward_bf16": 0}
     with pytest.raises(TypeError):
         segment.segment_sum(data.double(), ids[:64], 64)
 
@@ -561,3 +574,233 @@ def test_train_step_repeats_bitwise_on_the_card(cuda_device, model_kind):
     assert torch.equal(runs[0][0], runs[1][0])
     for k, v in runs[0][1].items():
         assert torch.equal(v, runs[1][1][k]), k
+
+
+def bf16_ulps(got, want):
+    """Largest |got - want| in bf16 ulps of max(|got|, |want|, 2^-10)."""
+    g, w = got.float(), want.float()
+    scale = torch.maximum(torch.maximum(g.abs(), w.abs()),
+                          torch.full_like(g, 2.0 ** -10))
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return float(((g - w).abs() / ulp).max()) if g.numel() else 0.0
+
+
+def _bf16(*arrays, dev):
+    return [_t(a).to(dev).to(torch.bfloat16) if np.asarray(a).dtype
+            == np.float32 else _t(a).to(dev) for a in arrays]
+
+
+def _check_bf16(names, got, want, exact=(), bound=None):
+    for name, g, w in zip(names, got, want):
+        assert g.dtype == w.dtype == torch.bfloat16, name
+        if name in exact:
+            assert torch.equal(g, w), name
+        else:
+            err = bf16_ulps(g, w)
+            assert err <= (bound or BF16_ULPS).get(name, 1), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [200, 13])
+def test_bf16_kernels_match_plain_versions_on_the_card(cuda_device, f):
+    """Kernels 2-4 in their bf16 instantiations against the plain bf16
+    versions (F = 13: the scalar path), counted apart; random data within
+    BF16_ULPS, min/max/count/degree bitwise."""
+    dev = cuda_device
+    tk.reset_launch_counts()
+    nargs = _bf16(*_nbr_inputs(5, n=300, k=16, f=f), dev=dev)
+    _check_bf16(("mean", "min", "max", "std", "deg"),
+                nbr.nbr_aggregate(*nargs), nbr.nbr_aggregate_plain(*nargs),
+                exact=("min", "max", "deg"))
+    args = _bf16(*_edge_inputs(5, n=300, e=4000, f=f), dev=dev) + [300]
+    _check_bf16(("s", "sq", "cnt", "min", "max"),
+                fused_mp.pna_edge_accumulators(*args),
+                fused_mp.pna_edge_accumulators_plain(*args),
+                exact=("cnt", "min", "max"), bound={"s": 1, "sq": 1})
+    h, w, send, recv, emask = _filter_inputs(7, 300, 997, f, dev)
+    h, w = h.bfloat16(), w.bfloat16()
+    _check_bf16(("out",),
+                [fused_mp.filter_scatter(h, w, send, recv, emask, 300)],
+                [fused_mp.filter_scatter_plain(h, w, send, recv, emask,
+                                               300)])
+    counts = tk.launch_counts()
+    for name in ("nbr_aggregate", "pna_edge_aggregate", "filter_scatter"):
+        assert counts[name] == counts[f"{name}_bf16"] == 1, name
+    with pytest.raises(TypeError):       # one dtype for both operands
+        nbr.nbr_aggregate(nargs[0], nargs[1].float(), *nargs[2:])
+    with pytest.raises(TypeError):       # float32 or bfloat16 only
+        fused_mp.filter_scatter(h.half(), w.half(), send, recv, emask, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [200, 13])
+def test_bf16_kernels_bitwise_on_tie_rich_dyadic_data(cuda_device, f):
+    """On the bf16-exact tie-rich cases (graphs/synthetic.py) every output
+    of the bf16 kernels equals the plain version's bit for bit."""
+    from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
+                                                     tie_rich_neighbor_case)
+    dev = cuda_device
+    args = _bf16(*tie_rich_neighbor_case(3, n=400, k=24, f=f,
+                                         bf16_exact=True), dev=dev)
+    for g, w in zip(nbr.nbr_aggregate(*args),
+                    nbr.nbr_aggregate_plain(*args)):
+        assert torch.equal(g, w)
+    args = _bf16(*tie_rich_edge_case(3, n=400, f=f, bf16_exact=True),
+                 dev=dev) + [400]
+    for g, w in zip(fused_mp.pna_edge_accumulators(*args),
+                    fused_mp.pna_edge_accumulators_plain(*args)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [32, 200, 1030])
+def test_bf16_filter_scatter_dh_and_long_receivers(cuda_device, f):
+    """The bf16 filter-scatter forward and its dh (the kernel on the
+    sender-sorted layout) against the plain version forward and on the
+    transposed edges, on receivers with 0, 1 and 5000 edges and a sender
+    with 4500: h, w, g multiples of 2^-3 in [-2, 2], whose bf16 products
+    are exact and whose float32 sums are exact in any order, so both are
+    bitwise; dw is the bf16 product g[recv] h[send], bitwise too."""
+    dev = cuda_device
+    rng = np.random.RandomState(4)
+    n, e = 64, 9000
+    recv = rng.randint(2, n, e).astype(np.int32)
+    recv[:5000] = 40
+    recv[5000] = 1
+    send = rng.randint(0, n, e).astype(np.int32)
+    send[:4500] = 3
+    mask = rng.rand(e) > 0.1
+    mask[5000] = True
+    h, w, g = ((rng.randint(-16, 17, shape) / 8).astype(np.float32)
+               for shape in ((n, f), (e, f), (n, f)))
+    h, w, g, send, recv, mask = _bf16(h, w, g, send, recv, mask, dev=dev)
+    tk.reset_launch_counts()
+    th = h.clone().requires_grad_(True)
+    tw = w.clone().requires_grad_(True)
+    out = fused_mp.filter_scatter(th, tw, send, recv, mask, n)
+    dh, dw = torch.autograd.grad((out.float() * g.float()).sum(), (th, tw))
+    assert out.dtype == dh.dtype == dw.dtype == torch.bfloat16
+    assert torch.equal(out, fused_mp.filter_scatter_plain(h, w, send, recv,
+                                                          mask, n))
+    # d(sum out * g)/dh, in bf16: g rounded to bf16 is g, exactly
+    assert torch.equal(dh, fused_mp.filter_scatter_plain(g, w, recv, send,
+                                                         mask, n))
+    keep = mask & (recv >= 0) & (recv < n)
+    want_dw = torch.where(keep[:, None], g[recv.clamp(0, n - 1).long()]
+                          * h[send.long()], torch.zeros_like(w))
+    assert torch.equal(dw, want_dw)
+    assert not out[0].any() and out[1].any()
+    counts = tk.launch_counts()
+    assert counts["filter_scatter_bf16"] == counts[
+        "filter_scatter_backward_bf16"] == 1
+
+
+@pytest.mark.cuda
+def test_bf16_run_training_resume_is_bitwise(cuda_device, tmp_path,
+                                             monkeypatch):
+    """A bf16 csce PNA run (hidden 32, 2 layers) with checkpoints every
+    epoch, preempted by a real SIGTERM once its first save is committed and
+    resumed with `continue`, ends with the history and parameters of the
+    uninterrupted run bit for bit; the masters stay float32."""
+    import copy
+    import json
+    import os
+    import signal
+    import threading
+    import time
+    from pathlib import Path
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+    from hydragnn_tpu_torch.train import trainer
+    from hydragnn_tpu_torch.utils import checkpoint as ckpt
+    root = Path(__file__).resolve().parents[1]
+    with open(root / "examples" / "csce" / "csce_gap.json") as fh:
+        cfg = json.load(fh)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(hidden_dim=32, num_conv_layers=2, dtype="bf16")
+    tr = cfg["NeuralNetwork"]["Training"]
+    tr.update(num_epoch=4, batch_size=16)
+    data = synthetic_molecules(80, seed=2)
+    splits = (data[:48], data[48:64], data[64:])
+    monkeypatch.chdir(tmp_path)
+    state0, h0, _, _ = run_training(copy.deepcopy(cfg), splits)
+    tr.update(Checkpoint=True, checkpoint_every_n_epochs=1)
+    real_save, sent = ckpt.save_model, []
+
+    def save_then_kill(*args, **kwargs):
+        # after the first save, a thread sends SIGTERM; the save returns
+        # once the handler has set the flag (the run stops there)
+        out = real_save(*args, **kwargs)
+        if not sent:
+            sent.append(threading.Thread(
+                target=os.kill, args=(os.getpid(), signal.SIGTERM)))
+            sent[0].start()
+            deadline = time.time() + 30
+            while not trainer.preemption_requested() \
+                    and time.time() < deadline:
+                time.sleep(0.001)
+        return out
+    monkeypatch.setattr(ckpt, "save_model", save_then_kill)
+    try:
+        _, h1, _, _ = run_training(copy.deepcopy(cfg), splits)
+        assert trainer.preemption_requested()
+    finally:
+        sent[0].join(timeout=60)
+        trainer.clear_preemption()
+        monkeypatch.setattr(ckpt, "save_model", real_save)
+    assert len(h1["train_loss"]) == 1
+    tr["continue"] = 1
+    state2, h2, _, _ = run_training(copy.deepcopy(cfg), splits)
+    for k in ("train_loss", "val_loss", "test_loss", "lr"):
+        assert h2[k] == h0[k], k
+    for k, v in state0.state_dict().items():
+        assert v.dtype == torch.float32
+        assert torch.equal(v, state2.state_dict()[k]), k
+
+
+@pytest.mark.cuda
+def test_bf16_ops_round_alike_on_the_card_and_the_cpu(cuda_device):
+    """The port's bf16 elementwise ops give the CPU's values bit for bit
+    on the card (the softplus's `- log 2`, the Gaussian centres, the
+    BatchNorm's eps and rsqrt, the PNA scalers' division: ops/scalars.py),
+    and a bf16 Dense, with one output column or many, adds its bias to
+    the rounded product on both (cuBLAS would fuse it into the rounding
+    for some shapes), whose products agree within one bf16 ulp (they sum
+    in different orders), under the device rule of the entry points
+    (utils/devices.py: float32 reductions in bf16 matmuls)."""
+    from hydragnn_tpu_torch.models.layers import Dense, MaskedBatchNorm
+    from hydragnn_tpu_torch.models.schnet import shifted_softplus
+    from hydragnn_tpu_torch.ops.basis import gaussian_basis
+    from hydragnn_tpu_torch.utils.devices import resolve_device
+    resolve_device(cuda_device)   # the entry points' matmul settings
+    gen = torch.Generator().manual_seed(9)
+    x = (torch.randn(20000, 32, generator=gen) * 2).bfloat16()
+    d = (torch.rand(20000, generator=gen) * 2.5).bfloat16()
+    bn = MaskedBatchNorm(32).eval()
+    with torch.no_grad():
+        bn.var.uniform_(1e-3, 2.0, generator=gen)
+        bn.mean.normal_(generator=gen)
+    mask = torch.ones(20000, dtype=torch.bool)
+    ops = {"softplus": lambda t, m: shifted_softplus(t),
+           "basis": lambda t, m: gaussian_basis(d.to(t.device), 0.0, 2.0,
+                                                32),
+           "batchnorm": lambda t, m: m(t, mask.to(t.device))}
+    for name, fn in ops.items():
+        want = fn(x, bn.bfloat16())
+        got = fn(x.to(cuda_device), bn.to(cuda_device)).cpu()
+        bn.cpu()
+        assert torch.equal(got, want), name
+    for out in (1, 32):
+        lin = Dense(32, out)
+        with torch.no_grad():
+            lin.bias.normal_(generator=gen)
+        lin = lin.bfloat16()
+        products = []
+        for dev in ("cpu", cuda_device):
+            lin, xd = lin.to(dev), x.to(dev)
+            with torch.no_grad():
+                product = torch.nn.functional.linear(xd, lin.weight)
+                # the bias is added to the rounded product, on each device
+                assert torch.equal(lin(xd), product + lin.bias), (out, dev)
+            products.append(product.cpu())
+        assert bf16_ulps(products[1], products[0]) <= 1.0, out

@@ -169,9 +169,14 @@ def test_resolve_serving_defaults_env_and_precision(monkeypatch):
     monkeypatch.setenv("HYDRAGNN_SERVE", "ture")   # typo: warns, stays off
     cfg = resolve_serving({"Serving": {"precision": "float32"}})
     assert cfg.max_batch_size == 12 and cfg.enabled is False
-    # float32 is the only precision the port serves so far
-    for precision in ("bf16", "bfloat16", "int8"):
-        with pytest.raises(NotImplementedError, match="float32"):
+    # the float32 and bf16 spellings resolve as in the JAX package; int8
+    # (the serving tier of ROADMAP A8) raises
+    for precision in ("bf16", "bfloat16", "fp32", None):
+        block = {"Serving": {"precision": precision}}
+        assert resolve_serving(block).precision == \
+            j_resolve(block).precision
+    for precision in ("int8", "i8"):
+        with pytest.raises(NotImplementedError, match="A8"):
             resolve_serving({"Serving": {"precision": precision}})
 
 

@@ -639,16 +639,16 @@ def test_run_training_refuses_knobs_off_its_path():
     samples = synthetic_molecules(12, seed=1, min_atoms=4, max_atoms=8)
     with open(CSCE) as fh:
         base = json.load(fh)
-    cases = [("Training", "Checkpoint", True, "A5"),
-             ("Training", "continue", 1, "A5"),
-             ("Training", "checkpoint_every_n_epochs", 1, "A5"),
-             ("Training", "batch_packing", True, "A2/A5"),
+    # Checkpoint, continue, checkpoint_every_n_epochs and the bf16 dtype
+    # train now (tests/test_torch_checkpoint.py, test_torch_precision.py);
+    # a dtype the port does not compute in still raises
+    cases = [("Training", "batch_packing", True, "A2/A5"),
              ("Training", "steps_per_call", 4, "A5"),
              ("Training", "pipeline_stages", 2, "A9"),
              ("Architecture", "graph_shards", 2, "A9"),
              ("Training", "async_loader_workers", 2, "A10"),
              ("Training", "conv_checkpointing", True, "A4"),
-             ("Architecture", "dtype", "bfloat16", "A5")]
+             ("Architecture", "dtype", "float16", "A5")]
     for section, key, value, item in cases:
         cfg = copy.deepcopy(base)
         cfg["NeuralNetwork"][section][key] = value
