@@ -48,11 +48,15 @@ Phases:
 
 5. csce PNA training (`run_training` at the config's published width,
    512 molecules, batch 128, 2 steps an epoch): first the two PNA
-   Functions' backwards against autograd through the plain versions at
-   the training loader's shape (dense N 8,192, K 24, F 200, and the same
-   batch as an edge list), random data within rtol/atol 2e-5 and the
-   tie-rich dyadic cases bitwise, with their device times (20 calls in
-   one CUDA graph) against their byte bounds. Then the first step: loss
+   Functions' backward kernels (csrc/pna_backward.cu) at the training
+   loader's shape (dense N 8,192, K 24, F 200, and the same batch as an
+   edge list) against their plain versions, the torch-op VJPs, on the
+   card (float32 random data within rtol/atol 2e-5, bf16 within one bf16
+   ulp, the tie-rich dyadic cases bitwise) and, through the Functions,
+   against autograd through the plain forwards; with the device times
+   (20 calls in one CUDA graph) of the kernel, the torch-op VJP and plain
+   autograd's backward beside the byte bound, and the launches of one
+   call of each. Then the first step: loss
    card vs CPU within rtol 1e-4 / atol 1e-5, each gradient tensor through
    the kernels vs through the plain versions on the card within 1e-2
    relative L2 (card vs CPU and float64 gaps printed: float32 is a few
@@ -108,7 +112,8 @@ Phases:
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
 kernels 2-4's bf16 readings under `bf16`; the two PNA backwards as rows
-of their own), the line before that the card's
+of their own, with their bf16 readings under `bf16` and the torch-op
+VJP's device time as `plain_ms`), the line before that the card's
 name and power limit, and before it a `training: {...}` JSON line. Any
 failure exits non-zero without the last line.
 """
@@ -186,6 +191,23 @@ def cuda_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def capture(torch, warm, body, keep_graph: bool = False):
+    """A CUDA graph of body(), captured on a new stream after warm() ran
+    there, so that what a first call sets up (segment_sum's per-stream
+    tickets, autograd's graph) exists before the capture and is not
+    captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = (torch.cuda.CUDAGraph(keep_graph=True) if keep_graph
+             else torch.cuda.CUDAGraph())
+    with torch.cuda.graph(graph, stream=side):
+        body()
+    return graph
+
+
 def device_ms(torch, name, fn, args, bound: float) -> float:
     """Device time per call of fn(*args), which launches one kernel:
     GRAPH_CALLS calls captured in one CUDA graph and replayed (CUDA events,
@@ -200,15 +222,11 @@ def device_ms(torch, name, fn, args, bound: float) -> float:
             return tuple(copy(t) for t in a)
         return a.clone() if torch.is_tensor(a) else a
     copies = [[copy(a) for a in args] for _ in range(GRAPH_CALLS)]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn(*args)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
+
+    def calls():
         for c in copies:
             fn(*c)
+    graph = capture(torch, lambda: fn(*args), calls)
     ms = cuda_ms(torch, graph.replay, reps=10) / GRAPH_CALLS
     if ms < bound:
         fail(f"{name}: device time {ms} ms below its bound {bound} ms")
@@ -761,14 +779,80 @@ def profile_rows(torch, prof):
     return (sum(r[0] for r in rows) / 1e3, sum(r[2] for r in rows), rows)
 
 
+def autograd_device_ms(torch, name, make_loss, bound: float) -> float:
+    """Device time per call of autograd's backward of make_loss()'s
+    (loss, inputs): the forward runs once on a side stream, so that its
+    backward ops run there, then GRAPH_CALLS calls of torch.autograd.grad
+    on it are captured in one CUDA graph on that stream and replayed (CUDA
+    events, median). Fails below `bound`."""
+    made = []
+
+    def warm():
+        made[:] = make_loss()
+        torch.autograd.grad(*made, retain_graph=True)
+
+    def calls():
+        for _ in range(GRAPH_CALLS):
+            torch.autograd.grad(*made, retain_graph=True)
+    graph = capture(torch, warm, calls)
+    ms = cuda_ms(torch, graph.replay, reps=10) / GRAPH_CALLS
+    if ms < bound:
+        fail(f"{name}: device time {ms} ms below its bound {bound} ms")
+    return ms
+
+
+def call_launches(torch, fn, args) -> int:
+    """Device launches (kernels, copies, sets) of one fn(*args): the nodes
+    of a CUDA graph captured from the call (cuGraphGetNodes). The profiler
+    missed the ctypes kernels' launches in all but the first of several
+    short profiles in one process."""
+    import ctypes
+    graph = capture(torch, lambda: fn(*args), lambda: fn(*args),
+                    keep_graph=True)
+    count = ctypes.c_size_t(0)
+    err = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if err != 0:
+        fail(f"cuGraphGetNodes failed with CUresult {err}")
+    return count.value
+
+
+def backward_routes(torch, kind, args):
+    """(kernel, torch-op VJP): the backward kernel's wrapper and its plain
+    version as functions of (proj_i, proj_j, 4 cotangents) on the tables
+    of `args`, with the forward kernel's extrema and the layouts a
+    training forward builds once."""
+    from hydragnn_tpu_torch.kernels import fused_mp, nbr
+    pi, pj, tables = args[0], args[1], args[2:]
+    if kind == "dense":
+        layout = nbr.neighbor_layout(*tables)
+        _, mn, mx, _, _ = nbr.nbr_aggregate(pi, pj, *tables)
+        return ((lambda a, b, *g: nbr.nbr_aggregate_bwd(
+                    a, b, *tables, mn, mx, *g, 1e-5, layout)),
+                (lambda a, b, *g: nbr.nbr_aggregate_vjp(
+                    a, b, *tables, mn, mx, *g, 1e-5, layout)))
+    send, recv, em, n = tables
+    lay = fused_mp.edge_layout(send, recv, em, n)
+    lay_t = fused_mp.edge_layout(recv, send, em, n)
+    acc = fused_mp.pna_edge_accumulators(pi, pj, send, recv, em, n, lay)
+    return ((lambda a, b, *g: fused_mp.pna_edge_bwd(
+                a, b, *tables, acc[3], acc[4], *g, lay, lay_t)),
+            (lambda a, b, *g: fused_mp.pna_edge_vjp(
+                a, b, *tables, acc[3], acc[4], *g, lay, lay_t)))
+
+
 def check_pna_backwards(torch, batch, device, f):
-    """Phase 5a: the two PNA Functions' backwards (`nbr_aggregate_vjp`,
-    `pna_edge_vjp`) against autograd through the plain versions on the
-    card, at the training loader's shape (dense and the edge list of the
-    same batch, F = the hidden width): random data within SUM_TOL, the
-    tie-rich dyadic cases bitwise. Times: the backward's call (CUDA
-    events), its device time (20 calls in one CUDA graph) against its
-    byte bound, and autograd's backward through the plain version."""
+    """Phase 5a: the backward kernels of the two PNA Functions
+    (csrc/pna_backward.cu) at the training loader's shape (dense N 8,192,
+    K 24, F 200, and the same batch as an edge list). Held: the kernel
+    against its plain version, the torch-op VJP (`nbr_aggregate_vjp`,
+    `pna_edge_vjp`), on the card, float32 random data within SUM_TOL and
+    the tie-rich dyadic cases bitwise, and bf16 random data within one
+    bf16 ulp of the bf16 VJP, the bf16-exact dyadic cases bitwise; and,
+    through the Functions, against autograd through the plain forwards
+    (float32). Times, each from 20 calls in one CUDA graph: the kernel,
+    the torch-op VJP and plain autograd's backward, beside the byte bound
+    (float32 and bf16), and the device launches of one call of each."""
     from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
                                                      tie_rich_neighbor_case)
     from hydragnn_tpu_torch.kernels import fused_mp, nbr
@@ -778,113 +862,162 @@ def check_pna_backwards(torch, batch, device, f):
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(device)
 
-    def t(a):
-        return torch.from_numpy(np.asarray(a)).to(device)
+    def t(a, dtype=torch.float32):
+        x = torch.from_numpy(np.asarray(a)).to(device)
+        return x.to(dtype) if x.is_floating_point() else x
+
+    def plain_forward(kind, pi, pj, args):
+        if kind == "dense":
+            return nbr.nbr_aggregate_plain(pi, pj, *args[2:])[:4]
+        acc = fused_mp.pna_edge_accumulators_plain(pi, pj, *args[2:])
+        return (acc[0], acc[1], acc[3], acc[4])
 
     records = {}
     n, k = batch.nbr.shape
     e = batch.num_edges
     for kind in ("dense", "edge"):
-        cases = []
+        tie_case = tie_rich_neighbor_case if kind == "dense" \
+            else tie_rich_edge_case
+        tables = ((batch.nbr, batch.nbr_mask) if kind == "dense" else
+                  (batch.senders, batch.receivers, batch.edge_mask, n))
+        extra = (dict(k=k) if kind == "dense" else {})
+        errs, ulps = [], []
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tie = tie_case(SEED, n=n, f=f, bf16_exact=bf16, **extra)
+            cases = [((randn(n, f).to(dtype), randn(n, f).to(dtype))
+                      + tables, [randn(n, f).to(dtype) for _ in range(4)],
+                      False),
+                     (tuple(t(a, dtype) for a in tie)
+                      + (() if kind == "dense" else (n,)),
+                      None, True)]
+            for args, grads, dyadic in cases:
+                if dyadic:
+                    rng = np.random.RandomState(SEED)
+                    grads = [t(rng.randint(-4, 5, (n, f)) / 8, dtype)
+                             for _ in range(3)]
+                    grads.insert(3 if kind == "dense" else 1,
+                                 torch.zeros(n, f, device=device,
+                                             dtype=dtype))
+                kern, vjp = backward_routes(torch, kind, args)
+                got = kern(args[0], args[1], *grads)
+                want = vjp(args[0], args[1], *grads)
+                label = (f"{kind} backward kernel vs torch-op VJP"
+                         + (" bf16" if bf16 else "")
+                         + (" (dyadic)" if dyadic else ""))
+                for name, g, w in zip(("dproj_i", "dproj_j"), got, want):
+                    if bf16:
+                        ulps.append(compare_bf16(torch, f"{label} {name}", g,
+                                                 w, exact=dyadic)[0])
+                    else:
+                        errs.append(compare(torch, f"{label} {name}", g, w,
+                                            exact=dyadic))
+                if bf16:
+                    continue
+                # through the Function, against autograd through the
+                # plain forward
+                pair = []
+                for plain in (False, True):
+                    pi = args[0].clone().requires_grad_(True)
+                    pj = args[1].clone().requires_grad_(True)
+                    if plain:
+                        res = plain_forward(kind, pi, pj, args)
+                    elif kind == "dense":
+                        res = nbr.nbr_aggregate(pi, pj, *args[2:])[:4]
+                    else:
+                        acc = fused_mp.pna_edge_accumulators(pi, pj,
+                                                             *args[2:])
+                        res = (acc[0], acc[1], acc[3], acc[4])
+                    loss = sum((r * g).sum() for r, g in zip(res, grads))
+                    pair.append(torch.autograd.grad(loss, (pi, pj)))
+                for name, got_, want_ in zip(("dproj_i", "dproj_j"), *pair):
+                    errs.append(compare(
+                        torch, f"{kind} backward {name} vs plain autograd"
+                        + (" (dyadic)" if dyadic else ""), got_, want_,
+                        exact=dyadic))
+
+        # the timed backwards: random data at the loader's shape. The
+        # bound counts the rows the function needs: the row-indexed
+        # inputs of the rows with a kept slot (the loader's padding rows
+        # have none), proj_j of the nodes a kept slot names
         if kind == "dense":
-            cases.append(((randn(n, f), randn(n, f), batch.nbr,
-                           batch.nbr_mask), False))
-            cases.append((tuple(t(a) for a in tie_rich_neighbor_case(
-                SEED, n=n, k=k, f=f)), True))
+            idx = batch.nbr.long()
+            kept = batch.nbr_mask & (idx >= 0) & (idx < n)
+            rows_in = int(kept.any(1).sum())
+            named = int(torch.unique(idx[kept]).numel())
         else:
-            cases.append(((randn(n, f), randn(n, f), batch.senders,
-                           batch.receivers, batch.edge_mask, n), False))
-            cases.append((tuple(t(a) for a in tie_rich_edge_case(
-                SEED, n=n, f=f)) + (n,), True))
-        errs = []
-        for args, dyadic in cases:
-            if dyadic:
-                rng = np.random.RandomState(SEED)
-                grads = [t(rng.randint(-4, 5, (n, f)) / 8).float()
-                         for _ in range(3)]
-                grads.insert(3 if kind == "dense" else 1,
-                             torch.zeros(n, f, device=device))
+            kept = fused_mp._kept_edges(*tables)
+            rows_in = int(torch.unique(batch.receivers[kept]).numel())
+            named = int(torch.unique(batch.senders[kept]).numel())
+        slots = int(kept.sum())
+        timed = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (randn(n, f).to(dtype), randn(n, f).to(dtype)) + tables
+            kern, vjp = backward_routes(torch, kind, args)
+            vargs = (args[0], args[1],
+                     *[randn(n, f).to(dtype) for _ in range(4)])
+            size = 2 if dtype == torch.bfloat16 else 4
+            # proj_i, min, max and the 4 cotangents of rows_in rows and
+            # proj_j of `named` rows in, the 2 gradients out on all N rows
+            nbytes = size * (7 * rows_in + named + 2 * n) * f
+            if kind == "dense":
+                # the table and the neighbour layout read once
+                nbytes += 5 * n * k + 4 * (slots + n + 1)
+                flops = 30 * slots * f
             else:
-                grads = [randn(n, f) for _ in range(4)]
-            pair = []
-            for plain in (False, True):
-                pi = args[0].clone().requires_grad_(True)
-                pj = args[1].clone().requires_grad_(True)
-                if kind == "dense":
-                    fn = nbr.nbr_aggregate_plain if plain \
-                        else nbr.nbr_aggregate
-                    res = fn(pi, pj, *args[2:])[:4]
-                else:
-                    fn = (fused_mp.pna_edge_accumulators_plain if plain
-                          else fused_mp.pna_edge_accumulators)
-                    acc = fn(pi, pj, *args[2:])
-                    res = (acc[0], acc[1], acc[3], acc[4])
-                loss = sum((r * g).sum() for r, g in zip(res, grads))
-                pair.append(torch.autograd.grad(loss, (pi, pj)))
-            for name, got, want in zip(("dproj_i", "dproj_j"), *pair):
-                errs.append(compare(torch, f"{kind} backward {name}"
-                                    + (" (dyadic)" if dyadic else ""),
-                                    got, want, exact=dyadic))
-        # the timed backward: random data at the loader's shape, with the
-        # layouts a training forward builds once
-        args, _ = cases[0]
-        grads = [randn(n, f) for _ in range(4)]
-        if kind == "dense":
-            layout = nbr.neighbor_layout(batch.nbr, batch.nbr_mask)
-            _, mn, mx, _, _ = nbr.nbr_aggregate(args[0], args[1], batch.nbr,
-                                                batch.nbr_mask)
-
-            def vjp(pi, pj, g0, g1, g2, g3):
-                return nbr.nbr_aggregate_vjp(pi, pj, batch.nbr,
-                                             batch.nbr_mask, mn, mx, g0, g1,
-                                             g2, g3, layout=layout)
-            slots = int(batch.nbr_mask.sum())
-            # proj_i, proj_j, min, max, 4 cotangents in, 2 gradients out,
-            # the table and the neighbour layout read once
-            nbytes = 4 * 10 * n * f + 5 * n * k + 4 * (slots + n + 1)
-            flops = 30 * slots * f
-        else:
-            lay = fused_mp.edge_layout(batch.senders, batch.receivers,
-                                       batch.edge_mask, n)
-            lay_t = fused_mp.edge_layout(batch.receivers, batch.senders,
-                                         batch.edge_mask, n)
-            acc = fused_mp.pna_edge_accumulators(args[0], args[1],
-                                                 *args[2:], lay)
-            mn, mx = acc[3], acc[4]
-
-            def vjp(pi, pj, g0, g1, g2, g3):
-                return fused_mp.pna_edge_vjp(
-                    pi, pj, batch.senders, batch.receivers, batch.edge_mask,
-                    n, mn, mx, g0, g1, g2, g3, lay, lay_t)
-            slots = int(batch.edge_mask.sum())
-            # proj_i, proj_j, mn, mx, 4 cotangents in, 2 gradients out, the
-            # edges (2 ids and a mask) and the two layouts read once
-            nbytes = 4 * 10 * n * f + 9 * e + 4 * 2 * (slots + n + 1)
-            flops = 20 * slots * f
-        b_ms, b_by = bound_ms(nbytes, flops)
-        vargs = (args[0], args[1], *grads)
-        ms = cuda_ms(torch, lambda: vjp(*vargs))
-        dev = device_ms(torch, f"{kind} backward", vjp, vargs, b_ms)
-        pi = args[0].clone().requires_grad_(True)
-        pj = args[1].clone().requires_grad_(True)
-        if kind == "dense":
-            res = nbr.nbr_aggregate_plain(pi, pj, *args[2:])[:4]
-        else:
-            acc = fused_mp.pna_edge_accumulators_plain(pi, pj, *args[2:])
-            res = (acc[0], acc[1], acc[3], acc[4])
-        loss = sum((r * g).sum() for r, g in zip(res, grads))
-        plain = cuda_ms(torch, lambda: torch.autograd.grad(
-            loss, (pi, pj), retain_graph=True), reps=10)
+                # the edges (2 ids and a mask) and the two layouts read once
+                nbytes += 9 * e + 4 * 2 * (slots + n + 1)
+                flops = 20 * slots * f
+            b_ms, b_by = bound_ms(nbytes, flops)
+            # the first bound, which charged all N rows, for comparison
+            all_rows = nbytes + size * 7 * (n - rows_in) * f \
+                + size * (n - named) * f
+            rec = dict(bound_ms=b_ms, bound_by=b_by,
+                       bound_all_rows_ms=bound_ms(all_rows, flops)[0],
+                       ms=cuda_ms(torch, lambda: kern(*vargs)),
+                       device_ms=device_ms(torch, f"{kind} backward kernel",
+                                           kern, vargs, b_ms),
+                       plain_ms=device_ms(torch, f"{kind} torch-op VJP",
+                                          vjp, vargs, b_ms),
+                       launches_per_call=call_launches(torch, kern, vargs),
+                       plain_launches_per_call=call_launches(torch, vjp,
+                                                             vargs))
+            if dtype == torch.float32:
+                def make_loss():
+                    pi = args[0].clone().requires_grad_(True)
+                    pj = args[1].clone().requires_grad_(True)
+                    res = plain_forward(kind, pi, pj, args)
+                    return (sum((r * g).sum() for r, g in
+                                zip(res, vargs[2:])), (pi, pj))
+                rec["autograd_ms"] = autograd_device_ms(
+                    torch, f"{kind} plain autograd backward", make_loss,
+                    b_ms)
+            timed[dtype] = rec
         name = ("nbr_aggregate.backward" if kind == "dense"
                 else "pna_edge_aggregate.backward")
         width = f"K={k}" if kind == "dense" else f"E={e}"
-        print(f"{name}: N={n} {width} F={f} real={slots} call_ms={ms:.4f} device_ms(graph)="
-              f"{dev:.4f} bound_ms={b_ms:.5f} ({b_by}) plain autograd "
-              f"backward_ms={plain:.4f} max_abs_err={max(errs):.3e} "
-              "(random within SUM_TOL, tie-rich dyadic bitwise)", flush=True)
-        records[name] = dict(max_abs_err=max(errs), ms=ms, device_ms=dev,
-                             plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None)
+        r32, r16 = timed[torch.float32], timed[torch.bfloat16]
+        print(f"{name}: N={n} {width} F={f} real={slots} rows with a slot="
+              f"{rows_in} named={named} device_ms(graph): "
+              f"kernel={r32['device_ms']:.4f} torch-op VJP="
+              f"{r32['plain_ms']:.4f} plain autograd={r32['autograd_ms']:.4f}"
+              f"; bound_ms={r32['bound_ms']:.5f} ({r32['bound_by']}; all "
+              f"{n} rows charged: {r32['bound_all_rows_ms']:.5f}); "
+              f"launches per call kernel={r32['launches_per_call']} "
+              f"VJP={r32['plain_launches_per_call']}; kernel call_ms="
+              f"{r32['ms']:.4f}; vs the plain versions max_abs_err="
+              f"{max(errs):.3e} (random within SUM_TOL, tie-rich dyadic "
+              "bitwise)", flush=True)
+        print(f"{name} bf16: device_ms(graph): kernel={r16['device_ms']:.4f}"
+              f" torch-op VJP={r16['plain_ms']:.4f}; bound_ms="
+              f"{r16['bound_ms']:.5f} ({r16['bound_by']}); launches per "
+              f"call kernel={r16['launches_per_call']} "
+              f"VJP={r16['plain_launches_per_call']}; vs the bf16 VJP max "
+              f"{max(ulps)} ulps (bound 1; dyadic bitwise)", flush=True)
+        records[name] = dict(max_abs_err=max(errs), library_ms=None,
+                             rows_with_slot=rows_in, named_rows=named, **r32,
+                             bf16=dict(N=n, F=f, max_ulps=max(ulps),
+                                       dyadic_bitwise=True, **r16))
     return records
 
 
@@ -1040,12 +1173,46 @@ def history_gaps(card_hist, cpu_hist, keys=("train_loss", "val_loss",
                    for a, b in zip(card_hist[k], cpu_hist[k])) for k in keys}
 
 
+# the port's launch counters -> the kernels whose launches they count, as
+# a profile names them (segment_sum's row-pointer pass is not counted)
+PROFILED_KERNELS = {
+    ("segment_sum",): ("segment_sum_kernel",),
+    ("nbr_aggregate",): ("nbr_aggregate_kernel",),
+    ("pna_edge_aggregate",): ("pna_edge_kernel",),
+    ("filter_scatter", "filter_scatter_backward"): ("filter_scatter_kernel",),
+    ("nbr_aggregate_backward", "pna_edge_aggregate_backward"): (
+        "nbr_bwd_rows_kernel", "edge_bwd_rows_kernel", "bwd_cols_kernel"),
+}
+
+
+def check_profiled_kernels(rows, before, after, label):
+    """{kernels: launches} of the port's kernels in a profile's rows,
+    held equal to the launch counters' change over the profiled run, so
+    that the profile's device time and launches are known to hold every
+    hand-written kernel the run launched."""
+    import re
+    seen = {}
+    for counters, names in PROFILED_KERNELS.items():
+        pat = re.compile(r"\b(" + "|".join(names) + r")<")
+        got = sum(count for _, key, count in rows if pat.search(key))
+        want = sum(after[c] - before[c] for c in counters)
+        if got != want:
+            fail(f"{label}: the profile holds {got} launches of "
+                 f"{'/'.join(names)}, the launch counters {want}")
+        seen["/".join(names)] = got
+    return seen
+
+
 def step_metrics(torch, cfg, splits, device, label, real_graphs):
     """Per training path: step time (CUDA events, median of 10 after 2
     warm-up steps), device time and launches of one profiled step, the
     card's idle share within a step, graphs/s; lists the profiled step's
-    scatter-type kernels (an atomic scatter would break repeatability)."""
+    scatter-type kernels (an atomic scatter would break repeatability).
+    Fails unless the profile holds as many launches of each hand-written
+    kernel as the launch counters counted in the profiled step."""
     from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch import kernels as tk
     model, state, step, loader, _, _ = train_parts(torch, cfg, splits,
                                                    device)
     loader.set_epoch(0)
@@ -1063,11 +1230,13 @@ def step_metrics(torch, cfg, splits, device, label, real_graphs):
         b.synchronize()
         times.append(a.elapsed_time(b))
     step_ms = float(np.median(times))
+    before = tk.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, batches[0])
         torch.cuda.synchronize()
     dev_ms, launches, rows = profile_rows(torch, prof)
+    port = check_profiled_kernels(rows, before, tk.launch_counts(), label)
     scatters = sorted({key[:70] for _, key, _ in rows
                        if any(w in key.lower() for w in
                               ("scatter", "indexfunc", "index_add",
@@ -1077,11 +1246,14 @@ def step_metrics(torch, cfg, splits, device, label, real_graphs):
           f"median (CUDA events, {min(times):.3f}-{max(times):.3f}); one "
           f"profiled step: device time {dev_ms:.3f} ms in {launches} kernel "
           f"launches; idle share {idle:.3f}; {real_graphs / step_ms * 1e3:.1f}"
-          f" graphs/s; scatter-type kernels: {scatters}", flush=True)
+          f" graphs/s; scatter-type kernels: {scatters}; hand-written "
+          f"kernels in the profile (= the launch counters): {port}",
+          flush=True)
     for dev_t, key, count in sorted(rows, reverse=True)[:8]:
         print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
     return dict(step_ms=step_ms, step_ms_range=[min(times), max(times)],
                 device_ms=dev_ms, launches_per_step=launches,
+                port_kernel_launches=port,
                 idle_share=idle, graphs_per_s=real_graphs / step_ms * 1e3,
                 scatter_kernels=scatters)
 
@@ -2255,11 +2427,13 @@ def main() -> int:
         "csce_pna_dense_bf16": bf16_training_phase(
             torch, "csce PNA (dense)", base_cfg, splits, device, epochs,
             counted_bf16, ("nbr_aggregate_bf16", "nbr_aggregate_backward",
-                           "segment_sum")),
+                           "nbr_aggregate_backward_bf16", "segment_sum")),
         "csce_pna_edge_bf16": bf16_training_phase(
             torch, "csce PNA (edge list)", edge_cfg, splits, device, 1,
             counted_bf16, ("pna_edge_aggregate_bf16",
-                           "pna_edge_aggregate_backward", "segment_sum")),
+                           "pna_edge_aggregate_backward",
+                           "pna_edge_aggregate_backward_bf16",
+                           "segment_sum")),
         "lj_schnet_ef_bf16": bf16_training_phase(
             torch, "LJ SchNet EF", lj_cfg, lj_splits, device, LJ_EPOCHS,
             counted_bf16, ("filter_scatter_bf16",
@@ -2319,21 +2493,23 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches[name],
                             **extra, **records[name]))
-    # the two PNA Functions' backwards: closed-form VJPs in torch ops whose
-    # segment sums are csrc/segment_sum.cu on CSR layouts (the TPU
-    # kernels' custom VJPs remat in XLA at the lines given)
-    for name, src, rep, counter in (
-            ("nbr_aggregate.backward", "hydragnn_tpu_torch/kernels/nbr.py",
+    # the two PNA Functions' backward kernels (the TPU kernels' custom
+    # VJPs remat in XLA at the lines given); plain_ms is the torch-op VJP's
+    for name, rep, counter in (
+            ("nbr_aggregate.backward",
              "hydragnn_tpu/kernels/nbr_pallas.py:149",
              "nbr_aggregate_backward"),
             ("pna_edge_aggregate.backward",
-             "hydragnn_tpu_torch/kernels/fused_mp.py",
              "hydragnn_tpu/kernels/fused_mp_pallas.py:374",
              "pna_edge_aggregate_backward")):
-        kernels.append(dict(name=name, route="cuda", source=src,
+        rec = dict(records[name])
+        rec["bf16"] = dict(launches=launches[f"{counter}_bf16"],
+                           **rec["bf16"])
+        kernels.append(dict(name=name, route="cuda",
+                            source="hydragnn_tpu_torch/csrc/pna_backward.cu",
                             replaces=rep, launches=launches[counter],
                             launches_per_step=backward_per_step[name],
-                            **records[name]))
+                            **rec))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

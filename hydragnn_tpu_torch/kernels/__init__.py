@@ -4,13 +4,14 @@
 * `nbr.nbr_aggregate`         — csrc/nbr_aggregate.cu
 * `fused_mp.pna_edge_accumulators` — csrc/pna_edge_aggregate.cu
 * `fused_mp.filter_scatter`   — csrc/filter_scatter.cu
+* `nbr.nbr_aggregate_bwd`, `fused_mp.pna_edge_bwd` (the two PNA
+  Functions' backwards) — csrc/pna_backward.cu
 
 Each wrapper launches its kernel for CUDA tensors, runs its plain PyTorch
 version for CPU tensors, and counts its launches in an integer of its
 module; `filter_scatter` counts its forward calls and the calls its
-backward makes apart. The backwards of `nbr_aggregate` and
-`pna_edge_accumulators` launch segment-sum kernels; each counts its calls
-on the card under `<kernel>_backward`.
+backward makes apart; a PNA backward counts the two kernels of its two
+passes, under `<kernel>_backward`.
 """
 from __future__ import annotations
 
@@ -23,13 +24,16 @@ KERNEL_COUNTERS = {
     "pna_edge_aggregate": ("fused_mp", "launches"),
     "filter_scatter": ("fused_mp", "filter_launches"),
     "filter_scatter_backward": ("fused_mp", "filter_backward_launches"),
-    "nbr_aggregate_backward": ("nbr", "backward_launches"),
-    "pna_edge_aggregate_backward": ("fused_mp", "backward_launches"),
+    "nbr_aggregate_backward": ("nbr", "backward_kernel_launches"),
+    "pna_edge_aggregate_backward": ("fused_mp", "backward_kernel_launches"),
     "nbr_aggregate_bf16": ("nbr", "bf16_launches"),
     "pna_edge_aggregate_bf16": ("fused_mp", "bf16_launches"),
     "filter_scatter_bf16": ("fused_mp", "filter_bf16_launches"),
     "filter_scatter_backward_bf16": ("fused_mp",
                                      "filter_backward_bf16_launches"),
+    "nbr_aggregate_backward_bf16": ("nbr", "backward_kernel_bf16_launches"),
+    "pna_edge_aggregate_backward_bf16": ("fused_mp",
+                                         "backward_kernel_bf16_launches"),
 }
 
 

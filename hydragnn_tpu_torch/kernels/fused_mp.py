@@ -19,12 +19,14 @@ device-memory bytes (proj_i once, one proj_j row per kept edge, the
 outputs) and needs no atomics.
 
 The accumulators run inside `_PnaEdgeAccums`, whose backward is
-`pna_edge_vjp`, the JAX VJP (a remat through the unfused accumulators) in
+`pna_edge_bwd`, the JAX VJP (a remat through the unfused accumulators) in
 closed form: per kept edge dh = g_s[recv] + 2 h g_sq[recv] plus the
 min/max cotangent shared evenly by the tied edges, then dproj_i and
-dproj_j as the port's segment sums over the receivers and the senders on
-their CSR layouts (the forward's receiver-sorted one and a sender-sorted
-one), without atomics.
+dproj_j as the sums of dh over the receivers and the senders. For tensors
+on the card it is the CUDA kernel `csrc/pna_backward.cu` (two launches:
+by receiver on the forward's receiver-sorted layout, by sender on a
+sender-sorted one; no atomics, no [E, F] temporary); for CPU tensors its
+plain version `pna_edge_vjp`, in torch ops and segment sums.
 
 `filter_scatter` computes out[n] = sum over the kept edges e into n of
 h[send[e]] * w[e]: the CUDA kernel `csrc/filter_scatter.cu` walks the
@@ -62,7 +64,8 @@ from .segment import gather_rows, segment_sum, segment_sum_plain, vec_width
 
 launches = 0              # pna_edge_aggregate, either instantiation
 bf16_launches = 0         # of which the bf16 instantiation
-backward_launches = 0     # pna_edge_aggregate, backward calls on the card
+backward_kernel_launches = 0       # pna_edge_aggregate backward kernel
+backward_kernel_bf16_launches = 0  # launches, 2 a call; of which bf16
 filter_launches = 0       # filter_scatter, forward calls
 filter_bf16_launches = 0  # of which the bf16 instantiation
 filter_backward_launches = 0  # filter_scatter, the dh of a backward
@@ -133,7 +136,8 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
     `layout` / `layout_t` are the receiver- and sender-sorted
     `edge_layout`s of these edges (on the card; built here when not given);
     the tie counts ride the receiver-sorted one too. In bf16 the ties are
-    counted and every segment sum accumulated in float32."""
+    counted and every segment sum accumulated in float32. The plain
+    version of `pna_edge_bwd`'s kernel."""
     n = int(num_nodes)
     keep = _kept_edges(senders, receivers, edge_mask, n)[:, None]
     zero = torch.zeros_like(senders)
@@ -162,10 +166,74 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
             segment_sum(dh, send, n, layout=by_send).to(dt))
 
 
+def _bwd_lib(dtype):
+    fn = getattr(_build.load("pna_backward"),
+                 f"hg_pna_edge_aggregate_bwd_{_build.DTYPE_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 5)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def pna_edge_bwd(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
+                 mn, mx, g_s, g_sq, g_min, g_max, layout=None, layout_t=None):
+    """(dproj_i, dproj_j) of the accumulators, the function of
+    `pna_edge_vjp`: the CUDA kernel `csrc/pna_backward.cu` for tensors on
+    the card, `pna_edge_vjp` (its plain version) for CPU ones. `layout` /
+    `layout_t` are the receiver- and sender-sorted `edge_layout`s of these
+    edges, built here when not given."""
+    global backward_kernel_launches, backward_kernel_bf16_launches
+    if proj_i.device.type == "cpu":
+        return pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask,
+                            num_nodes, mn, mx, g_s, g_sq, g_min, g_max,
+                            layout, layout_t)
+    if proj_i.device.type != "cuda":
+        raise ValueError(f"pna_edge_bwd: unsupported device {proj_i.device}")
+    n = int(num_nodes)
+    f = proj_i.shape[1] if proj_i.dim() == 2 else -1
+    rows = (proj_i, proj_j, mn, mx, g_s, g_sq, g_min, g_max)
+    if proj_i.dtype not in _build.DTYPE_SUFFIX \
+            or any(t.dtype != proj_i.dtype for t in rows):
+        raise TypeError("pna_edge_bwd kernel takes float32 or bfloat16 "
+                        "projections, extrema and cotangents of one dtype, "
+                        f"got {[t.dtype for t in rows]}")
+    if any(t.shape != (n, f) for t in rows):
+        raise ValueError("pna_edge_bwd: projections, extrema and cotangents "
+                         f"must be [{n}, F], got "
+                         f"{[tuple(t.shape) for t in rows]}")
+    e = senders.shape[0]
+    if layout is None:
+        layout = edge_layout(senders, receivers, edge_mask, n)
+    if layout_t is None:
+        layout_t = edge_layout(receivers, senders, edge_mask, n)
+    lays = tuple(layout[:2]) + tuple(layout_t[:2])
+    if any(t.shape != s for t, s in zip(lays, ((n + 1,), (e,)) * 2)) \
+            or any(t.dtype != torch.int32 for t in lays):
+        raise ValueError("pna_edge_bwd: layouts do not match the edges")
+    if any(t.device != proj_i.device for t in rows + lays):
+        raise ValueError("pna_edge_bwd: all inputs must be on one device")
+    if not all(t.is_contiguous() for t in rows + lays):
+        raise ValueError("pna_edge_bwd: inputs must be contiguous")
+    shares = torch.empty((2, n, f), dtype=proj_i.dtype, device=proj_i.device)
+    d_i = torch.empty_like(proj_i)
+    d_j = torch.empty_like(proj_i)
+    vec = vec_width(f, *rows, shares, d_i, d_j)
+    stream = torch.cuda.current_stream(proj_i.device).cuda_stream
+    err = _bwd_lib(proj_i.dtype)(
+        *(t.data_ptr() for t in rows + lays), n, f, vec,
+        *(t.data_ptr() for t in (*shares, d_i, d_j)), stream)
+    _build.check_launch(err, "pna_edge_aggregate_bwd")
+    backward_kernel_launches += 2
+    if proj_i.dtype == torch.bfloat16:
+        backward_kernel_bf16_launches += 2
+    return d_i, d_j
+
+
 class _PnaEdgeAccums(torch.autograd.Function):
-    """The accumulators with the JAX VJP (`pna_edge_vjp`) as their
-    backward; the forward is the kernel for CUDA tensors and the plain
-    version for CPU ones. The mean/std epilogue stays outside, in
+    """The accumulators with `pna_edge_bwd` as their backward; forward and
+    backward are the kernels for CUDA tensors and the plain versions for
+    CPU ones. The mean/std epilogue stays outside, in
     differentiable torch ops, as it stays outside the TPU kernel's
     custom VJP."""
 
@@ -188,14 +256,13 @@ class _PnaEdgeAccums(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_s, g_sq, _g_cnt, g_min, g_max):
-        global backward_launches
         proj_i, proj_j, senders, receivers, edge_mask, mn, mx = \
             ctx.saved_tensors
-        d_i, d_j = pna_edge_vjp(proj_i, proj_j, senders, receivers,
-                                edge_mask, ctx.num_nodes, mn, mx, g_s, g_sq,
-                                g_min, g_max, *ctx.layouts)
-        if proj_i.device.type == "cuda":
-            backward_launches += 1
+        d_i, d_j = pna_edge_bwd(proj_i, proj_j, senders, receivers,
+                                edge_mask, ctx.num_nodes, mn, mx,
+                                g_s.contiguous(), g_sq.contiguous(),
+                                g_min.contiguous(), g_max.contiguous(),
+                                *ctx.layouts)
         return d_i, d_j, None, None, None, None, None, None
 
 

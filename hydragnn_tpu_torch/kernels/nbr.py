@@ -13,22 +13,22 @@ serving shapes), the index/mask tables and five outputs. It never forms
 [N, K, F]. A slot whose index lies outside [0, N) counts as masked on both
 paths.
 
-The backward is `nbr_aggregate_vjp`, the JAX VJP (a remat through the
-unfused reference) in closed form: it rebuilds the [N, K, F] messages,
-recomputes the statistics the way the plain version does and returns
-dproj_i as a sum over the slots and dproj_j as the port's segment sum over
-the neighbour ids, on a CSR layout of the kept slots (`neighbor_layout`,
-built once per forward), so the gradient needs no atomics either. It never
-calls the plain version, which stays the tests' yardstick.
+The backward is `nbr_aggregate_bwd`: for tensors on the card the CUDA
+kernel `csrc/pna_backward.cu` (two launches: by row for dproj_i, by
+neighbour over the CSR layout of the kept slots for dproj_j; no atomics,
+no [N, K, F] temporary), for tensors on the CPU `nbr_aggregate_vjp`, its
+plain version: the JAX VJP (a remat through the unfused reference) in
+closed form in torch ops, which rebuilds the [N, K, F] messages and
+returns dproj_j as the port's segment sum over the neighbour ids. The
+layout (`neighbor_layout`) is built once per forward.
 
-bf16. The kernel has a float32 and a bf16 instantiation, picked by the
+bf16. The kernels have a float32 and a bf16 instantiation, picked by the
 projections' dtype (any other dtype raises on the card). At bf16 both
 versions round the slot message and its square to bf16, sum in float32
 and store the sums once, as the JAX package's default route does
 (ops/segment.py `_accum_f32`; its Pallas kernel accumulates in bf16
 instead). The backward runs in the compute dtype, with counts and ties
-counted exactly in float32 and its segment sum over the neighbours in
-float32.
+counted exactly in float32 and its sums over the slots in float32.
 """
 from __future__ import annotations
 
@@ -38,19 +38,19 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.scalars import weak
-from ..ops.segment import neighbor_aggregate, sum_accum_f32
+from ..ops.segment import neighbor_aggregate, sum_slots_in_order
 from . import _build
 from .segment import segment_sum, vec_width
 
 launches = 0              # forward kernel launches, either instantiation
 bf16_launches = 0         # of which the bf16 instantiation
-backward_launches = 0     # backward calls on the card (segment-sum kernels)
-
+backward_kernel_launches = 0       # backward kernel launches, 2 a call
+backward_kernel_bf16_launches = 0  # of which the bf16 instantiation
 
 
 def nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
     """(mean, min, max, std, degree) of proj_i[:, None] + proj_j[nbr] over
-    the masked slots."""
+    the masked slots, summed in the kernel's slot order."""
     n = proj_j.shape[0]
     idx = nbr.long()
     inside = (idx >= 0) & (idx < n)
@@ -105,9 +105,11 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
       over the neighbour ids (`layout`, from `neighbor_layout`, on the
       card; built here when not given).
 
-    The sums are recomputed from h as the plain version computes them, so
-    the branch of each variance tie is the one the plain forward takes;
-    min and max are exact on both paths. In bf16 the counts and ties are
+    The plain version of `nbr_aggregate_bwd`'s kernel. The sums are
+    recomputed from h slot after slot, as the forward kernel and the plain
+    forward compute them (`sum_slots_in_order`), so the branch of each
+    variance tie is the one the forward took; min and max are exact on
+    both paths. In bf16 the counts and ties are
     counted in float32 (exact) and each share formed in bf16; the sums
     over the slots and the neighbours accumulate in float32."""
     n = proj_j.shape[0]
@@ -122,8 +124,8 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
     cnt = torch.sum(mask, dim=1, dtype=torch.float32)        # [N, 1]
     c = torch.clamp(cnt, min=1.0).to(dt)
     hm = torch.where(mask, h, zero)
-    mean = sum_accum_f32(hm, 1) / c
-    var_raw = sum_accum_f32(hm * hm, 1) / c - mean * mean
+    mean = sum_slots_in_order(hm) / c
+    var_raw = sum_slots_in_order(hm * hm) / c - mean * mean
     std = torch.sqrt(torch.maximum(var_raw, zero) + weak(eps, h))
     dvar = g_std / (2.0 * std)
     dvar = torch.where(var_raw > 0, dvar,
@@ -137,7 +139,7 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
         ties = torch.sum(hit, dim=1, dtype=torch.float32)
         share = g / torch.clamp(ties, min=1.0).to(dt)
         dh = dh + torch.where(hit, share[:, None, :], zero)
-    d_i = sum_accum_f32(dh, 1)
+    d_i = sum_slots_in_order(dh)
     if layout is None:
         layout = neighbor_layout(nbr, nbr_mask)
     # masked slots carry dh = 0: summing them (CPU) or leaving them out
@@ -146,6 +148,80 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
                       layout=layout).to(dt)
     return d_i, d_j
 
+
+def _bwd_lib(dtype):
+    fn = getattr(_build.load("pna_backward"),
+                 f"hg_nbr_aggregate_bwd_{_build.DTYPE_SUFFIX[dtype]}")
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 7)
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def nbr_aggregate_bwd(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
+                      g_max, g_std, eps=1e-5, layout=None):
+    """(dproj_i, dproj_j) of `nbr_aggregate`, the function of
+    `nbr_aggregate_vjp`: the CUDA kernel `csrc/pna_backward.cu` for tensors
+    on the card, `nbr_aggregate_vjp` (its plain version) for CPU ones.
+    `layout` is `neighbor_layout(nbr, nbr_mask)`, built here when not
+    given."""
+    global backward_kernel_launches, backward_kernel_bf16_launches
+    if proj_i.device.type == "cpu":
+        return nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx,
+                                 g_mean, g_min, g_max, g_std, eps, layout)
+    if proj_i.device.type != "cuda":
+        raise ValueError(f"nbr_aggregate_bwd: unsupported device "
+                         f"{proj_i.device}")
+    n, f = proj_i.shape
+    k = nbr.shape[1] if nbr.dim() == 2 else -1
+    rows = (proj_i, proj_j, mn, mx, g_mean, g_min, g_max, g_std)
+    if proj_i.dtype not in _build.DTYPE_SUFFIX \
+            or any(t.dtype != proj_i.dtype for t in rows):
+        raise TypeError("nbr_aggregate_bwd kernel takes float32 or bfloat16 "
+                        "projections, extrema and cotangents of one dtype, "
+                        f"got {[t.dtype for t in rows]}")
+    if any(t.shape != (n, f) for t in rows) or nbr.shape != (n, k) \
+            or nbr_mask.shape != (n, k):
+        raise ValueError("nbr_aggregate_bwd: projections, extrema and "
+                         "cotangents must be [N, F] and nbr, nbr_mask "
+                         f"[N, K], got {[tuple(t.shape) for t in rows]}, "
+                         f"{tuple(nbr.shape)}, {tuple(nbr_mask.shape)}")
+    if nbr.dtype != torch.int32 or nbr_mask.dtype != torch.bool:
+        raise TypeError("nbr_aggregate_bwd: nbr must be int32 and nbr_mask "
+                        "bool")
+    if layout is None:
+        layout = neighbor_layout(nbr, nbr_mask)
+    tensors = rows + (nbr, nbr_mask) + tuple(layout)
+    if any(t.device != proj_i.device for t in tensors):
+        raise ValueError("nbr_aggregate_bwd: all inputs must be on one "
+                         "device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("nbr_aggregate_bwd: inputs must be contiguous")
+    row_ptr, slot_ids = layout
+    if row_ptr.shape != (n + 1,) or slot_ids.shape != (n * k,) \
+            or row_ptr.dtype != torch.int32 or slot_ids.dtype != torch.int32:
+        raise ValueError("nbr_aggregate_bwd: layout does not match the "
+                         "neighbour table")
+    coef = torch.empty((4, n, f), dtype=proj_i.dtype, device=proj_i.device)
+    d_i = torch.empty_like(proj_i)
+    d_j = torch.empty_like(proj_i)
+    vec = vec_width(f, *rows, coef, d_i, d_j)
+    if f // vec > 1024:
+        raise ValueError(f"nbr_aggregate_bwd: F={f} exceeds the kernel's "
+                         "1024 feature groups per block")
+    stream = torch.cuda.current_stream(proj_i.device).cuda_stream
+    err = _bwd_lib(proj_i.dtype)(
+        *(t.data_ptr() for t in (proj_i, proj_j, nbr, nbr_mask, mn, mx,
+                                 g_mean, g_min, g_max, g_std, row_ptr,
+                                 slot_ids)),
+        n, k, f, vec, weak(eps, proj_i),
+        *(t.data_ptr() for t in (*coef, d_i, d_j)), stream)
+    _build.check_launch(err, "nbr_aggregate_bwd")
+    backward_kernel_launches += 2
+    if proj_i.dtype == torch.bfloat16:
+        backward_kernel_bf16_launches += 2
+    return d_i, d_j
 
 
 def _launch(proj_i, proj_j, nbr, nbr_mask, eps):
@@ -176,9 +252,9 @@ def _launch(proj_i, proj_j, nbr, nbr_mask, eps):
 
 
 class _NbrAggregate(torch.autograd.Function):
-    """`nbr_aggregate` with the JAX VJP (`nbr_aggregate_vjp`) as its
-    backward; the forward is the kernel for CUDA tensors and the plain
-    version for CPU ones."""
+    """`nbr_aggregate` with `nbr_aggregate_bwd` as its backward; forward
+    and backward are the kernels for CUDA tensors and the plain versions
+    for CPU ones."""
 
     @staticmethod
     def forward(ctx, proj_i, proj_j, nbr, nbr_mask, eps, layout):
@@ -195,13 +271,11 @@ class _NbrAggregate(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g_mean, g_min, g_max, g_std, _g_deg):
-        global backward_launches
         proj_i, proj_j, nbr, nbr_mask, mn, mx = ctx.saved_tensors
-        d_i, d_j = nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx,
-                                     g_mean, g_min, g_max, g_std, ctx.eps,
-                                     ctx.layout)
-        if proj_i.device.type == "cuda":
-            backward_launches += 1
+        d_i, d_j = nbr_aggregate_bwd(
+            proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean.contiguous(),
+            g_min.contiguous(), g_max.contiguous(), g_std.contiguous(),
+            ctx.eps, ctx.layout)
         return d_i, d_j, None, None, None, None
 
 

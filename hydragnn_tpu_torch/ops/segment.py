@@ -40,6 +40,20 @@ def sum_accum_f32(data, dim):
     return out if store_dtype is None else out.to(store_dtype)
 
 
+def sum_slots_in_order(data):
+    """Sum over dim 1 of [N, K, ...] data slot after slot (k = 0, 1, ...)
+    in float32, stored back in the data's dtype: the order in which the
+    dense-layout kernels (csrc/nbr_aggregate.cu, csrc/pna_backward.cu)
+    sum a row's slots. Where a row's variance is near 0 the std's
+    gradient amplifies the rounding of another order (torch.sum's) by up
+    to 2.8e-5 at the csce loader's shape, and on constant rows it flips
+    the variance's branch."""
+    acc = torch.zeros_like(data[:, 0], dtype=torch.float32)
+    for k in range(data.shape[1]):
+        acc = acc + data[:, k].float()
+    return acc.to(data.dtype)
+
+
 def _bcast(mask, data):
     """Broadcast a [K] mask against [K, ...] data."""
     return mask.view(tuple(mask.shape) + (1,) * (data.dim() - mask.dim()))
@@ -153,14 +167,15 @@ def pna_aggregate(data, segment_ids, num_segments, mask=None, eps=1e-5):
 def neighbor_aggregate(h, nbr_mask, eps=1e-5):
     """PNA statistics over the dense neighbor layout: h is [N, K, F]
     per-slot messages, nbr_mask [N, K]. Returns (mean, min, max, std,
-    degree) in h's dtype; reduced-precision sums accumulate in float32
-    (`_accum_f32`) and every other op rounds to h's dtype."""
+    degree) in h's dtype; the sums run in the kernels' slot order and
+    reduced precision accumulates in float32 (`sum_slots_in_order`);
+    every other op rounds to h's dtype."""
     m = nbr_mask[:, :, None]
     cnt = torch.sum(nbr_mask.to(h.dtype), dim=1)
     cnt_safe = torch.clamp(cnt, min=1.0)[:, None]
     hm = torch.where(m, h, torch.zeros_like(h))
-    s = sum_accum_f32(hm, 1)
-    sq = sum_accum_f32(hm * hm, 1)
+    s = sum_slots_in_order(hm)
+    sq = sum_slots_in_order(hm * hm)
     mean = s / cnt_safe
     var = _relu_tie_half(sq / cnt_safe - mean * mean)
     std = torch.sqrt(var + weak(eps, var))

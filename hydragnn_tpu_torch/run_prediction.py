@@ -46,6 +46,7 @@ def run_prediction(config_or_path, datasets: Sequence, variables=None,
     `checkpoint` ("latest" or "best") under ./logs; they are loaded into a
     fresh model on `device`, so a trained model is left as it is."""
     config = load_config(config_or_path)
+    serving = resolve_serving(config)    # raises on an unported knob
     dev = resolve_device(device)
     trainset, valset, testset = (list(d) for d in datasets)
     config = update_config(config, trainset, valset, testset)
@@ -71,7 +72,6 @@ def run_prediction(config_or_path, datasets: Sequence, variables=None,
     # one K for every split, as the JAX loaders share one program
     neighbor_k = neighbor_budget_for_dataset(all_samples) if nbr_fmt else None
 
-    serving = resolve_serving(config)
     use_engine = serving.enabled if serve is None else bool(serve)
     if use_engine:
         trues, preds = _predict_with_engine(model, mcfg, testset, serving,

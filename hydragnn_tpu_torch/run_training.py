@@ -46,7 +46,8 @@ from .train.precision import resolve_precision
 from .train.train_step import TrainState, make_eval_step, make_train_step
 from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
-from .utils.envflags import env_flag, env_str, env_strict_flag
+from .utils.envflags import (env_flag, env_str, env_strict_flag,
+                             resolve_packing)
 
 
 def _not_ported(what: str, item: str):
@@ -62,8 +63,8 @@ def check_training_knobs(config) -> None:
     arch = nn["Architecture"]
     opt = tr.get("Optimizer", {}) or {}
     checks = [
-        (tr.get("batch_packing") or env_strict_flag("HYDRAGNN_PACKING"),
-         "batch packing", "A2/A5: packing"),
+        (resolve_packing(tr), "batch packing",
+         "A5.3, with the pack planner of A2/A5"),
         (int(env_str("HYDRAGNN_STEPS_PER_CALL",
                      tr.get("steps_per_call", 1)) or 1) > 1,
          "steps_per_call > 1", "A5: steps_per_call"),

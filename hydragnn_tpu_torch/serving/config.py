@@ -4,7 +4,14 @@
 Precedence per knob: env var over config block over default, with the
 JAX package's defaults. This slice serves the engine core; the
 failure-semantics, structure, int8, metrics and fleet knobs come with
-ROADMAP item A8.
+ROADMAP item A8. Three of them change what JAX's run_prediction starts,
+so asking for them raises NotImplementedError naming A8 (the config
+block or the env, parsed as the JAX package parses them):
+`metrics_port` > 0 (HYDRAGNN_SERVE_METRICS_PORT: the /metrics server),
+`structure` (HYDRAGNN_SERVE_STRUCTURE: raw-structure serving) and
+`fleet.replicas` > 1 (HYDRAGNN_FLEET_REPLICAS: a replica router).
+`max_queue`, `deadline_ms` and `breaker_*` are left alone: JAX's offline
+run_prediction holds them at their permissive defaults too.
 
     "Serving": {
         "enabled": false,          # engine path in run_prediction
@@ -51,8 +58,36 @@ def check_serving_precision(precision: Optional[str]) -> None:
             "serving tier); serve float32 or bfloat16")
 
 
+def check_unported_serving_knobs(block: Dict[str, Any]) -> None:
+    """Raise NotImplementedError naming A8 when the `Serving` block or the
+    env asks for the metrics server, raw-structure serving or a replica
+    fleet (hydragnn_tpu/serving/config.py `resolve_serving`,
+    `resolve_fleet`)."""
+    fleet = block.get("fleet", {}) or {}
+    knobs = [
+        (env_strict_int("HYDRAGNN_SERVE_METRICS_PORT",
+                        int(block.get("metrics_port", 0) or 0)) > 0,
+         "Serving.metrics_port / HYDRAGNN_SERVE_METRICS_PORT (the /metrics "
+         "server)"),
+        (env_strict_flag("HYDRAGNN_SERVE_STRUCTURE",
+                         bool(block.get("structure", False))),
+         "Serving.structure / HYDRAGNN_SERVE_STRUCTURE (raw-structure "
+         "serving)"),
+        (env_strict_int("HYDRAGNN_FLEET_REPLICAS",
+                        int(fleet.get("replicas", 1) or 1)) > 1,
+         "Serving.fleet.replicas / HYDRAGNN_FLEET_REPLICAS > 1 (a replica "
+         "fleet)"),
+    ]
+    for on, what in knobs:
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported to hydragnn_tpu_torch yet (ROADMAP "
+                "A8: serving)")
+
+
 def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
     block = (config or {}).get("Serving", {}) or {}
+    check_unported_serving_knobs(block)
     base = ServingConfig(
         enabled=bool(block.get("enabled", False)),
         max_batch_size=int(block.get("max_batch_size", 32)),

@@ -82,3 +82,12 @@ def env_strict_choice(name: str, choices, default=None):
     _log.warning("%s=%r is not one of %s; treating as %r", name, val,
                  sorted(set(choices)), default)
     return default
+
+
+def resolve_packing(train_cfg) -> bool:
+    """Budget-packed batching: HYDRAGNN_PACKING, when set, overrides
+    Training.batch_packing (default off). Parsed strictly: a typo warns
+    and keeps the config's value (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_packing`)."""
+    return env_strict_flag("HYDRAGNN_PACKING",
+                           bool(train_cfg.get("batch_packing", False)))

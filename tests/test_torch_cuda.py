@@ -124,7 +124,9 @@ def test_kernels_count_launches_and_take_odd_widths(cuda_device, f):
                                   "nbr_aggregate_bf16": 0,
                                   "pna_edge_aggregate_bf16": 0,
                                   "filter_scatter_bf16": 0,
-                                  "filter_scatter_backward_bf16": 0}
+                                  "filter_scatter_backward_bf16": 0,
+                                  "nbr_aggregate_backward_bf16": 0,
+                                  "pna_edge_aggregate_backward_bf16": 0}
     with pytest.raises(TypeError):
         segment.segment_sum(data.double(), ids[:64], 64)
 
@@ -439,11 +441,11 @@ def _pna_backward_pair(kind, args, grads, dev):
 @pytest.mark.parametrize("kind", ["dense", "edge"])
 @pytest.mark.parametrize("f", [200, 13])
 def test_pna_backward_functions_match_plain_autograd(cuda_device, kind, f):
-    """The two PNA Functions' backwards (`nbr_aggregate_vjp`,
-    `pna_edge_vjp`: segment-sum kernels on CSR layouts) against autograd
-    through the plain versions on the card: random data within SUM_TOL,
-    the tie-rich dyadic case (no std cotangent) bitwise; each backward
-    call counts once."""
+    """The two PNA Functions' backwards (the kernels of
+    csrc/pna_backward.cu, on CSR layouts) against autograd through the
+    plain versions on the card: random data within SUM_TOL, the tie-rich
+    dyadic case (no std cotangent) bitwise; each backward call counts its
+    two kernel launches and runs no segment sum."""
     from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
                                                      tie_rich_neighbor_case)
     dev = cuda_device
@@ -473,8 +475,8 @@ def test_pna_backward_functions_match_plain_autograd(cuda_device, kind, f):
                                                               grads, dev)
         counts = tk.launch_counts()
         name = "nbr_aggregate" if kind == "dense" else "pna_edge_aggregate"
-        assert counts[f"{name}_backward"] == 1 and counts[name] == 1
-        assert counts["segment_sum"] >= 1
+        assert counts[f"{name}_backward"] == 2 and counts[name] == 1
+        assert counts["segment_sum"] == 0
         if dyadic:
             assert torch.equal(got_i, want_i) and torch.equal(got_j, want_j)
         else:
@@ -804,3 +806,298 @@ def test_bf16_ops_round_alike_on_the_card_and_the_cpu(cuda_device):
                 assert torch.equal(lin(xd), product + lin.bias), (out, dev)
             products.append(product.cpu())
         assert bf16_ulps(products[1], products[0]) <= 1.0, out
+
+
+# ------------------------------------ the PNA backward kernels (B5) --
+def _bwd_routes(kind, pi, pj, tables, grads, n):
+    """(the backward kernel's, its plain version's) (dproj_i, dproj_j) on
+    the same inputs, with the extrema of the forward kernel."""
+    if kind == "dense":
+        _, mn, mx, _, _ = nbr.nbr_aggregate(pi, pj, *tables)
+        return (nbr.nbr_aggregate_bwd(pi, pj, *tables, mn, mx, *grads),
+                nbr.nbr_aggregate_vjp(pi, pj, *tables, mn, mx, *grads))
+    acc = fused_mp.pna_edge_accumulators(pi, pj, *tables, n)
+    return (fused_mp.pna_edge_bwd(pi, pj, *tables, n, acc[3], acc[4],
+                                  *grads),
+            fused_mp.pna_edge_vjp(pi, pj, *tables, n, acc[3], acc[4],
+                                  *grads))
+
+
+def _assert_bwd_close(got, want, exact):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.isfinite(g.float()).all()
+        if exact:
+            assert torch.equal(g, w)
+        elif g.dtype == torch.float32:
+            torch.testing.assert_close(g, w, **SUM_TOL)
+        else:
+            assert bf16_ulps(g, w) <= 1.0
+
+
+def _bwd_random(kind, seed, n, f, dev, dtype, k=16, e=4000):
+    """Random inputs with masked slots, indices outside [0, n), a row
+    without a slot (n // 2) and a node no slot names (n - 1): (pi, pj,
+    tables, cotangents)."""
+    rng = np.random.RandomState(seed)
+    pi, pj = (_t(rng.randn(n, f).astype(np.float32)).to(dev, dtype)
+              for _ in range(2))
+    if kind == "dense":
+        idx = rng.randint(0, n, (n, k)).astype(np.int32)
+        mask = rng.rand(n, k) > 0.3
+        mask[n // 2] = False
+        idx[idx == n - 1] = 0
+        idx[rng.rand(n, k) < 0.03] = n + 3
+        idx[rng.rand(n, k) < 0.03] = -1
+        tables = [idx, mask]
+    else:
+        send = rng.randint(0, n, e).astype(np.int32)
+        recv = rng.randint(0, n, e).astype(np.int32)
+        recv[recv == n // 2] = (n // 2 + 1) % n
+        send[send == n - 1] = 0
+        recv[:3] = n + 5
+        send[3:6] = -2
+        tables = [send, recv, rng.rand(e) > 0.2]
+    grads = [torch.randn(n, f, device=dev).to(dtype) for _ in range(4)]
+    return pi, pj, [_t(a).to(dev) for a in tables], grads
+
+
+def _dyadic_grads(kind, seed, n, f, dev, dtype):
+    """Multiples of 1/8 in [-1/2, 1/2]; no std cotangent (dense) and no
+    sq cotangent (edge list), as in the VJP tests."""
+    rng = np.random.RandomState(seed)
+    grads = [_t(rng.randint(-4, 5, (n, f)) / 8).to(dev, dtype)
+             for _ in range(3)]
+    grads.insert(3 if kind == "dense" else 1,
+                 torch.zeros(n, f, device=dev, dtype=dtype))
+    return grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "edge"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [200, 33, 6])
+def test_pna_backward_kernels_match_torch_vjp(cuda_device, kind, dtype, f):
+    """The backward kernels (csrc/pna_backward.cu) against their plain
+    versions, the torch-op VJPs, on the card: random data with masked and
+    out-of-range slots and a row without a slot within SUM_TOL (float32)
+    or one bf16 ulp, and that row's dproj_i and the dproj_j of every node
+    no slot names exactly 0; the tie-rich dyadic cases bitwise; two runs
+    give the same bits; each call counts its two launches (and two bf16
+    launches at bf16)."""
+    from hydragnn_tpu_torch.graphs.synthetic import (tie_rich_edge_case,
+                                                     tie_rich_neighbor_case)
+    dev = cuda_device
+    n = 300
+    pi, pj, tables, grads = _bwd_random(kind, f, n, f, dev, dtype)
+    tk.reset_launch_counts()
+    got, want = _bwd_routes(kind, pi, pj, tables, grads, n)
+    again, _ = _bwd_routes(kind, pi, pj, tables, grads, n)
+    counts = tk.launch_counts()
+    name = "nbr_aggregate" if kind == "dense" else "pna_edge_aggregate"
+    bf16 = int(dtype == torch.bfloat16)
+    assert counts[f"{name}_backward"] == 4
+    assert counts[f"{name}_backward_bf16"] == 4 * bf16
+    assert counts["segment_sum"] >= 1    # the plain versions' sums
+    _assert_bwd_close(got, want, exact=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if kind == "dense":
+        idx, mask = (t.cpu().numpy() for t in tables)
+        named = idx[mask & (idx >= 0) & (idx < n)]
+        assert not got[0][n // 2].any()
+    else:
+        send, recv, em = (t.cpu().numpy() for t in tables)
+        keep = em & (send >= 0) & (send < n) & (recv >= 0) & (recv < n)
+        named = send[keep]
+        assert not got[0][n // 2].any()
+    unnamed = np.setdiff1d(np.arange(n), named)
+    assert unnamed.size and not got[1][_t(unnamed).to(dev)].any()
+    assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+
+    exact = dtype == torch.bfloat16
+    if kind == "dense":
+        arrays = tie_rich_neighbor_case(2, n=60, k=8, f=f, bf16_exact=exact)
+    else:
+        arrays = tie_rich_edge_case(2, n=60, f=f, bf16_exact=exact)
+    pi, pj = (_t(a).to(dev, dtype) for a in arrays[:2])
+    tables = [_t(a).to(dev) for a in arrays[2:]]
+    got, want = _bwd_routes(kind, pi, pj, tables,
+                            _dyadic_grads(kind, 5, 60, f, dev, dtype), 60)
+    _assert_bwd_close(got, want, exact=True)
+    assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+
+
+def _bwd_special(kind, shape, dev):
+    """(n, pi, pj, tables): K = 1 (one in-edge per node), one node, and
+    hubs (a neighbour named by more than 1,024 slots; on the edge list
+    also a receiver with more than 1,024 edges). Multiples of 1/64, so
+    that ties occur."""
+    rng = np.random.RandomState(11)
+    n = {"k1": 50, "one_node": 1, "hub": 1500}[shape]
+    pi, pj = (_t(rng.randint(-32, 32, (n, 200)) / 64).float().to(dev)
+              for _ in range(2))
+    if kind == "dense":
+        k = {"k1": 1, "one_node": 3, "hub": 4}[shape]
+        idx = rng.randint(0, n, (n, k)).astype(np.int32)
+        mask = rng.rand(n, k) > 0.2
+        if shape == "hub":
+            idx[:, 0], mask[:, 0] = 7, True
+        if shape == "one_node":
+            mask[0] = (True, True, False)
+        tables = [idx, mask]
+    else:
+        e = {"k1": n, "one_node": 3, "hub": 4000}[shape]
+        send = rng.randint(0, n, e).astype(np.int32)
+        recv = (np.arange(e) % n).astype(np.int32)
+        em = np.ones(e, bool)
+        if shape == "hub":
+            send[:1200] = 7
+            recv[1000:2100] = 3
+        if shape == "one_node":
+            em[2] = False
+        tables = [send, recv, em]
+    return n, pi, pj, [_t(a).to(dev) for a in tables]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "edge"])
+@pytest.mark.parametrize("shape", ["k1", "one_node", "hub"])
+def test_pna_backward_kernels_take_k1_one_node_and_hubs(cuda_device, kind,
+                                                        shape):
+    """K = 1, a single node, and hubs (pass 2 walks one neighbour's 1,500
+    slots; on the edge list pass 1 walks one receiver's 1,100 edges
+    twice), float32 and bf16, against the torch-op VJPs: within SUM_TOL
+    (one bf16 ulp)."""
+    dev = cuda_device
+    n, pi, pj, tables = _bwd_special(kind, shape, dev)
+    rng = np.random.RandomState(12)
+    grads = [_t(rng.randint(-4, 5, (n, 200)) / 8).float().to(dev)
+             for _ in range(4)]
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = _bwd_routes(kind, pi.to(dtype), pj.to(dtype), tables,
+                                [g.to(dtype) for g in grads], n)
+        _assert_bwd_close(got, want, exact=False)
+        assert got[1].abs().max() > 0
+
+
+def _constant_row_reference(h, cnt, eps, branch=None):
+    """dproj_i of a row whose `cnt` slots all carry the float32 message
+    h, for the cotangents g_std = 1 and g_mean = g_min = g_max = 0, in
+    float32 with the sums taken slot after slot (the forward kernel's
+    order); `branch` (1, 0.5 or 0) overrides the variance's. Returns
+    (dproj_i, the variance's branch)."""
+    f32 = np.float32
+    s = sq = f32(0)
+    for _ in range(cnt):
+        s = f32(s + h)
+        sq = f32(sq + f32(h * h))
+    c = f32(max(cnt, 1))
+    m = f32(s / c)
+    var = f32(f32(sq / c) - f32(m * m))
+    took = 1.0 if var > 0 else (0.5 if var == 0 else 0.0)
+    b = took if branch is None else branch
+    sd = np.sqrt(f32(max(var, f32(0)) + f32(eps)), dtype=np.float32)
+    dv = f32(f32(1) / f32(2 * sd))
+    dv = dv if b == 1.0 else (f32(dv * f32(0.5)) if b == 0.5 else f32(0))
+    dvm = f32(dv * m)
+    ds = f32(f32(f32(f32(0) - dvm) - dvm) / c)
+    dsq = f32(dv / c)
+    d = f32(ds + f32(2 * f32(h * dsq)))
+    acc = f32(0)
+    for _ in range(cnt):
+        acc = f32(acc + d)
+    return acc, took
+
+
+@pytest.mark.cuda
+def test_nbr_backward_variance_branch_on_constant_rows(cuda_device):
+    """Rows whose 3-24 slots all name one neighbour carry one non-dyadic
+    message, so var = sq / c - mean^2 is 0 or a rounding step either side
+    of it, and the summation order picks the branch (1, 1/2 or 0). The
+    kernel sums in the forward kernel's slot order: its dproj_i equals a
+    float32 reference summed in that order bit for bit, and the torch-op
+    VJP, which sums in that order too, takes the kernel's branch on every
+    row-feature. The branch torch.sum's order would take is printed."""
+    dev = cuda_device
+    rng = np.random.RandomState(13)
+    n, k, f = 512, 24, 8
+    pi = (rng.rand(n, f) * 3 - 1.5).astype(np.float32)
+    pj = (rng.rand(n, f) * 3 - 1.5).astype(np.float32)
+    cnt = 3 + np.arange(n) % (k - 2)
+    idx = np.repeat(rng.randint(0, n, (n, 1)), k, axis=1).astype(np.int32)
+    mask = np.arange(k)[None, :] < cnt[:, None]
+    args = [_t(a).to(dev) for a in (pi, pj, idx, mask)]
+    _, mn, mx, _, _ = nbr.nbr_aggregate(*args)
+    zero = torch.zeros(n, f, device=dev)
+    grads = (zero, zero, zero, torch.ones(n, f, device=dev))
+    got = nbr.nbr_aggregate_bwd(*args, mn, mx, *grads)[0].cpu().numpy()
+    branches = np.zeros((n, f))
+    for r in range(n):
+        for c in range(f):
+            h = np.float32(pi[r, c] + pj[idx[r, 0], c])
+            want, branches[r, c] = _constant_row_reference(h, int(cnt[r]),
+                                                           1e-5)
+            assert got[r, c] == want, (r, c, got[r, c], want)
+    # the branch of each order: the statistics by the VJP's own ops
+    from hydragnn_tpu_torch.ops.segment import (sum_accum_f32,
+                                                sum_slots_in_order)
+    m = args[3][:, :, None]
+    hm = torch.where(m, args[0][:, None] + args[1][args[2].long()],
+                     torch.zeros((), device=dev))
+    c = torch.clamp(m.sum(1, dtype=torch.float32), min=1.0)
+
+    def branch_counts(b):
+        return {v: int((b == v).sum()) for v in (1.0, 0.5, 0.0)}
+    took = branch_counts(branches)
+    vjp_took = {}
+    for name, total in (("torch.sum order", lambda d: sum_accum_f32(d, 1)),
+                        ("the torch-op VJP's", sum_slots_in_order)):
+        mean = total(hm) / c
+        var = (total(hm * hm) / c - mean * mean).cpu().numpy()
+        b = np.where(var > 0, 1.0, np.where(var == 0, 0.5, 0.0))
+        vjp_took[name] = dict(branch_counts(b),
+                              differ=int((b != branches).sum()))
+    print(f"constant rows ({n * f} row-features): the kernel's branch "
+          f"{took}; by order: {vjp_took}")
+    assert vjp_took["the torch-op VJP's"]["differ"] == 0
+    assert took[1.0] + took[0.0] > 0     # the rounding reaches both sides
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "edge"])
+def test_pna_backward_kernels_replay_in_a_cuda_graph(cuda_device, kind):
+    """A backward captured into a CUDA graph (layouts built beforehand,
+    as a training forward builds them) replays bit for bit what the eager
+    call computes, at float32 and bf16."""
+    dev = cuda_device
+    n = 300
+    for dtype in (torch.float32, torch.bfloat16):
+        pi, pj, tables, grads = _bwd_random(kind, 3, n, 200, dev, dtype)
+        if kind == "dense":
+            _, mn, mx, _, _ = nbr.nbr_aggregate(pi, pj, *tables)
+            layouts = (nbr.neighbor_layout(*tables),)
+
+            def call():
+                return nbr.nbr_aggregate_bwd(pi, pj, *tables, mn, mx,
+                                             *grads, 1e-5, *layouts)
+        else:
+            acc = fused_mp.pna_edge_accumulators(pi, pj, *tables, n)
+            layouts = (fused_mp.edge_layout(*tables, n),
+                       fused_mp.edge_layout(tables[1], tables[0], tables[2],
+                                            n))
+
+            def call():
+                return fused_mp.pna_edge_bwd(pi, pj, *tables, n, acc[3],
+                                             acc[4], *grads, *layouts)
+        eager = call()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = call()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))

@@ -210,7 +210,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                                   "nbr_aggregate_bf16": 0,
                                   "pna_edge_aggregate_bf16": 0,
                                   "filter_scatter_bf16": 0,
-                                  "filter_scatter_backward_bf16": 0}
+                                  "filter_scatter_backward_bf16": 0,
+                                  "nbr_aggregate_backward_bf16": 0,
+                                  "pna_edge_aggregate_backward_bf16": 0}
     from hydragnn_tpu_torch.kernels import _build
     assert not _build._libs  # nothing was built or loaded
 
