@@ -6,7 +6,9 @@
 Phases:
 
 1. Print the card (nvidia-smi name and power limit) and the torch/CUDA
-   versions; build the CUDA kernels from hydragnn_tpu_torch/csrc with nvcc.
+   versions; build the CUDA kernels from hydragnn_tpu_torch/csrc with nvcc
+   and print each compiled kernel's registers, spills and static shared
+   memory from `-Xptxas -v`.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it (128 molecule-sized graphs, F = 200)
    and on edge cases (isolated nodes, masked and padding edges, ids out of
@@ -55,8 +57,11 @@ Phases:
    ulp, the tie-rich dyadic cases bitwise) and, through the Functions,
    against autograd through the plain forwards; with the device times
    (20 calls in one CUDA graph) of the kernel, the torch-op VJP and plain
-   autograd's backward beside the byte bound, and the launches of one
-   call of each. Then the first step: loss
+   autograd's backward beside the byte bound, each pass's device time
+   from a profile of the graph's replays, by kernel name, and the
+   launches of one call of each; the dense forward at the same batch,
+   float32 and bf16, bitwise against its plain version, with its device
+   time beside its byte bound. Then the first step: loss
    card vs CPU within rtol 1e-4 / atol 1e-5, each gradient tensor through
    the kernels vs through the plain versions on the card within 1e-2
    relative L2 (card vs CPU and float64 gaps printed: float32 is a few
@@ -112,8 +117,10 @@ Phases:
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
 kernels 2-4's bf16 readings under `bf16`; the two PNA backwards as rows
-of their own, with their bf16 readings under `bf16` and the torch-op
-VJP's device time as `plain_ms`), the line before that the card's
+of their own, with their bf16 readings under `bf16`, the torch-op
+VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
+dense forward's loader-shape reading under `loader`), the line before
+that the card's
 name and power limit, and before it a `training: {...}` JSON line. Any
 failure exits non-zero without the last line.
 """
@@ -174,6 +181,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: str):
+    """One line per compiled kernel of an `nvcc -Xptxas -v` log: its name
+    and template arguments, registers, spill stores and loads (bytes) and
+    static shared memory (bytes); errors as they are."""
+    import re
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            size, rest = int(m.group(1)), m.group(2)
+            args = ", ".join(
+                ["float" if rest[size:].startswith("If") else "bf16"
+                 if rest[size:].startswith("I13__nv_bfloat16") else "?"]
+                + re.findall(r"Li(\d+)E", rest[size:]))
+            kernel = f"{rest[:size]}<{args}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = f"spills {m.group(1)} / {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{kernel}: {m.group(1)} registers, {spills}, "
+                       f"static smem {smem.group(1) if smem else 0} B")
+        if "error" in line.lower():
+            out.append(line.strip())
+    return out
+
+
 def cuda_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of fn() in milliseconds (CUDA events)."""
     for _ in range(warmup):
@@ -208,7 +244,8 @@ def capture(torch, warm, body, keep_graph: bool = False):
     return graph
 
 
-def device_ms(torch, name, fn, args, bound: float) -> float:
+def device_ms(torch, name, fn, args, bound: float,
+              kernels=None) -> float:
     """Device time per call of fn(*args), which launches one kernel:
     GRAPH_CALLS calls captured in one CUDA graph and replayed (CUDA events,
     median), so the wrapper's host time is left out and the gaps between
@@ -216,7 +253,9 @@ def device_ms(torch, name, fn, args, bound: float) -> float:
     inputs, so none finds them in L2 from the call before. The graph is
     captured on the stream of the warm-up call, so the kernels' per-stream
     buffers (segment_sum's tickets) already exist and their set-up is not
-    captured. Fails below `bound`, which no real kernel time can be."""
+    captured. Fails below `bound`, which no real kernel time can be.
+    `kernels`, a dict keyed by kernel names, gets each one's device ms per
+    launch from a profile of the graph's replays (`kernel_ms`)."""
     def copy(a):
         if isinstance(a, tuple):
             return tuple(copy(t) for t in a)
@@ -230,7 +269,31 @@ def device_ms(torch, name, fn, args, bound: float) -> float:
     ms = cuda_ms(torch, graph.replay, reps=10) / GRAPH_CALLS
     if ms < bound:
         fail(f"{name}: device time {ms} ms below its bound {bound} ms")
+    if kernels is not None:
+        kernels.update(kernel_ms(torch, graph, kernels))
     return ms
+
+
+def kernel_ms(torch, graph, names):
+    """{name: device ms per call} of each named kernel in a profile of
+    three replays of a graph of GRAPH_CALLS calls; "not measured" for a
+    name the profile holds no device row of."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    _, _, rows = profile_rows(torch, prof)
+    out = {}
+    for name in names:
+        pat = re.compile(r"\b" + name + r"<")
+        hits = [(t, c) for t, key, c in rows if pat.search(key)]
+        calls = sum(c for _, c in hits)
+        out[name] = (sum(t for t, _ in hits) / 1e3 / calls if calls
+                     else "not measured")
+    return out
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -297,6 +360,12 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
           f"bound_ms={b_ms:.5f} (proj_j read once, L2 reuse) "
           f"bound_every_gather_ms={gather_bytes / HBM_BYTES_PER_S * 1e3:.5f}",
           flush=True)
+    for label, stage in (("forward", False), ("backward pass 1", True)):
+        for size, dt in ((4, "float32"), (2, "bf16")):
+            rows, tpr, chunk, smem = nbr.row_geometry(k, f, 4, size, stage)
+            print(f"  {label} {dt} geometry at K={k} F={f} VEC 4: {rows} "
+                  f"rows of {tpr} threads a block, chunk {chunk}, dynamic "
+                  f"shared memory {smem} B", flush=True)
     records["nbr_aggregate"] = dict(max_abs_err=max(errs), ms=ms,
                                     device_ms=dev,
                                     plain_ms=plain, bound_ms=b_ms,
@@ -950,10 +1019,14 @@ def check_pna_backwards(torch, batch, device, f):
             rows_in = int(torch.unique(batch.receivers[kept]).numel())
             named = int(torch.unique(batch.senders[kept]).numel())
         slots = int(kept.sum())
+        if kind == "dense":
+            records["nbr_aggregate.loader"] = loader_forward(
+                torch, randn, tables, rows_in, named, slots, f)
         timed = {}
         for dtype in (torch.float32, torch.bfloat16):
             args = (randn(n, f).to(dtype), randn(n, f).to(dtype)) + tables
             kern, vjp = backward_routes(torch, kind, args)
+            passes = dict.fromkeys(BACKWARD_PASSES[kind])
             vargs = (args[0], args[1],
                      *[randn(n, f).to(dtype) for _ in range(4)])
             size = 2 if dtype == torch.bfloat16 else 4
@@ -976,12 +1049,13 @@ def check_pna_backwards(torch, batch, device, f):
                        bound_all_rows_ms=bound_ms(all_rows, flops)[0],
                        ms=cuda_ms(torch, lambda: kern(*vargs)),
                        device_ms=device_ms(torch, f"{kind} backward kernel",
-                                           kern, vargs, b_ms),
+                                           kern, vargs, b_ms, passes),
                        plain_ms=device_ms(torch, f"{kind} torch-op VJP",
                                           vjp, vargs, b_ms),
                        launches_per_call=call_launches(torch, kern, vargs),
                        plain_launches_per_call=call_launches(torch, vjp,
-                                                             vargs))
+                                                             vargs),
+                       passes_ms=passes)
             if dtype == torch.float32:
                 def make_loss():
                     pi = args[0].clone().requires_grad_(True)
@@ -997,6 +1071,9 @@ def check_pna_backwards(torch, batch, device, f):
                 else "pna_edge_aggregate.backward")
         width = f"K={k}" if kind == "dense" else f"E={e}"
         r32, r16 = timed[torch.float32], timed[torch.bfloat16]
+        for label, r in (("", r32), (" bf16", r16)):
+            print(f"{name}{label} passes (device ms a launch, profile of the "
+                  f"graph's replays): {fmt_ms(r['passes_ms'])}", flush=True)
         print(f"{name}: N={n} {width} F={f} real={slots} rows with a slot="
               f"{rows_in} named={named} device_ms(graph): "
               f"kernel={r32['device_ms']:.4f} torch-op VJP="
@@ -1019,6 +1096,50 @@ def check_pna_backwards(torch, batch, device, f):
                              bf16=dict(N=n, F=f, max_ulps=max(ulps),
                                        dyadic_bitwise=True, **r16))
     return records
+
+
+def fmt_ms(times):
+    return ", ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in times.items())
+
+
+def loader_forward(torch, randn, tables, rows_in, named, slots, f):
+    """B1's forward at the training loader's shape (phase 5a's batch),
+    float32 and bf16: held bitwise against its plain version (every
+    output), its device time (20 calls in one CUDA graph) beside the byte
+    bound this batch needs (proj_i of the rows with a slot, proj_j of the
+    named nodes, the table and mask, the five outputs on all N rows) and
+    the bound that charges both projections on all N rows."""
+    from hydragnn_tpu_torch.kernels import nbr
+    n, k = tables[0].shape
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        size = 2 if dtype == torch.bfloat16 else 4
+        args = (randn(n, f).to(dtype), randn(n, f).to(dtype)) + tables
+        for name, g, w in zip(("mean", "min", "max", "std", "deg"),
+                              nbr.nbr_aggregate(*args),
+                              nbr.nbr_aggregate_plain(*args)):
+            if not torch.equal(g, w):
+                fail(f"nbr_aggregate {dtype} at the loader shape: {name} "
+                     "not equal to the plain version")
+        rest = 5 * n * k + size * (4 * n * f + n)
+        flops = 6 * slots * f + 8 * n * f
+        b_ms, b_by = bound_ms(size * (rows_in + named) * f + rest, flops)
+        out["bf16" if size == 2 else "float32"] = dict(
+            N=n, K=k, F=f, bound_ms=b_ms, bound_by=b_by,
+            bound_all_rows_ms=bound_ms(size * 2 * n * f + rest, flops)[0],
+            device_ms=device_ms(torch, "nbr_aggregate (loader)",
+                                nbr.nbr_aggregate, args, b_ms),
+            bitwise=True)
+    r32, r16 = out["float32"], out["bf16"]
+    print(f"nbr_aggregate at the loader shape: N={n} K={k} F={f} "
+          f"real={slots}; device_ms(graph) float32={r32['device_ms']:.4f} "
+          f"bf16={r16['device_ms']:.4f}; bound_ms float32="
+          f"{r32['bound_ms']:.5f} bf16={r16['bound_ms']:.5f} (bytes of "
+          f"this batch; all {n} rows charged: "
+          f"{r32['bound_all_rows_ms']:.5f} / "
+          f"{r16['bound_all_rows_ms']:.5f}); bitwise vs plain", flush=True)
+    return out
 
 
 def train_parts(torch, cfg, splits, device):
@@ -1175,13 +1296,16 @@ def history_gaps(card_hist, cpu_hist, keys=("train_loss", "val_loss",
 
 # the port's launch counters -> the kernels whose launches they count, as
 # a profile names them (segment_sum's row-pointer pass is not counted)
+# the two kernels of a PNA backward call, pass 1 then pass 2
+BACKWARD_PASSES = {"dense": ("nbr_bwd_rows_kernel", "nbr_bwd_cols_kernel"),
+                   "edge": ("edge_bwd_rows_kernel", "bwd_cols_kernel")}
 PROFILED_KERNELS = {
     ("segment_sum",): ("segment_sum_kernel",),
     ("nbr_aggregate",): ("nbr_aggregate_kernel",),
     ("pna_edge_aggregate",): ("pna_edge_kernel",),
     ("filter_scatter", "filter_scatter_backward"): ("filter_scatter_kernel",),
     ("nbr_aggregate_backward", "pna_edge_aggregate_backward"): (
-        "nbr_bwd_rows_kernel", "edge_bwd_rows_kernel", "bwd_cols_kernel"),
+        BACKWARD_PASSES["dense"] + BACKWARD_PASSES["edge"]),
 }
 
 
@@ -2155,9 +2279,8 @@ def main() -> int:
     print(f"kernels built/loaded in {time.perf_counter() - t0:.1f} s: "
           f"{sorted(libs)}", flush=True)
     for stem, log in sorted(_build.build_log.items()):
-        for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
-                print(f"  [{stem}] {line.strip()}", flush=True)
+        for line in ptxas_report(log):
+            print(f"  [{stem}] {line}", flush=True)
 
     # ------------------------------------------------------------ data
     with open(CSCE_CONFIG) as fh:
@@ -2328,6 +2451,7 @@ def main() -> int:
           f"K={train_batch.nbr.shape[1]}", flush=True)
     records.update(check_pna_backwards(torch, train_batch, device,
                                        mcfg.hidden_dim))
+    records["nbr_aggregate"]["loader"] = records.pop("nbr_aggregate.loader")
     epochs = int(base_cfg["NeuralNetwork"]["Training"]["num_epoch"])
     (state, t_model, completed), counts, pna_rec = training_phase(
         torch, "csce PNA (dense)", base_cfg, splits, device, epochs,

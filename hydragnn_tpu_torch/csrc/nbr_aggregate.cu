@@ -17,74 +17,111 @@
 // gathered row.
 //
 // Design. The TPU kernel rebuilt each slot with a one-hot x proj_j matmul
-// on the MXU. Here one thread owns VEC features of one node: the block
-// stages its nodes' K indices and masks in shared memory once, then each
-// thread loops over K, gathering proj_j rows with coalesced loads and
-// keeping sum, sum of squares, min and max in float32 registers. The
-// epilogue is the TPU kernel's (nbr_pallas.py:78-87), rounded like the
-// plain PyTorch version (no FMA contraction).
+// on the MXU. Here a row owns whole warps and each thread VEC features of
+// it (slots.cuh): the row's first warp compacts the kept slots into a
+// list in shared memory; each thread then gathers its features of the
+// listed proj_j rows kGather at a time, all of a group's loads issued
+// before the group's adds, and keeps sum, sum of squares, min and max in
+// float32 registers, slot after slot. The epilogue is the TPU kernel's
+// (nbr_pallas.py:78-87), rounded like the plain PyTorch version (no FMA
+// contraction). On the H100 the kernel is latency- and issue-bound, not
+// byte-bound: staging a row's gathers in shared memory with cp.async (the
+// backward's pass 1 does) cost more residency than it saved, and deeper
+// groups more registers than they saved (PERF.md §6).
 //
 // bf16 (T = __nv_bfloat16). The slot message is bf16(pi + pj) and its
 // square bf16(h * h), as the bf16 ops of the plain version round them;
-// sums accumulate in float32 in slot order and are stored as bf16 once
+// at VEC 4 they are packed bf16 adds and multiplies on pairs (slots.cuh),
+// min and max packed bf16 min / max of the rounded messages (exact).
+// Sums accumulate in float32 in slot order and are stored as bf16 once
 // (the JAX route's float32 accumulation, ops/segment.py `_accum_f32`, not
-// the Pallas kernel's bf16 accumulators); min and max are taken on the
-// rounded messages, so they are exact; the count is exact. The epilogue
-// rounds to bf16 after every operation, as PyTorch's bf16 ops do; the
-// wrapper hands in eps already rounded to bf16 (ops/scalars.py). Half
-// the bytes of the float32 instantiation move.
-#include "rows.cuh"
+// the Pallas kernel's bf16 accumulators); the count is exact. The
+// epilogue rounds to bf16 after every operation, as PyTorch's bf16 ops
+// do; the wrapper hands in eps already rounded to bf16 (ops/scalars.py).
+#include "slots.cuh"
+
+// gathers in flight per thread
+constexpr int kGather = 4;
 
 template <typename T, int VEC>
 __global__ void nbr_aggregate_kernel(
     const T* __restrict__ proj_i, const T* __restrict__ proj_j,
     const int32_t* __restrict__ nbr, const uint8_t* __restrict__ mask, int n,
-    int k, int f, int rows_per_block, float eps, T* __restrict__ mean,
-    T* __restrict__ mn, T* __restrict__ mx, T* __restrict__ sd,
-    T* __restrict__ deg) {
-  extern __shared__ int s_slot[];  // [rows_per_block, k]; -1 = empty slot
-  const int fv = f / VEC;
-  const int row0 = blockIdx.x * rows_per_block;
-  for (int i = threadIdx.x; i < rows_per_block * k; i += blockDim.x) {
-    const int r = row0 + i / k;
-    int j = -1;
-    if (r < n) {
-      const long long o = (long long)r * k + i % k;
-      const int idx = nbr[o];
-      if (mask[o] && idx >= 0 && idx < n) j = idx;
-    }
-    s_slot[i] = j;
+    int k, int f, float eps, T* __restrict__ mean, T* __restrict__ mn,
+    T* __restrict__ mx, T* __restrict__ sd, T* __restrict__ deg) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_cnt[kMaxRowsPerBlock];
+  const int ly = threadIdx.y;
+  const int row = blockIdx.x * blockDim.y + ly;
+  int* ids = reinterpret_cast<int*>(smem) + (size_t)ly * k;
+  if (threadIdx.x < 32) {
+    const int cnt = compact_slots(nbr, mask, nullptr, n, k, row,
+                                  threadIdx.x, ids, nullptr);
+    if (threadIdx.x == 0) s_cnt[ly] = cnt;
   }
   __syncthreads();
 
-  const int ly = threadIdx.x / fv;
-  const int row = row0 + ly;
-  if (ly >= rows_per_block || row >= n) return;
-  const int c = (threadIdx.x % fv) * VEC;
-  const Vec<VEC> pi = load_vec<VEC>(proj_i + (long long)row * f + c);
+  const int c = threadIdx.x * VEC;
+  if (row >= n || c >= f) return;
+  const int cnt = s_cnt[ly];
+  const long long o = (long long)row * f + c;
   Vec<VEC> s = fill_vec<VEC>(0.f), sq = fill_vec<VEC>(0.f);
-  Vec<VEC> lo = fill_vec<VEC>(FLT_MAX), hi = fill_vec<VEC>(-FLT_MAX);
-  float cnt = 0.f;
-  const int* slots = s_slot + ly * k;
-  // unrolled so that several gathers are in flight before their adds
-#pragma unroll 4
-  for (int kk = 0; kk < k; ++kk) {
-    const int j = slots[kk];
-    if (j < 0) continue;
-    const Vec<VEC> pj = load_vec<VEC>(proj_j + (long long)j * f + c);
+  Vec<VEC> lo, hi;
+  // walks the list kGather slots at a time: the group's loads, then its
+  // adds in slot order
+  auto walk = [&](auto load, auto add) {
+    for (int beg = 0; beg < cnt; beg += kGather) {
+      decltype(load(0)) r[kGather];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
-      s.v[i] = __fadd_rn(s.v[i], h);
-      sq.v[i] = __fadd_rn(sq.v[i], rnd<T>(__fmul_rn(h, h)));
-      lo.v[i] = fminf(lo.v[i], h);
-      hi.v[i] = fmaxf(hi.v[i], h);
+      for (int u = 0; u < kGather; ++u)
+        if (beg + u < cnt) r[u] = load(ids[beg + u]);
+#pragma unroll
+      for (int u = 0; u < kGather; ++u)
+        if (beg + u < cnt) add(r[u]);
     }
-    cnt = __fadd_rn(cnt, 1.f);
+  };
+  if constexpr (kPacked<T, VEC>) {
+    const Pairs pi = ldg_pairs(proj_i + o);
+    Pairs lo2, hi2;
+    lo2.v[0] = lo2.v[1] = __floats2bfloat162_rn(INFINITY, INFINITY);
+    hi2.v[0] = hi2.v[1] = __floats2bfloat162_rn(-INFINITY, -INFINITY);
+    walk([&](int j) { return ldg_pairs(proj_j + (long long)j * f + c); },
+         [&](const Pairs& pj) {
+#pragma unroll
+           for (int q = 0; q < 2; ++q) {
+             const __nv_bfloat162 h2 = __hadd2_rn(pi.v[q], pj.v[q]);
+             const float2 h = __bfloat1622float2(h2);
+             const float2 hh = __bfloat1622float2(__hmul2_rn(h2, h2));
+             s.v[2 * q] = __fadd_rn(s.v[2 * q], h.x);
+             s.v[2 * q + 1] = __fadd_rn(s.v[2 * q + 1], h.y);
+             sq.v[2 * q] = __fadd_rn(sq.v[2 * q], hh.x);
+             sq.v[2 * q + 1] = __fadd_rn(sq.v[2 * q + 1], hh.y);
+             lo2.v[q] = __hmin2(lo2.v[q], h2);
+             hi2.v[q] = __hmax2(hi2.v[q], h2);
+           }
+         });
+    lo = to_vec(lo2);
+    hi = to_vec(hi2);
+  } else {
+    const Vec<VEC> pi = load_vec<VEC>(proj_i + o);
+    lo = fill_vec<VEC>(FLT_MAX);
+    hi = fill_vec<VEC>(-FLT_MAX);
+    walk([&](int j) { return load_vec<VEC>(proj_j + (long long)j * f + c); },
+         [&](const Vec<VEC>& pj) {
+#pragma unroll
+           for (int i = 0; i < VEC; ++i) {
+             const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
+             s.v[i] = __fadd_rn(s.v[i], h);
+             sq.v[i] = __fadd_rn(sq.v[i], rnd<T>(__fmul_rn(h, h)));
+             lo.v[i] = fminf(lo.v[i], h);
+             hi.v[i] = fmaxf(hi.v[i], h);
+           }
+         });
   }
 
-  const float cs = fmaxf(cnt, 1.f);
-  const bool has = cnt > 0.f;
+  const float count = (float)cnt;  // exact: a sum of ones
+  const float cs = fmaxf(count, 1.f);
+  const bool has = cnt > 0;
   Vec<VEC> o_mean, o_sd, o_mn, o_mx;
 #pragma unroll
   for (int i = 0; i < VEC; ++i) {
@@ -99,58 +136,60 @@ __global__ void nbr_aggregate_kernel(
     o_mn.v[i] = has ? lo.v[i] : 0.f;
     o_mx.v[i] = has ? hi.v[i] : 0.f;
   }
-  const long long o = (long long)row * f + c;
   store_vec<VEC>(mean + o, o_mean);
   store_vec<VEC>(sd + o, o_sd);
   store_vec<VEC>(mn + o, o_mn);
   store_vec<VEC>(mx + o, o_mx);
-  if (c == 0) store_one(deg + row, cnt);
+  if (c == 0) store_one(deg + row, count);
+}
+
+template <typename T, int VEC>
+static int launch_vec(const T* proj_i, const T* proj_j, const int32_t* nbr,
+                      const uint8_t* mask, int n, int k, int f, int rows,
+                      size_t smem, float eps, T* mean, T* mn, T* mx, T* sd,
+                      T* deg, cudaStream_t s) {
+  dim3 grid, block;
+  cudaError_t err = row_launch(n, f, VEC, rows, smem, &grid, &block);
+  if (err == cudaSuccess)
+    err = allow_dynamic_smem<&nbr_aggregate_kernel<T, VEC>>();
+  if (err != cudaSuccess) return (int)err;
+  nbr_aggregate_kernel<T, VEC><<<grid, block, smem, s>>>(
+      proj_i, proj_j, nbr, mask, n, k, f, eps, mean, mn, mx, sd, deg);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch(const T* proj_i, const T* proj_j, const int32_t* nbr,
                   const uint8_t* mask, int n, int k, int f, int vec,
-                  float eps, T* mean, T* mn, T* mx, T* sd, T* deg,
-                  void* stream) {
+                  int rows, int smem, float eps, T* mean, T* mn, T* mx,
+                  T* sd, T* deg, void* stream) {
   if (n == 0 || f == 0) return (int)cudaSuccess;
-  const int fv = f / vec;
-  if (fv > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem_cap = 48 * 1024;
-  int rows_per_block = fv >= 256 ? 1 : 256 / fv;
-  while (rows_per_block > 1 &&
-         (size_t)rows_per_block * k * sizeof(int) > smem_cap)
-    rows_per_block /= 2;
-  const size_t smem = (size_t)rows_per_block * k * sizeof(int);
-  if (smem > smem_cap) return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((n + rows_per_block - 1) / rows_per_block);
-  const int threads = rows_per_block * fv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    nbr_aggregate_kernel<T, 4><<<blocks, threads, smem, s>>>(
-        proj_i, proj_j, nbr, mask, n, k, f, rows_per_block, eps, mean, mn, mx,
-        sd, deg);
-  } else {
-    nbr_aggregate_kernel<T, 1><<<blocks, threads, smem, s>>>(
-        proj_i, proj_j, nbr, mask, n, k, f, rows_per_block, eps, mean, mn, mx,
-        sd, deg);
-  }
-  return (int)cudaGetLastError();
+  if (vec == 4)
+    return launch_vec<T, 4>(proj_i, proj_j, nbr, mask, n, k, f, rows, smem,
+                            eps, mean, mn, mx, sd, deg, s);
+  if (vec == 1)
+    return launch_vec<T, 1>(proj_i, proj_j, nbr, mask, n, k, f, rows, smem,
+                            eps, mean, mn, mx, sd, deg, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int hg_nbr_aggregate_f32(const float* proj_i, const float* proj_j,
                                     const int32_t* nbr, const uint8_t* mask,
-                                    int n, int k, int f, int vec, float eps,
-                                    float* mean, float* mn, float* mx,
-                                    float* sd, float* deg, void* stream) {
-  return launch<float>(proj_i, proj_j, nbr, mask, n, k, f, vec, eps, mean, mn,
-                       mx, sd, deg, stream);
+                                    int n, int k, int f, int vec, int rows,
+                                    int smem, float eps, float* mean,
+                                    float* mn, float* mx, float* sd,
+                                    float* deg, void* stream) {
+  return launch<float>(proj_i, proj_j, nbr, mask, n, k, f, vec, rows, smem,
+                       eps, mean, mn, mx, sd, deg, stream);
 }
 
 extern "C" int hg_nbr_aggregate_bf16(const bf16* proj_i, const bf16* proj_j,
                                      const int32_t* nbr, const uint8_t* mask,
-                                     int n, int k, int f, int vec, float eps,
-                                     bf16* mean, bf16* mn, bf16* mx, bf16* sd,
-                                     bf16* deg, void* stream) {
-  return launch<bf16>(proj_i, proj_j, nbr, mask, n, k, f, vec, eps, mean, mn,
-                      mx, sd, deg, stream);
+                                     int n, int k, int f, int vec, int rows,
+                                     int smem, float eps, bf16* mean,
+                                     bf16* mn, bf16* mx, bf16* sd, bf16* deg,
+                                     void* stream) {
+  return launch<bf16>(proj_i, proj_j, nbr, mask, n, k, f, vec, rows, smem,
+                      eps, mean, mn, mx, sd, deg, stream);
 }

@@ -28,8 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# compiler output per source from this process's build (ptxas register and
-# shared-memory report); empty when the libraries were loaded from disk
+# compiler output per source (ptxas register and shared-memory report),
+# kept beside each library as lib<stem>.log and read back when the
+# library is loaded from disk
 build_log: Dict[str, str] = {}
 
 
@@ -69,6 +70,9 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             _compile(todo, out_dir)
         for src in sources:
             _libs[src.stem] = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))
+            log = out_dir / f"lib{src.stem}.log"
+            if src.stem not in build_log and log.exists():
+                build_log[src.stem] = log.read_text()
         return _libs
 
 
@@ -89,6 +93,7 @@ def _compile(sources, out_dir: Path) -> None:
             if proc.returncode != 0:
                 failed.append(f"--- {stem}.cu (exit {proc.returncode})\n{out}")
             else:
+                (out_dir / f"lib{stem}.log").write_text(out)
                 os.replace(tmp, out_dir / f"lib{stem}.so")
         if failed:
             raise RuntimeError("hydragnn_tpu_torch: nvcc failed:\n"

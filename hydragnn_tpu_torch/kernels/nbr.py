@@ -7,20 +7,30 @@ the card and runs `nbr_aggregate_plain` (the ops/segment.py formulation,
 which materializes the [N, K, F] messages) for tensors on the CPU; a CUDA
 tensor the kernel does not take raises.
 
-On the H100 the kernel is bound by device-memory bytes: proj_i once, one
-proj_j row per real slot (mostly L2 hits: proj_j fits the 50 MB L2 at the
-serving shapes), the index/mask tables and five outputs. It never forms
+Its byte bound on the H100: proj_i once, one proj_j row per real slot
+(mostly L2 hits: proj_j fits the 50 MB L2 at the serving shapes), the
+index/mask tables and five outputs; it runs at about twice that, paced
+by latency and instruction issue, not bytes (PERF.md §6). It never forms
 [N, K, F]. A slot whose index lies outside [0, N) counts as masked on both
 paths.
 
 The backward is `nbr_aggregate_bwd`: for tensors on the card the CUDA
-kernel `csrc/pna_backward.cu` (two launches: by row for dproj_i, by
-neighbour over the CSR layout of the kept slots for dproj_j; no atomics,
-no [N, K, F] temporary), for tensors on the CPU `nbr_aggregate_vjp`, its
-plain version: the JAX VJP (a remat through the unfused reference) in
-closed form in torch ops, which rebuilds the [N, K, F] messages and
-returns dproj_j as the port's segment sum over the neighbour ids. The
-layout (`neighbor_layout`) is built once per forward.
+kernel `csrc/pna_backward.cu` (two launches: by row for dproj_i, writing
+each kept slot's dh to its place in the column-sorted layout, then by
+neighbour, a streaming in-order sum of those rows for dproj_j; no
+atomics; the dh buffer has N K rows, of which the kept slots' are
+written), for tensors on the CPU
+`nbr_aggregate_vjp`, its plain version: the JAX VJP (a remat through the
+unfused reference) in closed form in torch ops, which rebuilds the
+[N, K, F] messages and returns dproj_j as the port's segment sum over the
+neighbour ids. The layout (`neighbor_layout`) is built once per forward.
+
+Both kernels share one geometry (`csrc/slots.cuh`, `row_geometry`): a
+row owns whole warps and its kept slots are compacted into a list in
+shared memory; the forward then gathers the listed proj_j rows a few at a
+time into registers, the backward's pass 1 stages all of a chunk's rows
+in shared memory with asynchronous copies and walks them twice. At bf16
+both compute on packed bf16 pairs where F % 4 == 0.
 
 bf16. The kernels have a float32 and a bf16 instantiation, picked by the
 projections' dtype (any other dtype raises on the card). At bf16 both
@@ -47,6 +57,15 @@ bf16_launches = 0         # of which the bf16 instantiation
 backward_kernel_launches = 0       # backward kernel launches, 2 a call
 backward_kernel_bf16_launches = 0  # of which the bf16 instantiation
 
+# slots the backward's pass 1 stages at once (a chunk): the loader's K =
+# 24 in one gather
+STAGE_SLOTS = 24
+# threads of a block: rows of ceil(F / VEC) threads rounded up to a warp
+BLOCK_THREADS = 128
+# dynamic shared memory a block may ask for: kMaxDynamicSmem of
+# csrc/slots.cuh, less room for the kernels' static arrays
+SMEM_BYTES = 232448 - 1024
+
 
 def nbr_aggregate_plain(proj_i, proj_j, nbr, nbr_mask, eps=1e-5):
     """(mean, min, max, std, degree) of proj_i[:, None] + proj_j[nbr] over
@@ -64,28 +83,69 @@ def _lib(dtype):
     fn = getattr(_build.load("nbr_aggregate"),
                  f"hg_nbr_aggregate_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float] + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
     return fn
 
 
-def neighbor_layout(nbr, nbr_mask):
-    """(row_ptr [N + 1] int32, slot ids [N K] int32): the kept slots of
-    the flattened [N, K] table stable-sorted by neighbour id, the CSR view
-    the backward's segment sum over the neighbours walks (slot n K + k sums
-    into nbr[n, k]). The neighbour table is shared by every layer, so a
-    forward builds it once; None on the CPU, whose plain segment sum needs
-    none."""
-    if nbr.device.type == "cpu":
-        return None
+def row_geometry(k, f, vec, itemsize, stage=False):
+    """(rows per block, threads per row, chunk, dynamic shared bytes) of a
+    dense kernel (`csrc/slots.cuh`) for K slots, F features, VEC elements a
+    thread and elements of `itemsize` bytes. A row owns ceil(F / VEC)
+    threads rounded up to a warp; a block holds BLOCK_THREADS threads'
+    worth of rows (at least one). The forward (`stage` False) keeps a list
+    of K neighbour ids a row and no chunk (0); the backward's pass 1
+    (`stage` True) two lists of K and stages up to STAGE_SLOTS slots a row
+    at once, fewer where the shared memory runs out."""
+    tpr = -(-(f // vec) // 32) * 32
+    if tpr > 1024:
+        raise ValueError(f"dense PNA kernels: F={f} exceeds 1024 threads "
+                         f"of {vec} features a row")
+    rows = max(1, BLOCK_THREADS // tpr)
+    lists = rows * k * 4 * (2 if stage else 1)
+    if not stage:
+        chunk, staged = 0, 0
+    else:
+        per_slot = rows * f * itemsize
+        room = SMEM_BYTES - lists - 15
+        chunk = min(max(k, 1), STAGE_SLOTS,
+                    room // per_slot if per_slot else 1)
+        staged = -(-(rows * chunk * f * itemsize) // 16) * 16
+    if (stage and chunk < 1) or lists > SMEM_BYTES:
+        raise ValueError(f"dense PNA kernels: K={k}, F={f} do not fit the "
+                         "shared memory of a block")
+    return rows, tpr, chunk, staged + lists
+
+
+def build_neighbor_layout(nbr, nbr_mask):
+    """(row_ptr [N + 1] int32, slot ids [N K] int32, slot positions [N K]
+    int32) of the [N, K] table, on any device: the kept slots (mask set,
+    index in [0, N)) of the flattened table stable-sorted by neighbour id,
+    the masked ones after them, so that neighbour j spans [row_ptr[j],
+    row_ptr[j + 1]) (slot n K + k sums into nbr[n, k]); and the inverse,
+    each kept slot's position in that order (-1 for the others), where the
+    backward kernel writes the slot's dh."""
     from .fused_mp import csr_layout
     n, k = nbr.shape
     rows = torch.arange(n, dtype=torch.int32,
                         device=nbr.device).repeat_interleave(k)
     row_ptr, _, order = csr_layout(rows, nbr.reshape(-1),
                                    nbr_mask.reshape(-1), n)
-    return row_ptr, order
+    at = torch.arange(n * k, dtype=torch.int32, device=nbr.device)
+    pos = torch.empty_like(at).index_put_(
+        (order.long(),), torch.where(at < row_ptr[n], at, -1))
+    return row_ptr, order, pos
+
+
+def neighbor_layout(nbr, nbr_mask):
+    """`build_neighbor_layout` on the card, the CSR view (and its
+    inverse) the backward kernel walks; the neighbour table is shared by
+    every layer, so a forward builds it once. None on the CPU, whose
+    plain segment sum needs none."""
+    if nbr.device.type == "cpu":
+        return None
+    return build_neighbor_layout(nbr, nbr_mask)
 
 
 def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
@@ -114,6 +174,25 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
     over the slots and the neighbours accumulate in float32."""
     n = proj_j.shape[0]
     rows, k = nbr.shape
+    dh, idx = slot_grads(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean,
+                         g_min, g_max, g_std, eps)
+    d_i = sum_slots_in_order(dh)
+    if layout is None:
+        layout = neighbor_layout(nbr, nbr_mask)
+    # masked slots carry dh = 0: summing them (CPU) or leaving them out
+    # (the layout) gives the same dproj_j
+    d_j = segment_sum(dh.reshape(rows * k, -1).float(), idx, n,
+                      layout=None if layout is None else layout[:2])
+    return d_i, d_j.to(dh.dtype)
+
+
+def slot_grads(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min, g_max,
+               g_std, eps=1e-5):
+    """(dh [N, K, F], the slots' neighbour ids [N K] int64): each slot's
+    gradient of `nbr_aggregate_vjp`, 0 on a masked slot (whose id is
+    clamped to 0), in the projections' dtype."""
+    n = proj_j.shape[0]
+    rows, k = nbr.shape
     idx = nbr.long()
     inside = (idx >= 0) & (idx < n)
     mask = (nbr_mask & inside)[:, :, None]
@@ -139,22 +218,15 @@ def nbr_aggregate_vjp(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
         ties = torch.sum(hit, dim=1, dtype=torch.float32)
         share = g / torch.clamp(ties, min=1.0).to(dt)
         dh = dh + torch.where(hit, share[:, None, :], zero)
-    d_i = sum_slots_in_order(dh)
-    if layout is None:
-        layout = neighbor_layout(nbr, nbr_mask)
-    # masked slots carry dh = 0: summing them (CPU) or leaving them out
-    # (the layout) gives the same dproj_j
-    d_j = segment_sum(dh.reshape(rows * k, -1).float(), idx, n,
-                      layout=layout).to(dt)
-    return d_i, d_j
+    return dh, idx
 
 
 def _bwd_lib(dtype):
     fn = getattr(_build.load("pna_backward"),
                  f"hg_nbr_aggregate_bwd_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_void_p] * 7)
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                       + [ctypes.c_float] + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
@@ -198,25 +270,27 @@ def nbr_aggregate_bwd(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
                          "device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("nbr_aggregate_bwd: inputs must be contiguous")
-    row_ptr, slot_ids = layout
-    if row_ptr.shape != (n + 1,) or slot_ids.shape != (n * k,) \
-            or row_ptr.dtype != torch.int32 or slot_ids.dtype != torch.int32:
+    row_ptr, slot_ids, slot_pos = layout
+    if row_ptr.shape != (n + 1,) or any(
+            t.shape != (n * k,) for t in (slot_ids, slot_pos)) or any(
+            t.dtype != torch.int32 for t in layout):
         raise ValueError("nbr_aggregate_bwd: layout does not match the "
                          "neighbour table")
-    coef = torch.empty((4, n, f), dtype=proj_i.dtype, device=proj_i.device)
+    # each kept slot's dh, in the layout's order (the first row_ptr[N]
+    # rows are written; N K rows, a bound known without reading the mask)
+    dh = torch.empty((n * k, f), dtype=proj_i.dtype, device=proj_i.device)
     d_i = torch.empty_like(proj_i)
     d_j = torch.empty_like(proj_i)
-    vec = vec_width(f, *rows, coef, d_i, d_j)
-    if f // vec > 1024:
-        raise ValueError(f"nbr_aggregate_bwd: F={f} exceeds the kernel's "
-                         "1024 feature groups per block")
+    vec = vec_width(f, *rows, dh, d_i, d_j)
+    n_rows, _, chunk, smem = row_geometry(k, f, vec, proj_i.element_size(),
+                                          stage=True)
     stream = torch.cuda.current_stream(proj_i.device).cuda_stream
     err = _bwd_lib(proj_i.dtype)(
-        *(t.data_ptr() for t in (proj_i, proj_j, nbr, nbr_mask, mn, mx,
-                                 g_mean, g_min, g_max, g_std, row_ptr,
-                                 slot_ids)),
-        n, k, f, vec, weak(eps, proj_i),
-        *(t.data_ptr() for t in (*coef, d_i, d_j)), stream)
+        *(t.data_ptr() for t in (proj_i, proj_j, nbr, nbr_mask, slot_pos,
+                                 row_ptr, mn, mx, g_mean, g_min, g_max,
+                                 g_std)),
+        n, k, f, vec, n_rows, chunk, smem, weak(eps, proj_i),
+        *(t.data_ptr() for t in (dh, d_i, d_j)), stream)
     _build.check_launch(err, "nbr_aggregate_bwd")
     backward_kernel_launches += 2
     if proj_i.dtype == torch.bfloat16:
@@ -235,15 +309,13 @@ def _launch(proj_i, proj_j, nbr, nbr_mask, eps):
     sd = torch.empty_like(mean)
     deg = torch.empty((n,), dtype=proj_i.dtype, device=dev)
     vec = vec_width(f, proj_i, proj_j, mean)
-    if f // vec > 1024:
-        raise ValueError(f"nbr_aggregate: F={f} exceeds the kernel's "
-                         "1024 feature groups per block")
+    rows, _, _, smem = row_geometry(k, f, vec, proj_i.element_size())
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib(proj_i.dtype)(proj_i.data_ptr(), proj_j.data_ptr(),
                              nbr.data_ptr(), nbr_mask.data_ptr(), n, k, f,
-                             vec, weak(eps, proj_i), mean.data_ptr(),
-                             mn.data_ptr(), mx.data_ptr(), sd.data_ptr(),
-                             deg.data_ptr(), stream)
+                             vec, rows, smem, weak(eps, proj_i),
+                             mean.data_ptr(), mn.data_ptr(), mx.data_ptr(),
+                             sd.data_ptr(), deg.data_ptr(), stream)
     _build.check_launch(err, "nbr_aggregate")
     launches += 1
     if proj_i.dtype == torch.bfloat16:

@@ -928,31 +928,38 @@ def test_pna_backward_kernels_match_torch_vjp(cuda_device, kind, dtype, f):
 
 
 def _bwd_special(kind, shape, dev):
-    """(n, pi, pj, tables): K = 1 (one in-edge per node), one node, and
-    hubs (a neighbour named by more than 1,024 slots; on the edge list
-    also a receiver with more than 1,024 edges). Multiples of 1/64, so
-    that ties occur."""
+    """(n, pi, pj, tables): K = 1 (one in-edge per node), one node, hubs
+    (a neighbour named by more than 1,024 slots; on the edge list also a
+    receiver with more than 1,024 edges), and long rows (dense: K = 64,
+    rows with more kept slots than the kernels stage at once,
+    `nbr.STAGE_SLOTS`, one with all 64; edge list: a receiver with 300
+    edges). Multiples of 1/64, so that ties occur."""
     rng = np.random.RandomState(11)
-    n = {"k1": 50, "one_node": 1, "hub": 1500}[shape]
+    n = {"k1": 50, "one_node": 1, "hub": 1500, "long_row": 120}[shape]
     pi, pj = (_t(rng.randint(-32, 32, (n, 200)) / 64).float().to(dev)
               for _ in range(2))
     if kind == "dense":
-        k = {"k1": 1, "one_node": 3, "hub": 4}[shape]
+        k = {"k1": 1, "one_node": 3, "hub": 4, "long_row": 64}[shape]
         idx = rng.randint(0, n, (n, k)).astype(np.int32)
         mask = rng.rand(n, k) > 0.2
         if shape == "hub":
             idx[:, 0], mask[:, 0] = 7, True
         if shape == "one_node":
             mask[0] = (True, True, False)
+        if shape == "long_row":
+            mask[9] = True
+            assert mask.sum(1).max() > 2 * nbr.STAGE_SLOTS
         tables = [idx, mask]
     else:
-        e = {"k1": n, "one_node": 3, "hub": 4000}[shape]
+        e = {"k1": n, "one_node": 3, "hub": 4000, "long_row": 1000}[shape]
         send = rng.randint(0, n, e).astype(np.int32)
         recv = (np.arange(e) % n).astype(np.int32)
         em = np.ones(e, bool)
         if shape == "hub":
             send[:1200] = 7
             recv[1000:2100] = 3
+        if shape == "long_row":
+            recv[:300] = 9
         if shape == "one_node":
             em[2] = False
         tables = [send, recv, em]
@@ -961,13 +968,14 @@ def _bwd_special(kind, shape, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["dense", "edge"])
-@pytest.mark.parametrize("shape", ["k1", "one_node", "hub"])
+@pytest.mark.parametrize("shape", ["k1", "one_node", "hub", "long_row"])
 def test_pna_backward_kernels_take_k1_one_node_and_hubs(cuda_device, kind,
                                                         shape):
-    """K = 1, a single node, and hubs (pass 2 walks one neighbour's 1,500
+    """K = 1, a single node, hubs (pass 2 walks one neighbour's 1,500
     slots; on the edge list pass 1 walks one receiver's 1,100 edges
-    twice), float32 and bf16, against the torch-op VJPs: within SUM_TOL
-    (one bf16 ulp)."""
+    twice) and long rows (the dense pass 1 stages a row of 64 kept slots
+    in chunks), float32 and bf16, against the torch-op VJPs: within
+    SUM_TOL (one bf16 ulp)."""
     dev = cuda_device
     n, pi, pj, tables = _bwd_special(kind, shape, dev)
     rng = np.random.RandomState(12)
@@ -1101,3 +1109,100 @@ def test_pna_backward_kernels_replay_in_a_cuda_graph(cuda_device, kind):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+# --------------------------- the dense kernels' staged design (B1) --
+def _dense_case(case, f, dev, dtype):
+    """(pi, pj, nbr, mask) on the card: "random" (K 16, masked and
+    out-of-range slots, a row without a slot, a node no slot names),
+    "long_rows" (K 64: rows longer than one staging chunk, one with all
+    64 slots kept, ties from multiples of 1/64)."""
+    rng = np.random.RandomState(f)
+    if case == "random":
+        pi, pj, tables, _ = _bwd_random("dense", f, 300, f, dev, dtype)
+        return (pi, pj, *tables)
+    n, k = 120, 64
+    pi, pj = (_t(rng.randint(-32, 32, (n, f)) / 64).to(dev, dtype)
+              for _ in range(2))
+    idx = rng.randint(0, n, (n, k)).astype(np.int32)
+    mask = rng.rand(n, k) > 0.4
+    mask[9], mask[10] = True, False
+    idx[rng.rand(n, k) < 0.05] = n + 1
+    return (pi, pj, _t(idx).to(dev), _t(mask).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [200, 12, 13, 2048])
+@pytest.mark.parametrize("case", ["random", "long_rows"])
+def test_nbr_forward_long_rows_and_odd_widths_bitwise(cuda_device, dtype, f,
+                                                      case):
+    """The forward kernel equals its plain version bit for bit on every
+    output, at both dtypes: rows of up to 64 kept slots (walked group
+    after group in slot order), empty rows, out-of-range ids; loads of 4
+    elements (F 200, 12 and 2,048: packed bf16 arithmetic) and of one (F
+    13, the fallback width)."""
+    args = _dense_case(case, f, cuda_device, dtype)
+    assert segment.vec_width(f, args[0], args[1]) == (1 if f == 13 else 4)
+    got = nbr.nbr_aggregate(*args)
+    want = nbr.nbr_aggregate_plain(*args)
+    for name, g, w in zip(("mean", "min", "max", "std", "deg"), got, want):
+        assert g.dtype == w.dtype == dtype, name
+        assert torch.equal(g, w), name
+    assert float(got[4].max()) > nbr.STAGE_SLOTS or case == "random"
+
+
+def _layout_ordered_sum(dh, layout, n):
+    """dproj_j as the float32 sum, in the layout's order, of the rows of
+    dh [N K, F] that each node's range names, stored in dh's dtype: torch
+    ops (rows padded to the longest range, then `sum_slots_in_order`)."""
+    from hydragnn_tpu_torch.ops.segment import sum_slots_in_order
+    row_ptr, order, _ = (t.long() for t in layout)
+    kept = int(row_ptr[-1])
+    counts = row_ptr[1:] - row_ptr[:-1]
+    col = torch.repeat_interleave(torch.arange(n, device=dh.device), counts)
+    rank = torch.arange(kept, device=dh.device) - row_ptr[col]
+    buf = torch.zeros((n, max(int(counts.max()), 1), dh.shape[1]),
+                      device=dh.device)
+    buf[col, rank] = dh[order[:kept]].float()
+    return sum_slots_in_order(buf).to(dh.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [200, 12, 13, 2048])
+@pytest.mark.parametrize("case", ["random", "long_rows"])
+def test_nbr_backward_sums_the_vjp_slot_gradients_bitwise(cuda_device,
+                                                          dtype, f, case):
+    """The dense backward kernel writes each kept slot's dh to its place
+    in the column-sorted layout and sums those rows in order: its dproj_j
+    equals, bit for bit, the torch-op VJP's own slot gradients
+    (`nbr.slot_grads`) summed in float32 in the layout's order
+    (`_layout_ordered_sum`), and its dproj_i their sum in slot order; both
+    also within SUM_TOL (one bf16 ulp) of the torch-op VJP, whose
+    dproj_j sums in the segment-sum kernel's order. Long rows (pass 1
+    stages them chunk after chunk), empty rows, out-of-range ids and both
+    load widths, as the forward test; at F 2,048 the staging asks for
+    more than 48 KB of shared memory."""
+    from hydragnn_tpu_torch.ops.segment import sum_slots_in_order
+    dev = cuda_device
+    pi, pj, idx, mask = _dense_case(case, f, dev, dtype)
+    n = pi.shape[0]
+    if f == 2048:
+        assert nbr.row_geometry(idx.shape[1], f, 4, pi.element_size(),
+                                stage=True)[3] > 48 * 1024
+    rng = np.random.RandomState(3)
+    grads = [_t(rng.randn(n, f).astype(np.float32)).to(dev, dtype)
+             for _ in range(4)]
+    _, mn, mx, _, _ = nbr.nbr_aggregate(pi, pj, idx, mask)
+    layout = nbr.neighbor_layout(idx, mask)
+    got = nbr.nbr_aggregate_bwd(pi, pj, idx, mask, mn, mx, *grads, 1e-5,
+                                layout)
+    dh, _ = nbr.slot_grads(pi, pj, idx, mask, mn, mx, *grads)
+    assert torch.equal(got[0], sum_slots_in_order(dh))
+    assert torch.equal(got[1], _layout_ordered_sum(
+        dh.reshape(n * idx.shape[1], f), layout, n))
+    _assert_bwd_close(got, nbr.nbr_aggregate_vjp(pi, pj, idx, mask, mn, mx,
+                                                 *grads, 1e-5, layout),
+                      exact=False)
+    assert got[0].abs().max() > 0 and got[1].abs().max() > 0
