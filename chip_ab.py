@@ -11,18 +11,26 @@ process of its own: it builds that checkout's kernels, makes the csce
 shapes of chip_smoke.py from seed 0 (the serving bucket, N 4,032, on both
 layouts, and the training loader's batch, N 8,192, K 24, on both), and
 times each kernel with that checkout's `chip_smoke.device_ms` (20 calls
-in one CUDA graph, CUDA events, the median of 10 replays). A round runs
+in one CUDA graph, CUDA events, the median of 10 replays). Where a
+checkout's `fused_mp` picks the edge-list forward's launch geometry
+(`FORWARD_ROWS`), the forward is also timed at each geometry of
+`FORWARD_VARIANTS` (keys `...rows<R>`, 0 the flat launch). A round runs
 old, new, new, old. One JSON line per turn, then the median of each
-checkout's turns per kernel and the ratio new / old.
+checkout's turns per kernel and the ratio new / old (a geometry's
+against the old checkout's forward).
 """
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import subprocess
 import sys
 
 import numpy as np
+
+# the edge-list forward's receivers a block timed beside the default
+FORWARD_VARIANTS = (0, 2, 4, 8)
 
 
 def shapes(torch, dev):
@@ -94,22 +102,34 @@ def child() -> None:
             torch, "nbr_aggregate_bwd",
             lambda *a: nbr.nbr_aggregate_bwd(*a, 1e-5, layout),
             (pi, pj, *tables, mn, mx, *grads), 0.0)
-        n = serve.num_nodes
-        tables = (serve.senders, serve.receivers, serve.edge_mask, n)
-        lay = fused_mp.edge_layout(*tables)
-        times[f"edge_forward.serving.{tag}"] = cs.device_ms(
-            torch, "pna_edge_accumulators", fused_mp.pna_edge_accumulators,
-            (randn(n, dtype), randn(n, dtype), *tables, lay), 0.0)
+        rows = getattr(fused_mp, "FORWARD_ROWS", None)
+        for shape, b in (("serving", serve), ("loader", train)):
+            n = b.num_nodes
+            tables = (b.senders, b.receivers, b.edge_mask, n)
+            args = (randn(n, dtype), randn(n, dtype), *tables,
+                    fused_mp.edge_layout(*tables))
+            key = f"edge_forward.{shape}.{tag}"
+            times[key] = cs.device_ms(
+                torch, "pna_edge_accumulators",
+                fused_mp.pna_edge_accumulators, args, 0.0)
+            for r in (FORWARD_VARIANTS if rows is not None else ()):
+                default, rows[dtype] = rows[dtype], r
+                times[f"{key}.rows{r}"] = cs.device_ms(
+                    torch, "pna_edge_accumulators",
+                    fused_mp.pna_edge_accumulators, args, 0.0)
+                rows[dtype] = default
         n = train.num_nodes
         tables = (train.senders, train.receivers, train.edge_mask, n)
-        lay = fused_mp.edge_layout(*tables)
-        lay_t = fused_mp.edge_layout(tables[1], tables[0], tables[2], n)
+        lays = [fused_mp.edge_layout(*tables),
+                fused_mp.edge_layout(tables[1], tables[0], tables[2], n)]
+        if "edge_pos" in inspect.signature(fused_mp.pna_edge_bwd).parameters:
+            lays.append(fused_mp.edge_positions(*lays))
         pi, pj = randn(n, dtype), randn(n, dtype)
-        acc = fused_mp.pna_edge_accumulators(pi, pj, *tables, lay)
+        acc = fused_mp.pna_edge_accumulators(pi, pj, *tables, lays[0])
         grads = [randn(n, dtype) for _ in range(4)]
         times[f"edge_backward.loader.{tag}"] = cs.device_ms(
             torch, "pna_edge_bwd",
-            lambda *a: fused_mp.pna_edge_bwd(*a, lay, lay_t),
+            lambda *a: fused_mp.pna_edge_bwd(*a, *lays),
             (pi, pj, *tables, acc[3], acc[4], *grads), 0.0)
     print(json.dumps({"root": os.getcwd(), "card": cs.card_line(),
                       "times": times}), flush=True)
@@ -140,7 +160,8 @@ def main() -> int:
             runs[which].append(rec["times"])
     summary = {}
     for name in runs["new"][0]:
-        old = float(np.median([r[name] for r in runs["old"]]))
+        ref = name if name in runs["old"][0] else name.rsplit(".", 1)[0]
+        old = float(np.median([r[ref] for r in runs["old"]]))
         new = float(np.median([r[name] for r in runs["new"]]))
         summary[name] = dict(old_ms=old, new_ms=new, ratio=new / old)
     print(json.dumps({"summary": summary}), flush=True)

@@ -16,7 +16,9 @@ Phases:
    rtol 2e-5 / atol 2e-5 (the two versions add in different orders).
    Time kernel, plain version and, where one PyTorch call computes the
    same function, that call (`index_add` for the segment sum): call
-   time with CUDA events, device time from 20 calls in one CUDA graph.
+   time with CUDA events, device time from 20 calls in one CUDA graph
+   (with the edge-list forward's launch geometry and its multiple of
+   the bound; phase 7a prints the same at bf16).
    segment_sum is recorded at every shape the main paths give it (here
    the PNA pooling bucket and the loader's padding segment; phase 4 adds
    the EF shapes), each with its bound and `index_add`'s device time.
@@ -58,8 +60,9 @@ Phases:
    against autograd through the plain forwards; with the device times
    (20 calls in one CUDA graph) of the kernel, the torch-op VJP and plain
    autograd's backward beside the byte bound, each pass's device time
-   from a profile of the graph's replays, by kernel name, and the
-   launches of one call of each; the dense forward at the same batch,
+   from a profile of the graph's replays, by kernel name, the bytes of
+   the dh buffer pass 1 writes and pass 2 streams, and the launches of
+   one call of each; the dense forward at the same batch,
    float32 and bf16, bitwise against its plain version, with its device
    time beside its byte bound. Then the first step: loss
    card vs CPU within rtol 1e-4 / atol 1e-5, each gradient tensor through
@@ -194,7 +197,8 @@ def ptxas_report(log: str):
             args = ", ".join(
                 ["float" if rest[size:].startswith("If") else "bf16"
                  if rest[size:].startswith("I13__nv_bfloat16") else "?"]
-                + re.findall(r"Li(\d+)E", rest[size:]))
+                + [v if t == "i" else ("true" if v == "1" else "false")
+                   for t, v in re.findall(r"L([ib])(\d+)E", rest[size:])])
             kernel = f"{rest[:size]}<{args}>"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -319,6 +323,12 @@ def compare(torch, name, got, want, exact):
     return err
 
 
+def edge_geometry_name(rows):
+    """The edge-list forward's launch geometry, as `forward_geometry`
+    gives it."""
+    return "flat" if rows == 0 else f"whole-warp rows, {rows} a block"
+
+
 def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
     """Phase 2: every kernel against its plain version on the card, with
     F = the model's hidden width."""
@@ -401,14 +411,17 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
     dev = device_ms(torch, "pna_edge_aggregate",
                     fused_mp.pna_edge_accumulators,
                     (pi, pj, send, recv, em, n, layout), b_ms)
+    rows = fused_mp.forward_geometry(f, 4, torch.float32)
     print(f"pna_edge_aggregate: N={n} E={e} kept_edges={kept} F={f} "
           f"kernel_ms={ms:.4f} (layout given) device_ms(graph)={dev:.4f} "
           f"layout_prep_ms={prep:.4f} "
-          f"plain_ms={plain:.4f} bound_ms={b_ms:.5f}", flush=True)
+          f"plain_ms={plain:.4f} bound_ms={b_ms:.5f} ({dev / b_ms:.2f}x); "
+          f"geometry {edge_geometry_name(rows)}", flush=True)
     records["pna_edge_aggregate"] = dict(max_abs_err=max(errs), ms=ms,
                                          device_ms=dev,
                                          plain_ms=plain, bound_ms=b_ms,
-                                         bound_by=b_by, library_ms=None)
+                                         bound_by=b_by, library_ms=None,
+                                         forward_rows=rows)
 
     # ---- segment_sum: the decoder's mean pooling of the serving bucket
     # (the record's main numbers), the loader's shape, and unsorted ids
@@ -903,9 +916,10 @@ def backward_routes(torch, kind, args):
     send, recv, em, n = tables
     lay = fused_mp.edge_layout(send, recv, em, n)
     lay_t = fused_mp.edge_layout(recv, send, em, n)
+    pos = fused_mp.edge_positions(lay, lay_t)
     acc = fused_mp.pna_edge_accumulators(pi, pj, send, recv, em, n, lay)
     return ((lambda a, b, *g: fused_mp.pna_edge_bwd(
-                a, b, *tables, acc[3], acc[4], *g, lay, lay_t)),
+                a, b, *tables, acc[3], acc[4], *g, lay, lay_t, pos)),
             (lambda a, b, *g: fused_mp.pna_edge_vjp(
                 a, b, *tables, acc[3], acc[4], *g, lay, lay_t)))
 
@@ -1041,6 +1055,9 @@ def check_pna_backwards(torch, batch, device, f):
                 # the edges (2 ids and a mask) and the two layouts read once
                 nbytes += 9 * e + 4 * 2 * (slots + n + 1)
                 flops = 20 * slots * f
+            # the kernel's dh buffer: N K or E rows allocated, the kept
+            # slots' written once and read once
+            dh_rows = n * k if kind == "dense" else e
             b_ms, b_by = bound_ms(nbytes, flops)
             # the first bound, which charged all N rows, for comparison
             all_rows = nbytes + size * 7 * (n - rows_in) * f \
@@ -1055,7 +1072,9 @@ def check_pna_backwards(torch, batch, device, f):
                        launches_per_call=call_launches(torch, kern, vargs),
                        plain_launches_per_call=call_launches(torch, vjp,
                                                              vargs),
-                       passes_ms=passes)
+                       passes_ms=passes,
+                       dh_buffer_bytes=size * dh_rows * f,
+                       dh_written_bytes=size * slots * f)
             if dtype == torch.float32:
                 def make_loss():
                     pi = args[0].clone().requires_grad_(True)
@@ -1073,7 +1092,10 @@ def check_pna_backwards(torch, batch, device, f):
         r32, r16 = timed[torch.float32], timed[torch.bfloat16]
         for label, r in (("", r32), (" bf16", r16)):
             print(f"{name}{label} passes (device ms a launch, profile of the "
-                  f"graph's replays): {fmt_ms(r['passes_ms'])}", flush=True)
+                  f"graph's replays): {fmt_ms(r['passes_ms'])}; dh buffer "
+                  f"{r['dh_buffer_bytes']} B allocated, "
+                  f"{r['dh_written_bytes']} B written and read",
+                  flush=True)
         print(f"{name}: N={n} {width} F={f} real={slots} rows with a slot="
               f"{rows_in} named={named} device_ms(graph): "
               f"kernel={r32['device_ms']:.4f} torch-op VJP="
@@ -1178,7 +1200,8 @@ def plain_versions():
     from hydragnn_tpu_torch.ops import geometry
     from hydragnn_tpu_torch.ops import segment as oseg
 
-    def edge(pi, pj, s_, r_, m_, n, eps=1e-5, layout=None, layout_t=None):
+    def edge(pi, pj, s_, r_, m_, n, eps=1e-5, layout=None, layout_t=None,
+             edge_pos=None):
         return oseg.pna_stats_epilogue(
             *fused_mp.pna_edge_accumulators_plain(pi, pj, s_, r_, m_, n), eps)
 
@@ -1297,15 +1320,15 @@ def history_gaps(card_hist, cpu_hist, keys=("train_loss", "val_loss",
 # the port's launch counters -> the kernels whose launches they count, as
 # a profile names them (segment_sum's row-pointer pass is not counted)
 # the two kernels of a PNA backward call, pass 1 then pass 2
-BACKWARD_PASSES = {"dense": ("nbr_bwd_rows_kernel", "nbr_bwd_cols_kernel"),
-                   "edge": ("edge_bwd_rows_kernel", "bwd_cols_kernel")}
+BACKWARD_PASSES = {"dense": ("nbr_bwd_rows_kernel", "dh_cols_kernel"),
+                   "edge": ("edge_bwd_rows_kernel", "dh_cols_kernel")}
 PROFILED_KERNELS = {
     ("segment_sum",): ("segment_sum_kernel",),
     ("nbr_aggregate",): ("nbr_aggregate_kernel",),
     ("pna_edge_aggregate",): ("pna_edge_kernel",),
     ("filter_scatter", "filter_scatter_backward"): ("filter_scatter_kernel",),
     ("nbr_aggregate_backward", "pna_edge_aggregate_backward"): (
-        BACKWARD_PASSES["dense"] + BACKWARD_PASSES["edge"]),
+        "nbr_bwd_rows_kernel", "edge_bwd_rows_kernel", "dh_cols_kernel"),
 }
 
 
@@ -1591,10 +1614,14 @@ def check_bf16_kernels(torch, dense_batch, edge_batch, lj_batch, device, f,
     dev = device_ms(torch, "pna_edge_aggregate.bf16",
                     fused_mp.pna_edge_accumulators,
                     (pi, pj, send, recv, em, n, layout), b_ms)
+    rows = fused_mp.forward_geometry(f, 4, torch.bfloat16)
     records["pna_edge_aggregate"] = dict(
         N=n, E=e, F=f, ms=ms, device_ms=dev, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, max_ulps=max(u for u, _ in res),
-        max_abs_err=max(e_ for _, e_ in res), dyadic_bitwise=True)
+        max_abs_err=max(e_ for _, e_ in res), dyadic_bitwise=True,
+        forward_rows=rows)
+    print(f"pna_edge_aggregate bf16: {dev / b_ms:.2f}x its bound; geometry "
+          f"{edge_geometry_name(rows)}", flush=True)
 
     # ---- filter_scatter and its dh, the EF engine's largest bucket
     n, e, f = lj_batch.num_nodes, lj_batch.num_edges, f_lj

@@ -40,9 +40,6 @@
 // do; the wrapper hands in eps already rounded to bf16 (ops/scalars.py).
 #include "slots.cuh"
 
-// gathers in flight per thread
-constexpr int kGather = 4;
-
 template <typename T, int VEC>
 __global__ void nbr_aggregate_kernel(
     const T* __restrict__ proj_i, const T* __restrict__ proj_j,
@@ -82,24 +79,9 @@ __global__ void nbr_aggregate_kernel(
   };
   if constexpr (kPacked<T, VEC>) {
     const Pairs pi = ldg_pairs(proj_i + o);
-    Pairs lo2, hi2;
-    lo2.v[0] = lo2.v[1] = __floats2bfloat162_rn(INFINITY, INFINITY);
-    hi2.v[0] = hi2.v[1] = __floats2bfloat162_rn(-INFINITY, -INFINITY);
+    Pairs lo2 = fill_pairs(INFINITY), hi2 = fill_pairs(-INFINITY);
     walk([&](int j) { return ldg_pairs(proj_j + (long long)j * f + c); },
-         [&](const Pairs& pj) {
-#pragma unroll
-           for (int q = 0; q < 2; ++q) {
-             const __nv_bfloat162 h2 = __hadd2_rn(pi.v[q], pj.v[q]);
-             const float2 h = __bfloat1622float2(h2);
-             const float2 hh = __bfloat1622float2(__hmul2_rn(h2, h2));
-             s.v[2 * q] = __fadd_rn(s.v[2 * q], h.x);
-             s.v[2 * q + 1] = __fadd_rn(s.v[2 * q + 1], h.y);
-             sq.v[2 * q] = __fadd_rn(sq.v[2 * q], hh.x);
-             sq.v[2 * q + 1] = __fadd_rn(sq.v[2 * q + 1], hh.y);
-             lo2.v[q] = __hmin2(lo2.v[q], h2);
-             hi2.v[q] = __hmax2(hi2.v[q], h2);
-           }
-         });
+         [&](const Pairs& pj) { add_message_pairs(pi, pj, s, sq, lo2, hi2); });
     lo = to_vec(lo2);
     hi = to_vec(hi2);
   } else {

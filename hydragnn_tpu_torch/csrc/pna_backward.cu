@@ -27,35 +27,35 @@
 // F 200, float32). The torch-op VJP moves more than 2 GB: it materializes
 // about 15 [N, K, F] (or [E, F]) temporaries.
 //
-// Design: two launches, no atomics.
-// * Edge list, pass 1, by row: one thread owns VEC features of row i (the
-//   forward kernels' shape). It walks the row's edges once to count the
-//   ties with mn and mx; forms smin and smax; walks the edges again to sum
-//   dh into dproj_i; and stores the coefficients pass 2 needs ([N, F]
-//   each: smin, smax). Pass 2, by column: one thread owns VEC features of
-//   j and walks j's range of the sender-sorted CSR view, which the
-//   forward built once per batch. It recomputes h, gathers row i's seven
-//   [N, F] rows (proj_i, a, b, mn, mx, smin, smax), mostly L2 hits, and
-//   sums dh in float32 in the layout's order.
-// * Dense layout, pass 1, by row, on the forward's geometry
-//   (slots.cuh: a row owns whole warps, its kept slots compacted into a
-//   list, their proj_j rows staged in shared memory with cp.async, all
-//   of a chunk's gathers in flight at once). Walk 1 reads the staged rows
-//   for s, sq and the ties in the forward kernel's slot order, so the
-//   variance branch is the one the card's forward took; the row's
-//   coefficients follow; walk 2 reads the same staged rows again (a row
-//   longer than one chunk is gathered again, chunk after chunk) and sums
-//   dh into dproj_i, and writes each slot's dh, rounded to T, to the
-//   slot's position in the column-sorted layout (`slot_pos`, built with
-//   the layout once per forward): a buffer of N K rows, whose first
-//   row_ptr[N] (the kept slots) are written. Pass 2, by column, streams
-//   that buffer: dproj_j[j] is the float32 sum of the rows of j's range
-//   in the layout's order, stored once. The values and the order are
-//   those of the first design, which gathered seven [N, F] rows per slot
-//   in pass 2 (about 284 MB of L2 traffic at the loader shape), so the
-//   result is the same bit for bit. The buffer gives up that design's
-//   "no [E, F]-sized temporary": its written rows (40.6 MB at float32 at
-//   the loader shape) move about 81 MB, written once and read once.
+// Design: two launches, no atomics, on both layouts alike.
+// * Pass 1, by row (receiver), on the forward's whole-warp geometry
+//   (slots.cuh: a row owns whole warps; the row's proj_j rows staged in
+//   shared memory with cp.async, all of a chunk's gathers in flight at
+//   once; a row longer than one chunk is gathered again, chunk after
+//   chunk, for walk 2). The dense layout first compacts the row's kept
+//   slots into a list; the edge list's are compact already, the senders
+//   of the receiver-sorted layout's range [row_ptr[i], row_ptr[i + 1]).
+//   Walk 1 reads the staged rows for the ties (and, dense, for s and sq
+//   in the forward kernel's slot order, so the variance branch is the
+//   one the card's forward took); the row's coefficients follow; walk 2
+//   reads the same staged rows again, sums dh into dproj_i, and writes
+//   each slot's dh, rounded to T, to the slot's position in the
+//   column-sorted layout (dense: `slot_pos`; edge list: `edge_pos`, the
+//   sender-sorted position of each receiver-sorted edge; both built with
+//   the layouts once per forward). The edge list's row loads its seven
+//   [F] coefficient rows while its gathers fly.
+// * Pass 2, by column, streams that buffer (dh_cols_kernel): dproj_j[j]
+//   is the float32 sum of the rows of j's range of the column-sorted
+//   layout, in the layout's order, stored once.
+// The buffer has N K (dense) or E (edge list) rows, of which the kept
+// slots' are written, each once, and read once: its size is known
+// without reading the mask. The values and the order are those of the
+// first design, which gathered seven [N, F] rows per slot in pass
+// 2 (proj_i, a, b, mn, mx, smin, smax: about 284 MB of L2 traffic at the
+// dense loader shape) and, on the edge list, stored smin and smax for it;
+// so the result is the same bit for bit. The buffer gives up that
+// design's "no [E, F]-sized temporary": its written rows (40.6 MB at
+// float32 at the dense loader shape) move about 81 MB.
 // Every sum is taken in a fixed order: two runs give the same bits. The
 // launches allocate nothing and read no size from the device, so they
 // can be captured into a CUDA graph.
@@ -69,9 +69,9 @@
 // bf16 tensor is a rnd<T> here, in its order (so ds subtracts dvar mean
 // twice); counts and ties are counted in float32 and rounded to T where
 // the VJP casts them; the sums over slots accumulate in float32 and are
-// stored once. The dense pass 1 at VEC 4 recomputes h, h^2 and each
-// slot's dh on bf16 pairs (slots.cuh: packed add.rn / mul.rn, the same
-// bits), and writes dh without a conversion.
+// stored once. Pass 1 at VEC 4 recomputes h, h^2 and each slot's dh on
+// bf16 pairs (slots.cuh: packed add.rn / mul.rn, the same bits), and
+// writes dh without a conversion.
 #include <type_traits>
 
 #include "slots.cuh"
@@ -92,6 +92,141 @@ __device__ __forceinline__ float slot_grad(float h, float a, float b,
 template <typename T>
 __device__ __forceinline__ float share(float g, float ties) {
   return rnd<T>(__fdiv_rn(g, rnd<T>(fmaxf(ties, 1.f))));
+}
+
+
+// ------------------------------------------------ pass 1, both layouts --
+// a thread's features of one [N, F] row: floats, or bf16 pairs at VEC 4
+template <typename T, int VEC>
+using Row = std::conditional_t<kPacked<T, VEC>, Pairs, Vec<VEC>>;
+
+template <typename T, int VEC>
+__device__ __forceinline__ Row<T, VEC> load_row(const T* p) {
+  if constexpr (kPacked<T, VEC>) {
+    return ldg_pairs(p);
+  } else {
+    return load_vec<VEC>(p);
+  }
+}
+
+// h of one staged slot: pi plus the staged proj_j features, rounded to T
+// (on bf16 pairs by one packed add)
+template <typename T, int VEC>
+__device__ __forceinline__ Row<T, VEC> message(const Row<T, VEC>& pi,
+                                               const T* staged) {
+  if constexpr (kPacked<T, VEC>) {
+    Pairs h = lds_pairs(staged);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) h.v[q] = __hadd2_rn(pi.v[q], h.v[q]);
+    return h;
+  } else {
+    Vec<VEC> h = lds_vec<VEC>(staged);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) h.v[i] = rnd<T>(__fadd_rn(pi.v[i], h.v[i]));
+    return h;
+  }
+}
+
+// Walk 1 over a row's cnt slots (the proj_j rows ids[0, cnt)), staged a
+// chunk at a time: the ties with lo and hi and, with kSums, the sums s
+// and sq in slot order (the forward kernels' order)
+template <typename T, int VEC, bool kSums>
+__device__ __forceinline__ void walk_stats(
+    T* stage, const T* __restrict__ proj_j, const int* ids, int cnt,
+    int chunk, int f, int c, const Row<T, VEC>& pi, const Vec<VEC>& lo,
+    const Vec<VEC>& hi, Vec<VEC>& s, Vec<VEC>& sq, Vec<VEC>& tlo,
+    Vec<VEC>& thi) {
+  for (int beg = 0; beg < cnt; beg += chunk) {
+    const int num = min(chunk, cnt - beg);
+    stage_rows<T, VEC>(stage, proj_j, ids + beg, num, f, c);
+    for (int u = 0; u < num; ++u) {
+      const Row<T, VEC> m = message<T, VEC>(pi, stage + (size_t)u * f + c);
+      Vec<VEC> h, hh;
+      if constexpr (kPacked<T, VEC>) {
+        h = to_vec(m);
+        if constexpr (kSums) {
+          Pairs sq2;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) sq2.v[q] = __hmul2_rn(m.v[q], m.v[q]);
+          hh = to_vec(sq2);
+        }
+      } else {
+        h = m;
+        if constexpr (kSums) {
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            hh.v[i] = rnd<T>(__fmul_rn(h.v[i], h.v[i]));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        if constexpr (kSums) {
+          s.v[i] = __fadd_rn(s.v[i], h.v[i]);
+          sq.v[i] = __fadd_rn(sq.v[i], hh.v[i]);
+        }
+        if (h.v[i] == lo.v[i]) tlo.v[i] = __fadd_rn(tlo.v[i], 1.f);
+        if (h.v[i] == hi.v[i]) thi.v[i] = __fadd_rn(thi.v[i], 1.f);
+      }
+    }
+  }
+}
+
+// Walk 2 over the same slots: each slot's dh from the row's coefficients
+// (a, b, the extrema and their shares), summed into the returned float32
+// dproj_i in slot order and stored, rounded to T, at row at[u] of dh
+// where at[u] < limit. A row of one chunk finds it still staged.
+template <typename T, int VEC>
+__device__ __forceinline__ Vec<VEC> walk_grads(
+    T* stage, const T* __restrict__ proj_j, const int* ids, const int* at,
+    int cnt, int chunk, int f, int c, const Row<T, VEC>& pi,
+    const Vec<VEC>& a, const Vec<VEC>& b, const Vec<VEC>& lo,
+    const Vec<VEC>& smin, const Vec<VEC>& hi, const Vec<VEC>& smax,
+    T* __restrict__ dh, unsigned limit) {
+  Vec<VEC> acc = fill_vec<VEC>(0.f);
+  Row<T, VEC> a2, b2, lo2, hi2, s0, s1;  // the coefficients as pairs
+  if constexpr (kPacked<T, VEC>) {
+    a2 = to_pairs(a);
+    b2 = to_pairs(b);
+    lo2 = to_pairs(lo);
+    hi2 = to_pairs(hi);
+    s0 = to_pairs(smin);
+    s1 = to_pairs(smax);
+  }
+  for (int beg = 0; beg < cnt; beg += chunk) {
+    const int num = min(chunk, cnt - beg);
+    if (cnt > chunk) stage_rows<T, VEC>(stage, proj_j, ids + beg, num, f, c);
+    for (int u = 0; u < num; ++u) {
+      const Row<T, VEC> m = message<T, VEC>(pi, stage + (size_t)u * f + c);
+      const int p = at[beg + u];
+      T* out = dh + (long long)p * f + c;
+      if constexpr (kPacked<T, VEC>) {
+        // slot_grad on pairs: the same roundings, two features each
+        Pairs d;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const __nv_bfloat162 hb = __hmul2_rn(m.v[q], b2.v[q]);
+          __nv_bfloat162 x = __hadd2_rn(a2.v[q], __hadd2_rn(hb, hb));
+          x = blend(__heq2_mask(m.v[q], lo2.v[q]), __hadd2_rn(x, s0.v[q]), x);
+          x = blend(__heq2_mask(m.v[q], hi2.v[q]), __hadd2_rn(x, s1.v[q]), x);
+          d.v[q] = x;
+        }
+        const Vec<VEC> df = to_vec(d);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc.v[i] = __fadd_rn(acc.v[i], df.v[i]);
+        if ((unsigned)p < limit) st_pairs(out, d);
+      } else {
+        Vec<VEC> d;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          d.v[i] = slot_grad<T>(m.v[i], a.v[i], b.v[i], lo.v[i], smin.v[i],
+                                hi.v[i], smax.v[i]);
+          acc.v[i] = __fadd_rn(acc.v[i], d.v[i]);
+        }
+        if ((unsigned)p < limit) store_vec<VEC>(out, d);
+      }
+    }
+  }
+  return acc;
 }
 
 // ---------------------------------------------------------------- dense --
@@ -131,57 +266,13 @@ __global__ void nbr_bwd_rows_kernel(
   }
   const Vec<VEC> lo = load_vec<VEC>(mn + o);
   const Vec<VEC> hi = load_vec<VEC>(mx + o);
-  // h of one staged slot: floats, or bf16 pairs (rounded by one packed add)
-  using Slot = std::conditional_t<kPacked<T, VEC>, Pairs, Vec<VEC>>;
-  Slot pi;
-  if constexpr (kPacked<T, VEC>) {
-    pi = ldg_pairs(proj_i + o);
-  } else {
-    pi = load_vec<VEC>(proj_i + o);
-  }
-  auto message = [&](int u) {
-    if constexpr (kPacked<T, VEC>) {
-      Slot h = lds_pairs(stage + (size_t)u * f + c);
-#pragma unroll
-      for (int q = 0; q < 2; ++q) h.v[q] = __hadd2_rn(pi.v[q], h.v[q]);
-      return h;
-    } else {
-      Slot h = lds_vec<VEC>(stage + (size_t)u * f + c);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) h.v[i] = rnd<T>(__fadd_rn(pi.v[i], h.v[i]));
-      return h;
-    }
-  };
+  const Row<T, VEC> pi = load_row<T, VEC>(proj_i + o);
 
   // walk 1: the sums in the forward kernel's slot order, and the ties
   Vec<VEC> s = fill_vec<VEC>(0.f), sq = fill_vec<VEC>(0.f);
   Vec<VEC> tlo = fill_vec<VEC>(0.f), thi = fill_vec<VEC>(0.f);
-  for (int beg = 0; beg < cnt; beg += chunk) {
-    const int num = min(chunk, cnt - beg);
-    stage_rows<T, VEC>(stage, proj_j, ids + beg, num, f, c);
-    for (int u = 0; u < num; ++u) {
-      const Slot m = message(u);
-      Vec<VEC> h, hh;
-      if constexpr (kPacked<T, VEC>) {
-        Slot sq2;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) sq2.v[q] = __hmul2_rn(m.v[q], m.v[q]);
-        h = to_vec(m);
-        hh = to_vec(sq2);
-      } else {
-        h = m;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) hh.v[i] = rnd<T>(__fmul_rn(h.v[i], h.v[i]));
-      }
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        s.v[i] = __fadd_rn(s.v[i], h.v[i]);
-        sq.v[i] = __fadd_rn(sq.v[i], hh.v[i]);
-        if (h.v[i] == lo.v[i]) tlo.v[i] = __fadd_rn(tlo.v[i], 1.f);
-        if (h.v[i] == hi.v[i]) thi.v[i] = __fadd_rn(thi.v[i], 1.f);
-      }
-    }
-  }
+  walk_stats<T, VEC, true>(stage, proj_j, ids, cnt, chunk, f, c, pi, lo, hi,
+                           s, sq, tlo, thi);
 
   // the row's coefficients, in the torch-op VJP's op order
   const float cs = rnd<T>((float)cnt);  // cnt >= 1: max(count, 1) = count
@@ -208,61 +299,74 @@ __global__ void nbr_bwd_rows_kernel(
   }
 
   // walk 2: dproj_i, and each slot's dh to its place in the column layout
-  const unsigned n_slots = (unsigned)n * (unsigned)k;
-  Vec<VEC> acc = fill_vec<VEC>(0.f);
-  Slot a2, b2, lo2, hi2, s0, s1;  // the coefficients as pairs
-  if constexpr (kPacked<T, VEC>) {
-    a2 = to_pairs(ds);
-    b2 = to_pairs(dsq);
-    lo2 = to_pairs(lo);
-    hi2 = to_pairs(hi);
-    s0 = to_pairs(smin);
-    s1 = to_pairs(smax);
-  }
-  for (int beg = 0; beg < cnt; beg += chunk) {
-    const int num = min(chunk, cnt - beg);
-    if (cnt > chunk) stage_rows<T, VEC>(stage, proj_j, ids + beg, num, f, c);
-    for (int u = 0; u < num; ++u) {
-      const Slot m = message(u);
-      const int p = at[beg + u];
-      T* out = dh + (long long)p * f + c;
-      if constexpr (kPacked<T, VEC>) {
-        // slot_grad on pairs: the same roundings, two features each
-        Slot d;
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const __nv_bfloat162 hb = __hmul2_rn(m.v[q], b2.v[q]);
-          __nv_bfloat162 x = __hadd2_rn(a2.v[q], __hadd2_rn(hb, hb));
-          x = blend(__heq2_mask(m.v[q], lo2.v[q]), __hadd2_rn(x, s0.v[q]), x);
-          x = blend(__heq2_mask(m.v[q], hi2.v[q]), __hadd2_rn(x, s1.v[q]), x);
-          d.v[q] = x;
-        }
-        const Vec<VEC> df = to_vec(d);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc.v[i] = __fadd_rn(acc.v[i], df.v[i]);
-        if ((unsigned)p < n_slots) st_pairs(out, d);
-      } else {
-        Vec<VEC> d;
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          d.v[i] = slot_grad<T>(m.v[i], ds.v[i], dsq.v[i], lo.v[i], smin.v[i],
-                                hi.v[i], smax.v[i]);
-          acc.v[i] = __fadd_rn(acc.v[i], d.v[i]);
-        }
-        if ((unsigned)p < n_slots) store_vec<VEC>(out, d);
-      }
-    }
-  }
+  const Vec<VEC> acc = walk_grads<T, VEC>(
+      stage, proj_j, ids, at, cnt, chunk, f, c, pi, ds, dsq, lo, smin, hi,
+      smax, dh, (unsigned)n * (unsigned)k);
   store_vec<VEC>(d_i + o, acc);
 }
 
+// ------------------------------------------------------------ edge list --
+// Receiver `row`'s kept edges are [row_ptr[row], row_ptr[row + 1]) of the
+// receiver-sorted layout: senders send_sorted[.], and edge_pos[.] their
+// rows of dh (the edges' positions in the sender-sorted layout).
+template <typename T, int VEC>
+__global__ void edge_bwd_rows_kernel(
+    const T* __restrict__ proj_i, const T* __restrict__ proj_j,
+    const int32_t* __restrict__ send_sorted,
+    const int32_t* __restrict__ row_ptr,
+    const int32_t* __restrict__ edge_pos, const T* __restrict__ mn,
+    const T* __restrict__ mx, const T* __restrict__ g_s,
+    const T* __restrict__ g_sq, const T* __restrict__ g_min,
+    const T* __restrict__ g_max, int n, int e, int f, int chunk,
+    T* __restrict__ dh, T* __restrict__ d_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int row = blockIdx.x * blockDim.y + threadIdx.y;
+  const int c = threadIdx.x * VEC;
+  if (row >= n || c >= f) return;
+  const int beg = row_ptr[row];
+  const int cnt = row_ptr[row + 1] - beg;
+  const long long o = (long long)row * f + c;
+  if (cnt == 0) {
+    store_vec<VEC>(d_i + o, fill_vec<VEC>(0.f));
+    return;
+  }
+  // the row's seven inputs, loaded while walk 1's gathers fly
+  const Row<T, VEC> pi = load_row<T, VEC>(proj_i + o);
+  const Vec<VEC> lo = load_vec<VEC>(mn + o);
+  const Vec<VEC> hi = load_vec<VEC>(mx + o);
+  const Vec<VEC> a = load_vec<VEC>(g_s + o);
+  const Vec<VEC> b = load_vec<VEC>(g_sq + o);
+  const Vec<VEC> gmin = load_vec<VEC>(g_min + o);
+  const Vec<VEC> gmax = load_vec<VEC>(g_max + o);
+  T* stage = reinterpret_cast<T*>(smem) + (size_t)threadIdx.y * chunk * f;
+  const int* ids = send_sorted + beg;
+
+  // walk 1: the ties
+  Vec<VEC> unused, tlo = fill_vec<VEC>(0.f), thi = fill_vec<VEC>(0.f);
+  walk_stats<T, VEC, false>(stage, proj_j, ids, cnt, chunk, f, c, pi, lo,
+                            hi, unused, unused, tlo, thi);
+  Vec<VEC> smin, smax;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    smin.v[i] = share<T>(gmin.v[i], tlo.v[i]);
+    smax.v[i] = share<T>(gmax.v[i], thi.v[i]);
+  }
+
+  // walk 2: dproj_i, and each edge's dh to its sender-sorted row
+  const Vec<VEC> acc =
+      walk_grads<T, VEC>(stage, proj_j, ids, edge_pos + beg, cnt, chunk, f,
+                         c, pi, a, b, lo, smin, hi, smax, dh, (unsigned)e);
+  store_vec<VEC>(d_i + o, acc);
+}
+
+// ----------------------------------------------------- pass 2, both --
 // dproj_j[col] = the float32 sum, in order, of the dh rows of col's range
 // [col_ptr[col], col_ptr[col + 1]) of the column-sorted layout, 8 rows'
 // loads issued before their adds
 template <typename T, int VEC>
-__global__ void nbr_bwd_cols_kernel(const T* __restrict__ dh,
-                                    const int32_t* __restrict__ col_ptr,
-                                    int n, int f, T* __restrict__ d_j) {
+__global__ void dh_cols_kernel(const T* __restrict__ dh,
+                               const int32_t* __restrict__ col_ptr, int n,
+                               int f, T* __restrict__ d_j) {
   const int fv = f / VEC;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)n * fv) return;
@@ -289,126 +393,24 @@ __global__ void nbr_bwd_cols_kernel(const T* __restrict__ dh,
   store_vec<VEC>(d_j + (long long)col * f + c, acc);
 }
 
-// ------------------------------------------------------------ edge list --
-template <typename T, int VEC>
-__global__ void edge_bwd_rows_kernel(
-    const T* __restrict__ proj_i, const T* __restrict__ proj_j,
-    const int32_t* __restrict__ send_sorted,
-    const int32_t* __restrict__ row_ptr, const T* __restrict__ mn,
-    const T* __restrict__ mx, const T* __restrict__ g_s,
-    const T* __restrict__ g_sq, const T* __restrict__ g_min,
-    const T* __restrict__ g_max, int n, int f, T* __restrict__ smin_out,
-    T* __restrict__ smax_out, T* __restrict__ d_i) {
-  const int fv = f / VEC;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n * fv) return;
-  const int row = (int)(t / fv);
-  const int c = (int)(t % fv) * VEC;
-  const int beg = row_ptr[row];
-  const int end = row_ptr[row + 1];
-  const long long o = (long long)row * f + c;
-  const Vec<VEC> pi = load_vec<VEC>(proj_i + o);
-  const Vec<VEC> lo = load_vec<VEC>(mn + o);
-  const Vec<VEC> hi = load_vec<VEC>(mx + o);
-
-  // walk 1: the ties
-  Vec<VEC> tlo = fill_vec<VEC>(0.f), thi = fill_vec<VEC>(0.f);
-#pragma unroll 4
-  for (int e = beg; e < end; ++e) {
-    const Vec<VEC> pj =
-        load_vec<VEC>(proj_j + (long long)send_sorted[e] * f + c);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
-      if (h == lo.v[i]) tlo.v[i] = __fadd_rn(tlo.v[i], 1.f);
-      if (h == hi.v[i]) thi.v[i] = __fadd_rn(thi.v[i], 1.f);
-    }
-  }
-  const Vec<VEC> gmin = load_vec<VEC>(g_min + o);
-  const Vec<VEC> gmax = load_vec<VEC>(g_max + o);
-  Vec<VEC> smin, smax;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    smin.v[i] = share<T>(gmin.v[i], tlo.v[i]);
-    smax.v[i] = share<T>(gmax.v[i], thi.v[i]);
-  }
-
-  // walk 2: dproj_i
-  const Vec<VEC> a = load_vec<VEC>(g_s + o);
-  const Vec<VEC> b = load_vec<VEC>(g_sq + o);
-  Vec<VEC> acc = fill_vec<VEC>(0.f);
-#pragma unroll 4
-  for (int e = beg; e < end; ++e) {
-    const Vec<VEC> pj =
-        load_vec<VEC>(proj_j + (long long)send_sorted[e] * f + c);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
-      acc.v[i] = __fadd_rn(acc.v[i],
-                           slot_grad<T>(h, a.v[i], b.v[i], lo.v[i], smin.v[i],
-                                        hi.v[i], smax.v[i]));
-    }
-  }
-  store_vec<VEC>(d_i + o, acc);
-  store_vec<VEC>(smin_out + o, smin);
-  store_vec<VEC>(smax_out + o, smax);
-}
-
-// ---------------------------------------------------- edge list, pass 2 --
-// dproj_j[j] = sum of dh over j's range of the column-sorted CSR view:
-// entry e names row i = ids[e] / div (the edge list's receivers in sender
-// order, div = 1).
-template <typename T, int VEC>
-__global__ void bwd_cols_kernel(
-    const T* __restrict__ proj_i, const T* __restrict__ proj_j,
-    const T* __restrict__ a, const T* __restrict__ b,
-    const T* __restrict__ mn, const T* __restrict__ mx,
-    const T* __restrict__ smin, const T* __restrict__ smax,
-    const int32_t* __restrict__ col_ptr, const int32_t* __restrict__ ids,
-    int div, int n, int f, T* __restrict__ d_j) {
-  const int fv = f / VEC;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n * fv) return;
-  const int col = (int)(t / fv);
-  const int c = (int)(t % fv) * VEC;
-  const int beg = col_ptr[col];
-  const int end = col_ptr[col + 1];
-  const Vec<VEC> pj = load_vec<VEC>(proj_j + (long long)col * f + c);
-  Vec<VEC> acc = fill_vec<VEC>(0.f);
-#pragma unroll 2
-  for (int e = beg; e < end; ++e) {
-    const long long o = (long long)(ids[e] / div) * f + c;
-    const Vec<VEC> pi = load_vec<VEC>(proj_i + o);
-    const Vec<VEC> va = load_vec<VEC>(a + o);
-    const Vec<VEC> vb = load_vec<VEC>(b + o);
-    const Vec<VEC> lo = load_vec<VEC>(mn + o);
-    const Vec<VEC> hi = load_vec<VEC>(mx + o);
-    const Vec<VEC> s0 = load_vec<VEC>(smin + o);
-    const Vec<VEC> s1 = load_vec<VEC>(smax + o);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      const float h = rnd<T>(__fadd_rn(pi.v[i], pj.v[i]));
-      acc.v[i] = __fadd_rn(acc.v[i], slot_grad<T>(h, va.v[i], vb.v[i], lo.v[i],
-                                                   s0.v[i], hi.v[i], s1.v[i]));
-    }
-  }
-  store_vec<VEC>(d_j + (long long)col * f + c, acc);
-}
-
-template <typename T>
-static int launch_cols(const T* proj_i, const T* proj_j, const T* a,
-                       const T* b, const T* mn, const T* mx, const T* smin,
-                       const T* smax, const int32_t* col_ptr,
-                       const int32_t* ids, int div, int n, int f, int vec,
-                       T* d_j, cudaStream_t st) {
-  const unsigned blocks = row_blocks(n, f, vec);
-  if (vec == 4) {
-    bwd_cols_kernel<T, 4><<<blocks, kRowThreads, 0, st>>>(
-        proj_i, proj_j, a, b, mn, mx, smin, smax, col_ptr, ids, div, n, f, d_j);
-  } else {
-    bwd_cols_kernel<T, 1><<<blocks, kRowThreads, 0, st>>>(
-        proj_i, proj_j, a, b, mn, mx, smin, smax, col_ptr, ids, div, n, f, d_j);
-  }
+// -------------------------------------------------------------- launches --
+// pass 1 (Kernel on whole-warp rows, after the shared-memory opt-in),
+// then pass 2 over dh on the column layout
+template <typename T, int VEC, auto Kernel, typename... Args>
+static int launch_passes(int n, int f, int rows, int chunk, size_t smem,
+                         const T* dh, const int32_t* col_ptr, T* d_j,
+                         cudaStream_t st, Args... args) {
+  dim3 grid, block;
+  cudaError_t err = chunk < 1 ? cudaErrorInvalidValue
+                              : row_launch(n, f, VEC, rows, smem, &grid,
+                                           &block);
+  if (err == cudaSuccess) err = allow_dynamic_smem<Kernel>();
+  if (err != cudaSuccess) return (int)err;
+  Kernel<<<grid, block, smem, st>>>(args...);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dh_cols_kernel<T, VEC><<<row_blocks(n, f, VEC), kRowThreads, 0, st>>>(
+      dh, col_ptr, n, f, d_j);
   return (int)cudaGetLastError();
 }
 
@@ -421,21 +423,25 @@ static int launch_nbr_vec(const T* proj_i, const T* proj_j,
                           int n, int k, int f, int rows, int chunk,
                           size_t smem, float eps, T* dh, T* d_i, T* d_j,
                           cudaStream_t st) {
-  dim3 grid, block;
-  cudaError_t err = chunk < 1 ? cudaErrorInvalidValue
-                              : row_launch(n, f, VEC, rows, smem, &grid,
-                                           &block);
-  if (err == cudaSuccess)
-    err = allow_dynamic_smem<&nbr_bwd_rows_kernel<T, VEC>>();
-  if (err != cudaSuccess) return (int)err;
-  nbr_bwd_rows_kernel<T, VEC><<<grid, block, smem, st>>>(
-      proj_i, proj_j, nbr, mask, slot_pos, mn, mx, g_mean, g_min, g_max,
-      g_std, n, k, f, chunk, eps, dh, d_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  nbr_bwd_cols_kernel<T, VEC><<<row_blocks(n, f, VEC), kRowThreads, 0, st>>>(
-      dh, col_ptr, n, f, d_j);
-  return (int)cudaGetLastError();
+  return launch_passes<T, VEC, &nbr_bwd_rows_kernel<T, VEC>>(
+      n, f, rows, chunk, smem, dh, col_ptr, d_j, st, proj_i, proj_j, nbr,
+      mask, slot_pos, mn, mx, g_mean, g_min, g_max, g_std, n, k, f, chunk,
+      eps, dh, d_i);
+}
+
+template <typename T, int VEC>
+static int launch_edge_vec(const T* proj_i, const T* proj_j, const T* mn,
+                           const T* mx, const T* g_s, const T* g_sq,
+                           const T* g_min, const T* g_max,
+                           const int32_t* row_ptr, const int32_t* send_sorted,
+                           const int32_t* edge_pos, const int32_t* col_ptr,
+                           int n, int e, int f, int rows, int chunk,
+                           size_t smem, T* dh, T* d_i, T* d_j,
+                           cudaStream_t st) {
+  return launch_passes<T, VEC, &edge_bwd_rows_kernel<T, VEC>>(
+      n, f, rows, chunk, smem, dh, col_ptr, d_j, st, proj_i, proj_j,
+      send_sorted, row_ptr, edge_pos, mn, mx, g_s, g_sq, g_min, g_max, n, e,
+      f, chunk, dh, d_i);
 }
 
 template <typename T>
@@ -463,25 +469,19 @@ template <typename T>
 static int launch_edge(const T* proj_i, const T* proj_j, const T* mn,
                        const T* mx, const T* g_s, const T* g_sq,
                        const T* g_min, const T* g_max, const int32_t* row_ptr,
-                       const int32_t* send_sorted, const int32_t* col_ptr,
-                       const int32_t* recv_sorted, int n, int f, int vec,
-                       T* smin, T* smax, T* d_i, T* d_j, void* stream) {
+                       const int32_t* send_sorted, const int32_t* edge_pos,
+                       const int32_t* col_ptr, int n, int e, int f, int vec,
+                       int rows, int chunk, int smem, T* dh, T* d_i, T* d_j,
+                       void* stream) {
   if (n == 0 || f == 0) return (int)cudaSuccess;
-  const unsigned blocks = row_blocks(n, f, vec);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    edge_bwd_rows_kernel<T, 4><<<blocks, kRowThreads, 0, st>>>(
-        proj_i, proj_j, send_sorted, row_ptr, mn, mx, g_s, g_sq, g_min, g_max,
-        n, f, smin, smax, d_i);
-  } else {
-    edge_bwd_rows_kernel<T, 1><<<blocks, kRowThreads, 0, st>>>(
-        proj_i, proj_j, send_sorted, row_ptr, mn, mx, g_s, g_sq, g_min, g_max,
-        n, f, smin, smax, d_i);
-  }
-  const int err = (int)cudaGetLastError();
-  if (err != (int)cudaSuccess) return err;
-  return launch_cols<T>(proj_i, proj_j, g_s, g_sq, mn, mx, smin, smax, col_ptr,
-                        recv_sorted, 1, n, f, vec, d_j, st);
+#define HG_EDGE_BWD_ARGS                                                     \
+  proj_i, proj_j, mn, mx, g_s, g_sq, g_min, g_max, row_ptr, send_sorted,     \
+      edge_pos, col_ptr, n, e, f, rows, chunk, (size_t)smem, dh, d_i, d_j, st
+  if (vec == 4) return launch_edge_vec<T, 4>(HG_EDGE_BWD_ARGS);
+  if (vec == 1) return launch_edge_vec<T, 1>(HG_EDGE_BWD_ARGS);
+#undef HG_EDGE_BWD_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 #define HG_NBR_BWD(SUFFIX, T)                                                 \
@@ -496,16 +496,17 @@ static int launch_edge(const T* proj_i, const T* proj_j, const T* mn,
                          chunk, smem, eps, dh, d_i, d_j, stream);             \
   }
 
-#define HG_EDGE_BWD(SUFFIX, T)                                                 \
-  extern "C" int hg_pna_edge_aggregate_bwd_##SUFFIX(                           \
-      const T* proj_i, const T* proj_j, const T* mn, const T* mx,              \
-      const T* g_s, const T* g_sq, const T* g_min, const T* g_max,             \
-      const int32_t* row_ptr, const int32_t* send_sorted,                      \
-      const int32_t* col_ptr, const int32_t* recv_sorted, int n, int f,        \
-      int vec, T* smin, T* smax, T* d_i, T* d_j, void* stream) {               \
-    return launch_edge<T>(proj_i, proj_j, mn, mx, g_s, g_sq, g_min, g_max,     \
-                          row_ptr, send_sorted, col_ptr, recv_sorted, n, f,    \
-                          vec, smin, smax, d_i, d_j, stream);                  \
+#define HG_EDGE_BWD(SUFFIX, T)                                                \
+  extern "C" int hg_pna_edge_aggregate_bwd_##SUFFIX(                          \
+      const T* proj_i, const T* proj_j, const T* mn, const T* mx,             \
+      const T* g_s, const T* g_sq, const T* g_min, const T* g_max,            \
+      const int32_t* row_ptr, const int32_t* send_sorted,                     \
+      const int32_t* edge_pos, const int32_t* col_ptr, int n, int e, int f,   \
+      int vec, int rows, int chunk, int smem, T* dh, T* d_i, T* d_j,          \
+      void* stream) {                                                         \
+    return launch_edge<T>(proj_i, proj_j, mn, mx, g_s, g_sq, g_min, g_max,    \
+                          row_ptr, send_sorted, edge_pos, col_ptr, n, e, f,   \
+                          vec, rows, chunk, smem, dh, d_i, d_j, stream);      \
   }
 
 HG_NBR_BWD(f32, float)

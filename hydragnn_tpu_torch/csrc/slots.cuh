@@ -1,20 +1,25 @@
-// Shared pieces of the two dense-layout PNA kernels: the forward
-// (nbr_aggregate.cu) and the dense backward's pass 1 (pna_backward.cu).
+// Shared pieces of the PNA kernels: the dense-layout forward
+// (nbr_aggregate.cu), the edge-list forward (pna_edge_aggregate.cu) and
+// both backwards' pass 1 (pna_backward.cu).
 //
-// Geometry. A row of the [N, K] neighbour table owns whole warps: its
-// threads are threadIdx.x in [0, tpr) with tpr = ceil(F / VEC) rounded up
-// to 32, so no warp straddles two rows with different slot counts
-// (blockDim = (tpr, rows per block)); the lanes past F / VEC only help to
-// compact the slot list. The wrapper (kernels/nbr.py::row_geometry) picks
-// the rows per block, the backward's chunk and the dynamic shared memory:
-// the backward's staging area [rows][chunk][F] of T (rounded up to 16
-// bytes), then the rows' slot lists [rows][K] of int (the backward's
-// [rows][2 K]: neighbour ids, then the slots' layout positions).
+// Geometry. A row (a node of the [N, K] neighbour table, or a receiver of
+// the edge list) owns whole warps: its threads are threadIdx.x in [0,
+// tpr) with tpr = ceil(F / VEC) rounded up to 32, so no warp straddles two
+// rows with different slot counts (blockDim = (tpr, rows per block)); in
+// the dense kernels the lanes past F / VEC only help to compact the slot
+// list. The wrappers (kernels/nbr.py::row_geometry) pick the rows per
+// block, the backward's chunk and the dynamic shared memory: the
+// backward's staging area [rows][chunk][F] of T (rounded up to 16 bytes),
+// then, on the dense layout, the rows' slot lists [rows][K] of int (the
+// backward's [rows][2 K]: neighbour ids, then the slots' layout
+// positions). The edge list needs no list: a receiver's senders lie
+// compact in the receiver-sorted layout already.
 //
-// Compaction. The row's first warp reads the row's K (index, mask) pairs,
-// 32 at a time, and writes the kept slots (mask set, index in [0, N)) to
-// the list in slot order with a ballot and a popcount: the walks then
-// loop over the kept slots only, without a branch per slot.
+// Compaction (dense layout). The row's first warp reads the row's K
+// (index, mask) pairs, 32 at a time, and writes the kept slots (mask set,
+// index in [0, N)) to the list in slot order with a ballot and a
+// popcount: the walks then loop over the kept slots only, without a
+// branch per slot.
 //
 // bf16 arithmetic on pairs. At VEC 4 a bf16 thread keeps its features as
 // two __nv_bfloat162 pairs and rounds with Hopper's packed bf16
@@ -37,6 +42,8 @@
 // wrapper keeps its requests 1 KB below it, room for the static arrays
 constexpr int kMaxDynamicSmem = 232448;
 constexpr int kMaxRowsPerBlock = 32;  // 1,024 threads / a warp per row
+// gathers a forward kernel keeps in flight per thread
+constexpr int kGather = 4;
 
 // VEC values of T read back from shared memory
 template <int VEC>
@@ -112,6 +119,34 @@ __device__ __forceinline__ __nv_bfloat162 blend(unsigned mask,
   const unsigned r = (mask & *reinterpret_cast<const unsigned*>(&x)) |
                      (~mask & *reinterpret_cast<const unsigned*>(&y));
   return *reinterpret_cast<const __nv_bfloat162*>(&r);
+}
+
+// One message of the forward kernels on bf16 pairs: h = pi + pj rounded
+// once, added to the float32 sums s and sq (h^2 rounded once) in order,
+// and folded into the packed minimum and maximum (exact)
+__device__ __forceinline__ void add_message_pairs(const Pairs& pi,
+                                                  const Pairs& pj, Vec<4>& s,
+                                                  Vec<4>& sq, Pairs& lo,
+                                                  Pairs& hi) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const __nv_bfloat162 h2 = __hadd2_rn(pi.v[q], pj.v[q]);
+    const float2 h = __bfloat1622float2(h2);
+    const float2 hh = __bfloat1622float2(__hmul2_rn(h2, h2));
+    s.v[2 * q] = __fadd_rn(s.v[2 * q], h.x);
+    s.v[2 * q + 1] = __fadd_rn(s.v[2 * q + 1], h.y);
+    sq.v[2 * q] = __fadd_rn(sq.v[2 * q], hh.x);
+    sq.v[2 * q + 1] = __fadd_rn(sq.v[2 * q + 1], hh.y);
+    lo.v[q] = __hmin2(lo.v[q], h2);
+    hi.v[q] = __hmax2(hi.v[q], h2);
+  }
+}
+
+// pairs of +inf (the packed minimum's start) or -inf
+__device__ __forceinline__ Pairs fill_pairs(float x) {
+  Pairs r;
+  r.v[0] = r.v[1] = __floats2bfloat162_rn(x, x);
+  return r;
 }
 
 // The staging area's size in bytes, rounded up to 16 so that the slot
@@ -203,8 +238,8 @@ static cudaError_t allow_dynamic_smem() {
   return err;
 }
 
-// The launch shape of a dense kernel: (threads per row, rows per block)
-// and the grid; cudaErrorInvalidValue when it cannot launch
+// The launch shape of a kernel on whole-warp rows: (threads per row, rows
+// per block) and the grid; cudaErrorInvalidValue when it cannot launch
 static inline cudaError_t row_launch(int n, int f, int vec, int rows,
                                      size_t smem, dim3* grid, dim3* block) {
   const int tpr = (f / vec + 31) / 32 * 32;

@@ -21,12 +21,15 @@ outputs) and needs no atomics.
 The accumulators run inside `_PnaEdgeAccums`, whose backward is
 `pna_edge_bwd`, the JAX VJP (a remat through the unfused accumulators) in
 closed form: per kept edge dh = g_s[recv] + 2 h g_sq[recv] plus the
-min/max cotangent shared evenly by the tied edges, then dproj_i and
-dproj_j as the sums of dh over the receivers and the senders. For tensors
-on the card it is the CUDA kernel `csrc/pna_backward.cu` (two launches:
-by receiver on the forward's receiver-sorted layout, by sender on a
-sender-sorted one; no atomics, no [E, F] temporary); for CPU tensors its
-plain version `pna_edge_vjp`, in torch ops and segment sums.
+min/max cotangent shared evenly by the tied edges (`edge_grads`), then
+dproj_i and dproj_j as the sums of dh over the receivers and the senders.
+For tensors on the card it is the CUDA kernel `csrc/pna_backward.cu`, two
+launches: by receiver on the forward's receiver-sorted layout, on the
+dense kernels' whole-warp geometry (`row_geometry`), writing each kept
+edge's dh to its row of an [E, F] buffer, its position in the
+sender-sorted layout (`edge_positions`, built once per forward); then by
+sender, a streaming in-order sum of those rows. No atomics; for CPU
+tensors its plain version `pna_edge_vjp`, in torch ops and segment sums.
 
 `filter_scatter` computes out[n] = sum over the kept edges e into n of
 h[send[e]] * w[e]: the CUDA kernel `csrc/filter_scatter.cu` walks the
@@ -60,6 +63,7 @@ from torch.autograd.function import once_differentiable
 
 from ..ops.segment import pna_accumulators, pna_stats_epilogue
 from . import _build
+from .nbr import STAGE_SLOTS, row_geometry
 from .segment import gather_rows, segment_sum, segment_sum_plain, vec_width
 
 launches = 0              # pna_edge_aggregate, either instantiation
@@ -71,6 +75,12 @@ filter_bf16_launches = 0  # of which the bf16 instantiation
 filter_backward_launches = 0  # filter_scatter, the dh of a backward
 filter_backward_bf16_launches = 0  # of which the bf16 instantiation
 
+# the forward kernel's receivers a block on whole-warp rows
+# (csrc/slots.cuh) per dtype; 0: flat blocks of 256 threads over the
+# (receiver, feature group) pairs. On the H100 (PERF.md §6) whole-warp
+# rows read 3-7 % faster than flat at float32, flat 1-2 % faster than
+# whole-warp rows at bf16 (N 4,032 and 8,192, F 200)
+FORWARD_ROWS = {torch.float32: 2, torch.bfloat16: 0}
 
 
 def _kept_edges(senders, receivers, edge_mask, num_nodes):
@@ -95,7 +105,7 @@ def _lib(dtype):
     fn = getattr(_build.load("pna_edge_aggregate"),
                  f"hg_pna_edge_aggregate_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 6)
         fn.restype = ctypes.c_int
     return fn
@@ -125,6 +135,20 @@ def csr_layout(senders, receivers, edge_mask, num_nodes):
             order.to(torch.int32).contiguous())
 
 
+def edge_positions(layout, layout_t):
+    """[E] int32: for the edge at position r of the receiver-sorted
+    `csr_layout` (`layout`), its position in the sender-sorted one
+    (`layout_t`) of the same edges, the row of the backward kernel's dh
+    buffer it fills; -1 past row_ptr[N] (the dropped edges). None when
+    the layouts are (on the CPU). On any device."""
+    if layout is None:
+        return None
+    row_ptr, _, order = layout
+    at = torch.arange(order.shape[0], dtype=torch.int32, device=order.device)
+    where_t = torch.empty_like(at).index_put_((layout_t[2].long(),), at)
+    return torch.where(at < row_ptr[-1], where_t[order.long()], -1)
+
+
 def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
                  mn, mx, g_s, g_sq, g_min, g_max, layout=None, layout_t=None):
     """(dproj_i, dproj_j) of the accumulators (s, sq, cnt, mn, mx) for the
@@ -139,11 +163,6 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
     counted and every segment sum accumulated in float32. The plain
     version of `pna_edge_bwd`'s kernel."""
     n = int(num_nodes)
-    keep = _kept_edges(senders, receivers, edge_mask, n)[:, None]
-    zero = torch.zeros_like(senders)
-    send = torch.where(keep[:, 0], senders, zero).long()
-    recv = torch.where(keep[:, 0], receivers, zero).long()
-    h = proj_i.index_select(0, recv) + proj_j.index_select(0, send)
     if proj_i.device.type == "cpu":
         by_recv = by_send = None
     else:
@@ -152,6 +171,28 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
         if layout_t is None:
             layout_t = edge_layout(receivers, senders, edge_mask, n)
         by_recv, by_send = segment_layouts((layout, layout_t))
+    dh, send, recv = edge_grads(proj_i, proj_j, senders, receivers,
+                                edge_mask, n, mn, mx, g_s, g_sq, g_min,
+                                g_max, by_recv)
+    dt = dh.dtype
+    dh = dh.float()
+    return (segment_sum(dh, recv, n, layout=by_recv).to(dt),
+            segment_sum(dh, send, n, layout=by_send).to(dt))
+
+
+def edge_grads(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
+               mn, mx, g_s, g_sq, g_min, g_max, by_recv=None):
+    """(dh [E, F], senders [E] int64, receivers [E] int64): each edge's
+    gradient of `pna_edge_vjp` in the projections' dtype, 0 on a dropped
+    edge (whose ids are clamped to 0). The tie counts are segment sums
+    over the receivers, on the CSR view `by_recv` where given
+    (`segment_layouts`)."""
+    n = int(num_nodes)
+    keep = _kept_edges(senders, receivers, edge_mask, n)[:, None]
+    zero = torch.zeros_like(senders)
+    send = torch.where(keep[:, 0], senders, zero).long()
+    recv = torch.where(keep[:, 0], receivers, zero).long()
+    h = proj_i.index_select(0, recv) + proj_j.index_select(0, send)
     dt = h.dtype
     fzero = torch.zeros((), dtype=dt, device=h.device)
     dh = torch.where(keep, g_s.index_select(0, recv)
@@ -161,28 +202,40 @@ def pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
         ties = segment_sum(hit.float(), recv, n, layout=by_recv)
         share = g / torch.clamp(ties, min=1.0).to(dt)
         dh = dh + torch.where(hit, share.index_select(0, recv), fzero)
-    dh = dh.float()
-    return (segment_sum(dh, recv, n, layout=by_recv).to(dt),
-            segment_sum(dh, send, n, layout=by_send).to(dt))
+    return dh, send, recv
 
 
 def _bwd_lib(dtype):
     fn = getattr(_build.load("pna_backward"),
                  f"hg_pna_edge_aggregate_bwd_{_build.DTYPE_SUFFIX[dtype]}")
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 5)
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 4)
         fn.restype = ctypes.c_int
     return fn
 
 
+def edge_geometry(f, vec, itemsize):
+    """(rows per block, threads per row, chunk, dynamic shared bytes) of
+    the edge-list backward's pass 1: the dense pass 1's whole-warp rows
+    (`nbr.row_geometry`), staging up to STAGE_SLOTS of a receiver's edges
+    at once and no slot lists (a receiver's senders lie compact in the
+    layout)."""
+    return row_geometry(STAGE_SLOTS, f, vec, itemsize, stage=True,
+                        lists=False)
+
+
 def pna_edge_bwd(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
-                 mn, mx, g_s, g_sq, g_min, g_max, layout=None, layout_t=None):
+                 mn, mx, g_s, g_sq, g_min, g_max, layout=None, layout_t=None,
+                 edge_pos=None):
     """(dproj_i, dproj_j) of the accumulators, the function of
     `pna_edge_vjp`: the CUDA kernel `csrc/pna_backward.cu` for tensors on
     the card, `pna_edge_vjp` (its plain version) for CPU ones. `layout` /
     `layout_t` are the receiver- and sender-sorted `edge_layout`s of these
-    edges, built here when not given."""
+    edges and `edge_pos` their `edge_positions`, built here when not
+    given. The kernel writes each kept edge's dh to an [E, F] buffer it is
+    handed (E rows: a size known without reading the mask, so that the
+    call can be captured in a CUDA graph)."""
     global backward_kernel_launches, backward_kernel_bf16_launches
     if proj_i.device.type == "cpu":
         return pna_edge_vjp(proj_i, proj_j, senders, receivers, edge_mask,
@@ -207,22 +260,30 @@ def pna_edge_bwd(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
         layout = edge_layout(senders, receivers, edge_mask, n)
     if layout_t is None:
         layout_t = edge_layout(receivers, senders, edge_mask, n)
-    lays = tuple(layout[:2]) + tuple(layout_t[:2])
-    if any(t.shape != s for t, s in zip(lays, ((n + 1,), (e,)) * 2)) \
+    if edge_pos is None:
+        edge_pos = edge_positions(layout, layout_t)
+    # row_ptr, the senders in receiver order, each edge's dh row, and the
+    # sender-sorted layout's row_ptr
+    lays = (layout[0], layout[1], edge_pos, layout_t[0])
+    if any(t.shape != s for t, s in zip(lays, ((n + 1,), (e,), (e,),
+                                               (n + 1,)))) \
             or any(t.dtype != torch.int32 for t in lays):
         raise ValueError("pna_edge_bwd: layouts do not match the edges")
     if any(t.device != proj_i.device for t in rows + lays):
         raise ValueError("pna_edge_bwd: all inputs must be on one device")
     if not all(t.is_contiguous() for t in rows + lays):
         raise ValueError("pna_edge_bwd: inputs must be contiguous")
-    shares = torch.empty((2, n, f), dtype=proj_i.dtype, device=proj_i.device)
+    # each kept edge's dh, in the sender-sorted layout's order (its first
+    # row_ptr[N] rows are written)
+    dh = torch.empty((e, f), dtype=proj_i.dtype, device=proj_i.device)
     d_i = torch.empty_like(proj_i)
     d_j = torch.empty_like(proj_i)
-    vec = vec_width(f, *rows, shares, d_i, d_j)
+    vec = vec_width(f, *rows, dh, d_i, d_j)
+    n_rows, _, chunk, smem = edge_geometry(f, vec, proj_i.element_size())
     stream = torch.cuda.current_stream(proj_i.device).cuda_stream
     err = _bwd_lib(proj_i.dtype)(
-        *(t.data_ptr() for t in rows + lays), n, f, vec,
-        *(t.data_ptr() for t in (*shares, d_i, d_j)), stream)
+        *(t.data_ptr() for t in rows + lays), n, e, f, vec, n_rows, chunk,
+        smem, *(t.data_ptr() for t in (dh, d_i, d_j)), stream)
     _build.check_launch(err, "pna_edge_aggregate_bwd")
     backward_kernel_launches += 2
     if proj_i.dtype == torch.bfloat16:
@@ -239,7 +300,7 @@ class _PnaEdgeAccums(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, proj_i, proj_j, senders, receivers, edge_mask,
-                num_nodes, layout, layout_t):
+                num_nodes, layout, layout_t, edge_pos):
         if proj_i.device.type == "cpu":
             out = pna_edge_accumulators_plain(proj_i, proj_j, senders,
                                               receivers, edge_mask, num_nodes)
@@ -249,7 +310,7 @@ class _PnaEdgeAccums(torch.autograd.Function):
         ctx.save_for_backward(proj_i, proj_j, senders, receivers, edge_mask,
                               mn, mx)
         ctx.num_nodes = num_nodes
-        ctx.layouts = (layout, layout_t)
+        ctx.layouts = (layout, layout_t, edge_pos)
         ctx.mark_non_differentiable(cnt)
         return out
 
@@ -263,7 +324,16 @@ class _PnaEdgeAccums(torch.autograd.Function):
                                 g_s.contiguous(), g_sq.contiguous(),
                                 g_min.contiguous(), g_max.contiguous(),
                                 *ctx.layouts)
-        return d_i, d_j, None, None, None, None, None, None
+        return d_i, d_j, None, None, None, None, None, None, None
+
+
+def forward_geometry(f, vec, dtype):
+    """The forward kernel's receivers a block: FORWARD_ROWS[dtype] on
+    whole-warp rows of ceil(F / VEC) threads rounded up to a warp, as many
+    as fit a block of 1,024 threads; 0 (flat) where a row alone exceeds
+    one."""
+    tpr = -(-(f // vec) // 32) * 32
+    return min(FORWARD_ROWS[dtype], 1024 // tpr) if tpr <= 1024 else 0
 
 
 def _launch_pna(proj_i, proj_j, n, layout):
@@ -277,11 +347,13 @@ def _launch_pna(proj_i, proj_j, n, layout):
     mx = torch.empty_like(s)
     cnt = torch.empty((n, 1), dtype=proj_i.dtype, device=dev)
     vec = vec_width(f, proj_i, proj_j, s)
+    rows = forward_geometry(f, vec, proj_i.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib(proj_i.dtype)(proj_i.data_ptr(), proj_j.data_ptr(),
                              send_sorted.data_ptr(), row_ptr.data_ptr(), n, f,
-                             vec, s.data_ptr(), sq.data_ptr(), cnt.data_ptr(),
-                             mn.data_ptr(), mx.data_ptr(), stream)
+                             vec, rows, s.data_ptr(), sq.data_ptr(),
+                             cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(),
+                             stream)
     _build.check_launch(err, "pna_edge_aggregate")
     launches += 1
     if proj_i.dtype == torch.bfloat16:
@@ -290,16 +362,17 @@ def _launch_pna(proj_i, proj_j, n, layout):
 
 
 def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
-                          num_nodes, layout=None, layout_t=None):
+                          num_nodes, layout=None, layout_t=None,
+                          edge_pos=None):
     """(s, sq, cnt [N, 1], mn, mx) in the projections' dtype (float32 or
     bfloat16; the sums accumulate in float32) over the kept in-edges of
     each node; mn/mx are 0 on a node without one. `layout` is
     `edge_layout` of these edges, computed here when not given;
-    `layout_t`, the sender-sorted one, is the backward's (built there when
-    not given)."""
+    `layout_t`, the sender-sorted one, and `edge_positions` of the two
+    are the backward's (built there when not given)."""
     if proj_i.device.type == "cpu":
         return _PnaEdgeAccums.apply(proj_i, proj_j, senders, receivers,
-                                    edge_mask, num_nodes, None, None)
+                                    edge_mask, num_nodes, None, None, None)
     if proj_i.device.type != "cuda":
         raise ValueError(f"pna_edge_aggregate: unsupported device "
                          f"{proj_i.device}")
@@ -339,16 +412,18 @@ def pna_edge_accumulators(proj_i, proj_j, senders, receivers, edge_mask,
             raise ValueError("pna_edge_aggregate: layout does not match "
                              "the edges")
     return _PnaEdgeAccums.apply(proj_i, proj_j, senders, receivers,
-                                edge_mask, n, layout, layout_t)
+                                edge_mask, n, layout, layout_t, edge_pos)
 
 
 def pna_edge_aggregate(proj_i, proj_j, senders, receivers, edge_mask,
-                       num_nodes, eps=1e-5, layout=None, layout_t=None):
+                       num_nodes, eps=1e-5, layout=None, layout_t=None,
+                       edge_pos=None):
     """(mean, min, max, std, degree) of proj_i[recv] + proj_j[send] over
     the kept in-edges of each node."""
     return pna_stats_epilogue(
         *pna_edge_accumulators(proj_i, proj_j, senders, receivers,
-                               edge_mask, num_nodes, layout, layout_t), eps)
+                               edge_mask, num_nodes, layout, layout_t,
+                               edge_pos), eps)
 
 
 # --------------------------------------------------------------------------

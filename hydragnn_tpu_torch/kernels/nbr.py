@@ -89,21 +89,23 @@ def _lib(dtype):
     return fn
 
 
-def row_geometry(k, f, vec, itemsize, stage=False):
+def row_geometry(k, f, vec, itemsize, stage=False, lists=True):
     """(rows per block, threads per row, chunk, dynamic shared bytes) of a
-    dense kernel (`csrc/slots.cuh`) for K slots, F features, VEC elements a
-    thread and elements of `itemsize` bytes. A row owns ceil(F / VEC)
-    threads rounded up to a warp; a block holds BLOCK_THREADS threads'
-    worth of rows (at least one). The forward (`stage` False) keeps a list
-    of K neighbour ids a row and no chunk (0); the backward's pass 1
-    (`stage` True) two lists of K and stages up to STAGE_SLOTS slots a row
-    at once, fewer where the shared memory runs out."""
+    kernel on whole-warp rows (`csrc/slots.cuh`) for K slots, F features,
+    VEC elements a thread and elements of `itemsize` bytes. A row owns
+    ceil(F / VEC) threads rounded up to a warp; a block holds
+    BLOCK_THREADS threads' worth of rows (at least one). The dense forward
+    (`stage` False) keeps a list of K neighbour ids a row and no chunk
+    (0); the backwards' pass 1 (`stage` True) stages up to STAGE_SLOTS
+    slots a row at once, fewer where the shared memory runs out, and the
+    dense one keeps two lists of K (the edge list's, `lists` False,
+    none)."""
     tpr = -(-(f // vec) // 32) * 32
     if tpr > 1024:
-        raise ValueError(f"dense PNA kernels: F={f} exceeds 1024 threads "
+        raise ValueError(f"PNA kernels: F={f} exceeds 1024 threads "
                          f"of {vec} features a row")
     rows = max(1, BLOCK_THREADS // tpr)
-    lists = rows * k * 4 * (2 if stage else 1)
+    lists = rows * k * 4 * (2 if stage else 1) if lists else 0
     if not stage:
         chunk, staged = 0, 0
     else:
@@ -113,7 +115,7 @@ def row_geometry(k, f, vec, itemsize, stage=False):
                     room // per_slot if per_slot else 1)
         staged = -(-(rows * chunk * f * itemsize) // 16) * 16
     if (stage and chunk < 1) or lists > SMEM_BYTES:
-        raise ValueError(f"dense PNA kernels: K={k}, F={f} do not fit the "
+        raise ValueError(f"PNA kernels: K={k}, F={f} do not fit the "
                          "shared memory of a block")
     return rows, tpr, chunk, staged + lists
 

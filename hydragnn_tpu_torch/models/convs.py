@@ -63,7 +63,8 @@ class PNAConv(nn.Module):
             mean, mn, mx, sd, deg = pna_edge_aggregate(
                 proj_i, proj_j, batch.senders, batch.receivers,
                 batch.edge_mask, x.shape[0], layout=cargs.get("edge_layout"),
-                layout_t=cargs.get("edge_layout_t"))
+                layout_t=cargs.get("edge_layout_t"),
+                edge_pos=cargs.get("edge_pos"))
         aggs = torch.cat([mean, mn, mx, sd], dim=-1)          # [N, 4F]
         logd = torch.log(deg + 1.0)
         # the degree statistics rounded to the data's dtype, and the

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.fused_mp import edge_layout
+from ..kernels.fused_mp import edge_layout, edge_positions
 from ..kernels.nbr import neighbor_layout
 from .base import BaseStack
 from .convs import PNAConv
@@ -20,9 +20,11 @@ class PNAStack(BaseStack):
     def conv_args(self, batch):
         """The kernels' CSR views of the batch's edges, shared by every
         layer (None on the CPU): the edge list's receiver-sorted layout,
-        and when gradients are on, the views the backwards' segment sums
-        walk (the sender-sorted edges; the dense table's slots by
-        neighbour)."""
+        and when gradients are on, the views the backwards walk (the
+        sender-sorted edges and each edge's position in them; the dense
+        table's slots by neighbour). The positions ride as an entry of
+        their own: `edge_layout`'s (row_ptr, senders, order) serves the
+        filter-scatter and the segment sums too, which need none."""
         cargs = {"edge_attr": batch.edge_attr}
         grad = torch.is_grad_enabled()
         if batch.nbr is None:
@@ -33,6 +35,8 @@ class PNAStack(BaseStack):
                 cargs["edge_layout_t"] = edge_layout(
                     batch.receivers, batch.senders, batch.edge_mask,
                     batch.num_nodes)
+                cargs["edge_pos"] = edge_positions(cargs["edge_layout"],
+                                                   cargs["edge_layout_t"])
         elif grad:
             cargs["nbr_layout"] = neighbor_layout(batch.nbr, batch.nbr_mask)
         return cargs

@@ -1093,6 +1093,7 @@ def test_pna_backward_kernels_replay_in_a_cuda_graph(cuda_device, kind):
             layouts = (fused_mp.edge_layout(*tables, n),
                        fused_mp.edge_layout(tables[1], tables[0], tables[2],
                                             n))
+            layouts += (fused_mp.edge_positions(*layouts),)
 
             def call():
                 return fused_mp.pna_edge_bwd(pi, pj, *tables, n, acc[3],
@@ -1154,10 +1155,12 @@ def test_nbr_forward_long_rows_and_odd_widths_bitwise(cuda_device, dtype, f,
 
 def _layout_ordered_sum(dh, layout, n):
     """dproj_j as the float32 sum, in the layout's order, of the rows of
-    dh [N K, F] that each node's range names, stored in dh's dtype: torch
-    ops (rows padded to the longest range, then `sum_slots_in_order`)."""
+    dh [N K, F] (or [E, F]) that each node's range names, stored in dh's
+    dtype: torch ops (rows padded to the longest range, then
+    `sum_slots_in_order`). `layout` starts with (row_ptr, order): the
+    neighbour layout, or an edge layout's (row_ptr, edge order)."""
     from hydragnn_tpu_torch.ops.segment import sum_slots_in_order
-    row_ptr, order, _ = (t.long() for t in layout)
+    row_ptr, order = (t.long() for t in layout[:2])
     kept = int(row_ptr[-1])
     counts = row_ptr[1:] - row_ptr[:-1]
     col = torch.repeat_interleave(torch.arange(n, device=dh.device), counts)
@@ -1206,3 +1209,139 @@ def test_nbr_backward_sums_the_vjp_slot_gradients_bitwise(cuda_device,
                                                  *grads, 1e-5, layout),
                       exact=False)
     assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+
+
+# ------------------------- the edge-list kernels' staged design (B2) --
+def _edge_case(case, f, dev, dtype):
+    """(pi, pj, senders, receivers, edge_mask, n) on the card: "random"
+    (`_bwd_random`'s edges: masked edges, ids outside [0, N), a receiver
+    without an edge, a node no edge names), "loader" (the csce training
+    loader's shape as an edge list: N 8,192, E 131,072, about 50,000 kept
+    edges on its first 4,304 nodes, the rest padding), "long" (a receiver
+    and a sender with more edges than the backward stages at once,
+    `nbr.STAGE_SLOTS`; multiples of 1/64, so that ties occur) and
+    "all_masked" (no kept edge)."""
+    rng = np.random.RandomState(f)
+    if case == "random":
+        pi, pj, tables, _ = _bwd_random("edge", f, 300, f, dev, dtype)
+        return (pi, pj, *tables, 300)
+    n, e = {"loader": (8192, 131072), "long": (120, 2000),
+            "all_masked": (90, 700)}[case]
+    if case == "long":
+        pi, pj = (_t(rng.randint(-32, 32, (n, f)) / 64).to(dev, dtype)
+                  for _ in range(2))
+    else:
+        pi, pj = (_t(rng.randn(n, f).astype(np.float32)).to(dev, dtype)
+                  for _ in range(2))
+    real = 4304 if case == "loader" else n
+    send = rng.randint(0, real, e).astype(np.int32)
+    recv = rng.randint(0, real, e).astype(np.int32)
+    em = rng.rand(e) > 0.2
+    if case == "loader":
+        em[50749:] = False
+        send[50749:] = recv[50749:] = 0
+    elif case == "long":
+        recv[:300] = 9
+        send[500:900] = 11
+        recv[1000:1030] = n + 4
+    else:
+        em[:] = False
+    return (pi, pj, *(_t(a).to(dev) for a in (send, recv, em)), n)
+
+
+_EDGE_SHAPES = [("random", 200), ("random", 12), ("random", 13),
+                ("random", 2048), ("long", 200), ("long", 13),
+                ("loader", 200), ("all_masked", 200), ("all_masked", 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,f", _EDGE_SHAPES)
+def test_edge_backward_sums_the_vjp_edge_gradients_bitwise(cuda_device,
+                                                           dtype, case, f):
+    """The edge-list backward kernel writes each kept edge's dh to its
+    position in the sender-sorted layout and sums those rows in order:
+    its dproj_i equals, bit for bit, the torch-op VJP's own edge
+    gradients (`fused_mp.edge_grads`) summed in float32 in the
+    receiver-sorted layout's order, and its dproj_j the same gradients
+    summed in the sender-sorted layout's order (`_layout_ordered_sum`);
+    both also within SUM_TOL (one bf16 ulp) of the torch-op VJP. Two
+    launches a call. The loader shape, F 12 / 13 (loads of 4 elements and
+    of one), F 2,048 (pass 1 asks for more than 48 KB of shared memory),
+    a receiver and a sender longer than a chunk, a receiver without an
+    edge, every edge masked."""
+    dev = cuda_device
+    pi, pj, send, recv, em, n = _edge_case(case, f, dev, dtype)
+    tables = (send, recv, em, n)
+    if f == 2048:
+        assert fused_mp.edge_geometry(f, 4, pi.element_size())[3] \
+            > 48 * 1024
+    rng = np.random.RandomState(3)
+    grads = [_t(rng.randn(n, f).astype(np.float32)).to(dev, dtype)
+             for _ in range(4)]
+    acc = fused_mp.pna_edge_accumulators(pi, pj, *tables)
+    layout = fused_mp.edge_layout(*tables)
+    layout_t = fused_mp.edge_layout(recv, send, em, n)
+    pos = fused_mp.edge_positions(layout, layout_t)
+    tk.reset_launch_counts()
+    got = fused_mp.pna_edge_bwd(pi, pj, *tables, acc[3], acc[4], *grads,
+                                layout, layout_t, pos)
+    counts = tk.launch_counts()
+    assert counts["pna_edge_aggregate_backward"] == 2
+    assert counts["pna_edge_aggregate_backward_bf16"] == \
+        2 * int(dtype == torch.bfloat16)
+    by_recv, _ = fused_mp.segment_layouts((layout, layout_t))
+    dh, _, _ = fused_mp.edge_grads(pi, pj, *tables, acc[3], acc[4], *grads,
+                                   by_recv)
+    assert torch.equal(got[0], _layout_ordered_sum(
+        dh, (layout[0], layout[2]), n))
+    assert torch.equal(got[1], _layout_ordered_sum(
+        dh, (layout_t[0], layout_t[2]), n))
+    _assert_bwd_close(got, fused_mp.pna_edge_vjp(
+        pi, pj, *tables, acc[3], acc[4], *grads, layout, layout_t),
+        exact=False)
+    if case == "all_masked":
+        assert not got[0].any() and not got[1].any()
+    else:
+        assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+    if case == "random":
+        assert not got[0][n // 2].any()
+
+
+def _edge_accumulators_in_order(pi, pj, send, recv, em, n):
+    """(s, sq, cnt, mn, mx) of the plain version, with s and sq summed in
+    float32 in the receiver-sorted layout's order (each receiver's edges
+    in edge order, the kernel's order) and stored in the projections'
+    dtype; the messages h and h * h rounded to it as the plain version
+    rounds them."""
+    keep = fused_mp._kept_edges(send, recv, em, n)
+    zero = torch.zeros_like(send)
+    h = (pi[torch.where(keep, recv, zero).long()]
+         + pj[torch.where(keep, send, zero).long()])
+    layout = fused_mp.edge_layout(send, recv, em, n)
+    order = (layout[0], layout[2])
+    plain = fused_mp.pna_edge_accumulators_plain(pi, pj, send, recv, em, n)
+    return (_layout_ordered_sum(h, order, n),
+            _layout_ordered_sum(h * h, order, n)) + plain[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,f", [("random", 200), ("random", 13),
+                                    ("long", 200), ("loader", 200)])
+@pytest.mark.parametrize("rows", [0, 4])
+def test_edge_forward_bitwise_in_edge_order(cuda_device, monkeypatch, dtype,
+                                            case, f, rows):
+    """The edge-list forward kernel equals its plain version bit for bit
+    on every output, at both dtypes and both launch geometries (flat,
+    whole-warp rows), once the plain sums run in the kernel's order: at
+    bf16 the packed pairs (VEC 4) and the float path (F 13) round h and
+    h * h as the bf16 ops do (0 ulps), and min and max are exact."""
+    dev = cuda_device
+    monkeypatch.setitem(fused_mp.FORWARD_ROWS, dtype, rows)
+    pi, pj, send, recv, em, n = _edge_case(case, f, dev, dtype)
+    got = fused_mp.pna_edge_accumulators(pi, pj, send, recv, em, n)
+    want = _edge_accumulators_in_order(pi, pj, send, recv, em, n)
+    for name, g, w in zip(("s", "sq", "cnt", "min", "max"), got, want):
+        assert g.dtype == w.dtype == dtype, name
+        assert torch.equal(g, w), name
