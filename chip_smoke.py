@@ -28,7 +28,11 @@ Phases:
    test split (dense neighbor layout, Serving.max_batch_size 128, the
    config's batch size), then an `InferenceEngine` on the edge-list layout
    over a burst of the test split repeated 8 times, then 160 timed
-   bursts of the same. Every kernel
+   bursts of the same. The engine's forwards are CUDA graphs, one per
+   bucket, captured at warm-up (`engine_graphs` prints each bucket's
+   capture time and, on the full batch's bucket, the replay's CUDA-event
+   time, one profiled replay's device time and events, and the engine's
+   whole forward). Every kernel
    must have launched on these paths; outputs must match the port's CPU
    run within rtol 1e-4 / atol 1e-5. The serving rate is all requests
    over the bursts' total wall time, and p50/p99 are taken over the pooled
@@ -47,8 +51,9 @@ Phases:
    layout keeps), then an
    `InferenceEngine(ef_forward=True)` on the edge list over a burst of the
    test split repeated 8 times, matched against the same engine run on
-   the CPU within rtol 1e-4 / atol 1e-5, then 60 timed bursts and
-   one profiled EF forward + backward (device time, launches, argsorts).
+   the CPU within rtol 1e-4 / atol 1e-5, then 60 timed bursts, the
+   engine's graphs as in phase 3, and one profiled eager EF forward +
+   backward (device time, launches, argsorts).
 
 5. csce PNA training (`run_training` at the config's published width,
    512 molecules, batch 128, 2 steps an epoch): first the two PNA
@@ -76,12 +81,18 @@ Phases:
    once on the CPU (its gap printed: Adam turns gradients below its eps
    into lr-sized updates whose sign follows the summation order), one
    epoch on the edge list, `run_prediction` from the trained state (card
-   vs CPU within rtol 1e-4 / atol 1e-5), and per path the step time (CUDA
-   events, median of 10 after 2 warm-up steps), one profiled step's
-   device time and launches, the card's idle share and graphs/s.
+   vs CPU within rtol 1e-4 / atol 1e-5), and per path, on three routes
+   (the eager step body, timed beside the graphs and never the route; the
+   captured single step that run_training replays; a captured group of
+   CSCE_GROUP steps, steps_per_call), the step time (CUDA events, median
+   of 10 calls after 2 warm-up calls), one profiled call's device time
+   and device events, the card's idle share, graphs/s, the graphs'
+   capture times and the port's kernel launches in one captured step.
+   Every run_training and engine here runs through its CUDA graphs.
 6. LJ SchNet energy-force training (LJ.json at its widths, 512 cells,
    batch 16; 2 epochs of its 20, for time; on the edge list, the layout
-   of the EF engine and of kernel 4): the same checks and numbers;
+   of the EF engine and of kernel 4): the same checks and numbers
+   (groups of LJ_GROUP steps);
    the force loss differentiates the filter-scatter's and the segment
    sum's backwards again (`create_graph=True`).
 7. bf16 at the same widths: kernels 2-4 in their bf16 instantiations
@@ -93,9 +104,10 @@ Phases:
    run_prediction (dense) and an InferenceEngine (edge list), card vs the
    CPU's bf16 run within 2^-5 (atol + rtol |ref|), the bf16-vs-float32
    gap printed, batched = single bitwise, the parity breadcrumbs, 40
-   timed bursts; LJ SchNet EF served at bf16 (energies and forces within
-   2^-5 of the CPU's bf16 engine, for the burst on the buckets it was
-   served on and for each test cell alone on the smallest bucket, the
+   timed bursts, the engine's graphs; LJ SchNet EF served at bf16
+   (energies and forces within 2^-5 of the CPU's bf16 engine, for the
+   burst on the buckets it was served on and for each test cell alone on
+   the smallest bucket, the
    bound's margin printed; batched = single bitwise); run_training at
    Architecture.dtype "bfloat16" for csce PNA (3 epochs dense, 1 on the
    edge list) and LJ EF (2 epochs): the first step's loss card vs CPU
@@ -103,7 +115,8 @@ Phases:
    (LJ EF: printed; its bf16 force-loss gradients carry rounding noise
    that follows the summation order, and SGD runs part within a few
    steps), the config's optimizer twice on the card bitwise, float32
-   masters, no non-finite step, and the step numbers of phases 5-6. For
+   masters, no non-finite step, and the step numbers and graph checks
+   of phases 5-6 (with the casts' device time in each route). For
    LJ EF at bf16 also: the first step's weight gradients through the
    kernels vs the plain versions on the card (worst tensor within 0.6,
    all tensors within 0.04 relative L2, between the noise floor of the
@@ -152,6 +165,8 @@ LJ_BURSTS = 60                 # timed EF bursts, after the main-path one
 TRAIN_RTOL = 1e-3              # card vs cpu, every epoch's train loss
 EVAL_RTOL = 1e-2               # and its val/test losses (eval-mode BN)
 LJ_EPOCHS = 2                  # LJ.json trains 20 epochs; cut for time
+CSCE_GROUP = 2                 # steps per call timed beside S = 1 (csce)
+LJ_GROUP = 4                   # and LJ EF
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 CSCE_CONFIG = "examples/csce/csce_gap.json"
@@ -216,19 +231,7 @@ def ptxas_report(log: str):
 
 def cuda_ms(torch, fn, reps: int = 30, warmup: int = 3) -> float:
     """Median device time of fn() in milliseconds (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    return float(np.median(step_events_ms(torch, fn, reps, warmup)))
 
 
 def capture(torch, warm, body, keep_graph: bool = False):
@@ -745,6 +748,7 @@ def schnet_phase(torch, device, card):
             walls.append(time.perf_counter() - t0)
         stats = engine.stats()
         model = engine.model
+        engine_graphs(torch, engine, requests, "LJ EF engine")
     finally:
         engine.shutdown()
     print(f"EF engine (edge list): launches {counts}", flush=True)
@@ -845,6 +849,73 @@ def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
           f"ms in {n_launch} kernel launches", flush=True)
     for dev, key, count in sorted(rows, reverse=True)[:10]:
         print(f"  {dev / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+
+
+SERVING_GRAPHS = {}
+
+
+def engine_graphs(torch, engine, requests, label):
+    """An engine's CUDA graphs (phases 3, 4, 7): each bucket's capture
+    time (its warm-up runs included) and, on the bucket of the first
+    SERVE_MAX_BATCH requests, the replayed forward's time (CUDA events,
+    median of 20 replays), one profiled replay's device time and device
+    events (held against the launch counters), and the engine's whole
+    forward (host collate, copy into the static batch, replay, outputs to
+    the host; wall time, median of 5). Held: each bucket's replay on the
+    first requests that fit it equals its eager forward (the capture's
+    body) bitwise, and the graph's kernel nodes the launches a replay
+    counts. Call with the dispatcher idle. Recorded in
+    SERVING_GRAPHS under `label`."""
+    from concurrent.futures import Future
+
+    from hydragnn_tpu_torch.serving.engine import _Request, select_bucket
+    reqs = [_Request(s, Future()) for s in requests[:SERVE_MAX_BATCH]]
+    bucket = select_bucket(engine.buckets, len(reqs),
+                           sum(r.n for r in reqs), sum(r.e for r in reqs))
+    cap = engine._graphs[bucket]
+    for b in engine.buckets:      # each bucket's graph vs its eager body
+        sub, n, e = [], 0, 0
+        for r in reqs:
+            if (len(sub) < b.cap_graphs and n + r.n <= b.cap_nodes
+                    and e + r.e <= b.cap_edges):
+                sub.append(r)
+                n, e = n + r.n, e + r.e
+        got = engine._forward(sub, b)
+        batch = engine._collate_bucket([r.sample for r in sub], b)
+        want = [o.detach().cpu().numpy() for o in engine._run(
+            batch.to(engine.device))]
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail(f"{label}: bucket {b.n_node}x{b.n_edge}x{b.n_graph}: the "
+                 "graph's outputs differ from the eager forward's")
+    replay_ms = cuda_ms(torch, cap.replay, reps=20)
+    nodes = check_graph_kernels(cap, f"{label} {bucket}")
+    dev_ms, events, _, port = profiled_call(torch, cap.replay,
+                                            f"{label} replay", hold=False)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine._forward(reqs, bucket)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rec = dict(graphs_equal_eager=True,
+               capture_ms={f"{b.n_node}x{b.n_edge}x{b.n_graph}": ms
+                           for b, ms in engine.capture_ms.items()},
+               bucket=f"{bucket.n_node}x{bucket.n_edge}x{bucket.n_graph}",
+               requests=len(reqs), replay_ms=replay_ms, device_ms=dev_ms,
+               device_events=events, idle_share=max(0.0, 1 - dev_ms
+                                                    / replay_ms),
+               forward_wall_ms=float(np.median(walls)),
+               port_kernel_nodes=nodes, port_kernels_in_profile=port)
+    SERVING_GRAPHS[label] = rec
+    print(f"{label} graphs: every bucket's replay bitwise equal to its "
+          f"eager forward; capture ms by bucket {rec['capture_ms']}; "
+          f"{len(reqs)} requests on bucket {rec['bucket']}: replay "
+          f"{replay_ms:.3f} ms (CUDA events), device {dev_ms:.3f} ms in "
+          f"{events} device events (idle share {rec['idle_share']:.3f}); "
+          f"the engine's whole forward {rec['forward_wall_ms']:.3f} ms "
+          f"(host collate + copy + replay + outputs to the host, wall); "
+          f"the graph's hand-written kernel nodes (= a replay's launch "
+          f"counts) {nodes}, in the profile {port}", flush=True)
+    return rec
 
 
 def profile_rows(torch, prof):
@@ -1164,9 +1235,10 @@ def loader_forward(torch, randn, tables, rows_in, named, slots, f):
     return out
 
 
-def train_parts(torch, cfg, splits, device):
+def train_parts(torch, cfg, splits, device, group: int = 0):
     """What run_training builds, for the step measurements: (model,
-    state, train step, train loader, completed config, model config)."""
+    state, train step, train loader, completed config, model config); with
+    `group` > 0 also the multi step of that many steps, last."""
     from hydragnn_tpu_torch.config import config as tcfg
     from hydragnn_tpu_torch.models.create import create_model
     from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
@@ -1183,12 +1255,15 @@ def train_parts(torch, cfg, splits, device):
     tx = topt.select_optimizer(tr)
     state = tstep.TrainState.create(model, tx)
     fw = tr.get("force_loss_weight", 1.0)
-    step = tstep.make_train_step(
-        model, mcfg, tx, tr.get("loss_function_type", "mse"),
-        compute_grad_energy=bool(tr.get("compute_grad_energy", False)),
-        energy_weight=float(tr.get("energy_loss_weight", 1.0)),
-        force_weight=fw if fw == "auto" else float(fw))
-    return model, state, step, loader, cfg, mcfg
+    kw = dict(loss_name=tr.get("loss_function_type", "mse"),
+              compute_grad_energy=bool(tr.get("compute_grad_energy", False)),
+              energy_weight=float(tr.get("energy_loss_weight", 1.0)),
+              force_weight=fw if fw == "auto" else float(fw))
+    step = tstep.make_train_step(model, mcfg, tx, **kw)
+    parts = (model, state, step, loader, cfg, mcfg)
+    if group:
+        parts += (tstep.make_multi_train_step(model, mcfg, tx, **kw),)
+    return parts
 
 
 @contextlib.contextmanager
@@ -1332,11 +1407,74 @@ PROFILED_KERNELS = {
 }
 
 
-def check_profiled_kernels(rows, before, after, label):
+def graph_kernels(graph):
+    """{kernel identifier: nodes} of a captured CUDA graph's kernel nodes
+    (a graph kept with keep_graph=True), read from the CUDA driver API
+    (cuGraphGetNodes, cuGraphKernelNodeGetParams, cuFuncGetName or
+    cuKernelGetName), each mangled name cut to its identifier."""
+    import ctypes
+    import re
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err, what):
+        if err != 0:
+            fail(f"{what} failed with CUresult {err}")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    get_params = getattr(cu, "cuGraphKernelNodeGetParams_v2",
+                         cu.cuGraphKernelNodeGetParams)
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:          # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func first, the CUkernel at byte 56
+        params = (ctypes.c_void_p * 16)()
+        check(get_params(ctypes.c_void_p(node), params),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if params[0]:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(params[0])),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(params[7])),
+                  "cuKernelGetName")
+        mangled = name.value.decode()
+        m = re.match(r"_Z(\d+)(\w+)", mangled)
+        ident = m.group(2)[:int(m.group(1))] if m else mangled
+        out[ident] = out.get(ident, 0) + 1
+    return out
+
+
+def check_graph_kernels(cap, label):
+    """{kernels: nodes} of the port's kernels in a captured step's graph,
+    held equal to the launches its replay adds to the launch counters."""
+    nodes = graph_kernels(cap.graph)
+    seen = {}
+    for counters, names in PROFILED_KERNELS.items():
+        got = sum(nodes.get(k, 0) for k in names)
+        want = sum(cap.launches[c] for c in counters)
+        if got != want:
+            fail(f"{label}: the graph holds {got} nodes of "
+                 f"{'/'.join(names)}, a replay adds {want} to the launch "
+                 "counters")
+        seen["/".join(names)] = got
+    return seen
+
+
+def check_profiled_kernels(rows, before, after, label, hold=True):
     """{kernels: launches} of the port's kernels in a profile's rows,
     held equal to the launch counters' change over the profiled run, so
     that the profile's device time and launches are known to hold every
-    hand-written kernel the run launched."""
+    hand-written kernel the run launched. With hold=False a difference
+    is returned under "differs" instead of failing."""
     import re
     seen = {}
     for counters, names in PROFILED_KERNELS.items():
@@ -1344,65 +1482,205 @@ def check_profiled_kernels(rows, before, after, label):
         got = sum(count for _, key, count in rows if pat.search(key))
         want = sum(after[c] - before[c] for c in counters)
         if got != want:
-            fail(f"{label}: the profile holds {got} launches of "
-                 f"{'/'.join(names)}, the launch counters {want}")
+            if hold:
+                fail(f"{label}: the profile holds {got} launches of "
+                     f"{'/'.join(names)}, the launch counters {want}")
+            seen.setdefault("differs", {})["/".join(names)] = [got, want]
         seen["/".join(names)] = got
     return seen
 
 
-def step_metrics(torch, cfg, splits, device, label, real_graphs):
-    """Per training path: step time (CUDA events, median of 10 after 2
-    warm-up steps), device time and launches of one profiled step, the
-    card's idle share within a step, graphs/s; lists the profiled step's
-    scatter-type kernels (an atomic scatter would break repeatability).
-    Fails unless the profile holds as many launches of each hand-written
-    kernel as the launch counters counted in the profiled step."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from hydragnn_tpu_torch import kernels as tk
-    model, state, step, loader, _, _ = train_parts(torch, cfg, splits,
-                                                   device)
-    loader.set_epoch(0)
-    batches = [b.to(device) for b, _ in zip(loader, range(3))]
-    for i in range(2):
-        state, _ = step(state, batches[i % len(batches)])
+def step_events_ms(torch, call, reps: int = 10, warm: int = 2):
+    """CUDA-event times (ms) of `reps` calls of call(), after `warm`."""
+    for _ in range(warm):
+        call()
     torch.cuda.synchronize()
     times = []
-    for i in range(10):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        state, _ = step(state, batches[i % len(batches)])
+        call()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    step_ms = float(np.median(times))
+    return times
+
+
+def profiled_call(torch, call, label, hold=True):
+    """(device ms, device events, rows, the port's kernels in the
+    profile) of one call(), profiled; fails unless the profile holds as
+    many launches of each hand-written kernel as the launch counters
+    counted (a replayed graph adds its captured launches). hold=False
+    reports a difference (under "differs") instead: in a long process
+    the profiler has been seen to drop some of a graph replay's ctypes
+    kernels (measured on one H100), so a graph is held by its own nodes instead
+    (`check_graph_kernels`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch import kernels as tk
     before = tk.launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batches[0])
+        call()
         torch.cuda.synchronize()
     dev_ms, launches, rows = profile_rows(torch, prof)
-    port = check_profiled_kernels(rows, before, tk.launch_counts(), label)
-    scatters = sorted({key[:70] for _, key, _ in rows
-                       if any(w in key.lower() for w in
-                              ("scatter", "indexfunc", "index_add",
-                               "atomic", "index_put"))})
-    idle = max(0.0, 1.0 - dev_ms / step_ms)
-    print(f"{label} train step ({real_graphs} graphs): {step_ms:.3f} ms "
-          f"median (CUDA events, {min(times):.3f}-{max(times):.3f}); one "
-          f"profiled step: device time {dev_ms:.3f} ms in {launches} kernel "
-          f"launches; idle share {idle:.3f}; {real_graphs / step_ms * 1e3:.1f}"
-          f" graphs/s; scatter-type kernels: {scatters}; hand-written "
-          f"kernels in the profile (= the launch counters): {port}",
-          flush=True)
-    for dev_t, key, count in sorted(rows, reverse=True)[:8]:
-        print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}", flush=True)
-    return dict(step_ms=step_ms, step_ms_range=[min(times), max(times)],
-                device_ms=dev_ms, launches_per_step=launches,
-                port_kernel_launches=port,
-                idle_share=idle, graphs_per_s=real_graphs / step_ms * 1e3,
-                scatter_kernels=scatters)
+    port = check_profiled_kernels(rows, before, tk.launch_counts(), label,
+                                  hold)
+    return dev_ms, launches, rows, port
+
+
+def bf16_cast_cost(torch, model, batch):
+    """What a bf16 step casts at each forward, alone: every parameter and
+    buffer and the batch's float fields, float32 -> bf16
+    (train_step._cast_variables, cast_floats), captured in one CUDA graph:
+    its replay time (CUDA events, median of 20) and its nodes. The share
+    of the step a grouped cast (ROADMAP A5.4b) could take back."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+
+    def cast():
+        tstep._cast_variables(model, torch.bfloat16)
+        tstep.cast_floats(batch, torch.bfloat16)
+    graph = capture(torch, cast, cast)
+    return dict(device_ms=cuda_ms(torch, graph.replay, reps=20),
+                nodes=call_launches(torch, cast, ()))
+
+
+def graph_parity(torch, cfg, splits, device, label, group):
+    """Held bitwise: a captured group of `group` steps and then a captured
+    single step, against as many eager steps (the bodies they were
+    captured from) from the same seeded state on the same batches: each
+    step's metrics and every parameter, running statistic and optimizer
+    slot afterwards."""
+    runs = []
+    for graphed in (False, True):
+        _, state, step, loader, _, _, multi = train_parts(
+            torch, cfg, splits, device, group)
+        loader.set_epoch(0)
+        batches = [b.to(device) for b, _ in zip(loader, range(group))]
+        if graphed:
+            state, m = multi(state, batches)
+            losses = m["loss"].cpu().tolist()
+            state, m = step(state, batches[0])
+        else:
+            losses = []
+            for b in batches:
+                state, m = step.eager(state, b)
+                losses.append(float(m["loss"]))
+            state, m = step.eager(state, batches[0])
+        losses.append(float(m["loss"]))
+        opt = state.opt_state
+        tensors = [t.detach().cpu() for t in state.state_dict().values()] + [
+            t.cpu() for ts in opt.slots.values() for t in ts]
+        runs.append((losses, tensors, (state.step, opt.count)))
+    (la, ta, ca), (lb, tb, cb) = runs
+    same = la == lb and ca == cb and all(
+        torch.equal(a, b) for a, b in zip(ta, tb))
+    print(f"{label}: a captured group of {group} steps and a captured "
+          f"single step vs {group + 1} eager steps: losses {lb}; "
+          f"metrics, parameters, statistics and slots bitwise equal: "
+          f"{same}", flush=True)
+    if not same:
+        fail(f"{label}: captured steps differ from the eager steps")
+    return same
+
+
+def step_metrics(torch, cfg, splits, device, label, real_graphs, group):
+    """Per training path, three routes on one state: the eager step body
+    (`TrainStep.eager`, a measurement beside the graphs, never the route),
+    the captured single step (the S = 1 graph run_training replays) and
+    the captured group of `group` steps (steps_per_call). Each: call time
+    (CUDA events, median of 10 after 2 warm-up calls), per-step time,
+    device time and device events (kernels, copies, sets) of one profiled
+    call, the card's idle share within it, graphs/s; the graphs' capture
+    times, the port's kernel launches inside one captured step, and for a
+    bf16 path the forward's casts alone (`bf16_cast_cost`). Held first:
+    `graph_parity`. Fails unless each captured graph holds as many nodes
+    of each hand-written kernel as a replay adds to the launch counters,
+    and the eager call's profile as many launches as the counters counted
+    (the graph routes' profiles are reported beside them)."""
+    parity = graph_parity(torch, cfg, splits, device, label, group)
+    model, state, step, loader, _, _, multi = train_parts(
+        torch, cfg, splits, device, group)
+    loader.set_epoch(0)
+    batches = [b.to(device) for b, _ in zip(loader, range(group))]
+    turn = [0]
+
+    def nxt():
+        turn[0] += 1
+        return batches[turn[0] % len(batches)]
+
+    def eager():
+        step.eager(state, nxt())
+
+    def single():
+        step(state, nxt())
+
+    def grouped():
+        multi(state, batches)
+
+    step(state, batches[0])
+    multi(state, batches)
+    torch.cuda.synchronize()
+    cap1 = next(iter(step.steps.graphs.values()))
+    capg = next(iter(multi.steps.graphs.values()))
+    graph_nodes = {"S1": check_graph_kernels(cap1, f"{label} S1"),
+                   f"S{group}": check_graph_kernels(capg, f"{label} S{group}")}
+    out = {"graphs_equal_eager": parity,
+           "port_kernel_nodes": graph_nodes,
+           "capture_ms": {"S1": cap1.capture_ms,
+                          f"S{group}": capg.capture_ms},
+           "kernel_launches_per_captured_step": {
+               k: v for k, v in cap1.launches.items() if v}}
+    for name, call, n, cap in (("eager", eager, 1, None),
+                               ("graph_S1", single, 1, cap1),
+                               (f"graph_S{group}", grouped, group, capg)):
+        times = step_events_ms(torch, call)
+        call_ms = float(np.median(times))
+        dev_ms, events, rows, port = profiled_call(
+            torch, call, f"{label} {name}", hold=cap is None)
+        rec = dict(call_ms=call_ms, step_ms=call_ms / n,
+                   step_ms_range=[min(times) / n, max(times) / n],
+                   device_ms_per_step=dev_ms / n,
+                   device_events_per_step=events / n,
+                   port_kernel_launches=port,
+                   idle_share=max(0.0, 1.0 - dev_ms / call_ms),
+                   graphs_per_s=real_graphs * n / call_ms * 1e3)
+        if cap is not None:
+            # the graph alone: its replays back to back
+            rec["replay_ms_per_step"] = float(np.median(
+                step_events_ms(torch, cap.replay))) / n
+        if name == "eager":
+            rec["scatter_kernels"] = sorted(
+                {key[:70] for _, key, _ in rows if any(
+                    w in key.lower() for w in ("scatter", "indexfunc",
+                                               "index_add", "atomic",
+                                               "index_put"))})
+        out[name] = rec
+        print(f"{label} train step, {name} ({real_graphs} graphs a step): "
+              f"{rec['step_ms']:.3f} ms a step (median of 10 calls of "
+              f"{n}; {rec['step_ms_range'][0]:.3f}-"
+              f"{rec['step_ms_range'][1]:.3f}); one profiled call: device "
+              f"{rec['device_ms_per_step']:.3f} ms and "
+              f"{rec['device_events_per_step']:.0f} device events a step; "
+              f"idle share {rec['idle_share']:.3f}; "
+              f"{rec['graphs_per_s']:.1f} graphs/s"
+              + (f"; the graph's replay alone {rec['replay_ms_per_step']:.3f}"
+                 " ms a step" if cap is not None else "")
+              + f"; hand-written kernels in the profile: {port}",
+              flush=True)
+        for dev_t, key, count in sorted(rows, reverse=True)[:6]:
+            print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}",
+                  flush=True)
+    if "bf16" in label:
+        out["bf16_casts"] = bf16_cast_cost(torch, model, batches[0])
+        print(f"{label}: the forward's float32 -> bf16 casts alone, one "
+              f"graph: {out['bf16_casts']}", flush=True)
+    print(f"{label}: capture ms {out['capture_ms']} (warm-up runs "
+          f"included); port kernel launches in one captured step "
+          f"{out['kernel_launches_per_captured_step']}; the graphs' kernel "
+          f"nodes (= a replay's launch counts) {graph_nodes}", flush=True)
+    return out
 
 
 def training_phase(torch, label, base_cfg, splits, device, num_epoch,
@@ -1750,6 +2028,7 @@ def pna_bf16_serving(torch, device, card, base_cfg, splits, variables, mcfg,
                 fut.result(timeout=600)
             walls.append(time.perf_counter() - t0)
         timed = engine.stats()
+        engine_graphs(torch, engine, requests, "csce PNA bf16 engine")
     finally:
         engine.shutdown()
     for name in ("pna_edge_aggregate_bf16", "segment_sum"):
@@ -1857,6 +2136,7 @@ def lj_bf16_serving(torch, device, lj, counted):
         batched = [engine.forward_single(s, bucket=fut.bucket)
                    for s, fut in list(zip(requests, futs))[:8]]
         singles = [engine.forward_single(s) for s in test]
+        engine_graphs(torch, engine, requests, "LJ EF bf16 engine")
     finally:
         engine.shutdown()
     t0 = time.perf_counter()
@@ -2410,6 +2690,7 @@ def main() -> int:
                 fut.result(timeout=600)
             walls.append(time.perf_counter() - t0)
         stats = engine.stats()      # pooled over every request of every burst
+        engine_graphs(torch, engine, requests, "csce PNA engine")
     finally:
         engine.shutdown()
     print(f"engine (edge list): launches {counts}", flush=True)
@@ -2486,9 +2767,6 @@ def main() -> int:
     for name in ("nbr_aggregate", "nbr_aggregate_backward", "segment_sum"):
         if counts[name] == 0:
             fail(f"{name} never launched on the dense training path")
-    backward_per_step = {
-        "nbr_aggregate.backward":
-            counts["nbr_aggregate_backward"] / (epochs * steps_per_epoch)}
     edge_cfg = copy.deepcopy(base_cfg)
     edge_cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
     edge_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
@@ -2507,8 +2785,6 @@ def main() -> int:
             fail(f"{name} never launched on the edge-list training path")
     if not np.isfinite(h_edge["train_loss"]).all():
         fail("edge-list training: non-finite loss")
-    backward_per_step["pna_edge_aggregate.backward"] = \
-        counts["pna_edge_aggregate_backward"] / steps_per_epoch
     trues_t, preds_t = run_prediction(completed, splits, state=state,
                                       model=t_model)
     _, preds_tc = run_prediction(completed, splits, state=state,
@@ -2523,9 +2799,11 @@ def main() -> int:
     print(f"run_prediction from the trained state: card vs cpu max abs err "
           f"{err_tp:.3e}; test RMSE {rmse:.4f}", flush=True)
     train_paths = {"csce_pna_dense": step_metrics(
-        torch, base_cfg, splits, device, "csce PNA (dense)", batch_size)}
+        torch, base_cfg, splits, device, "csce PNA (dense)", batch_size,
+        CSCE_GROUP)}
     train_paths["csce_pna_edge"] = step_metrics(
-        torch, edge_cfg, splits, device, "csce PNA (edge list)", batch_size)
+        torch, edge_cfg, splits, device, "csce PNA (edge list)", batch_size,
+        CSCE_GROUP)
     train_paths["csce_pna_dense"]["run"] = pna_rec
 
     # ---------------------------------------------------------- phase 6
@@ -2553,7 +2831,8 @@ def main() -> int:
     lj_cfg_cut = copy.deepcopy(lj_cfg)
     lj_cfg_cut["NeuralNetwork"]["Training"]["num_epoch"] = LJ_EPOCHS
     train_paths["lj_schnet_ef"] = step_metrics(
-        torch, lj_cfg_cut, lj_splits, device, "LJ SchNet EF", lj_bs)
+        torch, lj_cfg_cut, lj_splits, device, "LJ SchNet EF", lj_bs,
+        LJ_GROUP)
     train_paths["lj_schnet_ef"]["run"] = lj_rec
     for rec in (pna_rec, lj_rec):
         rec.pop("history")
@@ -2596,17 +2875,17 @@ def main() -> int:
         first_step_gradients=lj_bf16_gradients(torch, lj_bf16_cfg,
                                                lj_splits, device),
         sgd_steps=lj_sgd_steps(torch, lj_cfg, lj_splits, device))
-    for key, cfg_, data, label, graphs in (
+    for key, cfg_, data, label, graphs, group in (
             ("csce_pna_dense_bf16", base_cfg, splits, "csce PNA (dense)",
-             batch_size),
+             batch_size, CSCE_GROUP),
             ("csce_pna_edge_bf16", edge_cfg, splits,
-             "csce PNA (edge list)", batch_size),
+             "csce PNA (edge list)", batch_size, CSCE_GROUP),
             ("lj_schnet_ef_bf16", lj_cfg_cut, lj_splits, "LJ SchNet EF",
-             lj_bs)):
+             lj_bs, LJ_GROUP)):
         cfg_ = copy.deepcopy(cfg_)
         cfg_["NeuralNetwork"]["Architecture"]["dtype"] = "bfloat16"
         train_paths[key] = step_metrics(torch, cfg_, data, device,
-                                        f"{label} bf16", graphs)
+                                        f"{label} bf16", graphs, group)
         train_paths[key]["run"] = bf16_runs[key]
     train_paths["csce_pna_engine_bf16"] = serving_bf16
     train_paths["lj_ef_engine_bf16"] = lj_serving_bf16
@@ -2617,7 +2896,9 @@ def main() -> int:
     # ---------------------------------------------------------- phase 8
     resume = resume_phase(torch, device, base_cfg, splits, counted)
     print("training: " + json.dumps({"card": card, "paths": train_paths,
-                                     "resume": resume}), flush=True)
+                                     "resume": resume,
+                                     "serving_graphs": SERVING_GRAPHS}),
+          flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -2632,6 +2913,12 @@ def main() -> int:
                "filter_scatter": (
                    "hydragnn_tpu_torch/csrc/filter_scatter.cu",
                    "hydragnn_tpu/kernels/fused_mp_pallas.py:187")}
+    def per_captured_step(counter):
+        """{training path: launches of `counter` in its captured step}."""
+        return {path: rec["kernel_launches_per_captured_step"][counter]
+                for path, rec in train_paths.items()
+                if counter in rec.get("kernel_launches_per_captured_step",
+                                      {})}
     kernels = []
     for name in ("segment_sum", "nbr_aggregate", "pna_edge_aggregate",
                  "filter_scatter"):
@@ -2641,6 +2928,10 @@ def main() -> int:
         if name in bf16_records:
             extra["bf16"] = dict(launches=launches[f"{name}_bf16"],
                                  **bf16_records[name])
+        extra["launches_per_captured_step"] = per_captured_step(name)
+        if name == "filter_scatter":
+            extra["backward_launches_per_captured_step"] = \
+                per_captured_step("filter_scatter_backward")
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches[name],
                             **extra, **records[name]))
@@ -2659,7 +2950,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda",
                             source="hydragnn_tpu_torch/csrc/pna_backward.cu",
                             replaces=rep, launches=launches[counter],
-                            launches_per_step=backward_per_step[name],
+                            launches_per_captured_step=per_captured_step(
+                                counter),
                             **rec))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

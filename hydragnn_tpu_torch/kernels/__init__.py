@@ -12,6 +12,10 @@ version for CPU tensors, and counts its launches in an integer of its
 module; `filter_scatter` counts its forward calls and the calls its
 backward makes apart; a PNA backward counts the two kernels of its two
 passes, under `<kernel>_backward`.
+
+A wrapper called while a CUDA graph is captured counts the launch it
+records; `train/step_graphs.py` takes a capture's count back and adds it
+again at each replay, so the counters count the kernels the card runs.
 """
 from __future__ import annotations
 
@@ -48,6 +52,17 @@ def launch_counts() -> Dict[str, int]:
             for name, (_, attr) in KERNEL_COUNTERS.items()}
 
 
-def reset_launch_counts() -> None:
+def set_launch_counts(counts: Dict[str, int]) -> None:
     for name, (_, attr) in KERNEL_COUNTERS.items():
-        setattr(_module(name), attr, 0)
+        setattr(_module(name), attr, counts[name])
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    for name, (_, attr) in KERNEL_COUNTERS.items():
+        if counts[name]:
+            mod = _module(name)
+            setattr(mod, attr, getattr(mod, attr) + counts[name])
+
+
+def reset_launch_counts() -> None:
+    set_launch_counts(dict.fromkeys(KERNEL_COUNTERS, 0))

@@ -13,6 +13,11 @@ runs `train_validate_test`. Returns (state, history, model,
 completed_config); `run_prediction(completed_config, datasets,
 state=state, model=model)` predicts from the trained state.
 
+Steps: on the card each train and eval step is a CUDA graph replay
+(train/step_graphs.py); `Training.steps_per_call` (or
+HYDRAGNN_STEPS_PER_CALL) S > 1 trains S steps a call, one replay of a
+graph of S steps, as the JAX package scans S steps in one dispatch.
+
 Precision: the steps compute in the resolved precision
 (train/precision.py: HYDRAGNN_PRECISION, then Architecture.dtype, float32
 or bfloat16) on float32 master parameters.
@@ -43,11 +48,13 @@ from .preprocess.load_data import create_dataloaders
 from .train import trainer
 from .train.optimizer import select_optimizer
 from .train.precision import resolve_precision
-from .train.train_step import TrainState, make_eval_step, make_train_step
+from .train.train_step import (TrainState, make_eval_step,
+                               make_multi_eval_step, make_multi_train_step,
+                               make_train_step)
 from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
-from .utils.envflags import (env_flag, env_str, env_strict_flag,
-                             resolve_packing)
+from .utils.envflags import (env_flag, env_strict_flag, resolve_packing,
+                             resolve_steps_per_call)
 
 
 def _not_ported(what: str, item: str):
@@ -65,9 +72,6 @@ def check_training_knobs(config) -> None:
     checks = [
         (resolve_packing(tr), "batch packing",
          "A5.3, with the pack planner of A2/A5"),
-        (int(env_str("HYDRAGNN_STEPS_PER_CALL",
-                     tr.get("steps_per_call", 1)) or 1) > 1,
-         "steps_per_call > 1", "A5: steps_per_call"),
         (int(arch.get("graph_shards", 1) or 1) > 1,
          "Architecture.graph_shards", "A9: multi-GPU training"),
         (int(tr.get("pipeline_stages", 1) or 1) > 1,
@@ -133,6 +137,17 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     eval_step = make_eval_step(model, mcfg, loss_name,
                                compute_grad_energy=cge, energy_weight=e_w,
                                force_weight=f_w, compute_dtype=compute_dtype)
+    # steps-per-call dispatch batching (Training.steps_per_call /
+    # HYDRAGNN_STEPS_PER_CALL): S steps a call, one CUDA graph replay on
+    # the card; the same steps as the single-step loop
+    multi_step = multi_eval = None
+    steps_per_call = resolve_steps_per_call(train_cfg)
+    if steps_per_call > 1:
+        kw = dict(loss_name=loss_name, compute_grad_energy=cge,
+                  energy_weight=e_w, force_weight=f_w,
+                  compute_dtype=compute_dtype)
+        multi_step = make_multi_train_step(model, mcfg, tx, **kw)
+        multi_eval = make_multi_eval_step(model, mcfg, **kw)
     verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
     log_name = get_log_name_config(config)
     start_epoch, resume, best0, best_val0 = _resume(train_cfg, state,
@@ -185,7 +200,9 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
             start_epoch=start_epoch, resume=resume,
             checkpoint_every_n_epochs=every, periodic_checkpoint_fn=save_fn,
             preempt_save_fn=save_fn, initial_best_state=best0,
-            initial_best_val=best_val0, resume_meta_out=final_meta)
+            initial_best_val=best_val0, resume_meta_out=final_meta,
+            multi_train_step=multi_step, multi_eval_step=multi_eval,
+            steps_per_call=steps_per_call)
     finally:
         if save_fn is not None:
             trainer.restore_sigterm_handler()

@@ -38,6 +38,18 @@ the JAX package's bound): every future carries ``parity`` "tolerance"
 and the two tolerances, and ``stats()`` reports ``compute_dtype`` and
 ``parity``.
 
+CUDA graphs (counterpart: the JAX engine's AOT executable per bucket,
+hydragnn_tpu/serving/engine.py:1123-1150, compiled at warm-up,
+:898-912). On the card each bucket's forward (EF: forward and the
+forces' backward) is one CUDA graph: `warmup()` captures every bucket, a
+bucket not captured yet is captured at its first use, and a forward
+collates on the host, copies into the bucket's static batch, replays and
+copies the outputs to the host before the next replay. Forwards hold one
+lock, so captures and replays never overlap (captures run in
+thread-local mode). `forward_single` replays the same bucket's graph, so
+batched = single holds as above; `capture_ms` holds each bucket's
+capture time (its warm-up included). On the CPU the forward runs eagerly.
+
 A failed batch resolves only its own futures with the error and the
 dispatcher keeps serving. Admission bounds, deadlines, the circuit
 breaker, raw-structure serving, multi-device shards and the fleet hooks
@@ -61,6 +73,7 @@ from ..graphs.packing import (MAX_GRAPH_SLOTS, PackBudget, choose_budget,
                               sample_sizes)
 from ..train.loss import energy_forces_from_node_head
 from ..train.precision import resolve_precision
+from ..train.step_graphs import GraphContext, capture, fill
 from ..train.train_step import make_forward_fn
 from ..utils.devices import resolve_device
 from .config import check_serving_precision
@@ -188,6 +201,12 @@ class InferenceEngine:
             self._response_heads = [h.head_type for h in mcfg.heads]
 
         self._lock = threading.Lock()
+        # one forward at a time: a bucket's static batch and outputs are
+        # shared, and a capture needs the card to itself
+        self._forward_lock = threading.Lock()
+        self._graphs = {}          # guarded-by: _forward_lock
+        self.capture_ms = {}       # bucket -> capture ms
+        self._graph_ctx = None
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False  # guarded-by: _lock
         self.requests_done = 0  # guarded-by: _lock
@@ -235,8 +254,8 @@ class InferenceEngine:
         return self._unpad([req], bucket, self._forward([req], bucket))[0]
 
     def warmup(self) -> int:
-        """Run one forward per bucket (builds the kernels on the card and
-        primes the allocator); returns the number of buckets run."""
+        """Run one forward per bucket (on the card: build the kernels and
+        capture the bucket's graph); returns the number of buckets run."""
         for bucket in self.buckets:
             self._forward([_Request(self._proto, Future())], bucket)
         return len(self.buckets)
@@ -304,22 +323,49 @@ class InferenceEngine:
 
     def _collate_bucket(self, samples: List[GraphSample],
                         bucket: PackBudget) -> GraphBatch:
+        """The bucket's padded batch, on the host."""
         b = collate(samples, n_node=bucket.n_node, n_edge=bucket.n_edge,
                     n_graph=bucket.n_graph)
         b = b.replace(y_graph=None, y_node=None, energy=None, forces=None)
         if self.neighbor_k is not None:
             b = with_neighbor_format(b, k=self.neighbor_k)
-        return b.to(self.device)
+        return b
+
+    def _run(self, batch: GraphBatch) -> List[torch.Tensor]:
+        """The eager forward: the CPU's route and the graphs' capture
+        body."""
+        if self.ef_forward:
+            return list(energy_forces_from_node_head(self._model_fn, batch))
+        with torch.inference_mode():
+            outputs, _ = self._model_fn(batch)
+        return list(outputs)
 
     def _forward(self, reqs: List[_Request],
                  bucket: PackBudget) -> List[np.ndarray]:
         batch = self._collate_bucket([r.sample for r in reqs], bucket)
-        if self.ef_forward:
-            outputs = energy_forces_from_node_head(self._model_fn, batch)
-            return [o.cpu().numpy() for o in outputs]
-        with torch.inference_mode():
-            outputs, _ = self._model_fn(batch)
-            return [o.cpu().numpy() for o in outputs]
+        if self.device.type == "cpu":
+            return [o.numpy() for o in self._run(batch)]
+        with self._forward_lock:
+            cap = self._graphs.get(bucket)
+            if cap is None:
+                cap = self._graphs[bucket] = self._capture(bucket, batch)
+            else:
+                fill(cap.inputs, batch)
+            cap.replay()
+            return [o.cpu().numpy() for o in cap.outputs]
+
+    def _capture(self, bucket: PackBudget, batch: GraphBatch):
+        """The bucket's graph, captured from a forward of `batch` (the
+        warm-up runs and the captured call compute on it)."""
+        if self._graph_ctx is None:
+            self._graph_ctx = GraphContext(self.device)
+        slot = self._graph_ctx.slots(batch, 1)[0]
+        fill(slot, batch)
+        cap = capture(self._graph_ctx, lambda: self._run(slot),
+                      error_mode="thread_local")
+        cap.inputs = slot
+        self.capture_ms[bucket] = cap.capture_ms
+        return cap
 
     def _unpad(self, reqs: List[_Request], bucket: PackBudget,
                outs: List[np.ndarray]) -> List[List[np.ndarray]]:

@@ -57,11 +57,13 @@ def _bias_correction(decay: float, count: int) -> float:
                  ** torch.tensor(float(count), dtype=torch.float32))
 
 
-def _moment(g: Tensors, m: Tensors, decay: float, order: int) -> Tensors:
-    """(1 - decay) g^order + decay m: optax's update_moment."""
+def _moment_(m: Tensors, g: Tensors, decay: float, order: int) -> None:
+    """m <- (1 - decay) g^order + decay m, in place: optax's update_moment
+    (the two products added in the other order, which IEEE addition does
+    not see)."""
     gp = g if order == 1 else torch._foreach_mul(g, g)
-    return torch._foreach_add(torch._foreach_mul(gp, 1 - decay),
-                              torch._foreach_mul(m, decay))
+    torch._foreach_mul_(m, decay)
+    torch._foreach_add_(m, torch._foreach_mul(gp, 1 - decay))
 
 
 def _zeros(params: Tensors) -> Tensors:
@@ -72,13 +74,29 @@ def _norm(t: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(t * t))
 
 
+# the columns of a step's scalar row (`Optimizer.step_scalars`)
+SCALARS = ("neg_lr", "bias_correction_1", "bias_correction_2", "micro_step")
+# the rules that count their updates for a bias correction
+_COUNTED = ("Adam", "AdamW", "FusedLAMB", "Adamax")
+
+
 class Optimizer:
     """One of the registry's update rules behind optional global-norm
     clipping, with an injectable learning rate and optional gradient
     accumulation: the port's counterpart of the optax transformation
     `select_optimizer` builds. `init(params)` -> OptState;
-    `update(grads, state, params)` -> (updates, state), the state updated
-    in place; updates are None on a micro-step that only accumulates."""
+    `update(grads, state, params)` -> (updates, state); updates are None
+    on a micro-step that only accumulates.
+
+    Capture-safe: every slot and the accumulator are updated in place
+    (their tensors, and so their addresses, stay those `init` made), and
+    the scalars that change from step to step (-lr, the bias corrections
+    1 - b^count, the micro-step divisor) are read from a float32 device
+    tensor, one row a step (`step_scalars`), that the caller of a CUDA
+    graph refills before each replay. The host keeps the counters
+    (`count`, `mini_step`, `gradient_step`, the learning rate) and
+    computes each row exactly as the Python scalars were computed, so a
+    row's values, and the update's bits on the CPU, are the same."""
 
     def __init__(self, name: str, learning_rate: float = 1e-3,
                  weight_decay: float = 1e-2, momentum: float = 0.9,
@@ -116,51 +134,83 @@ class Optimizer:
             state.acc_grads = _zeros(params)
         return state
 
+    # ---------------------------------------------------- host scalars --
+    def applies(self, state: OptState) -> bool:
+        """Whether the next `update` on `state` is an inner update (not a
+        micro-step that only accumulates)."""
+        return state.mini_step >= self.accumulate - 1
+
+    def step_scalars(self, state: OptState) -> List[float]:
+        """The next update's scalar row (columns `SCALARS`), from the
+        host's counters: -lr, 1 - 0.9^c and 1 - 0.999^c with c the count
+        that update takes, and mini_step + 1."""
+        count = state.count + 1
+        return [-state.learning_rate, _bias_correction(0.9, count),
+                _bias_correction(0.999, count), float(state.mini_step + 1)]
+
+    def advance(self, state: OptState) -> None:
+        """Move the host's counters over one `update`, as `update` does:
+        what the host runs in place of a captured update."""
+        applies = self.applies(state)
+        if self.accumulate > 1:
+            if not applies:
+                state.mini_step += 1
+                return
+            state.mini_step = 0
+            state.gradient_step += 1
+        if self.name in _COUNTED:
+            state.count += 1
+
     # ----------------------------------------------------------- update --
     def update(self, grads: Sequence[torch.Tensor], state: OptState,
-               params: Sequence[torch.Tensor]):
+               params: Sequence[torch.Tensor],
+               scalars: Optional[torch.Tensor] = None):
+        """`scalars`: this step's row of `step_scalars` as a float32
+        tensor on the parameters' device (made here when None)."""
         grads = list(grads)
         params = [p.detach() for p in params]
+        if scalars is None:
+            scalars = torch.tensor(self.step_scalars(state),
+                                   dtype=torch.float32,
+                                   device=params[0].device)
+        applies = self.applies(state)
         if self.accumulate == 1:
-            return self._inner(grads, state, params), state
-        # optax.MultiSteps: a running mean of the micro-batch gradients,
-        # one inner update every `accumulate` calls
-        acc = state.acc_grads
-        diff = torch._foreach_sub(grads, acc)
-        acc = torch._foreach_add(acc, torch._foreach_div(
-            diff, float(state.mini_step + 1)))
-        if state.mini_step < self.accumulate - 1:
-            state.acc_grads = acc
-            state.mini_step += 1
-            return None, state
-        updates = self._inner(acc, state, params)
-        state.acc_grads = _zeros(params)
-        state.mini_step = 0
-        state.gradient_step += 1
+            updates = self._inner(grads, state, params, scalars)
+        else:
+            # optax.MultiSteps: a running mean of the micro-batch
+            # gradients, one inner update every `accumulate` calls
+            acc = state.acc_grads
+            diff = torch._foreach_sub(grads, acc)
+            torch._foreach_div_(diff, scalars[3])
+            torch._foreach_add_(acc, diff)
+            updates = None
+            if applies:
+                updates = self._inner(acc, state, params, scalars)
+                torch._foreach_zero_(acc)
+        self.advance(state)
         return updates, state
 
-    def _inner(self, g: Tensors, state: OptState, p: Tensors) -> Tensors:
+    def _inner(self, g: Tensors, state: OptState, p: Tensors,
+               scalars: torch.Tensor) -> Tensors:
         if self.grad_clip is not None:
             g = _clip_by_global_norm(g, self.grad_clip)
-        u = self._rule(g, state, p)
+        u = self._rule(g, state, p, scalars)
         # scale_by_learning_rate: -lr * u, with lr the float32 hyperparameter
-        return torch._foreach_mul(u, -state.learning_rate)
+        return torch._foreach_mul(u, scalars[0])
 
-    def _rule(self, g: Tensors, state: OptState, p: Tensors) -> Tensors:
+    def _rule(self, g: Tensors, state: OptState, p: Tensors,
+              scalars: torch.Tensor) -> Tensors:
         name, s = self.name, state.slots
         if name == "SGD":
-            s["trace"] = torch._foreach_add(
-                g, torch._foreach_mul(s["trace"], self.momentum))
+            torch._foreach_mul_(s["trace"], self.momentum)
+            torch._foreach_add_(s["trace"], g)
             return list(s["trace"])
         if name in ("Adam", "AdamW", "FusedLAMB"):
             eps = 1e-6 if name == "FusedLAMB" else 1e-8
-            s["mu"] = _moment(g, s["mu"], 0.9, 1)
-            s["nu"] = _moment(g, s["nu"], 0.999, 2)
-            state.count += 1
-            mu_hat = torch._foreach_div(s["mu"],
-                                        _bias_correction(0.9, state.count))
-            nu_hat = torch._foreach_div(s["nu"],
-                                        _bias_correction(0.999, state.count))
+            _moment_(s["mu"], g, 0.9, 1)
+            _moment_(s["nu"], g, 0.999, 2)
+            mu_hat = torch._foreach_div(s["mu"], scalars[1])
+            nu_hat = torch._foreach_div(s["nu"], scalars[2])
             u = torch._foreach_div(mu_hat, torch._foreach_add(
                 torch._foreach_sqrt(nu_hat), eps))
             if name == "AdamW":
@@ -170,32 +220,29 @@ class Optimizer:
                 u = [_trust_ratio(ui, pi) for ui, pi in zip(u, p)]
             return u
         if name == "Adamax":
-            s["mu"] = _moment(g, s["mu"], 0.9, 1)
-            s["nu"] = torch._foreach_maximum(
-                torch._foreach_add(torch._foreach_abs(g), 1e-8),
-                torch._foreach_mul(s["nu"], 0.999))
-            state.count += 1
-            mu_hat = torch._foreach_div(s["mu"],
-                                        _bias_correction(0.9, state.count))
+            _moment_(s["mu"], g, 0.9, 1)
+            torch._foreach_mul_(s["nu"], 0.999)
+            torch._foreach_maximum_(s["nu"], torch._foreach_add(
+                torch._foreach_abs(g), 1e-8))
+            mu_hat = torch._foreach_div(s["mu"], scalars[1])
             return torch._foreach_div(mu_hat, s["nu"])
         if name == "Adadelta":
             rho, eps = 0.9, 1e-6
-            s["e_g"] = _moment(g, s["e_g"], rho, 2)
+            _moment_(s["e_g"], g, rho, 2)
             ratio = torch._foreach_div(
                 torch._foreach_sqrt(torch._foreach_add(s["e_x"], eps)),
                 torch._foreach_sqrt(torch._foreach_add(s["e_g"], eps)))
             u = torch._foreach_mul(ratio, g)
-            s["e_x"] = _moment(u, s["e_x"], rho, 2)
+            _moment_(s["e_x"], u, rho, 2)
             return u
         if name == "Adagrad":
-            sos = torch._foreach_add(torch._foreach_mul(g, g),
-                                     s["sum_of_squares"])
-            s["sum_of_squares"] = sos
+            sos = s["sum_of_squares"]
+            torch._foreach_add_(sos, torch._foreach_mul(g, g))
             return [torch.where(t > 0, torch.rsqrt(t + 1e-7),
                                 torch.zeros_like(t)) * gi
                     for t, gi in zip(sos, g)]
         # RMSprop
-        s["nu"] = _moment(g, s["nu"], 0.9, 2)
+        _moment_(s["nu"], g, 0.9, 2)
         return torch._foreach_mul(
             [torch.rsqrt(n + 1e-8) for n in s["nu"]], g)
 
@@ -243,6 +290,7 @@ def get_learning_rate(opt_state: OptState) -> float:
 
 def set_learning_rate(opt_state: OptState, lr: float) -> OptState:
     """Set the injected learning rate (stored in float32, as optax's
-    inject_hyperparams stores it)."""
+    inject_hyperparams stores it); the next step's scalar row carries
+    it, on the CPU and into a captured step alike."""
     opt_state.learning_rate = _f32(lr)
     return opt_state

@@ -9,10 +9,14 @@ state can be snapshot (`copy`) and put back (`restore`).
 
 `make_train_step` puts the model in training mode (BatchNorm on batch
 statistics, running statistics updated once per step); `make_eval_step`
-in eval mode. The energy-force path (`compute_grad_energy`) takes the
-forces with `create_graph=True` in training and without it in
-evaluation, which still needs gradients to the positions and so runs
-under `torch.enable_grad()`.
+in eval mode. `make_multi_train_step` / `make_multi_eval_step` run S
+steps on S batches in one call (the JAX package's `lax.scan` of the
+step). On the card each step, and each group of S, is one CUDA graph
+replay (train/step_graphs.py); on the CPU the same calls run the eager
+steps, which are also the graphs' capture bodies. The energy-force path
+(`compute_grad_energy`) takes the forces with `create_graph=True` in
+training and without it in evaluation, which still needs gradients to
+the positions and so runs under `torch.enable_grad()`.
 
 Mixed precision (`compute_dtype`, resolved once by
 `train/precision.resolve_precision`): the parameters stay float32
@@ -30,12 +34,13 @@ norms and reductions in float32 and give other numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 
 from ..config.config import ModelConfig
 from ..graphs.batch import GraphBatch
+from .step_graphs import GraphedSteps
 from .loss import energy_force_loss, multihead_loss
 from .optimizer import Optimizer, OptState
 from .precision import resolve_precision
@@ -70,13 +75,31 @@ class TrainState:
 
     def restore(self, snapshot: "TrainState") -> "TrainState":
         """Copy a snapshot's values into this state's tensors (the
-        model's), in place; returns self."""
+        model's parameters and buffers, the optimizer's slots and
+        accumulator), in place, and its counters; returns self. The
+        tensors stay this state's, so a captured step replays on the
+        restored values."""
         with torch.no_grad():
             for live, snap in ((self.params, snapshot.params),
                                (self.batch_stats, snapshot.batch_stats)):
                 for k, v in live.items():
                     v.copy_(snap[k])
-        self.opt_state = _clone_opt_state(snapshot.opt_state)
+            opt, snap_opt = self.opt_state, snapshot.opt_state
+            for k, ts in opt.slots.items():
+                for v, w in zip(ts, snap_opt.slots[k]):
+                    v.copy_(w)
+            for v, w in zip(opt.acc_grads or (), snap_opt.acc_grads or ()):
+                v.copy_(w)
+        return self.restore_host(snapshot)
+
+    def restore_host(self, snapshot: "TrainState") -> "TrainState":
+        """Put back only the host's counters: the step, the learning rate
+        and the optimizer's count, mini_step and gradient_step."""
+        opt, snap_opt = self.opt_state, snapshot.opt_state
+        opt.learning_rate = snap_opt.learning_rate
+        opt.count = snap_opt.count
+        opt.mini_step = snap_opt.mini_step
+        opt.gradient_step = snap_opt.gradient_step
         self.step = snapshot.step
         return self
 
@@ -221,19 +244,16 @@ def make_loss_fn(model, cfg: ModelConfig, loss_name: str = "mse",
     return loss_fn
 
 
-def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
-                    loss_name: str = "mse", compute_grad_energy: bool = False,
-                    energy_weight: float = 1.0,
-                    force_weight=1.0, compute_dtype=None) -> Callable:
-    """step(state, batch) -> (state, metrics): one optimizer step on the
-    state's parameters (the model's, float32 at every compute dtype), in
-    place. metrics are detached 0-dim tensors: loss, task_i or
-    energy_loss/force_loss, and nonfinite_steps (computed before the conv
-    freeze)."""
+def _train_body(model, cfg: ModelConfig, tx: Optimizer, loss_name: str,
+                compute_grad_energy: bool, energy_weight: float,
+                force_weight, compute_dtype) -> Callable:
+    """body(state, batch, scalars) -> (metrics, None): one eager optimizer
+    step, in place. `scalars` is the step's row of the optimizer's
+    scalars (None: made from the host's counters)."""
     loss_fn = make_loss_fn(model, cfg, loss_name, compute_grad_energy,
                            energy_weight, force_weight, compute_dtype)
 
-    def step(state: TrainState, batch: GraphBatch):
+    def body(state: TrainState, batch: GraphBatch, scalars=None):
         model.train()
         names = list(state.params)
         params = list(state.params.values())
@@ -245,15 +265,75 @@ def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["nonfinite_steps"] = _nonfinite_watchdog(total, grads)
         grads = freeze_conv_grads(names, list(grads), cfg)
-        updates, state.opt_state = tx.update(grads, state.opt_state, params)
+        updates, state.opt_state = tx.update(grads, state.opt_state, params,
+                                             scalars)
         updates = freeze_conv_grads(names, updates, cfg)
         if updates is not None:
             with torch.no_grad():
                 torch._foreach_add_(params, updates)
         state.step += 1
-        return state, metrics
+        return metrics, None
 
-    return step
+    return body
+
+
+class TrainStep:
+    """step(state, batch) -> (state, metrics): one optimizer step on the
+    state's parameters (the model's, float32 at every compute dtype), in
+    place; metrics are detached 0-dim tensors: loss, task_i or
+    energy_loss/force_loss, and nonfinite_steps (computed before the conv
+    freeze). A captured graph on the card, the eager step on the CPU;
+    `eager(state, batch)` runs the eager step on any device."""
+
+    def __init__(self, model, body: Callable, tx: Optimizer):
+        self.steps = GraphedSteps(model, body, tx, mode="train")
+
+    def __call__(self, state: TrainState, batch: GraphBatch):
+        stacked, per_step, _ = self.steps(state, [batch])
+        return state, (per_step[0] if per_step is not None
+                       else {k: v[0] for k, v in stacked.items()})
+
+    def eager(self, state: TrainState, batch: GraphBatch):
+        _, per_step, _ = self.steps.eager(state, [batch])
+        return state, per_step[0]
+
+
+class MultiTrainStep:
+    """multi(state, batches) -> (state, metrics): S optimizer steps on S
+    placed batches, metrics stacked as [S] (the JAX package's
+    `make_multi_train_step`). One CUDA graph replay on the card; S eager
+    steps on the CPU and in `eager`."""
+
+    def __init__(self, model, body: Callable, tx: Optimizer):
+        self.steps = GraphedSteps(model, body, tx, mode="train")
+
+    def __call__(self, state: TrainState, batches: Sequence[GraphBatch]):
+        return state, self.steps(state, list(batches))[0]
+
+    def eager(self, state: TrainState, batches: Sequence[GraphBatch]):
+        return state, self.steps.eager(state, list(batches))[0]
+
+
+def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
+                    loss_name: str = "mse", compute_grad_energy: bool = False,
+                    energy_weight: float = 1.0,
+                    force_weight=1.0, compute_dtype=None) -> TrainStep:
+    """The single train step (`TrainStep`)."""
+    return TrainStep(model, _train_body(
+        model, cfg, tx, loss_name, compute_grad_energy, energy_weight,
+        force_weight, compute_dtype), tx)
+
+
+def make_multi_train_step(model, cfg: ModelConfig, tx: Optimizer,
+                          loss_name: str = "mse",
+                          compute_grad_energy: bool = False,
+                          energy_weight: float = 1.0, force_weight=1.0,
+                          compute_dtype=None) -> MultiTrainStep:
+    """S train steps a call (`MultiTrainStep`); the same arguments as
+    `make_train_step`."""
+    return MultiTrainStep(model, _train_body(
+        model, cfg, tx, loss_name, compute_grad_energy, energy_weight,
+        force_weight, compute_dtype), tx)
 
 
 def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
@@ -284,18 +364,68 @@ def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
     return metrics, outputs
 
 
-def make_eval_step(model, cfg: ModelConfig, loss_name: str = "mse",
-                   compute_grad_energy: bool = False,
-                   energy_weight: float = 1.0,
-                   force_weight=1.0, compute_dtype=None) -> Callable:
-    """eval_step(state, batch) -> (metrics, outputs) with the state's
-    parameters (the model's) in eval mode, in the resolved compute
-    dtype."""
+def _eval_body(model, cfg: ModelConfig, loss_name: str,
+               compute_grad_energy: bool, energy_weight: float, force_weight,
+               compute_dtype) -> Callable:
+    """body(state, batch, scalars) -> (metrics, outputs) in eval mode
+    (`scalars` unused: an eval step updates nothing)."""
     forward = make_forward_fn(model, cfg, compute_dtype)
 
-    def eval_step(state: TrainState, batch: GraphBatch):
+    def body(state: TrainState, batch: GraphBatch, scalars=None):
         return eval_metrics_and_outputs(model, cfg, loss_name, batch,
                                         compute_grad_energy, energy_weight,
                                         force_weight, forward)
 
-    return eval_step
+    return body
+
+
+class EvalStep:
+    """eval_step(state, batch) -> (metrics, outputs) with the state's
+    parameters (the model's) in eval mode: a captured graph on the card
+    (its outputs cloned from the graph's), the eager step on the CPU."""
+
+    def __init__(self, model, body: Callable):
+        self.steps = GraphedSteps(model, body, mode="eval",
+                                  keep_outputs=True)
+
+    def __call__(self, state: TrainState, batch: GraphBatch):
+        stacked, per_step, outputs = self.steps(state, [batch])
+        return (per_step[0] if per_step is not None
+                else {k: v[0] for k, v in stacked.items()}), outputs
+
+    def eager(self, state: TrainState, batch: GraphBatch):
+        _, per_step, outputs = self.steps.eager(state, [batch])
+        return per_step[0], outputs
+
+
+class MultiEvalStep:
+    """multi_eval(state, batches) -> metrics stacked as [S] (the JAX
+    package's `make_multi_eval_step`: outputs are dropped)."""
+
+    def __init__(self, model, body: Callable):
+        self.steps = GraphedSteps(model, body, mode="eval")
+
+    def __call__(self, state: TrainState, batches: Sequence[GraphBatch]):
+        return self.steps(state, list(batches))[0]
+
+
+def make_eval_step(model, cfg: ModelConfig, loss_name: str = "mse",
+                   compute_grad_energy: bool = False,
+                   energy_weight: float = 1.0,
+                   force_weight=1.0, compute_dtype=None) -> EvalStep:
+    """The single eval step (`EvalStep`), in the resolved compute
+    dtype."""
+    return EvalStep(model, _eval_body(model, cfg, loss_name,
+                                      compute_grad_energy, energy_weight,
+                                      force_weight, compute_dtype))
+
+
+def make_multi_eval_step(model, cfg: ModelConfig, loss_name: str = "mse",
+                         compute_grad_energy: bool = False,
+                         energy_weight: float = 1.0, force_weight=1.0,
+                         compute_dtype=None) -> MultiEvalStep:
+    """S eval steps a call, metrics only (`MultiEvalStep`)."""
+    return MultiEvalStep(model, _eval_body(model, cfg, loss_name,
+                                           compute_grad_energy,
+                                           energy_weight, force_weight,
+                                           compute_dtype))

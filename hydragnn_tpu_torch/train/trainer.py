@@ -11,6 +11,13 @@ val_task_i, test_task_i (energy_loss / force_loss on the energy-force
 path). HYDRAGNN_MAX_NUM_BATCH caps the batches of an epoch and
 HYDRAGNN_VALTEST=0 skips the eval passes, as in the JAX package.
 
+Steps per call (JAX trainer.py:356-410, 769-840): with a multi step and
+`steps_per_call` S > 1 the train pass runs the loader's batches in groups
+of S, one multi-step call (one CUDA graph replay on the card) and one
+host read of the metrics per full group; the remainder group, and a
+group that HYDRAGNN_MAX_NUM_BATCH would cut, run as single steps. The
+eval passes group likewise when the loader holds at least one full group.
+
 Fault tolerance (JAX trainer.py:29-85, 247-340): SIGTERM only sets a
 flag (`install_sigterm_handler`); the loop checks it at every step
 boundary and makes ONE save through `preempt_save_fn`, then exits. A
@@ -30,6 +37,9 @@ import subprocess
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
 
 from ..utils.envflags import env_flag, env_strict_int
 from .optimizer import get_learning_rate, set_learning_rate
@@ -175,23 +185,57 @@ def walltime_deadline(default: Optional[float] = None) -> Optional[float]:
     return default
 
 
-def _accumulate(acc: Dict[str, float], metrics) -> None:
-    for k, v in metrics.items():
-        if (k == "loss" or k == "nonfinite_steps" or k.startswith("task_")
-                or k.endswith("_loss")):
-            acc[k] = acc.get(k, 0.0) + float(v)
+def _group_batches(loader, size: int):
+    """Lists of `size` consecutive loader batches; the last may be
+    shorter."""
+    buf = []
+    for b in loader:
+        buf.append(b)
+        if len(buf) == size:
+            yield buf
+            buf = []
+    if buf:
+        yield buf
 
 
-def _eval_epoch(eval_step, state, loader, place_fn):
-    """(mean loss, {metric: mean}) over the loader's batches."""
+def _accumulate(acc: Dict[str, float], metrics, summed: bool = False
+                ) -> None:
+    """Add one step's metrics (or, `summed`, the [S] metrics of a group,
+    summed in float32 as np.sum does) into `acc`: one host read for the
+    whole dict."""
+    keys = [k for k in metrics
+            if (k == "loss" or k == "nonfinite_steps" or k.startswith("task_")
+                or k.endswith("_loss"))]
+    if not keys:
+        return
+    vals = torch.stack([metrics[k] for k in keys]).cpu().numpy()
+    for k, v in zip(keys, vals):
+        acc[k] = acc.get(k, 0.0) + (float(np.sum(v)) if summed
+                                    else float(v))
+
+
+def _eval_epoch(eval_step, state, loader, place_fn, multi_eval_step=None,
+                steps_per_call: int = 1):
+    """(mean loss, {metric: mean}) over the loader's batches, in groups
+    of `steps_per_call` through `multi_eval_step` when the loader holds
+    at least one full group (the remainder as single steps)."""
     if loader is None:
         return float("nan"), {}
     acc: Dict[str, float] = {}
     nb = 0
-    for batch in loader:
-        metrics, _ = eval_step(state, place_fn(batch))
-        _accumulate(acc, metrics)
-        nb += 1
+    grouped = (multi_eval_step is not None and steps_per_call > 1
+               and len(loader) >= steps_per_call)
+    groups = (_group_batches(loader, steps_per_call) if grouped
+              else ([b] for b in loader))
+    for group in groups:
+        if grouped and len(group) == steps_per_call:
+            _accumulate(acc, multi_eval_step(
+                state, [place_fn(b) for b in group]), summed=True)
+        else:
+            for batch in group:
+                metrics, _ = eval_step(state, place_fn(batch))
+                _accumulate(acc, metrics)
+        nb += len(group)
     means = {k: v / max(nb, 1) for k, v in acc.items()}
     return means.pop("loss", float("nan")), means
 
@@ -221,6 +265,9 @@ def train_validate_test(
     initial_best_state=None,
     initial_best_val: Optional[float] = None,
     resume_meta_out: Optional[Dict[str, Any]] = None,
+    multi_train_step: Optional[Callable] = None,
+    multi_eval_step: Optional[Callable] = None,
+    steps_per_call: int = 1,
 ):
     """Returns (state, history). `place_fn(batch)` moves a loader batch to
     the model's device. With `keep_best` the returned state holds the
@@ -238,7 +285,12 @@ def train_validate_test(
     `request_preemption`), after which the loop returns. `meta` is the
     resume metadata (`next_epoch`, `step`, `loader_epoch`, `trainer`);
     `resume_meta_out` receives the run-complete one (next_epoch =
-    num_epochs) for the caller's final save."""
+    num_epochs) for the caller's final save.
+
+    `multi_train_step(state, batches) -> (state, metrics [S])` and
+    `multi_eval_step(state, batches) -> metrics [S]` run groups of
+    `steps_per_call` batches (train_step.make_multi_*_step); the
+    preemption flag is then checked once a group."""
     place_fn = place_fn or (lambda b: b)
     early = EarlyStopping(patience) if use_early_stopping else None
     gate = CheckpointGate(checkpoint_warmup)
@@ -308,13 +360,29 @@ def train_validate_test(
         acc: Dict[str, float] = {}
         nb = 0
         preempted = False
-        for batch in train_loader:
+        group = multi_train_step is not None and steps_per_call > 1
+        source = (_group_batches(train_loader, steps_per_call) if group
+                  else ([b] for b in train_loader))
+        for batches in source:
             if preemption_requested():
                 preempted = True
                 break
-            state, metrics = train_step(state, place_fn(batch))
-            _accumulate(acc, metrics)
-            nb += 1
+            if group and len(batches) == steps_per_call and (
+                    max_num_batch is None
+                    or nb + steps_per_call <= max_num_batch):
+                state, metrics = multi_train_step(
+                    state, [place_fn(b) for b in batches])
+                _accumulate(acc, metrics, summed=True)
+                nb += steps_per_call
+            else:
+                # single steps: no group, the remainder group, or a group
+                # the batch cap cuts
+                for batch in batches:
+                    if max_num_batch is not None and nb >= max_num_batch:
+                        break
+                    state, metrics = train_step(state, place_fn(batch))
+                    _accumulate(acc, metrics)
+                    nb += 1
             if max_num_batch is not None and nb >= max_num_batch:
                 break
         if preempted:
@@ -327,10 +395,12 @@ def train_validate_test(
         train_loss = acc.pop("loss", 0.0) / max(nb, 1)
         nonfinite = acc.pop("nonfinite_steps", 0.0)
         if run_valtest:
-            val_loss, val_tasks = _eval_epoch(eval_step, state, val_loader,
-                                              place_fn)
-            test_loss, test_tasks = _eval_epoch(eval_step, state,
-                                                test_loader, place_fn)
+            val_loss, val_tasks = _eval_epoch(
+                eval_step, state, val_loader, place_fn, multi_eval_step,
+                steps_per_call)
+            test_loss, test_tasks = _eval_epoch(
+                eval_step, state, test_loader, place_fn, multi_eval_step,
+                steps_per_call)
         else:
             val_loss = test_loss = float("nan")
             val_tasks = test_tasks = {}

@@ -48,6 +48,15 @@ def env_strict_flag(name: str, default: bool = False) -> bool:
     return default
 
 
+def env_int(name: str, default=None):
+    """Integer env knob: unset or whitespace-only -> `default`, otherwise
+    int(value); a value that is not an integer raises ValueError."""
+    val = os.getenv(name)
+    if val is None or not val.strip():
+        return default
+    return int(val)
+
+
 def _env_strict_number(name: str, default, conv, kind: str):
     val = os.getenv(name)
     if val is None or not val.strip():
@@ -91,3 +100,13 @@ def resolve_packing(train_cfg) -> bool:
     hydragnn_tpu/utils/envflags.py `resolve_packing`)."""
     return env_strict_flag("HYDRAGNN_PACKING",
                            bool(train_cfg.get("batch_packing", False)))
+
+
+def resolve_steps_per_call(train_cfg) -> int:
+    """Train steps per dispatch: HYDRAGNN_STEPS_PER_CALL, when set,
+    overrides Training.steps_per_call (default 1) (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_steps_per_call`)."""
+    spc_env = env_int("HYDRAGNN_STEPS_PER_CALL")
+    if spc_env is not None:
+        return spc_env
+    return int(train_cfg.get("steps_per_call", 1))

@@ -20,6 +20,8 @@ larger magnitude (at least 2^-10; the two float32 sums differ in order
 only, so they round to the same bf16 value or a neighbour); the
 bf16-exact tie-rich dyadic cases bitwise.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1345,3 +1347,247 @@ def test_edge_forward_bitwise_in_edge_order(cuda_device, monkeypatch, dtype,
     for name, g, w in zip(("s", "sq", "cnt", "min", "max"), got, want):
         assert g.dtype == w.dtype == dtype, name
         assert torch.equal(g, w), name
+
+
+# ------------------------------------------------------ CUDA graphs --
+# Captured train and eval steps (train/step_graphs.py) and the serving
+# engine's per-bucket graphs against the eager bodies they were captured
+# from, on the same card: every comparison is bitwise (the same kernels
+# on the same inputs, no atomic float scatter on these paths).
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _step_setup(dev, kind, dtype="float32", accumulate=1, lr=None):
+    """(model config, train config, 7 loader batches on the card) of csce
+    PNA (dense or edge list) or LJ SchNet EF at the published widths, 4
+    graphs a batch."""
+    import copy
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     synthetic_molecules)
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    if kind == "schnet":
+        path, data = "examples/LennardJones/LJ.json", lj_configurations(
+            36, seed=1)
+    else:
+        path, data = "examples/csce/csce_gap.json", synthetic_molecules(
+            36, seed=1)
+    with open(ROOT / path) as fh:
+        cfg = json.load(fh)
+    dense = kind == "pna_dense"
+    arch, tr = cfg["NeuralNetwork"]["Architecture"], \
+        cfg["NeuralNetwork"]["Training"]
+    arch["neighbor_format"] = dense
+    arch["dtype"] = dtype
+    tr["batch_size"] = 4
+    tr["gradient_accumulation_steps"] = accumulate
+    if lr is not None:
+        tr["Optimizer"]["learning_rate"] = lr
+    splits = (data[:28], data[28:32], data[32:])
+    cfg = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    loader = create_dataloaders(*splits, 4, neighbor_format=dense)[0]
+    batches = [b.to(dev) for b in loader]
+    assert len(batches) == 7
+    return tcfg.build_model_config(cfg), cfg["NeuralNetwork"]["Training"], \
+        batches
+
+
+def _fresh_state(dev, mcfg, train_cfg):
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    model = create_model(mcfg, device=dev, seed=3)
+    tx = topt.select_optimizer(train_cfg)
+    return model, tx, tstep.TrainState.create(model, tx)
+
+
+def _step_kwargs(train_cfg):
+    return dict(loss_name=train_cfg["loss_function_type"],
+                compute_grad_energy=bool(train_cfg.get("compute_grad_energy")))
+
+
+def _host_state(state):
+    """Every tensor of a state on the host, and its counters."""
+    opt = state.opt_state
+    tensors = {**{f"p/{k}": v.detach().cpu().clone()
+                  for k, v in state.state_dict().items()},
+               **{f"s/{k}/{i}": t.cpu().clone()
+                  for k, ts in opt.slots.items() for i, t in enumerate(ts)},
+               **{f"a/{i}": t.cpu().clone()
+                  for i, t in enumerate(opt.acc_grads or ())}}
+    return tensors, (state.step, opt.count, opt.mini_step,
+                     opt.gradient_step, opt.learning_rate)
+
+
+def _assert_same_state(a, b):
+    (ta, ca), (tb, cb) = a, b
+    assert ca == cb
+    for k, v in ta.items():
+        assert torch.equal(v, tb[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["pna_dense", "pna_edge", "schnet"])
+def test_captured_steps_equal_eager_steps_bitwise(cuda_device, kind, dtype):
+    """Six eager steps against a captured group of S = 4, a learning-rate
+    change between replays, then two captured single steps (the S = 1
+    graph, as the remainder of a group runs): each step's metrics, and
+    every parameter, running statistic and optimizer slot afterwards,
+    bitwise. The launch counters count a replay's kernels as the eager
+    steps count theirs."""
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    dev = cuda_device
+    mcfg, train_cfg, batches = _step_setup(dev, kind, dtype)
+    kw = _step_kwargs(train_cfg)
+    runs = []
+    for graphed in (False, True):
+        model, tx, state = _fresh_state(dev, mcfg, train_cfg)
+        single = tstep.make_train_step(model, mcfg, tx, **kw)
+        multi = tstep.make_multi_train_step(model, mcfg, tx, **kw)
+        losses = []
+        if graphed:
+            state, m = multi(state, batches[:4])
+            losses += m["loss"].cpu().tolist()
+        else:
+            for b in batches[:4]:
+                state, m = single.eager(state, b)
+                losses.append(float(m["loss"]))
+        topt.set_learning_rate(state.opt_state, 0.5 * topt.get_learning_rate(
+            state.opt_state))
+        for i, b in enumerate(batches[4:6]):
+            if i == 1:      # past the S = 1 capture and its warm-up runs
+                tk.reset_launch_counts()
+            state, m = (single if graphed else single.eager)(state, b)
+            losses.append(float(m["loss"]))
+            assert float(m["nonfinite_steps"]) == 0.0
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), tk.launch_counts()))
+    (la, sa, ca), (lb, sb, cb) = runs
+    assert la == lb
+    _assert_same_state(sa, sb)
+    assert ca == cb and sum(ca.values()) > 0
+
+
+@pytest.mark.cuda
+def test_captured_steps_replay_a_restored_and_a_resumed_state(
+        cuda_device, tmp_path, monkeypatch):
+    """A captured step keeps reading the state's tensors: after
+    `TrainState.restore` (keep_best's route) and after a checkpoint
+    resume (load_existing_model + restore, `continue`'s route) its
+    replays repeat the steps taken from that point bitwise; a state
+    whose tensors are not the captured ones raises."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+    from hydragnn_tpu_torch.utils import checkpoint as ckpt
+    monkeypatch.chdir(tmp_path)
+    dev = cuda_device
+    mcfg, train_cfg, batches = _step_setup(dev, "pna_edge")
+    model, tx, state = _fresh_state(dev, mcfg, train_cfg)
+    multi = tstep.make_multi_train_step(model, mcfg, tx,
+                                        **_step_kwargs(train_cfg))
+    state, _ = multi(state, batches[:2])
+    snap = state.copy()
+    ckpt.save_model(state, "graphs")
+    state, m1 = multi(state, batches[2:4])
+    after = _host_state(state)
+    state.restore(snap)
+    state, m2 = multi(state, batches[2:4])
+    assert torch.equal(m1["loss"], m2["loss"])
+    _assert_same_state(after, _host_state(state))
+    state.restore(ckpt.load_existing_model(state, "graphs"))
+    state, m3 = multi(state, batches[2:4])
+    assert torch.equal(m1["loss"], m3["loss"])
+    _assert_same_state(after, _host_state(state))
+    fresh = tstep.TrainState.create(model, tx)   # new optimizer slots
+    with pytest.raises(RuntimeError, match="restore a state in place"):
+        multi(fresh, batches[2:4])
+
+
+@pytest.mark.cuda
+def test_captured_accumulation_phases_equal_eager_steps_bitwise(
+        cuda_device):
+    """gradient_accumulation_steps 3 with groups of S = 2: the groups
+    start at phases 0, 2 and 1 (three graphs), and six captured steps
+    equal six eager ones bitwise, with the multi eval step's metrics
+    equal to the eager eval steps'."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+    dev = cuda_device
+    mcfg, train_cfg, batches = _step_setup(dev, "pna_edge", accumulate=3)
+    kw = _step_kwargs(train_cfg)
+    runs = []
+    for graphed in (False, True):
+        model, tx, state = _fresh_state(dev, mcfg, train_cfg)
+        multi = tstep.make_multi_train_step(model, mcfg, tx, **kw)
+        losses = []
+        for g in range(3):
+            group = batches[2 * g:2 * g + 2]
+            state, m = (multi if graphed else multi.eager)(state, group)
+            losses += m["loss"].cpu().tolist()
+        if graphed:
+            assert len(multi.steps.graphs) == 3
+        ev = tstep.make_multi_eval_step(model, mcfg, **kw)
+        evals = (ev(state, batches[:2]) if graphed else
+                 ev.steps.eager(state, batches[:2])[0])
+        runs.append((losses, _host_state(state),
+                     evals["loss"].cpu().tolist()))
+    (la, sa, ea), (lb, sb, eb) = runs
+    assert la == lb and ea == eb
+    _assert_same_state(sa, sb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pna", "ef"])
+def test_engine_bucket_graphs_equal_the_eager_forward(cuda_device, kind):
+    """Each bucket's captured forward (EF: forward and forces) against
+    the eager forward on the same padded batch, bitwise; batched = single
+    on the bucket a request was served on; every bucket captured at
+    warm-up, with its capture time; a replay counts its kernels."""
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     synthetic_molecules)
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    dev = cuda_device
+    if kind == "ef":
+        path, data = "examples/LennardJones/LJ.json", lj_configurations(
+            24, seed=2)
+    else:
+        path, data = "examples/csce/csce_gap.json", synthetic_molecules(
+            24, seed=2)
+    with open(path) as fh:
+        cfg = json.load(fh)
+    cfg = tcfg.update_config(cfg, data[:16], data[16:20], data[20:])
+    mcfg = tcfg.build_model_config(cfg)
+    model = create_model(mcfg, device=dev, seed=4)
+    with InferenceEngine(model, mcfg, reference_samples=data,
+                         max_batch_size=8, max_wait_ms=20.0,
+                         ef_forward=kind == "ef", device=dev) as engine:
+        assert engine.warmup() == len(engine.buckets)
+        assert set(engine.capture_ms) == set(engine.buckets)
+        futs = [engine.submit(s) for s in data]
+        results = [f.result(timeout=120) for f in futs]
+        for s, fut, res in zip(data, futs, results):
+            single = engine.forward_single(s, bucket=fut.bucket)
+            for a, b in zip(res, single):
+                np.testing.assert_array_equal(a, b)
+        for bucket in engine.buckets:
+            batch = engine._collate_bucket(data[:1], bucket)
+            cap = engine._graphs[bucket]
+            tk.reset_launch_counts()
+            got = engine._forward([engine_request(data[0])], bucket)
+            assert tk.launch_counts() == cap.launches
+            assert sum(cap.launches.values()) > 0
+            want = [o.detach().cpu().numpy()
+                    for o in engine._run(batch.to(dev))]
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+
+
+def engine_request(sample):
+    from concurrent.futures import Future
+    from hydragnn_tpu_torch.serving.engine import _Request
+    return _Request(sample, Future())

@@ -639,11 +639,11 @@ def test_run_training_refuses_knobs_off_its_path():
     samples = synthetic_molecules(12, seed=1, min_atoms=4, max_atoms=8)
     with open(CSCE) as fh:
         base = json.load(fh)
-    # Checkpoint, continue, checkpoint_every_n_epochs and the bf16 dtype
-    # train now (tests/test_torch_checkpoint.py, test_torch_precision.py);
-    # a dtype the port does not compute in still raises
+    # Checkpoint, continue, checkpoint_every_n_epochs, the bf16 dtype and
+    # steps_per_call train now (tests/test_torch_checkpoint.py,
+    # test_torch_precision.py, test_torch_steps_per_call.py); a dtype the
+    # port does not compute in still raises
     cases = [("Training", "batch_packing", True, "A2/A5"),
-             ("Training", "steps_per_call", 4, "A5"),
              ("Training", "pipeline_stages", 2, "A9"),
              ("Architecture", "graph_shards", 2, "A9"),
              ("Training", "async_loader_workers", 2, "A10"),
