@@ -1,11 +1,15 @@
-"""Fixed-shape graph data loader (counterpart:
-hydragnn_tpu/datasets/loader.py::GraphDataLoader, its fixed-shape,
-single-shard path).
+"""Graph data loader (counterpart:
+hydragnn_tpu/datasets/loader.py::GraphDataLoader, its single-shard,
+single-process path, fixed-shape or budget-packed).
 
 Every batch of a run has one padded shape, computed once from the
-dataset: room for `batch_size` of the largest graphs, nodes and edges
-each rounded by `BucketSpec(multiple=64)`, and `batch_size + 1` graph
-slots. An epoch's order is a pure function of (seed, epoch):
+dataset. Fixed-shape: room for `batch_size` of the largest graphs, nodes
+and edges each rounded by `BucketSpec(multiple=64)`, and `batch_size + 1`
+graph slots. Packed (`packing=True`): the `graphs.packing.PackBudget`'s
+shape, sized for `batch_size` average graphs, each batch one bin of a
+variable number of graphs; an epoch's bins are `pack_order`'s plan of its
+order, built once an epoch. An epoch's order is a pure function of
+(seed, epoch):
 `np.random.RandomState(seed + epoch)` shuffles the indices, so every run
 and every resumed epoch replays it. `drop_last` defaults to `shuffle` and
 never drops an epoch to zero batches. With `neighbor_format` each batch
@@ -14,11 +18,13 @@ Batches are numpy-built on the host, bitwise what the JAX loader builds,
 and handed out as GraphBatches of CPU tensors; non-shuffled loaders
 (validation, test) collate once and replay.
 
-Budget packing, device-stacked shards, background collation and the
-batch cache are not ported (run_training refuses their knobs).
+Device-stacked shards and packing across processes (ROADMAP A9),
+background collation and the batch cache (A10) are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import math
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -26,6 +32,8 @@ import numpy as np
 
 from ..graphs.batch import (BucketSpec, GraphBatch, GraphSample, collate,
                             neighbor_budget_for_dataset, with_neighbor_format)
+from ..graphs.packing import (choose_budget, pack_order, plan_padding_stats,
+                              plan_steps, sample_sizes)
 
 
 class DatasetInvariants(NamedTuple):
@@ -55,18 +63,39 @@ class GraphDataLoader:
                  drop_last: Optional[bool] = None,
                  n_node: Optional[int] = None, n_edge: Optional[int] = None,
                  neighbor_format: bool = False,
-                 neighbor_k: Optional[int] = None):
+                 neighbor_k: Optional[int] = None, packing: bool = False,
+                 pack_budget=None, pack_lookahead: Optional[int] = None,
+                 pack_rank: int = 0, pack_nproc: int = 1):
+        if pack_rank != 0 or pack_nproc != 1:
+            raise NotImplementedError(
+                "packing across processes is not ported to "
+                "hydragnn_tpu_torch yet (ROADMAP A9: multi-GPU training)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
         self.drop_last = shuffle if drop_last is None else drop_last
-        if n_node is None or n_edge is None:
+        self.packing = bool(packing)
+        self.pack_budget = None
+        self._sizes = None        # (nodes[], edges[]), scanned once
+        self._plan_cache = {}     # epoch -> (bins, selections)
+        if self.packing:
+            nodes, edges = self._sample_sizes()
+            if pack_budget is None:
+                pack_budget = choose_budget(nodes, edges, batch_size,
+                                            lookahead=pack_lookahead)
+            elif pack_lookahead:
+                pack_budget = dataclasses.replace(
+                    pack_budget, lookahead=int(pack_lookahead))
+            self.pack_budget = pack_budget
+            n_node, n_edge = pack_budget.n_node, pack_budget.n_edge
+        elif n_node is None or n_edge is None:
             n_node, n_edge = padded_budgets(dataset, batch_size)
         self.n_node = n_node
         self.n_edge = n_edge
-        self.n_graph = batch_size + 1
+        self.n_graph = (pack_budget.n_graph if self.packing
+                        else batch_size + 1)
         self.neighbor_k = None
         if neighbor_format:
             self.neighbor_k = neighbor_k or neighbor_budget_for_dataset(
@@ -79,6 +108,8 @@ class GraphDataLoader:
         self.epoch = epoch
 
     def __len__(self):
+        if self.packing:
+            return len(self._plan()[1])
         n = len(self.dataset)
         if self.drop_last:
             # never drop down to zero batches: a dataset smaller than one
@@ -93,14 +124,65 @@ class GraphDataLoader:
             rng.shuffle(idx)
         return idx
 
+    def _sample_sizes(self):
+        """(nodes[], edges[]) per dataset index, scanned once."""
+        if self._sizes is None:
+            self._sizes = sample_sizes(self.dataset)
+        return self._sizes
+
+    def _plan(self):
+        """The epoch's pack plan, (bins, selections), built once an epoch
+        (only the current epoch's is kept). One shard and one process:
+        each selection is a 1-tuple of one bin."""
+        key = self.epoch if self.shuffle else -1
+        hit = self._plan_cache.get(key)
+        if hit is None:
+            nodes, edges = self._sample_sizes()
+            bins = pack_order(self._order(), nodes, edges, self.pack_budget)
+            hit = (bins, plan_steps(bins, 1, drop_last=self.drop_last))
+            self._plan_cache = {key: hit}
+        return hit
+
+    def global_plan_fingerprint(self) -> str:
+        """sha256 (first 16 hex digits) of the current epoch's pack plan:
+        its bins, the budget's shape and the shard count (1), as the JAX
+        package's run_training logs it. Packing-mode loaders only."""
+        if not self.packing:
+            raise ValueError(
+                "global_plan_fingerprint is defined for packing-mode "
+                "loaders only")
+        bins, _ = self._plan()
+        b = self.pack_budget
+        payload = repr((tuple(tuple(int(i) for i in bn) for bn in bins),
+                        (b.n_node, b.n_edge, b.n_graph), 1))
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+    def padding_stats(self):
+        """The fraction of the current epoch's node and edge slots that
+        are padding (`graphs.packing.plan_padding_stats`), packed or
+        fixed, with `packing` naming the mode."""
+        nodes, edges = self._sample_sizes()
+        sels = self._selections()
+        if not self.packing:
+            sels = [(tuple(sel),) for sel in sels]
+        stats = plan_padding_stats(sels, nodes, edges, self.n_node,
+                                   self.n_edge)
+        stats["packing"] = "packed" if self.packing else "fixed"
+        return stats
+
     def _selections(self) -> List[Tuple[int, ...]]:
-        """The epoch's batch index tuples, in yield order."""
+        """The epoch's batch index tuples, in yield order; packed, each is
+        a tuple of one bin's tuple."""
+        if self.packing:
+            return self._plan()[1]
         order = self._order()
         return [tuple(int(i) for i in
                       order[ib * self.batch_size:(ib + 1) * self.batch_size])
                 for ib in range(len(self))]
 
     def _build_batch(self, sel: Tuple[int, ...]) -> GraphBatch:
+        if self.packing:
+            (sel,) = sel
         b = collate([self.dataset[i] for i in sel], n_node=self.n_node,
                     n_edge=self.n_edge, n_graph=self.n_graph)
         if self.neighbor_k is not None:

@@ -1,5 +1,11 @@
-"""Periodic radius graphs on the host in numpy (counterpart:
-hydragnn_tpu/graphs/radius.py, `radius_graph_pbc` and what it calls).
+"""Radius graphs on the host in numpy (counterpart:
+hydragnn_tpu/graphs/radius.py: `radius_graph`, `radius_graph_pbc` and
+what they call).
+
+Open boundaries (`radius_graph`): all pairs within `r`, both directions,
+receiver-major and sender-ascending; up to `_DENSE_MAX` atoms from the
+dense N x N distances, above it from a cell list over the occupied cells
+(the same pairs in the same order, so the boundary does not show).
 
 Ghost/image atoms: every periodic image within the shift range is
 materialized once, pruned to the bounding box of the real atoms inflated
@@ -20,10 +26,66 @@ import numpy as np
 
 _EMPTY_I64 = np.empty(0, np.int64)
 
+# up to this many atoms the open-boundary pairs come from the dense N x N
+# distances; above it from the cell list (edge for edge the same)
+_DENSE_MAX = 512
+
 # dense-cap guards: above this row width, or past this padding-waste
 # factor, the [segments, max_degree] selection matrix stops paying off
 _CAP_DENSE_MAX_DEG = 2048
 _CAP_DENSE_WASTE = 8
+
+
+def radius_graph(
+    pos: np.ndarray,
+    r: float,
+    max_neighbours: Optional[int] = None,
+    loop: bool = False,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(senders, receivers) of every pair within `r`, both directions;
+    `max_neighbours` keeps, per receiver, the k smallest (d², sender)."""
+    pos = np.asarray(pos, dtype=np.float64)
+    n = pos.shape[0]
+    if n == 0:
+        return np.empty(0, np.int32), np.empty(0, np.int32)
+    send, recv, d2 = _open_pairs(pos, r, loop)
+    if max_neighbours is not None and len(recv):
+        keep = _cap_canonical(d2, recv, max_neighbours)
+        send, recv = send[keep], recv[keep]
+    return send.astype(np.int32), recv.astype(np.int32)
+
+
+def _open_pairs(pos, r, loop=False):
+    """All uncapped (send, recv, d²) open-boundary pairs within `r`,
+    receiver-major and sender-ascending; `pos` is float64."""
+    n = pos.shape[0]
+    if n <= _DENSE_MAX:
+        d2 = np.sum((pos[:, None, :] - pos[None, :, :]) ** 2, axis=-1)
+        adj = d2 <= r * r
+        if not loop:
+            np.fill_diagonal(adj, False)
+        recv, send = np.nonzero(adj)  # row i = receiver, column j = sender
+        return send, recv, d2[recv, send]
+    return _cell_list_pairs(pos, r, loop)
+
+
+def _cell_list_pairs(pos, r, loop):
+    """`_open_pairs` above `_DENSE_MAX` atoms, from the cell list."""
+    r2 = r * r
+    send_l, recv_l, d2_l = [], [], []
+    for cand, center in _cell_candidate_blocks(pos, pos, r):
+        d2 = np.sum((pos[cand] - pos[center]) ** 2, axis=-1)
+        ok = d2 <= r2
+        if not loop:
+            ok &= cand != center
+        send_l.append(cand[ok])
+        recv_l.append(center[ok])
+        d2_l.append(d2[ok])
+    send = np.concatenate(send_l) if send_l else _EMPTY_I64
+    recv = np.concatenate(recv_l) if recv_l else _EMPTY_I64
+    d2 = np.concatenate(d2_l) if d2_l else np.empty(0, np.float64)
+    order = np.lexsort((send, recv))
+    return send[order], recv[order], d2[order]
 
 
 def radius_graph_pbc(

@@ -10,13 +10,23 @@ eight has an atom moved far away, so the data holds isolated nodes.
 `lj_configurations` is the Lennard-Jones data of
 examples/LennardJones/lj_data.py (`generate_lj_dataset`), bitwise: the
 same physics on the port's GraphSample.
+
+`ninb_cfg_files` and `fept_lsms_files` write the raw files of the eam and
+lsms examples (examples/eam/eam_data.py `generate_ninb_dataset`,
+examples/lsms/lsms_data.py `generate_fept_dataset`) byte for byte, so the
+port reads the examples' configs from its own files on a machine without
+the JAX package: FCC NiNb cells with per-atom EAM energies (and forces,
+and `.bulk` bulk moduli) as AtomEye CFG files, and BCC FePt cells as LSMS
+text files.
 """
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
 
+from ..utils.elements import SYMBOLS
 from .batch import GraphSample
 from .radius import radius_graph_pbc
 
@@ -156,3 +166,141 @@ def tie_rich_edge_case(seed: int = 0, n: int = 24, f: int = 6,
     send, recv, keep = send[order], recv[order].copy(), keep[order]
     recv[~keep & (np.arange(send.size) % 7 == 0)] = n + 2
     return proj_i, proj_j, send, recv, keep
+
+
+# the NiNb EAM model: species, masses, embedding strengths and the pair
+# term of examples/eam/eam_data.py
+Z_NI, Z_NB = 28.0, 41.0
+NINB_MASS = {Z_NI: 58.69, Z_NB: 92.91}
+NINB_A_EMB = {Z_NI: 1.8, Z_NB: 2.4}
+NINB_B_PAIR = 0.8
+NINB_R0 = 2.6
+
+
+def eam_energy_forces(pos: np.ndarray, cell: np.ndarray, z: np.ndarray,
+                      cutoff: float = 5.0):
+    """Per-atom EAM energies and analytic forces under periodic
+    boundaries: embedding -A sqrt(rho), rho_i = sum_j exp(-r_ij / r0),
+    pair B exp(-2 r / r0)."""
+    send, recv, shifts = radius_graph_pbc(pos, cell, cutoff)
+    disp = pos[send] + shifts - pos[recv]
+    r = np.maximum(np.linalg.norm(disp, axis=1), 1e-9)
+    w = np.exp(-r / NINB_R0)
+    n = len(pos)
+    rho = np.zeros(n)
+    np.add.at(rho, recv, w)
+    rho = np.maximum(rho, 1e-12)
+    a = np.vectorize(NINB_A_EMB.get)(z)
+    e_emb = -a * np.sqrt(rho)
+    pair = NINB_B_PAIR * np.exp(-2.0 * r / NINB_R0)
+    e_pair = np.zeros(n)
+    np.add.at(e_pair, recv, 0.5 * pair)
+    e_atom = e_emb + e_pair
+    demb = (a[recv] / (2.0 * np.sqrt(rho[recv])) +
+            a[send] / (2.0 * np.sqrt(rho[send]))) * (w / NINB_R0)
+    dEdr = demb - 2.0 * pair / NINB_R0
+    f_edge = dEdr[:, None] * disp / r[:, None]   # disp = x_send - x_recv
+    forces = np.zeros_like(pos)
+    np.add.at(forces, recv, f_edge)
+    return e_atom, forces
+
+
+def ninb_bulk_modulus(c_nb: float) -> float:
+    """The bulk modulus stand-in: Ni 180 -> Nb 170 with a solid-solution
+    bump."""
+    return 180.0 - 10.0 * c_nb + 25.0 * c_nb * (1.0 - c_nb)
+
+
+def _write_cfg(path: str, pos_frac: np.ndarray, cell: np.ndarray,
+               z: np.ndarray, e_atom: np.ndarray, forces: np.ndarray,
+               with_forces: bool):
+    naux = 4 if with_forces else 1
+    lines = [f"Number of particles = {len(z)}",
+             "A = 1.0 Angstrom (basic length-scale)"]
+    for i in range(3):
+        for j in range(3):
+            lines.append(f"H0({i+1},{j+1}) = {cell[i,j]:.6f} A")
+    lines.append(".NO_VELOCITY.")
+    lines.append(f"entry_count = {3 + naux}")
+    lines.append("auxiliary[0] = c_peratom [eV]")
+    if with_forces:
+        for k, name in enumerate(("fx", "fy", "fz")):
+            lines.append(f"auxiliary[{k+1}] = {name} [eV/A]")
+    for i in range(len(z)):
+        lines.append(f"{NINB_MASS[float(z[i])]:.4f}")
+        lines.append(SYMBOLS[int(z[i])])
+        row = list(pos_frac[i]) + [e_atom[i]]
+        if with_forces:
+            row += list(forces[i])
+        lines.append(" ".join(f"{v:.8f}" for v in row))
+    with open(path, "w") as f:
+        f.write("\n".join(lines))
+
+
+def ninb_cfg_files(dirpath: str, num_configs: int = 100,
+                   cells_per_dim: int = 2, lattice: float = 3.52,
+                   jitter: float = 0.06, with_forces: bool = False,
+                   with_bulk: bool = False, seed: int = 0) -> str:
+    """Write `num_configs` FCC Ni(1-c)Nb(c) supercells (4 atoms a cell,
+    cells_per_dim^3 cells) as `NiNb_{i:05d}.cfg` under `dirpath`, with
+    `.bulk` sidecars when `with_bulk`; returns `dirpath`."""
+    os.makedirs(dirpath, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    basis = np.array([[0, 0, 0], [0, .5, .5], [.5, 0, .5], [.5, .5, 0]])
+    grid = np.stack(np.meshgrid(*[np.arange(cells_per_dim)] * 3,
+                                indexing="ij"), axis=-1).reshape(-1, 3)
+    frac = ((grid[:, None, :] + basis[None]) / cells_per_dim).reshape(-1, 3)
+    box = cells_per_dim * lattice
+    cell = np.eye(3) * box
+    n = len(frac)
+    for i in range(num_configs):
+        c_nb = rng.uniform(0.05, 0.5)
+        z = np.where(rng.rand(n) < c_nb, Z_NB, Z_NI)
+        pos = (frac * box + rng.randn(n, 3) * jitter) % box
+        e_atom, forces = eam_energy_forces(pos, cell, z)
+        stem = os.path.join(dirpath, f"NiNb_{i:05d}")
+        _write_cfg(stem + ".cfg", pos / box, cell, z, e_atom, forces,
+                   with_forces)
+        if with_bulk:
+            b = ninb_bulk_modulus(float((z == Z_NB).mean()))
+            with open(stem + ".bulk", "w") as f:
+                f.write(f"0.0 0.0 {b:.6f}\n")
+    return dirpath
+
+
+Z_FE, Z_PT = 26.0, 78.0
+
+
+def fept_lsms_files(dirpath: str, num_configs: int = 200,
+                    atoms_per_dim: int = 2, lattice: float = 2.85,
+                    jitter: float = 0.05, seed: int = 0) -> str:
+    """Write `num_configs` BCC FePt cells (2 * atoms_per_dim^3 atoms) as
+    LSMS text files `FePt_{i:05d}.txt` under `dirpath`: line 0 the
+    mixing-enthalpy-shaped free energy, then per atom [Z, 0, x, y, z,
+    charge density + Z, magnetic moment]; returns `dirpath`."""
+    os.makedirs(dirpath, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    grid = np.stack(np.meshgrid(*[np.arange(atoms_per_dim)] * 3,
+                                indexing="ij"), axis=-1).reshape(-1, 3)
+    corners = grid * lattice
+    centers = corners + lattice / 2.0
+    base = np.concatenate([corners, centers]).astype(np.float64)
+    n = len(base)
+    for i in range(num_configs):
+        z = np.where(rng.rand(n) < rng.uniform(0.2, 0.8), Z_FE, Z_PT)
+        c_fe = float((z == Z_FE).mean())
+        pos = base + rng.randn(n, 3) * jitter
+        fe = -4.0 * c_fe * (1.0 - c_fe) + 0.05 * np.sin(6.0 * np.pi * c_fe)
+        fe = fe * n + rng.randn() * 0.01
+        charge = np.where(z == Z_FE, -0.3 * (1 - c_fe), 0.3 * c_fe)
+        charge += rng.randn(n) * 0.01
+        moment = np.where(z == Z_FE, 2.2 + 0.5 * (1 - c_fe), 0.3 * c_fe)
+        moment += rng.randn(n) * 0.01
+        lines = [f"{fe:.8f} 0.0"]
+        for a in range(n):
+            lines.append(
+                f"{z[a]:.1f} 0 {pos[a,0]:.6f} {pos[a,1]:.6f} {pos[a,2]:.6f} "
+                f"{charge[a] + z[a]:.6f} {moment[a]:.6f}")
+        with open(os.path.join(dirpath, f"FePt_{i:05d}.txt"), "w") as f:
+            f.write("\n".join(lines))
+    return dirpath

@@ -64,7 +64,8 @@ from torch.autograd.function import once_differentiable
 from ..ops.segment import pna_accumulators, pna_stats_epilogue
 from . import _build
 from .nbr import STAGE_SLOTS, row_geometry
-from .segment import gather_rows, segment_sum, segment_sum_plain, vec_width
+from .segment import (gather_rows, segment_layout, segment_sum,
+                      segment_sum_plain, vec_width)
 
 launches = 0              # pna_edge_aggregate, either instantiation
 bf16_launches = 0         # of which the bf16 instantiation
@@ -124,15 +125,9 @@ def csr_layout(senders, receivers, edge_mask, num_nodes):
     in receiver order int32): the CSR view of the kept edges, stable-sorted
     by receiver; dropped edges lie past row_ptr[N]. On any device."""
     n = int(num_nodes)
-    keep = _kept_edges(senders, receivers, edge_mask, n)
-    keys = torch.where(keep, receivers, torch.full_like(receivers, n))
-    order = torch.argsort(keys, stable=True)
-    # row r spans [row_ptr[r], row_ptr[r + 1]) of the sorted edges; dropped
-    # edges (key n) lie past row_ptr[n]
-    bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
-    row_ptr = torch.searchsorted(keys[order], bounds, out_int32=True)
-    return (row_ptr, senders[order].contiguous(),
-            order.to(torch.int32).contiguous())
+    row_ptr, order = segment_layout(
+        receivers, n, _kept_edges(senders, receivers, edge_mask, n))
+    return row_ptr, senders[order].contiguous(), order
 
 
 def edge_positions(layout, layout_t):

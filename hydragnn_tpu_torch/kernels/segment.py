@@ -148,6 +148,25 @@ def _tickets_for(device, stream, n):
     return t
 
 
+def segment_layout(segment_ids: torch.Tensor, num_segments: int,
+                   keep=None):
+    """(row_ptr [num_segments + 1] int32, perm [E] int32): the CSR view of
+    the rows whose id lies in [0, num_segments) (and, given `keep` [E]
+    bool, is kept), stable-sorted by id; the other rows lie past
+    row_ptr[num_segments]. The `layout` a segment sum over these ids
+    takes; a caller whose ids serve several sums builds it once. On any
+    device."""
+    n = int(num_segments)
+    valid = (segment_ids >= 0) & (segment_ids < n)
+    if keep is not None:
+        valid = valid & keep
+    keys = torch.where(valid, segment_ids, torch.full_like(segment_ids, n))
+    order = torch.argsort(keys, stable=True)
+    bounds = torch.arange(n + 1, dtype=keys.dtype, device=keys.device)
+    row_ptr = torch.searchsorted(keys[order], bounds, out_int32=True)
+    return row_ptr, order.to(torch.int32)
+
+
 def layout_rows(layout, e: int) -> torch.Tensor:
     """[e] bool: the data rows a CSR `layout = (row_ptr, perm)` sums,
     perm[row_ptr[0]:row_ptr[N]] (no host sync)."""

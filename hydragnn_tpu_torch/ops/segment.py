@@ -19,6 +19,8 @@ clamp through the dtype's finite maximum. Both give 0 on an empty row.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels import segment as _seg_kernel
@@ -158,10 +160,14 @@ def pna_accumulators(data, segment_ids, num_segments, mask=None,
     return s, sq, cnt, mn, mx
 
 
-def pna_aggregate(data, segment_ids, num_segments, mask=None, eps=1e-5):
-    """PNA aggregation over an edge list -> (mean, min, max, std, degree)."""
-    return pna_stats_epilogue(
-        *pna_accumulators(data, segment_ids, num_segments, mask), eps)
+def pna_aggregate(data, segment_ids, num_segments, mask=None, eps=1e-5,
+                  layout=None):
+    """PNA aggregation over an edge list -> (mean, min, max, std, degree).
+    `layout` is a CSR view of the ids (`segment_sum`) for the sum of the
+    statistics, which are 0 on the masked rows it may leave out."""
+    return pna_stats_epilogue(*pna_accumulators(
+        data, segment_ids, num_segments, mask,
+        sum_fn=functools.partial(segment_sum, layout=layout)), eps)
 
 
 def neighbor_aggregate(h, nbr_mask, eps=1e-5):

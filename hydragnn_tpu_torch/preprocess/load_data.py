@@ -1,55 +1,76 @@
 """Dataset splitting and loader creation (counterpart:
 hydragnn_tpu/preprocess/load_data.py: `split_dataset`, `loader_budgets`,
-`create_dataloaders`, fixed-shape single-shard).
+`create_dataloaders` for one shard, fixed-shape or budget-packed, and the
+preprocessing knobs' resolution).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
-
-import numpy as np
+from typing import Dict, Optional
 
 from ..datasets.loader import GraphDataLoader, padded_budgets
-from ..graphs.batch import GraphSample, neighbor_budget_for_dataset
+# split_dataset lives with the readers that split; it is importable here,
+# where the JAX package keeps it
+from ..datasets.split import split_dataset  # noqa: F401
+from ..graphs.batch import neighbor_budget_for_dataset
+from ..graphs.packing import choose_budget, sample_sizes
+from ..utils.envflags import (resolve_preproc_cache_dir,
+                              resolve_preproc_workers)
 
 
-def split_dataset(dataset: Sequence[GraphSample], perc_train: float,
-                  stratify_splitting: bool = False, seed: int = 0):
-    """Random or composition-stratified (train, val, test) split; val and
-    test each get (1 - perc_train) / 2. The random split permutes with
-    `np.random.RandomState(seed)`; the stratified one groups samples by
-    the multiset of their first input feature (rounded to 6 decimals) and
-    splits each group in sorted key order."""
-    n = len(dataset)
-    if not stratify_splitting:
-        order = np.random.RandomState(seed).permutation(n)
-        return _split_by_order(dataset, order, perc_train)
-    cats: Dict[tuple, List[int]] = {}
-    for i, s in enumerate(dataset):
-        types = np.round(np.asarray(s.x[:, 0]), 6)
-        vals, counts = np.unique(types, return_counts=True)
-        key = tuple(zip(vals.tolist(), counts.tolist()))
-        cats.setdefault(key, []).append(i)
-    rng = np.random.RandomState(seed)
-    tr, va, te = [], [], []
-    for key in sorted(cats.keys()):
-        idx = np.asarray(cats[key])
-        rng.shuffle(idx)
-        ntr = int(round(len(idx) * perc_train))
-        nva = int(round(len(idx) * (1 - perc_train) / 2))
-        tr += idx[:ntr].tolist()
-        va += idx[ntr:ntr + nva].tolist()
-        te += idx[ntr + nva:].tolist()
-    return ([dataset[i] for i in tr], [dataset[i] for i in va],
-            [dataset[i] for i in te])
+def check_preprocess_knobs(config: Dict) -> None:
+    """Raise NotImplementedError, before any file is read, for the
+    preprocessing knobs the port lacks: more than one preprocessing
+    worker (HYDRAGNN_PREPROC_WORKERS over Training.preprocess_workers; 0
+    and 1 both build serially and are accepted) and the preprocessed-sample
+    cache (HYDRAGNN_PREPROC_CACHE_DIR over
+    Dataset.preprocessed_cache_dir)."""
+    workers = resolve_preproc_workers(
+        config.get("NeuralNetwork", {}).get("Training"))
+    if workers > 1:
+        raise NotImplementedError(
+            f"{workers} preprocessing workers are not ported to "
+            "hydragnn_tpu_torch yet (ROADMAP A10: preprocess/workers.py); "
+            "0 or 1 builds the same samples serially")
+    if resolve_preproc_cache_dir(config.get("Dataset")):
+        raise NotImplementedError(
+            "the preprocessed-sample cache is not ported to "
+            "hydragnn_tpu_torch yet (ROADMAP A10: preprocess/cache.py)")
 
 
-def _split_by_order(dataset, order, perc_train):
-    n = len(order)
-    ntr = int(round(n * perc_train))
-    nva = int(round(n * (1 - perc_train) / 2))
-    return ([dataset[i] for i in order[:ntr]],
-            [dataset[i] for i in order[ntr:ntr + nva]],
-            [dataset[i] for i in order[ntr + nva:]])
+# Dataset.format values whose readers are not ported, and their items
+_UNPORTED_FORMATS = {"XYZ": "A2: the XYZ reader",
+                     "pickle": "A10: datasets (the pickle format)",
+                     "adios": "A10: datasets (the GraphStore format)"}
+_FORMATS = ("LSMS", "unit_test", "CFG")
+
+
+def check_dataset_knobs(config: Dict) -> None:
+    """Raise before any file is read when the config's data cannot be
+    loaded from its files by the port: an unported `Dataset.format`
+    (NotImplementedError naming its ROADMAP item), an unknown one
+    (ValueError), or an unported preprocessing knob."""
+    fmt = (config.get("Dataset") or {}).get("format", "pickle")
+    if fmt in _UNPORTED_FORMATS:
+        raise NotImplementedError(
+            f"Dataset.format {fmt!r} is not ported to hydragnn_tpu_torch "
+            f"yet (ROADMAP {_UNPORTED_FORMATS[fmt]})")
+    if fmt not in _FORMATS:
+        raise ValueError(f"unsupported Dataset.format '{fmt}'")
+    check_preprocess_knobs(config)
+
+
+def load_datasets_from_config(config: Dict):
+    """(train, val, test) from the config's own files (counterpart:
+    hydragnn_tpu/run_training.py `_load_datasets_from_config`): "LSMS"
+    and "unit_test" through `datasets.lsmsdataset`, "CFG" through
+    `datasets.cfgdataset`. The train split carries the reader's min-max
+    (`datasets.lsmsdataset.Split`)."""
+    check_dataset_knobs(config)
+    if config["Dataset"]["format"] == "CFG":
+        from ..datasets.cfgdataset import load_cfg_splits
+        return load_cfg_splits(config)
+    from ..datasets.lsmsdataset import load_lsms_splits
+    return load_lsms_splits(config)
 
 
 def loader_budgets(all_samples, graphs_per_batch: int,
@@ -64,17 +85,29 @@ def loader_budgets(all_samples, graphs_per_batch: int,
 
 
 def create_dataloaders(trainset, valset, testset, batch_size: int,
-                       neighbor_format: bool = False):
-    """One fixed-shape loader per split (seed 0), all three on the shape
-    of the largest graph of any split (and one K), so the model sees one
-    batch shape; the train loader shuffles and drops its last partial
-    batch."""
+                       neighbor_format: bool = False, packing: bool = False,
+                       pack_lookahead: Optional[int] = None):
+    """One loader per split (seed 0), all three on one batch shape (and
+    one K), so each step kind is one CUDA graph; the train loader shuffles
+    and drops its last partial batch. Fixed-shape: room for `batch_size`
+    of the largest graphs of any split. With `packing`: the pack budget
+    `choose_budget` sizes once over all three splits for `batch_size`
+    average graphs (`pack_lookahead` its planner window)."""
     all_samples = list(trainset) + list(valset) + list(testset)
-    n_node, n_edge, k = loader_budgets(all_samples, max(batch_size, 1),
-                                       neighbor_format)
+    pack_budget = n_node = n_edge = None
+    if packing:
+        nodes, edges = sample_sizes(all_samples)
+        pack_budget = choose_budget(nodes, edges, max(batch_size, 1),
+                                    lookahead=pack_lookahead)
+        k = (neighbor_budget_for_dataset(all_samples) if neighbor_format
+             else None)
+    else:
+        n_node, n_edge, k = loader_budgets(all_samples, max(batch_size, 1),
+                                           neighbor_format)
 
     def mk(ds, shuffle):
         return GraphDataLoader(ds, batch_size, shuffle=shuffle, n_node=n_node,
                                n_edge=n_edge, neighbor_format=neighbor_format,
-                               neighbor_k=k)
+                               neighbor_k=k, packing=packing,
+                               pack_budget=pack_budget)
     return mk(trainset, True), mk(valset, False), mk(testset, False)

@@ -2,8 +2,10 @@
 hydragnn_tpu/run_prediction.py).
 
 `run_prediction(config, datasets, variables)` completes the config from
-the data, builds the model on the device (the card unless the caller
-passes device="cpu"), loads the weights — the Flax variable tree given as
+the data (`datasets=None`: the config's own files, as `run_training`
+reads them, their reader's min-max reaching `denormalize_output`),
+builds the model on the device (the card unless the caller passes
+device="cpu"), loads the weights — the Flax variable tree given as
 nested numpy dicts (utils/weights.py), or `state=` (and `model=`) as
 `run_training` returns them, or else the run's checkpoint
 (utils/checkpoint.py; `checkpoint="latest"`, the newest verified save, or
@@ -28,6 +30,7 @@ from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
     with_neighbor_format
 from .models.create import create_model
 from .postprocess.postprocess import output_denormalize
+from .preprocess.load_data import load_datasets_from_config
 from .serving.config import resolve_serving
 from .serving.engine import InferenceEngine
 from .train.optimizer import select_optimizer
@@ -38,9 +41,10 @@ from .utils.envflags import env_flag
 from .utils.weights import load_jax_variables
 
 
-def run_prediction(config_or_path, datasets: Sequence, variables=None,
-                   serve: Optional[bool] = None, device="cuda", state=None,
-                   model=None, checkpoint: str = "latest"):
+def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
+                   variables=None, serve: Optional[bool] = None,
+                   device="cuda", state=None, model=None,
+                   checkpoint: str = "latest"):
     """The weights come from `state` (a TrainState), else `variables` (a
     Flax tree), else `model` (a trained model), else the run's
     `checkpoint` ("latest" or "best") under ./logs; they are loaded into a
@@ -48,8 +52,12 @@ def run_prediction(config_or_path, datasets: Sequence, variables=None,
     config = load_config(config_or_path)
     serving = resolve_serving(config)    # raises on an unported knob
     dev = resolve_device(device)
+    from_files = datasets is None
+    if from_files:
+        datasets = load_datasets_from_config(config)
     trainset, valset, testset = (list(d) for d in datasets)
-    config = update_config(config, trainset, valset, testset)
+    config = update_config(config, datasets[0] if from_files else trainset,
+                           valset, testset)
     mcfg = build_model_config(config)
     if state is not None:
         weights = {k: v.detach() for k, v in state.state_dict().items()}

@@ -1,17 +1,23 @@
 """Top-level training entry point (counterpart:
-hydragnn_tpu/run_training.py, its single-process, single-device,
-fixed-shape path).
+hydragnn_tpu/run_training.py, its single-process, single-device path).
 
 `run_training(config, datasets=(train, val, test), device="cuda")`
-completes the config from the data (`update_config`), builds the
-fixed-shape loaders (`create_dataloaders`, the dense neighbor layout
-unless `Architecture.neighbor_format` is false), the model on the device
+completes the config from the data (`update_config`), builds the loaders
+(`create_dataloaders`, the dense neighbor layout unless
+`Architecture.neighbor_format` is false; budget-packed when
+`Training.batch_packing` or HYDRAGNN_PACKING asks, with
+`Training.pack_lookahead` or HYDRAGNN_PACK_LOOKAHEAD its planner's
+window), the model on the device
 (the card unless the caller passes device="cpu"; `create_model`'s seeded
 initialization), the optimizer (`select_optimizer`) and the train/eval
 steps (the energy-force ones with `Training.compute_grad_energy`), and
-runs `train_validate_test`. Returns (state, history, model,
-completed_config); `run_prediction(completed_config, datasets,
-state=state, model=model)` predicts from the trained state.
+runs `train_validate_test`. With `datasets=None` the data comes from
+the config's own files (`Dataset.format` "LSMS", "unit_test" or "CFG",
+`Dataset.path`; a relative path is taken from the working directory), and
+the reader's min-max reaches config completion for `denormalize_output`.
+Returns (state, history, model, completed_config);
+`run_prediction(completed_config, datasets, state=state, model=model)`
+predicts from the trained state.
 
 Steps: on the card each train and eval step is a CUDA graph replay
 (train/step_graphs.py); `Training.steps_per_call` (or
@@ -44,7 +50,8 @@ from typing import Optional, Sequence
 from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
 from .models.create import create_model
-from .preprocess.load_data import create_dataloaders
+from .preprocess.load_data import (create_dataloaders,
+                                   load_datasets_from_config)
 from .train import trainer
 from .train.optimizer import select_optimizer
 from .train.precision import resolve_precision
@@ -53,7 +60,8 @@ from .train.train_step import (TrainState, make_eval_step,
                                make_train_step)
 from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
-from .utils.envflags import (env_flag, env_strict_flag, resolve_packing,
+from .utils.envflags import (env_flag, env_strict_flag,
+                             resolve_pack_lookahead, resolve_packing,
                              resolve_steps_per_call)
 
 
@@ -64,14 +72,15 @@ def _not_ported(what: str, item: str):
 
 def check_training_knobs(config) -> None:
     """Raise NotImplementedError for every config key or HYDRAGNN_* knob
-    that asks for a part of training the port does not have yet."""
+    that asks for a part of training the port does not have yet. Runs
+    before any work; the unported `Dataset.format`s and preprocessing
+    knobs raise in `load_datasets_from_config`, before any file is
+    read."""
     nn = config["NeuralNetwork"]
     tr = nn["Training"]
     arch = nn["Architecture"]
     opt = tr.get("Optimizer", {}) or {}
     checks = [
-        (resolve_packing(tr), "batch packing",
-         "A5.3, with the pack planner of A2/A5"),
         (int(arch.get("graph_shards", 1) or 1) > 1,
          "Architecture.graph_shards", "A9: multi-GPU training"),
         (int(tr.get("pipeline_stages", 1) or 1) > 1,
@@ -104,22 +113,36 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     config = load_config(config_or_path)
     if num_shards not in (None, 1):
         _not_ported(f"num_shards={num_shards}", "A9: multi-GPU training")
-    if datasets is None:
-        _not_ported("config-driven dataset loading (Dataset.format)",
-                    "A2: the raw/LSMS dataset path; pass datasets=")
-    dev = resolve_device(device)
-    trainset, valset, testset = (list(d) for d in datasets)
-    config = update_config(config, trainset, valset, testset)
+    from_files = datasets is None
     check_training_knobs(config)
+    dev = resolve_device(device)
+    if from_files:
+        datasets = load_datasets_from_config(config)
+    trainset, valset, testset = (list(d) for d in datasets)
+    # a reader's train split carries its min-max (datasets.lsmsdataset.
+    # Split), which config completion reads; a caller's datasets are
+    # taken as lists, as the JAX package takes them
+    config = update_config(config, datasets[0] if from_files else trainset,
+                           valset, testset)
     nn = config["NeuralNetwork"]
     train_cfg = nn["Training"]
     mcfg = build_model_config(config)
     batch_size = int(train_cfg["batch_size"])
+    verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
 
     nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
                        bool(nn["Architecture"].get("neighbor_format", True)))
+    packing = resolve_packing(train_cfg)
     train_loader, val_loader, test_loader = create_dataloaders(
-        trainset, valset, testset, batch_size, neighbor_format=nbr_fmt)
+        trainset, valset, testset, batch_size, neighbor_format=nbr_fmt,
+        packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg))
+    if packing and verbosity >= 1:
+        b = train_loader.pack_budget
+        print(f"batch_packing: budget n_node={b.n_node} n_edge={b.n_edge} "
+              f"n_graph={b.n_graph} lookahead={b.lookahead} "
+              f"plan_fp={train_loader.global_plan_fingerprint()} "
+              "(fixed-shape batching would pad every batch to the worst "
+              "case)", flush=True)
 
     model = create_model(mcfg, device=dev)
     tx = select_optimizer(train_cfg)
@@ -148,7 +171,6 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
                   compute_dtype=compute_dtype)
         multi_step = make_multi_train_step(model, mcfg, tx, **kw)
         multi_eval = make_multi_eval_step(model, mcfg, **kw)
-    verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
     log_name = get_log_name_config(config)
     start_epoch, resume, best0, best_val0 = _resume(train_cfg, state,
                                                     log_name, verbosity)

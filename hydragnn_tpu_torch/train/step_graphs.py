@@ -55,7 +55,6 @@ from ..graphs.batch import GraphBatch
 # eager runs of a body on the capture stream before its capture
 WARMUP_ITERS = 2
 
-
 class GraphContext:
     """What one model's graphs share: a memory pool, the side stream of
     warm-up and capture, and static batch slots by signature. Graphs that

@@ -198,6 +198,14 @@ def _group_batches(loader, size: int):
         yield buf
 
 
+def _graph_count(step_fns) -> int:
+    """CUDA graphs the given step callables (train_step.TrainStep and its
+    kin, whose `steps` hold their graphs by key) have captured so far;
+    a callable of another kind captures none."""
+    return sum(len(getattr(getattr(f, "steps", None), "graphs", ()))
+               for f in step_fns)
+
+
 def _accumulate(acc: Dict[str, float], metrics, summed: bool = False
                 ) -> None:
     """Add one step's metrics (or, `summed`, the [S] metrics of a group,
@@ -351,6 +359,8 @@ def train_validate_test(
                   "exiting", flush=True)
 
     prev_boundary_committed = False
+    step_fns = (train_step, multi_train_step, eval_step, multi_eval_step)
+    captures0 = _graph_count(step_fns)
     for epoch in range(start_epoch, num_epochs):
         train_loader.set_epoch(epoch)
         # the state before this epoch's updates, for a preemption inside
@@ -404,6 +414,19 @@ def train_validate_test(
         else:
             val_loss = test_loss = float("nan")
             val_tasks = test_tasks = {}
+
+        # padding: the fraction of the epoch's node and edge slots that
+        # were padding (the waste batch packing cuts)
+        if callable(getattr(train_loader, "padding_stats", None)):
+            pad = train_loader.padding_stats()
+            for k in ("padding_frac_nodes", "padding_frac_edges"):
+                history.setdefault(k, []).append(float(pad[k]))
+        # CUDA graphs this run's steps captured in this epoch (the JAX
+        # package's jit_recompiles): nonzero after epoch 0 means a batch
+        # shape left the pinned budgets
+        captures = _graph_count(step_fns)
+        history.setdefault("graph_captures", []).append(captures - captures0)
+        captures0 = captures
 
         if keep_best and val_loss == val_loss and val_loss < best_val:
             best_val = val_loss

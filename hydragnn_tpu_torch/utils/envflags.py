@@ -110,3 +110,38 @@ def resolve_steps_per_call(train_cfg) -> int:
     if spc_env is not None:
         return spc_env
     return int(train_cfg.get("steps_per_call", 1))
+
+
+def resolve_pack_lookahead(train_cfg):
+    """The pack planner's first-fit-decreasing window:
+    HYDRAGNN_PACK_LOOKAHEAD, when set, overrides Training.pack_lookahead;
+    None leaves the planner's default (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_pack_lookahead`)."""
+    la = env_int("HYDRAGNN_PACK_LOOKAHEAD")
+    if la is not None:
+        return la
+    la = train_cfg.get("pack_lookahead")
+    return None if la is None else int(la)
+
+
+def resolve_preproc_workers(train_cfg=None) -> int:
+    """Preprocessing workers: HYDRAGNN_PREPROC_WORKERS over
+    Training.preprocess_workers, default 0; 0 and 1 both build serially.
+    Parsed strictly: a typo warns and keeps the default (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_preproc_workers`)."""
+    w = env_strict_int("HYDRAGNN_PREPROC_WORKERS")
+    if w is None and train_cfg:
+        w = train_cfg.get("preprocess_workers")
+    return max(int(w), 0) if w is not None else 0
+
+
+def resolve_preproc_cache_dir(ds_cfg=None):
+    """The preprocessed-sample cache directory:
+    HYDRAGNN_PREPROC_CACHE_DIR over Dataset.preprocessed_cache_dir; unset
+    or empty is None, the cache off (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_preproc_cache_dir`)."""
+    d = os.getenv("HYDRAGNN_PREPROC_CACHE_DIR")
+    if d is None and ds_cfg:
+        d = ds_cfg.get("preprocessed_cache_dir")
+    d = (d or "").strip()
+    return d or None

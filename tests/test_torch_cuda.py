@@ -1591,3 +1591,182 @@ def engine_request(sample):
     from concurrent.futures import Future
     from hydragnn_tpu_torch.serving.engine import _Request
     return _Request(sample, Future())
+
+
+# ------------------------------------------- packing and edge features --
+# Batch packing and PNA edge features on the card: the segment sum at the
+# shapes these paths give it (the eam edge list's [E, 2F + 1] statistics,
+# F = 101 on the scalar-load path, and the pooling over a packed batch's
+# graph slots), PNA with edge lengths card vs CPU, and captured packed
+# steps against their eager bodies.
+
+def _eam_samples(tmp_path, num=24):
+    import json
+    from hydragnn_tpu_torch.datasets.cfgdataset import CFGDataset
+    from hydragnn_tpu_torch.graphs.synthetic import ninb_cfg_files
+    with open(ROOT / "examples/eam/NiNb_EAM_energy.json") as fh:
+        cfg = json.load(fh)
+    cfg["Visualization"]["create_plots"] = False
+    ninb_cfg_files(str(tmp_path), num)
+    return cfg, list(CFGDataset(cfg, str(tmp_path)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["eam_stats", "packed_pooling"])
+def test_segment_sum_at_the_packing_and_edge_feature_shapes(cuda_device,
+                                                            shape):
+    """[E, 101] float32 rows by unsorted receivers (the eam edge list's
+    packed sum / sum of squares / count, vec 1), and [N 4,224, 200] rows
+    by sorted graph ids into 424 slots (the packed csce pooling), against
+    the plain version within SUM_TOL; a bf16 input raises (the kernel
+    takes float32)."""
+    rng = np.random.RandomState(3)
+    if shape == "eam_stats":
+        e, n, f = 6144, 513, 101
+        ids = np.sort(rng.randint(0, n - 1, e)).astype(np.int32)
+        ids[-100:] = n - 1              # padding edges on the padding node
+        ids = ids[rng.permutation(e)]
+        sorted_ids = False
+    else:
+        e, n, f = 4224, 424, 200
+        ids = np.sort(rng.randint(0, n, e)).astype(np.int32)
+        sorted_ids = True
+    data = _t(rng.randn(e, f).astype(np.float32)).to(cuda_device)
+    ids = _t(ids).to(cuda_device)
+    before = tk.launch_counts()["segment_sum"]
+    got = segment.segment_sum(data, ids, n, indices_are_sorted=sorted_ids)
+    assert tk.launch_counts()["segment_sum"] == before + 1
+    want = segment.segment_sum_plain(data, ids, n)
+    torch.testing.assert_close(got, want, **SUM_TOL)
+    with pytest.raises(TypeError):
+        segment.segment_sum(data.bfloat16(), ids, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["receivers", "senders", "nbr",
+                                   "nbr_edge"])
+def test_gather_rows_backward_over_the_edge_feature_layouts(cuda_device,
+                                                            tmp_path, which):
+    """The eam PNA gathers' gradients at a loader batch of NiNb cells
+    (F = 50): on the edge list by receivers and by senders, on the dense
+    layout the [N K] table's slots by neighbour into N and by edge id into
+    E, each one launch of the segment-sum kernel over the layout
+    PNAStack.conv_args builds, against the CPU's plain gradient within
+    SUM_TOL; masked rows carry gradient 0, as on the model's path."""
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    _, samples = _eam_samples(tmp_path)
+    dense = which.startswith("nbr")
+    b = next(iter(create_dataloaders(samples, [], [], 16,
+                                     neighbor_format=dense)[0]))
+    if dense:
+        ids, keep = getattr(b, which).reshape(-1), b.nbr_mask.reshape(-1)
+        n = b.num_nodes if which == "nbr" else b.num_edges
+    else:
+        ids, keep, n = getattr(b, which), b.edge_mask, b.num_nodes
+    rng = np.random.RandomState(5)
+    x = _t(rng.randn(n, 50).astype(np.float32))
+    g = _t(rng.randn(ids.shape[0], 50).astype(np.float32)) * keep[:, None]
+    grads = []
+    for dev in ("cpu", cuda_device):
+        xd = x.detach().to(dev).requires_grad_()
+        i, k = ids.to(dev), keep.to(dev)
+        layout = segment.segment_layout(i, n, k) if dev != "cpu" else None
+        before = tk.launch_counts()["segment_sum"]
+        segment.gather_rows(xd, i, layout).backward(g.to(dev))
+        grads.append((xd.grad.cpu(),
+                      tk.launch_counts()["segment_sum"] - before))
+    (want, _), (got, launched) = grads
+    assert launched == 1
+    torch.testing.assert_close(got, want, **SUM_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False])
+def test_pna_edge_features_card_matches_cpu(cuda_device, tmp_path, dense):
+    """The eam PNA (edge lengths, hidden 50, 3 layers) in training mode on
+    a batch of NiNb cells: the loss within rtol 1e-4 / atol 1e-5 of the
+    CPU's, and each weight gradient within 1e-2 relative L2 of the CPU's,
+    or ten times the CPU float32 gradient's own gap to float64 where that
+    is larger (chip_smoke's gradient bound: float32 gradients of this
+    model's first layers are a few percent off float64 on any device, and
+    the biases ahead of a batch norm are 0 but for rounding; a lost
+    gradient path gives 1). On the edge list the unfused statistics go
+    through the segment-sum kernel."""
+    import copy
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train import train_step as tstep
+    cfg, samples = _eam_samples(tmp_path)
+    cfg["NeuralNetwork"]["Architecture"]["num_conv_layers"] = 3
+    cfg = tcfg.update_config(copy.deepcopy(cfg), samples)
+    mcfg = tcfg.build_model_config(cfg)
+    batch = next(iter(create_dataloaders(samples, [], [], 16,
+                                         neighbor_format=dense)[0]))
+    runs = []
+    for dev, dtype in ((cuda_device, torch.float32),
+                       (torch.device("cpu"), torch.float32),
+                       (torch.device("cpu"), torch.float64)):
+        model = create_model(mcfg, device=dev, seed=2).to(dtype)
+        model.train()
+        b = batch.replace(**{k: getattr(batch, k).to(dtype) for k in (
+            "x", "pos", "y_node", "edge_attr", "edge_shifts")}).to(dev)
+        before = tk.launch_counts()["segment_sum"]
+        total, _ = tstep.make_loss_fn(model, mcfg, "mse")(b)
+        grads = torch.autograd.grad(total, list(model.parameters()))
+        launched = tk.launch_counts()["segment_sum"] - before
+        runs.append((float(total), [g.cpu().double() for g in grads],
+                     launched))
+    (l_card, g_card, n_card), (l_cpu, g_cpu, _), (_, g64, _) = runs
+    assert np.isclose(l_card, l_cpu, rtol=1e-4, atol=1e-5)
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    for a, b, w in zip(g_card, g_cpu, g64):
+        assert rel(a, b) <= max(1e-2, 10 * rel(b, w))
+    # pooling, and on the edge list each layer's statistics and the
+    # gathers' gradients
+    assert n_card >= (1 if dense else 1 + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False])
+def test_captured_packed_steps_equal_eager_steps_bitwise(cuda_device, dense):
+    """csce PNA on packed batches (one budget, a variable number of graphs
+    a bin): five eager steps against five captured single steps, bitwise
+    (metrics, parameters, statistics, slots), and every packed batch
+    replays the one graph."""
+    import copy
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train import train_step as tstep
+    data = synthetic_molecules(120, seed=2)
+    with open(ROOT / "examples/csce/csce_gap.json") as fh:
+        cfg = json.load(fh)
+    cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+    splits = (data[:90], data[90:105], data[105:])
+    cfg = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = tcfg.build_model_config(cfg)
+    train_cfg = cfg["NeuralNetwork"]["Training"]
+    loader = create_dataloaders(*splits, 16, neighbor_format=dense,
+                                packing=True)[0]
+    batches = [b.to(cuda_device) for b in loader][:5]
+    counts = {int(b.graph_mask.sum()) for b in batches}
+    assert len(batches) == 5 and len(counts) > 1
+    runs = []
+    for graphed in (False, True):
+        model, tx, state = _fresh_state(cuda_device, mcfg, train_cfg)
+        step = tstep.make_train_step(model, mcfg, tx,
+                                     **_step_kwargs(train_cfg))
+        losses = []
+        for b in batches:
+            state, m = (step if graphed else step.eager)(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), len(step.steps.graphs)))
+    (la, sa, _), (lb, sb, graphs) = runs
+    assert la == lb
+    _assert_same_state(sa, sb)
+    assert graphs == 1

@@ -77,9 +77,11 @@ def _lattice_splits(num_configs):
 def test_run_training_packing_follows_the_env(clean_env, config, env, packs):
     """`run_training` with `batch_packing: true` and HYDRAGNN_PACKING=0
     trains one unpacked epoch on the CPU lattice, as the JAX package
-    does; where packing resolves on, it raises NotImplementedError naming
-    A5.3 before any training."""
+    does; where packing resolves on, the epoch trains packed: its padding
+    fractions are those of the packed loader's plan, else the fixed
+    loader's."""
     from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
     from tests.utils import make_config
     splits = _lattice_splits(40)
     cfg = make_config("PNA")
@@ -89,14 +91,17 @@ def test_run_training_packing_follows_the_env(clean_env, config, env, packs):
     tr["batch_packing"] = config
     if env is not None:
         clean_env.setenv("HYDRAGNN_PACKING", env)
-    if packs:
-        with pytest.raises(NotImplementedError, match="A5.3"):
-            run_training(cfg, datasets=splits, device="cpu")
-        return
     _, history, _, _ = run_training(cfg, datasets=splits, device="cpu")
     assert len(history["train_loss"]) == 1
     assert np.isfinite(history["train_loss"]).all()
     assert np.isfinite(history["val_loss"]).all()
+    loader = create_dataloaders(*splits, int(tr["batch_size"]),
+                                neighbor_format=True, packing=packs)[0]
+    loader.set_epoch(0)
+    stats = loader.padding_stats()
+    assert stats["packing"] == ("packed" if packs else "fixed")
+    for k in ("padding_frac_nodes", "padding_frac_edges"):
+        assert history[k] == [stats[k]], k
 
 
 # (Serving block, env) -> refused; each refused case is one the JAX
