@@ -4,7 +4,7 @@ one card, in turns: B1 (`nbr_aggregate`, the dense layout) and B2
 (`pna_edge_accumulators`, the edge list), forward and backward, float32
 and bf16.
 
-    python3 chip_ab.py OLD_ROOT NEW_ROOT [ROUNDS]
+    python3 chip_ab.py OLD_ROOT NEW_ROOT [ROUNDS] [--steps]
 
 Each turn runs this script with --child in one checkout's root, as a
 process of its own: it builds that checkout's kernels, makes the csce
@@ -18,6 +18,12 @@ checkout's `fused_mp` picks the edge-list forward's launch geometry
 old, new, new, old. One JSON line per turn, then the median of each
 checkout's turns per kernel and the ratio new / old (a geometry's
 against the old checkout's forward).
+
+With --steps a turn times training steps instead, with that checkout's
+`chip_smoke.step_metrics`: LJ SchNet EF (examples/LennardJones/LJ.json
+on 512 LJ cells, the edge list, batch 16) and csce PNA (dense, 512
+molecules, batch 128), each its captured single step's call ms, device
+ms and device events (one profiled call) and its replay alone.
 """
 from __future__ import annotations
 
@@ -68,6 +74,40 @@ def shapes(torch, dev):
     loader = create_dataloaders(*splits, bs, neighbor_format=True)[0]
     loader.set_epoch(0)
     return serve_dense, serve.to(dev), next(iter(loader)).to(dev), f
+
+
+def step_child() -> None:
+    """--steps: the captured step numbers of LJ EF and csce PNA."""
+    sys.path[0] = os.getcwd()       # this checkout's package and smoke
+    import torch
+
+    import chip_smoke as cs
+    from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     synthetic_molecules)
+    from hydragnn_tpu_torch.kernels import _build
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    n_tr, n_va = int(0.6 * cs.NUM_MOLECULES), int(0.2 * cs.NUM_MOLECULES)
+    times = {}
+    for name, path, data, graphs, dense in (
+            ("lj_ef", cs.LJ_CONFIG, lj_configurations(cs.NUM_LJ,
+                                                      seed=cs.SEED), 16,
+             False),
+            ("csce_dense", cs.CSCE_CONFIG,
+             synthetic_molecules(cs.NUM_MOLECULES, seed=cs.SEED), 128,
+             True)):
+        with open(path) as fh:
+            cfg = json.load(fh)
+        cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+        splits = (data[:n_tr], data[n_tr:n_tr + n_va], data[n_tr + n_va:])
+        rec = cs.step_metrics(torch, cfg, splits, dev, name, graphs, 2)
+        g = rec["graph_S1"]
+        for key in ("step_ms", "device_ms_per_step",
+                    "device_events_per_step", "replay_ms_per_step"):
+            times[f"{name}.{key}"] = g[key]
+    print(json.dumps({"root": os.getcwd(), "card": cs.card_line(),
+                      "times": times}), flush=True)
 
 
 def child() -> None:
@@ -137,19 +177,22 @@ def child() -> None:
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--child":
-        child()
+        (step_child if "--steps" in sys.argv else child)()
         return 0
-    if len(sys.argv) not in (3, 4):
+    args = [a for a in sys.argv[1:] if a != "--steps"]
+    steps = ["--steps"] if "--steps" in sys.argv else []
+    if len(args) not in (2, 3):
         print(__doc__, file=sys.stderr)
         return 2
-    roots = {"old": os.path.abspath(sys.argv[1]),
-             "new": os.path.abspath(sys.argv[2])}
-    rounds = int(sys.argv[3]) if len(sys.argv) == 4 else 1
+    roots = {"old": os.path.abspath(args[0]),
+             "new": os.path.abspath(args[1])}
+    rounds = int(args[2]) if len(args) == 3 else 1
     runs = {"old": [], "new": []}
     for _ in range(rounds):
         for which in ("old", "new", "new", "old"):
             out = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--child"],
+                [sys.executable, os.path.abspath(__file__), "--child",
+                 *steps],
                 cwd=roots[which], capture_output=True, text=True,
                 timeout=900)
             if out.returncode != 0:

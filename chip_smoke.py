@@ -153,9 +153,33 @@ Phases:
    included, and two float32 SGD runs part within a few steps);
    segment_sum at the edge list's unfused [E, 2F + 1] statistics (F 50,
    unsorted receivers) and at the packed pooling shape of phase 9; and
-   `run_prediction` from the files with the trained state, denormalized,
-   card vs CPU within rtol 1e-4 / atol 1e-5; the step numbers of phase
-   5 for both layouts.
+   `run_prediction` from the files with the trained state (normalized
+   targets: the splits complete the config as plain lists, as in the JAX
+   package, so denormalization is off), card vs CPU within rtol 1e-4 /
+   atol 1e-5; the step numbers of phase 5 for both layouts.
+11. EGNN and GIN: the OC20 energy config
+   (examples/open_catalyst_2020/open_catalyst_energy.json: EGNN hidden
+   50, 3 equivariant layers, radius 5 with PBC, edge lengths, graph head
+   2 x 50 shared then [50, 25], batch 32, AdamW 1e-3; 3 epochs) and the
+   forces config (node head [50, 25] -> 3, mae; 2 of its 3 epochs) on
+   512 synthetic OC20 slabs (`oc20_slabs`), and qm9.json's GIN (hidden 5,
+   6 layers, shared 2 x 5, heads [50, 25], radius 7, max_neighbours 5,
+   batch 64; plots off and NeuralNetwork.Profile removed, which neither
+   package reads; 2 epochs) on 512 synthetic QM9 molecules
+   (`qm9_molecules`). Each trained through `run_training` on the dense
+   layout and the edge list (captured steps): the first step (loss card
+   vs CPU within rtol 1e-4 / atol 1e-5, gradients kernels vs plain
+   within 1e-2 relative L2), two card runs bitwise, captured = eager
+   bitwise and phase 5's step numbers; then served: `run_prediction`
+   card vs CPU within rtol 1e-4 / atol 1e-5, an `InferenceEngine` (edge
+   list) against the same engine on the CPU likewise, batched = single
+   bitwise, the engine's graphs and SLICE_BURSTS timed bursts
+   (requests/s, p50, p99). The trained EGNN's forward at bf16, card vs
+   CPU within 2^-5. segment_sum at the new shapes (EGNN's [E, 50]
+   message sum, [E, 3] coordinate mean and gathers' backwards, GIN's
+   [E, 5], both poolings), each against its plain version beside its
+   bound and `index_add`'s time. Each of phase 11's numbers is printed
+   beside the card's name and power limit.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -494,13 +518,13 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
 
 
 def segment_shape(torch, name, data, ids, n, layout=None, real=None,
-                  sort=True):
+                  sort=True, card=None):
     """One shape the main paths give segment_sum: the kernel against its
     plain version (on rows [:real] when a layout leaves rows out), its
     device time and `index_add`'s (each 20 calls in one CUDA graph), and
     its bound. Sorted ids unless a layout is given or `sort` is false
     (the kernel then argsorts them first, as the unfused PNA statistics
-    ask it to)."""
+    ask it to). `card`, given, is printed beside the numbers."""
     from hydragnn_tpu_torch.kernels import segment
 
     e, f = data.shape
@@ -536,8 +560,8 @@ def segment_shape(torch, name, data, ids, n, layout=None, real=None,
           f"longest segment {int(segs.max())} rows, "
           f"C={segment.chunk_rows(f)}: device_ms={dev:.4f} "
           f"(row_ptr pass {rp}) bound_ms={b_ms:.5f} ({b_by}) "
-          f"index_add device_ms={lib:.4f} max_abs_err={err:.3e}",
-          flush=True)
+          f"index_add device_ms={lib:.4f} max_abs_err={err:.3e}"
+          + (f" (card: {card})" if card else ""), flush=True)
     return dict(shape=name, E=e, N=n, F=f, longest_segment=int(segs.max()),
                 chunk_rows=segment.chunk_rows(f), device_ms=dev,
                 row_ptr_device_ms=rp, bound_ms=b_ms, bound_by=b_by,
@@ -1271,12 +1295,12 @@ def train_parts(torch, cfg, splits, device, group: int = 0):
     state, train step, train loader, completed config, model config); with
     `group` > 0 also the multi step of that many steps, last."""
     from hydragnn_tpu_torch.config import config as tcfg
-    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.models.create import create_model, data_input_dim
     from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
     from hydragnn_tpu_torch.train import optimizer as topt
     from hydragnn_tpu_torch.train import train_step as tstep
     cfg = tcfg.update_config(copy.deepcopy(cfg), *splits)
-    mcfg = tcfg.build_model_config(cfg)
+    mcfg = data_input_dim(tcfg.build_model_config(cfg), splits[0])
     tr = cfg["NeuralNetwork"]["Training"]
     nbr_fmt = bool(cfg["NeuralNetwork"]["Architecture"].get(
         "neighbor_format", True))
@@ -1303,7 +1327,7 @@ def plain_versions():
     """Every kernel wrapper of the model's path replaced by its plain
     PyTorch version under autograd (the yardstick on the same card)."""
     from hydragnn_tpu_torch.kernels import fused_mp, nbr, segment
-    from hydragnn_tpu_torch.models import convs
+    from hydragnn_tpu_torch.models import convs, egnn
     from hydragnn_tpu_torch.ops import geometry
     from hydragnn_tpu_torch.ops import segment as oseg
 
@@ -1326,6 +1350,10 @@ def plain_versions():
         (geometry, "gather_rows", lambda x, i, layout=None:
              x.index_select(0, i)),
         (convs, "gather_rows", lambda x, i, layout=None:
+             x.index_select(0, i)),
+        (egnn, "gather_rows", lambda x, i, layout=None:
+             x.index_select(0, i)),
+        (segment, "gather_rows", lambda x, i, layout=None:
              x.index_select(0, i))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
@@ -1372,8 +1400,8 @@ def first_step_gradients(torch, cfg, splits, card):
         batch = next(iter(loader)).to(dev)
         batch = batch.replace(**{
             k: getattr(batch, k).to(dtype) for k in (
-                "x", "pos", "y_graph", "y_node", "edge_shifts", "energy",
-                "forces") if getattr(batch, k) is not None})
+                "x", "pos", "y_graph", "y_node", "edge_attr", "edge_shifts",
+                "energy", "forces") if getattr(batch, k) is not None})
         model.train()
         with (plain_versions() if tag == "card_plain"
               else contextlib.nullcontext()):
@@ -1654,7 +1682,8 @@ def graph_parity(torch, cfg, splits, device, label, group):
     return same
 
 
-def step_metrics(torch, cfg, splits, device, label, real_graphs, group):
+def step_metrics(torch, cfg, splits, device, label, real_graphs, group,
+                 card=None):
     """Per training path, three routes on one state: the eager step body
     (`TrainStep.eager`, a measurement beside the graphs, never the route),
     the captured single step (the S = 1 graph run_training replays) and
@@ -1669,7 +1698,8 @@ def step_metrics(torch, cfg, splits, device, label, real_graphs, group):
     `graph_parity`. Fails unless each captured graph holds as many nodes
     of each hand-written kernel as a replay adds to the launch counters,
     and the eager call's profile as many launches as the counters counted
-    (the graph routes' profiles are reported beside them)."""
+    (the graph routes' profiles are reported beside them). `card`, given,
+    is printed beside each route's numbers."""
     parity = graph_parity(torch, cfg, splits, device, label, group)
     model, state, step, loader, _, _, multi = train_parts(
         torch, cfg, splits, device, group)
@@ -1742,8 +1772,8 @@ def step_metrics(torch, cfg, splits, device, label, real_graphs, group):
               f"{rec['graphs_per_s']:.1f} graphs/s"
               + (f"; the graph's replay alone {rec['replay_ms_per_step']:.3f}"
                  " ms a step" if cap is not None else "")
-              + f"; hand-written kernels in the profile: {port}",
-              flush=True)
+              + f"; hand-written kernels in the profile: {port}"
+              + (f" (card: {card})" if card else ""), flush=True)
         for dev_t, key, count in sorted(rows, reverse=True)[:6]:
             print(f"  {dev_t / 1e3:8.3f} ms  x{count:<4d} {key[:90]}",
                   flush=True)
@@ -2807,9 +2837,10 @@ def eam_phase(torch, device, counted, packed_batch):
             if not np.isfinite(hist["train_loss"] + hist["val_loss"]).all():
                 fail(f"{name}: non-finite losses")
             voi = done["NeuralNetwork"]["Variables_of_interest"]
-            if not voi.get("denormalize_output") or "y_minmax" not in voi:
-                fail(f"{name}: the reader's min-max did not reach the "
-                     "completed config")
+            if voi.get("denormalize_output") or "y_minmax" in voi:
+                fail(f"{name}: the reader's min-max reached the completed "
+                     "config (the JAX package completes it from plain "
+                     "lists, denormalization off)")
             # the main path again: two card runs from one seed, bitwise
             state2, hist2, _, _ = run_training(copy.deepcopy(cfg),
                                                device=device)
@@ -2859,21 +2890,21 @@ def eam_phase(torch, device, counted, packed_batch):
                                               state=state, model=model,
                                               device="cpu")
             err = float(np.abs(preds[0] - preds_c[0]).max())
-            lo, hi = voi["y_minmax"][0]
+            # normalized targets (the reader's min-max scaling), in [0, 1]
             if preds[0].shape != (sum(s.num_nodes for s in splits[2]), 1) \
                     or not np.isfinite(preds[0]).all() \
                     or not np.allclose(preds[0], preds_c[0], **SLICE_TOL) \
                     or not np.array_equal(trues[0], trues_c[0]) \
-                    or not (lo - 1e-3 <= trues[0].min() <= trues[0].max()
-                            <= hi + 1e-3):
+                    or not (-1e-6 <= trues[0].min() <= trues[0].max()
+                            <= 1 + 1e-6):
                 fail(f"{name}: run_prediction card vs cpu max err {err}, "
-                     f"shape {preds[0].shape}, targets in [{lo}, {hi}]: "
+                     f"shape {preds[0].shape}, normalized targets "
                      f"{trues[0].min()}..{trues[0].max()}")
             rmse = float(np.sqrt(np.mean((preds[0] - trues[0]) ** 2)))
-            print(f"{name}: run_prediction from its files, denormalized "
-                  f"(atomic energies in [{lo:.4f}, {hi:.4f}] eV): card vs "
-                  f"cpu max abs err {err:.3e}; test RMSE {rmse:.4f} eV",
-                  flush=True)
+            print(f"{name}: run_prediction from its files, normalized "
+                  f"targets (denormalization off, as in the JAX package): "
+                  f"card vs cpu max abs err {err:.3e}; test RMSE "
+                  f"{rmse:.4f}", flush=True)
             rec = step_metrics(torch, cfg, splits, device, name, bs,
                                CSCE_GROUP)
             rec["run"] = dict(history=hist, wall_s=wall, launches=counts,
@@ -2942,6 +2973,466 @@ def eam_phase(torch, device, counted, packed_batch):
     finally:
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------- phase 11 --
+OC20_ENERGY = "examples/open_catalyst_2020/open_catalyst_energy.json"
+OC20_FORCES = "examples/open_catalyst_2020/open_catalyst_forces.json"
+QM9_CONFIG = "examples/qm9/qm9.json"
+NUM_SLABS = 512                # OC20 slabs of 29 atoms
+NUM_QM9 = 512                  # QM9 molecules of 6-16 atoms
+FORCES_EPOCHS = 2              # open_catalyst_forces.json trains 3
+SLICE_BURSTS = 20              # timed engine bursts of each path
+SLICE_GROUP = 2                # steps per call timed beside S = 1
+
+
+def slice_paths(torch):
+    """Phase 11's three configurations: (label, config, splits, epochs)
+    of the OC20 energy and forces EGNN on synthetic slabs and qm9.json's
+    GIN on synthetic molecules, each split by its perc_train as the
+    examples split."""
+    from hydragnn_tpu_torch.graphs.synthetic import oc20_slabs, qm9_molecules
+    from hydragnn_tpu_torch.preprocess.load_data import split_dataset
+    slabs = oc20_slabs(NUM_SLABS, seed=SEED)
+    mols = qm9_molecules(NUM_QM9, seed=SEED)
+    out = []
+    for label, path, data, epochs in (
+            ("OC20 EGNN energy", OC20_ENERGY, slabs, None),
+            ("OC20 EGNN forces", OC20_FORCES, slabs, FORCES_EPOCHS),
+            ("qm9 GIN", QM9_CONFIG, mols, None)):
+        with open(path) as fh:
+            cfg = json.load(fh)
+        if label == "qm9 GIN":
+            # the two keys off the port's path: plots (ROADMAP A10), and a
+            # Profile under NeuralNetwork, which neither package reads
+            # (the JAX package reads a top-level Profile only)
+            cfg["Visualization"]["create_plots"] = False
+            cfg["NeuralNetwork"].pop("Profile")
+            print(f"{label}: {path} with Visualization.create_plots "
+                  "turned off and NeuralNetwork.Profile removed; "
+                  "architecture, widths, batch size and optimizer as "
+                  "published", flush=True)
+        tr = cfg["NeuralNetwork"]["Training"]
+        epochs = epochs or int(tr["num_epoch"])
+        splits = split_dataset(data, float(tr["perc_train"]))
+        out.append((label, cfg, splits, epochs))
+    return out
+
+
+def engine_bursts(torch, engine, requests, bursts):
+    """`bursts` bursts of `requests`, each submitted at once, after one
+    warm-up burst: (requests/s over the bursts' wall time, p50 ms, p99 ms
+    over every request)."""
+    for fut in [engine.submit(r) for r in requests]:
+        fut.result(timeout=600)
+    engine.reset_stats()
+    t0 = time.perf_counter()
+    for _ in range(bursts):
+        for fut in [engine.submit(r) for r in requests]:
+            fut.result(timeout=600)
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    if stats["count"] != bursts * len(requests):
+        fail(f"engine recorded {stats['count']} latencies for "
+             f"{bursts * len(requests)} requests")
+    return dict(requests_per_s=bursts * len(requests) / wall,
+                p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+                requests=len(requests), bursts=bursts)
+
+
+def slice_serving(torch, label, model, done, splits, device, card,
+                  counted):
+    """A trained model served (`done`, its completed config):
+    run_prediction from its weights, card vs CPU,
+    then an InferenceEngine on the edge list over the test split repeated
+    ENGINE_REPEATS times, card vs the same engine on the CPU (each within
+    SLICE_TOL, or FLOOR_TIMES the float32 floor where that is wider:
+    `hold_card_cpu`), batched = single on the same bucket bitwise, the
+    engine's graphs (`engine_graphs`) and SLICE_BURSTS timed bursts."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    mcfg = model.cfg
+    test = splits[2]
+    node_head = mcfg.heads[0].head_type == "node"
+    models, predicted = {}, {}
+    for dev in (device, "cpu"):
+        models[dev] = create_model(mcfg, device=dev)
+        models[dev].load_state_dict(model.state_dict())
+        tk.reset_launch_counts()
+        predicted[dev] = run_prediction(copy.deepcopy(done), splits,
+                                        model=models[dev], device=dev,
+                                        serve=False)
+        if dev == device:
+            torch.cuda.synchronize()
+            counted(tk.launch_counts())
+    (trues, preds), (trues_c, preds_c) = predicted[device], predicted["cpu"]
+    floors = {dense: float32_floor(torch, model, splits, dense)
+              for dense in (True, False)}
+    dense = bool(done["NeuralNetwork"]["Architecture"].get(
+        "neighbor_format", True))
+    if not np.array_equal(trues[0], trues_c[0]):
+        fail(f"{label}: run_prediction targets differ, card vs cpu")
+    layer_gaps = None
+    if not np.allclose(preds[0], preds_c[0], **SLICE_TOL):
+        layer_gaps = float32_layer_gaps(torch, model, splits, device, dense)
+    err_rp = hold_card_cpu(f"{label}: run_prediction", preds[0], preds_c[0],
+                           floors[dense])
+    requests = test * ENGINE_REPEATS
+    outs = {}
+    for dev in (device, "cpu"):
+        engine = InferenceEngine(models[dev], mcfg, reference_samples=test,
+                                 max_batch_size=SERVE_MAX_BATCH,
+                                 neighbor_format=False, device=dev)
+        try:
+            engine.warmup()
+            tk.reset_launch_counts()
+            futs = [engine.submit(r) for r in requests]
+            results = [f.result(timeout=600) for f in futs]
+            if dev == device:
+                counts = tk.launch_counts()
+                counted(counts)
+                if counts["segment_sum"] == 0:
+                    fail(f"{label}: segment_sum never launched on the "
+                         "engine path")
+                singles = [(f.bucket, engine.forward_single(r,
+                                                            bucket=f.bucket))
+                           for r, f in list(zip(requests, futs))[:8]]
+                bitwise = all(np.array_equal(res[0], one[0]) for
+                              (_, one), res in zip(singles, results[:8]))
+                if not bitwise:
+                    fail(f"{label}: engine batched != single on one bucket")
+                graphs = engine_graphs(torch, engine, requests,
+                                       f"{label} engine")
+                rate = engine_bursts(torch, engine, requests, SLICE_BURSTS)
+            outs[dev] = results
+        finally:
+            engine.shutdown()
+    got = np.concatenate([r[0].reshape(-1) for r in outs[device]])
+    want = np.concatenate([r[0].reshape(-1) for r in outs["cpu"]])
+    err_eng = hold_card_cpu(f"{label}: engine", got, want, floors[False])
+    print(f"{label} serving: run_prediction card vs cpu max abs err "
+          f"{err_rp:.3e} (the cpu's float32 vs float64 {floors[dense]:.3e}, "
+          f"edge list {floors[False]:.3e}; bound {SLICE_TOL} or "
+          f"{FLOOR_TIMES:g} floors); engine ({'node' if node_head else 'graph'} head, "
+          f"edge list) card vs cpu max abs err {err_eng:.3e}; batched = "
+          f"single bitwise; launches {counts}; {rate['bursts']} bursts of "
+          f"{rate['requests']} requests: {rate['requests_per_s']:.1f} "
+          f"requests/s, p50 {rate['p50_ms']:.3f} ms, p99 "
+          f"{rate['p99_ms']:.3f} ms (card: {card})", flush=True)
+    return dict(prediction_card_cpu=err_rp, engine_card_cpu=err_eng,
+                float32_floor_dense=floors[True],
+                float32_floor_edge=floors[False],
+                float32_layer_gaps=layer_gaps,
+                batched_equals_single=True, launches=counts, graphs=graphs,
+                **rate)
+
+
+def float32_floor(torch, model, splits, dense):
+    """The float32 rounding of a model's outputs on the test split: max
+    |float32 - float64| of its CPU forward on the split collated as one
+    batch (dense: with run_prediction's neighbour budget), over real
+    graphs or nodes."""
+    from hydragnn_tpu_torch.graphs.batch import (collate,
+                                                 neighbor_budget_for_dataset,
+                                                 with_neighbor_format)
+    from hydragnn_tpu_torch.models.create import create_model
+    b = collate(splits[2])
+    if dense:
+        b = with_neighbor_format(b, k=neighbor_budget_for_dataset(
+            splits[0] + splits[1] + splits[2]))
+    outs = []
+    for dt in (torch.float32, torch.float64):
+        m = create_model(model.cfg, device="cpu").to(dt)
+        m.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            out, _ = m(b.replace(**{k: getattr(b, k).to(dt) for k in (
+                "x", "pos", "edge_attr", "edge_shifts")
+                if getattr(b, k) is not None}))
+        outs.append(out[0].double())
+    rows = (b.node_mask if model.cfg.heads[0].head_type == "node"
+            else b.graph_mask)
+    return float((outs[0] - outs[1])[rows].abs().max())
+
+
+FLOOR_TIMES = 4.0              # card vs cpu, in float32 floors
+
+
+def float32_layer_gaps(torch, model, splits, device, dense):
+    """Where a model's float32 outputs part card vs CPU: each conv's and
+    norm's output on the test split (one batch), card and CPU float32
+    against the CPU at float64, max abs over real nodes, beside the
+    largest |value|. Printed before a serving hold falls back to the
+    float32 floor."""
+    from hydragnn_tpu_torch.graphs.batch import (collate,
+                                                 neighbor_budget_for_dataset,
+                                                 with_neighbor_format)
+    from hydragnn_tpu_torch.models.create import create_model
+    b = collate(splits[2])
+    if dense:
+        b = with_neighbor_format(b, k=neighbor_budget_for_dataset(
+            splits[0] + splits[1] + splits[2]))
+    feats = {}
+    for tag, dev, dt in (("card", device, torch.float32),
+                         ("cpu", "cpu", torch.float32),
+                         ("cpu64", "cpu", torch.float64)):
+        m = create_model(model.cfg, device=dev).to(dt)
+        m.load_state_dict(model.state_dict())
+        bb = b.replace(**{k: getattr(b, k).to(dt) for k in (
+            "x", "pos", "edge_attr", "edge_shifts")
+            if getattr(b, k) is not None}).to(dev)
+        out = []
+        with torch.no_grad():
+            cargs = m.conv_args(bb)
+            x, pos = bb.x, bb.pos
+            for i in range(m.cfg.num_conv_layers):
+                x, pos = getattr(m, f"conv_{i}")(x, pos, bb, cargs)
+                out.append((f"conv_{i}", x.double().cpu()))
+                if m.use_batch_norm:
+                    x = getattr(m, f"feature_norm_{i}")(x, bb.node_mask)
+                    out.append((f"feature_norm_{i}", x.double().cpu()))
+                x = m.act(x)
+        feats[tag] = out
+    rows = b.node_mask
+    gaps = []
+    for (name, card), (_, cpu), (_, ref) in zip(*feats.values()):
+        card, cpu, ref = card[rows], cpu[rows], ref[rows]
+        gaps.append(dict(layer=name, scale=float(ref.abs().max()),
+                         card=float((card - ref).abs().max()),
+                         cpu=float((cpu - ref).abs().max())))
+    print("float32 rounding by layer, card / cpu against the cpu at "
+          "float64 (max abs; largest |value|): " + "; ".join(
+              f"{g['layer']} {g['card']:.2e} / {g['cpu']:.2e} "
+              f"({g['scale']:.3g})" for g in gaps), flush=True)
+    return gaps
+
+
+def hold_card_cpu(name, got, want, floor):
+    """Card vs CPU within SLICE_TOL or, where the float32 floor is wider,
+    within FLOOR_TIMES the floor (`float32_floor`): the CPU's own float32
+    rounding, which the card's may exceed (qm9.json's GIN trained on an
+    H100: card vs CPU 1.84e-5 against a floor of 5.9e-6 on predictions
+    of 0.01-0.24, every kernel held against its plain version); a lost
+    path or a wrong kernel misses it by orders. Fails otherwise. Returns
+    the max abs error."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    within = np.abs(got - want) <= np.maximum(
+        SLICE_TOL["atol"] + SLICE_TOL["rtol"] * np.abs(want),
+        FLOOR_TIMES * floor)
+    if got.shape != want.shape or not np.isfinite(got).all() \
+            or not within.all():
+        fail(f"{name} card vs cpu max err {err}, shape {got.shape}; "
+             f"float32 floor {floor}")
+    return err
+
+
+def slice_training(torch, label, cfg, splits, epochs, device, card,
+                   counted):
+    """One phase 11 configuration trained through run_training (captured
+    steps) on the dense layout and the edge list. Per layout: the first
+    step (`first_step_gradients`: loss card vs CPU within SLICE_TOL,
+    gradients kernels vs plain versions within 1e-2 relative L2), the
+    config's optimizer on the card twice (bitwise equal histories and
+    parameters; the first counted), and the step numbers
+    (`step_metrics`, which first holds captured = eager bitwise).
+    Returns (the dense run's model and completed config, {path:
+    record})."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    bs = int(cfg["NeuralNetwork"]["Training"]["batch_size"])
+    out, model, completed = {}, None, None
+    for dense in (True, False):
+        c = copy.deepcopy(cfg)
+        c["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+        c["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+        name = f"{label} ({'dense' if dense else 'edge list'})"
+        sgd = copy.deepcopy(c)
+        sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
+            "type": "SGD", "learning_rate": c["NeuralNetwork"]["Training"][
+                "Optimizer"].get("learning_rate", 1e-3)}
+        first = first_step_gradients(torch, sgd, splits, device)
+        runs = []
+        for i in range(2):
+            tk.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, hist, m, done = run_training(copy.deepcopy(c),
+                                                datasets=splits,
+                                                device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if i == 0:
+                counts = tk.launch_counts()
+                counted(counts)
+                if dense:
+                    model, completed = m, done
+            runs.append((hist, {k: v.detach().cpu().clone()
+                                for k, v in state.state_dict().items()},
+                         wall))
+        (h0, s0, w0), (h1, s1, w1) = runs
+        same = all(h0[k] == h1[k] for k in h0) and all(
+            torch.equal(v, s1[k]) for k, v in s0.items())
+        if not same:
+            fail(f"{name}: two card runs from one seed differ")
+        if counts["segment_sum"] == 0:
+            fail(f"{name}: segment_sum never launched")
+        if not np.isfinite(h0["train_loss"] + h0["val_loss"]).all() \
+                or sum(h0["nonfinite_steps"]):
+            fail(f"{name}: non-finite losses {h0}")
+        print(f"{name}: run_training {epochs} epochs "
+              f"({c['NeuralNetwork']['Training']['Optimizer']['type']}) in "
+              f"{w0:.2f} s and {w1:.2f} s, bitwise equal: {same}; train "
+              f"{h0['train_loss']} val {h0['val_loss']}; CUDA graphs an "
+              f"epoch {h0['graph_captures']}; launches {counts}; first step: "
+              f"loss card vs cpu {first['loss_gap']:.3e}, gradients kernels "
+              f"vs plain {first['rel_l2_kernels_plain']:.3e} (relative L2, "
+              f"worst tensor; as one vector "
+              f"{first['rel_l2_kernels_plain_all']:.3e}), card vs cpu "
+              f"{first['rel_l2_card_cpu']:.3e}, cpu float32 vs float64 "
+              f"{first['rel_l2_cpu_f64']:.3e} (card: {card})", flush=True)
+        rec = step_metrics(torch, c, splits, device, name, bs, SLICE_GROUP,
+                           card=card)
+        rec["run"] = dict(history=h0, wall_s=w0, launches=counts,
+                          first_step=first, bitwise_repeat=same)
+        out["_".join(label.lower().split()) + ("_dense" if dense
+                                              else "_edge")] = rec
+    return model, completed, out
+
+
+def egnn_bf16_forward(torch, model, splits, device, card):
+    """The trained EGNN's forward at bf16 (train_step.make_forward_fn) on
+    a loader batch, card vs CPU within 2^-5 (atol + rtol |ref|), the gap
+    to float32 printed."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train.train_step import make_forward_fn
+    mcfg = model.cfg
+    loader = create_dataloaders(*splits, 32, neighbor_format=False)[0]
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    outs = {}
+    for dev in (device, "cpu"):
+        m = create_model(mcfg, device=dev)
+        m.load_state_dict(model.state_dict())
+        before = tk.launch_counts()["segment_sum"]
+        with torch.no_grad():
+            got, _ = make_forward_fn(m, mcfg, "bf16", frozen=True)(
+                batch.to(dev))
+            ref32, _ = m(batch.to(dev))
+        if dev == device and tk.launch_counts()["segment_sum"] == before:
+            fail("EGNN bf16 forward: segment_sum never launched")
+        outs[str(dev)] = (got[0].cpu().numpy(), ref32[0].cpu().numpy())
+    gm = batch.graph_mask.numpy()
+    card16, card32 = (o[gm] for o in outs[str(device)])
+    cpu16 = outs["cpu"][0][gm]
+    gap = bf16_gap(card16, cpu16)
+    if not np.isfinite(card16).all() or gap > 0:
+        fail(f"EGNN bf16 forward card vs cpu outside 2^-5 (by {gap})")
+    rec = dict(card_cpu=float(np.abs(card16 - cpu16).max()), margin=-gap,
+               bf16_vs_float32=float(np.abs(card16 - card32).max()))
+    print(f"OC20 EGNN energy bf16 forward (edge list, {int(gm.sum())} "
+          f"slabs): card vs cpu max abs err {rec['card_cpu']:.3e} (bound "
+          f"2^-5 + 2^-5 |ref|, margin {rec['margin']:.3e}); bf16 vs float32 "
+          f"on the card {rec['bf16_vs_float32']:.3e} (card: {card})",
+          flush=True)
+    return rec
+
+
+def slice_segment_shapes(torch, paths, device, card):
+    """segment_sum at each new shape of phase 11's paths, on the loader's
+    first batch, each over the layout the path builds once a step
+    (models/base.py `aggregation_layouts`), beside its bound and
+    `index_add`'s time: EGNN's [E, 50] message sum and [E, 3] coordinate
+    mean by receivers and its gathers' gradients (by senders on the
+    edge list, by the table's edge ids on the dense layout), GIN's [E, 5]
+    sum and its dense gather's gradient [N K, 5], and both poolings."""
+    from hydragnn_tpu_torch.kernels.segment import segment_layout
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    shapes = []
+    for label, cfg, splits, _ in paths:
+        if label == "OC20 EGNN forces":
+            continue            # the energy config's shapes
+        tag = "egnn" if "EGNN" in label else "gin"
+        f = int(cfg["NeuralNetwork"]["Architecture"]["hidden_dim"])
+        bs = int(cfg["NeuralNetwork"]["Training"]["batch_size"])
+        for dense in (False, True):
+            loader = create_dataloaders(*splits, bs,
+                                        neighbor_format=dense)[0]
+            loader.set_epoch(0)
+            b = next(iter(loader)).to(device)
+            n = b.num_nodes
+            if dense:
+                keep = b.nbr_mask.reshape(-1)
+                ids, segs = ((b.nbr_edge, b.num_edges) if tag == "egnn"
+                             else (b.nbr, n))
+                ids = ids.reshape(-1)
+                g = torch.randn(keep.shape[0], f, device=device,
+                                generator=gen) * keep[:, None]
+                shapes.append(segment_shape(
+                    torch, f"{tag}_dense_gather_bwd", g, ids, segs,
+                    layout=segment_layout(ids, segs, keep), card=card))
+                continue
+            keep = b.edge_mask
+            recv = segment_layout(b.receivers, n, keep)
+            for name, width in ((f"{tag}_edge_sum", f),
+                                ("egnn_edge_coord_mean", 3)):
+                if name == "egnn_edge_coord_mean" and tag != "egnn":
+                    continue
+                m = torch.randn(b.num_edges, width, device=device,
+                                generator=gen) * keep[:, None]
+                shapes.append(segment_shape(torch, name, m, b.receivers, n,
+                                            layout=recv, card=card))
+            if tag == "egnn":
+                g = torch.randn(b.num_edges, f, device=device,
+                                generator=gen) * keep[:, None]
+                shapes.append(segment_shape(
+                    torch, "egnn_gather_send_bwd", g, b.senders, n,
+                    layout=segment_layout(b.senders, n, keep), card=card))
+            x = torch.randn(n, f, device=device, generator=gen)
+            shapes.append(segment_shape(torch, f"{tag}_pooling",
+                                        x * b.node_mask[:, None],
+                                        b.node_graph, b.num_graphs,
+                                        card=card))
+    return shapes
+
+
+def slice_phase(torch, device, card, counted):
+    """Phase 11: EGNN and GIN (`slice_paths`) trained (`slice_training`)
+    and served (`slice_serving`), EGNN's bf16 forward
+    (`egnn_bf16_forward`) and segment_sum at the new shapes
+    (`slice_segment_shapes`). Returns ({path: record}, shapes)."""
+    t_phase = time.perf_counter()
+    paths = slice_paths(torch)
+    records, serving = {}, {}
+    energy_model = None
+    for label, cfg, splits, epochs in paths:
+        arch = cfg["NeuralNetwork"]["Architecture"]
+        print(f"phase 11: {label}: {arch['model_type']} hidden "
+              f"{arch['hidden_dim']}, {arch['num_conv_layers']} layers, "
+              f"batch {cfg['NeuralNetwork']['Training']['batch_size']}, "
+              f"{epochs} epochs; {sum(len(s) for s in splits)} graphs "
+              f"(splits {[len(s) for s in splits]}) of "
+              f"{splits[0][0].num_nodes} nodes and "
+              f"{splits[0][0].num_edges} edges (the first) (card: {card})",
+              flush=True)
+        model, done, recs = slice_training(torch, label, cfg, splits,
+                                           epochs, device, card, counted)
+        records.update(recs)
+        serving[label] = slice_serving(torch, label, model, done, splits,
+                                       device, card, counted)
+        if label == "OC20 EGNN energy":
+            energy_model = model
+    records["oc20_egnn_energy_bf16_forward"] = egnn_bf16_forward(
+        torch, energy_model, paths[0][2], device, card)
+    records["serving"] = serving
+    shapes = slice_segment_shapes(torch, paths, device, card)
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s (card: "
+          f"{card})", flush=True)
+    return records, shapes
 
 
 def main() -> int:
@@ -3310,9 +3801,14 @@ def main() -> int:
     eam_paths, eam_shapes = eam_phase(torch, device, counted, packed_batch)
     train_paths.update(eam_paths)
     records["segment_sum"]["shapes"] += eam_shapes
+
+    # ---------------------------------------------------------- phase 11
+    slice_records, slice_shapes = slice_phase(torch, device, card, counted)
+    train_paths.update(slice_records)
+    records["segment_sum"]["shapes"] += slice_shapes
     records["segment_sum"]["max_abs_err"] = max(
         [records["segment_sum"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in eam_shapes])
+        + [r["max_abs_err"] for r in eam_shapes + slice_shapes])
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),

@@ -11,6 +11,13 @@ eight has an atom moved far away, so the data holds isolated nodes.
 examples/LennardJones/lj_data.py (`generate_lj_dataset`), bitwise: the
 same physics on the port's GraphSample.
 
+`oc20_slabs` and `qm9_molecules` are the synthetic data of the OC20 and
+QM9 examples, bitwise: examples/open_catalyst_2020/oc20_data.py's
+`generate_oc20_dataset` frames (as generated, before the example writes
+them as extxyz text) through examples/common_atomistic.py's
+`frame_to_sample`, and examples/qm9/qm9_data.py's `_synthetic_qm9`
+molecules as `load_qm9` makes them samples.
+
 `ninb_cfg_files` and `fept_lsms_files` write the raw files of the eam and
 lsms examples (examples/eam/eam_data.py `generate_ninb_dataset`,
 examples/lsms/lsms_data.py `generate_fept_dataset`) byte for byte, so the
@@ -28,7 +35,7 @@ import numpy as np
 
 from ..utils.elements import SYMBOLS
 from .batch import GraphSample
-from .radius import radius_graph_pbc
+from .radius import radius_graph, radius_graph_pbc
 
 
 def synthetic_molecules(num: int, seed: int = 0, min_atoms: int = 10,
@@ -304,3 +311,120 @@ def fept_lsms_files(dirpath: str, num_configs: int = 200,
         with open(os.path.join(dirpath, f"FePt_{i:05d}.txt"), "w") as f:
             f.write("\n".join(lines))
     return dirpath
+
+
+FORCES_NORM_THRESHOLD = 100.0
+
+
+def atomistic_sample(z, pos, energy: float, forces, radius: float,
+                     max_neighbours: int, cell=None,
+                     energy_per_atom: bool = True):
+    """The atomistic examples' sample of one frame
+    (examples/common_atomistic.py `frame_to_sample`): x = [Z, pos,
+    forces], the radius graph (periodic where the cell is not 0), edge
+    lengths as `edge_attr`, the (per-atom) energy as the graph target and
+    the forces as the node target; None when a force's norm reaches
+    FORCES_NORM_THRESHOLD."""
+    forces = np.asarray(forces, np.float32)
+    if not np.all(np.linalg.norm(forces, axis=1) < FORCES_NORM_THRESHOLD):
+        return None
+    z = np.asarray(z, np.float32)
+    pos = np.asarray(pos, np.float32)
+    x = np.concatenate([z[:, None], pos, forces], axis=1)
+    shifts = None
+    if cell is not None and np.abs(cell).sum() > 0:
+        send, recv, shifts = radius_graph_pbc(pos, cell, radius,
+                                              max_neighbours=max_neighbours)
+    else:
+        send, recv = radius_graph(pos, radius, max_neighbours=max_neighbours)
+    vec = pos[send] - pos[recv]
+    if shifts is not None:
+        vec = vec + shifts
+    edge_len = np.linalg.norm(vec, axis=1, keepdims=True).astype(np.float32)
+    e = float(energy) / len(z) if energy_per_atom else float(energy)
+    return GraphSample(x=x, pos=pos, senders=send, receivers=recv,
+                       edge_attr=edge_len, edge_shifts=shifts,
+                       y_graph=np.asarray([e], np.float32), y_node=forces,
+                       cell=cell, energy=np.asarray([e], np.float32),
+                       forces=forces)
+
+
+def oc20_slabs(num: int, seed: int = 0, radius: float = 5.0,
+               max_neighbours: int = 512) -> List[GraphSample]:
+    """OC20-style frames: a 3 x 3 x 3 Cu or Pt fcc slab with a CO
+    adsorbate above a random top-layer site (29 atoms) in a 10.8 x 10.8
+    x 25 A periodic cell, displaced by N(0, 0.08 A) from the ideal sites,
+    with a harmonic-well energy and forces. The OC20 example trains on
+    them with radius 5 and max_neighbours min(config, 512)."""
+    rng = np.random.RandomState(seed)
+    a = 3.6
+    nx = ny = 3
+    layers = 3
+    out = []
+    for _ in range(num):
+        metal = 29.0 if rng.rand() < 0.5 else 78.0
+        slab_pos, slab_z = [], []
+        for layer in range(layers):
+            for i in range(nx):
+                for j in range(ny):
+                    off = (a / 2 if layer % 2 else 0.0)
+                    slab_pos.append([i * a + off, j * a + off,
+                                     layer * a * 0.7])
+                    slab_z.append(metal)
+        site = rng.randint(len(slab_pos) - nx * ny, len(slab_pos))
+        cx, cy, cz = slab_pos[site]
+        slab_pos += [[cx, cy, cz + 1.9], [cx, cy, cz + 3.05]]
+        slab_z += [6.0, 8.0]
+        pos0 = np.asarray(slab_pos, np.float32)
+        z = np.asarray(slab_z, np.float32)
+        disp = rng.randn(*pos0.shape).astype(np.float32) * 0.08
+        pos = pos0 + disp
+        k = 5.0
+        energy = (-3.0 * len(z) + 0.5 * k * float((disp ** 2).sum())
+                  - 1.5 * (metal == 78.0))
+        forces = (-k * disp).astype(np.float32)
+        cell = np.diag([nx * a, ny * a, 25.0]).astype(np.float32)
+        sample = atomistic_sample(z, pos, energy, forces, radius,
+                                  max_neighbours, cell=cell)
+        if sample is not None:
+            out.append(sample)
+    return out
+
+
+def qm9_molecules(num: int, seed: int = 0, radius: float = 7.0,
+                  max_neighbours: int = 5) -> List[GraphSample]:
+    """QM9-style CHNOF molecules: a random tree of 4-9 heavy atoms with
+    ~1.4 A bonds and 2-7 hydrogens at 1 A, x = Z, target the free
+    energy per atom of a closed form of composition and geometry, edges
+    within `radius` capped at `max_neighbours` per atom."""
+    rng = np.random.RandomState(seed)
+    elements = np.array([6, 7, 8, 9], np.float32)          # C N O F
+    elem_term = {1.0: -0.5, 6.0: -38.0, 7.0: -54.6, 8.0: -75.2, 9.0: -99.8}
+    out = []
+    for _ in range(num):
+        n_heavy = rng.randint(4, 10)
+        zs = [float(rng.choice(elements)) for _ in range(n_heavy)]
+        pos = [np.zeros(3)]
+        for i in range(1, n_heavy):
+            parent = rng.randint(0, i)
+            direction = rng.randn(3)
+            direction /= np.linalg.norm(direction) + 1e-9
+            pos.append(pos[parent] + direction * (1.4 + 0.1 * rng.randn()))
+        n_h = rng.randint(2, 8)
+        for _ in range(n_h):
+            parent = rng.randint(0, n_heavy)
+            direction = rng.randn(3)
+            direction /= np.linalg.norm(direction) + 1e-9
+            zs.append(1.0)
+            pos.append(pos[parent] + direction * 1.0)
+        zs = np.asarray(zs, np.float32)
+        pos = np.asarray(pos, np.float32)
+        g = sum(elem_term[z] for z in zs)
+        d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
+        g += 0.1 * float(np.exp(-d[d > 0]).sum())
+        g = np.float32(g)
+        send, recv = radius_graph(pos, radius, max_neighbours=max_neighbours)
+        out.append(GraphSample(x=zs[:, None], pos=pos, senders=send,
+                               receivers=recv,
+                               y_graph=np.asarray([g / len(zs)], np.float32)))
+    return out

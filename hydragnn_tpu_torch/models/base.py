@@ -18,10 +18,12 @@ from __future__ import annotations
 
 from typing import Any, Dict, List
 
+import torch
 from torch import nn
 
 from ..config.config import ModelConfig
 from ..graphs.batch import GraphBatch
+from ..kernels.segment import segment_layout
 from ..ops.activations import activation_function_selection
 from ..ops.segment import global_mean_pool
 from .layers import MLP, MLPNode, MaskedBatchNorm
@@ -29,7 +31,7 @@ from .layers import MLP, MLPNode, MaskedBatchNorm
 
 class BaseStack(nn.Module):
     """Abstract conv stack + multihead decoder. Subclasses override
-    `make_conv` (and optionally `conv_args`)."""
+    `make_conv` (and optionally `conv_width`, `conv_args`)."""
 
     use_batch_norm = True
 
@@ -39,14 +41,13 @@ class BaseStack(nn.Module):
         self.act = activation_function_selection(cfg.activation)
         in_dim = cfg.input_dim
         for i in range(cfg.num_conv_layers):
+            final = i == cfg.num_conv_layers - 1
             setattr(self, f"conv_{i}",
-                    self.make_conv(in_dim, cfg.hidden_dim, i,
-                                   final=(i == cfg.num_conv_layers - 1)))
+                    self.make_conv(in_dim, cfg.hidden_dim, i, final=final))
+            in_dim = self.conv_width(in_dim, cfg.hidden_dim, final)
             if self.use_batch_norm:
-                setattr(self, f"feature_norm_{i}",
-                        MaskedBatchNorm(cfg.hidden_dim))
-            in_dim = cfg.hidden_dim
-        hidden = cfg.hidden_dim if cfg.num_conv_layers else cfg.input_dim
+                setattr(self, f"feature_norm_{i}", MaskedBatchNorm(in_dim))
+        hidden = in_dim
 
         graph_heads = [h for h in cfg.heads if h.head_type == "graph"]
         shared_dim = hidden
@@ -72,6 +73,13 @@ class BaseStack(nn.Module):
     def make_conv(self, in_dim: int, out_dim: int, idx: int,
                   final: bool = False) -> nn.Module:
         raise NotImplementedError
+
+    def conv_width(self, in_dim: int, out_dim: int, final: bool) -> int:
+        """The width of the features a conv made by `make_conv(in_dim,
+        out_dim, ..., final)` gives, which its norm and the next conv take
+        (Flax infers it from the data): a concatenating GATv2 gives
+        heads x out_dim."""
+        return out_dim
 
     def conv_args(self, batch: GraphBatch) -> Dict[str, Any]:
         return {}
@@ -108,3 +116,43 @@ class BaseStack(nn.Module):
         if cfg.var_output:
             return outputs, outputs_var
         return outputs, None
+
+
+def aggregation_layouts(batch: GraphBatch, nbr_slots: bool = False,
+                        edge_slots: bool = False,
+                        edge_gathers: bool = False) -> Dict[str, Any]:
+    """The `kernels.segment.segment_layout`s of the ids one forward's
+    sums and gathers walk, built once for all its layers (a stack's
+    `conv_args`; capture-safe: no host read); {} on the CPU, where the
+    plain versions run. Masked entries are left out: they add nothing,
+    and their gradient is 0.
+
+    * the edge list: `recv_layout` (the sums by receivers and the
+      receiver gathers' gradient) and, with gradients on,
+      `send_layout` (the sender gathers' gradient);
+    * the dense layout, with gradients on: `nbr_slot_layout` for a stack
+      that gathers node rows into the table (`nbr_slots`),
+      `edge_slot_layout` for one that gathers edge rows into it
+      (`edge_slots`), and the edge list's two for one that also gathers
+      node rows per edge (`edge_gathers`)."""
+    if batch.x.device.type == "cpu":
+        return {}
+    grad = torch.is_grad_enabled()
+    n = batch.num_nodes
+    out = {}
+    dense = batch.nbr is not None
+    if not dense or (grad and edge_gathers):
+        out["recv_layout"] = segment_layout(batch.receivers, n,
+                                            batch.edge_mask)
+    if grad and (not dense or edge_gathers):
+        out["send_layout"] = segment_layout(batch.senders, n,
+                                            batch.edge_mask)
+    if dense and grad:
+        slots = batch.nbr_mask.reshape(-1)
+        if nbr_slots:
+            out["nbr_slot_layout"] = segment_layout(batch.nbr.reshape(-1), n,
+                                                    slots)
+        if edge_slots:
+            out["edge_slot_layout"] = segment_layout(
+                batch.nbr_edge.reshape(-1), batch.num_edges, slots)
+    return out

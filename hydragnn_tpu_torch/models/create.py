@@ -2,13 +2,15 @@
 
 `create_model` builds the stack for a `ModelConfig` on a device (the card
 unless the caller passes device="cpu"), initializes it like Flax would
-(`init_params`) and returns it in eval mode. PNA and SchNet are ported;
-every other `model_type` raises NotImplementedError naming the ROADMAP
-item that brings it.
+(`init_params`) and returns it in eval mode. GIN, SAGE, GAT, MFC, CGCNN,
+PNA, PNAPlus, SchNet and EGNN are ported; DimeNet, PAINN, PNAEq and MACE
+raise NotImplementedError naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Sequence
 
 import torch
 from torch import nn
@@ -16,18 +18,22 @@ from torch import nn
 from ..config.config import ModelConfig
 from ..utils.devices import resolve_device
 from .base import BaseStack
+from .convs import GATv2Conv, GINConv, MFConv
+from .egnn import EGCL, EGCLStack
 from .schnet import SCFStack
-from .stacks import PNAStack
+from .stacks import (CGCNNStack, GATStack, GINStack, MFCStack, PNAPlusStack,
+                     PNAStack, SAGEStack)
 
-_PORTED = {"PNA": PNAStack, "SchNet": SCFStack}
+_PORTED = {"GIN": GINStack, "SAGE": SAGEStack, "GAT": GATStack,
+           "MFC": MFCStack, "CGCNN": CGCNNStack, "PNA": PNAStack,
+           "PNAPlus": PNAPlusStack, "SchNet": SCFStack, "EGNN": EGCLStack}
 # architecture keys each ported model needs, as the JAX package requires
 _REQUIRED = {"PNA": ("pna_deg",),
-             "SchNet": ("radius", "num_gaussians", "num_filters")}
-_NOT_PORTED = {
-    "GIN": "A7", "EGNN": "A7", "SAGE": "A7", "GAT": "A7", "MFC": "A7",
-    "CGCNN": "A7", "PNAPlus": "A7", "DimeNet": "A7", "PAINN": "A7",
-    "PNAEq": "A7", "MACE": "A7",
-}
+             "PNAPlus": ("pna_deg", "radius", "num_radial",
+                         "envelope_exponent"),
+             "SchNet": ("radius", "num_gaussians", "num_filters"),
+             "MFC": ("max_neighbours",)}
+_NOT_PORTED = {"DimeNet": "A7", "PAINN": "A7", "PNAEq": "A7", "MACE": "A7"}
 
 
 def model_class(model_type: str):
@@ -48,38 +54,72 @@ def _require(cfg: ModelConfig, *fields: str):
                 f"{cfg.model_type} requires architecture key '{f}'")
 
 
+def data_input_dim(cfg: ModelConfig, samples: Sequence) -> ModelConfig:
+    """`cfg` with `input_dim` the width of the samples' node features, the
+    width Flax sizes the first conv by at init (the config's is the count
+    of `input_node_features`: the atomistic examples' samples carry
+    x = [Z, pos, forces], 7 columns, under input_node_features [0..3],
+    and the JAX package's models read all 7)."""
+    if not samples or samples[0].x.shape[-1] == cfg.input_dim:
+        return cfg
+    return dataclasses.replace(cfg, input_dim=int(samples[0].x.shape[-1]))
+
+
 def create_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> BaseStack:
     """Validate, build, initialize (`init_params`) and move to `device`;
     the model is returned in eval mode."""
     dev = resolve_device(device)
     cls = model_class(cfg.model_type)
-    _require(cfg, *_REQUIRED[cfg.model_type])
+    _require(cfg, *_REQUIRED.get(cfg.model_type, ()))
+    if cfg.model_type == "CGCNN" and cfg.hidden_dim != cfg.input_dim:
+        # CGConv cannot change width
+        cfg = dataclasses.replace(cfg, hidden_dim=cfg.input_dim)
     model = cls(cfg)
     init_params(model, seed=seed)
     return model.to(dev).eval()
 
 
+def _lecun_normal(shape, fan_in: int, gen) -> torch.Tensor:
+    # truncated normal at +-2 std whose variance is 1 / fan_in (the
+    # truncation shrinks it by 0.8796..² , which the std undoes), as
+    # Flax's variance_scaling(1, "fan_in", "truncated_normal")
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+    return w
+
+
 def init_params(model: BaseStack, seed: int = 0) -> BaseStack:
     """Flax's default initializers from a seeded generator: Dense kernels
-    lecun_normal (truncated normal, variance 1/fan_in), zero biases;
-    MaskedBatchNorm scale 1, bias 0, running mean 0 and var 1. The
+    lecun_normal, zero biases; MaskedBatchNorm scale 1, bias 0, running
+    mean 0 and var 1; MFConv's banks [d, in, out] lecun_normal with
+    fan_in d * in (Flax multiplies the receptive field in) and zero bank
+    biases; GATv2's att [1, H, F] lecun_normal with fan_in H; GIN's eps
+    100 and EGNN's coords_range 3 (their constructors' values). The
     config's `initial_bias` fills every head's final bias. The numbers
     differ from Flax's for the same seed; weights that must match the JAX
     package are carried across with utils/weights.py instead."""
     gen = torch.Generator().manual_seed(int(seed))
-    # truncated-normal std correction of variance_scaling (truncation at
-    # +-2 std shrinks the variance by this factor squared)
-    trunc = 0.87962566103423978
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
-                std = math.sqrt(1.0 / mod.in_features) / trunc
-                w = torch.empty(mod.weight.shape)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
-                                      generator=gen)
-                mod.weight.copy_(w)
+                mod.weight.copy_(_lecun_normal(mod.weight.shape,
+                                               mod.in_features, gen))
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, MFConv):
+                for w in (mod.w_l, mod.w_r):
+                    w.copy_(_lecun_normal(w.shape, w.shape[0] * w.shape[1],
+                                          gen))
+                mod.b_l.zero_()
+                mod.b_r.zero_()
+            elif isinstance(mod, GATv2Conv):
+                mod.att.copy_(_lecun_normal(mod.att.shape, mod.att.shape[1],
+                                            gen))
+            elif isinstance(mod, GINConv):
+                mod.eps.fill_(100.0)
+            elif isinstance(mod, EGCL) and hasattr(mod, "coords_range"):
+                mod.coords_range.fill_(3.0)
         bias0 = model.cfg.initial_bias
         if bias0 is not None:
             for ih in range(len(model.cfg.heads)):

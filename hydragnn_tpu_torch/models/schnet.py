@@ -25,6 +25,7 @@ from torch import nn
 
 from ..kernels.fused_mp import filter_layouts, segment_layouts
 from ..ops import segment as seg
+from ..ops.activations import softplus
 from ..ops.basis import gaussian_basis
 from ..ops.geometry import edge_vectors
 from ..ops.scalars import weak
@@ -33,16 +34,11 @@ from .layers import Dense, MLP
 
 
 def shifted_softplus(x):
-    """softplus(x) - log 2, with softplus written out as `jax.nn.softplus`
-    computes logaddexp(x, 0): max(x, 0) + log1p(exp(-|x|)) (torch's
-    softplus switches to x above 20; on the CPU, torch.logaddexp rounds
-    an element differently depending on where it lies in the tensor,
-    which would break the engine's batched = single contract). The max
-    is torch.maximum, whose gradient at x == 0 is JAX's 0.5; log 2 is
-    rounded to x's dtype (ops/scalars.py)."""
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    return (torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
-            - weak(math.log(2.0), x))
+    """softplus(x) - log 2, with JAX's softplus (`ops.activations.
+    softplus`, position-independent rounding, which the engine's
+    batched = single contract needs); log 2 is rounded to x's dtype
+    (ops/scalars.py)."""
+    return softplus(x) - weak(math.log(2.0), x)
 
 
 class CFConv(nn.Module):

@@ -24,6 +24,16 @@ ACTIVATIONS = {
 }
 
 
+def softplus(x):
+    """log(1 + e^x) as `jax.nn.softplus` computes it, logaddexp(x, 0):
+    max(x, 0) + log1p(exp(-|x|)). (torch's softplus switches to x above
+    20; on the CPU, torch.logaddexp rounds an element differently
+    depending on where it lies in the tensor.) The max is torch.maximum,
+    whose gradient at x == 0 is JAX's 0.5."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x)))
+
+
 def activation_function_selection(name: str) -> Callable:
     if name not in ACTIVATIONS:
         raise ValueError(f"unknown activation '{name}'; known: {sorted(ACTIVATIONS)}")

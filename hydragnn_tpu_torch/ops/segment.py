@@ -208,22 +208,65 @@ def neighbor_mean(h, nbr_mask):
     return neighbor_sum(h, nbr_mask) / torch.clamp(cnt, min=1.0)
 
 
-def edge_aggregate_sum(edge_values, batch):
+def gather_slots(values, nbr, layout=None):
+    """values[nbr] for the dense table's [N, K] ids: [N, K, ...]. Its
+    gradient is a segment sum by the ids (`kernels.segment.gather_rows`),
+    over `layout`, the `segment_layout` of the flattened ids with the
+    masked slots left out, when the caller holds one (their gradient is
+    0: every dense reduction masks them)."""
+    n, k = nbr.shape
+    rows = _seg_kernel.gather_rows(values, nbr.reshape(-1), layout)
+    return rows.view((n, k) + tuple(values.shape[1:]))
+
+
+def neighbor_gather_sum(x, batch, layouts=None):
+    """Sum over each node's in-edges of its senders' rows, x[send]:
+    `neighbor_sum` of the table's gathered neighbours on the dense
+    layout, the masked segment sum by receivers on the edge list.
+    `layouts` are a stack's `conv_args` views (`aggregation_layouts`)."""
+    layouts = layouts or {}
+    if batch.nbr is not None:
+        return neighbor_sum(gather_slots(x, batch.nbr,
+                                         layouts.get("nbr_slot_layout")),
+                            batch.nbr_mask)
+    return segment_sum(
+        _seg_kernel.gather_rows(x, batch.senders, layouts.get("send_layout")),
+        batch.receivers, x.shape[0], batch.edge_mask,
+        layout=layouts.get("recv_layout"))
+
+
+def neighbor_gather_mean(x, batch, layouts=None):
+    """Mean counterpart of `neighbor_gather_sum`."""
+    layouts = layouts or {}
+    if batch.nbr is not None:
+        return neighbor_mean(gather_slots(x, batch.nbr,
+                                          layouts.get("nbr_slot_layout")),
+                             batch.nbr_mask)
+    return segment_mean(
+        _seg_kernel.gather_rows(x, batch.senders, layouts.get("send_layout")),
+        batch.receivers, x.shape[0], batch.edge_mask,
+        layout=layouts.get("recv_layout"))
+
+
+def edge_aggregate_sum(edge_values, batch, layout=None):
     """Sum per-edge values into their receivers: the masked K reduction
-    on the dense layout, the masked segment sum on the edge list."""
+    of the values gathered by the table's edge ids on the dense layout,
+    the masked segment sum on the edge list. `layout` is the
+    `segment_layout` of the ids walked: the table's edge ids (for the
+    gather's gradient) on the dense layout, the receivers on the edge
+    list; either leaves out masked entries, which add nothing."""
     if batch.nbr_edge is not None:
-        return neighbor_sum(edge_values[batch.nbr_edge], batch.nbr_mask)
+        return neighbor_sum(gather_slots(edge_values, batch.nbr_edge, layout),
+                            batch.nbr_mask)
     return segment_sum(edge_values, batch.receivers, batch.num_nodes,
-                       batch.edge_mask)
+                       batch.edge_mask, layout=layout)
 
 
 def edge_aggregate_mean(edge_values, batch, layout=None):
-    """Mean counterpart of `edge_aggregate_sum`. `layout` is the edge
-    list's receiver-sorted `(row_ptr, order)`
-    (kernels.fused_mp.segment_layouts): it leaves out the masked edges,
-    whose values the mask zeroes anyway."""
+    """Mean counterpart of `edge_aggregate_sum`, with its `layout`."""
     if batch.nbr_edge is not None:
-        return neighbor_mean(edge_values[batch.nbr_edge], batch.nbr_mask)
+        return neighbor_mean(gather_slots(edge_values, batch.nbr_edge,
+                                          layout), batch.nbr_mask)
     return segment_mean(edge_values, batch.receivers, batch.num_nodes,
                         batch.edge_mask, layout=layout)
 
@@ -260,3 +303,59 @@ def global_sum_pool(node_feats, node_graph, num_graphs, node_mask):
 def degree(receivers, num_nodes, edge_mask=None):
     """In-degree per node (float32)."""
     return segment_count(receivers, num_nodes, edge_mask)
+
+
+def segment_std(data, segment_ids, num_segments, mask=None, eps=1e-5):
+    """Per-segment standard deviation sqrt(max(E[x²] - E[x]², 0) + eps)."""
+    mean = segment_mean(data, segment_ids, num_segments, mask)
+    sq_mean = segment_mean(data * data, segment_ids, num_segments, mask)
+    var = _relu_tie_half(sq_mean - mean * mean)
+    return torch.sqrt(var + weak(eps, var))
+
+
+def neighbor_softmax(logits, nbr_mask):
+    """Masked softmax over the K axis of [N, K] or [N, K, H] logits:
+    attention weights over each node's in-edges, 0 on the masked slots.
+    The row maximum is a constant of the gradient, and the masked slots
+    are selected away before `exp`, so an all-masked row (maximum
+    finfo.min) gives 0 and a finite gradient."""
+    m = nbr_mask.view(tuple(nbr_mask.shape) + (1,) * (logits.dim() - 2))
+    neg = torch.full((), torch.finfo(logits.dtype).min, dtype=logits.dtype,
+                     device=logits.device)
+    mx = torch.amax(torch.where(m, logits, neg), dim=1, keepdim=True)
+    zero = torch.zeros((), dtype=logits.dtype, device=logits.device)
+    z = torch.where(m, logits - mx.detach(), zero)
+    e = torch.where(m, torch.exp(z), zero)
+    denom = torch.sum(e, dim=1, keepdim=True)
+    return e / torch.maximum(denom, torch.full((), weak(1e-16, denom),
+                                               dtype=denom.dtype,
+                                               device=denom.device))
+
+
+def segment_softmax(logits, segment_ids, num_segments, mask=None,
+                    layout=None):
+    """Softmax of [E] or [E, H] logits within segments (each receiver's
+    in-edges), 0 on masked rows. As in the JAX package the segment
+    maximum is not a constant of the gradient: its gradient, 0 but for
+    rounding, is shared among the rows that reach it. The per-edge
+    gathers' gradients and the denominator are segment sums over
+    `layout` (the ids' `segment_layout`) when the caller holds one; on
+    the card their backward takes [E, H] logits only (the segment-sum
+    kernel sums rows)."""
+    neutral = -1e30
+    if mask is not None:
+        logits = torch.where(_bcast(mask, logits), logits,
+                             torch.full_like(logits, neutral))
+    seg_max = _segment_extreme(logits, segment_ids, num_segments, None,
+                               neutral, "amax")
+    seg_max = torch.where(seg_max <= neutral, torch.zeros_like(seg_max),
+                          seg_max)
+    exp = torch.exp(logits - _seg_kernel.gather_rows(seg_max, segment_ids,
+                                                     layout))
+    if mask is not None:
+        exp = torch.where(_bcast(mask, exp), exp, torch.zeros_like(exp))
+    denom = segment_sum(exp, segment_ids, num_segments, layout=layout)
+    denom = torch.maximum(denom, torch.full((), weak(1e-16, denom),
+                                            dtype=denom.dtype,
+                                            device=denom.device))
+    return exp / _seg_kernel.gather_rows(denom, segment_ids, layout)

@@ -3,7 +3,7 @@ hydragnn_tpu/run_prediction.py).
 
 `run_prediction(config, datasets, variables)` completes the config from
 the data (`datasets=None`: the config's own files, as `run_training`
-reads them, their reader's min-max reaching `denormalize_output`),
+reads them; the splits as plain lists, as in the JAX package),
 builds the model on the device (the card unless the caller passes
 device="cpu"), loads the weights — the Flax variable tree given as
 nested numpy dicts (utils/weights.py), or `state=` (and `model=`) as
@@ -15,10 +15,14 @@ float32 or bfloat16) — through the
 batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
 block / HYDRAGNN_SERVE), else with a plain loop over `batch_size`
 batches padded to one shape. Returns (trues, preds), one array per head,
-over real graphs (graph heads) or real nodes (node heads).
+over real graphs (graph heads) or real nodes (node heads). With
+HYDRAGNN_DUMP_TESTDATA set, they are also pickled to
+./logs/<log name>/test_data.pk as {output name: {"true", "pred"}}.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from typing import Optional, Sequence
 
 import numpy as np
@@ -28,7 +32,7 @@ from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
 from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
     with_neighbor_format
-from .models.create import create_model
+from .models.create import create_model, data_input_dim
 from .postprocess.postprocess import output_denormalize
 from .preprocess.load_data import load_datasets_from_config
 from .serving.config import resolve_serving
@@ -52,13 +56,12 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     config = load_config(config_or_path)
     serving = resolve_serving(config)    # raises on an unported knob
     dev = resolve_device(device)
-    from_files = datasets is None
-    if from_files:
+    if datasets is None:
         datasets = load_datasets_from_config(config)
     trainset, valset, testset = (list(d) for d in datasets)
-    config = update_config(config, datasets[0] if from_files else trainset,
-                           valset, testset)
-    mcfg = build_model_config(config)
+    config = update_config(config, trainset, valset, testset)
+    mcfg = data_input_dim(build_model_config(config),
+                          trainset + valset + testset)
     if state is not None:
         weights = {k: v.detach() for k, v in state.state_dict().items()}
     elif variables is not None:
@@ -93,7 +96,22 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     voi = config["NeuralNetwork"]["Variables_of_interest"]
     if voi.get("denormalize_output") and "y_minmax" in voi:
         trues, preds = output_denormalize(voi["y_minmax"], trues, preds)
+    if env_flag("HYDRAGNN_DUMP_TESTDATA"):
+        dump_test_data(config, trues, preds)
     return trues, preds
+
+
+def dump_test_data(config, trues, preds):
+    """./logs/<log name>/test_data.pk: {output name: {"true", "pred"}}
+    per head (head_<i> where the config names no outputs)."""
+    voi = config["NeuralNetwork"]["Variables_of_interest"]
+    dump_dir = os.path.join("./logs", get_log_name_config(config))
+    os.makedirs(dump_dir, exist_ok=True)
+    names = voi.get("output_names",
+                    [f"head_{i}" for i in range(len(trues))])
+    with open(os.path.join(dump_dir, "test_data.pk"), "wb") as f:
+        pickle.dump({name: {"true": t, "pred": p}
+                     for name, t, p in zip(names, trues, preds)}, f)
 
 
 def _checkpoint_weights(config, model, which: str):

@@ -13,8 +13,10 @@ initialization), the optimizer (`select_optimizer`) and the train/eval
 steps (the energy-force ones with `Training.compute_grad_energy`), and
 runs `train_validate_test`. With `datasets=None` the data comes from
 the config's own files (`Dataset.format` "LSMS", "unit_test" or "CFG",
-`Dataset.path`; a relative path is taken from the working directory), and
-the reader's min-max reaches config completion for `denormalize_output`.
+`Dataset.path`; a relative path is taken from the working directory);
+the splits complete the config as plain lists, as in the JAX package, so
+a reader's min-max does not reach it and `denormalize_output` turns off
+with a warning.
 Returns (state, history, model, completed_config);
 `run_prediction(completed_config, datasets, state=state, model=model)`
 predicts from the trained state.
@@ -40,7 +42,8 @@ run `Training.startfrom` names, whose weights and optimizer state then
 seed a fresh epoch 0.
 
 Knobs off this path raise NotImplementedError naming the ROADMAP item
-that brings them; none is ignored.
+that brings them; none is ignored. A fault plan is refused only where
+the JAX package's resolution yields one (utils/faults.py).
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ from typing import Optional, Sequence
 
 from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
-from .models.create import create_model
+from .models.create import create_model, data_input_dim
 from .preprocess.load_data import (create_dataloaders,
                                    load_datasets_from_config)
 from .train import trainer
@@ -60,6 +63,7 @@ from .train.train_step import (TrainState, make_eval_step,
                                make_train_step)
 from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
+from .utils.faults import resolve_fault_plan
 from .utils.envflags import (env_flag, env_strict_flag,
                              resolve_pack_lookahead, resolve_packing,
                              resolve_steps_per_call)
@@ -101,7 +105,9 @@ def check_training_knobs(config) -> None:
          "A10: datasets"),
         (tr.get("conv_checkpointing"), "Training.conv_checkpointing",
          "A4: BaseStack remat"),
-        (tr.get("fault_plan"), "Training.fault_plan", "A8: utils/faults.py"),
+        (resolve_fault_plan(tr) is not None,
+         "a fault plan (HYDRAGNN_FAULT_PLAN / Training.fault_plan)",
+         "A8: utils/faults.py"),
     ]
     for on, what, item in checks:
         if on:
@@ -113,20 +119,18 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     config = load_config(config_or_path)
     if num_shards not in (None, 1):
         _not_ported(f"num_shards={num_shards}", "A9: multi-GPU training")
-    from_files = datasets is None
     check_training_knobs(config)
     dev = resolve_device(device)
-    if from_files:
+    if datasets is None:
         datasets = load_datasets_from_config(config)
     trainset, valset, testset = (list(d) for d in datasets)
-    # a reader's train split carries its min-max (datasets.lsmsdataset.
-    # Split), which config completion reads; a caller's datasets are
-    # taken as lists, as the JAX package takes them
-    config = update_config(config, datasets[0] if from_files else trainset,
-                           valset, testset)
+    # the splits as plain lists, as the JAX package completes the config:
+    # a reader's min-max (datasets.lsmsdataset.Split) does not reach
+    # `denormalize_output`, which turns off with JAX's warning
+    config = update_config(config, trainset, valset, testset)
     nn = config["NeuralNetwork"]
     train_cfg = nn["Training"]
-    mcfg = build_model_config(config)
+    mcfg = data_input_dim(build_model_config(config), trainset)
     batch_size = int(train_cfg["batch_size"])
     verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
 

@@ -97,7 +97,11 @@ def energy_forces_from_node_head(forward, batch, create_graph: bool = False):
                                   b.num_graphs, b.node_mask)
         total = torch.sum(torch.where(b.graph_mask[:, None], graph_e,
                                       torch.zeros_like(graph_e)))
-        (grad,) = torch.autograd.grad(total, pos, create_graph=create_graph)
+        # zero forces where the energy does not read the positions (a
+        # model without geometry), as jax.grad gives them
+        (grad,) = torch.autograd.grad(total, pos, create_graph=create_graph,
+                                      allow_unused=True,
+                                      materialize_grads=True)
     if not create_graph:
         graph_e = graph_e.detach()
     return graph_e, -grad

@@ -11,6 +11,9 @@ keeps Flax's submodule names as attribute names (`conv_{i}.pre_i`,
 
 * Dense `kernel [in, out]` -> Linear `weight [out, in]`;
 * Dense `bias`, MaskedBatchNorm `scale` / `bias` keep their names;
+* the convs' own parameters keep their names and shapes: GIN's `eps`,
+  GATv2's `att`, MFConv's banks `w_l` / `b_l` / `w_r` / `b_r`, EGNN's
+  `coords_range`;
 * `batch_stats` `mean` / `var` -> the MaskedBatchNorm buffers.
 
 An unknown collection or leaf name raises here; a missing or surplus
@@ -24,7 +27,9 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-_LEAVES = {"params": ("kernel", "bias", "scale"),
+# the convs' own parameters, carried as they are
+_CONV_LEAVES = ("eps", "att", "w_l", "b_l", "w_r", "b_r", "coords_range")
+_LEAVES = {"params": ("kernel", "bias", "scale") + _CONV_LEAVES,
            "batch_stats": ("mean", "var")}
 
 
@@ -47,7 +52,8 @@ def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     for collection, leaves in _LEAVES.items():
         for path, arr in _walk(variables.get(collection, {})):
             name, module = path[-1], ".".join(path[:-1])
-            if name not in leaves or not module:
+            # a conv's own parameters may sit at the root (a bare conv)
+            if name not in leaves or not (module or name in _CONV_LEAVES):
                 raise KeyError(f"load_jax_variables: unexpected "
                                f"{collection} leaf {'/'.join(path)}")
             if name == "kernel":
@@ -55,7 +61,7 @@ def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                     raise ValueError(f"load_jax_variables: Dense kernel "
                                      f"{'/'.join(path)} has shape {arr.shape}")
                 arr, name = arr.T, "weight"
-            key = f"{module}.{name}"
+            key = f"{module}.{name}" if module else name
             if key in state:
                 raise KeyError(f"load_jax_variables: duplicate key {key}")
             state[key] = torch.tensor(np.asarray(arr, dtype=np.float32))
@@ -76,7 +82,7 @@ def export_jax_variables(model) -> Dict[str, Dict]:
         if leaf == "weight":
             leaf, arr = "kernel", arr.T
         coll = "batch_stats" if leaf in _LEAVES["batch_stats"] else "params"
-        if leaf not in _LEAVES[coll] or not path:
+        if leaf not in _LEAVES[coll] or not (path or leaf in _CONV_LEAVES):
             raise KeyError(f"export_jax_variables: unexpected entry {key}")
         node = tree[coll]
         for p in path:
@@ -90,7 +96,10 @@ def random_flax_variables(model, seed: int) -> Dict:
     architecture with random weights and running statistics from `seed`
     (numpy's generator): Dense kernels N(0, 1/fan_in), biases N(0, 0.1),
     norm scales 1 + N(0, 0.1), running means N(0, 0.3) and variances
-    uniform in [0.5, 1.5). The smoke run's and the diagnostics' weights."""
+    uniform in [0.5, 1.5); MFConv's banks N(0, 1/(d in)) and their biases
+    N(0, 0.1), GATv2's att N(0, 1/H), GIN's eps 100 + N(0, 1) and EGNN's
+    coords_range 3 + N(0, 0.1) (their initial values, moved). The smoke
+    run's and the diagnostics' weights."""
     rng = np.random.default_rng(seed)
     tree: Dict = {"params": {}, "batch_stats": {}}
     for key, t in model.state_dict().items():
@@ -101,7 +110,15 @@ def random_flax_variables(model, seed: int) -> Dict:
             leaf = "kernel"
             shape = shape[::-1]
             val = rng.normal(0.0, shape[0] ** -0.5, shape)
-        elif leaf == "bias":
+        elif leaf in ("w_l", "w_r"):
+            val = rng.normal(0.0, (shape[0] * shape[1]) ** -0.5, shape)
+        elif leaf == "att":
+            val = rng.normal(0.0, shape[1] ** -0.5, shape)
+        elif leaf == "eps":
+            val = 100.0 + rng.normal(0.0, 1.0, shape)
+        elif leaf == "coords_range":
+            val = 3.0 + rng.normal(0.0, 0.1, shape)
+        elif leaf in ("bias", "b_l", "b_r"):
             val = rng.normal(0.0, 0.1, shape)
         elif leaf == "scale":
             val = 1.0 + rng.normal(0.0, 0.1, shape)

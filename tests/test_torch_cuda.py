@@ -1360,23 +1360,33 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def _step_setup(dev, kind, dtype="float32", accumulate=1, lr=None):
     """(model config, train config, 7 loader batches on the card) of csce
-    PNA (dense or edge list) or LJ SchNet EF at the published widths, 4
-    graphs a batch."""
+    PNA (dense or edge list), LJ SchNet EF, the OC20 energy EGNN or
+    qm9.json's GIN (dense or edge list) at the published widths, 4 graphs
+    a batch."""
     import copy
     import json
     from hydragnn_tpu_torch.config import config as tcfg
     from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     oc20_slabs,
+                                                     qm9_molecules,
                                                      synthetic_molecules)
+    from hydragnn_tpu_torch.models.create import data_input_dim
     from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
     if kind == "schnet":
         path, data = "examples/LennardJones/LJ.json", lj_configurations(
             36, seed=1)
+    elif kind.startswith("egnn"):
+        path, data = ("examples/open_catalyst_2020/open_catalyst_energy.json",
+                      oc20_slabs(36, seed=1))
+    elif kind.startswith("gin"):
+        path, data = "examples/qm9/qm9.json", qm9_molecules(36, seed=1)
     else:
         path, data = "examples/csce/csce_gap.json", synthetic_molecules(
             36, seed=1)
     with open(ROOT / path) as fh:
         cfg = json.load(fh)
-    dense = kind == "pna_dense"
+    cfg["NeuralNetwork"].pop("Profile", None)
+    dense = kind in ("pna_dense", "egnn_dense", "gin_dense")
     arch, tr = cfg["NeuralNetwork"]["Architecture"], \
         cfg["NeuralNetwork"]["Training"]
     arch["neighbor_format"] = dense
@@ -1390,8 +1400,8 @@ def _step_setup(dev, kind, dtype="float32", accumulate=1, lr=None):
     loader = create_dataloaders(*splits, 4, neighbor_format=dense)[0]
     batches = [b.to(dev) for b in loader]
     assert len(batches) == 7
-    return tcfg.build_model_config(cfg), cfg["NeuralNetwork"]["Training"], \
-        batches
+    return data_input_dim(tcfg.build_model_config(cfg), data), \
+        cfg["NeuralNetwork"]["Training"], batches
 
 
 def _fresh_state(dev, mcfg, train_cfg):
@@ -1430,7 +1440,9 @@ def _assert_same_state(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["pna_dense", "pna_edge", "schnet"])
+@pytest.mark.parametrize("kind", ["pna_dense", "pna_edge", "schnet",
+                                  "egnn_dense", "egnn_edge", "gin_dense",
+                                  "gin_edge"])
 def test_captured_steps_equal_eager_steps_bitwise(cuda_device, kind, dtype):
     """Six eager steps against a captured group of S = 4, a learning-rate
     change between replays, then two captured single steps (the S = 1
@@ -1770,3 +1782,106 @@ def test_captured_packed_steps_equal_eager_steps_bitwise(cuda_device, dense):
     assert la == lb
     _assert_same_state(sa, sb)
     assert graphs == 1
+
+
+# the models of the invariant family and EGNN at a small size: (model
+# type, architecture keys over the csce config; None: the OC20 EGNN)
+NEW_MODELS = {
+    "GIN": {}, "SAGE": {}, "GAT": {}, "MFC": {},
+    "CGCNN": {"edge_features": ["length"]},
+    "PNAPlus": {"radius": 1.8, "num_radial": 6, "envelope_exponent": 5},
+    "EGNN": None}
+
+
+def _new_model_setup(model_type, dense):
+    """(model config, one loader batch on the host) of `model_type` at
+    hidden 16 and 2 layers over 16 graphs: synthetic molecules (edge
+    lengths as edge features for CGCNN) or, for EGNN, periodic OC20 slabs
+    under the OC20 energy config."""
+    import copy
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import (oc20_slabs,
+                                                     synthetic_molecules)
+    from hydragnn_tpu_torch.models.create import data_input_dim
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    arch_over = NEW_MODELS[model_type]
+    if arch_over is None:
+        path = "examples/open_catalyst_2020/open_catalyst_energy.json"
+        data = oc20_slabs(16, seed=2)
+    else:
+        path = "examples/csce/csce_gap.json"
+        data = synthetic_molecules(16, seed=2, min_atoms=4, max_atoms=30)
+        if "edge_features" in arch_over:
+            for s in data:
+                vec = s.pos[s.senders] - s.pos[s.receivers]
+                s.edge_attr = np.linalg.norm(vec, axis=1,
+                                             keepdims=True).astype(np.float32)
+    with open(ROOT / path) as fh:
+        cfg = json.load(fh)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(model_type=model_type, hidden_dim=16, num_conv_layers=2,
+                neighbor_format=dense, **(arch_over or {}))
+    for head in arch["output_heads"].values():
+        head["dim_headlayers"] = [16, 16]
+    cfg = tcfg.update_config(copy.deepcopy(cfg), data)
+    batch = next(iter(create_dataloaders(data, [], [], 8,
+                                         neighbor_format=dense)[0]))
+    return data_input_dim(tcfg.build_model_config(cfg), data), batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "edge"])
+@pytest.mark.parametrize("model_type", sorted(NEW_MODELS))
+def test_new_models_card_matches_cpu(cuda_device, model_type, dense):
+    """Each model of this family on the card against the same weights on
+    the CPU: the eval-mode forward within rtol 1e-4 / atol 1e-5, then one
+    training-mode loss within the same bound and each weight gradient
+    within 1e-2 relative L2 of the CPU's (or ten times the CPU float32
+    gradient's own gap to float64, chip_smoke's gradient bound), with the
+    segment-sum kernel launched on the card; and one SGD train step,
+    finite on both devices."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    mcfg, batch = _new_model_setup(model_type, dense)
+    runs = []
+    for dev, dtype in ((cuda_device, torch.float32),
+                       (torch.device("cpu"), torch.float32),
+                       (torch.device("cpu"), torch.float64)):
+        model = create_model(mcfg, device=dev, seed=2).to(dtype)
+        b = batch.replace(**{k: getattr(batch, k).to(dtype) for k in (
+            "x", "pos", "y_graph", "edge_attr", "edge_shifts")
+            if getattr(batch, k) is not None}).to(dev)
+        with torch.no_grad():
+            out, _ = model(b)
+        model.train()
+        before = tk.launch_counts()["segment_sum"]
+        total, _ = tstep.make_loss_fn(model, mcfg, "mse")(b)
+        grads = torch.autograd.grad(total, list(model.parameters()),
+                                    allow_unused=True, materialize_grads=True)
+        launched = tk.launch_counts()["segment_sum"] - before
+        runs.append((out[0].detach().cpu().double(), float(total.detach()),
+                     [g.cpu().double() for g in grads], launched))
+    (o_card, l_card, g_card, n_card), (o_cpu, l_cpu, g_cpu, _), \
+        (_, _, g64, _) = runs
+    gm = batch.graph_mask
+    assert torch.isfinite(o_card[gm]).all()
+    np.testing.assert_allclose(o_card[gm].numpy(), o_cpu[gm].numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert np.isclose(l_card, l_cpu, rtol=1e-4, atol=1e-5)
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+    for a, b, w in zip(g_card, g_cpu, g64):
+        assert rel(a, b) <= max(1e-2, 10 * rel(b, w))
+    assert n_card >= 1
+    for dev in (cuda_device, torch.device("cpu")):
+        model = create_model(mcfg, device=dev, seed=2)
+        tx = topt.select_optimizer({"Optimizer": {"type": "SGD",
+                                                  "learning_rate": 1e-3}})
+        state = tstep.TrainState.create(model, tx)
+        state, m = tstep.make_train_step(model, mcfg, tx, "mse").eager(
+            state, batch.to(dev))
+        assert np.isfinite(float(m["loss"]))
+        assert float(m["nonfinite_steps"]) == 0.0

@@ -4,7 +4,10 @@ batch packing's precedence (`utils/envflags.resolve_packing`, which
 (`serving/config.check_unported_serving_knobs`: the metrics server,
 raw-structure serving and a replica fleet, ROADMAP A8), while the
 failure-semantics knobs that JAX's offline run_prediction ignores too
-pass."""
+pass; the fault plan's resolution (`utils/faults.resolve_fault_plan`:
+run_training refuses a plan, naming A8, exactly where JAX's resolution
+yields one) and run_prediction's HYDRAGNN_DUMP_TESTDATA dump."""
+import copy
 import logging
 
 import numpy as np
@@ -164,3 +167,130 @@ def test_run_prediction_refuses_the_metrics_server_before_any_work(
     cfg["Serving"] = {"metrics_port": 9100}
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(cfg, datasets=([], [], []), device="cpu")
+
+
+# (Training.fault_plan, HYDRAGNN_FAULT_PLAN) -> whether a plan resolves
+FAULT_PLAN_CASES = [
+    (None, None, False),
+    ("forward-step@3", None, True),
+    (None, "forward-step@7;serving-dispatch@2,5", True),
+    # the env wins over the config, both ways
+    ("forward-step@3", "checkpoint-write@0", True),
+    ("forward-step@3", "", False),         # set but empty masks the plan
+    ("forward-step@3", "   ", False),
+    # a malformed spec warns and injects nothing
+    ("forward-step@x", None, False),
+    (None, "no-such-site@1", False),
+    ("forward-step@3", "forward-step", False),
+    ("", None, False),
+]
+
+
+@pytest.mark.parametrize("config,env,resolves", FAULT_PLAN_CASES)
+def test_fault_plan_resolution_matches_jax(clean_env, caplog, config, env,
+                                           resolves):
+    """HYDRAGNN_FAULT_PLAN over Training.fault_plan, a set-but-empty env
+    masking the config's plan and a malformed spec warning and giving
+    none: the port's resolution gives JAX's plan, site by site, in every
+    case, and warns where JAX warns."""
+    from hydragnn_tpu.utils.faults import resolve_fault_plan as j_resolve
+    from hydragnn_tpu_torch.utils.faults import resolve_fault_plan
+    clean_env.delenv("HYDRAGNN_FAULT_PLAN", raising=False)
+    tr = {} if config is None else {"fault_plan": config}
+    if env is not None:
+        clean_env.setenv("HYDRAGNN_FAULT_PLAN", env)
+    with caplog.at_level(logging.WARNING):
+        want = j_resolve(tr)
+        got = resolve_fault_plan(tr)
+    assert (got is not None) == (want is not None) == resolves
+    if resolves:
+        assert got == want.injections
+    warned = {r.name for r in caplog.records
+              if "not a valid fault plan" in r.getMessage()}
+    assert ("hydragnn_tpu_torch" in warned) == ("hydragnn_tpu" in warned)
+
+
+@pytest.mark.parametrize("config,env,resolves", [
+    c for c in FAULT_PLAN_CASES if c[:2] in (
+        ("forward-step@3", None), (None, "forward-step@7;serving-dispatch@2,5"),
+        ("forward-step@3", ""), ("forward-step@x", None))])
+def test_run_training_refuses_a_fault_plan_where_jax_resolves_one(
+        clean_env, config, env, resolves):
+    """run_training raises NotImplementedError naming A8 before any work
+    exactly where the JAX package would install a plan, and otherwise
+    trains: a masked or malformed plan injects nothing there either."""
+    from hydragnn_tpu_torch import run_training
+    from tests.utils import make_config
+    clean_env.delenv("HYDRAGNN_FAULT_PLAN", raising=False)
+    splits = _lattice_splits(20)
+    cfg = make_config("PNA")
+    tr = cfg["NeuralNetwork"]["Training"]
+    tr.update(num_epoch=1, EarlyStopping=False)
+    if config is not None:
+        tr["fault_plan"] = config
+    if env is not None:
+        clean_env.setenv("HYDRAGNN_FAULT_PLAN", env)
+    if resolves:
+        with pytest.raises(NotImplementedError, match="A8"):
+            run_training(cfg, datasets=splits, device="cpu")
+    else:
+        _, history, _, _ = run_training(cfg, datasets=splits, device="cpu")
+        assert np.isfinite(history["train_loss"]).all()
+
+
+@pytest.mark.parametrize("env", [None, "0", "1", "yes"])
+def test_run_prediction_dumps_test_data_as_jax_does(clean_env, tmp_path,
+                                                    env):
+    """HYDRAGNN_DUMP_TESTDATA: where the JAX package's run_prediction
+    writes ./logs/<log name>/test_data.pk, the port's writes it too, with
+    the same names and targets, and predictions within rtol 1e-4 /
+    atol 1e-5 of JAX's from the same weights; where JAX writes none, the
+    port writes none."""
+    import pickle
+    import jax
+    import jax.numpy as jnp
+    from hydragnn_tpu import run_prediction as j_run_prediction
+    from hydragnn_tpu.config import config as jcfg
+    from hydragnn_tpu.graphs.batch import collate as j_collate
+    from hydragnn_tpu.models.create import create_model as j_create_model
+    from hydragnn_tpu.models.create import init_params as j_init_params
+    from hydragnn_tpu.train.optimizer import select_optimizer as j_opt
+    from hydragnn_tpu.train.train_step import TrainState as JState
+    from hydragnn_tpu_torch import run_prediction
+    from tests.test_torch_train import numpy_tree, to_jax_samples
+    from tests.utils import make_config
+    clean_env.chdir(tmp_path)
+    clean_env.delenv("HYDRAGNN_DUMP_TESTDATA", raising=False)
+    splits = _lattice_splits(20)
+    jsplits = tuple(to_jax_samples(s) for s in splits)
+    cfg = make_config("PNA")
+    done = jcfg.update_config(copy.deepcopy(cfg), *jsplits)
+    jmodel = j_create_model(jcfg.build_model_config(done))
+    variables = numpy_tree(j_init_params(
+        jmodel, j_collate(jsplits[0][:4], np_out=True), seed=3))
+    jstate = JState.create(jax.tree_util.tree_map(jnp.asarray, variables),
+                           j_opt(done["NeuralNetwork"]["Training"]))
+    if env is not None:
+        clean_env.setenv("HYDRAGNN_DUMP_TESTDATA", env)
+    dump = tmp_path / "logs" / jcfg.get_log_name_config(done) / "test_data.pk"
+    j_trues, j_preds = j_run_prediction(copy.deepcopy(cfg), datasets=jsplits,
+                                        state=jstate, model=jmodel)
+    jax_wrote = dump.exists()
+    want = pickle.loads(dump.read_bytes()) if jax_wrote else None
+    if jax_wrote:
+        dump.unlink()
+    trues, preds = run_prediction(copy.deepcopy(cfg), datasets=splits,
+                                  variables=variables, device="cpu")
+    assert dump.exists() == jax_wrote == (env in ("1", "yes"))
+    np.testing.assert_allclose(preds[0], j_preds[0], rtol=1e-4, atol=1e-5)
+    if jax_wrote:
+        got = pickle.loads(dump.read_bytes())
+        assert list(got) == list(want) == ["sum_x_x2_x3"]
+        for name in want:
+            assert set(got[name]) == {"true", "pred"}
+            np.testing.assert_array_equal(got[name]["true"],
+                                          want[name]["true"])
+            np.testing.assert_array_equal(got[name]["true"], trues[0])
+            np.testing.assert_array_equal(got[name]["pred"], preds[0])
+            np.testing.assert_allclose(got[name]["pred"], want[name]["pred"],
+                                       rtol=1e-4, atol=1e-5)

@@ -154,7 +154,7 @@ def test_create_model_other_types_and_training_mode_raise(csce_model):
     import dataclasses
     _, _, mcfg = csce_model
     with pytest.raises(NotImplementedError, match="A7"):
-        create_model(dataclasses.replace(mcfg, model_type="GIN"),
+        create_model(dataclasses.replace(mcfg, model_type="DimeNet"),
                      device="cpu")
     model = create_model(mcfg, device="cpu")
     assert not model.training

@@ -8,12 +8,10 @@ Bounds: files byte for byte; radius graphs, samples, min-max and the
 completed config bitwise (host numpy); training histories within
 rtol 1e-4 / atol 1e-5 (tests/test_torch_train.py's TRAIN_TOL).
 
-One difference is deliberate: the JAX package's run_training hands
-update_config its split lists, which carry no min-max, so with
-datasets=None it turns `denormalize_output` off with a warning; the
-port's readers hand the train split's min-max on (`Split`), so
-denormalized predictions work. The test holds the port's y_minmax /
-x_minmax against JAX's config completion given the JAX reader's min-max.
+Both packages' run_training hand update_config their split lists,
+which carry no min-max, so with datasets=None `denormalize_output` turns
+off with a warning, although the readers' train split carries the
+min-max (`Split`, as JAX's reader objects do).
 """
 import copy
 import importlib
@@ -203,9 +201,11 @@ def test_run_training_from_files_matches_jax(tmp_path, monkeypatch, which):
     own files under a relative Dataset.path (the working directory's
     dataset/...), 2 epochs of SGD at a cut width, against the JAX
     package's run_training on the same directory from the same Flax
-    variables: the completed config bitwise (but for denormalization,
-    above), the histories within TRAIN_TOL, and run_prediction from the
-    files giving denormalized targets."""
+    variables: the completed config bitwise (the splits complete it as
+    plain lists, so the reader's min-max does not reach it and
+    `denormalize_output` turns off, as in JAX), the histories within
+    TRAIN_TOL, and run_prediction from the files giving the normalized
+    targets."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("HYDRAGNN_DISABLE_TB", "1")
     if which == "eam":
@@ -241,31 +241,22 @@ def test_run_training_from_files_matches_jax(tmp_path, monkeypatch, which):
                                    **TRAIN_TOL)
     assert hist["lr"] == jhist["lr"]
 
-    voi, jvoi = (c["NeuralNetwork"]["Variables_of_interest"]
-                 for c in (done, jdone))
-    assert voi["denormalize_output"] and not jvoi["denormalize_output"]
-    mm = {k: voi.pop(k) for k in ("y_minmax", "x_minmax")}
-    for c in (voi, jvoi):
-        c.pop("denormalize_output")
+    # the splits complete the config as plain lists, as in JAX: the
+    # reader's min-max does not reach it and denormalization turns off
+    assert cfg["NeuralNetwork"]["Variables_of_interest"][
+        "denormalize_output"]
+    voi = done["NeuralNetwork"]["Variables_of_interest"]
+    assert not voi["denormalize_output"] and "y_minmax" not in voi
     assert done == jdone
-    # JAX's completion given its own reader's min-max
-    reader = (JCFGDataset if which == "eam" else JLSMSDataset)(
-        cfg, cfg["Dataset"]["path"]["total"])
-    with_mm = copy.deepcopy(cfg)
-    with_mm["Dataset"]["minmax_node_feature"] = reader.minmax_node_feature
-    with_mm["Dataset"]["minmax_graph_feature"] = reader.minmax_graph_feature
-    want = jcfg.update_config(with_mm, list(reader))[
-        "NeuralNetwork"]["Variables_of_interest"]
-    assert mm == {k: want[k] for k in mm}
 
     from hydragnn_tpu_torch import run_prediction
     trues, preds = run_prediction(copy.deepcopy(cfg), state=state,
                                   model=model, device="cpu")
     train, _, test = prun.load_datasets_from_config(cfg)
     assert isinstance(train, Split)
+    assert train.minmax_node_feature is not None
     node_col = 0
-    for ih, (otype, (lo, hi)) in enumerate(zip(voi["type"],
-                                               mm["y_minmax"])):
+    for ih, otype in enumerate(voi["type"]):
         if otype == "graph":
             norm = np.stack([s.y_graph[:1] for s in test])
         else:
@@ -273,8 +264,7 @@ def test_run_training_from_files_matches_jax(tmp_path, monkeypatch, which):
                                    for s in test])
             node_col += 1
         assert np.isfinite(preds[ih]).all()
-        np.testing.assert_allclose(trues[ih], norm * (hi - lo) + lo,
-                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(trues[ih], norm)
 
 
 # (config change, env) -> what run_training(datasets=None) raises; each

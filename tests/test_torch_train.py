@@ -606,6 +606,74 @@ def test_lj_energy_force_loss_and_gradient_match_jax():
         assert float(torch.stack([g.abs().max() for g in grads]).max()) > 0
 
 
+def test_energy_force_loss_without_geometry_gives_zero_forces():
+    """LJ.json switched to PNA (equivariance off, hidden 8, 3 LJ cells,
+    compute_grad_energy): the energy never reads the positions, so the
+    forces are 0, as jax.grad gives them, where torch.autograd.grad would
+    raise. The loss (JAX: 7.4355 = energy 4.9031 + force 2.5324), its
+    metrics and the updated running statistics against the JAX package's
+    loss_fn within TRAIN_TOL, the parameter gradients within the LJ
+    SchNet test's bound (the biases in front of a BatchNorm get a gradient
+    that is 0 but for rounding, here up to 4e-5) but for conv_0's
+    pre-layers, on constant rows, within 1e-2 relative L2 (measured
+    6.9e-3); and the forces
+    the EF engine's function serves are exactly 0."""
+    from examples.LennardJones.lj_data import generate_lj_dataset
+    with open(LJ) as fh:
+        base = json.load(fh)
+    base["NeuralNetwork"]["Architecture"].update(
+        model_type="PNA", equivariance=False, hidden_dim=8)
+    base["NeuralNetwork"]["Architecture"]["output_heads"]["node"][
+        "dim_headlayers"] = [8, 8]
+    samples = lj_configurations(3, seed=9)
+    tc = tcfg.update_config(copy.deepcopy(base), samples)
+    jc = jcfg.update_config(copy.deepcopy(base),
+                            generate_lj_dataset(3, seed=9))
+    jm = jcfg.build_model_config(jc)
+    jmodel = j_create_model(jm)
+    tm = tcfg.build_model_config(tc)
+    tb = tbatch.collate(samples)
+    jb = jax_batch(_jax_view(tb))
+    variables = numpy_tree(j_init_params(jmodel, jb, seed=4))
+    jloss_fn = jstep.make_loss_fn(jmodel, jm, "mae",
+                                  compute_grad_energy=True)
+    (want, (new_bs, metrics)), want_g = jax.value_and_grad(
+        jloss_fn, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, variables["params"]),
+        jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"]), jb)
+    np.testing.assert_allclose(float(want), 7.4355, atol=1e-4)
+    model = create_model(tm, device="cpu")
+    model.load_state_dict(load_jax_variables(variables))
+    model.train()
+    total, m = tstep.make_loss_fn(model, tm, "mae",
+                                  compute_grad_energy=True)(tb)
+    grads = torch.autograd.grad(total, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    np.testing.assert_allclose(float(total.detach()), float(want),
+                               **TRAIN_TOL)
+    for k in ("energy_loss", "force_loss"):
+        np.testing.assert_allclose(float(m[k].detach()), float(metrics[k]),
+                                   **TRAIN_TOL)
+    got_g, want_g = _grads_as_flax(model, grads), numpy_tree(want_g)
+    # conv_0 reads x = 1 on every atom: each receiver's messages are
+    # equal, its variance 0 but for rounding, and the std's gradient
+    # (1 / (2 sqrt(1e-5)) = 158 times the variance's) carries the two
+    # packages' rounding of sq / c - mean² into the pre-layers
+    for name in ("pre_i", "pre_j"):
+        want_leaves = want_g["conv_0"].pop(name)
+        for leaf, g in got_g["conv_0"].pop(name).items():
+            w = want_leaves[leaf]
+            assert np.linalg.norm(g - w) <= 1e-2 * np.linalg.norm(w), name
+    assert_tree_close(got_g, want_g, dict(rtol=1e-4, atol=5e-5),
+                      scaled=True)
+    assert_tree_close(export_jax_variables(model)["batch_stats"],
+                      numpy_tree(new_bs), TRAIN_TOL)
+    model.eval()
+    energy, forces = tloss.energy_forces_from_node_head(model, tb)
+    assert energy.shape == (tb.num_graphs, 1)
+    assert torch.equal(forces, torch.zeros_like(tb.pos))
+
+
 # ------------------------------------------------ (i) run_training, PNA --
 def test_run_training_pna_meets_the_lattice_threshold():
     """The PNA row of tests/test_graphs_full.py through the port's
