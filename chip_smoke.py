@@ -180,6 +180,36 @@ Phases:
    [E, 5], both poolings), each against its plain version beside its
    bound and `index_add`'s time. Each of phase 11's numbers is printed
    beside the card's name and power limit.
+12. Serving with failure semantics, hot swap and raw structures
+   (`serving_phase`), every number beside the card's name and power
+   limit. (a) MD in the loop: `md/loop.lj_md_config` at LJ.json's
+   architecture (SchNet 32 wide, 2 equivariant layers, 32 Gaussians,
+   radius 2.0, max_neighbours 64, PBC, node head [32, 32]) with phase 6's
+   trained weights, 1,728 atoms (12³ lattice 1.2, jitter 0.05, seed 1;
+   Maxwell velocities at T 0.3, seed 2), dt 0.005, skin 0.3, served by
+   one EF engine on `md_buckets`' one-bucket ladder, 60 steps in each
+   mode (incremental, rebuild, offline): steps/s, step ms, graph build
+   and serve ms, rebuild fraction, first and last energy. Held: the
+   three trajectories bitwise equal, the first step card vs CPU within
+   rtol 1e-4 / atol 1e-5, no capture after warm-up, B3 and B4 among the
+   bucket graph's kernel nodes (= its launch counts); then B4 (forward,
+   dh) and B3 (pooling, the gathers' backward) at the MD bucket against
+   their plain versions, with device time and bound. (b) Eight threads,
+   each its own session, 216-atom systems (seeds 0-7) through one EF
+   engine (ladder from those systems with 30 % edge headroom,
+   max_batch_size 8), 30 steps: steps/s summed, batch occupancy, rebuild
+   fraction; each trajectory's step 1 against its own single-client CPU
+   run. (c) The csce PNA engine (edge list) with max_queue 4 x 128 and a
+   50 ms deadline: the closed-loop rate R, then seeded Poisson arrivals
+   at 0.5, 0.9 and 1.5 R for 5 s each: offered, admitted, completed,
+   QueueFullError, DeadlineExceededError, p50/p95/p99 and `health()`;
+   every accepted future resolves, none pending after shutdown, nothing
+   refused or expired at 0.5 R. (d) The plan serving-dispatch@2,5,6 with
+   breaker 2 / 0.2 s: only the faulted batches fail, one trip, one probe,
+   every result bitwise `forward_single`; `swap_variables` to a second
+   seeded weight set with requests in flight: every result bitwise a
+   fresh engine's on its weights, its version on the future, no capture,
+   a mismatched tree refused first.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -188,8 +218,9 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `training: {...}` JSON line. Any
-failure exits non-zero without the last line.
+name and power limit, and before it a `serving: {...}` (phase 12) and a
+`training: {...}` JSON line. Any failure exits non-zero without the last
+line.
 """
 from __future__ import annotations
 
@@ -935,7 +966,7 @@ def engine_graphs(torch, engine, requests, label):
                     and e + r.e <= b.cap_edges):
                 sub.append(r)
                 n, e = n + r.n, e + r.e
-        got = engine._forward(sub, b)
+        got, _ = engine._forward(sub, b)
         batch = engine._collate_bucket([r.sample for r in sub], b)
         want = [o.detach().cpu().numpy() for o in engine._run(
             batch.to(engine.device))]
@@ -3435,6 +3466,611 @@ def slice_phase(torch, device, card, counted):
     return records, shapes
 
 
+# ----------------------------------------------------------- phase 12 --
+MD_ATOMS_PER_DIM = 12          # 1,728 atoms, BENCH_MD's count
+MD_STEPS = 60                  # steps in each neighbour mode
+MD_DT, MD_TEMP, MD_SKIN = 0.005, 0.3, 0.3
+MD_MODES = ("incremental", "rebuild", "offline")
+MD_CLIENTS = 8                 # concurrent trajectories, 6³ atoms each
+MD_CLIENT_STEPS = 30
+POS_ATOL = 1e-6                # step-1 positions, card vs cpu
+OPEN_LOOP_S = 5.0              # seconds of arrivals at each rate
+OPEN_LOOP_RATES = (0.5, 0.9, 1.5)   # multiples of the closed-loop rate
+OPEN_LOOP_DEADLINE_MS = 50.0   # ~10x the csce forward (PERF.md section 5)
+OPEN_LOOP_WAIT_MS = 2.0        # bench.py BENCH_SERVE_WAIT_MS's default
+CLOSED_LOOP_BURSTS = 10
+
+
+def md_system(atoms_per_dim, seed_pos, seed_vel):
+    """(pos0, cell, vel0, node features) of md_loop's LJ lattice: lattice
+    1.2, jitter 0.05, Maxwell velocities at MD_TEMP."""
+    from hydragnn_tpu_torch.md.loop import init_lattice, maxwell_velocities
+    pos0, cell = init_lattice(atoms_per_dim, 1.2, 0.05, seed=seed_pos)
+    vel0 = maxwell_velocities(len(pos0), MD_TEMP, seed=seed_vel)
+    return pos0, cell, vel0, np.ones((len(pos0), 1), np.float32)
+
+
+def md_config():
+    """`md/loop.lj_md_config` at examples/LennardJones/LJ.json's
+    architecture: num_gaussians 32 and equivariance on, as LJ.json has
+    them (the coordinate update reaches no energy)."""
+    from hydragnn_tpu_torch.md.loop import lj_md_config
+    cfg = lj_md_config(num_gaussians=32)
+    cfg["NeuralNetwork"]["Architecture"]["equivariance"] = True
+    return cfg
+
+
+def md_model(lj_state, cfg, frames):
+    """The MD config completed on `frames`, with phase 6's trained
+    weights when `lj_state` is given, else seeded random ones. Returns
+    (completed config, model config, a function making the model on a
+    device, the weights' label)."""
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    done = tcfg.update_config(copy.deepcopy(cfg), frames)
+    mcfg = tcfg.build_model_config(done)
+    if lj_state is not None:
+        weights = {k: v.detach().cpu() for k, v in
+                   lj_state.state_dict().items()}
+        label = "phase 6's trained LJ.json weights"
+    else:
+        weights = load_jax_variables(random_flax_variables(
+            create_model(mcfg, device="cpu"), SEED + 12))
+        label = f"seeded random weights (seed {SEED + 12})"
+
+    def on(dev):
+        model = create_model(mcfg, device=dev)
+        model.load_state_dict(weights)
+        return model
+    return done, mcfg, on, label
+
+
+def md_in_the_loop(torch, device, card, counted, lj_state):
+    """Phase 12a: velocity-Verlet MD of 1,728 LJ atoms through
+    `submit_structure` on the card, MD_STEPS steps in each neighbour mode;
+    the modes' trajectories bitwise equal, the first step card vs CPU
+    within SLICE_TOL, no capture after warm-up, and B3 and B4 in the
+    bucket's graph (its kernel nodes against the launch counters).
+    Returns (record, filter_scatter shapes, segment_sum shapes)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.graphs.batch import collate
+    from hydragnn_tpu_torch.md import integrator as mdi
+    from hydragnn_tpu_torch.md.loop import md_buckets, run_md
+    from hydragnn_tpu_torch.preprocess.transforms import build_graph_sample
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+
+    pos0, cell, vel0, nf = md_system(MD_ATOMS_PER_DIM, 1, 2)
+    n = len(pos0)
+    cfg = md_config()
+    frame0 = build_graph_sample(nf, pos0, cfg, cell=cell,
+                                with_targets=False)
+    done, mcfg, model_on, weights = md_model(lj_state, cfg, [frame0])
+    buckets = md_buckets(n, frame0.num_edges)
+
+    def engine_on(dev):
+        return InferenceEngine(
+            model_on(dev), mcfg, buckets=buckets, proto_sample=frame0,
+            max_batch_size=1, max_wait_ms=0.0, structure_config=done,
+            md_skin=MD_SKIN, ef_forward=True, device=dev)
+
+    qpos0 = mdi.init_state(pos0, vel0, MD_DT)[0]
+    qcell = mdi.quantize_cell(cell)
+    with engine_on("cpu") as cpu_engine:
+        want = cpu_engine.submit_structure(qpos0, nf, cell=qcell).result()
+    engine = engine_on(device)
+    try:
+        engine.warmup()
+        captures = engine.stats()["captures"]
+        first = engine.submit_structure(qpos0, nf, cell=qcell).result()
+        err_e = float(np.abs(first[0] - want[0]).max())
+        err_f = float(np.abs(first[1] - want[1]).max())
+        fmax = float(np.abs(want[1]).max())
+        print(f"phase 12a: LJ SchNet MD, {n} atoms ({MD_ATOMS_PER_DIM}³), {frame0.num_edges}"
+              f" edges at step 0, bucket {buckets[0].n_node}x"
+              f"{buckets[0].n_edge}x{buckets[0].n_graph}; {weights}; first "
+              f"step card vs cpu: energy max abs err {err_e:.3e}, forces "
+              f"{err_f:.3e} (max |F| {fmax:.3e}; tolerance {SLICE_TOL})",
+              flush=True)
+        for name, g, w in (("energy", first[0], want[0]),
+                           ("forces", first[1], want[1])):
+            if not np.isfinite(g).all() or not np.allclose(g, w,
+                                                           **SLICE_TOL):
+                fail(f"MD first step {name}: card vs cpu outside "
+                     f"{SLICE_TOL}")
+        nodes = check_graph_kernels(engine._graphs[buckets[0]], "MD bucket")
+        for key in ("segment_sum_kernel", "filter_scatter_kernel"):
+            if not nodes.get(key):
+                fail(f"MD bucket graph holds no {key} node: {nodes}")
+        runs = {}
+        tk.reset_launch_counts()
+        for mode in MD_MODES:
+            runs[mode] = run_md(engine, done, pos0, vel0, cell, nf,
+                                steps=MD_STEPS, dt=MD_DT, mode=mode,
+                                skin=MD_SKIN if mode == "incremental"
+                                else None)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        stats, health = engine.stats(), engine.health()
+        batch = collate([frame0], n_node=buckets[0].n_node,
+                        n_edge=buckets[0].n_edge,
+                        n_graph=buckets[0].n_graph).replace(
+            y_node=None, energy=None, forces=None).to(device)
+    finally:
+        engine.shutdown()
+    for name in ("segment_sum", "filter_scatter", "filter_scatter_backward"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the MD path")
+    if stats["captures"] != captures:
+        fail(f"MD: {stats['captures'] - captures} captures during the run")
+    inc = runs["incremental"]
+    for mode in MD_MODES[1:]:
+        r = runs[mode]
+        if not (r["energies"] == inc["energies"]
+                and np.array_equal(r["final_pos"], inc["final_pos"])
+                and np.array_equal(r["final_vel"], inc["final_vel"])):
+            fail(f"MD: the {mode} trajectory differs from the incremental "
+                 "one")
+    if not np.isfinite(inc["energies"]).all():
+        fail("MD: non-finite energy")
+    rec = dict(atoms=n, steps=MD_STEPS, dt=MD_DT, skin=MD_SKIN,
+               edges_step0=frame0.num_edges,
+               bucket=f"{buckets[0].n_node}x{buckets[0].n_edge}x"
+                      f"{buckets[0].n_graph}", weights=weights,
+               first_step_err=dict(energy=err_e, forces=err_f, max_f=fmax),
+               kernel_nodes=nodes, launches=counts, modes={},
+               trajectories_bitwise_equal=True,
+               captures_during_run=stats["captures"] - captures,
+               nbr_rebuild_fraction=health["nbr_rebuild_fraction"])
+    for mode, r in runs.items():
+        serve = r["step_ms_mean"] - r["graph_build_ms_mean"]
+        rec["modes"][mode] = dict(
+            steps_per_s=r["steps_per_s"], step_ms=r["step_ms_mean"],
+            graph_build_ms=r["graph_build_ms_mean"], serve_ms=serve,
+            rebuild_fraction=r["rebuild_fraction"],
+            energy_first=r["energy_first"], energy_last=r["energy_last"])
+        print(f"MD {mode}: {r['steps_per_s']} steps/s, step "
+              f"{r['step_ms_mean']} ms = graph build "
+              f"{r['graph_build_ms_mean']} ms + serve {serve} ms; rebuild "
+              f"fraction {r['rebuild_fraction']}; energy first "
+              f"{r['energy_first']} last {r['energy_last']} (card: {card})",
+              flush=True)
+    print(f"MD: the three modes' positions, velocities and energies "
+          f"bitwise equal; no capture during the run; bucket graph's "
+          f"hand-written kernel nodes {nodes}; launches over the three "
+          f"runs {counts}", flush=True)
+    # B4 and B3 at the MD bucket's shapes, against their plain versions
+    fs_rec, seg_shapes = check_filter_scatter(torch, batch, device,
+                                              mcfg.num_filters)
+    fs_shapes = [dict(s, shape=f"md_{s['shape']}", max_abs_err=fs_rec[
+        "max_abs_err" if s["shape"] == "forward" else
+        "backward_max_abs_err"]) for s in fs_rec["shapes"]]
+    seg_shapes = [dict(s, shape=s["shape"].replace("ef_", "md_"))
+                  for s in seg_shapes]
+    return rec, fs_shapes, seg_shapes
+
+
+def md_clients(torch, device, card, counted, lj_state):
+    """Phase 12b: MD_CLIENTS threads, each with its own trajectory session
+    (216 atoms, seeds 0-7), through one EF engine whose ladder is built
+    from those systems (30 % edge headroom, max_batch_size MD_CLIENTS),
+    MD_CLIENT_STEPS steps each; every trajectory's step 1 against its own
+    single-client run on the CPU within SLICE_TOL (energies) and POS_ATOL
+    (positions); every future resolved."""
+    import threading
+
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.graphs.packing import sample_sizes
+    from hydragnn_tpu_torch.md.loop import run_md
+    from hydragnn_tpu_torch.preprocess.transforms import build_graph_sample
+    from hydragnn_tpu_torch.serving.engine import (InferenceEngine,
+                                                   bucket_ladder)
+    systems = [md_system(6, k, 100 + k) for k in range(MD_CLIENTS)]
+    cfg = md_config()
+    frames = [build_graph_sample(nf, p, cfg, cell=c, with_targets=False)
+              for p, c, _, nf in systems]
+    done, mcfg, model_on, weights = md_model(lj_state, cfg, frames)
+    nodes, edges = sample_sizes(frames)
+    buckets = bucket_ladder(nodes, (edges * 1.3).astype(np.int64),
+                            MD_CLIENTS)
+
+    def engine_on(dev, batch):
+        return InferenceEngine(
+            model_on(dev), mcfg, buckets=buckets, proto_sample=frames[0],
+            max_batch_size=batch, max_wait_ms=2.0, structure_config=done,
+            md_skin=MD_SKIN, ef_forward=True, device=dev)
+
+    with engine_on("cpu", 1) as cpu_engine:
+        want = [run_md(cpu_engine, done, p, v, c, nf, steps=1, dt=MD_DT,
+                       mode="incremental") for p, c, v, nf in systems]
+    engine = engine_on(device, MD_CLIENTS)
+    out, errors = [None] * MD_CLIENTS, []
+    try:
+        engine.warmup()
+        engine.reset_stats()
+        barrier = threading.Barrier(MD_CLIENTS)
+
+        def client(k):
+            p, c, v, nf = systems[k]
+            try:
+                barrier.wait()
+                out[k] = run_md(engine, done, p, v, c, nf,
+                                steps=MD_CLIENT_STEPS, dt=MD_DT,
+                                mode="incremental", record_positions=True)
+            except Exception as exc:  # noqa: BLE001 — failed below
+                errors.append(f"client {k}: {exc!r}")
+
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(MD_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        stats, health = engine.stats(), engine.health()
+    finally:
+        engine.shutdown()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"MD clients: {errors or 'a client did not finish'}")
+    gaps_e, gaps_p = [], []
+    for k, (got, ref) in enumerate(zip(out, want)):
+        e_g, e_w = np.asarray(got["energies"][:2]), np.asarray(
+            ref["energies"][:2])
+        gaps_e.append(float(np.abs(e_g - e_w).max()))
+        gaps_p.append(float(np.abs(got["positions"][0]
+                                   - ref["final_pos"]).max()))
+        if not np.allclose(e_g, e_w, **SLICE_TOL) or gaps_p[-1] > POS_ATOL:
+            fail(f"MD client {k}: step 1 card vs its single-client cpu run:"
+                 f" energies {e_g} vs {e_w}, positions {gaps_p[-1]}")
+    steps = MD_CLIENTS * MD_CLIENT_STEPS
+    rec = dict(clients=MD_CLIENTS, atoms=len(systems[0][0]),
+               steps_each=MD_CLIENT_STEPS, weights=weights,
+               buckets=[f"{b.n_node}x{b.n_edge}x{b.n_graph}"
+                        for b in buckets],
+               steps_per_s=steps / wall, wall_s=wall,
+               batch_occupancy=stats["batch_occupancy"],
+               batches=stats["batches"], p50_ms=stats["p50_ms"],
+               p99_ms=stats["p99_ms"],
+               rebuild_fraction=health["nbr_rebuild_fraction"],
+               step1_energy_gap=max(gaps_e), step1_pos_gap=max(gaps_p),
+               launches=counts)
+    print(f"phase 12b: {MD_CLIENTS} concurrent MD sessions of "
+          f"{rec['atoms']} atoms, {MD_CLIENT_STEPS} steps each: "
+          f"{rec['steps_per_s']} steps/s summed over clients ({wall} s), "
+          f"{stats['batches']} batches, mean batch occupancy "
+          f"{stats['batch_occupancy']}, request p50 {stats['p50_ms']} ms "
+          f"p99 {stats['p99_ms']} ms, rebuild fraction "
+          f"{health['nbr_rebuild_fraction']}; step 1 vs single-client cpu "
+          f"runs: energy gap {max(gaps_e):.3e}, position gap "
+          f"{max(gaps_p):.3e}; buckets {rec['buckets']}; launches {counts} "
+          f"(card: {card})", flush=True)
+    for name in ("segment_sum", "filter_scatter"):
+        if counts[name] == 0:
+            fail(f"{name} never launched on the concurrent MD path")
+    return rec
+
+
+def open_loop(torch, device, card, counted, csce):
+    """Phase 12c: the csce PNA engine (edge list) with max_queue 4 x
+    max_batch_size, a OPEN_LOOP_DEADLINE_MS deadline and the coalescing
+    window of the JAX package's open-loop bench (`bench.py` BENCH_SERVE,
+    BENCH_SERVE_WAIT_MS): the closed-loop rate R (bursts of the repeated
+    test split, as phase 3, cut to the admission bound), then seeded
+    Poisson arrivals at OPEN_LOOP_RATES x R for OPEN_LOOP_S each. Every
+    accepted future resolves with a result or a serving error (tallied
+    by a done-callback, so no future outlives its resolution), none is
+    pending after shutdown, and at the lowest rate nothing is refused or
+    expires.
+
+    The lowest rate runs once first with the heap as it is, measured and
+    not held; then the heap of the run so far is frozen out of the
+    collector (`gc.freeze`, as a serving process freezes its start-up
+    heap) for the held rates: one full collection over this process's
+    data of the earlier phases holds the interpreter longer than the
+    deadline (the time of one is printed). Collections during each rate
+    are counted and printed."""
+    import collections
+    import gc
+    import threading
+
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.serving.engine import (InferenceEngine,
+                                                   ServingError)
+    requests = csce["requests"]
+    engine = InferenceEngine(
+        csce["model"], csce["mcfg"], reference_samples=csce["test"],
+        max_batch_size=SERVE_MAX_BATCH, max_wait_ms=OPEN_LOOP_WAIT_MS,
+        neighbor_format=False, max_queue=4 * SERVE_MAX_BATCH,
+        default_deadline_ms=OPEN_LOOP_DEADLINE_MS, device=device)
+    rng = np.random.default_rng(0)
+    recs = {}
+    outcome = collections.Counter()
+    lock = threading.Lock()
+
+    def tally(fut):
+        exc = fut.exception()
+        name = ("ok" if exc is None else type(exc).__name__
+                if isinstance(exc, ServingError) else f"other: {exc!r}")
+        with lock:
+            outcome[name] += 1
+
+    def resolved():
+        with lock:
+            return sum(outcome.values())
+
+    pauses = []
+
+    def gc_pause(phase, info):
+        if phase == "start":
+            gc_pause.t0 = time.perf_counter()
+        else:
+            pauses.append((info["generation"],
+                           time.perf_counter() - gc_pause.t0))
+
+    admitted = [0]             # accepted over every rate
+
+    def drive(mult, rate, label):
+        """Poisson arrivals at mult x rate for OPEN_LOOP_S; returns the
+        rate's record once every accepted future has resolved."""
+        offered = int(mult * rate * OPEN_LOOP_S)
+        at = np.cumsum(rng.exponential(1.0 / (mult * rate), offered))
+        before = engine.health()
+        engine.reset_stats()
+        with lock:
+            seen = dict(outcome)
+        del pauses[:]
+        queue_full = 0
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(offered):
+            delay = at[i] - (time.perf_counter() - t0)
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                fut = engine.submit(requests[i % len(requests)])
+            except ServingError as exc:
+                if type(exc).__name__ != "QueueFullError":
+                    fail(f"open loop: submit refused with {exc!r}")
+                queue_full += 1
+                continue
+            admitted[0] += 1
+            fut.add_done_callback(tally)
+        sent = time.perf_counter() - t0
+        t_wait = time.perf_counter()
+        while resolved() < admitted[0]:
+            if time.perf_counter() - t_wait > 600:
+                fail("open loop: futures unresolved after 600 s")
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        stats, health = engine.stats(), engine.health()
+        with lock:
+            got = {k: v - seen.get(k, 0) for k, v in outcome.items()
+                   if v > seen.get(k, 0)}
+        expired = health["deadline_expired"] - before["deadline_expired"]
+        rec = dict(rate_x_r=mult, offered_per_s=mult * rate,
+                   offered=offered, send_s=sent,
+                   admitted=offered - queue_full,
+                   completed=got.get("ok", 0), queue_full=queue_full,
+                   deadline_exceeded=got.get("DeadlineExceededError", 0),
+                   outcomes=got, p50_ms=stats["p50_ms"],
+                   p95_ms=stats["p95_ms"], p99_ms=stats["p99_ms"],
+                   batches=stats["batches"],
+                   batch_occupancy=stats["batch_occupancy"],
+                   max_queue_depth=stats["max_queue_depth"],
+                   gc_collections=len(pauses),
+                   gc_full_collections=sum(g == 2 for g, _ in pauses),
+                   gc_max_pause_ms=1e3 * max([d for _, d in pauses]
+                                             or [0.0]),
+                   health=health, launches=counts)
+        print(f"open loop {label} ({mult * rate} requests/s offered over "
+              f"{sent} s): offered {offered}, admitted {rec['admitted']}, "
+              f"completed {rec['completed']}, QueueFullError {queue_full},"
+              f" DeadlineExceededError {rec['deadline_exceeded']} (engine "
+              f"count {expired}); completed p50 {stats['p50_ms']} ms p95 "
+              f"{stats['p95_ms']} ms p99 {stats['p99_ms']} ms; "
+              f"{stats['batches']} batches, occupancy "
+              f"{stats['batch_occupancy']}, max queue depth "
+              f"{stats['max_queue_depth']}; {len(pauses)} collections "
+              f"({rec['gc_full_collections']} full), longest "
+              f"{rec['gc_max_pause_ms']:.3f} ms; health {health} (card: "
+              f"{card})", flush=True)
+        if set(got) - {"ok", "DeadlineExceededError"} \
+                or health["batch_failures"]:
+            fail(f"open loop {label}: outcomes {got}")
+        for name in ("pna_edge_aggregate", "segment_sum"):
+            if counts[name] == 0:
+                fail(f"{name} never launched on the open-loop path")
+        return rec, expired
+
+    gc.callbacks.append(gc_pause)
+    try:
+        engine.warmup()
+        burst = requests[:engine.max_queue]
+        walls = []
+        for _ in range(CLOSED_LOOP_BURSTS):
+            t0 = time.perf_counter()
+            for f in [engine.submit(s, deadline_ms=0) for s in burst]:
+                f.result(timeout=600)
+            walls.append(time.perf_counter() - t0)
+        rate = len(burst) * CLOSED_LOOP_BURSTS / sum(walls)
+        print(f"phase 12c: csce PNA engine closed-loop rate R = {rate} "
+              f"requests/s ({CLOSED_LOOP_BURSTS} bursts of "
+              f"{len(burst)}); open loop at {OPEN_LOOP_RATES} x R, "
+              f"max_queue {engine.max_queue}, deadline "
+              f"{OPEN_LOOP_DEADLINE_MS} ms, max_wait "
+              f"{OPEN_LOOP_WAIT_MS} ms (card: {card})", flush=True)
+        # the lowest rate once with the heap as it is: measured, not held
+        unfrozen, _ = drive(OPEN_LOOP_RATES[0], rate,
+                            f"{OPEN_LOOP_RATES[0]} x R, heap not frozen")
+        t0 = time.perf_counter()
+        gc.collect()
+        full_gc_ms = (time.perf_counter() - t0) * 1e3
+        gc.freeze()
+        print(f"a full collection of this process's heap: {full_gc_ms} ms; "
+              f"heap frozen (card: {card})", flush=True)
+        for mult in OPEN_LOOP_RATES:
+            recs[f"{mult}R"], expired = drive(mult, rate, f"{mult} x R")
+            if mult == OPEN_LOOP_RATES[0] and (
+                    recs[f"{mult}R"]["queue_full"] or expired):
+                fail(f"open loop at {mult} x R: "
+                     f"{recs[f'{mult}R']['queue_full']} refused, "
+                     f"{expired} expired")
+    finally:
+        engine.shutdown()
+        gc.callbacks.remove(gc_pause)
+        gc.unfreeze()
+    if resolved() != admitted[0]:
+        fail("open loop: a future pending after shutdown")
+    return dict(closed_loop_rate=rate, max_wait_ms=OPEN_LOOP_WAIT_MS,
+                full_collection_ms=full_gc_ms, heap_not_frozen=unfrozen,
+                rates=recs)
+
+
+def fault_and_swap(torch, device, card, csce):
+    """Phase 12d: on the csce engine with the plan serving-dispatch@2,5,6,
+    breaker_threshold 2 and breaker_reset_s 0.2, one request at a time:
+    only the faulted batches fail, the breaker trips once and one probe
+    closes it, and every served result (the one after each fault too)
+    equals forward_single bitwise. Then swap_variables to a second seeded
+    weight set mid-stream: results bitwise those of fresh engines on each
+    set, the version on each future, no capture, and a mismatched tree
+    refused before any change."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import (CircuitOpenError,
+                                                   InferenceEngine)
+    from hydragnn_tpu_torch.utils.faults import (InjectedFault,
+                                                 install_fault_plan,
+                                                 parse_fault_plan)
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    mcfg, test = csce["mcfg"], csce["test"]
+    v0 = csce["variables"]
+    v1 = random_flax_variables(create_model(mcfg, device="cpu"), SEED + 1)
+
+    def engine_on(variables, **kw):
+        model = create_model(mcfg, device=device)
+        model.load_state_dict(load_jax_variables(variables))
+        kw.setdefault("max_batch_size", 1)
+        return InferenceEngine(model, mcfg, reference_samples=test,
+                               max_wait_ms=0.0, neighbor_format=False,
+                               device=device, **kw)
+
+    engine = engine_on(v0, breaker_threshold=2, breaker_reset_s=0.2)
+    try:
+        engine.warmup()
+        install_fault_plan(parse_fault_plan("serving-dispatch@2,5,6"))
+        outcome = []
+        for i in range(9):
+            if i == 7:
+                try:
+                    engine.submit(test[i])
+                    fail("faults: the open breaker admitted a request")
+                except CircuitOpenError:
+                    outcome.append("refused")
+                time.sleep(0.25)
+            f = engine.submit(test[i])
+            exc = f.exception(timeout=600)
+            if exc is None:
+                ref = engine.forward_single(test[i], bucket=f.bucket)
+                if not all(np.array_equal(a, b)
+                           for a, b in zip(f.result(), ref)):
+                    fail(f"faults: request {i} differs from forward_single")
+                outcome.append("ok")
+            elif isinstance(exc, InjectedFault):
+                outcome.append("fault")
+            else:
+                fail(f"faults: request {i} failed with {exc!r}")
+        install_fault_plan(None)
+        health = engine.health()
+    finally:
+        install_fault_plan(None)
+        engine.shutdown()
+    expect = ["ok", "ok", "fault", "ok", "ok", "fault", "fault", "refused",
+              "ok", "ok"]
+    if outcome != expect or health["trip_count"] != 1 \
+            or health["probe_count"] != 1 or health["state"] != "closed" \
+            or health["batch_failures"] != 3:
+        fail(f"faults: outcome {outcome} (expected {expect}), health "
+             f"{health}")
+    print(f"phase 12d: fault plan serving-dispatch@2,5,6, breaker 2 / 0.2 s:"
+          f" outcome {outcome}; trips {health['trip_count']}, probes "
+          f"{health['probe_count']}, state {health['state']}; every result "
+          f"bitwise forward_single (card: {card})", flush=True)
+
+    # one request a batch, so each result has a fresh engine's
+    # forward_single on the same inputs to equal bit for bit
+    requests = csce["requests"][:384]
+    late = len(requests) // 3   # submitted after the swap
+    engine = engine_on(v0, model_version="v0")
+    fresh = {name: engine_on(v) for name, v in (("v0", v0), ("v1", v1))}
+    try:
+        engine.warmup()
+        captured = (dict(engine.capture_ms), engine.stats()["captures"])
+        bad = copy.deepcopy(v1)
+        bad["params"].pop(sorted(bad["params"])[0])
+        try:
+            engine.swap_variables(bad, "bad")
+            fail("swap: a mismatched tree was accepted")
+        except ValueError:
+            pass
+        futs = [engine.submit(s) for s in requests[:-late]]
+        while sum(f.done() for f in futs) < len(futs) // 2:
+            time.sleep(0.001)
+        engine.swap_variables(v1, "v1")     # with requests in flight
+        futs += [engine.submit(s) for s in requests[-late:]]
+        for s, f in zip(requests, futs):
+            res = f.result(timeout=600)
+            ref = fresh[f.model_version].forward_single(s, bucket=f.bucket)
+            if not all(np.array_equal(a, b) for a, b in zip(res, ref)):
+                fail(f"swap: a {f.model_version} result differs from a "
+                     "fresh engine's")
+        versions = [f.model_version for f in futs]
+        k = versions.count("v0")
+        if versions != ["v0"] * k + ["v1"] * (len(futs) - k) \
+                or not 0 < k <= len(futs) - late:
+            fail(f"swap: versions {versions}")
+        if (dict(engine.capture_ms), engine.stats()["captures"]) != captured:
+            fail("swap: a bucket was captured again")
+    finally:
+        engine.shutdown()
+        for e in fresh.values():
+            e.shutdown()
+    print(f"swap_variables mid-stream: {len(requests)} requests, {k} served "
+          f"by v0 and {len(requests) - k} by v1 (the last {late} submitted "
+          f"after the swap), each bitwise a fresh engine's on its weights, "
+          f"its version on every future; no capture; a mismatched tree "
+          f"refused first (card: {card})", flush=True)
+    return dict(fault_outcome=outcome, trip_count=health["trip_count"],
+                probe_count=health["probe_count"], swap_bitwise=True)
+
+
+def serving_phase(torch, device, card, counted, lj_state, csce):
+    """Phase 12: MD in the loop, concurrent trajectories, open-loop
+    serving with admission bounds, failure semantics and hot swap.
+    Returns (record, filter_scatter shapes, segment_sum shapes)."""
+    t0 = time.perf_counter()
+    md, fs_shapes, seg_shapes = md_in_the_loop(torch, device, card,
+                                               counted, lj_state)
+    rec = dict(md=md,
+               md_clients=md_clients(torch, device, card, counted,
+                                     lj_state),
+               open_loop=open_loop(torch, device, card, counted, csce),
+               faults=fault_and_swap(torch, device, card, csce))
+    rec["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 took {rec['seconds']:.1f} s (card: {card})",
+          flush=True)
+    return rec, fs_shapes, seg_shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3712,9 +4348,9 @@ def main() -> int:
           f"train cells, batch {lj_bs}, {LJ_EPOCHS} epochs (LJ.json: "
           f"{lj_cfg['NeuralNetwork']['Training']['num_epoch']}, cut for "
           "time; widths as published), edge list", flush=True)
-    _, counts, lj_rec = training_phase(torch, "LJ SchNet EF", lj_cfg,
-                                       lj_splits, device, LJ_EPOCHS, lj_bs,
-                                       counted)
+    lj_main, counts, lj_rec = training_phase(torch, "LJ SchNet EF", lj_cfg,
+                                             lj_splits, device, LJ_EPOCHS,
+                                             lj_bs, counted)
     for name in ("filter_scatter", "filter_scatter_backward",
                  "segment_sum"):
         if counts[name] == 0:
@@ -3806,13 +4442,26 @@ def main() -> int:
     slice_records, slice_shapes = slice_phase(torch, device, card, counted)
     train_paths.update(slice_records)
     records["segment_sum"]["shapes"] += slice_shapes
+
+    # ---------------------------------------------------------- phase 12
+    csce = dict(model=model, mcfg=mcfg, test=test, requests=requests,
+                variables=variables)
+    serving, md_fs_shapes, md_seg_shapes = serving_phase(
+        torch, device, card, counted, lj_main[0], csce)
+    records["filter_scatter"]["shapes"] += md_fs_shapes
+    records["filter_scatter"]["max_abs_err"] = max(
+        [records["filter_scatter"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in md_fs_shapes])
+    records["segment_sum"]["shapes"] += md_seg_shapes
     records["segment_sum"]["max_abs_err"] = max(
         [records["segment_sum"]["max_abs_err"]]
-        + [r["max_abs_err"] for r in eam_shapes + slice_shapes])
+        + [r["max_abs_err"] for r in eam_shapes + slice_shapes
+           + md_seg_shapes])
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
           flush=True)
+    print("serving: " + json.dumps(dict(serving, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -3843,6 +4492,8 @@ def main() -> int:
             extra["bf16"] = dict(launches=launches[f"{name}_bf16"],
                                  **bf16_records[name])
         extra["launches_per_captured_step"] = per_captured_step(name)
+        if name in serving["md"]["launches"]:
+            extra["launches_md_path"] = serving["md"]["launches"][name]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")

@@ -50,7 +50,7 @@ def radius_graph(
         return np.empty(0, np.int32), np.empty(0, np.int32)
     send, recv, d2 = _open_pairs(pos, r, loop)
     if max_neighbours is not None and len(recv):
-        keep = _cap_canonical(d2, recv, max_neighbours)
+        keep = _cap_neighbours(d2, recv, max_neighbours)
         send, recv = send[keep], recv[keep]
     return send.astype(np.int32), recv.astype(np.int32)
 
@@ -107,7 +107,7 @@ def radius_graph_pbc(
     send, recv, sid, shifts_int, d2 = _pbc_pairs(pos, cell, r, pbc)
     shift = shifts_int[sid]
     if max_neighbours is not None and len(recv):
-        keep = _cap_canonical(d2, recv, max_neighbours)
+        keep = _cap_neighbours(d2, recv, max_neighbours)
         send, recv, shift = send[keep], recv[keep], shift[keep]
     cart_shift = (shift @ cell).astype(np.float32)
     return send.astype(np.int32), recv.astype(np.int32), cart_shift
@@ -234,11 +234,13 @@ def _segment_layout(recv):
     return seg_id, starts, idx
 
 
-def _cap_canonical(d2, recv, max_neighbours):
+def _cap_neighbours(d2, recv, max_neighbours):
     """Keep mask selecting, per receiver, the `max_neighbours` edges that
     are smallest under (d², sender, shift id). The input is in the
     canonical (receiver, sender, shift id) order, so a stable selection
-    by d² breaks ties in input order, which is the tie keys' order."""
+    by d² breaks ties in input order, which is the tie keys' order (the
+    JAX package's `_cap_neighbours(..., canonical_order=True)`; every
+    caller here and in graphs/neighborlist.py has that order)."""
     if max_neighbours <= 0:
         return np.zeros(len(recv), bool)
     n_edges = len(recv)

@@ -86,7 +86,7 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     use_engine = serving.enabled if serve is None else bool(serve)
     if use_engine:
         trues, preds = _predict_with_engine(model, mcfg, testset, serving,
-                                            neighbor_k, dev)
+                                            neighbor_k, dev, config)
     else:
         forward = make_forward_fn(model, mcfg, serving.precision,
                                   frozen=True)
@@ -189,16 +189,25 @@ def _predict_with_loader(forward, mcfg, testset, all_samples, batch_size,
             [np.concatenate(p) for p in preds])
 
 
-def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device):
+def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
+                         config):
     """Every test sample becomes one serving request; the dispatcher
-    coalesces them into bucketed padded batches."""
+    coalesces them into bucketed padded batches. The failure knobs
+    (max_queue, deadline_ms, breaker_*) stay at their permissive defaults,
+    as in the JAX package's offline run: the whole test split is
+    submitted at once, and a deployment's admission bound or deadline
+    would refuse a good prediction run. With `Serving.structure` the
+    engine gets the full config, so raw-structure clients could share it;
+    the test split's prediction is the same."""
     engine = InferenceEngine(
         model, mcfg, reference_samples=testset,
         max_batch_size=serving.max_batch_size,
         max_wait_ms=serving.max_wait_ms, num_buckets=serving.num_buckets,
         bucket_multiple=serving.bucket_multiple,
         neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
-        compute_dtype=serving.precision, device=device)
+        compute_dtype=serving.precision, breaker_threshold=0,
+        structure_config=config if serving.structure else None,
+        md_skin=serving.md_skin, device=device)
     try:
         engine.warmup()
         results = engine.predict(testset)

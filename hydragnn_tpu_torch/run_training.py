@@ -107,7 +107,7 @@ def check_training_knobs(config) -> None:
          "A4: BaseStack remat"),
         (resolve_fault_plan(tr) is not None,
          "a fault plan (HYDRAGNN_FAULT_PLAN / Training.fault_plan)",
-         "A8: utils/faults.py"),
+         "A5.6: the training fault sites"),
     ]
     for on, what, item in checks:
         if on:

@@ -2,16 +2,8 @@
 (counterpart: hydragnn_tpu/serving/config.py, `resolve_serving`).
 
 Precedence per knob: env var over config block over default, with the
-JAX package's defaults. This slice serves the engine core; the
-failure-semantics, structure, int8, metrics and fleet knobs come with
-ROADMAP item A8. Three of them change what JAX's run_prediction starts,
-so asking for them raises NotImplementedError naming A8 (the config
-block or the env, parsed as the JAX package parses them):
-`metrics_port` > 0 (HYDRAGNN_SERVE_METRICS_PORT: the /metrics server),
-`structure` (HYDRAGNN_SERVE_STRUCTURE: raw-structure serving) and
-`fleet.replicas` > 1 (HYDRAGNN_FLEET_REPLICAS: a replica router).
-`max_queue`, `deadline_ms` and `breaker_*` are left alone: JAX's offline
-run_prediction holds them at their permissive defaults too.
+JAX package's defaults; env values are parsed strictly (a typo warns and
+keeps the config's value).
 
     "Serving": {
         "enabled": false,          # engine path in run_prediction
@@ -19,15 +11,33 @@ run_prediction holds them at their permissive defaults too.
         "max_wait_ms": 5.0,        # batching window for a lone request
         "num_buckets": 0,          # 0 = full capacity ladder
         "bucket_multiple": 64,     # shape rounding
-        "precision": null          # serve-side compute dtype override
+        "max_queue": 0,            # bounded admission queue (0 = unbounded)
+        "deadline_ms": 0.0,        # default per-request deadline (0 = none)
+        "breaker_threshold": 5,    # consecutive batch failures to trip
+        "breaker_reset_s": 30.0,   # open -> half-open probe window
+        "precision": null,         # serve-side compute dtype override
+        "quant_calib_samples": 32, # int8 calibration-set size
+        "metrics_port": 0,         # /healthz + /metrics HTTP port (0 = off)
+        "structure": false,        # raw-structure serving (submit_structure)
+        "md_skin": 0.3             # Verlet skin of trajectory sessions
     }
 
-`precision` (env HYDRAGNN_SERVE_PRECISION, parsed strictly: a typo warns
-and keeps the config's value) takes the spellings of
+The queue, deadline and breaker knobs are the engine's failure
+semantics (serving/engine.py). `structure` (HYDRAGNN_SERVE_STRUCTURE)
+makes run_prediction hand the engine the full config, so clients can
+call `submit_structure` with raw positions; `md_skin` (HYDRAGNN_MD_SKIN,
+cutoff units) is the skin their sessions' neighbour lists use.
+
+`precision` (env HYDRAGNN_SERVE_PRECISION) takes the spellings of
 train/precision.PRECISION_CHOICES: "float32" / "f32" / "fp32" or
 "bfloat16" / "bf16". Unset, the engine inherits the train-side policy
-(HYDRAGNN_PRECISION, then Architecture.dtype). "int8" raises: the int8
-serving tier is ROADMAP A8.
+(HYDRAGNN_PRECISION, then Architecture.dtype).
+
+Three knobs change what JAX's run_prediction starts and are not ported
+yet, so asking for them raises NotImplementedError naming ROADMAP A8:
+`metrics_port` > 0 (the telemetry server), `fleet.replicas` > 1
+(HYDRAGNN_FLEET_REPLICAS: a replica router) and precision "int8" (the
+int8 serving tier).
 """
 from __future__ import annotations
 
@@ -40,13 +50,34 @@ from ..utils.envflags import (env_strict_choice, env_strict_flag,
 
 
 @dataclasses.dataclass(frozen=True)
+class Structure:
+    """One raw-structure request (the `submit_structure` schema):
+    `positions` [N, 3]; `node_features` [N, sum(Dataset.node_features.dim)]
+    in the dataset's layout (only the input columns are read; target
+    columns may be zero-filled); `cell` [3, 3], required under
+    periodic_boundary_conditions; `graph_feats`, accepted and ignored."""
+    positions: Any
+    node_features: Any
+    cell: Optional[Any] = None
+    graph_feats: Optional[Any] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ServingConfig:
     enabled: bool = False
     max_batch_size: int = 32
     max_wait_ms: float = 5.0
     num_buckets: int = 0          # 0 = full ladder (1, 2, 4, ..., max)
     bucket_multiple: int = 64
+    max_queue: int = 0            # 0 = unbounded admission queue
+    deadline_ms: float = 0.0      # 0 = no default per-request deadline
+    breaker_threshold: int = 5    # 0 disables the circuit breaker
+    breaker_reset_s: float = 30.0
     precision: Optional[str] = None  # None = inherit the train-side policy
+    quant_calib_samples: int = 32  # int8 only (refused: ROADMAP A8)
+    metrics_port: int = 0         # > 0 is refused (ROADMAP A8: telemetry)
+    structure: bool = False       # raw-structure serving (submit_structure)
+    md_skin: float = 0.3          # Verlet skin of trajectory sessions
 
 
 def check_serving_precision(precision: Optional[str]) -> None:
@@ -58,21 +89,16 @@ def check_serving_precision(precision: Optional[str]) -> None:
             "serving tier); serve float32 or bfloat16")
 
 
-def check_unported_serving_knobs(block: Dict[str, Any]) -> None:
-    """Raise NotImplementedError naming A8 when the `Serving` block or the
-    env asks for the metrics server, raw-structure serving or a replica
-    fleet (hydragnn_tpu/serving/config.py `resolve_serving`,
-    `resolve_fleet`)."""
+def check_unported_serving_knobs(serving: ServingConfig,
+                                 block: Dict[str, Any]) -> None:
+    """Raise NotImplementedError naming A8 when the resolved knobs ask
+    for the metrics server, or the `Serving` block or the env for a
+    replica fleet (hydragnn_tpu/serving/config.py `resolve_fleet`)."""
     fleet = block.get("fleet", {}) or {}
     knobs = [
-        (env_strict_int("HYDRAGNN_SERVE_METRICS_PORT",
-                        int(block.get("metrics_port", 0) or 0)) > 0,
+        (serving.metrics_port > 0,
          "Serving.metrics_port / HYDRAGNN_SERVE_METRICS_PORT (the /metrics "
          "server)"),
-        (env_strict_flag("HYDRAGNN_SERVE_STRUCTURE",
-                         bool(block.get("structure", False))),
-         "Serving.structure / HYDRAGNN_SERVE_STRUCTURE (raw-structure "
-         "serving)"),
         (env_strict_int("HYDRAGNN_FLEET_REPLICAS",
                         int(fleet.get("replicas", 1) or 1)) > 1,
          "Serving.fleet.replicas / HYDRAGNN_FLEET_REPLICAS > 1 (a replica "
@@ -86,15 +112,25 @@ def check_unported_serving_knobs(block: Dict[str, Any]) -> None:
 
 
 def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
+    """The `Serving` block and the HYDRAGNN_SERVE_* env knobs merged into
+    one ServingConfig; raises for a knob the port does not serve."""
     block = (config or {}).get("Serving", {}) or {}
-    check_unported_serving_knobs(block)
     base = ServingConfig(
         enabled=bool(block.get("enabled", False)),
         max_batch_size=int(block.get("max_batch_size", 32)),
         max_wait_ms=float(block.get("max_wait_ms", 5.0)),
         num_buckets=int(block.get("num_buckets", 0)),
         bucket_multiple=int(block.get("bucket_multiple", 64)),
+        max_queue=int(block.get("max_queue", 0)),
+        deadline_ms=float(block.get("deadline_ms", 0.0)),
+        breaker_threshold=int(block.get("breaker_threshold", 5)),
+        breaker_reset_s=float(block.get("breaker_reset_s", 30.0)),
         precision=canonical_precision(block.get("precision")),
+        quant_calib_samples=int(block.get("quant_calib_samples", 32)
+                                or 32),
+        metrics_port=int(block.get("metrics_port", 0) or 0),
+        structure=bool(block.get("structure", False)),
+        md_skin=float(block.get("md_skin", 0.3)),
     )
     out = ServingConfig(
         enabled=env_strict_flag("HYDRAGNN_SERVE", base.enabled),
@@ -106,8 +142,24 @@ def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
                                    base.num_buckets),
         bucket_multiple=env_strict_int("HYDRAGNN_SERVE_BUCKET_MULTIPLE",
                                        base.bucket_multiple),
+        max_queue=env_strict_int("HYDRAGNN_SERVE_MAX_QUEUE",
+                                 base.max_queue),
+        deadline_ms=env_strict_float("HYDRAGNN_SERVE_DEADLINE_MS",
+                                     base.deadline_ms),
+        breaker_threshold=env_strict_int("HYDRAGNN_SERVE_BREAKER_THRESHOLD",
+                                         base.breaker_threshold),
+        breaker_reset_s=env_strict_float("HYDRAGNN_SERVE_BREAKER_RESET_S",
+                                         base.breaker_reset_s),
         precision=env_strict_choice("HYDRAGNN_SERVE_PRECISION",
                                     PRECISION_CHOICES, base.precision),
+        quant_calib_samples=env_strict_int("HYDRAGNN_QUANT_CALIB_SAMPLES",
+                                           base.quant_calib_samples),
+        metrics_port=env_strict_int("HYDRAGNN_SERVE_METRICS_PORT",
+                                    base.metrics_port),
+        structure=env_strict_flag("HYDRAGNN_SERVE_STRUCTURE",
+                                  base.structure),
+        md_skin=env_strict_float("HYDRAGNN_MD_SKIN", base.md_skin),
     )
+    check_unported_serving_knobs(out, block)
     check_serving_precision(out.precision)
     return out

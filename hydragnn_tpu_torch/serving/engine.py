@@ -1,9 +1,10 @@
-"""Batched inference serving engine, core (counterpart:
+"""Batched inference serving engine (counterpart:
 hydragnn_tpu/serving/engine.py).
 
 * ``bucket_ladder`` — a small deterministic set of padded shapes, one per
   graph-count capacity in {1, 2, 4, ..., max_batch_size}, each sized by
-  ``graphs.packing.choose_budget`` over a reference size histogram.
+  ``graphs.packing.choose_budget`` over a reference size histogram; or an
+  explicit ladder (``buckets=`` with a ``proto_sample`` for the schema).
 * ``InferenceEngine.submit(sample) -> Future`` — requests enter a queue; a
   dispatcher thread coalesces them in arrival order into one padded batch
   (while the next request fits the largest bucket) up to
@@ -38,22 +39,62 @@ the JAX package's bound): every future carries ``parity`` "tolerance"
 and the two tolerances, and ``stats()`` reports ``compute_dtype`` and
 ``parity``.
 
-CUDA graphs (counterpart: the JAX engine's AOT executable per bucket,
-hydragnn_tpu/serving/engine.py:1123-1150, compiled at warm-up,
-:898-912). On the card each bucket's forward (EF: forward and the
-forces' backward) is one CUDA graph: `warmup()` captures every bucket, a
-bucket not captured yet is captured at its first use, and a forward
-collates on the host, copies into the bucket's static batch, replays and
-copies the outputs to the host before the next replay. Forwards hold one
-lock, so captures and replays never overlap (captures run in
+CUDA graphs (counterpart: the JAX engine's AOT executable per bucket).
+On the card each bucket's forward (EF: forward and the forces' backward)
+is one CUDA graph: `warmup()` captures every bucket, a bucket not
+captured yet is captured at its first use, and a forward collates on the
+host, copies into the bucket's static batch, replays and copies the
+outputs to the host before the next replay. Forwards hold one lock, so
+captures, replays and hot swaps never overlap (captures run in
 thread-local mode). `forward_single` replays the same bucket's graph, so
 batched = single holds as above; `capture_ms` holds each bucket's
-capture time (its warm-up included). On the CPU the forward runs eagerly.
+capture time (its warm-up included) and `stats()["captures"]` counts
+them. On the CPU the forward runs eagerly.
 
-A failed batch resolves only its own futures with the error and the
-dispatcher keeps serving. Admission bounds, deadlines, the circuit
-breaker, raw-structure serving, multi-device shards and the fleet hooks
-come with ROADMAP item A8.
+Failure semantics: every accepted future resolves, with a result or an
+error, under any single-batch failure.
+
+* ``max_queue`` > 0 bounds the admission queue: ``submit`` fast-fails
+  with ``QueueFullError`` instead of queueing without bound;
+* ``deadline_ms`` (per submit, or ``default_deadline_ms``) resolves an
+  expired request with ``DeadlineExceededError``, at dequeue and again
+  just before the forward: an expired request never takes a slot;
+* a failed batch resolves only its own futures; ``breaker_threshold``
+  consecutive failures open a circuit breaker that fast-fails
+  (``CircuitOpenError``) for ``breaker_reset_s``, then admits one probe
+  whose outcome closes or re-opens it. ``health()`` reports the state,
+  queue depth and counters. A sticky CUDA error (the device no longer
+  synchronises after a failed batch) ends the dispatcher:
+  ``health()["dispatcher_alive"]`` turns false and every queued and later
+  request fails with it;
+* the ``serving-dispatch`` fault site (utils/faults.py) fires once per
+  executed batch, before collation, so all of this runs deterministically
+  in the tests.
+
+Hot swap. ``swap_variables(variables, version)`` takes a Flax-shaped tree
+(as ``utils/weights.load_jax_variables`` does), refuses a shape or dtype
+mismatch before touching anything, and copies the new values into the
+model's own tensors (and, at bf16, re-casts them into the frozen bf16
+copies) under the forward lock, between replays (at the dispatcher's
+next forward when it holds that lock first): the captured graphs read
+those addresses, so nothing is recaptured. Each batch reads
+``model_version`` under the same lock and every future carries it.
+
+Raw structures. With a ``structure_config`` the engine also takes raw
+positions: ``submit_structure(positions, node_features[, cell])`` builds
+the radius graph and the sample (``build_graph_sample``) on the caller's
+thread and submits it; a trajectory client holds a
+``structure_session()`` whose Verlet-skin neighbour list
+(graphs/neighborlist.py) re-filters step t's candidates at step t+1. The
+edges are bitwise a fresh build's. Futures carry ``.rebuilt`` and
+``.graph_build_ms``; the engine counts ``structure_requests``,
+``nbr_updates`` and ``nbr_rebuilds`` (``health()``, ``stats()``).
+
+Not ported yet: multi-device shards, the fleet hooks (the compile store,
+``serving/fleet.py``), the int8 tier, telemetry (the metrics server, the
+registry's counters and the ``serve.graph_build`` span; the engine's own
+counters carry the same numbers) and ``trajectory_farm`` (ROADMAP A8,
+A10).
 """
 from __future__ import annotations
 
@@ -69,14 +110,19 @@ import torch
 
 from ..graphs.batch import (GraphBatch, GraphSample, collate,
                             neighbor_budget_for_dataset, with_neighbor_format)
+from ..graphs.neighborlist import NeighborList
 from ..graphs.packing import (MAX_GRAPH_SLOTS, PackBudget, choose_budget,
                               sample_sizes)
+from ..preprocess.transforms import build_graph_sample
 from ..train.loss import energy_forces_from_node_head
 from ..train.precision import resolve_precision
 from ..train.step_graphs import GraphContext, capture, fill
 from ..train.train_step import make_forward_fn
 from ..utils.devices import resolve_device
-from .config import check_serving_precision
+from ..utils.faults import fault_point
+from ..utils.weights import (export_jax_variables, load_jax_variables,
+                             variables_signature)
+from .config import Structure, check_serving_precision
 
 _SHUTDOWN = object()
 
@@ -85,6 +131,23 @@ _SHUTDOWN = object()
 # dominated stages of a stack with float32 sums
 SERVE_REDUCED_RTOL = 2.0 ** -5
 SERVE_REDUCED_ATOL = 2.0 ** -5
+
+
+class ServingError(RuntimeError):
+    """Base of the engine's failure-semantics errors."""
+
+
+class QueueFullError(ServingError):
+    """submit() fast-fail: the bounded admission queue is at max_queue."""
+
+
+class DeadlineExceededError(ServingError):
+    """The request's deadline expired before a batch could serve it."""
+
+
+class CircuitOpenError(ServingError):
+    """The circuit breaker is open (consecutive batch failures); requests
+    fast-fail until the probe window."""
 
 
 def bucket_ladder(nodes, edges, max_batch_size: int, num_buckets: int = 0,
@@ -125,14 +188,18 @@ def select_bucket(buckets: Sequence[PackBudget], count: int, tot_n: int,
 
 
 class _Request:
-    __slots__ = ("sample", "future", "n", "e", "t_submit")
+    __slots__ = ("sample", "future", "n", "e", "t_submit", "deadline")
 
-    def __init__(self, sample: GraphSample, future: Future):
+    def __init__(self, sample: GraphSample, future: Future,
+                 deadline_ms: Optional[float] = None):
         self.sample = sample
         self.future = future
         self.n = sample.num_nodes
         self.e = sample.num_edges
         self.t_submit = time.perf_counter()
+        # absolute expiry on t_submit's clock; None or 0: none
+        self.deadline = (self.t_submit + float(deadline_ms) / 1e3
+                         if deadline_ms else None)
 
 
 class InferenceEngine:
@@ -143,25 +210,37 @@ class InferenceEngine:
     `model` is the port's stack with its weights loaded; it is moved to
     `device` (the card unless the caller passes device="cpu") and put in
     eval mode. Bucket shapes and the request schema come from
-    `reference_samples`. Label fields are stripped before the forward.
+    `reference_samples`, or from an explicit `buckets` ladder and a
+    `proto_sample`. Label fields are stripped before the forward.
     `neighbor_format` serves on the dense neighbor layout with width
     `neighbor_k` (default: the reference samples' budget). `ef_forward`
     serves [energy [1], forces [num_nodes, 3]] from a node-level head 0.
-    `compute_dtype` overrides the train-side precision policy."""
+    `compute_dtype` overrides the train-side precision policy.
+    `max_queue`, `default_deadline_ms` and `breaker_threshold` (0 each:
+    off) with `breaker_reset_s` set the failure semantics;
+    `structure_config` (the full config) turns on raw-structure serving,
+    whose sessions use the Verlet skin `md_skin`; `model_version` tags the
+    served weights."""
 
     def __init__(self, model, mcfg, *,
-                 reference_samples: Sequence[GraphSample],
+                 reference_samples: Optional[Sequence[GraphSample]] = None,
+                 buckets: Optional[Sequence[PackBudget]] = None,
+                 proto_sample: Optional[GraphSample] = None,
                  max_batch_size: int = 32, max_wait_ms: float = 5.0,
                  num_buckets: int = 0, bucket_multiple: int = 64,
                  neighbor_format: bool = False,
                  neighbor_k: Optional[int] = None,
                  ef_forward: bool = False,
                  compute_dtype: Optional[str] = None,
+                 max_queue: int = 0,
+                 default_deadline_ms: Optional[float] = None,
+                 breaker_threshold: int = 5,
+                 breaker_reset_s: float = 30.0,
+                 structure_config: Optional[dict] = None,
+                 md_skin: float = 0.3,
+                 model_version: str = "v0",
                  device="cuda"):
         self.device = resolve_device(device)
-        if not reference_samples:
-            raise ValueError("InferenceEngine needs reference_samples (bucket "
-                             "shapes + request schema)")
         self.compute_dtype = resolve_precision(getattr(mcfg, "dtype", None),
                                                compute_dtype)
         check_serving_precision(self.compute_dtype)
@@ -172,23 +251,62 @@ class InferenceEngine:
             self.parity = "tolerance"
             self.parity_rtol = SERVE_REDUCED_RTOL
             self.parity_atol = SERVE_REDUCED_ATOL
-        self.model = model.to(self.device).eval()
-        self._model_fn = make_forward_fn(self.model, mcfg, self.compute_dtype,
-                                         frozen=True)
-        self.mcfg = mcfg
+        self.tier = self.compute_dtype
         self.max_batch_size = max(int(max_batch_size), 1)
         self.max_wait_s = max(float(max_wait_ms), 0.0) / 1e3
-        nodes, edges = sample_sizes(reference_samples)
-        self.buckets: Tuple[PackBudget, ...] = bucket_ladder(
-            nodes, edges, self.max_batch_size, num_buckets, bucket_multiple)
+        self.max_queue = max(int(max_queue), 0)
+        self.default_deadline_ms = (float(default_deadline_ms)
+                                    if default_deadline_ms else None)
+        self.breaker_threshold = max(int(breaker_threshold), 0)
+        self.breaker_reset_s = max(float(breaker_reset_s), 0.0)
+        if buckets is None:
+            if not reference_samples:
+                raise ValueError(
+                    "InferenceEngine needs reference_samples (bucket "
+                    "shapes + request schema) or an explicit buckets "
+                    "ladder with a proto_sample")
+            nodes, edges = sample_sizes(reference_samples)
+            buckets = bucket_ladder(nodes, edges, self.max_batch_size,
+                                    num_buckets, bucket_multiple)
+        self.buckets: Tuple[PackBudget, ...] = tuple(buckets)
+        if not self.buckets:
+            raise ValueError("InferenceEngine: empty bucket ladder")
+        if any(b.n_graph < 2 for b in self.buckets):
+            raise ValueError(
+                "InferenceEngine: every bucket needs n_graph >= 2 (one "
+                "real graph slot + the padding slot, the collate "
+                "convention)")
+        # an explicit ladder may hold fewer graph slots than
+        # max_batch_size: the coalescer never builds a batch that
+        # select_bucket cannot place
         self._fill_cap = min(self.max_batch_size,
                              self.buckets[-1].cap_graphs)
-        self._proto = reference_samples[0]
+        if proto_sample is None and not reference_samples:
+            raise ValueError("InferenceEngine: an explicit buckets ladder "
+                             "needs a proto_sample (the request schema)")
+        self._proto = (proto_sample if proto_sample is not None
+                       else reference_samples[0])
         self.neighbor_k = None
         if neighbor_format:
-            self.neighbor_k = int(
-                neighbor_budget_for_dataset(reference_samples)
-                if neighbor_k is None else neighbor_k)
+            if neighbor_k is None:
+                if not reference_samples:
+                    raise ValueError(
+                        "neighbor_format=True needs an explicit "
+                        "neighbor_k when no reference_samples are given")
+                neighbor_k = neighbor_budget_for_dataset(reference_samples)
+            self.neighbor_k = int(neighbor_k)
+
+        self._structure_cfg = structure_config
+        self.md_skin = float(md_skin)
+        if structure_config is not None:
+            s_arch = structure_config["NeuralNetwork"]["Architecture"]
+            self._structure_pbc = bool(
+                s_arch.get("periodic_boundary_conditions", False))
+            self._structure_radius = float(s_arch.get("radius") or 5.0)
+            self._structure_max_nb = s_arch.get("max_neighbours")
+            self._structure_rot = bool(structure_config["Dataset"].get(
+                "rotational_invariance", False))
+
         self.ef_forward = bool(ef_forward)
         if self.ef_forward:
             if mcfg.heads[0].head_type != "node":
@@ -199,19 +317,56 @@ class InferenceEngine:
             self._response_heads = ["graph", "node"]
         else:
             self._response_heads = [h.head_type for h in mcfg.heads]
+        self.mcfg = mcfg
+        self.model = model.to(self.device).eval()
+        self._model_fn = make_forward_fn(self.model, mcfg, self.compute_dtype,
+                                         frozen=True)
+        # what swap_variables must keep
+        self._signature = variables_signature(export_jax_variables(model))
 
         self._lock = threading.Lock()
         # one forward at a time: a bucket's static batch and outputs are
-        # shared, and a capture needs the card to itself
+        # shared, a capture needs the card to itself, and a hot swap
+        # lands between two forwards
         self._forward_lock = threading.Lock()
         self._graphs = {}          # guarded-by: _forward_lock
-        self.capture_ms = {}       # bucket -> capture ms
+        self.capture_ms = {}       # bucket -> capture ms (written under
+        # _forward_lock)
         self._graph_ctx = None
+        # written under both locks, so a forward (_forward_lock) and a
+        # monitor (_lock) each read it whole
+        self.model_version = str(model_version)
+        self.swap_count = 0  # guarded-by: _lock
+        self._pending_swap = None  # guarded-by: _lock
+        self._swap_lock = threading.Lock()  # one swap at a time
+        self._started_at = time.monotonic()
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False  # guarded-by: _lock
+        self._fatal: Optional[BaseException] = None  # guarded-by: _lock
         self.requests_done = 0  # guarded-by: _lock
         self.batches_run = 0  # guarded-by: _lock
+        self._occupancy_sum = 0.0  # guarded-by: _lock
+        self._real_node_slots = 0  # guarded-by: _lock
+        self._total_node_slots = 0  # guarded-by: _lock
+        self._real_edge_slots = 0  # guarded-by: _lock
+        self._total_edge_slots = 0  # guarded-by: _lock
+        self.max_queue_depth = 0  # guarded-by: _lock
         self._latencies: List[float] = []  # guarded-by: _lock
+        # submit_structure's neighbour-list builds; a session-less submit
+        # is a rebuild
+        self.structure_requests = 0  # guarded-by: _lock
+        self.nbr_updates = 0  # guarded-by: _lock
+        self.nbr_rebuilds = 0  # guarded-by: _lock
+        # the breaker: closed | open | half_open
+        self._breaker_state = "closed"  # guarded-by: _lock
+        self._consec_failures = 0  # guarded-by: _lock
+        self._open_until = 0.0  # guarded-by: _lock, monotonic probe point
+        self.trip_count = 0  # guarded-by: _lock
+        self.probe_count = 0  # guarded-by: _lock, open -> half_open moves
+        self.batch_failures = 0  # guarded-by: _lock
+        self.deadline_expired = 0  # guarded-by: _lock
+        self.queue_rejections = 0  # guarded-by: _lock
+        self.circuit_rejections = 0  # guarded-by: _lock
         self._dispatcher = threading.Thread(target=self._loop,
                                             name="serve-dispatch",
                                             daemon=True)
@@ -219,26 +374,246 @@ class InferenceEngine:
 
     # ------------------------------------------------------------- client API
 
-    def submit(self, sample: GraphSample) -> Future:
+    def submit(self, sample: GraphSample,
+               deadline_ms: Optional[float] = None) -> Future:
         """Enqueue one request; returns a Future resolving to the per-head
-        outputs (or raising the request's failure). Thread-safe."""
+        outputs (or raising the request's failure). Thread-safe.
+
+        Raises here, creating no future: `QueueFullError` when the bounded
+        queue is at max_queue, `CircuitOpenError` while the breaker is
+        open or its probe is in flight, RuntimeError after shutdown or
+        the dispatcher's death. `deadline_ms` (default: the engine's
+        default_deadline_ms) bounds the wait; an expired request resolves
+        with `DeadlineExceededError`."""
         fut: Future = Future()
         err = self._validate(sample)
         if err is not None:
             fut.set_exception(err)
             return fut
-        # the closed check and the put share the lock that shutdown()
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        # the admission checks and the put share the lock that shutdown()
         # flips _closed under, so no request lands behind the sentinel
         with self._lock:
-            if self._closed:
-                raise RuntimeError("InferenceEngine is shut down")
-            self._queue.put(_Request(sample, fut))
+            self._admission_check()
+            if self._breaker_state == "open":
+                # the window has elapsed (the check passed): this request
+                # is the probe
+                self._breaker_state = "half_open"
+                self.probe_count += 1
+            self._queue.put(_Request(sample, fut, deadline_ms=deadline_ms))
+            depth = self._queue.qsize()
+            if depth > self.max_queue_depth:
+                self.max_queue_depth = depth
         return fut
+
+    # holds-lock: _lock. Read-only but for the rejection counters: the
+    # open -> half_open move stays with submit(), so the structure
+    # precheck cannot take the probe its own submit would then refuse.
+    def _admission_check(self) -> None:
+        if self._closed:
+            raise RuntimeError("InferenceEngine is shut down")
+        if self._fatal is not None:
+            raise RuntimeError(
+                "InferenceEngine dispatcher died") from self._fatal
+        if self._breaker_state == "half_open":
+            self.circuit_rejections += 1
+            raise CircuitOpenError(
+                "circuit half-open: probe in flight; retry shortly")
+        if self._breaker_state == "open":
+            now = time.monotonic()
+            if now < self._open_until:
+                self.circuit_rejections += 1
+                raise CircuitOpenError(
+                    f"circuit open after {self.trip_count} trip(s) "
+                    f"({self._consec_failures} consecutive batch "
+                    f"failures); probing in {self._open_until - now:.2f}s")
+        if self.max_queue and self._queue.qsize() >= self.max_queue:
+            self.queue_rejections += 1
+            raise QueueFullError(
+                f"admission queue full ({self.max_queue} pending); "
+                "retry with backoff or raise Serving.max_queue")
+
+    def _require_structure(self):
+        if self._structure_cfg is None:
+            raise RuntimeError(
+                "raw-structure serving is off — construct the "
+                "InferenceEngine with structure_config=<config dict> "
+                "(Serving.structure / HYDRAGNN_SERVE_STRUCTURE wires it "
+                "through run_prediction)")
+
+    def structure_session(self, skin: Optional[float] = None
+                          ) -> "StructureSession":
+        """A trajectory client's handle: submit_structure calls carrying
+        it share one Verlet-skin NeighborList (cutoff, max_neighbours and
+        PBC from the structure config, skin from `md_skin` unless given).
+        One session per sequential client: it is not thread-safe."""
+        self._require_structure()
+        if self._structure_rot:
+            raise ValueError(
+                "trajectory sessions need Dataset.rotational_invariance "
+                "off — the incremental neighbor list tracks displacements "
+                "in the raw frame, per-step rotation normalization would "
+                "invalidate them")
+        return StructureSession(NeighborList(
+            self._structure_radius,
+            self.md_skin if skin is None else float(skin),
+            max_neighbours=self._structure_max_nb,
+            pbc=(True, True, True) if self._structure_pbc else None))
+
+    def trajectory_farm(self, **_):
+        """The device-resident MD farm: not ported yet."""
+        raise NotImplementedError(
+            "InferenceEngine.trajectory_farm is not ported to "
+            "hydragnn_tpu_torch yet (ROADMAP A10: md/farm.py)")
+
+    def submit_structure(self, positions, node_features=None, cell=None,
+                         graph_feats=None,
+                         session: Optional["StructureSession"] = None,
+                         deadline_ms: Optional[float] = None) -> Future:
+        """Raw-structure request: radius graph -> `build_graph_sample` ->
+        the batched forward. `positions` may be a `serving.config.
+        Structure` (explicit arguments override its fields). Without a
+        `session` every call builds the graph fresh; with one, its
+        neighbour list re-filters the candidate cache and rebuilds only
+        past skin/2; the edges are the fresh build's either way. Runs on
+        the caller's thread; the future carries `.rebuilt` and
+        `.graph_build_ms` beside `.bucket`."""
+        self._require_structure()
+        # shed the host work too: fast-fail an open breaker, a full queue
+        # or a shutdown before the neighbour update (submit() below stays
+        # the authoritative check)
+        with self._lock:
+            self._admission_check()
+        if isinstance(positions, Structure):
+            struct = positions
+            positions = struct.positions
+            node_features = (struct.node_features if node_features is None
+                             else node_features)
+            cell = struct.cell if cell is None else cell
+            graph_feats = (struct.graph_feats if graph_feats is None
+                           else graph_feats)
+        if node_features is None:
+            raise ValueError(
+                "submit_structure needs node_features (the "
+                "Dataset.node_features layout; target columns may be "
+                "zero-filled)")
+        t0 = time.perf_counter()
+        pos = np.asarray(positions, dtype=np.float64)
+        edges = None
+        rebuilt = True
+        if session is not None:
+            send, recv, shifts, rebuilt = session.nlist.update(
+                pos, cell=cell if self._structure_pbc else None)
+            edges = (send, recv, shifts)
+        sample = build_graph_sample(
+            np.asarray(node_features, dtype=np.float32), pos,
+            self._structure_cfg, graph_feats=graph_feats, cell=cell,
+            edges=edges, with_targets=False)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self.structure_requests += 1
+            self.nbr_updates += 1
+            if rebuilt:
+                self.nbr_rebuilds += 1
+        fut = self.submit(sample, deadline_ms=deadline_ms)
+        fut.rebuilt = bool(rebuilt)
+        fut.graph_build_ms = build_ms
+        return fut
+
+    def health(self) -> dict:
+        """Breaker state, queue depth, the failure and structure counters,
+        dispatcher liveness, model version and uptime. Counters only."""
+        with self._lock:
+            return {
+                "state": ("shutdown" if self._closed
+                          else self._breaker_state),
+                "model_version": self.model_version,
+                "tier": self.tier,
+                "uptime_s": time.monotonic() - self._started_at,
+                "swap_count": self.swap_count,
+                "queue_depth": self._queue.qsize(),
+                "trip_count": self.trip_count,
+                "probe_count": self.probe_count,
+                # an open breaker whose window elapsed admits the next
+                # submit as its probe
+                "breaker_probe_due": (
+                    self._breaker_state == "open"
+                    and time.monotonic() >= self._open_until),
+                "consecutive_failures": self._consec_failures,
+                "batch_failures": self.batch_failures,
+                "deadline_expired": self.deadline_expired,
+                "queue_rejections": self.queue_rejections,
+                "circuit_rejections": self.circuit_rejections,
+                "requests_done": self.requests_done,
+                "structure_requests": self.structure_requests,
+                "nbr_updates": self.nbr_updates,
+                "nbr_rebuilds": self.nbr_rebuilds,
+                "nbr_rebuild_fraction": (
+                    self.nbr_rebuilds / self.nbr_updates
+                    if self.nbr_updates else 0.0),
+                "dispatcher_alive": self._dispatcher.is_alive(),
+            }
 
     def predict(self, samples: Sequence[GraphSample], timeout=None):
         """Submit all samples, wait, return the results in order."""
         futs = [self.submit(s) for s in samples]
         return [f.result(timeout=timeout) for f in futs]
+
+    def swap_variables(self, variables, version: str) -> str:
+        """Hot swap: serve `variables` (a Flax `{"params",
+        "batch_stats"}` tree, as `utils/weights.load_jax_variables` takes
+        it) tagged `version` from the next batch on; returns the version
+        it replaced. A batch serves the old weights or the new, never a
+        mix. The tree's paths, shapes and dtypes must be the served ones
+        (ValueError before any change); the `swap-fail` fault site fires
+        first, so an injected failure leaves the old version serving."""
+        fault_point("swap-fail")
+        new_vars = {"params": variables["params"],
+                    "batch_stats": variables.get("batch_stats", {})}
+        if variables_signature(new_vars) != self._signature:
+            raise ValueError(
+                "swap_variables: the new state's tree/shapes/dtypes do "
+                "not match the serving state — the captured programs are "
+                "shape-specialized; rebuild the engine for an "
+                "architecture change instead of hot-swapping it")
+        state = load_jax_variables(new_vars)
+        with self._swap_lock:
+            old_version = self.model_version
+            with self._lock:
+                self._pending_swap = (state, str(version))
+            # Python's locks are not fair: under load the dispatcher
+            # takes the forward lock first, and its next forward applies
+            # the pending swap; else this does
+            with self._forward_lock:
+                self._apply_swap()
+        return old_version
+
+    # holds-lock: _forward_lock
+    def _apply_swap(self) -> None:
+        """Copy a pending swap's weights into the model's tensors (and the
+        frozen bf16 copies), in place: the captured graphs read their
+        storage."""
+        if self._pending_swap is None:
+            return
+        with self._lock:
+            (state, version), self._pending_swap = self._pending_swap, None
+        frozen = getattr(self._model_fn, "frozen_variables", None)
+        with torch.no_grad():
+            for name, t in self.model.state_dict().items():
+                t.copy_(state[name])
+            if frozen is not None:
+                for name, t in list(self.model.named_parameters()) + \
+                        list(self.model.named_buffers()):
+                    frozen[name].copy_(t.to(frozen[name].dtype))
+        with self._lock:
+            self.model_version = version
+            self.swap_count += 1
+
+    def latency_snapshot(self) -> List[float]:
+        """Raw request latencies (seconds) since the last reset."""
+        with self._lock:
+            return list(self._latencies)
 
     def forward_single(self, sample: GraphSample,
                        bucket: Optional[PackBudget] = None):
@@ -251,7 +626,8 @@ class InferenceEngine:
             bucket = select_bucket(self.buckets, 1, sample.num_nodes,
                                    sample.num_edges)
         req = _Request(sample, Future())
-        return self._unpad([req], bucket, self._forward([req], bucket))[0]
+        outs, _ = self._forward([req], bucket)
+        return self._unpad([req], bucket, outs)[0]
 
     def warmup(self) -> int:
         """Run one forward per bucket (on the card: build the kernels and
@@ -278,21 +654,64 @@ class InferenceEngine:
         return False
 
     def reset_stats(self):
+        """Zero the service counters (the graphs and the failure
+        counters stay)."""
         with self._lock:
             self.requests_done = 0
             self.batches_run = 0
+            self._occupancy_sum = 0.0
+            self._real_node_slots = 0
+            self._total_node_slots = 0
+            self._real_edge_slots = 0
+            self._total_edge_slots = 0
+            self.max_queue_depth = 0
             self._latencies = []
+            self.structure_requests = 0
+            self.nbr_updates = 0
+            self.nbr_rebuilds = 0
 
     def stats(self) -> dict:
-        """Requests and batches served, the request-latency percentiles
-        (submit to result, milliseconds), the compute dtype and the parity
-        contract."""
+        """Service counters: requests and batches, batch occupancy (real
+        graphs over the chosen buckets' graph slots), padding fractions
+        over the node and edge slots run, the failure and structure
+        counters, the graphs captured, the compute dtype and parity, and
+        the request-latency percentiles (submit to result, ms). The
+        counters are read under the lock, the percentiles computed
+        outside it."""
         with self._lock:
             lat = np.asarray(self._latencies, np.float64)
-            out = {"requests": self.requests_done,
-                   "batches": self.batches_run,
-                   "compute_dtype": self.compute_dtype,
-                   "parity": self.parity}
+            out = {
+                "requests": self.requests_done,
+                "batches": self.batches_run,
+                "batch_occupancy": (self._occupancy_sum / self.batches_run
+                                    if self.batches_run else 0.0),
+                "padding_frac_nodes": (
+                    1.0 - self._real_node_slots / self._total_node_slots
+                    if self._total_node_slots else 0.0),
+                "padding_frac_edges": (
+                    1.0 - self._real_edge_slots / self._total_edge_slots
+                    if self._total_edge_slots else 0.0),
+                "max_queue_depth": self.max_queue_depth,
+                "captures": len(self.capture_ms),
+                "num_buckets": len(self.buckets),
+                "compute_dtype": self.compute_dtype,
+                "parity": self.parity,
+                "tier": self.tier,
+                "model_version": self.model_version,
+                "swap_count": self.swap_count,
+                "probe_count": self.probe_count,
+                "batch_failures": self.batch_failures,
+                "deadline_expired": self.deadline_expired,
+                "queue_rejections": self.queue_rejections,
+                "circuit_rejections": self.circuit_rejections,
+                "trip_count": self.trip_count,
+                "structure_requests": self.structure_requests,
+                "nbr_updates": self.nbr_updates,
+                "nbr_rebuilds": self.nbr_rebuilds,
+                "nbr_rebuild_fraction": (
+                    self.nbr_rebuilds / self.nbr_updates
+                    if self.nbr_updates else 0.0),
+            }
         for q in (50, 95, 99):
             out[f"p{q}_ms"] = (float(np.percentile(lat, q) * 1e3)
                                if lat.size else 0.0)
@@ -319,6 +738,11 @@ class InferenceEngine:
             return ValueError(
                 f"request feature width {sample.x.shape[1]} != engine "
                 f"schema width {p.x.shape[1]}")
+        if (p.edge_attr is not None
+                and sample.edge_attr.shape[1] != p.edge_attr.shape[1]):
+            return ValueError(
+                f"request edge_attr width {sample.edge_attr.shape[1]} != "
+                f"engine schema width {p.edge_attr.shape[1]}")
         return None
 
     def _collate_bucket(self, samples: List[GraphSample],
@@ -340,19 +764,22 @@ class InferenceEngine:
             outputs, _ = self._model_fn(batch)
         return list(outputs)
 
-    def _forward(self, reqs: List[_Request],
-                 bucket: PackBudget) -> List[np.ndarray]:
+    def _forward(self, reqs: List[_Request], bucket: PackBudget
+                 ) -> Tuple[List[np.ndarray], str]:
+        """(outputs, the model version that computed them)."""
         batch = self._collate_bucket([r.sample for r in reqs], bucket)
-        if self.device.type == "cpu":
-            return [o.numpy() for o in self._run(batch)]
         with self._forward_lock:
+            self._apply_swap()
+            version = self.model_version
+            if self.device.type == "cpu":
+                return [o.numpy() for o in self._run(batch)], version
             cap = self._graphs.get(bucket)
             if cap is None:
                 cap = self._graphs[bucket] = self._capture(bucket, batch)
             else:
                 fill(cap.inputs, batch)
             cap.replay()
-            return [o.cpu().numpy() for o in cap.outputs]
+            return [o.cpu().numpy() for o in cap.outputs], version
 
     def _capture(self, bucket: PackBudget, batch: GraphBatch):
         """The bucket's graph, captured from a forward of `batch` (the
@@ -384,8 +811,59 @@ class InferenceEngine:
             no += req.n
         return results
 
+    def _fail_expired(self, req: _Request) -> None:
+        with self._lock:
+            self.deadline_expired += 1
+        if not req.future.done():
+            req.future.set_exception(DeadlineExceededError(
+                f"deadline expired after "
+                f"{(time.perf_counter() - req.t_submit) * 1e3:.1f} ms "
+                "in queue"))
+
+    def _record_batch_failure(self) -> None:
+        with self._lock:
+            self.batch_failures += 1
+            self._consec_failures += 1
+            trip = (self._breaker_state == "half_open"
+                    or (self._breaker_state == "closed"
+                        and self.breaker_threshold > 0
+                        and self._consec_failures >= self.breaker_threshold))
+            if trip:
+                self._breaker_state = "open"
+                self._open_until = time.monotonic() + self.breaker_reset_s
+                self.trip_count += 1
+
+    def _record_batch_success(self) -> None:
+        with self._lock:
+            self._consec_failures = 0
+            self._breaker_state = "closed"
+
+    def _check_device(self) -> None:
+        """After a failed batch: raise if the card no longer synchronises
+        (a sticky CUDA error, which ends the dispatcher)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def _execute(self, reqs: List[_Request]):
+        # requests that expired while queued or coalescing resolve here
+        # and take no slot in the batch
+        now = time.perf_counter()
+        live = []
+        for r in reqs:
+            if r.deadline is not None and now > r.deadline:
+                self._fail_expired(r)
+            else:
+                live.append(r)
+        reqs = live
+        if not reqs:
+            with self._lock:
+                if self._breaker_state == "half_open":
+                    # the probe expired unexecuted: re-open, so the next
+                    # submit probes
+                    self._breaker_state = "open"
+            return
         try:
+            fault_point("serving-dispatch")
             bucket = select_bucket(self.buckets, len(reqs),
                                    sum(r.n for r in reqs),
                                    sum(r.e for r in reqs))
@@ -393,30 +871,45 @@ class InferenceEngine:
                 raise RuntimeError(
                     f"internal error: a coalesced batch of {len(reqs)} "
                     "requests fits no bucket")
-            results = self._unpad(reqs, bucket, self._forward(reqs, bucket))
-            done = time.perf_counter()
-            with self._lock:
-                self.batches_run += 1
-                self.requests_done += len(reqs)
-                self._latencies.extend(done - r.t_submit for r in reqs)
-            for req, res in zip(reqs, results):
-                req.future.bucket = bucket
-                req.future.parity = self.parity
-                req.future.parity_rtol = self.parity_rtol
-                req.future.parity_atol = self.parity_atol
-                req.future.set_result(res)
+            outs, version = self._forward(reqs, bucket)
+            results = self._unpad(reqs, bucket, outs)
         except Exception as e:  # noqa: BLE001 — must reach the callers
-            # a failed batch resolves only its own futures; the
-            # dispatcher keeps serving
+            # a failed batch resolves only its own futures; the breaker
+            # decides whether to keep admitting
+            self._record_batch_failure()
             for req in reqs:
                 if not req.future.done():
                     req.future.set_exception(e)
+            self._check_device()
+            return
+        self._record_batch_success()
+        done = time.perf_counter()
+        tot_n = sum(r.n for r in reqs)
+        tot_e = sum(r.e for r in reqs)
+        with self._lock:
+            self.batches_run += 1
+            self.requests_done += len(reqs)
+            self._occupancy_sum += len(reqs) / bucket.cap_graphs
+            self._real_node_slots += tot_n
+            self._real_edge_slots += tot_e
+            self._total_node_slots += bucket.n_node
+            self._total_edge_slots += bucket.n_edge
+            self._latencies.extend(done - r.t_submit for r in reqs)
+        for req, res in zip(reqs, results):
+            req.future.bucket = bucket
+            req.future.parity = self.parity
+            req.future.parity_rtol = self.parity_rtol
+            req.future.parity_atol = self.parity_atol
+            req.future.model_version = version
+            req.future.tier = self.tier
+            req.future.set_result(res)
 
     def _coalesce(self, first: _Request, wait: bool = True):
         """Greedy arrival-order coalescing: grow the batch while the next
         request fits the largest bucket's node/edge budget and graph
         capacity; flush at max_batch_size requests or max_wait_ms after
-        `first` was dequeued. Returns (requests, leftover_or_sentinel)."""
+        `first` was dequeued. An expired request met on the way resolves
+        and is skipped. Returns (requests, leftover_or_sentinel)."""
         big = self.buckets[-1]
         reqs = [first]
         rem_n = big.cap_nodes - first.n
@@ -430,7 +923,14 @@ class InferenceEngine:
                        else self._queue.get(timeout=timeout))
             except queue.Empty:
                 break
-            if nxt is _SHUTDOWN or nxt.n > rem_n or nxt.e > rem_e:
+            if nxt is _SHUTDOWN:
+                leftover = nxt
+                break
+            if (nxt.deadline is not None
+                    and time.perf_counter() > nxt.deadline):
+                self._fail_expired(nxt)
+                continue
+            if nxt.n > rem_n or nxt.e > rem_e:
                 leftover = nxt
                 break
             reqs.append(nxt)
@@ -438,27 +938,91 @@ class InferenceEngine:
             rem_e -= nxt.e
         return reqs, leftover
 
+    def _fast_fail(self, req: _Request) -> bool:
+        """Resolve with an error (True) a dequeued request that must not
+        enter a batch: an expired deadline, or a request queued behind an
+        open breaker. Past the probe window the breaker turns half-open
+        and the request goes through as the probe."""
+        if req.deadline is not None and time.perf_counter() > req.deadline:
+            self._fail_expired(req)
+            with self._lock:
+                if self._breaker_state == "half_open":
+                    # the probe expired unexecuted: re-open, or half_open
+                    # would refuse everyone for good
+                    self._breaker_state = "open"
+            return True
+        err = None
+        with self._lock:
+            if self._breaker_state == "open":
+                if time.monotonic() < self._open_until:
+                    self.circuit_rejections += 1
+                    err = CircuitOpenError(
+                        f"circuit open after {self.trip_count} trip(s); "
+                        "request was queued before the trip")
+                else:
+                    self._breaker_state = "half_open"
+                    self.probe_count += 1
+        if err is None:
+            return False
+        if not req.future.done():
+            req.future.set_exception(err)
+        return True
+
     def _loop(self):
         pending = None
-        while True:
-            if pending is None:
-                req = self._queue.get()
-            else:
-                req, pending = pending, None
-            if req is _SHUTDOWN:
-                break
-            reqs, pending = self._coalesce(req)
-            self._execute(reqs)
-        # drain what is still queued: a shutdown never leaves a caller's
-        # future hanging
-        while True:
-            try:
-                req = self._queue.get_nowait()
-            except queue.Empty:
-                break
-            if req is _SHUTDOWN:
-                continue
-            reqs, leftover = self._coalesce(req, wait=False)
-            self._execute(reqs)
-            if leftover is not None and leftover is not _SHUTDOWN:
-                self._queue.put(leftover)
+        try:
+            while True:
+                if pending is None:
+                    req = self._queue.get()
+                else:
+                    req, pending = pending, None
+                if req is _SHUTDOWN:
+                    break
+                if self._fast_fail(req):
+                    continue
+                reqs, pending = self._coalesce(req)
+                self._execute(reqs)
+        except Exception as e:  # noqa: BLE001 — recorded for every caller
+            with self._lock:
+                self._fatal = e
+        finally:
+            # drain what is still queued: a shutdown, or the dispatcher's
+            # death, never leaves a caller's future hanging
+            with self._lock:
+                fatal = self._fatal
+            while True:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                if req is _SHUTDOWN:
+                    continue
+                if fatal is not None:
+                    if not req.future.done():
+                        req.future.set_exception(fatal)
+                    continue
+                reqs, leftover = self._coalesce(req, wait=False)
+                try:
+                    self._execute(reqs)
+                except Exception as e:  # noqa: BLE001 — a sticky error
+                    with self._lock:
+                        self._fatal = fatal = e
+                if leftover is not None and leftover is not _SHUTDOWN:
+                    self._queue.put(leftover)
+
+
+class StructureSession:
+    """One trajectory client's raw-structure handle: the Verlet-skin
+    NeighborList its `submit_structure` calls share. From
+    `InferenceEngine.structure_session()`; use from one client at a
+    time."""
+
+    __slots__ = ("nlist",)
+
+    def __init__(self, nlist: NeighborList):
+        self.nlist = nlist
+
+    @property
+    def rebuild_fraction(self) -> float:
+        """Rebuilds over updates for this trajectory."""
+        return self.nlist.rebuild_fraction

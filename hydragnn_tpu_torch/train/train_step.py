@@ -195,7 +195,9 @@ def make_forward_fn(model, cfg: ModelConfig = None, compute_dtype=None,
     at float32). In training mode the BatchNorm running statistics the
     bf16 forward updates are written back to the model's float32
     buffers. `frozen` casts the weights once, here, for a caller whose
-    weights never change (the serving engine)."""
+    weights change only by copying new values into the same tensors (the
+    serving engine's hot swap), which then re-casts them into the same
+    buffers, `forward.frozen_variables`."""
     cdtype = _resolve_compute_dtype(cfg, compute_dtype)
     if cdtype == torch.float32:
         return model
@@ -212,6 +214,7 @@ def make_forward_fn(model, cfg: ModelConfig = None, compute_dtype=None,
                     buf.copy_(variables[name])
         return _to_f32(outputs), _to_f32(outputs_var)
 
+    forward.frozen_variables = frozen_vars
     return forward
 
 

@@ -22,7 +22,7 @@ Best-validation saves made during training go through
 `make_async_best_checkpoint_fn`: the state is copied to the host at the
 call, and one writer thread writes the files and commits them in order;
 `wait_for_checkpoints` drains it. The JAX package's `checkpoint-write`
-fault site belongs to ROADMAP A8 (utils/faults.py) and is not here.
+fault site is not wired here yet (ROADMAP A5.6).
 """
 from __future__ import annotations
 

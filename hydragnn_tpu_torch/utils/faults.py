@@ -1,20 +1,31 @@
-"""The fault plan's resolution (counterpart: hydragnn_tpu/utils/faults.py,
-`parse_fault_plan` and `resolve_fault_plan`, whose grammar and precedence
-this copy keeps). The port injects no faults yet (ROADMAP A8):
-`run_training` refuses a run for which a plan resolves, and only then.
+"""Deterministic fault injection (counterpart: hydragnn_tpu/utils/faults.py,
+whose grammar, precedence, per-site counters and raise this copy keeps).
+
+Named failure sites fire at exact invocation indices, so a recovery path
+runs in the tests deterministically. The serving engine consults the
+`serving-dispatch` site once per executed batch and the `swap-fail` site
+once per `swap_variables`. The training sites (`forward-step`,
+`checkpoint-write`, `loader-fetch`) are not wired in the port yet:
+`run_training` refuses a run for which a plan resolves (ROADMAP A5.6).
 
 Plan grammar (HYDRAGNN_FAULT_PLAN env / Training.fault_plan)::
 
     plan  := entry (';' entry)*
     entry := site '@' index (',' index)*
 
-with `site` one of `SITES` and `index` a non-negative integer.
+with `site` one of `SITES` and `index` a non-negative integer, the 0-based
+invocation count of that site. Each site keeps its own counter per
+installed plan, so a plan is a pure function of the call sequence.
+Faults raise `InjectedFault`; `loader-fetch` raises
+`InjectedTransientIOError`, an OSError.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
-from typing import Dict, FrozenSet, Optional
+import threading
+from typing import Dict, FrozenSet, List, Optional, Tuple
 
 from .envflags import env_str
 
@@ -24,9 +35,58 @@ SITES = ("checkpoint-write", "loader-fetch", "forward-step",
          "rank-kill", "rank-hang", "rank-spawn-fail")
 
 
-def parse_fault_plan(spec: str) -> Dict[str, FrozenSet[int]]:
-    """{site: invocation indices} of a plan; ValueError on a malformed
-    entry, an unknown site or an empty plan."""
+class InjectedFault(RuntimeError):
+    """A deterministic failure fired by the active FaultPlan."""
+
+
+class InjectedTransientIOError(InjectedFault, OSError):
+    """Injected at the loader-fetch site: transient I/O to a retry layer."""
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """Named failure sites firing at fixed invocation indices.
+
+    `fault_point(site)` increments the site's counter and raises when the
+    current index is listed. Counters are per plan (installing a plan
+    resets them) and thread-safe: serving-dispatch fires on the
+    dispatcher thread."""
+
+    injections: Dict[str, FrozenSet[int]]
+
+    def __post_init__(self):
+        self._counts: Dict[str, int] = {s: 0 for s in self.injections}
+        self._fired: List[Tuple[str, int]] = []
+        self._lock = threading.Lock()
+
+    def fault_point(self, site: str) -> None:
+        hits = self.injections.get(site)
+        if hits is None:
+            return
+        with self._lock:
+            idx = self._counts[site]
+            self._counts[site] = idx + 1
+            fire = idx in hits
+            if fire:
+                self._fired.append((site, idx))
+        if fire:
+            if site == "loader-fetch":
+                raise InjectedTransientIOError(
+                    f"injected fault: {site}@{idx}")
+            raise InjectedFault(f"injected fault: {site}@{idx}")
+
+    def counts(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def fired(self) -> List[Tuple[str, int]]:
+        with self._lock:
+            return list(self._fired)
+
+
+def parse_fault_plan(spec: str) -> FaultPlan:
+    """The plan of `spec`; ValueError on a malformed entry, an unknown
+    site or an empty plan."""
     injections: Dict[str, FrozenSet[int]] = {}
     for entry in spec.split(";"):
         entry = entry.strip()
@@ -53,10 +113,10 @@ def parse_fault_plan(spec: str) -> Dict[str, FrozenSet[int]]:
             frozenset(idxs)
     if not injections:
         raise ValueError("fault plan is empty")
-    return injections
+    return FaultPlan(injections)
 
 
-def resolve_fault_plan(train_cfg=None) -> Optional[Dict[str, FrozenSet[int]]]:
+def resolve_fault_plan(train_cfg=None) -> Optional[FaultPlan]:
     """HYDRAGNN_FAULT_PLAN over Training.fault_plan; None when neither
     sets a plan. The env set but empty masks the config's plan. A
     malformed spec warns and gives None: a typo injects nothing."""
@@ -75,3 +135,27 @@ def resolve_fault_plan(train_cfg=None) -> Optional[Dict[str, FrozenSet[int]]]:
             "%s=%r is not a valid fault plan (%s); injecting nothing",
             origin, spec, exc)
         return None
+
+
+_ACTIVE: Optional[FaultPlan] = None
+
+
+def install_fault_plan(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
+    """Set (or clear, with None) the process-wide active plan; returns it.
+    Its counters start fresh."""
+    global _ACTIVE
+    if plan is not None:
+        plan.__post_init__()
+    _ACTIVE = plan
+    return plan
+
+
+def active_fault_plan() -> Optional[FaultPlan]:
+    return _ACTIVE
+
+
+def fault_point(site: str) -> None:
+    """The hook at a site: a no-op unless a plan is installed."""
+    plan = _ACTIVE
+    if plan is not None:
+        plan.fault_point(site)

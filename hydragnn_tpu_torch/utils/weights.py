@@ -68,6 +68,15 @@ def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     return state
 
 
+def variables_signature(variables: Mapping) -> Dict[Tuple[str, ...], Tuple]:
+    """{(collection, *path): (shape, dtype)} over a Flax tree's `params`
+    and `batch_stats`: what a hot swap must keep (the serving engine's
+    `swap_variables`)."""
+    return {(coll,) + path: (arr.shape, arr.dtype)
+            for coll in ("params", "batch_stats")
+            for path, arr in _walk(variables.get(coll, {}) or {})}
+
+
 def export_jax_variables(model) -> Dict[str, Dict]:
     """The Flax `{"params", "batch_stats"}` tree (nested dicts of float32
     numpy arrays) of a model's state dict, or of a `TrainState`'s:
@@ -87,7 +96,7 @@ def export_jax_variables(model) -> Dict[str, Dict]:
         node = tree[coll]
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr, order="C")  # keeps a 0-d leaf 0-d
     return tree
 
 

@@ -1590,7 +1590,7 @@ def test_engine_bucket_graphs_equal_the_eager_forward(cuda_device, kind):
             batch = engine._collate_bucket(data[:1], bucket)
             cap = engine._graphs[bucket]
             tk.reset_launch_counts()
-            got = engine._forward([engine_request(data[0])], bucket)
+            got, _ = engine._forward([engine_request(data[0])], bucket)
             assert tk.launch_counts() == cap.launches
             assert sum(cap.launches.values()) > 0
             want = [o.detach().cpu().numpy()
@@ -1885,3 +1885,163 @@ def test_new_models_card_matches_cpu(cuda_device, model_type, dense):
             state, batch.to(dev))
         assert np.isfinite(float(m["loss"]))
         assert float(m["nonfinite_steps"]) == 0.0
+
+
+# ------------------------------------- serving: faults, swap, structures --
+# The engine's failure semantics, hot swap and raw-structure serving with
+# its buckets captured as CUDA graphs: a swap copies into the tensors the
+# graphs read (nothing is recaptured), a batch that fails after its
+# static batch was filled leaves the next batch on the same bucket
+# bitwise `forward_single`, and an MD session serves every step from the
+# one bucket captured at warm-up.
+
+def _lj_engine_parts(dev, seed):
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import lj_configurations
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    data = lj_configurations(24, seed=2)
+    with open(ROOT / "examples/LennardJones/LJ.json") as fh:
+        cfg = json.load(fh)
+    cfg = tcfg.update_config(cfg, data[:16], data[16:20], data[20:])
+    mcfg = tcfg.build_model_config(cfg)
+
+    def model_for(variables):
+        model = create_model(mcfg, device=dev)
+        model.load_state_dict(load_jax_variables(variables))
+        return model
+
+    cpu_model = create_model(mcfg, device="cpu")
+    return (data, mcfg, model_for, random_flax_variables(cpu_model, seed),
+            random_flax_variables(cpu_model, seed + 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_swap_under_captured_graphs(cuda_device, dtype):
+    """swap_variables mid-stream: the results after it equal a fresh
+    engine's on the new weights, bucket for bucket, bitwise (at bf16 the
+    frozen bf16 copies are re-cast in place); each future carries its
+    version; no bucket is recaptured; a mismatched tree raises first."""
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    data, mcfg, model_for, v0, v1 = _lj_engine_parts(cuda_device, 5)
+    kw = dict(reference_samples=data, max_batch_size=8, max_wait_ms=20.0,
+              ef_forward=True, compute_dtype=dtype, device=cuda_device)
+    with InferenceEngine(model_for(v0), mcfg, model_version="a", **kw) as eng, \
+            InferenceEngine(model_for(v1), mcfg, **kw) as fresh:
+        eng.warmup()
+        captured = dict(eng.capture_ms)
+        before = [eng.submit(s) for s in data]
+        [f.result(timeout=120) for f in before]
+        bad = {"params": {"nope": {"kernel": np.zeros((2, 2), np.float32)}}}
+        with pytest.raises(ValueError, match="swap_variables"):
+            eng.swap_variables(bad, "b")
+        assert eng.swap_variables(v1, "b") == "a"
+        after = [eng.submit(s) for s in data]
+        for s, f in zip(data, after):
+            res = f.result(timeout=120)
+            assert f.model_version == "b"
+            want = fresh.forward_single(s, bucket=f.bucket)
+            for a, b in zip(res, want):
+                np.testing.assert_array_equal(a, b)
+        assert all(f.model_version == "a" for f in before)
+        assert eng.capture_ms == captured
+        assert eng.stats()["captures"] == len(eng.buckets)
+
+
+@pytest.mark.cuda
+def test_engine_failed_batch_then_healthy_batch_bitwise(cuda_device):
+    """An injected dispatch fault, then a replay that raises after the
+    static batch was filled: each fails only its own futures, and the
+    next batch on the same bucket equals forward_single bitwise; the
+    dispatcher stays alive and the breaker closed."""
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.faults import (InjectedFault,
+                                                 install_fault_plan,
+                                                 parse_fault_plan)
+    data, mcfg, model_for, v0, _ = _lj_engine_parts(cuda_device, 6)
+    eng = InferenceEngine(model_for(v0), mcfg, reference_samples=data,
+                          max_batch_size=1, max_wait_ms=0.0,
+                          ef_forward=True, breaker_threshold=3,
+                          device=cuda_device)
+    try:
+        eng.warmup()
+        install_fault_plan(parse_fault_plan("serving-dispatch@0"))
+        with pytest.raises(InjectedFault):
+            eng.submit(data[0]).result(timeout=120)
+        install_fault_plan(None)
+        bucket = eng.buckets[0]
+        cap = eng._graphs[bucket]
+        real = cap.replay
+
+        def broken_replay():
+            cap.replay = real
+            raise RuntimeError("replay failed")
+
+        cap.replay = broken_replay
+        with pytest.raises(RuntimeError, match="replay failed"):
+            eng.submit(data[1]).result(timeout=120)
+        for s in data[2:6]:
+            f = eng.submit(s)
+            res = f.result(timeout=120)
+            for a, b in zip(res, eng.forward_single(s, bucket=f.bucket)):
+                np.testing.assert_array_equal(a, b)
+        health = eng.health()
+        assert health["batch_failures"] == 2
+        assert health["state"] == "closed" and health["dispatcher_alive"]
+    finally:
+        install_fault_plan(None)
+        eng.shutdown()
+
+
+@pytest.mark.cuda
+def test_structure_session_on_the_card_keeps_its_bucket(cuda_device):
+    """run_md through submit_structure on the card (216 LJ atoms, 10
+    steps): the incremental and offline modes give the same trajectory
+    bit for bit, nothing is captured after warm-up, and the first step's
+    forces match the CPU engine's within rtol 1e-4 / atol 1e-5."""
+    import copy
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.md.loop import (init_lattice, lj_md_config,
+                                            maxwell_velocities, md_buckets,
+                                            run_md)
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.transforms import build_graph_sample
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    pos0, cell = init_lattice(6, 1.2, 0.05, seed=1)
+    n = len(pos0)
+    vel0 = maxwell_velocities(n, 0.3, seed=2)
+    nf = np.ones((n, 1), np.float32)
+    cfg = lj_md_config(num_gaussians=32)
+    frame0 = build_graph_sample(nf, pos0, cfg, cell=cell, with_targets=False)
+    done = tcfg.update_config(copy.deepcopy(cfg), [frame0])
+    mcfg = tcfg.build_model_config(done)
+    variables = random_flax_variables(create_model(mcfg, device="cpu"), 9)
+    results = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = create_model(mcfg, device=dev)
+        model.load_state_dict(load_jax_variables(variables))
+        with InferenceEngine(model, mcfg,
+                             buckets=md_buckets(n, frame0.num_edges),
+                             proto_sample=frame0, max_batch_size=1,
+                             max_wait_ms=0.0, structure_config=done,
+                             ef_forward=True, device=dev) as eng:
+            eng.warmup()
+            results[dev.type] = eng.forward_single(frame0)
+            if dev.type != "cuda":
+                continue
+            runs = [run_md(eng, done, pos0, vel0, cell, nf, steps=10,
+                           dt=0.005, mode=mode, force_scale=0.1)
+                    for mode in ("incremental", "offline")]
+            assert eng.stats()["captures"] == 1
+            assert eng.health()["structure_requests"] == 11
+    inc, off = runs
+    assert inc["energies"] == off["energies"]
+    np.testing.assert_array_equal(inc["final_pos"], off["final_pos"])
+    np.testing.assert_array_equal(inc["final_vel"], off["final_vel"])
+    for a, b in zip(results["cuda"], results["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)

@@ -1,12 +1,13 @@
 """Knob resolution of the port against the JAX package's on the CPU:
 batch packing's precedence (`utils/envflags.resolve_packing`, which
-`run_training` consults) and the three serving knobs the port refuses
-(`serving/config.check_unported_serving_knobs`: the metrics server,
-raw-structure serving and a replica fleet, ROADMAP A8), while the
-failure-semantics knobs that JAX's offline run_prediction ignores too
-pass; the fault plan's resolution (`utils/faults.resolve_fault_plan`:
-run_training refuses a plan, naming A8, exactly where JAX's resolution
-yields one) and run_prediction's HYDRAGNN_DUMP_TESTDATA dump."""
+`run_training` consults); every `Serving` knob (`serving/config.
+resolve_serving`: env over config over default, set-but-empty and
+malformed values as JAX resolves them), of which the metrics server and
+a replica fleet are still refused (ROADMAP A8) while raw-structure
+serving builds a structure engine through `run_prediction`; the fault
+plan's resolution (`utils/faults.resolve_fault_plan`: run_training
+refuses a plan, naming A5.6, exactly where JAX's resolution yields one)
+and run_prediction's HYDRAGNN_DUMP_TESTDATA dump."""
 import copy
 import logging
 
@@ -24,11 +25,37 @@ from hydragnn_tpu_torch.utils.envflags import resolve_packing
 torch.set_num_threads(1)
 
 PACKING_ENVS = ("HYDRAGNN_PACKING",)
-SERVING_ENVS = ("HYDRAGNN_SERVE_METRICS_PORT", "HYDRAGNN_SERVE_STRUCTURE",
-                "HYDRAGNN_FLEET_REPLICAS", "HYDRAGNN_SERVE_MAX_QUEUE",
-                "HYDRAGNN_SERVE_DEADLINE_MS",
-                "HYDRAGNN_SERVE_BREAKER_THRESHOLD",
-                "HYDRAGNN_SERVE_BREAKER_RESET_S")
+# every Serving knob: (ServingConfig field, block key, env var, a block
+# value, a well-formed env value, a malformed one); the JAX package's
+# names and defaults
+SERVING_KNOBS = [
+    ("enabled", "enabled", "HYDRAGNN_SERVE", True, "0", "ture"),
+    ("max_batch_size", "max_batch_size", "HYDRAGNN_SERVE_MAX_BATCH", 64,
+     "12", "twelve"),
+    ("max_wait_ms", "max_wait_ms", "HYDRAGNN_SERVE_MAX_WAIT_MS", 2.0, "0.5",
+     "soon"),
+    ("num_buckets", "num_buckets", "HYDRAGNN_SERVE_BUCKETS", 3, "2", "2.5"),
+    ("bucket_multiple", "bucket_multiple", "HYDRAGNN_SERVE_BUCKET_MULTIPLE",
+     32, "128", "x"),
+    ("max_queue", "max_queue", "HYDRAGNN_SERVE_MAX_QUEUE", 8, "4", "many"),
+    ("deadline_ms", "deadline_ms", "HYDRAGNN_SERVE_DEADLINE_MS", 50.0, "10",
+     "10ms"),
+    ("breaker_threshold", "breaker_threshold",
+     "HYDRAGNN_SERVE_BREAKER_THRESHOLD", 2, "1", "one"),
+    ("breaker_reset_s", "breaker_reset_s", "HYDRAGNN_SERVE_BREAKER_RESET_S",
+     1.0, "2", "2s"),
+    ("precision", "precision", "HYDRAGNN_SERVE_PRECISION", "bf16", "fp32",
+     "half-ish"),
+    ("quant_calib_samples", "quant_calib_samples",
+     "HYDRAGNN_QUANT_CALIB_SAMPLES", 16, "8", "eight"),
+    ("metrics_port", "metrics_port", "HYDRAGNN_SERVE_METRICS_PORT", 0, "0",
+     "http"),
+    ("structure", "structure", "HYDRAGNN_SERVE_STRUCTURE", True, "off",
+     "yes please"),
+    ("md_skin", "md_skin", "HYDRAGNN_MD_SKIN", 0.5, "0.2", "thin"),
+]
+SERVING_ENVS = tuple(k[2] for k in SERVING_KNOBS) + (
+    "HYDRAGNN_FLEET_REPLICAS",)
 
 
 @pytest.fixture
@@ -108,25 +135,23 @@ def test_run_training_packing_follows_the_env(clean_env, config, env, packs):
 
 
 # (Serving block, env) -> refused; each refused case is one the JAX
-# package acts on (its run_prediction starts the server, the structure
-# engine or the router)
+# package acts on (its run_prediction starts the server or the router)
 SERVING_CASES = [
     ({"metrics_port": 9100}, {}, True),
     ({}, {"HYDRAGNN_SERVE_METRICS_PORT": "9100"}, True),
-    ({"structure": True}, {}, True),
-    ({}, {"HYDRAGNN_SERVE_STRUCTURE": "1"}, True),
     ({"fleet": {"replicas": 2}}, {}, True),
     ({}, {"HYDRAGNN_FLEET_REPLICAS": "3"}, True),
     # the env wins over the block, both ways
     ({"metrics_port": 9100}, {"HYDRAGNN_SERVE_METRICS_PORT": "0"}, False),
-    ({"structure": True}, {"HYDRAGNN_SERVE_STRUCTURE": "off"}, False),
     ({"fleet": {"replicas": 4}}, {"HYDRAGNN_FLEET_REPLICAS": "1"}, False),
     # off as written, or a typo that warns and keeps the default
     ({"metrics_port": 0, "structure": False, "fleet": {"replicas": 1}}, {},
      False),
     ({}, {"HYDRAGNN_SERVE_STRUCTURE": "ture",
           "HYDRAGNN_FLEET_REPLICAS": "two"}, False),
-    # exempt: JAX's offline run_prediction holds them at their defaults
+    # ported: raw-structure serving and the failure semantics
+    ({"structure": True}, {}, False),
+    ({}, {"HYDRAGNN_SERVE_STRUCTURE": "1"}, False),
     ({"max_queue": 8, "deadline_ms": 50.0, "breaker_threshold": 2,
       "breaker_reset_s": 1.0}, {}, False),
     ({}, {"HYDRAGNN_SERVE_MAX_QUEUE": "4",
@@ -139,22 +164,113 @@ SERVING_CASES = [
 @pytest.mark.parametrize("block,env,refused", SERVING_CASES)
 def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
                                                 refused):
-    """metrics_port > 0, structure and fleet.replicas > 1, by the config
-    block or the env, raise NotImplementedError naming A8 exactly where
-    the JAX package's resolution turns them on; max_queue, deadline_ms
-    and breaker_* do not raise."""
+    """metrics_port > 0 and fleet.replicas > 1, by the config block or
+    the env, raise NotImplementedError naming A8 exactly where the JAX
+    package's resolution turns them on; structure, max_queue,
+    deadline_ms and breaker_* resolve."""
     for name, value in env.items():
         clean_env.setenv(name, value)
     cfg = {"Serving": block}
     j = j_resolve_serving(cfg)
-    acts = (j.metrics_port > 0 or j.structure
-            or j_resolve_fleet(cfg).replicas > 1)
+    acts = j.metrics_port > 0 or j_resolve_fleet(cfg).replicas > 1
     assert acts == refused
     if refused:
         with pytest.raises(NotImplementedError, match="A8"):
             resolve_serving(cfg)
     else:
-        resolve_serving(cfg)
+        assert resolve_serving(cfg) == _as_port(j)
+
+
+def _as_port(j):
+    from hydragnn_tpu_torch.serving.config import ServingConfig
+    return ServingConfig(**{f: getattr(j, f)
+                            for f in ServingConfig.__dataclass_fields__})
+
+
+@pytest.mark.parametrize("how", ["default", "config", "env_over_config",
+                                 "set_but_empty", "malformed"])
+@pytest.mark.parametrize("knob", SERVING_KNOBS, ids=[k[0] for k in
+                                                     SERVING_KNOBS])
+def test_resolve_serving_matches_jax(clean_env, caplog, knob, how):
+    """Each Serving knob resolves to the JAX package's value: its default,
+    the block's value, the env's over the block's, a set-but-empty env
+    (keeps the block's) and a malformed env (warns, keeps the block's)."""
+    from hydragnn_tpu_torch.serving.config import ServingConfig
+    field, key, env, value, good, bad = knob
+    block = {} if how == "default" else {key: value}
+    if how in ("env_over_config", "set_but_empty", "malformed"):
+        clean_env.setenv(env, {"env_over_config": good,
+                               "set_but_empty": "", "malformed": bad}[how])
+    cfg = {"Serving": block}
+    with caplog.at_level(logging.WARNING):
+        want = j_resolve_serving(cfg)
+        got = resolve_serving(cfg)
+    assert set(ServingConfig.__dataclass_fields__) == \
+        set(type(want).__dataclass_fields__)
+    assert got == _as_port(want)
+    assert getattr(got, field) == getattr(want, field)
+    if how == "env_over_config" and field != "metrics_port":
+        # the env's value, not the block's
+        assert getattr(got, field) != (
+            "bfloat16" if field == "precision" else value)
+    warned = {r.name for r in caplog.records if env in r.getMessage()}
+    assert ("hydragnn_tpu_torch" in warned) == ("hydragnn_tpu" in warned)
+    assert ("hydragnn_tpu_torch" in warned) == (how == "malformed")
+
+
+def test_serving_structure_builds_a_structure_engine(clean_env,
+                                                     monkeypatch):
+    """Serving.structure (or HYDRAGNN_SERVE_STRUCTURE) makes
+    run_prediction hand its engine the full config and the skin, as the
+    JAX package's does, with the failure knobs at their permissive
+    defaults; the predictions are the structure-less engine's."""
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.serving import engine as tengine
+    from tests.utils import make_config
+    import importlib
+    rp = importlib.import_module("hydragnn_tpu_torch.run_prediction")
+    built = []
+
+    class Spy(tengine.InferenceEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append((self, kw))
+
+    monkeypatch.setattr(rp, "InferenceEngine", Spy)
+    splits = _lattice_splits(20)
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import (create_model,
+                                                  data_input_dim)
+    from hydragnn_tpu_torch.utils.weights import random_flax_variables
+    done = tcfg.update_config(make_config("PNA"), *splits)
+    mcfg = data_input_dim(tcfg.build_model_config(done),
+                          [s for split in splits for s in split])
+    variables = random_flax_variables(create_model(mcfg, device="cpu"), 0)
+    out = []
+    for block, env in (({"structure": True, "md_skin": 0.4,
+                         "max_queue": 2, "deadline_ms": 0.001}, None),
+                       ({}, "1"), ({}, None)):
+        if env is not None:
+            clean_env.setenv("HYDRAGNN_SERVE_STRUCTURE", env)
+        cfg = make_config("PNA")
+        cfg["Serving"] = block
+        out.append(run_prediction(cfg, datasets=splits, variables=variables,
+                                  serve=True, device="cpu")[1][0])
+        clean_env.delenv("HYDRAGNN_SERVE_STRUCTURE", raising=False)
+    (eng_a, kw_a), (eng_b, kw_b), (eng_c, kw_c) = built
+    assert kw_a["structure_config"]["Serving"]["structure"] is True
+    assert kw_b["structure_config"] is not None
+    assert kw_c["structure_config"] is None
+    assert eng_a.md_skin == 0.4 and eng_b.md_skin == 0.3
+    for eng, kw in built:
+        assert kw["breaker_threshold"] == 0
+        assert eng.max_queue == 0 and eng.default_deadline_ms is None
+    sess = eng_a.structure_session()
+    assert sess.nlist.skin == 0.4 and sess.nlist.pbc is None
+    with pytest.raises(RuntimeError, match="structure_config"):
+        eng_c.structure_session()
+    np.testing.assert_array_equal(out[0], out[2])
+    np.testing.assert_array_equal(out[1], out[2])
 
 
 def test_run_prediction_refuses_the_metrics_server_before_any_work(
@@ -204,7 +320,7 @@ def test_fault_plan_resolution_matches_jax(clean_env, caplog, config, env,
         got = resolve_fault_plan(tr)
     assert (got is not None) == (want is not None) == resolves
     if resolves:
-        assert got == want.injections
+        assert got.injections == want.injections
     warned = {r.name for r in caplog.records
               if "not a valid fault plan" in r.getMessage()}
     assert ("hydragnn_tpu_torch" in warned) == ("hydragnn_tpu" in warned)
@@ -216,9 +332,10 @@ def test_fault_plan_resolution_matches_jax(clean_env, caplog, config, env,
         ("forward-step@3", ""), ("forward-step@x", None))])
 def test_run_training_refuses_a_fault_plan_where_jax_resolves_one(
         clean_env, config, env, resolves):
-    """run_training raises NotImplementedError naming A8 before any work
-    exactly where the JAX package would install a plan, and otherwise
-    trains: a masked or malformed plan injects nothing there either."""
+    """run_training raises NotImplementedError naming A5.6 (the training
+    fault sites) before any work exactly where the JAX package would
+    install a plan, and otherwise trains: a masked or malformed plan
+    injects nothing there either."""
     from hydragnn_tpu_torch import run_training
     from tests.utils import make_config
     clean_env.delenv("HYDRAGNN_FAULT_PLAN", raising=False)
@@ -231,7 +348,7 @@ def test_run_training_refuses_a_fault_plan_where_jax_resolves_one(
     if env is not None:
         clean_env.setenv("HYDRAGNN_FAULT_PLAN", env)
     if resolves:
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(NotImplementedError, match="A5.6"):
             run_training(cfg, datasets=splits, device="cpu")
     else:
         _, history, _, _ = run_training(cfg, datasets=splits, device="cpu")

@@ -191,7 +191,12 @@ def test_port_and_chip_smoke_import_no_jax():
             "hydragnn_tpu_torch.train.loss, "
             "hydragnn_tpu_torch.graphs.radius, "
             "hydragnn_tpu_torch.ops.geometry, "
-            "hydragnn_tpu_torch.ops.basis; "
+            "hydragnn_tpu_torch.ops.basis, "
+            "hydragnn_tpu_torch.graphs.neighborlist, "
+            "hydragnn_tpu_torch.md.integrator, "
+            "hydragnn_tpu_torch.md.loop, "
+            "hydragnn_tpu_torch.utils.faults, "
+            "hydragnn_tpu_torch.serving.config; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
             "or m == 'hydragnn_tpu' or m.startswith('hydragnn_tpu.')]; "
