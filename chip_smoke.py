@@ -43,8 +43,9 @@ Phases:
    filter-scatter kernel against its plain version at the engine's
    largest bucket (forward within rtol/atol 2e-5; its backward, dh within
    2e-5 and dw exact, against autograd through the plain version; the
-   segment sum's and the position gathers' backward likewise; forward
-   and dh device times), the EF shapes of segment_sum (energy pooling at
+   segment sum's backward likewise, the position gathers' bitwise on
+   dyadic rows, whose sums no order rounds; forward and dh device
+   times), the EF shapes of segment_sum (energy pooling at
    F = 1; the position gathers' backward at F = 3 on the filter layout,
    which must equal a fresh sort on every real node, and whose own
    backward must equal autograd through the plain sum of the rows the
@@ -210,6 +211,29 @@ Phases:
    seeded weight set with requests in flight: every result bitwise a
    fresh engine's on its weights, its version on the future, no capture,
    a mismatched tree refused first.
+13. The device-resident trajectory farm (`farm_phase`, md/farm.py)
+   through `InferenceEngine.trajectory_farm` with phase 12's MD config
+   and phase 6's weights, each number beside the card's name and power
+   limit. (a) Phase 12b's 216-atom systems (seeds k, 100 + k) on a
+   one-bucket engine, T = 1, 64 and 512 trajectories, 64 steps, 8 a
+   dispatch (one CUDA graph replay of 8 steps: drift, the skin check,
+   the batched re-filter, the compaction, the T-fold EF forward, the
+   kick), and T = 64 at 1 a dispatch: aggregate and per-trajectory
+   steps/s, dispatches, effective steps a dispatch, rebuild swaps and
+   fraction, capture ms, replay ms (CUDA events) and host ms (status
+   read, rebuilds, swaps) a dispatch, a profiled replay's device ms a
+   step, the idle share, the memory peak, the graph's B3 and B4 nodes;
+   the dense layers' row independence at T = 512 ([T r, in] against T
+   products of r rows), the routes the farm chose (trajectories a
+   product) and their cost. (b) 8 systems of phase 12a's 1,728 atoms,
+   32 steps, beside phase 12a's and 12b's session rates. Held: 4
+   trajectories of T = 64 and 2 of (b) equal `run_md(mode=
+   "incremental")` through the same engine (positions and velocities
+   bitwise, energies within rtol 1e-9); T = 1 equals T = 64's
+   trajectory 0 and K = 1 equals K = 8, bitwise; the registry's farm
+   counters equal the runs'; B4 and B3 at both T-fold batches against
+   their plain versions on exact dyadic data, bitwise, with device
+   time, bound and `index_add`'s time.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -218,8 +242,9 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `serving: {...}` (phase 12) and a
-`training: {...}` JSON line. Any failure exits non-zero without the last
+name and power limit, and before it a `farm: {...}` (phase 13), a
+`serving: {...}` (phase 12) and a `training: {...}` JSON line. Any
+failure exits non-zero without the last
 line.
 """
 from __future__ import annotations
@@ -551,7 +576,8 @@ def check_kernels(torch, dense_batch, edge_batch, loader_batch, device, f):
 def segment_shape(torch, name, data, ids, n, layout=None, real=None,
                   sort=True, card=None):
     """One shape the main paths give segment_sum: the kernel against its
-    plain version (on rows [:real] when a layout leaves rows out), its
+    plain version (on the rows `real` names, a count from row 0 or a
+    mask, when a layout leaves rows out), its
     device time and `index_add`'s (each 20 calls in one CUDA graph), and
     its bound. Sorted ids unless a layout is given or `sort` is false
     (the kernel then argsorts them first, as the unfused PNA statistics
@@ -564,7 +590,9 @@ def segment_shape(torch, name, data, ids, n, layout=None, real=None,
     def call(d, i, lay):
         return segment.segment_sum(d, i, n, indices_are_sorted=sort,
                                    layout=lay)
-    rows = slice(0, n if real is None else real)
+    # `real`: the rows compared, a count from row 0 or a boolean mask
+    rows = (slice(0, n) if real is None else real if torch.is_tensor(real)
+            else slice(0, real))
     err = compare(torch, f"segment_sum.{name}", call(data, ids, layout)[rows],
                   segment.segment_sum_plain(data, ids, n)[rows], exact=False)
     if layout is None:
@@ -599,15 +627,26 @@ def segment_shape(torch, name, data, ids, n, layout=None, real=None,
                 library_ms=lib, max_abs_err=err)
 
 
-def check_filter_scatter(torch, batch, device, f):
+def check_filter_scatter(torch, batch, device, f, dyadic=False):
     """Phase 4a: filter_scatter (forward and backward), and the backward
     of segment_sum and of the position gathers, against their plain
-    versions on the card, at the EF engine's largest bucket."""
+    versions on the card, at the EF engine's largest bucket. `dyadic`:
+    the data are multiples of 1/64 in [-1, 1], whose sums and products
+    are exact in float32 whatever the order, and the sums are held
+    bitwise (a farm's T-fold batch holds hundreds of padding nodes of
+    ~1,300 masked edges each, whose random float sums differ from the
+    plain versions' atomic ones by more than the sums' rtol/atol)."""
     from hydragnn_tpu_torch.kernels import fused_mp, segment
 
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
 
+    def dyadic_rows(*shape):
+        return (torch.randint(-64, 65, shape, generator=gen).float()
+                / 64.0).to(device)
+
     def randn(*shape):
+        if dyadic:
+            return dyadic_rows(*shape)
         return torch.randn(*shape, generator=gen).to(device)
 
     n, e = batch.num_nodes, batch.num_edges
@@ -637,9 +676,9 @@ def check_filter_scatter(torch, batch, device, f):
                                                     (th, tw)))
         (out, dh, dw), (p_out, p_dh, p_dw) = got
         errs.append(compare(torch, "filter_scatter", out.detach(),
-                            p_out.detach(), exact=False))
+                            p_out.detach(), exact=dyadic))
         grad_errs.append(compare(torch, "filter_scatter.dh", dh, p_dh,
-                                 exact=False))
+                                 exact=dyadic))
         grad_errs.append(compare(torch, "filter_scatter.dw", dw, p_dw,
                                  exact=True))
     if float(out.detach()[5].abs().max()) != 0.0 \
@@ -656,13 +695,18 @@ def check_filter_scatter(torch, batch, device, f):
     grad_errs.append(compare(torch, "segment_sum.backward", got[0], got[1],
                              exact=True))
     pos = randn(n, 3)
-    ge = randn(e, 3)
+    # the gathers' backward sums every edge's row into its sender, the
+    # padding node's thousands of padding edges included: on random
+    # floats the plain version's atomic order (it changes from call to
+    # call) can differ from the kernel's fixed order by more than the
+    # sums' rtol/atol there, so it sums dyadic rows and is held bitwise
+    ge = dyadic_rows(e, 3)
     got = []
     for fn in (segment.gather_rows, lambda x, i: x.index_select(0, i)):
         tp = pos.clone().requires_grad_(True)
         got.append(torch.autograd.grad((fn(tp, send) * ge).sum(), tp)[0])
     grad_errs.append(compare(torch, "gather_rows.backward", got[0], got[1],
-                             exact=False))
+                             exact=True))
 
     kept = int(em.sum())
     layout = fused_mp.filter_layouts(send, recv, em, n)
@@ -704,7 +748,10 @@ def check_filter_scatter(torch, batch, device, f):
     # the EF path's other segment sums: the energy pooling (F = 1, sorted)
     # and the position gathers' backward (F = 3) on the sender-sorted
     # filter layout, which must equal the fresh sort on every real node
-    nodes = int(batch.node_mask.sum())
+    # real nodes by the mask: a farm's T-fold batch interleaves them with
+    # each replica's padding nodes
+    real_nodes = batch.node_mask
+    nodes = int(real_nodes.sum())
     seg_shapes = [segment_shape(torch, "ef_energy_pooling",
                                 randn(n, 1) * batch.node_mask[:, None],
                                 batch.node_graph, batch.num_graphs)]
@@ -713,7 +760,7 @@ def check_filter_scatter(torch, batch, device, f):
     for ids, lay in ((send, by_send), (recv, by_recv)):
         fresh = segment.segment_sum(ge, ids, n)
         reuse = segment.segment_sum(ge, ids, n, layout=lay)
-        if not torch.equal(fresh[:nodes], reuse[:nodes]):
+        if not torch.equal(fresh[real_nodes], reuse[real_nodes]):
             fail("segment_sum: the filter layout's sum differs from the "
                  "fresh sort on a real node")
         # its backward: g[ids] on the rows the layout sums, 0 on the rows
@@ -730,7 +777,7 @@ def check_filter_scatter(torch, batch, device, f):
         grad_errs.append(compare(torch, "segment_sum.layout_backward",
                                  got[0], got[1], exact=True))
     seg_shapes.append(segment_shape(torch, "ef_gather_backward", ge, send, n,
-                                    layout=by_send, real=nodes))
+                                    layout=by_send, real=real_nodes))
     fresh_dev = device_ms(
         torch, "segment_sum.ef_gather_backward.fresh_sort",
         lambda d, i: segment.segment_sum(d, i, n), (ge, send),
@@ -4071,6 +4118,352 @@ def serving_phase(torch, device, card, counted, lj_state, csce):
     return rec, fs_shapes, seg_shapes
 
 
+# ----------------------------------------------------------- phase 13 --
+FARM_TRAJ = (1, 64, 512)       # 216-atom trajectories a farm (phase 12b's)
+FARM_STEPS = 64
+FARM_K = 8                     # MD steps a dispatch (one graph replay)
+FARM_HELD = 4                  # of the T = 64 run, held against run_md
+FARM_BIG_TRAJ = 8              # 1,728-atom trajectories (phase 12a's system)
+FARM_BIG_STEPS = 32
+FARM_BIG_HELD = 2
+FARM_E_RTOL = 1e-9             # energies vs the session (the JAX bound)
+
+
+def farm_engine(torch, device, lj_state, systems):
+    """A warmed one-bucket EF engine for `systems`, as phase 12a builds
+    its own: `md_buckets` over the largest initial edge count of the
+    first 8 (30 % headroom; the systems are one lattice jittered by 0.05,
+    and a farm step past the bucket fails the run): (engine, completed
+    config, model config, weights label)."""
+    from hydragnn_tpu_torch.md.loop import md_buckets
+    from hydragnn_tpu_torch.preprocess.transforms import build_graph_sample
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    cfg = md_config()
+    frames = [build_graph_sample(nf, p, cfg, cell=c, with_targets=False)
+              for p, c, _, nf in systems[:8]]
+    done, mcfg, model_on, weights = md_model(lj_state, cfg, frames[:1])
+    buckets = md_buckets(len(systems[0][0]),
+                         max(f.num_edges for f in frames))
+    engine = InferenceEngine(
+        model_on(device), mcfg, buckets=buckets, proto_sample=frames[0],
+        max_batch_size=1, max_wait_ms=0.0, structure_config=done,
+        md_skin=MD_SKIN, ef_forward=True, device=device)
+    engine.warmup()
+    return engine, done, mcfg, weights
+
+
+def farm_run(torch, engine, systems, T, steps, k, label, card):
+    """systems[:T] through `engine.trajectory_farm`, `steps` steps, k a
+    dispatch: (result, record, farm). The record holds the rates, the
+    dispatches, the rebuild swaps, the capture, the replays' CUDA-event
+    ms and the host's ms a dispatch (status read and swaps), a profiled
+    replay's device ms a step, the idle share (1 - replays / wall), the
+    memory peak, the graph's kernel nodes and the run's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hydragnn_tpu_torch import kernels as tk
+    pos = np.stack([s[0] for s in systems[:T]])
+    vel = np.stack([s[2] for s in systems[:T]])
+    cell, nf = systems[0][1], systems[0][3]
+    farm = engine.trajectory_farm(dt=MD_DT, skin=MD_SKIN,
+                                  steps_per_dispatch=k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = tk.launch_counts()
+    res = farm.run(pos, vel, steps, node_features=nf, cell=cell)
+    torch.cuda.synchronize()
+    after = tk.launch_counts()
+    launches = {name: after[name] - before[name] for name in after}
+    peak = torch.cuda.max_memory_allocated()
+    (cap,) = farm.graphs.values()
+    nodes = check_graph_kernels(cap, f"farm {label}")
+    for key in ("segment_sum_kernel", "filter_scatter_kernel"):
+        if not nodes.get(key):
+            fail(f"farm {label}: its graph holds no {key} node: {nodes}")
+    # one profiled replay: the run is over, every trajectory is inactive
+    # and the replay does a dispatch's work without changing the state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cap.graph.replay()
+        torch.cuda.synchronize()
+    dev_ms, events, _ = profile_rows(torch, prof)
+    n = res["atoms"]
+    disp = res["dispatches"]
+    rec = dict(
+        trajectories=T, atoms=n, steps=steps, steps_per_dispatch=k,
+        aggregate_steps_per_s=T * steps / res["wall_s"],
+        per_traj_steps_per_s=steps / res["wall_s"], wall_s=res["wall_s"],
+        dispatches=disp,
+        steps_per_dispatch_effective=res["steps_per_dispatch_effective"],
+        rebuild_swaps=res["rebuild_swaps"],
+        rebuild_fraction=res["rebuild_fraction"],
+        cand_capacity=res["cand_capacity"],
+        max_degree_capacity=res["max_degree_capacity"],
+        capture_ms=res["capture_ms"],
+        replay_ms_per_dispatch=res["replay_s"] / disp * 1e3,
+        host_ms_per_dispatch=res["host_s"] / disp * 1e3,
+        idle_share=1.0 - res["replay_s"] / res["wall_s"],
+        profiled_device_ms_per_step=(dev_ms / k if dev_ms
+                                     else "not measured"),
+        profiled_events_per_replay=events,
+        memory_peak_bytes=peak, memory_peak_above_start_bytes=peak - base,
+        kernel_nodes=nodes, launches=launches)
+    print(f"farm {label}: T={T} x {n} atoms, {steps} steps, K={k}: "
+          f"{rec['aggregate_steps_per_s']} steps/s aggregate, "
+          f"{rec['per_traj_steps_per_s']} per trajectory ({res['wall_s']} "
+          f"s); {disp} dispatches, {rec['steps_per_dispatch_effective']} "
+          f"effective steps a dispatch and trajectory; {res['rebuild_swaps']}"
+          f" rebuild swaps, rebuild fraction {res['rebuild_fraction']}; "
+          f"capture {res['capture_ms']} ms; replay "
+          f"{rec['replay_ms_per_dispatch']} ms a dispatch, profiled device "
+          f"{rec['profiled_device_ms_per_step']} ms a step ({events} "
+          f"device events a replay); host {rec['host_ms_per_dispatch']} ms "
+          f"a dispatch; idle share {rec['idle_share']}; memory peak {peak} "
+          f"B ({peak - base} above the start); graph kernel nodes {nodes}; "
+          f"candidate capacity {res['cand_capacity']}, degree capacity "
+          f"{res['max_degree_capacity']} (card: {card})", flush=True)
+    return res, rec, farm
+
+
+def farm_gemm_rows(torch, farm, batch, T):
+    """{dense layer: rows, and whether its [T r, in] product and its
+    input gradient's [T r, out] @ W equal T products of r rows bitwise}
+    at the farm's T-fold shapes, on random inputs from a seed."""
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    seen = {}
+
+    def hook(name):
+        def record(mod, inputs, output):
+            seen.setdefault(name, (mod, inputs[0].shape[0]))
+        return record
+    hooks = [mod.register_forward_hook(hook(name))
+             for name, mod in farm.model.named_modules()
+             if isinstance(mod, torch.nn.Linear)]
+    try:
+        energy_forces_from_node_head(farm.model, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator(device=batch.pos.device).manual_seed(SEED + 13)
+    out = {}
+    with torch.no_grad():
+        for name, (mod, rows) in sorted(seen.items()):
+            r = rows // T
+            x = torch.randn(rows, mod.in_features, generator=gen,
+                            device=batch.pos.device)
+            go = torch.randn(rows, mod.out_features, generator=gen,
+                             device=batch.pos.device)
+            y, gi = mod(x), go @ mod.weight
+            fwd = all(torch.equal(y[t * r:(t + 1) * r],
+                                  mod(x[t * r:(t + 1) * r]))
+                      for t in range(T))
+            bwd = all(torch.equal(gi[t * r:(t + 1) * r],
+                                  go[t * r:(t + 1) * r] @ mod.weight)
+                      for t in range(T))
+            out[name] = dict(rows=rows, rows_per_trajectory=r,
+                             features=[mod.in_features, mod.out_features],
+                             forward_bitwise=fwd, backward_bitwise=bwd)
+    return out
+
+
+def farm_route_cost(torch, farm, batch):
+    """Device ms of the farm's EF forward + backward at `batch`, captured
+    in a CUDA graph (median of 10 replays), with every linear layer as
+    one product and with the farm's routes (several products where the
+    probe found the one product's bits differ from the session's): what
+    the routes cost a step."""
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+
+    def ef():
+        return energy_forces_from_node_head(farm.model, batch)
+    out = {}
+    for label, ctx in (("one_product", contextlib.nullcontext),
+                       ("routed", farm.routed)):
+        with ctx():
+            graph = capture(torch, ef, ef)
+        out[label] = cuda_ms(torch, graph.replay, reps=10)
+        del graph
+    return out
+
+
+def hold_farm(res, runs, label):
+    """Each (trajectory, run_md result) pair: positions and velocities
+    bitwise, energies within FARM_E_RTOL; returns whether the energies
+    were bitwise too."""
+    bitwise_e = True
+    for t, seq in runs:
+        if not (np.array_equal(res["final_pos"][t], seq["final_pos"])
+                and np.array_equal(res["final_vel"][t], seq["final_vel"])):
+            fail(f"farm {label}: trajectory {t} differs from run_md: "
+                 f"positions {np.abs(res['final_pos'][t] - seq['final_pos']).max()}"
+                 f", velocities "
+                 f"{np.abs(res['final_vel'][t] - seq['final_vel']).max()}")
+        for key in ("energy_first", "energy_last"):
+            got, want = float(res[key][t]), float(seq[key])
+            if not np.isclose(got, want, rtol=FARM_E_RTOL, atol=0.0):
+                fail(f"farm {label}: trajectory {t} {key} {got} vs run_md "
+                     f"{want} (rtol {FARM_E_RTOL})")
+            bitwise_e &= got == want
+    return bitwise_e
+
+
+def farm_phase(torch, device, card, counted, lj_state, session_rates):
+    """Phase 13: the device-resident trajectory farm (md/farm.py) through
+    `InferenceEngine.trajectory_farm`, the MD config of phase 12 with
+    phase 6's weights. (a) 216-atom systems (phase 12b's, seeds k and
+    100 + k), T = 1, 64 and 512, FARM_STEPS steps, K = FARM_K; (b)
+    FARM_BIG_TRAJ systems of 1,728 atoms (phase 12a's, seeds 1 + k and
+    2 + 1000 k), FARM_BIG_STEPS steps. Holds: FARM_HELD trajectories of
+    T = 64 and FARM_BIG_HELD of (b) equal `run_md(mode="incremental")`
+    through the same engine (positions and velocities bitwise, energies
+    within FARM_E_RTOL); T = 1 equals trajectory 0 of T = 64; K = 1
+    equals K = FARM_K at T = 64; B3 and B4 in every farm graph; the
+    registry's farm counters equal the runs'. Printed: each run's
+    numbers, the dense layers' row independence at T = 512, and B3's
+    and B4's device times at the T-fold shapes. Returns (record,
+    filter_scatter shapes, segment_sum shapes)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.md.loop import run_md
+    from hydragnn_tpu_torch.telemetry.registry import (MetricsRegistry,
+                                                       set_registry)
+    t_phase = time.perf_counter()
+    reg = MetricsRegistry()
+    prev = set_registry(reg)
+    fs_shapes, seg_shapes = [], []
+    try:
+        systems = [md_system(6, k, 100 + k) for k in range(max(FARM_TRAJ))]
+        engine, done, mcfg, weights = farm_engine(torch, device, lj_state,
+                                                  systems)
+        runs, results = {}, {}
+        try:
+            b = engine.buckets[0]
+            print(f"phase 13a: trajectory farm, 216-atom LJ systems, "
+                  f"bucket {b.n_node}x{b.n_edge}x{b.n_graph}; {weights}",
+                  flush=True)
+            for T in FARM_TRAJ:
+                tk.reset_launch_counts()
+                results[T], runs[f"T{T}"], farm = farm_run(
+                    torch, engine, systems, T, FARM_STEPS, FARM_K,
+                    f"216 atoms T={T}", card)
+                counted(runs[f"T{T}"]["launches"])
+                if T == max(FARM_TRAJ):
+                    big_batch = farm.batch_now()
+                    gemm = farm_gemm_rows(torch, farm, big_batch, T)
+                    routes = dict(farm.dense_routes)
+                    route_ms = farm_route_cost(torch, farm, big_batch)
+                    print(f"farm GEMM rows at T={T}: [T r, in] products "
+                          f"vs T products of r rows: " + json.dumps(gemm),
+                          flush=True)
+                    print(f"farm dense routes at T={T} (trajectories a "
+                          f"product): {routes}; the EF "
+                          f"forward + backward at the T-fold batch, device "
+                          f"ms (one graph): every layer one product "
+                          f"{route_ms['one_product']}, routed "
+                          f"{route_ms['routed']} (card: {card})",
+                          flush=True)
+                del farm
+            k1, runs["T64_K1"], _ = farm_run(
+                torch, engine, systems, FARM_TRAJ[1], FARM_STEPS, 1,
+                "216 atoms T=64 K=1", card)
+            counted(runs["T64_K1"]["launches"])
+            res64 = results[FARM_TRAJ[1]]
+            cell, nf = systems[0][1], systems[0][3]
+            held = [(t, run_md(engine, done, systems[t][0], systems[t][2],
+                               cell, nf, steps=FARM_STEPS, dt=MD_DT,
+                               mode="incremental", skin=MD_SKIN))
+                    for t in range(FARM_HELD)]
+        finally:
+            engine.shutdown()
+        bitwise_e = hold_farm(res64, held, "T=64")
+        for key in ("final_pos", "final_vel"):
+            if not np.array_equal(results[1][key][0], res64[key][0]):
+                fail(f"farm: T=1 {key} differs from trajectory 0 of T=64")
+            if not np.array_equal(k1[key], res64[key]):
+                fail(f"farm: K=1 {key} differs from K={FARM_K} at T=64")
+        print(f"farm holds (216 atoms): {FARM_HELD} trajectories of T=64 "
+              f"bitwise run_md's positions and velocities, energies "
+              f"within rtol {FARM_E_RTOL} (bitwise: {bitwise_e}); T=1 = "
+              f"trajectory 0 of T=64 and K=1 = K={FARM_K} bitwise; "
+              f"{FARM_HELD} sessions' rebuild fractions "
+              f"{[s['rebuild_fraction'] for _, s in held]}", flush=True)
+        # B4 and B3 at the T-fold shapes, against their plain versions
+        fs_rec, seg = check_filter_scatter(torch, big_batch, device,
+                                           mcfg.num_filters, dyadic=True)
+        tag = f"farm{max(FARM_TRAJ)}"
+        fs_shapes += [dict(s, shape=f"{tag}_{s['shape']}",
+                           max_abs_err=fs_rec[
+                               "max_abs_err" if s["shape"] == "forward"
+                               else "backward_max_abs_err"])
+                      for s in fs_rec["shapes"]]
+        seg_shapes += [dict(s, shape=s["shape"].replace("ef_", f"{tag}_"))
+                       for s in seg]
+        del big_batch
+
+        # (b) 1,728 atoms
+        big = [md_system(MD_ATOMS_PER_DIM, 1 + k, 2 + 1000 * k)
+               for k in range(FARM_BIG_TRAJ)]
+        engine, done, mcfg, _ = farm_engine(torch, device, lj_state, big)
+        try:
+            tk.reset_launch_counts()
+            res_b, runs["big"], farm = farm_run(
+                torch, engine, big, FARM_BIG_TRAJ, FARM_BIG_STEPS, FARM_K,
+                f"1,728 atoms T={FARM_BIG_TRAJ}", card)
+            counted(runs["big"]["launches"])
+            b_batch = farm.batch_now()
+            del farm
+            held_b = [(t, run_md(engine, done, big[t][0], big[t][2],
+                                 big[t][1], big[t][3],
+                                 steps=FARM_BIG_STEPS, dt=MD_DT,
+                                 mode="incremental", skin=MD_SKIN))
+                      for t in range(FARM_BIG_HELD)]
+        finally:
+            engine.shutdown()
+        bitwise_e_b = hold_farm(res_b, held_b, "1,728 atoms")
+        fs_rec, seg = check_filter_scatter(torch, b_batch, device,
+                                           mcfg.num_filters, dyadic=True)
+        tag = f"farm{FARM_BIG_TRAJ}x1728"
+        fs_shapes += [dict(s, shape=f"{tag}_{s['shape']}",
+                           max_abs_err=fs_rec[
+                               "max_abs_err" if s["shape"] == "forward"
+                               else "backward_max_abs_err"])
+                      for s in fs_rec["shapes"]]
+        seg_shapes += [dict(s, shape=s["shape"].replace("ef_", f"{tag}_"))
+                       for s in seg]
+        print(f"farm (1,728 atoms): {runs['big']['aggregate_steps_per_s']} "
+              f"steps/s aggregate over {FARM_BIG_TRAJ} trajectories beside "
+              f"phase 12a's session {session_rates['md_incremental']} "
+              f"steps/s and phase 12b's {session_rates['md_clients']} "
+              f"summed over 8 216-atom sessions; {FARM_BIG_HELD} "
+              f"trajectories bitwise run_md's, energies bitwise: "
+              f"{bitwise_e_b} (card: {card})", flush=True)
+    finally:
+        set_registry(prev)
+    snap = reg.snapshot()
+    want_steps = sum(r["trajectories"] * r["steps"] for r in runs.values())
+    want_disp = sum(r["dispatches"] for r in runs.values())
+    got_steps = snap["md.farm_steps_total"]["values"][()]
+    got_disp = snap["md.farm_dispatches_total"]["values"][()]
+    if (got_steps, got_disp) != (want_steps, want_disp):
+        fail(f"farm registry: steps {got_steps} dispatches {got_disp}, the "
+             f"runs' {want_steps} / {want_disp}")
+    events = [e for e in reg.events if e["name"] == "farm_run"]
+    if len(events) != len(runs):
+        fail(f"farm registry: {len(events)} farm_run events for "
+             f"{len(runs)} runs")
+    rec = dict(runs=runs, gemm_rows=gemm, dense_routes=routes,
+               route_device_ms=route_ms,
+               energies_bitwise=dict(t64=bitwise_e, big=bitwise_e_b),
+               registry=dict(steps=got_steps, dispatches=got_disp),
+               session_rates=session_rates,
+               seconds=time.perf_counter() - t_phase)
+    print(f"farm registry: md.farm_steps_total {got_steps}, "
+          f"md.farm_dispatches_total {got_disp} (the runs' counts); "
+          f"phase 13 took {rec['seconds']:.1f} s (card: {card})",
+          flush=True)
+    return rec, fs_shapes, seg_shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4457,11 +4850,30 @@ def main() -> int:
         [records["segment_sum"]["max_abs_err"]]
         + [r["max_abs_err"] for r in eam_shapes + slice_shapes
            + md_seg_shapes])
+    # ---------------------------------------------------------- phase 13
+    farm, farm_fs_shapes, farm_seg_shapes = farm_phase(
+        torch, device, card, counted, lj_main[0],
+        dict(md_incremental=serving["md"]["modes"]["incremental"][
+            "steps_per_s"], md_clients=serving["md_clients"]["steps_per_s"]))
+    records["filter_scatter"]["shapes"] += farm_fs_shapes
+    records["filter_scatter"]["max_abs_err"] = max(
+        [records["filter_scatter"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in farm_fs_shapes])
+    records["segment_sum"]["shapes"] += farm_seg_shapes
+    records["segment_sum"]["max_abs_err"] = max(
+        [records["segment_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in farm_seg_shapes])
+    farm_launches = {}
+    for run in farm["runs"].values():
+        for name, c in run["launches"].items():
+            farm_launches[name] = farm_launches.get(name, 0) + c
+
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
           flush=True)
     print("serving: " + json.dumps(dict(serving, card=card)), flush=True)
+    print("farm: " + json.dumps(dict(farm, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -4494,6 +4906,11 @@ def main() -> int:
         extra["launches_per_captured_step"] = per_captured_step(name)
         if name in serving["md"]["launches"]:
             extra["launches_md_path"] = serving["md"]["launches"][name]
+        if farm_launches.get(name):
+            extra["launches_farm_path"] = farm_launches[name]
+            if name == "filter_scatter":
+                extra["backward_launches_farm_path"] = farm_launches[
+                    "filter_scatter_backward"]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")

@@ -23,6 +23,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 # contract constants, not knobs: changing them changes every trajectory
 POS_BITS = 21
@@ -113,3 +114,42 @@ def drift(pos, vd, ad2):
 def kick(vd, ad2, ad2_new):
     """vd' = vd + (ad2 + ad2') / 2: the two velocity half-kicks."""
     return vd + 0.5 * (ad2 + ad2_new)
+
+
+# ------------------------------------------------------ torch forms --
+
+
+def quantize_pos_torch(x: torch.Tensor) -> torch.Tensor:
+    """`quantize_pos` on a float64 tensor."""
+    return torch.floor(x * _POS_SCALE + 0.5) * _POS_INV
+
+
+def accel_term_torch(forces: torch.Tensor, s_hi: float,
+                     s_lo: float) -> torch.Tensor:
+    """`accel_term` on a tensor: forces rounded through float32, then the
+    two exact split products, each floored once."""
+    f = forces.to(torch.float32).to(torch.float64)
+    a = torch.floor(f * s_hi + 0.5) + torch.floor(f * s_lo + 0.5)
+    return a * _VEL_INV
+
+
+def drift_torch(pos: torch.Tensor, vd: torch.Tensor,
+                ad2: torch.Tensor) -> torch.Tensor:
+    """`drift` on float64 tensors."""
+    return quantize_pos_torch(pos + vd + 0.5 * ad2)
+
+
+def kick_torch(vd: torch.Tensor, ad2: torch.Tensor,
+               ad2_new: torch.Tensor) -> torch.Tensor:
+    """`kick` on float64 tensors."""
+    return vd + 0.5 * (ad2 + ad2_new)
+
+
+def displacement2_torch(pos: torch.Tensor, ref: torch.Tensor
+                        ) -> torch.Tensor:
+    """Squared displacement from the reference positions over the last
+    axis, [..., 3] -> [...]: the Verlet-skin check's d², exact on the
+    grid (graphs/neighborlist.py compares it with (skin / 2)²)."""
+    d = pos - ref
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+        + d[..., 2] * d[..., 2]

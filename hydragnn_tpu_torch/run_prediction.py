@@ -198,7 +198,9 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
     submitted at once, and a deployment's admission bound or deadline
     would refuse a good prediction run. With `Serving.structure` the
     engine gets the full config, so raw-structure clients could share it;
-    the test split's prediction is the same."""
+    the test split's prediction is the same. `Serving.metrics_port` > 0
+    (HYDRAGNN_SERVE_METRICS_PORT) serves /healthz and /metrics on that
+    loopback port for the run (telemetry/http.py)."""
     engine = InferenceEngine(
         model, mcfg, reference_samples=testset,
         max_batch_size=serving.max_batch_size,
@@ -209,6 +211,11 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
         structure_config=config if serving.structure else None,
         md_skin=serving.md_skin, device=device)
     try:
+        if serving.metrics_port:
+            http = engine.start_metrics_server(port=serving.metrics_port)
+            import logging
+            logging.getLogger("hydragnn_tpu_torch").info(
+                "serving metrics endpoint at %s/metrics", http.url)
         engine.warmup()
         results = engine.predict(testset)
     finally:

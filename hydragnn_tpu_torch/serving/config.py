@@ -19,7 +19,11 @@ keeps the config's value).
         "quant_calib_samples": 32, # int8 calibration-set size
         "metrics_port": 0,         # /healthz + /metrics HTTP port (0 = off)
         "structure": false,        # raw-structure serving (submit_structure)
-        "md_skin": 0.3             # Verlet skin of trajectory sessions
+        "md_skin": 0.3,            # Verlet skin of trajectory sessions
+        "md_farm": {               # InferenceEngine.trajectory_farm
+            "steps_per_dispatch": 8,   # MD steps a replay (K)
+            "cand_headroom": 0.5       # candidate/degree capacity headroom
+        }
     }
 
 The queue, deadline and breaker knobs are the engine's failure
@@ -28,16 +32,21 @@ makes run_prediction hand the engine the full config, so clients can
 call `submit_structure` with raw positions; `md_skin` (HYDRAGNN_MD_SKIN,
 cutoff units) is the skin their sessions' neighbour lists use.
 
+`metrics_port` (HYDRAGNN_SERVE_METRICS_PORT) > 0 makes run_prediction
+serve /healthz and /metrics (telemetry/http.py) on that loopback port
+for the run. `md_farm` (`resolve_md_farm`, env
+HYDRAGNN_MD_FARM_STEPS_PER_DISPATCH and HYDRAGNN_MD_FARM_CAND_HEADROOM)
+holds the trajectory farm's knobs (md/farm.py).
+
 `precision` (env HYDRAGNN_SERVE_PRECISION) takes the spellings of
 train/precision.PRECISION_CHOICES: "float32" / "f32" / "fp32" or
 "bfloat16" / "bf16". Unset, the engine inherits the train-side policy
 (HYDRAGNN_PRECISION, then Architecture.dtype).
 
-Three knobs change what JAX's run_prediction starts and are not ported
+Two knobs change what JAX's run_prediction starts and are not ported
 yet, so asking for them raises NotImplementedError naming ROADMAP A8:
-`metrics_port` > 0 (the telemetry server), `fleet.replicas` > 1
-(HYDRAGNN_FLEET_REPLICAS: a replica router) and precision "int8" (the
-int8 serving tier).
+`fleet.replicas` > 1 (HYDRAGNN_FLEET_REPLICAS: a replica router) and
+precision "int8" (the int8 serving tier).
 """
 from __future__ import annotations
 
@@ -75,7 +84,7 @@ class ServingConfig:
     breaker_reset_s: float = 30.0
     precision: Optional[str] = None  # None = inherit the train-side policy
     quant_calib_samples: int = 32  # int8 only (refused: ROADMAP A8)
-    metrics_port: int = 0         # > 0 is refused (ROADMAP A8: telemetry)
+    metrics_port: int = 0         # /healthz + /metrics port (0 = off)
     structure: bool = False       # raw-structure serving (submit_structure)
     md_skin: float = 0.3          # Verlet skin of trajectory sessions
 
@@ -91,24 +100,45 @@ def check_serving_precision(precision: Optional[str]) -> None:
 
 def check_unported_serving_knobs(serving: ServingConfig,
                                  block: Dict[str, Any]) -> None:
-    """Raise NotImplementedError naming A8 when the resolved knobs ask
-    for the metrics server, or the `Serving` block or the env for a
-    replica fleet (hydragnn_tpu/serving/config.py `resolve_fleet`)."""
+    """Raise NotImplementedError naming A8 when the `Serving` block or the
+    env asks for a replica fleet (hydragnn_tpu/serving/config.py
+    `resolve_fleet`)."""
     fleet = block.get("fleet", {}) or {}
-    knobs = [
-        (serving.metrics_port > 0,
-         "Serving.metrics_port / HYDRAGNN_SERVE_METRICS_PORT (the /metrics "
-         "server)"),
-        (env_strict_int("HYDRAGNN_FLEET_REPLICAS",
-                        int(fleet.get("replicas", 1) or 1)) > 1,
-         "Serving.fleet.replicas / HYDRAGNN_FLEET_REPLICAS > 1 (a replica "
-         "fleet)"),
-    ]
-    for on, what in knobs:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to hydragnn_tpu_torch yet (ROADMAP "
-                "A8: serving)")
+    if env_strict_int("HYDRAGNN_FLEET_REPLICAS",
+                      int(fleet.get("replicas", 1) or 1)) > 1:
+        raise NotImplementedError(
+            "Serving.fleet.replicas / HYDRAGNN_FLEET_REPLICAS > 1 (a "
+            "replica fleet) is not ported to hydragnn_tpu_torch yet "
+            "(ROADMAP A8: serving)")
+
+
+@dataclasses.dataclass(frozen=True)
+class MdFarm:
+    """Trajectory-farm knobs (md/farm.py). They trade throughput for
+    memory and host round trips; the grids, the selection rule and the
+    bucket layout are not knobs."""
+    steps_per_dispatch: int = 8   # MD steps a dispatch (one graph replay)
+    cand_headroom: float = 0.5    # candidate and degree capacity headroom
+    # over the initial per-trajectory builds
+
+
+def resolve_md_farm(config: Optional[Dict[str, Any]] = None) -> MdFarm:
+    """The `Serving.md_farm` block and the HYDRAGNN_MD_FARM_* env knobs,
+    env over block over default (strict: a typo warns and keeps the
+    block's value)."""
+    block = ((config or {}).get("Serving", {}) or {}).get("md_farm",
+                                                          {}) or {}
+    base = MdFarm(
+        steps_per_dispatch=int(block.get("steps_per_dispatch", 8)),
+        cand_headroom=float(block.get("cand_headroom", 0.5)),
+    )
+    return MdFarm(
+        steps_per_dispatch=env_strict_int(
+            "HYDRAGNN_MD_FARM_STEPS_PER_DISPATCH",
+            base.steps_per_dispatch),
+        cand_headroom=env_strict_float("HYDRAGNN_MD_FARM_CAND_HEADROOM",
+                                       base.cand_headroom),
+    )
 
 
 def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:

@@ -89,12 +89,19 @@ thread and submits it; a trajectory client holds a
 edges are bitwise a fresh build's. Futures carry ``.rebuilt`` and
 ``.graph_build_ms``; the engine counts ``structure_requests``,
 ``nbr_updates`` and ``nbr_rebuilds`` (``health()``, ``stats()``).
+``trajectory_farm(dt=...)`` returns the device-resident MD farm
+(md/farm.py) over this engine's model, bucket and precision.
+
+Telemetry (telemetry/). Each `submit_structure` reports
+``serve.nbr_updates_total``, ``serve.nbr_rebuilds_total`` and the
+``serve.nbr_rebuild_fraction`` gauge into the process registry and, with
+a span recorder installed, a ``serve.graph_build`` span; each batch the
+``serve.queue_wait`` (a request's), ``serve.forward`` and ``serve.unpad``
+spans. ``start_metrics_server()`` serves /healthz and /metrics until
+``shutdown()``.
 
 Not ported yet: multi-device shards, the fleet hooks (the compile store,
-``serving/fleet.py``), the int8 tier, telemetry (the metrics server, the
-registry's counters and the ``serve.graph_build`` span; the engine's own
-counters carry the same numbers) and ``trajectory_farm`` (ROADMAP A8,
-A10).
+``serving/fleet.py``) and the int8 tier (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -114,6 +121,8 @@ from ..graphs.neighborlist import NeighborList
 from ..graphs.packing import (MAX_GRAPH_SLOTS, PackBudget, choose_budget,
                               sample_sizes)
 from ..preprocess.transforms import build_graph_sample
+from ..telemetry import spans as _spans
+from ..telemetry.registry import get_registry
 from ..train.loss import energy_forces_from_node_head
 from ..train.precision import resolve_precision
 from ..train.step_graphs import GraphContext, capture, fill
@@ -367,6 +376,7 @@ class InferenceEngine:
         self.deadline_expired = 0  # guarded-by: _lock
         self.queue_rejections = 0  # guarded-by: _lock
         self.circuit_rejections = 0  # guarded-by: _lock
+        self._metrics_server = None
         self._dispatcher = threading.Thread(target=self._loop,
                                             name="serve-dispatch",
                                             daemon=True)
@@ -461,11 +471,56 @@ class InferenceEngine:
             max_neighbours=self._structure_max_nb,
             pbc=(True, True, True) if self._structure_pbc else None))
 
-    def trajectory_farm(self, **_):
-        """The device-resident MD farm: not ported yet."""
-        raise NotImplementedError(
-            "InferenceEngine.trajectory_farm is not ported to "
-            "hydragnn_tpu_torch yet (ROADMAP A10: md/farm.py)")
+    def trajectory_farm(self, *, dt: float, skin: Optional[float] = None,
+                        mass: float = 1.0, force_scale: float = 1.0,
+                        steps_per_dispatch: Optional[int] = None,
+                        cand_headroom: Optional[float] = None,
+                        scorer=None):
+        """The device-resident MD farm over this engine's model (md/farm.py):
+        T trajectories advance `steps_per_dispatch` velocity-Verlet steps
+        a dispatch (on the card one CUDA graph replay), each bitwise the
+        single-session `submit_structure` loop (`md/loop.run_md`) from
+        the same initial conditions. Needs the raw-structure and
+        `ef_forward` configuration and a one-bucket ladder (every farm
+        step runs the session's bucket shape, T times over). The knobs
+        default to `serving.config.resolve_md_farm` (Serving.md_farm,
+        HYDRAGNN_MD_FARM_*). The farm copies the weights it is built with:
+        a later `swap_variables` of the engine leaves it as it is."""
+        self._require_structure()
+        if not self.ef_forward:
+            raise ValueError(
+                "trajectory_farm needs ef_forward=True — the farm "
+                "integrates forces served as -dE/dpos")
+        if self._structure_rot:
+            raise ValueError(
+                "trajectory farms need Dataset.rotational_invariance off "
+                "— the incremental neighbor list tracks displacements in "
+                "the raw frame")
+        if len(self.buckets) != 1:
+            raise ValueError(
+                "trajectory_farm needs a single-bucket ladder (e.g. "
+                "md.loop.md_buckets) so every step of the farm and of the "
+                "session reference runs the same bucket shape")
+        from ..md.farm import TrajectoryFarm
+        from .config import resolve_md_farm
+        knobs = resolve_md_farm(self._structure_cfg)
+        # a consistent snapshot of the served weights: a swap lands
+        # between forwards, under the forward lock
+        with self._forward_lock:
+            self._apply_swap()
+            variables = export_jax_variables(self.model)
+        return TrajectoryFarm(
+            self.model, variables, self.mcfg, self._structure_cfg,
+            bucket=self.buckets[0], dt=dt,
+            skin=self.md_skin if skin is None else float(skin),
+            mass=mass, force_scale=force_scale,
+            steps_per_dispatch=(knobs.steps_per_dispatch
+                                if steps_per_dispatch is None
+                                else int(steps_per_dispatch)),
+            cand_headroom=(knobs.cand_headroom if cand_headroom is None
+                           else float(cand_headroom)),
+            compute_dtype=self.compute_dtype, scorer=scorer,
+            device=self.device)
 
     def submit_structure(self, positions, node_features=None, cell=None,
                          graph_feats=None,
@@ -498,7 +553,7 @@ class InferenceEngine:
                 "submit_structure needs node_features (the "
                 "Dataset.node_features layout; target columns may be "
                 "zero-filled)")
-        t0 = time.perf_counter()
+        t0 = _spans.now()
         pos = np.asarray(positions, dtype=np.float64)
         edges = None
         rebuilt = True
@@ -510,15 +565,35 @@ class InferenceEngine:
             np.asarray(node_features, dtype=np.float32), pos,
             self._structure_cfg, graph_feats=graph_feats, cell=cell,
             edges=edges, with_targets=False)
-        build_ms = (time.perf_counter() - t0) * 1e3
+        build_s = _spans.now() - t0
+        rec = _spans.current_recorder()
+        if rec is not None:
+            rec.add("serve.graph_build", t0, build_s, "serving",
+                    {"rebuilt": bool(rebuilt),
+                     "incremental": session is not None,
+                     "edges": int(sample.num_edges)})
         with self._lock:
             self.structure_requests += 1
             self.nbr_updates += 1
             if rebuilt:
                 self.nbr_rebuilds += 1
+            updates, rebuilds = self.nbr_updates, self.nbr_rebuilds
+        # two O(1) registry updates a request, as the engine's own
+        # counters
+        reg = get_registry()
+        reg.counter_inc("serve.nbr_updates_total",
+                        help="neighbor-list updates by submit_structure")
+        if rebuilt:
+            reg.counter_inc(
+                "serve.nbr_rebuilds_total",
+                help="full neighbor-list rebuilds (non-incremental "
+                     "updates) by submit_structure")
+        reg.gauge_set("serve.nbr_rebuild_fraction", rebuilds / updates,
+                      help="rebuilds over neighbor-list updates since "
+                           "engine start")
         fut = self.submit(sample, deadline_ms=deadline_ms)
         fut.rebuilt = bool(rebuilt)
-        fut.graph_build_ms = build_ms
+        fut.graph_build_ms = build_s * 1e3
         return fut
 
     def health(self) -> dict:
@@ -636,9 +711,26 @@ class InferenceEngine:
             self._forward([_Request(self._proto, Future())], bucket)
         return len(self.buckets)
 
+    def start_metrics_server(self, host: str = "127.0.0.1", port: int = 0):
+        """Serve this engine over HTTP (telemetry/http.py): GET /healthz
+        gives `health()` as JSON (200 while serving, 503 after shutdown or
+        the dispatcher's death), GET /metrics the Prometheus text of
+        `stats()` and the process registry. `port=0` binds an ephemeral
+        port; the server (`.port`, `.url`) is returned and `shutdown()`
+        stops it. Loopback by default: pass host="0.0.0.0" on purpose."""
+        if self._metrics_server is not None:
+            return self._metrics_server
+        from ..telemetry.http import serve_engine_metrics
+        self._metrics_server = serve_engine_metrics(self, host=host,
+                                                    port=port)
+        return self._metrics_server
+
     def shutdown(self, wait: bool = True):
-        """Stop accepting submissions; the dispatcher drains every queued
-        request and exits. Idempotent."""
+        """Stop accepting submissions and the metrics server; the
+        dispatcher drains every queued request and exits. Idempotent."""
+        server, self._metrics_server = self._metrics_server, None
+        if server is not None:
+            server.stop()
         with self._lock:
             if not self._closed:
                 self._closed = True
@@ -871,8 +963,28 @@ class InferenceEngine:
                 raise RuntimeError(
                     f"internal error: a coalesced batch of {len(reqs)} "
                     "requests fits no bucket")
+            # request spans: each request's queue wait (submit to
+            # dispatch), then the batch's forward and unpad; one recorder
+            # check a batch when off
+            rec = _spans.current_recorder()
+            if rec is not None:
+                t_disp = _spans.now()
+                for r in reqs:
+                    rec.add("serve.queue_wait", r.t_submit,
+                            t_disp - r.t_submit, "serving")
+                t_fwd = _spans.now()
             outs, version = self._forward(reqs, bucket)
+            if rec is not None:
+                rec.add("serve.forward", t_fwd, _spans.now() - t_fwd,
+                        "serving",
+                        {"bucket": [bucket.n_node, bucket.n_edge,
+                                    bucket.n_graph],
+                         "requests": len(reqs), "parity": self.parity})
+                t_unpad = _spans.now()
             results = self._unpad(reqs, bucket, outs)
+            if rec is not None:
+                rec.add("serve.unpad", t_unpad, _spans.now() - t_unpad,
+                        "serving")
         except Exception as e:  # noqa: BLE001 — must reach the callers
             # a failed batch resolves only its own futures; the breaker
             # decides whether to keep admitting

@@ -2045,3 +2045,77 @@ def test_structure_session_on_the_card_keeps_its_bucket(cuda_device):
     np.testing.assert_array_equal(inc["final_vel"], off["final_vel"])
     for a, b in zip(results["cuda"], results["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pbc,cap", [(True, 6), (False, None)],
+                         ids=["pbc_cap6", "open_uncapped"])
+def test_trajectory_farm_on_the_card_equals_run_md(cuda_device, pbc, cap):
+    """The trajectory farm on the card (27 LJ atoms, hidden 4, T = 3, 24
+    steps, 5 a dispatch, one CUDA graph): each trajectory equals run_md
+    through the same engine bitwise in positions and velocities, energies
+    within rtol 1e-9; T = 1 equals trajectory 0; a second run replays the
+    same graph with no capture and gives the same result; the graph's
+    replays count B3 and B4."""
+    import copy
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.md.loop import (init_lattice, lj_md_config,
+                                            maxwell_velocities, md_buckets,
+                                            run_md)
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.transforms import build_graph_sample
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    cfg = lj_md_config(radius=1.2, max_neighbours=cap, hidden_dim=4,
+                       num_conv_layers=1, num_gaussians=8)
+    cfg["NeuralNetwork"]["Architecture"][
+        "periodic_boundary_conditions"] = pbc
+    pos0, cell = init_lattice(3, 1.0, 0.05, seed=1)
+    cell = cell if pbc else None
+    n = len(pos0)
+    nf = np.ones((n, 1), np.float32)
+    frame0 = build_graph_sample(nf, pos0, cfg, cell=cell, with_targets=False)
+    done = tcfg.update_config(copy.deepcopy(cfg), [frame0])
+    mcfg = tcfg.build_model_config(done)
+    model = create_model(mcfg, device=cuda_device)
+    model.load_state_dict(load_jax_variables(random_flax_variables(
+        create_model(mcfg, device="cpu"), 8)))
+    T, S, dt = 3, 24, 0.004
+    pos = np.stack([init_lattice(3, 1.0, 0.05, seed=100 + t)[0]
+                    for t in range(T)])
+    vel = np.stack([maxwell_velocities(n, 0.3 * (t + 1), seed=200 + t)
+                    for t in range(T)])
+    kw = dict(node_features=nf, cell=cell)
+    with InferenceEngine(model, mcfg,
+                         buckets=md_buckets(n, max(frame0.num_edges, 1)),
+                         proto_sample=frame0, max_batch_size=1,
+                         max_wait_ms=0.0, structure_config=done,
+                         md_skin=0.3, ef_forward=True,
+                         device=cuda_device) as eng:
+        eng.warmup()
+        farm = eng.trajectory_farm(dt=dt, skin=0.3, steps_per_dispatch=5)
+        tk.reset_launch_counts()
+        res = farm.run(pos, vel, S, **kw)
+        counts = tk.launch_counts()
+        again = farm.run(pos, vel, S, **kw)
+        seqs = [run_md(eng, done, pos[t], vel[t], cell, nf, steps=S, dt=dt,
+                       mode="incremental", skin=0.3) for t in range(T)]
+        res1 = eng.trajectory_farm(dt=dt, skin=0.3, steps_per_dispatch=5
+                                   ).run(pos[:1], vel[:1], S, **kw)
+    assert res["fresh_compiles_run"] == 1 and again["fresh_compiles_run"] == 0
+    (cap_graph,) = farm.graphs.values()
+    assert counts["segment_sum"] >= cap_graph.launches["segment_sum"] * \
+        res["dispatches"] > 0
+    assert counts["filter_scatter"] > 0 and \
+        counts["filter_scatter_backward"] > 0
+    assert res["rebuild_swaps"] > 0
+    for t, seq in enumerate(seqs):
+        np.testing.assert_array_equal(res["final_pos"][t], seq["final_pos"])
+        np.testing.assert_array_equal(res["final_vel"][t], seq["final_vel"])
+        for key in ("energy_first", "energy_last"):
+            np.testing.assert_allclose(float(res[key][t]), seq[key],
+                                       rtol=1e-9, atol=0.0)
+    for key in ("final_pos", "final_vel", "energy_first", "energy_last"):
+        np.testing.assert_array_equal(again[key], res[key])
+        np.testing.assert_array_equal(res1[key][0], res[key][0])

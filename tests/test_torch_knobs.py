@@ -2,9 +2,10 @@
 batch packing's precedence (`utils/envflags.resolve_packing`, which
 `run_training` consults); every `Serving` knob (`serving/config.
 resolve_serving`: env over config over default, set-but-empty and
-malformed values as JAX resolves them), of which the metrics server and
-a replica fleet are still refused (ROADMAP A8) while raw-structure
-serving builds a structure engine through `run_prediction`; the fault
+malformed values as JAX resolves them), of which a replica fleet is
+still refused (ROADMAP A8) while raw-structure serving builds a
+structure engine and the metrics port starts the /metrics server
+through `run_prediction`; the fault
 plan's resolution (`utils/faults.resolve_fault_plan`: run_training
 refuses a plan, naming A5.6, exactly where JAX's resolution yields one)
 and run_prediction's HYDRAGNN_DUMP_TESTDATA dump."""
@@ -134,8 +135,9 @@ def test_run_training_packing_follows_the_env(clean_env, config, env, packs):
         assert history[k] == [stats[k]], k
 
 
-# (Serving block, env) -> refused; each refused case is one the JAX
-# package acts on (its run_prediction starts the server or the router)
+# (Serving block, env) -> whether the JAX package's run_prediction acts
+# on it (starts the metrics server or the router); the port refuses the
+# router only
 SERVING_CASES = [
     ({"metrics_port": 9100}, {}, True),
     ({}, {"HYDRAGNN_SERVE_METRICS_PORT": "9100"}, True),
@@ -161,19 +163,20 @@ SERVING_CASES = [
 ]
 
 
-@pytest.mark.parametrize("block,env,refused", SERVING_CASES)
+@pytest.mark.parametrize("block,env,acts", SERVING_CASES)
 def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
-                                                refused):
-    """metrics_port > 0 and fleet.replicas > 1, by the config block or
-    the env, raise NotImplementedError naming A8 exactly where the JAX
-    package's resolution turns them on; structure, max_queue,
-    deadline_ms and breaker_* resolve."""
+                                                acts):
+    """fleet.replicas > 1, by the config block or the env, raises
+    NotImplementedError naming A8 exactly where the JAX package's
+    resolution turns the router on; metrics_port (the /metrics server,
+    ported), structure, max_queue, deadline_ms and breaker_* resolve to
+    the JAX package's values."""
     for name, value in env.items():
         clean_env.setenv(name, value)
     cfg = {"Serving": block}
     j = j_resolve_serving(cfg)
-    acts = j.metrics_port > 0 or j_resolve_fleet(cfg).replicas > 1
-    assert acts == refused
+    assert acts == (j.metrics_port > 0 or j_resolve_fleet(cfg).replicas > 1)
+    refused = j_resolve_fleet(cfg).replicas > 1
     if refused:
         with pytest.raises(NotImplementedError, match="A8"):
             resolve_serving(cfg)
@@ -275,14 +278,18 @@ def test_serving_structure_builds_a_structure_engine(clean_env,
 
 def test_run_prediction_refuses_the_metrics_server_before_any_work(
         clean_env):
-    """run_prediction resolves the serving knobs first: a metrics port
-    raises before the model, the weights or the data are touched."""
+    """run_prediction resolves the serving knobs first: a replica fleet
+    raises before the model, the weights or the data are touched; the
+    metrics server is ported, so a metrics port resolves (and serves,
+    tests/test_torch_telemetry.py)."""
     from hydragnn_tpu_torch import run_prediction
     from tests.utils import make_config
     cfg = make_config("PNA")
-    cfg["Serving"] = {"metrics_port": 9100}
+    cfg["Serving"] = {"metrics_port": 9100, "fleet": {"replicas": 2}}
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(cfg, datasets=([], [], []), device="cpu")
+    assert resolve_serving({"Serving": {"metrics_port": 9100}}
+                           ).metrics_port == 9100
 
 
 # (Training.fault_plan, HYDRAGNN_FAULT_PLAN) -> whether a plan resolves

@@ -270,5 +270,15 @@ def test_structure_serving_requires_its_config(lj_md):
     with _engine(lj) as eng:
         with pytest.raises(ValueError, match="node_features"):
             eng.submit_structure(lj["pos0"])
+        # the farm is ported (tests/test_torch_md_farm.py); its scorer
+        # (md/active.py) is not
         with pytest.raises(NotImplementedError, match="A10"):
+            eng.trajectory_farm(dt=0.005, scorer=object())
+    eng = InferenceEngine(
+        lj["model"], lj["mcfg"], buckets=md_buckets(64, 4000),
+        proto_sample=lj["frame0"], ef_forward=True, device="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="structure_config"):
             eng.trajectory_farm(dt=0.005)
+    finally:
+        eng.shutdown()

@@ -195,6 +195,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "hydragnn_tpu_torch.graphs.neighborlist, "
             "hydragnn_tpu_torch.md.integrator, "
             "hydragnn_tpu_torch.md.loop, "
+            "hydragnn_tpu_torch.md.farm, "
+            "hydragnn_tpu_torch.telemetry.registry, "
+            "hydragnn_tpu_torch.telemetry.spans, "
+            "hydragnn_tpu_torch.telemetry.http, "
             "hydragnn_tpu_torch.utils.faults, "
             "hydragnn_tpu_torch.serving.config; "
             "bad = [m for m in sys.modules if m == 'jax' "
