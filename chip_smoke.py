@@ -234,6 +234,39 @@ Phases:
    counters equal the runs'; B4 and B3 at both T-fold batches against
    their plain versions on exact dyadic data, bitwise, with device
    time, bound and `index_add`'s time.
+14. The serving fleet (`fleet_phase`, serving/fleet.py, publish.py,
+   autoscale.py): phase 3's csce PNA engine configuration and weights
+   (edge list, max_batch_size 128) behind a ReplicaRouter of 2 engines
+   on the card, each number beside the card's name and power limit.
+   First `run_prediction` with `Serving.fleet.replicas` 2 and a compile
+   store, held against phase 3's single-engine run within rtol 1e-4 /
+   atol 1e-5 (its bitwise equality printed). (a) The replicas share a
+   CompileStore in a temporary directory: replica 0 compiles every
+   bucket fresh, replica 1 takes every bucket from the store; a burst of
+   824 requests through the router, each result bitwise the single
+   engine's forward on the bucket it was served on; whether a request's
+   result is the same on every bucket that fits it; then 40 bursts
+   through the fleet and through the single engine, alternating:
+   requests/s, p50, p99. (d) A child process (`--fleet-replica`) points
+   `_build.BUILD_ROOT` at an empty directory, warms one replica from the
+   store and serves 256 requests: held 0 nvcc runs, every bucket a store
+   hit, results bitwise (a)'s. (b) Seeded Poisson arrivals at 0.5 x the
+   fleet's rate with `replica-kill` injected 0.6 s in, and 3
+   kill-and-restart cycles under the stream (each capture next to the
+   other replica's replays): every future resolves once with a result,
+   redispatches and dropped duplicates counted, each restart 0 fresh,
+   the reserved memory after the last cycle within one replica's ladder
+   of the first's. (c) `hot_swap` to a second seeded weight set under
+   the stream, then `swap-fail@0,1`: both versions echoed, the new one
+   after the swap and after the failed one, no request failed, results
+   bitwise a single engine's on the new weights. (e) Two BEST
+   checkpoints through `save_model`: 3 SGD steps from the served weights
+   (their running statistics kept) and the same with NaN weights; the
+   CheckpointPublisher promotes the first and rolls back and
+   quarantines the second under a stream; then a burst of 4 x 824
+   requests, one QueueDepthAutoscaler step up (`add_replica` on the
+   published version, warmed from the store) and one down after it.
+   Every part holds B2 and B3 launched.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -242,7 +275,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `farm: {...}` (phase 13), a
+name and power limit, and before it a `fleet: {...}` (phase 14), a
+`farm: {...}` (phase 13), a
 `serving: {...}` (phase 12) and a `training: {...}` JSON line. Any
 failure exits non-zero without the last
 line.
@@ -251,7 +285,9 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4464,6 +4500,617 @@ def farm_phase(torch, device, card, counted, lj_state, session_rates):
     return rec, fs_shapes, seg_shapes
 
 
+# ----------------------------------------------------------- phase 14 --
+FLEET_REPLICAS = 2
+FLEET_BURSTS = 40              # closed-loop bursts, fleet and single each
+FLEET_OPEN_S = 5.0             # seconds of open-loop arrivals with faults
+FLEET_OPEN_RATE = 0.5          # of the fleet's closed-loop rate
+FLEET_KILL_AT = 0.6            # the injected kill, seconds into the stream
+FLEET_CYCLES = 3               # kill-and-restart cycles under the stream
+FLEET_CYCLE_GAP_S = 0.5        # stream seconds between two cycles
+FLEET_CHILD_REQUESTS = 256     # the fresh process's burst
+FLEET_SWAP_S = 1.5             # stream seconds around each hot swap
+PUBLISH_STEPS = 3              # SGD steps of the good candidate
+PUBLISH_LR = 1e-5
+AUTOSCALE_BURSTS = 4           # bursts of the repeated test split at once
+
+
+def csce_setup(torch):
+    """Phase 3's csce PNA data, completed config and seeded weights:
+    (base config, splits, model config, Flax variables)."""
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.utils.weights import random_flax_variables
+    with open(CSCE_CONFIG) as fh:
+        base_cfg = json.load(fh)
+    samples = synthetic_molecules(NUM_MOLECULES, seed=SEED)
+    n_tr = int(0.6 * NUM_MOLECULES)
+    n_va = int(0.2 * NUM_MOLECULES)
+    splits = (samples[:n_tr], samples[n_tr:n_tr + n_va],
+              samples[n_tr + n_va:])
+    cfg = tcfg.update_config(copy.deepcopy(base_cfg), *splits)
+    mcfg = tcfg.build_model_config(cfg)
+    variables = random_flax_variables(create_model(mcfg, device="cpu"), SEED)
+    return base_cfg, splits, mcfg, variables
+
+
+def csce_engine_factory(mcfg, test, variables, device, store=None):
+    """factory(idx) of phase 3's engine configuration (edge list,
+    max_batch_size SERVE_MAX_BATCH), each with its own model copy."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+
+    def make(idx=0):
+        model = create_model(mcfg, device=device)
+        model.load_state_dict(load_jax_variables(variables))
+        return InferenceEngine(model, mcfg, reference_samples=test,
+                               max_batch_size=SERVE_MAX_BATCH,
+                               neighbor_format=False, compile_store=store,
+                               model_version="v0", device=device)
+    return make
+
+
+def bucket_name(b) -> str:
+    return f"{b.n_node}x{b.n_edge}x{b.n_graph}"
+
+
+class FleetStream:
+    """Seeded Poisson arrivals at `rate` requests/s through `router` on a
+    thread, cycling through `requests`, until `stop()`; each future is
+    tallied by a done-callback (a future resolves once, so the tally
+    equals the futures once all resolved)."""
+
+    def __init__(self, router, requests, rate, seed):
+        import threading
+        self.router, self.requests, self.rate = router, requests, rate
+        self.rng = np.random.default_rng(seed)
+        self.futs = []
+        self.resolved = 0
+        self.errors = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self._thread.start()
+        return self
+
+    def _tally(self, fut):
+        exc = fut.exception()
+        with self._lock:
+            self.resolved += 1
+            if exc is not None:
+                self.errors.append(repr(exc))
+
+    def _run(self):
+        at, i = 0.0, 0
+        while not self._stop.is_set():
+            at += self.rng.exponential(1.0 / self.rate)
+            delay = at - (time.perf_counter() - self.t0)
+            if delay > 0:
+                time.sleep(delay)
+            fut = self.router.submit(self.requests[i % len(self.requests)])
+            fut.add_done_callback(self._tally)
+            self.futs.append(fut)
+            i += 1
+
+    def stop(self, timeout=600):
+        self._stop.set()
+        self._thread.join()
+        self.seconds = time.perf_counter() - self.t0
+        t_wait = time.perf_counter()
+        while True:
+            with self._lock:
+                if self.resolved == len(self.futs):
+                    break
+            if time.perf_counter() - t_wait > timeout:
+                fail(f"fleet stream: {len(self.futs) - self.resolved} "
+                     "futures unresolved")
+            time.sleep(0.005)
+        return self.futs
+
+
+def fleet_closed_loop(router, single, requests, card):
+    """(a)'s bursts: FLEET_BURSTS of the repeated test split through the
+    router and through the single engine, alternating; requests/s over
+    the walls, p50/p99 over every request of each, and the host ms the
+    caller spends submitting a burst (the router's routing on top of
+    the engine's admission)."""
+    walls = {"fleet": [], "single": []}
+    submit_ms = {"fleet": [], "single": []}
+    router.reset_stats()
+    single.reset_stats()
+    for _ in range(FLEET_BURSTS):
+        for name, server in (("fleet", router), ("single", single)):
+            t0 = time.perf_counter()
+            futs = [server.submit(s) for s in requests]
+            submit_ms[name].append((time.perf_counter() - t0) * 1e3)
+            for f in futs:
+                f.result(timeout=600)
+            walls[name].append(time.perf_counter() - t0)
+    out = {}
+    for name, st in (("fleet", router.stats()), ("single", single.stats())):
+        total = len(requests) * FLEET_BURSTS
+        out[name] = dict(requests_per_s=total / sum(walls[name]),
+                         median_burst_requests_per_s=len(requests)
+                         / float(np.median(walls[name])),
+                         p50_ms=st["p50_ms"], p99_ms=st["p99_ms"],
+                         batches=st["batches"], count=st["count"],
+                         submit_ms_median=float(np.median(submit_ms[name])))
+        if st["count"] != total:
+            fail(f"fleet closed loop: {name} recorded {st['count']} "
+                 f"latencies for {total} requests")
+    out["per_replica_requests"] = {
+        i: st["requests"] for i, st in router.stats()["replicas"].items()}
+    print(f"phase 14a: closed loop, {FLEET_BURSTS} bursts of "
+          f"{len(requests)} each: fleet of {FLEET_REPLICAS} "
+          f"{out['fleet']['requests_per_s']:.1f} requests/s (median burst "
+          f"{out['fleet']['median_burst_requests_per_s']:.1f}), p50 "
+          f"{out['fleet']['p50_ms']:.3f} ms, p99 {out['fleet']['p99_ms']:.3f}"
+          f" ms, {out['fleet']['batches']} batches, submitting a burst "
+          f"{out['fleet']['submit_ms_median']:.2f} ms "
+          f"({out['per_replica_requests']} by replica); single engine "
+          f"{out['single']['requests_per_s']:.1f} requests/s (median burst "
+          f"{out['single']['median_burst_requests_per_s']:.1f}), p50 "
+          f"{out['single']['p50_ms']:.3f} ms, p99 "
+          f"{out['single']['p99_ms']:.3f} ms, {out['single']['batches']} "
+          f"batches, submitting {out['single']['submit_ms_median']:.2f} ms "
+          f"(card: {card})", flush=True)
+    return out
+
+
+def fleet_child(store_dir: str, out_path: str) -> int:
+    """(d) in a fresh process: the kernel build root points at an empty
+    temporary directory, one replica warms from the populated store and
+    serves a burst; writes its results, buckets, nvcc runs and compile
+    counts to `out_path` (npz + json)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.kernels import _build
+    from hydragnn_tpu_torch.utils.devices import CompileStore
+    empty = tempfile.mkdtemp(prefix="hydragnn_build_")
+    _build.BUILD_ROOT = Path(empty)
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    _, splits, mcfg, variables = csce_setup(torch)
+    test = splits[2]
+    requests = (test * ENGINE_REPEATS)[:FLEET_CHILD_REQUESTS]
+    make = csce_engine_factory(mcfg, test, variables, device,
+                               CompileStore(store_dir))
+    with make() as engine:
+        t_warm = time.perf_counter()
+        engine.warmup()
+        warm_s = time.perf_counter() - t_warm
+        tk.reset_launch_counts()
+        futs = [engine.submit(s) for s in requests]
+        res = [f.result(timeout=600)[0] for f in futs]
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        st = engine.stats()
+    np.savez(out_path + ".npz", out=np.stack(res),
+             buckets=np.array([[f.bucket.n_node, f.bucket.n_edge,
+                                f.bucket.n_graph] for f in futs]))
+    installed = sorted(p.name for p in Path(empty).rglob("*.so"))
+    with open(out_path + ".json", "w") as fh:
+        json.dump(dict(nvcc_runs=_build.nvcc_runs,
+                       compile_count=st["compile_count"],
+                       compile_store_hits=st["compile_store_hits"],
+                       compile_fresh=st["compile_fresh"],
+                       captures=st["captures"], launches=counts,
+                       installed=installed, warmup_s=warm_s,
+                       seconds=time.perf_counter() - t0), fh)
+    return 0
+
+
+def sgd_candidate(torch, mcfg, variables, batch, device, steps, lr):
+    """`steps` SGD steps (lr) from `variables` on `batch` through the
+    port's train step, with the running statistics put back to the
+    served ones: (TrainState, its Flax tree)."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_train_step)
+    from hydragnn_tpu_torch.utils.weights import (export_jax_variables,
+                                                  load_jax_variables)
+    model = create_model(mcfg, device=device)
+    model.load_state_dict(load_jax_variables(variables))
+    tx = select_optimizer({"Optimizer": {"type": "SGD",
+                                         "learning_rate": lr}})
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, mcfg, tx)
+    for _ in range(steps):
+        state, _ = step.eager(state, batch)
+    served = load_jax_variables(variables)
+    with torch.no_grad():
+        for name, t in state.batch_stats.items():
+            t.copy_(served[name])
+    model.eval()
+    return state, export_jax_variables(state)
+
+
+def fleet_phase(torch, device, card, counted, csce):
+    """Phase 14: csce PNA through a ReplicaRouter of FLEET_REPLICAS
+    engines (phase 3's configuration and weights) on the card."""
+    import gc
+    import shutil
+    import tempfile
+
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.graphs.batch import collate
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.autoscale import QueueDepthAutoscaler
+    from hydragnn_tpu_torch.serving.config import (AutoscaleConfig,
+                                                   resolve_publish)
+    from hydragnn_tpu_torch.serving.fleet import (ReplicaRouter,
+                                                  SwapFailedError)
+    from hydragnn_tpu_torch.serving.publish import CheckpointPublisher
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    from hydragnn_tpu_torch.utils.checkpoint import save_model
+    from hydragnn_tpu_torch.utils.devices import CompileStore
+    from hydragnn_tpu_torch.utils.faults import (install_fault_plan,
+                                                 parse_fault_plan)
+    from hydragnn_tpu_torch.utils.weights import random_flax_variables
+    t_phase = time.perf_counter()
+    mcfg, test, v0 = csce["mcfg"], csce["test"], csce["variables"]
+    requests = csce["requests"]
+    v1 = random_flax_variables(create_model(mcfg, device="cpu"), SEED + 1)
+    tmp = tempfile.mkdtemp(prefix="hydragnn_fleet_")
+    store_dir = f"{tmp}/store"
+    store = CompileStore(store_dir)
+    rec = {}
+
+    def count(label, need=("pna_edge_aggregate", "segment_sum")):
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        for name in need:
+            if counts[name] == 0:
+                fail(f"fleet {label}: {name} never launched")
+        return counts
+
+    try:
+        # run_prediction through two replicas sharing a store
+        fleet_cfg = copy.deepcopy(csce["base_cfg"])
+        fleet_cfg["Serving"] = {"max_batch_size": SERVE_MAX_BATCH,
+                                "fleet": {"replicas": FLEET_REPLICAS,
+                                          "compile_store": f"{tmp}/rp"}}
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, preds_f = run_prediction(fleet_cfg, csce["splits"], v0,
+                                    serve=True)
+        rp_s = time.perf_counter() - t0
+        rp_counts = count("run_prediction", ("nbr_aggregate", "segment_sum"))
+        diff = float(np.abs(preds_f[0] - csce["preds"][0]).max())
+        rp_bitwise = bool(np.array_equal(preds_f[0], csce["preds"][0]))
+        # a request's result depends on its bucket on the card (14a's
+        # probe) and the batches a run forms depend on timing: held
+        # within SLICE_TOL, its bitwise equality printed
+        if preds_f[0].shape != csce["preds"][0].shape or not np.allclose(
+                preds_f[0], csce["preds"][0], **SLICE_TOL):
+            fail(f"run_prediction through the fleet vs the single engine: "
+                 f"max abs diff {diff}")
+        rec["run_prediction"] = dict(
+            seconds=rp_s, bitwise_single_engine=rp_bitwise,
+            max_abs_diff_single_engine=diff, launches=rp_counts,
+            store_entries=len(os.listdir(f"{tmp}/rp")))
+        print(f"phase 14: run_prediction with Serving.fleet.replicas "
+              f"{FLEET_REPLICAS} and a compile store: {rp_s:.2f} s, "
+              f"{rec['run_prediction']['store_entries']} store entries; vs "
+              f"phase 3's single-engine run_prediction: bitwise "
+              f"{rp_bitwise}, max abs diff {diff:.3e}; launches {rp_counts}"
+              f" (card: {card})", flush=True)
+
+        # (a) warm-up from the store, the closed loop, bitwise holds
+        single = csce_engine_factory(mcfg, test, v0, device)()
+        single.warmup()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = torch.cuda.memory_reserved(device)
+        router = ReplicaRouter(
+            csce_engine_factory(mcfg, test, v0, device, store),
+            FLEET_REPLICAS)
+        reports = router.warmup()
+        torch.cuda.synchronize()
+        ladder = (torch.cuda.memory_reserved(device) - mem0) / FLEET_REPLICAS
+        if not (reports[0]["fresh"] == reports[0]["compiled"] > 0
+                and reports[1]["store_hits"] == reports[1]["compiled"]
+                and reports[1]["fresh"] == 0):
+            fail(f"fleet warm-up reports {reports}")
+        print(f"phase 14a: warm-up reports {reports}; one replica's ladder "
+              f"{ladder / 2**20:.1f} MiB reserved (card: {card})",
+              flush=True)
+        tk.reset_launch_counts()
+        futs = [router.submit(s) for s in requests]
+        first = [f.result(timeout=600) for f in futs]
+        a_counts = count("closed loop")
+        refs = {}
+
+        def reference(i, bucket):
+            key = (i % len(test), bucket)
+            if key not in refs:
+                refs[key] = single.forward_single(test[i % len(test)],
+                                                  bucket=bucket)
+            return refs[key]
+        mismatched = sum(
+            not all(np.array_equal(a, b) for a, b in
+                    zip(res, reference(i, f.bucket)))
+            for i, (f, res) in enumerate(zip(futs, first)))
+        if mismatched:
+            fail(f"fleet: {mismatched} of {len(futs)} results differ from "
+                 "the single engine's forward on their bucket")
+        by_replica = {r: sum(f.replica == r for f in futs)
+                      for r in range(FLEET_REPLICAS)}
+        # is a request's result the same on every bucket that fits it?
+        invariant = True
+        for s in test[:8]:
+            outs = [single.forward_single(s, bucket=b)[0]
+                    for b in single.buckets
+                    if s.num_nodes <= b.cap_nodes
+                    and s.num_edges <= b.cap_edges]
+            invariant &= all(np.array_equal(outs[0], o) for o in outs)
+        closed = fleet_closed_loop(router, single, requests, card)
+        rec["a"] = dict(warmup=reports, ladder_bytes=ladder,
+                        bitwise_requests=len(futs),
+                        buckets_checked=sorted({bucket_name(b)
+                                                for _, b in refs}),
+                        by_replica=by_replica, launches=a_counts,
+                        bucket_invariant=bool(invariant), **closed)
+        print(f"phase 14a: {len(futs)} routed results bitwise the single "
+              f"engine's forward on their bucket ({by_replica} by replica, "
+              f"{len(rec['a']['buckets_checked'])} buckets); a request's "
+              f"result equal on every bucket that fits it: {invariant}; "
+              f"launches {a_counts} (card: {card})", flush=True)
+
+        # (d) a fresh process warms a replica from the populated store
+        t0 = time.perf_counter()
+        out_path = f"{tmp}/child"
+        child = subprocess.run(
+            [sys.executable, __file__, "--fleet-replica", store_dir,
+             out_path], capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            fail(f"fleet child exited {child.returncode}: "
+                 f"{child.stderr[-3000:]}")
+        with open(out_path + ".json") as fh:
+            d = json.load(fh)
+        got = np.load(out_path + ".npz")
+        bmap = {(b.n_node, b.n_edge, b.n_graph): b for b in single.buckets}
+        diff_d = 0
+        for i, (out, bk) in enumerate(zip(got["out"], got["buckets"])):
+            want = reference(i, bmap[tuple(int(x) for x in bk)])[0]
+            diff_d += not np.array_equal(out, want)
+        if d["nvcc_runs"] != 0 or d["compile_fresh"] != 0 or \
+                d["compile_store_hits"] != d["compile_count"] or diff_d or \
+                d["launches"]["pna_edge_aggregate"] == 0 or \
+                d["launches"]["segment_sum"] == 0:
+            fail(f"fleet fresh process: {d}, {diff_d} results differ")
+        rec["d"] = dict(d, bitwise_requests=len(got["out"]),
+                        wall_s=time.perf_counter() - t0)
+        print(f"phase 14d: a fresh process with an empty build root: "
+              f"{d['nvcc_runs']} nvcc runs, {d['compile_store_hits']} of "
+              f"{d['compile_count']} buckets from the store, "
+              f"{len(d['installed'])} libraries installed, warm-up "
+              f"{d['warmup_s']:.2f} s, {len(got['out'])} results bitwise "
+              f"(a)'s, launches {d['launches']}; {rec['d']['wall_s']:.1f} s "
+              f"(card: {card})", flush=True)
+
+        # (b) open loop at FLEET_OPEN_RATE x the closed-loop rate: an
+        # injected replica-kill, then restarts under the stream
+        rate = FLEET_OPEN_RATE * closed["fleet"]["requests_per_s"]
+        install_fault_plan(parse_fault_plan(
+            f"replica-kill@{int(rate * FLEET_KILL_AT)}"))
+        router.reset_stats()
+        before = router.health()
+        tk.reset_launch_counts()
+        stream = FleetStream(router, requests, rate, SEED + 14).start()
+        restarts, reserved = [], []
+        for cycle in range(FLEET_CYCLES):
+            if cycle:
+                time.sleep(FLEET_CYCLE_GAP_S)
+                router.kill_replica(1)
+            t_wait = time.perf_counter()
+            while router.kill_count <= before["kills"] + cycle:
+                if time.perf_counter() - t_wait > 60:
+                    fail("fleet: the injected replica-kill never fired")
+                time.sleep(0.001)
+            dead = [i for i, h in router.health()["replicas"].items()
+                    if not h["alive"]]
+            old = router._replicas[int(dead[0])].engine
+            restarts.append(router.restart_replica(int(dead[0])))
+            old._dispatcher.join(timeout=60)
+            reserved.append(torch.cuda.memory_reserved(device))
+        install_fault_plan(None)
+        rest = FLEET_OPEN_S - (time.perf_counter() - stream.t0)
+        if rest > 0:
+            time.sleep(rest)
+        futs = stream.stop()
+        b_counts = count("open loop")
+        health, stats = router.health(), router.stats()
+        done = health["requests_done"] - before["requests_done"]
+        rec["b"] = dict(
+            offered_per_s=rate, seconds=stream.seconds, offered=len(futs),
+            resolved_callbacks=stream.resolved, requests_done=done,
+            failed=len(stream.errors), errors=stream.errors[:5],
+            redispatches=health["redispatches"] - before["redispatches"],
+            duplicate_resolutions=health["duplicate_resolutions"]
+            - before["duplicate_resolutions"],
+            stale_failures=health["stale_failures"]
+            - before["stale_failures"],
+            kills=health["kills"] - before["kills"],
+            restarts=restarts, reserved_bytes=reserved,
+            p50_ms=stats["p50_ms"], p99_ms=stats["p99_ms"],
+            launches=b_counts)
+        print(f"phase 14b: open loop {rate:.1f} requests/s for "
+              f"{stream.seconds:.2f} s with replica-kill and "
+              f"{FLEET_CYCLES} kill-and-restart cycles: offered "
+              f"{len(futs)}, resolved {stream.resolved} (router "
+              f"{done}), failed {len(stream.errors)}, redispatches "
+              f"{rec['b']['redispatches']}, duplicate resolutions dropped "
+              f"{rec['b']['duplicate_resolutions']}, stale failures "
+              f"{rec['b']['stale_failures']}; restarts fresh "
+              f"{[r['fresh'] for r in restarts]}, store hits "
+              f"{[r['store_hits'] for r in restarts]}, warm-up s "
+              f"{[round(r['warmup_s'], 3) for r in restarts]}; reserved MiB "
+              f"after each cycle {[round(m / 2**20, 1) for m in reserved]}"
+              f" (one ladder {ladder / 2**20:.1f}); p50 {stats['p50_ms']:.3f}"
+              f" ms p99 {stats['p99_ms']:.3f} ms (card: {card})", flush=True)
+        if stream.errors or done != len(futs) or \
+                stream.resolved != len(futs) or \
+                rec["b"]["kills"] != FLEET_CYCLES or \
+                any(r["fresh"] for r in restarts) or \
+                reserved[-1] - reserved[0] > ladder:
+            fail(f"fleet open loop: {rec['b']}")
+
+        # (c) hot swap mid-stream, then an injected swap-fail
+        single.swap_variables(v1, "v1")
+        tk.reset_launch_counts()
+        stream = FleetStream(router, requests, rate, SEED + 15).start()
+        time.sleep(FLEET_SWAP_S)
+        swap = router.hot_swap(v1, "v1")
+        n_after = len(stream.futs)
+        time.sleep(FLEET_SWAP_S)
+        install_fault_plan(parse_fault_plan("swap-fail@0,1"))
+        try:
+            router.hot_swap(v0, "v0-bad")
+            fail("fleet: the swap-fail injection did not fail the swap")
+        except SwapFailedError as exc:
+            swap_fail = exc.report
+        install_fault_plan(None)
+        n_refused = len(stream.futs)
+        time.sleep(FLEET_SWAP_S)
+        futs = stream.stop()
+        c_counts = count("hot swap")
+        versions = [f.model_version for f in futs if f.exception() is None]
+        late = [f for f in futs[n_after:]]
+        post = [(i, f) for i, f in enumerate(futs) if i >= n_after][:16]
+        swapped = sum(
+            not all(np.array_equal(a, b) for a, b in zip(
+                f.result(), single.forward_single(
+                    requests[i % len(requests)], bucket=f.bucket)))
+            for i, f in post)
+        rec["c"] = dict(
+            requests=len(futs), failed=len(stream.errors),
+            versions=sorted(set(versions)),
+            after_swap_versions=sorted({f.model_version for f in late}),
+            after_swap_fail_versions=sorted(
+                {f.model_version for f in futs[n_refused:]}),
+            swap=swap, swap_fail=swap_fail,
+            bitwise_after_swap=len(post) - swapped, launches=c_counts)
+        print(f"phase 14c: hot swap to v1 under {rate:.1f} requests/s: "
+              f"{len(futs)} requests, failed {len(stream.errors)}, versions "
+              f"echoed {rec['c']['versions']}, after the swap "
+              f"{rec['c']['after_swap_versions']}, after the swap-fail "
+              f"injection {rec['c']['after_swap_fail_versions']} (its "
+              f"report: failed {[f['replica'] for f in swap_fail['failed']]})"
+              f"; {len(post) - swapped} of {len(post)} post-swap results "
+              f"bitwise a v1 engine's (card: {card})", flush=True)
+        if stream.errors or rec["c"]["versions"] != ["v0", "v1"] or \
+                rec["c"]["after_swap_versions"] != ["v1"] or \
+                rec["c"]["after_swap_fail_versions"] != ["v1"] or swapped:
+            fail(f"fleet hot swap: {rec['c']}")
+        router.hot_swap(v0, "v0")
+        single.swap_variables(v0, "v0")
+
+        # (e) the publisher, then one autoscaler cycle
+        log = "fleet_publish"
+        ckpt = f"{tmp}/logs"
+        batch = collate(csce["splits"][0][:SERVE_MAX_BATCH]).to(device)
+        good, good_vars = sgd_candidate(torch, mcfg, v0, batch, device,
+                                        PUBLISH_STEPS, PUBLISH_LR)
+        save_model(good, log, path=ckpt, mark_best=True, best_val=1.0)
+        tx = select_optimizer({"Optimizer": {"type": "SGD",
+                                             "learning_rate": PUBLISH_LR}})
+        template = TrainState.create(create_model(mcfg, device=device), tx)
+        cfg = dataclasses.replace(
+            resolve_publish({}), poll_interval_s=0.05, window_pairs=16,
+            min_pairs=8)
+        pub = CheckpointPublisher(router, template, log, path=ckpt,
+                                  incumbent_variables=v0,
+                                  incumbent_version="v0", config=cfg)
+        tk.reset_launch_counts()
+        stream = FleetStream(router, requests, rate / 2, SEED + 16).start()
+        promoted = pub.poll_once()
+        with torch.no_grad():
+            for t in good.params.values():
+                t.view(-1)[0] = float("nan")
+        good.step += PUBLISH_STEPS
+        save_model(good, log, path=ckpt, mark_best=True, best_val=0.5)
+        rolled = pub.poll_once()
+        futs = stream.stop()
+        health = router.health()
+        rec["e_publish"] = dict(
+            promoted=promoted, rolled_back=rolled, snapshot=pub.snapshot(),
+            requests=len(futs), failed=len(stream.errors),
+            fleet_versions=sorted({h["model_version"] for h in
+                                   health["replicas"].values()
+                                   if h["alive"]}),
+            quarantined=health["quarantined_versions"])
+        print(f"phase 14e: publisher under {rate / 2:.1f} requests/s: "
+              f"best:step_{PUBLISH_STEPS} {promoted and promoted['action']} "
+              f"(verdict {promoted and promoted.get('verdict')}); the "
+              f"poisoned best:step_{2 * PUBLISH_STEPS} "
+              f"{rolled and rolled['action']} (max rel err "
+              f"{rolled and rolled.get('verdict', {}).get('max_rel_err')}); "
+              f"fleet on {rec['e_publish']['fleet_versions']}, quarantined "
+              f"{health['quarantined_versions']}; {len(futs)} requests, "
+              f"failed {len(stream.errors)} (card: {card})", flush=True)
+        if not promoted or promoted["action"] != "promoted" or \
+                not rolled or rolled["action"] != "rolled_back" or \
+                stream.errors or rec["e_publish"]["fleet_versions"] != \
+                [f"best:step_{PUBLISH_STEPS}"] or \
+                f"best:step_{2 * PUBLISH_STEPS}" not in \
+                health["quarantined_versions"]:
+            fail(f"fleet publisher: {rec['e_publish']}")
+        scaler = QueueDepthAutoscaler(router, config=AutoscaleConfig(
+            min_replicas=FLEET_REPLICAS, max_replicas=FLEET_REPLICAS + 1,
+            high_depth=SERVE_MAX_BATCH / 2, low_depth=0.5, cooldown_s=0.0))
+        burst = [router.submit(s) for s in requests * AUTOSCALE_BURSTS]
+        up = scaler.step()
+        added = router.health()["replicas"].get(str(FLEET_REPLICAS), {})
+        for f in burst:
+            f.exception(timeout=600)
+        down = scaler.step()
+        e_counts = count("publisher and autoscaler")
+        failed = sum(f.exception() is not None for f in burst)
+        rec["e_autoscale"] = dict(
+            scale_up=up, scale_down=down, snapshot=scaler.snapshot(),
+            added_version=added.get("model_version"),
+            burst=len(burst), failed=failed,
+            served_by=sorted({f.replica for f in burst
+                              if f.exception() is None}),
+            launches=e_counts)
+        print(f"phase 14e: autoscaler under a burst of {len(burst)}: "
+              f"{up and up['action']} (replica {up and up['replica']}, "
+              f"signal {up and up['avg_depth']}, fresh compiles "
+              f"{up and up['fresh_compiles']}, warm-up "
+              f"{up and round(up['warmup_s'], 3)} s, joined on "
+              f"{added.get('model_version')}), then {down and down['action']}"
+              f" (replica {down and down['replica']}); burst served by "
+              f"replicas {rec['e_autoscale']['served_by']}, failed {failed}"
+              f" (card: {card})", flush=True)
+        if not up or up["action"] != "scale_up" or up["fresh_compiles"] or \
+                added.get("model_version") != f"best:step_{PUBLISH_STEPS}" \
+                or not down or down["action"] != "scale_down" or failed:
+            fail(f"fleet autoscaler: {rec['e_autoscale']}")
+        router.shutdown()
+        single.shutdown()
+        rec["store"] = store.stats()
+    finally:
+        install_fault_plan(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 14 took {rec['seconds']:.1f} s (card: {card})", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4484,15 +5131,13 @@ def main() -> int:
                                                  BucketSpec,
                                                  with_neighbor_format)
     from hydragnn_tpu_torch.graphs.packing import sample_sizes
-    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
     from hydragnn_tpu_torch.kernels import _build
     from hydragnn_tpu_torch.models.create import create_model
     from hydragnn_tpu_torch.serving.engine import (InferenceEngine,
                                                    bucket_ladder,
                                                    select_bucket)
     from hydragnn_tpu_torch.utils.devices import resolve_device
-    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
-                                                  random_flax_variables)
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
 
     # ---------------------------------------------------------- phase 1
     card = card_line()
@@ -4510,22 +5155,16 @@ def main() -> int:
             print(f"  [{stem}] {line}", flush=True)
 
     # ------------------------------------------------------------ data
-    with open(CSCE_CONFIG) as fh:
-        base_cfg = json.load(fh)
-    samples = synthetic_molecules(NUM_MOLECULES, seed=SEED)
-    n_tr = int(0.6 * NUM_MOLECULES)
-    n_va = int(0.2 * NUM_MOLECULES)
-    splits = (samples[:n_tr], samples[n_tr:n_tr + n_va],
-              samples[n_tr + n_va:])
+    base_cfg, splits, mcfg, variables = csce_setup(torch)
+    samples = [s for split in splits for s in split]
+    n_tr, n_va = len(splits[0]), len(splits[1])
     test = splits[2]
     cfg = tcfg.update_config(copy.deepcopy(base_cfg), *splits)
-    mcfg = tcfg.build_model_config(cfg)
     batch_size = int(cfg["NeuralNetwork"]["Training"]["batch_size"])
     print(f"model: {mcfg.model_type} hidden={mcfg.hidden_dim} "
           f"layers={mcfg.num_conv_layers} input_dim={mcfg.input_dim} "
           f"max_neighbours={cfg['NeuralNetwork']['Architecture']['max_neighbours']} "
           f"batch_size={batch_size} test_requests={len(test)}", flush=True)
-    variables = random_flax_variables(create_model(mcfg, device="cpu"), SEED)
 
     # the batches the serving paths hand the kernels: the largest bucket
     # with SERVE_MAX_BATCH requests, on each layout
@@ -4868,12 +5507,22 @@ def main() -> int:
         for name, c in run["launches"].items():
             farm_launches[name] = farm_launches.get(name, 0) + c
 
+    # ---------------------------------------------------------- phase 14
+    fleet = fleet_phase(torch, device, card, counted,
+                        dict(csce, base_cfg=base_cfg, splits=splits,
+                             preds=preds))
+    fleet_launches = {}
+    for part in ("a", "b", "c"):
+        for name, c in fleet[part]["launches"].items():
+            fleet_launches[name] = fleet_launches.get(name, 0) + c
+
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
           flush=True)
     print("serving: " + json.dumps(dict(serving, card=card)), flush=True)
     print("farm: " + json.dumps(dict(farm, card=card)), flush=True)
+    print("fleet: " + json.dumps(dict(fleet, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -4906,6 +5555,8 @@ def main() -> int:
         extra["launches_per_captured_step"] = per_captured_step(name)
         if name in serving["md"]["launches"]:
             extra["launches_md_path"] = serving["md"]["launches"][name]
+        if fleet_launches.get(name):
+            extra["launches_fleet_path"] = fleet_launches[name]
         if farm_launches.get(name):
             extra["launches_farm_path"] = farm_launches[name]
             if name == "filter_scatter":
@@ -4944,4 +5595,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fleet-replica"]:
+        sys.exit(fleet_child(*sys.argv[2:4]))
     sys.exit(main())

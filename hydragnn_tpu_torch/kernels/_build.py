@@ -7,6 +7,12 @@ per source, all started together. Libraries land in
 of the sources and the flags, so an edited source rebuilds and an
 unchanged one loads from disk. A missing `nvcc` or a failed compile raises
 with the compiler's output. Importing this module builds nothing.
+
+A compile store (`utils/devices.CompileStore`) carries the built
+libraries to another checkout or process: `export_libraries()` gives them
+and their build logs as bytes, `install_libraries(payload)` writes them
+into the digest directory, where `build_all` then finds them and runs no
+`nvcc`; `nvcc_runs` counts the compiler processes this process started.
 """
 from __future__ import annotations
 
@@ -16,7 +22,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
@@ -32,6 +38,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # kept beside each library as lib<stem>.log and read back when the
 # library is loaded from disk
 build_log: Dict[str, str] = {}
+# nvcc processes started by this process
+nvcc_runs = 0
 
 
 def _nvcc() -> str:
@@ -76,12 +84,70 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         return _libs
 
 
+def export_libraries() -> Dict[str, Any]:
+    """The libraries of this checkout's sources (built first if needed)
+    and their build logs: {"digest": the sources' digest, "libs": {stem:
+    bytes of lib<stem>.so}, "logs": {stem: text}}."""
+    build_all()
+    out_dir = BUILD_ROOT / _source_digest()
+    stems = sorted(s.stem for s in CSRC_DIR.glob("*.cu"))
+    logs = {}
+    for stem in stems:
+        log = out_dir / f"lib{stem}.log"
+        logs[stem] = log.read_text() if log.exists() else ""
+    return {"digest": _source_digest(),
+            "libs": {stem: (out_dir / f"lib{stem}.so").read_bytes()
+                     for stem in stems},
+            "logs": logs}
+
+
+def install_libraries(payload: Dict[str, Any]) -> int:
+    """Write an `export_libraries` payload into this checkout's digest
+    directory (each file atomically; a library already there is kept);
+    returns the number of libraries written. Raises ValueError for a
+    payload of other sources or flags (another digest) or one that lacks
+    a source's library."""
+    digest = _source_digest()
+    if payload.get("digest") != digest:
+        raise ValueError(f"kernel libraries of sources "
+                         f"{payload.get('digest')!r}, this checkout's are "
+                         f"{digest!r}")
+    stems = sorted(s.stem for s in CSRC_DIR.glob("*.cu"))
+    libs, logs = payload.get("libs") or {}, payload.get("logs") or {}
+    missing = [stem for stem in stems
+               if not isinstance(libs.get(stem), bytes)]
+    if missing:
+        raise ValueError(f"kernel libraries missing from the payload: "
+                         f"{missing}")
+    out_dir = BUILD_ROOT / digest
+    out_dir.mkdir(parents=True, exist_ok=True)
+    written = 0
+    with _lock:
+        for stem in stems:
+            lib = out_dir / f"lib{stem}.so"
+            if lib.exists():
+                continue
+            _write_atomic(out_dir / f"lib{stem}.log",
+                          str(logs.get(stem, "")).encode())
+            _write_atomic(lib, libs[stem])
+            written += 1
+    return written
+
+
+def _write_atomic(path: Path, data: bytes) -> None:
+    tmp = path.with_name(f"{path.name}.tmp{os.getpid()}")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
 def _compile(sources, out_dir: Path) -> None:
+    global nvcc_runs
     nvcc = _nvcc()
     procs = {}
     try:
         for src in sources:
             tmp = out_dir / f"lib{src.stem}.so.tmp{os.getpid()}"
+            nvcc_runs += 1
             procs[src.stem] = (subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

@@ -62,7 +62,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops.segment import pna_accumulators, pna_stats_epilogue
-from . import _build
+from . import COUNTS_LOCK, _build
 from .nbr import STAGE_SLOTS, row_geometry
 from .segment import (gather_rows, segment_layout, segment_sum,
                       segment_sum_plain, vec_width)
@@ -280,9 +280,10 @@ def pna_edge_bwd(proj_i, proj_j, senders, receivers, edge_mask, num_nodes,
         *(t.data_ptr() for t in rows + lays), n, e, f, vec, n_rows, chunk,
         smem, *(t.data_ptr() for t in (dh, d_i, d_j)), stream)
     _build.check_launch(err, "pna_edge_aggregate_bwd")
-    backward_kernel_launches += 2
-    if proj_i.dtype == torch.bfloat16:
-        backward_kernel_bf16_launches += 2
+    with COUNTS_LOCK:
+        backward_kernel_launches += 2
+        if proj_i.dtype == torch.bfloat16:
+            backward_kernel_bf16_launches += 2
     return d_i, d_j
 
 
@@ -350,9 +351,10 @@ def _launch_pna(proj_i, proj_j, n, layout):
                              cnt.data_ptr(), mn.data_ptr(), mx.data_ptr(),
                              stream)
     _build.check_launch(err, "pna_edge_aggregate")
-    launches += 1
-    if proj_i.dtype == torch.bfloat16:
-        bf16_launches += 1
+    with COUNTS_LOCK:
+        launches += 1
+        if proj_i.dtype == torch.bfloat16:
+            bf16_launches += 1
     return s, sq, cnt, mn, mx
 
 
@@ -498,12 +500,13 @@ def _launch_filter(h, w, layout, n, backward):
                                stream)
     _build.check_launch(err, "filter_scatter")
     bf16 = h.dtype == torch.bfloat16
-    if backward:
-        filter_backward_launches += 1
-        filter_backward_bf16_launches += int(bf16)
-    else:
-        filter_launches += 1
-        filter_bf16_launches += int(bf16)
+    with COUNTS_LOCK:
+        if backward:
+            filter_backward_launches += 1
+            filter_backward_bf16_launches += int(bf16)
+        else:
+            filter_launches += 1
+            filter_bf16_launches += int(bf16)
     return out
 
 

@@ -49,7 +49,7 @@ from torch.autograd.function import once_differentiable
 
 from ..ops.scalars import weak
 from ..ops.segment import neighbor_aggregate, sum_slots_in_order
-from . import _build
+from . import COUNTS_LOCK, _build
 from .segment import segment_sum, vec_width
 
 launches = 0              # forward kernel launches, either instantiation
@@ -294,9 +294,10 @@ def nbr_aggregate_bwd(proj_i, proj_j, nbr, nbr_mask, mn, mx, g_mean, g_min,
         n, k, f, vec, n_rows, chunk, smem, weak(eps, proj_i),
         *(t.data_ptr() for t in (dh, d_i, d_j)), stream)
     _build.check_launch(err, "nbr_aggregate_bwd")
-    backward_kernel_launches += 2
-    if proj_i.dtype == torch.bfloat16:
-        backward_kernel_bf16_launches += 2
+    with COUNTS_LOCK:
+        backward_kernel_launches += 2
+        if proj_i.dtype == torch.bfloat16:
+            backward_kernel_bf16_launches += 2
     return d_i, d_j
 
 
@@ -319,9 +320,10 @@ def _launch(proj_i, proj_j, nbr, nbr_mask, eps):
                              mean.data_ptr(), mn.data_ptr(), mx.data_ptr(),
                              sd.data_ptr(), deg.data_ptr(), stream)
     _build.check_launch(err, "nbr_aggregate")
-    launches += 1
-    if proj_i.dtype == torch.bfloat16:
-        bf16_launches += 1
+    with COUNTS_LOCK:
+        launches += 1
+        if proj_i.dtype == torch.bfloat16:
+            bf16_launches += 1
     return mean, mn, mx, sd, deg
 
 

@@ -25,7 +25,7 @@ import threading
 
 import torch
 
-from . import _build
+from . import COUNTS_LOCK, _build
 
 # launches of the CUDA kernel in this process (reset by
 # kernels.reset_launch_counts)
@@ -299,7 +299,8 @@ def _launch(data, segment_ids, n, indices_are_sorted, layout):
         row_ptr.data_ptr(), e, n, f, vec, lanes(f), out.data_ptr(),
         ws.data_ptr(), _tickets_for(dev, stream, n).data_ptr(), stream)
     _build.check_launch(err, "segment_sum")
-    launches += 1
+    with COUNTS_LOCK:
+        launches += 1
     return out
 
 

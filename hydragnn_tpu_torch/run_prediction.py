@@ -13,14 +13,17 @@ nested numpy dicts (utils/weights.py), or `state=` (and `model=`) as
 (`Serving.precision`, else HYDRAGNN_PRECISION, else Architecture.dtype;
 float32 or bfloat16) — through the
 batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
-block / HYDRAGNN_SERVE), else with a plain loop over `batch_size`
-batches padded to one shape. Returns (trues, preds), one array per head,
+block / HYDRAGNN_SERVE), or through a `ReplicaRouter` of
+`Serving.fleet.replicas` engines (HYDRAGNN_FLEET_REPLICAS) when that is
+above 1, else with a plain loop over `batch_size` batches padded to one
+shape. Returns (trues, preds), one array per head,
 over real graphs (graph heads) or real nodes (node heads). With
 HYDRAGNN_DUMP_TESTDATA set, they are also pickled to
 ./logs/<log name>/test_data.pk as {output name: {"true", "pred"}}.
 """
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 from typing import Optional, Sequence
@@ -35,12 +38,13 @@ from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
 from .models.create import create_model, data_input_dim
 from .postprocess.postprocess import output_denormalize
 from .preprocess.load_data import load_datasets_from_config
-from .serving.config import resolve_serving
+from .serving.config import (check_unported_serving_knobs, resolve_fleet,
+                             resolve_serving)
 from .serving.engine import InferenceEngine
 from .train.optimizer import select_optimizer
 from .train.train_step import TrainState, make_forward_fn
 from .utils import checkpoint as ckpt
-from .utils.devices import resolve_device
+from .utils.devices import CompileStore, resolve_device
 from .utils.envflags import env_flag
 from .utils.weights import load_jax_variables
 
@@ -48,13 +52,17 @@ from .utils.weights import load_jax_variables
 def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
                    variables=None, serve: Optional[bool] = None,
                    device="cuda", state=None, model=None,
-                   checkpoint: str = "latest"):
+                   checkpoint: str = "latest",
+                   num_shards: Optional[int] = None):
     """The weights come from `state` (a TrainState), else `variables` (a
     Flax tree), else `model` (a trained model), else the run's
     `checkpoint` ("latest" or "best") under ./logs; they are loaded into a
-    fresh model on `device`, so a trained model is left as it is."""
+    fresh model on `device`, so a trained model is left as it is.
+    `num_shards` > 1 (serving sharded over devices) is not ported and
+    raises naming A8."""
     config = load_config(config_or_path)
     serving = resolve_serving(config)    # raises on an unported knob
+    check_unported_serving_knobs(serving, num_shards)
     dev = resolve_device(device)
     if datasets is None:
         datasets = load_datasets_from_config(config)
@@ -200,26 +208,56 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
     engine gets the full config, so raw-structure clients could share it;
     the test split's prediction is the same. `Serving.metrics_port` > 0
     (HYDRAGNN_SERVE_METRICS_PORT) serves /healthz and /metrics on that
-    loopback port for the run (telemetry/http.py)."""
-    engine = InferenceEngine(
-        model, mcfg, reference_samples=testset,
-        max_batch_size=serving.max_batch_size,
-        max_wait_ms=serving.max_wait_ms, num_buckets=serving.num_buckets,
-        bucket_multiple=serving.bucket_multiple,
-        neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
-        compute_dtype=serving.precision, breaker_threshold=0,
-        structure_config=config if serving.structure else None,
-        md_skin=serving.md_skin, device=device)
+    loopback port for the run (telemetry/http.py).
+
+    With `Serving.fleet.replicas` > 1 the requests go through a
+    ReplicaRouter of that many engines on `device`, each with its own
+    copy of the model, sharing a CompileStore when
+    `Serving.fleet.compile_store` names one (a single engine uses it
+    too), and a TierPolicy when `tier_priority_min` > 0 (the test split
+    is submitted at priority 0). Every replica serves the same weights
+    on the same bucket ladder."""
+    from .serving.fleet import ReplicaRouter, TierPolicy
+    fleet = resolve_fleet(config)
+    store = (CompileStore(fleet.compile_store) if fleet.compile_store
+             else None)
+
+    def make_engine(replica_idx=0):
+        return InferenceEngine(
+            copy.deepcopy(model) if fleet.replicas > 1 else model, mcfg,
+            reference_samples=testset,
+            max_batch_size=serving.max_batch_size,
+            max_wait_ms=serving.max_wait_ms,
+            num_buckets=serving.num_buckets,
+            bucket_multiple=serving.bucket_multiple,
+            neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
+            compute_dtype=serving.precision, breaker_threshold=0,
+            structure_config=config if serving.structure else None,
+            md_skin=serving.md_skin, compile_store=store, device=device)
+
+    if fleet.replicas > 1:
+        tier_policy = None
+        if fleet.tier_priority_min > 0:
+            tier_policy = TierPolicy(
+                fast=fleet.tier_fast, accurate=fleet.tier_accurate,
+                priority_min=fleet.tier_priority_min,
+                quota=fleet.tier_quota)
+        server = ReplicaRouter(
+            make_engine, fleet.replicas,
+            max_redispatch=fleet.redispatch_max or None,
+            drain_timeout_s=fleet.drain_timeout_s, tier_policy=tier_policy)
+    else:
+        server = make_engine()
     try:
         if serving.metrics_port:
-            http = engine.start_metrics_server(port=serving.metrics_port)
+            http = server.start_metrics_server(port=serving.metrics_port)
             import logging
             logging.getLogger("hydragnn_tpu_torch").info(
                 "serving metrics endpoint at %s/metrics", http.url)
-        engine.warmup()
-        results = engine.predict(testset)
+        server.warmup()
+        results = server.predict(testset)
     finally:
-        engine.shutdown()
+        server.shutdown()
     trues = [[] for _ in mcfg.heads]
     preds = [[] for _ in mcfg.heads]
     for sample, res in zip(testset, results):

@@ -23,6 +23,29 @@ keeps the config's value).
         "md_farm": {               # InferenceEngine.trajectory_farm
             "steps_per_dispatch": 8,   # MD steps a replay (K)
             "cand_headroom": 0.5       # candidate/degree capacity headroom
+        },
+        "fleet": {                 # serving/fleet.py ReplicaRouter
+            "replicas": 1,             # engines behind the router (<= 1:
+                                       # the single engine)
+            "compile_store": null,     # utils/devices.CompileStore dir
+            "redispatch_max": 0,       # re-dispatches a request (0: one
+                                       # try per replica)
+            "drain_timeout_s": 30.0,   # a replica's drain bound (hot swap)
+            "tier_priority_min": 0,    # > 0: a fleet.TierPolicy
+            "tier_quota": 0.0,         # accurate tier's dispatch share cap
+            "tier_fast": "int8",       # fast-tier engine tag
+            "tier_accurate": "float32" # accurate-tier engine tag
+        },
+        "publish": {               # serving/publish.py CheckpointPublisher
+            "poll_interval_s": 1.0, "mirror_every": 2, "window_pairs": 8,
+            "min_pairs": 3, "window_timeout_s": 30.0, "max_rel_err": 0.25,
+            "latency_factor": 3.0, "latency_floor_ms": 50.0
+        },
+        "autoscale": {             # serving/autoscale.py
+            "min_replicas": 1, "max_replicas": 4, "high_depth": 4.0,
+            "low_depth": 0.5, "cooldown_s": 5.0, "poll_interval_s": 1.0,
+            "drain_timeout_s": 30.0, "signal": "queue_depth",
+            "high_p99_ms": 500.0, "low_p99_ms": 50.0
         }
     }
 
@@ -43,10 +66,21 @@ train/precision.PRECISION_CHOICES: "float32" / "f32" / "fp32" or
 "bfloat16" / "bf16". Unset, the engine inherits the train-side policy
 (HYDRAGNN_PRECISION, then Architecture.dtype).
 
-Two knobs change what JAX's run_prediction starts and are not ported
-yet, so asking for them raises NotImplementedError naming ROADMAP A8:
-`fleet.replicas` > 1 (HYDRAGNN_FLEET_REPLICAS: a replica router) and
-precision "int8" (the int8 serving tier).
+`fleet` (`resolve_fleet`; HYDRAGNN_FLEET_REPLICAS, _COMPILE_STORE,
+_REDISPATCH_MAX, _DRAIN_TIMEOUT_S, _TIER_PRIORITY_MIN, _TIER_QUOTA,
+_TIER_FAST, _TIER_ACCURATE): `replicas` > 1 makes run_prediction serve
+through a ReplicaRouter of that many engines on the device;
+`compile_store` points every replica at one store of kernel libraries.
+`publish` (`resolve_publish`, HYDRAGNN_PUBLISH_*) sizes the
+CheckpointPublisher's canary window and bounds; `autoscale`
+(`resolve_autoscale`, HYDRAGNN_AUTOSCALE_*) the QueueDepthAutoscaler's
+watermarks. Each resolves as the JAX package's does (strict parsing,
+env over block over default), typos included.
+
+Two knobs change what JAX's run_prediction runs and are not ported yet,
+so asking for them raises NotImplementedError naming ROADMAP A8:
+precision "int8" (the int8 serving tier) and run_prediction's
+`num_shards` > 1 (multi-device shards).
 """
 from __future__ import annotations
 
@@ -54,7 +88,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 from ..train.precision import PRECISION_CHOICES, canonical_precision
-from ..utils.envflags import (env_strict_choice, env_strict_flag,
+from ..utils.envflags import (env_str, env_strict_choice, env_strict_flag,
                               env_strict_float, env_strict_int)
 
 
@@ -99,17 +133,17 @@ def check_serving_precision(precision: Optional[str]) -> None:
 
 
 def check_unported_serving_knobs(serving: ServingConfig,
-                                 block: Dict[str, Any]) -> None:
-    """Raise NotImplementedError naming A8 when the `Serving` block or the
-    env asks for a replica fleet (hydragnn_tpu/serving/config.py
-    `resolve_fleet`)."""
-    fleet = block.get("fleet", {}) or {}
-    if env_strict_int("HYDRAGNN_FLEET_REPLICAS",
-                      int(fleet.get("replicas", 1) or 1)) > 1:
+                                 num_shards: Optional[int] = None) -> None:
+    """Raise NotImplementedError naming A8 for what the port does not
+    serve yet: precision "int8" and `num_shards` > 1 (run_prediction's
+    multi-device shards)."""
+    check_serving_precision(serving.precision)
+    if num_shards is not None and int(num_shards) > 1:
         raise NotImplementedError(
-            "Serving.fleet.replicas / HYDRAGNN_FLEET_REPLICAS > 1 (a "
-            "replica fleet) is not ported to hydragnn_tpu_torch yet "
-            "(ROADMAP A8: serving)")
+            f"num_shards={num_shards} (serving sharded over devices) is not "
+            "ported to hydragnn_tpu_torch yet (ROADMAP A8: multi-device "
+            "shards); run a fleet of replicas (Serving.fleet.replicas) "
+            "instead")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +224,176 @@ def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
                                   base.structure),
         md_skin=env_strict_float("HYDRAGNN_MD_SKIN", base.md_skin),
     )
-    check_unported_serving_knobs(out, block)
-    check_serving_precision(out.precision)
+    check_unported_serving_knobs(out)
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetConfig:
+    """Replica-router knobs (serving/fleet.py). The routing contract
+    (least queue depth, exactly-once resolution, per-replica breakers)
+    is not a knob; these size the fleet and its recovery budgets."""
+    replicas: int = 1             # <= 1 = the single-engine path
+    compile_store: Optional[str] = None  # CompileStore dir
+    redispatch_max: int = 0       # 0 = one try per replica
+    drain_timeout_s: float = 30.0
+    tier_priority_min: int = 0    # 0 = tier routing off; > 0 installs a
+    # TierPolicy with this priority threshold (fleet.TierPolicy)
+    tier_quota: float = 0.0       # max accurate-tier dispatch fraction
+    # (0 = no cap)
+    tier_fast: str = "int8"       # fast-tier engine tag
+    tier_accurate: str = "float32"  # accurate-tier engine tag
+
+
+def resolve_fleet(config: Optional[Dict[str, Any]] = None) -> FleetConfig:
+    """The `Serving.fleet` block and the HYDRAGNN_FLEET_* env knobs, env
+    over block over default (strict: a typo warns and keeps the block's
+    value)."""
+    block = ((config or {}).get("Serving", {}) or {}).get("fleet",
+                                                          {}) or {}
+    base = FleetConfig(
+        replicas=int(block.get("replicas", 1) or 1),
+        compile_store=(str(block.get("compile_store")).strip() or None
+                       if block.get("compile_store") else None),
+        redispatch_max=int(block.get("redispatch_max", 0) or 0),
+        drain_timeout_s=float(block.get("drain_timeout_s", 30.0) or 30.0),
+        tier_priority_min=int(block.get("tier_priority_min", 0) or 0),
+        tier_quota=float(block.get("tier_quota", 0.0) or 0.0),
+        tier_fast=str(block.get("tier_fast", "int8") or "int8"),
+        tier_accurate=str(block.get("tier_accurate", "float32")
+                          or "float32"),
+    )
+    return FleetConfig(
+        replicas=env_strict_int("HYDRAGNN_FLEET_REPLICAS", base.replicas),
+        compile_store=env_str("HYDRAGNN_FLEET_COMPILE_STORE",
+                              base.compile_store),
+        redispatch_max=env_strict_int("HYDRAGNN_FLEET_REDISPATCH_MAX",
+                                      base.redispatch_max),
+        drain_timeout_s=env_strict_float("HYDRAGNN_FLEET_DRAIN_TIMEOUT_S",
+                                         base.drain_timeout_s),
+        tier_priority_min=env_strict_int("HYDRAGNN_FLEET_TIER_PRIORITY_MIN",
+                                         base.tier_priority_min),
+        tier_quota=env_strict_float("HYDRAGNN_FLEET_TIER_QUOTA",
+                                    base.tier_quota),
+        tier_fast=env_str("HYDRAGNN_FLEET_TIER_FAST", base.tier_fast),
+        tier_accurate=env_str("HYDRAGNN_FLEET_TIER_ACCURATE",
+                              base.tier_accurate),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class PublishConfig:
+    """CheckpointPublisher knobs (serving/publish.py). The canary
+    contract (one replica, a shadow mirror, promote or quarantine, a
+    coherent rollback) is not a knob; these size the window and its
+    bounds."""
+    poll_interval_s: float = 1.0   # BEST-marker poll cadence
+    mirror_every: int = 2          # shadow slice: every k-th request
+    window_pairs: int = 8          # pairs to adjudicate per canary
+    min_pairs: int = 3             # fewer at timeout = aborted canary
+    window_timeout_s: float = 30.0
+    max_rel_err: float = 0.25      # candidate-vs-incumbent drift bound
+    latency_factor: float = 3.0    # candidate p99 <= factor *
+    # max(incumbent p99, latency_floor_ms)
+    latency_floor_ms: float = 50.0
+
+
+def resolve_publish(config: Optional[Dict[str, Any]] = None
+                    ) -> PublishConfig:
+    """The `Serving.publish` block and the HYDRAGNN_PUBLISH_* env knobs,
+    env over block over default (strict)."""
+    block = ((config or {}).get("Serving", {}) or {}).get("publish",
+                                                          {}) or {}
+    base = PublishConfig(
+        poll_interval_s=float(block.get("poll_interval_s", 1.0) or 1.0),
+        mirror_every=int(block.get("mirror_every", 2) or 2),
+        window_pairs=int(block.get("window_pairs", 8) or 8),
+        min_pairs=int(block.get("min_pairs", 3) or 3),
+        window_timeout_s=float(block.get("window_timeout_s", 30.0)
+                               or 30.0),
+        max_rel_err=float(block.get("max_rel_err", 0.25) or 0.25),
+        latency_factor=float(block.get("latency_factor", 3.0) or 3.0),
+        latency_floor_ms=float(block.get("latency_floor_ms", 50.0)
+                               or 50.0),
+    )
+    return PublishConfig(
+        poll_interval_s=env_strict_float("HYDRAGNN_PUBLISH_POLL_S",
+                                         base.poll_interval_s),
+        mirror_every=env_strict_int("HYDRAGNN_PUBLISH_MIRROR_EVERY",
+                                    base.mirror_every),
+        window_pairs=env_strict_int("HYDRAGNN_PUBLISH_WINDOW_PAIRS",
+                                    base.window_pairs),
+        min_pairs=env_strict_int("HYDRAGNN_PUBLISH_MIN_PAIRS",
+                                 base.min_pairs),
+        window_timeout_s=env_strict_float(
+            "HYDRAGNN_PUBLISH_WINDOW_TIMEOUT_S", base.window_timeout_s),
+        max_rel_err=env_strict_float("HYDRAGNN_PUBLISH_MAX_REL_ERR",
+                                     base.max_rel_err),
+        latency_factor=env_strict_float("HYDRAGNN_PUBLISH_LATENCY_FACTOR",
+                                        base.latency_factor),
+        latency_floor_ms=env_strict_float(
+            "HYDRAGNN_PUBLISH_LATENCY_FLOOR_MS", base.latency_floor_ms),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoscaleConfig:
+    """QueueDepthAutoscaler knobs (serving/autoscale.py). Scale-down
+    always drains and scale-up always joins on the published version;
+    only the watermarks and bounds are knobs."""
+    min_replicas: int = 1
+    max_replicas: int = 4
+    high_depth: float = 4.0   # mean routable queue depth -> scale up
+    low_depth: float = 0.5    # mean routable queue depth -> scale down
+    cooldown_s: float = 5.0   # min seconds between actions
+    poll_interval_s: float = 1.0
+    drain_timeout_s: float = 30.0
+    signal: str = "queue_depth"  # "queue_depth" | "p99_latency": what the
+    # watermarks compare against (p99_latency: the fleet-wide p99 of
+    # `router.stats()`)
+    high_p99_ms: float = 500.0   # p99 latency -> scale up
+    low_p99_ms: float = 50.0     # p99 latency -> scale down
+
+
+def resolve_autoscale(config: Optional[Dict[str, Any]] = None
+                      ) -> AutoscaleConfig:
+    """The `Serving.autoscale` block and the HYDRAGNN_AUTOSCALE_* env
+    knobs, env over block over default (strict)."""
+    block = ((config or {}).get("Serving", {}) or {}).get("autoscale",
+                                                          {}) or {}
+    base = AutoscaleConfig(
+        min_replicas=int(block.get("min_replicas", 1) or 1),
+        max_replicas=int(block.get("max_replicas", 4) or 4),
+        high_depth=float(block.get("high_depth", 4.0) or 4.0),
+        low_depth=float(block.get("low_depth", 0.5) or 0.5),
+        cooldown_s=float(block.get("cooldown_s", 5.0) or 5.0),
+        poll_interval_s=float(block.get("poll_interval_s", 1.0) or 1.0),
+        drain_timeout_s=float(block.get("drain_timeout_s", 30.0) or 30.0),
+        signal=str(block.get("signal", "queue_depth") or "queue_depth"),
+        high_p99_ms=float(block.get("high_p99_ms", 500.0) or 500.0),
+        low_p99_ms=float(block.get("low_p99_ms", 50.0) or 50.0),
+    )
+    return AutoscaleConfig(
+        min_replicas=env_strict_int("HYDRAGNN_AUTOSCALE_MIN",
+                                    base.min_replicas),
+        max_replicas=env_strict_int("HYDRAGNN_AUTOSCALE_MAX",
+                                    base.max_replicas),
+        high_depth=env_strict_float("HYDRAGNN_AUTOSCALE_HIGH_DEPTH",
+                                    base.high_depth),
+        low_depth=env_strict_float("HYDRAGNN_AUTOSCALE_LOW_DEPTH",
+                                   base.low_depth),
+        cooldown_s=env_strict_float("HYDRAGNN_AUTOSCALE_COOLDOWN_S",
+                                    base.cooldown_s),
+        poll_interval_s=env_strict_float("HYDRAGNN_AUTOSCALE_POLL_S",
+                                         base.poll_interval_s),
+        drain_timeout_s=env_strict_float(
+            "HYDRAGNN_AUTOSCALE_DRAIN_TIMEOUT_S", base.drain_timeout_s),
+        signal=env_strict_choice(
+            "HYDRAGNN_AUTOSCALE_SIGNAL",
+            {"queue_depth": "queue_depth", "p99_latency": "p99_latency"},
+            base.signal),
+        high_p99_ms=env_strict_float("HYDRAGNN_AUTOSCALE_HIGH_P99_MS",
+                                     base.high_p99_ms),
+        low_p99_ms=env_strict_float("HYDRAGNN_AUTOSCALE_LOW_P99_MS",
+                                    base.low_p99_ms),
+    )

@@ -44,12 +44,33 @@ On the card each bucket's forward (EF: forward and the forces' backward)
 is one CUDA graph: `warmup()` captures every bucket, a bucket not
 captured yet is captured at its first use, and a forward collates on the
 host, copies into the bucket's static batch, replays and copies the
-outputs to the host before the next replay. Forwards hold one lock, so
-captures, replays and hot swaps never overlap (captures run in
-thread-local mode). `forward_single` replays the same bucket's graph, so
-batched = single holds as above; `capture_ms` holds each bucket's
-capture time (its warm-up included) and `stats()["captures"]` counts
-them. On the CPU the forward runs eagerly.
+outputs to the host before the next replay, all on the engine's own
+non-default stream. Forwards hold one lock, so an engine's captures,
+replays and hot swaps never overlap; captures run in thread-local mode
+under the device's capture lock (train/step_graphs.capture_lock), so
+engines sharing a card (a fleet's replicas, serving/fleet.py) capture
+one at a time while the others replay. When the dispatcher exits after
+`shutdown()` the engine drops its graphs and their pool, under the same
+lock, and hands its stream to the next engine built on the card: PyTorch
+keeps a cuBLAS workspace per thread handle and stream for the life of
+the process, so a restarted replica on a fresh stream would add one at
+every restart. `forward_single` replays the same bucket's graph, so
+batched = single holds as above; `capture_ms` holds each bucket's capture
+time (its warm-up included) and `stats()["captures"]` counts them. On the
+CPU the forward runs eagerly.
+
+Compile store (counterpart: the JAX engine's `compile_store`). A bucket's
+first use "compiles" it: with a `compile_store`
+(utils/devices.CompileStore) the engine looks up the bucket's key
+(`_store_key`: the model config, the bucket, the schema, the precision,
+the device's kind and compute capability and the kernel sources'
+digest) and, on a hit, installs the stored kernel libraries where
+`kernels/_build.py` finds them (no `nvcc`); on a miss it builds them and
+saves them under the key. `stats()` reports `compile_count`,
+`compile_fresh` and `compile_store_hits` as the JAX engine does; the
+bucket's graph is captured in every process and counted apart
+(`captures`, `capture_ms`). `tier` (default: the compute dtype) tags the
+engine for a fleet's tier routing and is echoed on every future.
 
 Failure semantics: every accepted future resolves, with a result or an
 error, under any single-batch failure.
@@ -100,12 +121,12 @@ a span recorder installed, a ``serve.graph_build`` span; each batch the
 spans. ``start_metrics_server()`` serves /healthz and /metrics until
 ``shutdown()``.
 
-Not ported yet: multi-device shards, the fleet hooks (the compile store,
-``serving/fleet.py``) and the int8 tier (ROADMAP A8).
+Not ported yet: multi-device shards and the int8 tier (ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import queue
 import threading
 import time
@@ -125,15 +146,29 @@ from ..telemetry import spans as _spans
 from ..telemetry.registry import get_registry
 from ..train.loss import energy_forces_from_node_head
 from ..train.precision import resolve_precision
-from ..train.step_graphs import GraphContext, capture, fill
+from ..kernels import _build
+from ..train.step_graphs import GraphContext, capture, capture_lock, fill
 from ..train.train_step import make_forward_fn
-from ..utils.devices import resolve_device
+from ..utils.devices import CompileStore, resolve_device
 from ..utils.faults import fault_point
+from ..utils.profiling import latency_percentiles
 from ..utils.weights import (export_jax_variables, load_jax_variables,
                              variables_signature)
 from .config import Structure, check_serving_precision
 
 _SHUTDOWN = object()
+_log = logging.getLogger("hydragnn_tpu_torch")
+
+# the side streams of engines whose graphs were released, by device, for
+# the next engine's graph context
+_FREE_STREAMS: dict = {}
+_FREE_STREAMS_LOCK = threading.Lock()
+
+
+def _take_stream(device: torch.device):
+    with _FREE_STREAMS_LOCK:
+        free = _FREE_STREAMS.get(device)
+        return free.pop() if free else None
 
 # the reduced-precision serving bound (JAX serving/engine.py:108-128):
 # 2^-5 is 8 bf16 ulps at unit scale, the budget of the <= 8 rounding-
@@ -229,7 +264,9 @@ class InferenceEngine:
     off) with `breaker_reset_s` set the failure semantics;
     `structure_config` (the full config) turns on raw-structure serving,
     whose sessions use the Verlet skin `md_skin`; `model_version` tags the
-    served weights."""
+    served weights. `compile_store` (a utils/devices.CompileStore) keeps
+    the kernel libraries each bucket needs; `tier` tags the engine for a
+    fleet's tier routing (default: the compute dtype)."""
 
     def __init__(self, model, mcfg, *,
                  reference_samples: Optional[Sequence[GraphSample]] = None,
@@ -248,6 +285,8 @@ class InferenceEngine:
                  structure_config: Optional[dict] = None,
                  md_skin: float = 0.3,
                  model_version: str = "v0",
+                 compile_store: Optional[CompileStore] = None,
+                 tier: Optional[str] = None,
                  device="cuda"):
         self.device = resolve_device(device)
         self.compute_dtype = resolve_precision(getattr(mcfg, "dtype", None),
@@ -260,7 +299,7 @@ class InferenceEngine:
             self.parity = "tolerance"
             self.parity_rtol = SERVE_REDUCED_RTOL
             self.parity_atol = SERVE_REDUCED_ATOL
-        self.tier = self.compute_dtype
+        self.tier = str(tier) if tier is not None else self.compute_dtype
         self.max_batch_size = max(int(max_batch_size), 1)
         self.max_wait_s = max(float(max_wait_ms), 0.0) / 1e3
         self.max_queue = max(int(max_queue), 0)
@@ -376,6 +415,13 @@ class InferenceEngine:
         self.deadline_expired = 0  # guarded-by: _lock
         self.queue_rejections = 0  # guarded-by: _lock
         self.circuit_rejections = 0  # guarded-by: _lock
+        # buckets made ready, split as the JAX engine's compile accounting
+        # (from the store, or fresh)
+        self._compile_store = compile_store
+        self._compiled = set()  # guarded-by: _forward_lock
+        self.compile_count = 0  # guarded-by: _lock
+        self.compile_store_hits = 0  # guarded-by: _lock
+        self.compile_fresh = 0  # guarded-by: _lock
         self._metrics_server = None
         self._dispatcher = threading.Thread(target=self._loop,
                                             name="serve-dispatch",
@@ -766,12 +812,12 @@ class InferenceEngine:
         """Service counters: requests and batches, batch occupancy (real
         graphs over the chosen buckets' graph slots), padding fractions
         over the node and edge slots run, the failure and structure
-        counters, the graphs captured, the compute dtype and parity, and
-        the request-latency percentiles (submit to result, ms). The
-        counters are read under the lock, the percentiles computed
-        outside it."""
+        counters, the compile accounting and the graphs captured, the
+        compute dtype and parity, and the request-latency percentiles
+        (submit to result, ms). The counters are read under the lock, the
+        percentiles computed outside it."""
         with self._lock:
-            lat = np.asarray(self._latencies, np.float64)
+            lat = list(self._latencies)
             out = {
                 "requests": self.requests_done,
                 "batches": self.batches_run,
@@ -785,6 +831,9 @@ class InferenceEngine:
                     if self._total_edge_slots else 0.0),
                 "max_queue_depth": self.max_queue_depth,
                 "captures": len(self.capture_ms),
+                "compile_count": self.compile_count,
+                "compile_store_hits": self.compile_store_hits,
+                "compile_fresh": self.compile_fresh,
                 "num_buckets": len(self.buckets),
                 "compute_dtype": self.compute_dtype,
                 "parity": self.parity,
@@ -804,11 +853,7 @@ class InferenceEngine:
                     self.nbr_rebuilds / self.nbr_updates
                     if self.nbr_updates else 0.0),
             }
-        for q in (50, 95, 99):
-            out[f"p{q}_ms"] = (float(np.percentile(lat, q) * 1e3)
-                               if lat.size else 0.0)
-        out["mean_ms"] = float(lat.mean() * 1e3) if lat.size else 0.0
-        out["count"] = int(lat.size)
+        out.update(latency_percentiles(lat))
         return out
 
     # --------------------------------------------------------------- plumbing
@@ -863,21 +908,92 @@ class InferenceEngine:
         with self._forward_lock:
             self._apply_swap()
             version = self.model_version
+            self._prepare(bucket)
             if self.device.type == "cpu":
                 return [o.numpy() for o in self._run(batch)], version
-            cap = self._graphs.get(bucket)
-            if cap is None:
-                cap = self._graphs[bucket] = self._capture(bucket, batch)
+            if self._graph_ctx is None:
+                self._graph_ctx = GraphContext(self.device,
+                                               _take_stream(self.device))
+            with torch.cuda.stream(self._graph_ctx.stream):
+                cap = self._graphs.get(bucket)
+                if cap is None:
+                    cap = self._graphs[bucket] = self._capture(bucket, batch)
+                else:
+                    fill(cap.inputs, batch)
+                cap.replay()
+                return [o.cpu().numpy() for o in cap.outputs], version
+
+    # holds-lock: _forward_lock
+    def _prepare(self, bucket: PackBudget) -> None:
+        """A bucket's first use: with a store, its kernel libraries from
+        the bucket's entry (a hit installs them), or built here and saved
+        there (fresh). The CPU runs the plain versions: its entries hold
+        no library."""
+        if bucket in self._compiled:
+            return
+        store = self._compile_store
+        from_store = False
+        if store is not None:
+            key = self._store_key(bucket)
+            cuda = self.device.type == "cuda"
+            from_store = store.load(
+                key, install=_build.install_libraries if cuda else None
+            ) is not None
+            if not from_store:
+                store.save(key, _build.export_libraries() if cuda else
+                           {"digest": _build._source_digest(), "libs": {},
+                            "logs": {}})
+        self._compiled.add(bucket)
+        with self._lock:
+            self.compile_count += 1
+            if from_store:
+                self.compile_store_hits += 1
             else:
-                fill(cap.inputs, batch)
-            cap.replay()
-            return [o.cpu().numpy() for o in cap.outputs], version
+                self.compile_fresh += 1
+
+    def _store_key(self, bucket: PackBudget) -> str:
+        """The compile-store key of one bucket: the JAX engine's fields
+        (model config, bucket shape, shard count, neighbour width, EF,
+        request schema, the precision mode) and the port's runtime (the
+        device's kind and compute capability, the kernel sources'
+        digest)."""
+        p = self._proto
+        schema = tuple(
+            (name, None if getattr(p, name) is None
+             else tuple(np.shape(getattr(p, name))[1:]))
+            for name in ("x", "pos", "edge_attr", "edge_shifts", "cell"))
+        capability = (torch.cuda.get_device_capability(self.device)
+                      if self.device.type == "cuda" else None)
+        return CompileStore.fingerprint(
+            self.mcfg, (bucket.n_node, bucket.n_edge, bucket.n_graph), 1,
+            self.neighbor_k, self.ef_forward, schema,
+            (self.device.type, capability, _build._source_digest()),
+            precision=(self.compute_dtype, None))
+
+    def _release_graphs(self) -> None:
+        """Drop the captured graphs and their pool (the dispatcher's
+        exit), under the forward lock and the device's capture lock; hand
+        the freed blocks back to CUDA and the stream to the next
+        engine."""
+        if self.device.type != "cuda":
+            return
+        with self._forward_lock:
+            with capture_lock(self.device):
+                ctx, self._graph_ctx = self._graph_ctx, None
+                if ctx is None:
+                    return
+                ctx.stream.synchronize()
+                self._graphs = {}
+                stream = ctx.stream
+                del ctx
+                torch.cuda.empty_cache()
+                with _FREE_STREAMS_LOCK:
+                    _FREE_STREAMS.setdefault(self.device, []).append(stream)
 
     def _capture(self, bucket: PackBudget, batch: GraphBatch):
         """The bucket's graph, captured from a forward of `batch` (the
-        warm-up runs and the captured call compute on it)."""
-        if self._graph_ctx is None:
-            self._graph_ctx = GraphContext(self.device)
+        warm-up runs and the captured call compute on it) on the graph
+        context's stream."""
         slot = self._graph_ctx.slots(batch, 1)[0]
         fill(slot, batch)
         cap = capture(self._graph_ctx, lambda: self._run(slot),
@@ -1121,6 +1237,14 @@ class InferenceEngine:
                         self._fatal = fatal = e
                 if leftover is not None and leftover is not _SHUTDOWN:
                     self._queue.put(leftover)
+            with self._lock:
+                closed = self._closed
+            if closed:
+                try:
+                    self._release_graphs()
+                except RuntimeError as exc:  # a sticky CUDA error
+                    _log.warning("serving engine: releasing its graphs "
+                                 "failed (%s)", exc)
 
 
 class StructureSession:

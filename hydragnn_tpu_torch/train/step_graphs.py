@@ -34,7 +34,12 @@ What a captured step needs, and where it comes from:
 * one memory pool and one side stream per model (`context_for`);
 * the launch counters of `kernels/`: a capture's count is taken back and
   added again at each replay, so the counters keep counting the kernels
-  the card runs.
+  the card runs;
+* one capture at a time on a device (`capture_lock`): the warm-up and
+  the capture hold the device's lock, and so does whoever frees a set of
+  graphs (`serving/engine.py`), so that engines of one process (a
+  fleet's replicas) never capture, or free a pool, next to another
+  capture. Replays need no lock.
 
 A kernel launched inside a graph reports a bad launch at capture
 (`cudaGetLastError()` in its C entry point); a fault while a replay runs
@@ -43,6 +48,7 @@ surfaces at the next synchronising read, the metrics' host read.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import weakref
 from typing import Callable, Dict, List, Optional, Sequence
@@ -61,10 +67,11 @@ class GraphContext:
     share the pool replay one at a time on one stream, and each keeps its
     own outputs alive, so one graph's temporaries may reuse another's."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.device = device
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device)
+        self.stream = torch.cuda.Stream(device) if stream is None else stream
         self._slots: Dict[tuple, List[GraphBatch]] = {}
 
     def slots(self, batch: GraphBatch, n: int) -> List[GraphBatch]:
@@ -105,8 +112,17 @@ def fill(slot: GraphBatch, batch: GraphBatch) -> None:
             dst.copy_(getattr(batch, f.name), non_blocking=True)
 
 
-def _counts_minus(after, before):
-    return {k: after[k] - before[k] for k in after}
+_CAPTURE_LOCKS: Dict[int, threading.Lock] = {}
+_CAPTURE_LOCKS_GUARD = threading.Lock()
+
+
+def capture_lock(device: torch.device) -> threading.Lock:
+    """The lock every capture on `device`, and every release of captured
+    graphs there, holds (one per card in the process)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    with _CAPTURE_LOCKS_GUARD:
+        return _CAPTURE_LOCKS.setdefault(index, threading.Lock())
 
 
 @dataclasses.dataclass
@@ -132,26 +148,27 @@ def capture(ctx: GraphContext, body: Callable, restore: Optional[Callable]
     counters) and after the capture (device=False: the host counters the
     capture's run of the body moved; the capture itself computes
     nothing). `error_mode` is `torch.cuda.graph`'s capture_error_mode
-    ("thread_local" where another thread may use the card meanwhile)."""
+    ("thread_local" where another thread may use the card meanwhile).
+    Holds the device's `capture_lock` throughout."""
     t0 = time.perf_counter()
-    s = ctx.stream
-    s.wait_stream(torch.cuda.current_stream(ctx.device))
-    with torch.cuda.stream(s):
-        for _ in range(WARMUP_ITERS):
-            body()
-            if restore is not None:
-                restore(True)
-    torch.cuda.current_stream(ctx.device).wait_stream(s)
-    before = kernels.launch_counts()
-    # the captured graph is kept beside its executable, so its nodes can
-    # be read (`raw_cuda_graph`)
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph, pool=ctx.pool, stream=s,
-                          capture_error_mode=error_mode):
-        outputs = body()
-    graph.instantiate()
-    launches = _counts_minus(kernels.launch_counts(), before)
-    kernels.set_launch_counts(before)
+    with capture_lock(ctx.device):
+        s = ctx.stream
+        s.wait_stream(torch.cuda.current_stream(ctx.device))
+        with torch.cuda.stream(s):
+            for _ in range(WARMUP_ITERS):
+                body()
+                if restore is not None:
+                    restore(True)
+        torch.cuda.current_stream(ctx.device).wait_stream(s)
+        mark = kernels.counts_mark()
+        # the captured graph is kept beside its executable, so its nodes
+        # can be read (`raw_cuda_graph`)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=ctx.pool, stream=s,
+                              capture_error_mode=error_mode):
+            outputs = body()
+        graph.instantiate()
+        launches = kernels.take_back_since(mark)
     if restore is not None:
         restore(False)
     return Captured(graph, outputs, launches,

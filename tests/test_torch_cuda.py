@@ -2119,3 +2119,157 @@ def test_trajectory_farm_on_the_card_equals_run_md(cuda_device, pbc, cap):
     for key in ("final_pos", "final_vel", "energy_first", "energy_last"):
         np.testing.assert_array_equal(again[key], res[key])
         np.testing.assert_array_equal(res1[key][0], res[key][0])
+
+
+# ------------------------------------------------------------ the fleet --
+# A ReplicaRouter of csce PNA engines (published width) on one card: its
+# results against a single engine's, a restart under a live stream, and a
+# compile-store hit in a fresh process that builds no kernel.
+
+def _fleet_parts(dev, store):
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    data = synthetic_molecules(24, seed=2)
+    with open(ROOT / "examples/csce/csce_gap.json") as fh:
+        cfg = json.load(fh)
+    cfg = tcfg.update_config(cfg, data[:16], data[16:20], data[20:])
+    mcfg = tcfg.build_model_config(cfg)
+    variables = random_flax_variables(create_model(mcfg, device="cpu"), 3)
+
+    def factory(idx=0):
+        model = create_model(mcfg, device=dev)
+        model.load_state_dict(load_jax_variables(variables))
+        return InferenceEngine(model, mcfg, reference_samples=data,
+                               max_batch_size=8, max_wait_ms=2.0,
+                               compile_store=store, device=dev)
+    return data, factory
+
+
+@pytest.mark.cuda
+def test_fleet_on_the_card_equals_the_single_engine_bitwise(cuda_device,
+                                                            tmp_path):
+    """Two replicas sharing a compile store: replica 0 compiles fresh,
+    replica 1 warms from the store; every routed result equals the single
+    engine's forward on the bucket it was served on, bitwise, and the
+    replicas' graphs launch the edge-list PNA kernel and segment_sum."""
+    from hydragnn_tpu_torch.serving.fleet import ReplicaRouter
+    from hydragnn_tpu_torch.utils.devices import CompileStore
+    store = CompileStore(str(tmp_path / "store"))
+    data, factory = _fleet_parts(cuda_device, store)
+    with factory() as single, ReplicaRouter(factory, 2) as router:
+        reports = router.warmup()
+        assert reports[0]["fresh"] == reports[0]["compiled"] > 0
+        assert reports[1]["store_hits"] == reports[1]["compiled"]
+        assert reports[1]["fresh"] == 0
+        assert all(r["captures"] == len(single.buckets) for r in reports)
+        tk.reset_launch_counts()
+        futs = [router.submit(s) for s in data * 3]
+        results = [f.result(timeout=120) for f in futs]
+        counts = tk.launch_counts()
+        assert counts["pna_edge_aggregate"] > 0 and counts["segment_sum"] > 0
+        assert {f.replica for f in futs} == {0, 1}
+        for s, fut, res in zip(data * 3, futs, results):
+            want = single.forward_single(s, bucket=fut.bucket)
+            for a, b in zip(res, want):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fleet_restart_under_a_live_stream_on_the_card(cuda_device,
+                                                       tmp_path):
+    """A stream from another thread while a replica is killed and
+    restarted three times (each restart captures next to the other
+    replica's replays): no future fails, each resolves once, every
+    restart warms from the store, and the reserved memory stays within
+    one replica's ladder of its value after the first cycle."""
+    import threading
+    import time
+    from hydragnn_tpu_torch.serving.fleet import ReplicaRouter
+    from hydragnn_tpu_torch.utils.devices import CompileStore
+    store = CompileStore(str(tmp_path / "store"))
+    data, factory = _fleet_parts(cuda_device, store)
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_reserved(cuda_device)
+    with ReplicaRouter(factory, 2) as router:
+        router.warmup()
+        # one replica's model, graphs and pool
+        ladder = (torch.cuda.memory_reserved(cuda_device) - start) / 2
+        futs, stop = [], threading.Event()
+
+        def stream():
+            i = 0
+            while not stop.is_set():
+                futs.append(router.submit(data[i % len(data)]))
+                i += 1
+                time.sleep(0.0005)
+        t = threading.Thread(target=stream)
+        t.start()
+        reserved, reports = [], []
+        try:
+            for _ in range(3):
+                time.sleep(0.2)
+                router.kill_replica(1)
+                reports.append(router.restart_replica(1))
+                time.sleep(0.2)
+                reserved.append(torch.cuda.memory_reserved(cuda_device))
+        finally:
+            stop.set()
+            t.join()
+        for f in futs:
+            assert f.exception(timeout=120) is None
+        assert router.requests_done == len(futs)
+        assert all(r["fresh"] == 0 and r["store_hits"] == r["compiled"]
+                   for r in reports)
+        assert reserved[-1] - reserved[0] <= ladder, (start, ladder,
+                                                      reserved)
+
+
+@pytest.mark.cuda
+def test_compile_store_hit_in_a_fresh_build_root_runs_no_nvcc(cuda_device,
+                                                              tmp_path):
+    """A process whose kernel build root is empty warms a replica from a
+    populated store: the libraries come from the store, no nvcc runs,
+    and its results equal this process's bitwise."""
+    import subprocess
+    import sys
+    from hydragnn_tpu_torch.utils.devices import CompileStore
+    store_dir = tmp_path / "store"
+    data, factory = _fleet_parts(cuda_device, CompileStore(str(store_dir)))
+    with factory() as engine:
+        engine.warmup()
+        want = [engine.forward_single(s, bucket=engine.buckets[-1])[0]
+                for s in data[:4]]
+    code = f"""
+import importlib.util, sys, pathlib
+sys.path.insert(0, {str(ROOT)!r})
+import numpy as np, torch
+from hydragnn_tpu_torch.kernels import _build
+_build.BUILD_ROOT = pathlib.Path({str(tmp_path / "empty")!r})
+spec = importlib.util.spec_from_file_location("card_tests", {__file__!r})
+card_tests = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(card_tests)
+_fleet_parts = card_tests._fleet_parts
+from hydragnn_tpu_torch.utils.devices import CompileStore
+data, factory = _fleet_parts(torch.device("cuda"),
+                             CompileStore({str(store_dir)!r}))
+with factory() as engine:
+    engine.warmup()
+    st = engine.stats()
+    got = [engine.forward_single(s, bucket=engine.buckets[-1])[0]
+           for s in data[:4]]
+np.save({str(tmp_path / "got.npy")!r}, np.stack(got))
+print(_build.nvcc_runs, st["compile_fresh"], st["compile_store_hits"],
+      st["compile_count"])
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr[-3000:]
+    nvcc, fresh, hits, compiled = map(int, out.stdout.split()[-4:])
+    assert (nvcc, fresh) == (0, 0) and hits == compiled > 0
+    np.testing.assert_array_equal(np.load(tmp_path / "got.npy"),
+                                  np.stack(want))

@@ -2,8 +2,9 @@
 batch packing's precedence (`utils/envflags.resolve_packing`, which
 `run_training` consults); every `Serving` knob (`serving/config.
 resolve_serving`: env over config over default, set-but-empty and
-malformed values as JAX resolves them), of which a replica fleet is
-still refused (ROADMAP A8) while raw-structure serving builds a
+malformed values as JAX resolves them), of which the int8 tier and
+sharded serving are still refused (ROADMAP A8) while a replica fleet
+resolves as JAX's (`resolve_fleet`), raw-structure serving builds a
 structure engine and the metrics port starts the /metrics server
 through `run_prediction`; the fault
 plan's resolution (`utils/faults.resolve_fault_plan`: run_training
@@ -19,7 +20,7 @@ import torch
 from hydragnn_tpu.serving.config import resolve_fleet as j_resolve_fleet
 from hydragnn_tpu.serving.config import resolve_serving as j_resolve_serving
 from hydragnn_tpu.utils.envflags import resolve_packing as j_resolve_packing
-from hydragnn_tpu_torch.serving.config import resolve_serving
+from hydragnn_tpu_torch.serving.config import resolve_fleet, resolve_serving
 from hydragnn_tpu_torch.utils.envflags import resolve_packing
 
 # see tests/test_torch_train.py: one intra-op thread per test worker
@@ -56,7 +57,7 @@ SERVING_KNOBS = [
     ("md_skin", "md_skin", "HYDRAGNN_MD_SKIN", 0.5, "0.2", "thin"),
 ]
 SERVING_ENVS = tuple(k[2] for k in SERVING_KNOBS) + (
-    "HYDRAGNN_FLEET_REPLICAS",)
+    "HYDRAGNN_FLEET_REPLICAS", "HYDRAGNN_FLEET_COMPILE_STORE")
 
 
 @pytest.fixture
@@ -136,8 +137,8 @@ def test_run_training_packing_follows_the_env(clean_env, config, env, packs):
 
 
 # (Serving block, env) -> whether the JAX package's run_prediction acts
-# on it (starts the metrics server or the router); the port refuses the
-# router only
+# on it (starts the metrics server or the router); the port refuses only
+# the int8 tier
 SERVING_CASES = [
     ({"metrics_port": 9100}, {}, True),
     ({}, {"HYDRAGNN_SERVE_METRICS_PORT": "9100"}, True),
@@ -160,24 +161,33 @@ SERVING_CASES = [
           "HYDRAGNN_SERVE_DEADLINE_MS": "10",
           "HYDRAGNN_SERVE_BREAKER_THRESHOLD": "1",
           "HYDRAGNN_SERVE_BREAKER_RESET_S": "2"}, False),
+    # ported: the fleet and its compile store
+    ({"fleet": {"replicas": 2, "compile_store": "/tmp/store"}},
+     {"HYDRAGNN_FLEET_COMPILE_STORE": "/env/store"}, True),
+    # refused: the int8 tier, by the block or the env
+    ({"precision": "int8"}, {}, False),
+    ({}, {"HYDRAGNN_SERVE_PRECISION": "int8"}, False),
 ]
 
 
 @pytest.mark.parametrize("block,env,acts", SERVING_CASES)
 def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
                                                 acts):
-    """fleet.replicas > 1, by the config block or the env, raises
+    """Precision "int8", by the config block or the env, raises
     NotImplementedError naming A8 exactly where the JAX package's
-    resolution turns the router on; metrics_port (the /metrics server,
-    ported), structure, max_queue, deadline_ms and breaker_* resolve to
-    the JAX package's values."""
+    resolution turns the int8 tier on; the fleet (ported: the router
+    and its store), metrics_port (the /metrics server), structure,
+    max_queue, deadline_ms and breaker_* resolve to the JAX package's
+    values."""
+    import dataclasses
     for name, value in env.items():
         clean_env.setenv(name, value)
     cfg = {"Serving": block}
     j = j_resolve_serving(cfg)
     assert acts == (j.metrics_port > 0 or j_resolve_fleet(cfg).replicas > 1)
-    refused = j_resolve_fleet(cfg).replicas > 1
-    if refused:
+    assert dataclasses.asdict(resolve_fleet(cfg)) == \
+        dataclasses.asdict(j_resolve_fleet(cfg))
+    if j.precision == "int8":
         with pytest.raises(NotImplementedError, match="A8"):
             resolve_serving(cfg)
     else:
@@ -278,18 +288,25 @@ def test_serving_structure_builds_a_structure_engine(clean_env,
 
 def test_run_prediction_refuses_the_metrics_server_before_any_work(
         clean_env):
-    """run_prediction resolves the serving knobs first: a replica fleet
-    raises before the model, the weights or the data are touched; the
-    metrics server is ported, so a metrics port resolves (and serves,
-    tests/test_torch_telemetry.py)."""
+    """run_prediction resolves the serving knobs first: the int8 tier,
+    and num_shards > 1, raise before the model, the weights or the data
+    are touched; the metrics server and the fleet are ported, so a
+    metrics port and a replica count resolve (and serve,
+    tests/test_torch_telemetry.py and tests/test_torch_fleet.py)."""
     from hydragnn_tpu_torch import run_prediction
     from tests.utils import make_config
     cfg = make_config("PNA")
-    cfg["Serving"] = {"metrics_port": 9100, "fleet": {"replicas": 2}}
+    cfg["Serving"] = {"metrics_port": 9100, "fleet": {"replicas": 2},
+                      "precision": "int8"}
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(cfg, datasets=([], [], []), device="cpu")
+    cfg["Serving"].pop("precision")
+    with pytest.raises(NotImplementedError, match="A8"):
+        run_prediction(cfg, datasets=([], [], []), device="cpu",
+                       num_shards=2)
     assert resolve_serving({"Serving": {"metrics_port": 9100}}
                            ).metrics_port == 9100
+    assert resolve_fleet(cfg).replicas == 2
 
 
 # (Training.fault_plan, HYDRAGNN_FAULT_PLAN) -> whether a plan resolves

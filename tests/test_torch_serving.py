@@ -212,6 +212,29 @@ def test_port_and_chip_smoke_import_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+def test_new_serving_modules_import_no_jax():
+    """The fleet, publisher, autoscaler, compile store and profiling
+    modules load neither jax nor the JAX package."""
+    code = ("import sys; sys.path.insert(0, '.'); "
+            "import hydragnn_tpu_torch.serving, "
+            "hydragnn_tpu_torch.serving.fleet, "
+            "hydragnn_tpu_torch.serving.publish, "
+            "hydragnn_tpu_torch.serving.autoscale, "
+            "hydragnn_tpu_torch.utils.devices, "
+            "hydragnn_tpu_torch.utils.profiling, "
+            "hydragnn_tpu_torch.kernels._build, "
+            "hydragnn_tpu_torch.telemetry.http; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
+            "or m == 'hydragnn_tpu' or m.startswith('hydragnn_tpu.')]; "
+            "print(bad)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_port_sources_have_no_jax_imports():
     files = sorted((REPO / "hydragnn_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")

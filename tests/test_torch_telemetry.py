@@ -15,7 +15,8 @@ package's on the CPU:
 * `resolve_md_farm` as the JAX package resolves it, env over config,
   malformed values warning;
 * `Serving.metrics_port` > 0 is no longer refused and makes
-  run_prediction start the server, while `fleet.replicas` > 1 still is.
+  run_prediction start the server; `fleet.replicas` > 1 is no longer
+  refused either (tests/test_torch_fleet.py), while the int8 tier is.
 """
 import copy
 import json
@@ -432,17 +433,25 @@ def test_resolve_md_farm_matches_jax(monkeypatch, caplog, knob, how):
 
 
 def test_metrics_port_is_served_and_the_fleet_still_refused(monkeypatch):
-    for name in ("HYDRAGNN_SERVE_METRICS_PORT", "HYDRAGNN_FLEET_REPLICAS"):
+    """The metrics port resolves; since the fleet was ported a replica
+    count resolves too (the router serves /metrics for the fleet), and
+    what is still refused, naming A8, is the int8 tier."""
+    from hydragnn_tpu_torch.serving.config import resolve_fleet
+    for name in ("HYDRAGNN_SERVE_METRICS_PORT", "HYDRAGNN_FLEET_REPLICAS",
+                 "HYDRAGNN_SERVE_PRECISION"):
         monkeypatch.delenv(name, raising=False)
     assert resolve_serving({"Serving": {"metrics_port": 9100}}
                            ).metrics_port == 9100
     monkeypatch.setenv("HYDRAGNN_SERVE_METRICS_PORT", "9200")
     assert resolve_serving({}).metrics_port == 9200
-    with pytest.raises(NotImplementedError, match="A8"):
-        resolve_serving({"Serving": {"fleet": {"replicas": 2}}})
+    cfg = {"Serving": {"fleet": {"replicas": 2}}}
+    assert resolve_serving(cfg).metrics_port == 9200
+    assert resolve_fleet(cfg).replicas == 2
     monkeypatch.setenv("HYDRAGNN_FLEET_REPLICAS", "3")
+    assert resolve_fleet(cfg).replicas == 3
     with pytest.raises(NotImplementedError, match="A8"):
-        resolve_serving({"Serving": {"metrics_port": 9100}})
+        resolve_serving({"Serving": {"metrics_port": 9100,
+                                     "precision": "int8"}})
 
 
 def test_run_prediction_starts_the_metrics_server(monkeypatch):
