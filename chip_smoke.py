@@ -267,6 +267,35 @@ Phases:
    requests, one QueueDepthAutoscaler step up (`add_replica` on the
    published version, warmed from the store) and one down after it.
    Every part holds B2 and B3 launched.
+15. The last four architectures (`a7_phase`, models/dimenet.py,
+   painn.py, pnaeq.py, mace.py) at examples/LennardJones/LJ.json's
+   widths, each model type set as LennardJones.py sets it (hidden 32,
+   2 layers, radius 2.0; DimeNet num_radial 8, num_spherical 4, int_emb
+   16, basis_emb 8, out_emb 32; MACE max_ell 2, node_max_ell 1,
+   correlation [2]), on phase 6's LJ cells. (a) PAINN, PNAEq and MACE:
+   the first step (loss card vs CPU within rtol 1e-4 / atol 1e-5,
+   gradients through the kernels vs the plain versions), 3 SGD steps
+   card vs CPU (each loss within rtol 1e-3), energy-force run_training
+   captured for 2 epochs on the dense layout and 1 on the edge list, and
+   the step numbers (`step_metrics`: captured = eager bitwise first).
+   (b) Their trained weights through InferenceEngine(ef_forward=True) on
+   the card and the CPU: energies and real-node forces within rtol 1e-4
+   / atol 1e-5 (or 4 float32 floors of the CPU's own rounding), every
+   bucket's graph = its eager forward bitwise, timed bursts; DimeNet
+   (seeded random weights) through run_prediction's loop, which it
+   takes as in the JAX package, and its energies and real-node forces on
+   the loader's triplet batches, card vs CPU. (c) The four threshold
+   rows of tests/test_graphs_full.py on the card: the BCC lattice
+   (graphs/synthetic.py `bcc_lattices`, 160 graphs, a graph head), 60
+   epochs through run_training and run_prediction, RMSE under DimeNet
+   0.50, PAINN 0.60, PNAEq 0.60, MACE 0.70, each row run again on the
+   CPU from the same initialization as a witness, every epoch's train
+   loss within rtol 1e-3 of the card's; DimeNet's training on the
+   lattice's graph head (its parameter gradients are finite there): the
+   first step as in (a), its gradients card vs CPU as one vector, and 3
+   SGD steps card vs CPU. (d) segment_sum at each new shape of these
+   paths, held against its plain version, with its bound and
+   `index_add`'s time. Every path holds B3 launched.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -275,7 +304,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `fleet: {...}` (phase 14), a
+name and power limit, and before it an `a7: {...}` (phase 15), a
+`fleet: {...}` (phase 14), a
 `farm: {...}` (phase 13), a
 `serving: {...}` (phase 12) and a `training: {...}` JSON line. Any
 failure exits non-zero without the last
@@ -1409,6 +1439,7 @@ def train_parts(torch, cfg, splits, device, group: int = 0):
     state, train step, train loader, completed config, model config); with
     `group` > 0 also the multi step of that many steps, last."""
     from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.triplets import maybe_triplet_transform
     from hydragnn_tpu_torch.models.create import create_model, data_input_dim
     from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
     from hydragnn_tpu_torch.train import optimizer as topt
@@ -1418,9 +1449,12 @@ def train_parts(torch, cfg, splits, device, group: int = 0):
     tr = cfg["NeuralNetwork"]["Training"]
     nbr_fmt = bool(cfg["NeuralNetwork"]["Architecture"].get(
         "neighbor_format", True))
+    bs = int(tr["batch_size"])
     loader = create_dataloaders(
-        *splits, int(tr["batch_size"]), neighbor_format=nbr_fmt,
-        packing=bool(tr.get("batch_packing", False)))[0]
+        *splits, bs, neighbor_format=nbr_fmt,
+        packing=bool(tr.get("batch_packing", False)),
+        batch_transform=maybe_triplet_transform(
+            mcfg.model_type, splits[0] + splits[1] + splits[2], bs))[0]
     model = create_model(mcfg, device=device, seed=SEED)
     tx = topt.select_optimizer(tr)
     state = tstep.TrainState.create(model, tx)
@@ -1441,8 +1475,7 @@ def plain_versions():
     """Every kernel wrapper of the model's path replaced by its plain
     PyTorch version under autograd (the yardstick on the same card)."""
     from hydragnn_tpu_torch.kernels import fused_mp, nbr, segment
-    from hydragnn_tpu_torch.models import convs, egnn
-    from hydragnn_tpu_torch.ops import geometry
+    from hydragnn_tpu_torch.models import convs
     from hydragnn_tpu_torch.ops import segment as oseg
 
     def edge(pi, pj, s_, r_, m_, n, eps=1e-5, layout=None, layout_t=None,
@@ -1461,12 +1494,6 @@ def plain_versions():
         (fused_mp, "filter_scatter",
          lambda h, w, s_, r_, m_, n, layout=None:
              fused_mp.filter_scatter_plain(h, w, s_, r_, m_, n)),
-        (geometry, "gather_rows", lambda x, i, layout=None:
-             x.index_select(0, i)),
-        (convs, "gather_rows", lambda x, i, layout=None:
-             x.index_select(0, i)),
-        (egnn, "gather_rows", lambda x, i, layout=None:
-             x.index_select(0, i)),
         (segment, "gather_rows", lambda x, i, layout=None:
              x.index_select(0, i))]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
@@ -1540,7 +1567,7 @@ def first_step_gradients(torch, cfg, splits, card):
     def rel(x, y):
         return float((x - y).norm() / max(float(y.norm()), 1e-30))
     worst = []
-    gap2 = ref2 = cpu2 = f64_2 = 0.0
+    gap2 = ref2 = cpu2 = f64_2 = dev2 = b2 = 0.0
     noise = []
     for name, a, p_, b, w in zip(names, g_card, runs["card_plain"][1],
                                  g_cpu, runs["cpu64"][1]):
@@ -1549,6 +1576,8 @@ def first_step_gradients(torch, cfg, splits, card):
         ref2 += float(p_.norm()) ** 2
         cpu2 += float((b - w).norm()) ** 2
         f64_2 += float(w.norm()) ** 2
+        dev2 += float((a - b).norm()) ** 2
+        b2 += float(b.norm()) ** 2
         if q > 0.5:
             # more rounding than gradient (a bias ahead of a batch norm,
             # whose gradient is 0 but for rounding): held with all the
@@ -1577,6 +1606,7 @@ def first_step_gradients(torch, cfg, splits, card):
     rec["rounding_only_tensors"] = noise
     rec["rel_l2_kernels_plain_all"] = (gap2 / max(ref2, 1e-60)) ** 0.5
     rec["rel_l2_cpu_f64_all"] = (cpu2 / max(f64_2, 1e-60)) ** 0.5
+    rec["rel_l2_card_cpu_all"] = (dev2 / max(b2, 1e-60)) ** 0.5
     bound = max(1e-2, 10 * rec["rel_l2_cpu_f64_all"])
     if not rec["rel_l2_kernels_plain_all"] <= bound:
         fail(f"first step gradients as one vector: kernels vs plain "
@@ -5111,6 +5141,530 @@ def fleet_phase(torch, device, card, counted, csce):
     return rec
 
 
+# ----------------------------------------------------------- phase 15 --
+A7_MODELS = ("PAINN", "PNAEq", "MACE")
+A7_GROUP = 2                   # steps per call timed beside S = 1
+A7_SGD_STEPS = 3               # SGD steps held card vs cpu
+LATTICE_SGD_LR = 0.05          # DimeNet's lattice SGD steps
+A7_REPEATS = 2                 # an EF burst is the test split twice over
+A7_BURSTS = 10                 # timed EF bursts of each model
+LATTICE_GRAPHS = 160           # tests/test_graphs_full.py's lattice rows
+LATTICE_EPOCHS = 60
+THRESHOLDS = {"DimeNet": 0.50, "PAINN": 0.60, "PNAEq": 0.60, "MACE": 0.70}
+LATTICE_EXTRA = {"MACE": dict(max_ell=2, node_max_ell=1, correlation=[2])}
+# tests/utils.py's BASE_CONFIG: the threshold rows' configuration
+LATTICE_CONFIG = {
+    "Verbosity": {"level": 0},
+    "Dataset": {
+        "name": "unit_test", "format": "unit_test",
+        "node_features": {"name": ["x", "x2", "x3"], "dim": [1, 1, 1],
+                          "column_index": [0, 6, 7]},
+        "graph_features": {"name": ["sum_x_x2_x3"], "dim": [1],
+                           "column_index": [0]}},
+    "NeuralNetwork": {
+        "Architecture": {
+            "radius": 1.0, "max_neighbours": 100, "num_gaussians": 10,
+            "envelope_exponent": 5, "int_emb_size": 8, "basis_emb_size": 4,
+            "out_emb_size": 16, "num_after_skip": 1, "num_before_skip": 1,
+            "num_radial": 6, "num_spherical": 7, "num_filters": 16,
+            "max_ell": 1, "node_max_ell": 1, "hidden_dim": 8,
+            "num_conv_layers": 2, "equivariance": False,
+            "output_heads": {"graph": {
+                "num_sharedlayers": 2, "dim_sharedlayers": 4,
+                "num_headlayers": 2, "dim_headlayers": [10, 10]}},
+            "task_weights": [1.0]},
+        "Variables_of_interest": {
+            "input_node_features": [0], "output_names": ["sum_x_x2_x3"],
+            "output_index": [0], "type": ["graph"],
+            "denormalize_output": False},
+        "Training": {
+            "num_epoch": LATTICE_EPOCHS, "perc_train": 0.7,
+            "EarlyStopping": False, "patience": 10,
+            "loss_function_type": "mse", "batch_size": 32,
+            "Optimizer": {"type": "AdamW", "learning_rate": 0.005},
+            "task_weights": [1.0]}}}
+
+
+def a7_config(model_type):
+    """LJ.json with `model_type`, equivariance on but for DimeNet, as
+    examples/LennardJones/LennardJones.py sets them; its widths as
+    published."""
+    with open(LJ_CONFIG) as fh:
+        cfg = json.load(fh)
+    cfg["NeuralNetwork"]["Architecture"].update(
+        model_type=model_type, equivariance=model_type != "DimeNet")
+    return cfg
+
+
+def sgd_steps_card_cpu(torch, cfg, splits, device, steps):
+    """`steps` captured train steps on the card and eager ones on the CPU
+    from one seeded initialization on the first loader batches: each
+    loss held within TRAIN_RTOL. Returns the relative gaps."""
+    losses = {}
+    for dev in (device, "cpu"):
+        _, state, step, loader, _, _ = train_parts(torch, cfg, splits, dev)
+        loader.set_epoch(0)
+        got = []
+        for b, _ in zip(loader, range(steps)):
+            state, m = step(state, b.to(dev))
+            got.append(float(m["loss"]))
+        losses[str(dev)] = got
+    card, cpu = losses[str(device)], losses["cpu"]
+    gaps = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(card, cpu)]
+    if not np.isfinite(card).all() or max(gaps) > TRAIN_RTOL:
+        fail(f"SGD steps card {card} vs cpu {cpu}: gaps {gaps} above "
+             f"{TRAIN_RTOL}")
+    return dict(card=card, cpu=cpu, relative_gaps=gaps)
+
+
+def a7_training(torch, model_type, splits, device, card, counted):
+    """(a): one model trained on the energy-force path. Returns (the
+    dense run's model, its completed config, record)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    cfg = a7_config(model_type)
+    tr = cfg["NeuralNetwork"]["Training"]
+    tr["num_epoch"] = LJ_EPOCHS
+    bs = int(tr["batch_size"])
+    label = f"LJ {model_type} EF"
+    sgd = copy.deepcopy(cfg)
+    sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
+        "type": "SGD", "learning_rate": tr["Optimizer"]["learning_rate"]}
+    first = first_step_gradients(torch, sgd, splits, device)
+    steps = sgd_steps_card_cpu(torch, sgd, splits, device, A7_SGD_STEPS)
+    print(f"{label} first step: loss card vs cpu {first['loss_gap']:.3e}; "
+          f"gradients kernels vs plain {first['rel_l2_kernels_plain']:.3e} "
+          f"(relative L2, worst tensor; as one vector "
+          f"{first['rel_l2_kernels_plain_all']:.3e}), card vs cpu "
+          f"{first['rel_l2_card_cpu']:.3e}, cpu float32 vs float64 "
+          f"{first['rel_l2_cpu_f64']:.3e}; {A7_SGD_STEPS} SGD steps card "
+          f"{steps['card']} vs cpu {steps['cpu']} (relative gaps "
+          f"{steps['relative_gaps']}) (card: {card})", flush=True)
+    runs, out = {}, None
+    for dense, epochs in ((True, LJ_EPOCHS), (False, 1)):
+        c = copy.deepcopy(cfg)
+        c["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+        c["NeuralNetwork"]["Training"]["num_epoch"] = epochs
+        layout = "dense" if dense else "edge list"
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist, model, done = run_training(copy.deepcopy(c),
+                                                datasets=splits,
+                                                device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        counted(counts)
+        if counts["segment_sum"] == 0:
+            fail(f"{label} ({layout}): segment_sum never launched")
+        for k in ("train_loss", "val_loss", "test_loss"):
+            if not np.isfinite(hist[k]).all():
+                fail(f"{label} ({layout}): non-finite {k} {hist[k]}")
+        if sum(hist["nonfinite_steps"]) or sum(hist["graph_captures"][1:]):
+            fail(f"{label} ({layout}): non-finite steps "
+                 f"{hist['nonfinite_steps']} or captures after epoch 0 "
+                 f"{hist['graph_captures']}")
+        print(f"{label} ({layout}): run_training {epochs} epochs "
+              f"({tr['Optimizer']['type']}) in {wall:.2f} s; train "
+              f"{hist['train_loss']} val {hist['val_loss']} test "
+              f"{hist['test_loss']}; CUDA graphs an epoch "
+              f"{hist['graph_captures']}; launches {counts} (card: {card})",
+              flush=True)
+        runs[layout] = dict(history=hist, wall_s=wall, launches=counts)
+        if dense:
+            out = (model, done)
+    rec = step_metrics(torch, cfg, splits, device, label, bs, A7_GROUP,
+                       card=card)
+    rec["run"] = dict(first_step=first, sgd_steps=steps, runs=runs)
+    return out[0], out[1], rec
+
+
+def ef_float32_floor(torch, model, batch):
+    """The CPU's own float32 rounding of a model's energies and forces
+    on `batch`: max |float32 - float64| over real graphs and nodes."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    outs = []
+    for dt in (torch.float32, torch.float64):
+        m = create_model(model.cfg, device="cpu").to(dt)
+        m.load_state_dict(model.state_dict())
+        b = batch.replace(**{k: getattr(batch, k).to(dt) for k in (
+            "x", "pos", "edge_shifts") if getattr(batch, k) is not None})
+        e, f = energy_forces_from_node_head(m, b)
+        outs.append((e.double()[batch.graph_mask],
+                     f.detach().double()[batch.node_mask]))
+    return max(float((outs[0][0] - outs[1][0]).abs().max()),
+               float((outs[0][1] - outs[1][1]).abs().max()))
+
+
+def a7_serving(torch, model_type, model, test, device, card, counted):
+    """(b) for PAINN, PNAEq, MACE: the trained weights served through
+    InferenceEngine(ef_forward=True) on the edge list, card vs CPU."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.graphs.batch import collate
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    label = f"LJ {model_type} EF engine"
+    mcfg = model.cfg
+    requests = test * A7_REPEATS
+    results = {}
+    for dev in ("cpu", device):
+        m = create_model(mcfg, device=dev)
+        m.load_state_dict(model.state_dict())
+        engine = InferenceEngine(m, mcfg, reference_samples=test,
+                                 max_batch_size=SERVE_MAX_BATCH,
+                                 neighbor_format=False, ef_forward=True,
+                                 device=dev)
+        try:
+            engine.warmup()
+            tk.reset_launch_counts()
+            futs = [engine.submit(s) for s in requests]
+            results[str(dev)] = [f.result(timeout=600) for f in futs]
+            if dev == device:
+                torch.cuda.synchronize()
+                counts = tk.launch_counts()
+                counted(counts)
+                if counts["segment_sum"] == 0:
+                    fail(f"{label}: segment_sum never launched")
+                singles = [(f.bucket, engine.forward_single(s,
+                                                            bucket=f.bucket))
+                           for s, f in list(zip(requests, futs))[:8]]
+                if not all(np.array_equal(r[0], one[0])
+                           and np.array_equal(r[1], one[1])
+                           for (_, one), r in zip(singles,
+                                                  results[str(dev)][:8])):
+                    fail(f"{label}: batched != single on one bucket")
+                graphs = engine_graphs(torch, engine, requests, label)
+                rate = engine_bursts(torch, engine, requests, A7_BURSTS)
+        finally:
+            engine.shutdown()
+    got, want = results[str(device)], results["cpu"]
+    e_got = np.concatenate([r[0].reshape(-1) for r in got])
+    e_ref = np.concatenate([r[0].reshape(-1) for r in want])
+    f_got = np.concatenate([r[1].reshape(-1) for r in got])
+    f_ref = np.concatenate([r[1].reshape(-1) for r in want])
+    floor = 0.0
+    if not (np.allclose(e_got, e_ref, **SLICE_TOL)
+            and np.allclose(f_got, f_ref, **SLICE_TOL)):
+        floor = ef_float32_floor(torch, model, collate(test[:16]))
+    err_e = hold_card_cpu(f"{label} energies", e_got, e_ref, floor)
+    err_f = hold_card_cpu(f"{label} forces", f_got, f_ref, floor)
+    if not np.abs(f_ref).max() > 0:
+        fail(f"{label}: the CPU's forces are all zero")
+    print(f"{label}: card vs cpu energies max abs err {err_e:.3e} (of max "
+          f"|E| {np.abs(e_ref).max():.3e}), forces {err_f:.3e} (of max |F| "
+          f"{np.abs(f_ref).max():.3e}); bound {SLICE_TOL}"
+          + (f" or {FLOOR_TIMES:g} x the float32 floor {floor:.3e}"
+             if floor else "") + f"; batched = single bitwise; launches "
+          f"{counts}; {rate['bursts']} bursts of {rate['requests']} "
+          f"requests: {rate['requests_per_s']:.1f} requests/s, p50 "
+          f"{rate['p50_ms']:.3f} ms, p99 {rate['p99_ms']:.3f} ms (card: "
+          f"{card})", flush=True)
+    return dict(energies_card_cpu=err_e, forces_card_cpu=err_f,
+                float32_floor=floor, launches=counts, graphs=graphs, **rate)
+
+
+def dimenet_serving(torch, splits, device, card, counted):
+    """(b) for DimeNet (seeded random weights): run_prediction's loop on
+    the card and the CPU (the engine takes no triplet tables: the JAX
+    package falls back the same way), and the energies and real-node
+    forces of the loader's triplet batches, card vs CPU."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.triplets import maybe_triplet_transform
+    from hydragnn_tpu_torch.models.create import create_model, data_input_dim
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    label = "LJ DimeNet"
+    cfg = a7_config("DimeNet")
+    done = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = data_input_dim(tcfg.build_model_config(done), splits[0])
+    variables = random_flax_variables(create_model(mcfg, device="cpu"), SEED)
+    bs = int(cfg["NeuralNetwork"]["Training"]["batch_size"])
+    preds, walls = {}, {}
+    for dev in (device, "cpu"):
+        m = create_model(mcfg, device=dev)
+        m.load_state_dict(load_jax_variables(variables))
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        preds[str(dev)] = run_prediction(copy.deepcopy(cfg), splits,
+                                         model=m, device=dev, serve=True)
+        if dev == device:
+            torch.cuda.synchronize()
+            walls["first"] = time.perf_counter() - t0
+            counts = tk.launch_counts()
+            counted(counts)
+            if counts["segment_sum"] == 0:
+                fail(f"{label}: segment_sum never launched")
+            t0 = time.perf_counter()
+            run_prediction(copy.deepcopy(cfg), splits, model=m, device=dev,
+                           serve=False)
+            torch.cuda.synchronize()
+            walls["again"] = time.perf_counter() - t0
+    batches = -(-len(splits[2]) // bs)
+    (trues, got), (trues_c, want) = preds[str(device)], preds["cpu"]
+    if not np.array_equal(trues[0], trues_c[0]):
+        fail(f"{label}: run_prediction targets differ, card vs cpu")
+    transform = maybe_triplet_transform("DimeNet", splits[0] + splits[1]
+                                        + splits[2], bs)
+    loader = create_dataloaders(*splits, bs, neighbor_format=False,
+                                batch_transform=transform)[2]
+    batch = next(iter(loader))
+    floor = 0.0
+    ef = {}
+    for dev in (device, "cpu"):
+        m = create_model(mcfg, device=dev)
+        m.load_state_dict(load_jax_variables(variables))
+        e, f = energy_forces_from_node_head(m, batch.to(dev))
+        ef[str(dev)] = (e.cpu().numpy()[batch.graph_mask.numpy()],
+                        f.cpu().numpy()[batch.node_mask.numpy()])
+        if dev == "cpu":
+            cpu_model = m
+    (e_got, f_got), (e_ref, f_ref) = ef[str(device)], ef["cpu"]
+    if not (np.allclose(got[0], want[0], **SLICE_TOL)
+            and np.allclose(e_got, e_ref, **SLICE_TOL)
+            and np.allclose(f_got, f_ref, **SLICE_TOL)):
+        floor = ef_float32_floor(torch, cpu_model, batch)
+    err_p = hold_card_cpu(f"{label} run_prediction", got[0], want[0], floor)
+    err_e = hold_card_cpu(f"{label} energies", e_got, e_ref, floor)
+    err_f = hold_card_cpu(f"{label} forces", f_got, f_ref, floor)
+    rec = dict(prediction_card_cpu=err_p, energies_card_cpu=err_e,
+               forces_card_cpu=err_f, float32_floor=floor, launches=counts,
+               ms_per_batch=walls["again"] * 1e3 / batches,
+               first_call_ms_per_batch=walls["first"] * 1e3 / batches,
+               batches=batches, triplets_per_batch=int(
+                   batch.triplet_mask.sum()), triplet_budget=int(
+                   batch.idx_kj.shape[0]))
+    print(f"{label} (random weights, seed {SEED}): run_prediction "
+          f"(serve=True falls back to the loop) card vs cpu max abs err "
+          f"{err_p:.3e}; {batches} batches of {bs}: "
+          f"{rec['ms_per_batch']:.2f} ms a batch (wall, the second call; "
+          f"first call {rec['first_call_ms_per_batch']:.2f}); loader batch "
+          f"({rec['triplets_per_batch']} triplets of a budget of "
+          f"{rec['triplet_budget']}) energies card vs cpu {err_e:.3e}, "
+          f"real-node forces {err_f:.3e}; bound {SLICE_TOL}"
+          + (f" or {FLOOR_TIMES:g} x the float32 floor {floor:.3e}"
+             if floor else "") + f"; launches {counts} (card: {card})",
+          flush=True)
+    return rec
+
+
+def lattice_config(model_type):
+    """LATTICE_CONFIG for one of the four rows."""
+    cfg = copy.deepcopy(LATTICE_CONFIG)
+    cfg["NeuralNetwork"]["Architecture"].update(
+        model_type=model_type, **LATTICE_EXTRA.get(model_type, {}))
+    return cfg
+
+
+def dimenet_lattice_training(torch, splits, device, card):
+    """(c) for DimeNet, its training held on the card on the lattice's
+    graph head, whose parameter gradients are finite (LJ's energy-force
+    gradient is NaN at the padding triplets, as in JAX, ROADMAP C): the
+    first batch's loss card vs CPU and its gradients, kernels vs plain
+    versions on the card (`first_step_gradients`) and card vs CPU as one
+    vector within the same bound, max(1e-2, 10 x the CPU float32
+    gradient's own error against float64); then A7_SGD_STEPS SGD steps
+    card vs CPU. The triplet gathers' and scatter's backwards all run
+    here."""
+    cfg = lattice_config("DimeNet")
+    cfg["NeuralNetwork"]["Training"]["Optimizer"] = {
+        "type": "SGD", "learning_rate": LATTICE_SGD_LR}
+    first = first_step_gradients(torch, cfg, splits, device)
+    bound = max(1e-2, 10 * first["rel_l2_cpu_f64_all"])
+    if not first["rel_l2_card_cpu_all"] <= bound:
+        fail(f"lattice DimeNet first step gradients as one vector: card vs "
+             f"cpu relative L2 gap {first['rel_l2_card_cpu_all']} above "
+             f"{bound}")
+    steps = sgd_steps_card_cpu(torch, cfg, splits, device, A7_SGD_STEPS)
+    print(f"lattice DimeNet first step: loss card vs cpu "
+          f"{first['loss_gap']:.3e}; gradients kernels vs plain "
+          f"{first['rel_l2_kernels_plain']:.3e} (relative L2, worst tensor; "
+          f"as one vector {first['rel_l2_kernels_plain_all']:.3e}), card vs "
+          f"cpu {first['rel_l2_card_cpu']:.3e} (as one vector "
+          f"{first['rel_l2_card_cpu_all']:.3e}; bound {bound:.3e}), cpu "
+          f"float32 vs float64 {first['rel_l2_cpu_f64_all']:.3e}; "
+          f"{A7_SGD_STEPS} SGD steps (lr {LATTICE_SGD_LR}) card "
+          f"{steps['card']} vs cpu {steps['cpu']} (relative gaps "
+          f"{steps['relative_gaps']}) (card: {card})", flush=True)
+    return dict(first_step=first, sgd_steps=steps)
+
+
+def lattice_rows(torch, device, card, counted):
+    """(c): the four threshold rows of tests/test_graphs_full.py trained
+    and predicted on the card, each held under its threshold, and run
+    again on the CPU from the same initialization as a witness: every
+    epoch's train loss card vs CPU held within TRAIN_RTOL (a row that
+    ends in the graph-mean basin on one device only fails here); both
+    RMSEs and the graph-mean predictor's are printed. DimeNet's training
+    is held besides (`dimenet_lattice_training`)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.graphs.synthetic import bcc_lattices
+    from hydragnn_tpu_torch.preprocess.load_data import split_dataset
+    samples = bcc_lattices(LATTICE_GRAPHS, heads=("graph",))
+    splits = split_dataset(samples, 0.7)
+    out = {"DimeNet_training": dimenet_lattice_training(torch, splits,
+                                                        device, card)}
+    for model_type in ("DimeNet", "PAINN", "PNAEq", "MACE"):
+        cfg = lattice_config(model_type)
+        runs = {}
+        for dev in (device, "cpu"):
+            tk.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, hist, model, done = run_training(copy.deepcopy(cfg),
+                                                    datasets=splits,
+                                                    device=dev)
+            trues, preds = run_prediction(done, datasets=splits,
+                                          state=state, model=model,
+                                          device=dev)
+            if dev == device:
+                torch.cuda.synchronize()
+                counts = tk.launch_counts()
+                counted(counts)
+                if counts["segment_sum"] == 0:
+                    fail(f"lattice {model_type}: segment_sum never "
+                         "launched")
+            runs[str(dev)] = dict(
+                rmse=float(np.sqrt(np.mean((trues[0] - preds[0]) ** 2))),
+                wall_s=time.perf_counter() - t0,
+                train_loss=[float(v) for v in hist["train_loss"]])
+        got, cpu = runs[str(device)], runs["cpu"]
+        rmse = got["rmse"]
+        mean_rmse = float(np.sqrt(np.mean((trues[0] - trues[0].mean())
+                                          ** 2)))
+        gaps = [abs(a - b) / max(abs(b), 1e-12)
+                for a, b in zip(got["train_loss"], cpu["train_loss"])]
+        parted = next((i for i, g in enumerate(gaps) if g > TRAIN_RTOL),
+                      None)
+        print(f"lattice {model_type}: {LATTICE_EPOCHS} epochs on "
+              f"{len(splits[0])} graphs, run_training + run_prediction "
+              f"{got['wall_s']:.1f} s (cpu witness {cpu['wall_s']:.1f} s); "
+              f"test RMSE card {rmse:.4f}, cpu {cpu['rmse']:.4f}, graph-mean "
+              f"predictor {mean_rmse:.4f} (threshold "
+              f"{THRESHOLDS[model_type]}); final train loss card "
+              f"{got['train_loss'][-1]:.4e}, cpu {cpu['train_loss'][-1]:.4e};"
+              f" train loss card vs cpu at most {max(gaps):.3e} relative "
+              f"over the epochs (bound {TRAIN_RTOL}); launches {counts} "
+              f"(card: {card})", flush=True)
+        if not np.isfinite(rmse) or rmse >= THRESHOLDS[model_type]:
+            fail(f"lattice {model_type}: RMSE {rmse} not under "
+                 f"{THRESHOLDS[model_type]}")
+        if parted is not None:
+            fail(f"lattice {model_type}: train loss card "
+                 f"{got['train_loss'][parted]} vs cpu "
+                 f"{cpu['train_loss'][parted]} at epoch {parted}, above "
+                 f"{TRAIN_RTOL} relative")
+        out[model_type] = dict(rmse=rmse, threshold=THRESHOLDS[model_type],
+                               cpu_rmse=cpu["rmse"],
+                               graph_mean_rmse=mean_rmse,
+                               train_loss_gap=max(gaps),
+                               wall_s=got["wall_s"],
+                               cpu_wall_s=cpu["wall_s"], launches=counts,
+                               train_loss=got["train_loss"],
+                               cpu_train_loss=cpu["train_loss"])
+    return out
+
+
+def a7_segment_shapes(torch, splits, device, card):
+    """(d): segment_sum at each new shape of phase 15's paths, on LJ
+    loader batches of LJ.json's batch size (hidden 32), each over the
+    layout its path builds once a forward (`aggregation_layouts`, and
+    DimeNet's triplet layouts), beside its bound and `index_add`'s time:
+    DimeNet's triplet scatter [T, int_emb] -> E by idx_ji and the
+    gradient of its [T, int_emb] gather by idx_kj; PAINN's vector
+    channel [E, 3 x 32] by receivers; PNAEq's packed statistics
+    [E, 2 x 32 + 1]; MACE's l = 0 and l = 1 messages [E, 32 (2l+1)]; the
+    dense layout's gather gradient of the vector channel [N K, 96] by
+    the table's edge ids; MACE's
+    position centring [N, 3] by graph."""
+    from hydragnn_tpu_torch.graphs.triplets import make_triplet_transform
+    from hydragnn_tpu_torch.kernels.segment import segment_layout
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    cfg = a7_config("DimeNet")
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    f, bs = int(arch["hidden_dim"]), int(cfg["NeuralNetwork"]["Training"][
+        "batch_size"])
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def rnd(rows, width, keep):
+        return torch.randn(rows, width, device=device,
+                           generator=gen) * keep[:, None]
+    shapes = []
+    transform = make_triplet_transform(splits[0] + splits[1] + splits[2],
+                                       bs)
+    for dense in (False, True):
+        loader = create_dataloaders(*splits, bs, neighbor_format=dense,
+                                    batch_transform=transform)[0]
+        loader.set_epoch(0)
+        b = next(iter(loader)).to(device)
+        n, e = b.num_nodes, b.num_edges
+        if dense:
+            keep = b.nbr_mask.reshape(-1)
+            ids = b.nbr_edge.reshape(-1)
+            shapes.append(segment_shape(
+                torch, "a7_dense_vector_gather_bwd", rnd(keep.shape[0],
+                                                         3 * f, keep),
+                ids, e, layout=segment_layout(ids, e, keep), card=card))
+            continue
+        tm = b.triplet_mask
+        width = int(arch["int_emb_size"])
+        for name, ids in (("dimenet_triplet_scatter", b.idx_ji),
+                          ("dimenet_triplet_gather_bwd", b.idx_kj)):
+            shapes.append(segment_shape(
+                torch, name, rnd(tm.shape[0], width, tm), ids, e,
+                layout=segment_layout(ids, e), card=card))
+        keep = b.edge_mask
+        recv = segment_layout(b.receivers, n, keep)
+        for name, width in (("painn_vector_sum", 3 * f),
+                            ("pnaeq_edge_statistics", 2 * f + 1),
+                            ("mace_l0_messages", f),
+                            ("mace_l1_messages", 3 * f)):
+            shapes.append(segment_shape(torch, name, rnd(e, width, keep),
+                                        b.receivers, n, layout=recv,
+                                        card=card))
+        shapes.append(segment_shape(torch, "mace_position_centring",
+                                    rnd(n, 3, b.node_mask), b.node_graph,
+                                    b.num_graphs, card=card))
+    return shapes
+
+
+def a7_phase(torch, device, card, counted, lj_splits):
+    """Phase 15: (a) PAINN, PNAEq and MACE trained (`a7_training`), (b)
+    served (`a7_serving`; DimeNet `dimenet_serving`), (c) the lattice
+    rows and DimeNet's training (`lattice_rows`), (d) segment_sum at the
+    new shapes (`a7_segment_shapes`). Returns (record, shapes, the
+    phase's launches)."""
+    t_phase = time.perf_counter()
+    phase_launches = {}
+
+    def count(counts):
+        counted(counts)
+        for name, c in counts.items():
+            phase_launches[name] = phase_launches.get(name, 0) + c
+    print(f"phase 15: DimeNet, PAINN, PNAEq, MACE at {LJ_CONFIG}'s widths "
+          f"on {sum(len(s) for s in lj_splits)} LJ cells (splits "
+          f"{[len(s) for s in lj_splits]}) (card: {card})", flush=True)
+    rec = {"training": {}, "serving": {}}
+    for model_type in A7_MODELS:
+        model, _, rec["training"][model_type] = a7_training(
+            torch, model_type, lj_splits, device, card, count)
+        rec["serving"][model_type] = a7_serving(
+            torch, model_type, model, lj_splits[2], device, card, count)
+    rec["serving"]["DimeNet"] = dimenet_serving(torch, lj_splits, device,
+                                                card, count)
+    rec["lattice"] = lattice_rows(torch, device, card, count)
+    shapes = a7_segment_shapes(torch, lj_splits, device, card)
+    rec["launches"] = phase_launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15 launches: {phase_launches}; phase 15 took "
+          f"{rec['seconds']:.1f} s (card: {card})", flush=True)
+    return rec, shapes, phase_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5516,6 +6070,14 @@ def main() -> int:
         for name, c in fleet[part]["launches"].items():
             fleet_launches[name] = fleet_launches.get(name, 0) + c
 
+    # ---------------------------------------------------------- phase 15
+    a7, a7_shapes, a7_launches = a7_phase(torch, device, card, counted,
+                                          lj_splits)
+    records["segment_sum"]["shapes"] += a7_shapes
+    records["segment_sum"]["max_abs_err"] = max(
+        [records["segment_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in a7_shapes])
+
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
@@ -5523,6 +6085,7 @@ def main() -> int:
     print("serving: " + json.dumps(dict(serving, card=card)), flush=True)
     print("farm: " + json.dumps(dict(farm, card=card)), flush=True)
     print("fleet: " + json.dumps(dict(fleet, card=card)), flush=True)
+    print("a7: " + json.dumps(dict(a7, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -5562,6 +6125,8 @@ def main() -> int:
             if name == "filter_scatter":
                 extra["backward_launches_farm_path"] = farm_launches[
                     "filter_scatter_backward"]
+        if a7_launches.get(name):
+            extra["launches_a7_path"] = a7_launches[name]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")

@@ -12,7 +12,10 @@ order, built once an epoch. An epoch's order is a pure function of
 (seed, epoch):
 `np.random.RandomState(seed + epoch)` shuffles the indices, so every run
 and every resumed epoch replays it. `drop_last` defaults to `shuffle` and
-never drops an epoch to zero batches. With `neighbor_format` each batch
+never drops an epoch to zero batches. `batch_transform(batch, samples)`
+(or `batch_transform(batch)`, by its arity), e.g. DimeNet's
+`graphs.triplets.TripletTransform`, rewrites each collated batch before
+the neighbor tables are built. With `neighbor_format` each batch
 carries the dense [N, K] neighbor tables, K pinned once from the dataset.
 Batches are numpy-built on the host, bitwise what the JAX loader builds,
 and handed out as GraphBatches of CPU tensors; non-shuffled loaders
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import inspect
 import math
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -65,7 +69,8 @@ class GraphDataLoader:
                  neighbor_format: bool = False,
                  neighbor_k: Optional[int] = None, packing: bool = False,
                  pack_budget=None, pack_lookahead: Optional[int] = None,
-                 pack_rank: int = 0, pack_nproc: int = 1):
+                 pack_rank: int = 0, pack_nproc: int = 1,
+                 batch_transform=None):
         if pack_rank != 0 or pack_nproc != 1:
             raise NotImplementedError(
                 "packing across processes is not ported to "
@@ -96,6 +101,8 @@ class GraphDataLoader:
         self.n_edge = n_edge
         self.n_graph = (pack_budget.n_graph if self.packing
                         else batch_size + 1)
+        self.batch_transform = batch_transform
+        self._transform_arity = None
         self.neighbor_k = None
         if neighbor_format:
             self.neighbor_k = neighbor_k or neighbor_budget_for_dataset(
@@ -183,11 +190,30 @@ class GraphDataLoader:
     def _build_batch(self, sel: Tuple[int, ...]) -> GraphBatch:
         if self.packing:
             (sel,) = sel
-        b = collate([self.dataset[i] for i in sel], n_node=self.n_node,
-                    n_edge=self.n_edge, n_graph=self.n_graph)
+        samples = [self.dataset[i] for i in sel]
+        b = collate(samples, n_node=self.n_node, n_edge=self.n_edge,
+                    n_graph=self.n_graph)
+        if self.batch_transform is not None:
+            b = self._apply_transform(b, samples)
+        # after the transform, which may rewire edges: the tables describe
+        # the edges the model sees
         if self.neighbor_k is not None:
             b = with_neighbor_format(b, k=self.neighbor_k)
         return b
+
+    def _apply_transform(self, b: GraphBatch, samples) -> GraphBatch:
+        if self._transform_arity is None:
+            try:
+                params = [
+                    p for p in inspect.signature(
+                        self.batch_transform).parameters.values()
+                    if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+                self._transform_arity = min(len(params), 2)
+            except (TypeError, ValueError):
+                self._transform_arity = 1
+        if self._transform_arity >= 2:
+            return self.batch_transform(b, samples)
+        return self.batch_transform(b)
 
     def __iter__(self) -> Iterator[GraphBatch]:
         if not self.shuffle:

@@ -42,6 +42,10 @@ class GraphBatch:
     cell: Optional[torch.Tensor] = None        # [G, 3, 3]
     energy: Optional[torch.Tensor] = None      # [G, 1]
     forces: Optional[torch.Tensor] = None      # [N, 3]
+    # DimeNet's triplets (graphs/triplets.py): indices into the edges
+    idx_kj: Optional[torch.Tensor] = None      # [T] int32 edge of (k->j)
+    idx_ji: Optional[torch.Tensor] = None      # [T] int32 edge of (j->i)
+    triplet_mask: Optional[torch.Tensor] = None  # [T] bool
     # dense neighbor layout (with_neighbor_format)
     nbr: Optional[torch.Tensor] = None         # [N, K] int32 sender of slot k
     nbr_edge: Optional[torch.Tensor] = None    # [N, K] int32 edge id of slot k

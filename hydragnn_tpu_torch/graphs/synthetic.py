@@ -18,6 +18,11 @@ them as extxyz text) through examples/common_atomistic.py's
 `frame_to_sample`, and examples/qm9/qm9_data.py's `_synthetic_qm9`
 molecules as `load_qm9` makes them samples.
 
+`bcc_lattices` is the deterministic BCC lattice data of the model zoo's
+threshold rows (tests/deterministic_data.py
+`deterministic_graph_dataset`), bitwise, so `chip_smoke.py` trains those
+rows without the test suite or the JAX package.
+
 `ninb_cfg_files` and `fept_lsms_files` write the raw files of the eam and
 lsms examples (examples/eam/eam_data.py `generate_ninb_dataset`,
 examples/lsms/lsms_data.py `generate_fept_dataset`) byte for byte, so the
@@ -428,3 +433,53 @@ def qm9_molecules(num: int, seed: int = 0, radius: float = 7.0,
                                receivers=recv,
                                y_graph=np.asarray([g / len(zs)], np.float32)))
     return out
+
+
+def bcc_positions(uc_x: int, uc_y: int, uc_z: int) -> np.ndarray:
+    """The atoms of a uc_x x uc_y x uc_z body-centred cubic supercell."""
+    pos = []
+    for x in range(uc_x):
+        for y in range(uc_y):
+            for z in range(uc_z):
+                pos.append([x, y, z])
+                pos.append([x + 0.5, y + 0.5, z + 0.5])
+    return np.asarray(pos, dtype=np.float32)
+
+
+def bcc_lattices(num_configs: int = 200, num_types: int = 3,
+                 radius: float = 1.0, max_neighbours: int = 100,
+                 seed: int = 0, heads=("graph",)) -> List[GraphSample]:
+    """BCC supercells of 1-3 x 1-3 x 1-2 unit cells with one node feature
+    x = (node id mod num_types + 1) / num_types and closed-form targets:
+    with a "graph" head y_graph = sum(x) + sum(x²) + sum(x³), min-max
+    normalized to [0, 1] over the dataset; one column x^(k+1) of y_node
+    for the k-th "node" head."""
+    rng = np.random.RandomState(seed)
+    samples = []
+    for _ in range(num_configs):
+        ucx = rng.randint(1, 4)
+        ucy = rng.randint(1, 4)
+        ucz = rng.randint(1, 3)
+        pos = bcc_positions(ucx, ucy, ucz)
+        n = pos.shape[0]
+        types = np.arange(n) % num_types
+        x = (types.astype(np.float32) + 1.0) / num_types
+        send, recv = radius_graph(pos, radius, max_neighbours)
+        y_graph = y_node = None
+        if "graph" in heads:
+            y_graph = np.asarray([x.sum() + (x ** 2).sum() + (x ** 3).sum()],
+                                 np.float32)
+        n_node_heads = sum(1 for h in heads if h == "node")
+        if n_node_heads:
+            y_node = np.stack([x ** (k + 1) for k in range(n_node_heads)],
+                              axis=1).astype(np.float32)
+        samples.append(GraphSample(x=x[:, None], pos=pos, senders=send,
+                                   receivers=recv, y_graph=y_graph,
+                                   y_node=y_node))
+    if "graph" in heads:
+        ys = np.stack([s.y_graph for s in samples])
+        lo, hi = ys.min(0), ys.max(0)
+        span = np.maximum(hi - lo, 1e-8)
+        for s in samples:
+            s.y_graph = ((s.y_graph - lo) / span).astype(np.float32)
+    return samples

@@ -181,12 +181,17 @@ def segment_sum_grad(g: torch.Tensor, segment_ids: torch.Tensor,
                      num_segments: int, layout=None) -> torch.Tensor:
     """The segment sum's VJP: row e of the result is g[segment_ids[e]],
     0 where the id lies outside [0, num_segments) and, given the forward's
-    `layout`, on the rows it leaves out, which added nothing there."""
+    `layout`, on the rows it leaves out, which added nothing there. The
+    gather is `gather_rows`, whose own gradient (a second derivative:
+    forces under create_graph) is this segment sum again, summed in a
+    fixed order; index_select's is an atomic index_add, whose order
+    changes from run to run on the card."""
     ids = segment_ids.long()
     valid = (ids >= 0) & (ids < num_segments)
     if layout is not None:
         valid = valid & layout_rows(layout, ids.shape[0])
-    rows = g.index_select(0, torch.where(valid, ids, torch.zeros_like(ids)))
+    rows = gather_rows(g, torch.where(valid, segment_ids,
+                                      torch.zeros_like(segment_ids)), layout)
     return torch.where(valid.view((-1,) + (1,) * (g.dim() - 1)), rows,
                        torch.zeros_like(rows))
 
@@ -327,5 +332,12 @@ def gather_rows(x: torch.Tensor, ids: torch.Tensor,
                 layout=None) -> torch.Tensor:
     """x[ids] for [N, F] x and [E] ids in [0, N); its gradient is the
     segment sum of the incoming [E, F] gradient by `ids`, over `layout`
-    (a CSR view of `ids`, see `segment_sum`) when one is given."""
+    (a CSR view of `ids`, see `segment_sum`) when one is given. An
+    [N, ...] x (a vector channel [N, 3, F]) is gathered as [N, prod(...)]
+    rows, a 1-D x as [N, 1]."""
+    if x.dim() == 1:
+        return _GatherRows.apply(x[:, None], ids, layout)[:, 0]
+    if x.dim() > 2:
+        rows = _GatherRows.apply(x.reshape(x.shape[0], -1), ids, layout)
+        return rows.view(tuple(ids.shape) + tuple(x.shape[1:]))
     return _GatherRows.apply(x, ids, layout)

@@ -118,9 +118,18 @@ class BaseStack(nn.Module):
         return outputs, None
 
 
+def edge_sum_layout(batch: GraphBatch, cargs) -> Any:
+    """The layout of `ops.segment.edge_aggregate_sum` in a forward whose
+    `conv_args` holds `aggregation_layouts(..., edge_slots=True)`: the
+    receivers' on the edge list, the table's edge ids' (the gather's
+    gradient) on the dense layout; None where none was built."""
+    return (cargs.get("edge_slot_layout") if batch.nbr is not None
+            else cargs.get("recv_layout"))
+
+
 def aggregation_layouts(batch: GraphBatch, nbr_slots: bool = False,
-                        edge_slots: bool = False,
-                        edge_gathers: bool = False) -> Dict[str, Any]:
+                        edge_slots: bool = False, edge_gathers: bool = False,
+                        every_edge: bool = False) -> Dict[str, Any]:
     """The `kernels.segment.segment_layout`s of the ids one forward's
     sums and gathers walk, built once for all its layers (a stack's
     `conv_args`; capture-safe: no host read); {} on the CPU, where the
@@ -134,19 +143,23 @@ def aggregation_layouts(batch: GraphBatch, nbr_slots: bool = False,
       that gathers node rows into the table (`nbr_slots`),
       `edge_slot_layout` for one that gathers edge rows into it
       (`edge_slots`), and the edge list's two for one that also gathers
-      node rows per edge (`edge_gathers`)."""
+      node rows per edge (`edge_gathers`).
+
+    With `every_edge` the edge list's two keep the masked edges: their
+    gathers' gradient rows are then summed as the CPU's plain versions
+    sum them (DimeNet's padding edge, whose rows are NaN under an
+    energy-force loss, as in the JAX package)."""
     if batch.x.device.type == "cpu":
         return {}
     grad = torch.is_grad_enabled()
     n = batch.num_nodes
     out = {}
     dense = batch.nbr is not None
+    keep = None if every_edge else batch.edge_mask
     if not dense or (grad and edge_gathers):
-        out["recv_layout"] = segment_layout(batch.receivers, n,
-                                            batch.edge_mask)
+        out["recv_layout"] = segment_layout(batch.receivers, n, keep)
     if grad and (not dense or edge_gathers):
-        out["send_layout"] = segment_layout(batch.senders, n,
-                                            batch.edge_mask)
+        out["send_layout"] = segment_layout(batch.senders, n, keep)
     if dense and grad:
         slots = batch.nbr_mask.reshape(-1)
         if nbr_slots:

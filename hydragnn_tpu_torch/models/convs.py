@@ -43,7 +43,7 @@ from torch import nn
 
 from ..kernels.fused_mp import pna_edge_aggregate
 from ..kernels.nbr import nbr_aggregate
-from ..kernels.segment import gather_rows
+from ..kernels import segment as kseg
 from ..ops import segment as seg
 from ..ops.activations import softplus
 from ..ops.scalars import weak
@@ -121,8 +121,8 @@ class PNAConv(nn.Module):
                 mean, mn, mx, sd, deg = neighbor_aggregate(h, batch.nbr_mask)
             else:
                 recv = cargs.get("recv_layout")
-                h = (gather_rows(proj_i, batch.receivers, recv)
-                     + gather_rows(proj_j, batch.senders,
+                h = (kseg.gather_rows(proj_i, batch.receivers, recv)
+                     + kseg.gather_rows(proj_j, batch.senders,
                                    cargs.get("send_layout")))
                 for t in terms:
                     h = h + t
@@ -214,9 +214,9 @@ class GATv2Conv(nn.Module):
             out = seg.neighbor_sum(g_nbr * alpha[..., None], batch.nbr_mask)
         else:
             recv = cargs.get("recv_layout")
-            g_send = gather_rows(g_r.reshape(-1, h * f), batch.senders,
+            g_send = kseg.gather_rows(g_r.reshape(-1, h * f), batch.senders,
                                  cargs.get("send_layout")).view(-1, h, f)
-            g_recv = gather_rows(g_l.reshape(-1, h * f), batch.receivers,
+            g_recv = kseg.gather_rows(g_l.reshape(-1, h * f), batch.receivers,
                                  recv).view(-1, h, f)
             e = F.leaky_relu(g_recv + g_send, self.negative_slope)
             alpha = seg.segment_softmax(torch.sum(e * self.att, dim=-1),
@@ -283,8 +283,10 @@ class CGConv(nn.Module):
                 parts.append(gather_slots(ea, batch.nbr_edge,
                                           cargs.get("edge_slot_layout")))
         else:
-            parts = [gather_rows(x, batch.receivers, cargs.get("recv_layout")),
-                     gather_rows(x, batch.senders, cargs.get("send_layout"))]
+            parts = [kseg.gather_rows(x, batch.receivers,
+                                      cargs.get("recv_layout")),
+                     kseg.gather_rows(x, batch.senders,
+                                      cargs.get("send_layout"))]
             if ea is not None:
                 parts.append(ea)
         z = torch.cat(parts, dim=-1)

@@ -3,8 +3,8 @@
 `create_model` builds the stack for a `ModelConfig` on a device (the card
 unless the caller passes device="cpu"), initializes it like Flax would
 (`init_params`) and returns it in eval mode. GIN, SAGE, GAT, MFC, CGCNN,
-PNA, PNAPlus, SchNet and EGNN are ported; DimeNet, PAINN, PNAEq and MACE
-raise NotImplementedError naming the ROADMAP item that brings them.
+PNA, PNAPlus, SchNet, EGNN, DimeNet, PAINN, PNAEq and MACE: the JAX
+package's 13 architectures.
 """
 from __future__ import annotations
 
@@ -19,21 +19,35 @@ from ..config.config import ModelConfig
 from ..utils.devices import resolve_device
 from .base import BaseStack
 from .convs import GATv2Conv, GINConv, MFConv
+from .dimenet import DIMEStack
 from .egnn import EGCL, EGCLStack
+from .mace import LinearIrreps, MACEStack
+from .painn import PAINNStack
+from .pnaeq import PNAEqStack
 from .schnet import SCFStack
 from .stacks import (CGCNNStack, GATStack, GINStack, MFCStack, PNAPlusStack,
                      PNAStack, SAGEStack)
 
 _PORTED = {"GIN": GINStack, "SAGE": SAGEStack, "GAT": GATStack,
            "MFC": MFCStack, "CGCNN": CGCNNStack, "PNA": PNAStack,
-           "PNAPlus": PNAPlusStack, "SchNet": SCFStack, "EGNN": EGCLStack}
-# architecture keys each ported model needs, as the JAX package requires
+           "PNAPlus": PNAPlusStack, "SchNet": SCFStack, "EGNN": EGCLStack,
+           "DimeNet": DIMEStack, "PAINN": PAINNStack, "PNAEq": PNAEqStack,
+           "MACE": MACEStack}
+# architecture keys each model needs, as the JAX package requires
 _REQUIRED = {"PNA": ("pna_deg",),
              "PNAPlus": ("pna_deg", "radius", "num_radial",
                          "envelope_exponent"),
+             "PNAEq": ("pna_deg", "radius"),
              "SchNet": ("radius", "num_gaussians", "num_filters"),
-             "MFC": ("max_neighbours",)}
-_NOT_PORTED = {"DimeNet": "A7", "PAINN": "A7", "PNAEq": "A7", "MACE": "A7"}
+             "MFC": ("max_neighbours",),
+             "DimeNet": ("radius", "num_radial", "num_spherical",
+                         "int_emb_size", "basis_emb_size", "out_emb_size",
+                         "num_before_skip", "num_after_skip",
+                         "envelope_exponent"),
+             "PAINN": ("radius",),
+             "MACE": ("radius", "max_ell", "node_max_ell",
+                      "avg_num_neighbors")}
+_NOT_PORTED: dict = {}
 
 
 def model_class(model_type: str):
@@ -94,7 +108,8 @@ def init_params(model: BaseStack, seed: int = 0) -> BaseStack:
     lecun_normal, zero biases; MaskedBatchNorm scale 1, bias 0, running
     mean 0 and var 1; MFConv's banks [d, in, out] lecun_normal with
     fan_in d * in (Flax multiplies the receptive field in) and zero bank
-    biases; GATv2's att [1, H, F] lecun_normal with fan_in H; GIN's eps
+    biases; GATv2's att [1, H, F] lecun_normal with fan_in H; MACE's
+    LinearIrreps weights [mul_in, mul_out] lecun_normal; GIN's eps
     100 and EGNN's coords_range 3 (their constructors' values). The
     config's `initial_bias` fills every head's final bias. The numbers
     differ from Flax's for the same seed; weights that must match the JAX
@@ -116,14 +131,21 @@ def init_params(model: BaseStack, seed: int = 0) -> BaseStack:
             elif isinstance(mod, GATv2Conv):
                 mod.att.copy_(_lecun_normal(mod.att.shape, mod.att.shape[1],
                                             gen))
+            elif isinstance(mod, LinearIrreps):
+                for w in mod.parameters(recurse=False):
+                    w.copy_(_lecun_normal(w.shape, w.shape[0], gen))
             elif isinstance(mod, GINConv):
                 mod.eps.fill_(100.0)
             elif isinstance(mod, EGCL) and hasattr(mod, "coords_range"):
                 mod.coords_range.fill_(3.0)
         bias0 = model.cfg.initial_bias
         if bias0 is not None:
+            # the decoder's heads (MACE's readouts hold theirs, which the
+            # JAX package leaves as they are)
             for ih in range(len(model.cfg.heads)):
-                head = getattr(model, f"head_{ih}")
+                head = getattr(model, f"head_{ih}", None)
+                if head is None:
+                    continue
                 last = [m for m in head.modules() if isinstance(m, nn.Linear)]
                 if last and last[-1].bias is not None:
                     last[-1].bias.fill_(float(bias0))

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.segment import gather_rows
+from ..kernels import segment as kseg
 from ..ops import segment as seg
 from ..ops.basis import cosine_cutoff, sinc_expansion
 from ..ops.geometry import edge_vectors
@@ -73,8 +73,8 @@ class EGCL(nn.Module):
             envelope = None
         coord_diff = vec / (length + 1.0)[:, None]
 
-        parts = [gather_rows(x, recv, recv_l), gather_rows(x, send, send_l),
-                 radial]
+        parts = [kseg.gather_rows(x, recv, recv_l),
+                 kseg.gather_rows(x, send, send_l), radial]
         if self.edge_dim and batch.edge_attr is not None:
             parts.append(batch.edge_attr)
         m = self.edge_mlp(torch.cat(parts, dim=-1))

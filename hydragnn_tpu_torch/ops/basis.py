@@ -1,7 +1,9 @@
 """Radial bases (counterpart: hydragnn_tpu/ops/basis.py): SchNet's
-Gaussian smearing, EGNN's sinc expansion and cosine cutoff, PNAPlus's
-Bessel basis with its polynomial envelope. The MACE and DimeNet bases
-come with the models that use them (ROADMAP A7).
+Gaussian smearing, the sinc expansion and cosine cutoff of EGNN, PAINN
+and PNAEq, the Bessel basis with its polynomial envelope of PNAPlus and
+DimeNet, and MACE's suite: its normalized Bessel, Gaussian and Chebyshev
+bases, polynomial cutoff and Agnesi / Soft distance transforms
+(`RADIAL_BASES`, `DISTANCE_TRANSFORMS`).
 
 Python constants enter as JAX's weakly typed scalars do: rounded to the
 data's dtype first (`ops.scalars.weak`). Integer powers multiply as
@@ -83,3 +85,71 @@ def sinc_expansion(d, cutoff: float, num_basis: int):
                                          device=d.device))[..., None]
     return torch.sin(n * weak(math.pi, d) * safe_d / weak(cutoff, d)) \
         / safe_d
+
+
+def bessel_basis_mace(d, cutoff: float, num_basis: int = 8):
+    """MACE's Bessel basis sqrt(2 / c) sin(n pi d / c) / d, n = 1 ..
+    num_basis, with d floored at 1e-9."""
+    freq = torch.arange(1, num_basis + 1, dtype=d.dtype,
+                        device=d.device) * weak(math.pi / cutoff, d)
+    safe_d = torch.maximum(d, torch.full((), weak(1e-9, d), dtype=d.dtype,
+                                         device=d.device))[..., None]
+    return weak(math.sqrt(2.0 / cutoff), d) * torch.sin(freq * safe_d) \
+        / safe_d
+
+
+def gaussian_basis_mace(d, cutoff: float, num_basis: int = 8):
+    """MACE's Gaussian basis: centres evenly spaced in [0, cutoff]."""
+    return gaussian_basis(d, 0.0, cutoff, num_basis)
+
+
+def chebyshev_basis(d, cutoff: float, num_basis: int = 8):
+    """MACE's Chebyshev basis T_n(2 d / c - 1), n = 1 .. num_basis, by the
+    recurrence T_{n+1} = 2 x T_n - T_{n-1} (smooth at x = +-1, where
+    arccos' derivative is infinite)."""
+    x = torch.clamp(2.0 * d / weak(cutoff, d) - 1.0, -1.0, 1.0)
+    t_prev, t_cur = torch.ones_like(x), x
+    out = [t_cur]
+    for _ in range(num_basis - 1):
+        t_prev, t_cur = t_cur, 2.0 * x * t_cur - t_prev
+        out.append(t_cur)
+    return torch.stack(out, dim=-1)
+
+
+def polynomial_cutoff(d, cutoff: float, p: int = 6):
+    """MACE's polynomial cutoff, smooth to order p at d = cutoff, 0 at and
+    beyond it."""
+    x = d / weak(cutoff, d)
+    f = (1.0
+         - weak(0.5 * (p + 1) * (p + 2), x) * integer_pow(x, p)
+         + weak(p * (p + 2), x) * integer_pow(x, p + 1)
+         - weak(0.5 * p * (p + 1), x) * integer_pow(x, p + 2))
+    return torch.where(x < 1.0, f, torch.zeros_like(f))
+
+
+def agnesi_transform(d, q: float = 0.9183, p: float = 4.5791,
+                     a: float = 1.0):
+    """MACE's Agnesi distance transform."""
+    ad = weak(a, d) * d
+    ap = torch.pow(ad, weak(q, d))
+    return 1.0 / (1.0 + ap / (1.0 + torch.pow(ad, weak(q - p, d))))
+
+
+def soft_transform(d, a: float = 0.2, b: float = 3.0):
+    """MACE's Soft distance transform."""
+    ad = weak(a, d) * d
+    db = d / weak(b, d)
+    return d * torch.tanh(db * db + ad) / torch.tanh(1.0 + ad)
+
+
+RADIAL_BASES = {
+    "bessel": bessel_basis_mace,
+    "gaussian": gaussian_basis_mace,
+    "chebyshev": chebyshev_basis,
+}
+
+DISTANCE_TRANSFORMS = {
+    "None": lambda d: d,
+    "Agnesi": agnesi_transform,
+    "Soft": soft_transform,
+}

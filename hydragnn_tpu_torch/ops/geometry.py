@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.segment import gather_rows
+from ..kernels import segment as kseg
 from .scalars import weak
 
 
@@ -19,8 +19,8 @@ def edge_vectors(pos, senders, receivers, edge_shifts=None, eps: float = 1e-9,
     has them: the gathers' backward then walks them instead of sorting.
     The filter layouts leave out the masked padding edges, whose gradient
     rows land only in the padding node."""
-    vec = (gather_rows(pos, senders, send_layout)
-           - gather_rows(pos, receivers, recv_layout))
+    vec = (kseg.gather_rows(pos, senders, send_layout)
+           - kseg.gather_rows(pos, receivers, recv_layout))
     if edge_shifts is not None:
         vec = vec + edge_shifts
     length = torch.sqrt(torch.sum(vec * vec, dim=-1) + weak(eps, vec))

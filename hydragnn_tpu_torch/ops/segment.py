@@ -2,7 +2,8 @@
 
 Padding is handled by masks, never by dynamic shapes. Reduced-precision
 segment sums accumulate in float32 and store back in the data's dtype
-(`_accum_f32`). Every 2-D floating segment sum goes through
+(`_accum_f32`). Every floating segment sum of rows (2-D data, or [E, ...]
+data summed as [E, prod(...)] rows) goes through
 `kernels.segment.segment_sum`: the hand-written kernel for tensors on the
 card, its plain version for tensors on the CPU.
 
@@ -66,13 +67,18 @@ def segment_sum(data, segment_ids, num_segments, mask=None,
     """Masked segment sum; ids outside [0, num_segments) add nothing.
     `indices_are_sorted` promises nondecreasing ids (the pooling case:
     collate lays graphs out in order). `layout` is a CSR view of the ids
-    the caller holds (kernels.segment.segment_sum), for 2-D data."""
+    the caller holds (kernels.segment.segment_sum), for data of rows."""
     if mask is not None:
         data = torch.where(_bcast(mask, data), data, torch.zeros_like(data))
     data, store_dtype = _accum_f32(data)
-    if data.dim() == 2 and data.is_floating_point():
-        out = _seg_kernel.segment_sum(data, segment_ids, num_segments,
-                                      indices_are_sorted, layout)
+    if data.dim() >= 2 and data.is_floating_point():
+        # [E, ...] rows are summed as [E, prod(...)] rows: the vector
+        # channels of PAINN / PNAEq ([E, 3, F]) and MACE's per-l
+        # messages ([E, mul, 2l+1])
+        rest = tuple(data.shape[1:])
+        out = _seg_kernel.segment_sum(
+            data.reshape(data.shape[0], -1), segment_ids, num_segments,
+            indices_are_sorted, layout).reshape((num_segments,) + rest)
     else:
         out = _seg_kernel.segment_sum_plain(data, segment_ids, num_segments)
     return out if store_dtype is None else out.to(store_dtype)
@@ -95,6 +101,36 @@ def segment_mean(data, segment_ids, num_segments, mask=None,
     return total / count.view(tuple(count.shape) + (1,) * (total.dim() - 1))
 
 
+class _SegmentExtreme(torch.autograd.Function):
+    """scatter_reduce's amax / amin over a `neutral` fill, with
+    scatter_reduce's gradient (split evenly among the rows that reach
+    their segment's extreme; a segment left at `neutral` counts its fill
+    as one more), but gathered by `kernels.segment.gather_rows`: the
+    gradient's own gradient (a second derivative: forces under
+    create_graph) is then a segment sum in a fixed order, where
+    scatter_reduce's is an atomic scatter_add."""
+
+    @staticmethod
+    def forward(ctx, data, ids, num_segments, neutral, reduce):
+        out = torch.full((num_segments,) + tuple(data.shape[1:]), neutral,
+                         dtype=data.dtype, device=data.device)
+        out = out.scatter_reduce(0, _bcast(ids, data).expand_as(data), data,
+                                 reduce=reduce, include_self=True)
+        ctx.save_for_backward(data, ids, out)
+        ctx.neutral = neutral
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, ids, out = ctx.saved_tensors
+        hit = data == out.index_select(0, ids)
+        count = (out == ctx.neutral).to(g.dtype).index_add(
+            0, ids, hit.to(g.dtype))
+        rows = _seg_kernel.gather_rows(g / count, ids)
+        return (torch.where(hit, rows, torch.zeros_like(rows)), None, None,
+                None, None)
+
+
 def _segment_extreme(data, segment_ids, num_segments, mask, neutral, reduce):
     ids = segment_ids.long()
     valid = (ids >= 0) & (ids < num_segments)
@@ -103,10 +139,7 @@ def _segment_extreme(data, segment_ids, num_segments, mask, neutral, reduce):
     fill = torch.full_like(data, neutral)
     data = torch.where(_bcast(valid, data), data, fill)
     ids = torch.where(valid, ids, torch.zeros_like(ids))
-    out = torch.full((num_segments,) + tuple(data.shape[1:]), neutral,
-                     dtype=data.dtype, device=data.device)
-    index = _bcast(ids, data).expand_as(data)
-    return out.scatter_reduce(0, index, data, reduce=reduce, include_self=True)
+    return _SegmentExtreme.apply(data, ids, num_segments, neutral, reduce)
 
 
 def segment_max(data, segment_ids, num_segments, mask=None, neutral=-1e30):

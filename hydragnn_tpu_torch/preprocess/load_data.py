@@ -86,13 +86,15 @@ def loader_budgets(all_samples, graphs_per_batch: int,
 
 def create_dataloaders(trainset, valset, testset, batch_size: int,
                        neighbor_format: bool = False, packing: bool = False,
-                       pack_lookahead: Optional[int] = None):
+                       pack_lookahead: Optional[int] = None,
+                       batch_transform=None):
     """One loader per split (seed 0), all three on one batch shape (and
     one K), so each step kind is one CUDA graph; the train loader shuffles
     and drops its last partial batch. Fixed-shape: room for `batch_size`
     of the largest graphs of any split. With `packing`: the pack budget
     `choose_budget` sizes once over all three splits for `batch_size`
-    average graphs (`pack_lookahead` its planner window)."""
+    average graphs (`pack_lookahead` its planner window).
+    `batch_transform` (DimeNet's triplets) rewrites every batch."""
     all_samples = list(trainset) + list(valset) + list(testset)
     pack_budget = n_node = n_edge = None
     if packing:
@@ -109,5 +111,6 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
         return GraphDataLoader(ds, batch_size, shuffle=shuffle, n_node=n_node,
                                n_edge=n_edge, neighbor_format=neighbor_format,
                                neighbor_k=k, packing=packing,
-                               pack_budget=pack_budget)
+                               pack_budget=pack_budget,
+                               batch_transform=batch_transform)
     return mk(trainset, True), mk(valset, False), mk(testset, False)

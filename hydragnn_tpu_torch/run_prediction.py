@@ -16,7 +16,8 @@ batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
 block / HYDRAGNN_SERVE), or through a `ReplicaRouter` of
 `Serving.fleet.replicas` engines (HYDRAGNN_FLEET_REPLICAS) when that is
 above 1, else with a plain loop over `batch_size` batches padded to one
-shape. Returns (trues, preds), one array per head,
+shape. DimeNet, whose batches carry triplet tables the engine does not
+build, takes the loop with the JAX package's warning. Returns (trues, preds), one array per head,
 over real graphs (graph heads) or real nodes (node heads). With
 HYDRAGNN_DUMP_TESTDATA set, they are also pickled to
 ./logs/<log name>/test_data.pk as {output name: {"true", "pred"}}.
@@ -24,6 +25,7 @@ HYDRAGNN_DUMP_TESTDATA set, they are also pickled to
 from __future__ import annotations
 
 import copy
+import logging
 import os
 import pickle
 from typing import Optional, Sequence
@@ -35,6 +37,7 @@ from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
 from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
     with_neighbor_format
+from .graphs.triplets import maybe_triplet_transform
 from .models.create import create_model, data_input_dim
 from .postprocess.postprocess import output_denormalize
 from .preprocess.load_data import load_datasets_from_config
@@ -91,7 +94,17 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     # one K for every split, as the JAX loaders share one program
     neighbor_k = neighbor_budget_for_dataset(all_samples) if nbr_fmt else None
 
+    # DimeNet's triplets, with run_training's budget
+    batch_transform = maybe_triplet_transform(mcfg.model_type, all_samples,
+                                              max(batch_size, 1))
     use_engine = serving.enabled if serve is None else bool(serve)
+    if use_engine and batch_transform is not None:
+        # the engine builds no triplet tables for its buckets: the same
+        # fallback as the JAX package's
+        logging.getLogger("hydragnn_tpu_torch").warning(
+            "serving engine does not support triplet batch transforms "
+            "(DimeNet); falling back to the legacy prediction loop")
+        use_engine = False
     if use_engine:
         trues, preds = _predict_with_engine(model, mcfg, testset, serving,
                                             neighbor_k, dev, config)
@@ -100,7 +113,7 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
                                   frozen=True)
         trues, preds = _predict_with_loader(forward, mcfg, testset,
                                             all_samples, batch_size,
-                                            neighbor_k, dev)
+                                            neighbor_k, dev, batch_transform)
     voi = config["NeuralNetwork"]["Variables_of_interest"]
     if voi.get("denormalize_output") and "y_minmax" in voi:
         trues, preds = output_denormalize(voi["y_minmax"], trues, preds)
@@ -166,10 +179,11 @@ def _sample_targets(mcfg, sample):
 
 
 def _predict_with_loader(forward, mcfg, testset, all_samples, batch_size,
-                         neighbor_k, device):
+                         neighbor_k, device, batch_transform=None):
     """One padded forward per `batch_size` test samples, every batch on
     the shape the JAX loaders use: nodes and edges for `batch_size`
-    largest graphs, rounded by BucketSpec(64)."""
+    largest graphs, rounded by BucketSpec(64); `batch_transform(batch,
+    samples)` (DimeNet's triplets) rewrites each batch first."""
     bucket = BucketSpec(multiple=64)
     n_node = bucket.bucket(max(s.num_nodes for s in all_samples)
                            * batch_size + 1)
@@ -181,6 +195,8 @@ def _predict_with_loader(forward, mcfg, testset, all_samples, batch_size,
         chunk = testset[i:i + batch_size]
         batch = collate(chunk, n_node=n_node, n_edge=n_edge,
                         n_graph=batch_size + 1)
+        if batch_transform is not None:
+            batch = batch_transform(batch, chunk)
         if neighbor_k is not None:
             batch = with_neighbor_format(batch, k=neighbor_k)
         with torch.inference_mode():
@@ -251,7 +267,6 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
     try:
         if serving.metrics_port:
             http = server.start_metrics_server(port=serving.metrics_port)
-            import logging
             logging.getLogger("hydragnn_tpu_torch").info(
                 "serving metrics endpoint at %s/metrics", http.url)
         server.warmup()

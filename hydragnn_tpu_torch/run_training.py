@@ -7,7 +7,9 @@ completes the config from the data (`update_config`), builds the loaders
 `Architecture.neighbor_format` is false; budget-packed when
 `Training.batch_packing` or HYDRAGNN_PACKING asks, with
 `Training.pack_lookahead` or HYDRAGNN_PACK_LOOKAHEAD its planner's
-window), the model on the device
+window; DimeNet falls back to fixed-shape batches, whose triplet tables
+the loaders add with one budget over the three splits), the model on the
+device
 (the card unless the caller passes device="cpu"; `create_model`'s seeded
 initialization), the optimizer (`select_optimizer`) and the train/eval
 steps (the energy-force ones with `Training.compute_grad_energy`), and
@@ -52,6 +54,7 @@ from typing import Optional, Sequence
 
 from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
+from .graphs.triplets import maybe_triplet_transform
 from .models.create import create_model, data_input_dim
 from .preprocess.load_data import (create_dataloaders,
                                    load_datasets_from_config)
@@ -137,9 +140,18 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
                        bool(nn["Architecture"].get("neighbor_format", True)))
     packing = resolve_packing(train_cfg)
+    if packing and mcfg.model_type == "DimeNet":
+        print("batch_packing: DimeNet's static triplet budget is not "
+              "pack-aware yet; falling back to fixed-shape batching",
+              flush=True)
+        packing = False
+    # DimeNet's triplets, one budget over the three splits
+    batch_transform = maybe_triplet_transform(
+        mcfg.model_type, trainset + valset + testset, max(batch_size, 1))
     train_loader, val_loader, test_loader = create_dataloaders(
         trainset, valset, testset, batch_size, neighbor_format=nbr_fmt,
-        packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg))
+        packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg),
+        batch_transform=batch_transform)
     if packing and verbosity >= 1:
         b = train_loader.pack_budget
         print(f"batch_packing: budget n_node={b.n_node} n_edge={b.n_edge} "

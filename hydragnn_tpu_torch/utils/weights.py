@@ -13,7 +13,9 @@ keeps Flax's submodule names as attribute names (`conv_{i}.pre_i`,
 * Dense `bias`, MaskedBatchNorm `scale` / `bias` keep their names;
 * the convs' own parameters keep their names and shapes: GIN's `eps`,
   GATv2's `att`, MFConv's banks `w_l` / `b_l` / `w_r` / `b_r`, EGNN's
-  `coords_range`;
+  `coords_range`, and MACE's `LinearIrreps` weights `lin_l{l}`
+  [mul_in, mul_out] (applied through an einsum, not as a Dense kernel:
+  they cross untransposed);
 * `batch_stats` `mean` / `var` -> the MaskedBatchNorm buffers.
 
 An unknown collection or leaf name raises here; a missing or surplus
@@ -21,6 +23,7 @@ module path raises in `load_state_dict` (strict by default).
 """
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 from typing import Dict, Iterator, Mapping, Tuple
 
@@ -31,6 +34,18 @@ import torch
 _CONV_LEAVES = ("eps", "att", "w_l", "b_l", "w_r", "b_r", "coords_range")
 _LEAVES = {"params": ("kernel", "bias", "scale") + _CONV_LEAVES,
            "batch_stats": ("mean", "var")}
+# MACE's LinearIrreps weights, one per l
+_IRREPS_LEAF = re.compile(r"lin_l\d+")
+
+
+def _known_leaf(collection: str, name: str, module: str) -> bool:
+    """Whether `name` is a leaf of `collection` the port holds; a conv's
+    own parameters may sit at the root (a bare conv), the others lie
+    under a module."""
+    if collection == "params" and _IRREPS_LEAF.fullmatch(name):
+        return bool(module)
+    return name in _LEAVES[collection] and bool(module
+                                                or name in _CONV_LEAVES)
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
@@ -49,11 +64,10 @@ def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         raise KeyError(f"load_jax_variables: unknown collections "
                        f"{sorted(unknown)}; expected {sorted(_LEAVES)}")
     state: Dict[str, torch.Tensor] = OrderedDict()
-    for collection, leaves in _LEAVES.items():
+    for collection in _LEAVES:
         for path, arr in _walk(variables.get(collection, {})):
             name, module = path[-1], ".".join(path[:-1])
-            # a conv's own parameters may sit at the root (a bare conv)
-            if name not in leaves or not (module or name in _CONV_LEAVES):
+            if not _known_leaf(collection, name, module):
                 raise KeyError(f"load_jax_variables: unexpected "
                                f"{collection} leaf {'/'.join(path)}")
             if name == "kernel":
@@ -91,7 +105,7 @@ def export_jax_variables(model) -> Dict[str, Dict]:
         if leaf == "weight":
             leaf, arr = "kernel", arr.T
         coll = "batch_stats" if leaf in _LEAVES["batch_stats"] else "params"
-        if leaf not in _LEAVES[coll] or not (path or leaf in _CONV_LEAVES):
+        if not _known_leaf(coll, leaf, ".".join(path)):
             raise KeyError(f"export_jax_variables: unexpected entry {key}")
         node = tree[coll]
         for p in path:
@@ -106,7 +120,8 @@ def random_flax_variables(model, seed: int) -> Dict:
     (numpy's generator): Dense kernels N(0, 1/fan_in), biases N(0, 0.1),
     norm scales 1 + N(0, 0.1), running means N(0, 0.3) and variances
     uniform in [0.5, 1.5); MFConv's banks N(0, 1/(d in)) and their biases
-    N(0, 0.1), GATv2's att N(0, 1/H), GIN's eps 100 + N(0, 1) and EGNN's
+    N(0, 0.1), MACE's LinearIrreps weights N(0, 1/mul_in), GATv2's att
+    N(0, 1/H), GIN's eps 100 + N(0, 1) and EGNN's
     coords_range 3 + N(0, 0.1) (their initial values, moved). The smoke
     run's and the diagnostics' weights."""
     rng = np.random.default_rng(seed)
@@ -119,8 +134,10 @@ def random_flax_variables(model, seed: int) -> Dict:
             leaf = "kernel"
             shape = shape[::-1]
             val = rng.normal(0.0, shape[0] ** -0.5, shape)
-        elif leaf in ("w_l", "w_r"):
-            val = rng.normal(0.0, (shape[0] * shape[1]) ** -0.5, shape)
+        elif leaf in ("w_l", "w_r") or _IRREPS_LEAF.fullmatch(leaf):
+            # MFConv's banks [d, in, out], LinearIrreps' [mul_in, mul_out]
+            fan_in = shape[0] * (shape[1] if len(shape) == 3 else 1)
+            val = rng.normal(0.0, fan_in ** -0.5, shape)
         elif leaf == "att":
             val = rng.normal(0.0, shape[1] ** -0.5, shape)
         elif leaf == "eps":

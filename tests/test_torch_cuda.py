@@ -2273,3 +2273,165 @@ print(_build.nvcc_runs, st["compile_fresh"], st["compile_store_hits"],
     assert (nvcc, fresh) == (0, 0) and hits == compiled > 0
     np.testing.assert_array_equal(np.load(tmp_path / "got.npy"),
                                   np.stack(want))
+
+
+# ----------------------------------- DimeNet, PAINN, PNAEq and MACE (A7) --
+# The last four architectures at LJ.json's layout cut to hidden 16: their
+# [E, 3, F] and [E, mul, 2l+1] sums through the segment-sum kernel, the
+# energy-force forward card vs CPU, and the captured energy-force steps
+# against the eager ones.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(700, 3, 32), (700, 32, 3), (700, 8, 5)],
+                         ids=["vector", "mace_l1", "mace_l2"])
+def test_vector_segment_sums_run_the_kernel_bitwise(cuda_device, shape):
+    """ops.segment.segment_sum of [E, ...] rows on the card: one launch
+    of the segment-sum kernel on [E, prod(...)] rows, bitwise the plain
+    version's value and gradient on dyadic data (every sum exact in any
+    order, so the card's atomic plain scatter gives the same bits)."""
+    from hydragnn_tpu_torch.ops import segment as oseg
+    rng = np.random.RandomState(5)
+    data = _t((rng.randint(-8, 9, shape) / 4.0).astype(np.float32)).to(
+        cuda_device).requires_grad_(True)
+    ids = _t(rng.randint(-1, 41, shape[0]).astype(np.int32)).to(cuda_device)
+    mask = _t(rng.rand(shape[0]) > 0.2).to(cuda_device)
+    before = tk.launch_counts()["segment_sum"]
+    got = oseg.segment_sum(data, ids, 40, mask)
+    assert tk.launch_counts()["segment_sum"] == before + 1
+    keep = mask.view(-1, *[1] * (len(shape) - 1))
+    want = segment.segment_sum_plain(
+        torch.where(keep, data, torch.zeros_like(data)), ids, 40)
+    assert got.shape == (40,) + shape[1:]
+    assert torch.equal(got, want)
+    cot = _t((rng.randint(-8, 9, got.shape) / 8.0).astype(np.float32)).to(
+        cuda_device)
+    (g1,) = torch.autograd.grad(torch.sum(got * cot), data)
+    (g2,) = torch.autograd.grad(torch.sum(want * cot), data)
+    assert torch.equal(g1, g2)
+
+
+A7_MODELS = ("DimeNet", "PAINN", "PNAEq", "MACE")
+
+
+def _a7_setup(model_type, dense, n=12):
+    """(model config, train config, loader batches on the host) of
+    LJ.json with `model_type` (equivariance on but for DimeNet; MACE's
+    keys as LJ.json has them) at hidden 16, batches of 4 cells, DimeNet's
+    with their triplet tables."""
+    import copy
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import lj_configurations
+    from hydragnn_tpu_torch.graphs.triplets import maybe_triplet_transform
+    from hydragnn_tpu_torch.models.create import data_input_dim
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    data = lj_configurations(n, seed=4)
+    with open(ROOT / "examples/LennardJones/LJ.json") as fh:
+        cfg = json.load(fh)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(model_type=model_type, hidden_dim=16, num_filters=16,
+                neighbor_format=dense, equivariance=model_type != "DimeNet")
+    arch["output_heads"]["node"]["dim_headlayers"] = [16, 16]
+    cfg = tcfg.update_config(copy.deepcopy(cfg), data)
+    loader = create_dataloaders(
+        data, [], [], 4, neighbor_format=dense,
+        batch_transform=maybe_triplet_transform(model_type, data, 4))[0]
+    loader.set_epoch(0)
+    return (data_input_dim(tcfg.build_model_config(cfg), data),
+            cfg["NeuralNetwork"]["Training"], list(loader))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "edge"])
+@pytest.mark.parametrize("model_type", A7_MODELS)
+def test_a7_energies_and_forces_card_match_cpu(cuda_device, model_type,
+                                               dense):
+    """One model's energies and real-node forces (forces through the
+    kernels' differentiable Functions) on the card against the same
+    weights on the CPU within rtol 1e-4 / atol 1e-5, with the segment-sum
+    kernel launched."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    mcfg, _, batches = _a7_setup(model_type, dense)
+    batch = batches[0]
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = create_model(mcfg, device=dev, seed=2)
+        before = tk.launch_counts()["segment_sum"]
+        e, f = energy_forces_from_node_head(model, batch.to(dev))
+        outs.append((e.cpu()[batch.graph_mask], f.cpu()[batch.node_mask],
+                     tk.launch_counts()["segment_sum"] - before))
+    (e1, f1, n1), (e2, f2, _) = outs
+    assert n1 > 0 and torch.isfinite(f1).all()
+    assert float(f2.abs().max()) > 0
+    torch.testing.assert_close(e1, e2, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(f1, f2, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "edge"])
+def test_dimenet_energy_force_gradient_nonfinite_where_cpu_is(cuda_device,
+                                                              dense):
+    """DimeNet's energy-force semantics on the card are the CPU's (and so
+    the JAX package's, tests/test_torch_dimenet.py): the real nodes'
+    forces finite, the padding node's not, and the energy-force loss and
+    its parameter gradients non-finite in the same entries on both
+    devices. The padding triplets' gradient rows reach the padding edge
+    through the triplet gathers' layouts, as on the CPU."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train import train_step as tstep
+    from hydragnn_tpu_torch.train.loss import energy_forces_from_node_head
+    mcfg, _, batches = _a7_setup("DimeNet", dense)
+    batch = batches[0]
+    assert not bool(batch.triplet_mask.all())
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = create_model(mcfg, device=dev, seed=2)
+        b = batch.to(dev)
+        _, f = energy_forces_from_node_head(model, b)
+        model.train()
+        total, _ = tstep.make_loss_fn(model, mcfg, "mae",
+                                      compute_grad_energy=True)(b)
+        grads = torch.autograd.grad(total, list(model.parameters()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        runs.append((torch.isfinite(f.detach()).cpu(),
+                     bool(torch.isfinite(total)),
+                     [torch.isfinite(g).cpu() for g in grads]))
+    (f1, t1, g1), (f2, t2, g2) = runs
+    real = batch.node_mask.view(-1, *[1] * (f1.dim() - 1)).expand_as(f1)
+    assert bool(f1[real].all()) and not bool(f1[~real].all())
+    assert torch.equal(f1, f2)
+    assert not t1 and not t2
+    assert sum(int((~g).sum()) for g in g1) > 0
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "edge"])
+@pytest.mark.parametrize("model_type", ["PAINN", "PNAEq", "MACE"])
+def test_a7_captured_ef_steps_equal_eager_steps_bitwise(cuda_device,
+                                                       model_type, dense):
+    """Three eager energy-force SGD steps against three captured single
+    steps from the same state on the same batches: metrics, parameters
+    and optimizer slots bitwise; one graph replayed."""
+    from hydragnn_tpu_torch.train import train_step as tstep
+    mcfg, train_cfg, batches = _a7_setup(model_type, dense)
+    train_cfg = dict(train_cfg, Optimizer={"type": "SGD",
+                                           "learning_rate": 1e-3})
+    batches = [b.to(cuda_device) for b in batches]
+    runs = []
+    for graphed in (False, True):
+        model, tx, state = _fresh_state(cuda_device, mcfg, train_cfg)
+        step = tstep.make_train_step(model, mcfg, tx,
+                                     **_step_kwargs(train_cfg))
+        losses = []
+        for b in batches:
+            state, m = (step if graphed else step.eager)(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), len(step.steps.graphs)))
+    (la, sa, _), (lb, sb, graphs) = runs
+    assert np.isfinite(la).all() and la == lb
+    _assert_same_state(sa, sb)
+    assert graphs == 1

@@ -104,15 +104,18 @@ def small_config(model_type, arch):
     return cfg
 
 
-def setup_models(cfg, samples, dense, seed=2, batch_size=8):
+def setup_models(cfg, samples, dense, seed=2, batch_size=8,
+                 batch_transform=None):
     """(JAX model, JAX ModelConfig, port ModelConfig, port loader batches,
-    Flax variables with random running statistics)."""
+    Flax variables with random running statistics); `batch_transform`
+    is the loader's (DimeNet's triplets)."""
     tc = tcfg.update_config(copy.deepcopy(cfg), samples)
     jc = jcfg.update_config(copy.deepcopy(cfg), jax_samples(samples))
     jm = jcfg.build_model_config(jc)
     jmodel = j_create_model(jm)
     batches = list(GraphDataLoader(samples, batch_size, shuffle=True, seed=1,
-                                   neighbor_format=dense))
+                                   neighbor_format=dense,
+                                   batch_transform=batch_transform))
     variables = randomize_batch_stats(j_init_params(
         jmodel, jax_batch(_jax_view(batches[0])), seed=seed), seed + 3)
     return jmodel, jm, tcfg.build_model_config(tc), batches, variables
@@ -341,12 +344,26 @@ def test_create_model_initializes_as_flax_by_shape():
 @pytest.mark.parametrize("model_type", ["DimeNet", "PAINN", "PNAEq",
                                         "MACE"])
 def test_unported_models_raise_naming_a7(model_type):
-    import dataclasses
-    _, _, tm, _, _ = setup_models(small_config("GIN", {}), molecules(),
-                                  False)
-    with pytest.raises(NotImplementedError, match="A7"):
-        create_model(dataclasses.replace(tm, model_type=model_type),
-                     device="cpu")
+    """ROADMAP A7 is ported: each of the four models it named builds
+    through create_model from the small config and runs a finite forward
+    of the right shape (DimeNet on a batch with its triplet tables); the
+    parity with the JAX package is held in test_torch_dimenet.py,
+    test_torch_painn_pnaeq.py and test_torch_mace.py."""
+    from hydragnn_tpu_torch.graphs.triplets import make_triplet_transform
+    from hydragnn_tpu_torch.models.create import _NOT_PORTED
+    samples = molecules()
+    cfg = small_config(model_type, {"max_ell": 2, "num_spherical": 4})
+    tm = tcfg.build_model_config(tcfg.update_config(cfg, samples))
+    assert not _NOT_PORTED
+    model = create_model(tm, device="cpu")
+    batch = tbatch.collate(samples[:6])
+    if model_type == "DimeNet":
+        batch = make_triplet_transform(samples, 6)(batch, samples[:6])
+    with torch.no_grad():
+        out, _ = model(batch)
+    gm = batch.graph_mask.numpy()
+    assert out[0].shape == (batch.num_graphs, 1)
+    assert np.isfinite(out[0].numpy()[gm]).all()
 
 
 # -------------------------------------------------------------- QM9 GIN --
@@ -428,13 +445,14 @@ def test_qm9_gin_run_training_matches_jax(tmp_path, monkeypatch, dense):
 
 
 # --------------------------------------------------------- the lattice --
-def lattice_threshold_rmse(model_type, monkeypatch):
+def lattice_threshold_rmse(model_type, monkeypatch, **arch):
     """tests/test_graphs_full.py's run of a model through the port's
     run_training and run_prediction on the CPU: 60 epochs on the
     deterministic BCC lattice from the initial Flax variables the JAX
     package's run_training draws (its init_params at seed 0, carried
     across), so the row holds the port's training path from the JAX
-    row's start. Returns the test RMSE."""
+    row's start. `arch` are the row's extra architecture keys
+    (test_graphs_full.py's EXTRA_ARCH). Returns the test RMSE."""
     import importlib
     from hydragnn_tpu.graphs.batch import collate as j_collate
     from hydragnn_tpu_torch import run_prediction, run_training
@@ -444,14 +462,19 @@ def lattice_threshold_rmse(model_type, monkeypatch):
     jsamples = deterministic_graph_dataset(num_configs=160,
                                            heads=("graph",))
     splits = split_dataset(to_port_samples(jsamples), 0.7)
-    cfg = make_config(model_type)
+    cfg = make_config(model_type, **arch)
     train_cfg = cfg["NeuralNetwork"]["Training"]
     train_cfg["num_epoch"] = 60
     train_cfg["EarlyStopping"] = False
     jc = jcfg.update_config(copy.deepcopy(cfg), jsamples)
     jmodel = j_create_model(jcfg.build_model_config(jc))
     # Flax's initial values depend on the input shapes only
-    init = numpy_tree(j_init_params(jmodel, j_collate(jsamples[:4])))
+    init_batch = j_collate(jsamples[:4])
+    if model_type == "DimeNet":
+        from hydragnn_tpu.graphs.triplets import add_triplets, triplet_budget
+        init_batch = add_triplets(j_collate(jsamples[:4], np_out=True),
+                                  triplet_budget(jsamples[:4], 4))
+    init = numpy_tree(j_init_params(jmodel, init_batch))
     prun = importlib.import_module("hydragnn_tpu_torch.run_training")
 
     def jax_init(mcfg, device="cuda", seed=0):

@@ -153,8 +153,11 @@ def test_load_jax_variables_rejects_unknown_and_missing_keys(csce_model):
 def test_create_model_other_types_and_training_mode_raise(csce_model):
     import dataclasses
     _, _, mcfg = csce_model
-    with pytest.raises(NotImplementedError, match="A7"):
-        create_model(dataclasses.replace(mcfg, model_type="DimeNet"),
+    # a knob the port still refuses: a conv-type node head (ROADMAP A4)
+    conv_head = dataclasses.replace(mcfg.heads[0], head_type="node",
+                                    node_arch="conv")
+    with pytest.raises(NotImplementedError, match="A4"):
+        create_model(dataclasses.replace(mcfg, heads=(conv_head,)),
                      device="cpu")
     model = create_model(mcfg, device="cpu")
     assert not model.training

@@ -406,7 +406,8 @@ def _jax_view(tb):
               for f in ("x", "pos", "senders", "receivers", "node_graph",
                         "node_mask", "edge_mask", "graph_mask", "y_graph",
                         "y_node", "edge_attr", "edge_shifts", "cell",
-                        "energy", "forces", "nbr", "nbr_edge", "nbr_mask")}
+                        "energy", "forces", "idx_kj", "idx_ji",
+                        "triplet_mask", "nbr", "nbr_edge", "nbr_mask")}
     return jbatch.GraphBatch(**fields)
 
 
