@@ -163,7 +163,10 @@ Phases:
    50, 3 equivariant layers, radius 5 with PBC, edge lengths, graph head
    2 x 50 shared then [50, 25], batch 32, AdamW 1e-3; 3 epochs) and the
    forces config (node head [50, 25] -> 3, mae; 2 of its 3 epochs) on
-   512 synthetic OC20 slabs (`oc20_slabs`), and qm9.json's GIN (hidden 5,
+   the 512 slabs of the OC20 example's extxyz chunks
+   (`generate_oc20_dataset`, 8 chunks of 64 frames, read by
+   `datasets.atomistic.load_oc20` at radius 5 and max_neighbours 512, as
+   the example's train.py reads them), and qm9.json's GIN (hidden 5,
    6 layers, shared 2 x 5, heads [50, 25], radius 7, max_neighbours 5,
    batch 64; plots off and NeuralNetwork.Profile removed, which neither
    package reads; 2 epochs) on 512 synthetic QM9 molecules
@@ -296,6 +299,30 @@ Phases:
    SGD steps card vs CPU. (d) segment_sum at each new shape of these
    paths, held against its plain version, with its bound and
    `index_add`'s time. Every path holds B3 launched.
+16. csce PNA on its users' data and training telemetry (`smiles_phase`,
+   run after phase 9, beside the csce numbers it is read against),
+   each number beside the card's name and power limit. (a)
+   examples/csce/csce_gap.json at its published width (hidden 200, 6
+   layers, batch 128) on 2,048 molecules of the csce example's CSV
+   (`generate_csce_csv`) featurized into bond graphs
+   (`datasets.smiles.csce_splits`: 12 node columns, in-degree at most 4)
+   on both layouts: the first step (loss card vs CPU within rtol 1e-4 /
+   atol 1e-5, gradients kernels vs plain), captured = eager bitwise and
+   the step numbers (`step_metrics`), printed beside phase 5's and 9's
+   radius-graph steps with the two data's in-degrees; run_training on
+   the edge list (1 epoch); an InferenceEngine (edge list, seeded
+   weights) over the test split repeated 8 times (batched = single
+   bitwise, finite) and SLICE_BURSTS timed bursts beside phase 3's
+   rate and p99. (c) The dense main path: run_training for 3 epochs
+   with Training.Telemetry.enabled and Profile {enable: 1, target_epoch:
+   1}: telemetry.jsonl, trace.json, metrics.prom and the epoch's
+   profiler trace exist and parse; every epoch's train_mfu in (0, 1];
+   the FLOP probe (`step_cost_flops`) equal on the kernel route and the
+   plain route, and equal to the session's; the last epoch's achieved
+   FLOP/s within 10 % of the probe's FLOPs over a CUDA-event-timed
+   captured step; and the session's cost, host ms a captured step with
+   and without it. B1, B2 and B3 launched on these paths ((b) is phase
+   11's data).
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -304,7 +331,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it an `a7: {...}` (phase 15), a
+name and power limit, and before it a `smiles: {...}` (phase 16), an
+`a7: {...}` (phase 15), a
 `fleet: {...}` (phase 14), a
 `farm: {...}` (phase 13), a
 `serving: {...}` (phase 12) and a `training: {...}` JSON line. Any
@@ -1764,9 +1792,11 @@ def profiled_call(torch, call, label, hold=True):
                                       label, hold=False)
         if not hold or "differs" not in port:
             return dev_ms, launches, rows, port
+        named = {key[:100]: count for _, key, count in rows
+                 if any(n.split("/")[0] in key for n in port["differs"])}
         print(f"{label}: profile {attempt + 1} dropped launches "
-              f"{port['differs']} (profile vs counters); profiling again",
-              flush=True)
+              f"{port['differs']} (profile vs counters; the profile's rows "
+              f"of those kernels {named}); profiling again", flush=True)
     fail(f"{label}: {PROFILE_ATTEMPTS} profiles each missed launches the "
          f"counters counted: {port['differs']}")
 
@@ -2208,7 +2238,9 @@ def pna_bf16_serving(torch, device, card, base_cfg, splits, variables, mcfg,
     """Phase 7b: csce PNA served at bf16 (Serving.precision "bf16")
     through run_prediction (dense layout) and an InferenceEngine with
     compute_dtype "bfloat16" (edge list): card vs the CPU's bf16
-    run_prediction within 2^-5 on every test graph, the gap to the
+    run_prediction loop (Architecture.dtype "bfloat16": the loop
+    computes at the train-side precision, as in the JAX package) within
+    2^-5 on every test graph, the gap to the
     card's float32 predictions printed, batched = single bitwise, the
     futures' parity breadcrumbs, then BF16_BURSTS timed bursts."""
     from hydragnn_tpu_torch import kernels as tk
@@ -2221,9 +2253,11 @@ def pna_bf16_serving(torch, device, card, base_cfg, splits, variables, mcfg,
     test = splits[2]
     cfg = copy.deepcopy(base_cfg)
     cfg["Serving"] = {"max_batch_size": SERVE_MAX_BATCH, "precision": "bf16"}
+    ref_cfg = copy.deepcopy(cfg)
+    ref_cfg["NeuralNetwork"]["Architecture"]["dtype"] = "bfloat16"
     t0 = time.perf_counter()
-    _, ref = run_prediction(copy.deepcopy(cfg), splits, variables,
-                            serve=False, device="cpu")
+    _, ref = run_prediction(ref_cfg, splits, variables, serve=False,
+                            device="cpu")
     t_cpu = time.perf_counter() - t0
     tk.reset_launch_counts()
     _, got = run_prediction(copy.deepcopy(cfg), splits, variables,
@@ -3132,12 +3166,25 @@ SLICE_GROUP = 2                # steps per call timed beside S = 1
 
 def slice_paths(torch):
     """Phase 11's three configurations: (label, config, splits, epochs)
-    of the OC20 energy and forces EGNN on synthetic slabs and qm9.json's
-    GIN on synthetic molecules, each split by its perc_train as the
-    examples split."""
-    from hydragnn_tpu_torch.graphs.synthetic import oc20_slabs, qm9_molecules
+    of the OC20 energy and forces EGNN on the slabs of the OC20 example's
+    extxyz chunks (`generate_oc20_dataset`, read by `load_oc20` at the
+    config's radius and min(max_neighbours, 512), as its train.py reads
+    them) and qm9.json's GIN on synthetic molecules, each split by its
+    perc_train as the examples split."""
+    import tempfile
+    from hydragnn_tpu_torch.datasets.atomistic import load_oc20
+    from hydragnn_tpu_torch.graphs.synthetic import (generate_oc20_dataset,
+                                                     qm9_molecules)
     from hydragnn_tpu_torch.preprocess.load_data import split_dataset
-    slabs = oc20_slabs(NUM_SLABS, seed=SEED)
+    with open(OC20_ENERGY) as fh:
+        arch = json.load(fh)["NeuralNetwork"]["Architecture"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oc20_") as tmp:
+        # the example's extxyz chunks, read as its train.py reads them
+        generate_oc20_dataset(tmp, num_chunks=NUM_SLABS // 64,
+                              frames_per_chunk=64, seed=SEED)
+        slabs = load_oc20(tmp, radius=arch["radius"],
+                          max_neighbours=min(arch["max_neighbours"], 512),
+                          limit=NUM_SLABS)
     mols = qm9_molecules(NUM_QM9, seed=SEED)
     out = []
     for label, path, data, epochs in (
@@ -5665,6 +5712,301 @@ def a7_phase(torch, device, card, counted, lj_splits):
     return rec, shapes, phase_launches
 
 
+# ----------------------------------------------------------- phase 16 --
+NUM_SMILES = 2048              # csce molecules featurized from SMILES
+SMILES_EPOCHS = 3              # the telemetry run (csce_gap.json's 3)
+SESSION_STEPS = 30             # captured steps timed with and without a session
+MFU_RTOL = 0.10                # achieved vs probe FLOPs / event-timed step
+
+
+def in_degrees(samples):
+    """(mean, max) in-degree over every node of `samples`."""
+    deg = np.concatenate([np.bincount(s.receivers, minlength=s.num_nodes)
+                          for s in samples])
+    return float(deg.mean()), int(deg.max())
+
+
+def smiles_splits(tmp):
+    """csce_gap.json's data as its example builds it: the port's
+    `generate_csce_csv` CSV of NUM_SMILES molecules featurized into bond
+    graphs (datasets/smiles.py `csce_splits`, 12 node columns)."""
+    from hydragnn_tpu_torch.datasets.smiles import csce_splits
+    from hydragnn_tpu_torch.graphs.synthetic import generate_csce_csv
+    return csce_splits(generate_csce_csv(tmp, NUM_SMILES, seed=SEED))
+
+
+def check_telemetry_artifacts(out_dir, profile_dir, epochs):
+    """The three session artifacts and the epoch's profiler trace exist
+    and parse; returns the JSONL epoch events."""
+    import glob
+    with open(os.path.join(out_dir, "telemetry.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    with open(os.path.join(out_dir, "trace.json")) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"}
+    with open(os.path.join(out_dir, "metrics.prom")) as f:
+        prom = f.read()
+    traces = glob.glob(os.path.join(profile_dir, "*.json"))
+    if len(traces) != 1:
+        fail(f"telemetry: {len(traces)} profiler traces in {profile_dir}")
+    with open(traces[0]) as f:
+        profiled = json.load(f)["traceEvents"]
+    epoch_events = [e for e in events if e["kind"] == "epoch"]
+    if len(epoch_events) != epochs or (events[0]["name"],
+                                       events[-1]["name"]) != ("start",
+                                                               "end"):
+        fail(f"telemetry.jsonl events {[e['name'] for e in events]}")
+    for name in ("hydragnn_train_mfu", "hydragnn_train_achieved_flops_per_s",
+                 "hydragnn_train_input_bound_frac"):
+        if name not in prom:
+            fail(f"telemetry: {name} not in metrics.prom")
+    if not {"train_epoch", "step_dispatch", "dataload_wait"} <= spans:
+        fail(f"telemetry: trace.json spans {sorted(spans)}")
+    kernels = sum(e.get("cat") == "kernel" for e in profiled)
+    print(f"telemetry artifacts: {len(events)} JSONL events, "
+          f"{len(spans)} span names, {len(prom.splitlines())} lines of "
+          f"metrics.prom; the epoch's profiler trace {len(profiled)} "
+          f"events, {kernels} of them kernels", flush=True)
+    if kernels == 0:
+        fail("telemetry: the profiler trace holds no kernel")
+    return epoch_events
+
+
+def session_cost(torch, step, state, batch):
+    """Host ms a captured step with the train pass's instruments (a live
+    session: the stall monitor's timers and spans into its recorder)
+    and without: SESSION_STEPS steps, each with the trainer's metric
+    read, in turns."""
+    from hydragnn_tpu_torch.telemetry.session import (TelemetryConfig,
+                                                      TelemetrySession)
+    from hydragnn_tpu_torch.train.trainer import _accumulate
+    from hydragnn_tpu_torch.utils.profiling import HostStallMonitor
+    import tempfile
+    out = {"off": [], "on": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for _ in range(3):
+            for mode in ("off", "on"):
+                session = (TelemetrySession(TelemetryConfig(enabled=True),
+                                            tmp) if mode == "on" else None)
+                stall = HostStallMonitor()
+                timer = (stall.step_timer if session is not None
+                         else contextlib.nullcontext)
+                acc = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SESSION_STEPS):
+                    with timer():
+                        _, m = step(state, batch)
+                        _accumulate(acc, m)
+                out[mode].append((time.perf_counter() - t0) * 1e3
+                                 / SESSION_STEPS)
+                if session is not None:
+                    session.finalize()
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def smiles_phase(torch, device, card, counted, radius):
+    """Phase 16: (a) csce PNA at its published width on SMILES bond
+    graphs, (c) its telemetry on the card ((b), OC20 EGNN from extxyz
+    chunks, is phase 11's data). `radius`: phases 3, 5 and 9's numbers
+    on the radius graphs, printed beside these. Returns the record."""
+    import tempfile
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.train.train_step import step_cost_flops
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    t_phase = time.perf_counter()
+    with open(CSCE_CONFIG) as fh:
+        base_cfg = json.load(fh)
+    bs = int(base_cfg["NeuralNetwork"]["Training"]["batch_size"])
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_smiles_") as tmp:
+        splits = smiles_splits(tmp)
+        samples = [s for split in splits for s in split]
+        deg = in_degrees(samples)
+        print(f"phase 16: csce PNA on SMILES bond graphs: {NUM_SMILES} "
+              f"molecules from generate_csce_csv, {len(samples)} "
+              f"featurized (splits {[len(s) for s in splits]}), "
+              f"{np.mean([s.num_nodes for s in samples]):.1f} atoms a "
+              f"molecule, in-degree mean {deg[0]:.2f} max {deg[1]} "
+              f"(the radius graphs': mean {radius['in_degree'][0]:.2f} max "
+              f"{radius['in_degree'][1]}); hidden "
+              f"{base_cfg['NeuralNetwork']['Architecture']['hidden_dim']}, "
+              f"{base_cfg['NeuralNetwork']['Architecture']['num_conv_layers']}"
+              f" layers, batch {bs} (card: {card})", flush=True)
+        rec = dict(molecules=len(samples), in_degree_mean=deg[0],
+                   in_degree_max=deg[1], paths={}, launches={})
+
+        # (a) both layouts: first step, captured = eager, step numbers
+        for dense in (True, False):
+            c = copy.deepcopy(base_cfg)
+            c["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+            layout = "dense" if dense else "edge"
+            name = f"csce PNA SMILES ({'dense' if dense else 'edge list'})"
+            first = first_step_gradients(torch, c, splits, device)
+            path = step_metrics(torch, c, splits, device, name, bs,
+                                CSCE_GROUP, card=card)
+            path["first_step"] = first
+            rec["paths"][layout] = path
+            fixed = radius["paths"][f"csce_pna_{layout}"]["graph_S1"]
+            packed = radius["paths"][f"csce_pna_{layout}_packed"]["graph_S1"]
+            print(f"{name}: first step loss card vs cpu "
+                  f"{first['loss_gap']:.3e}; captured S1 "
+                  f"{path['graph_S1']['step_ms']:.3f} ms a step, "
+                  f"{path['graph_S1']['graphs_per_s']:.1f} graphs/s; the "
+                  f"radius graphs (phase 5) {fixed['step_ms']:.3f} ms, "
+                  f"{fixed['graphs_per_s']:.1f} graphs/s, packed (phase 9) "
+                  f"{packed['step_ms']:.3f} ms, {packed['graphs_per_s']:.1f}"
+                  f" graphs/s (card: {card})", flush=True)
+
+        # the edge list's main path: run_training, 1 epoch
+        edge_cfg = copy.deepcopy(base_cfg)
+        edge_cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+        edge_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
+        os.chdir(tmp)
+        try:
+            tk.reset_launch_counts()
+            _, h_edge, _, _ = run_training(copy.deepcopy(edge_cfg),
+                                           datasets=splits, device=device)
+            torch.cuda.synchronize()
+            counts = tk.launch_counts()
+            counted(counts)
+            rec["launches"]["run_training_edge"] = counts
+            if not np.isfinite(h_edge["train_loss"]).all():
+                fail("SMILES edge-list training: non-finite loss")
+
+            # (c) the dense main path with a session and the Profile block
+            tel_cfg = copy.deepcopy(base_cfg)
+            tel_cfg["NeuralNetwork"]["Training"]["num_epoch"] = SMILES_EPOCHS
+            tel_cfg["NeuralNetwork"]["Training"]["Telemetry"] = {
+                "enabled": True, "dir": "telemetry"}
+            tel_cfg["Profile"] = {"enable": 1, "target_epoch": 1}
+            tk.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, hist, _, done = run_training(copy.deepcopy(tel_cfg),
+                                                datasets=splits,
+                                                device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = tk.launch_counts()
+            counted(counts)
+            rec["launches"]["run_training_dense_telemetry"] = counts
+            from hydragnn_tpu_torch.config.config import get_log_name_config
+            epochs = check_telemetry_artifacts(
+                "telemetry", os.path.join("logs", get_log_name_config(done),
+                                          "profile"), SMILES_EPOCHS)
+        finally:
+            os.chdir(cwd)
+        for kernel in ("nbr_aggregate", "nbr_aggregate_backward",
+                       "segment_sum"):
+            if rec["launches"]["run_training_dense_telemetry"][kernel] == 0:
+                fail(f"{kernel} never launched on the SMILES dense path")
+        for kernel in ("pna_edge_aggregate", "pna_edge_aggregate_backward",
+                       "segment_sum"):
+            if rec["launches"]["run_training_edge"][kernel] == 0:
+                fail(f"{kernel} never launched on the SMILES edge path")
+        mfu, achieved = hist.get("mfu", []), hist.get(
+            "achieved_flops_per_s", [])
+        if len(mfu) != SMILES_EPOCHS or not all(0.0 < m <= 1.0 for m in mfu):
+            fail(f"telemetry: train_mfu {mfu} (not one in (0, 1] an epoch)")
+        if not np.isfinite(hist["train_loss"]).all():
+            fail("SMILES telemetry training: non-finite loss")
+
+        # the probe: kernel route = plain route; the session's count; the
+        # achieved rate against a CUDA-event-timed captured step
+        model, st, step, loader, _, _ = train_parts(torch, base_cfg, splits,
+                                                    device)
+        loader.set_epoch(0)
+        batch = next(iter(loader)).to(device)
+        flops = step_cost_flops(step, batch)
+        with plain_versions():
+            flops_plain = step_cost_flops(step, batch)
+        if flops != flops_plain or not flops > 0:
+            fail(f"FLOP probe: kernel route {flops}, plain route "
+                 f"{flops_plain}")
+        last = epochs[-1]
+        run_flops = (last["timing"]["achieved_flops_per_s"]
+                     * last["timing"]["epoch_step_s"] / last["data"]["batches"])
+        if not np.isclose(run_flops, flops, rtol=1e-6):
+            fail(f"FLOP probe: the session's {run_flops} vs {flops}")
+        step(st, batch)             # capture
+        event_ms = float(np.median(step_events_ms(
+            torch, lambda: step(st, batch))))
+        expected = flops / (event_ms * 1e-3)
+        gap = achieved[-1] / expected - 1.0
+        cost = session_cost(torch, step, st, batch)
+        print(f"telemetry (csce PNA SMILES dense, {SMILES_EPOCHS} epochs in "
+              f"{wall:.2f} s): train_mfu {mfu}, train_achieved_flops_per_s "
+              f"{achieved}; the probe {flops:.6e} matmul FLOPs a step (plain "
+              f"route {flops_plain:.6e}); a CUDA-event-timed captured step "
+              f"{event_ms:.3f} ms -> {expected:.6e} FLOP/s, the last "
+              f"epoch's achieved {achieved[-1]:.6e} ({gap:+.3%}); the "
+              f"session's cost: {cost['on']:.3f} ms a step with it, "
+              f"{cost['off']:.3f} ms without (host wall, step + metric "
+              f"read) (card: {card})", flush=True)
+        if abs(gap) > MFU_RTOL:
+            fail(f"telemetry: achieved {achieved[-1]} vs probe over a timed "
+                 f"step {expected}: {gap:+.3%} (bound {MFU_RTOL:.0%})")
+        rec["telemetry"] = dict(
+            mfu=mfu, achieved_flops_per_s=achieved, probe_flops=flops,
+            probe_flops_plain=flops_plain, captured_step_ms=event_ms,
+            achieved_vs_timed_step=gap, session_on_ms=cost["on"],
+            session_off_ms=cost["off"], epoch_events=epochs, wall_s=wall)
+
+        # the engine on the bond graphs (edge list), seeded weights
+        from hydragnn_tpu_torch.config import config as tcfg
+        from hydragnn_tpu_torch.models.create import data_input_dim
+        done_cfg = tcfg.update_config(copy.deepcopy(base_cfg), *splits)
+        mcfg = data_input_dim(tcfg.build_model_config(done_cfg), splits[0])
+        variables = random_flax_variables(create_model(mcfg, device="cpu"),
+                                          SEED)
+        model = create_model(mcfg, device=device)
+        model.load_state_dict(load_jax_variables(variables))
+        test = splits[2]
+        requests = test * ENGINE_REPEATS
+        engine = InferenceEngine(model, mcfg, reference_samples=test,
+                                 max_batch_size=SERVE_MAX_BATCH,
+                                 neighbor_format=False, device=device)
+        try:
+            engine.warmup()
+            tk.reset_launch_counts()
+            futs = [engine.submit(r) for r in requests]
+            results = [f.result(timeout=600) for f in futs]
+            counts = tk.launch_counts()
+            counted(counts)
+            rec["launches"]["engine_edge"] = counts
+            for (r, f), res in list(zip(zip(requests, futs), results))[:8]:
+                one = engine.forward_single(r, bucket=f.bucket)
+                if not np.array_equal(res[0], one[0]):
+                    fail("SMILES engine: batched != single on one bucket")
+            if not all(np.isfinite(res[0]).all() for res in results):
+                fail("SMILES engine: non-finite prediction")
+            rate = engine_bursts(torch, engine, requests, SLICE_BURSTS)
+        finally:
+            engine.shutdown()
+        if counts["pna_edge_aggregate"] == 0 or counts["segment_sum"] == 0:
+            fail(f"SMILES engine: launches {counts}")
+        rec["engine"] = rate
+        print(f"csce PNA SMILES engine (edge list): {rate['bursts']} bursts "
+              f"of {rate['requests']} requests: {rate['requests_per_s']:.1f}"
+              f" requests/s, p99 {rate['p99_ms']:.3f} ms; the radius graphs' "
+              f"engine (phase 3) {radius['engine']['requests_per_s']:.1f} "
+              f"requests/s, p99 {radius['engine']['p99_ms']:.3f} ms; "
+              f"launches {counts} (card: {card})", flush=True)
+    rec["b_launches"] = {k: sum(c.get(k, 0) for c in rec["launches"].values())
+                         for k in ("nbr_aggregate", "nbr_aggregate_backward",
+                                   "pna_edge_aggregate",
+                                   "pna_edge_aggregate_backward",
+                                   "segment_sum")}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 16: B1/B2/B3 launches on its paths {rec['b_launches']}; "
+          f"took {rec['wall_s']:.1f} s (card: {card})", flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5837,6 +6179,8 @@ def main() -> int:
           f", second half "
           f"{len(requests) * (BURSTS - half) / sum(walls[half:]):.1f} "
           "requests/s", flush=True)
+    phase3_engine = dict(requests_per_s=total / sum(walls),
+                         p99_ms=stats["p99_ms"])
     print(f"engine: {total} requests in {BURSTS} bursts of {len(requests)} "
           f"(each submitted at once), {stats['batches']} batches, "
           f"{sum(walls):.4f} s: {total / sum(walls):.1f} requests/s; over "
@@ -6019,6 +6363,12 @@ def main() -> int:
     packed_loader.set_epoch(0)
     packed_batch = next(iter(packed_loader)).to(device)
 
+    # ---------------------------------------------------------- phase 16
+    # run beside phases 5 and 9, whose csce numbers it prints its own by
+    smiles = smiles_phase(torch, device, card, counted, dict(
+        in_degree=in_degrees(samples), paths=train_paths,
+        engine=phase3_engine))
+
     # ---------------------------------------------------------- phase 10
     eam_paths, eam_shapes = eam_phase(torch, device, counted, packed_batch)
     train_paths.update(eam_paths)
@@ -6086,6 +6436,7 @@ def main() -> int:
     print("farm: " + json.dumps(dict(farm, card=card)), flush=True)
     print("fleet: " + json.dumps(dict(fleet, card=card)), flush=True)
     print("a7: " + json.dumps(dict(a7, card=card)), flush=True)
+    print("smiles: " + json.dumps(dict(smiles, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -6127,6 +6478,8 @@ def main() -> int:
                     "filter_scatter_backward"]
         if a7_launches.get(name):
             extra["launches_a7_path"] = a7_launches[name]
+        if smiles["b_launches"].get(name):
+            extra["launches_smiles_path"] = smiles["b_launches"][name]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")

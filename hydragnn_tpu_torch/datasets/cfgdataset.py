@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -22,6 +22,7 @@ from ..preprocess.transforms import (build_graph_samples,
 from ..utils.elements import symbol_to_z
 from .lsmsdataset import (_minmax_normalize, normalize_sidecar_graph_targets,
                           split_with_minmax)
+from .xyzdataset import _read_sidecar_graph_feats
 
 
 def parse_cfg_file(filepath: str) -> Tuple[np.ndarray, np.ndarray,
@@ -81,22 +82,6 @@ def parse_cfg_file(filepath: str) -> Tuple[np.ndarray, np.ndarray,
     aux = arr[:, 5:]
     feats = np.concatenate([z_mass, aux], axis=1).astype(np.float32)
     return feats, pos.astype(np.float32), h0.astype(np.float32)
-
-
-def _read_sidecar_graph_feats(filepath: str, graph_feature_dims,
-                              graph_feature_cols) -> Optional[np.ndarray]:
-    """Graph targets from a `<stem>.bulk` sidecar's first line, None when
-    the file is absent (counterpart:
-    hydragnn_tpu/datasets/xyzdataset.py `_read_sidecar_graph_feats`)."""
-    if not os.path.exists(filepath):
-        return None
-    with open(filepath, encoding="utf-8") as f:
-        tok = f.readline().split()
-    feats = []
-    for item, dim in enumerate(graph_feature_dims):
-        for icomp in range(dim):
-            feats.append(float(tok[graph_feature_cols[item] + icomp]))
-    return np.asarray(feats, np.float32)
 
 
 class CFGDataset:

@@ -15,8 +15,16 @@ same physics on the port's GraphSample.
 QM9 examples, bitwise: examples/open_catalyst_2020/oc20_data.py's
 `generate_oc20_dataset` frames (as generated, before the example writes
 them as extxyz text) through examples/common_atomistic.py's
-`frame_to_sample`, and examples/qm9/qm9_data.py's `_synthetic_qm9`
-molecules as `load_qm9` makes them samples.
+`frame_to_sample` (datasets/atomistic.py), and examples/qm9/qm9_data.py's
+`_synthetic_qm9` molecules as `load_qm9` makes them samples.
+
+`generate_oc20_dataset`, `generate_oc22_dataset`, `generate_csce_csv`
+and `generate_ogb_csv` write the files of the OC20, OC22, csce and ogb
+examples (examples/open_catalyst_2020/oc20_data.py,
+examples/open_catalyst_2022/oc22_data.py, examples/csce/csce_data.py,
+examples/ogb/ogb_data.py) byte for byte for the same seed: extxyz chunks
+and trajectories that datasets/atomistic.py reads, and SMILES CSVs that
+datasets/smiles.py featurizes.
 
 `bcc_lattices` is the deterministic BCC lattice data of the model zoo's
 threshold rows (tests/deterministic_data.py
@@ -33,11 +41,14 @@ text files.
 """
 from __future__ import annotations
 
+import csv
 import os
-from typing import List
+from typing import List, Tuple
 
 import numpy as np
 
+from ..datasets.atomistic import OC22_TRAJ_SUBDIR, frame_to_sample
+from ..datasets.extxyz import Frame, write_extxyz
 from ..utils.elements import SYMBOLS
 from .batch import GraphSample
 from .radius import radius_graph, radius_graph_pbc
@@ -318,42 +329,6 @@ def fept_lsms_files(dirpath: str, num_configs: int = 200,
     return dirpath
 
 
-FORCES_NORM_THRESHOLD = 100.0
-
-
-def atomistic_sample(z, pos, energy: float, forces, radius: float,
-                     max_neighbours: int, cell=None,
-                     energy_per_atom: bool = True):
-    """The atomistic examples' sample of one frame
-    (examples/common_atomistic.py `frame_to_sample`): x = [Z, pos,
-    forces], the radius graph (periodic where the cell is not 0), edge
-    lengths as `edge_attr`, the (per-atom) energy as the graph target and
-    the forces as the node target; None when a force's norm reaches
-    FORCES_NORM_THRESHOLD."""
-    forces = np.asarray(forces, np.float32)
-    if not np.all(np.linalg.norm(forces, axis=1) < FORCES_NORM_THRESHOLD):
-        return None
-    z = np.asarray(z, np.float32)
-    pos = np.asarray(pos, np.float32)
-    x = np.concatenate([z[:, None], pos, forces], axis=1)
-    shifts = None
-    if cell is not None and np.abs(cell).sum() > 0:
-        send, recv, shifts = radius_graph_pbc(pos, cell, radius,
-                                              max_neighbours=max_neighbours)
-    else:
-        send, recv = radius_graph(pos, radius, max_neighbours=max_neighbours)
-    vec = pos[send] - pos[recv]
-    if shifts is not None:
-        vec = vec + shifts
-    edge_len = np.linalg.norm(vec, axis=1, keepdims=True).astype(np.float32)
-    e = float(energy) / len(z) if energy_per_atom else float(energy)
-    return GraphSample(x=x, pos=pos, senders=send, receivers=recv,
-                       edge_attr=edge_len, edge_shifts=shifts,
-                       y_graph=np.asarray([e], np.float32), y_node=forces,
-                       cell=cell, energy=np.asarray([e], np.float32),
-                       forces=forces)
-
-
 def oc20_slabs(num: int, seed: int = 0, radius: float = 5.0,
                max_neighbours: int = 512) -> List[GraphSample]:
     """OC20-style frames: a 3 x 3 x 3 Cu or Pt fcc slab with a CO
@@ -389,8 +364,8 @@ def oc20_slabs(num: int, seed: int = 0, radius: float = 5.0,
                   - 1.5 * (metal == 78.0))
         forces = (-k * disp).astype(np.float32)
         cell = np.diag([nx * a, ny * a, 25.0]).astype(np.float32)
-        sample = atomistic_sample(z, pos, energy, forces, radius,
-                                  max_neighbours, cell=cell)
+        sample = frame_to_sample(z, pos, energy, forces, radius,
+                                 max_neighbours, cell=cell)
         if sample is not None:
             out.append(sample)
     return out
@@ -483,3 +458,153 @@ def bcc_lattices(num_configs: int = 200, num_types: int = 3,
         for s in samples:
             s.y_graph = ((s.y_graph - lo) / span).astype(np.float32)
     return samples
+
+
+def mark_synthetic(dirpath: str) -> None:
+    """The `.synthetic` marker the examples' generators leave in their
+    output directory (examples/common_atomistic.py `mark_synthetic`)."""
+    os.makedirs(dirpath, exist_ok=True)
+    with open(os.path.join(dirpath, ".synthetic"), "w") as f:
+        f.write("generated stand-in data; safe to delete\n")
+
+
+def generate_oc20_dataset(dirpath: str, num_chunks: int = 2,
+                          frames_per_chunk: int = 40, seed: int = 0) -> str:
+    """The OC20 example's chunks, byte for byte
+    (examples/open_catalyst_2020/oc20_data.py): Cu or Pt slab + CO
+    frames with harmonic-well energies and forces as
+    `<dirpath>/synthetic/<chunk>.extxyz`; returns that directory."""
+    dirpath = os.path.join(dirpath, "synthetic")
+    mark_synthetic(dirpath)
+    rng = np.random.RandomState(seed)
+    a = 3.6
+    nx = ny = 3
+    layers = 3
+    for chunk in range(num_chunks):
+        frames = []
+        for _ in range(frames_per_chunk):
+            metal = 29.0 if rng.rand() < 0.5 else 78.0
+            slab_pos, slab_z = [], []
+            for layer in range(layers):
+                for i in range(nx):
+                    for j in range(ny):
+                        off = (a / 2 if layer % 2 else 0.0)
+                        slab_pos.append([i * a + off, j * a + off,
+                                         layer * a * 0.7])
+                        slab_z.append(metal)
+            site = rng.randint(len(slab_pos) - nx * ny, len(slab_pos))
+            cx, cy, cz = slab_pos[site]
+            slab_pos += [[cx, cy, cz + 1.9], [cx, cy, cz + 3.05]]
+            slab_z += [6.0, 8.0]
+            pos0 = np.asarray(slab_pos, np.float32)
+            z = np.asarray(slab_z, np.float32)
+            disp = rng.randn(*pos0.shape).astype(np.float32) * 0.08
+            pos = pos0 + disp
+            k = 5.0
+            energy = (-3.0 * len(z) + 0.5 * k * float((disp ** 2).sum())
+                      - 1.5 * (metal == 78.0))
+            forces = (-k * disp).astype(np.float32)
+            cell = np.diag([nx * a, ny * a, 25.0]).astype(np.float32)
+            frames.append(Frame(z, pos, cell, {"forces": forces},
+                                {"energy": energy, "free_energy": energy}))
+        write_extxyz(os.path.join(dirpath, f"{chunk}.extxyz"), frames)
+    return dirpath
+
+
+def generate_oc22_dataset(dirpath: str, data_type: str = "train",
+                          num_systems: int = 8, frames_per_system: int = 10,
+                          seed: int = 0) -> str:
+    """The OC22 example's trajectories, byte for byte
+    (examples/open_catalyst_2022/oc22_data.py): Ti or Ir oxide slabs
+    with harmonic-well energies and forces, one extxyz file a system
+    under `<dirpath>/synthetic/oc22_trajectories/trajectories/oc22/
+    <data_type>/` and the `<data_type>_t.txt` list beside it; returns
+    `<dirpath>/synthetic`."""
+    base = os.path.join(dirpath, "synthetic")
+    mark_synthetic(base)
+    root = os.path.join(base, OC22_TRAJ_SUBDIR)
+    os.makedirs(os.path.join(root, data_type), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    a = 3.2
+    names = []
+    for sysid in range(num_systems):
+        metal = 22.0 if rng.rand() < 0.5 else 77.0
+        pos0, z = [], []
+        for layer in range(2):
+            for i in range(3):
+                for j in range(3):
+                    pos0.append([i * a, j * a, layer * a * 0.8])
+                    z.append(metal)
+                    pos0.append([i * a + a / 2, j * a + a / 2,
+                                 layer * a * 0.8 + a * 0.4])
+                    z.append(8.0)
+        pos0 = np.asarray(pos0, np.float32)
+        z = np.asarray(z, np.float32)
+        cell = np.diag([3 * a, 3 * a, 20.0]).astype(np.float32)
+        frames = []
+        for _ in range(frames_per_system):
+            disp = rng.randn(*pos0.shape).astype(np.float32) * 0.07
+            pos = pos0 + disp
+            k = 6.0
+            energy = -4.0 * len(z) + 0.5 * k * float((disp ** 2).sum())
+            forces = (-k * disp).astype(np.float32)
+            frames.append(Frame(z, pos, cell, {"forces": forces},
+                                {"energy": energy}))
+        name = f"sys_{sysid:04d}.extxyz"
+        write_extxyz(os.path.join(root, data_type, name), frames)
+        names.append(name)
+    with open(os.path.join(root, f"{data_type}_t.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return base
+
+
+def random_smiles(rng) -> Tuple[str, float]:
+    """A random organic molecule of 2-6 fragments and its closed-form
+    gap label (examples/csce/csce_data.py `random_smiles`)."""
+    frags = ["C", "C", "C", "N", "O", "S", "F", "C=C", "C#N", "C(=O)O",
+             "c1ccccc1", "C(N)=O"]
+    n = rng.randint(2, 6)
+    smi = "".join(frags[rng.randint(len(frags))] for _ in range(n))
+    n_c = smi.count("C") + smi.count("c")
+    n_o = smi.count("O")
+    n_n = smi.count("N") + smi.count("n")
+    n_arom = smi.count("c1")
+    gap = (7.5 - 0.25 * n_c - 0.4 * n_arom + 0.15 * n_o - 0.1 * n_n
+           + 0.05 * np.sin(3.0 * n_c + n_o))
+    return smi, float(gap)
+
+
+def generate_csce_csv(dirpath: str, num_mols: int = 300, seed: int = 0
+                      ) -> str:
+    """The csce example's CSV, byte for byte (examples/csce/csce_data.py):
+    `id,smiles,gap,extra` rows at `<dirpath>/synthetic/
+    csce_gap_synth.csv`; returns its path."""
+    dirpath = os.path.join(dirpath, "synthetic")
+    mark_synthetic(dirpath)
+    path = os.path.join(dirpath, "csce_gap_synth.csv")
+    rng = np.random.RandomState(seed)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "smiles", "gap", "extra"])
+        for i in range(num_mols):
+            smi, gap = random_smiles(rng)
+            w.writerow([i, smi, f"{gap:.6f}", 0])
+    return path
+
+
+def generate_ogb_csv(dirpath: str, num_mols: int = 300, seed: int = 0
+                     ) -> str:
+    """The ogb example's CSV, byte for byte (examples/ogb/ogb_data.py):
+    `smiles,gap` rows at `<dirpath>/synthetic/pcqm4m_gap_synth.csv`;
+    returns `<dirpath>/synthetic`."""
+    dirpath = os.path.join(dirpath, "synthetic")
+    mark_synthetic(dirpath)
+    rng = np.random.RandomState(seed)
+    path = os.path.join(dirpath, "pcqm4m_gap_synth.csv")
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["smiles", "gap"])
+        for _ in range(num_mols):
+            smi, gap = random_smiles(rng)
+            w.writerow([smi, f"{gap:.6f}"])
+    return dirpath

@@ -38,10 +38,9 @@ def check_preprocess_knobs(config: Dict) -> None:
 
 
 # Dataset.format values whose readers are not ported, and their items
-_UNPORTED_FORMATS = {"XYZ": "A2: the XYZ reader",
-                     "pickle": "A10: datasets (the pickle format)",
+_UNPORTED_FORMATS = {"pickle": "A10: datasets (the pickle format)",
                      "adios": "A10: datasets (the GraphStore format)"}
-_FORMATS = ("LSMS", "unit_test", "CFG")
+_FORMATS = ("LSMS", "unit_test", "CFG", "XYZ")
 
 
 def check_dataset_knobs(config: Dict) -> None:
@@ -63,12 +62,17 @@ def load_datasets_from_config(config: Dict):
     """(train, val, test) from the config's own files (counterpart:
     hydragnn_tpu/run_training.py `_load_datasets_from_config`): "LSMS"
     and "unit_test" through `datasets.lsmsdataset`, "CFG" through
-    `datasets.cfgdataset`. The train split carries the reader's min-max
-    (`datasets.lsmsdataset.Split`)."""
+    `datasets.cfgdataset`, "XYZ" through `datasets.xyzdataset`. The LSMS
+    and CFG train splits carry the reader's min-max
+    (`datasets.lsmsdataset.Split`); the XYZ splits are plain lists, as
+    in the JAX package."""
     check_dataset_knobs(config)
     if config["Dataset"]["format"] == "CFG":
         from ..datasets.cfgdataset import load_cfg_splits
         return load_cfg_splits(config)
+    if config["Dataset"]["format"] == "XYZ":
+        from ..datasets.xyzdataset import load_xyz_splits
+        return load_xyz_splits(config)
     from ..datasets.lsmsdataset import load_lsms_splits
     return load_lsms_splits(config)
 

@@ -9,14 +9,19 @@ device="cpu"), loads the weights — the Flax variable tree given as
 nested numpy dicts (utils/weights.py), or `state=` (and `model=`) as
 `run_training` returns them, or else the run's checkpoint
 (utils/checkpoint.py; `checkpoint="latest"`, the newest verified save, or
-"best") — and predicts the test split in the serving precision
-(`Serving.precision`, else HYDRAGNN_PRECISION, else Architecture.dtype;
-float32 or bfloat16) — through the
+"best") — and predicts the test split through the
 batched `InferenceEngine` when serving is on (`serve`, else the `Serving`
 block / HYDRAGNN_SERVE), or through a `ReplicaRouter` of
 `Serving.fleet.replicas` engines (HYDRAGNN_FLEET_REPLICAS) when that is
 above 1, else with a plain loop over `batch_size` batches padded to one
-shape. DimeNet, whose batches carry triplet tables the engine does not
+shape. The engines compute in the serving precision (`Serving.precision`,
+else the train-side policy); the loop, as the JAX package's eval-step
+loop, always at the train-side policy (HYDRAGNN_PRECISION, else
+Architecture.dtype, else float32), so `Serving.precision` "int8" is
+refused only where an engine is built. Engines are tagged
+`step_<n>` from the TrainState or checkpoint the weights came from
+(`variables=` and `model=` carry no step: "v0"). DimeNet, whose batches
+carry triplet tables the engine does not
 build, takes the loop with the JAX package's warning. Returns (trues, preds), one array per head,
 over real graphs (graph heads) or real nodes (node heads). With
 HYDRAGNN_DUMP_TESTDATA set, they are also pickled to
@@ -64,8 +69,8 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     `num_shards` > 1 (serving sharded over devices) is not ported and
     raises naming A8."""
     config = load_config(config_or_path)
-    serving = resolve_serving(config)    # raises on an unported knob
-    check_unported_serving_knobs(serving, num_shards)
+    serving = resolve_serving(config)
+    check_unported_serving_knobs(num_shards)
     dev = resolve_device(device)
     if datasets is None:
         datasets = load_datasets_from_config(config)
@@ -73,8 +78,10 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     config = update_config(config, trainset, valset, testset)
     mcfg = data_input_dim(build_model_config(config),
                           trainset + valset + testset)
+    version = "v0"
     if state is not None:
         weights = {k: v.detach() for k, v in state.state_dict().items()}
+        version = f"step_{int(state.step)}"
     elif variables is not None:
         weights = load_jax_variables(variables)
     elif model is not None:
@@ -83,7 +90,9 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
         weights = None
     model = create_model(mcfg, device=dev)
     if weights is None:
-        weights = _checkpoint_weights(config, model, checkpoint)
+        restored = _checkpoint_state(config, model, checkpoint)
+        weights = restored.state_dict()
+        version = f"step_{int(restored.step)}"
     model.load_state_dict(weights)
 
     batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
@@ -107,10 +116,10 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
         use_engine = False
     if use_engine:
         trues, preds = _predict_with_engine(model, mcfg, testset, serving,
-                                            neighbor_k, dev, config)
+                                            neighbor_k, dev, config,
+                                            version)
     else:
-        forward = make_forward_fn(model, mcfg, serving.precision,
-                                  frozen=True)
+        forward = make_forward_fn(model, mcfg, None, frozen=True)
         trues, preds = _predict_with_loader(forward, mcfg, testset,
                                             all_samples, batch_size,
                                             neighbor_k, dev, batch_transform)
@@ -135,8 +144,8 @@ def dump_test_data(config, trues, preds):
                      for name, t, p in zip(names, trues, preds)}, f)
 
 
-def _checkpoint_weights(config, model, which: str):
-    """The state dict of the run's newest verified checkpoint ("latest")
+def _checkpoint_state(config, model, which: str):
+    """The TrainState of the run's newest verified checkpoint ("latest")
     or of the one BEST names ("best")."""
     log_name = get_log_name_config(config)
     like = TrainState.create(model, select_optimizer(
@@ -156,7 +165,7 @@ def _checkpoint_weights(config, model, which: str):
         raise FileNotFoundError(
             f"run_prediction: no variables=, state= or model= given and run "
             f"'{log_name}' has no verified {which} checkpoint under ./logs")
-    return restored.state_dict()
+    return restored
 
 
 def _sample_targets(mcfg, sample):
@@ -214,7 +223,7 @@ def _predict_with_loader(forward, mcfg, testset, all_samples, batch_size,
 
 
 def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
-                         config):
+                         config, version="v0"):
     """Every test sample becomes one serving request; the dispatcher
     coalesces them into bucketed padded batches. The failure knobs
     (max_queue, deadline_ms, breaker_*) stay at their permissive defaults,
@@ -232,7 +241,8 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
     `Serving.fleet.compile_store` names one (a single engine uses it
     too), and a TierPolicy when `tier_priority_min` > 0 (the test split
     is submitted at priority 0). Every replica serves the same weights
-    on the same bucket ladder."""
+    on the same bucket ladder, tagged `version`. The engine refuses
+    `Serving.precision` "int8" (not ported: ROADMAP A8)."""
     from .serving.fleet import ReplicaRouter, TierPolicy
     fleet = resolve_fleet(config)
     store = (CompileStore(fleet.compile_store) if fleet.compile_store
@@ -249,7 +259,8 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
             neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
             compute_dtype=serving.precision, breaker_threshold=0,
             structure_config=config if serving.structure else None,
-            md_skin=serving.md_skin, compile_store=store, device=device)
+            md_skin=serving.md_skin, compile_store=store,
+            model_version=version, device=device)
 
     if fleet.replicas > 1:
         tier_policy = None

@@ -43,6 +43,17 @@ verified save (history, schedules, best state) bit for bit, or from the
 run `Training.startfrom` names, whose weights and optimizer state then
 seed a fresh epoch 0.
 
+Telemetry (JAX run_training.py:201-211, 672-791): `Training.Telemetry`
+and the HYDRAGNN_TELEMETRY* knobs (utils/envflags.resolve_telemetry)
+start a session (telemetry/session.py) next to the epoch loop and
+finalize it on every exit path: telemetry.jsonl, trace.json and
+metrics.prom under <run dir>/telemetry (or the `dir` knob), with the
+per-epoch MFU (telemetry/mfu.py). The `Profile` section ({"enable": 1,
+"target_epoch": n}) traces epoch n's train pass with torch.profiler
+under ./logs/<run name>/profile; without it, `device_trace` traces
+`device_trace_epoch` under <telemetry dir>/profile, with or without the
+session.
+
 Knobs off this path raise NotImplementedError naming the ROADMAP item
 that brings them; none is ignored. A fault plan is refused only where
 the JAX package's resolution yields one (utils/faults.py).
@@ -50,6 +61,7 @@ the JAX package's resolution yields one (utils/faults.py).
 from __future__ import annotations
 
 import logging
+import os
 from typing import Optional, Sequence
 
 from .config import (build_model_config, get_log_name_config, load_config,
@@ -67,9 +79,10 @@ from .train.train_step import (TrainState, make_eval_step,
 from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
 from .utils.faults import resolve_fault_plan
-from .utils.envflags import (env_flag, env_strict_flag,
-                             resolve_pack_lookahead, resolve_packing,
-                             resolve_steps_per_call)
+from .telemetry import EpochDeviceTrace, start_session
+from .utils.envflags import (env_flag, resolve_pack_lookahead,
+                             resolve_packing, resolve_steps_per_call,
+                             resolve_telemetry)
 
 
 def _not_ported(what: str, item: str):
@@ -94,11 +107,6 @@ def check_training_knobs(config) -> None:
          "Training.pipeline_stages", "A9: multi-GPU training"),
         (opt.get("use_zero_redundancy"),
          "Optimizer.use_zero_redundancy", "A9: multi-GPU training"),
-        ("Profile" in config, "the Profile section", "A8: telemetry"),
-        ((tr.get("Telemetry") or {}).get("enabled")
-         or env_strict_flag("HYDRAGNN_TELEMETRY")
-         or env_strict_flag("HYDRAGNN_DEVICE_TRACE"),
-         "Telemetry", "A8: telemetry"),
         ((config.get("Visualization") or {}).get("create_plots"),
          "Visualization.create_plots", "A10: postprocess"),
         (tr.get("async_loader_workers") or tr.get("batch_cache_mb"),
@@ -190,6 +198,19 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     log_name = get_log_name_config(config)
     start_epoch, resume, best0, best_val0 = _resume(train_cfg, state,
                                                     log_name, verbosity)
+    # the telemetry knobs, resolved once; the session starts next to the
+    # epoch loop's try, whose finally finalizes it
+    run_dir = os.path.join("./logs", log_name)
+    tel_cfg = resolve_telemetry(train_cfg)
+    profiler = None
+    if "Profile" in config:
+        profiler = EpochDeviceTrace(run_dir)
+        profiler.setup(config["Profile"])
+    elif tel_cfg.device_trace:
+        # honoured without the session: the bracket needs no registry
+        profiler = EpochDeviceTrace(
+            tel_cfg.resolve_out_dir(run_dir), enable=True,
+            target_epoch=tel_cfg.device_trace_epoch)
 
     plateau = None
     if "ReduceLROnPlateau" in train_cfg:
@@ -224,7 +245,12 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     # installed next to the try whose finally restores it
     if save_fn is not None:
         trainer.install_sigterm_handler()
+    telemetry = start_session(tel_cfg, run_dir)
     try:
+        if telemetry is not None:
+            telemetry.compute_dtype = compute_dtype
+            if verbosity >= 1:
+                print(f"telemetry: on -> {telemetry.out_dir}", flush=True)
         state, history = trainer.train_validate_test(
             train_step, eval_step, state, train_loader, val_loader,
             test_loader, num_epochs=int(train_cfg["num_epoch"]),
@@ -240,10 +266,18 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
             preempt_save_fn=save_fn, initial_best_state=best0,
             initial_best_val=best_val0, resume_meta_out=final_meta,
             multi_train_step=multi_step, multi_eval_step=multi_eval,
-            steps_per_call=steps_per_call)
+            steps_per_call=steps_per_call, telemetry=telemetry,
+            profiler=profiler)
     finally:
         if save_fn is not None:
             trainer.restore_sigterm_handler()
+        # written on every exit path: a crashed run's timeline is the
+        # one worth reading
+        if telemetry is not None:
+            paths = telemetry.finalize()
+            if paths and verbosity >= 1:
+                print(f"telemetry artifacts: {paths['jsonl']} "
+                      f"{paths['chrome_trace']}", flush=True)
     model.eval()
     if trainer.preemption_requested():
         # the trainer saved the resume point; a final save would point

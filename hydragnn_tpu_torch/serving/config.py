@@ -79,8 +79,10 @@ env over block over default), typos included.
 
 Two knobs change what JAX's run_prediction runs and are not ported yet,
 so asking for them raises NotImplementedError naming ROADMAP A8:
-precision "int8" (the int8 serving tier) and run_prediction's
-`num_shards` > 1 (multi-device shards).
+precision "int8" (the int8 serving tier), where an engine is built with
+it (`check_serving_precision`; it resolves as in the JAX package, whose
+prediction loop ignores it), and run_prediction's `num_shards` > 1
+(multi-device shards, `check_unported_serving_knobs`).
 """
 from __future__ import annotations
 
@@ -117,7 +119,7 @@ class ServingConfig:
     breaker_threshold: int = 5    # 0 disables the circuit breaker
     breaker_reset_s: float = 30.0
     precision: Optional[str] = None  # None = inherit the train-side policy
-    quant_calib_samples: int = 32  # int8 only (refused: ROADMAP A8)
+    quant_calib_samples: int = 32  # int8 only (engines refuse it: A8)
     metrics_port: int = 0         # /healthz + /metrics port (0 = off)
     structure: bool = False       # raw-structure serving (submit_structure)
     md_skin: float = 0.3          # Verlet skin of trajectory sessions
@@ -132,12 +134,11 @@ def check_serving_precision(precision: Optional[str]) -> None:
             "serving tier); serve float32 or bfloat16")
 
 
-def check_unported_serving_knobs(serving: ServingConfig,
-                                 num_shards: Optional[int] = None) -> None:
-    """Raise NotImplementedError naming A8 for what the port does not
-    serve yet: precision "int8" and `num_shards` > 1 (run_prediction's
-    multi-device shards)."""
-    check_serving_precision(serving.precision)
+def check_unported_serving_knobs(num_shards: Optional[int] = None
+                                 ) -> None:
+    """Raise NotImplementedError naming A8 for `num_shards` > 1
+    (run_prediction's multi-device shards), which the port does not
+    serve yet."""
     if num_shards is not None and int(num_shards) > 1:
         raise NotImplementedError(
             f"num_shards={num_shards} (serving sharded over devices) is not "
@@ -177,7 +178,7 @@ def resolve_md_farm(config: Optional[Dict[str, Any]] = None) -> MdFarm:
 
 def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
     """The `Serving` block and the HYDRAGNN_SERVE_* env knobs merged into
-    one ServingConfig; raises for a knob the port does not serve."""
+    one ServingConfig."""
     block = (config or {}).get("Serving", {}) or {}
     base = ServingConfig(
         enabled=bool(block.get("enabled", False)),
@@ -196,7 +197,7 @@ def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
         structure=bool(block.get("structure", False)),
         md_skin=float(block.get("md_skin", 0.3)),
     )
-    out = ServingConfig(
+    return ServingConfig(
         enabled=env_strict_flag("HYDRAGNN_SERVE", base.enabled),
         max_batch_size=env_strict_int("HYDRAGNN_SERVE_MAX_BATCH",
                                       base.max_batch_size),
@@ -224,8 +225,6 @@ def resolve_serving(config: Optional[Dict[str, Any]]) -> ServingConfig:
                                   base.structure),
         md_skin=env_strict_float("HYDRAGNN_MD_SKIN", base.md_skin),
     )
-    check_unported_serving_knobs(out)
-    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,19 +4,26 @@
   histograms) with its JSONL event log and Prometheus text;
 * ``spans`` — Chrome trace-event span recording and the opt-in
   `torch.profiler` device-trace bracket;
-* ``http`` — the /healthz and /metrics endpoint of the serving engine.
+* ``http`` — the /healthz and /metrics endpoint of the serving engine;
+* ``session`` — a training run's telemetry (its registry, recorder and
+  artifacts);
+* ``mfu`` — the card's peak FLOP/s and the achieved / peak gauge.
 
 Off by default at near-zero cost: producers call ``spans.record`` /
 ``spans.span`` (a None check with no recorder) and report registry
-metrics from cold paths only. The JAX package's ``session``, ``mfu``,
-``gfm`` and ``sampling`` are not ported yet (ROADMAP A8).
+metrics from cold paths only. The JAX package's ``gfm`` and ``sampling``
+come with multi-GPU training (ROADMAP A9).
 """
+from .mfu import PEAK_FLOPS, achieved_and_mfu, peak_flops
 from .registry import (COUNTER, GAUGE, HISTOGRAM, MetricsRegistry,
                        MetricTypeError, get_registry, set_registry)
+from .session import TelemetryConfig, TelemetrySession, start_session
 from .spans import (EpochDeviceTrace, SpanRecorder, current_recorder,
                     device_trace, install_recorder, record, span)
 
 __all__ = [
+    "PEAK_FLOPS", "achieved_and_mfu", "peak_flops",
+    "TelemetryConfig", "TelemetrySession", "start_session",
     "COUNTER", "GAUGE", "HISTOGRAM",
     "MetricsRegistry", "MetricTypeError", "get_registry", "set_registry",
     "EpochDeviceTrace", "SpanRecorder", "current_recorder", "device_trace",

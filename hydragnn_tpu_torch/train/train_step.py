@@ -277,7 +277,51 @@ def _train_body(model, cfg: ModelConfig, tx: Optimizer, loss_name: str,
         state.step += 1
         return metrics, None
 
+    body.loss_fn = loss_fn
     return body
+
+
+def step_cost_flops(step, batch: GraphBatch) -> float:
+    """The FLOPs of one train step of `step` (a TrainStep or
+    MultiTrainStep) on a placed `batch`: its loss's forward and the
+    gradient with respect to the parameters, counted by
+    `torch.utils.flop_counter.FlopCounterMode` (counterpart:
+    hydragnn_tpu/train/train_step.py `step_cost_flops`, which reads XLA's
+    cost analysis of the compiled step).
+
+    This is matrix-product FLOPs only (mm, addmm, bmm and their kin),
+    not XLA's count, which includes elementwise work: the optimizer
+    update, activations and the aggregations add nothing. The
+    hand-written kernels and their plain versions hold no counted
+    product, so the count is the same on either route. The probe runs
+    eagerly and leaves the run as it was: no optimizer step, the
+    gradients dropped, the model's buffers (BatchNorm statistics), mode
+    and the RNG put back."""
+    from torch.utils.flop_counter import FlopCounterMode
+    model, loss_fn = step.steps.model, step.steps.body.loss_fn
+    training = model.training
+    buffers = [(b, b.detach().clone()) for b in model.buffers()]
+    cpu_rng = torch.get_rng_state()
+    cuda_rng = (torch.cuda.get_rng_state(batch.x.device)
+                if batch.x.is_cuda else None)
+    params = [p for p in model.parameters() if p.requires_grad]
+    try:
+        model.train()
+        with FlopCounterMode(display=False) as counter:
+            total, _ = loss_fn(batch)
+            torch.autograd.grad(total, params, allow_unused=True)
+        return float(counter.get_total_flops())
+    finally:
+        with torch.no_grad():
+            for live, saved in buffers:
+                live.copy_(saved)
+        model.train(training)
+        torch.set_rng_state(cpu_rng)
+        if cuda_rng is not None:
+            torch.cuda.set_rng_state(cuda_rng, batch.x.device)
+            # the restored buffers are in place before the next replay,
+            # which may run on another stream
+            torch.cuda.synchronize(batch.x.device)
 
 
 class TrainStep:

@@ -28,10 +28,24 @@ epoch)) instead of applying its first batches twice. `start_epoch` and
 `resume` (the saved metadata's "trainer" record) restore the history, the
 plateau, early-stopping and gate state and the best validation loss, so
 the resumed epochs repeat the uninterrupted run's bit for bit.
-Telemetry and the device profiler are later work (ROADMAP A8).
+
+Telemetry (JAX trainer.py:522-663): with a `telemetry` session the train
+pass runs under a HostStallMonitor (utils/profiling.py) and each epoch
+reports the JAX package's registry metrics (train_loss, val_loss,
+test_loss, train_input_bound_frac, train_nonfinite_steps_total,
+train_padding_frac_{nodes,edges}, train_jit_recompiles_total,
+train_achieved_flops_per_s, train_mfu) and one JSONL epoch event with
+its `data` and `timing` keys. The achieved rate is the probe's FLOPs a
+step (train_step.step_cost_flops, once a session, on the epoch's first
+single-step batch) times the steps over the train pass's step time,
+which includes the card's execution; `profiler` (an EpochDeviceTrace)
+brackets each epoch's train pass. Without a session the loop is the
+one above, with no timer and no probe.
 """
 from __future__ import annotations
 
+import contextlib
+import logging
 import os
 import subprocess
 import threading
@@ -41,8 +55,12 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..telemetry import spans as _spans
 from ..utils.envflags import env_flag, env_strict_int
+from ..utils.profiling import HostStallMonitor
 from .optimizer import get_learning_rate, set_learning_rate
+
+_log = logging.getLogger("hydragnn_tpu_torch")
 
 # SLURM and cloud preemption deliver SIGTERM with a grace window; the
 # handler only sets this flag (signal-safe)
@@ -276,6 +294,8 @@ def train_validate_test(
     multi_train_step: Optional[Callable] = None,
     multi_eval_step: Optional[Callable] = None,
     steps_per_call: int = 1,
+    telemetry=None,
+    profiler=None,
 ):
     """Returns (state, history). `place_fn(batch)` moves a loader batch to
     the model's device. With `keep_best` the returned state holds the
@@ -298,7 +318,11 @@ def train_validate_test(
     `multi_train_step(state, batches) -> (state, metrics [S])` and
     `multi_eval_step(state, batches) -> metrics [S]` run groups of
     `steps_per_call` batches (train_step.make_multi_*_step); the
-    preemption flag is then checked once a group."""
+    preemption flag is then checked once a group.
+
+    `telemetry` (a telemetry.session.TelemetrySession or None) reports
+    the epoch's metrics and event; `profiler` (a
+    telemetry.EpochDeviceTrace or None) traces its target epoch."""
     place_fn = place_fn or (lambda b: b)
     early = EarlyStopping(patience) if use_early_stopping else None
     gate = CheckpointGate(checkpoint_warmup)
@@ -361,8 +385,15 @@ def train_validate_test(
     prev_boundary_committed = False
     step_fns = (train_step, multi_train_step, eval_step, multi_eval_step)
     captures0 = _graph_count(step_fns)
+    # the host-stall timers run only under a session
+    stall = HostStallMonitor() if telemetry is not None else None
+    step_timer = (stall.step_timer if stall is not None
+                  else contextlib.nullcontext)
+    epoch_ctx = profiler if profiler is not None else contextlib.nullcontext()
     for epoch in range(start_epoch, num_epochs):
         train_loader.set_epoch(epoch)
+        if profiler is not None:
+            profiler.set_current_epoch(epoch)
         # the state before this epoch's updates, for a preemption inside
         # it; not needed when the last boundary's periodic save holds it
         epoch_start = (state.copy() if preempt_save_fn is not None
@@ -370,31 +401,44 @@ def train_validate_test(
         acc: Dict[str, float] = {}
         nb = 0
         preempted = False
+        flops = None
         group = multi_train_step is not None and steps_per_call > 1
         source = (_group_batches(train_loader, steps_per_call) if group
                   else ([b] for b in train_loader))
-        for batches in source:
-            if preemption_requested():
-                preempted = True
-                break
-            if group and len(batches) == steps_per_call and (
-                    max_num_batch is None
-                    or nb + steps_per_call <= max_num_batch):
-                state, metrics = multi_train_step(
-                    state, [place_fn(b) for b in batches])
-                _accumulate(acc, metrics, summed=True)
-                nb += steps_per_call
-            else:
-                # single steps: no group, the remainder group, or a group
-                # the batch cap cuts
-                for batch in batches:
-                    if max_num_batch is not None and nb >= max_num_batch:
-                        break
-                    state, metrics = train_step(state, place_fn(batch))
-                    _accumulate(acc, metrics)
-                    nb += 1
-            if max_num_batch is not None and nb >= max_num_batch:
-                break
+        if stall is not None:
+            stall.reset()
+            source = stall.wrap(source)
+        with _spans.span("train_epoch", cat="tracer"), epoch_ctx:
+            for batches in source:
+                if preemption_requested():
+                    preempted = True
+                    break
+                if group and len(batches) == steps_per_call and (
+                        max_num_batch is None
+                        or nb + steps_per_call <= max_num_batch):
+                    with step_timer():
+                        state, metrics = multi_train_step(
+                            state, [place_fn(b) for b in batches])
+                        _accumulate(acc, metrics, summed=True)
+                    nb += steps_per_call
+                else:
+                    # single steps: no group, the remainder group, or a
+                    # group the batch cap cuts
+                    for batch in batches:
+                        if max_num_batch is not None and nb >= max_num_batch:
+                            break
+                        with step_timer():
+                            placed = place_fn(batch)
+                            state, metrics = train_step(state, placed)
+                            # the host read waits for the card: step time
+                            # is dispatch and execution
+                            _accumulate(acc, metrics)
+                        if (telemetry is not None and not group
+                                and not telemetry.flops_probed):
+                            telemetry.step_flops_once(train_step, placed)
+                        nb += 1
+                if max_num_batch is not None and nb >= max_num_batch:
+                    break
         if preempted:
             if epoch_start is None:
                 # the previous boundary's periodic save is the resume point
@@ -405,18 +449,21 @@ def train_validate_test(
         train_loss = acc.pop("loss", 0.0) / max(nb, 1)
         nonfinite = acc.pop("nonfinite_steps", 0.0)
         if run_valtest:
-            val_loss, val_tasks = _eval_epoch(
-                eval_step, state, val_loader, place_fn, multi_eval_step,
-                steps_per_call)
-            test_loss, test_tasks = _eval_epoch(
-                eval_step, state, test_loader, place_fn, multi_eval_step,
-                steps_per_call)
+            with _spans.span("validate", cat="tracer"):
+                val_loss, val_tasks = _eval_epoch(
+                    eval_step, state, val_loader, place_fn, multi_eval_step,
+                    steps_per_call)
+            with _spans.span("test", cat="tracer"):
+                test_loss, test_tasks = _eval_epoch(
+                    eval_step, state, test_loader, place_fn,
+                    multi_eval_step, steps_per_call)
         else:
             val_loss = test_loss = float("nan")
             val_tasks = test_tasks = {}
 
         # padding: the fraction of the epoch's node and edge slots that
         # were padding (the waste batch packing cuts)
+        pad = None
         if callable(getattr(train_loader, "padding_stats", None)):
             pad = train_loader.padding_stats()
             for k in ("padding_frac_nodes", "padding_frac_edges"):
@@ -425,7 +472,8 @@ def train_validate_test(
         # package's jit_recompiles): nonzero after epoch 0 means a batch
         # shape left the pinned budgets
         captures = _graph_count(step_fns)
-        history.setdefault("graph_captures", []).append(captures - captures0)
+        recaptures = captures - captures0
+        history.setdefault("graph_captures", []).append(recaptures)
         captures0 = captures
 
         if keep_best and val_loss == val_loss and val_loss < best_val:
@@ -451,9 +499,25 @@ def train_validate_test(
         for prefix, tasks in (("val", val_tasks), ("test", test_tasks)):
             for k, v in tasks.items():
                 history.setdefault(f"{prefix}_{k}", []).append(v)
+        achieved = mfu_val = None
+        if telemetry is not None:
+            achieved, mfu_val = _report_epoch(
+                telemetry, stall, epoch, start_epoch, group, nb,
+                train_loss, val_loss, test_loss, lr, nonfinite, pad,
+                recaptures, train_step,
+                next(iter(state.params.values())).device)
+            if achieved is not None:
+                history.setdefault("achieved_flops_per_s", []).append(
+                    achieved)
+            if mfu_val is not None:
+                history.setdefault("mfu", []).append(mfu_val)
         if verbosity >= 1:
             extra = (f" NONFINITE_STEPS {int(nonfinite)}" if nonfinite
                      else "")
+            if achieved is not None:
+                extra += f" flops/s {achieved:.3e}"
+            if mfu_val is not None:
+                extra += f" mfu {mfu_val:.4f}"
             print(f"epoch {epoch}: train {train_loss:.5f} val "
                   f"{val_loss:.5f} test {test_loss:.5f} lr {lr:.2e}" + extra,
                   flush=True)
@@ -489,3 +553,75 @@ def train_validate_test(
     if resume_meta_out is not None:
         resume_meta_out.update(_resume_meta(num_epochs, state))
     return state, history
+
+
+def _report_epoch(telemetry, stall, epoch, start_epoch, group, nb,
+                  train_loss, val_loss, test_loss, lr, nonfinite, pad,
+                  recaptures, train_step, dev: torch.device):
+    """One epoch's registry metrics and JSONL event, with the JAX
+    package's names, help strings and keys; returns (achieved FLOP/s,
+    mfu), each None where not measured. `train_jit_recompiles_total`
+    counts the CUDA graphs the steps captured in the epoch, the port's
+    counterpart of a compiled XLA program."""
+    from ..telemetry.mfu import achieved_and_mfu
+    flops = None
+    if telemetry.flops_probed:
+        flops = telemetry.step_flops_once(train_step)
+    elif group and epoch == start_epoch:
+        # say why the gauge is absent instead of leaving it out
+        _log.info("telemetry: steps_per_call > 1 — per-step MFU gauge "
+                  "unavailable (the probe counts single steps; groups "
+                  "run no single step to probe)")
+    kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    achieved, mfu_val = achieved_and_mfu(
+        flops, nb, stall.step_s, backend=dev.type, device_kind=kind,
+        compute_dtype=telemetry.compute_dtype)
+    input_bound = stall.input_bound_frac()
+    reg = telemetry.registry
+    reg.gauge_set("train_loss", train_loss,
+                  help="mean train loss this epoch")
+    if val_loss == val_loss:
+        reg.gauge_set("val_loss", val_loss,
+                      help="mean validation loss this epoch")
+        reg.gauge_set("test_loss", test_loss,
+                      help="mean test loss this epoch")
+    reg.gauge_set("train_input_bound_frac", input_bound,
+                  help="fraction of the train pass blocked on "
+                       "the input pipeline")
+    reg.counter_inc("train_nonfinite_steps_total", float(nonfinite),
+                    help="steps with non-finite loss/grads")
+    if pad is not None:
+        reg.gauge_set("train_padding_frac_nodes",
+                      float(pad["padding_frac_nodes"]),
+                      help="node-slot padding fraction")
+        reg.gauge_set("train_padding_frac_edges",
+                      float(pad["padding_frac_edges"]),
+                      help="edge-slot padding fraction")
+    reg.counter_inc("train_jit_recompiles_total", float(max(recaptures, 0)),
+                    help="new compiled step programs")
+    if achieved is not None:
+        reg.gauge_set("train_achieved_flops_per_s", achieved,
+                      help="XLA-cost-analysis FLOPs x steps over "
+                           "dispatch+execute wall time")
+    if mfu_val is not None:
+        reg.gauge_set("train_mfu", mfu_val,
+                      help="achieved over per-backend peak FLOPs")
+    # non-finite scalars are left out: json would write NaN
+    data = {"nonfinite_steps": nonfinite, "batches": nb}
+    for k, v in (("train_loss", train_loss), ("val_loss", val_loss),
+                 ("test_loss", test_loss), ("lr", lr)):
+        if np.isfinite(v):
+            data[k] = v
+    if pad is not None:
+        data["padding_frac_nodes"] = float(pad["padding_frac_nodes"])
+        data["padding_frac_edges"] = float(pad["padding_frac_edges"])
+    data["jit_recompiles"] = recaptures
+    timing = {"input_bound_frac": input_bound,
+              "epoch_wait_s": stall.wait_s, "epoch_step_s": stall.step_s}
+    if achieved is not None:
+        timing["achieved_flops_per_s"] = achieved
+    if mfu_val is not None:
+        timing["mfu"] = mfu_val
+    telemetry.epoch_event(epoch, data=data, timing=timing)
+    return achieved, mfu_val

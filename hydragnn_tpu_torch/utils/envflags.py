@@ -145,3 +145,37 @@ def resolve_preproc_cache_dir(ds_cfg=None):
         d = ds_cfg.get("preprocessed_cache_dir")
     d = (d or "").strip()
     return d or None
+
+
+def resolve_telemetry(train_cfg=None):
+    """The training telemetry knobs -> telemetry.session.TelemetryConfig
+    (counterpart: hydragnn_tpu/utils/envflags.py `resolve_telemetry`):
+    env over the Training.Telemetry block over off, parsed strictly (a
+    typo warns and keeps the block's value, so telemetry never turns on
+    from one).
+
+      HYDRAGNN_TELEMETRY            the session (telemetry.jsonl,
+                                    trace.json, metrics.prom)
+      HYDRAGNN_TELEMETRY_DIR        artifact directory (default
+                                    <run dir>/telemetry)
+      HYDRAGNN_DEVICE_TRACE         a torch.profiler trace of one epoch,
+                                    with or without the session
+      HYDRAGNN_DEVICE_TRACE_EPOCH   the epoch it captures (default 0)
+    """
+    from ..telemetry.session import TelemetryConfig
+    block = (train_cfg or {}).get("Telemetry", {}) or {}
+    out_dir = os.getenv("HYDRAGNN_TELEMETRY_DIR")
+    if out_dir is None:
+        out_dir = block.get("dir")
+    out_dir = (out_dir or "").strip() or None
+    return TelemetryConfig(
+        enabled=env_strict_flag("HYDRAGNN_TELEMETRY",
+                                bool(block.get("enabled", False))),
+        out_dir=out_dir,
+        device_trace=env_strict_flag("HYDRAGNN_DEVICE_TRACE",
+                                     bool(block.get("device_trace",
+                                                    False))),
+        device_trace_epoch=int(env_strict_int(
+            "HYDRAGNN_DEVICE_TRACE_EPOCH",
+            int(block.get("device_trace_epoch", 0) or 0))),
+    )

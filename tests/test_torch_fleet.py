@@ -852,3 +852,76 @@ def test_resolve_fleet_matches_jax(monkeypatch, caplog, block, env):
     warned = {r.name for r in caplog.records}
     assert ("hydragnn_tpu_torch" in warned) == ("hydragnn_tpu" in warned)
     assert isinstance(got, FleetConfig)
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_run_prediction_tags_engines_with_the_state_step(served, monkeypatch,
+                                                         replicas):
+    """C8: run_prediction from a TrainState at step 7 serves as
+    "step_7", as JAX's does: `health()["model_version"]` (per replica in
+    a fleet) and the scrape's `serving_model{version=...}` lines equal
+    JAX's, on one engine and on a fleet of 2; `variables=` keeps "v0"."""
+    import importlib
+    import re
+    from hydragnn_tpu import run_prediction as j_run_prediction
+    from hydragnn_tpu.config import config as jcfg
+    from hydragnn_tpu.models.create import create_model as j_create_model
+    from hydragnn_tpu.serving import engine as jengine
+    from hydragnn_tpu.train.optimizer import select_optimizer as j_select
+    from hydragnn_tpu.train.train_step import TrainState as JState
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    for name in ("HYDRAGNN_SERVE", "HYDRAGNN_FLEET_REPLICAS",
+                 "HYDRAGNN_SERVE_PRECISION"):
+        monkeypatch.delenv(name, raising=False)
+    samples, jsamples, mcfg, variables = served
+    cfg = make_config("GIN")
+    cfg["Serving"] = {"enabled": True, "fleet": {"replicas": replicas}}
+    train_cfg = cfg["NeuralNetwork"]["Training"]
+    seen = {}
+
+    def spy(package, mod, cls_name, prom):
+        cls = getattr(mod, cls_name)
+
+        class Spy(cls):
+            def predict(self, *a, **kw):
+                out = super().predict(*a, **kw)
+                if replicas == 1 or cls_name == "ReplicaRouter":
+                    h = self.health()
+                    versions = ([r["model_version"] for _, r in
+                                 sorted(h["replicas"].items())]
+                                if "replicas" in h
+                                else [h["model_version"]])
+                    lines = sorted(re.findall(r"hydragnn_serving_model\{.*",
+                                              prom(self)))
+                    seen[package] = (versions, lines)
+                return out
+        monkeypatch.setattr(mod, cls_name, Spy)
+
+    rp = importlib.import_module("hydragnn_tpu_torch.run_prediction")
+    spy("port", rp, "InferenceEngine", thttp.engine_prometheus)
+    spy("jax", jengine, "InferenceEngine", jhttp.engine_prometheus)
+    spy("port", tfleet, "ReplicaRouter", thttp.fleet_prometheus)
+    spy("jax", jfleet, "ReplicaRouter", jhttp.fleet_prometheus)
+
+    def split(s):
+        return s[:14], s[14:19], s[19:]
+    model = model_on(mcfg, variables)
+    state = TrainState.create(model, select_optimizer(train_cfg))
+    state.step = 7
+    run_prediction(copy.deepcopy(cfg), datasets=split(samples), state=state,
+                   device="cpu")
+    jdone = jcfg.update_config(copy.deepcopy(cfg), *split(jsamples))
+    jmodel = j_create_model(jcfg.build_model_config(jdone))
+    jvars = jax.tree_util.tree_map(np.asarray, variables)
+    jstate = JState.create({"params": jvars["params"],
+                            "batch_stats": jvars.get("batch_stats", {})},
+                           j_select(train_cfg)).replace(step=7)
+    j_run_prediction(copy.deepcopy(cfg), datasets=split(jsamples),
+                     state=jstate, model=jmodel)
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][0] == ["step_7"] * replicas
+    run_prediction(copy.deepcopy(cfg), datasets=split(samples),
+                   variables=variables, device="cpu")
+    assert seen["port"][0] == ["v0"] * replicas

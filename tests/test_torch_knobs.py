@@ -9,7 +9,11 @@ structure engine and the metrics port starts the /metrics server
 through `run_prediction`; the fault
 plan's resolution (`utils/faults.resolve_fault_plan`: run_training
 refuses a plan, naming A5.6, exactly where JAX's resolution yields one)
-and run_prediction's HYDRAGNN_DUMP_TESTDATA dump."""
+and run_prediction's HYDRAGNN_DUMP_TESTDATA dump; the training
+telemetry knobs (`utils/envflags.resolve_telemetry`: env over the
+Training.Telemetry block, strict) and what run_training does with them:
+`device_trace` alone traces its epoch, HYDRAGNN_TELEMETRY=0 turns a
+block's session off."""
 import copy
 import logging
 
@@ -20,8 +24,12 @@ import torch
 from hydragnn_tpu.serving.config import resolve_fleet as j_resolve_fleet
 from hydragnn_tpu.serving.config import resolve_serving as j_resolve_serving
 from hydragnn_tpu.utils.envflags import resolve_packing as j_resolve_packing
-from hydragnn_tpu_torch.serving.config import resolve_fleet, resolve_serving
-from hydragnn_tpu_torch.utils.envflags import resolve_packing
+from hydragnn_tpu.utils.envflags import \
+    resolve_telemetry as j_resolve_telemetry
+from hydragnn_tpu_torch.serving.config import (check_serving_precision,
+                                               resolve_fleet, resolve_serving)
+from hydragnn_tpu_torch.utils.envflags import (resolve_packing,
+                                               resolve_telemetry)
 
 # see tests/test_torch_train.py: one intra-op thread per test worker
 torch.set_num_threads(1)
@@ -164,7 +172,8 @@ SERVING_CASES = [
     # ported: the fleet and its compile store
     ({"fleet": {"replicas": 2, "compile_store": "/tmp/store"}},
      {"HYDRAGNN_FLEET_COMPILE_STORE": "/env/store"}, True),
-    # refused: the int8 tier, by the block or the env
+    # the int8 tier, by the block or the env: resolved, refused where
+    # an engine is built with it
     ({"precision": "int8"}, {}, False),
     ({}, {"HYDRAGNN_SERVE_PRECISION": "int8"}, False),
 ]
@@ -173,12 +182,13 @@ SERVING_CASES = [
 @pytest.mark.parametrize("block,env,acts", SERVING_CASES)
 def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
                                                 acts):
-    """Precision "int8", by the config block or the env, raises
+    """Every knob resolves to the JAX package's values: the fleet
+    (ported: the router and its store), metrics_port (the /metrics
+    server), structure, max_queue, deadline_ms, breaker_* and the
+    precision. Precision "int8", by the config block or the env, raises
     NotImplementedError naming A8 exactly where the JAX package's
-    resolution turns the int8 tier on; the fleet (ported: the router
-    and its store), metrics_port (the /metrics server), structure,
-    max_queue, deadline_ms and breaker_* resolve to the JAX package's
-    values."""
+    resolution turns the int8 tier on, at the engine
+    (`check_serving_precision`), as JAX acts on it only there."""
     import dataclasses
     for name, value in env.items():
         clean_env.setenv(name, value)
@@ -187,11 +197,12 @@ def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
     assert acts == (j.metrics_port > 0 or j_resolve_fleet(cfg).replicas > 1)
     assert dataclasses.asdict(resolve_fleet(cfg)) == \
         dataclasses.asdict(j_resolve_fleet(cfg))
+    assert resolve_serving(cfg) == _as_port(j)
     if j.precision == "int8":
         with pytest.raises(NotImplementedError, match="A8"):
-            resolve_serving(cfg)
+            check_serving_precision(resolve_serving(cfg).precision)
     else:
-        assert resolve_serving(cfg) == _as_port(j)
+        check_serving_precision(resolve_serving(cfg).precision)
 
 
 def _as_port(j):
@@ -288,10 +299,12 @@ def test_serving_structure_builds_a_structure_engine(clean_env,
 
 def test_run_prediction_refuses_the_metrics_server_before_any_work(
         clean_env):
-    """run_prediction resolves the serving knobs first: the int8 tier,
-    and num_shards > 1, raise before the model, the weights or the data
-    are touched; the metrics server and the fleet are ported, so a
-    metrics port and a replica count resolve (and serve,
+    """run_prediction resolves the serving knobs first: num_shards > 1
+    raises before the model, the weights or the data are touched; the
+    int8 tier resolves (the engine refuses it, the loop computes at the
+    train-side precision, as in the JAX package:
+    tests/test_torch_precision.py); the metrics server and the fleet are
+    ported, so a metrics port and a replica count resolve (and serve,
     tests/test_torch_telemetry.py and tests/test_torch_fleet.py)."""
     from hydragnn_tpu_torch import run_prediction
     from tests.utils import make_config
@@ -299,7 +312,9 @@ def test_run_prediction_refuses_the_metrics_server_before_any_work(
     cfg["Serving"] = {"metrics_port": 9100, "fleet": {"replicas": 2},
                       "precision": "int8"}
     with pytest.raises(NotImplementedError, match="A8"):
-        run_prediction(cfg, datasets=([], [], []), device="cpu")
+        run_prediction(cfg, datasets=([], [], []), device="cpu",
+                       num_shards=2)
+    assert resolve_serving(cfg).precision == "int8"
     cfg["Serving"].pop("precision")
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(cfg, datasets=([], [], []), device="cpu",
@@ -435,3 +450,104 @@ def test_run_prediction_dumps_test_data_as_jax_does(clean_env, tmp_path,
             np.testing.assert_array_equal(got[name]["pred"], preds[0])
             np.testing.assert_allclose(got[name]["pred"], want[name]["pred"],
                                        rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------- training telemetry --
+
+TELEMETRY_ENVS = ("HYDRAGNN_TELEMETRY", "HYDRAGNN_TELEMETRY_DIR",
+                  "HYDRAGNN_DEVICE_TRACE", "HYDRAGNN_DEVICE_TRACE_EPOCH")
+# (Training.Telemetry block, env)
+TELEMETRY_CASES = [
+    (None, {}),
+    ({"enabled": True}, {}),
+    ({"enabled": True, "dir": "tel", "device_trace": True,
+      "device_trace_epoch": 2}, {}),
+    ({"device_trace": True}, {}),
+    # the env wins over the block, both ways
+    ({"enabled": True}, {"HYDRAGNN_TELEMETRY": "0"}),
+    ({"enabled": True}, {"HYDRAGNN_TELEMETRY": "false"}),
+    ({}, {"HYDRAGNN_TELEMETRY": "1", "HYDRAGNN_DEVICE_TRACE": "on"}),
+    ({"device_trace": True}, {"HYDRAGNN_DEVICE_TRACE": "off"}),
+    # set but empty: off, and an empty dir falls back to the block's
+    ({"enabled": True, "dir": "tel"}, {"HYDRAGNN_TELEMETRY": "",
+                                       "HYDRAGNN_TELEMETRY_DIR": ""}),
+    ({"enabled": True, "dir": "tel"}, {"HYDRAGNN_TELEMETRY_DIR": " env "}),
+    ({"device_trace_epoch": 3}, {"HYDRAGNN_DEVICE_TRACE_EPOCH": "1"}),
+    ({"device_trace_epoch": 3}, {"HYDRAGNN_DEVICE_TRACE_EPOCH": ""}),
+    # typos warn and keep the block's value
+    ({"enabled": True}, {"HYDRAGNN_TELEMETRY": "ture"}),
+    ({}, {"HYDRAGNN_TELEMETRY": "yes please",
+          "HYDRAGNN_DEVICE_TRACE": "2"}),
+    ({"device_trace_epoch": 3}, {"HYDRAGNN_DEVICE_TRACE_EPOCH": "one"}),
+]
+
+
+@pytest.mark.parametrize("block,env", TELEMETRY_CASES)
+def test_resolve_telemetry_matches_jax(clean_env, caplog, block, env):
+    """C7: each telemetry knob resolves env over block over off, with
+    JAX's strict parsing (set-but-empty, "0"/"false", typos, the
+    artifact directory and the traced epoch) and the same warnings."""
+    import dataclasses
+    for name in TELEMETRY_ENVS:
+        clean_env.delenv(name, raising=False)
+    for name, value in env.items():
+        clean_env.setenv(name, value)
+    train_cfg = {} if block is None else {"Telemetry": block}
+    with caplog.at_level(logging.WARNING):
+        want = j_resolve_telemetry(train_cfg)
+        got = resolve_telemetry(train_cfg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for run_dir in ("logs/a", "x"):
+        assert got.resolve_out_dir(run_dir) == want.resolve_out_dir(run_dir)
+    warned = {r.name for r in caplog.records}
+    assert ("hydragnn_tpu_torch" in warned) == ("hydragnn_tpu" in warned)
+
+
+def _tiny_run(tmp_path, telemetry, profile=None, num_epoch=2):
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_molecules
+    from tests.utils import make_config
+    cfg = make_config("PNA")
+    cfg["NeuralNetwork"]["Training"].update(num_epoch=num_epoch,
+                                            batch_size=4)
+    cfg["NeuralNetwork"]["Training"]["Telemetry"] = telemetry
+    if profile is not None:
+        cfg["Profile"] = profile
+    s = synthetic_molecules(12, seed=3, min_atoms=3, max_atoms=6,
+                            num_features=1)
+    return run_training(cfg, datasets=(s[:8], s[8:10], s[10:]),
+                        device="cpu")
+
+
+def test_device_trace_alone_traces_the_target_epoch(clean_env, tmp_path):
+    """C7, reproduced at the re-anchor: `device_trace: true` with the
+    session off traces the target epoch (one torch.profiler trace under
+    <telemetry dir>/profile), as JAX's run_training brackets it without
+    a session; no session artifacts are written."""
+    import glob
+    import os
+    for name in TELEMETRY_ENVS:
+        clean_env.delenv(name, raising=False)
+    clean_env.chdir(tmp_path)
+    _tiny_run(tmp_path, {"device_trace": True, "device_trace_epoch": 1,
+                         "dir": "tel"})
+    assert len(glob.glob(os.path.join("tel", "profile", "*.json"))) == 1
+    assert not os.path.exists(os.path.join("tel", "telemetry.jsonl"))
+
+
+def test_telemetry_env_zero_runs_without_a_session(clean_env, tmp_path):
+    """C7, reproduced at the re-anchor: `enabled: true` under
+    HYDRAGNN_TELEMETRY=0 trains with no session (no artifacts, the
+    process registry untouched), as in JAX."""
+    import os
+    from hydragnn_tpu_torch.telemetry import get_registry
+    for name in TELEMETRY_ENVS:
+        clean_env.delenv(name, raising=False)
+    clean_env.setenv("HYDRAGNN_TELEMETRY", "0")
+    clean_env.chdir(tmp_path)
+    reg = get_registry()
+    _, history, _, _ = _tiny_run(tmp_path, {"enabled": True, "dir": "tel"})
+    assert len(history["train_loss"]) == 2
+    assert get_registry() is reg
+    assert not os.path.exists("tel")
+    assert "achieved_flops_per_s" not in history

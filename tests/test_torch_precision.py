@@ -139,18 +139,19 @@ def test_pass_through_dtype_names_raise():
 @pytest.mark.parametrize("block", [None, "bf16", "fp32", "bfloat16"])
 def test_resolve_serving_precision_matches_jax(monkeypatch, env, block):
     """Serving.precision and HYDRAGNN_SERVE_PRECISION (env over config,
-    strict: a typo keeps the config's value); int8 raises naming A8."""
+    strict: a typo keeps the config's value) resolve as in the JAX
+    package, int8 included; an engine built at int8 raises naming A8
+    (the JAX package acts on int8 only in its engine path)."""
     if env is None:
         monkeypatch.delenv("HYDRAGNN_SERVE_PRECISION", raising=False)
     else:
         monkeypatch.setenv("HYDRAGNN_SERVE_PRECISION", env)
     cfg = {"Serving": {"precision": block}}
     want = j_resolve_serving(cfg).precision
+    assert resolve_serving(cfg).precision == want
     if want == "int8":
         with pytest.raises(NotImplementedError, match="A8"):
-            resolve_serving(cfg)
-    else:
-        assert resolve_serving(cfg).precision == want
+            InferenceEngine(None, None, compute_dtype=want, device="cpu")
 
 
 # -------------------------------------------------- float32 accumulation --
@@ -542,3 +543,102 @@ def test_nonfinite_watchdog_counts_a_nan_batch_at_bf16(lattice_pna):
     x[0, 0] = float("nan")
     _, met = step(state, batch.replace(x=x))
     assert float(met["nonfinite_steps"]) == 1.0
+
+
+# ---------------------------------- run_prediction's loop precision (C6) --
+
+@pytest.fixture(scope="module", params=["PNA", "DimeNet"])
+def loop_case(request):
+    """Lattice data, a tests/utils.make_config model and seeded Flax
+    variables, with JAX's model and TrainState on the same weights."""
+    from hydragnn_tpu.train.optimizer import select_optimizer as j_select
+    from hydragnn_tpu.train.train_step import TrainState as JState
+    from hydragnn_tpu_torch.utils.weights import random_flax_variables
+    model_type = request.param
+    jsamples = deterministic_graph_dataset(num_configs=16)
+    samples = [tbatch.GraphSample(x=s.x, pos=s.pos, senders=s.senders,
+                                  receivers=s.receivers, y_graph=s.y_graph)
+               for s in jsamples]
+    cfg = make_config(model_type, hidden_dim=8, num_conv_layers=2)
+    cfg["NeuralNetwork"]["Training"]["batch_size"] = 4
+
+    def split(s):
+        return s[:10], s[10:13], s[13:]
+    tc = tcfg.update_config(copy.deepcopy(cfg), *split(samples))
+    variables = random_flax_variables(
+        create_model(tcfg.build_model_config(tc), device="cpu"), 3)
+    jc = jcfg.update_config(copy.deepcopy(cfg), *split(jsamples))
+    jmodel = j_create_model(jcfg.build_model_config(jc))
+    jstate = JState.create(
+        jax.tree_util.tree_map(jnp.asarray, {
+            "params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {})}),
+        j_select(cfg["NeuralNetwork"]["Training"]))
+    return (cfg, split(samples), split(jsamples), variables, jmodel,
+            jstate)
+
+
+def _loop_predictions(case, serving, env, monkeypatch):
+    from hydragnn_tpu import run_prediction as j_run_prediction
+    from hydragnn_tpu_torch import run_prediction
+    cfg, splits, jsplits, variables, jmodel, jstate = case
+    for name in ("HYDRAGNN_PRECISION", "HYDRAGNN_SERVE_PRECISION",
+                 "HYDRAGNN_SERVE"):
+        monkeypatch.delenv(name, raising=False)
+    if env is not None:
+        monkeypatch.setenv("HYDRAGNN_PRECISION", env)
+    cfg = copy.deepcopy(cfg)
+    if serving is not None:
+        cfg["Serving"] = {"precision": serving}
+    port = run_prediction(copy.deepcopy(cfg), datasets=splits,
+                          variables=variables, serve=False, device="cpu")
+    want = j_run_prediction(copy.deepcopy(cfg), datasets=jsplits,
+                            state=jstate, model=jmodel, serve=False)
+    return port, want
+
+
+@pytest.mark.parametrize("env", [None, "float32", "bfloat16"])
+@pytest.mark.parametrize("serving", [None, "float32", "bfloat16"])
+def test_run_prediction_loop_computes_at_the_train_side_precision(
+        loop_case, monkeypatch, serving, env):
+    """C6: run_prediction's loop (serve=False; DimeNet's only route)
+    ignores Serving.precision and computes at HYDRAGNN_PRECISION, else
+    Architecture.dtype, else float32, as the JAX package's eval-step loop
+    does: bitwise the port's own loop with no Serving block, and within
+    rtol 1e-4 / atol 1e-5 of JAX's at float32, within 2^-5 at bf16."""
+    (trues, preds), (jtrues, jpreds) = _loop_predictions(
+        loop_case, serving, env, monkeypatch)
+    _, base = _loop_predictions(loop_case, None, env, monkeypatch)[0]
+    for p, b in zip(preds, base):
+        np.testing.assert_array_equal(p, b)
+    for t, jt in zip(trues, jtrues):
+        np.testing.assert_array_equal(t, np.asarray(jt))
+    for p, jp in zip(preds, jpreds):
+        if env == "bfloat16":
+            assert within_bound(p, jp) <= 0.0
+        else:
+            np.testing.assert_allclose(p, np.asarray(jp), rtol=1e-4,
+                                       atol=1e-5)
+
+
+def test_int8_without_the_engine_completes_at_the_train_side_precision(
+        loop_case, monkeypatch):
+    """Serving.precision "int8" with the engine off completes at the
+    train-side precision, as in the JAX package (which acts on int8 only
+    in its engine path); with the engine on the port refuses it naming
+    A8 (the int8 tier is not ported)."""
+    from hydragnn_tpu_torch import run_prediction
+    (trues, preds), (_, jpreds) = _loop_predictions(loop_case, "int8", None,
+                                                    monkeypatch)
+    _, base = _loop_predictions(loop_case, None, None, monkeypatch)[0]
+    for p, b, jp in zip(preds, base, jpreds):
+        np.testing.assert_array_equal(p, b)
+        np.testing.assert_allclose(p, np.asarray(jp), rtol=1e-4, atol=1e-5)
+    cfg, splits, _, variables, _, _ = loop_case
+    if cfg["NeuralNetwork"]["Architecture"]["model_type"] == "DimeNet":
+        return      # DimeNet always takes the loop
+    cfg = copy.deepcopy(cfg)
+    cfg["Serving"] = {"precision": "int8"}
+    with pytest.raises(NotImplementedError, match="A8"):
+        run_prediction(cfg, datasets=splits, variables=variables,
+                       serve=True, device="cpu")

@@ -270,7 +270,9 @@ def test_run_training_from_files_matches_jax(tmp_path, monkeypatch, which):
 # (config change, env) -> what run_training(datasets=None) raises; each
 # raises before any file is read (the Dataset.path does not exist)
 REFUSALS = [
-    ({"format": "XYZ"}, {}, NotImplementedError, "A2"),
+    # XYZ reads now (tests/test_torch_xyz.py): the run reaches the
+    # (missing) files
+    ({"format": "XYZ"}, {}, FileNotFoundError, "no .xyz files"),
     ({"format": "pickle"}, {}, NotImplementedError, "A10"),
     ({"format": "adios"}, {}, NotImplementedError, "A10"),
     ({"format": "nope"}, {}, ValueError, "unsupported"),

@@ -169,15 +169,16 @@ def test_resolve_serving_defaults_env_and_precision(monkeypatch):
     monkeypatch.setenv("HYDRAGNN_SERVE", "ture")   # typo: warns, stays off
     cfg = resolve_serving({"Serving": {"precision": "float32"}})
     assert cfg.max_batch_size == 12 and cfg.enabled is False
-    # the float32 and bf16 spellings resolve as in the JAX package; int8
-    # (the serving tier of ROADMAP A8) raises
-    for precision in ("bf16", "bfloat16", "fp32", None):
+    # every spelling resolves as in the JAX package; int8 (the serving
+    # tier of ROADMAP A8) is refused where an engine is built with it
+    from hydragnn_tpu_torch.serving.config import check_serving_precision
+    for precision in ("bf16", "bfloat16", "fp32", None, "int8", "i8"):
         block = {"Serving": {"precision": precision}}
         assert resolve_serving(block).precision == \
             j_resolve(block).precision
-    for precision in ("int8", "i8"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            resolve_serving({"Serving": {"precision": precision}})
+    with pytest.raises(NotImplementedError, match="A8"):
+        check_serving_precision(resolve_serving(
+            {"Serving": {"precision": "i8"}}).precision)
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -200,10 +201,20 @@ def test_port_and_chip_smoke_import_no_jax():
             "hydragnn_tpu_torch.telemetry.spans, "
             "hydragnn_tpu_torch.telemetry.http, "
             "hydragnn_tpu_torch.utils.faults, "
-            "hydragnn_tpu_torch.serving.config; "
+            "hydragnn_tpu_torch.serving.config, "
+            "hydragnn_tpu_torch.run_training, "
+            "hydragnn_tpu_torch.datasets.extxyz, "
+            "hydragnn_tpu_torch.datasets.atomistic, "
+            "hydragnn_tpu_torch.datasets.smiles, "
+            "hydragnn_tpu_torch.datasets.xyzdataset, "
+            "hydragnn_tpu_torch.utils.smiles_utils, "
+            "hydragnn_tpu_torch.graphs.synthetic, "
+            "hydragnn_tpu_torch.telemetry.session, "
+            "hydragnn_tpu_torch.telemetry.mfu; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
-            "or m == 'hydragnn_tpu' or m.startswith('hydragnn_tpu.')]; "
+            "or m == 'hydragnn_tpu' or m.startswith('hydragnn_tpu.') "
+            "or m == 'examples' or m.startswith('examples.')]; "
             "print(bad)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -724,8 +724,9 @@ def test_run_training_refuses_knobs_off_its_path():
         with pytest.raises(NotImplementedError, match=item):
             run_training(cfg, datasets=(samples[:8], samples[8:10],
                                         samples[10:]), device="cpu")
-    for extra in ({"Profile": {"enable": 1}},
-                  {"Visualization": {"create_plots": True}}):
+    # the Profile section traces an epoch now
+    # (tests/test_torch_telemetry_session.py)
+    for extra in ({"Visualization": {"create_plots": True}},):
         with pytest.raises(NotImplementedError):
             run_training({**copy.deepcopy(base), **extra},
                          datasets=(samples[:8], samples[8:10], samples[10:]),
