@@ -320,9 +320,49 @@ Phases:
    the FLOP probe (`step_cost_flops`) equal on the kernel route and the
    plain route, and equal to the session's; the last epoch's achieved
    FLOP/s within 10 % of the probe's FLOPs over a CUDA-event-timed
-   captured step; and the session's cost, host ms a captured step with
+   captured step, fed the loader's host batch as run_training feeds it
+   (its copy to the card is in the trainer's step time too); and the
+   session's cost, host ms a captured step with
    and without it. B1, B2 and B3 launched on these paths ((b) is phase
    11's data).
+17. The int8 serving tier, remat and the training fault sites
+   (`quant_phase`, quant/, serving/engine.py at compute_dtype "int8",
+   models/base.py remat, the fault sites), run after phase 15 on phase
+   3's csce PNA engine configuration (hidden 200, 6 layers, edge list,
+   max_batch_size 128) with phase 3's weights and requests, each number
+   beside the card's name and power limit. (a) Calibration on the card
+   on 32 test samples (seconds; two passes bitwise; a merge of 4 shards
+   bitwise one pass; scales card vs CPU); an int8 and a float32 engine
+   over phase 3's burst: the int8 breadcrumbs, the largest gap over the
+   2^-3 bound against the float32 engine (printed, with the CPU's on
+   the same scales: the reference's own int8 tier misses it on these
+   molecules, ROADMAP C) and held within it on the test molecules
+   without an isolated atom (an int8 engine calibrated on them), card
+   int8 vs CPU int8 within 1e-3 max abs, and the eager int8 forward of
+   one batch too (the x_q elements that differ printed), `int8_dense` on
+   identical inputs (x_q, w_q, s_w, the int32 accumulator) bitwise card
+   vs CPU, batched = single, the bucket graph = its eager forward, a
+   `swap_variables` equal to a fresh int8 engine on the new weights with
+   no recapture; 20 bursts of each engine in turn (requests/s, p50, p99)
+   and one post_nn product's device ms, int8 (quantize and dequantize
+   included) beside the float32 matmul. B2 and B3 launched. (b) A
+   ReplicaRouter of one int8 and one float32 replica under
+   TierPolicy(priority_min=1, quota=0.25), half the burst at priority
+   1: dispatch shares (float32 within its quota), downgrades; each
+   future's tier, replica and bound agree; the int8 replica killed, the
+   test split falls back to float32 with 0 futures lost. (c)
+   `distill_heads` (8 steps at lr 3e-4, 32 molecules without an
+   isolated atom) twice bitwise, with an update kept (best step > 0,
+   the head MSE lower); the same on the first 32 test molecules
+   printed.
+   (d) The dense csce training step with Training.conv_checkpointing:
+   loss and every gradient bitwise the step without it, captured =
+   eager (`graph_parity`), each captured step's kernel nodes = its
+   launches (the recompute's included), peak allocated MiB and captured
+   step ms beside the step without remat. (e) run_training for 3
+   epochs with Checkpoint, killed by a forward-step plan in epoch 1 and
+   resumed with `continue: 1`: the trajectory bitwise the uninterrupted
+   run's.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -331,7 +371,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `smiles: {...}` (phase 16), an
+name and power limit, and before it a `quant: {...}` (phase 17), a
+`smiles: {...}` (phase 16), an
 `a7: {...}` (phase 15), a
 `fleet: {...}` (phase 14), a
 `farm: {...}` (phase 13), a
@@ -370,6 +411,7 @@ CSCE_GROUP = 2                 # steps per call timed beside S = 1 (csce)
 LJ_GROUP = 4                   # and LJ EF
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8
 CSCE_CONFIG = "examples/csce/csce_gap.json"
 BF16_BOUND = 2.0 ** -5         # bf16 vs a reference: atol + rtol |ref|
 BF16_BURSTS = 40               # timed bf16 engine bursts
@@ -385,6 +427,14 @@ LJ_FLOOR_ORDERS = 8            # edge orders sampled for the CPU's floor
 LJ_SGD_STEPS = 12              # LJ SGD steps compared card vs cpu
 LJ_SGD_HELD = 3                # of which the first held at bf16
 PROFILE_ATTEMPTS = 3           # profiles of one call until one holds all
+# Throwaway kernels launched at the start of every profile, before the
+# work it measures. On one H100 (torch 2.11) the profiler loses the first
+# device events of each window, more the longer the process has run:
+# about one kernel every 14 s of its age (`chip_profile_probe.py`), so
+# ~80 near the end of this script. The primer takes that loss instead of
+# the measured work, and its own rows are left out of every profile.
+PROFILE_PRIMER = 256
+PRIMER_KEY = r"neg_kernel_cuda.*\bshort\b"   # int16 neg: used nowhere else
 
 
 def fail(msg: str) -> None:
@@ -488,13 +538,11 @@ def kernel_ms(torch, graph, names):
     three replays of a graph of GRAPH_CALLS calls; "not measured" for a
     name the profile holds no device row of."""
     import re
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def replays():
         for _ in range(3):
             graph.replay()
-        torch.cuda.synchronize()
-    _, _, rows = profile_rows(torch, prof)
+    _, _, rows = profile_rows(torch, device_profile(torch, replays))
     out = {}
     for name in names:
         pat = re.compile(r"\b" + name + r"<")
@@ -892,8 +940,6 @@ def schnet_phase(torch, device, card):
     """Phase 4: LJ SchNet energies and forces through the EF engine.
     Returns (filter_scatter record, segment_sum shapes, launches of the
     main-path burst, the LJ context phase 7 serves again)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from hydragnn_tpu_torch import kernels as tk
     from hydragnn_tpu_torch.config import config as tcfg
     from hydragnn_tpu_torch.graphs.batch import collate
@@ -1024,10 +1070,8 @@ def schnet_phase(torch, device, card):
 
     fwd = cuda_ms(torch, lambda: energy_forces_from_node_head(
         model, edge_batch), reps=10)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        energy_forces_from_node_head(model, edge_batch)
-        torch.cuda.synchronize()
+    prof = device_profile(
+        torch, lambda: energy_forces_from_node_head(model, edge_batch))
     dev_ms, n_launch, rows = profile_rows(torch, prof)
     argsorts = sum(ev.count for ev in prof.key_averages()
                    if ev.key == "aten::argsort")
@@ -1050,8 +1094,6 @@ def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
     """Where a batch's time goes: host collation, one forward on the card
     per layout (CUDA events), and the profiler's device time by kernel for
     one edge-list forward."""
-    from torch.profiler import ProfilerActivity, profile
-
     from hydragnn_tpu_torch.graphs.batch import collate
     t0 = time.perf_counter()
     reps = 5
@@ -1063,10 +1105,7 @@ def breakdown(torch, model, first, top, dense_batch, edge_batch, card):
     with torch.inference_mode():
         fwd_edge = cuda_ms(torch, lambda: model(edge_batch), reps=10)
         fwd_dense = cuda_ms(torch, lambda: model(dense_batch), reps=10)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model(edge_batch)
-            torch.cuda.synchronize()
+        prof = device_profile(torch, lambda: model(edge_batch))
     print(f"breakdown ({card}): collate+copy of {len(first)} requests "
           f"{host_ms:.2f} ms (host); forward edge-list N={edge_batch.num_nodes} "
           f"{fwd_edge:.3f} ms, dense N={dense_batch.num_nodes} "
@@ -1145,16 +1184,44 @@ def engine_graphs(torch, engine, requests, label):
     return rec
 
 
+def device_profile(torch, call):
+    """torch.profiler over call() and a synchronize, with PROFILE_PRIMER
+    throwaway kernels launched and synchronized before it inside the
+    window (see PROFILE_PRIMER); the primer's rows are left out by
+    profile_rows. The profile's `primer_seen` is how many of them it
+    holds: 0 means the loss may have reached call()'s own events."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    primer = torch.zeros(1, dtype=torch.int16, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PRIMER):
+            torch.neg(primer)
+        torch.cuda.synchronize()
+        call()
+        torch.cuda.synchronize()
+    pat = re.compile(PRIMER_KEY)
+    prof.primer_seen = sum(ev.count for ev in prof.key_averages()
+                           if ev.device_type == torch.autograd.DeviceType.CUDA
+                           and pat.search(ev.key))
+    return prof
+
+
 def profile_rows(torch, prof):
     """(device ms, kernel launches, rows) of a profiler run: the device
-    events (kernels, copies, sets) and their time. The operator events
-    that launched them carry the same device time as their own and are
-    left out, or every kernel would count twice."""
+    events (kernels, copies, sets) and their time, the primer's left
+    out. The operator events that launched them carry the same device
+    time as their own and are left out, or every kernel would count
+    twice."""
+    import re
+    pat = re.compile(PRIMER_KEY)
     rows = []
     for ev in prof.key_averages():
         dev_t = getattr(ev, "self_device_time_total",
                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (dev_t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA
+                and not pat.search(ev.key)):
             rows.append((dev_t, ev.key, ev.count))
     return (sum(r[0] for r in rows) / 1e3, sum(r[2] for r in rows), rows)
 
@@ -1770,35 +1837,35 @@ def profiled_call(torch, call, label, hold=True):
     """(device ms, device events, rows, the port's kernels in the
     profile) of one call(), profiled; fails unless the profile holds as
     many launches of each hand-written kernel as the launch counters
-    counted (a replayed graph adds its captured launches). hold=False
-    reports a difference (under "differs") instead: in a long process
-    the profiler has been seen to drop some of a graph replay's ctypes
-    kernels (measured on one H100), so a graph is held by its own nodes instead
-    (`check_graph_kernels`). It has dropped one of an eager call's too
-    (on one H100): with hold, a profile that misses a launch is taken
-    again, up to PROFILE_ATTEMPTS times, and only one that holds every
-    launch is used."""
-    from torch.profiler import ProfilerActivity, profile
-
+    counted (a replayed graph adds its captured launches). The port's
+    kernels carry "primer_lost", how many of the profile's primer
+    kernels it lost (`device_profile`). hold=False reports a difference
+    (under "differs") instead, and a graph is held by its own nodes
+    (`check_graph_kernels`). With hold, a profile that misses a launch,
+    or holds none of its primer, is taken again, up to PROFILE_ATTEMPTS
+    times, and only one that holds every launch is used: now and then
+    a profile on one H100 loses most or all of its device events."""
     from hydragnn_tpu_torch import kernels as tk
     for attempt in range(PROFILE_ATTEMPTS):
         before = tk.launch_counts()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
+        prof = device_profile(torch, call)
         dev_ms, launches, rows = profile_rows(torch, prof)
         port = check_profiled_kernels(rows, before, tk.launch_counts(),
                                       label, hold=False)
-        if not hold or "differs" not in port:
+        port["primer_lost"] = PROFILE_PRIMER - prof.primer_seen
+        if not hold or ("differs" not in port and prof.primer_seen):
             return dev_ms, launches, rows, port
         named = {key[:100]: count for _, key, count in rows
-                 if any(n.split("/")[0] in key for n in port["differs"])}
+                 if any(n.split("/")[0] in key
+                        for n in port.get("differs", ()))}
         print(f"{label}: profile {attempt + 1} dropped launches "
-              f"{port['differs']} (profile vs counters; the profile's rows "
-              f"of those kernels {named}); profiling again", flush=True)
+              f"{port.get('differs', {})} (profile vs counters; the "
+              f"profile's rows of those kernels {named}) and "
+              f"{port['primer_lost']} of its {PROFILE_PRIMER} primer "
+              "kernels; profiling again", flush=True)
     fail(f"{label}: {PROFILE_ATTEMPTS} profiles each missed launches the "
-         f"counters counted: {port['differs']}")
+         f"counters counted or every primer kernel: "
+         f"{port.get('differs', {})}, primer lost {port['primer_lost']}")
 
 
 def bf16_cast_cost(torch, model, batch):
@@ -4272,8 +4339,6 @@ def farm_run(torch, engine, systems, T, steps, k, label, card):
     ms and the host's ms a dispatch (status read and swaps), a profiled
     replay's device ms a step, the idle share (1 - replays / wall), the
     memory peak, the graph's kernel nodes and the run's launches."""
-    from torch.profiler import ProfilerActivity, profile
-
     from hydragnn_tpu_torch import kernels as tk
     pos = np.stack([s[0] for s in systems[:T]])
     vel = np.stack([s[2] for s in systems[:T]])
@@ -4296,11 +4361,8 @@ def farm_run(torch, engine, systems, T, steps, k, label, card):
             fail(f"farm {label}: its graph holds no {key} node: {nodes}")
     # one profiled replay: the run is over, every trajectory is inactive
     # and the replay does a dispatch's work without changing the state
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        cap.graph.replay()
-        torch.cuda.synchronize()
-    dev_ms, events, _ = profile_rows(torch, prof)
+    dev_ms, events, _ = profile_rows(
+        torch, device_profile(torch, cap.graph.replay))
     n = res["atoms"]
     disp = res["dispatches"]
     rec = dict(
@@ -5920,7 +5982,8 @@ def smiles_phase(torch, device, card, counted, radius):
         model, st, step, loader, _, _ = train_parts(torch, base_cfg, splits,
                                                     device)
         loader.set_epoch(0)
-        batch = next(iter(loader)).to(device)
+        host_batch = next(iter(loader))
+        batch = host_batch.to(device)
         flops = step_cost_flops(step, batch)
         with plain_versions():
             flops_plain = step_cost_flops(step, batch)
@@ -5933,8 +5996,11 @@ def smiles_phase(torch, device, card, counted, radius):
         if not np.isclose(run_flops, flops, rtol=1e-6):
             fail(f"FLOP probe: the session's {run_flops} vs {flops}")
         step(st, batch)             # capture
+        # timed as the trainer's step timer times a step: the loader's
+        # host batch placed on the card (run_training's place_fn), the
+        # replay, then the card's end
         event_ms = float(np.median(step_events_ms(
-            torch, lambda: step(st, batch))))
+            torch, lambda: step(st, host_batch.to(device)))))
         expected = flops / (event_ms * 1e-3)
         gap = achieved[-1] / expected - 1.0
         cost = session_cost(torch, step, st, batch)
@@ -6007,6 +6073,502 @@ def smiles_phase(torch, device, card, counted, radius):
     return rec
 
 
+QUANT_CALIB = 32               # phase 17: calibration samples
+QUANT_SHARDS = 4               # and the shards merged to one pass
+QUANT_BURSTS = 20              # timed bursts, int8 and float32 in turn
+QUANT_DISTILL_STEPS = 8
+QUANT_DISTILL_LR = 3e-4
+# int8 card vs CPU int8 on the same scales (max abs, on real rows): float32
+# rounding before the quantizer alone, which moves an x_q by one level at
+# most; an H100 80GB HBM3 at 700 W reads 1.6e-5 (phase 17a)
+INT8_CARD_CPU_ATOL = 1e-3
+
+
+def quant_phase(torch, device, card, counted, csce):
+    """Phase 17: the int8 serving tier (quant/, the engine's
+    compute_dtype "int8") on phase 3's csce PNA configuration at
+    csce_gap.json's published width, with phase 3's weights and requests;
+    remat (Training.conv_checkpointing) and the training fault sites on
+    phase 5's csce training. Every number beside the card's name and
+    power limit. Returns (record, launches of the int8 engine's main
+    path)."""
+    import gc
+    import os
+    import shutil
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import get_log_name_config
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.quant import (calibrate, distill_heads,
+                                          make_quantized_forward,
+                                          merge_calibrations)
+    from hydragnn_tpu_torch.quant.calibrate import calibrated_layers
+    from hydragnn_tpu_torch.quant.ptq import (Int8Dense, int8_dense, int_mm,
+                                              quantize_input,
+                                              quantize_weight)
+    from hydragnn_tpu_torch.serving.engine import (SERVE_INT8_ATOL,
+                                                   SERVE_INT8_RTOL,
+                                                   InferenceEngine)
+    from hydragnn_tpu_torch.serving.fleet import ReplicaRouter, TierPolicy
+    from hydragnn_tpu_torch.train import train_step as tstep
+    from hydragnn_tpu_torch.utils.faults import InjectedFault
+    from hydragnn_tpu_torch.utils.weights import (load_jax_variables,
+                                                  random_flax_variables)
+    mcfg, test, requests = csce["mcfg"], csce["test"], csce["requests"]
+    variables = csce["variables"]
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    print(f"phase 17: the int8 serving tier, csce PNA hidden "
+          f"{mcfg.hidden_dim}, {mcfg.num_conv_layers} layers (card: {card})",
+          flush=True)
+
+    def model_on(dev, v=variables):
+        m = create_model(mcfg, device=dev)
+        m.load_state_dict(load_jax_variables(v))
+        return m
+
+    def engine(dev, dtype, calib, v=variables, tier=None):
+        return InferenceEngine(model_on(dev, v), mcfg, reference_samples=test,
+                               max_batch_size=SERVE_MAX_BATCH,
+                               neighbor_format=False, compute_dtype=dtype,
+                               quant_calibration=calib, tier=tier,
+                               device=dev)
+
+    def same_scales(a, b):
+        return (sorted(a.scales) == sorted(b.scales) and a.digest == b.digest
+                and all(np.array_equal(a.amax[k], b.amax[k]) for k in a.amax))
+
+    def ratio(got, want):
+        """largest |got - want| / (atol + rtol |want|) of the 2^-3 bound"""
+        return float(np.max(np.abs(got - want)
+                            / (SERVE_INT8_ATOL + SERVE_INT8_RTOL
+                               * np.abs(want))))
+
+    # ------------------------------------------------ (a) calibration
+    model = model_on(device)
+    t0 = time.perf_counter()
+    calib = calibrate(model, None, mcfg, test, num_samples=QUANT_CALIB)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    again = calibrate(model, None, mcfg, test, num_samples=QUANT_CALIB)
+    step = QUANT_CALIB // QUANT_SHARDS
+    merged = merge_calibrations([
+        calibrate(model, None, mcfg, test[i:i + step])
+        for i in range(0, QUANT_CALIB, step)])
+    if not same_scales(calib, again):
+        fail("phase 17: two calibrations on the card differ")
+    if not same_scales(calib, merged):
+        fail(f"phase 17: a merge of {QUANT_SHARDS} shards differs from one "
+             "pass")
+    calib_cpu = calibrate(model_on("cpu"), None, mcfg, test,
+                          num_samples=QUANT_CALIB)
+    # the molecules without an isolated atom, where the 2^-3 contract
+    # holds (an isolated atom's PNA attenuation sets the scales in both
+    # packages, ROADMAP C), calibrated on themselves
+    iso = [s for s in test
+           if (np.bincount(s.receivers, minlength=s.num_nodes) > 0).all()]
+    calib_iso = calibrate(model, None, mcfg, iso, num_samples=QUANT_CALIB)
+    scale_gap = max(float(np.max(np.abs(calib.scales[k] - calib_cpu.scales[k])
+                                 / calib_cpu.scales[k]))
+                    for k in calib.scales)
+    out["calibration"] = dict(
+        samples=QUANT_CALIB, layers=len(calib.scales), seconds=calib_s,
+        digest=calib.digest[:12], repeat_bitwise=True,
+        merge_of_shards_bitwise=QUANT_SHARDS,
+        scales_rel_gap_card_cpu=scale_gap,
+        digest_equal_card_cpu=calib.digest == calib_cpu.digest)
+    print(f"phase 17a: calibration of {len(calib.scales)} layers on "
+          f"{QUANT_CALIB} samples in {calib_s:.3f} s; repeat and a merge of "
+          f"{QUANT_SHARDS} shards bitwise; scales card vs cpu: largest "
+          f"relative gap {scale_gap:.3e} (card: {card})", flush=True)
+
+    # --------------------------------- (a) int8 vs float32, the main path
+    e8 = engine(device, "int8", calib)
+    e32 = engine(device, "float32", None)
+    launches = {}
+    try:
+        e8.warmup()
+        e32.warmup()
+        captures = e8.stats()["captures"]
+        tk.reset_launch_counts()
+        futs8 = [e8.submit(s) for s in requests]
+        res8 = [f.result(timeout=600) for f in futs8]
+        torch.cuda.synchronize()
+        launches = tk.launch_counts()
+        counted(launches)
+        for name in ("pna_edge_aggregate", "segment_sum"):
+            if launches[name] == 0:
+                fail(f"phase 17: {name} never launched on the int8 engine "
+                     "path")
+        res32 = e32.predict(requests, timeout=600)
+        for f in futs8:
+            if (f.parity, f.parity_rtol, f.parity_atol, f.tier) != (
+                    "tolerance", SERVE_INT8_RTOL, SERVE_INT8_ATOL, "int8"):
+                fail("phase 17: an int8 future's breadcrumbs are wrong")
+        got8 = np.concatenate([r[0] for r in res8])
+        got32 = np.concatenate([r[0] for r in res32])
+        if not np.isfinite(got8).all() or got8.shape != got32.shape:
+            fail("phase 17: int8 engine results not finite or misshapen")
+        contract_card = ratio(got8, got32)
+        for s, f, r in list(zip(requests, futs8, res8))[:8]:
+            single = e8.forward_single(s, bucket=f.bucket)
+            if not np.array_equal(single[0], r[0]):
+                fail("phase 17: int8 batched != single on the same bucket")
+        s0, b0 = requests[0], futs8[0].bucket
+        eager = e8._run(e8._collate_bucket([s0], b0).to(device))[0]
+        if not np.array_equal(e8.forward_single(s0, bucket=b0)[0],
+                              eager.cpu().numpy()[0]):
+            fail("phase 17: the int8 bucket graph != its eager forward")
+        # card against the CPU, same scales
+        e8_cpu = engine("cpu", "int8", calib)
+        e32_cpu = engine("cpu", "float32", None)
+        try:
+            cpu8 = np.concatenate([r[0] for r in e8_cpu.predict(test)])
+            cpu32 = np.concatenate([r[0] for r in e32_cpu.predict(test)])
+        finally:
+            e8_cpu.shutdown()
+            e32_cpu.shutdown()
+        card8 = got8[:len(test)]
+        gap_card_cpu = float(np.abs(card8 - cpu8).max())
+        if not gap_card_cpu <= INT8_CARD_CPU_ATOL:
+            fail(f"phase 17: int8 card vs cpu max abs {gap_card_cpu} over "
+                 f"{INT8_CARD_CPU_ATOL}")
+        contract_cpu = ratio(cpu8, cpu32)
+        # x_q card vs cpu over every calibrated layer of one batch
+        batch = e8._collate_bucket(test[:16], b0)
+        seen = {}
+        outs = {}
+        for tag, m, dev in (("card", e8.model, device),
+                            ("cpu", model_on("cpu"), torch.device("cpu"))):
+            qmodel = make_quantized_forward(m, mcfg, calib)
+            hooks = [mod.register_forward_pre_hook(
+                lambda mod, args, tag=tag, name=name: seen.setdefault(
+                    tag, []).append((name, args[0].detach(), quantize_input(
+                        args[0], mod.s_x).cpu())))
+                for name, mod in qmodel.named_modules()
+                if isinstance(mod, Int8Dense)]
+            try:
+                with torch.no_grad():
+                    outs[tag] = qmodel(batch.to(dev))[0][0].cpu()
+            finally:
+                for h in hooks:
+                    h.remove()
+        xq_diff = sum(int((a[2] != b[2]).sum())
+                      for a, b in zip(seen["card"], seen["cpu"]))
+        xq_total = sum(a[2].numel() for a in seen["card"])
+        out_gap = float((outs["card"] - outs["cpu"]).abs()[
+            batch.graph_mask].max())
+        if not out_gap <= INT8_CARD_CPU_ATOL:
+            fail(f"phase 17: int8 eager forward card vs cpu max abs "
+                 f"{out_gap} over {INT8_CARD_CPU_ATOL}")
+        # int8_dense on identical inputs: a hidden layer's post_nn product
+        key = "conv_1/post_nn"
+        mod = calibrated_layers(e8.model, mcfg.num_conv_layers)[key]
+        idx = [n for n, _, _ in seen["card"]].index(key.replace("/", "."))
+        x = seen["card"][idx][1]
+        parts = {}
+        for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            xs, ws = x.to(dev), mod.weight.detach().to(dev)
+            sx = torch.as_tensor(calib.scales[key], device=dev)
+            xq = quantize_input(xs, sx)
+            wq, sw = quantize_weight(ws, sx)
+            parts[tag] = [t.cpu() for t in (xq, wq, sw, int_mm(xq, wq.t()))]
+        for name, a, b in zip(("x_q", "w_q", "s_w", "acc"), parts["card"],
+                              parts["cpu"]):
+            if not torch.equal(a, b):
+                fail(f"phase 17: int8_dense {name} differs card vs cpu on "
+                     "identical inputs")
+        # hot swap: re-quantized at the next replay, nothing recaptured
+        other = random_flax_variables(model_on("cpu"), SEED + 17)
+        e8.swap_variables(other, "v1")
+        futs = [e8.submit(s) for s in test]
+        swapped = [f.result(timeout=600) for f in futs]
+        fresh = engine(device, "int8", calib, v=other)
+        try:
+            for s, f, r in zip(test, futs, swapped):
+                want = fresh.forward_single(s, bucket=f.bucket)
+                if f.model_version != "v1" or not np.array_equal(r[0],
+                                                                 want[0]):
+                    fail("phase 17: after swap_variables the int8 engine "
+                         "differs from a fresh one on the new weights")
+        finally:
+            fresh.shutdown()
+        if e8.stats()["captures"] != captures:
+            fail("phase 17: swap_variables recaptured a bucket")
+        e8.swap_variables(variables, "v0")
+        # the 2^-3 contract held where it applies: the test molecules
+        # whose every atom has a neighbour, calibrated on themselves
+        e8_iso = engine(device, "int8", calib_iso)
+        try:
+            iso8 = np.concatenate([r[0] for r in e8_iso.predict(
+                iso, timeout=600)])
+        finally:
+            e8_iso.shutdown()
+        iso32 = np.concatenate([r[0] for r in e32.predict(iso,
+                                                          timeout=600)])
+        contract_iso = ratio(iso8, iso32)
+        if not np.isfinite(iso8).all() or not contract_iso <= 1.0:
+            fail(f"phase 17: int8 engine vs float32 engine on the "
+                 f"{len(iso)} molecules without isolated atoms: gap / 2^-3 "
+                 f"bound {contract_iso}")
+        # speed: bursts in turn
+        for e in (e8, e32):
+            e.reset_stats()
+        walls = {"int8": 0.0, "float32": 0.0}
+        for _ in range(QUANT_BURSTS):
+            for tag, e in (("int8", e8), ("float32", e32)):
+                t0 = time.perf_counter()
+                for f in [e.submit(s) for s in requests]:
+                    f.result(timeout=600)
+                walls[tag] += time.perf_counter() - t0
+        speed = {}
+        for tag, e in (("int8", e8), ("float32", e32)):
+            st = e.stats()
+            speed[tag] = dict(
+                requests_per_s=len(requests) * QUANT_BURSTS / walls[tag],
+                p50_ms=st["p50_ms"], p99_ms=st["p99_ms"])
+        # one post_nn product at the largest bucket's rows: device time
+        # of GRAPH_CALLS calls in one graph, int8 (its quantize and
+        # dequantize included) beside the float32 matmul; the int8
+        # function's bound is its bytes (x, w, b, y in float32) or its
+        # int8 operations at the data sheet's 1,979 TOP/s
+        top = e8.buckets[-1]
+        rng = np.random.default_rng(SEED)
+        xin = torch.as_tensor(rng.random((top.n_node, mod.in_features))
+                              .astype(np.float32), device=device)
+        w = mod.weight.detach()
+        bias = mod.bias.detach()
+        sx = torch.as_tensor(calib.scales[key], device=device)
+        m_, k_, n_ = top.n_node, mod.in_features, mod.out_features
+        nbytes = 4 * (m_ * k_ + k_ * n_ + n_ + k_ + m_ * n_)
+        int8_bound = max(nbytes / HBM_BYTES_PER_S,
+                         2 * m_ * k_ * n_ / INT8_OPS_PER_S) * 1e3
+        int8_ms = device_ms(torch, "int8 post_nn", int8_dense,
+                            (xin, w, bias, sx), int8_bound)
+        f32_ms = device_ms(torch, "float32 post_nn", torch.matmul,
+                           (xin, w.t()), 0.0)
+    finally:
+        e8.shutdown()
+        e32.shutdown()
+    out["engine"] = dict(
+        contract_ratio_card=contract_card, contract_ratio_cpu=contract_cpu,
+        contract_met=contract_card <= 1.0,
+        contract_ratio_no_isolated_atoms=contract_iso,
+        molecules_no_isolated_atoms=len(iso),
+        int8_card_vs_cpu_max_abs=gap_card_cpu,
+        x_q_differ_card_cpu=[xq_diff, xq_total],
+        eager_output_gap_card_cpu=out_gap, batched_equals_single=True,
+        graph_equals_eager=True, swap_equals_fresh=True,
+        captures=captures, launches=launches, speed=speed,
+        post_nn_product_ms=dict(shape=[m_, k_, n_],
+                                int8_with_quantize=int8_ms,
+                                int8_bound=int8_bound,
+                                float32_matmul=f32_ms))
+    print(f"phase 17a: int8 engine vs float32 engine on {len(requests)} "
+          f"requests: largest gap / 2^-3 bound {contract_card:.3f} (the "
+          f"CPU's, same scales: {contract_cpu:.3f}; over 1 the bound is "
+          f"not met); on the {len(iso)} test molecules without an "
+          f"isolated atom, calibrated on them: {contract_iso:.4f} (held "
+          f"<= 1); int8 card vs cpu max abs {gap_card_cpu:.3e} (held <= "
+          f"{INT8_CARD_CPU_ATOL}); x_q "
+          f"differing card vs cpu {xq_diff} of {xq_total} on one batch "
+          f"(output gap {out_gap:.3e}); int8_dense x_q/w_q/s_w/acc bitwise "
+          f"card vs cpu; batched = single, graph = eager and swap = fresh "
+          f"bitwise, {captures} captures; launches {launches} "
+          f"(card: {card})", flush=True)
+    print(f"phase 17a: int8 {speed['int8']['requests_per_s']:.1f} "
+          f"requests/s, p50 {speed['int8']['p50_ms']:.3f} ms, p99 "
+          f"{speed['int8']['p99_ms']:.3f} ms; float32 "
+          f"{speed['float32']['requests_per_s']:.1f}, p50 "
+          f"{speed['float32']['p50_ms']:.3f}, p99 "
+          f"{speed['float32']['p99_ms']:.3f} ({QUANT_BURSTS} bursts of "
+          f"{len(requests)} each, in turn); {key} product {m_}x{k_}x{n_}, "
+          f"device ms in a graph: int8 with its quantize and dequantize "
+          f"{int8_ms:.4f} (bound {int8_bound:.4f}), float32 matmul "
+          f"{f32_ms:.4f} (card: {card})", flush=True)
+
+    # ------------------------------------------------ (b) tiered fleet
+    router = ReplicaRouter(
+        lambda idx: engine(device, "int8" if idx == 0 else "float32",
+                           calib if idx == 0 else None),
+        2, tier_policy=TierPolicy(fast="int8", accurate="float32",
+                                  priority_min=1, quota=0.25))
+    try:
+        router.warmup()
+        futs = [router.submit(s, priority=i % 2)
+                for i, s in enumerate(requests)]
+        [f.result(timeout=600) for f in futs]
+        for f in futs:
+            want = ("int8", 0, SERVE_INT8_RTOL) if f.replica == 0 else (
+                "float32", 1, 0.0)
+            if (f.tier, f.replica, f.parity_rtol) != want:
+                fail(f"phase 17b: future tier {f.tier} on replica "
+                     f"{f.replica} with bound {f.parity_rtol}")
+        st = router.stats()
+        shares = {t: n / len(requests)
+                  for t, n in st["tier_dispatches"].items()}
+        downgrades = st["tier_downgrades"]
+        if shares.get("float32", 0.0) > 0.25 + 1.0 / len(requests):
+            fail(f"phase 17b: accurate share {shares} over its quota")
+        router.kill_replica(0)
+        futs = [router.submit(s, priority=0) for s in test]
+        done = [f for f in futs if f.exception(timeout=600) is None]
+        lost = len(futs) - len(done)
+        if lost or any(f.tier != "float32" for f in done):
+            fail(f"phase 17b: {lost} futures lost after the kill")
+        fallbacks = router.stats()["tier_fallbacks"]
+        if fallbacks < len(test):
+            fail(f"phase 17b: {fallbacks} fallbacks for {len(test)} "
+                 "requests")
+    finally:
+        router.shutdown()
+    out["fleet"] = dict(shares=shares, downgrades=downgrades,
+                        fallbacks_after_kill=fallbacks, lost=lost)
+    print(f"phase 17b: tiered fleet (int8 + float32, quota 0.25, half the "
+          f"requests priority 1): dispatch shares {shares}, downgrades "
+          f"{downgrades}; int8 replica killed: {len(test)} requests, "
+          f"{fallbacks} fallbacks, {lost} lost (card: {card})", flush=True)
+
+    # ------------------------------------------------ (c) distillation
+    # on the molecules without an isolated atom and their calibration:
+    # with one, the int8 outputs sit on a few levels and no step of
+    # QUANT_DISTILL_LR's order lowers the loss (printed for the record)
+    runs = [distill_heads(model, None, mcfg, calib_iso, iso,
+                          steps=QUANT_DISTILL_STEPS, lr=QUANT_DISTILL_LR,
+                          num_samples=QUANT_CALIB) for _ in range(2)]
+    (s1, r1), (s2, r2) = runs
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                yield from leaves(tree[k], f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", tree[k]
+    l1, l2 = list(leaves(s1)), list(leaves(s2))
+    if r1 != r2 or [k for k, _ in l1] != [k for k, _ in l2] or not all(
+            np.array_equal(a, b) for (_, a), (_, b) in zip(l1, l2)):
+        fail("phase 17c: two distillations on the card differ")
+    pre, post = (sum(r1["head_mse_vs_teacher_pre"]),
+                 sum(r1["head_mse_vs_teacher_post"]))
+    if r1["best_step"] == 0 or not post < pre:
+        fail(f"phase 17c: no update kept (best step {r1['best_step']}, "
+             f"head MSE {pre} -> {post})")
+    _, r_all = distill_heads(model, None, mcfg, calib, test,
+                             steps=QUANT_DISTILL_STEPS, lr=QUANT_DISTILL_LR,
+                             num_samples=QUANT_CALIB)
+    out["distill"] = dict(steps=QUANT_DISTILL_STEPS, lr=QUANT_DISTILL_LR,
+                          samples=len(iso[:QUANT_CALIB]), mse_pre=pre,
+                          mse_post=post, best_step=r1["best_step"],
+                          bitwise_repeat=True,
+                          isolated_atoms_included=dict(
+                              best_step=r_all["best_step"],
+                              mse_pre=sum(r_all["head_mse_vs_teacher_pre"]),
+                              mse_post=sum(
+                                  r_all["head_mse_vs_teacher_post"])))
+    print(f"phase 17c: distill_heads {QUANT_DISTILL_STEPS} steps at lr "
+          f"{QUANT_DISTILL_LR} on {len(iso[:QUANT_CALIB])} molecules "
+          f"without an isolated atom: head MSE vs the teacher {pre:.6e} -> "
+          f"{post:.6e} (best step {r1['best_step']}); two runs bitwise; on "
+          f"the first {QUANT_CALIB} test molecules, isolated atoms "
+          f"included, best step {r_all['best_step']} "
+          f"({sum(r_all['head_mse_vs_teacher_pre']):.6e} -> "
+          f"{sum(r_all['head_mse_vs_teacher_post']):.6e}) (card: {card})",
+          flush=True)
+
+    # ------------------------------------------------ (d) remat
+    base_cfg, splits = csce["base_cfg"], csce["splits"]
+    remat_cfg = copy.deepcopy(base_cfg)
+    remat_cfg["NeuralNetwork"]["Training"]["conv_checkpointing"] = True
+    label = "csce PNA (dense) remat"
+    graph_parity(torch, remat_cfg, splits, device, label, CSCE_GROUP)
+    rec = {}
+    grads = {}
+    for tag, cfg_ in (("plain", base_cfg), ("remat", remat_cfg)):
+        m, state, step_, loader, _, mcfg_ = train_parts(torch, cfg_, splits,
+                                                        device)
+        loader.set_epoch(0)
+        batch = next(iter(loader)).to(device)
+        loss_fn = tstep.make_loss_fn(m, mcfg_, "mse")
+        m.train()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        total, _ = loss_fn(batch)
+        g = torch.autograd.grad(total, list(m.parameters()))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        grads[tag] = (float(total.detach()),
+                      [t.detach().clone() for t in g])
+        del g, total
+        # the captured step on a fresh copy, once the eager pass's garbage
+        # is collected: a capture during which the collector frees a
+        # default-stream backward's tensors fails
+        # (cudaErrorStreamCaptureImplicit), with or without remat
+        gc.collect()
+        m, state, step_, loader, _, _ = train_parts(torch, cfg_, splits,
+                                                    device)
+        step_(state, batch)
+        torch.cuda.synchronize()
+        cap = next(iter(step_.steps.graphs.values()))
+        nodes = check_graph_kernels(cap, f"csce PNA (dense) {tag} S1")
+        ms = float(np.median(step_events_ms(torch,
+                                            lambda: step_(state, batch))))
+        rec[tag] = dict(peak_mib_forward_backward=peak, step_ms=ms,
+                        kernel_nodes=nodes,
+                        launches_per_captured_step={
+                            k: v for k, v in cap.launches.items() if v})
+    (la, ga), (lb, gb) = grads["plain"], grads["remat"]
+    if la != lb or not all(torch.equal(a, b) for a, b in zip(ga, gb)):
+        fail("phase 17d: the remat step's loss or gradients differ from "
+             "the step without remat")
+    out["remat"] = dict(rec, loss_and_gradients_bitwise=True,
+                        captured_equals_eager=True)
+    print(f"phase 17d: conv_checkpointing: loss and every gradient bitwise "
+          f"the step without it; captured = eager; peak allocated "
+          f"{rec['remat']['peak_mib_forward_backward']:.1f} MiB vs "
+          f"{rec['plain']['peak_mib_forward_backward']:.1f} without; captured "
+          f"step {rec['remat']['step_ms']:.3f} ms vs "
+          f"{rec['plain']['step_ms']:.3f}; kernel nodes (= launches, the "
+          f"recompute's included) {rec['remat']['kernel_nodes']} vs "
+          f"{rec['plain']['kernel_nodes']} (card: {card})", flush=True)
+
+    # ------------------------------------------------ (e) fault sites
+    keys = ("train_loss", "val_loss", "test_loss", "lr")
+    cfg = copy.deepcopy(base_cfg)
+    cfg["Dataset"] = {"name": "chip_smoke_faults"}
+    tr = cfg["NeuralNetwork"]["Training"]
+    tr.update(num_epoch=3, Checkpoint=True, checkpoint_every_n_epochs=1)
+    run_dir = os.path.join("logs", get_log_name_config(cfg))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    _, h_ref, _, _ = run_training(copy.deepcopy(cfg), splits, device=device)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    # the kill lands in epoch 1, after epoch 0's save committed
+    per_epoch = max(len(splits[0]) // int(tr["batch_size"]), 1)
+    plan = f"forward-step@{per_epoch + per_epoch // 2}"
+    kill = copy.deepcopy(cfg)
+    kill["NeuralNetwork"]["Training"]["fault_plan"] = plan
+    try:
+        run_training(kill, splits, device=device)
+        fail(f"phase 17e: {plan} did not stop the run")
+    except InjectedFault as exc:
+        killed = str(exc)
+    cfg["NeuralNetwork"]["Training"]["continue"] = 1
+    _, h_res, _, _ = run_training(copy.deepcopy(cfg), splits, device=device)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    if any(h_res[k] != h_ref[k] for k in keys):
+        fail("phase 17e: the resumed trajectory differs from the "
+             "uninterrupted one")
+    out["faults"] = dict(plan=plan, raised=killed,
+                         trajectory_bitwise=True,
+                         train_loss=h_res["train_loss"])
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 17e: {killed}; resumed with continue: 1, the train/val/"
+          f"test/lr trajectory {h_res['train_loss']} bitwise the "
+          f"uninterrupted run's (card: {card})", flush=True)
+    print(f"phase 17: {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6036,6 +6598,12 @@ def main() -> int:
     from hydragnn_tpu_torch.utils.weights import load_jax_variables
 
     # ---------------------------------------------------------- phase 1
+    t_smoke = time.perf_counter()
+
+    def stamp(phase):
+        """the command's elapsed time at a phase's start, for trimming"""
+        print(f"phase {phase} starts at "
+              f"{time.perf_counter() - t_smoke:.1f} s", flush=True)
     card = card_line()
     device = resolve_device("cuda")
     print(f"card: {card}", flush=True)
@@ -6085,11 +6653,13 @@ def main() -> int:
         n_graph=batch_size + 1).to(device)
 
     # ---------------------------------------------------------- phase 2
+    stamp(2)
     records = check_kernels(torch, dense_batch, edge_batch, loader_batch,
                             device, mcfg.hidden_dim)
     torch.cuda.synchronize()
 
     # ---------------------------------------------------------- phase 3
+    stamp(3)
     t0 = time.perf_counter()
     trues_cpu, preds_cpu = run_prediction(copy.deepcopy(base_cfg), splits,
                                           variables, serve=False,
@@ -6190,6 +6760,7 @@ def main() -> int:
     breakdown(torch, model, first, top, dense_batch, edge_batch, card)
 
     # ---------------------------------------------------------- phase 4
+    stamp(4)
     records["filter_scatter"], seg_shapes, counts, lj = schnet_phase(
         torch, device, card)
     records["segment_sum"]["shapes"] += seg_shapes
@@ -6200,6 +6771,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + c
 
     # ---------------------------------------------------------- phase 5
+    stamp(5)
     from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
 
     def counted(counts):
@@ -6264,6 +6836,7 @@ def main() -> int:
     train_paths["csce_pna_dense"]["run"] = pna_rec
 
     # ---------------------------------------------------------- phase 6
+    stamp(6)
     from hydragnn_tpu_torch.graphs.synthetic import lj_configurations
     with open(LJ_CONFIG) as fh:
         lj_cfg = json.load(fh)
@@ -6295,6 +6868,7 @@ def main() -> int:
         rec.pop("history")
 
     # ---------------------------------------------------------- phase 7
+    stamp(7)
     bf16_launches = {}
 
     def counted_bf16(counts):
@@ -6351,9 +6925,11 @@ def main() -> int:
           f"{bf16_launches['segment_sum']}", flush=True)
 
     # ---------------------------------------------------------- phase 8
+    stamp(8)
     resume = resume_phase(torch, device, base_cfg, splits, counted)
 
     # ---------------------------------------------------------- phase 9
+    stamp(9)
     print("phase 9: batch packing, csce PNA at its published width",
           flush=True)
     train_paths.update(packing_phase(torch, base_cfg, splits, device,
@@ -6364,22 +6940,26 @@ def main() -> int:
     packed_batch = next(iter(packed_loader)).to(device)
 
     # ---------------------------------------------------------- phase 16
+    stamp(16)
     # run beside phases 5 and 9, whose csce numbers it prints its own by
     smiles = smiles_phase(torch, device, card, counted, dict(
         in_degree=in_degrees(samples), paths=train_paths,
         engine=phase3_engine))
 
     # ---------------------------------------------------------- phase 10
+    stamp(10)
     eam_paths, eam_shapes = eam_phase(torch, device, counted, packed_batch)
     train_paths.update(eam_paths)
     records["segment_sum"]["shapes"] += eam_shapes
 
     # ---------------------------------------------------------- phase 11
+    stamp(11)
     slice_records, slice_shapes = slice_phase(torch, device, card, counted)
     train_paths.update(slice_records)
     records["segment_sum"]["shapes"] += slice_shapes
 
     # ---------------------------------------------------------- phase 12
+    stamp(12)
     csce = dict(model=model, mcfg=mcfg, test=test, requests=requests,
                 variables=variables)
     serving, md_fs_shapes, md_seg_shapes = serving_phase(
@@ -6394,6 +6974,7 @@ def main() -> int:
         + [r["max_abs_err"] for r in eam_shapes + slice_shapes
            + md_seg_shapes])
     # ---------------------------------------------------------- phase 13
+    stamp(13)
     farm, farm_fs_shapes, farm_seg_shapes = farm_phase(
         torch, device, card, counted, lj_main[0],
         dict(md_incremental=serving["md"]["modes"]["incremental"][
@@ -6412,6 +6993,7 @@ def main() -> int:
             farm_launches[name] = farm_launches.get(name, 0) + c
 
     # ---------------------------------------------------------- phase 14
+    stamp(14)
     fleet = fleet_phase(torch, device, card, counted,
                         dict(csce, base_cfg=base_cfg, splits=splits,
                              preds=preds))
@@ -6421,12 +7003,19 @@ def main() -> int:
             fleet_launches[name] = fleet_launches.get(name, 0) + c
 
     # ---------------------------------------------------------- phase 15
+    stamp(15)
     a7, a7_shapes, a7_launches = a7_phase(torch, device, card, counted,
                                           lj_splits)
     records["segment_sum"]["shapes"] += a7_shapes
     records["segment_sum"]["max_abs_err"] = max(
         [records["segment_sum"]["max_abs_err"]]
         + [r["max_abs_err"] for r in a7_shapes])
+
+    # ---------------------------------------------------------- phase 17
+    stamp(17)
+    quant, quant_launches = quant_phase(
+        torch, device, card, counted,
+        dict(csce, base_cfg=base_cfg, splits=splits))
 
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
@@ -6437,6 +7026,7 @@ def main() -> int:
     print("fleet: " + json.dumps(dict(fleet, card=card)), flush=True)
     print("a7: " + json.dumps(dict(a7, card=card)), flush=True)
     print("smiles: " + json.dumps(dict(smiles, card=card)), flush=True)
+    print("quant: " + json.dumps(quant), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -6480,6 +7070,8 @@ def main() -> int:
             extra["launches_a7_path"] = a7_launches[name]
         if smiles["b_launches"].get(name):
             extra["launches_smiles_path"] = smiles["b_launches"][name]
+        if quant_launches.get(name):
+            extra["launches_quant_path"] = quant_launches[name]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")
@@ -6504,6 +7096,7 @@ def main() -> int:
                             launches_per_captured_step=per_captured_step(
                                 counter),
                             **rec))
+    stamp("end")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

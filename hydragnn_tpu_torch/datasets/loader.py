@@ -21,6 +21,11 @@ Batches are numpy-built on the host, bitwise what the JAX loader builds,
 and handed out as GraphBatches of CPU tensors; non-shuffled loaders
 (validation, test) collate once and replay.
 
+Every sample is fetched through `fetch_samples`: a bounded retry over
+transient I/O with the `loader-fetch` fault site (utils/faults.py) once
+an attempt, as the JAX loader's synchronous path fetches
+(HYDRAGNN_ASYNC_LOADER=0).
+
 Device-stacked shards and packing across processes (ROADMAP A9),
 background collation and the batch cache (A10) are not ported.
 """
@@ -29,7 +34,9 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import inspect
+import logging
 import math
+import time
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +45,42 @@ from ..graphs.batch import (BucketSpec, GraphBatch, GraphSample, collate,
                             neighbor_budget_for_dataset, with_neighbor_format)
 from ..graphs.packing import (choose_budget, pack_order, plan_padding_stats,
                               plan_steps, sample_sizes)
+from ..telemetry.registry import get_registry
+from ..utils.envflags import resolve_loader_retries
+from ..utils.faults import fault_point
+
+
+def fetch_samples(dataset, indices) -> list:
+    """`dataset[i]` for each index, with a bounded retry over transient
+    I/O (counterpart: hydragnn_tpu/datasets/async_loader.py::
+    fetch_samples): an OSError is retried up to
+    HYDRAGNN_LOADER_RETRIES tries in all, waiting
+    HYDRAGNN_LOADER_RETRY_BACKOFF_S doubled a retry (at most 1 s), and
+    the last one raises. The `loader-fetch` fault site fires once an
+    attempt, so one listed index is recovered and `attempts` consecutive
+    ones surface. Each retry counts in `loader_retries_total`."""
+    attempts, backoff = resolve_loader_retries()
+    out = []
+    for i in indices:
+        for attempt in range(attempts):
+            try:
+                fault_point("loader-fetch")
+                out.append(dataset[i])
+                break
+            except OSError as exc:
+                if attempt + 1 >= attempts:
+                    raise
+                get_registry().counter_inc(
+                    "loader_retries_total",
+                    help="transient dataset-fetch retries")
+                delay = min(backoff * (2 ** attempt), 1.0)
+                logging.getLogger("hydragnn_tpu_torch").warning(
+                    "transient fetch failure for dataset[%s] (%s: %s); "
+                    "retry %d/%d after %.3fs", i,
+                    type(exc).__name__, exc, attempt + 1, attempts - 1,
+                    delay)
+                time.sleep(delay)
+    return out
 
 
 class DatasetInvariants(NamedTuple):
@@ -190,7 +233,7 @@ class GraphDataLoader:
     def _build_batch(self, sel: Tuple[int, ...]) -> GraphBatch:
         if self.packing:
             (sel,) = sel
-        samples = [self.dataset[i] for i in sel]
+        samples = fetch_samples(self.dataset, sel)
         b = collate(samples, n_node=self.n_node, n_edge=self.n_edge,
                     n_graph=self.n_graph)
         if self.batch_transform is not None:

@@ -6,13 +6,17 @@ and update their running ones; `model.eval()` uses the running ones.
 * encoder: `num_conv_layers` convs (subclass hook `make_conv`), each
   followed by MaskedBatchNorm and the activation;
 * decoder: masked mean pooling, one MLP shared by the graph heads
-  (`graph_shared`), then one MLP per head (`head_{ih}`); GaussianNLL
-  variance widening as in the JAX package.
+  (`graph_shared`), then per head an MLP (`head_{ih}`), or for a node
+  head an "mlp" / "mlp_per_node" `MLPNode` or "conv" head convs;
+  GaussianNLL variance widening as in the JAX package.
+
+`Training.conv_checkpointing` recomputes each encoder conv in the
+backward (`torch.utils.checkpoint`, the JAX package's `nn.remat`): the
+same parameters, outputs and gradients, bit for bit, for less memory.
 
 Outputs at padding slots are garbage but finite; callers read real rows
-and graphs only. Activation checkpointing, the sampled-training
-historical states and the vector-channel conv heads come with the slices
-that need them.
+and graphs only. The sampled-training historical states come with the
+slice that needs them (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -20,13 +24,55 @@ from typing import Any, Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config.config import ModelConfig
 from ..graphs.batch import GraphBatch
 from ..kernels.segment import segment_layout
 from ..ops.activations import activation_function_selection
 from ..ops.segment import global_mean_pool
-from .layers import MLP, MLPNode, MaskedBatchNorm
+from .layers import MLP, Dense, MLPNode, MaskedBatchNorm, node_index_in_graph
+
+
+def remat_call(conv: nn.Module, *args):
+    """`conv(*args)`, its activations recomputed in the backward instead
+    of kept (counterpart: hydragnn_tpu/models/base.py::_remat_call).
+    Non-reentrant, without saving the RNG state: no stack draws random
+    numbers in its forward, and the RNG state's save is not allowed while
+    a CUDA graph is captured. The recompute runs the kernels' forwards
+    again, so a captured step holds their launches twice."""
+    if not torch.is_grad_enabled():
+        return conv(*args)
+    return checkpoint(conv, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+class VecHeadConv(nn.Module):
+    """A vector-channel conv (`conv(s, v, batch, cargs) -> (s, v)`, PAINN's
+    and PNAEq's) as a conv head layer, `(h, pos, batch, cargs) -> (h,
+    pos)` (counterpart: hydragnn_tpu/models/base.py::VecHeadConv). The
+    channel travels in `cargs["vec_channel"]`, which the decoder resets
+    to the encoder's final one at each conv head's start; it restarts
+    from zeros where its width is not the features'.
+
+    The wrapped conv is the stack's submodule, not this one's: Flax
+    builds it in the stack's scope, so its parameters sit at the top
+    level as `{ConvClass}_{k}` (k counting the stack's head convs of that
+    class), and `VecHeadConv` holds none."""
+
+    def __init__(self, conv: nn.Module):
+        super().__init__()
+        # a plain reference: the stack registers the conv under its name
+        self.__dict__["conv"] = conv
+
+    def forward(self, h, pos, batch, cargs):
+        v = cargs.get("vec_channel")
+        if v is None or v.shape[-1] != h.shape[-1]:
+            v = torch.zeros((h.shape[0], 3, h.shape[-1]), dtype=h.dtype,
+                            device=h.device)
+        s, v = self.conv(h, v, batch, cargs)
+        cargs["vec_channel"] = v
+        return s, pos
 
 
 class BaseStack(nn.Module):
@@ -59,20 +105,46 @@ class BaseStack(nn.Module):
             shared_dim = self.graph_shared.out_dim
         widen = 1 + cfg.var_output
         for ih, head in enumerate(cfg.heads):
+            odim = head.output_dim * widen
             if head.head_type == "graph":
-                mod = MLP(shared_dim,
-                          list(head.dim_headlayers) + [head.output_dim * widen],
+                mod = MLP(shared_dim, list(head.dim_headlayers) + [odim],
                           activation=self.act)
+            elif head.node_arch == "conv":
+                self._add_conv_head(ih, hidden, head.dim_headlayers, odim)
+                continue
             else:
-                mod = MLPNode(hidden, head.dim_headlayers,
-                              head.output_dim * widen, node_type=head.node_arch,
-                              activation=self.act)
+                mod = MLPNode(hidden, head.dim_headlayers, odim,
+                              node_type=head.node_arch, activation=self.act,
+                              num_nodes=max(cfg.num_nodes, 1))
             setattr(self, f"head_{ih}", mod)
+
+    def _add_conv_head(self, ih: int, hin: int, dims, odim: int) -> None:
+        """A "conv" node head: fresh convs `conv_{num_conv_layers + 100 ih
+        + li}` (the JAX package's names), each followed by the masked
+        batch norm `head_{ih}_norm_{li}` and the activation, then the
+        Dense `head_{ih}_out`. The JAX package departs from the reference
+        here on purpose (hydragnn_tpu/models/base.py:185-200: the
+        reference's last head conv maps to the output and is normalized
+        and activated too), and the port matches the JAX package."""
+        for li, hd in enumerate(dims):
+            final = li == len(dims) - 1
+            idx = self.cfg.num_conv_layers + 100 * ih + li
+            setattr(self, f"conv_{idx}",
+                    self.make_head_conv(hin, hd, idx, final=final))
+            hin = self.conv_width(hin, hd, final)
+            setattr(self, f"head_{ih}_norm_{li}", MaskedBatchNorm(hin))
+        setattr(self, f"head_{ih}_out", Dense(hin, odim))
 
     # ------------------------------------------------------------- hooks --
     def make_conv(self, in_dim: int, out_dim: int, idx: int,
                   final: bool = False) -> nn.Module:
         raise NotImplementedError
+
+    def make_head_conv(self, in_dim: int, out_dim: int, idx: int,
+                       final: bool = False) -> nn.Module:
+        """A conv head's layer (a vector-channel stack wraps its conv in a
+        `VecHeadConv`)."""
+        return self.make_conv(in_dim, out_dim, idx, final=final)
 
     def conv_width(self, in_dim: int, out_dim: int, final: bool) -> int:
         """The width of the features a conv made by `make_conv(in_dim,
@@ -92,8 +164,13 @@ class BaseStack(nn.Module):
 
     def encode(self, batch: GraphBatch, cargs):
         x, pos = batch.x, batch.pos
+        remat = self.cfg.conv_checkpointing
         for i in range(self.cfg.num_conv_layers):
-            x, pos = getattr(self, f"conv_{i}")(x, pos, batch, cargs)
+            conv = getattr(self, f"conv_{i}")
+            if remat:
+                x, pos = remat_call(conv, x, pos, batch, cargs)
+            else:
+                x, pos = conv(x, pos, batch, cargs)
             if self.use_batch_norm:
                 x = getattr(self, f"feature_norm_{i}")(x, batch.node_mask)
             x = self.act(x)
@@ -107,15 +184,37 @@ class BaseStack(nn.Module):
                   if hasattr(self, "graph_shared") else None)
         outputs: List = []
         outputs_var: List = []
+        idx = None
         for ih, head in enumerate(cfg.heads):
-            mod = getattr(self, f"head_{ih}")
-            out = mod(shared) if head.head_type == "graph" else mod(x)
+            if head.head_type == "graph":
+                out = getattr(self, f"head_{ih}")(shared)
+            elif head.node_arch == "conv":
+                out = self._conv_head(ih, head, x, pos, batch, cargs)
+            elif head.node_arch == "mlp_per_node":
+                if idx is None:
+                    idx = node_index_in_graph(batch.node_graph,
+                                              batch.num_graphs)
+                out = getattr(self, f"head_{ih}")(x, idx)
+            else:
+                out = getattr(self, f"head_{ih}")(x)
             outputs.append(out[..., :head.output_dim])
             if cfg.var_output:
                 outputs_var.append(out[..., head.output_dim:] ** 2)
         if cfg.var_output:
             return outputs, outputs_var
         return outputs, None
+
+    def _conv_head(self, ih: int, head, h, hpos, batch, cargs):
+        if "vec_channel_encoder" in cargs:
+            # every conv head starts from the encoder's final vector
+            # channel, not the previous head's
+            cargs["vec_channel"] = cargs["vec_channel_encoder"]
+        for li in range(len(head.dim_headlayers)):
+            conv = getattr(self, f"conv_{self.cfg.num_conv_layers + 100 * ih + li}")
+            h, hpos = conv(h, hpos, batch, cargs)
+            h = getattr(self, f"head_{ih}_norm_{li}")(h, batch.node_mask)
+            h = self.act(h)
+        return getattr(self, f"head_{ih}_out")(h)
 
 
 def edge_sum_layout(batch: GraphBatch, cargs) -> Any:

@@ -21,6 +21,7 @@ from .base import BaseStack
 from .convs import GATv2Conv, GINConv, MFConv
 from .dimenet import DIMEStack
 from .egnn import EGCL, EGCLStack
+from .layers import MLPNode
 from .mace import LinearIrreps, MACEStack
 from .painn import PAINNStack
 from .pnaeq import PNAEqStack
@@ -109,7 +110,9 @@ def init_params(model: BaseStack, seed: int = 0) -> BaseStack:
     mean 0 and var 1; MFConv's banks [d, in, out] lecun_normal with
     fan_in d * in (Flax multiplies the receptive field in) and zero bank
     biases; GATv2's att [1, H, F] lecun_normal with fan_in H; MACE's
-    LinearIrreps weights [mul_in, mul_out] lecun_normal; GIN's eps
+    LinearIrreps weights [mul_in, mul_out] lecun_normal; mlp_per_node
+    banks [num_nodes, in, f] lecun_normal with fan_in num_nodes * in and
+    zero bank biases; GIN's eps
     100 and EGNN's coords_range 3 (their constructors' values). The
     config's `initial_bias` fills every head's final bias. The numbers
     differ from Flax's for the same seed; weights that must match the JAX
@@ -134,6 +137,12 @@ def init_params(model: BaseStack, seed: int = 0) -> BaseStack:
             elif isinstance(mod, LinearIrreps):
                 for w in mod.parameters(recurse=False):
                     w.copy_(_lecun_normal(w.shape, w.shape[0], gen))
+            elif isinstance(mod, MLPNode) and mod.node_type == "mlp_per_node":
+                for li in range(len(mod.dims)):
+                    w = getattr(mod, f"w_{li}")
+                    w.copy_(_lecun_normal(w.shape, w.shape[0] * w.shape[1],
+                                          gen))
+                    getattr(mod, f"b_{li}").zero_()
             elif isinstance(mod, GINConv):
                 mod.eps.fill_(100.0)
             elif isinstance(mod, EGCL) and hasattr(mod, "coords_range"):
@@ -143,7 +152,9 @@ def init_params(model: BaseStack, seed: int = 0) -> BaseStack:
             # the decoder's heads (MACE's readouts hold theirs, which the
             # JAX package leaves as they are)
             for ih in range(len(model.cfg.heads)):
-                head = getattr(model, f"head_{ih}", None)
+                # a conv head projects through its bare Dense
+                head = getattr(model, f"head_{ih}",
+                               getattr(model, f"head_{ih}_out", None))
                 if head is None:
                     continue
                 last = [m for m in head.modules() if isinstance(m, nn.Linear)]

@@ -5,12 +5,13 @@ running `mean`/`var`) so weights carry across from the JAX package
 mechanically (utils/weights.py)."""
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from ..kernels import segment as kseg
 from ..ops.scalars import rsqrt, weak
 
 
@@ -107,20 +108,87 @@ class MaskedBatchNorm(nn.Module):
 
 
 class MLPNode(nn.Module):
-    """Node-level decoder head: one MLP shared by all nodes ("mlp"). The
-    per-node weight banks ("mlp_per_node") come with ROADMAP item A4's
-    remaining node heads."""
+    """Node-level decoder head (counterpart:
+    hydragnn_tpu/models/layers.py::MLPNode). "mlp": one MLP shared by all
+    nodes. "mlp_per_node": a bank of weights per node index within its
+    graph (`node_index_in_graph`, clipped to `num_nodes - 1`; config
+    completion refuses it for graphs of varying size), parameters `w_{li}`
+    [num_nodes, in, f] and `b_{li}` [num_nodes, f] under Flax's names.
+
+    The bank rows are gathered by `kernels.segment.gather_rows`, whose
+    gradient is the segment sum of the rows by bank index (the segment-sum
+    kernel on the card, in a fixed order: no atomics). A weight bank is
+    gathered as [num_nodes * in, f] rows, row (idx, i) for node input i,
+    so the sum's width is f; each node's product is then a batched
+    matrix-vector product."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
                  output_dim: int, node_type: str = "mlp",
-                 activation: Callable = F.relu):
+                 activation: Callable = F.relu, num_nodes: int = 1):
         super().__init__()
-        if node_type != "mlp":
-            raise NotImplementedError(
-                f"node head type {node_type!r} is not ported yet (ROADMAP "
-                "A4: mlp_per_node and conv node heads)")
-        self.MLP_0 = MLP(in_dim, list(hidden_dims) + [output_dim],
-                         activation=activation)
+        self.node_type = node_type
+        self.activation = activation
+        dims = list(hidden_dims) + [output_dim]
+        if node_type == "mlp":
+            self.MLP_0 = MLP(in_dim, dims, activation=activation)
+        elif node_type == "mlp_per_node":
+            self.num_nodes = max(int(num_nodes), 1)
+            self.dims = dims
+            d = in_dim
+            for li, f in enumerate(dims):
+                setattr(self, f"w_{li}", nn.Parameter(
+                    torch.zeros(self.num_nodes, d, f)))
+                setattr(self, f"b_{li}", nn.Parameter(
+                    torch.zeros(self.num_nodes, f)))
+                d = f
+        else:
+            raise ValueError(f"unknown node head type {node_type!r}")
 
-    def forward(self, x):
-        return self.MLP_0(x)
+    def forward(self, x, node_index: Optional[torch.Tensor] = None):
+        if self.node_type == "mlp":
+            return self.MLP_0(x)
+        if node_index is None:
+            raise ValueError(
+                f"node_type={self.node_type!r} heads need "
+                "node_index_in_graph (per-node positional weights)")
+        idx = torch.clamp(node_index, 0, self.num_nodes - 1)
+        bias_layout = _bank_layout(idx, self.num_nodes)
+        h = x
+        for li in range(len(self.dims)):
+            w, b = getattr(self, f"w_{li}"), getattr(self, f"b_{li}")
+            d_in, f = w.shape[1], w.shape[2]
+            rows = (idx.long()[:, None] * d_in
+                    + torch.arange(d_in, device=idx.device)).reshape(-1)
+            wg = kseg.gather_rows(w.reshape(-1, f), rows,
+                                  _bank_layout(rows, self.num_nodes * d_in))
+            bg = kseg.gather_rows(b, idx, bias_layout)
+            h = torch.bmm(h[:, None, :].to(w.dtype),
+                          wg.view(-1, d_in, f))[:, 0] + bg
+            if li < len(self.dims) - 1:
+                h = self.activation(h)
+        return h
+
+
+def _bank_layout(ids: torch.Tensor, n: int):
+    """The CSR view of a bank gather's ids for its gradient's segment sum
+    (None on the CPU, where the plain version runs)."""
+    if ids.device.type == "cpu" or not torch.is_grad_enabled():
+        return None
+    return kseg.segment_layout(ids, n)
+
+
+def node_index_in_graph(node_graph: torch.Tensor, num_graphs: int
+                        ) -> torch.Tensor:
+    """Each node's index within its graph: its position minus its graph's
+    first position (counterpart: hydragnn_tpu/models/layers.py, bitwise).
+    The graphs' node counts are a fixed-order sum (one-hot rows added
+    along the nodes), so the card needs no atomic scatter."""
+    n = node_graph.shape[0]
+    onehot = (node_graph.long()[:, None]
+              == torch.arange(num_graphs, device=node_graph.device))
+    counts = onehot.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32,
+                                    device=node_graph.device),
+                        torch.cumsum(counts, 0, dtype=torch.int32)[:-1]])
+    return (torch.arange(n, dtype=torch.int32, device=node_graph.device)
+            - starts[node_graph.long()])

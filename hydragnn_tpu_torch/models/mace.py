@@ -41,7 +41,7 @@ from ..ops.irreps import (IrrepsDict, real_spherical_harmonics, scalar_part,
 from ..ops.scalars import weak
 from ..ops.segment import global_mean_pool
 from .base import BaseStack, aggregation_layouts, edge_sum_layout
-from .layers import MLP, Dense
+from .layers import MLP, Dense, MLPNode, node_index_in_graph
 
 
 class LinearIrreps(nn.Module):
@@ -139,8 +139,9 @@ class MACEProduct(nn.Module):
 class MACEReadout(nn.Module):
     """Per-layer multihead readout of the invariant channel: a Dense per
     head, or an MLP for the last layer (`nonlinear`); graph heads read
-    the masked mean pooling. A node head of any type but mlp_per_node
-    (ROADMAP A4) reads the nodes the same way, as in the JAX package."""
+    the masked mean pooling, node heads the nodes. An mlp_per_node head
+    is a bank `MLPNode` at every layer; any other node head, a "conv"
+    one too, reads as an "mlp" one, as in the JAX package."""
 
     def __init__(self, cfg, nonlinear: bool, mul: int):
         super().__init__()
@@ -150,20 +151,34 @@ class MACEReadout(nn.Module):
             odim = head.output_dim * widen
             if (head.head_type != "graph"
                     and head.node_arch == "mlp_per_node"):
-                raise NotImplementedError(
-                    "node head type 'mlp_per_node' is not ported yet "
-                    "(ROADMAP A4: mlp_per_node and conv node heads)")
-            mod = (MLP(mul, list(head.dim_headlayers) + [odim],
-                       activation=act) if nonlinear else Dense(mul, odim))
+                mod = MLPNode(mul, head.dim_headlayers, odim,
+                              node_type="mlp_per_node", activation=act,
+                              num_nodes=max(cfg.num_nodes, 1))
+            elif nonlinear:
+                mod = MLP(mul, list(head.dim_headlayers) + [odim],
+                          activation=act)
+            else:
+                mod = Dense(mul, odim)
             setattr(self, f"head_{ih}", mod)
         self.heads = list(cfg.heads)
 
     def forward(self, scalars, batch) -> List[torch.Tensor]:
         pooled = global_mean_pool(scalars, batch.node_graph,
                                   batch.num_graphs, batch.node_mask)
-        return [getattr(self, f"head_{ih}")(
-                    pooled if head.head_type == "graph" else scalars)
-                for ih, head in enumerate(self.heads)]
+        outs = []
+        idx = None
+        for ih, head in enumerate(self.heads):
+            mod = getattr(self, f"head_{ih}")
+            if head.head_type == "graph":
+                outs.append(mod(pooled))
+            elif isinstance(mod, MLPNode):
+                if idx is None:
+                    idx = node_index_in_graph(batch.node_graph,
+                                              batch.num_graphs)
+                outs.append(mod(scalars, idx))
+            else:
+                outs.append(mod(scalars))
+        return outs
 
 
 def process_node_attributes(x, num_elements: int = 118):

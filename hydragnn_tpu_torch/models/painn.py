@@ -13,8 +13,8 @@ list, the vector channel as [E, 3F] rows), and every per-edge gather's
 gradient is a segment sum, over the `aggregation_layouts` that
 `conv_args` builds once a forward.
 
-The conv-type node heads that thread the encoder's vector channel
-(`VecHeadConv`) come with ROADMAP A4, as for every stack.
+The conv-type node heads thread the encoder's vector channel through
+`models.base.VecHeadConv`.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ from ..ops import segment as seg
 from ..ops.basis import cosine_cutoff, sinc_expansion
 from ..ops.geometry import edge_vectors
 from ..ops.scalars import weak
-from .base import BaseStack, aggregation_layouts, edge_sum_layout
+from .base import (BaseStack, VecHeadConv, aggregation_layouts,
+                   edge_sum_layout)
 from .layers import MLP, Dense
 
 
@@ -121,8 +122,20 @@ class PainnConv(nn.Module):
 class VectorChannelStack(BaseStack):
     """A stack whose convs thread a vector channel: conv(s, v, batch,
     cargs) -> (s, v), v starting at zero, the activation after each
-    conv, no feature norms."""
+    conv, no feature norms. The encoder leaves its final channel in
+    `cargs["vec_channel_encoder"]` for the conv heads, whose convs are
+    `VecHeadConv`s. Like the JAX package's, this encoder is not
+    rematerialized under `conv_checkpointing`."""
     use_batch_norm = False
+
+    def make_head_conv(self, in_dim, out_dim, idx, final=False):
+        conv = self.make_conv(in_dim, out_dim, idx, final=final)
+        # Flax's name of a conv built in the stack's scope without one
+        cls = type(conv).__name__
+        k = sum(name.startswith(f"{cls}_") for name, _ in
+                self.named_children())
+        setattr(self, f"{cls}_{k}", conv)
+        return VecHeadConv(conv)
 
     def encode(self, batch, cargs):
         x = batch.x
@@ -131,6 +144,7 @@ class VectorChannelStack(BaseStack):
         for i in range(self.cfg.num_conv_layers):
             x, v = getattr(self, f"conv_{i}")(x, v, batch, cargs)
             x = self.act(x)
+        cargs["vec_channel_encoder"] = v
         return x, batch.pos
 
 

@@ -17,8 +17,10 @@ above 1, else with a plain loop over `batch_size` batches padded to one
 shape. The engines compute in the serving precision (`Serving.precision`,
 else the train-side policy); the loop, as the JAX package's eval-step
 loop, always at the train-side policy (HYDRAGNN_PRECISION, else
-Architecture.dtype, else float32), so `Serving.precision` "int8" is
-refused only where an engine is built. Engines are tagged
+Architecture.dtype, else float32), so `Serving.precision` "int8" acts
+only where an engine is built: the int8 tier, calibrated once on the
+first `quant_calib_samples` test samples and the scales shared by every
+replica. Engines are tagged
 `step_<n>` from the TrainState or checkpoint the weights came from
 (`variables=` and `model=` carry no step: "v0"). DimeNet, whose batches
 carry triplet tables the engine does not
@@ -46,6 +48,7 @@ from .graphs.triplets import maybe_triplet_transform
 from .models.create import create_model, data_input_dim
 from .postprocess.postprocess import output_denormalize
 from .preprocess.load_data import load_datasets_from_config
+from .quant.calibrate import calibrate
 from .serving.config import (check_unported_serving_knobs, resolve_fleet,
                              resolve_serving)
 from .serving.engine import InferenceEngine
@@ -241,12 +244,19 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
     `Serving.fleet.compile_store` names one (a single engine uses it
     too), and a TierPolicy when `tier_priority_min` > 0 (the test split
     is submitted at priority 0). Every replica serves the same weights
-    on the same bucket ladder, tagged `version`. The engine refuses
-    `Serving.precision` "int8" (not ported: ROADMAP A8)."""
+    on the same bucket ladder, tagged `version`. At `Serving.precision`
+    "int8" the model is calibrated once, on the edge list as the JAX
+    package's run_prediction calibrates, and every replica serves those
+    scales, so they share their compile-store keys."""
     from .serving.fleet import ReplicaRouter, TierPolicy
     fleet = resolve_fleet(config)
     store = (CompileStore(fleet.compile_store) if fleet.compile_store
              else None)
+    quant_calibration = None
+    if serving.precision == "int8":
+        quant_calibration = calibrate(
+            model, None, mcfg, testset,
+            num_samples=serving.quant_calib_samples, batch_transform=None)
 
     def make_engine(replica_idx=0):
         return InferenceEngine(
@@ -258,6 +268,8 @@ def _predict_with_engine(model, mcfg, testset, serving, neighbor_k, device,
             bucket_multiple=serving.bucket_multiple,
             neighbor_format=neighbor_k is not None, neighbor_k=neighbor_k,
             compute_dtype=serving.precision, breaker_threshold=0,
+            quant_calibration=quant_calibration,
+            quant_calib_samples=serving.quant_calib_samples,
             structure_config=config if serving.structure else None,
             md_skin=serving.md_skin, compile_store=store,
             model_version=version, device=device)

@@ -54,9 +54,15 @@ under ./logs/<run name>/profile; without it, `device_trace` traces
 `device_trace_epoch` under <telemetry dir>/profile, with or without the
 session.
 
+Faults (utils/faults.py): the plan that HYDRAGNN_FAULT_PLAN or
+`Training.fault_plan` resolves to is installed for the run; the training
+sites are `forward-step` (once a train-loop dispatch), `checkpoint-write`
+(at the start of each save) and `loader-fetch` (once a sample fetch
+attempt, under the loader's bounded retry). `Training.conv_checkpointing`
+recomputes each encoder conv in the backward (models/base.py).
+
 Knobs off this path raise NotImplementedError naming the ROADMAP item
-that brings them; none is ignored. A fault plan is refused only where
-the JAX package's resolution yields one (utils/faults.py).
+that brings them; none is ignored.
 """
 from __future__ import annotations
 
@@ -78,7 +84,7 @@ from .train.train_step import (TrainState, make_eval_step,
                                make_train_step)
 from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
-from .utils.faults import resolve_fault_plan
+from .utils.faults import install_fault_plan, resolve_fault_plan
 from .telemetry import EpochDeviceTrace, start_session
 from .utils.envflags import (env_flag, resolve_pack_lookahead,
                              resolve_packing, resolve_steps_per_call,
@@ -114,11 +120,6 @@ def check_training_knobs(config) -> None:
          "A10: datasets/async_loader.py"),
         (env_flag("HYDRAGNN_USE_ddstore"), "HYDRAGNN_USE_ddstore",
          "A10: datasets"),
-        (tr.get("conv_checkpointing"), "Training.conv_checkpointing",
-         "A4: BaseStack remat"),
-        (resolve_fault_plan(tr) is not None,
-         "a fault plan (HYDRAGNN_FAULT_PLAN / Training.fault_plan)",
-         "A5.6: the training fault sites"),
     ]
     for on, what, item in checks:
         if on:
@@ -131,6 +132,13 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     if num_shards not in (None, 1):
         _not_ported(f"num_shards={num_shards}", "A9: multi-GPU training")
     check_training_knobs(config)
+    # the fault plan (HYDRAGNN_FAULT_PLAN over Training.fault_plan) is
+    # installed per run, so the sites' counters start fresh, and a stale
+    # preemption flag of an earlier run in this process is cleared, as in
+    # the JAX package (run_training.py:101-109)
+    install_fault_plan(resolve_fault_plan(
+        config["NeuralNetwork"].get("Training", {})))
+    trainer.clear_preemption()
     dev = resolve_device(device)
     if datasets is None:
         datasets = load_datasets_from_config(config)

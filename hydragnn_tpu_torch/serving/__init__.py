@@ -5,8 +5,10 @@ fleet on top (a replica router with per-replica isolation, hot swap and
 a compile store of kernel libraries, serving/fleet.py), and the
 continuous loop over both: a checkpoint publisher that canaries each new
 BEST save into the fleet with rollback (serving/publish.py) and a
-queue-depth autoscaler (serving/autoscale.py). The int8 tier and
-multi-device shards are not ported (ROADMAP A8)."""
+queue-depth autoscaler (serving/autoscale.py). An engine at
+compute_dtype "int8" is the calibrated int8 tier (quant/), which a
+fleet's TierPolicy routes beside float32 replicas. Multi-device shards
+are not ported (ROADMAP A8)."""
 from .autoscale import QueueDepthAutoscaler
 from .config import (AutoscaleConfig, FleetConfig, PublishConfig,
                      ServingConfig, Structure, resolve_autoscale,

@@ -62,9 +62,13 @@ HYDRAGNN_MD_FARM_STEPS_PER_DISPATCH and HYDRAGNN_MD_FARM_CAND_HEADROOM)
 holds the trajectory farm's knobs (md/farm.py).
 
 `precision` (env HYDRAGNN_SERVE_PRECISION) takes the spellings of
-train/precision.PRECISION_CHOICES: "float32" / "f32" / "fp32" or
-"bfloat16" / "bf16". Unset, the engine inherits the train-side policy
-(HYDRAGNN_PRECISION, then Architecture.dtype).
+train/precision.PRECISION_CHOICES: "float32" / "f32" / "fp32",
+"bfloat16" / "bf16" or "int8" / "i8". Unset, the engine inherits the
+train-side policy (HYDRAGNN_PRECISION, then Architecture.dtype). "int8"
+makes every engine the int8 tier (quant/, serving/engine.py), calibrated
+on `quant_calib_samples` samples (HYDRAGNN_QUANT_CALIB_SAMPLES, strict);
+run_prediction's own loop computes at the train-side precision, as the
+JAX package's does.
 
 `fleet` (`resolve_fleet`; HYDRAGNN_FLEET_REPLICAS, _COMPILE_STORE,
 _REDISPATCH_MAX, _DRAIN_TIMEOUT_S, _TIER_PRIORITY_MIN, _TIER_QUOTA,
@@ -77,12 +81,10 @@ CheckpointPublisher's canary window and bounds; `autoscale`
 watermarks. Each resolves as the JAX package's does (strict parsing,
 env over block over default), typos included.
 
-Two knobs change what JAX's run_prediction runs and are not ported yet,
-so asking for them raises NotImplementedError naming ROADMAP A8:
-precision "int8" (the int8 serving tier), where an engine is built with
-it (`check_serving_precision`; it resolves as in the JAX package, whose
-prediction loop ignores it), and run_prediction's `num_shards` > 1
-(multi-device shards, `check_unported_serving_knobs`).
+One knob changes what JAX's run_prediction runs and is not ported yet,
+so asking for it raises NotImplementedError naming ROADMAP A8:
+run_prediction's `num_shards` > 1 (multi-device shards,
+`check_unported_serving_knobs`).
 """
 from __future__ import annotations
 
@@ -119,19 +121,10 @@ class ServingConfig:
     breaker_threshold: int = 5    # 0 disables the circuit breaker
     breaker_reset_s: float = 30.0
     precision: Optional[str] = None  # None = inherit the train-side policy
-    quant_calib_samples: int = 32  # int8 only (engines refuse it: A8)
+    quant_calib_samples: int = 32  # the int8 tier's calibration set
     metrics_port: int = 0         # /healthz + /metrics port (0 = off)
     structure: bool = False       # raw-structure serving (submit_structure)
     md_skin: float = 0.3          # Verlet skin of trajectory sessions
-
-
-def check_serving_precision(precision: Optional[str]) -> None:
-    """Raise for a serving precision the port does not serve (int8)."""
-    if precision == "int8":
-        raise NotImplementedError(
-            "Serving.precision 'int8' (post-training quantization) is not "
-            "ported to hydragnn_tpu_torch yet (ROADMAP A8: the int8 "
-            "serving tier); serve float32 or bfloat16")
 
 
 def check_unported_serving_knobs(num_shards: Optional[int] = None

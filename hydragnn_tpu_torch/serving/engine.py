@@ -37,7 +37,19 @@ bit for bit on the same bucket, and against a float32 forward they obey
 |bf16 - f32| <= SERVE_REDUCED_ATOL + SERVE_REDUCED_RTOL |f32| (2^-5 each,
 the JAX package's bound): every future carries ``parity`` "tolerance"
 and the two tolerances, and ``stats()`` reports ``compute_dtype`` and
-``parity``.
+``parity``. An int8 engine (``compute_dtype="int8"``, quant/) routes the
+encoder convs' Dense layers through calibrated int8 products
+(quant/ptq.py) and keeps everything else at float32: the scales come
+from ``quant_calibration`` or, without one, from calibrating on the
+first ``quant_calib_samples`` reference samples; batched = single holds
+bitwise within a bucket, and against float32 the JAX package's bound
+|int8 - f32| <= SERVE_INT8_ATOL + SERVE_INT8_RTOL |f32| (2^-3 each) is
+the contract futures carry. Both packages miss it where a real atom has
+no neighbours: PNA's attenuation scaler then sets the calibrated scales
+(ROADMAP C). The weights are quantized inside each bucket's
+graph, so a hot swap re-quantizes at the next replay. int8 serves
+neither ``ef_forward`` (the rounding's gradient is zero almost
+everywhere) nor ``num_shards`` > 1, as in the JAX package.
 
 CUDA graphs (counterpart: the JAX engine's AOT executable per bucket).
 On the card each bucket's forward (EF: forward and the forces' backward)
@@ -121,7 +133,8 @@ a span recorder installed, a ``serve.graph_build`` span; each batch the
 spans. ``start_metrics_server()`` serves /healthz and /metrics until
 ``shutdown()``.
 
-Not ported yet: multi-device shards and the int8 tier (ROADMAP A8).
+Not ported yet: multi-device shards (``num_shards`` > 1 raises naming
+ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -154,7 +167,9 @@ from ..utils.faults import fault_point
 from ..utils.profiling import latency_percentiles
 from ..utils.weights import (export_jax_variables, load_jax_variables,
                              variables_signature)
-from .config import Structure, check_serving_precision
+from ..quant.calibrate import calibrate
+from ..quant.ptq import make_quantized_forward
+from .config import Structure
 
 _SHUTDOWN = object()
 _log = logging.getLogger("hydragnn_tpu_torch")
@@ -175,6 +190,12 @@ def _take_stream(device: torch.device):
 # dominated stages of a stack with float32 sums
 SERVE_REDUCED_RTOL = 2.0 ** -5
 SERVE_REDUCED_ATOL = 2.0 ** -5
+# the int8 serving bound (JAX serving/engine.py:130-151): one quantized
+# product's error is the input's and the folded weight's rounding (2^-8
+# of the calibrated range each, the int32 sum exact), through the <= 8
+# rounding-dominated stages of the deepest conv stacks
+SERVE_INT8_RTOL = 2.0 ** -3
+SERVE_INT8_ATOL = 2.0 ** -3
 
 
 class ServingError(RuntimeError):
@@ -266,7 +287,11 @@ class InferenceEngine:
     whose sessions use the Verlet skin `md_skin`; `model_version` tags the
     served weights. `compile_store` (a utils/devices.CompileStore) keeps
     the kernel libraries each bucket needs; `tier` tags the engine for a
-    fleet's tier routing (default: the compute dtype)."""
+    fleet's tier routing (default: the compute dtype). At int8,
+    `quant_calibration` (quant.calibrate's result, shared by a fleet's
+    replicas) gives the activation scales; without it the engine
+    calibrates on the first `quant_calib_samples` reference samples.
+    `num_shards` > 1 is not ported (ROADMAP A8)."""
 
     def __init__(self, model, mcfg, *,
                  reference_samples: Optional[Sequence[GraphSample]] = None,
@@ -287,14 +312,37 @@ class InferenceEngine:
                  model_version: str = "v0",
                  compile_store: Optional[CompileStore] = None,
                  tier: Optional[str] = None,
+                 quant_calibration=None,
+                 quant_calib_samples: int = 32,
+                 num_shards: int = 1,
                  device="cuda"):
         self.device = resolve_device(device)
         self.compute_dtype = resolve_precision(getattr(mcfg, "dtype", None),
                                                compute_dtype)
-        check_serving_precision(self.compute_dtype)
+        quantized = self.compute_dtype == "int8"
+        if quantized and int(num_shards) > 1:
+            raise ValueError(
+                "int8 serving is single-shard for now — run one int8 "
+                "engine per device (a fleet tier of them, "
+                "serving/fleet.py) instead of num_shards > 1")
+        if quantized and ef_forward:
+            raise ValueError(
+                "ef_forward needs exact gradients (forces = -dE/dpos) "
+                "and the int8 round/clip has a zero gradient almost "
+                "everywhere — serve EF from the fp32/bf16 tier and keep "
+                "int8 for the plain forward tiers")
+        if int(num_shards) > 1:
+            raise NotImplementedError(
+                f"num_shards={num_shards} (serving sharded over devices) is "
+                "not ported to hydragnn_tpu_torch yet (ROADMAP A8: "
+                "multi-device shards); run a fleet of replicas instead")
         if self.compute_dtype == "float32":
             self.parity, self.parity_rtol, self.parity_atol = \
                 "bitwise", 0.0, 0.0
+        elif quantized:
+            self.parity = "tolerance"
+            self.parity_rtol = SERVE_INT8_RTOL
+            self.parity_atol = SERVE_INT8_ATOL
         else:
             self.parity = "tolerance"
             self.parity_rtol = SERVE_REDUCED_RTOL
@@ -367,8 +415,29 @@ class InferenceEngine:
             self._response_heads = [h.head_type for h in mcfg.heads]
         self.mcfg = mcfg
         self.model = model.to(self.device).eval()
-        self._model_fn = make_forward_fn(self.model, mcfg, self.compute_dtype,
-                                         frozen=True)
+        # the int8 tier's scales: given (run_prediction calibrates once
+        # for every replica) or calibrated here from the reference samples;
+        # their digest keys the compile store
+        self.quant_calibration = None
+        self._quant_digest = None
+        if quantized:
+            if quant_calibration is None:
+                if not reference_samples:
+                    raise ValueError(
+                        "int8 serving needs calibration: pass "
+                        "quant_calibration (quant.calibrate) or "
+                        "reference_samples for the engine to calibrate "
+                        "from")
+                quant_calibration = calibrate(
+                    self.model, None, mcfg, reference_samples,
+                    num_samples=quant_calib_samples)
+            self.quant_calibration = quant_calibration
+            self._quant_digest = quant_calibration.digest
+            self._model_fn = make_quantized_forward(self.model, mcfg,
+                                                    quant_calibration)
+        else:
+            self._model_fn = make_forward_fn(self.model, mcfg,
+                                             self.compute_dtype, frozen=True)
         # what swap_variables must keep
         self._signature = variables_signature(export_jax_variables(model))
 
@@ -954,7 +1023,8 @@ class InferenceEngine:
     def _store_key(self, bucket: PackBudget) -> str:
         """The compile-store key of one bucket: the JAX engine's fields
         (model config, bucket shape, shard count, neighbour width, EF,
-        request schema, the precision mode) and the port's runtime (the
+        request schema, the precision mode: the compute dtype and, at
+        int8, the calibration's digest) and the port's runtime (the
         device's kind and compute capability, the kernel sources'
         digest)."""
         p = self._proto
@@ -968,7 +1038,7 @@ class InferenceEngine:
             self.mcfg, (bucket.n_node, bucket.n_edge, bucket.n_graph), 1,
             self.neighbor_k, self.ef_forward, schema,
             (self.device.type, capability, _build._source_digest()),
-            precision=(self.compute_dtype, None))
+            precision=(self.compute_dtype, self._quant_digest))
 
     def _release_graphs(self) -> None:
         """Drop the captured graphs and their pool (the dispatcher's

@@ -57,6 +57,7 @@ import torch
 
 from ..telemetry import spans as _spans
 from ..utils.envflags import env_flag, env_strict_int
+from ..utils.faults import fault_point
 from ..utils.profiling import HostStallMonitor
 from .optimizer import get_learning_rate, set_learning_rate
 
@@ -413,6 +414,9 @@ def train_validate_test(
                 if preemption_requested():
                     preempted = True
                     break
+                # one forward-step index a train-loop dispatch (a group of
+                # S steps counts once), on the host, outside any graph
+                fault_point("forward-step")
                 if group and len(batches) == steps_per_call and (
                         max_num_batch is None
                         or nb + steps_per_call <= max_num_batch):

@@ -21,8 +21,10 @@ Under `<path>/<log_name>/checkpoint/` (path "./logs" by default):
 Best-validation saves made during training go through
 `make_async_best_checkpoint_fn`: the state is copied to the host at the
 call, and one writer thread writes the files and commits them in order;
-`wait_for_checkpoints` drains it. The JAX package's `checkpoint-write`
-fault site is not wired here yet (ROADMAP A5.6).
+`wait_for_checkpoints` drains it. The `checkpoint-write` fault site
+(utils/faults.py) fires at the start of `save_model`, in the caller's
+thread: a save it kills writes nothing, so no `COMMITTED` marker, and
+resume skips it.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from ..train.train_step import TrainState
+from .faults import fault_point
 
 COMMIT_MARKER = "COMMITTED"
 RESUME_META = "resume.json"
@@ -261,6 +264,7 @@ def save_model(state: TrainState, log_name: str, path: str = "./logs",
     the GC after the commit. The state is copied to the host here;
     `use_async` leaves the writing and the commit to the writer thread
     (`wait_for_checkpoints` drains it)."""
+    fault_point("checkpoint-write")
     target = os.path.join(_ckpt_dir(log_name, path),
                           f"step_{int(state.step)}")
     job = (_host_payload(state), target, metadata, mark_best, keep_last_k,

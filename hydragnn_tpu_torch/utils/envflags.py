@@ -93,6 +93,28 @@ def env_strict_choice(name: str, choices, default=None):
     return default
 
 
+_LOADER_RETRY_MEMO: dict = {}
+
+
+def resolve_loader_retries() -> "tuple[int, float]":
+    """(attempts, backoff_base_s) of the loader's retry over transient
+    I/O (datasets/loader.fetch_samples; counterpart:
+    hydragnn_tpu/utils/envflags.py): HYDRAGNN_LOADER_RETRIES tries a
+    fetch at most (default 3, at least 1), HYDRAGNN_LOADER_RETRY_BACKOFF_S
+    is the first wait (default 0.05 s, doubling a retry, capped at 1 s by
+    the loop). Strict: a typo warns and keeps the default. Memoized on
+    the raw strings, so a typo warns once a value, not once a batch."""
+    key = (os.getenv("HYDRAGNN_LOADER_RETRIES"),
+           os.getenv("HYDRAGNN_LOADER_RETRY_BACKOFF_S"))
+    hit = _LOADER_RETRY_MEMO.get(key)
+    if hit is None:
+        attempts = env_strict_int("HYDRAGNN_LOADER_RETRIES", 3)
+        backoff = env_strict_float("HYDRAGNN_LOADER_RETRY_BACKOFF_S", 0.05)
+        hit = (max(int(attempts), 1), max(float(backoff), 0.0))
+        _LOADER_RETRY_MEMO[key] = hit
+    return hit
+
+
 def resolve_packing(train_cfg) -> bool:
     """Budget-packed batching: HYDRAGNN_PACKING, when set, overrides
     Training.batch_packing (default off). Parsed strictly: a typo warns

@@ -4,9 +4,11 @@ whose grammar, precedence, per-site counters and raise this copy keeps).
 Named failure sites fire at exact invocation indices, so a recovery path
 runs in the tests deterministically. The serving engine consults the
 `serving-dispatch` site once per executed batch and the `swap-fail` site
-once per `swap_variables`. The training sites (`forward-step`,
-`checkpoint-write`, `loader-fetch`) are not wired in the port yet:
-`run_training` refuses a run for which a plan resolves (ROADMAP A5.6).
+once per `swap_variables`; training consults `forward-step` once per
+train-loop dispatch (train/trainer.py), `checkpoint-write` at the start
+of each save (utils/checkpoint.save_model) and `loader-fetch` once per
+sample fetch attempt (datasets/loader.fetch_samples). `run_training`
+installs the plan that resolves for its run.
 
 Plan grammar (HYDRAGNN_FAULT_PLAN env / Training.fault_plan)::
 

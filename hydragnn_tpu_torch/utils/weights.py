@@ -15,7 +15,8 @@ keeps Flax's submodule names as attribute names (`conv_{i}.pre_i`,
   GATv2's `att`, MFConv's banks `w_l` / `b_l` / `w_r` / `b_r`, EGNN's
   `coords_range`, and MACE's `LinearIrreps` weights `lin_l{l}`
   [mul_in, mul_out] (applied through an einsum, not as a Dense kernel:
-  they cross untransposed);
+  they cross untransposed), and an mlp_per_node head's banks `w_{li}`
+  [num_nodes, in, f] and `b_{li}` [num_nodes, f];
 * `batch_stats` `mean` / `var` -> the MaskedBatchNorm buffers.
 
 An unknown collection or leaf name raises here; a missing or surplus
@@ -36,13 +37,16 @@ _LEAVES = {"params": ("kernel", "bias", "scale") + _CONV_LEAVES,
            "batch_stats": ("mean", "var")}
 # MACE's LinearIrreps weights, one per l
 _IRREPS_LEAF = re.compile(r"lin_l\d+")
+# an mlp_per_node head's banks, one weight and one bias per layer
+_BANK_LEAF = re.compile(r"[wb]_\d+")
 
 
 def _known_leaf(collection: str, name: str, module: str) -> bool:
     """Whether `name` is a leaf of `collection` the port holds; a conv's
     own parameters may sit at the root (a bare conv), the others lie
     under a module."""
-    if collection == "params" and _IRREPS_LEAF.fullmatch(name):
+    if collection == "params" and (_IRREPS_LEAF.fullmatch(name)
+                                   or _BANK_LEAF.fullmatch(name)):
         return bool(module)
     return name in _LEAVES[collection] and bool(module
                                                 or name in _CONV_LEAVES)
@@ -134,6 +138,11 @@ def random_flax_variables(model, seed: int) -> Dict:
             leaf = "kernel"
             shape = shape[::-1]
             val = rng.normal(0.0, shape[0] ** -0.5, shape)
+        elif _BANK_LEAF.fullmatch(leaf) and leaf[0] == "w":
+            # an mlp_per_node bank [num_nodes, in, f]
+            val = rng.normal(0.0, shape[1] ** -0.5, shape)
+        elif _BANK_LEAF.fullmatch(leaf):
+            val = rng.normal(0.0, 0.1, shape)
         elif leaf in ("w_l", "w_r") or _IRREPS_LEAF.fullmatch(leaf):
             # MFConv's banks [d, in, out], LinearIrreps' [mul_in, mul_out]
             fan_in = shape[0] * (shape[1] if len(shape) == 3 else 1)

@@ -2435,3 +2435,182 @@ def test_a7_captured_ef_steps_equal_eager_steps_bitwise(cuda_device,
     assert np.isfinite(la).all() and la == lb
     _assert_same_state(sa, sb)
     assert graphs == 1
+
+
+# ------------------------------------------------- the int8 tier and remat
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,out", [(9, 12, 5), (33, 200, 200),
+                                           (16, 13, 8), (17, 1, 8)])
+def test_int8_dense_on_the_card_equals_the_cpu_bitwise(cuda_device, rows,
+                                                       cols, out):
+    """quant/ptq.int8_dense through `torch._int_mm` on the card, its
+    operands zero-padded to the GEMM's shapes (more than 16 rows, inner
+    and outer widths multiples of 8): x_q, w_q, s_w, the int32
+    accumulator and y bitwise the CPU's `_int_mm` route."""
+    from hydragnn_tpu_torch.quant.ptq import (int8_dense, int_mm,
+                                              quantize_input,
+                                              quantize_weight)
+    rng = np.random.RandomState(rows * cols)
+    x = _t((rng.randn(rows, cols) * 2).astype(np.float32))
+    w = _t(rng.randn(out, cols).astype(np.float32))
+    b = _t(rng.randn(out).astype(np.float32))
+    s_x = x.abs().amax(0) / 127
+    got, want = [], []
+    for dev, sink in ((cuda_device, got), (torch.device("cpu"), want)):
+        xs, ws, ss, bs = (t.to(dev) for t in (x, w, s_x, b))
+        x_q = quantize_input(xs, ss)
+        w_q, s_w = quantize_weight(ws, ss)
+        sink += [x_q, w_q, s_w, int_mm(x_q, w_q.t()),
+                 int8_dense(xs, ws, bs, ss)]
+    for name, g, c in zip(("x_q", "w_q", "s_w", "acc", "y"), got, want):
+        assert g.dtype == c.dtype and g.shape == c.shape, name
+        assert torch.equal(g.cpu(), c), name
+
+
+def _csce_int8_parts(dev):
+    """A csce PNA engine's model (hidden 200, seeded weights) and
+    molecules, calibrated on the card."""
+    from hydragnn_tpu_torch.quant import calibrate
+    data, factory = _fleet_parts(dev, None)
+    eng = factory()
+    model, mcfg = eng.model, eng.mcfg
+    eng.shutdown()
+    return data, model, mcfg, calibrate(model, None, mcfg, data,
+                                        num_samples=8)
+
+
+@pytest.mark.cuda
+def test_int8_bucket_graph_equals_its_eager_forward(cuda_device):
+    """An int8 engine's bucket graph replays bitwise the eager quantized
+    forward of the same batch, and batched = single within a bucket."""
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    data, model, mcfg, calib = _csce_int8_parts(cuda_device)
+    with InferenceEngine(model, mcfg, reference_samples=data,
+                         max_batch_size=8, compute_dtype="int8",
+                         quant_calibration=calib,
+                         device=cuda_device) as eng:
+        eng.warmup()
+        futs = [eng.submit(s) for s in data]
+        res = [f.result(timeout=120) for f in futs]
+        for s, f, r in zip(data, futs, res):
+            assert f.tier == "int8" and f.parity == "tolerance"
+            single = eng.forward_single(s, bucket=f.bucket)
+            np.testing.assert_array_equal(r[0], single[0])
+        assert eng.stats()["captures"] == len(eng.buckets)
+        for s in data[:4]:
+            bucket = futs[0].bucket
+            replayed = eng.forward_single(s, bucket=bucket)
+            eager = eng._run(eng._collate_bucket([s], bucket).to(
+                cuda_device))
+            np.testing.assert_array_equal(replayed[0],
+                                          eager[0].cpu().numpy()[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pna_dense", "pna_edge"])
+def test_conv_checkpointing_captured_equals_eager_bitwise(cuda_device, kind):
+    """Three csce PNA steps with Training.conv_checkpointing, eager and
+    captured, from one state on the same batches: metrics, parameters and
+    optimizer slots bitwise, and bitwise the steps without remat."""
+    import dataclasses
+    from hydragnn_tpu_torch.train import train_step as tstep
+    mcfg, train_cfg, batches = _step_setup(cuda_device, kind)
+    train_cfg = dict(train_cfg, Optimizer={"type": "SGD",
+                                           "learning_rate": 1e-3})
+    runs = []
+    for remat, graphed in ((False, False), (True, False), (True, True)):
+        cfg = dataclasses.replace(mcfg, conv_checkpointing=remat)
+        model, tx, state = _fresh_state(cuda_device, cfg, train_cfg)
+        step = tstep.make_train_step(model, cfg, tx,
+                                     **_step_kwargs(train_cfg))
+        losses = []
+        for b in batches[:3]:
+            state, m = (step if graphed else step.eager)(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state)))
+    (l0, s0), (l1, s1), (l2, s2) = runs
+    assert np.isfinite(l0).all() and l0 == l1 == l2
+    _assert_same_state(s0, s1)
+    _assert_same_state(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_type,node_arch", [
+    ("GIN", "mlp_per_node"), ("PNA", "conv"), ("PAINN", "conv")])
+def test_node_heads_card_match_cpu(cuda_device, model_type, node_arch):
+    """A node head of each new type on the lattice, card against CPU from
+    the same weights: the training-mode output within SUM_TOL; the
+    parameter gradients within 1e-3 relative L2 as one vector, and within
+    1e-2 (the smoke's card-vs-plain gradient bound) each tensor that
+    carries at least 1 % of the norm (the others are cancellation noise:
+    a bias before a training-mode batch norm has a gradient of 0); the
+    bank's and the convs' gradients go through the segment-sum kernel on
+    the card."""
+    import copy
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs import batch as tbatch
+    from hydragnn_tpu_torch.graphs.synthetic import bcc_lattices
+    from hydragnn_tpu_torch.models.create import create_model
+    samples = bcc_lattices(12, seed=0, heads=("node",))
+    if node_arch == "mlp_per_node":
+        sizes = [s.num_nodes for s in samples]
+        modal = max(set(sizes), key=sizes.count)
+        samples = [s for s in samples if s.num_nodes == modal]
+    cfg = _lattice_node_config(model_type, node_arch)
+    cfg = tcfg.update_config(copy.deepcopy(cfg), samples)
+    mcfg = tcfg.build_model_config(cfg)
+    batch = tbatch.collate(samples)
+    c = torch.randn(batch.num_nodes, 1, generator=torch.Generator()
+                    .manual_seed(0))
+    runs = []
+    for dev in (torch.device("cpu"), cuda_device):
+        model = create_model(mcfg, device=dev, seed=1).train()
+        tk.reset_launch_counts()
+        (out,), _ = model(batch.to(dev))
+        grads = torch.autograd.grad(torch.sum(out * c.to(dev)),
+                                    list(model.parameters()),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+        torch.cuda.synchronize()
+        runs.append((out.detach().cpu(), [g.cpu() for g in grads],
+                     tk.launch_counts()))
+    (o_cpu, g_cpu, _), (o_gpu, g_gpu, counts) = runs
+    real = batch.node_mask
+    torch.testing.assert_close(o_gpu[real], o_cpu[real], **SUM_TOL)
+    whole = torch.cat([b.reshape(-1) for b in g_cpu]).norm()
+    gap = torch.cat([(a - b).reshape(-1) for a, b in zip(g_gpu, g_cpu)])
+    assert float(gap.norm() / whole) <= 1e-3
+    for a, b in zip(g_gpu, g_cpu):
+        if b.norm() >= 1e-2 * whole:
+            assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert counts["segment_sum"] > 0
+
+
+def _lattice_node_config(model_type, node_arch):
+    """tests/utils.make_config's lattice config (hidden 8, 2 layers) with
+    one node head [4, 4] of type `node_arch`, without the JAX package."""
+    return {
+        "Verbosity": {"level": 0},
+        "Dataset": {
+            "name": "unit_test", "format": "unit_test",
+            "node_features": {"name": ["x", "x2", "x3"], "dim": [1, 1, 1],
+                              "column_index": [0, 6, 7]}},
+        "NeuralNetwork": {
+            "Architecture": {
+                "model_type": model_type, "radius": 1.0,
+                "max_neighbours": 100, "num_radial": 6, "hidden_dim": 8,
+                "num_conv_layers": 2, "equivariance": False,
+                "output_heads": {"node": {
+                    "num_headlayers": 2, "dim_headlayers": [4, 4],
+                    "type": node_arch}},
+                "task_weights": [1.0]},
+            "Variables_of_interest": {
+                "input_node_features": [0], "output_names": ["x"],
+                "output_index": [0], "type": ["node"],
+                "denormalize_output": False},
+            "Training": {
+                "num_epoch": 1, "perc_train": 0.7, "batch_size": 32,
+                "loss_function_type": "mse",
+                "Optimizer": {"type": "AdamW", "learning_rate": 0.005}}}}

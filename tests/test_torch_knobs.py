@@ -2,14 +2,15 @@
 batch packing's precedence (`utils/envflags.resolve_packing`, which
 `run_training` consults); every `Serving` knob (`serving/config.
 resolve_serving`: env over config over default, set-but-empty and
-malformed values as JAX resolves them), of which the int8 tier and
-sharded serving are still refused (ROADMAP A8) while a replica fleet
-resolves as JAX's (`resolve_fleet`), raw-structure serving builds a
-structure engine and the metrics port starts the /metrics server
-through `run_prediction`; the fault
-plan's resolution (`utils/faults.resolve_fault_plan`: run_training
-refuses a plan, naming A5.6, exactly where JAX's resolution yields one)
-and run_prediction's HYDRAGNN_DUMP_TESTDATA dump; the training
+malformed values as JAX resolves them), of which sharded serving is
+still refused (ROADMAP A8) while the int8 tier and its
+`quant_calib_samples` resolve as JAX's, a replica fleet resolves as
+JAX's (`resolve_fleet`), raw-structure serving builds a structure engine
+and the metrics port starts the /metrics server through
+`run_prediction`; the fault plan's resolution
+(`utils/faults.resolve_fault_plan`: run_training installs exactly the
+plan JAX's resolution yields) and run_prediction's
+HYDRAGNN_DUMP_TESTDATA dump; the training
 telemetry knobs (`utils/envflags.resolve_telemetry`: env over the
 Training.Telemetry block, strict) and what run_training does with them:
 `device_trace` alone traces its epoch, HYDRAGNN_TELEMETRY=0 turns a
@@ -26,8 +27,8 @@ from hydragnn_tpu.serving.config import resolve_serving as j_resolve_serving
 from hydragnn_tpu.utils.envflags import resolve_packing as j_resolve_packing
 from hydragnn_tpu.utils.envflags import \
     resolve_telemetry as j_resolve_telemetry
-from hydragnn_tpu_torch.serving.config import (check_serving_precision,
-                                               resolve_fleet, resolve_serving)
+from hydragnn_tpu_torch.serving.config import (resolve_fleet,
+                                               resolve_serving)
 from hydragnn_tpu_torch.utils.envflags import (resolve_packing,
                                                resolve_telemetry)
 
@@ -145,8 +146,8 @@ def test_run_training_packing_follows_the_env(clean_env, config, env, packs):
 
 
 # (Serving block, env) -> whether the JAX package's run_prediction acts
-# on it (starts the metrics server or the router); the port refuses only
-# the int8 tier
+# on it (starts the metrics server or the router); the port resolves
+# every one (the int8 tier included) as JAX does
 SERVING_CASES = [
     ({"metrics_port": 9100}, {}, True),
     ({}, {"HYDRAGNN_SERVE_METRICS_PORT": "9100"}, True),
@@ -172,10 +173,14 @@ SERVING_CASES = [
     # ported: the fleet and its compile store
     ({"fleet": {"replicas": 2, "compile_store": "/tmp/store"}},
      {"HYDRAGNN_FLEET_COMPILE_STORE": "/env/store"}, True),
-    # the int8 tier, by the block or the env: resolved, refused where
-    # an engine is built with it
+    # the int8 tier, by the block or the env, with its calibration-set
+    # size (strict: a typo warns and keeps the block's)
     ({"precision": "int8"}, {}, False),
     ({}, {"HYDRAGNN_SERVE_PRECISION": "int8"}, False),
+    ({"precision": "i8", "quant_calib_samples": 8},
+     {"HYDRAGNN_QUANT_CALIB_SAMPLES": "4"}, False),
+    ({"quant_calib_samples": 8}, {"HYDRAGNN_QUANT_CALIB_SAMPLES": "four"},
+     False),
 ]
 
 
@@ -185,10 +190,10 @@ def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
     """Every knob resolves to the JAX package's values: the fleet
     (ported: the router and its store), metrics_port (the /metrics
     server), structure, max_queue, deadline_ms, breaker_* and the
-    precision. Precision "int8", by the config block or the env, raises
-    NotImplementedError naming A8 exactly where the JAX package's
-    resolution turns the int8 tier on, at the engine
-    (`check_serving_precision`), as JAX acts on it only there."""
+    precision, int8 and its quant_calib_samples included: none of them
+    raises any longer (the int8 tier is ported; the name is kept from
+    when it was refused), and only num_shards > 1 still names A8
+    (test_run_prediction_refuses_the_metrics_server_before_any_work)."""
     import dataclasses
     for name, value in env.items():
         clean_env.setenv(name, value)
@@ -198,11 +203,6 @@ def test_unported_serving_knobs_raise_naming_a8(clean_env, block, env,
     assert dataclasses.asdict(resolve_fleet(cfg)) == \
         dataclasses.asdict(j_resolve_fleet(cfg))
     assert resolve_serving(cfg) == _as_port(j)
-    if j.precision == "int8":
-        with pytest.raises(NotImplementedError, match="A8"):
-            check_serving_precision(resolve_serving(cfg).precision)
-    else:
-        check_serving_precision(resolve_serving(cfg).precision)
 
 
 def _as_port(j):
@@ -301,9 +301,10 @@ def test_run_prediction_refuses_the_metrics_server_before_any_work(
         clean_env):
     """run_prediction resolves the serving knobs first: num_shards > 1
     raises before the model, the weights or the data are touched; the
-    int8 tier resolves (the engine refuses it, the loop computes at the
+    int8 tier resolves (an engine serves it, the loop computes at the
     train-side precision, as in the JAX package:
-    tests/test_torch_precision.py); the metrics server and the fleet are
+    tests/test_torch_precision.py, test_torch_quant.py); the metrics
+    server and the fleet are
     ported, so a metrics port and a replica count resolve (and serve,
     tests/test_torch_telemetry.py and tests/test_torch_fleet.py)."""
     from hydragnn_tpu_torch import run_prediction
@@ -371,11 +372,14 @@ def test_fault_plan_resolution_matches_jax(clean_env, caplog, config, env,
         ("forward-step@3", ""), ("forward-step@x", None))])
 def test_run_training_refuses_a_fault_plan_where_jax_resolves_one(
         clean_env, config, env, resolves):
-    """run_training raises NotImplementedError naming A5.6 (the training
-    fault sites) before any work exactly where the JAX package would
-    install a plan, and otherwise trains: a masked or malformed plan
-    injects nothing there either."""
+    """run_training installs, for the run, exactly the plan the JAX
+    package's resolution yields (the training sites are wired; the name
+    is kept from when the port refused a plan), and trains: a masked or
+    malformed plan injects nothing. The run's one dispatch an epoch
+    leaves the listed forward-step indices unreached."""
+    from hydragnn_tpu.utils.faults import resolve_fault_plan as j_resolve
     from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.utils import faults as tfaults
     from tests.utils import make_config
     clean_env.delenv("HYDRAGNN_FAULT_PLAN", raising=False)
     splits = _lattice_splits(20)
@@ -386,12 +390,19 @@ def test_run_training_refuses_a_fault_plan_where_jax_resolves_one(
         tr["fault_plan"] = config
     if env is not None:
         clean_env.setenv("HYDRAGNN_FAULT_PLAN", env)
-    if resolves:
-        with pytest.raises(NotImplementedError, match="A5.6"):
-            run_training(cfg, datasets=splits, device="cpu")
-    else:
+    want = j_resolve(tr)
+    try:
         _, history, _, _ = run_training(cfg, datasets=splits, device="cpu")
-        assert np.isfinite(history["train_loss"]).all()
+        plan = tfaults.active_fault_plan()
+        assert (plan is not None) == (want is not None) == resolves
+        if resolves:
+            assert plan.injections == want.injections
+            assert plan.fired() == []
+            assert plan.counts().get("forward-step", 0) == \
+                ("forward-step" in plan.injections)
+    finally:
+        tfaults.install_fault_plan(None)
+    assert np.isfinite(history["train_loss"]).all()
 
 
 @pytest.mark.parametrize("env", [None, "0", "1", "yes"])
@@ -551,3 +562,27 @@ def test_telemetry_env_zero_runs_without_a_session(clean_env, tmp_path):
     assert get_registry() is reg
     assert not os.path.exists("tel")
     assert "achieved_flops_per_s" not in history
+
+
+@pytest.mark.parametrize("value", [None, True, False, 1, 0])
+def test_conv_checkpointing_resolves_as_jax_and_is_not_refused(value):
+    """Training.conv_checkpointing (a config key only, as in the JAX
+    package) completes to JAX's ModelConfig value and passes
+    check_training_knobs: remat is ported (tests/test_torch_node_heads.py
+    holds it bitwise)."""
+    from hydragnn_tpu.config import config as jcfg
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.run_training import check_training_knobs
+    from tests.deterministic_data import deterministic_graph_dataset
+    from tests.test_torch_train import to_port_samples
+    from tests.utils import make_config
+    jsamples = deterministic_graph_dataset(num_configs=6)
+    cfg = make_config("GIN")
+    if value is not None:
+        cfg["NeuralNetwork"]["Training"]["conv_checkpointing"] = value
+    check_training_knobs(copy.deepcopy(cfg))
+    want = jcfg.build_model_config(jcfg.update_config(copy.deepcopy(cfg),
+                                                      jsamples))
+    got = tcfg.build_model_config(tcfg.update_config(
+        copy.deepcopy(cfg), to_port_samples(jsamples)))
+    assert got.conv_checkpointing == want.conv_checkpointing == bool(value)

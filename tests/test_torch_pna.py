@@ -153,12 +153,16 @@ def test_load_jax_variables_rejects_unknown_and_missing_keys(csce_model):
 def test_create_model_other_types_and_training_mode_raise(csce_model):
     import dataclasses
     _, _, mcfg = csce_model
-    # a knob the port still refuses: a conv-type node head (ROADMAP A4)
+    # a conv-type node head builds its convs under the JAX package's
+    # names (tests/test_torch_node_heads.py holds them against JAX)
     conv_head = dataclasses.replace(mcfg.heads[0], head_type="node",
                                     node_arch="conv")
-    with pytest.raises(NotImplementedError, match="A4"):
-        create_model(dataclasses.replace(mcfg, heads=(conv_head,)),
-                     device="cpu")
+    with_conv = create_model(dataclasses.replace(mcfg, heads=(conv_head,)),
+                             device="cpu")
+    first = mcfg.num_conv_layers
+    assert hasattr(with_conv, f"conv_{first}")
+    assert hasattr(with_conv, "head_0_norm_0") and hasattr(with_conv,
+                                                           "head_0_out")
     model = create_model(mcfg, device="cpu")
     assert not model.training
     init = dict(model.state_dict())

@@ -22,6 +22,7 @@ Bounds:
 """
 import copy
 import json
+import types
 from pathlib import Path
 
 import jax
@@ -52,7 +53,8 @@ from hydragnn_tpu_torch.ops import segment as tseg
 from hydragnn_tpu_torch.serving.config import resolve_serving
 from hydragnn_tpu_torch.serving.engine import (SERVE_REDUCED_ATOL,
                                                SERVE_REDUCED_RTOL,
-                                               InferenceEngine)
+                                               InferenceEngine,
+                                               bucket_ladder)
 from hydragnn_tpu_torch.train import optimizer as topt
 from hydragnn_tpu_torch.train import train_step as tstep
 from hydragnn_tpu_torch.train.precision import resolve_precision
@@ -140,8 +142,10 @@ def test_pass_through_dtype_names_raise():
 def test_resolve_serving_precision_matches_jax(monkeypatch, env, block):
     """Serving.precision and HYDRAGNN_SERVE_PRECISION (env over config,
     strict: a typo keeps the config's value) resolve as in the JAX
-    package, int8 included; an engine built at int8 raises naming A8
-    (the JAX package acts on int8 only in its engine path)."""
+    package, int8 included; an engine built at int8 is the int8 tier,
+    which needs calibration scales or reference samples to take them
+    from, with the JAX engine's message (the JAX package acts on int8
+    only in its engine path)."""
     if env is None:
         monkeypatch.delenv("HYDRAGNN_SERVE_PRECISION", raising=False)
     else:
@@ -150,8 +154,17 @@ def test_resolve_serving_precision_matches_jax(monkeypatch, env, block):
     want = j_resolve_serving(cfg).precision
     assert resolve_serving(cfg).precision == want
     if want == "int8":
-        with pytest.raises(NotImplementedError, match="A8"):
-            InferenceEngine(None, None, compute_dtype=want, device="cpu")
+        with pytest.raises(ValueError, match="int8 serving needs "
+                                             "calibration"):
+            InferenceEngine(
+                torch.nn.Linear(1, 1), types.SimpleNamespace(heads=[]),
+                buckets=bucket_ladder(np.array([2]), np.array([1]), 1),
+                proto_sample=tbatch.GraphSample(
+                    x=np.zeros((2, 1), np.float32),
+                    pos=np.zeros((2, 3), np.float32),
+                    senders=np.array([0], np.int32),
+                    receivers=np.array([1], np.int32)),
+                compute_dtype=want, device="cpu")
 
 
 # -------------------------------------------------- float32 accumulation --
@@ -625,8 +638,9 @@ def test_int8_without_the_engine_completes_at_the_train_side_precision(
         loop_case, monkeypatch):
     """Serving.precision "int8" with the engine off completes at the
     train-side precision, as in the JAX package (which acts on int8 only
-    in its engine path); with the engine on the port refuses it naming
-    A8 (the int8 tier is not ported)."""
+    in its engine path); with the engine on, the engine is the int8 tier
+    (tests/test_torch_quant.py holds its outputs), whose results are
+    finite and not the loop's float32 ones."""
     from hydragnn_tpu_torch import run_prediction
     (trues, preds), (_, jpreds) = _loop_predictions(loop_case, "int8", None,
                                                     monkeypatch)
@@ -639,6 +653,8 @@ def test_int8_without_the_engine_completes_at_the_train_side_precision(
         return      # DimeNet always takes the loop
     cfg = copy.deepcopy(cfg)
     cfg["Serving"] = {"precision": "int8"}
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_prediction(cfg, datasets=splits, variables=variables,
-                       serve=True, device="cpu")
+    _, served = run_prediction(cfg, datasets=splits, variables=variables,
+                               serve=True, device="cpu")
+    for p, b in zip(served, base):
+        assert p.shape == b.shape and np.isfinite(p).all()
+        assert not np.array_equal(p, b)

@@ -169,16 +169,14 @@ def test_resolve_serving_defaults_env_and_precision(monkeypatch):
     monkeypatch.setenv("HYDRAGNN_SERVE", "ture")   # typo: warns, stays off
     cfg = resolve_serving({"Serving": {"precision": "float32"}})
     assert cfg.max_batch_size == 12 and cfg.enabled is False
-    # every spelling resolves as in the JAX package; int8 (the serving
-    # tier of ROADMAP A8) is refused where an engine is built with it
-    from hydragnn_tpu_torch.serving.config import check_serving_precision
+    # every spelling resolves as in the JAX package, int8 (the serving
+    # tier, quant/) included
     for precision in ("bf16", "bfloat16", "fp32", None, "int8", "i8"):
         block = {"Serving": {"precision": precision}}
         assert resolve_serving(block).precision == \
             j_resolve(block).precision
-    with pytest.raises(NotImplementedError, match="A8"):
-        check_serving_precision(resolve_serving(
-            {"Serving": {"precision": "i8"}}).precision)
+    assert resolve_serving({"Serving": {"precision": "i8"}}).precision == \
+        "int8"
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -210,7 +208,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "hydragnn_tpu_torch.utils.smiles_utils, "
             "hydragnn_tpu_torch.graphs.synthetic, "
             "hydragnn_tpu_torch.telemetry.session, "
-            "hydragnn_tpu_torch.telemetry.mfu; "
+            "hydragnn_tpu_torch.telemetry.mfu, "
+            "hydragnn_tpu_torch.quant.calibrate, "
+            "hydragnn_tpu_torch.quant.ptq, "
+            "hydragnn_tpu_torch.quant.distill; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib', 'flax', 'optax')) "
             "or m == 'hydragnn_tpu' or m.startswith('hydragnn_tpu.') "

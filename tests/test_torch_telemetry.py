@@ -435,8 +435,8 @@ def test_resolve_md_farm_matches_jax(monkeypatch, caplog, knob, how):
 def test_metrics_port_is_served_and_the_fleet_still_refused(monkeypatch):
     """The metrics port resolves; since the fleet was ported a replica
     count resolves too (the router serves /metrics for the fleet), and
-    what is still refused, naming A8, is the int8 tier, where an engine
-    is built with it (resolution keeps it, as the JAX package's does)."""
+    since the int8 tier was ported its precision resolves beside them,
+    env over block, as the JAX package's does."""
     from hydragnn_tpu_torch.serving.config import resolve_fleet
     for name in ("HYDRAGNN_SERVE_METRICS_PORT", "HYDRAGNN_FLEET_REPLICAS",
                  "HYDRAGNN_SERVE_PRECISION"):
@@ -450,12 +450,9 @@ def test_metrics_port_is_served_and_the_fleet_still_refused(monkeypatch):
     assert resolve_fleet(cfg).replicas == 2
     monkeypatch.setenv("HYDRAGNN_FLEET_REPLICAS", "3")
     assert resolve_fleet(cfg).replicas == 3
-    from hydragnn_tpu_torch.serving.config import check_serving_precision
     cfg = resolve_serving({"Serving": {"metrics_port": 9100,
                                        "precision": "int8"}})
-    assert cfg.precision == "int8"
-    with pytest.raises(NotImplementedError, match="A8"):
-        check_serving_precision(cfg.precision)
+    assert (cfg.precision, cfg.metrics_port) == ("int8", 9200)
 
 
 def test_run_prediction_starts_the_metrics_server(monkeypatch):

@@ -709,14 +709,14 @@ def test_run_training_refuses_knobs_off_its_path():
     with open(CSCE) as fh:
         base = json.load(fh)
     # Checkpoint, continue, checkpoint_every_n_epochs, the bf16 dtype,
-    # steps_per_call and batch_packing train now
+    # steps_per_call, batch_packing and conv_checkpointing train now
     # (tests/test_torch_checkpoint.py, test_torch_precision.py,
-    # test_torch_steps_per_call.py, test_torch_packing.py); a dtype the
-    # port does not compute in still raises
+    # test_torch_steps_per_call.py, test_torch_packing.py,
+    # test_torch_node_heads.py); a dtype the port does not compute in
+    # still raises
     cases = [("Training", "pipeline_stages", 2, "A9"),
              ("Architecture", "graph_shards", 2, "A9"),
              ("Training", "async_loader_workers", 2, "A10"),
-             ("Training", "conv_checkpointing", True, "A4"),
              ("Architecture", "dtype", "float16", "A5")]
     for section, key, value, item in cases:
         cfg = copy.deepcopy(base)
