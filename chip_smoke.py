@@ -363,6 +363,30 @@ Phases:
    epochs with Checkpoint, killed by a forward-step plan in epoch 1 and
    resumed with `continue: 1`: the trajectory bitwise the uninterrupted
    run's.
+18. Data-parallel training (hydragnn_tpu_torch/parallel/), run last, on
+   phase 3's csce data at csce_gap.json's width. (a) A world-1 NCCL group
+   in this process (`init_distributed` over tcp://localhost): one dense
+   epoch of run_training, captured (the forward + backward graph, the
+   all-reduce between the graphs, the update graph), bitwise the same
+   epoch with no group; the SPMD step's ms and its collectives' ms beside
+   the single-device step's on the loader's batch. (b) Two ranks sharing
+   the card over gloo, children of this script (`--spmd-rank`), each with
+   a time bound: run_training with num_shards=2 for one epoch with the
+   config's AdamW, ZeRO off then on (the default 2^14 threshold), then
+   with SGD on the card and on the CPU in the same group: the ranks
+   bitwise each other, ZeRO bitwise no ZeRO, SGD card vs CPU within
+   TRAIN_RTOL / EVAL_RTOL (phase 5's standing bound, which it holds on
+   SGD too); each rank's optimizer-state bytes, its step ms and the
+   collectives' share of it (timed alone: the work before them is
+   waited for first). (c) LJ SchNet EF with
+   num_shards=2 for two steps (HYDRAGNN_MAX_NUM_BATCH), so B4 runs on
+   both ranks. B1 (and its backward), B3 and B4 launched.
+
+Trimmed for time in PR 18 (the smoke took 680-1,080 s of its 1,200):
+phases 5's and 6's unheld CPU run with the config's optimizer runs its
+first epoch only (the printed gap is that epoch's), and the SGD runs
+held card vs CPU in phases 5, 7 and 10 take SGD_HELD_EPOCHS (2) of
+their 3 epochs.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -371,7 +395,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `quant: {...}` (phase 17), a
+name and power limit, and before it a `spmd: {...}` (phase 18), a
+`quant: {...}` (phase 17), a
 `smiles: {...}` (phase 16), an
 `a7: {...}` (phase 15), a
 `fleet: {...}` (phase 14), a
@@ -407,6 +432,7 @@ LJ_BURSTS = 60                 # timed EF bursts, after the main-path one
 TRAIN_RTOL = 1e-3              # card vs cpu, every epoch's train loss
 EVAL_RTOL = 1e-2               # and its val/test losses (eval-mode BN)
 LJ_EPOCHS = 2                  # LJ.json trains 20 epochs; cut for time
+SGD_HELD_EPOCHS = 2            # SGD card vs CPU epochs (csce_gap.json: 3)
 CSCE_GROUP = 2                 # steps per call timed beside S = 1 (csce)
 LJ_GROUP = 4                   # and LJ EF
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -2049,6 +2075,9 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
     opt = cfg["NeuralNetwork"]["Training"]["Optimizer"]
     sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
         "type": "SGD", "learning_rate": opt.get("learning_rate", 1e-3)}
+    sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(num_epoch,
+                                                        SGD_HELD_EPOCHS)
+    num_epoch_sgd = sgd["NeuralNetwork"]["Training"]["num_epoch"]
     first = first_step_gradients(torch, sgd, splits, device)
     print(f"{label} first step: loss card vs cpu {first['loss_gap']:.3e}; "
           f"largest relative L2 gap of a gradient tensor: kernels vs plain "
@@ -2067,7 +2096,7 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
     _, h_card, _, _ = run_training(copy.deepcopy(sgd), datasets=splits,
                                    device=device)
     gaps = history_gaps(h_card, h_cpu)
-    print(f"{label} SGD {num_epoch} epochs card vs cpu ({t_cpu:.1f} s on "
+    print(f"{label} SGD {num_epoch_sgd} epochs card vs cpu ({t_cpu:.1f} s on "
           f"the cpu): relative gaps {gaps}; card train {h_card['train_loss']}"
           f" val {h_card['val_loss']} test {h_card['test_loss']}", flush=True)
     for k, v in gaps.items():
@@ -2105,11 +2134,15 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
             fail(f"{label}: non-finite {k} {h0[k]}")
     if sum(h0["nonfinite_steps"]):
         fail(f"{label}: non-finite steps {h0['nonfinite_steps']}")
+    # not held, so one epoch does (the gap printed is the first epoch's)
+    cpu_cfg = copy.deepcopy(cfg)
+    cpu_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
     t0 = time.perf_counter()
-    _, h_cpu_cfg, _, _ = run_training(copy.deepcopy(cfg), datasets=splits,
+    _, h_cpu_cfg, _, _ = run_training(cpu_cfg, datasets=splits,
                                       device="cpu")
-    print(f"{label} {opt['type']} card vs cpu ({time.perf_counter() - t0:.1f}"
-          f" s on the cpu), not held: relative gaps "
+    print(f"{label} {opt['type']} card vs cpu, first epoch "
+          f"({time.perf_counter() - t0:.1f} s on the cpu), not held: "
+          f"relative gaps "
           f"{history_gaps(h0, h_cpu_cfg)}; cpu train "
           f"{h_cpu_cfg['train_loss']} val {h_cpu_cfg['val_loss']}", flush=True)
     record = dict(first_step=first, sgd_relative_gaps=gaps,
@@ -2743,6 +2776,8 @@ def bf16_training_phase(torch, label, base_cfg, splits, device, num_epoch,
     opt = cfg["NeuralNetwork"]["Training"]["Optimizer"]
     sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
         "type": "SGD", "learning_rate": opt.get("learning_rate", 1e-3)}
+    sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(num_epoch,
+                                                        SGD_HELD_EPOCHS)
     first = {}
     for dev in ("cpu", device):
         model, _, _, loader, cfg_c, mcfg = train_parts(torch, sgd, splits,
@@ -2764,7 +2799,8 @@ def bf16_training_phase(torch, label, base_cfg, splits, device, num_epoch,
     _, h_card, _, _ = run_training(copy.deepcopy(sgd), splits, device=device)
     gaps = history_gaps(h_card, h_cpu)
     print(f"{label} bf16: first step loss card vs cpu {first_gap:.3e} "
-          f"relative; SGD {num_epoch} epochs card vs cpu ({t_cpu:.1f} s on "
+          f"relative; SGD {sgd['NeuralNetwork']['Training']['num_epoch']} "
+          f"epochs card vs cpu ({t_cpu:.1f} s on "
           f"the cpu): relative gaps {gaps} ("
           + ("held" if hold_history else "printed, not held")
           + f"); card train {h_card['train_loss']} val {h_card['val_loss']}"
@@ -3098,6 +3134,8 @@ def eam_phase(torch, device, counted, packed_batch):
             sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
                 "type": "SGD", "learning_rate": base["NeuralNetwork"][
                     "Training"]["Optimizer"]["learning_rate"]}
+            sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(
+                EAM_EPOCHS, SGD_HELD_EPOCHS)
             first = first_step_gradients(torch, sgd, splits, device)
             t0 = time.perf_counter()
             _, h_cpu, _, _ = run_training(copy.deepcopy(sgd), device="cpu")
@@ -3125,7 +3163,8 @@ def eam_phase(torch, device, counted, packed_batch):
                   f"{first['rel_l2_kernels_plain_all']:.3e}, cpu float32 vs "
                   f"float64 {first['rel_l2_cpu_f64_all']:.3e}; widest card "
                   f"vs cpu: {first['worst_card_cpu']}); "
-                  f"two card runs bitwise: {same}; SGD {EAM_EPOCHS} epochs "
+                  f"two card runs bitwise: {same}; SGD "
+                  f"{sgd['NeuralNetwork']['Training']['num_epoch']} epochs "
                   f"card vs cpu ({t_cpu:.1f} s on the cpu): relative gaps "
                   f"{gaps}; the cpu at half its threads vs the cpu: "
                   f"{floor}", flush=True)
@@ -6569,6 +6608,360 @@ def quant_phase(torch, device, card, counted, csce):
     return out, launches
 
 
+# --------------------------------------------------------------- phase 18
+
+SPMD_WORLD = 2                 # ranks sharing the card over gloo (18b-c)
+SPMD_TIMEOUT_S = 420           # the children's bound, build and CPU epoch in
+SPMD_TIMED_STEPS = 10          # steps timed after 2 warm-up steps
+SPMD_LJ_STEPS = 2              # 18c: LJ SchNet EF steps a rank
+# the kernels each part's path runs
+SPMD_KERNELS = ("nbr_aggregate", "nbr_aggregate_backward", "segment_sum")
+SPMD_LJ_KERNELS = ("filter_scatter", "filter_scatter_backward",
+                   "segment_sum")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def state_digest(state_dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(state_dict.items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def time_train_steps(torch, step, state, batch, steps=SPMD_TIMED_STEPS):
+    """(ms a step, collectives' ms a step or None): `steps` calls of a
+    train step on one placed batch after 2 warm-up calls (the capture
+    among them), each call's metrics read on the host, the last one
+    synchronized."""
+    for _ in range(2):
+        state, m = step(state, batch)
+        float(m["loss"])
+    if hasattr(step, "reset_timing"):
+        step.reset_timing()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+        float(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    coll = getattr(step, "collective_ms", None)
+    return ms, (None if coll is None else coll / steps)
+
+
+def spmd_step_times(torch, cfg, splits, device, zero=False):
+    """The SPMD step of this rank (and, outside a group of W > 1, the
+    single-device step) timed on the rank's first loader batch of a
+    fresh seeded model: {spmd_ms, collective_ms, collective_share,
+    single_ms}."""
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel.mesh import get_comm_size_and_rank
+    from hydragnn_tpu_torch.parallel.multiprocess import (allreduce_max_int,
+                                                          slice_by_process)
+    from hydragnn_tpu_torch.parallel.spmd import (SpmdTrainStep,
+                                                  make_zero_partition)
+    from hydragnn_tpu_torch.preprocess.load_data import (create_dataloaders,
+                                                         loader_budgets)
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_train_step)
+    world = get_comm_size_and_rank()[0]
+    full = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = tcfg.build_model_config(full)
+    tr = full["NeuralNetwork"]["Training"]
+    local = int(tr["batch_size"]) // world
+    parts = [slice_by_process(s, underflow="replicate") for s in splits]
+    n_node, n_edge, k = loader_budgets(sum(parts, []), local, True,
+                                       reduce_fn=allreduce_max_int)
+    loader = create_dataloaders(*parts, local, neighbor_format=True,
+                                n_node=n_node, n_edge=n_edge,
+                                neighbor_k=k)[0]
+    loader.set_epoch(0)
+    batch = next(iter(loader)).to(device)
+    out = {}
+    model = create_model(mcfg, device=device)
+    tx = select_optimizer(tr)
+    part = (make_zero_partition(list(model.parameters()))
+            if zero else None)
+    state = TrainState.create(model, tx, zero=part)
+    spmd = SpmdTrainStep(model, mcfg, tx)
+    out["spmd_ms"], out["collective_ms"] = time_train_steps(
+        torch, spmd, state, batch)
+    out["collective_share"] = out["collective_ms"] / out["spmd_ms"]
+    if world == 1:
+        model = create_model(mcfg, device=device)
+        state = TrainState.create(model, tx)
+        out["single_ms"], _ = time_train_steps(
+            torch, make_train_step(model, mcfg, tx), state, batch)
+    return out
+
+
+def spmd_child(rank: str, world: str, rdzv: str, out_path: str) -> int:
+    """18b-c in one rank of SPMD_WORLD sharing the card over gloo: csce
+    PNA run_training with num_shards=world for one epoch, ZeRO off, ZeRO
+    on and on the CPU; the ZeRO-off and -on steps timed; then LJ SchNet
+    EF for SPMD_LJ_STEPS steps. Writes the histories, state digests,
+    optimizer bytes, timings and launch counts as JSON to `out_path`."""
+    import torch
+    import torch.distributed as dist
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.graphs.synthetic import lj_configurations
+    from hydragnn_tpu_torch.kernels import _build
+    from hydragnn_tpu_torch.parallel.mesh import init_distributed
+    rank, world = int(rank), int(world)
+    t_start = time.perf_counter()
+    # the ranks share the host's cores (the CPU run's intra-op threads)
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    device = torch.device("cuda", 0)
+    init_distributed(coordinator=f"file://{rdzv}", num_processes=world,
+                     process_id=rank, timeout_s=120, backend="gloo",
+                     device=device)
+    _build.build_all()
+    base_cfg, splits, _, _ = csce_setup(torch)
+    cfg = copy.deepcopy(base_cfg)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    out = {"rank": rank, "runs": {}, "timing": {}, "launches": {}}
+    sgd = {"type": "SGD", "learning_rate": cfg["NeuralNetwork"]["Training"][
+        "Optimizer"].get("learning_rate", 1e-3)}
+    # the config's optimizer (AdamW: two slots for ZeRO to split) with and
+    # without ZeRO; SGD on the card and on the CPU for the standing
+    # card-vs-CPU bound (Adam turns gradient noise below its eps into
+    # full-size updates: phase 5 holds SGD too)
+    for name, zero, dev, opt in (("card", False, device, None),
+                                 ("card_zero", True, device, None),
+                                 ("card_sgd", False, device, sgd),
+                                 ("cpu_sgd", False, "cpu", sgd)):
+        c = copy.deepcopy(cfg)
+        if opt is not None:
+            c["NeuralNetwork"]["Training"]["Optimizer"] = dict(opt)
+        c["NeuralNetwork"]["Training"]["Optimizer"][
+            "use_zero_redundancy"] = zero
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist, model, _ = run_training(c, datasets=splits, device=dev,
+                                             num_shards=world)
+        if dev is device:
+            torch.cuda.synchronize()
+            out["launches"][name] = tk.launch_counts()
+        out["runs"][name] = dict(
+            history={k: hist[k] for k in ("train_loss", "val_loss",
+                                          "test_loss")},
+            digest=state_digest(state.state_dict()),
+            opt_bytes=sum(t.numel() * t.element_size()
+                          for ts in state.opt_state.slots.values()
+                          for t in ts),
+            seconds=time.perf_counter() - t0)
+        if name in ("card", "card_zero"):
+            out["timing"][name] = spmd_step_times(torch, c, splits, device,
+                                                  zero=zero)
+    with open(LJ_CONFIG) as fh:
+        lj_cfg = json.load(fh)
+    lj_cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+    lj_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    n_tr, n_va = int(0.6 * NUM_LJ), int(0.2 * NUM_LJ)
+    lj = lj_configurations(NUM_LJ, seed=SEED)
+    os.environ["HYDRAGNN_MAX_NUM_BATCH"] = str(SPMD_LJ_STEPS)
+    tk.reset_launch_counts()
+    state, hist, _, _ = run_training(
+        lj_cfg, datasets=(lj[:n_tr], lj[n_tr:n_tr + n_va], lj[n_tr + n_va:]),
+        device=device, num_shards=world)
+    torch.cuda.synchronize()
+    del os.environ["HYDRAGNN_MAX_NUM_BATCH"]
+    out["launches"]["lj"] = tk.launch_counts()
+    out["runs"]["lj"] = dict(
+        history={k: hist[k] for k in ("train_loss", "val_loss",
+                                      "test_loss")},
+        digest=state_digest(state.state_dict()), steps=int(state.step))
+    out["seconds"] = time.perf_counter() - t_start
+    with open(out_path + ".tmp", "w") as fh:
+        json.dump(out, fh)
+    os.replace(out_path + ".tmp", out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def spmd_phase(torch, device, card, counted, csce):
+    """Phase 18 (see the module docstring): (record, launches)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.parallel.mesh import init_distributed
+    base_cfg, splits = csce["base_cfg"], csce["splits"]
+    cfg = copy.deepcopy(base_cfg)
+    cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    rec, launches = {}, {}
+
+    def add(counts):
+        counted(counts)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    # (a) a world-1 NCCL group in this process, beside no group
+    t0 = time.perf_counter()
+    _, h_ref, model_ref, _ = run_training(copy.deepcopy(cfg), datasets=splits,
+                                          device=device)
+    torch.cuda.synchronize()
+    ref = state_digest(model_ref.state_dict())
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    world = init_distributed(coordinator=f"tcp://127.0.0.1:{free_port()}",
+                             num_processes=1, process_id=0, timeout_s=120,
+                             device=device)
+    try:
+        if world != (1, 0) or dist.get_backend() != "nccl":
+            fail(f"phase 18a: group {world}, backend {dist.get_backend()}")
+        tk.reset_launch_counts()
+        _, h_grp, model_grp, _ = run_training(copy.deepcopy(cfg),
+                                              datasets=splits, device=device)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        add(counts)
+        got = state_digest(model_grp.state_dict())
+        same = got == ref and all(h_grp[k] == h_ref[k] for k in
+                                  ("train_loss", "val_loss", "test_loss"))
+        times = spmd_step_times(torch, cfg, splits, device)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 18a: csce PNA (dense) one epoch in a world-1 NCCL group, "
+          f"captured (the all-reduce between the forward+backward graph and "
+          f"the update graph): bitwise no group: {same}; train "
+          f"{h_grp['train_loss']} val {h_grp['val_loss']}; launches {counts}"
+          f"; SPMD step {times['spmd_ms']:.3f} ms (collectives "
+          f"{times['collective_ms']:.3f} ms, share "
+          f"{times['collective_share']:.3f}) vs the single-device step "
+          f"{times['single_ms']:.3f} ms on the same batch (phase 5's "
+          f"captured step: "
+          f"{csce['paths']['csce_pna_dense']['graph_S1']['step_ms']:.3f}"
+          f" ms); {time.perf_counter() - t0:.1f} s (card: {card})",
+          flush=True)
+    if not same:
+        fail("phase 18a: the world-1 group's run differs from no group")
+    for name in SPMD_KERNELS:
+        if counts.get(name, 0) == 0:
+            fail(f"phase 18a: {name} never launched")
+    rec["a"] = dict(bitwise_no_group=same, allreduce_route="between graphs",
+                    launches=counts, **times)
+
+    # (b, c) two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hydragnn_spmd_") as tmp:
+        procs = []
+        for r in range(SPMD_WORLD):
+            log = open(f"{tmp}/rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, __file__, "--spmd-rank", str(r),
+                 str(SPMD_WORLD), f"{tmp}/rdzv", f"{tmp}/rank{r}.json"],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + SPMD_TIMEOUT_S
+        bad = []
+        try:
+            for r, (proc, log) in enumerate(procs):
+                try:
+                    proc.wait(timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    bad.append(f"rank {r} outlasted {SPMD_TIMEOUT_S} s")
+                    break
+                if proc.returncode != 0:
+                    bad.append(f"rank {r} exited {proc.returncode}")
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        if bad:
+            tails = []
+            for r in range(SPMD_WORLD):
+                with open(f"{tmp}/rank{r}.log") as fh:
+                    tails.append(f"--- rank {r}\n{fh.read()[-3000:]}")
+            fail("phase 18b: " + "; ".join(bad) + "\n" + "\n".join(tails))
+        ranks = []
+        for r in range(SPMD_WORLD):
+            with open(f"{tmp}/rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        for part in ("card", "card_zero", "card_sgd", "lj"):
+            add(r["launches"][part])
+    equal_ranks = all(r["runs"][k]["digest"] == r0["runs"][k]["digest"]
+                      and r["runs"][k]["history"] == r0["runs"][k]["history"]
+                      for r in ranks for k in r0["runs"])
+    zero_same = all(r["runs"]["card_zero"]["digest"] ==
+                    r["runs"]["card"]["digest"] and
+                    r["runs"]["card_zero"]["history"] ==
+                    r["runs"]["card"]["history"] for r in ranks)
+    gaps = history_gaps(r0["runs"]["card_sgd"]["history"],
+                        r0["runs"]["cpu_sgd"]["history"])
+    for r in ranks:
+        t = r["timing"]
+        print(f"phase 18b: rank {r['rank']}: optimizer state "
+              f"{r['runs']['card']['opt_bytes']} bytes, ZeRO "
+              f"{r['runs']['card_zero']['opt_bytes']} bytes; step "
+              f"{t['card']['spmd_ms']:.3f} ms (collectives "
+              f"{t['card']['collective_ms']:.3f} ms, share "
+              f"{t['card']['collective_share']:.3f}), ZeRO "
+              f"{t['card_zero']['spmd_ms']:.3f} ms (collectives "
+              f"{t['card_zero']['collective_ms']:.3f} ms, share "
+              f"{t['card_zero']['collective_share']:.3f}); launches "
+              f"{r['launches']['card']}; {r['seconds']:.1f} s", flush=True)
+    print(f"phase 18b: csce PNA num_shards={SPMD_WORLD}, two ranks on one "
+          f"card over gloo, one epoch: ranks bitwise {equal_ranks}; ZeRO "
+          f"bitwise no ZeRO {zero_same}; SGD card vs cpu (same group) "
+          f"relative gaps {gaps}; train "
+          f"{r0['runs']['card']['history']['train_loss']}"
+          f" val {r0['runs']['card']['history']['val_loss']}; {wall:.1f} s "
+          f"(card: {card})", flush=True)
+    lj_h = r0["runs"]["lj"]["history"]
+    print(f"phase 18c: LJ SchNet EF num_shards={SPMD_WORLD}, "
+          f"{r0['runs']['lj']['steps']} steps a rank: train "
+          f"{lj_h['train_loss']} val {lj_h['val_loss']}; launches "
+          f"{[r['launches']['lj'] for r in ranks]} (card: {card})",
+          flush=True)
+    if not equal_ranks:
+        fail("phase 18b: the two ranks' runs differ")
+    if not zero_same:
+        fail("phase 18b: ZeRO's run differs from the replicated run")
+    for k, v in gaps.items():
+        bound = TRAIN_RTOL if k == "train_loss" else EVAL_RTOL
+        if not v <= bound:
+            fail(f"phase 18b: {k} card vs cpu gap {v} above {bound}")
+    for r in ranks:
+        for part, names in (("card", SPMD_KERNELS),
+                            ("card_zero", SPMD_KERNELS),
+                            ("card_sgd", SPMD_KERNELS),
+                            ("lj", SPMD_LJ_KERNELS)):
+            for name in names:
+                if r["launches"][part].get(name, 0) == 0:
+                    fail(f"phase 18: {name} never launched on rank "
+                         f"{r['rank']}'s {part} path")
+        if r["runs"]["lj"]["steps"] != SPMD_LJ_STEPS or not np.isfinite(
+                r["runs"]["lj"]["history"]["train_loss"]).all():
+            fail(f"phase 18c: rank {r['rank']}: {r['runs']['lj']}")
+    rec["b"] = dict(ranks_bitwise=equal_ranks, zero_bitwise=zero_same,
+                    card_cpu_relative_gaps=gaps, wall_s=wall,
+                    allreduce_route="between graphs (gloo)",
+                    ranks=[dict(rank=r["rank"], timing=r["timing"],
+                                opt_bytes={k: r["runs"][k]["opt_bytes"]
+                                           for k in ("card", "card_zero")},
+                                seconds=r["seconds"]) for r in ranks])
+    rec["c"] = dict(history=lj_h, launches=[r["launches"]["lj"]
+                                            for r in ranks])
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7017,6 +7410,12 @@ def main() -> int:
         torch, device, card, counted,
         dict(csce, base_cfg=base_cfg, splits=splits))
 
+    # ---------------------------------------------------------- phase 18
+    stamp(18)
+    spmd, spmd_launches = spmd_phase(torch, device, card, counted,
+                                     dict(base_cfg=base_cfg, splits=splits,
+                                          mcfg=mcfg, paths=train_paths))
+
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
@@ -7027,6 +7426,7 @@ def main() -> int:
     print("a7: " + json.dumps(dict(a7, card=card)), flush=True)
     print("smiles: " + json.dumps(dict(smiles, card=card)), flush=True)
     print("quant: " + json.dumps(quant), flush=True)
+    print("spmd: " + json.dumps(dict(spmd, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -7072,6 +7472,11 @@ def main() -> int:
             extra["launches_smiles_path"] = smiles["b_launches"][name]
         if quant_launches.get(name):
             extra["launches_quant_path"] = quant_launches[name]
+        if spmd_launches.get(name):
+            extra["launches_spmd_path"] = spmd_launches[name]
+            if name == "filter_scatter":
+                extra["backward_launches_spmd_path"] = spmd_launches[
+                    "filter_scatter_backward"]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")
@@ -7095,6 +7500,7 @@ def main() -> int:
                             replaces=rep, launches=launches[counter],
                             launches_per_captured_step=per_captured_step(
                                 counter),
+                            launches_spmd_path=spmd_launches.get(counter, 0),
                             **rec))
     stamp("end")
     print(card, flush=True)
@@ -7108,4 +7514,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-replica"]:
         sys.exit(fleet_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--spmd-rank"]:
+        sys.exit(spmd_child(*sys.argv[2:6]))
     sys.exit(main())

@@ -26,8 +26,12 @@ transient I/O with the `loader-fetch` fault site (utils/faults.py) once
 an attempt, as the JAX loader's synchronous path fetches
 (HYDRAGNN_ASYNC_LOADER=0).
 
-Device-stacked shards and packing across processes (ROADMAP A9),
-background collation and the batch cache (A10) are not ported.
+Packing across processes (`pack_rank`, `pack_nproc`): every rank plans
+the same global order and takes its bin of each global step of
+`pack_nproc` bins (`graphs.packing.plan_steps`); a padding bin of the
+tail is an all-padding batch. One device per rank, so no
+device-stacked shards. Background collation and the batch cache (A10)
+are not ported.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 
 from ..graphs.batch import (BucketSpec, GraphBatch, GraphSample, collate,
-                            neighbor_budget_for_dataset, with_neighbor_format)
+                            neighbor_budget_for_dataset, padding_batch,
+                            with_neighbor_format)
 from ..graphs.packing import (choose_budget, pack_order, plan_padding_stats,
                               plan_steps, sample_sizes)
 from ..telemetry.registry import get_registry
@@ -114,10 +119,6 @@ class GraphDataLoader:
                  pack_budget=None, pack_lookahead: Optional[int] = None,
                  pack_rank: int = 0, pack_nproc: int = 1,
                  batch_transform=None):
-        if pack_rank != 0 or pack_nproc != 1:
-            raise NotImplementedError(
-                "packing across processes is not ported to "
-                "hydragnn_tpu_torch yet (ROADMAP A9: multi-GPU training)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -125,6 +126,7 @@ class GraphDataLoader:
         self.epoch = 0
         self.drop_last = shuffle if drop_last is None else drop_last
         self.packing = bool(packing)
+        self.pack_rank, self.pack_nproc = int(pack_rank), int(pack_nproc)
         self.pack_budget = None
         self._sizes = None        # (nodes[], edges[]), scanned once
         self._plan_cache = {}     # epoch -> (bins, selections)
@@ -181,22 +183,27 @@ class GraphDataLoader:
         return self._sizes
 
     def _plan(self):
-        """The epoch's pack plan, (bins, selections), built once an epoch
-        (only the current epoch's is kept). One shard and one process:
-        each selection is a 1-tuple of one bin."""
+        """The epoch's pack plan, (global bins, this rank's selections),
+        built once an epoch (only the current epoch's is kept): the plan
+        of the global order, sliced per (pack_rank, pack_nproc); each
+        selection is a 1-tuple of one bin."""
         key = self.epoch if self.shuffle else -1
         hit = self._plan_cache.get(key)
         if hit is None:
             nodes, edges = self._sample_sizes()
             bins = pack_order(self._order(), nodes, edges, self.pack_budget)
-            hit = (bins, plan_steps(bins, 1, drop_last=self.drop_last))
+            hit = (bins, plan_steps(bins, 1, self.pack_nproc,
+                                    self.pack_rank,
+                                    drop_last=self.drop_last))
             self._plan_cache = {key: hit}
         return hit
 
     def global_plan_fingerprint(self) -> str:
-        """sha256 (first 16 hex digits) of the current epoch's pack plan:
-        its bins, the budget's shape and the shard count (1), as the JAX
-        package's run_training logs it. Packing-mode loaders only."""
+        """sha256 (first 16 hex digits) of the current epoch's global pack
+        plan: its bins before the per-rank slicing, the budget's shape and
+        the global shard count (`pack_nproc`, one shard a rank), as the
+        JAX package's run_training logs it; equal on every rank.
+        Packing-mode loaders only."""
         if not self.packing:
             raise ValueError(
                 "global_plan_fingerprint is defined for packing-mode "
@@ -204,7 +211,7 @@ class GraphDataLoader:
         bins, _ = self._plan()
         b = self.pack_budget
         payload = repr((tuple(tuple(int(i) for i in bn) for bn in bins),
-                        (b.n_node, b.n_edge, b.n_graph), 1))
+                        (b.n_node, b.n_edge, b.n_graph), self.pack_nproc))
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     def padding_stats(self):
@@ -234,8 +241,10 @@ class GraphDataLoader:
         if self.packing:
             (sel,) = sel
         samples = fetch_samples(self.dataset, sel)
-        b = collate(samples, n_node=self.n_node, n_edge=self.n_edge,
-                    n_graph=self.n_graph)
+        b = (collate(samples, n_node=self.n_node, n_edge=self.n_edge,
+                     n_graph=self.n_graph) if samples
+             else padding_batch(self.dataset[0], self.n_node, self.n_edge,
+                                self.n_graph))
         if self.batch_transform is not None:
             b = self._apply_transform(b, samples)
         # after the transform, which may rewire edges: the tables describe

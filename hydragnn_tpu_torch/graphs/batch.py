@@ -283,6 +283,21 @@ def collate(
     )
 
 
+def padding_batch(proto: GraphSample, n_node: int, n_edge: int,
+                  n_graph: int) -> GraphBatch:
+    """An all-padding batch with `proto`'s fields (the JAX loader's empty
+    shard): every value zero, every id the last (padding) node or graph
+    slot, every mask False."""
+    b = collate([proto], n_node=n_node, n_edge=n_edge, n_graph=n_graph)
+    fill = {"senders": n_node - 1, "receivers": n_node - 1,
+            "node_graph": n_graph - 1}
+    return b.replace(**{
+        f.name: (None if getattr(b, f.name) is None
+                 else torch.full_like(getattr(b, f.name),
+                                      fill.get(f.name, 0)))
+        for f in dataclasses.fields(b)})
+
+
 def build_neighbor_tables(senders: np.ndarray, receivers: np.ndarray,
                           edge_mask: np.ndarray, n_node: int, n_edge: int,
                           k: Optional[int] = None, k_multiple: int = 8):

@@ -5,8 +5,12 @@ a plain C interface, compiled for Hopper (`sm_90a`) by one `nvcc` process
 per source, all started together. Libraries land in
 `build/hydragnn_tpu_torch/<hash>/` at the checkout's root, keyed by a hash
 of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads from disk. A missing `nvcc` or a failed compile raises
-with the compiler's output. Importing this module builds nothing.
+unchanged one loads from disk. Processes that build at once (the ranks of
+a data-parallel run, a fleet's replicas) take turns at an `fcntl` lock on
+`.build.lock` in the digest directory around the check and the compile,
+so `nvcc` runs once; the lock goes with its process, so a killed build
+leaves none behind. A missing `nvcc` or a failed compile raises with the
+compiler's output. Importing this module builds nothing.
 
 A compile store (`utils/devices.CompileStore`) carries the built
 libraries to another checkout or process: `export_libraries()` gives them
@@ -17,6 +21,7 @@ into the digest directory, where `build_all` then finds them and runs no
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -65,17 +70,20 @@ def _source_digest() -> str:
 
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile (if needed) and load every kernel library; returns
-    {source stem: CDLL}. Thread-safe; builds at most once per process."""
+    {source stem: CDLL}. Thread-safe and process-safe (the digest
+    directory's lock file); builds at most once per process."""
     with _lock:
         if _libs:
             return _libs
         sources = sorted(CSRC_DIR.glob("*.cu"))
         out_dir = BUILD_ROOT / _source_digest()
         out_dir.mkdir(parents=True, exist_ok=True)
-        todo = [s for s in sources
-                if not (out_dir / f"lib{s.stem}.so").exists()]
-        if todo:
-            _compile(todo, out_dir)
+        with open(out_dir / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            todo = [s for s in sources
+                    if not (out_dir / f"lib{s.stem}.so").exists()]
+            if todo:
+                _compile(todo, out_dir)
         for src in sources:
             _libs[src.stem] = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))
             log = out_dir / f"lib{src.stem}.log"

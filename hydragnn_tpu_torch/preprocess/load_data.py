@@ -7,11 +7,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from ..datasets.loader import GraphDataLoader, padded_budgets
+from ..datasets.loader import GraphDataLoader, dataset_invariants
 # split_dataset lives with the readers that split; it is importable here,
 # where the JAX package keeps it
 from ..datasets.split import split_dataset  # noqa: F401
-from ..graphs.batch import neighbor_budget_for_dataset
+from ..graphs.batch import BucketSpec, neighbor_budget_for_dataset
 from ..graphs.packing import choose_budget, sample_sizes
 from ..utils.envflags import (resolve_preproc_cache_dir,
                               resolve_preproc_workers)
@@ -78,43 +78,62 @@ def load_datasets_from_config(config: Dict):
 
 
 def loader_budgets(all_samples, graphs_per_batch: int,
-                   neighbor_format: bool = False):
+                   neighbor_format: bool = False, reduce_fn=None):
     """(n_node, n_edge, K or None): the padded shapes every batch of the
     run shares — room for `graphs_per_batch` of the largest graphs,
-    bucketed by BucketSpec(64) — and the dense layout's K."""
-    n_node, n_edge = padded_budgets(all_samples, graphs_per_batch)
-    return (n_node, n_edge,
-            neighbor_budget_for_dataset(all_samples) if neighbor_format
-            else None)
+    bucketed by BucketSpec(64) — and the dense layout's K. `reduce_fn(max
+    nodes, max edges, K)` lets a multi-process caller max-reduce the raw
+    statistics over the ranks before bucketing
+    (`parallel.multiprocess.allreduce_max_int`), so every rank builds the
+    same shapes."""
+    inv = dataset_invariants(all_samples)
+    mx_n, mx_e = inv.max_nodes, inv.max_edges
+    k = neighbor_budget_for_dataset(all_samples) if neighbor_format else 0
+    if reduce_fn is not None:
+        mx_n, mx_e, k = reduce_fn(mx_n, mx_e, k)
+    bucket = BucketSpec(multiple=64)
+    return (bucket.bucket(mx_n * graphs_per_batch + 1),
+            bucket.bucket(mx_e * graphs_per_batch + 1),
+            k if neighbor_format else None)
 
 
 def create_dataloaders(trainset, valset, testset, batch_size: int,
                        neighbor_format: bool = False, packing: bool = False,
                        pack_lookahead: Optional[int] = None,
-                       batch_transform=None):
+                       batch_transform=None, n_node: Optional[int] = None,
+                       n_edge: Optional[int] = None,
+                       neighbor_k: Optional[int] = None,
+                       pack_rank: int = 0, pack_nproc: int = 1):
     """One loader per split (seed 0), all three on one batch shape (and
     one K), so each step kind is one CUDA graph; the train loader shuffles
     and drops its last partial batch. Fixed-shape: room for `batch_size`
-    of the largest graphs of any split. With `packing`: the pack budget
-    `choose_budget` sizes once over all three splits for `batch_size`
-    average graphs (`pack_lookahead` its planner window).
-    `batch_transform` (DimeNet's triplets) rewrites every batch."""
+    of the largest graphs of any split, or the `n_node` / `n_edge` /
+    `neighbor_k` a multi-process caller reduced over the ranks
+    (`loader_budgets`). With `packing`: the pack budget `choose_budget`
+    sizes once over all three splits for `batch_size` average graphs
+    (`pack_lookahead` its planner window), each rank taking its bins of
+    the global plan (`pack_rank` of `pack_nproc`). `batch_transform`
+    (DimeNet's triplets) rewrites every batch."""
     all_samples = list(trainset) + list(valset) + list(testset)
-    pack_budget = n_node = n_edge = None
+    pack_budget = None
+    k = neighbor_k
     if packing:
         nodes, edges = sample_sizes(all_samples)
         pack_budget = choose_budget(nodes, edges, max(batch_size, 1),
                                     lookahead=pack_lookahead)
-        k = (neighbor_budget_for_dataset(all_samples) if neighbor_format
-             else None)
-    else:
-        n_node, n_edge, k = loader_budgets(all_samples, max(batch_size, 1),
-                                           neighbor_format)
+        n_node = n_edge = None
+    elif n_node is None or n_edge is None:
+        n_node, n_edge, kb = loader_budgets(all_samples, max(batch_size, 1),
+                                            neighbor_format)
+        k = k if k is not None else kb
+    if neighbor_format and k is None:
+        k = neighbor_budget_for_dataset(all_samples)
 
     def mk(ds, shuffle):
         return GraphDataLoader(ds, batch_size, shuffle=shuffle, n_node=n_node,
                                n_edge=n_edge, neighbor_format=neighbor_format,
                                neighbor_k=k, packing=packing,
                                pack_budget=pack_budget,
+                               pack_rank=pack_rank, pack_nproc=pack_nproc,
                                batch_transform=batch_transform)
     return mk(trainset, True), mk(valset, False), mk(testset, False)

@@ -28,6 +28,15 @@ build, takes the loop with the JAX package's warning. Returns (trues, preds), on
 over real graphs (graph heads) or real nodes (node heads). With
 HYDRAGNN_DUMP_TESTDATA set, they are also pickled to
 ./logs/<log name>/test_data.pk as {output name: {"true", "pred"}}.
+
+`num_shards` > 1 (JAX run_prediction.py:131-146) predicts through the
+loop over the ranks of the process group (`parallel.mesh.
+init_distributed`): each global batch of `batch_size` test samples splits
+into `num_shards` contiguous shards, rank r forwards shard r, and the
+padded outputs are gathered in the JAX package's device-major order, so
+every rank returns the whole lists. `num_shards` resolves over the world
+as in run_training (one process: back to 1 with JAX's warning). The
+engine route's sharding over devices is not ported (A8) and raises.
 """
 from __future__ import annotations
 
@@ -43,9 +52,11 @@ import torch
 from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
 from .graphs.batch import BucketSpec, collate, neighbor_budget_for_dataset, \
-    with_neighbor_format
+    padding_batch, with_neighbor_format
 from .graphs.triplets import maybe_triplet_transform
 from .models.create import create_model, data_input_dim
+from .parallel.mesh import get_comm_size_and_rank, resolve_num_shards
+from .parallel.spmd import predict_rows
 from .postprocess.postprocess import output_denormalize
 from .preprocess.load_data import load_datasets_from_config
 from .quant.calibrate import calibrate
@@ -69,11 +80,13 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     Flax tree), else `model` (a trained model), else the run's
     `checkpoint` ("latest" or "best") under ./logs; they are loaded into a
     fresh model on `device`, so a trained model is left as it is.
-    `num_shards` > 1 (serving sharded over devices) is not ported and
-    raises naming A8."""
+    `num_shards` > 1 shards the loop's batches over the process group's
+    ranks; on the engine route it is not ported and raises naming A8."""
     config = load_config(config_or_path)
     serving = resolve_serving(config)
-    check_unported_serving_knobs(num_shards)
+    use_engine = serving.enabled if serve is None else bool(serve)
+    if use_engine:
+        check_unported_serving_knobs(num_shards)
     dev = resolve_device(device)
     if datasets is None:
         datasets = load_datasets_from_config(config)
@@ -107,9 +120,9 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     neighbor_k = neighbor_budget_for_dataset(all_samples) if nbr_fmt else None
 
     # DimeNet's triplets, with run_training's budget
-    batch_transform = maybe_triplet_transform(mcfg.model_type, all_samples,
-                                              max(batch_size, 1))
-    use_engine = serving.enabled if serve is None else bool(serve)
+    num_shards = resolve_num_shards(num_shards or 1, batch_size)
+    batch_transform = maybe_triplet_transform(
+        mcfg.model_type, all_samples, max(batch_size // num_shards, 1))
     if use_engine and batch_transform is not None:
         # the engine builds no triplet tables for its buckets: the same
         # fallback as the JAX package's
@@ -125,7 +138,8 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
         forward = make_forward_fn(model, mcfg, None, frozen=True)
         trues, preds = _predict_with_loader(forward, mcfg, testset,
                                             all_samples, batch_size,
-                                            neighbor_k, dev, batch_transform)
+                                            neighbor_k, dev, batch_transform,
+                                            num_shards)
     voi = config["NeuralNetwork"]["Variables_of_interest"]
     if voi.get("denormalize_output") and "y_minmax" in voi:
         trues, preds = output_denormalize(voi["y_minmax"], trues, preds)
@@ -191,33 +205,53 @@ def _sample_targets(mcfg, sample):
 
 
 def _predict_with_loader(forward, mcfg, testset, all_samples, batch_size,
-                         neighbor_k, device, batch_transform=None):
+                         neighbor_k, device, batch_transform=None,
+                         num_shards: int = 1):
     """One padded forward per `batch_size` test samples, every batch on
     the shape the JAX loaders use: nodes and edges for `batch_size`
     largest graphs, rounded by BucketSpec(64); `batch_transform(batch,
-    samples)` (DimeNet's triplets) rewrites each batch first."""
+    samples)` (DimeNet's triplets) rewrites each batch first. With
+    `num_shards` > 1 (one a rank of the group) rank r forwards shard r of
+    each batch, on the shape of `batch_size // num_shards` graphs (an
+    empty shard is all padding), and the outputs of every rank are
+    gathered in rank order."""
+    graphs = max(batch_size // num_shards, 1)
+    rank = get_comm_size_and_rank()[1] if num_shards > 1 else 0
     bucket = BucketSpec(multiple=64)
     n_node = bucket.bucket(max(s.num_nodes for s in all_samples)
-                           * batch_size + 1)
+                           * graphs + 1)
     n_edge = bucket.bucket(max(s.num_edges for s in all_samples)
-                           * batch_size + 1)
+                           * graphs + 1)
     trues = [[] for _ in mcfg.heads]
     preds = [[] for _ in mcfg.heads]
     for i in range(0, len(testset), batch_size):
         chunk = testset[i:i + batch_size]
-        batch = collate(chunk, n_node=n_node, n_edge=n_edge,
-                        n_graph=batch_size + 1)
+        shard = chunk[rank * graphs:(rank + 1) * graphs]
+        if shard:
+            batch = collate(shard, n_node=n_node, n_edge=n_edge,
+                            n_graph=graphs + 1)
+        else:
+            batch = padding_batch(testset[0], n_node, n_edge, graphs + 1)
         if batch_transform is not None:
-            batch = batch_transform(batch, chunk)
+            batch = batch_transform(batch, shard)
         if neighbor_k is not None:
             batch = with_neighbor_format(batch, k=neighbor_k)
         with torch.inference_mode():
             outputs, _ = forward(batch.to(device))
-        gm = batch.graph_mask.numpy()
-        nm = batch.node_mask.numpy()
-        for ih, head in enumerate(mcfg.heads):
-            out = outputs[ih].cpu().numpy()
-            preds[ih].append(out[gm if head.head_type == "graph" else nm])
+        outputs = [o.cpu() for o in outputs]
+        masks = [batch.graph_mask, batch.node_mask]
+        if num_shards > 1:
+            rows = predict_rows(outputs + [m.to(torch.uint8) for m in masks])
+            outputs, masks = rows[:-2], [m.bool() for m in rows[-2:]]
+        else:
+            outputs = [o[None] for o in outputs]
+            masks = [m[None] for m in masks]
+        for r in range(masks[0].shape[0]):
+            gm, nm = masks[0][r].numpy(), masks[1][r].numpy()
+            for ih, head in enumerate(mcfg.heads):
+                out = outputs[ih][r].numpy()
+                preds[ih].append(out[gm if head.head_type == "graph"
+                                     else nm])
         for s in chunk:
             for ih, t in enumerate(_sample_targets(mcfg, s)):
                 trues[ih].append(t)

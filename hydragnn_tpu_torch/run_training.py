@@ -61,20 +61,55 @@ sites are `forward-step` (once a train-loop dispatch), `checkpoint-write`
 attempt, under the loader's bounded retry). `Training.conv_checkpointing`
 recomputes each encoder conv in the backward (models/base.py).
 
+Data parallelism (JAX run_training.py:156-199, 270-379; parallel/):
+`run_training` joins the process group that `parallel.mesh.
+init_distributed` makes from HYDRAGNN_MASTER_ADDR / _PORT, SLURM_NPROCS
+and SLURM_PROCID (or one the caller made). In a group of W ranks,
+`num_shards` (default: W) resolves as the JAX package resolves it over W
+devices, one a rank; a single process asked for more falls back to 1
+with JAX's warning. With W > 1 each rank keeps its contiguous slice of
+the replicated splits (HYDRAGNN_MP_DATA=replicated, the default; the
+val/test splits are kept whole when too small to slice) or, packed,
+its bins of the one global pack plan; with HYDRAGNN_MP_DATA=local the
+splits are the rank's own and the data-derived config statistics are
+reduced over the group. The padded batch shape and neighbour K are
+max-reduced over the ranks, every rank must have as many batches, and
+`steps_per_call` is 1. In a group (W = 1 included) the steps are
+`parallel.spmd`'s: the rank's shard, then the gradients, BatchNorm
+running statistics and metrics averaged over the group;
+`Optimizer.use_zero_redundancy` splits the optimizer state over the
+ranks (`zero_min_shard_size`, default 2^14 elements). Rank 0 alone writes
+./logs/<run name>/history.json (in one process too, as in JAX), the
+checkpoint files and the telemetry; every rank calls each save, which
+ends with a barrier. DimeNet's triplet budget is not reduced over the
+ranks, so DimeNet trains in one process, as in JAX.
+
 Knobs off this path raise NotImplementedError naming the ROADMAP item
 that brings them; none is ignored.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
 import logging
 import os
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
 from .graphs.triplets import maybe_triplet_transform
 from .models.create import create_model, data_input_dim
-from .preprocess.load_data import (create_dataloaders,
+from .parallel.mesh import (ZERO_MIN_SHARD_SIZE, init_distributed,
+                            resolve_num_shards)
+from .parallel.multiprocess import (allreduce_max_int,
+                                    assert_equal_across_processes,
+                                    packing_process_coords, slice_by_process,
+                                    sync_config_stats,
+                                    validate_multiprocess_spmd)
+from .parallel.spmd import SpmdEvalStep, SpmdTrainStep, make_zero_partition
+from .preprocess.load_data import (create_dataloaders, loader_budgets,
                                    load_datasets_from_config)
 from .train import trainer
 from .train.optimizer import select_optimizer
@@ -86,7 +121,7 @@ from .utils import checkpoint as ckpt
 from .utils.devices import resolve_device
 from .utils.faults import install_fault_plan, resolve_fault_plan
 from .telemetry import EpochDeviceTrace, start_session
-from .utils.envflags import (env_flag, resolve_pack_lookahead,
+from .utils.envflags import (env_flag, env_str, resolve_pack_lookahead,
                              resolve_packing, resolve_steps_per_call,
                              resolve_telemetry)
 
@@ -105,14 +140,11 @@ def check_training_knobs(config) -> None:
     nn = config["NeuralNetwork"]
     tr = nn["Training"]
     arch = nn["Architecture"]
-    opt = tr.get("Optimizer", {}) or {}
     checks = [
         (int(arch.get("graph_shards", 1) or 1) > 1,
          "Architecture.graph_shards", "A9: multi-GPU training"),
         (int(tr.get("pipeline_stages", 1) or 1) > 1,
          "Training.pipeline_stages", "A9: multi-GPU training"),
-        (opt.get("use_zero_redundancy"),
-         "Optimizer.use_zero_redundancy", "A9: multi-GPU training"),
         ((config.get("Visualization") or {}).get("create_plots"),
          "Visualization.create_plots", "A10: postprocess"),
         (tr.get("async_loader_workers") or tr.get("batch_cache_mb"),
@@ -129,8 +161,6 @@ def check_training_knobs(config) -> None:
 def run_training(config_or_path, datasets: Optional[Sequence] = None,
                  device="cuda", num_shards: Optional[int] = None):
     config = load_config(config_or_path)
-    if num_shards not in (None, 1):
-        _not_ported(f"num_shards={num_shards}", "A9: multi-GPU training")
     check_training_knobs(config)
     # the fault plan (HYDRAGNN_FAULT_PLAN over Training.fault_plan) is
     # installed per run, so the sites' counters start fresh, and a stale
@@ -140,6 +170,8 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         config["NeuralNetwork"].get("Training", {})))
     trainer.clear_preemption()
     dev = resolve_device(device)
+    world, rank = init_distributed(device=dev)
+    in_group = dist.is_initialized()
     if datasets is None:
         datasets = load_datasets_from_config(config)
     trainset, valset, testset = (list(d) for d in datasets)
@@ -149,25 +181,61 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     config = update_config(config, trainset, valset, testset)
     nn = config["NeuralNetwork"]
     train_cfg = nn["Training"]
-    mcfg = data_input_dim(build_model_config(config), trainset)
     batch_size = int(train_cfg["batch_size"])
     verbosity = int(config.get("Verbosity", {}).get("level", 0) or 0)
 
     nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
                        bool(nn["Architecture"].get("neighbor_format", True)))
     packing = resolve_packing(train_cfg)
-    if packing and mcfg.model_type == "DimeNet":
+    if packing and nn["Architecture"]["model_type"] == "DimeNet":
         print("batch_packing: DimeNet's static triplet budget is not "
               "pack-aware yet; falling back to fixed-shape batching",
               flush=True)
         packing = False
+    (trainset, valset, testset), config, (pack_rank, pack_nproc) = \
+        _multiprocess_data(config, (trainset, valset, testset), packing,
+                           world)
+    nn = config["NeuralNetwork"]
+    mcfg = data_input_dim(build_model_config(config), trainset)
+
+    # the shard count over one device a rank (JAX run_training.py:270-292)
+    num_shards = resolve_num_shards(num_shards, batch_size)
+    if world > 1 and num_shards == 1:
+        raise ValueError(
+            "multi-process runs support the plain SPMD data-parallel "
+            "path only: pipeline_stages and graph_shards must be 1 and "
+            f"num_shards > 1 (got pipeline_stages=1, graph_shards=1, "
+            f"num_shards={num_shards})")
+    local_batch = batch_size
+    if world > 1:
+        _, local_batch = validate_multiprocess_spmd(num_shards, batch_size)
     # DimeNet's triplets, one budget over the three splits
     batch_transform = maybe_triplet_transform(
-        mcfg.model_type, trainset + valset + testset, max(batch_size, 1))
+        mcfg.model_type, trainset + valset + testset, max(local_batch, 1))
+    budgets = {}
+    if world > 1:
+        if batch_transform is not None:
+            raise ValueError(
+                "multi-process SPMD does not support triplet-transform "
+                "models yet (the static triplet budget is not globally "
+                "reduced; train DimeNet single-process)")
+        if not packing:
+            # one batch shape and K on every rank (packed ranks plan the
+            # same replicated splits, so their budget agrees already)
+            n_node, n_edge, k = loader_budgets(
+                trainset + valset + testset, max(local_batch, 1), nbr_fmt,
+                reduce_fn=allreduce_max_int)
+            budgets = dict(n_node=n_node, n_edge=n_edge, neighbor_k=k)
     train_loader, val_loader, test_loader = create_dataloaders(
-        trainset, valset, testset, batch_size, neighbor_format=nbr_fmt,
+        trainset, valset, testset, local_batch, neighbor_format=nbr_fmt,
         packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg),
-        batch_transform=batch_transform)
+        batch_transform=batch_transform, pack_rank=pack_rank,
+        pack_nproc=pack_nproc, **budgets)
+    if world > 1:
+        # unequal step counts would deadlock the collectives
+        for name, ld in (("train", train_loader), ("validate", val_loader),
+                         ("test", test_loader)):
+            assert_equal_across_processes(len(ld), f"{name} batches/epoch")
     if packing and verbosity >= 1:
         b = train_loader.pack_budget
         print(f"batch_packing: budget n_node={b.n_node} n_edge={b.n_edge} "
@@ -178,7 +246,13 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
 
     model = create_model(mcfg, device=dev)
     tx = select_optimizer(train_cfg)
-    state = TrainState.create(model, tx)
+    opt_cfg = train_cfg.get("Optimizer", {}) or {}
+    zero = None
+    if in_group and opt_cfg.get("use_zero_redundancy"):
+        zero = make_zero_partition(
+            list(model.parameters()),
+            int(opt_cfg.get("zero_min_shard_size", ZERO_MIN_SHARD_SIZE)))
+    state = TrainState.create(model, tx, zero=zero)
 
     loss_name = train_cfg.get("loss_function_type", "mse")
     cge = bool(train_cfg.get("compute_grad_energy", False))
@@ -186,17 +260,20 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     f_w = train_cfg.get("force_loss_weight", 1.0)
     f_w = f_w if f_w == "auto" else float(f_w)
     compute_dtype = resolve_precision(mcfg.dtype)
-    train_step = make_train_step(model, mcfg, tx, loss_name,
-                                 compute_grad_energy=cge, energy_weight=e_w,
-                                 force_weight=f_w, compute_dtype=compute_dtype)
-    eval_step = make_eval_step(model, mcfg, loss_name,
-                               compute_grad_energy=cge, energy_weight=e_w,
-                               force_weight=f_w, compute_dtype=compute_dtype)
+    step_kw = dict(compute_grad_energy=cge, energy_weight=e_w,
+                   force_weight=f_w, compute_dtype=compute_dtype)
+    eval_step = make_eval_step(model, mcfg, loss_name, **step_kw)
+    if in_group:
+        train_step = SpmdTrainStep(model, mcfg, tx, loss_name, **step_kw)
+        eval_step = SpmdEvalStep(eval_step)
+    else:
+        train_step = make_train_step(model, mcfg, tx, loss_name, **step_kw)
     # steps-per-call dispatch batching (Training.steps_per_call /
     # HYDRAGNN_STEPS_PER_CALL): S steps a call, one CUDA graph replay on
-    # the card; the same steps as the single-step loop
+    # the card; the same steps as the single-step loop. A group's steps
+    # take one batch a call, as JAX's multi-process SPMD steps do
     multi_step = multi_eval = None
-    steps_per_call = resolve_steps_per_call(train_cfg)
+    steps_per_call = 1 if in_group else resolve_steps_per_call(train_cfg)
     if steps_per_call > 1:
         kw = dict(loss_name=loss_name, compute_grad_energy=cge,
                   energy_weight=e_w, force_weight=f_w,
@@ -210,8 +287,12 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     # epoch loop's try, whose finally finalizes it
     run_dir = os.path.join("./logs", log_name)
     tel_cfg = resolve_telemetry(train_cfg)
+    if rank != 0:
+        # one rank writes the run's telemetry and traces
+        tel_cfg = dataclasses.replace(tel_cfg, enabled=False,
+                                      device_trace=False)
     profiler = None
-    if "Profile" in config:
+    if "Profile" in config and rank == 0:
         profiler = EpochDeviceTrace(run_dir)
         profiler.setup(config["Profile"])
     elif tel_cfg.device_trace:
@@ -287,17 +368,59 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
                 print(f"telemetry artifacts: {paths['jsonl']} "
                       f"{paths['chrome_trace']}", flush=True)
     model.eval()
+    if rank == 0:
+        _write_history(run_dir, history)
     if trainer.preemption_requested():
         # the trainer saved the resume point; a final save would point
         # LATEST at a completed run
         if use_ckpt:
             ckpt.wait_for_checkpoints()
+            if world > 1:
+                dist.barrier()
         return state, history, model, config
     if use_ckpt:
         # the run-complete save: a later `continue` with a raised num_epoch
         # goes on from here with the trainer's counters
         sync_save(state, final_meta)
     return state, history, model, config
+
+
+def _multiprocess_data(config, splits, packing: bool, world: int):
+    """The multi-process data wiring (JAX run_training.py:156-199):
+    ((train, val, test), config, (pack_rank, pack_nproc)). Replicated
+    inputs (HYDRAGNN_MP_DATA=replicated, the default) are sliced per rank,
+    or, packed, kept whole for the global plan; local inputs keep the
+    rank's splits and reduce the config's data statistics. One process:
+    as given."""
+    if world <= 1:
+        return splits, config, (0, 1)
+    # (JAX defaults to "local" under GraphStore shard dirs, a format the
+    # port does not read)
+    mp_data = env_str("HYDRAGNN_MP_DATA") or "replicated"
+    if packing:
+        return splits, config, packing_process_coords(mp_data)
+    trainset, valset, testset = splits
+    if mp_data == "replicated":
+        # too few train samples to slice is fatal; val/test are kept
+        # whole instead, so no rank evaluates an empty split
+        return ((slice_by_process(trainset, what="train split"),
+                 slice_by_process(valset, what="validate split",
+                                  underflow="replicate"),
+                 slice_by_process(testset, what="test split",
+                                  underflow="replicate")),
+                config, (0, 1))
+    return splits, sync_config_stats(config), (0, 1)
+
+
+def _write_history(run_dir: str, history) -> None:
+    """history.json under the run's directory, written whole (a temporary
+    file renamed into place)."""
+    os.makedirs(run_dir, exist_ok=True)
+    path = os.path.join(run_dir, "history.json")
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(history, f)
+    os.replace(tmp, path)
 
 
 def _resume(train_cfg, state, log_name: str, verbosity: int):

@@ -44,6 +44,9 @@ class OptState:
     mini_step: int = 0
     gradient_step: int = 0
     acc_grads: Optional[Tensors] = None
+    # ZeRO (parallel/spmd.ZeroPartition): the slots hold this rank's rows
+    # of the leaves it splits; None keeps every slot whole
+    zero: Any = None
 
 
 def _f32(x: float) -> float:
@@ -112,8 +115,16 @@ class Optimizer:
         self.accumulate = max(int(accumulate), 1)
 
     # ------------------------------------------------------------ state --
-    def init(self, params: Sequence[torch.Tensor]) -> OptState:
+    def init(self, params: Sequence[torch.Tensor], zero=None) -> OptState:
+        """The rule's slots, zeroed (Adagrad's at 0.1), and the
+        accumulator. With a ZeRO partition (`parallel.spmd.
+        ZeroPartition`) each slot of a leaf it splits holds only this
+        rank's rows; the accumulator stays whole (the global-norm clip
+        reads all of it)."""
         params = [p.detach() for p in params]
+        acc_like = params
+        if zero is not None:
+            params = zero.local(params)
         name = self.name
         slots: Dict[str, Tensors] = {}
         if name == "SGD":
@@ -129,9 +140,10 @@ class Optimizer:
                                        for p in params]
         elif name == "RMSprop":
             slots["nu"] = _zeros(params)
-        state = OptState(learning_rate=self.learning_rate, slots=slots)
+        state = OptState(learning_rate=self.learning_rate, slots=slots,
+                         zero=zero)
         if self.accumulate > 1:
-            state.acc_grads = _zeros(params)
+            state.acc_grads = _zeros(acc_like)
         return state
 
     # ---------------------------------------------------- host scalars --
@@ -166,7 +178,11 @@ class Optimizer:
                params: Sequence[torch.Tensor],
                scalars: Optional[torch.Tensor] = None):
         """`scalars`: this step's row of `step_scalars` as a float32
-        tensor on the parameters' device (made here when None)."""
+        tensor on the parameters' device (made here when None). With a
+        ZeRO partition on `state` the updates of the leaves it splits are
+        this rank's rows (`zero.local`), computed from the whole gradient
+        (the clip's global norm, LAMB's trust ratio over whole leaves), so
+        they are bitwise the rows of the whole update."""
         grads = list(grads)
         params = [p.detach() for p in params]
         if scalars is None:
@@ -194,9 +210,25 @@ class Optimizer:
                scalars: torch.Tensor) -> Tensors:
         if self.grad_clip is not None:
             g = _clip_by_global_norm(g, self.grad_clip)
-        u = self._rule(g, state, p, scalars)
+        zero = state.zero
+        p_rule = p if zero is None else zero.local(p)
+        u = self._rule(g if zero is None else zero.local(g), state, p_rule,
+                       scalars)
+        if self.name == "FusedLAMB":
+            # the trust ratio of each whole leaf: a ZeRO rank gathers the
+            # others' rows of u first (a collective)
+            if zero is not None:
+                u = zero.gather(u)
+            u = [_trust_ratio(ui, pi) for ui, pi in zip(u, p)]
+            if zero is not None:
+                u = zero.local(u)
         # scale_by_learning_rate: -lr * u, with lr the float32 hyperparameter
         return torch._foreach_mul(u, scalars[0])
+
+    def update_has_collective(self, state: OptState) -> bool:
+        """Whether `update` on `state` runs a collective (ZeRO's LAMB
+        gather), which a CUDA graph under gloo cannot hold."""
+        return state.zero is not None and self.name == "FusedLAMB"
 
     def _rule(self, g: Tensors, state: OptState, p: Tensors,
               scalars: torch.Tensor) -> Tensors:
@@ -216,8 +248,7 @@ class Optimizer:
             if name == "AdamW":
                 u = torch._foreach_add(
                     u, torch._foreach_mul(p, self.weight_decay))
-            elif name == "FusedLAMB":
-                u = [_trust_ratio(ui, pi) for ui, pi in zip(u, p)]
+            # FusedLAMB's trust ratio: `_inner`, over whole leaves
             return u
         if name == "Adamax":
             _moment_(s["mu"], g, 0.9, 1)

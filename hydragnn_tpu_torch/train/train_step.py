@@ -59,10 +59,15 @@ class TrainState:
     step: int = 0
 
     @classmethod
-    def create(cls, model: torch.nn.Module, tx: Optimizer) -> "TrainState":
+    def create(cls, model: torch.nn.Module, tx: Optimizer,
+               zero=None) -> "TrainState":
+        """The model's state and a fresh optimizer state; `zero` (a
+        `parallel.spmd.ZeroPartition`) keeps only this rank's rows of the
+        optimizer slots it splits."""
         params = dict(model.named_parameters())
         return cls(params=params, batch_stats=dict(model.named_buffers()),
-                   opt_state=tx.init(list(params.values())), step=0)
+                   opt_state=tx.init(list(params.values()), zero=zero),
+                   step=0)
 
     def copy(self) -> "TrainState":
         """A snapshot: detached clones of every tensor (keep_best holds

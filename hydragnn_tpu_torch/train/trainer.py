@@ -55,6 +55,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import get_comm_size_and_rank
 from ..telemetry import spans as _spans
 from ..utils.envflags import env_flag, env_strict_int
 from ..utils.faults import fault_point
@@ -358,7 +359,9 @@ def train_validate_test(
             "next_epoch": int(next_epoch),
             "step": int(state.step),
             "loader_epoch": int(next_epoch),
-            "world_size": 1,
+            # the world that wrote the save (informational: a checkpoint
+            # holds whole tensors, so a restart at another world reads it)
+            "world_size": int(get_comm_size_and_rank()[0]),
             "trainer": {
                 "history": {k: list(v) for k, v in history.items()},
                 "plateau": {"best": plateau.best, "count": plateau.count},

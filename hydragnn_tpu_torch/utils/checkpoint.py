@@ -21,7 +21,15 @@ Under `<path>/<log_name>/checkpoint/` (path "./logs" by default):
 Best-validation saves made during training go through
 `make_async_best_checkpoint_fn`: the state is copied to the host at the
 call, and one writer thread writes the files and commits them in order;
-`wait_for_checkpoints` drains it. The `checkpoint-write` fault site
+`wait_for_checkpoints` drains it.
+
+In a multi-process run (`parallel/`) every rank calls `save_model`: the
+state is copied to the host on every rank (under ZeRO the optimizer
+slots are gathered whole first, a collective), rank 0 alone writes the
+files and markers, and a synchronous save ends with a barrier, so no
+rank goes on to read a half-written save. A checkpoint holds whole
+tensors whatever the world that wrote it; a ZeRO rank restores its rows
+of them. The `checkpoint-write` fault site
 (utils/faults.py) fires at the start of `save_model`, in the caller's
 thread: a save it kills writes nothing, so no `COMMITTED` marker, and
 resume skips it.
@@ -81,10 +89,14 @@ def marker_target(log_name: str, path: str = "./logs",
 
 def _host_payload(state: TrainState) -> Dict[str, Any]:
     """The state as tensors on the host and plain numbers, the only
-    things `weights_only` loads accept."""
+    things `weights_only` loads accept; under ZeRO the slots whole (a
+    collective: every rank calls this)."""
     def host(ts):
         return None if ts is None else [t.detach().cpu().clone() for t in ts]
     opt = state.opt_state
+    slots = opt.slots
+    if opt.zero is not None:
+        slots = {k: opt.zero.gather(v) for k, v in slots.items()}
     return {
         "params": {k: v.detach().cpu().clone()
                    for k, v in state.params.items()},
@@ -92,7 +104,7 @@ def _host_payload(state: TrainState) -> Dict[str, Any]:
                         for k, v in state.batch_stats.items()},
         "opt_state": {"learning_rate": float(opt.learning_rate),
                       "count": int(opt.count),
-                      "slots": {k: host(v) for k, v in opt.slots.items()},
+                      "slots": {k: host(v) for k, v in slots.items()},
                       "mini_step": int(opt.mini_step),
                       "gradient_step": int(opt.gradient_step),
                       "acc_grads": host(opt.acc_grads)},
@@ -136,9 +148,13 @@ def _state_from_payload(payload: Dict[str, Any], like: TrainState
     if set(o["slots"]) != set(lo.slots):
         raise ValueError(f"checkpoint optimizer slots {sorted(o['slots'])} "
                          f"differ from this config's {sorted(lo.slots)}")
+    saved_slots = o["slots"]
+    if lo.zero is not None:
+        # a ZeRO rank keeps its rows of the whole saved slots
+        saved_slots = {k: lo.zero.local(v) for k, v in saved_slots.items()}
     opt = dataclasses.replace(
         lo, learning_rate=float(o["learning_rate"]), count=int(o["count"]),
-        slots={k: tensors(o["slots"][k], lo.slots[k], k) for k in lo.slots},
+        slots={k: tensors(saved_slots[k], lo.slots[k], k) for k in lo.slots},
         mini_step=int(o["mini_step"]),
         gradient_step=int(o["gradient_step"]),
         acc_grads=tensors(o["acc_grads"], lo.acc_grads, "accumulator"))
@@ -263,16 +279,23 @@ def save_model(state: TrainState, log_name: str, path: str = "./logs",
     save (`best_val`, its validation loss, on line 2); `keep_last_k` runs
     the GC after the commit. The state is copied to the host here;
     `use_async` leaves the writing and the commit to the writer thread
-    (`wait_for_checkpoints` drains it)."""
+    (`wait_for_checkpoints` drains it). In a process group every rank
+    calls this; rank 0 writes, and a synchronous save ends with a
+    barrier."""
+    from ..parallel.mesh import get_comm_size_and_rank
     fault_point("checkpoint-write")
     target = os.path.join(_ckpt_dir(log_name, path),
                           f"step_{int(state.step)}")
     job = (_host_payload(state), target, metadata, mark_best, keep_last_k,
            best_val)
-    if use_async:
-        _WRITER.submit(job)
-    else:
-        _write_step(*job)
+    world, rank = get_comm_size_and_rank()
+    if rank == 0:
+        if use_async:
+            _WRITER.submit(job)
+        else:
+            _write_step(*job)
+    if world > 1 and not use_async:
+        torch.distributed.barrier()
     return target
 
 

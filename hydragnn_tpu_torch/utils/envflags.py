@@ -115,6 +115,19 @@ def resolve_loader_retries() -> "tuple[int, float]":
     return hit
 
 
+def resolve_rendezvous_timeout() -> "float | None":
+    """HYDRAGNN_RENDEZVOUS_TIMEOUT_S: how long `parallel.mesh.
+    init_distributed` and `parallel.multiprocess.
+    assert_equal_across_processes` wait for peer processes before raising
+    an actionable error (counterpart: hydragnn_tpu/utils/envflags.py).
+    Strict parsing; unset or <= 0 is None (unbounded)."""
+    t = env_strict_float("HYDRAGNN_RENDEZVOUS_TIMEOUT_S")
+    if t is None:
+        return None
+    t = float(t)
+    return t if t > 0 else None
+
+
 def resolve_packing(train_cfg) -> bool:
     """Budget-packed batching: HYDRAGNN_PACKING, when set, overrides
     Training.batch_packing (default off). Parsed strictly: a typo warns

@@ -2614,3 +2614,55 @@ def _lattice_node_config(model_type, node_arch):
                 "num_epoch": 1, "perc_train": 0.7, "batch_size": 32,
                 "loss_function_type": "mse",
                 "Optimizer": {"type": "AdamW", "learning_rate": 0.005}}}}
+
+
+@pytest.fixture
+def world_one_group(tmp_path):
+    """A world-1 gloo process group for the test (file rendezvous),
+    destroyed after it."""
+    import torch.distributed as dist
+    from hydragnn_tpu_torch.parallel.mesh import init_distributed
+    assert init_distributed(coordinator=f"file://{tmp_path}/rdzv",
+                            num_processes=1, process_id=0, timeout_s=60,
+                            backend="gloo", device="cuda") == (1, 0)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [1, 2])
+@pytest.mark.parametrize("kind", ["pna_dense", "pna_edge", "schnet"])
+def test_spmd_captured_steps_equal_eager_and_single_device_steps(
+        cuda_device, world_one_group, kind, accumulate):
+    """The SPMD step of a world-1 group on the card: its graphs (forward +
+    backward, then the all-reduce between, then the update; one update
+    graph per accumulation phase) bitwise its eager parts and bitwise the
+    single-device step's replays, step by step: metrics, every parameter,
+    running statistic and optimizer slot; the launch counters alike."""
+    from hydragnn_tpu_torch.parallel.spmd import SpmdTrainStep
+    from hydragnn_tpu_torch.train import train_step as tstep
+    dev = cuda_device
+    mcfg, train_cfg, batches = _step_setup(dev, kind, "float32",
+                                           accumulate=accumulate)
+    kw = _step_kwargs(train_cfg)
+    runs = []
+    for route in ("eager", "captured", "single"):
+        model, tx, state = _fresh_state(dev, mcfg, train_cfg)
+        if route == "single":
+            step = tstep.make_train_step(model, mcfg, tx, **kw)
+        else:
+            spmd = SpmdTrainStep(model, mcfg, tx, **kw)
+            step = spmd.eager if route == "eager" else spmd
+        losses = []
+        for i, b in enumerate(batches[:5]):
+            if i == 3:      # past the captures and their warm-up runs
+                tk.reset_launch_counts()
+            state, m = step(state, b)
+            losses.append((float(m["loss"]), float(m["nonfinite_steps"])))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), tk.launch_counts()))
+    (la, sa, ca), (lb, sb, cb), (lc, sc, cc) = runs
+    assert la == lb == lc
+    _assert_same_state(sa, sb)
+    _assert_same_state(sa, sc)
+    assert ca == cb == cc and sum(ca.values()) > 0

@@ -802,10 +802,13 @@ def test_run_prediction_fleet_matches_single_engine_and_jax(served,
 
 
 def test_run_prediction_refuses_shards_naming_a8(served):
+    """The engine route's sharding over devices is not ported and raises
+    naming A8 before any work; the loop shards over a process group's
+    ranks (tests/test_torch_parallel_run.py)."""
     from hydragnn_tpu_torch import run_prediction
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(make_config("GIN"), datasets=([], [], []),
-                       device="cpu", num_shards=2)
+                       device="cpu", num_shards=2, serve=True)
 
 
 # ------------------------------------------------------------- knobs

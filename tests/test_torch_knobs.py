@@ -299,8 +299,10 @@ def test_serving_structure_builds_a_structure_engine(clean_env,
 
 def test_run_prediction_refuses_the_metrics_server_before_any_work(
         clean_env):
-    """run_prediction resolves the serving knobs first: num_shards > 1
-    raises before the model, the weights or the data are touched; the
+    """run_prediction resolves the serving knobs first: num_shards > 1 on
+    the engine route (`Serving.enabled`) raises before the model, the
+    weights or the data are touched (the loop shards over a process
+    group's ranks, tests/test_torch_parallel_run.py); the
     int8 tier resolves (an engine serves it, the loop computes at the
     train-side precision, as in the JAX package:
     tests/test_torch_precision.py, test_torch_quant.py); the metrics
@@ -310,8 +312,8 @@ def test_run_prediction_refuses_the_metrics_server_before_any_work(
     from hydragnn_tpu_torch import run_prediction
     from tests.utils import make_config
     cfg = make_config("PNA")
-    cfg["Serving"] = {"metrics_port": 9100, "fleet": {"replicas": 2},
-                      "precision": "int8"}
+    cfg["Serving"] = {"enabled": True, "metrics_port": 9100,
+                      "fleet": {"replicas": 2}, "precision": "int8"}
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(cfg, datasets=([], [], []), device="cpu",
                        num_shards=2)
@@ -586,3 +588,28 @@ def test_conv_checkpointing_resolves_as_jax_and_is_not_refused(value):
     got = tcfg.build_model_config(tcfg.update_config(
         copy.deepcopy(cfg), to_port_samples(jsamples)))
     assert got.conv_checkpointing == want.conv_checkpointing == bool(value)
+
+
+@pytest.mark.parametrize("knob,value,raises", [
+    (("Training", "Optimizer", "use_zero_redundancy"), True, False),
+    (("Training", "Optimizer", "zero_min_shard_size"), 0, False),
+    (("Training", "pipeline_stages"), 2, True),
+    (("Architecture", "graph_shards"), 2, True)])
+def test_multi_gpu_knobs_resolve_or_raise_naming_a9(clean_env, knob, value,
+                                                    raises):
+    """The data-parallel knobs are ported (ZeRO: a no-op in one process,
+    as in the JAX package; tests/test_torch_parallel_zero.py holds it over
+    ranks); the pipeline and graph parallelism still raise naming A9,
+    before any work."""
+    from hydragnn_tpu_torch.run_training import check_training_knobs
+    from tests.utils import make_config
+    cfg = make_config("GIN")
+    node = cfg["NeuralNetwork"]
+    for k in knob[:-1]:
+        node = node.setdefault(k, {})
+    node[knob[-1]] = value
+    if raises:
+        with pytest.raises(NotImplementedError, match="A9"):
+            check_training_knobs(cfg)
+    else:
+        check_training_knobs(cfg)

@@ -171,10 +171,28 @@ def test_fixed_loader_padding_stats_match_jax():
 @pytest.mark.parametrize("kw", [dict(pack_rank=1, pack_nproc=2),
                                 dict(pack_nproc=2)])
 def test_packing_across_processes_raises_naming_a9(kw):
+    """Packing across processes is ported (it raised naming A9 before):
+    a rank's loader takes JAX's bins of the global plan, bitwise, with
+    JAX's fingerprint, an all-padding batch for a tail's padding bin
+    included (the unshuffled loader keeps its tail)."""
     from hydragnn_tpu_torch.datasets.loader import GraphDataLoader
-    samples = synthetic_molecules(8, seed=1, min_atoms=3, max_atoms=6)
-    with pytest.raises(NotImplementedError, match="A9"):
-        GraphDataLoader(samples, 4, packing=True, **kw)
+    samples = synthetic_molecules(9, seed=1, min_atoms=3, max_atoms=6)
+    for shuffle in (True, False):
+        loader = GraphDataLoader(samples, 4, shuffle=shuffle, packing=True,
+                                 **kw)
+        jl = JLoader(to_jax_samples(samples), 4, shuffle=shuffle,
+                     packing=True, async_workers=0, **kw)
+        assert loader._selections() == jl._selections()
+        assert loader.global_plan_fingerprint() == \
+            jl.global_plan_fingerprint()
+        for b, jb in zip(list(loader), list(jl)):
+            for f in BATCH_FIELDS:
+                w = getattr(jb, f)
+                if w is None:
+                    assert getattr(b, f) is None, f
+                    continue
+                np.testing.assert_array_equal(getattr(b, f).numpy(),
+                                              np.asarray(w), err_msg=f)
 
 
 @pytest.mark.parametrize("env", [None, "4", "32"])

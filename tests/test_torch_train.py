@@ -731,10 +731,17 @@ def test_run_training_refuses_knobs_off_its_path():
             run_training({**copy.deepcopy(base), **extra},
                          datasets=(samples[:8], samples[8:10], samples[10:]),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        run_training(copy.deepcopy(base), datasets=(samples[:8], samples[8:10],
-                                                    samples[10:]),
-                     device="cpu", num_shards=2)
+    # num_shards > 1 trains now (tests/test_torch_parallel_run.py): one
+    # process asked for 2 falls back to 1 with the JAX package's warning
+    one = copy.deepcopy(base)
+    one["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    one["NeuralNetwork"]["Training"]["batch_size"] = 4
+    with pytest.warns(UserWarning, match="requested num_shards=2 exceeds "
+                      "device count 1; falling back to a single-device run"):
+        _, hist, _, _ = run_training(one, datasets=(
+            samples[:8], samples[8:10], samples[10:]), device="cpu",
+            num_shards=2)
+    assert len(hist["train_loss"]) == 1
     # datasets=None reads the config's files: csce_gap.json names no
     # Dataset.format, so the JAX package's default, pickle, is asked for
     # (tests/test_torch_rawdata.py holds the formats the port reads)
