@@ -382,11 +382,34 @@ Phases:
    num_shards=2 for two steps (HYDRAGNN_MAX_NUM_BATCH), so B4 runs on
    both ranks. B1 (and its backward), B3 and B4 launched.
 
-Trimmed for time in PR 18 (the smoke took 680-1,080 s of its 1,200):
-phases 5's and 6's unheld CPU run with the config's optimizer runs its
-first epoch only (the printed gap is that epoch's), and the SGD runs
-held card vs CPU in phases 5, 7 and 10 take SGD_HELD_EPOCHS (2) of
-their 3 epochs.
+19. Pipeline parallelism (hydragnn_tpu_torch/parallel/pipeline*.py),
+   run last, its stages on 4 streams of the one card
+   (`pipeline_devices=[cuda:0] * 4`, printed). (a)
+   examples/deep_stack/deep_stack_32l.json at its published width
+   (SchNet, hidden 64, 32 layers, 4 stages x 8 microbatches, 1f1b, full
+   remat) on 512 BCC lattices at its radius 2.0 and max_neighbours 64, on
+   the edge list so B4 runs in every block: run_training for 2 epochs,
+   captured (finite, the train loss falls); one SGD step card vs CPU
+   from the same seed (HYDRAGNN_MAX_NUM_BATCH=1): its loss within rtol
+   1e-4, the val / test losses after it within EVAL_RTOL; the captured
+   step's ms and one profiled replay's device ms.
+   (b) At that shape: the pipelined forward bitwise the sequential one,
+   remat on bitwise off (one step's parameters), captured bitwise eager,
+   gpipe bitwise 1f1b and the sequential stack on exactly representable
+   data (integer features, quarter-integer weights, one in-edge a node);
+   the peak allocated MiB of one step under gpipe without remat and
+   under 1f1b with full remat; the captured step's ms on 4 streams and
+   on one, beside the closed-form train bubble. (c) csce_gap.json (6
+   layers, width 200) with pipeline_stages 2 for one epoch, dense: B1
+   and its backward inside the stages. (d) LJ.json (equivariant SchNet,
+   a node mlp head) with pipeline_stages 2 on the edge list, two steps:
+   the coordinates ride the carried activation and B4's double backward
+   runs through the stages. B1, B3 and B4 launched.
+
+Trimmed for time (the smoke took 680-1,080 s of its 1,200): the SGD
+runs held card vs CPU in phases 5, 7 and 10 take SGD_HELD_EPOCHS (2) of
+their 3 epochs, and phases 5 and 6 make no CPU run with the config's
+optimizer (its gap to the card was printed, never held).
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -395,7 +418,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `spmd: {...}` (phase 18), a
+name and power limit, and before it a `pipeline: {...}` (phase 19), a
+`spmd: {...}` (phase 18), a
 `quant: {...}` (phase 17), a
 `smiles: {...}` (phase 16), an
 `a7: {...}` (phase 15), a
@@ -2064,9 +2088,10 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
     EVAL_RTOL (eval-mode batch norm reads running statistics, which carry
     every step's difference). The config's own optimizer on
     the card twice (the main path, counted): bitwise-equal histories and
-    parameters; its gap to a CPU run is printed, not held (Adam turns
-    gradient noise below its eps into full-size updates). Returns (the
-    main run's (state, model, completed config), launches, record)."""
+    parameters; no CPU run of it (Adam turns gradient noise below its eps
+    into full-size updates, so its gap to the CPU holds nothing). Returns
+    (the main run's (state, model, completed config), launches,
+    record)."""
     from hydragnn_tpu_torch import kernels as tk
     from hydragnn_tpu_torch import run_training
     cfg = copy.deepcopy(base_cfg)
@@ -2134,19 +2159,7 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
             fail(f"{label}: non-finite {k} {h0[k]}")
     if sum(h0["nonfinite_steps"]):
         fail(f"{label}: non-finite steps {h0['nonfinite_steps']}")
-    # not held, so one epoch does (the gap printed is the first epoch's)
-    cpu_cfg = copy.deepcopy(cfg)
-    cpu_cfg["NeuralNetwork"]["Training"]["num_epoch"] = 1
-    t0 = time.perf_counter()
-    _, h_cpu_cfg, _, _ = run_training(cpu_cfg, datasets=splits,
-                                      device="cpu")
-    print(f"{label} {opt['type']} card vs cpu, first epoch "
-          f"({time.perf_counter() - t0:.1f} s on the cpu), not held: "
-          f"relative gaps "
-          f"{history_gaps(h0, h_cpu_cfg)}; cpu train "
-          f"{h_cpu_cfg['train_loss']} val {h_cpu_cfg['val_loss']}", flush=True)
     record = dict(first_step=first, sgd_relative_gaps=gaps,
-                  config_optimizer_relative_gaps=history_gaps(h0, h_cpu_cfg),
                   bitwise_repeat=same, history=h0)
     return main, launches, record
 
@@ -6961,6 +6974,397 @@ def spmd_phase(torch, device, card, counted, csce):
                                             for r in ranks])
     return rec, launches
 
+# ------------------------------------------------------------- phase 19 --
+PIPE_CONFIG = "examples/deep_stack/deep_stack_32l.json"
+NUM_PIPE = 512                 # BCC lattices
+PIPE_EPOCHS = 2                # deep_stack_32l.json trains 10; cut for time
+PIPE_STAGES_19C = 2            # csce PNA and LJ SchNet's pipelines
+PIPE_KERNELS = ("filter_scatter", "filter_scatter_backward", "segment_sum")
+
+
+@contextlib.contextmanager
+def env_set(**values):
+    """os.environ with `values` set, put back after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pipe_parts(torch, cfg, splits, device, stages, **step_kw):
+    """(model, state, step, batch) of a pipelined config: the model made
+    from its seed on `stages` stage devices all `device`, its train step
+    (the config's schedule and remat unless `step_kw` says otherwise) and
+    the first stacked loader batch on `device`."""
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import data_input_dim
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    from hydragnn_tpu_torch.utils.envflags import resolve_pipeline
+    done = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    arch, tr = (done["NeuralNetwork"]["Architecture"],
+                done["NeuralNetwork"]["Training"])
+    mcfg = data_input_dim(tcfg.build_model_config(done), splits[0])
+    micro, sched, remat, _ = resolve_pipeline(tr, stages)
+    loader = create_dataloaders(
+        *splits, int(tr["batch_size"]),
+        neighbor_format=bool(arch.get("neighbor_format", True)),
+        num_shards=micro)[0]
+    loader.set_epoch(0)
+    batch = next(iter(loader)).to(device)
+    model = tpt.create_pipeline_model(mcfg, [device] * stages)
+    tx = select_optimizer(tr)
+    kw = dict(schedule=sched, remat=remat is not None, remat_policy=remat)
+    kw.update(step_kw)
+    make = (tpt.make_pipeline_ef_train_step if tr.get("compute_grad_energy")
+            else tpt.make_pipeline_train_step)
+    step = make(model, tx, tr.get("loss_function_type", "mse"), **kw)
+    return model, TrainState.create(model, tx), step, batch
+
+
+def pipe_config():
+    """deep_stack_32l.json on the edge list (B4 in every block; the
+    dense default sums the filter by K slots in torch ops)."""
+    with open(PIPE_CONFIG) as fh:
+        cfg = json.load(fh)
+    cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+    return cfg
+
+
+def deep_stack_training(torch, device, card, add, splits, devs):
+    """19a: (record). run_training of the deep stack on the card, held
+    finite and falling; the first step card vs CPU; SGD card vs CPU."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    cfg = pipe_config()
+    tr = cfg["NeuralNetwork"]["Training"]
+    tr["num_epoch"] = PIPE_EPOCHS
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, hist, model, done = run_training(
+        copy.deepcopy(cfg), datasets=splits, device=device,
+        pipeline_devices=devs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    add(counts)
+    print(f"phase 19a: deep_stack_32l.json (SchNet hidden 64, 32 layers, "
+          f"4 stages x {tr['pipeline_microbatches']} microbatches, "
+          f"{tr['pipeline_schedule']}, remat {tr['pipeline_remat']}) on "
+          f"{len(splits[0])} train lattices, batch {tr['batch_size']}, "
+          f"{PIPE_EPOCHS} of {json.load(open(PIPE_CONFIG))['NeuralNetwork']['Training']['num_epoch']} "
+          f"epochs, edge list, pipeline_devices {[str(d) for d in devs]}: "
+          f"{wall:.1f} s; train {hist['train_loss']} val {hist['val_loss']}"
+          f" test {hist['test_loss']}; graph captures "
+          f"{hist['graph_captures']}; launches {counts}", flush=True)
+    if model is not None:
+        fail("phase 19a: a pipelined run_training returned a model")
+    for k in ("train_loss", "val_loss", "test_loss"):
+        if not np.isfinite(hist[k]).all():
+            fail(f"phase 19a: non-finite {k} {hist[k]}")
+    if not hist["train_loss"][-1] < hist["train_loss"][0]:
+        fail(f"phase 19a: the train loss did not fall {hist['train_loss']}")
+    for name in PIPE_KERNELS:
+        if counts[name] == 0:
+            fail(f"phase 19a: {name} never launched in the stages")
+    # SGD card vs CPU from the same seed, one step: its train loss is the
+    # first step's, held within 1e-4; val / test after it within EVAL_RTOL
+    sgd = copy.deepcopy(cfg)
+    sgd["NeuralNetwork"]["Training"].update(
+        num_epoch=1, Optimizer={"type": "SGD", "learning_rate": 1e-3})
+    runs = {}
+    with env_set(HYDRAGNN_MAX_NUM_BATCH=1):
+        for dev in (device, "cpu"):
+            t0 = time.perf_counter()
+            _, h, _, _ = run_training(
+                copy.deepcopy(sgd), datasets=splits, device=dev,
+                pipeline_devices=[dev] * 4)
+            runs[str(dev)] = (h, time.perf_counter() - t0)
+    gaps = history_gaps(runs[str(device)][0], runs["cpu"][0])
+    losses = {k: runs[k][0]["train_loss"][0] for k in runs}
+    print(f"phase 19a SGD first step card vs cpu ({runs['cpu'][1]:.1f} s "
+          f"on the cpu): train loss card {losses[str(device)]!r} cpu "
+          f"{losses['cpu']!r}; relative gaps {gaps} (first step 1e-4, "
+          f"val/test {EVAL_RTOL})", flush=True)
+    first_gap = gaps["train_loss"]
+    for k, v in gaps.items():
+        bound = 1e-4 if k == "train_loss" else EVAL_RTOL
+        if not v <= bound:
+            fail(f"phase 19a: SGD {k} card vs cpu gap {v} above {bound}")
+    # the captured step alone: CUDA events, one profiled replay
+    model, st, step, batch = pipe_parts(torch, cfg, splits, device, 4)
+    times = step_events_ms(torch, lambda: step(st, batch), reps=5)
+    cap = next(iter(step.steps.graphs.values()))
+    prof = device_profile(torch, cap.replay)
+    dev_ms, events, _ = profile_rows(torch, prof)
+    step_ms = float(np.median(times))
+    graphs = int(batch.graph_mask.sum())
+    print(f"phase 19a captured step: {step_ms:.3f} ms (median of 5; "
+          f"{min(times):.3f}-{max(times):.3f}), one replay's device "
+          f"{dev_ms:.3f} ms in {events} device events, idle share "
+          f"{max(0.0, 1 - dev_ms / step_ms):.3f}, {graphs} graphs a step "
+          f"({graphs / step_ms * 1e3:.1f} graphs/s); kernel launches a "
+          f"step {dict((k, v) for k, v in cap.launches.items() if v)} "
+          f"(card: {card})", flush=True)
+    return dict(history={k: hist[k] for k in ("train_loss", "val_loss",
+                                              "test_loss")},
+                wall_s=wall, launches=counts, first_step_losses=losses,
+                first_step_gap=first_gap, sgd_gaps=gaps, step_ms=step_ms,
+                step_ms_range=[min(times), max(times)], device_ms=dev_ms,
+                device_events=events, graphs_per_step=graphs,
+                launches_per_step={k: v for k, v in cap.launches.items()
+                                   if v})
+
+
+def exact_problem(torch, device, n, f, layers, micro):
+    """Integer features, signed permutation weights with integer biases,
+    one in-edge a node: over 32 layers every value stays a small integer
+    and every gradient a sum of integer products, exact in float32 in
+    any order."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(-1, 2, (micro, n, f)).astype(
+        np.float32)).to(device)
+    st = [(torch.from_numpy(rng.permutation(n)).to(device),
+           torch.from_numpy(rng.permutation(n)).to(device))
+          for _ in range(micro)]
+    lins = []
+    for _ in range(layers):
+        lin = torch.nn.Linear(f, f).to(device)
+        w = np.zeros((f, f), np.float32)
+        w[np.arange(f), rng.permutation(f)] = rng.choice([-1.0, 1.0], f)
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(w))
+            lin.bias.copy_(torch.from_numpy(
+                rng.randint(-1, 2, (f,)).astype(np.float32)))
+        lins.append(lin)
+    return x, st, lins
+
+
+def exact_schedules(torch, device, n, f, layers, stages, micro):
+    """gpipe, 1f1b (windows of S) and the sequential stack's gradients
+    on exact data, on the stage streams: (all bitwise, max |grad|)."""
+    from hydragnn_tpu_torch.parallel import pipeline as tpipe
+    x, st, lins = exact_problem(torch, device, n, f, layers, micro)
+    params = [p for lin in lins for p in lin.parameters()]
+    per = layers // stages
+
+    def layer(lin, h, s):
+        send, recv = s
+        # one in-edge a node: the scatter moves each row to its receiver
+        return torch.relu(lin(torch.zeros_like(h).index_add_(
+            0, recv, h[send])))
+
+    apply = tpipe.make_pipeline_apply([device] * stages, layer, layers)
+    stage_layers = [lins[s * per:(s + 1) * per] for s in range(stages)]
+
+    def grads(outs):
+        g = torch.autograd.grad(
+            torch.stack([(o ** 2).sum() for o in outs]).sum() / micro,
+            params)
+        tpipe.join_stage_streams([device] * stages)
+        return g
+    seq = []
+    for m in range(micro):
+        h = x[m]
+        for lin in lins:
+            h = layer(lin, h, st[m])
+        seq.append(h)
+    g_seq = grads(seq)
+    g_gpipe = grads(apply(stage_layers, list(x), [st] * stages))
+    g_1f1b = [torch.zeros_like(p) for p in params]
+    for w in range(micro // stages):
+        sl = slice(w * stages, (w + 1) * stages)
+        torch._foreach_add_(g_1f1b, list(grads(apply(
+            stage_layers, list(x[sl]), [st[sl]] * stages))))
+    same = all(torch.equal(a, b) for g in (g_gpipe, g_1f1b)
+               for a, b in zip(g, g_seq))
+    return same, max(float(g.abs().max()) for g in g_seq)
+
+
+def peak_step_mib(torch, step, state, batch):
+    """Peak allocated MiB above the live tensors of one eager step."""
+    snap = state.copy()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step.eager(state, batch)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    state.restore(snap)
+    return peak
+
+
+def pipeline_contracts(torch, device, card, splits):
+    """19b: the schedule's contracts on the card at the deep-stack shape;
+    (record)."""
+    from hydragnn_tpu_torch.datasets.loader import unstack_batch
+    from hydragnn_tpu_torch.parallel import pipeline as tpipe
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    cfg = pipe_config()
+    tr = cfg["NeuralNetwork"]["Training"]
+    S, M = int(tr["pipeline_stages"]), int(tr["pipeline_microbatches"])
+    model, state, step, batch = pipe_parts(torch, cfg, splits, device, S)
+    micros = unstack_batch(batch)
+    with torch.no_grad():
+        pipe = tpt.make_pipeline_forward(model)(micros)
+        seq = tpt.make_pipeline_forward(model, pipelined=False)(micros)
+    fwd_same = all(torch.equal(a[0][0], b[0][0]) for a, b in zip(pipe, seq))
+
+    def params_after(run):
+        snap = state.copy()
+        run()
+        torch.cuda.synchronize()
+        out = [p.detach().clone() for p in state.params.values()]
+        state.restore(snap)
+        return out
+    plain = tpt.make_pipeline_train_step(model, step.steps.tx,
+                                         schedule="1f1b")
+    remat_after = params_after(lambda: step.eager(state, batch))
+    plain_after = params_after(lambda: plain.eager(state, batch))
+    remat_same = all(torch.equal(a, b)
+                     for a, b in zip(remat_after, plain_after))
+    captured_after = params_after(lambda: step(state, batch))
+    captured_same = all(torch.equal(a, b)
+                        for a, b in zip(captured_after, remat_after))
+    n = int(batch.x.shape[1])
+    exact_same, gmax = exact_schedules(
+        torch, device, n, int(model.cfg.hidden_dim),
+        int(model.cfg.num_conv_layers), S, M)
+    print(f"phase 19b at the deep-stack shape ({M} microbatches of N={n}, "
+          f"32 layers, width {model.cfg.hidden_dim}, {S} streams): "
+          f"pipelined forward bitwise sequential {fwd_same}; one 1f1b step "
+          f"remat full vs off bitwise {remat_same}; captured vs eager "
+          f"bitwise {captured_same}; gpipe and 1f1b vs sequential gradients "
+          f"on exact data bitwise {exact_same} (max |grad| {gmax})",
+          flush=True)
+    for ok, what in ((fwd_same, "pipelined vs sequential forward"),
+                     (remat_same, "remat on vs off"),
+                     (captured_same, "captured vs eager"),
+                     (exact_same and gmax > 0, "gpipe/1f1b on exact data")):
+        if not ok:
+            fail(f"phase 19b: {what} not bitwise")
+    gpipe = tpt.make_pipeline_train_step(model, step.steps.tx,
+                                         schedule="gpipe")
+    mib = {"gpipe_no_remat": peak_step_mib(torch, gpipe, state, batch),
+           "1f1b_remat_full": peak_step_mib(torch, step, state, batch)}
+    print(f"phase 19b peak allocated MiB above the live tensors, one eager "
+          f"step: gpipe without remat {mib['gpipe_no_remat']:.1f}, 1f1b "
+          f"with full remat {mib['1f1b_remat_full']:.1f} (ratio "
+          f"{mib['gpipe_no_remat'] / mib['1f1b_remat_full']:.2f}) "
+          f"(card: {card})", flush=True)
+    one = tpt.make_pipeline_train_step(model, step.steps.tx, schedule="1f1b",
+                                       remat=True, stage_streams=False)
+    timing = {}
+    for name, st_ in (("streams_4", step), ("stream_1", one),
+                      ("streams_4_again", step), ("stream_1_again", one)):
+        snap = state.copy()
+        times = step_events_ms(torch, lambda: st_(state, batch), reps=5)
+        state.restore(snap)
+        timing[name] = float(np.median(times))
+    bubble = tpipe.train_bubble_fraction(S, M, "1f1b")
+    print(f"phase 19b captured 1f1b + remat step ms (median of 5, in "
+          f"turns): {timing}; closed-form train bubble {bubble:.4f} "
+          f"(train ticks {tpipe.train_step_ticks(S, M, '1f1b')}) (card: "
+          f"{card})", flush=True)
+    return dict(forward_bitwise=fwd_same, remat_bitwise=remat_same,
+                captured_bitwise=captured_same, exact_bitwise=exact_same,
+                peak_mib=mib, step_ms=timing, train_bubble=bubble)
+
+
+def pipeline_phase(torch, device, card, counted, csce, lj_splits):
+    """Phase 19 (see the module docstring): (record, launches)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.graphs.synthetic import bcc_lattices
+    from hydragnn_tpu_torch.preprocess.load_data import split_dataset
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        counted(counts)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    cfg = pipe_config()
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    samples = bcc_lattices(NUM_PIPE, radius=float(arch["radius"]),
+                           max_neighbours=int(arch["max_neighbours"]),
+                           seed=SEED)
+    splits = split_dataset(samples,
+                           float(cfg["NeuralNetwork"]["Training"][
+                               "perc_train"]))
+    # the caller's choice, printed: every stage on the one card
+    devs = [torch.device("cuda", 0) if device.type == "cuda" else device
+            ] * int(cfg["NeuralNetwork"]["Training"]["pipeline_stages"])
+    t0 = time.perf_counter()
+    rec = {"a": deep_stack_training(torch, devs[0], card, add, splits, devs)}
+    rec["a"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["b"] = pipeline_contracts(torch, devs[0], card, splits)
+    rec["b"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # (c) csce PNA through two stages, dense: B1 and its backward
+    pna = copy.deepcopy(csce["base_cfg"])
+    pna["NeuralNetwork"]["Training"].update(
+        pipeline_stages=PIPE_STAGES_19C, pipeline_norm="layernorm",
+        num_epoch=1)
+    tk.reset_launch_counts()
+    _, h_pna, _, _ = run_training(pna, datasets=csce["splits"],
+                                  device=device,
+                                  pipeline_devices=[device] * 2)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    add(counts)
+    print(f"phase 19c: csce PNA (6 layers, width 200) over 2 stages, one "
+          f"epoch, dense: train {h_pna['train_loss']} val "
+          f"{h_pna['val_loss']}; launches {counts}", flush=True)
+    for name in ("nbr_aggregate", "nbr_aggregate_backward", "segment_sum"):
+        if counts[name] == 0:
+            fail(f"phase 19c: {name} never launched in the stages")
+    if not np.isfinite(h_pna["train_loss"]).all():
+        fail(f"phase 19c: non-finite loss {h_pna['train_loss']}")
+    # (d) LJ SchNet EF through two stages, the coordinates carried
+    with open(LJ_CONFIG) as fh:
+        lj = json.load(fh)
+    lj["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+    lj["NeuralNetwork"]["Training"].update(
+        pipeline_stages=PIPE_STAGES_19C, pipeline_norm="layernorm",
+        num_epoch=1)
+    tk.reset_launch_counts()
+    with env_set(HYDRAGNN_MAX_NUM_BATCH=2):
+        _, h_lj, _, _ = run_training(lj, datasets=lj_splits, device=device,
+                                     pipeline_devices=[device] * 2)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    add(counts)
+    print(f"phase 19d: LJ SchNet EF (equivariant, node mlp head) over 2 "
+          f"stages, two steps, edge list: train {h_lj['train_loss']} "
+          f"energy {h_lj['energy_loss']} force {h_lj['force_loss']}; "
+          f"launches {counts}", flush=True)
+    for name in PIPE_KERNELS:
+        if counts[name] == 0:
+            fail(f"phase 19d: {name} never launched in the stages")
+    for k in ("train_loss", "energy_loss", "force_loss"):
+        if not np.isfinite(h_lj[k]).all():
+            fail(f"phase 19d: non-finite {k} {h_lj[k]}")
+    rec.update(c=dict(history=h_pna["train_loss"]),
+               d=dict(train_loss=h_lj["train_loss"],
+                      force_loss=h_lj["force_loss"]),
+               cd_phase_s=time.perf_counter() - t0,
+               wall_s=time.perf_counter() - t_phase,
+               launches=launches)
+    print(f"phase 19 took {rec['wall_s']:.1f} s; launches {launches} "
+          f"(card: {card})", flush=True)
+    return rec, launches
+
 
 def main() -> int:
     import torch
@@ -7416,6 +7820,12 @@ def main() -> int:
                                      dict(base_cfg=base_cfg, splits=splits,
                                           mcfg=mcfg, paths=train_paths))
 
+    # ---------------------------------------------------------- phase 19
+    stamp(19)
+    pipeline, pipe_launches = pipeline_phase(
+        torch, device, card, counted,
+        dict(base_cfg=base_cfg, splits=splits), lj_splits)
+
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
@@ -7427,6 +7837,7 @@ def main() -> int:
     print("smiles: " + json.dumps(dict(smiles, card=card)), flush=True)
     print("quant: " + json.dumps(quant), flush=True)
     print("spmd: " + json.dumps(dict(spmd, card=card)), flush=True)
+    print("pipeline: " + json.dumps(dict(pipeline, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -7477,6 +7888,11 @@ def main() -> int:
             if name == "filter_scatter":
                 extra["backward_launches_spmd_path"] = spmd_launches[
                     "filter_scatter_backward"]
+        if pipe_launches.get(name):
+            extra["launches_pipeline_path"] = pipe_launches[name]
+            if name == "filter_scatter":
+                extra["backward_launches_pipeline_path"] = pipe_launches[
+                    "filter_scatter_backward"]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")
@@ -7501,6 +7917,8 @@ def main() -> int:
                             launches_per_captured_step=per_captured_step(
                                 counter),
                             launches_spmd_path=spmd_launches.get(counter, 0),
+                            launches_pipeline_path=pipe_launches.get(
+                                counter, 0),
                             **rec))
     stamp("end")
     print(card, flush=True)

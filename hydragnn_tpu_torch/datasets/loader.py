@@ -29,9 +29,16 @@ an attempt, as the JAX loader's synchronous path fetches
 Packing across processes (`pack_rank`, `pack_nproc`): every rank plans
 the same global order and takes its bin of each global step of
 `pack_nproc` bins (`graphs.packing.plan_steps`); a padding bin of the
-tail is an all-padding batch. One device per rank, so no
-device-stacked shards. Background collation and the batch cache (A10)
-are not ported.
+tail is an all-padding batch.
+
+Stacked shards (`num_shards` M > 1, fixed-shape only; the pipeline's
+microbatches, JAX loader.py:318-339): each batch of `batch_size` graphs
+is split into M shards of `batch_size / M` graphs in order, each collated
+to the one per-shard shape (room for `batch_size / M` of the largest
+graphs, `batch_size / M + 1` graph slots), an empty shard of the tail an
+all-padding batch, and stacked into a GraphBatch of [M, ...] tensors
+(`stack_batches`; `unstack_batch` is its inverse). Background collation
+and the batch cache (A10) are not ported.
 """
 from __future__ import annotations
 
@@ -118,9 +125,19 @@ class GraphDataLoader:
                  neighbor_k: Optional[int] = None, packing: bool = False,
                  pack_budget=None, pack_lookahead: Optional[int] = None,
                  pack_rank: int = 0, pack_nproc: int = 1,
-                 batch_transform=None):
+                 batch_transform=None, num_shards: int = 1):
+        num_shards = max(int(num_shards), 1)
+        if num_shards > 1 and batch_size % num_shards:
+            raise ValueError(
+                f"batch_size {batch_size} must divide evenly over "
+                f"{num_shards} shards")
+        if num_shards > 1 and packing:
+            raise ValueError("stacked shards are fixed-shape: packing "
+                             "takes num_shards=1")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.num_shards = num_shards
+        self.graphs_per_shard = max(batch_size // num_shards, 1)
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
@@ -141,11 +158,11 @@ class GraphDataLoader:
             self.pack_budget = pack_budget
             n_node, n_edge = pack_budget.n_node, pack_budget.n_edge
         elif n_node is None or n_edge is None:
-            n_node, n_edge = padded_budgets(dataset, batch_size)
+            n_node, n_edge = padded_budgets(dataset, self.graphs_per_shard)
         self.n_node = n_node
         self.n_edge = n_edge
         self.n_graph = (pack_budget.n_graph if self.packing
-                        else batch_size + 1)
+                        else self.graphs_per_shard + 1)
         self.batch_transform = batch_transform
         self._transform_arity = None
         self.neighbor_k = None
@@ -221,7 +238,9 @@ class GraphDataLoader:
         nodes, edges = self._sample_sizes()
         sels = self._selections()
         if not self.packing:
-            sels = [(tuple(sel),) for sel in sels]
+            g = self.graphs_per_shard
+            sels = [tuple(tuple(sel[sh * g:(sh + 1) * g])
+                          for sh in range(self.num_shards)) for sel in sels]
         stats = plan_padding_stats(sels, nodes, edges, self.n_node,
                                    self.n_edge)
         stats["packing"] = "packed" if self.packing else "fixed"
@@ -241,6 +260,13 @@ class GraphDataLoader:
         if self.packing:
             (sel,) = sel
         samples = fetch_samples(self.dataset, sel)
+        if self.num_shards == 1:
+            return self._collate_shard(samples)
+        g = self.graphs_per_shard
+        return stack_batches([self._collate_shard(samples[sh * g:(sh + 1) * g])
+                              for sh in range(self.num_shards)])
+
+    def _collate_shard(self, samples) -> GraphBatch:
         b = (collate(samples, n_node=self.n_node, n_edge=self.n_edge,
                      n_graph=self.n_graph) if samples
              else padding_batch(self.dataset[0], self.n_node, self.n_edge,
@@ -277,3 +303,43 @@ class GraphDataLoader:
             return
         for sel in self._selections():
             yield self._build_batch(sel)
+
+
+# fields an absent shard may carry as zeros: no-ops in the edge geometry
+_ZERO_FILL_OK = ("edge_shifts", "cell")
+
+
+def stack_batches(shards: List[GraphBatch]) -> GraphBatch:
+    """Shard batches of one shape stacked into [M, ...] tensors
+    (counterpart: hydragnn_tpu/datasets/loader.py `_stack_batches`). A
+    field present on some shards only is zero-filled where it is a
+    geometry field (edge_shifts, cell) and raises otherwise."""
+    import torch
+
+    def stk(name):
+        vals = [getattr(s, name) for s in shards]
+        present = [v for v in vals if v is not None]
+        if not present:
+            return None
+        if len(present) < len(vals):
+            if name not in _ZERO_FILL_OK:
+                raise ValueError(
+                    f"member datasets disagree on field '{name}': present "
+                    f"on {len(present)}/{len(vals)} shards — all member "
+                    "datasets must share one label/feature schema")
+            vals = [torch.zeros_like(present[0]) if v is None else v
+                    for v in vals]
+        return torch.stack(vals, dim=0)
+    return GraphBatch(**{f.name: stk(f.name)
+                         for f in dataclasses.fields(GraphBatch)})
+
+
+def unstack_batch(stacked: GraphBatch) -> List[GraphBatch]:
+    """The M shard batches (views) of a stacked [M, ...] batch; an
+    unstacked batch is one shard."""
+    if stacked.x.dim() == 2:
+        return [stacked]
+    fields = [f.name for f in dataclasses.fields(GraphBatch)]
+    return [GraphBatch(**{n: (None if getattr(stacked, n) is None
+                              else getattr(stacked, n)[m]) for n in fields})
+            for m in range(stacked.x.shape[0])]

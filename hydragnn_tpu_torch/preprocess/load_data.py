@@ -103,13 +103,15 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
                        batch_transform=None, n_node: Optional[int] = None,
                        n_edge: Optional[int] = None,
                        neighbor_k: Optional[int] = None,
-                       pack_rank: int = 0, pack_nproc: int = 1):
+                       pack_rank: int = 0, pack_nproc: int = 1,
+                       num_shards: int = 1):
     """One loader per split (seed 0), all three on one batch shape (and
     one K), so each step kind is one CUDA graph; the train loader shuffles
     and drops its last partial batch. Fixed-shape: room for `batch_size`
-    of the largest graphs of any split, or the `n_node` / `n_edge` /
-    `neighbor_k` a multi-process caller reduced over the ranks
-    (`loader_budgets`). With `packing`: the pack budget `choose_budget`
+    of the largest graphs of any split (for `batch_size / num_shards`
+    with `num_shards` stacked shards, the pipeline's microbatches), or
+    the `n_node` / `n_edge` / `neighbor_k` a multi-process caller reduced
+    over the ranks (`loader_budgets`). With `packing`: the pack budget `choose_budget`
     sizes once over all three splits for `batch_size` average graphs
     (`pack_lookahead` its planner window), each rank taking its bins of
     the global plan (`pack_rank` of `pack_nproc`). `batch_transform`
@@ -123,8 +125,9 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
                                     lookahead=pack_lookahead)
         n_node = n_edge = None
     elif n_node is None or n_edge is None:
-        n_node, n_edge, kb = loader_budgets(all_samples, max(batch_size, 1),
-                                            neighbor_format)
+        n_node, n_edge, kb = loader_budgets(
+            all_samples, max(batch_size // max(num_shards, 1), 1),
+            neighbor_format)
         k = k if k is not None else kb
     if neighbor_format and k is None:
         k = neighbor_budget_for_dataset(all_samples)
@@ -135,5 +138,6 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
                                neighbor_k=k, packing=packing,
                                pack_budget=pack_budget,
                                pack_rank=pack_rank, pack_nproc=pack_nproc,
-                               batch_transform=batch_transform)
+                               batch_transform=batch_transform,
+                               num_shards=num_shards)
     return mk(trainset, True), mk(valset, False), mk(testset, False)

@@ -84,6 +84,21 @@ checkpoint files and the telemetry; every rank calls each save, which
 ends with a barrier. DimeNet's triplet budget is not reduced over the
 ranks, so DimeNet trains in one process, as in JAX.
 
+Pipeline parallelism (JAX run_training.py:224-268, 393-400, 477-508,
+641-644; parallel/pipeline_trainer.py): `Training.pipeline_stages` S > 1
+trains the pipelined LayerNorm stack (the config must set
+`Training.pipeline_norm: "layernorm"`), its conv layers split into S
+stages on the stage devices: `pipeline_devices` (a list of S devices;
+several stages may share one card), or without it the visible cards
+cuda:0 .. S-1 (fewer raises JAX's "exceeds device count"). The knobs
+(`pipeline_microbatches` M, `pipeline_schedule` gpipe or 1f1b,
+`pipeline_remat` off, full or dots; the HYDRAGNN_PIPE_* env over them)
+resolve once (`utils.envflags.resolve_pipeline`); the loaders yield
+stacked [M, ...] batches of batch_size / M graphs (num_shards = M,
+fixed-shape: `batch_packing` falls back); steps_per_call is 1; the
+returned model is None (the state holds the pipelined model's
+tensors). `pipeline_data_shards > 1` raises NotImplementedError.
+
 Knobs off this path raise NotImplementedError naming the ROADMAP item
 that brings them; none is ignored.
 """
@@ -108,6 +123,15 @@ from .parallel.multiprocess import (allreduce_max_int,
                                     packing_process_coords, slice_by_process,
                                     sync_config_stats,
                                     validate_multiprocess_spmd)
+from .parallel.pipeline import (bubble_fraction, stage_device,
+                                train_bubble_fraction, train_step_ticks)
+from .parallel.pipeline_trainer import (create_pipeline_model,
+                                        make_pipeline_ef_eval_step,
+                                        make_pipeline_ef_train_step,
+                                        make_pipeline_eval_step,
+                                        make_pipeline_train_step,
+                                        require_pipeline_norm_optin,
+                                        validate_pipeline_config)
 from .parallel.spmd import SpmdEvalStep, SpmdTrainStep, make_zero_partition
 from .preprocess.load_data import (create_dataloaders, loader_budgets,
                                    load_datasets_from_config)
@@ -122,8 +146,8 @@ from .utils.devices import resolve_device
 from .utils.faults import install_fault_plan, resolve_fault_plan
 from .telemetry import EpochDeviceTrace, start_session
 from .utils.envflags import (env_flag, env_str, resolve_pack_lookahead,
-                             resolve_packing, resolve_steps_per_call,
-                             resolve_telemetry)
+                             resolve_packing, resolve_pipeline,
+                             resolve_steps_per_call, resolve_telemetry)
 
 
 def _not_ported(what: str, item: str):
@@ -140,11 +164,17 @@ def check_training_knobs(config) -> None:
     nn = config["NeuralNetwork"]
     tr = nn["Training"]
     arch = nn["Architecture"]
+    if (int(tr.get("pipeline_stages", 1) or 1) > 1
+            and int(arch.get("graph_shards", 1) or 1) > 1):
+        raise ValueError("pipeline_stages and graph_shards cannot be "
+                         "combined yet")
     checks = [
         (int(arch.get("graph_shards", 1) or 1) > 1,
          "Architecture.graph_shards", "A9: multi-GPU training"),
-        (int(tr.get("pipeline_stages", 1) or 1) > 1,
-         "Training.pipeline_stages", "A9: multi-GPU training"),
+        (int(tr.get("pipeline_stages", 1) or 1) > 1
+         and int(tr.get("pipeline_data_shards", 1) or 1) > 1,
+         "Training.pipeline_data_shards > 1 (the pipe x data mesh, ZeRO "
+         "over its data axis)", "A9: multi-GPU training"),
         ((config.get("Visualization") or {}).get("create_plots"),
          "Visualization.create_plots", "A10: postprocess"),
         (tr.get("async_loader_workers") or tr.get("batch_cache_mb"),
@@ -159,7 +189,8 @@ def check_training_knobs(config) -> None:
 
 
 def run_training(config_or_path, datasets: Optional[Sequence] = None,
-                 device="cuda", num_shards: Optional[int] = None):
+                 device="cuda", num_shards: Optional[int] = None,
+                 pipeline_devices: Optional[Sequence] = None):
     config = load_config(config_or_path)
     check_training_knobs(config)
     # the fault plan (HYDRAGNN_FAULT_PLAN over Training.fault_plan) is
@@ -186,11 +217,16 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
 
     nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
                        bool(nn["Architecture"].get("neighbor_format", True)))
+    pipeline_stages = int(train_cfg.get("pipeline_stages", 1) or 1)
     packing = resolve_packing(train_cfg)
     if packing and nn["Architecture"]["model_type"] == "DimeNet":
         print("batch_packing: DimeNet's static triplet budget is not "
               "pack-aware yet; falling back to fixed-shape batching",
               flush=True)
+        packing = False
+    if packing and pipeline_stages > 1:
+        print("batch_packing: not composed with graph_shards/pipeline_stages "
+              "meshes yet; falling back to fixed-shape batching", flush=True)
         packing = False
     (trainset, valset, testset), config, (pack_rank, pack_nproc) = \
         _multiprocess_data(config, (trainset, valset, testset), packing,
@@ -198,14 +234,22 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     nn = config["NeuralNetwork"]
     mcfg = data_input_dim(build_model_config(config), trainset)
 
-    # the shard count over one device a rank (JAX run_training.py:270-292)
-    num_shards = resolve_num_shards(num_shards, batch_size)
-    if world > 1 and num_shards == 1:
+    pipe = None
+    if pipeline_stages > 1:
+        pipe = _pipeline_setup(train_cfg, mcfg, pipeline_stages, batch_size,
+                               pipeline_devices, verbosity)
+        # the loader's stacked shards are the microbatches
+        num_shards = pipe["microbatches"]
+    else:
+        # the shard count over one device a rank (JAX
+        # run_training.py:270-292)
+        num_shards = resolve_num_shards(num_shards, batch_size)
+    if world > 1 and (num_shards == 1 or pipe is not None):
         raise ValueError(
             "multi-process runs support the plain SPMD data-parallel "
             "path only: pipeline_stages and graph_shards must be 1 and "
-            f"num_shards > 1 (got pipeline_stages=1, graph_shards=1, "
-            f"num_shards={num_shards})")
+            f"num_shards > 1 (got pipeline_stages={pipeline_stages}, "
+            f"graph_shards=1, num_shards={num_shards})")
     local_batch = batch_size
     if world > 1:
         _, local_batch = validate_multiprocess_spmd(num_shards, batch_size)
@@ -230,7 +274,8 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         trainset, valset, testset, local_batch, neighbor_format=nbr_fmt,
         packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg),
         batch_transform=batch_transform, pack_rank=pack_rank,
-        pack_nproc=pack_nproc, **budgets)
+        pack_nproc=pack_nproc, num_shards=num_shards if pipe else 1,
+        **budgets)
     if world > 1:
         # unequal step counts would deadlock the collectives
         for name, ld in (("train", train_loader), ("validate", val_loader),
@@ -244,36 +289,45 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
               "(fixed-shape batching would pad every batch to the worst "
               "case)", flush=True)
 
-    model = create_model(mcfg, device=dev)
     tx = select_optimizer(train_cfg)
-    opt_cfg = train_cfg.get("Optimizer", {}) or {}
-    zero = None
-    if in_group and opt_cfg.get("use_zero_redundancy"):
-        zero = make_zero_partition(
-            list(model.parameters()),
-            int(opt_cfg.get("zero_min_shard_size", ZERO_MIN_SHARD_SIZE)))
-    state = TrainState.create(model, tx, zero=zero)
-
     loss_name = train_cfg.get("loss_function_type", "mse")
     cge = bool(train_cfg.get("compute_grad_energy", False))
     e_w = float(train_cfg.get("energy_loss_weight", 1.0))
     f_w = train_cfg.get("force_loss_weight", 1.0)
     f_w = f_w if f_w == "auto" else float(f_w)
     compute_dtype = resolve_precision(mcfg.dtype)
-    step_kw = dict(compute_grad_energy=cge, energy_weight=e_w,
-                   force_weight=f_w, compute_dtype=compute_dtype)
-    eval_step = make_eval_step(model, mcfg, loss_name, **step_kw)
-    if in_group:
-        train_step = SpmdTrainStep(model, mcfg, tx, loss_name, **step_kw)
-        eval_step = SpmdEvalStep(eval_step)
+    if pipe is not None:
+        model = create_pipeline_model(mcfg, pipe["devices"])
+        state = TrainState.create(model, tx)
+        train_step, eval_step = _pipeline_steps(
+            model, tx, loss_name, cge, e_w, f_w, compute_dtype, pipe)
     else:
-        train_step = make_train_step(model, mcfg, tx, loss_name, **step_kw)
+        model = create_model(mcfg, device=dev)
+        opt_cfg = train_cfg.get("Optimizer", {}) or {}
+        zero = None
+        if in_group and opt_cfg.get("use_zero_redundancy"):
+            zero = make_zero_partition(
+                list(model.parameters()),
+                int(opt_cfg.get("zero_min_shard_size",
+                                ZERO_MIN_SHARD_SIZE)))
+        state = TrainState.create(model, tx, zero=zero)
+        step_kw = dict(compute_grad_energy=cge, energy_weight=e_w,
+                       force_weight=f_w, compute_dtype=compute_dtype)
+        eval_step = make_eval_step(model, mcfg, loss_name, **step_kw)
+        if in_group:
+            train_step = SpmdTrainStep(model, mcfg, tx, loss_name, **step_kw)
+            eval_step = SpmdEvalStep(eval_step)
+        else:
+            train_step = make_train_step(model, mcfg, tx, loss_name,
+                                         **step_kw)
     # steps-per-call dispatch batching (Training.steps_per_call /
     # HYDRAGNN_STEPS_PER_CALL): S steps a call, one CUDA graph replay on
     # the card; the same steps as the single-step loop. A group's steps
-    # take one batch a call, as JAX's multi-process SPMD steps do
+    # take one batch a call, as JAX's multi-process SPMD steps do, and a
+    # pipelined step is one a call, as in JAX
     multi_step = multi_eval = None
-    steps_per_call = 1 if in_group else resolve_steps_per_call(train_cfg)
+    steps_per_call = (1 if in_group or pipe is not None
+                      else resolve_steps_per_call(train_cfg))
     if steps_per_call > 1:
         kw = dict(loss_name=loss_name, compute_grad_energy=cge,
                   energy_weight=e_w, force_weight=f_w,
@@ -338,6 +392,8 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     try:
         if telemetry is not None:
             telemetry.compute_dtype = compute_dtype
+            if pipe is not None:
+                telemetry.pipeline_info = pipeline_info(pipe)
             if verbosity >= 1:
                 print(f"telemetry: on -> {telemetry.out_dir}", flush=True)
         state, history = trainer.train_validate_test(
@@ -349,14 +405,16 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
             checkpoint_fn=best_fn, plateau=plateau,
             walltime_deadline=deadline,
             keep_best=bool(train_cfg.get("keep_best", True)),
-            place_fn=lambda b: b.to(dev), verbosity=verbosity,
+            verbosity=verbosity,
             start_epoch=start_epoch, resume=resume,
             checkpoint_every_n_epochs=every, periodic_checkpoint_fn=save_fn,
             preempt_save_fn=save_fn, initial_best_state=best0,
             initial_best_val=best_val0, resume_meta_out=final_meta,
             multi_train_step=multi_step, multi_eval_step=multi_eval,
             steps_per_call=steps_per_call, telemetry=telemetry,
-            profiler=profiler)
+            profiler=profiler,
+            place_fn=(lambda b: b.to(pipe["devices"][0])) if pipe
+            else (lambda b: b.to(dev)))
     finally:
         if save_fn is not None:
             trainer.restore_sigterm_handler()
@@ -367,7 +425,10 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
             if paths and verbosity >= 1:
                 print(f"telemetry artifacts: {paths['jsonl']} "
                       f"{paths['chrome_trace']}", flush=True)
-    model.eval()
+    if pipe is not None:
+        model = None    # the pipelined model's tensors are the state's
+    else:
+        model.eval()
     if rank == 0:
         _write_history(run_dir, history)
     if trainer.preemption_requested():
@@ -383,6 +444,76 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         # goes on from here with the trainer's counters
         sync_save(state, final_meta)
     return state, history, model, config
+
+
+def _pipeline_setup(train_cfg, mcfg, stages: int, batch_size: int,
+                    pipeline_devices, verbosity: int) -> dict:
+    """The pipeline's knobs, resolved once, its config checks (JAX
+    run_training.py:224-268) and its stage devices: `pipeline_devices`,
+    or the visible cards cuda:0 .. S-1."""
+    import torch
+    micro, schedule, remat, data_shards = resolve_pipeline(train_cfg,
+                                                           stages)
+    require_pipeline_norm_optin(train_cfg)
+    if pipeline_devices is None:
+        count = torch.cuda.device_count()
+        devices = [torch.device("cuda", i) for i in range(min(stages,
+                                                              count))]
+    else:
+        devices = [stage_device(d) for d in pipeline_devices]
+        count = len(devices)
+        if len({d.type for d in devices}) > 1:
+            raise ValueError(f"pipeline_devices mixes device types: "
+                             f"{[str(d) for d in devices]}")
+    validate_pipeline_config(mcfg, stages, batch_size, micro,
+                             schedule=schedule, data_shards=data_shards,
+                             device_count=count)
+    if len(devices) != stages:
+        raise ValueError(f"pipeline_devices names {len(devices)} devices "
+                         f"for pipeline_stages={stages}")
+    if bool((train_cfg.get("Optimizer") or {}).get("use_zero_redundancy")):
+        # ZeRO shards the optimizer state over the data axis, which one
+        # data shard does not have: say so instead of doing nothing
+        logging.getLogger("hydragnn_tpu_torch").warning(
+            "Optimizer.use_zero_redundancy has no effect on a "
+            "pipeline run with pipeline_data_shards=1: opt state "
+            "shards over the data mesh axis. Set "
+            "Training.pipeline_data_shards > 1 to shard it.")
+    if verbosity >= 1:
+        print(f"pipeline: stages={stages} microbatches={micro} "
+              f"schedule={schedule} remat={remat or 'off'} "
+              f"data_shards={data_shards} devices="
+              f"{[str(d) for d in devices]}", flush=True)
+    return dict(stages=stages, microbatches=micro, schedule=schedule,
+                remat=remat, data_shards=data_shards, devices=devices)
+
+
+def _pipeline_steps(model, tx, loss_name, cge, e_w, f_w, compute_dtype,
+                    pipe):
+    """The pipelined train and eval steps (JAX run_training.py:477-508)."""
+    kw = dict(schedule=pipe["schedule"], remat=pipe["remat"] is not None,
+              remat_policy=pipe["remat"], compute_dtype=compute_dtype)
+    if cge:
+        return (make_pipeline_ef_train_step(model, tx, loss_name,
+                                            energy_weight=e_w,
+                                            force_weight=f_w, **kw),
+                make_pipeline_ef_eval_step(model, loss_name,
+                                           energy_weight=e_w,
+                                           force_weight=f_w))
+    return (make_pipeline_train_step(model, tx, loss_name, **kw),
+            make_pipeline_eval_step(model, loss_name))
+
+
+def pipeline_info(pipe: dict) -> dict:
+    """The schedule's closed forms the trainer reports (JAX
+    run_training.py:734-753)."""
+    S, M, sched = pipe["stages"], pipe["microbatches"], pipe["schedule"]
+    return {"stages": S, "microbatches": M,
+            "data_shards": pipe["data_shards"], "schedule": sched,
+            "remat": pipe["remat"] or "off",
+            "bubble_frac": bubble_fraction(S, M),
+            "train_bubble_frac": train_bubble_fraction(S, M, sched),
+            "train_ticks": train_step_ticks(S, M, sched)}
 
 
 def _multiprocess_data(config, splits, packing: bool, world: int):

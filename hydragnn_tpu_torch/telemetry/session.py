@@ -46,6 +46,9 @@ class TelemetrySession:
         self.config = config
         self.out_dir = config.resolve_out_dir(run_dir)
         self.compute_dtype = "float32"
+        # a pipelined run's schedule (run_training.pipeline_info), which
+        # the trainer reports as gauges, spans and epoch-event fields
+        self.pipeline_info = None
         self.registry = MetricsRegistry()
         self.recorder = SpanRecorder()
         self._prev_registry = set_registry(self.registry)

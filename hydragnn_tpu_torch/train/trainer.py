@@ -441,7 +441,8 @@ def train_validate_test(
                             # is dispatch and execution
                             _accumulate(acc, metrics)
                         if (telemetry is not None and not group
-                                and not telemetry.flops_probed):
+                                and not telemetry.flops_probed
+                                and not telemetry.pipeline_info):
                             telemetry.step_flops_once(train_step, placed)
                         nb += 1
                 if max_num_batch is not None and nb >= max_num_batch:
@@ -572,7 +573,14 @@ def _report_epoch(telemetry, stall, epoch, start_epoch, group, nb,
     counterpart of a compiled XLA program."""
     from ..telemetry.mfu import achieved_and_mfu
     flops = None
-    if telemetry.flops_probed:
+    pinfo = telemetry.pipeline_info
+    if pinfo:
+        if epoch == start_epoch:
+            _log.info("telemetry: pipelined run — per-step MFU gauge "
+                      "unavailable (the shard_map step's cost analysis "
+                      "is per-partition; see BENCH_MFU for the "
+                      "sequential-probe numerator)")
+    elif telemetry.flops_probed:
         flops = telemetry.step_flops_once(train_step)
     elif group and epoch == start_epoch:
         # say why the gauge is absent instead of leaving it out
@@ -614,12 +622,21 @@ def _report_epoch(telemetry, stall, epoch, start_epoch, group, nb,
     if mfu_val is not None:
         reg.gauge_set("train_mfu", mfu_val,
                       help="achieved over per-backend peak FLOPs")
+    if pinfo:
+        _pipeline_gauges(telemetry, pinfo, stall.step_s, epoch)
     # non-finite scalars are left out: json would write NaN
     data = {"nonfinite_steps": nonfinite, "batches": nb}
     for k, v in (("train_loss", train_loss), ("val_loss", val_loss),
                  ("test_loss", test_loss), ("lr", lr)):
         if np.isfinite(v):
             data[k] = v
+    if pinfo:
+        data["pipeline_schedule"] = pinfo["schedule"]
+        data["pipeline_stages"] = int(pinfo["stages"])
+        data["pipeline_microbatches"] = int(pinfo["microbatches"])
+        data["pipeline_bubble_frac"] = float(pinfo["bubble_frac"])
+        data["pipeline_train_bubble_frac"] = float(
+            pinfo["train_bubble_frac"])
     if pad is not None:
         data["padding_frac_nodes"] = float(pad["padding_frac_nodes"])
         data["padding_frac_edges"] = float(pad["padding_frac_edges"])
@@ -632,3 +649,32 @@ def _report_epoch(telemetry, stall, epoch, start_epoch, group, nb,
         timing["mfu"] = mfu_val
     telemetry.epoch_event(epoch, data=data, timing=timing)
     return achieved, mfu_val
+
+
+def _pipeline_gauges(telemetry, pinfo, step_s: float, epoch: int) -> None:
+    """A pipelined run's closed-form bubble gauges and one
+    `pipe.stage_idle` span a stage (cat "pipeline-model"): each stage's
+    fill and drain ticks scaled to the epoch's measured step time, a
+    model of the schedule, not a device measurement (JAX
+    trainer.py:603-647)."""
+    reg = telemetry.registry
+    reg.gauge_set("pipeline_bubble_frac", float(pinfo["bubble_frac"]),
+                  help="closed-form per-pass schedule bubble "
+                       "(S-1)/(M+S-1)")
+    reg.gauge_set("pipeline_train_bubble_frac",
+                  float(pinfo["train_bubble_frac"]),
+                  help="closed-form fwd+bwd train-step bubble "
+                       "for the active schedule")
+    rec = _spans.current_recorder()
+    if rec is None or step_s <= 0:
+        return
+    ticks = float(pinfo["train_ticks"])
+    t_end = _spans.now()
+    # every stage does 2 M useful ticks a step (each microbatch crosses
+    # it once forward, once backward); the rest are fill and drain
+    idle_ticks = max(ticks - 2 * int(pinfo["microbatches"]), 0)
+    dur = step_s * idle_ticks / max(ticks, 1.0)
+    for s in range(int(pinfo["stages"])):
+        rec.add("pipe.stage_idle", t_end - dur, dur, "pipeline-model",
+                {"stage": s, "epoch": epoch, "idle_ticks": idle_ticks,
+                 "ticks_per_step": ticks, "schedule": pinfo["schedule"]})

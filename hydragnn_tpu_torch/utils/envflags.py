@@ -214,3 +214,66 @@ def resolve_telemetry(train_cfg=None):
             "HYDRAGNN_DEVICE_TRACE_EPOCH",
             int(block.get("device_trace_epoch", 0) or 0))),
     )
+
+
+# the remat knob's spellings: off, full rematerialization, or "dots"
+# (keep the matrix products' outputs)
+_REMAT_SPELLINGS = {"0": None, "false": None, "off": None, "no": None,
+                    "1": "full", "true": "full", "on": "full",
+                    "full": "full", "dots": "dots"}
+
+
+def resolve_pipeline(train_cfg, num_stages: int):
+    """The pipeline knobs -> (microbatches, schedule, remat policy or
+    None, data shards) (counterpart: hydragnn_tpu/utils/envflags.py
+    `resolve_pipeline`). Env over the Training.* keys over the defaults,
+    parsed strictly: a typo warns and falls back to the layer below.
+
+      HYDRAGNN_PIPE_MICROBATCHES  microbatches a step
+                                  (Training.pipeline_microbatches;
+                                  default: pipeline_stages)
+      HYDRAGNN_PIPE_SCHEDULE      gpipe | 1f1b (Training.pipeline_schedule;
+                                  default 1f1b)
+      HYDRAGNN_PIPE_REMAT         0/off | 1/full | dots
+                                  (Training.pipeline_remat; default off)
+
+    A defaulted 1f1b whose microbatches are not a multiple of the stages
+    (and more than them) falls back to gpipe with a warning; an explicit
+    1f1b is left for the config check to refuse. Data shards
+    (Training.pipeline_data_shards) are config-only."""
+    train_cfg = train_cfg or {}
+    micro_default = int(train_cfg.get("pipeline_microbatches",
+                                      num_stages) or num_stages)
+    microbatches = env_strict_int("HYDRAGNN_PIPE_MICROBATCHES",
+                                  micro_default)
+    # explicit means a valid choice: a typo'd or empty env value falls
+    # back and keeps the compatibility fall-back below
+    sched_env = (os.getenv("HYDRAGNN_PIPE_SCHEDULE") or "").strip().lower()
+    sched_cfg = str(train_cfg.get("pipeline_schedule") or "").strip().lower()
+    sched_explicit = sched_env in ("gpipe", "1f1b") or bool(sched_cfg)
+    schedule = env_strict_choice(
+        "HYDRAGNN_PIPE_SCHEDULE", {"gpipe": "gpipe", "1f1b": "1f1b"},
+        sched_cfg or "1f1b")
+    if (schedule == "1f1b" and not sched_explicit and num_stages > 0
+            and microbatches > num_stages and microbatches % num_stages):
+        _log.warning(
+            "pipeline_microbatches=%d is not a multiple of "
+            "pipeline_stages=%d, which the default 1f1b schedule cannot "
+            "window — falling back to gpipe (O(M) live activations). "
+            "Set Training.pipeline_schedule/HYDRAGNN_PIPE_SCHEDULE "
+            "explicitly to silence this.", microbatches, num_stages)
+        schedule = "gpipe"
+    remat_default = train_cfg.get("pipeline_remat", False)
+    if isinstance(remat_default, bool):
+        default_policy = "full" if remat_default else None
+    else:
+        key = str(remat_default).strip().lower()
+        if key and key not in _REMAT_SPELLINGS:
+            _log.warning("Training.pipeline_remat=%r is not one of %s; "
+                         "treating as off", remat_default,
+                         sorted(set(_REMAT_SPELLINGS)))
+        default_policy = _REMAT_SPELLINGS.get(key)
+    policy = env_strict_choice("HYDRAGNN_PIPE_REMAT", _REMAT_SPELLINGS,
+                               default_policy)
+    data_shards = int(train_cfg.get("pipeline_data_shards", 1) or 1)
+    return int(microbatches), schedule, policy, data_shards

@@ -19,6 +19,12 @@ keeps Flax's submodule names as attribute names (`conv_{i}.pre_i`,
   [num_nodes, in, f] and `b_{li}` [num_nodes, f];
 * `batch_stats` `mean` / `var` -> the MaskedBatchNorm buffers.
 
+The pipelined model's tree (parallel/pipeline_trainer.py) is
+`{"params": {"embed", "convs", "heads"}}`, whose `convs` leaves carry a
+leading [L] axis (the JAX package stacks the L blocks' parameters): it
+loads into `convs.{i}.*` for block i, and `export_jax_variables` stacks
+the blocks again, so the round trip is bitwise.
+
 An unknown collection or leaf name raises here; a missing or surplus
 module path raises in `load_state_dict` (strict by default).
 """
@@ -62,6 +68,45 @@ def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()
             yield prefix + (str(key),), np.asarray(val)
 
 
+# the top-level names of the pipelined model's parameter tree
+_PIPELINE_TOP = {"embed", "convs", "heads"}
+
+
+def is_pipelined(params: Mapping) -> bool:
+    """Whether a Flax `params` tree is the pipelined model's, its blocks
+    stacked on the [L] axis."""
+    return set(params) == _PIPELINE_TOP and not any(
+        str(k).isdigit() for k in params["convs"])
+
+
+def _stack_blocks(params: Dict) -> Dict:
+    """A pipelined tree written block by block (`convs/{i}/...`) with
+    its blocks stacked on a leading [L] axis; other trees as they are."""
+    convs = params.get("convs")
+    if set(params) != _PIPELINE_TOP or not convs or not all(
+            str(k).isdigit() for k in convs):
+        return params
+    blocks = [convs[str(i)] for i in range(len(convs))]
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+    return dict(params, convs=stack(blocks))
+
+
+def _unstacked(params: Mapping
+               ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    """The pipelined tree's leaves with the [L] axis of `convs` split
+    into one path a block (`convs/{i}/...`)."""
+    for path, arr in _walk(params):
+        if path[0] != "convs":
+            yield path, arr
+            continue
+        for i in range(arr.shape[0]):
+            yield ("convs", str(i)) + path[1:], arr[i]
+
+
 def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     unknown = set(variables) - set(_LEAVES)
     if unknown:
@@ -69,7 +114,10 @@ def load_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
                        f"{sorted(unknown)}; expected {sorted(_LEAVES)}")
     state: Dict[str, torch.Tensor] = OrderedDict()
     for collection in _LEAVES:
-        for path, arr in _walk(variables.get(collection, {})):
+        tree = variables.get(collection, {}) or {}
+        leaves = (_unstacked(tree) if collection == "params"
+                  and is_pipelined(tree) else _walk(tree))
+        for path, arr in leaves:
             name, module = path[-1], ".".join(path[:-1])
             if not _known_leaf(collection, name, module):
                 raise KeyError(f"load_jax_variables: unexpected "
@@ -115,6 +163,7 @@ def export_jax_variables(model) -> Dict[str, Dict]:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = np.array(arr, order="C")  # keeps a 0-d leaf 0-d
+    tree["params"] = _stack_blocks(tree["params"])
     return tree
 
 
@@ -165,4 +214,5 @@ def random_flax_variables(model, seed: int) -> Dict:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = val.astype(np.float32)
+    tree["params"] = _stack_blocks(tree["params"])
     return tree

@@ -2666,3 +2666,99 @@ def test_spmd_captured_steps_equal_eager_and_single_device_steps(
     _assert_same_state(sa, sb)
     _assert_same_state(sa, sc)
     assert ca == cb == cc and sum(ca.values()) > 0
+
+
+def _pipeline_setup(dev, kind, stages=2, micro=2):
+    """(model, tx, state) of a pipelined csce PNA (dense or edge list) or
+    LJ SchNet EF (edge list) over `stages` streams of one card, its
+    LayerNorm stack at the config's width, and 3 stacked batches of 4
+    graphs (`micro` microbatches)."""
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     synthetic_molecules)
+    mcfg, train_cfg, _ = _step_setup(dev, kind)
+    data = (lj_configurations(36, seed=1) if kind == "schnet"
+            else synthetic_molecules(36, seed=1))
+    splits = (data[:28], data[28:32], data[32:])
+    loader = create_dataloaders(*splits, 4, neighbor_format=kind ==
+                                "pna_dense", num_shards=micro)[0]
+    batches = [b.to(dev) for b in loader][:3]
+    model = tpt.create_pipeline_model(mcfg, [torch.device("cuda", 0)]
+                                      * stages, seed=3)
+    train_cfg = dict(train_cfg, Optimizer={"type": "SGD",
+                                           "learning_rate": 1e-3})
+    tx = topt.select_optimizer(train_cfg)
+    return model, tx, tstep.TrainState.create(model, tx), batches, \
+        train_cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pna_dense", "pna_edge", "schnet"])
+@pytest.mark.parametrize("schedule,remat", [("gpipe", None),
+                                            ("1f1b", "full"),
+                                            ("1f1b", "dots")])
+def test_pipeline_captured_steps_equal_eager_bitwise(cuda_device, kind,
+                                                     schedule, remat):
+    """Three pipelined steps on two streams of the card, eager and
+    captured (the stage streams fork from the capture stream and join
+    back): metrics and state bitwise; the kernels launched inside the
+    stages (B1 or B2 and their backwards, or B4 and its dh)."""
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    runs = []
+    for graphed in (False, True):
+        model, tx, state, batches, tcfg = _pipeline_setup(cuda_device,
+                                                          kind)
+        make = (tpt.make_pipeline_ef_train_step
+                if tcfg.get("compute_grad_energy")
+                else tpt.make_pipeline_train_step)
+        step = make(model, tx, tcfg["loss_function_type"],
+                    schedule=schedule, remat=remat is not None,
+                    remat_policy=remat)
+        tk.reset_launch_counts()
+        losses = []
+        for b in batches:
+            state, m = (step if graphed else step.eager)(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), tk.launch_counts()))
+    (l0, s0, c0), (l1, s1, c1) = runs
+    assert np.isfinite(l0).all() and l0 == l1
+    _assert_same_state(s0, s1)
+    names = {"pna_dense": ("nbr_aggregate", "nbr_aggregate_backward"),
+             "pna_edge": ("pna_edge_aggregate",
+                          "pna_edge_aggregate_backward"),
+             "schnet": ("filter_scatter", "filter_scatter_backward")}[kind]
+    for name in names + ("segment_sum",):
+        assert c0[name] > 0 and c1[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_pipeline_streams_equal_one_stream_and_sequential(cuda_device):
+    """The deep tick schedule on 4 streams of the card, on one stream,
+    and the sequential stack: the same forward, bit for bit, and the same
+    step's parameters."""
+    from hydragnn_tpu_torch.datasets.loader import unstack_batch
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    model, tx, state, batches, tcfg = _pipeline_setup(
+        cuda_device, "pna_edge", stages=2, micro=4)
+    micros = unstack_batch(batches[0])
+    with torch.no_grad():
+        outs = [tpt.make_pipeline_forward(model, pipelined=p,
+                                          stage_streams=st)(micros)
+                for p, st in ((True, True), (True, False), (False, True))]
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a[0][0], b[0][0])
+    after = []
+    for st in (True, False):
+        snap = state.copy()
+        step = tpt.make_pipeline_train_step(model, tx, schedule="1f1b",
+                                            stage_streams=st)
+        step(state, batches[0])
+        torch.cuda.synchronize()
+        after.append(_host_state(state))
+        state.restore(snap)
+    _assert_same_state(after[0], after[1])

@@ -593,14 +593,16 @@ def test_conv_checkpointing_resolves_as_jax_and_is_not_refused(value):
 @pytest.mark.parametrize("knob,value,raises", [
     (("Training", "Optimizer", "use_zero_redundancy"), True, False),
     (("Training", "Optimizer", "zero_min_shard_size"), 0, False),
-    (("Training", "pipeline_stages"), 2, True),
-    (("Architecture", "graph_shards"), 2, True)])
+    (("Training", "pipeline_data_shards"), 2, True),
+    (("Architecture", "graph_shards"), 2, True),
+    (("Training", "pipeline_stages"), 2, False)])
 def test_multi_gpu_knobs_resolve_or_raise_naming_a9(clean_env, knob, value,
                                                     raises):
     """The data-parallel knobs are ported (ZeRO: a no-op in one process,
     as in the JAX package; tests/test_torch_parallel_zero.py holds it over
-    ranks); the pipeline and graph parallelism still raise naming A9,
-    before any work."""
+    ranks), and so is the pipeline (tests/test_torch_pipeline_run.py);
+    its data axis (`pipeline_data_shards > 1` on a pipelined config) and
+    graph parallelism still raise naming A9, before any work."""
     from hydragnn_tpu_torch.run_training import check_training_knobs
     from tests.utils import make_config
     cfg = make_config("GIN")
@@ -608,6 +610,9 @@ def test_multi_gpu_knobs_resolve_or_raise_naming_a9(clean_env, knob, value,
     for k in knob[:-1]:
         node = node.setdefault(k, {})
     node[knob[-1]] = value
+    if knob[-1] == "pipeline_data_shards":
+        # the data axis is read on a pipelined config only, as in JAX
+        node["pipeline_stages"] = 2
     if raises:
         with pytest.raises(NotImplementedError, match="A9"):
             check_training_knobs(cfg)

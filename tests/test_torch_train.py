@@ -714,13 +714,18 @@ def test_run_training_refuses_knobs_off_its_path():
     # test_torch_steps_per_call.py, test_torch_packing.py,
     # test_torch_node_heads.py); a dtype the port does not compute in
     # still raises
-    cases = [("Training", "pipeline_stages", 2, "A9"),
+    # pipeline_stages trains now (tests/test_torch_pipeline_run.py); its
+    # data axis still raises
+    cases = [("Training", "pipeline_data_shards", 2, "A9"),
              ("Architecture", "graph_shards", 2, "A9"),
              ("Training", "async_loader_workers", 2, "A10"),
              ("Architecture", "dtype", "float16", "A5")]
     for section, key, value, item in cases:
         cfg = copy.deepcopy(base)
         cfg["NeuralNetwork"][section][key] = value
+        if key == "pipeline_data_shards":
+            cfg["NeuralNetwork"]["Training"].update(
+                pipeline_stages=2, pipeline_norm="layernorm")
         with pytest.raises(NotImplementedError, match=item):
             run_training(cfg, datasets=(samples[:8], samples[8:10],
                                         samples[10:]), device="cpu")
