@@ -27,7 +27,7 @@ Phases:
    Flax-shaped weights from a seed: `run_prediction(serve=True)` on the
    test split (dense neighbor layout, Serving.max_batch_size 128, the
    config's batch size), then an `InferenceEngine` on the edge-list layout
-   over a burst of the test split repeated 8 times, then 160 timed
+   over a burst of the test split repeated 8 times, then 80 timed
    bursts of the same. The engine's forwards are CUDA graphs, one per
    bucket, captured at warm-up (`engine_graphs` prints each bucket's
    capture time and, on the full batch's bucket, the replay's CUDA-event
@@ -218,8 +218,8 @@ Phases:
    through `InferenceEngine.trajectory_farm` with phase 12's MD config
    and phase 6's weights, each number beside the card's name and power
    limit. (a) Phase 12b's 216-atom systems (seeds k, 100 + k) on a
-   one-bucket engine, T = 1, 64 and 512 trajectories, 64 steps, 8 a
-   dispatch (one CUDA graph replay of 8 steps: drift, the skin check,
+   one-bucket engine, T = 1, 64 and 512 trajectories, 64 steps (T =
+   512: 16, for time), 8 a dispatch (one CUDA graph replay of 8 steps: drift, the skin check,
    the batched re-filter, the compaction, the T-fold EF forward, the
    kick), and T = 64 at 1 a dispatch: aggregate and per-trajectory
    steps/s, dispatches, effective steps a dispatch, rebuild swaps and
@@ -292,8 +292,9 @@ Phases:
    (graphs/synthetic.py `bcc_lattices`, 160 graphs, a graph head), 60
    epochs through run_training and run_prediction, RMSE under DimeNet
    0.50, PAINN 0.60, PNAEq 0.60, MACE 0.70, each row run again on the
-   CPU from the same initialization as a witness, every epoch's train
-   loss within rtol 1e-3 of the card's; DimeNet's training on the
+   CPU from the same initialization as a witness for its first 12
+   epochs, each of their train losses within rtol 1e-3 of the card's;
+   DimeNet's training on the
    lattice's graph head (its parameter gradients are finite there): the
    first step as in (a), its gradients card vs CPU as one vector, and 3
    SGD steps card vs CPU. (d) segment_sum at each new shape of these
@@ -406,10 +407,47 @@ Phases:
    the coordinates ride the carried activation and B4's double backward
    runs through the stages. B1, B3 and B4 launched.
 
-Trimmed for time (the smoke took 680-1,080 s of its 1,200): the SGD
-runs held card vs CPU in phases 5, 7 and 10 take SGD_HELD_EPOCHS (2) of
-their 3 epochs, and phases 5 and 6 make no CPU run with the config's
-optimizer (its gap to the card was printed, never held).
+20. Graph parallelism and the pipeline's data axis (hydragnn_tpu_torch/
+   parallel/graph_parallel.py, composite.py, pipeline_trainer.py), run
+   last, the slots and rings on streams of the one card. (a) The
+   edge-sharded and ring layers on 4 streams, forward and VJP, on a
+   graph of N 131,072 nodes, E 4,194,304 edges and F 64 made from the
+   seed (the [E, F] messages 1 GiB; a stand-in for a structure too
+   large for one card, not chemistry), held against the single-device
+   B3 sum within SUM_TOL and bitwise on dyadic data; each mode's ms, B3's
+   launches a slot and the peak allocated MiB beside the single-device
+   route; B3 at the slot and ring-bucket shapes (`segment_shape`). (b)
+   csce_gap.json with graph_shards 2 through run_training, one epoch of
+   SGD, with num_shards 1 (2 slots) and 2 (4 slots): finite, B3 inside
+   the shards and no fused PNA kernel; num_shards 1 held against the
+   single-device edge-list run on the card within rtol 2e-3 / atol 1e-5
+   (JAX's bound); the first composed SGD step card vs CPU
+   (`first_step_card_cpu`: the loss and the parameters after it within
+   1e-4, the update as one vector within the gradients' standing bound);
+   the captured composed step bitwise the eager one; its ms beside the
+   single-device captured step's. (c) LJ.json with graph_shards 2, two
+   steps: B4 forward and dh inside the shards, finite, the first step
+   card vs CPU as in (b). (d) csce PNA (dense) over 2 stages x 2 data
+   shards x 2 microbatches: the loss bitwise the pipe-only run's on the
+   same 4 microbatches, the parameters after two SGD steps within rtol
+   5e-6 / atol 1e-7, AdamW with ZeRO bitwise without, B1 and its
+   backward inside the stages of each pipe x data run, the step's ms
+   beside pipe-only's. The reference runs (the single-device B3 sum and
+   edge-list run, the pipe-only run) are counted apart from the graph
+   slots' and rings' launches.
+
+Trimmed for time (the smoke took 680-1,080 s of its 1,200 and ran
+past it once): the SGD runs held card vs CPU in phases 5, 7 and 10 take
+SGD_HELD_EPOCHS (1) of their 3 epochs, and phases 5 and 6 make no CPU
+run with the config's optimizer (its gap to the card was printed, never
+held); the plain autograd backward of phase 5a is timed over
+AUTOGRAD_CALLS calls. The longest CPU reference runs (phases 5-7's and
+10's SGD histories, phase 7c's CPU EF engine, phase 15's lattice
+witness, 19a's SGD step) run in CPU_WORKERS spawned worker processes
+while the card goes on (`cpu_submit`, `cpu_then`); their checks are
+the same and are all made before the JSON records print, and the
+workers are idle before phase 12's open loop, whose check reads host
+latency.
 
 The last line is {"ok": true, "device": {...}}; the line before it
 holds the per-kernel JSON record (per-shape records under `shapes`,
@@ -418,7 +456,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `pipeline: {...}` (phase 19), a
+name and power limit, and before it a `graph_parallel: {...}` (phase
+20), a `pipeline: {...}` (phase 19), a
 `spmd: {...}` (phase 18), a
 `quant: {...}` (phase 17), a
 `smiles: {...}` (phase 16), an
@@ -439,14 +478,17 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
 SEED = 0
 NUM_MOLECULES = 512
 ENGINE_REPEATS = 8             # a burst is the test split 8 times over
-BURSTS = 160                   # timed bursts, after the main-path one
+BURSTS = 80                    # timed bursts, after the main-path one
 GRAPH_CALLS = 20               # wrapper calls per captured CUDA graph
+AUTOGRAD_CALLS = 2             # plain autograd backwards a graph (~0.1 s)
+AUTOGRAD_REPS = 5              # and the graph's timed replays
 SERVE_MAX_BATCH = 128          # Serving.max_batch_size = the config's batch
 SUM_TOL = dict(rtol=2e-5, atol=2e-5)
 SLICE_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -456,7 +498,7 @@ LJ_BURSTS = 60                 # timed EF bursts, after the main-path one
 TRAIN_RTOL = 1e-3              # card vs cpu, every epoch's train loss
 EVAL_RTOL = 1e-2               # and its val/test losses (eval-mode BN)
 LJ_EPOCHS = 2                  # LJ.json trains 20 epochs; cut for time
-SGD_HELD_EPOCHS = 2            # SGD card vs CPU epochs (csce_gap.json: 3)
+SGD_HELD_EPOCHS = 1            # SGD card vs CPU epochs (csce_gap.json: 3)
 CSCE_GROUP = 2                 # steps per call timed beside S = 1 (csce)
 LJ_GROUP = 4                   # and LJ EF
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
@@ -489,7 +531,91 @@ PRIMER_KEY = r"neg_kernel_cuda.*\bshort\b"   # int16 neg: used nowhere else
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    if _cpu.pool is not None:
+        _cpu.pool.terminate()
     sys.exit(1)
+
+
+# ------------------------------------------------------ CPU references --
+# The longest CPU reference runs (phases 5-7's SGD histories, phase 15's
+# lattice witness, phase 19a's SGD step) run in CPU_WORKERS worker
+# processes while the card goes on: a phase hands its run to
+# `cpu_submit` and the check that reads the result to `cpu_then`;
+# `cpu_settle` waits for every run and makes those checks before the
+# records are printed, so a failed check still fails the smoke. Outside
+# `main` (a phase function called from a driver) the run is made in
+# process and checked at once.
+CPU_WORKERS = 3
+CPU_WORKER_THREADS = 2
+_cpu = types.SimpleNamespace(pool=None, pending=[])
+
+
+def _cpu_worker_init(threads: int) -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""     # the workers run the CPU
+    import torch
+    torch.set_num_threads(threads)
+
+
+def cpu_start() -> None:
+    import multiprocessing
+    _cpu.pool = multiprocessing.get_context("spawn").Pool(
+        CPU_WORKERS, initializer=_cpu_worker_init,
+        initargs=(CPU_WORKER_THREADS,))
+
+
+def cpu_submit(fn, *args, **kwargs):
+    """fn(*args, **kwargs) on a worker; what `cpu_then` reads."""
+    if _cpu.pool is None:
+        return types.SimpleNamespace(get=lambda v=fn(*args, **kwargs): v)
+    return _cpu.pool.apply_async(fn, args, kwargs)
+
+
+def cpu_then(result, check) -> None:
+    """check(the submitted run's value), now or at `cpu_settle`."""
+    if _cpu.pool is None:
+        check(result.get())
+    else:
+        _cpu.pending.append((result, check))
+
+
+def cpu_drain() -> None:
+    """Wait until the workers are idle (before phases whose checks read
+    host latency), making no check yet."""
+    t0 = time.perf_counter()
+    for result, _ in _cpu.pending:
+        result.wait()
+    print(f"cpu references: workers idle after {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+
+
+def cpu_settle() -> None:
+    t0 = time.perf_counter()
+    n = len(_cpu.pending)
+    while _cpu.pending:
+        result, check = _cpu.pending.pop(0)
+        check(result.get())
+    _cpu.pool.close()
+    _cpu.pool.join()
+    _cpu.pool = None
+    print(f"cpu references: {n} checks settled after waiting "
+          f"{time.perf_counter() - t0:.1f} s for the workers", flush=True)
+
+
+def cpu_training(cfg, splits, env=None, threads=None, **kwargs):
+    """(history, wall s) of run_training(cfg) on the CPU, under `env` and
+    at `threads` threads (the worker's own when None)."""
+    import torch
+    from hydragnn_tpu_torch import run_training
+    own = torch.get_num_threads()
+    torch.set_num_threads(threads or own)
+    t0 = time.perf_counter()
+    try:
+        with env_set(**(env or {})):
+            _, hist, _, _ = run_training(cfg, datasets=splits, device="cpu",
+                                         **kwargs)
+    finally:
+        torch.set_num_threads(own)
+    return hist, time.perf_counter() - t0
 
 
 def card_line() -> str:
@@ -1279,9 +1405,10 @@ def profile_rows(torch, prof):
 def autograd_device_ms(torch, name, make_loss, bound: float) -> float:
     """Device time per call of autograd's backward of make_loss()'s
     (loss, inputs): the forward runs once on a side stream, so that its
-    backward ops run there, then GRAPH_CALLS calls of torch.autograd.grad
-    on it are captured in one CUDA graph on that stream and replayed (CUDA
-    events, median). Fails below `bound`."""
+    backward ops run there, then AUTOGRAD_CALLS calls of
+    torch.autograd.grad on it are captured in one CUDA graph on that
+    stream and replayed (CUDA events, median of AUTOGRAD_REPS; a call
+    takes ~0.1 s, so few calls make the median). Fails below `bound`."""
     made = []
 
     def warm():
@@ -1289,10 +1416,11 @@ def autograd_device_ms(torch, name, make_loss, bound: float) -> float:
         torch.autograd.grad(*made, retain_graph=True)
 
     def calls():
-        for _ in range(GRAPH_CALLS):
+        for _ in range(AUTOGRAD_CALLS):
             torch.autograd.grad(*made, retain_graph=True)
     graph = capture(torch, warm, calls)
-    ms = cuda_ms(torch, graph.replay, reps=10) / GRAPH_CALLS
+    ms = cuda_ms(torch, graph.replay, reps=AUTOGRAD_REPS,
+                 warmup=1) / AUTOGRAD_CALLS
     if ms < bound:
         fail(f"{name}: device time {ms} ms below its bound {bound} ms")
     return ms
@@ -2103,6 +2231,7 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
     sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(num_epoch,
                                                         SGD_HELD_EPOCHS)
     num_epoch_sgd = sgd["NeuralNetwork"]["Training"]["num_epoch"]
+    cpu_run = cpu_submit(cpu_training, copy.deepcopy(sgd), splits)
     first = first_step_gradients(torch, sgd, splits, device)
     print(f"{label} first step: loss card vs cpu {first['loss_gap']:.3e}; "
           f"largest relative L2 gap of a gradient tensor: kernels vs plain "
@@ -2114,20 +2243,23 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
           f"{first['elements']} entries outside {SLICE_TOL}); widest card "
           f"vs cpu gaps: {first['worst_card_cpu']}", flush=True)
 
-    t0 = time.perf_counter()
-    _, h_cpu, _, _ = run_training(copy.deepcopy(sgd), datasets=splits,
-                                  device="cpu")
-    t_cpu = time.perf_counter() - t0
     _, h_card, _, _ = run_training(copy.deepcopy(sgd), datasets=splits,
                                    device=device)
-    gaps = history_gaps(h_card, h_cpu)
-    print(f"{label} SGD {num_epoch_sgd} epochs card vs cpu ({t_cpu:.1f} s on "
-          f"the cpu): relative gaps {gaps}; card train {h_card['train_loss']}"
-          f" val {h_card['val_loss']} test {h_card['test_loss']}", flush=True)
-    for k, v in gaps.items():
-        bound = TRAIN_RTOL if k == "train_loss" else EVAL_RTOL
-        if not v <= bound:
-            fail(f"{label}: SGD {k} card vs cpu gap {v} above {bound}")
+    record = dict(first_step=first)
+
+    def hold_sgd(run):
+        h_cpu, t_cpu = run
+        gaps = history_gaps(h_card, h_cpu)
+        print(f"{label} SGD {num_epoch_sgd} epochs card vs cpu ({t_cpu:.1f} "
+              f"s on a cpu worker): relative gaps {gaps}; card train "
+              f"{h_card['train_loss']} val {h_card['val_loss']} test "
+              f"{h_card['test_loss']}", flush=True)
+        for k, v in gaps.items():
+            bound = TRAIN_RTOL if k == "train_loss" else EVAL_RTOL
+            if not v <= bound:
+                fail(f"{label}: SGD {k} card vs cpu gap {v} above {bound}")
+        record["sgd_relative_gaps"] = gaps
+    cpu_then(cpu_run, hold_sgd)
 
     runs = []
     launches = {}
@@ -2159,8 +2291,7 @@ def training_phase(torch, label, base_cfg, splits, device, num_epoch,
             fail(f"{label}: non-finite {k} {h0[k]}")
     if sum(h0["nonfinite_steps"]):
         fail(f"{label}: non-finite steps {h0['nonfinite_steps']}")
-    record = dict(first_step=first, sgd_relative_gaps=gaps,
-                  bitwise_repeat=same, history=h0)
+    record.update(bitwise_repeat=same, history=h0)
     return main, launches, record
 
 
@@ -2535,48 +2666,69 @@ def lj_bf16_serving(torch, device, lj, counted):
         engine_graphs(torch, engine, requests, "LJ EF bf16 engine")
     finally:
         engine.shutdown()
-    t0 = time.perf_counter()
-    with engine_on("cpu") as cpu_engine:
-        want = [cpu_engine.forward_single(s) for s in test]
-        want_burst = [cpu_engine.forward_single(s, bucket=fut.bucket)
-                      for s, fut in zip(test, futs)]
-    t_cpu = time.perf_counter() - t0
+    cpu_run = cpu_submit(cpu_ef_engine, lj["mcfg"], lj["variables"], test,
+                         [fut.bucket for fut in futs[:len(test)]], "bf16")
     for name in ("filter_scatter_bf16", "filter_scatter_backward_bf16",
                  "segment_sum"):
         if counts[name] == 0:
             fail(f"{name} never launched on the bf16 EF engine path")
-    gaps, bad = {}, []
-    for i, name in enumerate(("energies", "forces")):
-        def flat(rs):
-            return np.concatenate([r[i].reshape(-1) for r in rs])
-        r32 = flat(lj["want"])
-        for key, got, ref in (("burst", flat(results[:len(test)]),
-                               flat(want_burst)),
-                              ("alone", flat(singles), flat(want))):
-            gap = bf16_gap(got, ref)
-            gaps[f"{name}_{key}"] = dict(
-                max_abs_err=float(np.abs(got - ref).max()), margin=-gap,
-                of_bound=float((np.abs(got - ref) / (
-                    BF16_BOUND + BF16_BOUND * np.abs(ref))).max()))
-            if not np.isfinite(got).all() or gap > 0:
-                bad.append(f"bf16 EF {name} ({key}) card vs cpu outside 2^-5"
-                           f" (by {gap})")
-        gaps[f"{name}_vs_float32"] = (float(np.abs(flat(singles) - r32)
-                                            .max()), float(np.abs(r32).max()))
     bitwise = all(np.array_equal(a, b) for res, single in
                   zip(results[:8], batched) for a, b in zip(res, single))
-    print(f"bf16 EF engine (edge list): launches {counts}; card vs cpu bf16 "
-          f"({t_cpu:.1f} s on the cpu), the burst against the cpu on the "
-          f"burst's buckets and each cell alone on the smallest bucket (max "
-          f"abs err, margin to 2^-5 + 2^-5 |ref|, largest share of the "
-          f"bound used): {json.dumps(gaps)}; batched = single bitwise: "
-          f"{bitwise}", flush=True)
-    if bad:
-        bf16_module_gaps(torch, lj, device)
-        fail("; ".join(bad))
     if not bitwise:
         fail("bf16 EF engine: batched outputs differ from the single forward")
+    gaps = {}
+
+    def hold_cpu(run):
+        want, want_burst, t_cpu = run
+        bad = []
+        for i, name in enumerate(("energies", "forces")):
+            def flat(rs):
+                return np.concatenate([r[i].reshape(-1) for r in rs])
+            r32 = flat(lj["want"])
+            for key, got, ref in (("burst", flat(results[:len(test)]),
+                                   flat(want_burst)),
+                                  ("alone", flat(singles), flat(want))):
+                gap = bf16_gap(got, ref)
+                gaps[f"{name}_{key}"] = dict(
+                    max_abs_err=float(np.abs(got - ref).max()), margin=-gap,
+                    of_bound=float((np.abs(got - ref) / (
+                        BF16_BOUND + BF16_BOUND * np.abs(ref))).max()))
+                if not np.isfinite(got).all() or gap > 0:
+                    bad.append(f"bf16 EF {name} ({key}) card vs cpu outside "
+                               f"2^-5 (by {gap})")
+            gaps[f"{name}_vs_float32"] = (float(np.abs(flat(singles) - r32)
+                                                .max()),
+                                          float(np.abs(r32).max()))
+        print(f"bf16 EF engine (edge list): launches {counts}; card vs cpu "
+              f"bf16 ({t_cpu:.1f} s on a cpu worker), the burst against the "
+              f"cpu on the burst's buckets and each cell alone on the "
+              f"smallest bucket (max abs err, margin to 2^-5 + 2^-5 |ref|, "
+              f"largest share of the bound used): {json.dumps(gaps)}; "
+              f"batched = single bitwise: {bitwise}", flush=True)
+        if bad:
+            bf16_module_gaps(torch, lj, device)
+            fail("; ".join(bad))
+    cpu_then(cpu_run, hold_cpu)
     return gaps
+
+
+def cpu_ef_engine(mcfg, variables, test, buckets, compute_dtype):
+    """A CPU EF engine's single forward of each test cell, alone on the
+    smallest bucket and on `buckets`, and the wall s of both."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    t0 = time.perf_counter()
+    model = create_model(mcfg, device="cpu")
+    model.load_state_dict(load_jax_variables(variables))
+    with InferenceEngine(model, mcfg, reference_samples=test,
+                         max_batch_size=SERVE_MAX_BATCH,
+                         neighbor_format=False, ef_forward=True,
+                         compute_dtype=compute_dtype, device="cpu") as eng:
+        want = [eng.forward_single(s) for s in test]
+        want_burst = [eng.forward_single(s, bucket=b)
+                      for s, b in zip(test, buckets)]
+    return want, want_burst, time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -2791,6 +2943,7 @@ def bf16_training_phase(torch, label, base_cfg, splits, device, num_epoch,
         "type": "SGD", "learning_rate": opt.get("learning_rate", 1e-3)}
     sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(num_epoch,
                                                         SGD_HELD_EPOCHS)
+    cpu_run = cpu_submit(cpu_training, copy.deepcopy(sgd), splits)
     first = {}
     for dev in ("cpu", device):
         model, _, _, loader, cfg_c, mcfg = train_parts(torch, sgd, splits,
@@ -2806,22 +2959,26 @@ def bf16_training_phase(torch, label, base_cfg, splits, device, num_epoch,
     first_gap = abs(first[str(device)] - first["cpu"]) / abs(first["cpu"])
     if not first_gap <= BF16_BOUND:
         fail(f"{label} bf16: first step loss card vs cpu gap {first_gap}")
-    t0 = time.perf_counter()
-    _, h_cpu, _, _ = run_training(copy.deepcopy(sgd), splits, device="cpu")
-    t_cpu = time.perf_counter() - t0
     _, h_card, _, _ = run_training(copy.deepcopy(sgd), splits, device=device)
-    gaps = history_gaps(h_card, h_cpu)
-    print(f"{label} bf16: first step loss card vs cpu {first_gap:.3e} "
-          f"relative; SGD {sgd['NeuralNetwork']['Training']['num_epoch']} "
-          f"epochs card vs cpu ({t_cpu:.1f} s on "
-          f"the cpu): relative gaps {gaps} ("
-          + ("held" if hold_history else "printed, not held")
-          + f"); card train {h_card['train_loss']} val {h_card['val_loss']}"
-          f"; cpu train {h_cpu['train_loss']} val {h_cpu['val_loss']}",
-          flush=True)
-    for k, v in gaps.items():
-        if hold_history and not v <= BF16_BOUND:
-            fail(f"{label} bf16: SGD {k} card vs cpu gap {v} above 2^-5")
+    record = dict(first_step_loss_gap=first_gap,
+                  sgd_history_held=hold_history)
+
+    def hold_sgd(run):
+        h_cpu, t_cpu = run
+        gaps = history_gaps(h_card, h_cpu)
+        print(f"{label} bf16: first step loss card vs cpu {first_gap:.3e} "
+              f"relative; SGD {sgd['NeuralNetwork']['Training']['num_epoch']}"
+              f" epochs card vs cpu ({t_cpu:.1f} s on a cpu worker): "
+              f"relative gaps {gaps} ("
+              + ("held" if hold_history else "printed, not held")
+              + f"); card train {h_card['train_loss']} val "
+              f"{h_card['val_loss']}; cpu train {h_cpu['train_loss']} val "
+              f"{h_cpu['val_loss']}", flush=True)
+        for k, v in gaps.items():
+            if hold_history and not v <= BF16_BOUND:
+                fail(f"{label} bf16: SGD {k} card vs cpu gap {v} above 2^-5")
+        record["sgd_relative_gaps"] = gaps
+    cpu_then(cpu_run, hold_sgd)
     runs = []
     for i in range(2):
         tk.reset_launch_counts()
@@ -2850,9 +3007,8 @@ def bf16_training_phase(torch, label, base_cfg, splits, device, num_epoch,
     for name in required:
         if counts[name] == 0:
             fail(f"{name} never launched on the {label} bf16 training path")
-    return dict(first_step_loss_gap=first_gap, sgd_relative_gaps=gaps,
-                sgd_history_held=hold_history, bitwise_repeat=same,
-                launches=counts)
+    record.update(bitwise_repeat=same, launches=counts)
+    return record
 
 
 def resume_phase(torch, device, base_cfg, splits, counted):
@@ -3068,45 +3224,86 @@ def hold_sgd_histories(runs):
     return floor, bound
 
 
-def eam_phase(torch, device, counted, packed_batch):
-    """Phase 10: NiNb_EAM_energy.json (PNA with edge lengths) at its
-    published width from its own CFG files. Returns (per-path records,
-    segment_sum shape records)."""
-    import os
+def eam_sgd(base, dense):
+    """Phase 10's SGD config on one layout."""
+    sgd = copy.deepcopy(base)
+    sgd["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
+    sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
+        "type": "SGD", "learning_rate": base["NeuralNetwork"]["Training"][
+            "Optimizer"]["learning_rate"]}
+    sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(EAM_EPOCHS,
+                                                        SGD_HELD_EPOCHS)
+    return sgd
+
+
+def cpu_training_series(runs):
+    """`cpu_training(*run)` for each run, one after another."""
+    return [cpu_training(*run) for run in runs]
+
+
+def eam_setup(torch):
+    """Phase 10's CFG files and config, written ahead of the phase so
+    that its CPU runs start early: the SGD config of each layout on the
+    CPU at this process's threads and at half of them (other GEMM and
+    reduction orders: how far two float32 runs of this configuration
+    part), one after another on one worker. Returns the setup dict that
+    `eam_phase` takes."""
+    import atexit
+    import shutil
     import tempfile
 
-    from hydragnn_tpu_torch import kernels as tk
-    from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.graphs.synthetic import ninb_cfg_files
     from hydragnn_tpu_torch.preprocess.load_data import (
-        create_dataloaders, load_datasets_from_config)
+        load_datasets_from_config)
     with open(EAM_CONFIG) as fh:
         base = json.load(fh)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ninb_")
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    ninb_cfg_files(os.path.join(tmp, "NiNb_solid_solution"), NUM_NINB,
+                   seed=SEED)
+    base["Dataset"]["path"]["total"] = os.path.join(tmp,
+                                                    "NiNb_solid_solution")
+    # plots are ROADMAP A10, which run_training refuses; the run is cut to
+    # EAM_EPOCHS of the config's epochs
+    base["Visualization"]["create_plots"] = False
+    base["Verbosity"]["level"] = 0
+    published = base["NeuralNetwork"]["Training"]["num_epoch"]
+    base["NeuralNetwork"]["Training"]["num_epoch"] = EAM_EPOCHS
+    splits = load_datasets_from_config(base)
+    write_s = time.perf_counter() - t0
+    threads = torch.get_num_threads()
+    layouts = (("dense", True), ("edge", False))
+    cpu_runs = cpu_submit(cpu_training_series, [
+        (eam_sgd(base, dense), None, None, t)
+        for _, dense in layouts for t in (threads, max(1, threads // 2))])
+    return dict(tmp=tmp, base=base, splits=splits, published=published,
+                write_s=write_s, threads=threads,
+                layouts=layouts, cpu_runs=cpu_runs)
+
+
+def eam_phase(torch, device, counted, packed_batch, setup):
+    """Phase 10: NiNb_EAM_energy.json (PNA with edge lengths) at its
+    published width from its own CFG files (`eam_setup`). Returns
+    (per-path records, segment_sum shape records)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    base, splits, layouts, threads = (setup["base"], setup["splits"],
+                                      setup["layouts"], setup["threads"])
     try:
-        t0 = time.perf_counter()
-        ninb_cfg_files(os.path.join(tmp, "NiNb_solid_solution"), NUM_NINB,
-                       seed=SEED)
-        base["Dataset"]["path"]["total"] = os.path.join(
-            tmp, "NiNb_solid_solution")
-        # plots are ROADMAP A10, which run_training refuses; the run is cut
-        # to EAM_EPOCHS of the config's epochs
-        base["Visualization"]["create_plots"] = False
-        base["Verbosity"]["level"] = 0
-        published = base["NeuralNetwork"]["Training"]["num_epoch"]
-        base["NeuralNetwork"]["Training"]["num_epoch"] = EAM_EPOCHS
-        splits = load_datasets_from_config(base)
         arch = base["NeuralNetwork"]["Architecture"]
         bs = int(base["NeuralNetwork"]["Training"]["batch_size"])
         print(f"phase 10: {EAM_CONFIG} (PNA hidden {arch['hidden_dim']}, "
               f"{arch['num_conv_layers']} layers, edge_features "
               f"{arch['edge_features']}, radius {arch['radius']} periodic, "
-              f"batch {bs}; {EAM_EPOCHS} of {published} epochs, plots off) "
-              f"on {NUM_NINB} NiNb cells of {splits[0][0].num_nodes} atoms "
-              f"as CFG files ({time.perf_counter() - t0:.1f} s to write and "
-              f"read); splits {[len(s) for s in splits]}", flush=True)
-        out, shapes, sgd_runs = {}, [], {}
-        for label, dense in (("dense", True), ("edge", False)):
+              f"batch {bs}; {EAM_EPOCHS} of {setup['published']} epochs, "
+              f"plots off) on {NUM_NINB} NiNb cells of "
+              f"{splits[0][0].num_nodes} atoms as CFG files "
+              f"({setup['write_s']:.1f} s to write and read); splits "
+              f"{[len(s) for s in splits]}", flush=True)
+        out, shapes, sgd_runs, card_sgd = {}, [], {}, {}
+        for label, dense in layouts:
             cfg = copy.deepcopy(base)
             cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = dense
             name = f"eam PNA lengths ({'dense' if dense else 'edge list'})"
@@ -3143,30 +3340,10 @@ def eam_phase(torch, device, counted, packed_batch):
                 for k, v in state.state_dict().items())
             if not same:
                 fail(f"{name}: two card runs from one seed differ")
-            sgd = copy.deepcopy(cfg)
-            sgd["NeuralNetwork"]["Training"]["Optimizer"] = {
-                "type": "SGD", "learning_rate": base["NeuralNetwork"][
-                    "Training"]["Optimizer"]["learning_rate"]}
-            sgd["NeuralNetwork"]["Training"]["num_epoch"] = min(
-                EAM_EPOCHS, SGD_HELD_EPOCHS)
+            sgd = eam_sgd(base, dense)
             first = first_step_gradients(torch, sgd, splits, device)
-            t0 = time.perf_counter()
-            _, h_cpu, _, _ = run_training(copy.deepcopy(sgd), device="cpu")
-            t_cpu = time.perf_counter() - t0
-            _, h_card, _, _ = run_training(copy.deepcopy(sgd), device=device)
-            gaps = history_gaps(h_card, h_cpu)
-            # the CPU against itself at half its threads (other GEMM and
-            # reduction orders): how far two float32 runs of this
-            # configuration part
-            threads = torch.get_num_threads()
-            torch.set_num_threads(max(1, threads // 2))
-            try:
-                _, h_half, _, _ = run_training(copy.deepcopy(sgd),
-                                               device="cpu")
-            finally:
-                torch.set_num_threads(threads)
-            floor = history_gaps(h_half, h_cpu)
-            sgd_runs[label] = dict(card=gaps, half_threads=floor, cpu=h_cpu)
+            _, card_sgd[label], _, _ = run_training(copy.deepcopy(sgd),
+                                                    device=device)
             print(f"{name} first step: loss card vs cpu "
                   f"{first['loss_gap']:.3e}; gradients kernels vs plain "
                   f"{first['rel_l2_kernels_plain']:.3e}, card vs cpu "
@@ -3176,11 +3353,7 @@ def eam_phase(torch, device, counted, packed_batch):
                   f"{first['rel_l2_kernels_plain_all']:.3e}, cpu float32 vs "
                   f"float64 {first['rel_l2_cpu_f64_all']:.3e}; widest card "
                   f"vs cpu: {first['worst_card_cpu']}); "
-                  f"two card runs bitwise: {same}; SGD "
-                  f"{sgd['NeuralNetwork']['Training']['num_epoch']} epochs "
-                  f"card vs cpu ({t_cpu:.1f} s on the cpu): relative gaps "
-                  f"{gaps}; the cpu at half its threads vs the cpu: "
-                  f"{floor}", flush=True)
+                  f"two card runs bitwise: {same}", flush=True)
             trues, preds = run_prediction(copy.deepcopy(cfg), state=state,
                                           model=model, device=device)
             trues_c, preds_c = run_prediction(copy.deepcopy(cfg),
@@ -3206,11 +3379,23 @@ def eam_phase(torch, device, counted, packed_batch):
                                CSCE_GROUP)
             rec["run"] = dict(history=hist, wall_s=wall, launches=counts,
                               first_step=first, bitwise_repeat=same,
-                              sgd_relative_gaps=gaps,
-                              sgd_cpu_half_threads_gaps=floor,
                               prediction_card_cpu=err, test_rmse=rmse)
             out[f"eam_pna_{label}"] = rec
 
+        cpu_runs = iter(setup["cpu_runs"].get())
+        for label, dense in layouts:
+            (h_cpu, t_cpu), (h_half, _) = next(cpu_runs), next(cpu_runs)
+            gaps = history_gaps(card_sgd[label], h_cpu)
+            floor = history_gaps(h_half, h_cpu)
+            sgd_runs[label] = dict(card=gaps, half_threads=floor, cpu=h_cpu)
+            out[f"eam_pna_{label}"]["run"].update(
+                sgd_relative_gaps=gaps, sgd_cpu_half_threads_gaps=floor)
+            print(f"eam PNA lengths ({'dense' if dense else 'edge list'}): "
+                  f"SGD {min(EAM_EPOCHS, SGD_HELD_EPOCHS)} epochs card vs "
+                  f"cpu ({t_cpu:.1f} s on a cpu worker at {threads} "
+                  f"threads): relative gaps {gaps}; the cpu at "
+                  f"{max(1, threads // 2)} threads vs the cpu: {floor}",
+                  flush=True)
         floor, bound = hold_sgd_histories(sgd_runs)
         for label in sgd_runs:
             out[f"eam_pna_{label}"]["run"].update(sgd_float32_floor=floor,
@@ -3269,7 +3454,7 @@ def eam_phase(torch, device, counted, packed_batch):
         return out, shapes
     finally:
         import shutil
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(setup["tmp"], ignore_errors=True)
 
 
 # ----------------------------------------------------------- phase 11 --
@@ -4353,6 +4538,7 @@ def serving_phase(torch, device, card, counted, lj_state, csce):
 # ----------------------------------------------------------- phase 13 --
 FARM_TRAJ = (1, 64, 512)       # 216-atom trajectories a farm (phase 12b's)
 FARM_STEPS = 64
+FARM_STEPS_LARGEST = 16        # the largest farm's (a rate; no hold reads it)
 FARM_K = 8                     # MD steps a dispatch (one graph replay)
 FARM_HELD = 4                  # of the T = 64 run, held against run_md
 FARM_BIG_TRAJ = 8              # 1,728-atom trajectories (phase 12a's system)
@@ -4539,7 +4725,8 @@ def farm_phase(torch, device, card, counted, lj_state, session_rates):
     """Phase 13: the device-resident trajectory farm (md/farm.py) through
     `InferenceEngine.trajectory_farm`, the MD config of phase 12 with
     phase 6's weights. (a) 216-atom systems (phase 12b's, seeds k and
-    100 + k), T = 1, 64 and 512, FARM_STEPS steps, K = FARM_K; (b)
+    100 + k), T = 1, 64 and 512, FARM_STEPS steps (T = 512:
+    FARM_STEPS_LARGEST), K = FARM_K; (b)
     FARM_BIG_TRAJ systems of 1,728 atoms (phase 12a's, seeds 1 + k and
     2 + 1000 k), FARM_BIG_STEPS steps. Holds: FARM_HELD trajectories of
     T = 64 and FARM_BIG_HELD of (b) equal `run_md(mode="incremental")`
@@ -4570,8 +4757,10 @@ def farm_phase(torch, device, card, counted, lj_state, session_rates):
                   flush=True)
             for T in FARM_TRAJ:
                 tk.reset_launch_counts()
+                steps = (FARM_STEPS_LARGEST if T == max(FARM_TRAJ)
+                         else FARM_STEPS)
                 results[T], runs[f"T{T}"], farm = farm_run(
-                    torch, engine, systems, T, FARM_STEPS, FARM_K,
+                    torch, engine, systems, T, steps, FARM_K,
                     f"216 atoms T={T}", card)
                 counted(runs[f"T{T}"]["launches"])
                 if T == max(FARM_TRAJ):
@@ -5654,79 +5843,95 @@ def dimenet_lattice_training(torch, splits, device, card):
     return dict(first_step=first, sgd_steps=steps)
 
 
+def cpu_lattice_witness(cfg, splits):
+    """One lattice row trained and predicted on the CPU: its test RMSE,
+    wall s and train losses."""
+    from hydragnn_tpu_torch import run_prediction, run_training
+    t0 = time.perf_counter()
+    state, hist, model, done = run_training(cfg, datasets=splits,
+                                            device="cpu")
+    trues, preds = run_prediction(done, datasets=splits, state=state,
+                                  model=model, device="cpu")
+    return dict(rmse=float(np.sqrt(np.mean((trues[0] - preds[0]) ** 2))),
+                wall_s=time.perf_counter() - t0,
+                train_loss=[float(v) for v in hist["train_loss"]])
+
+
 def lattice_rows(torch, device, card, counted):
     """(c): the four threshold rows of tests/test_graphs_full.py trained
     and predicted on the card, each held under its threshold, and run
-    again on the CPU from the same initialization as a witness: every
-    epoch's train loss card vs CPU held within TRAIN_RTOL (a row that
-    ends in the graph-mean basin on one device only fails here); both
-    RMSEs and the graph-mean predictor's are printed. DimeNet's training
-    is held besides (`dimenet_lattice_training`)."""
+    again on the CPU from the same initialization as a witness (on a CPU
+    worker, `cpu_lattice_witness`): every epoch's train loss card vs CPU
+    held within TRAIN_RTOL (a row that ends in the graph-mean basin on
+    one device only fails here); both RMSEs and the graph-mean
+    predictor's are printed. DimeNet's training is held besides
+    (`dimenet_lattice_training`)."""
     from hydragnn_tpu_torch import kernels as tk
     from hydragnn_tpu_torch import run_prediction, run_training
     from hydragnn_tpu_torch.graphs.synthetic import bcc_lattices
     from hydragnn_tpu_torch.preprocess.load_data import split_dataset
     samples = bcc_lattices(LATTICE_GRAPHS, heads=("graph",))
     splits = split_dataset(samples, 0.7)
+    rows = ("DimeNet", "PAINN", "PNAEq", "MACE")
+    witness = {m: cpu_submit(cpu_lattice_witness, lattice_config(m), splits)
+               for m in rows}
     out = {"DimeNet_training": dimenet_lattice_training(torch, splits,
                                                         device, card)}
-    for model_type in ("DimeNet", "PAINN", "PNAEq", "MACE"):
+    for model_type in rows:
         cfg = lattice_config(model_type)
-        runs = {}
-        for dev in (device, "cpu"):
-            tk.reset_launch_counts()
-            t0 = time.perf_counter()
-            state, hist, model, done = run_training(copy.deepcopy(cfg),
-                                                    datasets=splits,
-                                                    device=dev)
-            trues, preds = run_prediction(done, datasets=splits,
-                                          state=state, model=model,
-                                          device=dev)
-            if dev == device:
-                torch.cuda.synchronize()
-                counts = tk.launch_counts()
-                counted(counts)
-                if counts["segment_sum"] == 0:
-                    fail(f"lattice {model_type}: segment_sum never "
-                         "launched")
-            runs[str(dev)] = dict(
-                rmse=float(np.sqrt(np.mean((trues[0] - preds[0]) ** 2))),
-                wall_s=time.perf_counter() - t0,
-                train_loss=[float(v) for v in hist["train_loss"]])
-        got, cpu = runs[str(device)], runs["cpu"]
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, hist, model, done = run_training(copy.deepcopy(cfg),
+                                                datasets=splits,
+                                                device=device)
+        trues, preds = run_prediction(done, datasets=splits, state=state,
+                                      model=model, device=device)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        counted(counts)
+        if counts["segment_sum"] == 0:
+            fail(f"lattice {model_type}: segment_sum never launched")
+        got = dict(rmse=float(np.sqrt(np.mean((trues[0] - preds[0]) ** 2))),
+                   wall_s=time.perf_counter() - t0,
+                   train_loss=[float(v) for v in hist["train_loss"]])
         rmse = got["rmse"]
         mean_rmse = float(np.sqrt(np.mean((trues[0] - trues[0].mean())
                                           ** 2)))
-        gaps = [abs(a - b) / max(abs(b), 1e-12)
-                for a, b in zip(got["train_loss"], cpu["train_loss"])]
-        parted = next((i for i, g in enumerate(gaps) if g > TRAIN_RTOL),
-                      None)
-        print(f"lattice {model_type}: {LATTICE_EPOCHS} epochs on "
-              f"{len(splits[0])} graphs, run_training + run_prediction "
-              f"{got['wall_s']:.1f} s (cpu witness {cpu['wall_s']:.1f} s); "
-              f"test RMSE card {rmse:.4f}, cpu {cpu['rmse']:.4f}, graph-mean "
-              f"predictor {mean_rmse:.4f} (threshold "
-              f"{THRESHOLDS[model_type]}); final train loss card "
-              f"{got['train_loss'][-1]:.4e}, cpu {cpu['train_loss'][-1]:.4e};"
-              f" train loss card vs cpu at most {max(gaps):.3e} relative "
-              f"over the epochs (bound {TRAIN_RTOL}); launches {counts} "
-              f"(card: {card})", flush=True)
         if not np.isfinite(rmse) or rmse >= THRESHOLDS[model_type]:
             fail(f"lattice {model_type}: RMSE {rmse} not under "
                  f"{THRESHOLDS[model_type]}")
-        if parted is not None:
-            fail(f"lattice {model_type}: train loss card "
-                 f"{got['train_loss'][parted]} vs cpu "
-                 f"{cpu['train_loss'][parted]} at epoch {parted}, above "
-                 f"{TRAIN_RTOL} relative")
         out[model_type] = dict(rmse=rmse, threshold=THRESHOLDS[model_type],
-                               cpu_rmse=cpu["rmse"],
                                graph_mean_rmse=mean_rmse,
-                               train_loss_gap=max(gaps),
-                               wall_s=got["wall_s"],
-                               cpu_wall_s=cpu["wall_s"], launches=counts,
-                               train_loss=got["train_loss"],
-                               cpu_train_loss=cpu["train_loss"])
+                               wall_s=got["wall_s"], launches=counts,
+                               train_loss=got["train_loss"])
+
+        def hold_witness(cpu, model_type=model_type, got=got,
+                         mean_rmse=mean_rmse, counts=counts):
+            gaps = [abs(a - b) / max(abs(b), 1e-12)
+                    for a, b in zip(got["train_loss"], cpu["train_loss"])]
+            parted = next((i for i, g in enumerate(gaps) if g > TRAIN_RTOL),
+                          None)
+            print(f"lattice {model_type}: {LATTICE_EPOCHS} epochs on "
+                  f"{len(splits[0])} graphs, run_training + run_prediction "
+                  f"{got['wall_s']:.1f} s (cpu witness {cpu['wall_s']:.1f} "
+                  f"s on a cpu worker); test RMSE card {got['rmse']:.4f}, "
+                  f"cpu {cpu['rmse']:.4f}, graph-mean predictor "
+                  f"{mean_rmse:.4f} (threshold {THRESHOLDS[model_type]}); "
+                  f"final train loss card {got['train_loss'][-1]:.4e}, cpu "
+                  f"{cpu['train_loss'][-1]:.4e}; train loss card vs cpu at "
+                  f"most {max(gaps):.3e} relative over the epochs (bound "
+                  f"{TRAIN_RTOL}); launches {counts} (card: {card})",
+                  flush=True)
+            if parted is not None:
+                fail(f"lattice {model_type}: train loss card "
+                     f"{got['train_loss'][parted]} vs cpu "
+                     f"{cpu['train_loss'][parted]} at epoch {parted}, above "
+                     f"{TRAIN_RTOL} relative")
+            out[model_type].update(cpu_rmse=cpu["rmse"],
+                                   train_loss_gap=max(gaps),
+                                   cpu_wall_s=cpu["wall_s"],
+                                   cpu_train_loss=cpu["train_loss"])
+        cpu_then(witness[model_type], hold_witness)
     return out
 
 
@@ -7080,25 +7285,31 @@ def deep_stack_training(torch, device, card, add, splits, devs):
     sgd = copy.deepcopy(cfg)
     sgd["NeuralNetwork"]["Training"].update(
         num_epoch=1, Optimizer={"type": "SGD", "learning_rate": 1e-3})
-    runs = {}
-    with env_set(HYDRAGNN_MAX_NUM_BATCH=1):
-        for dev in (device, "cpu"):
-            t0 = time.perf_counter()
-            _, h, _, _ = run_training(
-                copy.deepcopy(sgd), datasets=splits, device=dev,
-                pipeline_devices=[dev] * 4)
-            runs[str(dev)] = (h, time.perf_counter() - t0)
-    gaps = history_gaps(runs[str(device)][0], runs["cpu"][0])
-    losses = {k: runs[k][0]["train_loss"][0] for k in runs}
-    print(f"phase 19a SGD first step card vs cpu ({runs['cpu'][1]:.1f} s "
-          f"on the cpu): train loss card {losses[str(device)]!r} cpu "
-          f"{losses['cpu']!r}; relative gaps {gaps} (first step 1e-4, "
-          f"val/test {EVAL_RTOL})", flush=True)
-    first_gap = gaps["train_loss"]
-    for k, v in gaps.items():
-        bound = 1e-4 if k == "train_loss" else EVAL_RTOL
-        if not v <= bound:
-            fail(f"phase 19a: SGD {k} card vs cpu gap {v} above {bound}")
+    env = dict(HYDRAGNN_MAX_NUM_BATCH=1)
+    cpu_run = cpu_submit(cpu_training, copy.deepcopy(sgd), splits, env, 4,
+                         pipeline_devices=["cpu"] * 4)
+    with env_set(**env):
+        _, h_card, _, _ = run_training(
+            copy.deepcopy(sgd), datasets=splits, device=device,
+            pipeline_devices=[device] * 4)
+    rec = {}
+
+    def hold_sgd(run):
+        h_cpu, t_cpu = run
+        gaps = history_gaps(h_card, h_cpu)
+        losses = {str(device): h_card["train_loss"][0],
+                  "cpu": h_cpu["train_loss"][0]}
+        print(f"phase 19a SGD first step card vs cpu ({t_cpu:.1f} s on a "
+              f"cpu worker): train loss card {losses[str(device)]!r} cpu "
+              f"{losses['cpu']!r}; relative gaps {gaps} (first step 1e-4, "
+              f"val/test {EVAL_RTOL})", flush=True)
+        for k, v in gaps.items():
+            bound = 1e-4 if k == "train_loss" else EVAL_RTOL
+            if not v <= bound:
+                fail(f"phase 19a: SGD {k} card vs cpu gap {v} above {bound}")
+        rec.update(first_step_losses=losses,
+                   first_step_gap=gaps["train_loss"], sgd_gaps=gaps)
+    cpu_then(cpu_run, hold_sgd)
     # the captured step alone: CUDA events, one profiled replay
     model, st, step, batch = pipe_parts(torch, cfg, splits, device, 4)
     times = step_events_ms(torch, lambda: step(st, batch), reps=5)
@@ -7114,14 +7325,14 @@ def deep_stack_training(torch, device, card, add, splits, devs):
           f"({graphs / step_ms * 1e3:.1f} graphs/s); kernel launches a "
           f"step {dict((k, v) for k, v in cap.launches.items() if v)} "
           f"(card: {card})", flush=True)
-    return dict(history={k: hist[k] for k in ("train_loss", "val_loss",
-                                              "test_loss")},
-                wall_s=wall, launches=counts, first_step_losses=losses,
-                first_step_gap=first_gap, sgd_gaps=gaps, step_ms=step_ms,
-                step_ms_range=[min(times), max(times)], device_ms=dev_ms,
-                device_events=events, graphs_per_step=graphs,
-                launches_per_step={k: v for k, v in cap.launches.items()
-                                   if v})
+    rec.update(history={k: hist[k] for k in ("train_loss", "val_loss",
+                                             "test_loss")},
+               wall_s=wall, launches=counts, step_ms=step_ms,
+               step_ms_range=[min(times), max(times)], device_ms=dev_ms,
+               device_events=events, graphs_per_step=graphs,
+               launches_per_step={k: v for k, v in cap.launches.items()
+                                  if v})
+    return rec
 
 
 def exact_problem(torch, device, n, f, layers, micro):
@@ -7366,6 +7577,566 @@ def pipeline_phase(torch, device, card, counted, csce, lj_splits):
     return rec, launches
 
 
+# ------------------------------------------------------------- phase 20 --
+GP_NODES = 131072              # 20a: the graph of the graph_parallel layers
+GP_EDGES = 4194304             # [E, F] float32 messages: 1 GiB
+GP_F = 64
+GP_SLOTS = 4                   # streams of the one card
+GP_REPS = 5                    # timed calls a mode
+COMPOSED_GRAPH_SHARDS = 2      # 20b-c
+COMPOSED_LR = 1e-3             # the SGD runs held card vs single / CPU
+HISTORY_TOL = dict(rtol=2e-3, atol=1e-5)   # JAX tests/test_composite.py
+PIPE_DATA_SHARDS = 2           # 20d
+PARITY_TOL = dict(rtol=5e-6, atol=1e-7)    # JAX tests/test_pipeline_config
+
+
+def gp_message(xi, xj, ea):
+    return xj * 2.0 + xi * 0.5
+
+
+def gp_mode_run(torch, layer, args, x, ct):
+    """(output, gradient of x) of one forward + VJP of a layer."""
+    xg = x.detach().requires_grad_(True)
+    out = layer(xg, *args)
+    (g,) = torch.autograd.grad(out, xg, ct)
+    layer.slots.join()
+    return out.detach(), g
+
+
+def gp_peak_mib(torch, call):
+    """Peak allocated MiB above the live tensors of call()."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def gp_layers(torch, device, card, add, reference):
+    """20a: the edge-sharded and ring layers on GP_SLOTS streams against
+    the single-device B3 sum; (record, segment_sum shapes)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.kernels import segment
+    from hydragnn_tpu_torch.parallel import graph_parallel as gp
+    n, e, f, D = GP_NODES, GP_EDGES, GP_F, GP_SLOTS
+    rng = np.random.default_rng(SEED)
+    send = rng.integers(0, n, e, dtype=np.int64).astype(np.int32)
+    recv = rng.integers(0, n, e, dtype=np.int64).astype(np.int32)
+    mask, send_s, recv_s = gp.shard_edge_arrays(D, send, recv)
+    t0 = time.perf_counter()
+    buckets = gp.build_ring_buckets(send, recv, n, D)
+    host_s = time.perf_counter() - t0
+    dev_t = lambda a, dt: torch.as_tensor(a).to(device=device, dtype=dt)
+    edge_args = (dev_t(send_s, torch.int32), dev_t(recv_s, torch.int32),
+                 dev_t(mask, torch.bool))
+    ring_args = (dev_t(buckets.send_local, torch.int32),
+                 dev_t(buckets.recv_local, torch.int32),
+                 dev_t(buckets.mask, torch.bool))
+    send_t, recv_t = dev_t(send, torch.int64), dev_t(recv, torch.int64)
+    edge = gp.make_edge_sharded_layer([device] * D, gp_message, n)
+    ring = gp.make_ring_layer([device] * D, gp_message)
+    block = buckets.block
+
+    def single(x):
+        m = gp_message(segment.gather_rows(x, recv_t),
+                       segment.gather_rows(x, send_t), None)
+        return segment.segment_sum(m.contiguous(), recv_t, n)
+
+    single.slots = types.SimpleNamespace(join=lambda: None)
+    modes = {
+        "single": (single, (), lambda x: x, lambda o: o),
+        "edge_sharded": (edge, edge_args, lambda x: x, lambda o: o),
+        "ring": (ring, ring_args, lambda x: gp.shard_node_array(x, D),
+                 lambda o: o.reshape(-1, f)[:n])}
+    rec = {"N": n, "E": e, "F": f, "slots": D, "ring_block": block,
+           "ring_bucket_rows": int(buckets.mask.shape[-1]),
+           "ring_buckets_host_s": host_s}
+    for data in ("random", "dyadic"):
+        if data == "random":
+            x = torch.randn(n, f, generator=torch.Generator().manual_seed(
+                SEED)).to(device)
+        else:
+            x = (torch.randint(-16, 17, (n, f), generator=torch.Generator()
+                               .manual_seed(SEED + 1)) / 8.0).to(device)
+        ct = (torch.randint(-8, 9, (n, f), generator=torch.Generator()
+                            .manual_seed(SEED + 2)) / 8.0).to(device)
+        outs = {}
+        for name, (layer, args, into, back) in modes.items():
+            xin = into(x)
+            cin = into(ct)
+            out, g = gp_mode_run(torch, layer, args, xin, cin)
+            outs[name] = (back(out), back(g))
+        ref = outs["single"]
+        for name in ("edge_sharded", "ring"):
+            for j, what in enumerate(("forward", "vjp")):
+                got, want = outs[name][j], ref[j]
+                err = float((got - want).abs().max())
+                ok = (torch.equal(got, want) if data == "dyadic"
+                      else torch.allclose(got, want, **SUM_TOL))
+                rec[f"{name}_{what}_{data}_max_abs_err"] = err
+                if not ok:
+                    fail(f"phase 20a: {name} {what} on {data} data vs the "
+                         f"single-device sum: max err {err}")
+    # launches a call, times and peak memory, each mode on random data
+    x = torch.randn(n, f, generator=torch.Generator().manual_seed(SEED)
+                    ).to(device)
+    ct = torch.randn(n, f, generator=torch.Generator().manual_seed(
+        SEED + 3)).to(device)
+    for name, (layer, args, into, back) in modes.items():
+        xin, cin = into(x), into(ct)
+        tk.reset_launch_counts()
+        with torch.no_grad():
+            layer(xin, *args)
+        torch.cuda.synchronize()
+        fwd_launches = tk.launch_counts()["segment_sum"]
+        tk.reset_launch_counts()
+        gp_mode_run(torch, layer, args, xin, cin)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        (reference if name == "single" else add)(counts)
+        with torch.no_grad():
+            fwd = step_events_ms(torch, lambda: layer(xin, *args),
+                                 reps=GP_REPS)
+        both = step_events_ms(
+            torch, lambda: gp_mode_run(torch, layer, args, xin, cin),
+            reps=GP_REPS)
+        mib = gp_peak_mib(torch, lambda: gp_mode_run(torch, layer, args,
+                                                     xin, cin))
+        slots = 1 if name == "single" else D
+        rec[name] = dict(forward_ms=float(np.median(fwd)),
+                         forward_vjp_ms=float(np.median(both)),
+                         peak_mib=mib, b3_forward_launches=fwd_launches,
+                         b3_forward_launches_per_slot=fwd_launches / slots,
+                         b3_forward_vjp_launches=counts["segment_sum"])
+        print(f"phase 20a {name}: forward {rec[name]['forward_ms']:.3f} ms, "
+              f"forward + VJP {rec[name]['forward_vjp_ms']:.3f} ms (median "
+              f"of {GP_REPS}); B3 launches a forward {fwd_launches} "
+              f"({fwd_launches / slots:g} a slot), a forward + VJP "
+              f"{counts['segment_sum']}; peak allocated {mib:.1f} MiB above "
+              f"the live tensors (card: {card})", flush=True)
+        if name != "single" and fwd_launches == 0:
+            fail(f"phase 20a: B3 never launched in the {name} slots")
+    print(f"phase 20a: N={n} E={e} F={f} on {D} streams, ring block "
+          f"{block}, bucket rows {rec['ring_bucket_rows']} (host bucketing "
+          f"{host_s:.2f} s); held vs the single-device B3 sum: within "
+          f"{SUM_TOL} on random data, bitwise on dyadic data, forward and "
+          f"VJP: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rec.items()
+                      if k.endswith("max_abs_err"))
+          + f" (card: {card})", flush=True)
+    # B3 at the shapes these paths give it, with its bound
+    chunk = gp.edge_chunks(e, D)[0]
+    ids = recv_t[chunk].to(torch.int32).contiguous()
+    data = torch.randn(ids.shape[0], f, generator=torch.Generator()
+                       .manual_seed(SEED + 4)).to(device)
+    shapes = [segment_shape(torch, "gp_edge_shard", data, ids, n,
+                            layout=segment.segment_layout(ids, n),
+                            card=card)]
+    r, m = ring_args[1][0][0], ring_args[2][0][0]
+    # the padding rows of a bucket are zero, as the layer's masked messages
+    data = torch.randn(r.shape[0], f, generator=torch.Generator()
+                       .manual_seed(SEED + 5)).to(device) * m[:, None]
+    shapes.append(segment_shape(torch, "gp_ring_bucket", data, r, block,
+                                layout=segment.segment_layout(r, block, m),
+                                real=None, card=card))
+    return rec, shapes
+
+
+def composed_parts(torch, cfg, splits, mcfg, device, data, variables,
+                   dtype=None):
+    """(model, state, train step, first batch) of a composed csce / LJ
+    config on `device`: the model from the Flax variables (and it and the
+    batch's floats in `dtype` when given), SGD, graph slots
+    [device] * (data * COMPOSED_GRAPH_SHARDS)."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel import composite
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    tr = cfg["NeuralNetwork"]["Training"]
+    loader = create_dataloaders(*splits, int(tr["batch_size"]),
+                                neighbor_format=False, num_shards=data)[0]
+    loader.set_epoch(0)
+    grid = composite.ComposedGrid(
+        [device] * (data * COMPOSED_GRAPH_SHARDS), data,
+        COMPOSED_GRAPH_SHARDS)
+    batch = composite.place_composed_batch(next(iter(loader)), grid)
+    model = create_model(mcfg, device=device)
+    model.load_state_dict(load_jax_variables(variables))
+    if dtype is not None:
+        model.to(dtype)
+        batch = batch.replace(**{
+            k: getattr(batch, k).to(dtype) for k in (
+                "x", "pos", "y_graph", "y_node", "edge_attr", "edge_shifts",
+                "energy", "forces") if getattr(batch, k) is not None})
+    tx = select_optimizer({"Optimizer": {"type": "SGD",
+                                         "learning_rate": COMPOSED_LR}})
+    step = composite.make_composed_train_step(
+        model, mcfg, tx, grid, tr.get("loss_function_type", "mse"),
+        compute_grad_energy=bool(tr.get("compute_grad_energy", False)))
+    return model, TrainState.create(model, tx), step, batch
+
+
+def cpu_composed_step(cfg, splits, mcfg, variables, dtype, threads):
+    """One composed SGD step on the CPU (the slots CPU devices) in
+    `dtype` ("float32" / "float64") at `threads` threads: (loss, the
+    parameters after it, SGD's trace) as float64 numpy vectors."""
+    import torch
+    own = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        return composed_step_vectors(torch, cfg, splits, mcfg,
+                                     torch.device("cpu"), variables,
+                                     getattr(torch, dtype))
+    finally:
+        torch.set_num_threads(own)
+
+
+def composed_step_vectors(torch, cfg, splits, mcfg, device, variables,
+                          dtype):
+    model, st, step, batch = composed_parts(torch, cfg, splits, mcfg,
+                                            device, 1, variables, dtype)
+    _, m = step(st, batch)
+    return (float(m["loss"]),
+            torch.cat([p.detach().reshape(-1).cpu().double()
+                       for p in st.params.values()]).numpy(),
+            torch.cat([t.detach().reshape(-1).cpu().double()
+                       for t in st.opt_state.slots["trace"]]).numpy())
+
+
+def first_step_card_cpu(torch, cfg, splits, mcfg, device, variables, label):
+    """The first composed SGD step on the card, and on the CPU and on the
+    CPU in float64 (the slots CPU devices; two CPU workers), from the
+    same weights and batch. Held: the loss card vs CPU within 1e-4
+    relative, and the parameters after the step as one vector within
+    1e-4 relative L2; the update (SGD's trace after one step: the
+    gradient it applied, through the cross-slot reductions' backwards
+    and, under EF, the double backward through B4 dh on each shard) card
+    vs CPU as one vector within max(1e-2, 10 x the CPU float32 update's
+    own relative L2 error against float64), `first_step_gradients`'
+    bound. Returns the record, filled and printed when the CPU runs are
+    checked (`cpu_then`)."""
+    cpu_runs = [cpu_submit(cpu_composed_step, cfg, splits, mcfg, variables,
+                           dtype, 4) for dtype in ("float32", "float64")]
+    card_run = composed_step_vectors(torch, cfg, splits, mcfg, device,
+                                     variables, torch.float32)
+    rec = {}
+
+    def rel(x, y):
+        return float((x - y).norm() / max(float(y.norm()), 1e-30))
+
+    def hold(cpu64):
+        (l_card, p_card, u_card), (l_cpu, p_cpu, u_cpu), (_, _, u_64) = (
+            [x if isinstance(x, float) else torch.from_numpy(x) for x in r]
+            for r in (card_run, cpu_runs[0].get(), cpu64))
+        rec.update(card=l_card, cpu=l_cpu,
+                   gap=abs(l_card - l_cpu) / max(abs(l_cpu), 1e-12),
+                   params_rel_l2=rel(p_card, p_cpu),
+                   update_rel_l2=rel(u_card, u_cpu),
+                   update_cpu_f64_rel_l2=rel(u_cpu, u_64))
+        rec["update_bound"] = max(1e-2, 10 * rec["update_cpu_f64_rel_l2"])
+        print(f"phase {label}: {first_step_text(rec)}", flush=True)
+        for key, bound in (("gap", 1e-4), ("params_rel_l2", 1e-4),
+                           ("update_rel_l2", rec["update_bound"])):
+            if not rec[key] <= bound:
+                fail(f"phase 20 {label}: first step card vs cpu {key} "
+                     f"{rec[key]} above {bound} ({rec})")
+    cpu_then(cpu_runs[1], hold)
+    return rec
+
+
+def first_step_text(r):
+    return (f"first SGD step card vs cpu: loss {r['card']!r} / {r['cpu']!r}"
+            f" (gap {r['gap']:.2e}, bound 1e-4), parameters after it "
+            f"{r['params_rel_l2']:.2e} (relative L2, bound 1e-4), the "
+            f"update {r['update_rel_l2']:.2e} (bound "
+            f"{r['update_bound']:.2e}; cpu float32 vs float64 "
+            f"{r['update_cpu_f64_rel_l2']:.2e})")
+
+
+def captured_vs_eager(torch, model, state, step, batch):
+    """Whether one captured step equals one eager step bitwise (metrics
+    and every parameter), from the same state."""
+    snap = state.copy()
+    _, m_e = step.eager(state, batch)
+    torch.cuda.synchronize()
+    eager = [p.detach().clone() for p in state.params.values()]
+    m_e = {k: v.clone() for k, v in m_e.items()}
+    state.restore(snap)
+    _, m_c = step(state, batch)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in
+               zip(eager, state.params.values())) and all(
+        torch.equal(m_e[k], m_c[k]) for k in m_e)
+    state.restore(snap)
+    return same
+
+
+def composed_csce(torch, device, card, add, reference, csce):
+    """20b: (record)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.train.train_step import make_train_step
+    cfg = copy.deepcopy(csce["base_cfg"])
+    tr = cfg["NeuralNetwork"]["Training"]
+    tr.update(num_epoch=1, Optimizer={"type": "SGD",
+                                      "learning_rate": COMPOSED_LR})
+    single_cfg = copy.deepcopy(cfg)
+    single_cfg["NeuralNetwork"]["Architecture"]["neighbor_format"] = False
+    cfg["NeuralNetwork"]["Architecture"]["graph_shards"] = \
+        COMPOSED_GRAPH_SHARDS
+    rec = {}
+    tk.reset_launch_counts()
+    _, h_single, _, _ = run_training(copy.deepcopy(single_cfg),
+                                     datasets=csce["splits"], device=device)
+    torch.cuda.synchronize()
+    reference(tk.launch_counts())
+    for data in (1, 2):
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        _, hist, model, _ = run_training(
+            copy.deepcopy(cfg), datasets=csce["splits"], device=device,
+            num_shards=data,
+            graph_devices=[device] * (data * COMPOSED_GRAPH_SHARDS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        add(counts)
+        print(f"phase 20b: csce PNA graph_shards {COMPOSED_GRAPH_SHARDS} "
+              f"num_shards {data} ({data * COMPOSED_GRAPH_SHARDS} slots on "
+              f"one card), one epoch SGD lr {COMPOSED_LR}: {wall:.1f} s; "
+              f"train {hist['train_loss']} val {hist['val_loss']} test "
+              f"{hist['test_loss']}; graph captures {hist['graph_captures']};"
+              f" launches {counts}", flush=True)
+        for k in ("train_loss", "val_loss", "test_loss"):
+            if not np.isfinite(hist[k]).all():
+                fail(f"phase 20b: non-finite {k} {hist[k]}")
+        if counts["segment_sum"] == 0:
+            fail("phase 20b: B3 never launched in the graph shards")
+        if counts["pna_edge_aggregate"] or counts["nbr_aggregate"]:
+            fail(f"phase 20b: a fused PNA kernel ran on the sharded route "
+                 f"({counts})")
+        rec[f"num_shards_{data}"] = dict(
+            history={k: hist[k] for k in ("train_loss", "val_loss",
+                                          "test_loss")},
+            wall_s=wall, launches=counts)
+        if data == 1:
+            gaps = {k: max(abs(a - b) / max(abs(b), 1e-12) for a, b in
+                           zip(hist[k], h_single[k]))
+                    for k in ("train_loss", "val_loss", "test_loss")}
+            ok = all(np.allclose(hist[k], h_single[k], **HISTORY_TOL)
+                     for k in gaps)
+            print(f"phase 20b: num_shards 1 vs the single-device edge-list "
+                  f"run on the card: train {h_single['train_loss']}; "
+                  f"relative gaps {gaps} (bound {HISTORY_TOL})", flush=True)
+            if not ok:
+                fail(f"phase 20b: history vs single device {gaps}")
+            rec["single_history"] = h_single["train_loss"]
+            rec["history_gaps"] = gaps
+    first = first_step_card_cpu(
+        torch, cfg, csce["splits"], csce["mcfg"], device,
+        csce["variables"], "20b")
+    model, state, step, batch = composed_parts(
+        torch, cfg, csce["splits"], csce["mcfg"], device, 1,
+        csce["variables"])
+    same = captured_vs_eager(torch, model, state, step, batch)
+    if not same:
+        fail("phase 20b: the captured composed step differs from the eager")
+    times = step_events_ms(torch, lambda: step(state, batch), reps=5)
+    cap = next(iter(step.steps.graphs.values()), None)
+    single = make_train_step(model, csce["mcfg"], step.steps.tx, "mse")
+    times_1 = step_events_ms(torch, lambda: single(state, batch), reps=5)
+    rec.update(first_step=first, captured_bitwise_eager=same,
+               step_ms=float(np.median(times)),
+               single_device_step_ms=float(np.median(times_1)),
+               launches_per_step={k: v for k, v in (
+                   cap.launches if cap else {}).items() if v})
+    print(f"phase 20b: captured composed step "
+          f"bitwise the eager {same}; captured step "
+          f"{rec['step_ms']:.3f} ms on "
+          f"{COMPOSED_GRAPH_SHARDS} streams vs the single-device edge-list "
+          f"step {rec['single_device_step_ms']:.3f} ms (median of 5); "
+          f"launches a composed step {rec['launches_per_step']} (card: "
+          f"{card})", flush=True)
+    return rec
+
+
+def composed_lj(torch, device, card, add, lj_splits):
+    """20c: LJ SchNet EF with graph_shards 2; (record)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import create_model, data_input_dim
+    from hydragnn_tpu_torch.utils.weights import random_flax_variables
+    with open(LJ_CONFIG) as fh:
+        lj = json.load(fh)
+    lj["NeuralNetwork"]["Architecture"].update(
+        neighbor_format=False, graph_shards=COMPOSED_GRAPH_SHARDS)
+    lj["NeuralNetwork"]["Training"]["num_epoch"] = 1
+    tk.reset_launch_counts()
+    with env_set(HYDRAGNN_MAX_NUM_BATCH=2):
+        _, hist, _, _ = run_training(
+            copy.deepcopy(lj), datasets=lj_splits, device=device,
+            graph_devices=[device] * COMPOSED_GRAPH_SHARDS)
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    add(counts)
+    for k in ("train_loss", "energy_loss", "force_loss"):
+        if not np.isfinite(hist[k]).all():
+            fail(f"phase 20c: non-finite {k} {hist[k]}")
+    for name in ("filter_scatter", "filter_scatter_backward",
+                 "segment_sum"):
+        if counts[name] == 0:
+            fail(f"phase 20c: {name} never launched in the graph shards")
+    done = tcfg.update_config(copy.deepcopy(lj), *lj_splits)
+    mcfg = data_input_dim(tcfg.build_model_config(done), lj_splits[0])
+    variables = random_flax_variables(create_model(mcfg, device="cpu"),
+                                      SEED)
+    first = first_step_card_cpu(torch, lj, lj_splits, mcfg, device,
+                                variables, "20c")
+    print(f"phase 20c: LJ SchNet EF (equivariant) graph_shards "
+          f"{COMPOSED_GRAPH_SHARDS}, two steps, edge list: train "
+          f"{hist['train_loss']} energy {hist['energy_loss']} force "
+          f"{hist['force_loss']}; launches {counts} (B4 forward / dh "
+          f"{counts['filter_scatter']} / {counts['filter_scatter_backward']}"
+          f" over {COMPOSED_GRAPH_SHARDS} shards) (card: {card})",
+          flush=True)
+    return dict(train_loss=hist["train_loss"], force_loss=hist["force_loss"],
+                launches=counts, first_step=first)
+
+
+def pipe_data(torch, device, card, add, reference, csce):
+    """20d: csce PNA over 2 stages x 2 data shards against the pipe-only
+    run on the same 4 microbatches; (record)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.models.create import data_input_dim
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    S, D, M = PIPE_STAGES_19C, PIPE_DATA_SHARDS, 2
+    cfg = copy.deepcopy(csce["base_cfg"])
+    splits = csce["splits"]
+    done = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = data_input_dim(tcfg.build_model_config(done), splits[0])
+    loader = create_dataloaders(
+        *splits, int(cfg["NeuralNetwork"]["Training"]["batch_size"]),
+        neighbor_format=True, num_shards=D * M)[0]
+    loader.set_epoch(0)
+    batch = next(iter(loader)).to(device)
+
+    def parts(opt, **kw):
+        # the same seeded weights every time
+        model = tpt.create_pipeline_model(mcfg, [device] * S)
+        tx = select_optimizer({"Optimizer": dict(opt)})
+        step = tpt.make_pipeline_train_step(model, tx, schedule="1f1b", **kw)
+        return model, TrainState.create(model, tx), step
+
+    sgd = {"type": "SGD", "learning_rate": COMPOSED_LR}
+    adamw = cfg["NeuralNetwork"]["Training"]["Optimizer"]
+    runs, launches = {}, {}
+    for name, opt, kw in (
+            ("pipe_only", sgd, {}),
+            ("pipe_data", sgd, dict(data_shards=D)),
+            ("pipe_data_adamw", adamw, dict(data_shards=D)),
+            ("pipe_data_adamw_zero", adamw, dict(data_shards=D,
+                                                 zero_opt=True))):
+        model, state, step = parts(opt, **kw)
+        tk.reset_launch_counts()
+        _, m = step(state, batch)
+        _, m2 = step(state, batch)
+        torch.cuda.synchronize()
+        counts = tk.launch_counts()
+        runs[name] = (state, m, m2, step)
+        launches[name] = {k: v for k, v in counts.items() if v}
+        if name == "pipe_only":
+            reference(counts)
+            continue
+        add(counts)
+        for n_ in ("nbr_aggregate", "nbr_aggregate_backward"):
+            if counts[n_] == 0:
+                fail(f"phase 20d: {n_} never launched in the stages of "
+                     f"the {name} run")
+    a, b = runs["pipe_only"], runs["pipe_data"]
+    loss_same = torch.equal(a[1]["loss"], b[1]["loss"])
+    gaps = []
+    params_ok = True
+    for k, v in a[0].params.items():
+        w = b[0].params[k]
+        gaps.append(float((v - w).detach().abs().max()))
+        params_ok &= bool(torch.allclose(w, v, **PARITY_TOL))
+    z0, z1 = runs["pipe_data_adamw"], runs["pipe_data_adamw_zero"]
+    zero_same = all(torch.equal(v, z1[0].params[k])
+                    for k, v in z0[0].params.items()) and all(
+        torch.equal(x, y) for name in z0[0].opt_state.slots
+        for x, y in zip(z0[0].opt_state.slots[name],
+                        z1[0].opt_state.slots[name]))
+    step, state = b[3], b[0]
+    times = step_events_ms(torch, lambda: step(state, batch), reps=5)
+    times_1 = step_events_ms(torch, lambda: a[3](a[0], batch), reps=5)
+    rec = dict(loss_bitwise=loss_same, loss=float(a[1]["loss"]),
+               params_max_abs_gap=max(gaps), params_within=params_ok,
+               zero_bitwise=zero_same, step_ms=float(np.median(times)),
+               pipe_only_step_ms=float(np.median(times_1)),
+               launches=launches)
+    print(f"phase 20d: csce PNA (6 layers, width 200, dense) over {S} "
+          f"stages x {D} data shards x {M} microbatches on "
+          f"{S * D} streams vs the pipe-only run on the same {D * M} "
+          f"microbatches: first-step loss bitwise {loss_same} "
+          f"({rec['loss']!r}); parameters after two SGD steps max gap "
+          f"{max(gaps):.3e} (within {PARITY_TOL}: {params_ok}); AdamW "
+          f"ZeRO on vs off bitwise {zero_same}; captured step "
+          f"{rec['step_ms']:.3f} ms vs pipe-only "
+          f"{rec['pipe_only_step_ms']:.3f} ms (median of 5); launches "
+          f"by run (two steps each) {launches} (card: {card})", flush=True)
+    for ok, what in ((loss_same, "loss vs the pipe-only run not bitwise"),
+                     (params_ok, "parameters vs the pipe-only run"),
+                     (zero_same, "ZeRO on vs off not bitwise")):
+        if not ok:
+            fail(f"phase 20d: {what}")
+    return rec
+
+
+def graph_phase(torch, device, card, counted, csce, lj_splits):
+    """Phase 20 (see the module docstring): (record, launches, segment_sum
+    shapes)."""
+    t_phase = time.perf_counter()
+    launches, ref_launches = {}, {}
+
+    def tally(into):
+        def add(counts):
+            counted(counts)
+            for name, c in counts.items():
+                into[name] = into.get(name, 0) + c
+        return add
+    # the graph slots' and rings' runs; the reference runs apart
+    add, reference = tally(launches), tally(ref_launches)
+
+    dev = torch.device("cuda", 0) if device.type == "cuda" else device
+    rec = {}
+    t0 = time.perf_counter()
+    rec["a"], shapes = gp_layers(torch, dev, card, add, reference)
+    rec["a"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["b"] = composed_csce(torch, dev, card, add, reference, csce)
+    rec["b"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["c"] = composed_lj(torch, dev, card, add, lj_splits)
+    rec["c"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["d"] = pipe_data(torch, dev, card, add, reference, csce)
+    rec["d"]["phase_s"] = time.perf_counter() - t0
+    rec.update(wall_s=time.perf_counter() - t_phase, launches=launches,
+               reference_launches=ref_launches)
+    print(f"phase 20 took {rec['wall_s']:.1f} s; launches in the graph "
+          f"slots and pipe x data rings {launches}; in the reference runs "
+          f"{ref_launches} (card: {card})", flush=True)
+    return rec, launches, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7396,6 +8167,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 1
     t_smoke = time.perf_counter()
+    cpu_start()
 
     def stamp(phase):
         """the command's elapsed time at a phase's start, for trimming"""
@@ -7723,6 +8495,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 8
     stamp(8)
+    eam = eam_setup(torch)      # phase 10's files, its CPU runs started
     resume = resume_phase(torch, device, base_cfg, splits, counted)
 
     # ---------------------------------------------------------- phase 9
@@ -7745,7 +8518,8 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 10
     stamp(10)
-    eam_paths, eam_shapes = eam_phase(torch, device, counted, packed_batch)
+    eam_paths, eam_shapes = eam_phase(torch, device, counted, packed_batch,
+                                      eam)
     train_paths.update(eam_paths)
     records["segment_sum"]["shapes"] += eam_shapes
 
@@ -7757,6 +8531,7 @@ def main() -> int:
 
     # ---------------------------------------------------------- phase 12
     stamp(12)
+    cpu_drain()     # the open loop's check reads host latency
     csce = dict(model=model, mcfg=mcfg, test=test, requests=requests,
                 variables=variables)
     serving, md_fs_shapes, md_seg_shapes = serving_phase(
@@ -7826,6 +8601,19 @@ def main() -> int:
         torch, device, card, counted,
         dict(base_cfg=base_cfg, splits=splits), lj_splits)
 
+    # ---------------------------------------------------------- phase 20
+    stamp(20)
+    graphs, gp_launches, gp_shapes = graph_phase(
+        torch, device, card, counted,
+        dict(base_cfg=base_cfg, splits=splits, mcfg=mcfg,
+             variables=variables), lj_splits)
+    records["segment_sum"]["shapes"] += gp_shapes
+    records["segment_sum"]["max_abs_err"] = max(
+        [records["segment_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in gp_shapes])
+
+    stamp("cpu")
+    cpu_settle()
     print("training: " + json.dumps({"card": card, "paths": train_paths,
                                      "resume": resume,
                                      "serving_graphs": SERVING_GRAPHS}),
@@ -7838,6 +8626,8 @@ def main() -> int:
     print("quant: " + json.dumps(quant), flush=True)
     print("spmd: " + json.dumps(dict(spmd, card=card)), flush=True)
     print("pipeline: " + json.dumps(dict(pipeline, card=card)), flush=True)
+    print("graph_parallel: " + json.dumps(dict(graphs, card=card)),
+          flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -7893,6 +8683,11 @@ def main() -> int:
             if name == "filter_scatter":
                 extra["backward_launches_pipeline_path"] = pipe_launches[
                     "filter_scatter_backward"]
+        if gp_launches.get(name):
+            extra["launches_graph_parallel_path"] = gp_launches[name]
+            if name == "filter_scatter":
+                extra["backward_launches_graph_parallel_path"] = \
+                    gp_launches["filter_scatter_backward"]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")
@@ -7918,6 +8713,8 @@ def main() -> int:
                                 counter),
                             launches_spmd_path=spmd_launches.get(counter, 0),
                             launches_pipeline_path=pipe_launches.get(
+                                counter, 0),
+                            launches_graph_parallel_path=gp_launches.get(
                                 counter, 0),
                             **rec))
     stamp("end")

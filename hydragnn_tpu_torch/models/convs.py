@@ -102,7 +102,19 @@ class PNAConv(nn.Module):
     def forward(self, x, pos, batch, cargs):
         proj_i = self.pre_i(x)
         proj_j = self.pre_j(x)
-        if self.edge_dim or self.rbf_dim:
+        if "graph_slots" in cargs:
+            # the edge list split over the graph slots: each slot forms its
+            # chunk's messages (the unfused route's, edge terms included)
+            # and `slot_edge_stage` combines the statistics' accumulators
+            def messages(sb, sc, pi, pj):
+                h = (kseg.gather_rows(pi, sb.receivers, sc.get("recv_layout"))
+                     + kseg.gather_rows(pj, sb.senders, sc.get("send_layout")))
+                for t in self.edge_terms(sb, sc):
+                    h = h + t
+                return h
+            mean, mn, mx, sd, deg = seg.slot_edge_stage(
+                cargs["graph_slots"], messages, proj_i, proj_j, reduce="pna")
+        elif self.edge_dim or self.rbf_dim:
             # per-edge messages, aggregated unfused, as the JAX package
             # routes edge terms. The gathers' gradients are segment sums
             # (the segment-sum kernel on the card): no atomic index_add,

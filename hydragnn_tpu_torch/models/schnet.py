@@ -29,6 +29,7 @@ from ..ops.activations import softplus
 from ..ops.basis import gaussian_basis
 from ..ops.geometry import edge_vectors
 from ..ops.scalars import weak
+from ..parallel.graph_parallel import sharded_conv_args
 from .base import BaseStack
 from .layers import Dense, MLP
 
@@ -62,26 +63,65 @@ class CFConv(nn.Module):
         self.lin2 = Dense(num_filters, num_filters)
         self.lin_out = Dense(num_filters, out_dim)
 
-    def forward(self, x, pos, batch, cargs):
-        d = cargs["edge_length"]
+    def filter(self, d):
+        """The filter W [E, num_filters] of the edge lengths d [E]."""
         rbf = gaussian_basis(d, 0.0, self.cutoff, self.num_gaussians)
         c = 0.5 * (torch.cos(d * weak(math.pi, d) / self.cutoff) + 1.0)
         c = torch.where(d <= self.cutoff, c, torch.zeros_like(c))
-        w = self.filter_nn(rbf) * c[:, None]
+        return self.filter_nn(rbf) * c[:, None]
 
-        h = self.lin1(x)
+    def coord_terms(self, w, pos, batch, cargs):
+        """The coordinate update's per-edge terms [E, 3]."""
         by_recv, by_send = cargs.get("segment_layout", (None, None))
+        vec, length = edge_vectors(pos, batch.senders, batch.receivers,
+                                   batch.edge_shifts, send_layout=by_send,
+                                   recv_layout=by_recv)
+        coord_diff = vec / (length + 1.0)[:, None]
+        phi = self.coord_mlp(w)
+        return torch.clamp(coord_diff * phi, -100.0, 100.0)
+
+    def forward(self, x, pos, batch, cargs):
+        if "graph_slots" in cargs:
+            return self.forward_slots(x, pos, cargs["graph_slots"])
+        w = self.filter(cargs["edge_length"])
+        h = self.lin1(x)
+        by_recv, _ = cargs.get("segment_layout", (None, None))
         if self.equivariant:
-            vec, length = edge_vectors(pos, batch.senders, batch.receivers,
-                                       batch.edge_shifts, send_layout=by_send,
-                                       recv_layout=by_recv)
-            coord_diff = vec / (length + 1.0)[:, None]
-            phi = self.coord_mlp(w)
-            trans = torch.clamp(coord_diff * phi, -100.0, 100.0)
+            trans = self.coord_terms(w, pos, batch, cargs)
             pos = pos + seg.edge_aggregate_mean(trans, batch, by_recv)
 
         h = seg.filter_weighted_aggregate(h, w, batch,
                                           cargs.get("filter_layout"))
+        h = self.lin2(h)
+        h = shifted_softplus(h)
+        h = self.lin_out(h)
+        return h, pos
+
+    def forward_slots(self, x, pos, sharded):
+        """The conv over the active graph slots: each slot computes its
+        edge chunk's filter, the filter-scatter of lin1(x) by it (and the
+        coordinate terms' sum and count), the partials added in slot
+        order; the node-side layers run once, on the home device."""
+        h = self.lin1(x)
+
+        def part(sb, sc, hs, ps):
+            w = self.filter(sc["edge_length"])
+            agg = seg.filter_weighted_aggregate(hs, w, sb,
+                                                sc.get("filter_layout"))
+            if not self.equivariant:
+                return (agg,)
+            by_recv, _ = sc.get("segment_layout", (None, None))
+            trans = self.coord_terms(w, ps, sb, sc)
+            return (agg,
+                    seg.segment_sum(trans, sb.receivers, sb.num_nodes,
+                                    sb.edge_mask, layout=by_recv),
+                    seg.segment_count(sb.receivers, sb.num_nodes,
+                                      sb.edge_mask))
+        parts = seg.slot_edge_stage(sharded, part, h, pos)
+        h = parts[0]
+        if self.equivariant:
+            count = torch.clamp(parts[2], min=1.0)
+            pos = pos + parts[1] / count.view(-1, 1)
         h = self.lin2(h)
         h = shifted_softplus(h)
         h = self.lin_out(h)
@@ -98,6 +138,12 @@ class SCFStack(BaseStack):
                       equivariant=self.cfg.equivariance)
 
     def conv_args(self, batch):
+        sharded = sharded_conv_args(batch, self.edge_args)
+        return sharded if sharded is not None else self.edge_args(batch)
+
+    def edge_args(self, batch):
+        """The edge lengths and the filter layouts of `batch`'s edges (of
+        one edge chunk under a graph axis)."""
         layouts = None
         if batch.nbr is None:
             layouts = filter_layouts(batch.senders, batch.receivers,

@@ -9,6 +9,7 @@ from ..kernels.fused_mp import edge_layout, edge_positions
 from ..kernels.nbr import neighbor_layout
 from ..ops.basis import bessel_basis
 from ..ops.geometry import edge_vectors
+from ..parallel.graph_parallel import sharded_conv_args
 from .base import BaseStack, aggregation_layouts
 from .convs import CGConv, GATv2Conv, GINConv, MFConv, PNAConv, SAGEConv
 
@@ -19,6 +20,9 @@ class GINStack(BaseStack):
         return GINConv(in_dim, out_dim)
 
     def conv_args(self, batch):
+        sharded = sharded_conv_args(batch, aggregation_layouts)
+        if sharded is not None:
+            return sharded
         return aggregation_layouts(batch, nbr_slots=True)
 
 
@@ -81,7 +85,15 @@ class PNAStack(BaseStack):
         need none. With edge features (PNAConv's unfused route): the
         `aggregation_layouts` of its gathers and sums. Called unbound
         (`PNAStack.conv_args(None, batch)`) it gives the views without
-        edge features."""
+        edge features. Under a graph axis (parallel/graph_parallel.py):
+        each edge chunk's `aggregation_layouts` and edge features, for
+        PNAConv's unfused slot route."""
+        if self is not None:
+            sharded = sharded_conv_args(
+                batch, lambda sb: {"edge_attr": sb.edge_attr,
+                                   **aggregation_layouts(sb)})
+            if sharded is not None:
+                return sharded
         cargs = {"edge_attr": batch.edge_attr}
         if self is not None and self.cfg.edge_dim:
             return {**cargs, **aggregation_layouts(batch, nbr_slots=True,

@@ -102,57 +102,118 @@ def segment_mean(data, segment_ids, num_segments, mask=None,
 
 
 class _SegmentExtreme(torch.autograd.Function):
-    """scatter_reduce's amax / amin over a `neutral` fill, with
-    scatter_reduce's gradient (split evenly among the rows that reach
-    their segment's extreme; a segment left at `neutral` counts its fill
-    as one more), but gathered by `kernels.segment.gather_rows`: the
-    gradient's own gradient (a second derivative: forces under
-    create_graph) is then a segment sum in a fixed order, where
-    scatter_reduce's is an atomic scatter_add."""
+    """The segment extreme ("amin" / "amax") of rows that lie on k >= 1
+    slots (one on a single device; the graph slots' edge chunks under a
+    graph axis): the forward reduces the slots' partial extremes
+    (`extreme_rows`, computed without a graph), the backward is
+    scatter_reduce's gradient over ALL the rows, split evenly among the
+    rows of every slot that reach their segment's extreme (a segment left
+    at `neutral` counts its fill as one more), as the unpartitioned
+    program splits it; a slot-by-slot `torch.maximum` would split a tie
+    by slot instead. The rows' gradient is gathered by
+    `kernels.segment.gather_rows`, so the gradient's own gradient (a
+    second derivative: forces under create_graph) is a segment sum in a
+    fixed order, where scatter_reduce's is an atomic scatter_add."""
 
     @staticmethod
-    def forward(ctx, data, ids, num_segments, neutral, reduce):
-        out = torch.full((num_segments,) + tuple(data.shape[1:]), neutral,
-                         dtype=data.dtype, device=data.device)
-        out = out.scatter_reduce(0, _bcast(ids, data).expand_as(data), data,
-                                 reduce=reduce, include_self=True)
-        ctx.save_for_backward(data, ids, out)
-        ctx.neutral = neutral
+    def forward(ctx, neutral, reduce, k, *args):
+        partials, data = args[:k], args[k:2 * k]
+        ids, spread = args[2 * k:3 * k], args[3 * k:]
+        op = torch.minimum if reduce == "amin" else torch.maximum
+        out = partials[0]
+        for p in partials[1:]:
+            out = op(out, p)
+        ctx.save_for_backward(out, *data, *ids, *spread)
+        ctx.neutral, ctx.k = neutral, k
         return out
 
     @staticmethod
     def backward(ctx, g):
-        data, ids, out = ctx.saved_tensors
-        hit = data == out.index_select(0, ids)
-        count = (out == ctx.neutral).to(g.dtype).index_add(
-            0, ids, hit.to(g.dtype))
-        rows = _seg_kernel.gather_rows(g / count, ids)
-        return (torch.where(hit, rows, torch.zeros_like(rows)), None, None,
-                None, None)
+        saved, k = ctx.saved_tensors, ctx.k
+        out, data = saved[0], saved[1:1 + k]
+        ids, spread = saved[1 + k:1 + 2 * k], saved[1 + 2 * k:]
+        n = out.shape[0]
+        count = (out == ctx.neutral).to(g.dtype)
+        hits = []
+        for d, i, sp in zip(data, ids, spread):
+            hit = d == out.to(d.device).index_select(0, i)
+            hits.append(hit)
+            # counted by `spread`: a masked row hits on an empty segment 0
+            # only, and its share lands in a scratch row (the gradient it
+            # would take goes to the fill, a constant)
+            c = torch.zeros((n + _SPREAD_ROWS,) + tuple(count.shape[1:]),
+                            dtype=count.dtype, device=count.device)
+            count = count + c.index_add(
+                0, sp.to(count.device), hit.to(g.dtype).to(count.device))[:n]
+        share = g / count
+        grads = []
+        for d, i, hit in zip(data, ids, hits):
+            rows = _seg_kernel.gather_rows(share.to(d.device), i)
+            grads.append(torch.where(hit, rows, torch.zeros_like(rows)))
+        return (None, None, None) + (None,) * k + tuple(grads) + \
+            (None,) * (2 * k)
 
 
-def _segment_extreme(data, segment_ids, num_segments, mask, neutral, reduce):
+# scratch rows past the segments that the masked rows of an extreme
+# scatter into, spread: all of them on row 0 serialize its atomics (a
+# loader batch's padding edges are often half of its rows)
+_SPREAD_ROWS = 1024
+
+
+def extreme_rows(data, segment_ids, num_segments, mask, neutral, reduce):
+    """One slot's part of a segment extreme over `data`'s rows:
+    (its partial [N, ...] extreme, computed without a graph; the rows
+    with the masked ones (and those whose ids fall outside
+    [0, num_segments)) at `neutral`; the ids with those at 0; the ids the
+    rows scatter by, those spread over scratch rows past N)."""
     ids = segment_ids.long()
     valid = (ids >= 0) & (ids < num_segments)
     if mask is not None:
         valid = valid & mask
-    fill = torch.full_like(data, neutral)
-    data = torch.where(_bcast(valid, data), data, fill)
+    data = torch.where(_bcast(valid, data), data,
+                       torch.full_like(data, neutral))
+    spread = torch.where(valid, ids, num_segments + torch.arange(
+        ids.shape[0], device=ids.device) % _SPREAD_ROWS)
     ids = torch.where(valid, ids, torch.zeros_like(ids))
-    return _SegmentExtreme.apply(data, ids, num_segments, neutral, reduce)
+    with torch.no_grad():
+        out = torch.full((num_segments + _SPREAD_ROWS,)
+                         + tuple(data.shape[1:]), neutral, dtype=data.dtype,
+                         device=data.device)
+        out = out.scatter_reduce(
+            0, _bcast(spread, data).expand_as(data), data.detach(),
+            reduce=reduce, include_self=True)[:num_segments]
+    return out, data, ids, spread
+
+
+def cross_slot_extreme(parts, neutral, reduce):
+    """The segment extreme over every slot's rows from the slots'
+    `extreme_rows` (`parts`, each on its slot; the partials reduced on
+    the first slot's device), with the single-device gradient rule
+    (`_SegmentExtreme`)."""
+    return _SegmentExtreme.apply(neutral, reduce, len(parts),
+                                 *(p[j] for j in range(4) for p in parts))
+
+
+def _segment_extreme(data, segment_ids, num_segments, mask, neutral, reduce):
+    return cross_slot_extreme([extreme_rows(
+        data, segment_ids, num_segments, mask, neutral, reduce)], neutral,
+        reduce)
+
+
+def _clamp_empty(out, neutral):
+    """0 on the segments left at `neutral` (no real entries)."""
+    empty = out >= neutral if neutral > 0 else out <= neutral
+    return torch.where(empty, torch.zeros_like(out), out)
 
 
 def segment_max(data, segment_ids, num_segments, mask=None, neutral=-1e30):
-    out = _segment_extreme(data, segment_ids, num_segments, mask, neutral,
-                           "amax")
-    # segments with no real entries produce `neutral`; clamp to 0
-    return torch.where(out <= neutral, torch.zeros_like(out), out)
+    return _clamp_empty(_segment_extreme(data, segment_ids, num_segments,
+                                         mask, neutral, "amax"), neutral)
 
 
 def segment_min(data, segment_ids, num_segments, mask=None, neutral=1e30):
-    out = _segment_extreme(data, segment_ids, num_segments, mask, neutral,
-                           "amin")
-    return torch.where(out >= neutral, torch.zeros_like(out), out)
+    return _clamp_empty(_segment_extreme(data, segment_ids, num_segments,
+                                         mask, neutral, "amin"), neutral)
 
 
 def _relu_tie_half(x):
@@ -174,10 +235,12 @@ def pna_stats_epilogue(s, sq, cnt, mn, mx, eps=1e-5):
 
 
 def pna_accumulators(data, segment_ids, num_segments, mask=None,
-                     sum_fn=segment_sum):
+                     sum_fn=segment_sum, extreme_fn=None):
     """(sum, sum of squares, count, min, max) of `data` per segment: the
     additive statistics ride one segment sum over the [E, 2F + 1]
-    concatenation. `sum_fn` is the segment sum to use."""
+    concatenation. `sum_fn` is the segment sum to use; `extreme_fn`, with
+    `extreme_rows`' signature, takes the min and max in place of
+    `segment_min` / `segment_max` (a graph slot's `extreme_rows`)."""
     f = data.shape[-1]
     ones = torch.ones(tuple(data.shape[:-1]) + (1,), dtype=data.dtype,
                       device=data.device)
@@ -188,8 +251,13 @@ def pna_accumulators(data, segment_ids, num_segments, mask=None,
     packed_sum = sum_fn(packed, segment_ids, num_segments)
     s, sq, cnt = (packed_sum[..., :f], packed_sum[..., f:2 * f],
                   packed_sum[..., 2 * f:])
-    mn = segment_min(data, segment_ids, num_segments, mask)
-    mx = segment_max(data, segment_ids, num_segments, mask)
+    if extreme_fn is None:
+        mn = segment_min(data, segment_ids, num_segments, mask)
+        mx = segment_max(data, segment_ids, num_segments, mask)
+    else:
+        mn = extreme_fn(data, segment_ids, num_segments, mask, 1e30, "amin")
+        mx = extreme_fn(data, segment_ids, num_segments, mask, -1e30,
+                        "amax")
     return s, sq, cnt, mn, mx
 
 
@@ -256,8 +324,14 @@ def neighbor_gather_sum(x, batch, layouts=None):
     """Sum over each node's in-edges of its senders' rows, x[send]:
     `neighbor_sum` of the table's gathered neighbours on the dense
     layout, the masked segment sum by receivers on the edge list.
-    `layouts` are a stack's `conv_args` views (`aggregation_layouts`)."""
+    `layouts` are a stack's `conv_args` views (`aggregation_layouts`);
+    under a graph axis (`layouts["graph_slots"]`) each slot sums its
+    edge chunk and the partials are added in slot order."""
     layouts = layouts or {}
+    if "graph_slots" in layouts:
+        return slot_edge_stage(layouts["graph_slots"],
+                               lambda sb, sc, xs: neighbor_gather_sum(
+                                   xs, sb, sc), x)
     if batch.nbr is not None:
         return neighbor_sum(gather_slots(x, batch.nbr,
                                          layouts.get("nbr_slot_layout")),
@@ -392,3 +466,56 @@ def segment_softmax(logits, segment_ids, num_segments, mask=None,
                                             dtype=denom.dtype,
                                             device=denom.device))
     return exp / _seg_kernel.gather_rows(denom, segment_ids, layout)
+
+
+# ----------------------------------------------------- graph slots --
+def add_in_order(parts):
+    """parts[0] + parts[1] + ... left to right (nested tuples element by
+    element): the cross-slot sum, the same bits on every run."""
+    if isinstance(parts[0], (tuple, list)):
+        return type(parts[0])(add_in_order([p[i] for p in parts])
+                              for i in range(len(parts[0])))
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    return acc
+
+
+def slot_edge_stage(sharded, message_fn, *node_inputs, reduce="sum",
+                    eps=1e-5):
+    """A conv's edge stage over the active graph slots (`sharded`: the
+    `parallel.graph_parallel.ShardedEdges` a stack's `conv_args` built).
+    `message_fn(shard batch, shard cargs, *node_inputs on the slot)` runs
+    on every slot, on its edge chunk:
+
+    * reduce "sum": it returns a finished partial node aggregate [N, F]
+      (or a tuple of them), and the partials are added in slot order;
+    * reduce "pna": it returns the chunk's per-edge messages [E_g, F];
+      each slot takes `pna_accumulators`' additive statistics (one segment
+      sum of the packed [E_g, 2F + 1] rows) and its partial extremes; the
+      sums, sums of squares and counts are added in slot order, the
+      extremes reduced by `cross_slot_extreme` (the single-device
+      gradient rule across every slot), and `pna_stats_epilogue` runs once
+      on the home device: (mean, min, max, std, degree).
+
+    A fused kernel that writes finished statistics cannot be used on a
+    slot: the mean of per-chunk means is not the mean."""
+    if reduce == "sum":
+        return add_in_order(sharded.map(message_fn, *node_inputs))
+    if reduce != "pna":
+        raise ValueError(f"unknown slot reduction {reduce!r}")
+    n = sharded.num_nodes
+
+    def part(sb, sc, *xs):
+        return pna_accumulators(
+            message_fn(sb, sc, *xs), sb.receivers, n, sb.edge_mask,
+            sum_fn=functools.partial(segment_sum,
+                                     layout=sc.get("recv_layout")),
+            extreme_fn=extreme_rows)
+    parts = sharded.map(part, *node_inputs)
+    s, sq, cnt = add_in_order([p[:3] for p in parts])
+    mn = _clamp_empty(cross_slot_extreme([p[3] for p in parts], 1e30,
+                                         "amin"), 1e30)
+    mx = _clamp_empty(cross_slot_extreme([p[4] for p in parts], -1e30,
+                                         "amax"), -1e30)
+    return pna_stats_epilogue(s, sq, cnt, mn, mx, eps)

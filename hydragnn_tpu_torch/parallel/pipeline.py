@@ -168,7 +168,7 @@ def _used_on(tensors, stream) -> None:
 def make_pipeline_apply(stage_devices: Sequence, layer_fn: Callable,
                         num_layers: int, remat: bool = False,
                         remat_policy: Optional[str] = None,
-                        stage_streams: bool = True):
+                        stage_streams: bool = True, stream_base: int = 0):
     """apply(stage_layers, x_micro, structure) -> y_micro.
 
     `layer_fn(layer, h, structure) -> h'` applies one layer; the
@@ -178,7 +178,8 @@ def make_pipeline_apply(stage_devices: Sequence, layer_fn: Callable,
     microbatch m's layers read on stage s's device. Returns the M outputs
     of the last stage, on its device. With `remat` each tick's stage
     compute is checkpointed (the same values and gradients, bit for
-    bit)."""
+    bit). Stage s computes on stream `stage_stream(device, stream_base +
+    s)`: a pipe ring of a data axis takes its own streams."""
     devices = [stage_device(d) for d in stage_devices]
     S = len(devices)
     check_stage_divisibility(num_layers, S)
@@ -204,8 +205,8 @@ def make_pipeline_apply(stage_devices: Sequence, layer_fn: Callable,
     def apply(stage_layers, x_micro: List[torch.Tensor], structure):
         M = len(x_micro)
         cuda = devices[0].type == "cuda" and stage_streams
-        streams = ([stage_stream(d, s) for s, d in enumerate(devices)]
-                   if cuda else [None] * S)
+        streams = ([stage_stream(d, stream_base + s)
+                    for s, d in enumerate(devices)] if cuda else [None] * S)
         callers = ([torch.cuda.current_stream(d) for d in devices]
                    if cuda else [None] * S)
 

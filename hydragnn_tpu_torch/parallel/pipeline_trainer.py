@@ -34,6 +34,17 @@ Train steps (`make_pipeline_train_step`, `make_pipeline_ef_train_step`):
   forward and backward finished before the next window starts, with a
   float32 gradient sum across windows: at most S microbatches in flight.
 
+`pipeline_data_shards` D > 1 (the pipe x data mesh) runs D pipe rings on
+the same stage devices, each with stage streams of its own: the stacked
+batch holds D x M microbatches in [d * M + m] order (JAX
+`pipeline_trainer.py:359-390`), ring d runs its M, a 1f1b window holds W
+microbatches of every ring, the losses and metrics reduce over the flat
+[D M] axis in that order, and the gradients add over the rings in the one
+autograd graph. `Optimizer.use_zero_redundancy` (JAX's sharding of the
+optimizer state over the data axis) leaves the update replicated: the
+rings share one device, whose memory a split would not divide
+(`composite`'s docstring).
+
 Both seed the backward with sum(losses) / M (a divide, as JAX spells it),
 so their gradients differ only by the window-boundary sums (bitwise on
 exactly representable data); metrics reduce the flat [M] order. Then the
@@ -76,6 +87,7 @@ from ..kernels.fused_mp import filter_layouts, segment_layouts
 from ..train.loss import auto_force_weight, multihead_loss
 from ..train.train_step import (EvalStep, TrainStep, _resolve_compute_dtype,
                                 cast_floats)
+from .mesh import ZERO_MIN_SHARD_SIZE
 from .pipeline import (PIPELINE_SCHEDULES, check_stage_divisibility,
                        join_stage_streams, make_pipeline_apply, stage_device)
 
@@ -322,23 +334,35 @@ def create_pipeline_model(cfg: ModelConfig, stage_devices: Sequence,
 def make_pipeline_forward(model: PipelineModel, pipelined: bool = True,
                           compute_dtype=None, remat: bool = False,
                           remat_policy: Optional[str] = None,
-                          stage_streams: bool = True) -> Callable:
+                          stage_streams: bool = True,
+                          data_shards: int = 1) -> Callable:
     """forward(micros) -> per-microbatch (outputs, outputs_var), float32
     whatever the compute dtype. `pipelined=False` runs the same ops layer
     after layer (the eval path and the oracle). `compute_dtype`
     (train/precision.py) casts the parameters and the microbatches'
     floats; `remat` / `remat_policy` checkpoint each tick's stage compute;
-    `stage_streams=False` keeps the ticks on the caller's stream."""
+    `stage_streams=False` keeps the ticks on the caller's stream.
+
+    With `data_shards` D > 1 (the pipe x data mesh) the microbatches split
+    into D contiguous groups, group d run through pipe ring d: the same
+    stage devices and parameters, its own stage streams (stage s of ring
+    d on `stage_stream(device, d * S + s)`), so the rings overlap on a
+    card as far as their data lets them; the outputs come back in the
+    microbatches' order."""
     cfg = model.cfg
     cdtype = _resolve_compute_dtype(cfg, compute_dtype)
-    apply = None
+    S = model.num_stages
+    D = int(data_shards) if pipelined else 1
+    applies = [None]
     if pipelined:
-        apply = make_pipeline_apply(model.stage_devices, _layer,
-                                    cfg.num_conv_layers, remat=remat,
-                                    remat_policy=remat_policy,
-                                    stage_streams=stage_streams)
+        applies = [make_pipeline_apply(model.stage_devices, _layer,
+                                       cfg.num_conv_layers, remat=remat,
+                                       remat_policy=remat_policy,
+                                       stage_streams=stage_streams,
+                                       stream_base=d * S)
+                   for d in range(D)]
 
-    def forward(micros: List[GraphBatch]):
+    def run(micros, apply):
         if cdtype == torch.float32:
             return model(micros, apply)
         variables = {n: p.to(cdtype) for n, p in model.named_parameters()}
@@ -349,10 +373,23 @@ def make_pipeline_forward(model: PipelineModel, pipelined: bool = True,
                  None if ovar is None else [o.float() for o in ovar])
                 for outputs, ovar in outs]
 
-    # the devices whose stage streams the forward forks (none off the
-    # card, none on one stream): a backward through it joins them back
+    def forward(micros: List[GraphBatch]):
+        if len(applies) == 1:
+            return run(micros, applies[0])
+        if len(micros) % D:
+            raise ValueError(f"{len(micros)} microbatches do not split over "
+                             f"{D} pipe rings")
+        k = len(micros) // D
+        out = []
+        for d, apply in enumerate(applies):
+            out += run(micros[d * k:(d + 1) * k], apply)
+        return out
+
+    # the devices whose stage streams the forward forks, in stream-key
+    # order (none off the card, none on one stream): a backward through
+    # it joins them back
     forward.stream_devices = (
-        model.stage_devices if pipelined and stage_streams
+        list(model.stage_devices) * D if pipelined and stage_streams
         and model.stage_devices[0].type == "cuda" else [])
     return forward
 
@@ -400,30 +437,37 @@ def _grads(total, params):
 
 
 def _schedule_grads(micro_fn, params, micros, schedule: str,
-                    num_stages: int, stream_devices):
+                    num_stages: int, stream_devices, data_shards: int = 1):
     """(gradients, per-microbatch value rows): gpipe one backward of
-    sum(losses) / M over all microbatches; 1f1b one a window of W, each
-    seeded with sum(window losses) / M and summed in float32 into zeros
-    (JAX `_windowed_grads`). `micro_fn(window) -> list of per-microbatch
-    tuples whose first entry is the loss`. `stream_devices` are the
-    forward's (`make_pipeline_forward`), whose stage streams each
-    backward joins back to the caller's stream."""
-    M = len(micros)
+    sum(losses) / DM over all D x M microbatches; 1f1b one a window, each
+    seeded with sum(window losses) / DM and summed in float32 into zeros
+    (JAX `_windowed_grads`). With D data shards (pipe rings) the flat
+    microbatch order is [d * M + m], and window w holds microbatches
+    [w W, (w + 1) W) of every ring, W = min(S, M) (the rings advance in
+    lockstep); the rows come back in the flat order. `micro_fn(window) ->
+    list of per-microbatch tuples whose first entry is the loss`.
+    `stream_devices` are the forward's (`make_pipeline_forward`), whose
+    stage streams each backward joins back to the caller's stream."""
+    DM = len(micros)
+    D = int(data_shards)
+    M = DM // D
     if schedule == "1f1b":
         W = pipeline_window_size(num_stages, M)
         _window_check(M, W)
         gsum = [torch.zeros_like(p) for p in params]
-        rows = []
+        rows: List = [None] * DM
         for w in range(M // W):
-            vals = micro_fn(micros[w * W:(w + 1) * W])
-            total = torch.sum(torch.stack([v[0] for v in vals])) / M
+            at = [d * M + w * W + j for d in range(D) for j in range(W)]
+            vals = micro_fn([micros[i] for i in at])
+            total = torch.sum(torch.stack([v[0] for v in vals])) / DM
             g = _grads(total, params)
             join_stage_streams(stream_devices)
             torch._foreach_add_(gsum, g)
-            rows += [tuple(t.detach() for t in v) for v in vals]
+            for i, v in zip(at, vals):
+                rows[i] = tuple(t.detach() for t in v)
         return gsum, rows
     vals = micro_fn(micros)
-    total = torch.sum(torch.stack([v[0] for v in vals])) / M
+    total = torch.sum(torch.stack([v[0] for v in vals])) / DM
     g = _grads(total, params)
     join_stage_streams(stream_devices)
     return g, [tuple(t.detach() for t in v) for v in vals]
@@ -493,16 +537,22 @@ def make_pipeline_train_step(model: PipelineModel, tx,
                              loss_name: str = "mse",
                              schedule: str = "1f1b", remat: bool = False,
                              remat_policy=None, pipelined: bool = True,
-                             compute_dtype=None, stage_streams: bool = True
+                             compute_dtype=None, stage_streams: bool = True,
+                             data_shards: int = 1, zero_opt: bool = False,
+                             zero_min_size: int = ZERO_MIN_SHARD_SIZE
                              ) -> PipelineTrainStep:
     """The pipelined train step (JAX `make_pipeline_train_step`); metrics
-    loss, task_i and nonfinite_steps."""
+    loss, task_i and nonfinite_steps. The stacked batch holds D x M
+    microbatches ([d * M + m]) for `data_shards` D pipe rings, whose
+    gradients add; `zero_opt` and `zero_min_size` are JAX's ZeRO knobs,
+    the update replicated (the module's docstring)."""
     _check_schedule(schedule)
     cfg = model.cfg
     forward = make_pipeline_forward(model, pipelined=pipelined,
                                     compute_dtype=compute_dtype, remat=remat,
                                     remat_policy=remat_policy,
-                                    stage_streams=stage_streams)
+                                    stage_streams=stage_streams,
+                                    data_shards=data_shards)
 
     def micro_fn(micros):
         return _task_rows(cfg, loss_name, forward, micros)
@@ -512,7 +562,7 @@ def make_pipeline_train_step(model: PipelineModel, tx,
         params = list(state.params.values())
         grads, rows = _schedule_grads(micro_fn, params, micros, schedule,
                                       model.num_stages,
-                                      forward.stream_devices)
+                                      forward.stream_devices, data_shards)
         losses = torch.stack([r[0] for r in rows])
         metrics = {"loss": torch.mean(losses)}
         for i in range(len(cfg.heads)):
@@ -583,7 +633,9 @@ def make_pipeline_ef_train_step(model: PipelineModel, tx,
                                 force_weight=1.0, schedule: str = "1f1b",
                                 remat: bool = False, remat_policy=None,
                                 compute_dtype=None,
-                                stage_streams: bool = True
+                                stage_streams: bool = True,
+                                data_shards: int = 1, zero_opt: bool = False,
+                                zero_min_size: int = ZERO_MIN_SHARD_SIZE
                                 ) -> PipelineTrainStep:
     """Energy-force training through the stages (JAX
     `make_pipeline_ef_train_step`): the parameter gradient is a second
@@ -606,7 +658,8 @@ def make_pipeline_ef_train_step(model: PipelineModel, tx,
     forward = make_pipeline_forward(model, pipelined=True,
                                     compute_dtype=compute_dtype, remat=remat,
                                     remat_policy=remat_policy,
-                                    stage_streams=stage_streams)
+                                    stage_streams=stage_streams,
+                                    data_shards=data_shards)
 
     def body(state, batch: GraphBatch, scalars=None):
         micros = unstack_batch(batch)
@@ -619,7 +672,7 @@ def make_pipeline_ef_train_step(model: PipelineModel, tx,
                            fw)
         grads, rows = _schedule_grads(micro_fn, params, micros, schedule,
                                       model.num_stages,
-                                      forward.stream_devices)
+                                      forward.stream_devices, data_shards)
         metrics = {k: torch.mean(torch.stack([r[i] for r in rows]))
                    for i, k in enumerate(("loss", "energy_loss",
                                           "force_loss"))}

@@ -97,7 +97,25 @@ resolve once (`utils.envflags.resolve_pipeline`); the loaders yield
 stacked [M, ...] batches of batch_size / M graphs (num_shards = M,
 fixed-shape: `batch_packing` falls back); steps_per_call is 1; the
 returned model is None (the state holds the pipelined model's
-tensors). `pipeline_data_shards > 1` raises NotImplementedError.
+tensors). `pipeline_data_shards` D > 1 runs D pipe rings on the same
+stage devices (`pipeline_devices` lists the S x D devices of the pipe x
+data mesh, ring d's stage s at s * D + d; every ring's must be ring 0's,
+e.g. one card's streams, or NotImplementedError names A9): the loaders
+stack D x M microbatches ([d * M + m]), and `use_zero_redundancy` splits
+the optimizer update over the D data slots.
+
+Graph parallelism (JAX run_training.py:213-222, 306-321, 510-523;
+parallel/composite.py): `Architecture.graph_shards` G > 1 splits each
+data shard's edge list over G graph slots. The slot devices are
+`graph_devices` (several may be one card: a CUDA stream a slot; the CPU
+tests pass ["cpu"] * k), or the visible cards; G must divide their count
+(JAX's ValueError), the data axis gets `num_shards` over the count / G
+left (`resolve_num_shards`), the dense neighbour layout and packing turn
+off with JAX's log lines, and steps_per_call is 1. GIN, PNA and SchNet
+split (PNA on its unfused accumulators: a fused kernel's finished
+statistics do not combine); other model types raise NotImplementedError
+naming A9 before any work; pipeline_stages with graph_shards raises JAX's
+ValueError; so does a multi-process run with either.
 
 Knobs off this path raise NotImplementedError naming the ROADMAP item
 that brings them; none is ignored.
@@ -116,6 +134,10 @@ from .config import (build_model_config, get_log_name_config, load_config,
                      update_config)
 from .graphs.triplets import maybe_triplet_transform
 from .models.create import create_model, data_input_dim
+from .parallel.composite import (ComposedGrid, check_graph_shard_model,
+                                 make_composed_eval_step,
+                                 make_composed_train_step,
+                                 place_composed_batch)
 from .parallel.mesh import (ZERO_MIN_SHARD_SIZE, init_distributed,
                             resolve_num_shards)
 from .parallel.multiprocess import (allreduce_max_int,
@@ -168,13 +190,10 @@ def check_training_knobs(config) -> None:
             and int(arch.get("graph_shards", 1) or 1) > 1):
         raise ValueError("pipeline_stages and graph_shards cannot be "
                          "combined yet")
+    if int(arch.get("graph_shards", 1) or 1) > 1:
+        # the stacks whose convs split their edge stage over graph slots
+        check_graph_shard_model(arch.get("model_type"))
     checks = [
-        (int(arch.get("graph_shards", 1) or 1) > 1,
-         "Architecture.graph_shards", "A9: multi-GPU training"),
-        (int(tr.get("pipeline_stages", 1) or 1) > 1
-         and int(tr.get("pipeline_data_shards", 1) or 1) > 1,
-         "Training.pipeline_data_shards > 1 (the pipe x data mesh, ZeRO "
-         "over its data axis)", "A9: multi-GPU training"),
         ((config.get("Visualization") or {}).get("create_plots"),
          "Visualization.create_plots", "A10: postprocess"),
         (tr.get("async_loader_workers") or tr.get("batch_cache_mb"),
@@ -188,9 +207,40 @@ def check_training_knobs(config) -> None:
             _not_ported(what, item)
 
 
+def multiprocess_path_check(world: int, pipeline_stages: int,
+                            graph_shards: int, num_shards: int) -> None:
+    """A multi-process run takes the plain data-parallel path only (JAX
+    run_training.py:278-287, its message)."""
+    if world > 1 and (num_shards == 1 or pipeline_stages > 1
+                      or graph_shards > 1):
+        raise ValueError(
+            "multi-process runs support the plain SPMD data-parallel "
+            "path only: pipeline_stages and graph_shards must be 1 and "
+            f"num_shards > 1 (got pipeline_stages={pipeline_stages}, "
+            f"graph_shards={graph_shards}, num_shards={num_shards})")
+
+
+def _graph_device_list(graph_devices, graph_shards: int) -> list:
+    """The graph slots' devices: `graph_devices`, or the visible cards;
+    their count must divide by graph_shards (JAX's ValueError)."""
+    import torch
+    if graph_devices is None:
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        devs = [stage_device(d) for d in graph_devices]
+    ndev = len(devs)
+    if ndev == 0 or ndev % graph_shards != 0:
+        raise ValueError(
+            f"Architecture.graph_shards={graph_shards} does not divide the "
+            f"device count {ndev}")
+    return devs
+
+
 def run_training(config_or_path, datasets: Optional[Sequence] = None,
                  device="cuda", num_shards: Optional[int] = None,
-                 pipeline_devices: Optional[Sequence] = None):
+                 pipeline_devices: Optional[Sequence] = None,
+                 graph_devices: Optional[Sequence] = None):
     config = load_config(config_or_path)
     check_training_knobs(config)
     # the fault plan (HYDRAGNN_FAULT_PLAN over Training.fault_plan) is
@@ -218,13 +268,19 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
                        bool(nn["Architecture"].get("neighbor_format", True)))
     pipeline_stages = int(train_cfg.get("pipeline_stages", 1) or 1)
+    graph_shards = int(nn["Architecture"].get("graph_shards", 1) or 1)
+    gdevs = None
+    if graph_shards > 1:
+        # the graph axis claims its devices first; the data axis gets the
+        # rest (JAX run_training.py:213-222)
+        gdevs = _graph_device_list(graph_devices, graph_shards)
     packing = resolve_packing(train_cfg)
     if packing and nn["Architecture"]["model_type"] == "DimeNet":
         print("batch_packing: DimeNet's static triplet budget is not "
               "pack-aware yet; falling back to fixed-shape batching",
               flush=True)
         packing = False
-    if packing and pipeline_stages > 1:
+    if packing and (pipeline_stages > 1 or graph_shards > 1):
         print("batch_packing: not composed with graph_shards/pipeline_stages "
               "meshes yet; falling back to fixed-shape batching", flush=True)
         packing = False
@@ -238,18 +294,25 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     if pipeline_stages > 1:
         pipe = _pipeline_setup(train_cfg, mcfg, pipeline_stages, batch_size,
                                pipeline_devices, verbosity)
-        # the loader's stacked shards are the microbatches
-        num_shards = pipe["microbatches"]
+        # the loader's stacked shards are the microbatches, d-major over
+        # the data axis's pipe rings ([d * M + m])
+        num_shards = pipe["microbatches"] * pipe["data_shards"]
+    elif graph_shards > 1:
+        # the data axis over the devices the graph axis leaves (JAX
+        # run_training.py:306-311)
+        num_shards = resolve_num_shards(
+            num_shards, batch_size, device_budget=len(gdevs) // graph_shards)
     else:
         # the shard count over one device a rank (JAX
         # run_training.py:270-292)
         num_shards = resolve_num_shards(num_shards, batch_size)
-    if world > 1 and (num_shards == 1 or pipe is not None):
-        raise ValueError(
-            "multi-process runs support the plain SPMD data-parallel "
-            "path only: pipeline_stages and graph_shards must be 1 and "
-            f"num_shards > 1 (got pipeline_stages={pipeline_stages}, "
-            f"graph_shards=1, num_shards={num_shards})")
+    multiprocess_path_check(world, pipeline_stages, graph_shards, num_shards)
+    if graph_shards > 1 and nbr_fmt:
+        # the dense [N, K] layout is node-major: edge sharding needs the
+        # edge list (JAX run_training.py:315-321)
+        print("graph_shards > 1: disabling the dense neighbor-list layout "
+              "(edge-sharded aggregation uses the segment path)", flush=True)
+        nbr_fmt = False
     local_batch = batch_size
     if world > 1:
         _, local_batch = validate_multiprocess_spmd(num_shards, batch_size)
@@ -274,7 +337,8 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         trainset, valset, testset, local_batch, neighbor_format=nbr_fmt,
         packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg),
         batch_transform=batch_transform, pack_rank=pack_rank,
-        pack_nproc=pack_nproc, num_shards=num_shards if pipe else 1,
+        pack_nproc=pack_nproc,
+        num_shards=num_shards if (pipe or graph_shards > 1) else 1,
         **budgets)
     if world > 1:
         # unequal step counts would deadlock the collectives
@@ -296,11 +360,30 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     f_w = train_cfg.get("force_loss_weight", 1.0)
     f_w = f_w if f_w == "auto" else float(f_w)
     compute_dtype = resolve_precision(mcfg.dtype)
+    grid = None
     if pipe is not None:
         model = create_pipeline_model(mcfg, pipe["devices"])
         state = TrainState.create(model, tx)
         train_step, eval_step = _pipeline_steps(
             model, tx, loss_name, cge, e_w, f_w, compute_dtype, pipe)
+    elif graph_shards > 1:
+        # the (data x graph) grid of slots (parallel/composite.py)
+        grid = ComposedGrid(gdevs, num_shards, graph_shards)
+        if grid.home != stage_device(dev):
+            raise ValueError(f"graph devices {[str(d) for d in gdevs]} "
+                             f"are not the run's device {dev}")
+        model = create_model(mcfg, device=dev)
+        state = TrainState.create(model, tx)
+        opt_cfg = train_cfg.get("Optimizer", {}) or {}
+        step_kw = dict(compute_grad_energy=cge, energy_weight=e_w,
+                       force_weight=f_w, compute_dtype=compute_dtype)
+        train_step = make_composed_train_step(
+            model, mcfg, tx, grid, loss_name,
+            zero_opt=bool(opt_cfg.get("use_zero_redundancy", False)),
+            zero_min_size=int(opt_cfg.get("zero_min_shard_size",
+                                          ZERO_MIN_SHARD_SIZE)), **step_kw)
+        eval_step = make_composed_eval_step(model, mcfg, grid, loss_name,
+                                            **step_kw)
     else:
         model = create_model(mcfg, device=dev)
         opt_cfg = train_cfg.get("Optimizer", {}) or {}
@@ -326,7 +409,7 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     # take one batch a call, as JAX's multi-process SPMD steps do, and a
     # pipelined step is one a call, as in JAX
     multi_step = multi_eval = None
-    steps_per_call = (1 if in_group or pipe is not None
+    steps_per_call = (1 if in_group or pipe is not None or grid is not None
                       else resolve_steps_per_call(train_cfg))
     if steps_per_call > 1:
         kw = dict(loss_name=loss_name, compute_grad_energy=cge,
@@ -414,6 +497,7 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
             steps_per_call=steps_per_call, telemetry=telemetry,
             profiler=profiler,
             place_fn=(lambda b: b.to(pipe["devices"][0])) if pipe
+            else (lambda b: place_composed_batch(b, grid)) if grid
             else (lambda b: b.to(dev)))
     finally:
         if save_fn is not None:
@@ -455,10 +539,10 @@ def _pipeline_setup(train_cfg, mcfg, stages: int, batch_size: int,
     micro, schedule, remat, data_shards = resolve_pipeline(train_cfg,
                                                            stages)
     require_pipeline_norm_optin(train_cfg)
+    need = stages * data_shards
     if pipeline_devices is None:
         count = torch.cuda.device_count()
-        devices = [torch.device("cuda", i) for i in range(min(stages,
-                                                              count))]
+        devices = [torch.device("cuda", i) for i in range(min(need, count))]
     else:
         devices = [stage_device(d) for d in pipeline_devices]
         count = len(devices)
@@ -468,10 +552,24 @@ def _pipeline_setup(train_cfg, mcfg, stages: int, batch_size: int,
     validate_pipeline_config(mcfg, stages, batch_size, micro,
                              schedule=schedule, data_shards=data_shards,
                              device_count=count)
-    if len(devices) != stages:
+    if len(devices) != need:
         raise ValueError(f"pipeline_devices names {len(devices)} devices "
-                         f"for pipeline_stages={stages}")
-    if bool((train_cfg.get("Optimizer") or {}).get("use_zero_redundancy")):
+                         f"for pipeline_stages={stages}"
+                         + (f" x pipeline_data_shards={data_shards}"
+                            if data_shards > 1 else ""))
+    # the (pipe x data) mesh's device order: ring d's stage s is device
+    # s * D + d; every ring runs on ring 0's stage devices (its streams)
+    rings = [[devices[s * data_shards + d] for s in range(stages)]
+             for d in range(data_shards)]
+    if any(r != rings[0] for r in rings[1:]):
+        _not_ported("pipe rings of a data axis on other devices than "
+                    "ring 0's (the parameters live on ring 0's stage "
+                    "devices; list each stage device once a ring)",
+                    "A9: multi-GPU training")
+    devices = rings[0]
+    zero = bool((train_cfg.get("Optimizer") or {}).get(
+        "use_zero_redundancy"))
+    if zero and data_shards == 1:
         # ZeRO shards the optimizer state over the data axis, which one
         # data shard does not have: say so instead of doing nothing
         logging.getLogger("hydragnn_tpu_torch").warning(
@@ -484,15 +582,21 @@ def _pipeline_setup(train_cfg, mcfg, stages: int, batch_size: int,
               f"schedule={schedule} remat={remat or 'off'} "
               f"data_shards={data_shards} devices="
               f"{[str(d) for d in devices]}", flush=True)
+    opt_cfg = train_cfg.get("Optimizer") or {}
     return dict(stages=stages, microbatches=micro, schedule=schedule,
-                remat=remat, data_shards=data_shards, devices=devices)
+                remat=remat, data_shards=data_shards, devices=devices,
+                zero_opt=zero and data_shards > 1,
+                zero_min_size=int(opt_cfg.get("zero_min_shard_size",
+                                              ZERO_MIN_SHARD_SIZE)))
 
 
 def _pipeline_steps(model, tx, loss_name, cge, e_w, f_w, compute_dtype,
                     pipe):
     """The pipelined train and eval steps (JAX run_training.py:477-508)."""
     kw = dict(schedule=pipe["schedule"], remat=pipe["remat"] is not None,
-              remat_policy=pipe["remat"], compute_dtype=compute_dtype)
+              remat_policy=pipe["remat"], compute_dtype=compute_dtype,
+              data_shards=pipe["data_shards"], zero_opt=pipe["zero_opt"],
+              zero_min_size=pipe["zero_min_size"])
     if cge:
         return (make_pipeline_ef_train_step(model, tx, loss_name,
                                             energy_weight=e_w,

@@ -2762,3 +2762,130 @@ def test_pipeline_streams_equal_one_stream_and_sequential(cuda_device):
         after.append(_host_state(state))
         state.restore(snap)
     _assert_same_state(after[0], after[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,data,zero", [("pna_edge", 1, False),
+                                            ("pna_edge", 2, True),
+                                            ("gin_edge", 2, False),
+                                            ("schnet", 1, False)])
+def test_composed_captured_steps_equal_eager_bitwise(cuda_device, kind, data,
+                                                     zero):
+    """Three composed (data x graph) steps with graph_shards 2 on streams
+    of the card, eager and captured (the slot streams fork from the
+    capture stream and join back): metrics and state bitwise; B3 launched
+    in the shards (B4 and its dh for SchNet), no fused PNA kernel."""
+    from hydragnn_tpu_torch.parallel import composite
+    from hydragnn_tpu_torch.preprocess.load_data import create_dataloaders
+    from hydragnn_tpu_torch.graphs.synthetic import (lj_configurations,
+                                                     qm9_molecules,
+                                                     synthetic_molecules)
+    mcfg, train_cfg, _ = _step_setup(cuda_device, kind)
+    samples = {"schnet": lj_configurations, "gin_edge": qm9_molecules,
+               "pna_edge": synthetic_molecules}[kind](36, seed=1)
+    loader = create_dataloaders(samples[:28], samples[28:32], samples[32:],
+                                8, neighbor_format=False,
+                                num_shards=data)[0]
+    batches = [b.to(cuda_device) for b in loader][:3]
+    runs = []
+    for graphed in (False, True):
+        model, tx, state = _fresh_state(cuda_device, mcfg, dict(
+            train_cfg, Optimizer={"type": "AdamW", "learning_rate": 1e-3}))
+        grid = composite.ComposedGrid([cuda_device] * (2 * data), data, 2)
+        step = composite.make_composed_train_step(
+            model, mcfg, tx, grid, zero_opt=zero, zero_min_size=1024,
+            **_step_kwargs(train_cfg))
+        tk.reset_launch_counts()
+        losses = []
+        for b in batches:
+            state, m = (step if graphed else step.eager)(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), tk.launch_counts()))
+    (l0, s0, c0), (l1, s1, c1) = runs
+    assert np.isfinite(l0).all() and l0 == l1
+    _assert_same_state(s0, s1)
+    for c in (c0, c1):
+        assert c["segment_sum"] > 0
+        assert c["pna_edge_aggregate"] == 0 and c["nbr_aggregate"] == 0
+        if kind == "schnet":
+            assert c["filter_scatter"] > 0
+            assert c["filter_scatter_backward"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", [False, True])
+def test_pipe_by_data_captured_steps_equal_eager_bitwise(cuda_device, zero):
+    """Three steps of 2 stages x 2 data shards (4 streams of the card),
+    eager and captured: metrics and state bitwise; B1 and its backward
+    launched inside the stages."""
+    from hydragnn_tpu_torch.parallel import pipeline_trainer as tpt
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    runs = []
+    for graphed in (False, True):
+        model, _, _, batches, tcfg = _pipeline_setup(
+            cuda_device, "pna_dense", micro=4)
+        tx = topt.select_optimizer({"Optimizer": {"type": "AdamW",
+                                                  "learning_rate": 1e-3}})
+        state = tstep.TrainState.create(model, tx)
+        step = tpt.make_pipeline_train_step(
+            model, tx, tcfg["loss_function_type"], schedule="1f1b",
+            data_shards=2, zero_opt=zero, zero_min_size=1024)
+        tk.reset_launch_counts()
+        losses = []
+        for b in batches:
+            state, m = (step if graphed else step.eager)(state, b)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        runs.append((losses, _host_state(state), tk.launch_counts()))
+    (l0, s0, c0), (l1, s1, c1) = runs
+    assert np.isfinite(l0).all() and l0 == l1
+    _assert_same_state(s0, s1)
+    for name in ("nbr_aggregate", "nbr_aggregate_backward"):
+        assert c0[name] > 0 and c1[name] > 0, name
+
+
+@pytest.mark.cuda
+def test_graph_parallel_layers_on_streams_equal_single_device(cuda_device):
+    """The edge-sharded and ring layers on 4 streams of the card against
+    the single-device segment sum: bitwise on dyadic data, forward and
+    VJP, B3 launched in every slot."""
+    from hydragnn_tpu_torch.parallel import graph_parallel as gp
+    n, e, f, D = 4096, 65536, 16, 4
+    rng = np.random.default_rng(0)
+    send = rng.integers(0, n, e).astype(np.int32)
+    recv = rng.integers(0, n, e).astype(np.int32)
+    x = torch.from_numpy((rng.integers(-16, 17, (n, f)) / 8.0).astype(
+        np.float32)).to(cuda_device)
+    ct = torch.from_numpy((rng.integers(-8, 9, (n, f)) / 8.0).astype(
+        np.float32)).to(cuda_device)
+
+    def msg(xi, xj, ea):
+        return xj * 2.0 + xi * 0.5
+    xs = x.clone().requires_grad_(True)
+    st, rt = (torch.from_numpy(a).long().to(cuda_device)
+              for a in (send, recv))
+    want = segment.segment_sum(msg(segment.gather_rows(xs, rt),
+                                   segment.gather_rows(xs, st), None)
+                               .contiguous(), rt, n)
+    (want_g,) = torch.autograd.grad(want, xs, ct)
+    mask, send_s, recv_s = gp.shard_edge_arrays(D, send, recv)
+    layer = gp.make_edge_sharded_layer([cuda_device] * D, msg, n)
+    xe = x.clone().requires_grad_(True)
+    tk.reset_launch_counts()
+    got = layer(xe, send_s, recv_s, mask)
+    (got_g,) = torch.autograd.grad(got, xe, ct)
+    layer.slots.join()
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["segment_sum"] >= D
+    assert torch.equal(got, want) and torch.equal(got_g, want_g)
+    b = gp.build_ring_buckets(send, recv, n, D)
+    ring = gp.make_ring_layer([cuda_device] * D, msg)
+    xr = gp.shard_node_array(x, D).clone().requires_grad_(True)
+    out = ring(xr, b.send_local, b.recv_local, b.mask)
+    (gr,) = torch.autograd.grad(out, xr, gp.shard_node_array(ct, D))
+    ring.slots.join()
+    torch.cuda.synchronize()
+    assert torch.equal(out.reshape(-1, f)[:n], want)
+    assert torch.equal(gr.reshape(-1, f)[:n], want_g)

@@ -590,22 +590,28 @@ def test_conv_checkpointing_resolves_as_jax_and_is_not_refused(value):
     assert got.conv_checkpointing == want.conv_checkpointing == bool(value)
 
 
-@pytest.mark.parametrize("knob,value,raises", [
-    (("Training", "Optimizer", "use_zero_redundancy"), True, False),
-    (("Training", "Optimizer", "zero_min_shard_size"), 0, False),
-    (("Training", "pipeline_data_shards"), 2, True),
-    (("Architecture", "graph_shards"), 2, True),
-    (("Training", "pipeline_stages"), 2, False)])
+@pytest.mark.parametrize("knob,value,model,raises", [
+    (("Training", "Optimizer", "use_zero_redundancy"), True, "GIN", False),
+    (("Training", "Optimizer", "zero_min_shard_size"), 0, "GIN", False),
+    (("Training", "pipeline_data_shards"), 2, "GIN", False),
+    (("Architecture", "graph_shards"), 2, "GIN", False),
+    (("Training", "pipeline_stages"), 2, "GIN", False),
+    (("Architecture", "graph_shards"), 2, "PNA", False),
+    (("Architecture", "graph_shards"), 2, "SchNet", False),
+    (("Architecture", "graph_shards"), 2, "SAGE", True),
+    (("Architecture", "graph_shards"), 2, "DimeNet", True)])
 def test_multi_gpu_knobs_resolve_or_raise_naming_a9(clean_env, knob, value,
-                                                    raises):
+                                                    model, raises):
     """The data-parallel knobs are ported (ZeRO: a no-op in one process,
     as in the JAX package; tests/test_torch_parallel_zero.py holds it over
-    ranks), and so is the pipeline (tests/test_torch_pipeline_run.py);
-    its data axis (`pipeline_data_shards > 1` on a pipelined config) and
-    graph parallelism still raise naming A9, before any work."""
+    ranks), and so are the pipeline (tests/test_torch_pipeline_run.py),
+    its data axis (`pipeline_data_shards > 1` on a pipelined config,
+    tests/test_torch_pipeline_data.py) and graph parallelism for GIN, PNA
+    and SchNet (tests/test_torch_composite.py); graph_shards on the other
+    model types still raises naming A9, before any work."""
     from hydragnn_tpu_torch.run_training import check_training_knobs
     from tests.utils import make_config
-    cfg = make_config("GIN")
+    cfg = make_config(model)
     node = cfg["NeuralNetwork"]
     for k in knob[:-1]:
         node = node.setdefault(k, {})
@@ -618,3 +624,37 @@ def test_multi_gpu_knobs_resolve_or_raise_naming_a9(clean_env, knob, value,
             check_training_knobs(cfg)
     else:
         check_training_knobs(cfg)
+
+
+@pytest.mark.parametrize("stages,graph_shards,num_shards", [
+    (1, 2, 1), (1, 4, 2), (2, 1, 2), (1, 1, 1)])
+def test_multiprocess_refusal_names_the_real_graph_shards(
+        clean_env, monkeypatch, tmp_path, stages, graph_shards, num_shards):
+    """A multi-process run takes the plain data-parallel path only: the
+    port's refusal (`run_training.multiprocess_path_check`) carries the
+    JAX package's message with the real graph_shards, held against JAX's
+    run_training made to see two processes (its check,
+    run_training.py:278-287, runs before any process talks to another)."""
+    import importlib
+    from hydragnn_tpu.parallel import multiprocess as jmp
+    from hydragnn_tpu.run_training import run_training as j_run_training
+    from tests.deterministic_data import deterministic_graph_dataset
+    from tests.utils import make_config
+    rt = importlib.import_module("hydragnn_tpu_torch.run_training")
+    monkeypatch.chdir(tmp_path)
+    cfg = make_config("GIN")
+    cfg["NeuralNetwork"]["Architecture"]["graph_shards"] = graph_shards
+    if stages > 1:
+        cfg["NeuralNetwork"]["Training"].update(
+            pipeline_stages=stages, pipeline_norm="layernorm")
+    samples = deterministic_graph_dataset(num_configs=24)
+    monkeypatch.setattr(jmp, "is_multiprocess", lambda: True)
+    monkeypatch.setattr(jmp, "slice_by_process",
+                        lambda data, **kw: data)
+    with pytest.raises(ValueError) as want:
+        j_run_training(cfg, datasets=(samples[:16], samples[16:20],
+                                      samples[20:]), num_shards=num_shards)
+    with pytest.raises(ValueError) as got:
+        rt.multiprocess_path_check(2, stages, graph_shards, num_shards)
+    assert str(got.value) == str(want.value)
+    assert f"graph_shards={graph_shards}," in str(got.value)

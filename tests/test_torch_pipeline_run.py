@@ -9,8 +9,10 @@ on the CPU through `pipeline_devices`), against the JAX package's
   energy-force run trains, a checkpoint resumes bitwise, a `continue` of
   another layout raises, telemetry reports the schedule;
 * the knobs and errors: every validation and opt-in error with JAX's
-  message, `pipeline_data_shards > 1` refused naming A9, graph_shards
-  with pipeline_stages refused, too few stage devices refused.
+  message, `pipeline_data_shards > 1` without S x D stage devices refused
+  with JAX's "exceeds device count" (the data axis trains:
+  tests/test_torch_pipeline_data.py), graph_shards with pipeline_stages
+  refused, too few stage devices refused.
 """
 import copy
 import importlib
@@ -295,7 +297,8 @@ def test_run_training_refusals(tmp_path, monkeypatch):
     splits, _ = _splits(24)
     cfg = _cfg()
     cfg["NeuralNetwork"]["Training"]["pipeline_data_shards"] = 2
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="pipeline_stages=2 x "
+                       "pipeline_data_shards=2 exceeds device count 2"):
         run_training(cfg, datasets=splits, device="cpu",
                      pipeline_devices=CPU2)
     cfg = _cfg()

@@ -714,19 +714,30 @@ def test_run_training_refuses_knobs_off_its_path():
     # test_torch_steps_per_call.py, test_torch_packing.py,
     # test_torch_node_heads.py); a dtype the port does not compute in
     # still raises
-    # pipeline_stages trains now (tests/test_torch_pipeline_run.py); its
-    # data axis still raises
-    cases = [("Training", "pipeline_data_shards", 2, "A9"),
-             ("Architecture", "graph_shards", 2, "A9"),
-             ("Training", "async_loader_workers", 2, "A10"),
-             ("Architecture", "dtype", "float16", "A5")]
-    for section, key, value, item in cases:
+    # pipeline_stages trains now (tests/test_torch_pipeline_run.py), and
+    # so do its data axis (tests/test_torch_pipeline_data.py) and
+    # graph_shards (tests/test_torch_composite.py): without devices for
+    # them they raise the JAX package's ValueErrors (no card here), and
+    # graph_shards on a model whose convs do not split still names A9
+    cases = [("Training", "pipeline_data_shards", 2, ValueError,
+              "pipeline_stages=2 x pipeline_data_shards=2 exceeds device "
+              "count 0"),
+             ("Architecture", "graph_shards", 2, ValueError,
+              "graph_shards=2 does not divide the device count 0"),
+             ("Architecture", "model_type", "SAGE", NotImplementedError,
+              "A9"),
+             ("Training", "async_loader_workers", 2, NotImplementedError,
+              "A10"),
+             ("Architecture", "dtype", "float16", NotImplementedError, "A5")]
+    for section, key, value, exc, item in cases:
         cfg = copy.deepcopy(base)
         cfg["NeuralNetwork"][section][key] = value
         if key == "pipeline_data_shards":
             cfg["NeuralNetwork"]["Training"].update(
                 pipeline_stages=2, pipeline_norm="layernorm")
-        with pytest.raises(NotImplementedError, match=item):
+        if key == "model_type":
+            cfg["NeuralNetwork"]["Architecture"]["graph_shards"] = 2
+        with pytest.raises(exc, match=item):
             run_training(cfg, datasets=(samples[:8], samples[8:10],
                                         samples[10:]), device="cpu")
     # the Profile section traces an epoch now
