@@ -436,6 +436,45 @@ Phases:
    edge-list run, the pipe-only run) are counted apart from the graph
    slots' and rings' launches.
 
+21. Multi-dataset GFM training (hydragnn_tpu_torch/parallel/
+   multidataset.py, train/gfm.py, telemetry/gfm.py, examples/gfm.py,
+   examples/multidataset.py). (a) examples/gfm/gfm_mixture.json at its
+   published width (GIN, hidden 32, 3 conv layers, 3 graph heads, batch
+   8) on the three synthetic members (48/32/40 samples) for its 4
+   epochs through `hydragnn_tpu_torch.examples.gfm.run` on the card: one
+   CUDA graph for the run's train step; the first step's loss and each
+   task_<i> within rtol 1e-4 of the same step on the CPU at float64 (a
+   worker), and of the CPU's float32 run within 1e-4 or FLOOR_TIMES x
+   that run's own float32 error, where wider; the same driver under SGD
+   (momentum 0, the config's learning rate) on the card: each epoch's
+   per-head train and val losses within 1e-3 of the same run on the CPU
+   at float64 or FLOOR_TIMES x the split's float32 floor (the CPU
+   float32 run's widest gap to float64 over the split's epochs and
+   heads), where wider; card vs the CPU float32 run printed, with
+   whether 1e-3 held there (under the driver's Adam two CPU float32 runs
+   of the same graphs part by up to ~100 % and more, so Adam's epochs
+   are not compared); a 2-member sub-mixture trained under the full
+   mixture's pinned budget, then the third member: no capture added; on
+   dyadic members with one-hot head weights the head-masked captured
+   step bitwise the plain one in every parameter; the captured step's
+   ms, graphs/s and each epoch's wall s; B3 at the first packed batch's
+   shapes (`gfm_segment_shapes`: GIN's 32-wide sum by receivers, the
+   sender gathers' gradient, the pooling). (b)
+   examples/multidataset/gfm_energy.json at its width (EGNN, hidden 50,
+   3 layers, batch 32) over OC2020 + OC2022 (limit 200 each) through
+   `hydragnn_tpu_torch.examples.multidataset` as two gloo ranks sharing
+   the card (children `--gfm-rank`), rank r on shard r: the first SPMD
+   step's loss card vs a CPU step of the same weights in the same group
+   within rtol 1e-4 on each rank; a first SPMD SGD step from those
+   weights card vs CPU (`md_first_step`, PR 20's bounds: the loss and
+   the parameters after it within 1e-4, the averaged gradient within
+   max(1e-2, 10 x the CPU float32 one's gap to float64)); B3 at each
+   rank's first batch (EGNN's 50-wide message sum and sender gathers'
+   gradient, its coordinate mean, the pooling), one rank at a time; one
+   epoch through the driver; the step's ms, its collectives' share and
+   graphs/s. B3 launched on both paths (`launches_gfm_path`); the shapes
+   of (a) and (b) join the segment_sum record's `shapes`.
+
 Trimmed for time (the smoke took 680-1,080 s of its 1,200 and ran
 past it once): the SGD runs held card vs CPU in phases 5, 7 and 10 take
 SGD_HELD_EPOCHS (1) of their 3 epochs, and phases 5 and 6 make no CPU
@@ -456,8 +495,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `graph_parallel: {...}` (phase
-20), a `pipeline: {...}` (phase 19), a
+name and power limit, and before it a `gfm: {...}` (phase 21), a
+`graph_parallel: {...}` (phase 20), a `pipeline: {...}` (phase 19), a
 `spmd: {...}` (phase 18), a
 `quant: {...}` (phase 17), a
 `smiles: {...}` (phase 16), an
@@ -8137,6 +8176,688 @@ def graph_phase(torch, device, card, counted, csce, lj_splits):
     return rec, launches, shapes
 
 
+# ------------------------------------------------------------- phase 21 --
+GFM_SIZES = "48,32,40"         # examples/gfm/train_gfm.py's members
+GFM_FIRST_RTOL = 1e-4          # 21a: the first step, card vs cpu
+GFM_VAL_RTOL = 1e-3            # 21a: each epoch's per-head losses
+GFM_DYADIC_SIZES = (6, 6, 6)   # 21a: the masked-vs-plain members
+GFM_DYADIC_LR = 0.5
+GFM_TIMED_STEPS = 20
+GFM_KERNELS = ("segment_sum",)
+MD_WORLD = 2                   # 21b: ranks sharing the card over gloo
+MD_LIMIT = 200                 # samples a member (train.py's default)
+MD_FIRST_RTOL = 1e-4
+MD_TIMEOUT_S = 360             # the children's bound, start-up included
+
+
+def gfm_args(job_dir, device, epochs=None):
+    from hydragnn_tpu_torch.examples import gfm
+    argv = ["--job-dir", job_dir, "--device", device, "--sizes", GFM_SIZES]
+    if epochs is not None:
+        argv += ["--num-epochs", str(epochs)]
+    return gfm.parse_args(argv)
+
+
+def gfm_sgd():
+    """21a's SGD (momentum 0) at gfm_mixture.json's learning rate: the
+    optimizer its per-epoch card-vs-CPU holds train with."""
+    from hydragnn_tpu_torch.examples import gfm
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    lr = gfm.load_gfm_config()["NeuralNetwork"]["Training"]["Optimizer"][
+        "learning_rate"]
+    return Optimizer("SGD", learning_rate=float(lr), momentum=0.0)
+
+
+def gfm_run(device, sgd=False, quiet=False, epochs=None):
+    """The GFM driver's run on `device` from the same seed (its Adam, or
+    `gfm_sgd` with `sgd`) -> (result, run)."""
+    import io
+    import tempfile
+    from hydragnn_tpu_torch.examples import gfm
+    out = io.StringIO() if quiet else sys.stdout
+    with tempfile.TemporaryDirectory(prefix="hydragnn_gfm_") as tmp, \
+            contextlib.redirect_stdout(out):
+        return gfm.run(gfm_args(tmp, device, epochs),
+                       optimizer=gfm_sgd() if sgd else None)
+
+
+def gfm_cpu_run(sgd=False):
+    """21a's CPU witness (a worker): `gfm_run` on the CPU -> {the first
+    step's metrics, with `sgd` each epoch's per-head train and val
+    losses, seconds}. The driver's Adam run takes one epoch: its holds
+    read the first step alone."""
+    t0 = time.perf_counter()
+    _, info = gfm_run("cpu", sgd=sgd, quiet=True,
+                      epochs=None if sgd else 1)
+    return dict(first=info.first_metrics, train=info.train_head_losses,
+                val=info.val_head_losses, seconds=time.perf_counter() - t0)
+
+
+def gfm_f64_sgd_run():
+    """21a's float64 witness (a worker): the GFM driver's run, its loaders
+    and seed, on the CPU at float64 under SGD (momentum 0, the config's
+    learning rate: one update is -lr g, as the driver's SGD step) ->
+    {the first step's loss and task_<i> (before its update), each epoch's
+    per-head train and val losses}."""
+    import torch
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.examples import gfm
+    from hydragnn_tpu_torch.graphs.synthetic import (build_members,
+                                                     split_members)
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel.multidataset import GfmMixtureLoader
+    from hydragnn_tpu_torch.train.gfm import (GfmEpochAccumulator,
+                                              apply_head_weights)
+    from hydragnn_tpu_torch.train.loss import multihead_loss
+    from hydragnn_tpu_torch.utils.envflags import resolve_gfm
+    args = gfm_args(".", "cpu")
+    config = gfm.load_gfm_config(args.inputfile)
+    tr = config["NeuralNetwork"]["Training"]
+    mixture, head_weights = resolve_gfm(tr)
+    train, val = split_members(build_members(
+        sizes=[int(v) for v in args.sizes.split(",")],
+        seed=args.data_seed))
+    config = tcfg.update_config(config,
+                                [s for v in train.values() for s in v])
+    mcfg = tcfg.build_model_config(config)
+    batch = int(tr["batch_size"])
+    loader = GfmMixtureLoader(train, batch, cfg=mcfg, weights=mixture,
+                              seed=args.seed)
+    val_loader = GfmMixtureLoader(val, batch, cfg=mcfg, seed=args.seed)
+    hcfg = apply_head_weights(mcfg, head_weights)
+    model = create_model(mcfg, device="cpu", seed=args.seed).double()
+    params = list(model.parameters())
+    lr = float(np.float32(gfm_sgd().learning_rate))
+
+    def losses(b):
+        b = b.replace(**{k: getattr(b, k).double()
+                         for k in ("x", "pos", "y_graph")})
+        out, var = model(b)
+        total, tasks = multihead_loss(hcfg, "mse", out, var, b)
+        return total, {f"task_{i}": t for i, t in enumerate(tasks)}
+    first, train_losses, val_losses = None, [], []
+    for epoch in range(int(tr["num_epoch"])):
+        loader.set_epoch(epoch)
+        acc = GfmEpochAccumulator(loader.member_names)
+        for b in loader:
+            model.train()
+            total, tasks = losses(b)
+            if first is None:
+                first = dict(loss=float(total.detach()),
+                             **{k: float(v.detach())
+                                for k, v in tasks.items()})
+            grads = torch.autograd.grad(total, params)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.sub_(lr * g)
+            acc.update(b, {k: float(v.detach()) for k, v in tasks.items()})
+        train_losses.append(acc.summary()["head_losses"])
+        val_loader.set_epoch(0)
+        vacc = GfmEpochAccumulator(loader.member_names)
+        model.eval()
+        with torch.no_grad():
+            for b in val_loader:
+                _, tasks = losses(b)
+                vacc.update(b, {k: float(v) for k, v in tasks.items()})
+        val_losses.append(vacc.summary()["head_losses"])
+    return dict(first=first, train=train_losses, val=val_losses)
+
+
+def relative_gap(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def gfm_zero_added(torch, device, mcfg, config):
+    """21a: a 2-member sub-mixture under the full mixture's pinned budget
+    first, then the full mixture, through one step: its graphs after
+    each, and the launches."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.graphs.synthetic import (build_members,
+                                                     split_members)
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel.multidataset import GfmMixtureLoader
+    from hydragnn_tpu_torch.train.gfm import make_gfm_train_step
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    train = split_members(build_members(
+        sizes=[int(v) for v in GFM_SIZES.split(",")]))[0]
+    batch = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    full = GfmMixtureLoader(train, batch, cfg=mcfg, seed=0)
+    sub = GfmMixtureLoader({n: train[n] for n in ("alpha", "beta")}, batch,
+                           seed=0, pack_budget=full.pack_budget)
+    model = create_model(mcfg, device=device, seed=0)
+    tx = Optimizer("Adam", learning_rate=1e-3)
+    state = TrainState.create(model, tx)
+    step = make_gfm_train_step(model, mcfg, tx, num_datasets=3)
+    tk.reset_launch_counts()
+    graphs = []
+    for ld in (sub, full):
+        ld.set_epoch(0)
+        for b in ld:
+            state, m = step(state, b.to(device))
+        float(m["loss"])
+        graphs.append(len(step.steps.graphs))
+    torch.cuda.synchronize()
+    return dict(sub_graphs=graphs[0], full_graphs=graphs[1],
+                added=graphs[1] - graphs[0],
+                sub_steps=len(sub), full_steps=len(full)), tk.launch_counts()
+
+
+def gfm_masked_vs_plain(torch, device):
+    """21a: on each dyadic member, with one-hot head weights, the
+    head-masked captured step and the plain captured step from the same
+    seed (3 steps each: warm-up, capture, replay) -> the tensors that
+    differ (none held) and the launches."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.examples import gfm
+    from hydragnn_tpu_torch.graphs.batch import BucketSpec, collate
+    from hydragnn_tpu_torch.graphs.synthetic import build_members
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.gfm import apply_head_weights
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_train_step)
+    members = build_members(sizes=GFM_DYADIC_SIZES, seed=1, dyadic=True)
+    done = tcfg.update_config(gfm.load_gfm_config(),
+                              [s for v in members.values() for s in v])
+    mcfg = tcfg.build_model_config(done)
+    differ = {}
+    tk.reset_launch_counts()
+    for d, name in enumerate(sorted(members)):
+        onehot = tuple(1.0 if i == d else 0.0 for i in range(3))
+        b = collate(members[name], bucket=BucketSpec(multiple=64))
+        ids = torch.where(b.graph_mask, torch.tensor(d, dtype=torch.int32),
+                          torch.tensor(-1, dtype=torch.int32))
+        out = []
+        for batch in (b.replace(dataset_id=ids), b):
+            model = create_model(mcfg, device=device, seed=2)
+            tx = Optimizer("SGD", learning_rate=GFM_DYADIC_LR, momentum=0.0)
+            state = TrainState.create(model, tx)
+            step = make_train_step(model, apply_head_weights(mcfg, onehot),
+                                   tx)
+            for _ in range(3):
+                state, m = step(state, batch.to(device))
+            out.append(({k: v.detach().clone() for k, v in
+                         state.state_dict().items()}, m,
+                        len(step.steps.graphs)))
+        (s_gfm, m_gfm, g_gfm), (s_plain, m_plain, g_plain) = out
+        differ[name] = [k for k in s_plain
+                        if not torch.equal(s_gfm[k], s_plain[k])]
+        if not torch.equal(m_gfm[f"task_{d}"], m_plain[f"task_{d}"]):
+            differ[name].append(f"task_{d}")
+        if (g_gfm, g_plain) != (1, 1):
+            differ[name].append(f"graphs {g_gfm}, {g_plain}")
+    torch.cuda.synchronize()
+    return differ, tk.launch_counts()
+
+
+def gfm_epoch_rows(card_runs, cpu, ref):
+    """Each (split, epoch, head) loss: the card's float32 run against the
+    reference `ref` and the CPU's float32 run `cpu`, and the CPU's gap to
+    `ref`; the split's floor is the CPU's widest gap over its epochs and
+    heads."""
+    rows = []
+    for split in ("train", "val"):
+        floor = max(relative_gap(got[n], want[n])
+                    for got, want in zip(cpu[split], ref[split])
+                    for n in want)
+        for e, (got, want, c) in enumerate(zip(card_runs[split],
+                                                ref[split], cpu[split])):
+            for name in want:
+                rows.append(dict(
+                    split=split, epoch=e, head=name,
+                    gap=relative_gap(got[name], want[name]),
+                    card_cpu=relative_gap(got[name], c[name]),
+                    floor=floor,
+                    bound=max(GFM_VAL_RTOL, FLOOR_TIMES * floor)))
+    return rows
+
+
+def gfm_rows_text(rows):
+    return str([(r["split"], r["epoch"], r["head"], "%.2e" % r["gap"],
+                 "%.2e" % r["card_cpu"], "%.2e" % r["floor"],
+                 "%.2e" % r["bound"]) for r in rows])
+
+
+def gfm_segment_shapes(torch, b, tag, f, card):
+    """segment_sum at the shapes one batch `b` of a phase 21 path (on the
+    card) gives it, each over the layout the stack builds once a step
+    (models/base.py `aggregation_layouts`): the [E, f] sum by receivers
+    and the sender gathers' [E, f] gradient by senders, EGNN's [E, 3]
+    coordinate mean, the dense gather's gradient where the batch holds
+    the table, and the [N, f] pooling; seeded random data, zero on the
+    rows the layouts leave out (`segment_shape`: held against the plain
+    version, timed beside index_add)."""
+    from hydragnn_tpu_torch.kernels.segment import segment_layout
+    dev = b.x.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = b.num_nodes
+    keep = b.edge_mask
+
+    def rand(rows, width, mask=None):
+        x = torch.randn(rows, width, device=dev, generator=gen)
+        return x if mask is None else x * mask[:, None]
+    recv = segment_layout(b.receivers, n, keep)
+    shapes = [segment_shape(torch, f"{tag}_edge_sum", rand(b.num_edges, f,
+                                                           keep),
+                            b.receivers, n, layout=recv, card=card)]
+    if "egnn" in tag:
+        shapes.append(segment_shape(
+            torch, f"{tag}_edge_coord_mean", rand(b.num_edges, 3, keep),
+            b.receivers, n, layout=recv, card=card))
+    shapes.append(segment_shape(
+        torch, f"{tag}_gather_send_bwd", rand(b.num_edges, f, keep),
+        b.senders, n, layout=segment_layout(b.senders, n, keep), card=card))
+    if b.nbr is not None:
+        slots = b.nbr_mask.reshape(-1)
+        ids, segs = ((b.nbr_edge, b.num_edges) if "egnn" in tag
+                     else (b.nbr, n))
+        ids = ids.reshape(-1)
+        shapes.append(segment_shape(
+            torch, f"{tag}_dense_gather_bwd", rand(slots.shape[0], f, slots),
+            ids, segs, layout=segment_layout(ids, segs, slots), card=card))
+    shapes.append(segment_shape(torch, f"{tag}_pooling",
+                                rand(n, f, b.node_mask), b.node_graph,
+                                b.num_graphs, card=card))
+    return shapes
+
+
+def gfm_mixture(torch, device, card, add, counted):
+    """21a (see the module docstring)."""
+    from hydragnn_tpu_torch import kernels as tk
+    cpu_adam = cpu_submit(gfm_cpu_run)
+    cpu_sgd = cpu_submit(gfm_cpu_run, sgd=True)
+    cpu_f64 = cpu_submit(gfm_f64_sgd_run)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    result, info = gfm_run("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    add(counts)
+    info.loader.set_epoch(0)
+    first = next(iter(info.loader))
+    step_ms, _ = time_train_steps(torch, info.step, info.state,
+                                  first.to(device), steps=GFM_TIMED_STEPS)
+    graphs_after = len(info.step.steps.graphs)
+    real = int(first.graph_mask.sum())
+    shapes = gfm_segment_shapes(torch, first.to(device), "gfm_gin",
+                                info.mcfg.hidden_dim, card)
+    # the per-epoch holds' run: the same driver under SGD
+    tk.reset_launch_counts()
+    _, sgd_info = gfm_run("cuda", sgd=True, quiet=True)
+    torch.cuda.synchronize()
+    counted(tk.launch_counts())
+    zero, z_counts = gfm_zero_added(torch, device, info.mcfg, info.config)
+    counted(z_counts)
+    differ, m_counts = gfm_masked_vs_plain(torch, device)
+    counted(m_counts)
+    rec = dict(config="examples/gfm/gfm_mixture.json", sizes=GFM_SIZES,
+               epochs=len(info.epoch_s), plan_fp=result["plan_fp"],
+               train_captures=info.train_captures,
+               captures_after_timing=graphs_after,
+               step_ms=step_ms, graphs_per_step=real,
+               step_graphs_per_s=real / step_ms * 1e3,
+               driver_graphs_per_s=result["graphs_per_s"],
+               epoch_s=info.epoch_s, run_s=wall,
+               history=result["history"], first=info.first_metrics,
+               zero_added=zero, masked_vs_plain_differ=differ,
+               launches=counts)
+    print(f"phase 21a: gfm_mixture.json (GIN hidden "
+          f"{info.mcfg.hidden_dim}, {info.mcfg.num_conv_layers} layers, 3 "
+          f"graph heads, batch {info.loader.batch_size}) on members "
+          f"{GFM_SIZES}, {len(info.epoch_s)} epochs through "
+          f"hydragnn_tpu_torch.examples.gfm: plan_fp={result['plan_fp']}; "
+          f"train step captures {info.train_captures} (after "
+          f"{GFM_TIMED_STEPS} timed steps {graphs_after}); captured step "
+          f"{step_ms:.3f} ms for {real} graphs "
+          f"({rec['step_graphs_per_s']:.1f} graphs/s), the driver's "
+          f"{result['graphs_per_s']:.1f} graphs/s over its epochs (eval and "
+          f"checkpoints in); epoch wall s "
+          f"{[round(t, 3) for t in info.epoch_s]}; train loss "
+          f"{result['history']['train_loss']}; launches {counts} "
+          f"(card: {card})", flush=True)
+    print(f"phase 21a: sub-mixture (alpha, beta) under the full budget "
+          f"{zero['sub_graphs']} graph(s), then the full mixture "
+          f"{zero['full_graphs']}: {zero['added']} added; masked vs plain "
+          f"step on dyadic members, tensors that differ: {differ} "
+          f"(card: {card})", flush=True)
+    if info.train_captures != 1 or graphs_after != 1:
+        fail(f"phase 21a: {info.train_captures} train step captures in the "
+             f"run ({graphs_after} after the timed steps), not 1")
+    if zero["sub_graphs"] != 1 or zero["added"] != 0:
+        fail(f"phase 21a: the third member added captures: {zero}")
+    if any(differ.values()):
+        fail(f"phase 21a: the head-masked step differs from the plain one "
+             f"{differ}")
+    for name in GFM_KERNELS:
+        if counts.get(name, 0) == 0:
+            fail(f"phase 21a: {name} never launched on the GFM path")
+
+    def check_first(cpu):
+        """The first step (Adam's run; before any update): card vs the
+        CPU at float64 within GFM_FIRST_RTOL; card vs the CPU at float32
+        within that or FLOOR_TIMES x the CPU's float32 error, where wider
+        (on small masked means the CPU's float32 error reaches 4e-4)."""
+        f64 = cpu_f64.get()["first"]
+        rows = {}
+        for k in f64:
+            floor = relative_gap(cpu["first"][k], f64[k])
+            rows[k] = dict(
+                card_f64=relative_gap(info.first_metrics[k], f64[k]),
+                card_cpu=relative_gap(info.first_metrics[k],
+                                      cpu["first"][k]),
+                cpu_floor=floor,
+                bound=max(GFM_FIRST_RTOL, FLOOR_TIMES * floor))
+        rec["first_step"] = rows
+        print(f"phase 21a first step (loss, task_<i>): card vs cpu float64 "
+              f"{ {k: '%.2e' % r['card_f64'] for k, r in rows.items()} } "
+              f"(held at {GFM_FIRST_RTOL}); card vs cpu float32 "
+              f"{ {k: '%.2e' % r['card_cpu'] for k, r in rows.items()} }, "
+              f"the cpu's float32 error "
+              f"{ {k: '%.2e' % r['cpu_floor'] for k, r in rows.items()} } "
+              f"(held at {GFM_FIRST_RTOL} or {FLOOR_TIMES} x it) "
+              f"(card: {card})", flush=True)
+        for k, r in rows.items():
+            if not r["card_f64"] <= GFM_FIRST_RTOL:
+                fail(f"phase 21a: first step {k} card vs cpu float64 "
+                     f"{r['card_f64']} above {GFM_FIRST_RTOL}")
+            if not r["card_cpu"] <= r["bound"]:
+                fail(f"phase 21a: first step {k} card vs cpu {r['card_cpu']}"
+                     f" above {r['bound']}")
+
+    def check_epochs(cpu):
+        """Each epoch's per-head losses of the SGD run: the card's against
+        the CPU's float64 run within GFM_VAL_RTOL or FLOOR_TIMES x the
+        split's float32 floor (the CPU float32 run's widest gap to
+        float64: one draw of a chaotic divergence, which the host's CPU
+        moves), where wider; card vs the CPU's float32 run printed, with
+        whether 1e-3 held there."""
+        rows = gfm_epoch_rows(
+            dict(train=sgd_info.train_head_losses,
+                 val=sgd_info.val_head_losses), cpu, cpu_f64.get())
+        within = all(r["card_cpu"] <= GFM_VAL_RTOL for r in rows)
+        rec["sgd_epochs"] = dict(rows=rows, card_cpu_within_1e3=within,
+                                 cpu_s=cpu["seconds"])
+        print(f"phase 21a SGD (lr as the config's, momentum 0), per-head "
+              f"losses (split, epoch, head, card vs cpu float64, card vs "
+              f"cpu float32, float32 floor, bound) {gfm_rows_text(rows)}; "
+              f"card vs cpu float32 all within {GFM_VAL_RTOL}: {within} "
+              f"(cpu run {cpu['seconds']:.1f} s; card: {card})", flush=True)
+        for r in rows:
+            if not r["gap"] <= r["bound"]:
+                fail(f"phase 21a: SGD epoch {r['epoch']} {r['split']} "
+                     f"{r['head']} card vs cpu float64 {r['gap']} above "
+                     f"{r['bound']} (float32 floor {r['floor']})")
+    cpu_then(cpu_adam, check_first)
+    cpu_then(cpu_sgd, check_epochs)
+    return rec, shapes
+
+
+def md_sgd_step(torch, r, init, batch, device):
+    """21b's held step: one SPMD SGD step (COMPOSED_LR) of the driver's
+    model and config from the weights `init` on `device`, in the group ->
+    (loss, the parameters after it, SGD's trace: the averaged gradient it
+    applied) as float64 tensors on the CPU."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel.spmd import SpmdTrainStep
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    model = create_model(r.mcfg, device=device)
+    model.load_state_dict(init)
+    tx = select_optimizer({"Optimizer": {"type": "SGD",
+                                         "learning_rate": COMPOSED_LR}})
+    st = TrainState.create(model, tx)
+    _, m = SpmdTrainStep(model, r.mcfg, tx, r.loss_name)(st,
+                                                         batch.to(device))
+    return (float(m["loss"]),
+            torch.cat([p.detach().reshape(-1).cpu().double()
+                       for p in st.params.values()]),
+            torch.cat([t.detach().reshape(-1).cpu().double()
+                       for t in st.opt_state.slots["trace"]]))
+
+
+def md_f64_gradient(torch, r, init, batch):
+    """21b's float64 witness: the gradient `md_sgd_step` applies (the
+    group's mean of each rank's loss gradient), on the CPU at float64."""
+    import torch.distributed as dist
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.loss import multihead_loss
+    model = create_model(r.mcfg, device="cpu")
+    model.load_state_dict(init)
+    model.double().train()
+    b = batch.replace(**{k: getattr(batch, k).double() for k in (
+        "x", "pos", "y_graph", "y_node", "edge_attr", "edge_shifts",
+        "energy", "forces") if getattr(batch, k) is not None})
+    out, var = model(b)
+    total, _ = multihead_loss(r.mcfg, r.loss_name, out, var, b)
+    grads = torch.autograd.grad(total, list(model.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    return flat / dist.get_world_size()
+
+
+def md_first_step(torch, r, init, batch):
+    """21b: `md_sgd_step` on the card and on the CPU, and the float64
+    gradient -> the record `first_step_text` prints (PR 20's
+    `first_step_card_cpu` numbers and bounds)."""
+    def rel(x, y):
+        return float((x - y).norm() / max(float(y.norm()), 1e-30))
+    l_card, p_card, u_card = md_sgd_step(torch, r, init, batch, r.device)
+    l_cpu, p_cpu, u_cpu = md_sgd_step(torch, r, init, batch,
+                                      torch.device("cpu"))
+    u_64 = md_f64_gradient(torch, r, init, batch)
+    rec = dict(card=l_card, cpu=l_cpu,
+               gap=abs(l_card - l_cpu) / max(abs(l_cpu), 1e-12),
+               params_rel_l2=rel(p_card, p_cpu),
+               update_rel_l2=rel(u_card, u_cpu),
+               update_cpu_f64_rel_l2=rel(u_cpu, u_64))
+    rec["update_bound"] = max(1e-2, 10 * rec["update_cpu_f64_rel_l2"])
+    return rec
+
+
+def md_child(rank: str, world: str, rdzv: str, out_path: str,
+             job_dir: str) -> int:
+    """21b in one rank of MD_WORLD sharing the card over gloo: the
+    multi-dataset driver's setup, the first SPMD step on the card and on
+    the CPU from the same weights (the same group), the captured step
+    timed, then one epoch through the driver. Writes JSON to
+    `out_path`."""
+    import torch
+    import torch.distributed as dist
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.examples import multidataset as md
+    from hydragnn_tpu_torch.kernels import _build
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel.spmd import SpmdTrainStep
+    from hydragnn_tpu_torch.train.optimizer import select_optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    rank, world = int(rank), int(world)
+    t_start = time.perf_counter()
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
+    args = md.parse_args([
+        "--job-dir", job_dir, "--device", "cuda", "--limit", str(MD_LIMIT),
+        "--num_epoch", "1", "--rank", str(rank), "--world", str(world),
+        "--rdzv", f"file://{rdzv}", "--backend", "gloo"])
+    _build.build_all()
+    r = md.setup(args)
+    init = {k: v.detach().cpu().clone()
+            for k, v in r.model.state_dict().items()}
+    first = next(iter(r.loader))
+    out = {"rank": rank, "member": r.names[r.loader.assignment[rank]],
+           "graphs": int(first.graph_mask.sum()),
+           "train_sizes": [len(s[0]) for s in r.splits],
+           "steps_per_epoch": len(r.loader)}
+    tk.reset_launch_counts()
+    state, m = r.train_step(r.state, first.to(r.device))
+    card = {k: float(v) for k, v in m.items()}
+    torch.cuda.synchronize()
+    out["launches_first"] = tk.launch_counts()
+    cpu_model = create_model(r.mcfg, device="cpu")
+    cpu_model.load_state_dict(init)
+    tx = select_optimizer(r.train_cfg)
+    _, cm = SpmdTrainStep(cpu_model, r.mcfg, tx, r.loss_name)(
+        TrainState.create(cpu_model, tx), first)
+    out["first"] = {"card": card, "cpu": {k: float(v) for k, v in
+                                          cm.items()}}
+    out["first_sgd"] = md_first_step(torch, r, init, first)
+    # B3 at this rank's shapes, one rank at a time on the shared card
+    member = out["member"].lower()
+    for turn in range(world):
+        if turn == rank:
+            out["shapes"] = gfm_segment_shapes(
+                torch, first.to(r.device), f"md_{member}_egnn",
+                r.mcfg.hidden_dim, None)
+        dist.barrier()
+    ms, coll = time_train_steps(torch, r.train_step, state,
+                                first.to(r.device))
+    out["timing"] = dict(step_ms=ms, collective_ms=coll,
+                         collective_share=coll / ms,
+                         graphs_per_s=world * out["graphs"] / ms * 1e3)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, hist, _ = md.run(args)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = tk.launch_counts()
+    out["history"] = {k: hist[k] for k in ("train_loss", "val_loss",
+                                           "test_loss")}
+    out["seconds"] = time.perf_counter() - t_start
+    with open(out_path + ".tmp", "w") as fh:
+        json.dump(out, fh)
+    os.replace(out_path + ".tmp", out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def md_ranks(torch, card, add):
+    """21b (see the module docstring)."""
+    import tempfile
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hydragnn_md_") as tmp:
+        procs = []
+        for r in range(MD_WORLD):
+            log = open(f"{tmp}/rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, __file__, "--gfm-rank", str(r),
+                 str(MD_WORLD), f"{tmp}/rdzv", f"{tmp}/rank{r}.json",
+                 f"{tmp}/job"], stdout=log, stderr=subprocess.STDOUT),
+                log))
+        deadline = time.monotonic() + MD_TIMEOUT_S
+        bad = []
+        try:
+            for r, (proc, log) in enumerate(procs):
+                try:
+                    proc.wait(timeout=max(deadline - time.monotonic(), 1))
+                except subprocess.TimeoutExpired:
+                    bad.append(f"rank {r} outlasted {MD_TIMEOUT_S} s")
+                    break
+                if proc.returncode != 0:
+                    bad.append(f"rank {r} exited {proc.returncode}")
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        if bad:
+            tails = []
+            for r in range(MD_WORLD):
+                with open(f"{tmp}/rank{r}.log") as fh:
+                    tails.append(f"--- rank {r}\n{fh.read()[-3000:]}")
+            fail("phase 21b: " + "; ".join(bad) + "\n" + "\n".join(tails))
+        ranks = []
+        for r in range(MD_WORLD):
+            with open(f"{tmp}/rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+    wall = time.perf_counter() - t0
+    launches = {}
+    for r in ranks:
+        for part in ("launches_first", "launches"):
+            for name, c in r[part].items():
+                launches[name] = launches.get(name, 0) + c
+    add(launches)
+    gaps = [relative_gap(r["first"]["card"]["loss"],
+                         r["first"]["cpu"]["loss"]) for r in ranks]
+    for r, gap in zip(ranks, gaps):
+        t = r["timing"]
+        print(f"phase 21b: rank {r['rank']} (shard of {r['member']}, "
+              f"{r['graphs']} graphs a step, {r['steps_per_epoch']} steps "
+              f"an epoch): first step loss card {r['first']['card']['loss']}"
+              f" cpu {r['first']['cpu']['loss']} (relative gap {gap:.2e}, "
+              f"held at {MD_FIRST_RTOL}); captured SPMD step "
+              f"{t['step_ms']:.3f} ms, collectives {t['collective_ms']:.3f} "
+              f"ms (share {t['collective_share']:.3f}), "
+              f"{t['graphs_per_s']:.1f} graphs/s over the {MD_WORLD} ranks; "
+              f"one epoch through the driver {r['run_s']:.1f} s, history "
+              f"{r['history']}; launches {r['launches']}; {r['seconds']:.1f}"
+              f" s (card: {card})", flush=True)
+    shapes = [sh for r in ranks for sh in r["shapes"]]
+    for r in ranks:
+        print(f"phase 21b: rank {r['rank']} "
+              f"{first_step_text(r['first_sgd'])} (card: {card})", flush=True)
+    for sh in shapes:
+        print(f"phase 21b: segment_sum.{sh['shape']}: E={sh['E']} "
+              f"N={sh['N']} F={sh['F']} device_ms={sh['device_ms']:.4f} "
+              f"bound_ms={sh['bound_ms']:.5f} ({sh['bound_by']}) index_add "
+              f"device_ms={sh['library_ms']:.4f} max_abs_err="
+              f"{sh['max_abs_err']:.3e} (card: {card})", flush=True)
+    print(f"phase 21b: gfm_energy.json (EGNN hidden 50, 3 layers, batch 32) "
+          f"over OC2020 + OC2022 (limit {MD_LIMIT}), {MD_WORLD} gloo ranks "
+          f"on one card: {wall:.1f} s (card: {card})", flush=True)
+    for r, gap in zip(ranks, gaps):
+        if not gap <= MD_FIRST_RTOL:
+            fail(f"phase 21b: rank {r['rank']} first step loss card vs cpu "
+                 f"{gap} above {MD_FIRST_RTOL}")
+        sgd = r["first_sgd"]
+        for key, bound in (("gap", MD_FIRST_RTOL),
+                           ("params_rel_l2", MD_FIRST_RTOL),
+                           ("update_rel_l2", sgd["update_bound"])):
+            if not sgd[key] <= bound:
+                fail(f"phase 21b: rank {r['rank']} first SGD step card vs "
+                     f"cpu {key} {sgd[key]} above {bound} ({sgd})")
+        for name in GFM_KERNELS:
+            if r["launches"].get(name, 0) == 0:
+                fail(f"phase 21b: {name} never launched on rank "
+                     f"{r['rank']}'s driver run")
+        if not np.isfinite(r["history"]["train_loss"]).all():
+            fail(f"phase 21b: rank {r['rank']}: {r['history']}")
+    if ranks[0]["history"] != ranks[1]["history"]:
+        fail("phase 21b: the two ranks' histories differ")
+    return dict(wall_s=wall, first_relative_gaps=gaps,
+                ranks=[{k: r[k] for k in ("rank", "member", "graphs",
+                                          "timing", "history", "run_s",
+                                          "launches", "seconds",
+                                          "first_sgd")}
+                       for r in ranks]), shapes
+
+
+def gfm_phase(torch, device, card, counted):
+    """Phase 21 (see the module docstring): (record, launches, segment_sum
+    shapes)."""
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        counted(counts)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+    rec = {}
+    t0 = time.perf_counter()
+    rec["a"], shapes = gfm_mixture(torch, device, card, add, counted)
+    rec["a"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["b"], md_shapes = md_ranks(torch, card, add)
+    rec["b"]["phase_s"] = time.perf_counter() - t0
+    rec.update(wall_s=time.perf_counter() - t_phase, launches=launches)
+    print(f"phase 21 took {rec['wall_s']:.1f} s; launches on the GFM paths "
+          f"{launches} (card: {card})", flush=True)
+    return rec, launches, shapes + md_shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8612,6 +9333,15 @@ def main() -> int:
         [records["segment_sum"]["max_abs_err"]]
         + [r["max_abs_err"] for r in gp_shapes])
 
+    # ---------------------------------------------------------- phase 21
+    stamp(21)
+    gfm_rec, gfm_launches, gfm_shapes = gfm_phase(torch, device, card,
+                                                  counted)
+    records["segment_sum"]["shapes"] += gfm_shapes
+    records["segment_sum"]["max_abs_err"] = max(
+        [records["segment_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in gfm_shapes])
+
     stamp("cpu")
     cpu_settle()
     print("training: " + json.dumps({"card": card, "paths": train_paths,
@@ -8628,6 +9358,7 @@ def main() -> int:
     print("pipeline: " + json.dumps(dict(pipeline, card=card)), flush=True)
     print("graph_parallel: " + json.dumps(dict(graphs, card=card)),
           flush=True)
+    print("gfm: " + json.dumps(dict(gfm_rec, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -8688,6 +9419,8 @@ def main() -> int:
             if name == "filter_scatter":
                 extra["backward_launches_graph_parallel_path"] = \
                     gp_launches["filter_scatter_backward"]
+        if gfm_launches.get(name):
+            extra["launches_gfm_path"] = gfm_launches[name]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")
@@ -8731,4 +9464,6 @@ if __name__ == "__main__":
         sys.exit(fleet_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--spmd-rank"]:
         sys.exit(spmd_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--gfm-rank"]:
+        sys.exit(md_child(*sys.argv[2:7]))
     sys.exit(main())

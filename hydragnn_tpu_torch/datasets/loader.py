@@ -39,6 +39,10 @@ graphs, `batch_size / M + 1` graph slots), an empty shard of the tail an
 all-padding batch, and stacked into a GraphBatch of [M, ...] tensors
 (`stack_batches`; `unstack_batch` is its inverse). Background collation
 and the batch cache (A10) are not ported.
+
+`_postprocess_shard(batch, shard_sel)` is a subclass's hook on each
+shard's batch after its collate and before stacking, on the packed and
+the fixed routes, where the JAX loader calls it.
 """
 from __future__ import annotations
 
@@ -261,10 +265,22 @@ class GraphDataLoader:
             (sel,) = sel
         samples = fetch_samples(self.dataset, sel)
         if self.num_shards == 1:
-            return self._collate_shard(samples)
+            return self._postprocess_shard(self._collate_shard(samples),
+                                           tuple(sel))
         g = self.graphs_per_shard
-        return stack_batches([self._collate_shard(samples[sh * g:(sh + 1) * g])
-                              for sh in range(self.num_shards)])
+        return stack_batches([
+            self._postprocess_shard(
+                self._collate_shard(samples[sh * g:(sh + 1) * g]),
+                tuple(sel[sh * g:(sh + 1) * g]))
+            for sh in range(self.num_shards)])
+
+    def _postprocess_shard(self, batch: GraphBatch,
+                           shard_sel: Tuple[int, ...]) -> GraphBatch:
+        """Subclass hook (JAX loader.py:307-333): a shard's batch after its
+        collate, before any stacking, with the dataset indices it holds.
+        The mixture loader (parallel/multidataset.GfmMixtureLoader) sets
+        `dataset_id` here."""
+        return batch
 
     def _collate_shard(self, samples) -> GraphBatch:
         b = (collate(samples, n_node=self.n_node, n_edge=self.n_edge,

@@ -50,6 +50,10 @@ class GraphBatch:
     nbr: Optional[torch.Tensor] = None         # [N, K] int32 sender of slot k
     nbr_edge: Optional[torch.Tensor] = None    # [N, K] int32 edge id of slot k
     nbr_mask: Optional[torch.Tensor] = None    # [N, K] bool
+    # multi-dataset (GFM) mixtures (parallel/multidataset.py): the member
+    # dataset of each graph slot, -1 on padding; train/loss.head_loss_mask
+    # narrows head i's loss to member i's graphs. `collate` leaves it None.
+    dataset_id: Optional[torch.Tensor] = None  # [G] int32
 
     @property
     def num_nodes(self) -> int:

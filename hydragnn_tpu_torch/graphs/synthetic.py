@@ -38,12 +38,17 @@ port reads the examples' configs from its own files on a machine without
 the JAX package: FCC NiNb cells with per-atom EAM energies (and forces,
 and `.bulk` bulk moduli) as AtomEye CFG files, and BCC FePt cells as LSMS
 text files.
+
+`build_members` and `split_members` are the GFM mixture example's member
+datasets (examples/gfm/gfm_data.py), bitwise: three BCC-lattice members,
+"alpha", "beta" and "gamma" (`MEMBER_SPECS`), each with its own
+polynomial graph target in its own column of the union label layout.
 """
 from __future__ import annotations
 
 import csv
 import os
-from typing import List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -608,3 +613,87 @@ def generate_ogb_csv(dirpath: str, num_mols: int = 300, seed: int = 0
             smi, gap = random_smiles(rng)
             w.writerow([smi, f"{gap:.6f}"])
     return dirpath
+
+
+# member name -> coefficients (a, b, c) of its graph target
+# sum_n(a x + b x^2 + c x^3); alphabetical, as the mixture loader sorts
+# its members: column i, head i and dataset_id i are one member
+MEMBER_SPECS: Tuple[Tuple[str, Tuple[float, float, float]], ...] = (
+    ("alpha", (1.0, 1.0, 1.0)),
+    ("beta", (2.0, -1.0, 0.0)),
+    ("gamma", (0.0, 1.0, -2.0)),
+)
+
+
+def _gfm_member(num_configs: int, coeffs: Tuple[float, float, float],
+                column: int, num_columns: int, seed: int,
+                dyadic: bool = False) -> List[GraphSample]:
+    """One member: random BCC supercells, x = (type + 1) / 3, the graph
+    target min-max normalized over the member, in union column `column`
+    (the others 0). `dyadic` rounds x and the targets to multiples of
+    2^-6, exact in float32."""
+    rng = np.random.RandomState(int(seed))
+    a, b, c = coeffs
+    graphs, targets = [], []
+    for _ in range(int(num_configs)):
+        ucx, ucy = rng.randint(1, 4), rng.randint(1, 4)
+        ucz = rng.randint(1, 3)
+        pos = []
+        for ix in range(ucx):
+            for iy in range(ucy):
+                for iz in range(ucz):
+                    pos.append([ix, iy, iz])
+                    pos.append([ix + 0.5, iy + 0.5, iz + 0.5])
+        pos = np.asarray(pos, dtype=np.float32)
+        types = np.arange(pos.shape[0]) % 3
+        x = (types.astype(np.float32) + 1.0) / 3.0
+        if dyadic:
+            x = np.round(x * 64.0) / 64.0
+        send, recv = radius_graph(pos, 1.0, 100)
+        graphs.append((x, pos, send, recv))
+        targets.append(float((a * x + b * x ** 2 + c * x ** 3).sum()))
+    t = np.asarray(targets, np.float64)
+    lo, hi = float(t.min()), float(t.max())
+    t = (t - lo) / max(hi - lo, 1e-12)
+    if dyadic:
+        t = np.round(t * 64.0) / 64.0
+    samples = []
+    for (x, pos, send, recv), target in zip(graphs, t):
+        y = np.zeros(num_columns, np.float32)
+        y[column] = target
+        samples.append(GraphSample(
+            x=x[:, None], pos=pos, senders=send, receivers=recv,
+            y_graph=y))
+    return samples
+
+
+def build_members(sizes: Optional[Sequence[int]] = None, seed: int = 0,
+                  dyadic: bool = False) -> Dict[str, List[GraphSample]]:
+    """The GFM example's members, name -> samples: `sizes` in
+    MEMBER_SPECS order (default 48/32/40), member i seeded seed + 100 (i
+    + 1)."""
+    if sizes is None:
+        sizes = (48, 32, 40)
+    if len(sizes) != len(MEMBER_SPECS):
+        raise ValueError(
+            f"got {len(sizes)} sizes for {len(MEMBER_SPECS)} members")
+    members = {}
+    for i, (name, coeffs) in enumerate(MEMBER_SPECS):
+        members[name] = _gfm_member(
+            int(sizes[i]), coeffs, i, len(MEMBER_SPECS),
+            seed=int(seed) + 100 * (i + 1), dyadic=dyadic)
+    return members
+
+
+def split_members(members: Dict[str, List[GraphSample]],
+                  val_frac: float = 0.2
+                  ) -> Tuple[Dict[str, List[GraphSample]],
+                             Dict[str, List[GraphSample]]]:
+    """(train, val): each member's last ceil(val_frac n) samples (at
+    least one) are its validation samples."""
+    train, val = {}, {}
+    for name, samples in members.items():
+        k = max(int(np.ceil(len(samples) * float(val_frac))), 1)
+        train[name] = samples[:-k]
+        val[name] = samples[-k:]
+    return train, val

@@ -35,8 +35,9 @@ init_distributed`): each global batch of `batch_size` test samples splits
 into `num_shards` contiguous shards, rank r forwards shard r, and the
 padded outputs are gathered in the JAX package's device-major order, so
 every rank returns the whole lists. `num_shards` resolves over the world
-as in run_training (one process: back to 1 with JAX's warning). The
-engine route's sharding over devices is not ported (A8) and raises.
+as in run_training (one process: back to 1 with JAX's warning), before
+any work and before DimeNet leaves the engine route; a resolved count
+above 1 on the engine route is not ported (A8) and raises there.
 """
 from __future__ import annotations
 
@@ -85,7 +86,21 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     config = load_config(config_or_path)
     serving = resolve_serving(config)
     use_engine = serving.enabled if serve is None else bool(serve)
+    batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
+    # the shard count as JAX resolves it (run_prediction.py:55-56): over
+    # the world, back to 1 with its warning where it does not fit
+    num_shards = resolve_num_shards(num_shards or 1, batch_size)
+    triplets = (config["NeuralNetwork"]["Architecture"].get("model_type")
+                == "DimeNet")
+    if use_engine and triplets:
+        # the engine builds no triplet tables for its buckets: the same
+        # fallback as the JAX package's
+        logging.getLogger("hydragnn_tpu_torch").warning(
+            "serving engine does not support triplet batch transforms "
+            "(DimeNet); falling back to the legacy prediction loop")
+        use_engine = False
     if use_engine:
+        # refused on the resolved count, where the engine would use it
         check_unported_serving_knobs(num_shards)
     dev = resolve_device(device)
     if datasets is None:
@@ -111,7 +126,6 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
         version = f"step_{int(restored.step)}"
     model.load_state_dict(weights)
 
-    batch_size = int(config["NeuralNetwork"]["Training"]["batch_size"])
     arch = config["NeuralNetwork"]["Architecture"]
     nbr_fmt = env_flag("HYDRAGNN_NEIGHBOR_FORMAT",
                        bool(arch.get("neighbor_format", True)))
@@ -120,16 +134,8 @@ def run_prediction(config_or_path, datasets: Optional[Sequence] = None,
     neighbor_k = neighbor_budget_for_dataset(all_samples) if nbr_fmt else None
 
     # DimeNet's triplets, with run_training's budget
-    num_shards = resolve_num_shards(num_shards or 1, batch_size)
     batch_transform = maybe_triplet_transform(
         mcfg.model_type, all_samples, max(batch_size // num_shards, 1))
-    if use_engine and batch_transform is not None:
-        # the engine builds no triplet tables for its buckets: the same
-        # fallback as the JAX package's
-        logging.getLogger("hydragnn_tpu_torch").warning(
-            "serving engine does not support triplet batch transforms "
-            "(DimeNet); falling back to the legacy prediction loop")
-        use_engine = False
     if use_engine:
         trues, preds = _predict_with_engine(model, mcfg, testset, serving,
                                             neighbor_k, dev, config,

@@ -118,7 +118,9 @@ naming A9 before any work; pipeline_stages with graph_shards raises JAX's
 ValueError; so does a multi-process run with either.
 
 Knobs off this path raise NotImplementedError naming the ROADMAP item
-that brings them; none is ignored.
+that brings them; none is ignored. `Visualization.create_plots` raises
+(A10) where JAX builds its Visualizer; a pipelined run skips the plots
+with JAX's log line, as JAX does.
 """
 from __future__ import annotations
 
@@ -159,7 +161,7 @@ from .preprocess.load_data import (create_dataloaders, loader_budgets,
                                    load_datasets_from_config)
 from .train import trainer
 from .train.optimizer import select_optimizer
-from .train.precision import resolve_precision
+from .train.precision import check_ported_precision, resolve_precision
 from .train.train_step import (TrainState, make_eval_step,
                                make_multi_eval_step, make_multi_train_step,
                                make_train_step)
@@ -193,9 +195,16 @@ def check_training_knobs(config) -> None:
     if int(arch.get("graph_shards", 1) or 1) > 1:
         # the stacks whose convs split their edge stage over graph slots
         check_graph_shard_model(arch.get("model_type"))
+    create_plots = bool((config.get("Visualization") or {}).get(
+        "create_plots", False))
+    if create_plots and int(tr.get("pipeline_stages", 1) or 1) > 1:
+        # JAX builds no Visualizer on the pipelined path (its model is
+        # None there) and trains (run_training.py:617-622)
+        print("pipeline_stages > 1: prediction-based plots are not wired "
+              "for the pipelined parameter layout; skipping", flush=True)
+        create_plots = False
     checks = [
-        ((config.get("Visualization") or {}).get("create_plots"),
-         "Visualization.create_plots", "A10: postprocess"),
+        (create_plots, "Visualization.create_plots", "A10: postprocess"),
         (tr.get("async_loader_workers") or tr.get("batch_cache_mb"),
          "async_loader_workers / batch_cache_mb",
          "A10: datasets/async_loader.py"),
@@ -359,7 +368,7 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
     e_w = float(train_cfg.get("energy_loss_weight", 1.0))
     f_w = train_cfg.get("force_loss_weight", 1.0)
     f_w = f_w if f_w == "auto" else float(f_w)
-    compute_dtype = resolve_precision(mcfg.dtype)
+    compute_dtype = check_ported_precision(resolve_precision(mcfg.dtype))
     grid = None
     if pipe is not None:
         model = create_pipeline_model(mcfg, pipe["devices"])

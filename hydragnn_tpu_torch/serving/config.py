@@ -68,7 +68,8 @@ train-side policy (HYDRAGNN_PRECISION, then Architecture.dtype). "int8"
 makes every engine the int8 tier (quant/, serving/engine.py), calibrated
 on `quant_calib_samples` samples (HYDRAGNN_QUANT_CALIB_SAMPLES, strict);
 run_prediction's own loop computes at the train-side precision, as the
-JAX package's does.
+JAX package's does. The block also keeps any other numpy dtype name
+(float16, ...) as JAX does; an engine built at one raises naming A5.
 
 `fleet` (`resolve_fleet`; HYDRAGNN_FLEET_REPLICAS, _COMPILE_STORE,
 _REDISPATCH_MAX, _DRAIN_TIMEOUT_S, _TIER_PRIORITY_MIN, _TIER_QUOTA,

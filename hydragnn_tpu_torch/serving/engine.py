@@ -158,7 +158,7 @@ from ..preprocess.transforms import build_graph_sample
 from ..telemetry import spans as _spans
 from ..telemetry.registry import get_registry
 from ..train.loss import energy_forces_from_node_head
-from ..train.precision import resolve_precision
+from ..train.precision import check_ported_precision, resolve_precision
 from ..kernels import _build
 from ..train.step_graphs import GraphContext, capture, capture_lock, fill
 from ..train.train_step import make_forward_fn
@@ -317,8 +317,8 @@ class InferenceEngine:
                  num_shards: int = 1,
                  device="cuda"):
         self.device = resolve_device(device)
-        self.compute_dtype = resolve_precision(getattr(mcfg, "dtype", None),
-                                               compute_dtype)
+        self.compute_dtype = check_ported_precision(resolve_precision(
+            getattr(mcfg, "dtype", None), compute_dtype))
         quantized = self.compute_dtype == "int8"
         if quantized and int(num_shards) > 1:
             raise ValueError(

@@ -7,13 +7,16 @@
 * ``http`` — the /healthz and /metrics endpoint of the serving engine;
 * ``session`` — a training run's telemetry (its registry, recorder and
   artifacts);
-* ``mfu`` — the card's peak FLOP/s and the achieved / peak gauge.
+* ``mfu`` — the card's peak FLOP/s and the achieved / peak gauge;
+* ``gfm`` — a GFM mixture epoch's per-head losses and member fractions
+  (`record_gfm_epoch`).
 
 Off by default at near-zero cost: producers call ``spans.record`` /
 ``spans.span`` (a None check with no recorder) and report registry
-metrics from cold paths only. The JAX package's ``gfm`` and ``sampling``
-come with multi-GPU training (ROADMAP A9).
+metrics from cold paths only. The JAX package's ``sampling`` comes with
+the sampled-training slice (ROADMAP A9).
 """
+from .gfm import record_gfm_epoch
 from .mfu import PEAK_FLOPS, achieved_and_mfu, peak_flops
 from .registry import (COUNTER, GAUGE, HISTOGRAM, MetricsRegistry,
                        MetricTypeError, get_registry, set_registry)
@@ -22,7 +25,7 @@ from .spans import (EpochDeviceTrace, SpanRecorder, current_recorder,
                     device_trace, install_recorder, record, span)
 
 __all__ = [
-    "PEAK_FLOPS", "achieved_and_mfu", "peak_flops",
+    "PEAK_FLOPS", "achieved_and_mfu", "peak_flops", "record_gfm_epoch",
     "TelemetryConfig", "TelemetrySession", "start_session",
     "COUNTER", "GAUGE", "HISTOGRAM",
     "MetricsRegistry", "MetricTypeError", "get_registry", "set_registry",

@@ -39,15 +39,27 @@ def head_targets(cfg: ModelConfig, batch: GraphBatch) -> List[torch.Tensor]:
 
 def head_loss_mask(batch: GraphBatch, ih: int, head) -> torch.Tensor:
     """The loss mask of head `ih`: the real graphs for a graph head, the
-    real nodes for a node head. (Mixture batches, whose `dataset_id`
-    narrows the mask per head, come with the GFM slice, ROADMAP A9.)"""
-    return batch.graph_mask if head.head_type == "graph" else batch.node_mask
+    real nodes for a node head, and on a mixture batch (`dataset_id` set,
+    parallel/multidataset.py) only those of head ih's member dataset:
+    head ih supervises the graphs whose `dataset_id` is ih, a node head
+    reads its graph's id through `node_graph`, and padding's -1 matches
+    no head."""
+    if head.head_type == "graph":
+        mask = batch.graph_mask
+        if batch.dataset_id is not None:
+            mask = mask & (batch.dataset_id == ih)
+    else:
+        mask = batch.node_mask
+        if batch.dataset_id is not None:
+            mask = mask & (batch.dataset_id[batch.node_graph] == ih)
+    return mask
 
 
 def multihead_loss(cfg: ModelConfig, loss_name: str, outputs, outputs_var,
                    batch: GraphBatch):
     """(total, per-task losses): the task-weighted sum of each head's
-    masked loss."""
+    masked loss. On a mixture batch each head's mask is its member's
+    (`head_loss_mask`): the head-masked multi-task step of train/gfm.py."""
     targets = head_targets(cfg, batch)
     tot = 0.0
     tasks = []

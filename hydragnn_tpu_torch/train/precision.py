@@ -15,10 +15,13 @@ parameters, float32 sums and losses — is train/train_step.py's casting
 and ops/segment.py's `_accum_f32`.
 
 The port runs float32 and bfloat16. int8 is a serving-only mode: the
-train side warns and uses float32 (`canonical_or_f32`), the step
-factories raise on it, and the serving side raises naming ROADMAP A8,
-where it is ported. The other dtype names the JAX package passes through
-(float16, float64, ...) raise NotImplementedError naming ROADMAP A5.
+train side warns and uses float32 (`canonical_or_f32`) and the step
+factories raise on it. The other numpy dtype names (float16, float64,
+...) pass through canonicalization and resolution as the JAX package
+passes them; `check_ported_precision` refuses one, naming ROADMAP A5,
+only where a resolved compute dtype is used: a train or eval step's
+(`train_step._resolve_compute_dtype`, run_training) and the engine's
+when an engine is built (`serving/engine.py`).
 """
 from __future__ import annotations
 
@@ -48,13 +51,24 @@ def canonical_precision(name) -> Optional[str]:
     if key in PRECISION_CHOICES:
         return PRECISION_CHOICES[key]
     try:
-        np.dtype(key)
+        # a dtype name the JAX package passes through (float16, ...)
+        return str(np.dtype(key).name)
     except TypeError:
         return None
-    # a dtype name the JAX package passes through (float16, float64, ...)
-    raise NotImplementedError(
-        f"precision {name!r} is not ported to hydragnn_tpu_torch (ROADMAP "
-        "A5: the port computes in float32 and bfloat16)")
+
+
+PORTED_PRECISIONS = ("float32", "bfloat16", "int8")
+
+
+def check_ported_precision(name: str) -> str:
+    """`name` (a resolved compute dtype) where the port computes in it;
+    NotImplementedError naming ROADMAP A5 for the other dtype names the
+    JAX package passes through (float16, float64, ...)."""
+    if name not in PORTED_PRECISIONS:
+        raise NotImplementedError(
+            f"precision {name!r} is not ported to hydragnn_tpu_torch "
+            "(ROADMAP A5: the port computes in float32 and bfloat16)")
+    return name
 
 
 def canonical_or_f32(name) -> str:

@@ -43,7 +43,7 @@ from ..graphs.batch import GraphBatch
 from .step_graphs import GraphedSteps
 from .loss import energy_force_loss, multihead_loss
 from .optimizer import Optimizer, OptState
-from .precision import resolve_precision
+from .precision import check_ported_precision, resolve_precision
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -168,7 +168,7 @@ def _resolve_compute_dtype(cfg: ModelConfig, compute_dtype=None
             "quantization): casting float parameters and activations to "
             "int8 in a train or eval step would destroy them; train in "
             "float32 or bfloat16")
-    return _DTYPES[name]
+    return _DTYPES[check_ported_precision(name)]
 
 
 def cast_floats(batch: GraphBatch, dtype: torch.dtype) -> GraphBatch:

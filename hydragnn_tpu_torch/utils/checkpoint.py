@@ -37,6 +37,7 @@ resume skips it.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import hashlib
 import json
 import logging
@@ -378,6 +379,25 @@ def make_async_best_checkpoint_fn(log_name: str, path: str = "./logs",
 
 
 # ------------------------------------------------------------ retention --
+
+def committed_steps(job_dir: str) -> List[int]:
+    """The sorted committed steps over every run under `<job_dir>/logs`
+    but those whose name starts with "_" (the port's copy of
+    hydragnn_tpu/hpo/process.py `committed_steps`, which a driver's
+    `--resume` reads)."""
+    steps: List[int] = []
+    for ckpt_dir in sorted(glob.glob(
+            os.path.join(job_dir, "logs", "*", "checkpoint"))):
+        run_name = os.path.basename(os.path.dirname(ckpt_dir))
+        if run_name.startswith("_"):
+            continue
+        for p in sorted(os.listdir(ckpt_dir)):
+            if (p.startswith("step_") and p.split("_")[-1].isdigit()
+                    and os.path.exists(os.path.join(ckpt_dir, p,
+                                                    COMMIT_MARKER))):
+                steps.append(int(p.split("_")[-1]))
+    return sorted(steps)
+
 
 def _step_dirs(d: str) -> List[Tuple[int, str]]:
     """(step, path) of every step_<N> dir, newest first."""

@@ -277,3 +277,71 @@ def resolve_pipeline(train_cfg, num_stages: int):
                                default_policy)
     data_shards = int(train_cfg.get("pipeline_data_shards", 1) or 1)
     return int(microbatches), schedule, policy, data_shards
+
+
+def resolve_gfm(train_cfg=None) -> "tuple":
+    """The GFM mixture knobs (counterpart: hydragnn_tpu/utils/envflags.py
+    `resolve_gfm`) -> (mixture weights {name: weight} or None, per-head
+    loss weights tuple or None); None leaves the loader's and the step's
+    defaults (size-proportional sampling, the config's task_weights).
+
+    Each knob: HYDRAGNN_GFM_MIXTURE / HYDRAGNN_GFM_HEAD_WEIGHTS over the
+    Training.Gfm block's `mixture` / `head_weights` over None. The env is
+    parsed strictly: a malformed value warns, naming the variable, and
+    keeps the block's value.
+
+      HYDRAGNN_GFM_MIXTURE       comma-separated `name:weight` pairs
+                                 ("alpha:2,beta", a missing weight 1.0),
+                                 each weight positive and finite;
+      HYDRAGNN_GFM_HEAD_WEIGHTS  comma-separated weights, one a head,
+                                 each non-negative and finite.
+
+    Resolved once, where a driver builds its loader and step:
+    parallel/multidataset.py and train/gfm.py read no environment."""
+    import math
+    block = (train_cfg or {}).get("Gfm", {}) or {}
+
+    mixture = None
+    if block.get("mixture"):
+        mixture = {str(k): float(v) for k, v in block["mixture"].items()}
+    raw = os.getenv("HYDRAGNN_GFM_MIXTURE")
+    if raw is not None and raw.strip():
+        try:
+            parsed = {}
+            for part in raw.split(","):
+                part = part.strip()
+                if not part:
+                    continue
+                name, _, w = part.partition(":")
+                if not name.strip():
+                    raise ValueError
+                weight = float(w) if w.strip() else 1.0
+                if not (weight > 0) or not math.isfinite(weight):
+                    raise ValueError
+                parsed[name.strip()] = weight
+            if not parsed:
+                raise ValueError
+            mixture = parsed
+        except ValueError:
+            _log.warning(
+                "HYDRAGNN_GFM_MIXTURE=%r is not a comma-separated list "
+                "of name:positive-weight pairs; treating as %r", raw,
+                mixture)
+
+    head_weights = None
+    if block.get("head_weights"):
+        head_weights = tuple(float(v) for v in block["head_weights"])
+    raw = os.getenv("HYDRAGNN_GFM_HEAD_WEIGHTS")
+    if raw is not None and raw.strip():
+        try:
+            parsed = tuple(float(p.strip()) for p in raw.split(","))
+            if not parsed or any(not math.isfinite(w) or w < 0
+                                 for w in parsed):
+                raise ValueError
+            head_weights = parsed
+        except ValueError:
+            _log.warning(
+                "HYDRAGNN_GFM_HEAD_WEIGHTS=%r is not a comma-separated "
+                "list of non-negative weights; treating as %r", raw,
+                head_weights)
+    return mixture, head_weights

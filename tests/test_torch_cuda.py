@@ -2889,3 +2889,101 @@ def test_graph_parallel_layers_on_streams_equal_single_device(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(out.reshape(-1, f)[:n], want)
     assert torch.equal(gr.reshape(-1, f)[:n], want_g)
+
+
+# -------------------------------------------------- GFM mixture (A9) --
+def _gfm_setup(sizes, dyadic=False, seed=0):
+    """The GFM example's members and config at a small width (hidden 8,
+    2 layers)."""
+    import json
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.graphs.synthetic import build_members
+    members = build_members(sizes=sizes, seed=seed, dyadic=dyadic)
+    with open(Path(__file__).resolve().parents[1] / "examples" / "gfm" /
+              "gfm_mixture.json") as fh:
+        cfg = json.load(fh)
+    arch = cfg["NeuralNetwork"]["Architecture"]
+    arch.update(hidden_dim=8, num_conv_layers=2)
+    arch["output_heads"]["graph"].update(dim_sharedlayers=8,
+                                         dim_headlayers=[8, 8])
+    done = tcfg.update_config(cfg, [s for v in members.values() for s in v])
+    return members, tcfg.build_model_config(done)
+
+
+@pytest.mark.cuda
+def test_gfm_mixture_one_capture_zero_added_and_replays_bitwise(
+        cuda_device):
+    """A 2-member sub-mixture under the full mixture's pinned budget, then
+    two epochs of the 3-member mixture, through one head-masked train
+    step: one CUDA graph for the whole run (the third member adds none),
+    and every replay (its static slot refilled with each batch's
+    dataset_id) bitwise the eager step on a twin model."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.parallel.multidataset import GfmMixtureLoader
+    from hydragnn_tpu_torch.train.gfm import make_gfm_train_step
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import TrainState
+    dev = cuda_device
+    members, mcfg = _gfm_setup((12, 8, 10))
+    full = GfmMixtureLoader(members, 6, cfg=mcfg, seed=7)
+    sub = GfmMixtureLoader({n: members[n] for n in ("alpha", "beta")}, 6,
+                           seed=7, pack_budget=full.pack_budget)
+    runs = []
+    for _ in range(2):
+        model = create_model(mcfg, device=dev, seed=1)
+        tx = Optimizer("Adam", learning_rate=1e-3)
+        runs.append((TrainState.create(model, tx),
+                     make_gfm_train_step(model, mcfg, tx, num_datasets=3)))
+    (state, step), (twin, twin_step) = runs
+    sub.set_epoch(0)
+    batches = [b.to(dev) for b in sub]
+    for epoch in range(2):
+        full.set_epoch(epoch)
+        batches += [b.to(dev) for b in full]
+    seen_sub = len(list(sub))
+    for i, b in enumerate(batches):
+        state, m = step(state, b)
+        twin, tm = twin_step.eager(twin, b)
+        assert torch.equal(m["loss"], tm["loss"]), i
+        if i == seen_sub - 1:
+            assert len(step.steps.graphs) == 1
+    assert len(step.steps.graphs) == 1
+    for k, v in state.state_dict().items():
+        assert torch.equal(v, twin.state_dict()[k]), k
+
+
+@pytest.mark.cuda
+def test_gfm_head_masked_step_is_the_plain_step_on_the_card(cuda_device):
+    """The head-masked captured step on one dyadic member with one-hot
+    head weights equals the plain captured step bitwise in every
+    parameter and running statistic (JAX's
+    test_head_masked_step_bitwise_vs_plain contract, on the card)."""
+    from hydragnn_tpu_torch.graphs.batch import BucketSpec, collate
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.gfm import apply_head_weights
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_train_step)
+    dev = cuda_device
+    members, mcfg = _gfm_setup((6, 6, 6), dyadic=True, seed=1)
+    for d, name in enumerate(sorted(members)):
+        onehot = tuple(1.0 if i == d else 0.0 for i in range(3))
+        b = collate(members[name], bucket=BucketSpec(multiple=64))
+        ids = torch.where(b.graph_mask, torch.tensor(d, dtype=torch.int32),
+                          torch.tensor(-1, dtype=torch.int32))
+        out = []
+        for batch in (b.replace(dataset_id=ids), b):
+            model = create_model(mcfg, device=dev, seed=2)
+            tx = Optimizer("SGD", learning_rate=0.5, momentum=0.0)
+            state = TrainState.create(model, tx)
+            step = make_train_step(model, apply_head_weights(mcfg, onehot),
+                                   tx)
+            for _ in range(3):      # warm-up, capture, replay
+                state, m = step(state, batch.to(dev))
+            assert len(step.steps.graphs) == 1
+            out.append(({k: v.clone() for k, v in
+                         state.state_dict().items()}, m))
+        (s_gfm, m_gfm), (s_plain, m_plain) = out
+        for k in s_plain:
+            assert torch.equal(s_gfm[k], s_plain[k]), (name, k)
+        assert torch.equal(m_gfm[f"task_{d}"], m_plain[f"task_{d}"])

@@ -801,11 +801,15 @@ def test_run_prediction_fleet_matches_single_engine_and_jax(served,
         np.testing.assert_allclose(a, np.asarray(b), **RP_TOL)
 
 
-def test_run_prediction_refuses_shards_naming_a8(served):
+def test_run_prediction_refuses_shards_naming_a8(served, monkeypatch):
     """The engine route's sharding over devices is not ported and raises
-    naming A8 before any work; the loop shards over a process group's
+    naming A8 before any work, where the count resolves above 1 (over a
+    world of two here; C11: it is resolved first, as JAX resolves it,
+    tests/test_torch_knobs.py); the loop shards over a process group's
     ranks (tests/test_torch_parallel_run.py)."""
     from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh, "get_comm_size_and_rank", lambda: (2, 0))
     with pytest.raises(NotImplementedError, match="A8"):
         run_prediction(make_config("GIN"), datasets=([], [], []),
                        device="cpu", num_shards=2, serve=True)

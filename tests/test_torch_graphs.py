@@ -158,16 +158,19 @@ def test_update_config_node_head_and_dtype_spellings():
     assert tc == jc
     assert dataclasses.asdict(tcfg.build_model_config(tc)) == \
         dataclasses.asdict(jcfg.build_model_config(jc))
-    # the bf16 spellings resolve as in the JAX package; a dtype the port
-    # does not compute in (float16) raises naming its ROADMAP item
-    for dtype in ("bf16", "bfloat16", "BF16", "f32"):
+    # the bf16 spellings and a dtype the port does not compute in
+    # (float16) resolve as in the JAX package; float16 is refused, naming
+    # its ROADMAP item, where a step would compute in it (C12)
+    for dtype in ("bf16", "bfloat16", "BF16", "f32", "float16"):
         tc["NeuralNetwork"]["Architecture"]["dtype"] = dtype
         jc["NeuralNetwork"]["Architecture"]["dtype"] = dtype
         assert tcfg.build_model_config(tc).dtype == \
             jcfg.build_model_config(jc).dtype
-    tc["NeuralNetwork"]["Architecture"]["dtype"] = "float16"
+    from hydragnn_tpu_torch.train.precision import (check_ported_precision,
+                                                    resolve_precision)
     with pytest.raises(NotImplementedError, match="A5"):
-        tcfg.build_model_config(tc)
+        check_ported_precision(resolve_precision(
+            tcfg.build_model_config(tc).dtype))
 
 
 @pytest.mark.parametrize("max_neighbours", [None, 7, 40])

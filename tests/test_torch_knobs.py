@@ -14,7 +14,12 @@ HYDRAGNN_DUMP_TESTDATA dump; the training
 telemetry knobs (`utils/envflags.resolve_telemetry`: env over the
 Training.Telemetry block, strict) and what run_training does with them:
 `device_trace` alone traces its epoch, HYDRAGNN_TELEMETRY=0 turns a
-block's session off."""
+block's session off; and the repairs C10-C12, each held against the JAX
+package's live behaviour on the same config, splits and weights: a
+pipelined run with `create_plots` trains (JAX skips the plots there),
+run_prediction's engine route resolves `num_shards` before refusing it,
+and a numpy dtype name the port lacks (float16, ...) is refused only
+where the resolved compute dtype is used."""
 import copy
 import logging
 
@@ -299,8 +304,9 @@ def test_serving_structure_builds_a_structure_engine(clean_env,
 
 def test_run_prediction_refuses_the_metrics_server_before_any_work(
         clean_env):
-    """run_prediction resolves the serving knobs first: num_shards > 1 on
-    the engine route (`Serving.enabled`) raises before the model, the
+    """run_prediction resolves the serving knobs first: a num_shards that
+    resolves above 1 (over the world, as JAX resolves it: C11) on the
+    engine route (`Serving.enabled`) raises before the model, the
     weights or the data are touched (the loop shards over a process
     group's ranks, tests/test_torch_parallel_run.py); the
     int8 tier resolves (an engine serves it, the loop computes at the
@@ -310,7 +316,11 @@ def test_run_prediction_refuses_the_metrics_server_before_any_work(
     ported, so a metrics port and a replica count resolve (and serve,
     tests/test_torch_telemetry.py and tests/test_torch_fleet.py)."""
     from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.parallel import mesh
     from tests.utils import make_config
+    # a count that resolves above 1 (C11): a world of two, and the
+    # config's batch_size divides by 2
+    clean_env.setattr(mesh, "get_comm_size_and_rank", lambda: (2, 0))
     cfg = make_config("PNA")
     cfg["Serving"] = {"enabled": True, "metrics_port": 9100,
                       "fleet": {"replicas": 2}, "precision": "int8"}
@@ -658,3 +668,242 @@ def test_multiprocess_refusal_names_the_real_graph_shards(
         rt.multiprocess_path_check(2, stages, graph_shards, num_shards)
     assert str(got.value) == str(want.value)
     assert f"graph_shards={graph_shards}," in str(got.value)
+
+
+# ---------------------------------------------------- C10, C11, C12 --
+
+def test_pipelined_run_with_create_plots_trains_as_jax(tmp_path,
+                                                       monkeypatch, capsys):
+    """C10: GIN over 2 stages x 4 microbatches with
+    Visualization.create_plots trains one epoch in both packages (JAX
+    builds no Visualizer on the pipelined path), the port printing JAX's
+    line; the histories within the pipeline bound for GIN (rtol 1e-5 /
+    atol 1e-6)."""
+    from hydragnn_tpu.run_training import run_training as j_run_training
+    from hydragnn_tpu_torch import run_training
+    from tests.test_torch_pipeline_run import (CPU2, HISTORY_KEYS, _cfg,
+                                               _splits, _with_jax_init)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HYDRAGNN_DISABLE_TB", "1")
+    splits, jsplits = _splits()
+    _with_jax_init(monkeypatch)
+
+    def cfg():
+        c = _cfg("GIN", epochs=1)
+        c["Visualization"] = {"create_plots": True}
+        return c
+    _, want, _, _ = j_run_training(cfg(), datasets=jsplits)
+    capsys.readouterr()
+    _, got, _, _ = run_training(cfg(), datasets=splits, device="cpu",
+                                pipeline_devices=CPU2)
+    assert ("pipeline_stages > 1: prediction-based plots are not wired for "
+            "the pipelined parameter layout; skipping"
+            in capsys.readouterr().out)
+    for k in HISTORY_KEYS:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_create_plots_off_the_pipeline_still_raises_naming_a10():
+    """C10: where JAX builds the Visualizer (no pipeline), create_plots
+    is still refused, naming A10, before any work."""
+    from hydragnn_tpu_torch.run_training import check_training_knobs
+    from tests.utils import make_config
+    cfg = make_config("GIN")
+    cfg["Visualization"] = {"create_plots": True}
+    with pytest.raises(NotImplementedError, match="A10"):
+        check_training_knobs(cfg)
+    cfg["NeuralNetwork"]["Training"]["pipeline_stages"] = 1
+    with pytest.raises(NotImplementedError, match="A10"):
+        check_training_knobs(cfg)
+
+
+def _jax_state_and_variables(cfg, jsplits, seed=3):
+    import jax
+    import jax.numpy as jnp
+    from hydragnn_tpu.config import config as jcfg
+    from hydragnn_tpu.graphs.batch import collate as j_collate
+    from hydragnn_tpu.models.create import create_model as j_create_model
+    from hydragnn_tpu.models.create import init_params as j_init_params
+    from hydragnn_tpu.train.optimizer import select_optimizer as j_opt
+    from hydragnn_tpu.train.train_step import TrainState as JState
+    from tests.test_torch_train import numpy_tree
+    done = jcfg.update_config(copy.deepcopy(cfg), *jsplits)
+    jmodel = j_create_model(jcfg.build_model_config(done))
+    variables = numpy_tree(j_init_params(
+        jmodel, j_collate(jsplits[0][:4], np_out=True), seed=seed))
+    jstate = JState.create(jax.tree_util.tree_map(jnp.asarray, variables),
+                           j_opt(done["NeuralNetwork"]["Training"]))
+    return jmodel, jstate, variables
+
+
+def test_engine_route_resolves_num_shards_before_refusing(clean_env,
+                                                          monkeypatch):
+    """C11: GIN, batch_size 5, num_shards=2, serve=True. JAX resolves the
+    count over its devices (8 on this CPU) with the warning "requested
+    num_shards=2 does not divide batch_size 5; falling back to a
+    single-device run" and serves; the port, whose world is made the
+    same size, warns the same words and serves, its predictions within
+    1e-6 of JAX's."""
+    import warnings
+    import jax
+    from hydragnn_tpu import run_prediction as j_run_prediction
+    from hydragnn_tpu_torch import run_prediction
+    from hydragnn_tpu_torch.parallel import mesh
+    from tests.test_torch_train import to_jax_samples
+    from tests.utils import make_config
+    world = jax.device_count()
+    assert world >= 2
+    monkeypatch.setattr(mesh, "get_comm_size_and_rank",
+                        lambda: (world, 0))
+    splits = _lattice_splits(20)
+    jsplits = tuple(to_jax_samples(s) for s in splits)
+    cfg = make_config("GIN")
+    cfg["NeuralNetwork"]["Training"]["batch_size"] = 5
+    jmodel, jstate, variables = _jax_state_and_variables(cfg, jsplits)
+    words = ("requested num_shards=2 does not divide batch_size 5; "
+             "falling back to a single-device run")
+    out = []
+    for call in (lambda: j_run_prediction(
+                     copy.deepcopy(cfg), datasets=jsplits, state=jstate,
+                     model=jmodel, serve=True, num_shards=2),
+                 lambda: run_prediction(
+                     copy.deepcopy(cfg), datasets=splits,
+                     variables=variables, serve=True, device="cpu",
+                     num_shards=2)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out.append(call())
+        assert [str(w.message) for w in caught
+                if "num_shards" in str(w.message)] == [words]
+    (_, j_preds), (_, preds) = out
+    np.testing.assert_allclose(preds[0], j_preds[0], rtol=0, atol=1e-6)
+
+
+# (Serving block, Architecture.dtype, env, what runs)
+PRECISION_CASES = {
+    # (a) the engine off: the loop computes at the train-side policy
+    "a": ({"precision": "float16"}, None, {}, "predict_loop"),
+    # (b) the engine on, the env's bf16 over the block's float16
+    "b": ({"precision": "float16"}, None,
+          {"HYDRAGNN_SERVE_PRECISION": "bf16"}, "predict_engine"),
+    # (c) run_training, HYDRAGNN_PRECISION's bf16 over Architecture.dtype
+    "c": ({}, "float16", {"HYDRAGNN_PRECISION": "bf16"}, "train"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRECISION_CASES))
+def test_unported_dtype_name_runs_where_jax_does_not_act_on_it(
+        clean_env, tmp_path, case):
+    """C12: a numpy dtype name the port lacks (float16) passes through
+    canonicalization as in JAX; where JAX's resolution never computes in
+    it, both packages run: (a) Serving.precision float16 with the engine
+    off (the loop at float32: predictions within 1e-6 of JAX's); (b) the
+    same with the engine on under HYDRAGNN_SERVE_PRECISION=bf16 (both
+    engines at bf16: within 2^-5 of JAX's); (c) Architecture.dtype
+    float16 under HYDRAGNN_PRECISION=bf16 in run_training (both train at
+    bf16: the epoch's losses within 2^-5 relative)."""
+    from hydragnn_tpu import run_prediction as j_run_prediction
+    from hydragnn_tpu.config import config as jcfg
+    from hydragnn_tpu.run_training import run_training as j_run_training
+    from hydragnn_tpu.serving.config import resolve_serving as j_serving
+    from hydragnn_tpu_torch import run_prediction, run_training
+    from hydragnn_tpu_torch.config import config as tcfg
+    from tests.test_torch_train import to_jax_samples
+    from tests.utils import make_config
+    clean_env.chdir(tmp_path)
+    clean_env.setenv("HYDRAGNN_DISABLE_TB", "1")
+    for name in ("HYDRAGNN_PRECISION", "HYDRAGNN_SERVE_PRECISION"):
+        clean_env.delenv(name, raising=False)
+    serving, dtype, env, what = PRECISION_CASES[case]
+    for name, value in env.items():
+        clean_env.setenv(name, value)
+    splits = _lattice_splits(20)
+    jsplits = tuple(to_jax_samples(s) for s in splits)
+    cfg = make_config("GIN")
+    cfg["Serving"] = dict(serving)
+    if dtype is not None:
+        cfg["NeuralNetwork"]["Architecture"]["dtype"] = dtype
+    assert resolve_serving(cfg).precision == j_serving(cfg).precision
+    done_j = jcfg.update_config(copy.deepcopy(cfg), *jsplits)
+    done_t = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    assert tcfg.build_model_config(done_t).dtype == \
+        jcfg.build_model_config(done_j).dtype
+    if what == "train":
+        import importlib
+        import jax
+        from hydragnn_tpu_torch.models.create import create_model
+        from hydragnn_tpu_torch.utils.weights import load_jax_variables
+        from tests.test_torch_train import numpy_tree
+        jrun = importlib.import_module("hydragnn_tpu.run_training")
+        prun = importlib.import_module("hydragnn_tpu_torch.run_training")
+        cfg["NeuralNetwork"]["Training"].update(
+            num_epoch=1, EarlyStopping=False,
+            Optimizer={"type": "SGD", "learning_rate": 0.01})
+        inits, j_init = [], jrun.init_params
+
+        def spy(*a, **k):       # one initial weights for both packages
+            inits.append(numpy_tree(j_init(*a, **k)))
+            return jax.tree_util.tree_map(jax.numpy.asarray, inits[-1])
+
+        def port_model(mcfg, device="cuda", seed=0):
+            model = create_model(mcfg, device=device, seed=seed)
+            model.load_state_dict(load_jax_variables(inits[0]))
+            return model
+        clean_env.setattr(jrun, "init_params", spy)
+        clean_env.setattr(prun, "create_model", port_model)
+        _, want, _, _ = j_run_training(copy.deepcopy(cfg), datasets=jsplits,
+                                       num_shards=1)
+        _, got, _, _ = run_training(copy.deepcopy(cfg), datasets=splits,
+                                    device="cpu")
+        for k in ("train_loss", "val_loss", "test_loss"):
+            np.testing.assert_allclose(got[k], want[k], rtol=2 ** -5,
+                                       err_msg=k)
+        return
+    jmodel, jstate, variables = _jax_state_and_variables(cfg, jsplits)
+    serve = what == "predict_engine"
+    _, j_preds = j_run_prediction(copy.deepcopy(cfg), datasets=jsplits,
+                                  state=jstate, model=jmodel, serve=serve)
+    _, preds = run_prediction(copy.deepcopy(cfg), datasets=splits,
+                              variables=variables, serve=serve,
+                              device="cpu")
+    tol = (dict(rtol=2 ** -5, atol=2 ** -5) if serve
+           else dict(rtol=0, atol=1e-6))
+    np.testing.assert_allclose(preds[0], j_preds[0], **tol)
+
+
+def test_resolved_float16_is_refused_naming_a5(clean_env):
+    """C12: where the resolved compute dtype is float16 (Architecture.dtype
+    float16 and no env, or an engine asked for float16), JAX computes in
+    it and the port raises naming A5: the train and eval step factories,
+    run_training and the engine."""
+    from hydragnn_tpu.train import precision as jprec
+    from hydragnn_tpu_torch import run_training
+    from hydragnn_tpu_torch.config import config as tcfg
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.serving.engine import InferenceEngine
+    from hydragnn_tpu_torch.train import optimizer as topt
+    from hydragnn_tpu_torch.train import train_step as tstep
+    from tests.utils import make_config
+    for name in ("HYDRAGNN_PRECISION", "HYDRAGNN_SERVE_PRECISION"):
+        clean_env.delenv(name, raising=False)
+    splits = _lattice_splits(20)
+    cfg = make_config("GIN")
+    cfg["NeuralNetwork"]["Architecture"]["dtype"] = "float16"
+    done = tcfg.update_config(copy.deepcopy(cfg), *splits)
+    mcfg = tcfg.build_model_config(done)
+    assert mcfg.dtype == "float16" == jprec.resolve_precision(mcfg.dtype)
+    model = create_model(mcfg, device="cpu")
+    tx = topt.Optimizer("SGD", learning_rate=0.01)
+    f32 = tcfg.build_model_config(tcfg.update_config(make_config("GIN"),
+                                                     *splits))
+    for make in (lambda: tstep.make_train_step(model, mcfg, tx),
+                 lambda: tstep.make_eval_step(model, mcfg),
+                 lambda: run_training(copy.deepcopy(cfg), datasets=splits,
+                                      device="cpu"),
+                 lambda: InferenceEngine(model, f32,
+                                         reference_samples=splits[2],
+                                         compute_dtype="float16",
+                                         device="cpu")):
+        with pytest.raises(NotImplementedError, match="A5"):
+            make()

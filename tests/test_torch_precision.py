@@ -125,14 +125,20 @@ def test_resolve_precision_matches_jax(monkeypatch, env, cfg_dtype,
 
 def test_pass_through_dtype_names_raise():
     """The JAX package passes other dtype names through (float16,
-    float64); the port computes in float32 and bfloat16 only and raises
-    naming ROADMAP A5, through every entry of the policy."""
+    float64); so does the port's resolution (C12), and where a resolved
+    one is used the port, which computes in float32 and bfloat16 only,
+    raises naming ROADMAP A5: `check_ported_precision` and the step
+    factories' `_resolve_compute_dtype`, from the config's dtype and from
+    an override alike."""
+    from hydragnn_tpu_torch.train.precision import check_ported_precision
     assert j_resolve("float16") == "float16"
     for name in ("float16", "float64", "half"):
+        assert resolve_precision(name) == j_resolve(name)
+        assert resolve_precision(None, name) == j_resolve(None, name)
         with pytest.raises(NotImplementedError, match="A5"):
-            resolve_precision(name)
+            check_ported_precision(resolve_precision(name))
         with pytest.raises(NotImplementedError, match="A5"):
-            resolve_precision(None, name)
+            tstep._resolve_compute_dtype(None, name)
     with pytest.raises(ValueError, match="serving-only"):
         tstep._resolve_compute_dtype(None, "int8")
 

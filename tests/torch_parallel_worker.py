@@ -286,6 +286,35 @@ def collectives(rank, world, stats_configs, values):
     return out
 
 
+def multidataset_driver(rank, world, limit, job_dir, inputfile=None,
+                        variables=None):
+    """hydragnn_tpu_torch.examples.multidataset in this rank of the group
+    (the driver joins it as it is), its model loaded from `variables` (a
+    Flax tree) when given: the first step's metrics from a fresh setup,
+    then one epoch through the driver from another (the history), and the
+    member of this rank's shard."""
+    from hydragnn_tpu_torch.examples import multidataset as md
+    from hydragnn_tpu_torch.utils.weights import load_jax_variables
+    argv = ["--job-dir", job_dir, "--device", "cpu", "--limit", str(limit),
+            "--num_epoch", "1"]
+    if inputfile is not None:
+        argv += ["--inputfile", inputfile]
+    args = md.parse_args(argv)
+
+    def prepared():
+        r = md.setup(args)
+        if variables is not None:
+            r.model.load_state_dict(load_jax_variables(variables))
+        return r
+    r = prepared()
+    _, m = r.train_step(r.state, next(iter(r.loader)))
+    _, history, run = md.train(prepared())
+    keys = [k for k in history if not k.startswith("padding_frac")]
+    return {"history": {k: list(history[k]) for k in keys},
+            "first": _floats(m),
+            "member": run.loader.assignment[rank]}
+
+
 def main(argv):
     job, rank, world, rdzv, out = argv[1:6]
     rank, world = int(rank), int(world)
