@@ -474,6 +474,43 @@ Phases:
    epoch through the driver; the step's ms, its collectives' share and
    graphs/s. B3 launched on both paths (`launches_gfm_path`); the shapes
    of (a) and (b) join the segment_sum record's `shapes`.
+22. Sampled training on one giant graph (parallel/partition.py,
+   preprocess/sampling.py, telemetry/sampling.py, the historical cache in
+   models/base.py and train/train_step.py, examples/ogbn.py). (a)
+   examples/ogbn/ogbn_arxiv.json at its published width (SAGE, hidden 64,
+   2 layers, a 2-layer 64-wide node head, "ce", batch 512, fanouts
+   [10, 5], 4 range partitions, K 0) on synthetic_arxiv(OGBN_NODES) for
+   its 3 epochs through `hydragnn_tpu_torch.examples.ogbn.run` on the
+   card: one CUDA graph for the run's train step; the final val_acc at
+   least OGBN_MIN_VAL_ACC; a run stopped after epoch 1 and resumed with
+   --resume ends with the uninterrupted run's history and param_digest,
+   bit for bit; the first step (the driver's construction, the config's
+   rate under SGD) card vs the CPU (workers): the loss within 1e-4 of
+   float64 (and the driver's Adam run's first loss), the parameters after
+   it within 1e-4 relative L2 of float32 and the update within max(1e-2,
+   10 x the CPU float32 update's gap to float64) (`first_step_card_cpu`'s bounds); the
+   CPU's plan_fp the card host's; seeds/s, each epoch's wall s. (b) the
+   library path at ogbn-arxiv's scale and widths (synthetic_arxiv(169,343
+   nodes, 128 features, 40 classes), built in a spawned process while (a)
+   runs), the config's model, batch, fanouts and 4 range partitions as
+   rank 0 of a world of 1 (partitions 1-3 remote), under SGD at K 0 and
+   K 4: per mode one capture while the refresh flag follows K's cadence,
+   the first step captured = eager bitwise (metrics, parameters, the
+   tables' real rows), the first step card vs CPU (a worker, on the
+   tables' rows the batch reads: `compact_tables`): the loss within 1e-4,
+   the parameters within 1e-4 relative L2, at K 4 the refreshed rows
+   within SLICE_TOL, versions, hist_frac and staleness equal; then
+   SAMPLING_STEPS steps from the background loader, each loss read on
+   the host, and the window's wall ms a step; the captured step's ms
+   (its graph replayed alone, CUDA events, median), the idle share (1 -
+   the steps' replay ms / the window's wall), the host's ms a sampled
+   batch (synchronous), the loader's
+   sampler_overlap_frac, the remote and local bytes a batch, hist_frac
+   and staleness; B3 at the first batch's shapes (`sampling_shapes`:
+   SAGE's mean by receivers and the sender gather's gradient at F 128
+   and 64, over the layouts, the masked edges left out). B3's launches
+   on both paths (`launches_sampling_path`); the shapes join the
+   segment_sum record's `shapes`.
 
 Trimmed for time (the smoke took 680-1,080 s of its 1,200 and ran
 past it once): the SGD runs held card vs CPU in phases 5, 7 and 10 take
@@ -495,7 +532,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `gfm: {...}` (phase 21), a
+name and power limit, and before it a `sampling: {...}` (phase 22), a
+`gfm: {...}` (phase 21), a
 `graph_parallel: {...}` (phase 20), a `pipeline: {...}` (phase 19), a
 `spmd: {...}` (phase 18), a
 `quant: {...}` (phase 17), a
@@ -8858,6 +8896,521 @@ def gfm_phase(torch, device, card, counted):
     return rec, launches, shapes + md_shapes
 
 
+OGBN_NODES = 20000             # 22a: the driver's graph (JAX's reading run)
+OGBN_MIN_VAL_ACC = 0.9         # 22a: the final epoch's val_acc
+OGBN_FIRST_RTOL = 1e-4         # 22a: the first step's loss, card vs cpu
+ARXIV = dict(num_nodes=169343, feat_dim=128, num_classes=40, seed=0)
+SAMPLING_KS = (0, 4)           # 22b: exact, then the historical cache
+SAMPLING_STEPS = 20            # 22b: captured steps timed a mode
+SAMPLING_HOST_BATCHES = 5      # 22b: batches built synchronously, timed
+SAMPLING_KERNELS = ("segment_sum",)
+
+
+def ogbn_args(job_dir, device, epochs=None, *extra):
+    from hydragnn_tpu_torch.examples import ogbn
+    argv = ["--job-dir", job_dir, "--device", device, "--num-nodes",
+            str(OGBN_NODES), *extra]
+    if epochs is not None:
+        argv += ["--num-epochs", str(epochs)]
+    return ogbn.parse_args(argv)
+
+
+def ogbn_run(job_dir, device="cuda", epochs=None, *extra):
+    """The ogbn driver's run (its stdout in the smoke's) -> (result,
+    run)."""
+    from hydragnn_tpu_torch.examples import ogbn
+    return ogbn.run(ogbn_args(job_dir, device, epochs, *extra))
+
+
+def ogbn_parts(device, dtype=None):
+    """The driver's construction at OGBN_NODES on `device`: (plan_fp, the
+    first batch of epoch 0 on the device, the seeded model (at `dtype`
+    when given), its config, the config's learning rate)."""
+    from hydragnn_tpu_torch.examples import ogbn
+    from hydragnn_tpu_torch.graphs.synthetic import load_ogbn
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.sampling import NeighborSamplingLoader
+    from hydragnn_tpu_torch.utils.envflags import resolve_sampling
+    args = ogbn_args(".", "cpu")
+    config = ogbn.load_ogbn_config(args.inputfile)
+    tr = config["NeuralNetwork"]["Training"]
+    fanouts, _, parts, mode = resolve_sampling(tr)
+    data = load_ogbn(None, num_nodes=args.num_nodes, seed=args.data_seed)
+    loader = NeighborSamplingLoader(
+        x=data.x, y_node=data.y_onehot, senders=data.senders,
+        receivers=data.receivers, train_nodes=data.train_idx,
+        batch_size=int(tr["batch_size"]), fanouts=fanouts, seed=args.seed,
+        num_partitions=parts, partition_mode=mode, num_layers=2,
+        async_workers=0)
+    loader.set_epoch(0)
+    batch = next(iter(loader)).to(device)
+    mcfg = ogbn.complete_config(config, data)
+    model = create_model(mcfg, device=device, seed=args.seed)
+    if dtype is not None:
+        model = model.to(dtype)
+        batch = batch.replace(x=batch.x.to(dtype), y_node=batch.y_node.to(
+            dtype))
+    lr = float(tr["Optimizer"]["learning_rate"])
+    return loader.plan_fingerprint(), batch, model, mcfg, lr
+
+
+def flat_params(model):
+    import torch
+    return torch.cat([p.detach().reshape(-1).double().cpu()
+                      for p in model.parameters()])
+
+
+def ogbn_cpu_first_step(dtype_name):
+    """22a's CPU witness (a worker): the driver's construction on the
+    CPU at float32 or float64 -> {plan_fp, the first step's loss, the
+    parameters after one SGD step at the config's rate (momentum 0) and
+    the update it applied, as numpy}. At float64 the step is written
+    out (p - lr g), as the port's optimizer keeps float32 scalars."""
+    import torch
+    from hydragnn_tpu_torch.train.train_step import make_sampled_loss_fn
+    dtype = getattr(torch, dtype_name)
+    plan_fp, batch, model, mcfg, lr = ogbn_parts("cpu", dtype)
+    before = flat_params(model)
+    model.train()
+    params = list(model.parameters())
+    total = make_sampled_loss_fn(model, mcfg)(batch)[0]
+    grads = torch.autograd.grad(total, params)
+    with torch.no_grad():
+        for p, g in zip(params, grads):
+            p.sub_(lr * g)
+    after = flat_params(model)
+    return dict(plan_fp=plan_fp, loss=float(total.detach()),
+                params=after.numpy(), update=(before - after).numpy())
+
+
+def ogbn_card_first_step(torch, device):
+    """22a: the same first SGD step on the card through the captured
+    sampled step -> (loss, parameters after it, the update)."""
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_sampled_train_step)
+    _, batch, model, mcfg, lr = ogbn_parts(device)
+    before = flat_params(model)
+    tx = Optimizer("SGD", learning_rate=lr, momentum=0.0)
+    state = TrainState.create(model, tx)
+    step = make_sampled_train_step(model, mcfg, tx)
+    _, m = step(state, batch)
+    after = flat_params(model)
+    return float(m["loss"]), after, before - after
+
+
+def ogbn_driver(torch, device, card, add):
+    """22a (see the module docstring)."""
+    import tempfile
+    from hydragnn_tpu_torch import kernels as tk
+    cpu32 = cpu_submit(ogbn_cpu_first_step, "float32")
+    cpu64 = cpu_submit(ogbn_cpu_first_step, "float64")
+    with tempfile.TemporaryDirectory(prefix="hydragnn_ogbn_") as tmp:
+        full_dir = os.path.join(tmp, "full")
+        cut_dir = os.path.join(tmp, "cut")
+        os.makedirs(full_dir)
+        os.makedirs(cut_dir)
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        result, info = ogbn_run(full_dir)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        add(counts)
+        # the kill-and-resume leg: stop after epoch 1, then --resume
+        tk.reset_launch_counts()
+        ogbn_run(cut_dir, "cuda", 1)
+        resumed, _ = ogbn_run(cut_dir, "cuda", None, "--resume")
+        torch.cuda.synchronize()
+        add(tk.launch_counts())
+    tk.reset_launch_counts()
+    loss_card, params_card, update_card = ogbn_card_first_step(torch,
+                                                               device)
+    torch.cuda.synchronize()
+    add(tk.launch_counts())
+    hist = result["history"]
+    rec = dict(config="examples/ogbn/ogbn_arxiv.json", num_nodes=OGBN_NODES,
+               plan_fp=result["plan_fp"], history=hist,
+               seeds_per_s=info.seeds_per_s, epoch_s=info.epoch_s,
+               run_s=wall, train_captures=info.train_captures,
+               first=info.first_metrics, launches=counts,
+               resume_bitwise=(resumed["history"] == hist
+                               and resumed["param_digest"]
+                               == result["param_digest"]),
+               param_digest=result["param_digest"])
+    mcfg = info.mcfg
+    print(f"phase 22a: ogbn_arxiv.json ({mcfg.model_type} hidden "
+          f"{mcfg.hidden_dim}, {mcfg.num_conv_layers} layers, batch "
+          f"{info.loader.batch_size}, fanouts {list(info.loader.fanouts)}, "
+          f"{info.loader.num_partitions} partitions) on synthetic_arxiv("
+          f"{OGBN_NODES}) through hydragnn_tpu_torch.examples.ogbn: "
+          f"plan_fp={result['plan_fp']}; train loss {hist['train_loss']}, "
+          f"val loss {hist['val_loss']}, val_acc {hist['val_acc']}; "
+          f"{info.seeds_per_s:.1f} seeds/s over the epochs (eval and "
+          f"checkpoints in), epoch wall s "
+          f"{[round(t, 3) for t in info.epoch_s]}; train step captures "
+          f"{info.train_captures}; launches {counts}; stopped after epoch "
+          f"1 and resumed: history and param_digest bitwise "
+          f"{rec['resume_bitwise']} (card: {card})", flush=True)
+    if info.train_captures != 1:
+        fail(f"phase 22a: {info.train_captures} train step captures in the "
+             "run, not 1")
+    if not hist["val_acc"][-1] >= OGBN_MIN_VAL_ACC:
+        fail(f"phase 22a: final val_acc {hist['val_acc'][-1]} below "
+             f"{OGBN_MIN_VAL_ACC}")
+    if not rec["resume_bitwise"]:
+        fail(f"phase 22a: the resumed run differs from the uninterrupted "
+             f"one: {resumed['history']} vs {hist}, "
+             f"{resumed['param_digest']} vs {result['param_digest']}")
+    for name in SAMPLING_KERNELS:
+        if counts.get(name, 0) == 0:
+            fail(f"phase 22a: {name} never launched on the sampled path")
+
+    def check_first(c32):
+        """The first step: its loss card vs the CPU at float64 within
+        OGBN_FIRST_RTOL (the driver's Adam run's and the SGD step's, the
+        same forward); the SGD step's parameters after it card vs the
+        CPU at float32 within 1e-4 relative L2, and its update within
+        max(1e-2, 10 x the CPU float32 update's gap to float64)
+        (`first_step_card_cpu`'s bounds)."""
+        c64 = cpu64.get()
+
+        def rel(x, y):
+            x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+            return float(np.linalg.norm(x - y) / max(np.linalg.norm(y),
+                                                     1e-30))
+        r = dict(card=loss_card, driver=info.first_metrics["loss"],
+                 cpu=c32["loss"], cpu64=c64["loss"],
+                 gap=relative_gap(loss_card, c64["loss"]),
+                 driver_gap=relative_gap(info.first_metrics["loss"],
+                                         c64["loss"]),
+                 params_rel_l2=rel(params_card.numpy(), c32["params"]),
+                 update_rel_l2=rel(update_card.numpy(), c32["update"]),
+                 update_cpu_f64_rel_l2=rel(c32["update"], c64["update"]),
+                 plan_fp_cpu=c32["plan_fp"])
+        r["update_bound"] = max(1e-2, 10 * r["update_cpu_f64_rel_l2"])
+        rec["first_step"] = r
+        print(f"phase 22a first step: loss card {r['card']!r} (the driver's "
+              f"{r['driver']!r}), cpu float32 {r['cpu']!r}, cpu float64 "
+              f"{r['cpu64']!r}: card vs float64 {r['gap']:.2e}, the "
+              f"driver's {r['driver_gap']:.2e} (bound {OGBN_FIRST_RTOL}); "
+              f"SGD parameters after it card vs cpu {r['params_rel_l2']:.2e} "
+              f"(relative L2, bound 1e-4), the update "
+              f"{r['update_rel_l2']:.2e} (bound {r['update_bound']:.2e}; "
+              f"cpu float32 vs float64 {r['update_cpu_f64_rel_l2']:.2e}); "
+              f"plan_fp on the cpu {r['plan_fp_cpu']} (card: {card})",
+              flush=True)
+        for key, bound in (("gap", OGBN_FIRST_RTOL),
+                           ("driver_gap", OGBN_FIRST_RTOL),
+                           ("params_rel_l2", 1e-4),
+                           ("update_rel_l2", r["update_bound"])):
+            if not r[key] <= bound:
+                fail(f"phase 22a: first step {key} {r[key]} above {bound} "
+                     f"({r})")
+        if r["plan_fp_cpu"] != result["plan_fp"]:
+            fail(f"phase 22a: plan_fp {result['plan_fp']} on the card host, "
+                 f"{r['plan_fp_cpu']} on the cpu")
+    cpu_then(cpu32, check_first)
+    return rec
+
+
+def arxiv_graph():
+    """22b's graph (a worker): synthetic_arxiv at ogbn-arxiv's size and
+    widths."""
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_arxiv
+    t0 = time.perf_counter()
+    g = synthetic_arxiv(**ARXIV)
+    return g, time.perf_counter() - t0
+
+
+def compact_tables(batch, tables):
+    """The rows of `tables` one historical batch reads and writes, as a
+    small table whose dump row is last, and the batch's node_global
+    mapped onto it: (local batch, local tables, the global ids of the
+    local rows). A step on them computes what it computes on the whole
+    tables at those rows."""
+    import torch
+    from hydragnn_tpu_torch.preprocess.sampling import HistTables
+    ng = tables.feat.shape[0] - 1
+    ids = batch.node_global.long()
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    real = uniq < ng
+    uniq = uniq[real]
+    local = torch.where(ids < ng, inv, torch.full_like(inv, uniq.shape[0]))
+    rows = torch.cat([uniq, torch.tensor([ng], device=uniq.device)])
+    small = HistTables(tables.feat[rows].clone(),
+                       tables.layers[:, rows].clone(),
+                       tables.versions[rows].clone())
+    return batch.replace(node_global=local.to(torch.int32)), small, uniq
+
+
+def sampled_cpu_step(mcfg, weights, batch, tables, lr):
+    """22b's CPU witness (a worker): one eager SGD step (momentum 0) of
+    the sampled step from `weights` on `batch` (and, historical, the
+    compact `tables`, refresh on) -> (metrics, parameters after it, the
+    tables after it as numpy or None)."""
+    import torch
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_sampled_train_step)
+    model = create_model(mcfg, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           weights.items()})
+    tx = Optimizer("SGD", learning_rate=lr, momentum=0.0)
+    state = TrainState.create(model, tx)
+    hist = tables is not None
+    step = make_sampled_train_step(model, mcfg, tx,
+                                   staleness_k=SAMPLING_KS[-1] if hist else 0)
+    out = step(state, batch, tables, True) if hist else step(state, batch)
+    m = out[-1]
+    return ({k: float(v) for k, v in m.items()}, flat_params(model).numpy(),
+            None if not hist else (tables.layers.numpy(),
+                                   tables.versions.numpy()))
+
+
+def sampling_mode(torch, device, card, g, mcfg, lr, staleness_k):
+    """22b, one mode: the library path (loader, captured step, tables) at
+    ogbn-arxiv's scale -> (record, its B3 launches, the first batch)."""
+    from hydragnn_tpu_torch import kernels as tk
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.sampling import (HistTables,
+                                                        NeighborSamplingLoader,
+                                                        init_hist_tables)
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import (TrainState,
+                                                     make_sampled_train_step)
+    common = dict(x=g.x, y_node=g.y_onehot, senders=g.senders,
+                  receivers=g.receivers, train_nodes=g.train_idx,
+                  batch_size=512, fanouts=(10, 5), seed=SEED,
+                  num_partitions=4, staleness_k=staleness_k, num_layers=2)
+    t0 = time.perf_counter()
+    sync = NeighborSamplingLoader(async_workers=0, **common)
+    it = iter(sync)
+    host = [next(it) for _ in range(SAMPLING_HOST_BATCHES)]
+    host_ms = (time.perf_counter() - t0) * 1e3 / SAMPLING_HOST_BATCHES
+    loader = NeighborSamplingLoader(**common)
+    hist = staleness_k > 0
+    model = create_model(mcfg, device=device, seed=SEED)
+    tx = Optimizer("SGD", learning_rate=lr, momentum=0.0)
+    state = TrainState.create(model, tx)
+    step = make_sampled_train_step(model, mcfg, tx, staleness_k=staleness_k)
+    tables = (init_hist_tables(g.x, mcfg.hidden_dim, mcfg.num_conv_layers,
+                               device=device) if hist else None)
+    first = host[0].to(device)
+    # the CPU witness of the first step, from the same weights
+    weights = {k: v.detach().cpu().numpy() for k, v in
+               model.state_dict().items()}
+    if hist:
+        b_local, small, rows = compact_tables(first, tables)
+        cpu_ref = cpu_submit(sampled_cpu_step, mcfg, weights,
+                             b_local.to("cpu"), HistTables(
+                                 *(t.cpu() for t in small.tensors())), lr)
+    else:
+        cpu_ref = cpu_submit(sampled_cpu_step, mcfg, weights,
+                             first.to("cpu"), None, lr)
+    args = (tables, True) if hist else ()
+    snap = state.copy()
+    snap_tables = tables.copy() if hist else None
+    tk.reset_launch_counts()
+    m_e = step.eager(state, first, *args)[-1]
+    torch.cuda.synchronize()
+    eager = (flat_params(model), {k: v.clone() for k, v in m_e.items()},
+             None if not hist else (tables.layers.clone(),
+                                    tables.versions.clone()))
+    state.restore(snap)
+    if hist:
+        tables.restore(snap_tables)
+    m_c = step(state, first, *args)[-1]
+    torch.cuda.synchronize()
+    ng = g.x.shape[0]
+    same = (torch.equal(flat_params(model), eager[0])
+            and all(torch.equal(m_c[k], eager[1][k]) for k in m_c)
+            and (not hist or (
+                torch.equal(tables.layers[:, :ng], eager[2][0][:, :ng])
+                and torch.equal(tables.versions[:ng], eager[2][1][:ng]))))
+    card_first = ({k: float(v) for k, v in m_c.items()}, flat_params(model),
+                  None if not hist else (tables.layers[:, rows].cpu(),
+                                         tables.versions[rows].cpu()))
+    counts = tk.launch_counts()
+    # the timed window: batches from the background loader, each step's
+    # loss read on the host as the driver reads it
+    tk.reset_launch_counts()
+    loader.set_epoch(0)
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, b in zip(range(SAMPLING_STEPS), loader):
+        b = b.to(device)
+        out = (step(state, b, tables, (i + 1) % staleness_k == 0) if hist
+               else step(state, b))
+        metrics.append({k: float(v) for k, v in out[-1].items()})
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    for name, c in tk.launch_counts().items():
+        counts[name] = counts.get(name, 0) + c
+    # the captured step's device time: its graph replayed alone
+    graph = next(iter(step.steps.graphs.values())).graph
+    replay = step_events_ms(torch, graph.replay, reps=SAMPLING_STEPS)
+    replay_ms = float(np.median(replay))
+    stats = loader.fetch_stats()
+    rec = dict(staleness_k=staleness_k, N=first.num_nodes,
+               E=first.num_edges, real_edges=int(first.edge_mask.sum()),
+               host_ms_per_batch=host_ms,
+               step_ms=replay_ms, replay_ms_all=replay,
+               wall_ms_per_step=window_ms / SAMPLING_STEPS,
+               window_ms=window_ms,
+               idle_share=max(0.0, 1.0 - SAMPLING_STEPS * replay_ms
+                              / window_ms),
+               sampler_overlap_frac=stats["sampler_overlap_frac"],
+               consumer_wait_s=loader.overlap_stats.get("consumer_wait_s"),
+               remote_bytes_per_batch=stats["remote_bytes_per_batch"],
+               local_bytes_per_batch=stats["local_bytes_per_batch"],
+               captures=len(step.steps.graphs), captured_eq_eager=same,
+               launches=counts, losses=[m["loss"] for m in metrics])
+    if hist:
+        rec["hist_frac"] = [m["hist_frac"] for m in metrics]
+        rec["hist_staleness"] = [m["hist_staleness"] for m in metrics]
+    print(f"phase 22b K={staleness_k}: batch N={rec['N']} E={rec['E']} "
+          f"({rec['real_edges']} real edges); captured step "
+          f"{rec['step_ms']:.3f} ms (its graph replayed alone, CUDA events, "
+          f"median of {SAMPLING_STEPS}); {SAMPLING_STEPS} steps from the "
+          f"background loader {window_ms:.1f} ms "
+          f"({rec['wall_ms_per_step']:.1f} ms a step), idle share "
+          f"{rec['idle_share']:.3f}; host {host_ms:.1f} ms a sampled batch "
+          f"(synchronous), "
+          f"sampler_overlap_frac {rec['sampler_overlap_frac']:.3f}; "
+          f"remote bytes a batch {rec['remote_bytes_per_batch']:.0f}, local "
+          f"{rec['local_bytes_per_batch']:.0f}; captures {rec['captures']};"
+          f" captured = eager bitwise {same}"
+          + (f"; hist_frac {rec['hist_frac'][-1]:.4f}, staleness "
+             f"{[round(s, 3) for s in rec['hist_staleness']]}" if hist
+             else "") + f"; launches {counts} (card: {card})", flush=True)
+    if rec["captures"] != 1:
+        fail(f"phase 22b K={staleness_k}: {rec['captures']} captures, not 1")
+    if not same:
+        fail(f"phase 22b K={staleness_k}: the captured step differs from the "
+             "eager step")
+
+    def check_cpu(ref):
+        m_cpu, p_cpu, t_cpu = ref
+        m_card, p_card, t_card = card_first
+        gap = relative_gap(m_card["loss"], m_cpu["loss"])
+        p_rel = float(np.linalg.norm(p_card.numpy() - p_cpu)
+                      / np.linalg.norm(p_cpu))
+        r = dict(loss_gap=gap, params_rel_l2=p_rel)
+        if hist:
+            lay_cpu, ver_cpu = t_cpu
+            u = t_card[0].shape[1]
+            r["tables_max_abs"] = float(np.abs(
+                t_card[0].numpy() - lay_cpu[:, :u]).max())
+            r["versions_equal"] = bool(np.array_equal(t_card[1].numpy(),
+                                                      ver_cpu[:u]))
+            r["tables_close"] = bool(np.allclose(
+                t_card[0].numpy(), lay_cpu[:, :u], **SLICE_TOL))
+            for k in ("hist_frac", "hist_staleness"):
+                r[k] = (m_card[k], m_cpu[k])
+        rec["card_cpu"] = r
+        print(f"phase 22b K={staleness_k} first step card vs cpu: {r} "
+              f"(loss rtol 1e-4, parameters 1e-4 relative L2, tables "
+              f"{SLICE_TOL}; card: {card})", flush=True)
+        if not (gap <= 1e-4 and p_rel <= 1e-4):
+            fail(f"phase 22b K={staleness_k}: first step card vs cpu {r}")
+        if hist and not (r["versions_equal"] and r["tables_close"]
+                         and m_card["hist_frac"] == m_cpu["hist_frac"]
+                         and m_card["hist_staleness"]
+                         == m_cpu["hist_staleness"]):
+            fail(f"phase 22b K={staleness_k}: refreshed tables or hist "
+                 f"metrics card vs cpu {r}")
+    cpu_then(cpu_ref, check_cpu)
+    return rec, counts, first
+
+
+def sampling_shapes(torch, b, card):
+    """B3 at a sampled batch's shapes (`segment_shape`): SAGE's mean by
+    receivers and the sender gather's gradient at layer 0's width (the
+    features, 128) and layer 1's (hidden, 64), each over the layout the
+    stack builds (the masked edges, all on the padding node, left out);
+    compared on the real rows."""
+    from hydragnn_tpu_torch.kernels.segment import segment_layout
+    dev = b.x.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, keep = b.num_nodes, b.edge_mask
+    shapes = []
+    for tag, ids in (("recv_mean", b.receivers), ("send_gather_bwd",
+                                                  b.senders)):
+        layout = segment_layout(ids, n, keep)
+        for f in (b.x.shape[1], 64):
+            data = torch.randn(b.num_edges, f, device=dev,
+                               generator=gen) * keep[:, None]
+            shapes.append(segment_shape(
+                torch, f"ogbn_sage_{tag}_f{f}", data, ids, n, layout=layout,
+                real=b.node_mask, card=card))
+    return shapes
+
+
+def sampling_library(torch, device, card, add, graph_job):
+    """22b (see the module docstring)."""
+    from hydragnn_tpu_torch.examples import ogbn
+    g, gen_s = graph_job.get()
+    config = ogbn.load_ogbn_config()
+    mcfg = ogbn.complete_config(config, g)
+    lr = float(config["NeuralNetwork"]["Training"]["Optimizer"][
+        "learning_rate"])
+    rec = dict(graph=dict(ARXIV, edges=int(g.senders.size), generate_s=gen_s))
+    shapes = None
+    for k in SAMPLING_KS:
+        rec[f"k{k}"], counts, first = sampling_mode(torch, device, card, g,
+                                                    mcfg, lr, k)
+        add(counts)
+        if shapes is None:
+            shapes = sampling_shapes(torch, first, card)
+    r0, r4 = rec["k0"], rec[f"k{SAMPLING_KS[-1]}"]
+    print(f"phase 22b: synthetic_arxiv({ARXIV['num_nodes']}) "
+          f"{rec['graph']['edges']} edges (generated in {gen_s:.1f} s); "
+          f"remote bytes a batch K=0 {r0['remote_bytes_per_batch']:.0f} vs "
+          f"K={SAMPLING_KS[-1]} {r4['remote_bytes_per_batch']:.0f}; step "
+          f"{r0['step_ms']:.3f} vs {r4['step_ms']:.3f} ms (card: {card})",
+          flush=True)
+    return rec, shapes
+
+
+def sampling_phase(torch, device, card, counted):
+    """Phase 22 (see the module docstring): (record, launches, segment_sum
+    shapes)."""
+    import multiprocessing
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        counted(counts)
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+    # 22b's graph builds in a process of its own while 22a runs
+    pool = multiprocessing.get_context("spawn").Pool(
+        1, initializer=_cpu_worker_init, initargs=(1,))
+    try:
+        graph_job = pool.apply_async(arxiv_graph)
+        rec = {}
+        t0 = time.perf_counter()
+        rec["a"] = ogbn_driver(torch, device, card, add)
+        rec["a"]["phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["b"], shapes = sampling_library(torch, device, card, add,
+                                            graph_job)
+        rec["b"]["phase_s"] = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+    rec.update(wall_s=time.perf_counter() - t_phase, launches=launches)
+    print(f"phase 22 took {rec['wall_s']:.1f} s; launches on the sampled "
+          f"paths {launches} (card: {card})", flush=True)
+    for name in SAMPLING_KERNELS:
+        if launches.get(name, 0) == 0:
+            fail(f"phase 22: {name} never launched on the sampled paths")
+    return rec, launches, shapes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9342,6 +9895,15 @@ def main() -> int:
         [records["segment_sum"]["max_abs_err"]]
         + [r["max_abs_err"] for r in gfm_shapes])
 
+    # ---------------------------------------------------------- phase 22
+    stamp(22)
+    ogbn_rec, sampling_launches, sampling_seg = sampling_phase(
+        torch, device, card, counted)
+    records["segment_sum"]["shapes"] += sampling_seg
+    records["segment_sum"]["max_abs_err"] = max(
+        [records["segment_sum"]["max_abs_err"]]
+        + [r["max_abs_err"] for r in sampling_seg])
+
     stamp("cpu")
     cpu_settle()
     print("training: " + json.dumps({"card": card, "paths": train_paths,
@@ -9359,6 +9921,7 @@ def main() -> int:
     print("graph_parallel: " + json.dumps(dict(graphs, card=card)),
           flush=True)
     print("gfm: " + json.dumps(dict(gfm_rec, card=card)), flush=True)
+    print("sampling: " + json.dumps(dict(ogbn_rec, card=card)), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -9421,6 +9984,8 @@ def main() -> int:
                     gp_launches["filter_scatter_backward"]
         if gfm_launches.get(name):
             extra["launches_gfm_path"] = gfm_launches[name]
+        if sampling_launches.get(name):
+            extra["launches_sampling_path"] = sampling_launches[name]
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")

@@ -54,6 +54,18 @@ class GraphBatch:
     # dataset of each graph slot, -1 on padding; train/loss.head_loss_mask
     # narrows head i's loss to member i's graphs. `collate` leaves it None.
     dataset_id: Optional[torch.Tensor] = None  # [G] int32
+    # sampled training on one giant graph (preprocess/sampling.py): the
+    # node slots are one k-hop computation graph [seeds | hop1 | ... |
+    # padding]; the loss is taken over the seeds; slots served from the
+    # historical-embedding cache take its stale per-layer states instead
+    # of expanding. `collate` leaves them None.
+    seed_mask: Optional[torch.Tensor] = None     # [N] bool, loss mask
+    node_global: Optional[torch.Tensor] = None   # [N] int32 global node id
+    hist_mask: Optional[torch.Tensor] = None     # [N] bool, hist-served slot
+    # [N] int32 deepest table layer the slot may refresh (-1 = none; the
+    # loader keeps at most one slot per global id)
+    refresh_upto: Optional[torch.Tensor] = None
+    hist_states: Optional[torch.Tensor] = None   # [L-1, N, H] stale states
 
     @property
     def num_nodes(self) -> int:

@@ -43,10 +43,17 @@ text files.
 datasets (examples/gfm/gfm_data.py), bitwise: three BCC-lattice members,
 "alpha", "beta" and "gamma" (`MEMBER_SPECS`), each with its own
 polynomial graph target in its own column of the union label layout.
+
+`OgbnGraph`, `synthetic_arxiv` and `load_ogbn` are the ogbn example's
+node-classification graph (examples/ogbn/ogbn_data.py), bitwise: a
+homophilous synthetic citation graph with an id-range split, or the
+example's ``ogbn_graph.npz`` where one is given.
 """
 from __future__ import annotations
 
 import csv
+import dataclasses
+import hashlib
 import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -697,3 +704,97 @@ def split_members(members: Dict[str, List[GraphSample]],
         train[name] = samples[:-k]
         val[name] = samples[-k:]
     return train, val
+
+
+# ----------------------------------------------------------- ogbn graph --
+@dataclasses.dataclass
+class OgbnGraph:
+    """One node-classification graph and its split: the sampled loader's
+    input. ``y_onehot`` is what the "ce" loss takes."""
+    x: np.ndarray            # [N, F] float32
+    label: np.ndarray        # [N] int32
+    senders: np.ndarray      # [E] int64
+    receivers: np.ndarray    # [E] int64
+    train_idx: np.ndarray    # int64 node ids
+    val_idx: np.ndarray
+    test_idx: np.ndarray
+    num_classes: int
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def y_onehot(self) -> np.ndarray:
+        return np.eye(self.num_classes, dtype=np.float32)[self.label]
+
+    def fingerprint(self) -> str:
+        """Content hash for the feature store's cache key
+        (preprocess/cache.feature_store_key)."""
+        h = hashlib.sha256()
+        for arr in (self.x, self.label, self.senders, self.receivers,
+                    self.train_idx, self.val_idx, self.test_idx):
+            h.update(np.ascontiguousarray(arr).tobytes())
+        return h.hexdigest()[:32]
+
+
+def synthetic_arxiv(num_nodes: int = 2000, feat_dim: int = 16,
+                    num_classes: int = 8, avg_degree: int = 6,
+                    homophily: float = 0.65, seed: int = 0) -> OgbnGraph:
+    """A homophilous synthetic citation graph: features are a class
+    centroid plus noise, and each paper cites about `avg_degree` earlier
+    ones, of its own class with probability `homophily`; edges are
+    symmetrized; the split is by id range (60 / 20 / 20 %)."""
+    rng = np.random.RandomState(int(seed))
+    label = rng.randint(0, num_classes, num_nodes).astype(np.int32)
+    centroids = rng.randn(num_classes, feat_dim).astype(np.float32)
+    x = (centroids[label]
+         + 0.8 * rng.randn(num_nodes, feat_dim)).astype(np.float32)
+
+    by_class = [np.flatnonzero(label == c) for c in range(num_classes)]
+    senders, receivers = [], []
+    for v in range(1, num_nodes):
+        d = max(int(rng.poisson(avg_degree)), 1)
+        pool = by_class[label[v]]
+        pool = pool[pool < v]
+        for _ in range(d):
+            if pool.size and rng.rand() < homophily:
+                u = int(pool[rng.randint(pool.size)])
+            else:
+                u = int(rng.randint(v))
+            senders.extend((v, u))
+            receivers.extend((u, v))
+    senders = np.asarray(senders, np.int64)
+    receivers = np.asarray(receivers, np.int64)
+
+    n_train = int(num_nodes * 0.6)
+    n_val = int(num_nodes * 0.2)
+    ids = np.arange(num_nodes, dtype=np.int64)
+    return OgbnGraph(
+        x=x, label=label, senders=senders, receivers=receivers,
+        train_idx=ids[:n_train], val_idx=ids[n_train:n_train + n_val],
+        test_idx=ids[n_train + n_val:], num_classes=int(num_classes))
+
+
+OGBN_NPZ_NAME = "ogbn_graph.npz"
+
+
+def load_ogbn(data_dir: Optional[str] = None, **synth_kw) -> OgbnGraph:
+    """The graph of ``<data_dir>/ogbn_graph.npz`` where it exists (keys
+    x, label, senders, receivers, train_idx, val_idx, test_idx), else
+    `synthetic_arxiv(**synth_kw)`."""
+    if data_dir:
+        path = os.path.join(data_dir, OGBN_NPZ_NAME)
+        if os.path.exists(path):
+            z = np.load(path)
+            label = np.asarray(z["label"], np.int32).reshape(-1)
+            return OgbnGraph(
+                x=np.asarray(z["x"], np.float32),
+                label=label,
+                senders=np.asarray(z["senders"], np.int64),
+                receivers=np.asarray(z["receivers"], np.int64),
+                train_idx=np.asarray(z["train_idx"], np.int64),
+                val_idx=np.asarray(z["val_idx"], np.int64),
+                test_idx=np.asarray(z["test_idx"], np.int64),
+                num_classes=int(label.max()) + 1)
+    return synthetic_arxiv(**synth_kw)

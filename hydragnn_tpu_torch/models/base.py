@@ -15,12 +15,20 @@ backward (`torch.utils.checkpoint`, the JAX package's `nn.remat`): the
 same parameters, outputs and gradients, bit for bit, for less memory.
 
 Outputs at padding slots are garbage but finite; callers read real rows
-and graphs only. The sampled-training historical states come with the
-slice that needs them (ROADMAP A9).
+and graphs only.
+
+Sampled training on one giant graph (preprocess/sampling.py): with
+`batch.hist_states` set, the historical cache's slots (`batch.hist_mask`)
+take their stale state after each layer but the last, and the feature
+norms take their batch statistics over the fresh real slots only. A list
+passed as `forward(batch, states=[])` collects each layer's post-layer
+state (the JAX package's sown `encoder_h{i}`), which the historical step
+writes back into its tables. Stacks that override `encode` or `forward`
+(PAINN, PNAEq, MACE) apply neither: `check_hist_encode` refuses them.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -157,14 +165,25 @@ class BaseStack(nn.Module):
         return {}
 
     # ------------------------------------------------------------ forward --
-    def forward(self, batch: GraphBatch):
+    def forward(self, batch: GraphBatch, states: Optional[List] = None):
+        """(outputs, outputs_var); `states`, a list, receives each encoder
+        layer's post-layer state [N, H] (only `BaseStack.encode`'s)."""
         cargs = self.conv_args(batch)
-        x, pos = self.encode(batch, cargs)
+        if states is None:
+            x, pos = self.encode(batch, cargs)
+        else:
+            x, pos = self.encode(batch, cargs, states)
         return self.decode(x, pos, batch, cargs)
 
-    def encode(self, batch: GraphBatch, cargs):
+    def encode(self, batch: GraphBatch, cargs, states: Optional[List] = None):
         x, pos = batch.x, batch.pos
         remat = self.cfg.conv_checkpointing
+        hist = batch.hist_states is not None and batch.hist_mask is not None
+        # the cache's stale slots are constants, not fresh computations:
+        # they stay out of the norms' batch statistics
+        stats_mask = (batch.node_mask & ~batch.hist_mask if hist
+                      else batch.node_mask)
+        last = self.cfg.num_conv_layers - 1
         for i in range(self.cfg.num_conv_layers):
             conv = getattr(self, f"conv_{i}")
             if remat:
@@ -172,8 +191,13 @@ class BaseStack(nn.Module):
             else:
                 x, pos = conv(x, pos, batch, cargs)
             if self.use_batch_norm:
-                x = getattr(self, f"feature_norm_{i}")(x, batch.node_mask)
+                x = getattr(self, f"feature_norm_{i}")(x, stats_mask)
             x = self.act(x)
+            if hist and i < last:
+                x = torch.where(batch.hist_mask[:, None],
+                                batch.hist_states[i].to(x.dtype), x)
+            if states is not None:
+                states.append(x)
         return x, pos
 
     def decode(self, x, pos, batch: GraphBatch, cargs):
@@ -215,6 +239,25 @@ class BaseStack(nn.Module):
             h = getattr(self, f"head_{ih}_norm_{li}")(h, batch.node_mask)
             h = self.act(h)
         return getattr(self, f"head_{ih}_out")(h)
+
+
+def check_hist_encode(model) -> None:
+    """Raise unless `model` applies historical states and hands back its
+    post-layer states (`BaseStack.encode` under `BaseStack.forward`).
+    PAINN and PNAEq override `encode` and MACE `forward`, as in the JAX
+    package, whose historical loss then fails at its missing
+    `encoder_h0`; the port refuses them before any work."""
+    cls = type(model)
+    if cls.encode is not BaseStack.encode or cls.forward is not \
+            BaseStack.forward:
+        raise ValueError(
+            f"historical-embedding mode (staleness_k > 0) needs the shared "
+            f"encoder, which applies the cache's stale states layer by "
+            f"layer and hands back each layer's fresh state for the "
+            f"refresh; {cls.__name__} overrides "
+            f"{'encode' if cls.encode is not BaseStack.encode else 'forward'}"
+            f" and does neither. Train it with staleness_k 0 (exact "
+            f"sampling)")
 
 
 def edge_sum_layout(batch: GraphBatch, cargs) -> Any:

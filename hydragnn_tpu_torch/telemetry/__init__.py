@@ -9,15 +9,17 @@
   artifacts);
 * ``mfu`` — the card's peak FLOP/s and the achieved / peak gauge;
 * ``gfm`` — a GFM mixture epoch's per-head losses and member fractions
-  (`record_gfm_epoch`).
+  (`record_gfm_epoch`);
+* ``sampling`` — sampled training's batches, historical-cache serves and
+  fetched bytes (`record_sampled_batch`, `record_hist_refresh`).
 
 Off by default at near-zero cost: producers call ``spans.record`` /
 ``spans.span`` (a None check with no recorder) and report registry
-metrics from cold paths only. The JAX package's ``sampling`` comes with
-the sampled-training slice (ROADMAP A9).
+metrics from cold paths only.
 """
 from .gfm import record_gfm_epoch
 from .mfu import PEAK_FLOPS, achieved_and_mfu, peak_flops
+from .sampling import record_hist_refresh, record_sampled_batch
 from .registry import (COUNTER, GAUGE, HISTOGRAM, MetricsRegistry,
                        MetricTypeError, get_registry, set_registry)
 from .session import TelemetryConfig, TelemetrySession, start_session
@@ -26,6 +28,7 @@ from .spans import (EpochDeviceTrace, SpanRecorder, current_recorder,
 
 __all__ = [
     "PEAK_FLOPS", "achieved_and_mfu", "peak_flops", "record_gfm_epoch",
+    "record_hist_refresh", "record_sampled_batch",
     "TelemetryConfig", "TelemetrySession", "start_session",
     "COUNTER", "GAUGE", "HISTOGRAM",
     "MetricsRegistry", "MetricTypeError", "get_registry", "set_registry",

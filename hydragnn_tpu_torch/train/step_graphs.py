@@ -203,13 +203,28 @@ class GraphedSteps:
     outputs (the single eval step's predictions)."""
 
     def __init__(self, model, body: Callable, tx=None, mode: str = "train",
-                 keep_outputs: bool = False):
+                 keep_outputs: bool = False,
+                 extra_state: Optional[Callable] = None):
         self.model = model
         self.body = body
         self.tx = tx
         self.mode = mode
         self.keep_outputs = keep_outputs
+        # state the body reads, or updates in place, beside the TrainState
+        # (the sampled step's historical tables): `extra_state()` returns
+        # an object with `tensors()`, `copy()` and `restore(snapshot)`, or
+        # None; a replay checks its tensors as it checks the state's, and
+        # the warm-up puts them back after each run
+        self.extra_state = extra_state
         self.graphs: Dict[tuple, Captured] = {}
+
+    def _extra(self):
+        return None if self.extra_state is None else self.extra_state()
+
+    def _bound_tensors(self, state) -> List[torch.Tensor]:
+        extra = self._extra()
+        return _state_tensors(state) + (
+            [] if extra is None else list(extra.tensors()))
 
     # ------------------------------------------------------------ eager --
     def eager(self, state, batches: Sequence[GraphBatch]):
@@ -248,7 +263,7 @@ class GraphedSteps:
         if cap is None:
             cap = self.graphs[key] = self._capture(ctx, state, slots)
         ptrs, scalars, keys = cap.inputs
-        if [t.data_ptr() for t in _state_tensors(state)] != ptrs:
+        if [t.data_ptr() for t in self._bound_tensors(state)] != ptrs:
             raise RuntimeError(
                 "a captured step's state tensors were replaced since its "
                 "capture: restore a state in place (TrainState.restore)")
@@ -273,6 +288,8 @@ class GraphedSteps:
             scalars = torch.zeros((n, 4), dtype=torch.float32,
                                   device=ctx.device)
             snapshot = state.copy()
+            extra = self._extra()
+            extra_snapshot = None if extra is None else extra.copy()
             # the rows a replay would fill: the warm-up computes with them
             scalars.copy_(_advance_rows(
                 self.tx, dataclasses.replace(snapshot.opt_state), n))
@@ -280,6 +297,8 @@ class GraphedSteps:
             def restore(device: bool):
                 if device:
                     state.restore(snapshot)
+                    if extra is not None:
+                        extra.restore(extra_snapshot)
                 else:
                     state.restore_host(snapshot)
         keys: List[str] = []
@@ -295,7 +314,7 @@ class GraphedSteps:
             return values, (outputs if self.keep_outputs else None)
 
         cap = capture(ctx, run, restore)
-        cap.inputs = ([t.data_ptr() for t in _state_tensors(state)],
+        cap.inputs = ([t.data_ptr() for t in self._bound_tensors(state)],
                       scalars, list(keys))
         return cap
 

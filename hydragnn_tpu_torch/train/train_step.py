@@ -11,7 +11,10 @@ state can be snapshot (`copy`) and put back (`restore`).
 statistics, running statistics updated once per step); `make_eval_step`
 in eval mode. `make_multi_train_step` / `make_multi_eval_step` run S
 steps on S batches in one call (the JAX package's `lax.scan` of the
-step). On the card each step, and each group of S, is one CUDA graph
+step). `make_sampled_train_step` / `make_sampled_eval_step` are the steps
+of sampled training on one giant graph (preprocess/sampling.py): the
+seed-masked loss and, at staleness K > 0, the historical-embedding
+tables read and refreshed in place inside the step. On the card each step, and each group of S, is one CUDA graph
 replay (train/step_graphs.py); on the CPU the same calls run the eager
 steps, which are also the graphs' capture bodies. The energy-force path
 (`compute_grad_energy`) takes the forces with `create_graph=True` in
@@ -34,12 +37,14 @@ norms and reductions in float32 and give other numbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..config.config import ModelConfig
 from ..graphs.batch import GraphBatch
+from ..models.base import check_hist_encode
 from .step_graphs import GraphedSteps
 from .loss import energy_force_loss, multihead_loss
 from .optimizer import Optimizer, OptState
@@ -208,11 +213,11 @@ def make_forward_fn(model, cfg: ModelConfig = None, compute_dtype=None,
         return model
     frozen_vars = _cast_variables(model, cdtype) if frozen else None
 
-    def forward(batch: GraphBatch):
+    def forward(batch: GraphBatch, **kwargs):
         variables = (frozen_vars if frozen_vars is not None
                      else _cast_variables(model, cdtype))
         outputs, outputs_var = torch.func.functional_call(
-            model, variables, (cast_floats(batch, cdtype),))
+            model, variables, (cast_floats(batch, cdtype),), kwargs)
         if model.training:
             with torch.no_grad():
                 for name, buf in model.named_buffers():
@@ -244,28 +249,32 @@ def make_loss_fn(model, cfg: ModelConfig, loss_name: str = "mse",
         outputs, outputs_var = forward(batch)
         total, tasks = multihead_loss(cfg, loss_name, outputs, outputs_var,
                                       batch)
-        metrics = {"loss": total}
-        for i, t in enumerate(tasks):
-            metrics[f"task_{i}"] = t
-        return total, metrics
+        return total, _task_metrics(total, tasks)
 
     return loss_fn
 
 
-def _train_body(model, cfg: ModelConfig, tx: Optimizer, loss_name: str,
-                compute_grad_energy: bool, energy_weight: float,
-                force_weight, compute_dtype) -> Callable:
-    """body(state, batch, scalars) -> (metrics, None): one eager optimizer
-    step, in place. `scalars` is the step's row of the optimizer's
-    scalars (None: made from the host's counters)."""
-    loss_fn = make_loss_fn(model, cfg, loss_name, compute_grad_energy,
-                           energy_weight, force_weight, compute_dtype)
+def _task_metrics(total, tasks) -> Dict[str, torch.Tensor]:
+    """The multihead loss's metrics: `loss` and one `task_i` a head."""
+    metrics = {"loss": total}
+    for i, t in enumerate(tasks):
+        metrics[f"task_{i}"] = t
+    return metrics
+
+
+def _train_body(model, cfg: ModelConfig, tx: Optimizer,
+                loss_fn: Callable) -> Callable:
+    """body(state, batch, scalars) -> (metrics, states): one eager
+    optimizer step, in place, on `loss_fn(batch) -> (total, metrics)` or
+    `(total, metrics, states)`; `states` (the sampled loss's encoder
+    states) come back detached, else None. `scalars` is the step's row of
+    the optimizer's scalars (None: made from the host's counters)."""
 
     def body(state: TrainState, batch: GraphBatch, scalars=None):
         model.train()
         names = list(state.params)
         params = list(state.params.values())
-        total, metrics = loss_fn(batch)
+        total, metrics, *states = loss_fn(batch)
         # a parameter off the loss's graph (SchNet's coordinate MLP, whose
         # positions the heads never read) gets a zero gradient, as in JAX
         grads = torch.autograd.grad(total, params, allow_unused=True,
@@ -280,7 +289,7 @@ def _train_body(model, cfg: ModelConfig, tx: Optimizer, loss_name: str,
             with torch.no_grad():
                 torch._foreach_add_(params, updates)
         state.step += 1
-        return metrics, None
+        return metrics, (states[0].detach() if states else None)
 
     body.loss_fn = loss_fn
     return body
@@ -313,7 +322,7 @@ def step_cost_flops(step, batch: GraphBatch) -> float:
     try:
         model.train()
         with FlopCounterMode(display=False) as counter:
-            total, _ = loss_fn(batch)
+            total = loss_fn(batch)[0]
             torch.autograd.grad(total, params, allow_unused=True)
         return float(counter.get_total_flops())
     finally:
@@ -371,9 +380,9 @@ def make_train_step(model, cfg: ModelConfig, tx: Optimizer,
                     energy_weight: float = 1.0,
                     force_weight=1.0, compute_dtype=None) -> TrainStep:
     """The single train step (`TrainStep`)."""
-    return TrainStep(model, _train_body(
-        model, cfg, tx, loss_name, compute_grad_energy, energy_weight,
-        force_weight, compute_dtype), tx)
+    return TrainStep(model, _train_body(model, cfg, tx, make_loss_fn(
+        model, cfg, loss_name, compute_grad_energy, energy_weight,
+        force_weight, compute_dtype)), tx)
 
 
 def make_multi_train_step(model, cfg: ModelConfig, tx: Optimizer,
@@ -383,9 +392,9 @@ def make_multi_train_step(model, cfg: ModelConfig, tx: Optimizer,
                           compute_dtype=None) -> MultiTrainStep:
     """S train steps a call (`MultiTrainStep`); the same arguments as
     `make_train_step`."""
-    return MultiTrainStep(model, _train_body(
-        model, cfg, tx, loss_name, compute_grad_energy, energy_weight,
-        force_weight, compute_dtype), tx)
+    return MultiTrainStep(model, _train_body(model, cfg, tx, make_loss_fn(
+        model, cfg, loss_name, compute_grad_energy, energy_weight,
+        force_weight, compute_dtype)), tx)
 
 
 def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
@@ -410,10 +419,7 @@ def eval_metrics_and_outputs(model, cfg: ModelConfig, loss_name: str,
         outputs, outputs_var = forward(batch)
         total, tasks = multihead_loss(cfg, loss_name, outputs, outputs_var,
                                       batch)
-    metrics = {"loss": total}
-    for i, t in enumerate(tasks):
-        metrics[f"task_{i}"] = t
-    return metrics, outputs
+    return _task_metrics(total, tasks), outputs
 
 
 def _eval_body(model, cfg: ModelConfig, loss_name: str,
@@ -481,3 +487,261 @@ def make_multi_eval_step(model, cfg: ModelConfig, loss_name: str = "mse",
                                            compute_grad_energy,
                                            energy_weight, force_weight,
                                            compute_dtype))
+
+
+# ------------------------------------------------- sampled giant-graph --
+# (counterpart: hydragnn_tpu/train/train_step.py:209-393)
+def _seed_loss_batch(batch: GraphBatch) -> GraphBatch:
+    """The loss view of a sampled batch: node heads supervised on the seed
+    slots only (the hop slots give the seeds their receptive field); the
+    forward keeps the full node_mask."""
+    if batch.seed_mask is None:
+        return batch
+    return batch.replace(node_mask=batch.seed_mask)
+
+
+def make_sampled_loss_fn(model, cfg: ModelConfig, loss_name: str = "ce",
+                         compute_dtype=None, num_hist_layers: int = 0):
+    """loss_fn(batch) -> (total, metrics) of the model in its mode: the
+    seed-masked multihead loss (`make_loss_fn`'s on the seed slots, the
+    forward on every slot); with `num_hist_layers` > 0 -> (total,
+    metrics, states), the encoder's first `num_hist_layers` post-layer
+    states as one float32 [num_hist_layers, N, H] tensor (still on the
+    graph: `_train_body` detaches it for the refresh)."""
+    forward = make_forward_fn(model, cfg, compute_dtype)
+
+    def loss_fn(batch: GraphBatch):
+        if not num_hist_layers:
+            outputs, outputs_var = forward(batch)
+        else:
+            states = []
+            outputs, outputs_var = forward(batch, states=states)
+        total, tasks = multihead_loss(cfg, loss_name, outputs, outputs_var,
+                                      _seed_loss_batch(batch))
+        if not num_hist_layers:
+            return total, _task_metrics(total, tasks)
+        return total, _task_metrics(total, tasks), torch.stack(
+            [states[i].float() for i in range(num_hist_layers)])
+
+    return loss_fn
+
+
+class _HistBinding:
+    """What a historical step reads beside the batch: the tables (bound at
+    the first call; on the card a replay raises if their tensors change)
+    and, for a train step, `ctl`, an int32 [2] tensor (the step before the
+    update, the refresh flag) filled before each call: on the card one
+    static tensor the captured graph reads, so neither the step nor the
+    flag is baked into it."""
+
+    def __init__(self):
+        self.tables = None
+        self.ctl: Optional[torch.Tensor] = None
+
+    def bind(self, tables) -> None:
+        if tables is None:
+            raise ValueError("a historical-mode sampled step takes the "
+                             "HistTables (preprocess/sampling."
+                             "init_hist_tables) as its third argument")
+        self.tables = tables
+
+    def fill(self, step: int, do_refresh: bool,
+             device: torch.device) -> None:
+        host = torch.tensor([int(step), int(bool(do_refresh))],
+                            dtype=torch.int32)
+        if device.type == "cpu":
+            self.ctl = host
+            return
+        if self.ctl is None or self.ctl.device != device:
+            self.ctl = torch.zeros(2, dtype=torch.int32, device=device)
+        self.ctl.copy_(host.pin_memory(), non_blocking=True)
+
+
+def _hist_view(batch: GraphBatch, tables) -> GraphBatch:
+    """The batch the encoder sees in historical mode: each cache-served
+    slot's features from the resident table, every slot's stale states
+    gathered by its global id."""
+    ids = batch.node_global.long()
+    x = torch.where(batch.hist_mask[:, None], tables.feat[ids], batch.x)
+    return batch.replace(x=x, hist_states=tables.layers[:, ids])
+
+
+def _sampled_train_body(model, cfg: ModelConfig, tx: Optimizer,
+                        loss_name: str, compute_dtype,
+                        hist: Optional[_HistBinding]) -> Callable:
+    """body(state, batch, scalars) -> (metrics, None): one eager sampled
+    step, in place; in historical mode also the staleness read, the
+    update, and the refresh of the bound tables (rows of
+    `batch.refresh_upto` >= t, in place, with the flag on; the dump row
+    otherwise), `versions` stamped with the step after the update."""
+    num_hist = max(int(cfg.num_conv_layers) - 1, 0) if hist else 0
+    optimizer_step = _train_body(model, cfg, tx, make_sampled_loss_fn(
+        model, cfg, loss_name, compute_dtype, num_hist))
+    if hist is None:
+        return optimizer_step
+
+    def hist_body(state: TrainState, batch: GraphBatch, scalars=None):
+        tables, ctl = hist.tables, hist.ctl
+        ids = batch.node_global.long()
+        hm = batch.hist_mask
+        step_before = ctl[0]
+        # what this step consumes, read before the update
+        hist_n = hm.sum()
+        stale = torch.where(hm, step_before - tables.versions[ids],
+                            torch.zeros_like(tables.versions[ids]))
+        staleness = (stale.sum().float()
+                     / torch.clamp(hist_n, min=1).float())
+        metrics, inter = optimizer_step(state, _hist_view(batch, tables),
+                                        scalars)
+        metrics["hist_staleness"] = staleness
+        # times the float32 reciprocal: XLA folds JAX's division by the
+        # constant slot count into that product, which rounds otherwise
+        metrics["hist_frac"] = hist_n.float() * float(
+            np.float32(1.0 / hm.shape[0]))
+        dump = tables.feat.shape[0] - 1
+        on = ctl[1] != 0
+        with torch.no_grad():
+            for t in range(1, tables.layers.shape[0] + 1):
+                rows = torch.where(on & (batch.refresh_upto >= t), ids, dump)
+                tables.layers[t - 1].index_put_((rows,), inter[t - 1])
+            rows = torch.where(on & (batch.refresh_upto >= 1), ids, dump)
+            tables.versions.index_put_(
+                (rows,), (step_before + 1).to(torch.int32).expand(
+                    rows.shape[0]))
+        return metrics, None
+
+    hist_body.loss_fn = optimizer_step.loss_fn
+    return hist_body
+
+
+class SampledTrainStep:
+    """The sampled train step: `step(state, batch)` in exact mode,
+    `step(state, batch, tables, do_refresh)` -> (state, tables, metrics)
+    in historical mode (the tables updated in place; `do_refresh` a host
+    bool, on the card copied into the static flag the graph reads, so
+    alternating it never recaptures). One CUDA graph for the
+    run on the card, the eager step on the CPU; `eager(...)` runs the
+    eager step on any device."""
+
+    def __init__(self, model, cfg: ModelConfig, tx: Optimizer,
+                 loss_name: str, compute_dtype, hist: bool):
+        self.hist = _HistBinding() if hist else None
+        self.steps = GraphedSteps(
+            model, _sampled_train_body(model, cfg, tx, loss_name,
+                                       compute_dtype, self.hist), tx,
+            mode="train",
+            extra_state=(lambda: self.hist.tables) if hist else None)
+
+    def _prepare(self, state, batch, tables, do_refresh):
+        if self.hist is None:
+            if tables is not None:
+                raise ValueError("an exact-mode sampled step (staleness_k "
+                                 "0) takes no historical tables")
+            return
+        self.hist.bind(tables)
+        self.hist.fill(state.step, do_refresh, batch.x.device)
+
+    def _out(self, state, tables, metrics):
+        return (state, metrics) if self.hist is None else (state, tables,
+                                                           metrics)
+
+    def __call__(self, state: TrainState, batch: GraphBatch, tables=None,
+                 do_refresh=False):
+        self._prepare(state, batch, tables, do_refresh)
+        stacked, per_step, _ = self.steps(state, [batch])
+        metrics = (per_step[0] if per_step is not None
+                   else {k: v[0] for k, v in stacked.items()})
+        return self._out(state, tables, metrics)
+
+    def eager(self, state: TrainState, batch: GraphBatch, tables=None,
+              do_refresh=False):
+        self._prepare(state, batch, tables, do_refresh)
+        _, per_step, _ = self.steps.eager(state, [batch])
+        return self._out(state, tables, per_step[0])
+
+
+def make_sampled_train_step(model, cfg: ModelConfig, tx: Optimizer, *,
+                            loss_name: str = "ce", staleness_k: int = 0,
+                            compute_dtype=None) -> SampledTrainStep:
+    """The train step of fixed-shape sampled batches
+    (preprocess/sampling.py): every batch has the same shapes, so on the
+    card it is one CUDA graph for the run. `staleness_k` > 0 is the
+    historical mode (`SampledTrainStep`); the refresh cadence is the
+    caller's `step % K == 0`, so K never enters the step. Historical mode
+    refuses stacks whose encoder cannot apply the cache
+    (`models.base.check_hist_encode`)."""
+    hist = int(staleness_k) > 0
+    if hist:
+        check_hist_encode(model)
+    return SampledTrainStep(model, cfg, tx, loss_name, compute_dtype, hist)
+
+
+def _sampled_eval_body(model, cfg: ModelConfig, loss_name: str,
+                       compute_dtype, hist: Optional[_HistBinding]
+                       ) -> Callable:
+    """body(state, batch, scalars) -> (metrics, outputs) in eval mode: the
+    seed-masked loss, and for a classification node head (y_node wider
+    than one column) `correct` / `count`, the top-1 hits and the seeds
+    counted; in historical mode on the stale view of the bound tables."""
+    forward = make_forward_fn(model, cfg, compute_dtype)
+
+    def body(state: TrainState, batch: GraphBatch, scalars=None):
+        model.eval()
+        if hist is not None:
+            batch = _hist_view(batch, hist.tables)
+        with torch.no_grad():
+            outputs, outputs_var = forward(batch)
+            total, tasks = multihead_loss(cfg, loss_name, outputs,
+                                          outputs_var,
+                                          _seed_loss_batch(batch))
+            metrics = _task_metrics(total, tasks)
+            if batch.y_node is not None and batch.y_node.shape[-1] > 1:
+                nclass = batch.y_node.shape[-1]
+                pred = torch.argmax(outputs[0][..., :nclass], dim=-1)
+                label = torch.argmax(batch.y_node, dim=-1)
+                sm = (batch.seed_mask if batch.seed_mask is not None
+                      else batch.node_mask)
+                metrics["correct"] = (sm & (pred == label)).sum().float()
+                metrics["count"] = sm.sum().float()
+        return metrics, outputs
+
+    return body
+
+
+class SampledEvalStep:
+    """eval(state, batch) -> (metrics, outputs) in exact mode,
+    eval(state, batch, tables) in historical mode (the tables read only):
+    a captured graph on the card, the eager step on the CPU."""
+
+    def __init__(self, model, cfg: ModelConfig, loss_name: str,
+                 compute_dtype, hist: bool):
+        self.hist = _HistBinding() if hist else None
+        self.steps = GraphedSteps(
+            model, _sampled_eval_body(model, cfg, loss_name, compute_dtype,
+                                      self.hist),
+            mode="eval", keep_outputs=True,
+            extra_state=(lambda: self.hist.tables) if hist else None)
+
+    def __call__(self, state: TrainState, batch: GraphBatch, tables=None):
+        if self.hist is not None:
+            self.hist.bind(tables)
+        stacked, per_step, outputs = self.steps(state, [batch])
+        return (per_step[0] if per_step is not None
+                else {k: v[0] for k, v in stacked.items()}), outputs
+
+    def eager(self, state: TrainState, batch: GraphBatch, tables=None):
+        if self.hist is not None:
+            self.hist.bind(tables)
+        _, per_step, outputs = self.steps.eager(state, [batch])
+        return per_step[0], outputs
+
+
+def make_sampled_eval_step(model, cfg: ModelConfig, loss_name: str = "ce",
+                           staleness_k: int = 0,
+                           compute_dtype=None) -> SampledEvalStep:
+    """The eval step of sampled batches (`SampledEvalStep`); historical
+    mode applies the same stale view as training."""
+    hist = int(staleness_k) > 0
+    if hist:
+        check_hist_encode(model)
+    return SampledEvalStep(model, cfg, loss_name, compute_dtype, hist)

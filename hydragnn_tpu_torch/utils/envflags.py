@@ -345,3 +345,48 @@ def resolve_gfm(train_cfg=None) -> "tuple":
                 "list of non-negative weights; treating as %r", raw,
                 head_weights)
     return mixture, head_weights
+
+
+def resolve_sampling(train_cfg=None) -> "tuple[tuple, int, int, str]":
+    """The sampled-training knobs (counterpart: hydragnn_tpu/utils/
+    envflags.py `resolve_sampling`) -> (fanouts, staleness_k, partitions,
+    partition_mode).
+
+    Each knob: HYDRAGNN_SAMPLE_* over the Training.Sampling block over the
+    default. Parsing is strict: a malformed value warns, naming the
+    variable, and keeps the block's value (fanouts change every shape of
+    the run and staleness_k its mathematics).
+
+      HYDRAGNN_SAMPLE_FANOUTS      comma-separated positive per-hop
+                                   fanouts, "10,5" (Sampling.fanouts;
+                                   default 8,8)
+      HYDRAGNN_SAMPLE_STALENESS_K  the historical cache's refresh period,
+                                   0 = exact (Sampling.staleness_k;
+                                   default 0)
+      HYDRAGNN_SAMPLE_PARTITIONS   feature / owner partitions
+                                   (Sampling.partitions; default 1)
+
+    The partition mode (range | hash) is config-only
+    (Sampling.partition_mode). Resolved once, where a driver builds its
+    loader: preprocess/sampling.py reads no environment."""
+    block = (train_cfg or {}).get("Sampling", {}) or {}
+    fan_default = tuple(int(f) for f in block.get("fanouts", (8, 8)))
+    fanouts = fan_default
+    raw = os.getenv("HYDRAGNN_SAMPLE_FANOUTS")
+    if raw is not None and raw.strip():
+        try:
+            parsed = tuple(int(p.strip()) for p in raw.split(","))
+            if not parsed or any(f <= 0 for f in parsed):
+                raise ValueError
+            fanouts = parsed
+        except ValueError:
+            _log.warning(
+                "HYDRAGNN_SAMPLE_FANOUTS=%r is not a comma-separated "
+                "list of positive integers; treating as %r", raw,
+                fan_default)
+    k = env_strict_int("HYDRAGNN_SAMPLE_STALENESS_K",
+                       int(block.get("staleness_k", 0)))
+    parts = env_strict_int("HYDRAGNN_SAMPLE_PARTITIONS",
+                           int(block.get("partitions", 1)))
+    mode = str(block.get("partition_mode", "range"))
+    return fanouts, max(int(k), 0), max(int(parts), 1), mode

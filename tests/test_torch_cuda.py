@@ -2987,3 +2987,137 @@ def test_gfm_head_masked_step_is_the_plain_step_on_the_card(cuda_device):
         for k in s_plain:
             assert torch.equal(s_gfm[k], s_plain[k]), (name, k)
         assert torch.equal(m_gfm[f"task_{d}"], m_plain[f"task_{d}"])
+
+
+def _sampled_setup(staleness_k, hidden=16, num_nodes=600):
+    """A synthetic ogbn graph, its sampled loader (4 range partitions,
+    rank 0 of 1: partitions 1-3 remote) and a SAGE config."""
+    from hydragnn_tpu_torch.examples.ogbn import (complete_config,
+                                                  load_ogbn_config)
+    from hydragnn_tpu_torch.graphs.synthetic import synthetic_arxiv
+    from hydragnn_tpu_torch.preprocess.sampling import NeighborSamplingLoader
+    g = synthetic_arxiv(num_nodes=num_nodes, seed=2)
+    config = load_ogbn_config()
+    arch = config["NeuralNetwork"]["Architecture"]
+    arch["hidden_dim"] = hidden
+    arch["output_heads"]["node"]["dim_headlayers"] = [hidden, hidden]
+    mcfg = complete_config(config, g)
+    loader = NeighborSamplingLoader(
+        x=g.x, y_node=g.y_onehot, senders=g.senders, receivers=g.receivers,
+        train_nodes=g.train_idx, batch_size=32, fanouts=(10, 5), seed=0,
+        num_partitions=4, staleness_k=staleness_k, num_layers=2,
+        async_workers=0)
+    return g, loader, mcfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staleness_k", [0, 3])
+def test_sampled_step_one_capture_and_replays_bitwise(cuda_device,
+                                                      staleness_k):
+    """Two epochs of sampled SAGE steps, exact and historical with the
+    refresh flag alternating (and at K's cadence in the second epoch):
+    one CUDA graph for the run, every replay's metrics bitwise the eager
+    step's on a twin model and twin tables, and at the end the parameters
+    and the tables' real rows bitwise; the historical eval step likewise
+    one capture and bitwise its eager body."""
+    from hydragnn_tpu_torch.models.create import create_model
+    from hydragnn_tpu_torch.preprocess.sampling import init_hist_tables
+    from hydragnn_tpu_torch.train.optimizer import Optimizer
+    from hydragnn_tpu_torch.train.train_step import (
+        TrainState, make_sampled_eval_step, make_sampled_train_step)
+    dev = cuda_device
+    g, loader, mcfg = _sampled_setup(staleness_k)
+    runs = []
+    for _ in range(2):
+        model = create_model(mcfg, device=dev, seed=1)
+        tx = Optimizer("Adam", learning_rate=3e-3)
+        tables = (init_hist_tables(g.x, mcfg.hidden_dim, 2, device=dev)
+                  if staleness_k else None)
+        runs.append((model, TrainState.create(model, tx), tables,
+                     make_sampled_train_step(model, mcfg, tx,
+                                             staleness_k=staleness_k)))
+    (model, state, tables, step), (_, twin, twin_tables, twin_step) = runs
+    i = 0
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        for b in loader:
+            b = b.to(dev)
+            flag = (i % 2 == 0) if epoch == 0 else (i % staleness_k == 0
+                                                    if staleness_k else 0)
+            args = (tables, flag) if staleness_k else ()
+            twin_args = (twin_tables, flag) if staleness_k else ()
+            m = step(state, b, *args)[-1]
+            tm = twin_step.eager(twin, b, *twin_args)[-1]
+            assert sorted(m) == sorted(tm)
+            for k in m:
+                assert torch.equal(m[k], tm[k]), (i, k)
+            i += 1
+    assert len(step.steps.graphs) == 1
+    for k, v in state.state_dict().items():
+        assert torch.equal(v, twin.state_dict()[k]), k
+    if staleness_k:
+        ng = g.num_nodes
+        assert torch.equal(tables.layers[:, :ng], twin_tables.layers[:, :ng])
+        assert torch.equal(tables.versions[:ng], twin_tables.versions[:ng])
+        assert int((tables.versions[:ng] > 0).sum()) > 0
+        ev = make_sampled_eval_step(model, mcfg, staleness_k=staleness_k)
+        loader.set_epoch(0)
+        b = next(iter(loader)).to(dev)
+        for _ in range(3):
+            m, out = ev(state, b, tables)
+        me, oute = ev.eager(state, b, tables)
+        assert len(ev.steps.graphs) == 1
+        for k in m:
+            assert torch.equal(m[k], me[k]), k
+        assert torch.equal(out[0], oute[0])
+
+
+@pytest.mark.cuda
+def test_sampled_segment_sums_match_plain_versions(cuda_device):
+    """B3 at a sampled batch's shapes (fanouts 10, 5; the padding node
+    takes every masked edge): SAGE's mean by receivers and the sender
+    gather's gradient, each over the layout the stack builds (masked
+    edges left out), against the plain versions on the real rows; the
+    layouts' kept rows are the real edges only."""
+    from hydragnn_tpu_torch.kernels.segment import segment_layout
+    dev = cuda_device
+    _, loader, _ = _sampled_setup(0)
+    b = next(iter(loader)).to(dev)
+    n, keep = b.num_nodes, b.edge_mask
+    assert not bool(keep.all())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for ids in (b.receivers, b.senders):
+        layout = segment_layout(ids, n, keep)
+        assert int(layout[0][-1]) == int(keep.sum())
+        for f in (128, 64):
+            data = torch.randn(b.num_edges, f, device=dev,
+                               generator=gen) * keep[:, None]
+            got = segment.segment_sum(data, ids, n, layout=layout)
+            want = segment.segment_sum_plain(data, ids, n)
+            real = b.node_mask
+            np.testing.assert_allclose(got[real].cpu().numpy(),
+                                       want[real].cpu().numpy(), **SUM_TOL)
+
+
+@pytest.mark.cuda
+def test_ogbn_driver_runs_on_the_card_by_default(cuda_device, tmp_path):
+    """The driver with no --device trains on the card (one train step
+    capture, B3 launched); with --device cpu on the CPU (no capture);
+    the same plan either way."""
+    from hydragnn_tpu_torch.examples import ogbn
+    base = ["--num-nodes", "600", "--batch-size", "64", "--num-epochs", "1",
+            "--async-workers", "0"]
+    tk.reset_launch_counts()
+    (tmp_path / "card").mkdir()
+    card, info = ogbn.run(ogbn.parse_args(base + ["--job-dir",
+                                                  str(tmp_path / "card")]))
+    assert info.state.params["conv_0.lin_l.weight"].is_cuda
+    assert info.train_captures == 1
+    assert tk.launch_counts()["segment_sum"] > 0
+    (tmp_path / "cpu").mkdir()
+    cpu, cinfo = ogbn.run(ogbn.parse_args(
+        base + ["--job-dir", str(tmp_path / "cpu"), "--device", "cpu"]))
+    assert cinfo.train_captures == 0
+    assert not cinfo.state.params["conv_0.lin_l.weight"].is_cuda
+    assert card["plan_fp"] == cpu["plan_fp"]
+    assert np.isfinite(card["history"]["train_loss"]).all()
