@@ -27,7 +27,7 @@ Phases:
    Flax-shaped weights from a seed: `run_prediction(serve=True)` on the
    test split (dense neighbor layout, Serving.max_batch_size 128, the
    config's batch size), then an `InferenceEngine` on the edge-list layout
-   over a burst of the test split repeated 8 times, then 80 timed
+   over a burst of the test split repeated 8 times, then 40 timed
    bursts of the same. The engine's forwards are CUDA graphs, one per
    bucket, captured at warm-up (`engine_graphs` prints each bucket's
    capture time and, on the full batch's bucket, the replay's CUDA-event
@@ -52,7 +52,7 @@ Phases:
    layout keeps), then an
    `InferenceEngine(ef_forward=True)` on the edge list over a burst of the
    test split repeated 8 times, matched against the same engine run on
-   the CPU within rtol 1e-4 / atol 1e-5, then 60 timed bursts, the
+   the CPU within rtol 1e-4 / atol 1e-5, then 30 timed bursts, the
    engine's graphs as in phase 3, and one profiled eager EF forward +
    backward (device time, launches, argsorts).
 
@@ -205,7 +205,7 @@ Phases:
    fraction; each trajectory's step 1 against its own single-client CPU
    run. (c) The csce PNA engine (edge list) with max_queue 4 x 128 and a
    50 ms deadline: the closed-loop rate R, then seeded Poisson arrivals
-   at 0.5, 0.9 and 1.5 R for 5 s each: offered, admitted, completed,
+   at 0.5, 0.9 and 1.5 R for 2.5 s each: offered, admitted, completed,
    QueueFullError, DeadlineExceededError, p50/p95/p99 and `health()`;
    every accepted future resolves, none pending after shutdown, nothing
    refused or expired at 0.5 R. (d) The plan serving-dispatch@2,5,6 with
@@ -248,7 +248,7 @@ Phases:
    bucket fresh, replica 1 takes every bucket from the store; a burst of
    824 requests through the router, each result bitwise the single
    engine's forward on the bucket it was served on; whether a request's
-   result is the same on every bucket that fits it; then 40 bursts
+   result is the same on every bucket that fits it; then 20 bursts
    through the fleet and through the single engine, alternating:
    requests/s, p50, p99. (d) A child process (`--fleet-replica`) points
    `_build.BUILD_ROOT` at an empty directory, warms one replica from the
@@ -511,6 +511,36 @@ Phases:
    and 64, over the layouts, the masked edges left out). B3's launches
    on both paths (`launches_sampling_path`); the shapes join the
    segment_sum record's `shapes`.
+23. Supervised jobs (hpo/, elastic/, utils/hpo.py, utils/bayes_opt.py,
+   examples/qm9_hpo.py), each child a process of this script
+   (`--counted-child`: the port's module's main, then its kernel launch
+   counts; a killed or stopped child prints none), under one fault plan,
+   PHASE23_PLAN, with (a, b, d) on one thread and (c) on another. (a)
+   `JobSupervisor` runs `hydragnn_tpu_torch.examples.ogbn` (22a's
+   arguments, --staleness-k 0) as rank 0 of 1; rank-kill@0 kills it at
+   its first commit and it resumes: the job completes with a
+   restart, its result.json's history and param_digest bitwise 22a's
+   uninterrupted run, one plan_fp (22a's) on every generation. (b) `RankProcessLauncher` runs
+   the elastic GIN job as W = 2 gloo ranks sharing the card
+   (total_shards 2); rank-kill@3 (the phase's 4th rank launch: rank 1 of
+   the first generation) and world_schedule [2, 1]: against an
+   uninterrupted W = 2 twin the final step and history lengths are
+   equal, one plan_fp (the host's for the same data) on every rank line,
+   the history and param_norm within 5e-4. (c) `TrialSupervisor` with
+   `ProcessLauncher`: 3 GIN trials at concurrency 2 under trial-kill@1
+   and trial-hang@2 (the heartbeat watchdog at TRIAL_HEARTBEAT_S catches
+   the hang): every trial completed, the killed and the hung trial's
+   result.json (history, param_digest) bitwise their twins', then one
+   `fork_trial` of the best trial (`perturb_params`): it completes from
+   the donor's BEST step, epoch 0. (d) `hydragnn_tpu_torch.examples.
+   qm9_hpo` over examples/qm9_hpo/qm9.json, QM9_TRIALS trials of
+   QM9_EPOCHS epoch on QM9_SAMPLES molecules through the CBO: every
+   objective finite (each model of its space is ported), `best` the
+   history's argmin, B3 (and B1 forward and backward when the search drew
+   PNA) launched. Every part prints
+   its ledger's data view and its wall s; no process group survives any
+   job. The children's launches join the kernel line
+   (`launches_supervised_path`).
 
 Trimmed for time (the smoke took 680-1,080 s of its 1,200 and ran
 past it once): the SGD runs held card vs CPU in phases 5, 7 and 10 take
@@ -532,7 +562,8 @@ of their own, with their bf16 readings under `bf16`, the torch-op
 VJP's device time as `plain_ms` and each pass's as `passes_ms`; the
 dense forward's loader-shape reading under `loader`), the line before
 that the card's
-name and power limit, and before it a `sampling: {...}` (phase 22), a
+name and power limit, and before it a `supervision: {...}` (phase
+23), a `sampling: {...}` (phase 22), a
 `gfm: {...}` (phase 21), a
 `graph_parallel: {...}` (phase 20), a `pipeline: {...}` (phase 19), a
 `spmd: {...}` (phase 18), a
@@ -562,7 +593,7 @@ import numpy as np
 SEED = 0
 NUM_MOLECULES = 512
 ENGINE_REPEATS = 8             # a burst is the test split 8 times over
-BURSTS = 80                    # timed bursts, after the main-path one
+BURSTS = 40                    # timed bursts, after the main-path one
 GRAPH_CALLS = 20               # wrapper calls per captured CUDA graph
 AUTOGRAD_CALLS = 2             # plain autograd backwards a graph (~0.1 s)
 AUTOGRAD_REPS = 5              # and the graph's timed replays
@@ -571,7 +602,7 @@ SUM_TOL = dict(rtol=2e-5, atol=2e-5)
 SLICE_TOL = dict(rtol=1e-4, atol=1e-5)
 LJ_CONFIG = "examples/LennardJones/LJ.json"
 NUM_LJ = 512                   # LJ cells of 27 atoms
-LJ_BURSTS = 60                 # timed EF bursts, after the main-path one
+LJ_BURSTS = 30                 # timed EF bursts, after the main-path one
 TRAIN_RTOL = 1e-3              # card vs cpu, every epoch's train loss
 EVAL_RTOL = 1e-2               # and its val/test losses (eval-mode BN)
 LJ_EPOCHS = 2                  # LJ.json trains 20 epochs; cut for time
@@ -583,7 +614,7 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8
 CSCE_CONFIG = "examples/csce/csce_gap.json"
 BF16_BOUND = 2.0 ** -5         # bf16 vs a reference: atol + rtol |ref|
-BF16_BURSTS = 40               # timed bf16 engine bursts
+BF16_BURSTS = 20               # timed bf16 engine bursts
 # LJ bf16 first-step weight gradients, kernels vs plain versions on the
 # card, relative L2: the worst tensor, and all tensors as one vector. Set
 # between the noise floor (the plain versions vs themselves on the edges
@@ -3541,7 +3572,7 @@ QM9_CONFIG = "examples/qm9/qm9.json"
 NUM_SLABS = 512                # OC20 slabs of 29 atoms
 NUM_QM9 = 512                  # QM9 molecules of 6-16 atoms
 FORCES_EPOCHS = 2              # open_catalyst_forces.json trains 3
-SLICE_BURSTS = 20              # timed engine bursts of each path
+SLICE_BURSTS = 10              # timed engine bursts of each path
 SLICE_GROUP = 2                # steps per call timed beside S = 1
 
 
@@ -4015,7 +4046,7 @@ MD_MODES = ("incremental", "rebuild", "offline")
 MD_CLIENTS = 8                 # concurrent trajectories, 6³ atoms each
 MD_CLIENT_STEPS = 30
 POS_ATOL = 1e-6                # step-1 positions, card vs cpu
-OPEN_LOOP_S = 5.0              # seconds of arrivals at each rate
+OPEN_LOOP_S = 2.5              # seconds of arrivals at each rate
 OPEN_LOOP_RATES = (0.5, 0.9, 1.5)   # multiples of the closed-loop rate
 OPEN_LOOP_DEADLINE_MS = 50.0   # ~10x the csce forward (PERF.md section 5)
 OPEN_LOOP_WAIT_MS = 2.0        # bench.py BENCH_SERVE_WAIT_MS's default
@@ -4959,7 +4990,7 @@ def farm_phase(torch, device, card, counted, lj_state, session_rates):
 
 # ----------------------------------------------------------- phase 14 --
 FLEET_REPLICAS = 2
-FLEET_BURSTS = 40              # closed-loop bursts, fleet and single each
+FLEET_BURSTS = 20              # closed-loop bursts, fleet and single each
 FLEET_OPEN_S = 5.0             # seconds of open-loop arrivals with faults
 FLEET_OPEN_RATE = 0.5          # of the fleet's closed-loop rate
 FLEET_KILL_AT = 0.6            # the injected kill, seconds into the stream
@@ -5574,7 +5605,7 @@ A7_GROUP = 2                   # steps per call timed beside S = 1
 A7_SGD_STEPS = 3               # SGD steps held card vs cpu
 LATTICE_SGD_LR = 0.05          # DimeNet's lattice SGD steps
 A7_REPEATS = 2                 # an EF burst is the test split twice over
-A7_BURSTS = 10                 # timed EF bursts of each model
+A7_BURSTS = 5                  # timed EF bursts of each model
 LATTICE_GRAPHS = 160           # tests/test_graphs_full.py's lattice rows
 LATTICE_EPOCHS = 60
 THRESHOLDS = {"DimeNet": 0.50, "PAINN": 0.60, "PNAEq": 0.60, "MACE": 0.70}
@@ -8901,7 +8932,7 @@ OGBN_MIN_VAL_ACC = 0.9         # 22a: the final epoch's val_acc
 OGBN_FIRST_RTOL = 1e-4         # 22a: the first step's loss, card vs cpu
 ARXIV = dict(num_nodes=169343, feat_dim=128, num_classes=40, seed=0)
 SAMPLING_KS = (0, 4)           # 22b: exact, then the historical cache
-SAMPLING_STEPS = 20            # 22b: captured steps timed a mode
+SAMPLING_STEPS = 10            # 22b: captured steps timed a mode
 SAMPLING_HOST_BATCHES = 5      # 22b: batches built synchronously, timed
 SAMPLING_KERNELS = ("segment_sum",)
 
@@ -9411,6 +9442,508 @@ def sampling_phase(torch, device, card, counted):
     return rec, launches, shapes
 
 
+# ---------------------------------------------------------- phase 23 --
+PHASE23_PLAN = "rank-kill@0,3;trial-kill@1;trial-hang@2"   # (module doc)
+ELASTIC_HEARTBEAT_S = 120.0    # 23a-b: the job watchdog (no hang injected)
+TRIAL_HEARTBEAT_S = 30.0       # 23c: the trial watchdog, on the card
+HPO_EPOCHS = 6                 # 23c: each trial's epochs (2 steps each)
+HPO_CONFIGS = 24               # 23c: the runner's synthetic lattices
+HPO_RATES = (0.002, 0.004, 0.006)   # 23c: trials 0-2's learning rates
+HPO_SPACE = {"learning_rate": (1e-3, 1e-2)}    # 23c: the fork's space
+ELASTIC_EPOCHS = 6             # 23b: the GIN job's epochs (the kill must
+ELASTIC_CONFIGS = 32           # land well before the end), its lattices
+QM9_TRIALS = 3                 # 23d: trials of the qm9 search
+QM9_SAMPLES = 200              # 23d: synthetic molecules
+QM9_EPOCHS = 1                 # 23d: epochs a trial
+PHASE23_KERNELS = ("segment_sum",)
+PHASE23_DEVICE = "cuda"        # the children's device
+SMOKE_PATH = os.path.abspath(__file__)
+
+
+def counted_child(module: str, *argv: str) -> int:
+    """A supervised child of phase 23: `module`'s main(argv), then one line
+    `launches: {...}` with this process's kernel launch counts (a killed
+    or stopped child prints none)."""
+    print(f"counted-child: starting {module}", flush=True)
+    import importlib
+    rc = importlib.import_module(module).main(list(argv))
+    from hydragnn_tpu_torch import kernels as tk
+    print("launches: " + json.dumps(tk.launch_counts()), flush=True)
+    return int(rc or 0)
+
+
+def child_launches(paths) -> "tuple[dict, int]":
+    """(summed launch counts, children that printed theirs) over the
+    `launches:` lines of the given logs."""
+    total, n = {}, 0
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                if line.startswith("launches: "):
+                    n += 1
+                    for name, c in json.loads(line[10:]).items():
+                        total[name] = total.get(name, 0) + c
+    return total, n
+
+
+def plan_fps(paths):
+    fps = []
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                if "plan_fp=" in line:
+                    fps.append(line.split("plan_fp=")[1].split()[0])
+    return fps
+
+
+def _counted_argv(argv):
+    """[python, -m, module, args...] -> this script's counted child."""
+    return [argv[0], SMOKE_PATH, "--counted-child", argv[2], *argv[3:]]
+
+
+def smoke_launchers():
+    """The rank and trial launchers of phase 23: the port's, each child
+    run through `counted_child`, each launch's time kept."""
+    from hydragnn_tpu_torch.elastic import RankProcessLauncher
+    from hydragnn_tpu_torch.hpo import ProcessLauncher
+
+    class RankLauncher(RankProcessLauncher):
+        def __init__(self, job_dir, argv_fn=None, **kw):
+            super().__init__(job_dir, **kw)
+            self.argv_fn = argv_fn
+            self.launch_t = []
+
+        def child_argv(self, world_size, rank, resume, hang):
+            argv = (self.argv_fn(world_size, rank, resume) if self.argv_fn
+                    else super().child_argv(world_size, rank, resume, hang))
+            return _counted_argv(argv)
+
+        def __call__(self, generation, world_size, rank, resume, hang):
+            self.launch_t.append((generation, rank, time.perf_counter()))
+            return super().__call__(generation, world_size, rank, resume,
+                                    hang)
+
+    class TrialLauncher(ProcessLauncher):
+        def child_argv(self, spec, resume, hang):
+            return _counted_argv(super().child_argv(spec, resume, hang))
+
+    return RankLauncher, TrialLauncher
+
+
+def gen_seconds(launcher, t_end):
+    """Each generation's wall s, from its first launch to the next's."""
+    starts = sorted({g: t for g, _, t in reversed(launcher.launch_t)}
+                    .items())
+    ends = [t for _, t in starts[1:]] + [t_end]
+    return [round(e - t, 3) for (_, t), e in zip(starts, ends)]
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def ogbn_elastic(tmp, twin22, card):
+    """23a: examples/ogbn.py as rank 0 of 1 under JobSupervisor, killed at
+    its first commit (rank-kill@0) and resumed; its result held bitwise
+    against 22a's uninterrupted run of the same arguments."""
+    from hydragnn_tpu_torch.elastic import JobSupervisor
+    RankLauncher, _ = smoke_launchers()
+    job = os.path.join(tmp, "a_chaos")
+
+    def ogbn_argv(world, rank, resume):
+        argv = [sys.executable, "-m", "hydragnn_tpu_torch.examples.ogbn",
+                "--job-dir", job, "--device", PHASE23_DEVICE,
+                "--num-nodes", str(OGBN_NODES), "--staleness-k", "0",
+                "--rank", str(rank), "--world", str(world)]
+        return argv + (["--resume"] if resume else [])
+    la = RankLauncher(job, argv_fn=ogbn_argv, total_shards=1)
+    sup = JobSupervisor(la, world_size=1, max_restarts=2,
+                        heartbeat_s=ELASTIC_HEARTBEAT_S, backoff_s=0.5,
+                        poll_interval_s=0.2)
+    t0 = time.perf_counter()
+    rec = sup.run(deadline_s=600)
+    wall = time.perf_counter() - t0
+    out = dict(state=rec.state, restarts=rec.restarts,
+               world_sizes=rec.world_sizes, wall_s=wall,
+               generation_s=gen_seconds(la, t0 + wall),
+               live_groups=la.live_process_groups(),
+               ledger=sup.ledger.data_view())
+    print(f"phase 23a ledger: {json.dumps(out['ledger'])}", flush=True)
+    if rec.state != "completed" or rec.restarts < 1:
+        fail(f"phase 23a: the ogbn job ended {rec.state} with "
+             f"{rec.restarts} restarts ({rec.outcome_reason})\n"
+             f"{log_tails([os.path.join(job, 'rank_0.log')])}")
+    got = read_json(os.path.join(job, "result.json"))
+    fps = plan_fps([os.path.join(job, "rank_0.log")])
+    out.update(plan_fps=fps,
+               bitwise=(got["history"] == twin22["history"]
+                        and got["param_digest"] == twin22["param_digest"]),
+               history=got["history"], param_digest=got["param_digest"])
+    out["launches"], out["children_counted"] = child_launches(
+        [os.path.join(job, "rank_0.log")])
+    print(f"phase 23a: examples/ogbn/ogbn_arxiv.json on synthetic_arxiv("
+          f"{OGBN_NODES}), K 0, rank 0 of 1 under JobSupervisor with "
+          f"rank-kill@0: {rec.state} after {rec.restarts} restart(s), "
+          f"{wall:.1f} s (generations {out['generation_s']} s); history and "
+          f"param_digest bitwise 22a's run: {out['bitwise']}; "
+          f"plan_fp {sorted(set(fps))} ({len(fps)} lines, 22a's "
+          f"{twin22['plan_fp']}); launches {out['launches']} from "
+          f"{out['children_counted']} child(ren) that ended (the killed "
+          f"one's uncounted); live process groups {out['live_groups']} "
+          f"(card: {card})", flush=True)
+    if not out["bitwise"]:
+        fail(f"phase 23a: the resumed job's result differs from 22a's "
+             f"run: {got['history']} vs {twin22['history']}")
+    if len(fps) < 2 or set(fps) != {twin22["plan_fp"]}:
+        fail(f"phase 23a: plan_fp across generations {fps}, 22a's "
+             f"{twin22['plan_fp']}")
+    if out["live_groups"]:
+        fail(f"phase 23a: process groups alive {out['live_groups']}")
+    for name in PHASE23_KERNELS:
+        if out["launches"].get(name, 0) == 0:
+            fail(f"phase 23a: the resumed run launched no {name}")
+    return out
+
+
+def elastic_gin(tmp, card):
+    """23b: the elastic GIN job, W = 2 gloo ranks on the card, rank 1
+    killed at its first commit (rank-kill@3: the phase's 4th rank
+    launch), restarted at W' = 1; held against an uninterrupted W = 2
+    twin."""
+    from hydragnn_tpu_torch.elastic import JobSupervisor
+    from hydragnn_tpu_torch.elastic.runner import base_job_config
+    from hydragnn_tpu_torch.hpo.runner import synthetic_dataset
+    from hydragnn_tpu_torch.preprocess.load_data import (create_dataloaders,
+                                                         split_dataset)
+    RankLauncher, _ = smoke_launchers()
+    kw = dict(total_shards=2, num_epochs=ELASTIC_EPOCHS,
+              num_configs=ELASTIC_CONFIGS, batch_size=8,
+              rendezvous_timeout_s=120.0, device=PHASE23_DEVICE)
+    runs = {}
+    for name, sched in (("chaos", [2, 1]), ("twin", [2])):
+        job = os.path.join(tmp, f"b_{name}")
+        la = RankLauncher(job, **kw)
+        sup = JobSupervisor(la, world_size=2, world_schedule=sched,
+                            max_restarts=2 if name == "chaos" else 0,
+                            heartbeat_s=ELASTIC_HEARTBEAT_S, backoff_s=0.5,
+                            poll_interval_s=0.02)
+        t0 = time.perf_counter()
+        rec = sup.run(deadline_s=600)
+        wall = time.perf_counter() - t0
+        logs = sorted(glob_paths(job, "rank_*.log"))
+        runs[name] = dict(state=rec.state, restarts=rec.restarts,
+                          world_sizes=rec.world_sizes, wall_s=wall,
+                          generation_s=gen_seconds(la, t0 + wall),
+                          live_groups=la.live_process_groups(),
+                          plan_fps=plan_fps(logs),
+                          ledger=sup.ledger.data_view())
+        runs[name]["launches"], runs[name]["children_counted"] = \
+            child_launches(logs)
+        print(f"phase 23b {name} ledger: {json.dumps(runs[name]['ledger'])}",
+              flush=True)
+        if rec.state != "completed":
+            fail(f"phase 23b: the {name} job ended {rec.state} "
+                 f"({rec.outcome_reason})\n{log_tails(logs)}")
+        runs[name]["result"] = read_json(os.path.join(job, "result.json"))
+    chaos, twin = runs["chaos"]["result"], runs["twin"]["result"]
+    cfg = base_job_config(ELASTIC_EPOCHS, 8)
+    splits = split_dataset(synthetic_dataset(ELASTIC_CONFIGS),
+                           cfg["NeuralNetwork"]["Training"]["perc_train"])
+    host_fp = create_dataloaders(*splits, 4, packing=True, pack_nproc=2)[
+        0].global_plan_fingerprint()
+    rel = abs(chaos["param_norm"] - twin["param_norm"]) / max(
+        abs(twin["param_norm"]), 1e-12)
+    hist_rel = max(abs(a - b) / max(abs(b), 1e-12)
+                   for k in ("train_loss", "val_loss", "test_loss", "lr")
+                   for a, b in zip(chaos["history"][k], twin["history"][k]))
+    fps = runs["chaos"]["plan_fps"] + runs["twin"]["plan_fps"]
+    out = dict(runs=runs, param_norm_rel=rel, history_max_rel=hist_rel,
+               host_plan_fp=host_fp, launches=child_launches(
+                   glob_paths(tmp, "b_*/rank_*.log"))[0])
+    print(f"phase 23b: the elastic GIN job (total_shards 2, "
+          f"{ELASTIC_EPOCHS} epochs) on the card, W 2 over gloo, "
+          f"rank-kill at rank 1's first commit, world_schedule [2, 1]: "
+          f"{runs['chaos']['state']}, world sizes "
+          f"{runs['chaos']['world_sizes']}, {runs['chaos']['wall_s']:.1f} s "
+          f"(generations {runs['chaos']['generation_s']} s) against the W 2 "
+          f"twin's {runs['twin']['wall_s']:.1f} s; final step "
+          f"{chaos['final_step']} / {twin['final_step']}; param_norm "
+          f"{chaos['param_norm']!r} / {twin['param_norm']!r} (rel "
+          f"{rel:.2e}), history max rel {hist_rel:.2e} (bound 5e-4); "
+          f"plan_fp {sorted(set(fps))} over {len(fps)} rank lines, the "
+          f"host's {host_fp}; launches {runs['chaos']['launches']} / "
+          f"{runs['twin']['launches']} (killed ranks uncounted) (card: "
+          f"{card})", flush=True)
+    if chaos["final_step"] != twin["final_step"] or \
+            [len(v) for v in chaos["history"].values()] != \
+            [len(v) for v in twin["history"].values()]:
+        fail(f"phase 23b: final step / history lengths differ: {chaos} vs "
+             f"{twin}")
+    if runs["chaos"]["world_sizes"] != [2, 1] or \
+            runs["chaos"]["restarts"] < 1:
+        fail(f"phase 23b: world sizes {runs['chaos']['world_sizes']}")
+    # only the W' = 1 generation's rank prints its launches: none means it
+    # resumed after the last epoch and the cross-world hold held nothing
+    for name in PHASE23_KERNELS:
+        if runs["chaos"]["launches"].get(name, 0) == 0:
+            fail(f"phase 23b: the W' = 1 generation launched no {name}")
+    if len(set(fps)) != 1 or fps[0] != host_fp or \
+            len(runs["chaos"]["plan_fps"]) < 3:
+        fail(f"phase 23b: plan_fp {fps}, the host's {host_fp}")
+    if not (rel < 5e-4 and hist_rel <= 5e-4):
+        fail(f"phase 23b: param_norm rel {rel}, history rel {hist_rel} "
+             "above 5e-4")
+    for name, r in runs.items():
+        if r["live_groups"]:
+            fail(f"phase 23b: {name}: process groups alive "
+                 f"{r['live_groups']}")
+    return out
+
+
+def glob_paths(root, pattern):
+    import glob
+    return glob.glob(os.path.join(root, pattern))
+
+
+def log_tails(paths, n=1500):
+    """The last `n` characters of each log, for a failure's message."""
+    out = []
+    for path in sorted(paths):
+        with open(path) as f:
+            out.append(f"--- {os.path.basename(path)}: {f.read()[-n:]}")
+    return "\n".join(out)
+
+
+def hpo_chaos(tmp, card):
+    """23c: three trials at concurrency 2 under trial-kill@1 and
+    trial-hang@2 (the watchdog catches the hang), their twins, then one
+    PBT fork of the best trial."""
+    from hydragnn_tpu_torch.hpo import (TrialSpec, TrialSupervisor,
+                                        committed_steps)
+    _, TrialLauncher = smoke_launchers()
+    kw = dict(num_epochs=HPO_EPOCHS, num_configs=HPO_CONFIGS,
+              hang_after_epoch=1, device=PHASE23_DEVICE)
+    specs = [TrialSpec(i, {"learning_rate": lr}, seed=i)
+             for i, lr in enumerate(HPO_RATES)]
+    work = os.path.join(tmp, "c_chaos")
+    la = TrialLauncher(work, **kw)
+    sup = TrialSupervisor(la, specs, max_retries=2,
+                          heartbeat_s=TRIAL_HEARTBEAT_S, backoff_s=0.5,
+                          concurrency=2, poll_interval_s=0.02)
+    t0 = time.perf_counter()
+    recs = sup.run(deadline_s=600)
+    wall = time.perf_counter() - t0
+    view = sup.ledger.data_view()
+    print(f"phase 23c ledger: {json.dumps(view)}", flush=True)
+    hung = [e for e in sup.ledger.records() if e["event"] == "hung"]
+    out = dict(wall_s=wall, live_groups=la.live_process_groups(),
+               records={t: dataclasses.asdict(r) for t, r in recs.items()},
+               ledger=view,
+               watchdog_stalled_s=[e["timing"]["stalled_s"] for e in hung])
+    if any(r.state != "completed" for r in recs.values()):
+        fail(f"phase 23c: trials not all completed: {out['records']}\n"
+             f"{log_tails(glob_paths(work, 'trial_*/trial.log'))}")
+    if not (recs[1].resumes == 1 and recs[2].resumes == 1 and hung
+            and hung[0]["trial"] == 2):
+        fail(f"phase 23c: the kill and the hang did not both land: {view}")
+    # the twins of trials 1-2 and the fork run side by side: the plan's
+    # trial indices (1, 2) are spent, so their consultations fire nothing
+    import threading
+    twin_work = os.path.join(tmp, "c_twin")
+    tla = TrialLauncher(twin_work, **kw)
+    t1 = time.perf_counter()
+    twins = threading.Thread(target=TrialSupervisor(
+        tla, specs[1:], max_retries=0, heartbeat_s=TRIAL_HEARTBEAT_S,
+        concurrency=2, poll_interval_s=0.1).run, args=(600,))
+    twins.start()
+    # the fork: the best finished trial, perturbed from the fork's seed
+    best = min(recs, key=lambda t: recs[t].objective)
+    fsup = TrialSupervisor(la, [specs[best]], heartbeat_s=TRIAL_HEARTBEAT_S,
+                           concurrency=1, poll_interval_s=0.1)
+    fsup.prune(best)        # the donor is done: registered, never relaunched
+    fork = fsup.fork_trial(best, len(specs), HPO_SPACE,
+                           donor_val=recs[best].objective)
+    frecs = fsup.run(deadline_s=600)
+    out["fork_wall_s"] = time.perf_counter() - t1
+    twins.join()
+    out["twin_wall_s"] = time.perf_counter() - t1
+    bitwise = {}
+    for tid in (1, 2):
+        got = read_json(os.path.join(la.trial_dir(tid), "result.json"))
+        want = read_json(os.path.join(tla.trial_dir(tid), "result.json"))
+        bitwise[tid] = (got["history"] == want["history"]
+                        and got["param_digest"] == want["param_digest"])
+    out["bitwise"] = bitwise
+    fdir = la.trial_dir(fork.trial_id)
+    meta = read_json(os.path.join(fdir, "FORK.json"))
+    donor_ckpt = glob_paths(os.path.join(la.trial_dir(best), "logs"),
+                            "*/checkpoint")[0]
+    with open(os.path.join(donor_ckpt, "BEST")) as f:
+        donor_best = int(f.readline().strip()[5:])
+    # the newest per-epoch commit (the run-complete save re-saves the
+    # best state, so LATEST can name an earlier step)
+    fork_latest = committed_steps(fdir)[-1]
+    fres = read_json(os.path.join(fdir, "result.json"))
+    per_epoch = fork_latest - donor_best
+    out["fork"] = dict(params=fork.params, donor=best,
+                       state=frecs[fork.trial_id].state, meta=meta,
+                       donor_best_step=donor_best, latest_step=fork_latest,
+                       epochs=len(fres["history"]["train_loss"]),
+                       ledger=fsup.ledger.data_view())
+    logs = glob_paths(work, "trial_*/trial.log")
+    out["launches"], out["children_counted"] = child_launches(
+        logs + glob_paths(twin_work, "trial_*/trial.log"))
+    out["live_groups"] += la.live_process_groups() + \
+        tla.live_process_groups()
+    print(f"phase 23c: 3 hpo runner trials (GIN, {HPO_EPOCHS} epochs) at "
+          f"concurrency 2 on the card under trial-kill@1;trial-hang@2, "
+          f"heartbeat {TRIAL_HEARTBEAT_S} s: all completed in {wall:.1f} s "
+          f"(then the twins of trials 1-2 beside the fork: "
+          f"{out['twin_wall_s']:.1f} s); the watchdog "
+          f"caught the hang after {out['watchdog_stalled_s']} s without "
+          f"progress; result.json bitwise its twin's: {bitwise}; fork of "
+          f"trial {best} as trial {fork.trial_id} params {fork.params}: "
+          f"{out['fork']['state']}, donor BEST step {donor_best}, the "
+          f"fork's steps {donor_best} -> {fork_latest} over "
+          f"{out['fork']['epochs']} epochs from epoch 0, "
+          f"{out['fork_wall_s']:.1f} s; launches {out['launches']} from "
+          f"{out['children_counted']} children that ended (killed and hung "
+          f"ones uncounted); live process groups {out['live_groups']} "
+          f"(card: {card})", flush=True)
+    if not all(bitwise.values()):
+        fail(f"phase 23c: a resumed trial differs from its twin: {bitwise}")
+    # only the resumed launch of trials 1-2 prints its launches: none
+    # means it resumed after the last epoch and held nothing
+    resumed = {t: child_launches([os.path.join(la.trial_dir(t),
+                                               "trial.log")])[0]
+               for t in (1, 2)}
+    if any(resumed[t].get(name, 0) == 0 for t in resumed
+           for name in PHASE23_KERNELS):
+        fail(f"phase 23c: a resumed trial trained nothing: {resumed}")
+    if out["fork"]["state"] != "completed" or \
+            meta["donor_step"] != donor_best or \
+            out["fork"]["epochs"] != HPO_EPOCHS or \
+            per_epoch != HPO_EPOCHS * 2:
+        fail(f"phase 23c: the fork did not start from the donor's BEST at "
+             f"epoch 0: {out['fork']}")
+    if out["live_groups"]:
+        fail(f"phase 23c: process groups alive {out['live_groups']}")
+    return out
+
+
+def qm9_search(tmp, card):
+    """23d: examples/qm9_hpo.py, QM9_TRIALS trials of QM9_EPOCHS epoch on
+    QM9_SAMPLES molecules through the CBO, as one counted child."""
+    work = os.path.join(tmp, "d_qm9")
+    os.makedirs(work)
+    results = os.path.join(work, "hpo_results.json")
+    log_path = os.path.join(work, "qm9.log")
+    from hydragnn_tpu_torch.hpo.process import _child_env
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run(
+            [sys.executable, SMOKE_PATH, "--counted-child",
+             "hydragnn_tpu_torch.examples.qm9_hpo", "--num_trials",
+             str(QM9_TRIALS), "--num_samples", str(QM9_SAMPLES),
+             "--trial_epochs", str(QM9_EPOCHS), "--log_path", results,
+             "--device", PHASE23_DEVICE], cwd=work, stdout=log,
+            stderr=subprocess.STDOUT, timeout=600, env=_child_env(),
+            start_new_session=True)
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        fail(f"phase 23d: the qm9 search exited {proc.returncode}: "
+             f"{text[-3000:]}")
+    res = read_json(results)
+    hist = res["history"]
+    values = [h["value"] for h in hist]
+    reasons = [ln for ln in text.splitlines()
+               if ln.startswith("trial failed:")]
+    finite = [i for i, v in enumerate(values) if np.isfinite(v)]
+    argmin = (hist[min(finite, key=lambda i: values[i])]["params"]
+              if finite else None)
+    launches, counted = child_launches([log_path])
+    out = dict(wall_s=wall, history=hist, best=res["best"],
+               failures=reasons, launches=launches)
+    drawn = [(h["params"]["model_type"], h["value"]) for h in hist]
+    print(f"phase 23d: examples/qm9_hpo/qm9.json through "
+          f"hydragnn_tpu_torch.examples.qm9_hpo, {QM9_TRIALS} trials of "
+          f"{QM9_EPOCHS} epoch on {QM9_SAMPLES} molecules via the CBO on "
+          f"the card: {drawn}; failures {reasons}; best {res['best']} "
+          f"(the history's argmin {argmin}); {wall:.1f} s; launches "
+          f"{launches} (card: {card})",
+          flush=True)
+    # every model of SPACE is ported: a trial that fails on the card is a
+    # fault of the port, whatever reason it prints
+    if len(hist) != QM9_TRIALS or len(finite) != QM9_TRIALS or reasons:
+        fail(f"phase 23d: {len(hist)} of {QM9_TRIALS} trials, "
+             f"{len(finite)} finite objectives; failures {reasons}")
+    if res["best"] != argmin:
+        fail(f"phase 23d: best {res['best']} is not the argmin {argmin}")
+    pna = any(h["params"]["model_type"] == "PNA" for h in hist)
+    for name in ("segment_sum",) + (
+            ("nbr_aggregate", "nbr_aggregate_backward") if pna else ()):
+        if launches.get(name, 0) == 0:
+            fail(f"phase 23d: {name} never launched by the search's trials")
+    return out
+
+
+def supervision_phase(torch, card, counted, twin22):
+    """Phase 23 (see the module docstring): (record, launches). 23a, 23b
+    and 23d on one thread (the rank sites in order), 23c on another,
+    under one fault plan."""
+    import tempfile
+    import threading
+    from hydragnn_tpu_torch.utils.faults import (install_fault_plan,
+                                                 parse_fault_plan)
+    t_phase = time.perf_counter()
+    rec, errors = {}, []
+
+    def guard(parts):
+        def run():
+            for key, fn in parts:
+                try:
+                    t0 = time.perf_counter()
+                    rec[key] = fn()
+                    rec[key]["part_s"] = time.perf_counter() - t0
+                except BaseException as exc:  # noqa: BLE001 — re-raised
+                    errors.append(f"{key}: {type(exc).__name__}: {exc}")
+                    return
+        return run
+    with tempfile.TemporaryDirectory(prefix="hydragnn_supervised_") as tmp:
+        install_fault_plan(parse_fault_plan(PHASE23_PLAN))
+        try:
+            threads = [threading.Thread(target=guard([
+                ("a", lambda: ogbn_elastic(tmp, twin22, card)),
+                ("b", lambda: elastic_gin(tmp, card)),
+                ("d", lambda: qm9_search(tmp, card))])),
+                threading.Thread(target=guard([
+                    ("c", lambda: hpo_chaos(tmp, card))]))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            install_fault_plan(None)
+    if errors:
+        fail(f"phase 23: {errors}")
+    launches = {}
+    for part in ("a", "b", "c", "d"):
+        counted(rec[part]["launches"])
+        for name, c in rec[part]["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    rec.update(wall_s=time.perf_counter() - t_phase, launches=launches,
+               fault_plan=PHASE23_PLAN, card=card)
+    print(f"phase 23 took {rec['wall_s']:.1f} s; launches on the "
+          f"supervised paths {launches} (card: {card})", flush=True)
+    for name in PHASE23_KERNELS:
+        if launches.get(name, 0) == 0:
+            fail(f"phase 23: {name} never launched on the supervised paths")
+    return rec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -9904,6 +10437,11 @@ def main() -> int:
         [records["segment_sum"]["max_abs_err"]]
         + [r["max_abs_err"] for r in sampling_seg])
 
+    # ---------------------------------------------------------- phase 23
+    stamp(23)
+    supervised, sup_launches = supervision_phase(torch, card, counted,
+                                                 ogbn_rec["a"])
+
     stamp("cpu")
     cpu_settle()
     print("training: " + json.dumps({"card": card, "paths": train_paths,
@@ -9922,6 +10460,7 @@ def main() -> int:
           flush=True)
     print("gfm: " + json.dumps(dict(gfm_rec, card=card)), flush=True)
     print("sampling: " + json.dumps(dict(ogbn_rec, card=card)), flush=True)
+    print("supervision: " + json.dumps(supervised), flush=True)
 
     for name, c in launches.items():
         if c == 0:
@@ -9986,6 +10525,8 @@ def main() -> int:
             extra["launches_gfm_path"] = gfm_launches[name]
         if sampling_launches.get(name):
             extra["launches_sampling_path"] = sampling_launches[name]
+        # phase 23's children (killed and stopped ones uncounted)
+        extra["launches_supervised_path"] = sup_launches.get(name, 0)
         if name == "filter_scatter":
             extra["backward_launches_per_captured_step"] = \
                 per_captured_step("filter_scatter_backward")
@@ -10031,4 +10572,6 @@ if __name__ == "__main__":
         sys.exit(spmd_child(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--gfm-rank"]:
         sys.exit(md_child(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--counted-child"]:
+        sys.exit(counted_child(*sys.argv[2:]))
     sys.exit(main())

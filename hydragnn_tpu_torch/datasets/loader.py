@@ -31,13 +31,17 @@ the same global order and takes its bin of each global step of
 `pack_nproc` bins (`graphs.packing.plan_steps`); a padding bin of the
 tail is an all-padding batch.
 
-Stacked shards (`num_shards` M > 1, fixed-shape only; the pipeline's
-microbatches, JAX loader.py:318-339): each batch of `batch_size` graphs
-is split into M shards of `batch_size / M` graphs in order, each collated
-to the one per-shard shape (room for `batch_size / M` of the largest
-graphs, `batch_size / M + 1` graph slots), an empty shard of the tail an
-all-padding batch, and stacked into a GraphBatch of [M, ...] tensors
-(`stack_batches`; `unstack_batch` is its inverse). Background collation
+Stacked shards (`num_shards` M > 1: the pipeline's microbatches, a
+process's data shards; JAX loader.py:318-339): fixed-shape, each batch of
+`batch_size` graphs is split into M shards of `batch_size / M` graphs in
+order, each collated to the one per-shard shape (room for `batch_size /
+M` of the largest graphs, `batch_size / M + 1` graph slots); packed, a
+step takes M consecutive bins of the rank's slice (the budget sized for
+`batch_size / M` average graphs), so the global plan is sliced by
+`num_shards * pack_nproc` whatever the split between them. An empty
+shard of the tail is an all-padding batch; the shards are stacked into a
+GraphBatch of [M, ...] tensors (`stack_batches`; `unstack_batch` is its
+inverse). Background collation
 and the batch cache (A10) are not ported.
 
 `_postprocess_shard(batch, shard_sel)` is a subclass's hook on each
@@ -135,9 +139,6 @@ class GraphDataLoader:
             raise ValueError(
                 f"batch_size {batch_size} must divide evenly over "
                 f"{num_shards} shards")
-        if num_shards > 1 and packing:
-            raise ValueError("stacked shards are fixed-shape: packing "
-                             "takes num_shards=1")
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_shards = num_shards
@@ -154,7 +155,8 @@ class GraphDataLoader:
         if self.packing:
             nodes, edges = self._sample_sizes()
             if pack_budget is None:
-                pack_budget = choose_budget(nodes, edges, batch_size,
+                pack_budget = choose_budget(nodes, edges,
+                                            self.graphs_per_shard,
                                             lookahead=pack_lookahead)
             elif pack_lookahead:
                 pack_budget = dataclasses.replace(
@@ -207,13 +209,13 @@ class GraphDataLoader:
         """The epoch's pack plan, (global bins, this rank's selections),
         built once an epoch (only the current epoch's is kept): the plan
         of the global order, sliced per (pack_rank, pack_nproc); each
-        selection is a 1-tuple of one bin."""
+        selection is a tuple of `num_shards` bins."""
         key = self.epoch if self.shuffle else -1
         hit = self._plan_cache.get(key)
         if hit is None:
             nodes, edges = self._sample_sizes()
             bins = pack_order(self._order(), nodes, edges, self.pack_budget)
-            hit = (bins, plan_steps(bins, 1, self.pack_nproc,
+            hit = (bins, plan_steps(bins, self.num_shards, self.pack_nproc,
                                     self.pack_rank,
                                     drop_last=self.drop_last))
             self._plan_cache = {key: hit}
@@ -222,8 +224,9 @@ class GraphDataLoader:
     def global_plan_fingerprint(self) -> str:
         """sha256 (first 16 hex digits) of the current epoch's global pack
         plan: its bins before the per-rank slicing, the budget's shape and
-        the global shard count (`pack_nproc`, one shard a rank), as the
-        JAX package's run_training logs it; equal on every rank.
+        the global shard count (`num_shards * pack_nproc`), as the JAX
+        package's run_training logs it; equal on every rank and at every
+        split of that count between ranks and stacked shards.
         Packing-mode loaders only."""
         if not self.packing:
             raise ValueError(
@@ -232,7 +235,8 @@ class GraphDataLoader:
         bins, _ = self._plan()
         b = self.pack_budget
         payload = repr((tuple(tuple(int(i) for i in bn) for bn in bins),
-                        (b.n_node, b.n_edge, b.n_graph), self.pack_nproc))
+                        (b.n_node, b.n_edge, b.n_graph),
+                        self.num_shards * self.pack_nproc))
         return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
     def padding_stats(self):
@@ -252,7 +256,7 @@ class GraphDataLoader:
 
     def _selections(self) -> List[Tuple[int, ...]]:
         """The epoch's batch index tuples, in yield order; packed, each is
-        a tuple of one bin's tuple."""
+        a tuple of `num_shards` bins' tuples."""
         if self.packing:
             return self._plan()[1]
         order = self._order()
@@ -262,7 +266,17 @@ class GraphDataLoader:
 
     def _build_batch(self, sel: Tuple[int, ...]) -> GraphBatch:
         if self.packing:
-            (sel,) = sel
+            # one fetch of every shard's samples, as the JAX loader does
+            samples = fetch_samples(self.dataset,
+                                    [i for bn in sel for i in bn])
+            shards, at = [], 0
+            for bn in sel:
+                shards.append(self._postprocess_shard(
+                    self._collate_shard(samples[at:at + len(bn)]),
+                    tuple(bn)))
+                at += len(bn)
+            return shards[0] if self.num_shards == 1 else \
+                stack_batches(shards)
         samples = fetch_samples(self.dataset, sel)
         if self.num_shards == 1:
             return self._postprocess_shard(self._collate_shard(samples),

@@ -28,7 +28,6 @@ imported; the run is on the card unless `--device cpu`.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import time
@@ -46,8 +45,9 @@ from ..train.gfm import (GfmEpochAccumulator, make_gfm_eval_step,
                          make_gfm_train_step)
 from ..train.optimizer import Optimizer
 from ..train.train_step import TrainState
-from ..utils.checkpoint import (committed_steps, load_existing_model,
-                                save_model)
+from ..elastic.runner import param_digest, start_alive_ticker
+from ..hpo.process import committed_steps
+from ..utils.checkpoint import load_existing_model, save_model
 from ..utils.devices import resolve_device
 from ..utils.envflags import resolve_gfm, resolve_telemetry
 
@@ -67,21 +67,6 @@ def load_gfm_config(path: str = DEFAULT_CONFIG, num_epochs=None,
     if batch_size is not None:
         train_cfg["batch_size"] = batch_size
     return config
-
-
-def param_digest(state) -> Dict[str, object]:
-    """sha256 over the state's parameters and buffers in sorted key
-    order (each key's bytes, then its tensor's), plus their float64 norm.
-    The port's own digest: it is not the JAX package's, which hashes the
-    Flax parameter tree by its paths."""
-    h = hashlib.sha256()
-    sq = 0.0
-    for name, t in sorted(state.state_dict().items()):
-        arr = t.detach().cpu().contiguous().numpy()
-        h.update(name.encode())
-        h.update(arr.tobytes())
-        sq += float((arr.astype(np.float64) ** 2).sum())
-    return {"param_digest": h.hexdigest(), "param_norm": float(np.sqrt(sq))}
 
 
 def run(args, optimizer=None) -> "tuple[dict, types.SimpleNamespace]":
@@ -260,8 +245,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # the first heartbeat before any heavy work (the supervisor's
+    # watchdog), then one line a period
     print(f"gfm-runner: starting (rank={args.rank} world={args.world} "
           f"resume={args.resume})", flush=True)
+    start_alive_ticker("gfm-runner")
     run(args)
     return 0
 

@@ -21,7 +21,7 @@ val accuracy, and a committed checkpoint under <job-dir>/logs whose
 metadata holds the history; `--resume` restarts from the newest one. It
 prints `plan_fp=` (the plan's fingerprint, the JAX package's for the same
 inputs) and writes <job-dir>/result.json atomically (rank 0) with the
-port's `param_digest` (examples/gfm.py).
+port's `param_digest` (elastic/runner.py).
 
 As the JAX driver does, it trains with Adam at `Optimizer.learning_rate`,
 not the config's AdamW (ROADMAP, reference quirks), and draws the first
@@ -49,12 +49,12 @@ from ..telemetry import record_hist_refresh
 from ..train.optimizer import Optimizer
 from ..train.train_step import (TrainState, make_sampled_eval_step,
                                 make_sampled_train_step)
-from ..utils.checkpoint import (committed_steps, load_existing_model,
-                                save_model)
+from ..elastic.runner import param_digest, start_alive_ticker
+from ..hpo.process import committed_steps
+from ..utils.checkpoint import load_existing_model, save_model
 from ..utils.devices import resolve_device
 from ..utils.envflags import resolve_sampling
 from ..utils.weights import load_jax_variables
-from .gfm import param_digest
 
 DEFAULT_CONFIG = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
@@ -263,8 +263,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # the first heartbeat before any heavy work (the supervisor's
+    # watchdog), then one line a period
     print(f"ogbn-runner: starting (rank={args.rank} world={args.world} "
           f"resume={args.resume})", flush=True)
+    start_alive_ticker("ogbn-runner")
     run(args)
     return 0
 

@@ -16,7 +16,9 @@ extremes with the single-device gradient rule (`cross_slot_extreme`), then
 takes the statistics once. BatchNorm, pooling and the heads stay
 node-side and run once, on the home device: GSPMD's replicated node
 compute. The models that split are `GRAPH_SHARD_TYPES`; the others
-raise NotImplementedError naming A9.
+raise NotImplementedError naming A9. A grid of one graph slot is a
+process's stacked data shards (run_training's `data_devices`): any model,
+each shard's forward the single-device one.
 
 The step (`make_composed_train_step`) is one autograd graph over the
 grid: the loss is the mean of the D data shards' losses, each shard's
@@ -100,7 +102,17 @@ class ComposedGrid:
         self.slots = [Slots(devs[d * G:(d + 1) * G], base=d * G)
                       for d in range(D)]
 
+    def axis(self, d: int):
+        """Data shard d's graph axis for `graph_parallel.composed`: its
+        slots, or None for a grid of one graph slot (data shards only:
+        each shard's forward is the single-device one)."""
+        return self.slots[d] if self.graph > 1 else None
+
     def join(self) -> None:
+        """The caller's streams wait for the slot streams; a grid of one
+        graph slot issued nothing there (`axis`), so nothing waits."""
+        if self.graph == 1:
+            return
         for s in self.slots:
             s.join()
 
@@ -139,7 +151,8 @@ def make_composed_train_step(model, cfg: ModelConfig, tx, grid: ComposedGrid,
     ZeRO knobs; the update is the replicated one (the module's
     docstring). A step is a `train_step.TrainStep` (a CUDA graph on the
     card)."""
-    check_graph_shard_model(cfg.model_type)
+    if grid.graph > 1:
+        check_graph_shard_model(cfg.model_type)
     loss_fn = make_loss_fn(model, cfg, loss_name, compute_grad_energy,
                            energy_weight, force_weight, compute_dtype)
     D = grid.data
@@ -158,7 +171,7 @@ def make_composed_train_step(model, cfg: ModelConfig, tx, grid: ComposedGrid,
                 with torch.no_grad():
                     for buf, s in zip(bufs, saved):
                         buf.copy_(s)
-            with composed(grid.slots[d]):
+            with composed(grid.axis(d)):
                 total, metrics = loss_fn(b)
             losses.append(total)
             rows.append(metrics)
@@ -200,14 +213,15 @@ def make_composed_eval_step(model, cfg: ModelConfig, grid: ComposedGrid,
     """eval_step(state, batch) -> (metrics, None): each data shard's eval
     metrics over the graph slots, weighted by its real graphs,
     sum(m * w) / max(sum(w), 1)."""
-    check_graph_shard_model(cfg.model_type)
+    if grid.graph > 1:
+        check_graph_shard_model(cfg.model_type)
     forward = make_forward_fn(model, cfg, compute_dtype)
 
     def body(state, batch: GraphBatch, scalars=None):
         shards = _data_shards(batch, grid)
         rows, ws = [], []
         for d, b in enumerate(shards):
-            with composed(grid.slots[d]):
+            with composed(grid.axis(d)):
                 metrics, _ = eval_metrics_and_outputs(
                     model, cfg, loss_name, b, compute_grad_energy,
                     energy_weight, force_weight, forward)

@@ -112,17 +112,19 @@ def create_dataloaders(trainset, valset, testset, batch_size: int,
     with `num_shards` stacked shards, the pipeline's microbatches), or
     the `n_node` / `n_edge` / `neighbor_k` a multi-process caller reduced
     over the ranks (`loader_budgets`). With `packing`: the pack budget `choose_budget`
-    sizes once over all three splits for `batch_size` average graphs
-    (`pack_lookahead` its planner window), each rank taking its bins of
-    the global plan (`pack_rank` of `pack_nproc`). `batch_transform`
+    sizes once over all three splits for `batch_size / num_shards` average
+    graphs (`pack_lookahead` its planner window), each rank taking its
+    `num_shards` bins a step of the global plan (`pack_rank` of
+    `pack_nproc`). `batch_transform`
     (DimeNet's triplets) rewrites every batch."""
     all_samples = list(trainset) + list(valset) + list(testset)
     pack_budget = None
     k = neighbor_k
     if packing:
         nodes, edges = sample_sizes(all_samples)
-        pack_budget = choose_budget(nodes, edges, max(batch_size, 1),
-                                    lookahead=pack_lookahead)
+        pack_budget = choose_budget(
+            nodes, edges, max(batch_size // max(num_shards, 1), 1),
+            lookahead=pack_lookahead)
         n_node = n_edge = None
     elif n_node is None or n_edge is None:
         n_node, n_edge, kb = loader_budgets(

@@ -67,7 +67,17 @@ init_distributed` makes from HYDRAGNN_MASTER_ADDR / _PORT, SLURM_NPROCS
 and SLURM_PROCID (or one the caller made). In a group of W ranks,
 `num_shards` (default: W) resolves as the JAX package resolves it over W
 devices, one a rank; a single process asked for more falls back to 1
-with JAX's warning. With W > 1 each rank keeps its contiguous slice of
+with JAX's warning. `data_devices` gives a process several data devices,
+the counterpart of a JAX process's local devices (several may be one
+card, as graph_devices may): the shards then resolve over W times their
+count, and one process's shards run stacked, [M, ...] batches through
+the composed step of parallel/composite.py without a graph axis (the
+loss the shards' mean, each normalizing with its own batch statistics,
+the running statistics and metrics averaged: what M ranks of one shard
+each compute); packed, a step takes M bins of the global plan, so W
+ranks of one shard and one process of W shards train the same steps.
+Several shards a process in a group of W > 1 raise NotImplementedError
+naming A9. With W > 1 each rank keeps its contiguous slice of
 the replicated splits (HYDRAGNN_MP_DATA=replicated, the default; the
 val/test splits are kept whole when too small to slice) or, packed,
 its bins of the one global pack plan; with HYDRAGNN_MP_DATA=local the
@@ -249,7 +259,8 @@ def _graph_device_list(graph_devices, graph_shards: int) -> list:
 def run_training(config_or_path, datasets: Optional[Sequence] = None,
                  device="cuda", num_shards: Optional[int] = None,
                  pipeline_devices: Optional[Sequence] = None,
-                 graph_devices: Optional[Sequence] = None):
+                 graph_devices: Optional[Sequence] = None,
+                 data_devices: Optional[Sequence] = None):
     config = load_config(config_or_path)
     check_training_knobs(config)
     # the fault plan (HYDRAGNN_FAULT_PLAN over Training.fault_plan) is
@@ -312,10 +323,20 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         num_shards = resolve_num_shards(
             num_shards, batch_size, device_budget=len(gdevs) // graph_shards)
     else:
-        # the shard count over one device a rank (JAX
-        # run_training.py:270-292)
-        num_shards = resolve_num_shards(num_shards, batch_size)
+        # the shard count over every rank's data devices, one a rank by
+        # default (JAX run_training.py:270-292: every process's local
+        # devices)
+        num_shards = resolve_num_shards(
+            num_shards, batch_size,
+            device_budget=world * len(data_devices or [dev]))
     multiprocess_path_check(world, pipeline_stages, graph_shards, num_shards)
+    data_grid = None
+    if pipe is None and graph_shards == 1 and num_shards > world:
+        if world > 1:
+            _not_ported(f"{num_shards // world} data shards a process in a "
+                         f"group of {world}", "A9")
+        # one process's data shards, stacked on its data devices
+        data_grid = ComposedGrid(data_devices, num_shards, 1)
     if graph_shards > 1 and nbr_fmt:
         # the dense [N, K] layout is node-major: edge sharding needs the
         # edge list (JAX run_training.py:315-321)
@@ -347,14 +368,18 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         packing=packing, pack_lookahead=resolve_pack_lookahead(train_cfg),
         batch_transform=batch_transform, pack_rank=pack_rank,
         pack_nproc=pack_nproc,
-        num_shards=num_shards if (pipe or graph_shards > 1) else 1,
+        num_shards=(num_shards if (pipe or graph_shards > 1
+                                   or data_grid is not None) else 1),
         **budgets)
     if world > 1:
         # unequal step counts would deadlock the collectives
         for name, ld in (("train", train_loader), ("validate", val_loader),
                          ("test", test_loader)):
             assert_equal_across_processes(len(ld), f"{name} batches/epoch")
-    if packing and verbosity >= 1:
+    if packing:
+        # every rank logs the global plan's fingerprint, at any verbosity
+        # (JAX run_training.py:362-372): a world-size-elastic restart
+        # must log the same value
         b = train_loader.pack_budget
         print(f"batch_packing: budget n_node={b.n_node} n_edge={b.n_edge} "
               f"n_graph={b.n_graph} lookahead={b.lookahead} "
@@ -375,11 +400,11 @@ def run_training(config_or_path, datasets: Optional[Sequence] = None,
         state = TrainState.create(model, tx)
         train_step, eval_step = _pipeline_steps(
             model, tx, loss_name, cge, e_w, f_w, compute_dtype, pipe)
-    elif graph_shards > 1:
+    elif graph_shards > 1 or data_grid is not None:
         # the (data x graph) grid of slots (parallel/composite.py)
-        grid = ComposedGrid(gdevs, num_shards, graph_shards)
+        grid = data_grid or ComposedGrid(gdevs, num_shards, graph_shards)
         if grid.home != stage_device(dev):
-            raise ValueError(f"graph devices {[str(d) for d in gdevs]} "
+            raise ValueError(f"graph devices {[str(d) for d in grid.devices]} "
                              f"are not the run's device {dev}")
         model = create_model(mcfg, device=dev)
         state = TrainState.create(model, tx)

@@ -11,12 +11,17 @@ Under `<path>/<log_name>/checkpoint/` (path "./logs" by default):
   <size> <file>` line per payload file. A dir without `COMMITTED` is a save
   whose writer died and is never restored;
 * `LATEST` names the newest committed save; `BEST` the best-validation
-  one (line 2: its own validation loss);
+  one (line 2: its own validation loss); a save writes BEST before
+  LATEST, so LATEST naming it means its markers are complete;
 * `gc_checkpoints` keeps the newest k committed saves plus the `LATEST` and
   `BEST` targets and deletes by rename-then-rm, so a crash mid-delete
   leaves a `.gc-` dir no reader mistakes for a checkpoint;
-* restore prefers `LATEST`, re-hashes the payload against the manifest,
-  and falls back to the newest save that verifies.
+* restore takes the saves at or before the step `LATEST` names
+  (`restorable_steps`), newest first, re-hashes the payload against the
+  manifest, and falls back to the next that verifies. A committed save
+  past `LATEST` is one whose writer died before its last marker: a
+  resume from it would miss that save's `BEST`, so it is skipped, and a
+  run killed inside its first save restarts from scratch.
 
 Best-validation saves made during training go through
 `make_async_best_checkpoint_fn`: the state is copied to the host at the
@@ -37,7 +42,6 @@ resume skips it.
 from __future__ import annotations
 
 import dataclasses
-import glob
 import hashlib
 import json
 import logging
@@ -228,20 +232,23 @@ def verify_manifest(target: str) -> Optional[str]:
 def _finalize_commit(target: str, metadata: Optional[Dict[str, Any]],
                      mark_best: bool, keep_last_k: Optional[int],
                      best_val: Optional[float]) -> None:
-    """resume.json, then COMMITTED with the manifest, then LATEST/BEST,
-    then GC: a dir is committed only once everything a restore needs is
-    on disk, and the markers only name committed dirs."""
+    """resume.json, then COMMITTED with the manifest, then BEST, then
+    LATEST, then GC: a dir is committed only once everything a restore
+    needs is on disk, and the markers only name committed dirs. LATEST
+    comes last (the JAX package writes it before BEST), so a save that
+    LATEST covers has its BEST too, and restore takes only such saves
+    (`restorable_steps`)."""
     d = os.path.dirname(target)
     if metadata is not None:
         _write_marker(target, RESUME_META, json.dumps(metadata))
     _write_marker(target, COMMIT_MARKER, "\n".join(
         [os.path.basename(target)] + _manifest_lines(target)))
-    _write_marker(d, "LATEST", os.path.basename(target))
     if mark_best:
         content = os.path.basename(target)
         if best_val is not None:
             content += f"\n{best_val!r}"
         _write_marker(d, "BEST", content)
+    _write_marker(d, "LATEST", os.path.basename(target))
     if keep_last_k:
         gc_checkpoints(d, keep_last_k)
 
@@ -380,25 +387,6 @@ def make_async_best_checkpoint_fn(log_name: str, path: str = "./logs",
 
 # ------------------------------------------------------------ retention --
 
-def committed_steps(job_dir: str) -> List[int]:
-    """The sorted committed steps over every run under `<job_dir>/logs`
-    but those whose name starts with "_" (the port's copy of
-    hydragnn_tpu/hpo/process.py `committed_steps`, which a driver's
-    `--resume` reads)."""
-    steps: List[int] = []
-    for ckpt_dir in sorted(glob.glob(
-            os.path.join(job_dir, "logs", "*", "checkpoint"))):
-        run_name = os.path.basename(os.path.dirname(ckpt_dir))
-        if run_name.startswith("_"):
-            continue
-        for p in sorted(os.listdir(ckpt_dir)):
-            if (p.startswith("step_") and p.split("_")[-1].isdigit()
-                    and os.path.exists(os.path.join(ckpt_dir, p,
-                                                    COMMIT_MARKER))):
-                steps.append(int(p.split("_")[-1]))
-    return sorted(steps)
-
-
 def _step_dirs(d: str) -> List[Tuple[int, str]]:
     """(step, path) of every step_<N> dir, newest first."""
     out = []
@@ -501,18 +489,37 @@ def _load(target: str, like: TrainState) -> TrainState:
     return _state_from_payload(payload, like)
 
 
-def _restore_candidates(d: str) -> List[str]:
-    """Committed step dirs, the LATEST target first, then newest first."""
-    preferred = None
+def _latest_step(d: str) -> Optional[int]:
+    """The step LATEST names, or None without a readable LATEST."""
     try:
         with open(os.path.join(d, "LATEST")) as f:
-            preferred = os.path.join(d, f.read().strip())
+            name = f.readline().strip()
     except OSError:
-        pass
-    ordered = [full for _, full in _step_dirs(d) if verify_checkpoint(full)]
-    if preferred in ordered:
-        ordered = [preferred] + [p for p in ordered if p != preferred]
-    return ordered
+        return None
+    return int(name[5:]) if (name.startswith("step_")
+                             and name[5:].isdigit()) else None
+
+
+def restorable_steps(d: str) -> List[int]:
+    """The committed steps under the checkpoint dir `d` that a restore
+    may take, newest first: those at or before the step LATEST names,
+    none without LATEST. A save writes LATEST last, so a committed dir
+    past it belongs to a writer killed before its BEST or LATEST; the run
+    that resumes retrains that stretch instead, as an uninterrupted run
+    trained it."""
+    latest = _latest_step(d) if os.path.isdir(d) else None
+    if latest is None:
+        return []
+    return [s for s, full in _step_dirs(d) if s <= latest
+            and os.path.exists(os.path.join(full, COMMIT_MARKER))]
+
+
+def _restore_candidates(d: str) -> List[str]:
+    """The restorable step dirs that verify, newest first (the LATEST
+    target first)."""
+    steps = set(restorable_steps(d))
+    return [full for s, full in _step_dirs(d)
+            if s in steps and verify_checkpoint(full)]
 
 
 def load_existing_model(state_like: TrainState, log_name: str,

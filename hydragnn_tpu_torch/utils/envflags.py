@@ -390,3 +390,69 @@ def resolve_sampling(train_cfg=None) -> "tuple[tuple, int, int, str]":
                            int(block.get("partitions", 1)))
     mode = str(block.get("partition_mode", "range"))
     return fanouts, max(int(k), 0), max(int(parts), 1), mode
+
+
+def resolve_hpo_supervisor(hpo_cfg=None) -> "tuple[int, float, float, int]":
+    """The trial supervisor's knobs (hpo/supervisor.py) -> (max_retries,
+    heartbeat_s, backoff_s, concurrency) (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_hpo_supervisor`).
+
+    Per knob, HYDRAGNN_HPO_* over the config dict's key over the default;
+    strict, so a typo warns and falls back:
+
+      HYDRAGNN_HPO_MAX_RETRIES  relaunches per trial after a preemption,
+                                crash or hang before it goes FAILED
+                                (max_retries; default 2, min 0)
+      HYDRAGNN_HPO_HEARTBEAT_S  a running trial with no checkpoint or log
+                                growth for this long is killed as hung
+                                (heartbeat_s; default 120, min 0.05)
+      HYDRAGNN_HPO_BACKOFF_S    relaunch backoff base, doubling a retry
+                                (backoff_s; default 1.0, min 0)
+      HYDRAGNN_HPO_CONCURRENCY  trials running at once (concurrency;
+                                default 1, min 1)
+    """
+    cfg = hpo_cfg or {}
+    retries = env_strict_int("HYDRAGNN_HPO_MAX_RETRIES",
+                             int(cfg.get("max_retries", 2)))
+    heartbeat = env_strict_float("HYDRAGNN_HPO_HEARTBEAT_S",
+                                 float(cfg.get("heartbeat_s", 120.0)))
+    backoff = env_strict_float("HYDRAGNN_HPO_BACKOFF_S",
+                               float(cfg.get("backoff_s", 1.0)))
+    conc = env_strict_int("HYDRAGNN_HPO_CONCURRENCY",
+                          int(cfg.get("concurrency", 1)))
+    return (max(int(retries), 0), max(float(heartbeat), 0.05),
+            max(float(backoff), 0.0), max(int(conc), 1))
+
+
+def resolve_elastic(cfg=None) -> "tuple[int, float, float]":
+    """The elastic job supervisor's knobs (elastic/supervisor.py) ->
+    (max_restarts, heartbeat_s, backoff_s) (counterpart:
+    hydragnn_tpu/utils/envflags.py `resolve_elastic`).
+
+    Per knob, HYDRAGNN_ELASTIC_* over the config dict's key over the
+    default; strict, so a typo warns and falls back:
+
+      HYDRAGNN_ELASTIC_MAX_RESTARTS  coordinated restarts after a rank's
+                                     death, hang or spawn failure before
+                                     the job goes FAILED (max_restarts;
+                                     default 2, min 0)
+      HYDRAGNN_ELASTIC_HEARTBEAT_S   a generation in which any rank shows
+                                     no checkpoint or log growth for this
+                                     long is aborted as hung (heartbeat_s;
+                                     default 120, min 0.05; it must cover
+                                     a cold rank's silent start: the torch
+                                     import, the CUDA context, the kernel
+                                     libraries)
+      HYDRAGNN_ELASTIC_BACKOFF_S     restart backoff base, doubling a
+                                     restart (backoff_s; default 1.0,
+                                     min 0)
+    """
+    cfg = cfg or {}
+    restarts = env_strict_int("HYDRAGNN_ELASTIC_MAX_RESTARTS",
+                              int(cfg.get("max_restarts", 2)))
+    heartbeat = env_strict_float("HYDRAGNN_ELASTIC_HEARTBEAT_S",
+                                 float(cfg.get("heartbeat_s", 120.0)))
+    backoff = env_strict_float("HYDRAGNN_ELASTIC_BACKOFF_S",
+                               float(cfg.get("backoff_s", 1.0)))
+    return (max(int(restarts), 0), max(float(heartbeat), 0.05),
+            max(float(backoff), 0.0))
